@@ -1,0 +1,35 @@
+"""PyTorch/CUDA port of ``camels_diffusion_model_tpu`` for one NVIDIA H100.
+
+The JAX package beside this one is the reference; this package imports
+``torch``, numpy and the standard library only.  Module names mirror the JAX
+package.  Public functions keep its NHWC layout ``(B, H, W, C)``; inside the
+model, activations are NCHW tensors in ``torch.channels_last`` memory, so the
+NHWC view that the hand-written kernels take is free.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
+raise when CUDA is absent.  On a CPU tensor each kernel wrapper runs its plain
+PyTorch version; on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless asked otherwise.
+
+    Raises RuntimeError when CUDA is requested (or defaulted to) and absent;
+    the CPU is used only when the caller names it.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; this entry point runs on the GPU unless "
+            "the caller passes device='cpu'"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,85 @@
+"""Certified map serving on the card.
+
+    python -m camels_diffusion_model_tpu_torch.cli.serve --guide-w 2 --n 16 --out DIR
+
+Resolves the certified row for the guidance weight (``serving.py``), loads
+the md5-checked committed checkpoint with its BatchNorms folded, samples
+``n`` maps with the strided DDPM of that row, applies the row's spectral
+calibration, computes the linear- and log-bin P(k), and writes them to one
+small ``.npz`` under ``DIR``.  The port of ``sample_power_spectra.py
+--serving`` without its plot.  Runs on CUDA unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..diffusion.calibration import SpectralCalibration, apply_spectral_calibration
+from ..diffusion.ddim import sample_ddim
+from ..diffusion.schedule import make_schedule
+from ..ops.spectrum import calculate_power_spectrum_2d_batch, power_spectrum_batch
+from ..serving import load_model, resolve_serving_config
+from ..training.checkpoints import load_variables
+
+TIMESTEPS = 1500  # training T of the certified checkpoint and its calibrations
+
+
+def serve(guide_w: float, n: int, out_dir: str, seed: int = 0,
+          device=None, art_dir=None) -> dict:
+    """Serve ``n`` calibrated maps of the certified row for ``guide_w``.
+
+    Returns the maps ``(n, 64, 64, 1)`` (a tensor on ``device``), their
+    spectra, the row and the wall seconds of sampling through P(k); writes
+    everything but the maps to ``out_dir/serve_w{w}_n{n}.npz``.
+    """
+    device = resolve_device(device)
+    cfg = resolve_serving_config(guide_w, art_dir)
+    model = load_model(load_variables(cfg.model_path), device)
+    calib = SpectralCalibration.load(cfg.calibration_path)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    maps = sample_ddim(
+        model, make_schedule(TIMESTEPS), generator, n_sample=n,
+        size=model.height, guide_w=cfg.guide_w, n_steps=cfg.steps,
+        sigma_mode="beta", device=device,
+    )
+    maps = apply_spectral_calibration(maps, calib)
+    k, pk = power_spectrum_batch(maps[..., 0])
+    k_log, pk_log = calculate_power_spectrum_2d_batch(maps[..., 0])
+    pk, pk_log = pk.cpu().numpy(), pk_log.cpu().numpy()  # waits for the card
+    seconds = time.perf_counter() - t0
+    result = {
+        "guide_w": cfg.guide_w, "steps": cfg.steps, "config": cfg.config,
+        "checkpoint_fingerprint": cfg.checkpoint_fingerprint, "seed": seed,
+        "k": k, "pk": pk, "k_log": k_log, "pk_log": pk_log,
+        "seconds": seconds,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"serve_w{int(cfg.guide_w)}_n{n}.npz")
+    np.savez(path, **result)
+    return {**result, "maps": maps, "path": path}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--guide-w", type=float, required=True,
+                    help="guidance weight of a certified row (0 or 2)")
+    ap.add_argument("--n", type=int, default=16, help="maps to serve")
+    ap.add_argument("--out", required=True, help="output directory")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: cuda")
+    args = ap.parse_args(argv)
+    r = serve(args.guide_w, args.n, args.out, args.seed, args.device)
+    print(f"served {args.n} maps: {r['config']} (guide_w={r['guide_w']:g}) "
+          f"in {r['seconds']:.3f} s -> {r['path']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

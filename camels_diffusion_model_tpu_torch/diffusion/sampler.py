@@ -1,0 +1,139 @@
+"""Ancestral DDPM sampling (counterpart of
+``camels_diffusion_model_tpu/diffusion/sampler.py``).
+
+A Python loop over the reverse steps; each step runs the encoder once, the
+FiLM decoder on ``[cond, uncond]`` under classifier-free guidance (the
+unconditional context is zeros, ``sampler.py:144-167``), and one launch of
+the step kernel K1, which also does the guidance combine.  The FiLM
+embeddings are hoisted out of the loop (``:369-381``): the context MLPs run
+once per call and the time MLPs once for all ``T + 1`` timesteps.  With
+``guide_w == 0`` the model runs once per step with the conditional context
+and no guidance, as in the reference; ``z = 0`` at ``t == 1``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops.sampler_step import fused_sampler_step
+from .schedule import DDPMSchedule, ddpm_coefficients
+
+# z_fn(step, t) -> z for reverse step number ``step`` (0 first) at timestep
+# ``t``: the tests' hook for feeding both packages the same noise.
+ZFn = Callable[[int, int], torch.Tensor]
+
+
+def guidance(guide_w, batch: int, device) -> tuple:
+    """``(use_cfg, w)`` for the step kernel: ``w`` a float or a ``(B,)``
+    tensor on ``device``, validated as ``sampler.py:402-414`` does."""
+    w_arr = np.asarray(guide_w, np.float64)
+    use_cfg = bool(np.any(w_arr > 0.0))
+    if w_arr.ndim > 0 and use_cfg and np.any(w_arr <= 0.0):
+        raise ValueError(
+            "per-sample guide_w must be all-positive (w=0 uses a different "
+            "single-forward semantics in the reference; run it separately)"
+        )
+    if w_arr.ndim > 0 and w_arr.shape[0] != batch:
+        raise ValueError(
+            f"per-sample guide_w length {w_arr.shape[0]} must match the "
+            f"batch size {batch}"
+        )
+    if not use_cfg:
+        return False, None
+    if w_arr.ndim == 0:
+        return True, float(w_arr)
+    return True, torch.as_tensor(w_arr, dtype=torch.float32, device=device)
+
+
+def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
+    """``(cemb1, cemb2, temb1_tab, temb2_tab)``: context embeddings once per
+    call (for ``[cond, uncond]`` under CFG) and the time embeddings of every
+    timestep ``0..T`` as ``(T+1, C)`` tables."""
+    c = params
+    if use_cfg:
+        c = torch.cat([params, torch.zeros_like(params)], dim=0)
+    cemb1, cemb2 = model.context_embed(c)
+    t_norm = torch.arange(timesteps + 1, dtype=torch.float32,
+                          device=params.device) / timesteps
+    temb1_tab, temb2_tab = model.time_embed(t_norm.reshape(-1, 1))
+    return cemb1, cemb2, temb1_tab, temb2_tab
+
+
+def predict_eps(model, x, tables, t: int, use_cfg: bool) -> torch.Tensor:
+    """Decoder output at timestep ``t``: ``(B, ...)``, or ``(2B, ...)``
+    stacked ``[cond; uncond]`` under CFG, for the step kernel to combine."""
+    cemb1, cemb2, temb1_tab, temb2_tab = tables
+    enc = model.encode(x)
+    if use_cfg:
+        enc = enc.doubled()
+    film = (cemb1, temb1_tab[t:t + 1], cemb2, temb2_tab[t:t + 1])
+    return model.decode(enc, film=film)
+
+
+def prepare(model, n_sample, size, params, guide_w, x_init, generator, device):
+    """Shared set-up of both samplers on ``device``: initial noise, context
+    and guidance."""
+    device = resolve_device(device)
+    if next(model.parameters()).device != device:
+        raise ValueError(f"model is not on {device}")
+    if x_init is None:
+        x = torch.randn((n_sample, size, size, model.in_channels),
+                        generator=generator, device=device)
+    else:
+        x = torch.as_tensor(x_init, dtype=torch.float32, device=device).clone()
+    if params is None:
+        params = torch.rand((x.shape[0], model.n_cfeat), generator=generator,
+                            device=device)
+    params = torch.as_tensor(params, dtype=torch.float32, device=device)
+    use_cfg, w = guidance(guide_w, x.shape[0], device)
+    return x, params, use_cfg, w
+
+
+def sample_ddpm(
+    model,
+    schedule: DDPMSchedule,
+    generator: torch.Generator,
+    n_sample: int = 1,
+    size: int = 64,
+    params=None,
+    guide_w=0.0,
+    x_init=None,
+    device=None,
+    z_fn: Optional[ZFn] = None,
+) -> torch.Tensor:
+    """Samples ``(B, size, size, C)`` by the exact ``T``-step ancestral chain.
+
+    ``generator`` (on ``device``) draws ``x_init`` and ``params`` when they
+    are not given (params uniform in [0, 1) per sample) and every step's z
+    unless ``z_fn`` supplies it.  ``guide_w``: a float, or a ``(B,)`` array
+    of all-positive weights.
+    """
+    x, params, use_cfg, w = prepare(
+        model, n_sample, size, params, guide_w, x_init, generator, device
+    )
+    steps = torch.arange(schedule.timesteps, 0, -1)
+    coefs = ddpm_coefficients(schedule, steps)
+    return run_chain(model, x, params, use_cfg, w, schedule.timesteps,
+                     steps.tolist(), coefs, generator, z_fn)
+
+
+def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
+              coefs: torch.Tensor, generator, z_fn: Optional[ZFn]):
+    """The reverse loop of both samplers: at each timestep of ``steps``
+    (descending) the decoder's eps and one launch of the step kernel with
+    that step's ``[c_eps, inv_sqrt_a, sigma]`` row of ``coefs``; z is drawn
+    (or taken from ``z_fn``) only where sigma is not 0."""
+    with torch.inference_mode():
+        tables = film_tables(model, params, timesteps, use_cfg)
+        for k, (t, (c_eps, inv_sqrt_a, sigma)) in enumerate(zip(steps, coefs.tolist())):
+            eps = predict_eps(model, x, tables, t, use_cfg)
+            z = None
+            if sigma != 0.0:
+                z = (z_fn(k, t).to(x.device) if z_fn is not None else
+                     torch.randn(x.shape, generator=generator, device=x.device))
+            x = fused_sampler_step(x, eps, z, c_eps, inv_sqrt_a, sigma, w)
+    return x

@@ -1,0 +1,59 @@
+"""DDPM noise schedule and the reverse-step coefficients.
+
+Counterpart of ``camels_diffusion_model_tpu/diffusion/schedule.py``:
+``make_schedule`` (``:68-85``) and ``p_sample_step`` in its rsqrt form
+(``:116-133``).  The schedule lives on the CPU in fp32: the samplers read
+three scalar coefficients per step from it and hand them to the step kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class DDPMSchedule(NamedTuple):
+    """Linear-beta schedule of length ``timesteps + 1`` (index 0: ab = 1)."""
+
+    beta: torch.Tensor
+    alpha: torch.Tensor
+    alpha_bar: torch.Tensor
+    timesteps: int
+
+
+def make_schedule(
+    timesteps: int, beta1: float = 1e-4, beta2: float = 0.02
+) -> DDPMSchedule:
+    """``b_t = (beta2 - beta1) * linspace(0, 1, T+1) + beta1``, ``a = 1 - b``,
+    ``ab = exp(cumsum(log a))`` with ``ab[0] = 1``, all fp32 on the CPU."""
+    if timesteps < 1:
+        raise ValueError(f"timesteps must be >= 1, got {timesteps}")
+    lin = torch.linspace(0.0, 1.0, timesteps + 1, dtype=torch.float32)
+    beta = (beta2 - beta1) * lin + beta1
+    alpha = 1.0 - beta
+    alpha_bar = torch.exp(torch.cumsum(torch.log(alpha), dim=0))
+    alpha_bar[0] = 1.0
+    return DDPMSchedule(beta, alpha, alpha_bar, int(timesteps))
+
+
+def ddpm_coefficients(schedule: DDPMSchedule, t: torch.Tensor) -> torch.Tensor:
+    """``(n, 3)`` fp32 ``[c_eps, inv_sqrt_a, sigma]`` of the ancestral step
+    at integer timesteps ``t``: ``x' = (x - c_eps*eps)*inv_sqrt_a + sigma*z``
+    with ``c_eps = (1-a)/sqrt(1-ab)``, ``inv_sqrt_a = 1/sqrt(a)`` and
+    ``sigma = sqrt(b)``, except ``sigma = 0`` at ``t == 1`` (no noise on the
+    last step)."""
+    a = schedule.alpha[t]
+    ab = schedule.alpha_bar[t]
+    c_eps = (1.0 - a) * torch.rsqrt(1.0 - ab)
+    sigma = torch.where(t > 1, torch.sqrt(schedule.beta[t]), 0.0)
+    return torch.stack([c_eps, torch.rsqrt(a), sigma], dim=1)
+
+
+def p_sample_step(schedule: DDPMSchedule, x, t: int, eps, z):
+    """One ancestral reverse step at scalar ``t`` on plain tensors; the
+    caller passes ``z = 0`` at ``t == 1``, as in the JAX package."""
+    a = schedule.alpha[t]
+    c_eps = float((1.0 - a) * torch.rsqrt(1.0 - schedule.alpha_bar[t]))
+    mean = (x - eps * c_eps) * float(torch.rsqrt(a))
+    return mean + float(torch.sqrt(schedule.beta[t])) * z

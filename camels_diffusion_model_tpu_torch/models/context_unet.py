@@ -1,0 +1,130 @@
+"""The canonical ContextUnet (counterpart of
+``camels_diffusion_model_tpu/models/context_unet.py``).
+
+64x64 maps, ``n_feat`` 128, ``n_cfeat`` 6, two levels and ReLU heads by
+default; ``n_feat``, ``n_cfeat`` and ``height`` are free so the tests can
+build a narrow one.  The forward splits into a condition-free ``encode`` and
+a FiLM-conditioned ``decode`` (``context_unet.py:227-317``), so that
+classifier-free guidance runs the encoder once and the decoder on the doubled
+``[cond, uncond]`` batch.
+
+Layout: public inputs and outputs are NHWC ``(B, H, W, C)`` as in the JAX
+package; inside, activations are NCHW tensors in ``torch.channels_last``
+memory.  FiLM goes through kernel K3 and the two GroupNorm heads through K2.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.film import fused_film
+from .blocks import (
+    EmbedFC,
+    GroupNormAct,
+    ResidualConvBlock,
+    UnetDown,
+    UnetUp,
+    to_nchw,
+    to_nhwc,
+)
+
+
+class EncoderState(NamedTuple):
+    """Condition-independent activations of :meth:`ContextUnet.encode`."""
+
+    x0: torch.Tensor  # init_conv output
+    downs: tuple  # down-path outputs, shallowest first
+    hiddenvec: torch.Tensor  # pooled bottleneck, (B, Cb, 1, 1)
+
+    def doubled(self) -> "EncoderState":
+        """The same state twice along the batch, for the [cond, uncond]
+        decoder batch of classifier-free guidance."""
+        def cat(a):
+            return torch.cat([a, a], dim=0)
+        return EncoderState(cat(self.x0), tuple(cat(d) for d in self.downs),
+                            cat(self.hiddenvec))
+
+
+class ContextUnet(nn.Module):
+    """Parameter-conditional U-Net denoiser, canonical two-level variant."""
+
+    levels = 2
+
+    def __init__(self, in_channels: int = 1, n_feat: int = 128,
+                 n_cfeat: int = 6, height: int = 64, fold_bn: bool = False):
+        super().__init__()
+        self.in_channels, self.n_feat, self.n_cfeat = in_channels, n_feat, n_cfeat
+        self.height = height
+        n = n_feat
+        cb = self.bottleneck_feat
+        self.init_conv = ResidualConvBlock(in_channels, n, is_res=True, fold_bn=fold_bn)
+        self.down1 = UnetDown(n, n, fold_bn=fold_bn)
+        self.down2 = UnetDown(n, 2 * n, fold_bn=fold_bn)
+        self.timeembed1 = EmbedFC(1, cb)
+        self.timeembed2 = EmbedFC(1, cb // 2)
+        self.contextembed1 = EmbedFC(n_cfeat, cb)
+        self.contextembed2 = EmbedFC(n_cfeat, cb // 2)
+        bottom = height // 2**self.levels
+        self.up0_conv = nn.ConvTranspose2d(cb, cb, bottom, stride=bottom)
+        self.up0_norm = GroupNormAct(cb, act="relu")
+        self.up1 = UnetUp(2 * cb, n, fold_bn=fold_bn)
+        self.up2 = UnetUp(2 * n, n, fold_bn=fold_bn)
+        self.out_conv1 = nn.Conv2d(2 * n, n, 3, padding=1)
+        self.out_norm = GroupNormAct(n, act="relu")
+        self.out_conv2 = nn.Conv2d(n, in_channels, 3, padding=1)
+
+    @property
+    def bottleneck_feat(self) -> int:
+        return self.n_feat * 2 ** (self.levels - 1)
+
+    def encode(self, x: torch.Tensor) -> EncoderState:
+        """init_conv + down path + pooled bottleneck of NHWC ``x``."""
+        x = to_nchw(x).contiguous(memory_format=torch.channels_last)
+        x0 = self.init_conv(x)
+        d1 = self.down1(x0)
+        d2 = self.down2(d1)
+        # AvgPool over the whole bottleneck map is a global mean; then GELU.
+        hidden = F.gelu(d2.mean(dim=(2, 3), keepdim=True), approximate="none")
+        return EncoderState(x0, (d1, d2), hidden)
+
+    def time_embed(self, t: torch.Tensor):
+        """Both time MLPs for normalised timesteps: ``((N, cb), (N, cb//2))``."""
+        return self.timeembed1(t), self.timeembed2(t)
+
+    def context_embed(self, c: torch.Tensor):
+        """Both context MLPs: ``((N, cb), (N, cb//2))``."""
+        return self.contextembed1(c), self.contextembed2(c)
+
+    def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
+               c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
+        """FiLM-conditioned decoder -> NHWC eps.
+
+        Pass ``t``/``c`` (normalised time, context; ``c=None`` is the zero
+        context) or ``film=(cemb1, temb1, cemb2, temb2)`` as ``(N, C)`` or
+        ``(1, C)`` rows precomputed by :meth:`context_embed` and
+        :meth:`time_embed`, the sampler's hot path.
+        """
+        if film is None:
+            if c is None:
+                c = torch.zeros(enc.x0.shape[0], self.n_cfeat,
+                                device=enc.x0.device)
+            cemb1, cemb2 = self.context_embed(c)
+            temb1, temb2 = self.time_embed(t)
+        else:
+            cemb1, temb1, cemb2, temb2 = film
+        u = self.up0_norm(self.up0_conv(enc.hiddenvec))
+        u = to_nchw(fused_film(to_nhwc(u), cemb1.contiguous(), temb1.contiguous()))
+        u = self.up1(u, enc.downs[1])
+        u = to_nchw(fused_film(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
+        u = self.up2(u, enc.downs[0])
+        out = self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)))
+        return to_nhwc(self.out_conv2(out))
+
+    def forward(self, x, t, c=None):
+        """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and
+        context ``c`` ((B, n_cfeat) or None)."""
+        return self.decode(self.encode(x), t, c)

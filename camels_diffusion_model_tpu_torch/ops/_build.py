@@ -1,0 +1,87 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, under
+``build/torch_kernels/<hash of sources and flags>/`` at the repository root.
+Nothing includes PyTorch's headers, so the build takes seconds.  Each C
+function takes device pointers and the CUDA stream as ``c_void_p`` and
+returns its ``cudaError_t``.
+
+The build runs at the first launch, never at import: the CPU tests import
+every module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+LIB_NAME = "libcamels_torch_kernels.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` once per source hash; returns the library path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    return ctypes.CDLL(str(build()))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(name: str, argtypes: tuple):
+    """The C entry point ``name`` with its argument types declared."""
+    fn = getattr(_library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

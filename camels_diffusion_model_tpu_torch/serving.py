@@ -1,0 +1,152 @@
+"""Certified-serving configuration resolver and model loader.
+
+``resolve_serving_config`` is a copy of
+``camels_diffusion_model_tpu/serving.py:66-154``: among the independently
+certified rows of ``artifacts/certification/validation_w{w}_calibrated.indep
+.json`` the highest-throughput one wins, and every pairing (validation
+artifact, calibration sidecar) must carry the md5 of the committed
+checkpoint, or it raises.  ``expected_maps_per_min`` is the throughput the
+JAX package was certified at on a TPU v5e chip; it is not a figure of this
+port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+from typing import Optional
+
+import torch
+
+from . import resolve_device
+from .diffusion.calibration import load_calibration_meta
+from .models.context_unet import ContextUnet
+from .models.fold_bn import fold_batchnorm_variables
+from .training.checkpoints import md5
+from .utils.weights import from_jax_variables
+
+
+class ServingConfigError(RuntimeError):
+    """A certified serving configuration could not be resolved safely."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """One certified fast-serving row, resolved to runnable pieces."""
+
+    guide_w: float
+    steps: int                     # strided-DDPM step count
+    model_path: str                # committed certification checkpoint
+    calibration_path: str          # matching spectral-calibration npz
+    config: str                    # row label from the validation artifact
+    expected_maps_per_min: float   # certified throughput on a TPU v5e chip
+    max_err_vs_indep_pct: float    # certified spectral error vs indep ref
+    checkpoint_fingerprint: str    # md5 the whole chain is stamped with
+
+
+def default_artifact_dir() -> str:
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "artifacts", "certification",
+    )
+
+
+def resolve_serving_config(
+    guide_w: float, art_dir: Optional[str] = None
+) -> ServingConfig:
+    """Resolve the committed certified serving row for ``guide_w``.
+
+    Raises :class:`ServingConfigError` when no artifact exists for this
+    guidance, when a fingerprint does not match the committed checkpoint, or
+    when the row's calibration sidecar is missing.
+    """
+    if float(guide_w) != int(guide_w):
+        raise ServingConfigError(
+            f"no certified serving row exists for guide_w={guide_w}: "
+            "certification artifacts are per integer guidance setting "
+            "(committed: w=0 and w=2)"
+        )
+    w = int(guide_w)
+    art_dir = art_dir or default_artifact_dir()
+    val_path = os.path.join(art_dir, f"validation_w{w}_calibrated.indep.json")
+    if not os.path.exists(val_path):
+        raise ServingConfigError(
+            f"no certification artifact for guide_w={w}: {val_path} not found"
+        )
+    model_path = os.path.join(art_dir, "model", "train_state.msgpack")
+    if not os.path.exists(model_path):
+        raise ServingConfigError(
+            f"committed certification checkpoint missing: {model_path}"
+        )
+    ckpt_md5 = md5(model_path)
+
+    with open(val_path) as f:
+        d = json.load(f)
+    fp = d.get("checkpoint_fingerprint")
+    if fp != ckpt_md5:
+        raise ServingConfigError(
+            f"certification artifact {val_path} is stamped for checkpoint "
+            f"{fp!r} but the committed checkpoint is {ckpt_md5!r} — the "
+            "certified rows were produced by a different model"
+        )
+    certified = set(d.get("certified_configs_independent") or [])
+    rows = [r for r in d.get("rows", []) if r["config"] in certified]
+    if not rows:
+        raise ServingConfigError(
+            f"{val_path} carries no independently-certified rows for "
+            f"guide_w={w}"
+        )
+    best = max(rows, key=lambda r: r["maps_per_min"])
+    m = re.search(r"strided DDPM (\d+)", best["config"])
+    steps = int(best.get("steps") or (m and m.group(1)) or 0)
+    if steps <= 0:
+        raise ServingConfigError(
+            f"cannot determine the step count of certified row "
+            f"{best['config']!r} in {val_path}"
+        )
+    calib_path = os.path.join(art_dir, f"calib_w{w}_{steps}.npz")
+    if not os.path.exists(calib_path):
+        raise ServingConfigError(
+            f"certified row {best['config']!r} needs the spectral "
+            f"calibration sidecar {calib_path}, which is missing"
+        )
+    calib_fp = load_calibration_meta(calib_path).get("checkpoint_fingerprint")
+    if calib_fp is not None and calib_fp != ckpt_md5:
+        raise ServingConfigError(
+            f"calibration {calib_path} is stamped for checkpoint "
+            f"{calib_fp!r}, not the committed one ({ckpt_md5!r}) — "
+            "calibrations are model-specific"
+        )
+    return ServingConfig(
+        guide_w=float(w),
+        steps=steps,
+        model_path=model_path,
+        calibration_path=calib_path,
+        config=best["config"],
+        expected_maps_per_min=float(best["maps_per_min"]),
+        max_err_vs_indep_pct=float(best["max_err_vs_indep_pct"]),
+        checkpoint_fingerprint=ckpt_md5,
+    )
+
+
+def load_model(variables: dict, device=None, fold_bn: bool = True) -> ContextUnet:
+    """A ContextUnet holding flax ``variables`` (numpy tree from
+    ``load_variables``; widths read from it), BatchNorms folded by default,
+    in eval mode on ``device`` with channels_last weights."""
+    device = resolve_device(device)
+    if fold_bn:
+        variables = fold_batchnorm_variables(variables)
+    p = variables["params"]
+    model = ContextUnet(
+        in_channels=p["init_conv"]["conv1"]["conv"]["kernel"].shape[2],
+        n_feat=p["init_conv"]["conv1"]["conv"]["kernel"].shape[3],
+        n_cfeat=p["contextembed1"]["fc1"]["kernel"].shape[0],
+        height=p["up0_conv"]["kernel"].shape[0] * 2**ContextUnet.levels,
+        fold_bn=fold_bn,
+    )
+    model.load_state_dict(from_jax_variables(variables))
+    model.requires_grad_(False)
+    return model.eval().to(device=device, memory_format=torch.channels_last)
+

@@ -1,0 +1,107 @@
+"""PyTorch port on the card: each CUDA kernel against its plain version,
+the wrappers' checks and launch counts, and the samplers on the GPU.
+
+Marked ``cuda``; the card is looked for inside a fixture, so every worker
+collects the same tests and they skip on machines without one.  Run them
+on the card with ``python -m pytest tests/test_torch_port_cuda.py -m cuda``.
+"""
+
+import pytest
+import torch
+
+from camels_diffusion_model_tpu_torch.diffusion.ddim import sample_ddim
+from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
+from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
+from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
+from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
+from camels_diffusion_model_tpu_torch.ops.groupnorm import (
+    fused_groupnorm_act,
+    groupnorm_act_plain,
+)
+from camels_diffusion_model_tpu_torch.ops.sampler_step import (
+    fused_sampler_step,
+    sampler_step_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _randn(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("with_z", [True, False])
+def test_sampler_step_kernel_matches_plain(dev, w, with_z):
+    """FMA contraction only: atol 1e-5."""
+    x, z = _randn(dev, 5, 64, 64, 1, seed=1), _randn(dev, 5, 64, 64, 1, seed=2)
+    eps = _randn(dev, 10 if w is not None else 5, 64, 64, 1, seed=3)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, 5, device=dev)
+    sigma = 0.3 if with_z else 0.0
+    args = (x, eps, z if with_z else None, 0.02, 1.01, sigma, w)
+    before = fused_sampler_step.launches
+    got = fused_sampler_step(*args)
+    assert fused_sampler_step.launches == before + 1
+    torch.testing.assert_close(got, sampler_step_plain(*args), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [(3, 16, 16, 256), (2, 64, 64, 128), (2, 5, 7, 24)])
+def test_groupnorm_kernel_matches_plain(dev, act, shape):
+    """Statistics summed in another order, rsqrtf: atol 1e-4."""
+    x = _randn(dev, *shape) * 3 + 1
+    gamma, beta = _randn(dev, shape[-1], seed=4), _randn(dev, shape[-1], seed=5)
+    got = fused_groupnorm_act(x, gamma, beta, 8, 1e-5, act)
+    torch.testing.assert_close(got, groupnorm_act_plain(x, gamma, beta, 8, 1e-5, act),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("scale_rows,shift_rows", [(4, 1), (1, 4), (4, 4), (1, 1)])
+def test_film_kernel_matches_plain(dev, scale_rows, shift_rows):
+    x = _randn(dev, 4, 32, 32, 128)
+    scale, shift = _randn(dev, scale_rows, 128, seed=6), _randn(dev, shift_rows, 128, seed=7)
+    torch.testing.assert_close(fused_film(x, scale, shift), film_plain(x, scale, shift),
+                               atol=1e-5, rtol=0)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = _randn(dev, 2, 8, 8, 16)
+    row = _randn(dev, 1, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_film(x.transpose(1, 2), row, row)
+    with pytest.raises(ValueError, match="float32"):
+        fused_film(x.double(), row.double(), row.double())
+    with pytest.raises(ValueError):
+        fused_film(x, _randn(dev, 3, 16), row)
+    with pytest.raises(ValueError, match="groups"):
+        fused_groupnorm_act(_randn(dev, 2, 4, 4, 12), row[0, :12], row[0, :12])
+    with pytest.raises(ValueError, match="eps must be"):
+        fused_sampler_step(x, x, x, 0.1, 1.0, 0.1, 2.0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fused_sampler_step(x, x.cpu(), x, 0.1, 1.0, 0.1)
+
+
+@pytest.mark.parametrize("guide_w", [0.0, 2.0])
+def test_samplers_on_the_card_match_the_cpu(dev, guide_w, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16).eval()
+    gpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.to(dev, memory_format=torch.channels_last)
+    x0 = torch.randn(2, 16, 16, 1)
+    params = torch.rand(2, 3)
+    zs = [torch.randn(2, 16, 16, 1) for _ in range(8)]
+    for fn, kw in ((sample_ddpm, {}), (sample_ddim, {"n_steps": 4})):
+        outs = [fn(m, make_schedule(8), torch.Generator(device=d), params=params,
+                   guide_w=guide_w, x_init=x0, device=d, z_fn=lambda k, t: zs[k], **kw)
+                for m, d in ((cpu_model, "cpu"), (gpu_model, dev))]
+        torch.testing.assert_close(outs[1].cpu(), outs[0], atol=1e-4, rtol=0)

@@ -1,0 +1,207 @@
+"""PyTorch port: each kernel's plain version (what its wrapper runs on CPU
+tensors) against the JAX Pallas kernel in interpret mode and the JAX XLA
+path, on the same numpy inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from flax import linen as nn
+
+from camels_diffusion_model_tpu.diffusion.sampler import _combine_cfg
+from camels_diffusion_model_tpu.diffusion.schedule import (
+    make_schedule as jax_make_schedule,
+    p_sample_step as jax_p_sample_step,
+)
+from camels_diffusion_model_tpu.models.blocks import GroupNormAct as JaxGroupNormAct
+from camels_diffusion_model_tpu.ops.pallas import (
+    fused_film as jax_fused_film,
+    fused_groupnorm_act as jax_fused_groupnorm_act,
+    fused_p_sample_step as jax_fused_p_sample_step,
+)
+from camels_diffusion_model_tpu.ops.pallas.film import film_xla
+from camels_diffusion_model_tpu_torch.diffusion.ddim import beta_coefficients
+from camels_diffusion_model_tpu_torch.diffusion.schedule import (
+    ddpm_coefficients,
+    make_schedule,
+)
+from camels_diffusion_model_tpu_torch.ops import _build
+from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
+from camels_diffusion_model_tpu_torch.ops.groupnorm import (
+    fused_groupnorm_act,
+    groupnorm_act_plain,
+)
+from camels_diffusion_model_tpu_torch.ops.sampler_step import (
+    fused_sampler_step,
+    sampler_step_plain,
+)
+
+T = 50
+B = 2
+SHAPE = (B, 16, 16, 1)
+
+
+def _inputs(seed, cfg):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(*SHAPE).astype(np.float32)
+    eps = rs.randn(2 * B if cfg else B, *SHAPE[1:]).astype(np.float32)
+    z = rs.randn(*SHAPE).astype(np.float32)
+    return x, eps, z
+
+
+# ---- K1: sampler step -------------------------------------------------------
+
+@pytest.mark.parametrize("t", [1, 17, T])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+def test_sampler_step_ddpm_matches_jax_xla(t, w):
+    """Guided combine + ancestral update vs ``_combine_cfg`` +
+    ``schedule.p_sample_step`` (z = 0 at t = 1, as the JAX sampler passes);
+    fp32, rtol 1e-6 / atol 1e-6 (one rounding of the folded coefficient)."""
+    x, eps, z = _inputs(t, w is not None)
+    w_val = np.array([1.5, 3.0], np.float32) if w == "per-sample" else w
+    if w is not None:
+        eps_j = _combine_cfg(eps[:B], eps[B:], w_val)
+    else:
+        eps_j = jnp.asarray(eps)
+    z_j = z if t > 1 else np.zeros_like(z)
+    want = np.asarray(jax_p_sample_step(jax_make_schedule(T), jnp.asarray(x), t, eps_j, z_j))
+    c_eps, inv_sqrt_a, sigma = ddpm_coefficients(make_schedule(T), torch.tensor([t]))[0].tolist()
+    w_t = torch.tensor(w_val) if w == "per-sample" else w_val
+    got = fused_sampler_step(
+        torch.tensor(x), torch.tensor(eps), torch.tensor(z) if t > 1 else None,
+        c_eps, inv_sqrt_a, sigma, w_t,
+    )
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [2, 17, T])
+def test_sampler_step_matches_jax_pallas_interpret(t):
+    """The unguided form vs the Pallas kernel itself (interpret mode)."""
+    x, eps, z = _inputs(100 + t, False)
+    s = jax_make_schedule(T)
+    want = np.asarray(jax_fused_p_sample_step(
+        s.beta, s.alpha, s.alpha_bar, x, t, eps, z, interpret=True))
+    c = ddpm_coefficients(make_schedule(T), torch.tensor([t]))[0].tolist()
+    got = fused_sampler_step(torch.tensor(x), torch.tensor(eps), torch.tensor(z), *c)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("w", [None, 2.0])
+def test_sampler_step_beta_coefficients_match_jax_ddim(stride, w):
+    """The strided "beta" update of ``ddim.py:100-106`` in jnp, every jump
+    of a stride-``stride`` schedule, sigma = 0 on the last."""
+    taus = np.arange(1, T + 1, stride)
+    coefs = beta_coefficients(make_schedule(T), taus).tolist()
+    ab = jax_make_schedule(T).alpha_bar
+    rev = taus[::-1]
+    prev = np.concatenate([rev[1:], [0]])
+    for k, (t, t_prev) in enumerate(zip(rev, prev)):
+        x, eps, z = _inputs(k, w is not None)
+        e = _combine_cfg(eps[:B], eps[B:], w) if w is not None else jnp.asarray(eps)
+        a_jump = ab[t] / ab[t_prev]
+        mean = (x - e * (1.0 - a_jump) * jax.lax.rsqrt(1.0 - ab[t])) * jax.lax.rsqrt(a_jump)
+        sigma = jnp.where(t_prev > 0, jnp.sqrt(jnp.clip(1.0 - a_jump, 0.0, None)), 0.0)
+        want = np.asarray(mean + sigma * z)
+        c_eps, inv_sqrt_a, sig = coefs[k]
+        got = fused_sampler_step(
+            torch.tensor(x), torch.tensor(eps), torch.tensor(z) if t_prev > 0 else None,
+            c_eps, inv_sqrt_a, sig, w,
+        )
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_sampler_step_requires_z_when_sigma_nonzero():
+    x, eps, _ = _inputs(0, False)
+    with pytest.raises(ValueError, match="sigma"):
+        fused_sampler_step(torch.tensor(x), torch.tensor(eps), None, 0.1, 1.0, 0.5)
+
+
+# ---- K2: GroupNorm + act ----------------------------------------------------
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 128), (3, 8, 8, 64)])
+def test_groupnorm_act_matches_jax(act, shape):
+    """vs the two-pass XLA path of ``GroupNormAct`` (atol 2e-6) and the
+    Pallas kernel in interpret mode, whose E[x^2]-E[x]^2 variance differs
+    by fp32 cancellation (atol 5e-5)."""
+    rs = np.random.RandomState(len(act))
+    x = (rs.randn(*shape) * 2 + 0.5).astype(np.float32)
+    gamma = (rs.rand(shape[-1]) + 0.5).astype(np.float32)
+    beta = rs.randn(shape[-1]).astype(np.float32)
+    got = fused_groupnorm_act(torch.tensor(x), torch.tensor(gamma), torch.tensor(beta),
+                              num_groups=8, eps=1e-5, act=act).numpy()
+    if act != "none":
+        xla = JaxGroupNormAct(num_groups=8, epsilon=1e-5, act=act).apply(
+            {"params": {"scale": gamma, "bias": beta}}, x)
+    else:  # GroupNormAct has no identity act; flax GroupNorm is the XLA path
+        xla = nn.GroupNorm(num_groups=8, epsilon=1e-5).apply(
+            {"params": {"scale": gamma, "bias": beta}}, x)
+    np.testing.assert_allclose(got, np.asarray(xla), atol=2e-6, rtol=1e-5)
+    pallas = jax_fused_groupnorm_act(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta),
+                                     num_groups=8, act=act, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=5e-5, rtol=1e-4)
+
+
+def test_groupnorm_act_rejects_unknown_activation():
+    x = torch.zeros(1, 2, 2, 8)
+    with pytest.raises(ValueError, match="activation"):
+        fused_groupnorm_act(x, torch.ones(8), torch.zeros(8), act="tanh")
+
+
+# ---- K3: FiLM ---------------------------------------------------------------
+
+@pytest.mark.parametrize("scale_rows", [1, 3])
+@pytest.mark.parametrize("shift_rows", [1, 3])
+def test_film_matches_jax(scale_rows, shift_rows):
+    """vs the Pallas kernel (interpret) and ``film_xla``; exact in fp32 up
+    to one rounding (atol 1e-6)."""
+    rs = np.random.RandomState(scale_rows * 10 + shift_rows)
+    x = rs.randn(3, 8, 8, 128).astype(np.float32)
+    scale = rs.randn(scale_rows, 128).astype(np.float32)
+    shift = rs.randn(shift_rows, 128).astype(np.float32)
+    got = fused_film(torch.tensor(x), torch.tensor(scale), torch.tensor(shift)).numpy()
+    s4, h4 = scale[:, None, None, :], shift[:, None, None, :]
+    np.testing.assert_allclose(got, np.asarray(film_xla(x, s4, h4)), atol=1e-6, rtol=1e-6)
+    if scale_rows == shift_rows:  # the Pallas kernel broadcasts both or neither
+        pallas = jax_fused_film(x, s4, h4, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-6, rtol=1e-6)
+
+
+# ---- wrappers on the CPU ----------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    before = (fused_film.launches, fused_groupnorm_act.launches,
+              fused_sampler_step.launches)
+    x = torch.randn(2, 4, 4, 8)
+    row = torch.randn(1, 8)
+    assert torch.equal(fused_film(x, row, row), film_plain(x, row, row))
+    g, b = torch.ones(8), torch.zeros(8)
+    assert torch.equal(fused_groupnorm_act(x, g, b), groupnorm_act_plain(x, g, b))
+    e = torch.randn(4, 4, 4, 8)
+    assert torch.equal(fused_sampler_step(x, e, x, 0.1, 1.1, 0.2, 2.0),
+                      sampler_step_plain(x, e, x, 0.1, 1.1, 0.2, 2.0))
+    assert (fused_film.launches, fused_groupnorm_act.launches,
+            fused_sampler_step.launches) == before
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty(2, 4, 4, 8, device="meta")
+    row = torch.empty(1, 8, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fused_film(x, row, row)
+    with pytest.raises(ValueError, match="device"):
+        fused_groupnorm_act(x, torch.empty(8, device="meta"), torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        fused_sampler_step(x, x, x, 0.1, 1.0, 0.1)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+    assert not any(tmp_path.iterdir())

@@ -1,4 +1,5 @@
-// GroupNorm + affine + activation over NHWC (K2).
+// GroupNorm + affine + activation over NHWC, with an optional FiLM epilogue
+// (K2).
 //
 // Replaces camels_diffusion_model_tpu/ops/pallas/groupnorm.py ::
 // fused_groupnorm_act (Pallas TPU kernel, body _make_kernel :33-59,
@@ -7,24 +8,41 @@
 // (blocks.py:322-330): fp32 statistics, mean first and then the centred
 // variance, not the Pallas kernel's E[x^2] - E[x]^2 (a Mosaic workaround).
 //
-//   y = (x - mean_g) * rsqrt(var_g + eps) * gamma_c + beta_c;  out = act(y)
+//   y = act((x - mean_g) * rsqrt(var_g + eps) * gamma_c + beta_c)
+//   out = film ? y * scale[n, c] + shift[n, c] : y
 //   act: 0 none, 1 relu, 2 erf-gelu, 3 leaky_relu(0.2)
 //
-// Bound on the H100: bytes at 3.35 TB/s (about ten flops per element).
-// Design: one block per (sample, group), so the statistics need no second
-// launch and no atomics.  The block walks its group three times (sum, centred
-// sum of squares, normalise-and-write); a group is 32 KB (up0_norm) to 256 KB
-// (out_norm), so the second and third reads come mostly from L2, and device
-// memory sees about one read and one write.  Neighbouring threads take
-// neighbouring channels of one pixel, then the next pixel: the cg channels of
-// a group are contiguous in NHWC.
+// The FiLM epilogue is decoder stage 0 (context_unet.py:300,305: up0_norm,
+// then cemb1 * u + temb1); scale/shift rows have stride C (one per sample)
+// or 0 (one row for the batch).
+//
+// Bound on the H100: bytes at 3.35 TB/s, x read once and out written once
+// (about ten flops per element).  Design:
+//  - One (sample, group) is split over a thread-block cluster of 1-8 CTAs,
+//    each taking a contiguous run of pixels, so that even 4 samples x 8
+//    groups give 256 CTAs.  The launch plan (cluster size, pixels per CTA,
+//    vector width) is chosen in ops/groupnorm.py::launch_plan.
+//  - Each CTA reads its slice from device memory once, 16 bytes a thread,
+//    into dynamic shared memory; the sum and then the centred sum of squares
+//    come from that on-chip copy, and the CTAs of a cluster add their
+//    partials through distributed shared memory in rank order, so every CTA
+//    gets the same statistics.  Device memory sees one read and one write.
+//  - A thread keeps the same channels for its whole slice (the block covers
+//    whole pixels), so gamma, beta, scale and shift sit in registers and the
+//    loops do no division.  Shapes whose channels per group are not a
+//    multiple of 4, or pointers not 16-byte aligned, take the scalar
+//    instance (V = 1) of the same kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "pack.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-
+// Sum over the block (a multiple of 32 threads), returned to every thread.
 __device__ float block_sum(float v, float* shared) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -40,6 +58,16 @@ __device__ float block_sum(float v, float* shared) {
   return shared[0];
 }
 
+// This CTA's partial plus every other CTA's of the cluster, in rank order.
+__device__ float cluster_sum(cg::cluster_group& cluster, float* partial,
+                             float block_total, int cluster_size) {
+  if (threadIdx.x == 0) *partial = block_total;
+  cluster.sync();
+  float s = 0.0f;
+  for (int r = 0; r < cluster_size; ++r) s += *cluster.map_shared_rank(partial, r);
+  return s;
+}
+
 __device__ __forceinline__ float activate(float y, int act) {
   switch (act) {
     case 1: return fmaxf(y, 0.0f);
@@ -49,51 +77,135 @@ __device__ __forceinline__ float activate(float y, int act) {
   }
 }
 
-__global__ void groupnorm_act_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ beta,
-                                     float* __restrict__ out, int hw, int c,
-                                     int groups, float eps, int act) {
-  __shared__ float shared[32];
-  const int cg = c / groups;
-  const int n = blockIdx.x / groups, g = blockIdx.x % groups;
-  const long long base = (long long)n * hw * c + (long long)g * cg;
-  const int count = hw * cg;
+// Grid: (sample, group) major, cluster rank minor.  Dynamic shared memory:
+// pixels_per_cta * cg floats, the CTA's slice as [pixel][channel of group].
+template <int V>
+__global__ void groupnorm_act_kernel(
+    const float* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ scale,
+    const float* __restrict__ shift, float* __restrict__ out, int hw, int c,
+    int groups, int cluster_size, int pixels_per_cta, int scale_stride,
+    int shift_stride, float eps, int act) {
+  extern __shared__ float4 slice_storage[];
+  __shared__ float warp_sums[32];
+  __shared__ float partials[2];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int cgroup = c / groups, vpp = cgroup / V;  // vectors per pixel
+  const int ng = blockIdx.x / cluster_size;
+  const int n = ng / groups, g = ng - n * groups;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = min(hw, rank * pixels_per_cta);
+  const int np = min(hw, p0 + pixels_per_cta) - p0;
+  const int pstride = blockDim.x / vpp;  // pixels the block covers per step
+  const int j = (threadIdx.x % vpp) * V;  // this thread's channels in the group
+  // Threads past the last whole pixel of the block only join the sums.
+  const int first = threadIdx.x < pstride * vpp ? threadIdx.x / vpp : np;
+  const int ch = g * cgroup + j;
+  const long long base = ((long long)n * hw + p0) * c + ch;
+  float* mine = reinterpret_cast<float*>(slice_storage) + j;
 
   float s = 0.0f;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int p = i / cg, j = i - p * cg;
-    s += x[base + (long long)p * c + j];
+#pragma unroll 4
+  for (int p = first; p < np; p += pstride) {
+    Pack<V> v = load<V>(x + base + (long long)p * c);
+    store<V>(mine + p * cgroup, v);  // only this thread reads it back
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += v.v[i];
   }
-  const float mean = block_sum(s, shared) / (float)count;
+  const float count = (float)((long long)hw * cgroup);
+  const float mean =
+      cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
 
   float q = 0.0f;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int p = i / cg, j = i - p * cg;
-    float d = x[base + (long long)p * c + j] - mean;
-    q += d * d;
+  for (int p = first; p < np; p += pstride) {
+    Pack<V> v = load<V>(mine + p * cgroup);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float d = v.v[i] - mean;
+      q += d * d;
+    }
   }
-  const float rstd = rsqrtf(block_sum(q, shared) / (float)count + eps);
+  const float var =
+      cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size) / count;
+  const float rstd = rsqrtf(var + eps);
+  // Done with the other CTAs' shared memory; wait for them before exiting,
+  // so no CTA's partials vanish while another still reads them.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
 
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int p = i / cg, j = i - p * cg;
-    long long k = base + (long long)p * c + j;
-    int ch = g * cg + j;
-    float y = (x[k] - mean) * rstd * gamma[ch] + beta[ch];
-    out[k] = activate(y, act);
+  const Pack<V> ga = load<V>(gamma + ch), be = load<V>(beta + ch);
+  const bool film = scale != nullptr;
+  Pack<V> sc{}, sh{};
+  if (film) {
+    sc = load<V>(scale + (long long)n * scale_stride + ch);
+    sh = load<V>(shift + (long long)n * shift_stride + ch);
   }
+  for (int p = first; p < np; p += pstride) {
+    Pack<V> v = load<V>(mine + p * cgroup);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float y = activate((v.v[i] - mean) * rstd * ga.v[i] + be.v[i], act);
+      v.v[i] = film ? y * sc.v[i] + sh.v[i] : y;
+    }
+    store<V>(out + base + (long long)p * c, v);
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int V>
+cudaError_t launch(cudaLaunchConfig_t* cfg, const float* x, const float* gamma,
+                   const float* beta, const float* scale, const float* shift,
+                   float* out, int hw, int c, int groups, int cluster,
+                   int pixels_per_cta, int scale_stride, int shift_stride,
+                   float eps, int act) {
+  cudaError_t err = cudaSuccess;
+  if (cfg->dynamicSmemBytes > 48 * 1024)
+    err = cudaFuncSetAttribute(groupnorm_act_kernel<V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cfg->dynamicSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<V>, x, gamma, beta, scale,
+                             shift, out, hw, c, groups, cluster, pixels_per_cta,
+                             scale_stride, shift_stride, eps, act);
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
-// x/out: (n, hw, c) contiguous NHWC; gamma/beta: (c,).  c % groups == 0.
-// Returns the cudaError_t of the launch.
+// x/out: (n, hw, c) contiguous NHWC; gamma/beta: (c,); scale/shift: null, or
+// rows of c floats with strides 0 or c.  vec, cluster, threads,
+// pixels_per_cta and smem_bytes come from ops/groupnorm.py::launch_plan
+// (vec 4 needs c/groups % 4 == 0 and 16-byte aligned pointers).  Returns
+// the cudaError_t of the launch.
 extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
-                                    const float* beta, float* out, int n,
-                                    int hw, int c, int groups, float eps,
-                                    int act, void* stream) {
+                                    const float* beta, const float* scale,
+                                    const float* shift, float* out, int n,
+                                    int hw, int c, int groups, int scale_stride,
+                                    int shift_stride, float eps, int act,
+                                    int vec, int cluster, int threads,
+                                    int pixels_per_cta, int smem_bytes,
+                                    void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  groupnorm_act_kernel<<<n * groups, kThreads, 0, (cudaStream_t)stream>>>(
-      x, gamma, beta, out, hw, c, groups, eps, act);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * groups * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (vec == 4)
+    return (int)launch<4>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
+                          cluster, pixels_per_cta, scale_stride, shift_stride,
+                          eps, act);
+  if (vec == 1)
+    return (int)launch<1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
+                          cluster, pixels_per_cta, scale_stride, shift_stride,
+                          eps, act);
+  return (int)cudaErrorInvalidValue;
 }

@@ -99,7 +99,8 @@ class UnetUp(nn.Module):
 
 
 class GroupNormAct(nn.Module):
-    """GroupNorm(8, eps 1e-5) + affine + act through kernel K2."""
+    """GroupNorm(8, eps 1e-5) + affine + act through kernel K2; with
+    ``film=(scale, shift)`` rows, K2's FiLM epilogue follows the act."""
 
     def __init__(self, channels: int, act: str = "relu",
                  num_groups: int = 8, eps: float = 1e-5):
@@ -108,10 +109,10 @@ class GroupNormAct(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, film=None):
         y = fused_groupnorm_act(
             to_nhwc(x), self.weight, self.bias, self.num_groups, self.eps,
-            self.act,
+            self.act, film,
         )
         return to_nchw(y)
 

@@ -10,7 +10,8 @@ classifier-free guidance runs the encoder once and the decoder on the doubled
 
 Layout: public inputs and outputs are NHWC ``(B, H, W, C)`` as in the JAX
 package; inside, activations are NCHW tensors in ``torch.channels_last``
-memory.  FiLM goes through kernel K3 and the two GroupNorm heads through K2.
+memory.  The two GroupNorm heads go through kernel K2, which applies FiLM
+stage 0 as the epilogue of ``up0_norm``; FiLM stage 1 goes through K3.
 """
 
 from __future__ import annotations
@@ -116,8 +117,8 @@ class ContextUnet(nn.Module):
             temb1, temb2 = self.time_embed(t)
         else:
             cemb1, temb1, cemb2, temb2 = film
-        u = self.up0_norm(self.up0_conv(enc.hiddenvec))
-        u = to_nchw(fused_film(to_nhwc(u), cemb1.contiguous(), temb1.contiguous()))
+        u = self.up0_norm(self.up0_conv(enc.hiddenvec),
+                          film=(cemb1.contiguous(), temb1.contiguous()))
         u = self.up1(u, enc.downs[1])
         u = to_nchw(fused_film(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
         u = self.up2(u, enc.downs[0])

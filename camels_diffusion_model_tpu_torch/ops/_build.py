@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
+One ``nvcc`` call compiles every ``csrc/*.cu`` (with the ``*.cuh`` headers
+they include) for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under
 ``build/torch_kernels/<hash of sources and flags>/`` at the repository root.
 Nothing includes PyTorch's headers, so the build takes seconds.  Each C
@@ -46,7 +47,7 @@ def build() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]

@@ -1,27 +1,86 @@
-"""GroupNorm + affine + activation kernel K2 (NHWC).
+"""GroupNorm + affine + activation kernel K2 (NHWC), with an optional FiLM
+epilogue.
 
 Wraps ``csrc/groupnorm.cu``, the counterpart of the Pallas
 ``fused_groupnorm_act`` (``camels_diffusion_model_tpu/ops/pallas/
 groupnorm.py:65``).  The decoder runs it at ``up0_norm`` ``(N, 16, 16, 256)``
-and ``out_norm`` ``(N, 64, 64, 128)``: two launches per decoder call.
+with FiLM stage 0 as its epilogue, and at ``out_norm`` ``(N, 64, 64, 128)``:
+two launches per decoder call.  :func:`launch_plan` chooses the kernel's
+geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .film import check_rows, film_plain
 
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "leaky_relu": 3}
 
+THREADS = 256  # a CTA; a multiple of 32 for the warp-shuffle sums
+MIN_CTAS = 256  # about two per SM on the 132 SMs of an H100
+MAX_CLUSTER = 8  # the largest portable thread-block cluster
+SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
+#                           for several CTAs on one SM (228 KB of shared memory)
+SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
+#                                less room for the kernel's static arrays
+
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
 )
+
+
+class Plan(NamedTuple):
+    """The kernel's launch geometry for one input shape."""
+
+    vec: int  # floats per access: 4 (16 bytes) or 1
+    cluster: int  # CTAs that share one (sample, group)
+    threads: int  # per CTA
+    pixels_per_cta: int  # a CTA's run of pixels of its group
+    smem_bytes: int  # dynamic shared memory per CTA: its slice
+
+
+def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> Plan:
+    """Geometry of :func:`fused_groupnorm_act` for ``n`` samples of ``hw``
+    pixels and ``c`` channels in ``groups`` groups.
+
+    The 16-byte path needs ``c / groups % 4 == 0`` and ``aligned`` pointers;
+    other shapes take the scalar path.  The cluster is the smallest of 1, 2,
+    4, 8 whose per-CTA slice is at most ``SLICE_TARGET`` bytes and whose grid
+    reaches ``MIN_CTAS``; it stops growing once it reaches ``hw``.  A slice
+    over 48 KB is allowed up to ``SLICE_MAX``.  Raises ``ValueError``
+    for a shape no path takes: a group wider than a CTA's threads, or a
+    slice over ``SLICE_MAX`` bytes even in a cluster of 8.
+    """
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    cg = c // groups
+    vec = 4 if aligned and cg % 4 == 0 else 1
+    if cg // vec > THREADS:
+        raise ValueError(f"a group of {cg} channels is wider than {THREADS} threads")
+
+    def slice_bytes(cluster):
+        return -(-hw // cluster) * cg * 4
+
+    cluster = 1
+    while (cluster < MAX_CLUSTER and cluster < hw
+           and (slice_bytes(cluster) > SLICE_TARGET or n * groups * cluster < MIN_CTAS)):
+        cluster *= 2
+    if slice_bytes(cluster) > SLICE_MAX:
+        raise ValueError(
+            f"a group of {hw} x {cg} floats needs {slice_bytes(cluster)} bytes of "
+            f"shared memory per CTA even in a cluster of {cluster}"
+        )
+    return Plan(vec, cluster, THREADS, -(-hw // cluster), slice_bytes(cluster))
 
 
 def activation(y, act: str):
@@ -38,20 +97,24 @@ def activation(y, act: str):
 
 
 def groupnorm_act_plain(x, gamma, beta, num_groups: int = 8,
-                        eps: float = 1e-5, act: str = "relu"):
+                        eps: float = 1e-5, act: str = "relu", film=None):
     """Two-pass fp32 GroupNorm + affine + act over NHWC, as the JAX XLA
-    path computes it (``models/blocks.py:322-330``)."""
+    path computes it (``models/blocks.py:322-330``); then, with
+    ``film=(scale, shift)``, :func:`film_plain`."""
     b, h, w, c = x.shape
     xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    return activation(y * gamma + beta, act).to(x.dtype)
+    y = activation(y * gamma + beta, act).to(x.dtype)
+    return y if film is None else film_plain(y, *film)
 
 
 def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
-                        eps: float = 1e-5, act: str = "relu"):
-    """GroupNorm(num_groups) + ``gamma``/``beta`` + act of NHWC ``x``.
+                        eps: float = 1e-5, act: str = "relu", film=None):
+    """GroupNorm(num_groups) + ``gamma``/``beta`` + act of NHWC ``x``, then
+    ``y * scale + shift`` when ``film=(scale, shift)`` is given, with rows
+    ``(N, C)`` or ``(1, C)`` (broadcast over the batch).
 
     On CUDA tensors this launches the kernel; on CPU tensors it runs
     :func:`groupnorm_act_plain`.
@@ -59,15 +122,16 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
-        return groupnorm_act_plain(x, gamma, beta, num_groups, eps, act)
+        return groupnorm_act_plain(x, gamma, beta, num_groups, eps, act, film)
     if x.device.type != "cuda":
         raise ValueError(f"fused_groupnorm_act: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
-    if c % num_groups:
-        raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+    tensors = {"x": x, "gamma": gamma, "beta": beta}
+    if film is not None:
+        tensors["scale"], tensors["shift"] = film
+    for name, t in tensors.items():
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
                 f"fused_groupnorm_act: {name} must be a contiguous float32 "
@@ -75,11 +139,23 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
             )
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"gamma/beta must be ({c},)")
+    if film is not None:
+        check_rows(film, b, c)
     out = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
+    plan = launch_plan(b, h * w, c, num_groups, aligned)
+    if out.numel() == 0:
+        return out
+    rows, strides = (None, None), (0, 0)
+    if film is not None:  # a row stride of 0 broadcasts the one row
+        rows = tuple(t.data_ptr() for t in film)
+        strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
     fn = _build.kernel("camels_groupnorm_act", _ARGTYPES)
     err = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        b, h * w, c, num_groups, float(eps), ACTS[act],
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
+        out.data_ptr(), b, h * w, c, num_groups, *strides,
+        float(eps), ACTS[act], plan.vec, plan.cluster, plan.threads,
+        plan.pixels_per_cta, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "camels_groupnorm_act")

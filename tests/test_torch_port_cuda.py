@@ -17,6 +17,7 @@ from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
     groupnorm_act_plain,
+    launch_plan,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_sampler_step,
@@ -65,10 +66,71 @@ def test_groupnorm_kernel_matches_plain(dev, act, shape):
                                atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("head", ["up0_norm", "out_norm"])
+@pytest.mark.parametrize("n", [32, 16, 4])
+def test_groupnorm_kernel_at_the_path_shapes(dev, n, head, film):
+    """The decoder's heads at batches 32 (w=2), 16 (w=0) and 4 (exact
+    chain), i.e. every cluster size the plan picks there, with and without
+    the FiLM epilogue (scale one row per sample, shift one row): atol 1e-4."""
+    shape = {"up0_norm": (n, 16, 16, 256), "out_norm": (n, 64, 64, 128)}[head]
+    c = shape[-1]
+    x = _randn(dev, *shape) * 3 + 1
+    args = (x, _randn(dev, c, seed=4), _randn(dev, c, seed=5), 8, 1e-5, "relu")
+    rows = (_randn(dev, n, c, seed=6), _randn(dev, 1, c, seed=7)) if film else None
+    before = fused_groupnorm_act.launches
+    got = fused_groupnorm_act(*args, film=rows)
+    assert fused_groupnorm_act.launches == before + 1
+    torch.testing.assert_close(got, groupnorm_act_plain(*args, film=rows), atol=1e-4, rtol=0)
+
+
+def test_groupnorm_kernel_slice_over_48_kb(dev):
+    """A group of 128x128x16 floats: 128 KB a CTA even in a cluster of 8,
+    so the launch asks for more than the default 48 KB of shared memory."""
+    shape = (2, 128, 128, 128)
+    assert launch_plan(2, 128 * 128, 128, 8).smem_bytes > 48 * 1024
+    x = _randn(dev, *shape) * 3 + 1
+    args = (x, _randn(dev, 128, seed=4), _randn(dev, 128, seed=5), 8, 1e-5, "relu")
+    torch.testing.assert_close(fused_groupnorm_act(*args), groupnorm_act_plain(*args),
+                               atol=1e-4, rtol=0)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape,misaligned", [((2, 5, 7, 24), False), ((4, 16, 16, 256), True)])
+def test_groupnorm_kernel_scalar_path_with_film(dev, act, shape, misaligned):
+    """Channels per group not a multiple of 4, or x at an offset of one
+    float: the scalar instance of the kernel, with the epilogue: atol 1e-4."""
+    n, c = shape[0], shape[-1]
+    x = _randn(dev, *shape) * 3 + 1
+    if misaligned:
+        x = _misaligned(x)
+    gamma, beta = _randn(dev, c, seed=4), _randn(dev, c, seed=5)
+    rows = (_randn(dev, n, c, seed=6), _randn(dev, n, c, seed=7))
+    got = fused_groupnorm_act(x, gamma, beta, 8, 1e-5, act, film=rows)
+    torch.testing.assert_close(got, groupnorm_act_plain(x, gamma, beta, 8, 1e-5, act, film=rows),
+                               atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("scale_rows,shift_rows", [(4, 1), (1, 4), (4, 4), (1, 1)])
-def test_film_kernel_matches_plain(dev, scale_rows, shift_rows):
-    x = _randn(dev, 4, 32, 32, 128)
-    scale, shift = _randn(dev, scale_rows, 128, seed=6), _randn(dev, shift_rows, 128, seed=7)
+@pytest.mark.parametrize("shape,misaligned", [((4, 32, 32, 128), False), ((4, 16, 16, 256), False),
+                                              ((4, 5, 7, 6), False), ((4, 32, 32, 128), True)])
+def test_film_kernel_matches_plain(dev, scale_rows, shift_rows, shape, misaligned):
+    """The 16-byte path at the stage shapes; the scalar path for C % 4 != 0
+    and for x at an offset of one float.  FMA contraction only: atol 1e-5."""
+    c = shape[-1]
+    x = _randn(dev, *shape)
+    if misaligned:
+        x = _misaligned(x)
+    scale, shift = _randn(dev, scale_rows, c, seed=6), _randn(dev, shift_rows, c, seed=7)
     torch.testing.assert_close(fused_film(x, scale, shift), film_plain(x, scale, shift),
                                atol=1e-5, rtol=0)
 

@@ -2,7 +2,9 @@
 module; its entry points run on CUDA unless told otherwise; chip_smoke.py
 refuses to run without a card or without the rest of the repository."""
 
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -123,3 +125,20 @@ def test_golden_fixture_is_small_and_fp32():
     d = np.load(path)
     assert d["x"].shape == d["eps"].shape == d["eps_uncond"].shape == (2, 64, 64, 1)
     assert all(d[k].dtype == np.float32 for k in ("x", "t", "c", "eps", "eps_uncond"))
+
+
+def test_profile_script_names_the_port_kernels():
+    """``scripts/profile_torch_serving.py`` marks the port's kernels by a
+    substring of their names: each must name a ``__global__`` kernel of
+    ``csrc/``, and every such kernel must be marked."""
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_serving", os.path.join(REPO, "scripts", "profile_torch_serving.py"))
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
+    csrc = os.path.join(REPO, "camels_diffusion_model_tpu_torch", "csrc")
+    kernels = set()
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            kernels |= set(re.findall(r"__global__ void (\w+)", f.read()))
+    assert kernels and all(any(k in name for name in kernels) for k in profile.OURS)
+    assert all(any(k in name for k in profile.OURS) for name in kernels)

@@ -28,6 +28,8 @@ from camels_diffusion_model_tpu_torch.diffusion.schedule import (
     make_schedule,
 )
 from camels_diffusion_model_tpu_torch.ops import _build
+from camels_diffusion_model_tpu_torch.ops import film as film_ops
+from camels_diffusion_model_tpu_torch.ops import groupnorm as groupnorm_ops
 from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
@@ -144,6 +146,104 @@ def test_groupnorm_act_matches_jax(act, shape):
                                      num_groups=8, act=act, interpret=True)
     np.testing.assert_allclose(got, np.asarray(pallas), atol=5e-5, rtol=1e-4)
 
+
+@pytest.mark.parametrize("scale_rows,shift_rows", [(1, 1), (1, 3), (3, 1), (3, 3)])
+def test_groupnorm_act_film_epilogue_matches_jax(scale_rows, shift_rows):
+    """``film=(scale, shift)`` vs the JAX decoder's stage 0: the XLA
+    ``GroupNormAct`` (``up0_norm``) then ``cemb1 * u + temb1``
+    (``context_unet.py:300,305``); fp32, atol 1e-5."""
+    rs = np.random.RandomState(10 * scale_rows + shift_rows)
+    x = (rs.randn(3, 4, 4, 64) * 2 + 0.5).astype(np.float32)
+    gamma = (rs.rand(64) + 0.5).astype(np.float32)
+    beta = rs.randn(64).astype(np.float32)
+    scale = rs.randn(scale_rows, 64).astype(np.float32)
+    shift = rs.randn(shift_rows, 64).astype(np.float32)
+    got = fused_groupnorm_act(
+        torch.tensor(x), torch.tensor(gamma), torch.tensor(beta), 8, 1e-5, "relu",
+        film=(torch.tensor(scale), torch.tensor(shift)),
+    ).numpy()
+    u = JaxGroupNormAct(num_groups=8, epsilon=1e-5, act="relu").apply(
+        {"params": {"scale": gamma, "bias": beta}}, x)
+    want = scale.reshape(-1, 1, 1, 64) * u + shift.reshape(-1, 1, 1, 64)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+
+
+def _groupnorm_plan_coverage(plan, hw, cg):
+    """How often the kernel's index map (csrc/groupnorm.cu) touches each
+    (pixel, channel) of one group under ``plan``."""
+    counts = np.zeros((hw, cg), np.int64)
+    vpp = cg // plan.vec
+    pstride = plan.threads // vpp
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.pixels_per_cta)
+        p1 = min(hw, p0 + plan.pixels_per_cta)
+        for t in range(pstride * vpp):  # threads past that only join the sums
+            j = (t % vpp) * plan.vec
+            counts[p0 + t // vpp:p1:pstride, j:j + plan.vec] += 1
+        assert (p1 - p0) * cg * 4 <= plan.smem_bytes
+    return counts
+
+
+@pytest.mark.parametrize("n", [32, 16, 4])
+@pytest.mark.parametrize("head", ["up0_norm", "out_norm"])
+def test_groupnorm_launch_plan_at_the_path_shapes(n, head):
+    """Decoder batches 32 (w=2), 16 (w=0) and 4 (exact chain): every element
+    of a group is touched once, the 16-byte path is taken, the slice fits,
+    and the grid reaches 256 CTAs."""
+    hw, c = {"up0_norm": (16 * 16, 256), "out_norm": (64 * 64, 128)}[head]
+    plan = groupnorm_ops.launch_plan(n, hw, c, 8)
+    assert plan.vec == 4 and plan.cluster in (1, 2, 4, 8)
+    assert n * 8 * plan.cluster >= groupnorm_ops.MIN_CTAS  # the grid, in CTAs
+    assert plan.smem_bytes <= groupnorm_ops.SLICE_MAX
+    assert (_groupnorm_plan_coverage(plan, hw, c // 8) == 1).all()
+
+
+@pytest.mark.parametrize("shape,aligned", [((2, 5, 7, 24), True), ((3, 8, 8, 64), False),
+                                           ((1, 3, 3, 16), True)])
+def test_groupnorm_launch_plan_scalar_and_small_shapes(shape, aligned):
+    n, h, w, c = shape
+    plan = groupnorm_ops.launch_plan(n, h * w, c, 8, aligned)
+    assert plan.vec == (4 if aligned and c // 8 % 4 == 0 else 1)
+    assert plan.cluster <= groupnorm_ops.MAX_CLUSTER
+    assert (_groupnorm_plan_coverage(plan, h * w, c // 8) == 1).all()
+
+
+@pytest.mark.parametrize("hw,c", [(256 * 256, 128), (16, 8 * 2048)])
+def test_groupnorm_launch_plan_raises_on_shapes_no_path_takes(hw, c):
+    """A group whose slice overflows shared memory even in a cluster of 8,
+    or whose channels outnumber a CTA's threads."""
+    with pytest.raises(ValueError):
+        groupnorm_ops.launch_plan(4, hw, c, 8)
+
+
+@pytest.mark.parametrize("n,hw,c,aligned", [(32, 256, 256, True), (32, 1024, 128, True),
+                                            (16, 1024, 128, True), (4, 1024, 128, True),
+                                            (3, 35, 6, True), (2, 64, 128, False)])
+def test_film_launch_plan_covers_every_element_once(n, hw, c, aligned):
+    """The kernel's index map (csrc/film.cu) under the plan: each (pixel,
+    channel) of a sample once; at most one wave of 132 SMs."""
+    plan = film_ops.launch_plan(n, hw, c, aligned, sms=132)
+    assert plan.vec == (4 if aligned and c % 4 == 0 else 1)
+    per_pixel = c // plan.vec
+    pstride = plan.threads // per_pixel
+    assert plan.threads % per_pixel == 0 and plan.threads <= film_ops.MAX_THREADS
+    counts = np.zeros((hw, c), np.int64)
+    for bx in range(plan.blocks_per_sample):
+        for t in range(plan.threads):
+            j = (t % per_pixel) * plan.vec
+            counts[bx * pstride + t // per_pixel::plan.blocks_per_sample * pstride,
+                   j:j + plan.vec] += 1
+    assert (counts == 1).all()
+    assert n * plan.blocks_per_sample <= 132 * film_ops.BLOCKS_PER_SM or plan.blocks_per_sample == 1
+
+
+
+@pytest.mark.parametrize("n,hw,c", [(65536, 16, 128), (1, 2**24, 128), (2, 16, 8192)])
+def test_film_launch_plan_raises_on_shapes_no_path_takes(n, hw, c):
+    """More samples than grid.y holds, a sample of 2**31 floats (the
+    kernel's offsets are 32-bit), or a pixel wider than a block."""
+    with pytest.raises(ValueError):
+        film_ops.launch_plan(n, hw, c)
 
 def test_groupnorm_act_rejects_unknown_activation():
     x = torch.zeros(1, 2, 2, 8)

@@ -15,7 +15,9 @@ from camels_diffusion_model_tpu.diffusion.schedule import (
     p_sample_step as jax_p_sample_step,
 )
 from camels_diffusion_model_tpu.models import ContextUnet as JaxContextUnet
+import chip_smoke
 from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule, p_sample_step
+from camels_diffusion_model_tpu_torch.models import blocks, context_unet
 from camels_diffusion_model_tpu_torch.serving import load_model
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
 
@@ -131,6 +133,35 @@ def test_encode_decode_equals_forward_and_film_rows_equal_inline(tiny):
         temb1, temb2 = port.time_embed(torch.cat([t, t]))
         pair = port.decode(enc.doubled(), film=(cemb1, temb1, cemb2, temb2))
         torch.testing.assert_close(pair, torch.cat([full, uncond]), rtol=0, atol=1e-6)
+
+
+def test_decoder_runs_film_stage_0_as_the_groupnorm_epilogue(tiny, monkeypatch):
+    """One decoder call: K2 at up0_norm with the stage-0 FiLM rows, K2 at
+    out_norm without, K3 once (stage 1): ``chip_smoke.LAUNCHES_PER_STEP``
+    less the step kernel."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(blocks, "fused_groupnorm_act", spy("groupnorm_act", blocks.fused_groupnorm_act))
+    monkeypatch.setattr(context_unet, "fused_film", spy("film", context_unet.fused_film))
+    _, variables = tiny
+    port = load_model(variables, "cpu")
+    x, t, c = (torch.tensor(a) for a in _inputs(6))
+    with torch.no_grad():
+        cemb1, _ = port.context_embed(c)
+        temb1, _ = port.time_embed(t)
+        port(x, t, c)
+    names = [name for name, _ in calls]
+    assert {n: names.count(n) for n in set(names)} == {
+        k: v for k, v in chip_smoke.LAUNCHES_PER_STEP.items() if k != "sampler_step"}
+    up0, out = [args for name, args in calls if name == "groupnorm_act"]
+    assert up0[0].shape == (3, 4, 4, 16) and out[6] is None
+    assert torch.equal(up0[6][0], cemb1) and torch.equal(up0[6][1], temb1)
 
 
 def test_folded_equals_unfolded(tiny):

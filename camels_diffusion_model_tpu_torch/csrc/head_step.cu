@@ -1,0 +1,262 @@
+// Output conv + classifier-free-guidance combine + reverse-diffusion step
+// (K1).
+//
+// Replaces camels_diffusion_model_tpu/ops/pallas/sampler_step.py ::
+// fused_p_sample_step (Pallas TPU kernel, body :25-30, pallas_call :60), and
+// takes over the decoder's last layer (out_conv2, a 3x3 conv from C channels
+// to 1: context_unet.py:314), the CFG combine of diffusion/sampler.py:137-141
+// and the strided "beta" update of diffusion/ddim.py:100-106:
+//
+//   eps[s](y, x) = bias + sum_{ky, kx, c} W[c, ky, kx] * h[s, y+ky-1, x+kx-1, c]
+//                  (zero padding)
+//   e    = cfg ? eps_u + w * (eps_c - eps_u) : eps    (w scalar or per sample)
+//   out  = (x - c_eps * e) * inv_sqrt_a + sigma * z    (z skipped when null)
+//
+// h is out_norm's NHWC output, (2B, H, W, C) stacked [cond; uncond] under
+// CFG or (B, H, W, C); eps never goes to device memory.
+//
+// Bound on the H100: bytes at 3.35 TB/s.  h is 99% of them (67 MB at the
+// w=2 serving batch) and takes 2 flops a float, far below the ridge point.
+// Design:
+//  - A CTA owns a band of `rows` output rows of one unit: the sample pair
+//    (b, b+B) under CFG, so the combine and the step happen in its
+//    epilogue, or one sample.  ops/sampler_step.py::launch_plan picks the
+//    band height per batch (the tallest, least halo, that still gives a
+//    CTA to each of the 132 SMs) and the chunk width (the one that keeps
+//    the most CTAs resident).
+//  - The band's rows + 2 halo rows of h are staged through a ring of
+//    shared-memory stages, one chunk of CK channels at a time, with 16-byte
+//    cp.async copies (8 threads cover one pixel's 128 contiguous bytes at
+//    CK = 32).  Halo rows outside the map are zero-filled by the copy
+//    itself (source size 0), which gives the conv's padding rows.  The next
+//    chunk's copies are in flight while the current one is reduced.
+//  - Each thread holds two tile rows (the cond and uncond pixel under CFG,
+//    two pixels of the sample otherwise) and reduces their CK channels
+//    into the 9 per-tap partial sums P[tap] = sum_c W[c, tap] * h[c] in
+//    registers.  A staged pixel is CK + 4 or CK + 8 floats apart (an odd
+//    number of 16-byte slots), so the 8 threads of a 16-byte shared-memory
+//    phase, each on its own pixel, hit 8 different bank groups.  The
+//    weights sit in shared memory tap-major, read as broadcast float4.
+//  - After the last chunk the partials go to shared memory and each output
+//    pixel gathers its 3x3 neighbourhood from them: h is read once per CTA
+//    and reduced once per pixel, with no shuffles.  x and z are requested
+//    before the first chunk, so their latency passes under the reduction.
+//  - The halo rows (2 of every rows + 2: a third of what a CTA reads at
+//    the w=2 band of 4 rows) are read again by the neighbouring band's CTA,
+//    which the grid order starts at about the same time, so they should
+//    come from L2; the hit rate is not measured.
+//  - The per-sample w is read once per CTA (no division per element).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  int bytes = valid ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Grid: unit major, band minor.  Block: T threads; tile row k < 2T holds,
+// under CFG, pixel k % T (T = (rows+2)*width) of sample unit + (k/T)*batch,
+// otherwise pixel k (T = (rows+2)*width/2) of sample unit; a pixel p of the
+// band is at global row y0 - 1 + p / width.  Dynamic shared memory: the
+// weights [9][c], then STAGES stages of [2T][STRIDE] floats; the partials
+// [9][2T] reuse the first stage at the end.
+template <int CK, int STAGES>
+__global__ void head_step_kernel(
+    const float* __restrict__ h, const float* __restrict__ wt,
+    const float* __restrict__ bias, const float* __restrict__ x,
+    const float* __restrict__ z, const float* __restrict__ w_per_sample,
+    float w, float* __restrict__ out, int batch, int height, int width, int c,
+    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma) {
+  constexpr int V = CK / 4;  // 16-byte copies per pixel and chunk
+  constexpr int STRIDE = 4 * (V + (V % 2 == 0 ? 1 : 2));  // floats per staged pixel
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);
+  float* ring = ws + 9 * c;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int stage_floats = 2 * T * STRIDE;
+  const int chunks = c / CK;
+
+  for (int i = tid; i < 9 * c; i += T) ws[i] = wt[i];
+
+  // This thread's copies: the offset (in floats from h) of each one's
+  // 16 bytes in chunk 0, -1 for a halo row outside the map.  Only the chunk
+  // offset changes from chunk to chunk, so no copy divides again.
+  int src[2 * V];
+#pragma unroll
+  for (int m = 0; m < 2 * V; ++m) {
+    const int k = (tid + m * T) / V, j = (tid + m * T) % V;
+    const int half = k >= T;
+    const int sample = cfg ? unit + half * batch : unit;
+    const int pix = cfg ? k - half * T : k;
+    const int lr = pix / width;
+    const int gy = y0 - 1 + lr;
+    src[m] = gy >= 0 && gy < height
+                 ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * 4
+                 : -1;
+  }
+  auto issue = [&](int chunk) {
+    float* st = ring + (chunk % STAGES) * stage_floats;
+#pragma unroll
+    for (int m = 0; m < 2 * V; ++m) {
+      const int i = tid + m * T;
+      cp_async16(st + (i / V) * STRIDE + (i % V) * 4,
+                 src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
+    }
+  };
+
+  // The step's inputs of this thread's first output pixel, requested now
+  // so that their latency passes under the reduction.
+  const float b0 = *bias;
+  const float wu = cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f;
+  const int outs = min(rows, height - y0) * width;
+  const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
+  float x_first = 0.0f, z_first = 0.0f;
+  if (tid < outs) {
+    x_first = x[first];
+    if (z) z_first = z[first];
+  }
+
+  float acc0[9], acc1[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) acc0[t] = acc1[t] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks) issue(s);
+    cp_async_commit();
+  }
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    cp_async_wait<STAGES - 2>();  // this chunk's copies have landed
+    __syncthreads();              // ... for every thread; the stage refilled
+                                  // next was reduced by all in the last pass
+    if (chunk + STAGES - 1 < chunks) issue(chunk + STAGES - 1);
+    cp_async_commit();
+    const float* st = ring + (chunk % STAGES) * stage_floats;
+    const float* a = st + tid * STRIDE;
+    const float* b = st + (tid + T) * STRIDE;
+    const float* wc = ws + chunk * CK;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float4 d0 = *reinterpret_cast<const float4*>(a + 4 * j);
+      const float4 d1 = *reinterpret_cast<const float4*>(b + 4 * j);
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const float4 wv = *reinterpret_cast<const float4*>(wc + t * c + 4 * j);
+        acc0[t] = fmaf(d0.x, wv.x, acc0[t]);
+        acc0[t] = fmaf(d0.y, wv.y, acc0[t]);
+        acc0[t] = fmaf(d0.z, wv.z, acc0[t]);
+        acc0[t] = fmaf(d0.w, wv.w, acc0[t]);
+        acc1[t] = fmaf(d1.x, wv.x, acc1[t]);
+        acc1[t] = fmaf(d1.y, wv.y, acc1[t]);
+        acc1[t] = fmaf(d1.z, wv.z, acc1[t]);
+        acc1[t] = fmaf(d1.w, wv.w, acc1[t]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  float* part = ring;  // [9][2T]
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    part[t * 2 * T + tid] = acc0[t];
+    part[t * 2 * T + tid + T] = acc1[t];
+  }
+  __syncthreads();
+
+  for (int o = tid; o < outs; o += T) {
+    const int r = o / width, xx = o - r * width;
+    float e[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* ps = part + s * T;  // under CFG the uncond pixels start at T
+      float sum = b0;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* prow = ps + (r + ky) * width;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int gx = xx + kx - 1;
+          if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * 2 * T + gx];
+        }
+      }
+      e[s] = sum;
+      if (!cfg) break;
+    }
+    const float ee = cfg ? e[1] + wu * (e[0] - e[1]) : e[0];
+    const long long idx = first + (o - tid);
+    float v = ((o == tid ? x_first : x[idx]) - ee * c_eps) * inv_sqrt_a;
+    if (z) v += sigma * (o == tid ? z_first : z[idx]);
+    out[idx] = v;
+  }
+}
+
+template <int CK, int STAGES>
+cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
+                   const float* h, const float* wt, const float* bias,
+                   const float* x, const float* z, const float* w_per_sample,
+                   float w, float* out, int batch, int height, int width, int c,
+                   int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma) {
+  cudaError_t err = cudaSuccess;
+  if (smem_bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(head_step_kernel<CK, STAGES>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    head_step_kernel<CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
+        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
+        cfg, c_eps, inv_sqrt_a, sigma);
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+}  // namespace
+
+// h: (cfg ? 2 * batch : batch, height, width, c) NHWC, 16-byte aligned;
+// wt: (9, c) tap-major weights (tap = ky * 3 + kx); bias: one float;
+// x, z, out: (batch, height, width); z null to skip the noise term;
+// w_per_sample: null for the scalar w.  rows, ck, stages, threads and
+// smem_bytes come from ops/sampler_step.py::launch_plan.  Returns the
+// cudaError_t of the launch.
+extern "C" int camels_head_step(const float* h, const float* wt, const float* bias,
+                                const float* x, const float* z,
+                                const float* w_per_sample, float w, float* out,
+                                int batch, int height, int width, int c, int rows,
+                                int cfg, int ck, int stages, int threads,
+                                int smem_bytes, float c_eps, float inv_sqrt_a,
+                                float sigma, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  dim3 grid((unsigned)(batch * ((height + rows - 1) / rows)));
+  cudaStream_t st = (cudaStream_t)stream;
+#define CAMELS_HEAD_STEP(CK, STAGES)                                              \
+  if (ck == CK && stages == STAGES)                                               \
+    return (int)launch<CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, \
+                                   z, w_per_sample, w, out, batch, height, width, \
+                                   c, rows, cfg, c_eps, inv_sqrt_a, sigma);
+  CAMELS_HEAD_STEP(32, 2)
+  CAMELS_HEAD_STEP(32, 3)
+  CAMELS_HEAD_STEP(16, 2)
+  CAMELS_HEAD_STEP(16, 3)
+  CAMELS_HEAD_STEP(8, 2)
+  CAMELS_HEAD_STEP(8, 3)
+  CAMELS_HEAD_STEP(4, 2)
+  CAMELS_HEAD_STEP(4, 3)
+#undef CAMELS_HEAD_STEP
+  return (int)cudaErrorInvalidValue;
+}

@@ -2,11 +2,12 @@
 ``camels_diffusion_model_tpu/diffusion/sampler.py``).
 
 A Python loop over the reverse steps; each step runs the encoder once, the
-FiLM decoder on ``[cond, uncond]`` under classifier-free guidance (the
-unconditional context is zeros, ``sampler.py:144-167``), and one launch of
-the step kernel K1, which also does the guidance combine.  The FiLM
-embeddings are hoisted out of the loop (``:369-381``): the context MLPs run
-once per call and the time MLPs once for all ``T + 1`` timesteps.  With
+FiLM decoder up to ``out_norm`` on ``[cond, uncond]`` under classifier-free
+guidance (the unconditional context is zeros, ``sampler.py:144-167``), and
+one launch of the step kernel K1, which applies the decoder's output conv,
+the guidance combine and the update.  The FiLM embeddings are hoisted out
+of the loop (``:369-381``): the context MLPs run once per call and the time
+MLPs once for all ``T + 1`` timesteps.  With
 ``guide_w == 0`` the model runs once per step with the conditional context
 and no guidance, as in the reference; ``z = 0`` at ``t == 1``.
 """
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.sampler_step import fused_sampler_step
+from ..models.blocks import to_nhwc
+from ..ops.sampler_step import fused_head_step
 from .schedule import DDPMSchedule, ddpm_coefficients
 
 # z_fn(step, t) -> z for reverse step number ``step`` (0 first) at timestep
@@ -63,15 +65,16 @@ def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
     return cemb1, cemb2, temb1_tab, temb2_tab
 
 
-def predict_eps(model, x, tables, t: int, use_cfg: bool) -> torch.Tensor:
-    """Decoder output at timestep ``t``: ``(B, ...)``, or ``(2B, ...)``
-    stacked ``[cond; uncond]`` under CFG, for the step kernel to combine."""
+def predict_features(model, x, tables, t: int, use_cfg: bool) -> torch.Tensor:
+    """The decoder's features at timestep ``t`` (``out_norm``'s output as
+    NHWC): ``(B, ...)``, or ``(2B, ...)`` stacked ``[cond; uncond]`` under
+    CFG, for the step kernel to apply ``out_conv2`` and combine."""
     cemb1, cemb2, temb1_tab, temb2_tab = tables
     enc = model.encode(x)
     if use_cfg:
         enc = enc.doubled()
     film = (cemb1, temb1_tab[t:t + 1], cemb2, temb2_tab[t:t + 1])
-    return model.decode(enc, film=film)
+    return to_nhwc(model.decode_features(enc, film=film))
 
 
 def prepare(model, n_sample, size, params, guide_w, x_init, generator, device):
@@ -124,16 +127,19 @@ def sample_ddpm(
 def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
               coefs: torch.Tensor, generator, z_fn: Optional[ZFn]):
     """The reverse loop of both samplers: at each timestep of ``steps``
-    (descending) the decoder's eps and one launch of the step kernel with
-    that step's ``[c_eps, inv_sqrt_a, sigma]`` row of ``coefs``; z is drawn
-    (or taken from ``z_fn``) only where sigma is not 0."""
+    (descending) the decoder's features and one launch of the step kernel
+    (output conv, guidance, update) with that step's ``[c_eps, inv_sqrt_a,
+    sigma]`` row of ``coefs``; z is drawn (or taken from ``z_fn``) only
+    where sigma is not 0."""
+    head = model.out_conv2
     with torch.inference_mode():
         tables = film_tables(model, params, timesteps, use_cfg)
         for k, (t, (c_eps, inv_sqrt_a, sigma)) in enumerate(zip(steps, coefs.tolist())):
-            eps = predict_eps(model, x, tables, t, use_cfg)
+            h = predict_features(model, x, tables, t, use_cfg)
             z = None
             if sigma != 0.0:
                 z = (z_fn(k, t).to(x.device) if z_fn is not None else
                      torch.randn(x.shape, generator=generator, device=x.device))
-            x = fused_sampler_step(x, eps, z, c_eps, inv_sqrt_a, sigma, w)
+            x = fused_head_step(h, head.weight, head.bias, x, z, c_eps,
+                                inv_sqrt_a, sigma, w)
     return x

@@ -12,6 +12,8 @@ Layout: public inputs and outputs are NHWC ``(B, H, W, C)`` as in the JAX
 package; inside, activations are NCHW tensors in ``torch.channels_last``
 memory.  The two GroupNorm heads go through kernel K2, which applies FiLM
 stage 0 as the epilogue of ``up0_norm``; FiLM stage 1 goes through K3.
+The samplers stop at :meth:`ContextUnet.decode_features` and hand
+``out_conv2`` to the step kernel K1.
 """
 
 from __future__ import annotations
@@ -100,9 +102,10 @@ class ContextUnet(nn.Module):
         """Both context MLPs: ``((N, cb), (N, cb//2))``."""
         return self.contextembed1(c), self.contextembed2(c)
 
-    def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
-               c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
-        """FiLM-conditioned decoder -> NHWC eps.
+    def decode_features(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
+                        c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
+        """FiLM-conditioned decoder up to and including ``out_norm``: the
+        features ``out_conv2`` takes, NCHW in channels_last memory.
 
         Pass ``t``/``c`` (normalised time, context; ``c=None`` is the zero
         context) or ``film=(cemb1, temb1, cemb2, temb2)`` as ``(N, C)`` or
@@ -122,8 +125,14 @@ class ContextUnet(nn.Module):
         u = self.up1(u, enc.downs[1])
         u = to_nchw(fused_film(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
         u = self.up2(u, enc.downs[0])
-        out = self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)))
-        return to_nhwc(self.out_conv2(out))
+        return self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)))
+
+    def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
+               c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
+        """FiLM-conditioned decoder -> NHWC eps: ``out_conv2`` of
+        :meth:`decode_features` (same arguments).  The samplers run
+        ``out_conv2`` inside the step kernel instead."""
+        return to_nhwc(self.out_conv2(self.decode_features(enc, t, c, film=film)))
 
     def forward(self, x, t, c=None):
         """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and

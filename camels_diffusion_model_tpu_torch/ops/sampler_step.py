@@ -1,35 +1,58 @@
-"""Reverse-step kernel K1: CFG combine + ancestral/strided update.
+"""Reverse-step kernel K1: output conv + CFG combine + ancestral/strided
+update.
 
-Wraps ``csrc/sampler_step.cu``, the counterpart of the Pallas
+Wraps ``csrc/head_step.cu``, the counterpart of the Pallas
 ``fused_p_sample_step`` (``camels_diffusion_model_tpu/ops/pallas/
-sampler_step.py:34``).  One launch per reverse step of ``sample_ddpm`` and
-of ``sample_ddim(sigma_mode="beta")``.
+sampler_step.py:34``) with the decoder's last layer folded in: the kernel
+takes out_norm's features and the 3x3 ``out_conv2`` weights, so eps is
+computed in registers and never goes to device memory.  One launch per
+reverse step of ``sample_ddpm`` and of ``sample_ddim(sigma_mode="beta")``.
+:func:`launch_plan` chooses the kernel's geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MIN_CTAS = 128  # about one per SM
+SM_SMEM = 228 * 1024  # shared memory of one SM; each CTA also takes 1 KB
+MAX_THREADS = 384  # a CTA: at the kernel's most registers (164 a thread,
+#                    32-channel chunks) 384 threads fill an SM's 64K
+SMEM_MAX = 227 * 1024  # the dynamic shared memory a CTA may ask for
+ROWS = (4, 2, 1)  # band heights, tallest (least halo) first
+CHUNKS = (32, 16, 8, 4)  # channels per staged chunk, widest first; below
+#                          16 only when nothing wider divides C: narrower
+#                          chunks read slower at every path batch, even
+#                          with more CTAs resident
+STAGES = (3, 2)  # depths of the ring of shared-memory stages
+
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
 )
 
 
 def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
-    """The kernel's function in plain PyTorch.
+    """The step in plain PyTorch, the counterpart of the JAX
+    ``fused_p_sample_step`` / ``p_sample_step`` with the guidance combine.
 
     ``eps`` is ``(B, ...)``, or ``(2B, ...)`` stacked ``[cond; uncond]`` when
     ``guide_w`` (a float or a ``(B,)`` tensor) is given; then the guided
     ``eps_u + w * (eps_c - eps_u)`` is used (``sampler.py:137-141``).
     ``z`` may be None only when ``sigma`` is 0.
     """
+    if z is None and sigma != 0.0:
+        raise ValueError("z may be omitted only when sigma == 0")
     if guide_w is not None:
         eps_c, eps_u = eps.chunk(2)
         w = guide_w
@@ -42,23 +65,105 @@ def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
     return out
 
 
-def fused_sampler_step(x, eps, z, c_eps: float, inv_sqrt_a: float,
-                       sigma: float, guide_w=None):
-    """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) eps.
+def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
+    """The kernel's function in plain PyTorch: eps = the 3x3 conv
+    (``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)``, zero padding) of the
+    NHWC features ``h``, then :func:`sampler_step_plain`."""
+    eps = F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1).permute(0, 2, 3, 1)
+    return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w)
+
+
+class Plan(NamedTuple):
+    """The kernel's launch geometry for one input shape."""
+
+    rows: int  # output rows of a CTA's band
+    threads: int  # per CTA: two staged pixels each
+    ck: int  # channels per staged chunk
+    stages: int  # depth of the ring
+    ctas: int
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+def staged_stride(ck: int) -> int:
+    """Floats between two staged pixels: an odd number of 16-byte slots,
+    so 8 threads on 8 pixels hit 8 bank groups."""
+    v = ck // 4
+    return 4 * (v + (1 if v % 2 == 0 else 2))
+
+
+def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
+                cfg: bool = True, aligned: bool = True, sms: int = SMS) -> Plan:
+    """Geometry of :func:`fused_head_step` for ``units`` CTA units (sample
+    pairs under ``cfg``, else samples) of ``height`` x ``width`` pixels of
+    ``c`` channels on a card of ``sms`` SMs.
+
+    A CTA stages its band's ``rows + 2`` rows, two pixels a thread, in
+    chunks of ``ck`` channels.  The band is the tallest of ``ROWS`` whose
+    grid still has ``MIN_CTAS`` CTAs (else the last).  The chunk is the one
+    of ``CHUNKS`` dividing ``c`` (16 channels or more where ``c`` allows)
+    that lets the most of the CTAs an SM has to run be resident at once,
+    the widest on a tie; the ring the deepest of ``STAGES`` that fits in
+    shared memory.  Raises ``ValueError`` for a
+    shape no path takes: ``cout != 1``, ``c % 4 != 0``, a pointer off a
+    16-byte boundary (``aligned``), an odd ``width`` without CFG, or a band
+    over ``MAX_THREADS`` threads or shared memory.
+    """
+    if cout != 1:
+        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    if c <= 0 or c % 4:
+        raise ValueError(f"the head kernel needs channels % 4 == 0, got {c}")
+    if not aligned:
+        raise ValueError("the head kernel needs 16-byte aligned features")
+    if not cfg and width % 2:
+        raise ValueError(f"without CFG the head kernel needs an even width, got {width}")
+    rows = next((r for r in ROWS if units * -(-height // r) >= MIN_CTAS), ROWS[-1])
+    threads = (rows + 2) * width // (1 if cfg else 2)
+    ctas = units * -(-height // rows)
+    widths = [ck for ck in CHUNKS if c % ck == 0]
+    best, best_resident = None, 0
+    for ck in [ck for ck in widths if ck >= 16] or widths[:1]:
+        for stages in STAGES:
+            smem = 4 * (9 * c + stages * 2 * threads * staged_stride(ck))
+            if smem <= SMEM_MAX:
+                resident = min(SM_SMEM // (smem + 1024), -(-ctas // sms))
+                if resident > best_resident:
+                    best, best_resident = Plan(rows, threads, ck, stages, ctas, smem), resident
+                break
+    if threads > MAX_THREADS or best is None:
+        raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
+    return best
+
+
+def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
+                    sigma: float, guide_w=None):
+    """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
+    of the 3x3 conv ``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)`` over the
+    NHWC features ``h``: ``(B, H, W, C)``, or ``(2B, H, W, C)`` stacked
+    ``[cond; uncond]`` when ``guide_w`` (a float or a ``(B,)`` tensor) is
+    given.  ``x`` and ``z`` are ``(B, H, W, 1)``; ``z`` may be None only when
+    ``sigma`` is 0.
 
     On CUDA tensors this launches the kernel; on CPU tensors it runs
-    :func:`sampler_step_plain`.
+    :func:`head_step_plain`.
     """
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
-    if x.device.type == "cpu":
-        return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_sampler_step: unsupported device {x.device}")
+    if h.device.type == "cpu":
+        return head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_head_step: unsupported device {h.device}")
+    if h.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"h must be NHWC and weight (1, C, 3, 3), got "
+                         f"{tuple(h.shape)} and {tuple(weight.shape)}")
     cfg = guide_w is not None
     b = x.shape[0]
-    want_eps = (2 * b,) + tuple(x.shape[1:]) if cfg else tuple(x.shape)
-    tensors = {"x": x, "eps": eps}
+    nd, height, width, c = h.shape
+    if tuple(weight.shape[1:]) != (c, 3, 3):
+        raise ValueError(f"weight must be (1, {c}, 3, 3), got {tuple(weight.shape)}")
+    # Tap-major (9, C) weights: a view of the channels_last weight the model
+    # holds, a small copy otherwise.
+    wt = weight[0].permute(1, 2, 0).reshape(9, c).contiguous()
+    tensors = {"h": h, "bias": bias, "x": x, "weight": wt}
     if z is not None:
         tensors["z"] = z
     w_vec = None
@@ -68,30 +173,40 @@ def fused_sampler_step(x, eps, z, c_eps: float, inv_sqrt_a: float,
         if tuple(w_vec.shape) != (b,):
             raise ValueError(f"per-sample guide_w must be ({b},), got {tuple(w_vec.shape)}")
     for name, t in tensors.items():
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.device != h.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
-                f"fused_sampler_step: {name} must be a contiguous float32 "
-                f"tensor on {x.device}"
+                f"fused_head_step: {name} must be a contiguous float32 "
+                f"tensor on {h.device}"
             )
-    if tuple(eps.shape) != want_eps:
-        raise ValueError(f"eps must be {want_eps}, got {tuple(eps.shape)}")
+    if h.numel() >= 2**31:  # the kernel's offsets into h are 32-bit
+        raise ValueError(f"h of {h.numel()} floats is too large for the head kernel")
+    if nd != (2 * b if cfg else b):
+        raise ValueError(f"h must hold {2 * b if cfg else b} samples, got {nd}")
+    if tuple(x.shape) != (b, height, width, 1) or bias.shape != (1,):
+        raise ValueError(f"x must be {(b, height, width, 1)} and bias (1,), got "
+                         f"{tuple(x.shape)} and {tuple(bias.shape)}")
     if z is not None and z.shape != x.shape:
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
+    plan = launch_plan(b, height, width, c, weight.shape[0], cfg,
+                       h.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0,
+                       torch.cuda.get_device_properties(h.device).multi_processor_count)
     out = torch.empty_like(x)
-    n = x.numel()
-    fn = _build.kernel("camels_sampler_step", _ARGTYPES)
+    if out.numel() == 0:
+        return out
+    fn = _build.kernel("camels_head_step", _ARGTYPES)
     err = fn(
-        x.data_ptr(), eps.data_ptr(),
+        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
         z.data_ptr() if z is not None else None,
         w_vec.data_ptr() if w_vec is not None else None,
         float(guide_w) if cfg and w_vec is None else 0.0,
-        out.data_ptr(), n, n // b if b else 1, int(cfg),
+        out.data_ptr(), b, height, width, c, plan.rows, int(cfg), plan.ck,
+        plan.stages, plan.threads, plan.smem_bytes,
         float(c_eps), float(inv_sqrt_a), float(sigma),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        torch.cuda.current_stream(h.device).cuda_stream,
     )
-    _build.check(err, "camels_sampler_step")
-    fused_sampler_step.launches += 1
+    _build.check(err, "camels_head_step")
+    fused_head_step.launches += 1
     return out
 
 
-fused_sampler_step.launches = 0
+fused_head_step.launches = 0

@@ -7,7 +7,8 @@ certified rows of ``artifacts/certification/validation_w{w}_calibrated.indep
 artifact, calibration sidecar) must carry the md5 of the committed
 checkpoint, or it raises.  ``expected_maps_per_min`` is the throughput the
 JAX package was certified at on a TPU v5e chip; it is not a figure of this
-port.
+port.  ``certification_contexts`` gives the contexts the committed exact-chain
+references were sampled on.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ import os
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import resolve_device
+from .data.pipeline import normalize_params, train_test_split
+from .data.synthetic import synthetic_params
 from .diffusion.calibration import load_calibration_meta
 from .models.context_unet import ContextUnet
 from .models.fold_bn import fold_batchnorm_variables
@@ -129,6 +133,21 @@ def resolve_serving_config(
         max_err_vs_indep_pct=float(best["max_err_vs_indep_pct"]),
         checkpoint_fingerprint=ckpt_md5,
     )
+
+
+def certification_contexts(n: int, param_sets: int = 1000) -> np.ndarray:
+    """``(n, 6)`` float32: the certification's test-split contexts tiled to
+    ``n``, as ``scripts/certify_fast_sampler.py:154-160,253-255`` builds
+    them (``synthetic_camels(param_sets, 15, ..., seed=42)``, each set
+    expanded 15 times and min-max normalised, a test split of
+    ``max(param_sets * 15 // 10, 15)`` maps at seed 42).  The committed
+    exact-chain references used ``param_sets=1000``
+    (``scripts/run_n16k_confirmation.sh:47``)."""
+    n_maps = param_sets * 15
+    cond, _, _ = normalize_params(synthetic_params(param_sets, seed=42), n_maps, 6)
+    _, test_idx, _ = train_test_split(n_maps, max(n_maps // 10, 15), seed=42)
+    test_c = cond[test_idx]
+    return np.tile(test_c, (n // test_c.shape[0] + 1, 1))[:n]
 
 
 def load_model(variables: dict, device=None, fold_bn: bool = True) -> ContextUnet:

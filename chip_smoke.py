@@ -14,14 +14,18 @@ Phases, each timed on its own line:
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
-      calibrated, with P(k);
-  (f) the exact 1500-step DDPM at w=0 on 4 maps;
+      calibrated, with P(k), on the first 16 of the certification's
+      test-split contexts (``serving.certification_contexts``), the
+      contexts of the exact-chain references;
+  (f) the exact 1500-step DDPM at w=0 on 4 maps, on the first 4;
   (g) neither ``jax`` nor ``camels_diffusion_model_tpu`` was imported.
 
 Each of the three paths of (e)-(f) -- serving at w=2, serving at w=0, the
 exact chain -- is driven with every kernel's launch count set to 0 just
 before it and read just after; a kernel that did not launch on one of them,
-or launched other than ``LAUNCHES_PER_STEP`` times a step, fails the run.
+or launched other than ``LAUNCHES_PER_STEP`` times a step, fails the run;
+so does a separate conv to one channel (``out_conv2``, which the step
+kernel applies) on any of them.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -54,11 +58,15 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     groupnorm_act_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
-    fused_sampler_step,
-    sampler_step_plain,
+    fused_head_step,
+    head_step_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
-from camels_diffusion_model_tpu_torch.serving import load_model, resolve_serving_config
+from camels_diffusion_model_tpu_torch.serving import (
+    certification_contexts,
+    load_model,
+    resolve_serving_config,
+)
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -71,10 +79,11 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MB L2 (see time_ms)
 BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 
-# Kernel vs plain version on the card.  K1 and K3 differ only by the fused
+# Kernel vs plain version on the card.  K3 differs only by the fused
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
-# sums its statistics in another order and uses rsqrtf.
-TOL = {"sampler_step": 1e-5, "groupnorm_act": 1e-4, "film": 1e-5}
+# sums its statistics in another order and uses rsqrtf; K1 sums the 1152
+# terms of its conv in another order than cuDNN.
+TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5}
 # Full-width forward on the card vs the JAX CPU golden, and four strided
 # steps on the card vs the same sampler on the CPU: cuDNN's fp32
 # convolution algorithms reorder the sums of some twenty convs (observed
@@ -82,25 +91,28 @@ TOL = {"sampler_step": 1e-5, "groupnorm_act": 1e-4, "film": 1e-5}
 GOLDEN_TOL = 1e-4
 
 WRAPPERS = {
-    "sampler_step": fused_sampler_step,
+    "head_step": fused_head_step,
     "groupnorm_act": fused_groupnorm_act,
     "film": fused_film,
 }
 # library_ms: one PyTorch call timed beside each kernel as its yardstick;
 # the port never calls it.  No single call adds K2's activation (or its FiLM
-# epilogue), which move no bytes, so F.group_norm stands in for it.
+# epilogue), which move no bytes, so F.group_norm stands in for it; for K1
+# the output conv, which moves 99% of its bytes.
 LIBRARY = {
-    "sampler_step": None,
+    "head_step": "F.conv2d(h, W, b): the output conv without the combine "
+                 "or the step",
     "groupnorm_act": "F.group_norm on the channels_last NCHW view: "
                      "GroupNorm + affine without the activation or FiLM",
     "film": "torch.addcmul",
 }
-# Launches per reverse step: one step kernel; one decoder call with K2 at
-# up0_norm (FiLM stage 0 as its epilogue) and out_norm, and K3 at stage 1.
-LAUNCHES_PER_STEP = {"sampler_step": 1, "groupnorm_act": 2, "film": 1}
+# Launches per reverse step: one step kernel (output conv, guidance,
+# update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
+# epilogue) and out_norm, and K3 at stage 1.
+LAUNCHES_PER_STEP = {"head_step": 1, "groupnorm_act": 2, "film": 1}
 SOURCES = {
-    "sampler_step": ("camels_diffusion_model_tpu_torch/csrc/sampler_step.cu",
-                     "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
+    "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
+                  "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
     "groupnorm_act": ("camels_diffusion_model_tpu_torch/csrc/groupnorm.cu",
                       "camels_diffusion_model_tpu/ops/pallas/groupnorm.py:65"),
     "film": ("camels_diffusion_model_tpu_torch/csrc/film.cu",
@@ -167,12 +179,12 @@ def check_kernels(dev, model) -> dict:
     exact chain (4).
 
     Returns per kernel the worst error over all its cases and the summed
-    times and bounds of its summed cases: the launches of one reverse step
-    (K1) or one decoder call (K2: up0_norm with the FiLM epilogue and
-    out_norm) of the w=2 serving batch, and for K3 both FiLM stages (stage 0
-    is timed for continuity; the path runs it as K2's epilogue).  The other
-    cases are printed for information; their errors are held to the same
-    tolerance.
+    times and bounds of its summed cases: the launch of one reverse step
+    (K1: output conv, guidance, update) or one decoder call (K2: up0_norm
+    with the FiLM epilogue and out_norm) of the w=2 serving batch, and for
+    K3 both FiLM stages (stage 0 is timed for continuity; the path runs it
+    as K2's epilogue).  The other cases are printed for information; their
+    errors are held to the same tolerance.
     """
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -184,20 +196,27 @@ def check_kernels(dev, model) -> dict:
     c_eps, inv_sqrt_a, sigma = ddpm_coefficients(
         make_schedule(TIMESTEPS), torch.tensor([750])
     )[0].tolist()
-    for label, b, cfg, w in (("cfg w=2 (serve w=2)", BATCH, True, 2.0),
-                             ("cfg per-sample w", BATCH, True, "vector"),
-                             ("no cfg (serve w=0)", BATCH, False, None),
-                             ("no cfg (exact chain)", 4, False, None)):
+    # K1 on out_norm's features (ReLU'd, as the decoder gives them) with
+    # the serving model's out_conv2.
+    head = (model.out_conv2.weight.detach(), model.out_conv2.bias.detach())
+    for label, b, cfg, w, with_z in (("cfg w=2 (serve w=2)", BATCH, True, 2.0, True),
+                                     ("cfg per-sample w", BATCH, True, "vector", True),
+                                     ("cfg w=2, sigma=0", BATCH, True, 2.0, False),
+                                     ("no cfg (serve w=0)", BATCH, False, None, True),
+                                     ("no cfg (exact chain)", 4, False, None, True)):
         x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
-        eps = randn(2 * b if cfg else b, 64, 64, 1)
+        h = randn(2 * b if cfg else b, 64, 64, model.n_feat).relu()
         if w == "vector":
-            w = torch.full((b,), 2.0, device=dev)
-        args = (x, eps, z, c_eps, inv_sqrt_a, sigma, w)
+            w = torch.linspace(1.0, 3.0, b, device=dev)
+        args = (h, *head, x, z if with_z else None, c_eps, inv_sqrt_a,
+                sigma if with_z else 0.0, w)
         cases.append((
-            "sampler_step", f"{label} x{tuple(x.shape)} eps{tuple(eps.shape)}",
-            fused_sampler_step, sampler_step_plain, None, args,
-            nbytes(*args, x), x.numel() * (8 if cfg else 5),
-            isinstance(w, float),  # the w=2 serving path's form: scalar w under CFG
+            "head_step", f"{label} h{tuple(h.shape)} x{tuple(x.shape)}",
+            fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                 padding=1),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5),
+            isinstance(w, float) and with_z,  # the w=2 serving path's form
         ))
     # K2 as the decoder holds it; the FiLM rows as the sampler gives them:
     # the context embedding one row per sample, the time embedding one row.
@@ -318,9 +337,10 @@ def check_maps(maps, n: int, label: str) -> None:
 def pk_deviation(pk: np.ndarray, w: int) -> str:
     """Max and median |P(k)/P_ref - 1| of the mean of per-map spectra ``pk``
     over the populated non-DC bins, against the N=16384 exact-chain
-    reference of seed A.  For information only: a map's power moves with
-    its context at every k at once, so a few maps' mean is off coherently
-    across the bins (the statistical hold is ROADMAP item 10)."""
+    reference of seed A, whose maps were drawn on the same test-split
+    contexts.  For information only: a map's power moves with its context
+    at every k at once, so a few maps' mean is off coherently across the
+    bins (the statistical hold is ROADMAP section 1, item 3)."""
     ref = np.load(os.path.join(REFS, f"w{w}", "DDPM_1500_seed_A.npz"))["pk"]
     keep = np.arange(ref.size) > 0
     keep &= ref > 0
@@ -364,12 +384,27 @@ def main() -> int:
 
     def drive(path, steps, fn):
         """Run one main path of ``steps`` reverse steps with every launch
-        count at 0; read the counts, which must be LAUNCHES_PER_STEP each."""
+        count at 0; read the counts, which must be LAUNCHES_PER_STEP each,
+        and count the forward calls of convs to one channel, which must be
+        none: the step kernel applies ``out_conv2``."""
+        one_channel_convs = [0]
+
+        def hook(module, args, output):
+            if isinstance(module, torch.nn.Conv2d) and module.out_channels == 1:
+                one_channel_convs[0] += 1
+
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
         for wrapper in WRAPPERS.values():
             wrapper.launches = 0
-        result = fn()
+        try:
+            result = fn()
+        finally:
+            handle.remove()
         launches[path] = {name: w.launches for name, w in WRAPPERS.items()}
-        print(f"  launches on {path}: {launches[path]}", flush=True)
+        print(f"  launches on {path}: {launches[path]}; convs to one channel: "
+              f"{one_channel_convs[0]}", flush=True)
+        if one_channel_convs[0]:
+            raise SystemExit(f"out_conv2 ran outside the step kernel on {path}")
         if not all(launches[path].values()):
             raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
         want = {name: steps * k for name, k in LAUNCHES_PER_STEP.items()}
@@ -380,7 +415,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for w, steps in ((2, 500), (0, 430)):
         r = drive(f"serve_w{w}", steps,
-                  lambda w=w: serve(w, BATCH, OUT_DIR, seed=0, device=dev))
+                  lambda w=w: serve(w, BATCH, OUT_DIR, seed=0, device=dev,
+                                    params=certification_contexts(BATCH)))
         check_maps(r["maps"], BATCH, f"serve w={w}")
         if r["steps"] != steps or not np.isfinite(r["pk"]).all():
             raise SystemExit(f"serve w={w}: {r['steps']} steps or non-finite P(k)")
@@ -394,7 +430,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     t1 = time.perf_counter()
     maps = drive("ddpm_exact", TIMESTEPS, lambda: sample_ddpm(
-        model, make_schedule(TIMESTEPS), gen, n_sample=4, guide_w=0.0, device=dev))
+        model, make_schedule(TIMESTEPS), gen, n_sample=4,
+        params=certification_contexts(4), guide_w=0.0, device=dev))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t1
     check_maps(maps, 4, "exact DDPM")

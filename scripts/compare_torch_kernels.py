@@ -1,5 +1,5 @@
-"""Time an earlier revision of the port's GroupNorm (K2) and FiLM (K3)
-kernels against the checkout's, in one process on one card.
+"""Time an earlier revision of the port's step (K1), GroupNorm (K2) and
+FiLM (K3) kernels against the checkout's, in one process on one card.
 
     mkdir -p build/old
     git archive <rev> camels_diffusion_model_tpu_torch | tar -x -C build/old
@@ -11,11 +11,16 @@ act)``, ``fused_film(x, scale, shift)``): the earlier package is imported
 under another name and builds its own kernels with its own
 ``ops/_build.py`` (under ``DIR/build/``), so no C interface is assumed.
 Where the earlier K2 takes no ``film`` argument, K2 with the FiLM epilogue
-is compared with the earlier K2 followed by its K3.  Each version's sources
+is compared with the earlier K2 followed by its K3.  Where the earlier K1
+takes eps (``fused_sampler_step``), the checkout's K1, which applies the
+output conv itself (``fused_head_step``), is compared with ``F.conv2d``
+followed by the earlier K1, at decoder batches 32 (CFG), 16 and 4; the
+checkout's K1 is also timed at every band height of its launch plan.  Each version's sources
 are also compiled once with ``-Xptxas -v`` (registers, shared memory and
 spills per kernel).  Each case is checked against the checkout's plain
 version, then timed old, new, new, old with ``chip_smoke.time_ms`` (device
-ms per launch, data in device memory).  Needs a CUDA card.
+ms per launch, data in device memory), with TF32 off as the port serves.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,11 +69,19 @@ def main(argv=None) -> int:
     import torch
 
     import chip_smoke
-    from camels_diffusion_model_tpu_torch.ops import _build, film, groupnorm
+    import torch.nn.functional as F
+
+    from camels_diffusion_model_tpu_torch.diffusion.schedule import (
+        ddpm_coefficients,
+        make_schedule,
+    )
+    from camels_diffusion_model_tpu_torch.ops import _build, film, groupnorm, sampler_step
 
     if not torch.cuda.is_available():
         print("compare_torch_kernels: needs a CUDA card", file=sys.stderr)
         return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -79,6 +92,7 @@ def main(argv=None) -> int:
     old_build = importlib.import_module("old_port.ops._build")
     old_gn = importlib.import_module("old_port.ops.groupnorm")
     old_film = importlib.import_module("old_port.ops.film")
+    old_step = importlib.import_module("old_port.ops.sampler_step")
     reports = {label: ptxas_report(b, label) for label, b in (("old", old_build),
                                                                ("new", _build))}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:  # the wrappers' libraries
@@ -129,6 +143,44 @@ def main(argv=None) -> int:
             cases.append((f"K3 {stage} ({n},{hw},{hw},{c})", old_film.fused_film,
                           film.fused_film, film.film_plain,
                           (randn(n, hw, hw, c), randn(n, c), randn(1, c)), 1e-5))
+
+    if hasattr(old_step, "fused_sampler_step"):
+        def k1_old(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, w):
+            eps = F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1)
+            return old_step.fused_sampler_step(x, eps.permute(0, 2, 3, 1).contiguous(), z,
+                                               c_eps, inv_sqrt_a, sigma, w)
+    else:
+        k1_old = old_step.fused_head_step
+    coefs = ddpm_coefficients(make_schedule(1500), torch.tensor([750]))[0].tolist()
+    weight = (randn(1, 128, 3, 3) * 0.05).contiguous(memory_format=torch.channels_last)
+    k1_cases = []
+    for n, cfg in ((32, True), (16, False), (4, False)):
+        b = n // 2 if cfg else n
+        a = (randn(n, 64, 64, 128).relu(), weight, randn(1), randn(b, 64, 64, 1),
+             randn(b, 64, 64, 1), *coefs, 2.0 if cfg else None)
+        k1_cases.append((n, a))
+        cases.insert(0, (f"K1 (F.conv2d + old K1 / new K1) h({n},64,64,128)", k1_old,
+                         sampler_step.fused_head_step, sampler_step.head_step_plain, a,
+                         1e-4))
+
+    # The new K1 at each band height and chunk width its plan chooses from,
+    # forced through the plan's module constants.
+    rows_all, chunks_all = sampler_step.ROWS, sampler_step.CHUNKS
+    for n, a in k1_cases:
+        picked = sampler_step.launch_plan(a[3].shape[0], 64, 64, 128, cfg=a[-1] is not None)
+        times = {}
+        for ck in chunks_all:
+            for rows in rows_all:
+                sampler_step.ROWS, sampler_step.CHUNKS = (rows,), (ck,)
+                err = (sampler_step.fused_head_step(*a)
+                       - sampler_step.head_step_plain(*a)).abs().max().item()
+                if not err <= 1e-4:
+                    raise SystemExit(f"K1 rows={rows} ck={ck} at {n}: max abs err {err}")
+                times[(rows, ck)] = chip_smoke.time_ms(sampler_step.fused_head_step, a)
+        sampler_step.ROWS, sampler_step.CHUNKS = rows_all, chunks_all
+        print(f"new K1 by (rows, channels per chunk) at decoder batch {n}: "
+              + ", ".join(f"{k}: {t:.5f} ms" for k, t in times.items())
+              + f" (the plan picks {picked})", flush=True)
 
     for label, f_old, f_new, f_plain, a, tol in cases:
         want = f_plain(*a)

@@ -3,7 +3,8 @@
     python scripts/profile_torch_serving.py [--steps 40] [--batch 16]
 
 Loads the certified checkpoint, then for w=2 and w=0 runs ``--steps``
-strided-DDPM steps of the certified row's schedule at ``--batch`` maps under
+strided-DDPM steps of the certified row's schedule at ``--batch`` maps (on
+the first of the certification's test-split contexts) under
 ``torch.profiler`` (CPU and CUDA activity), after one unprofiled warm-up
 pass.  Prints per row: wall ms per step, device-busy ms per step (sum of
 kernel times), the idle share, and the kernels by device time, with this
@@ -21,7 +22,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OURS = ("sampler_step_kernel", "groupnorm_act_kernel", "film_kernel")
+OURS = ("head_step_kernel", "groupnorm_act_kernel", "film_kernel")
 
 
 def _device_us(evt) -> float:
@@ -42,7 +43,11 @@ def main(argv=None) -> int:
 
     from camels_diffusion_model_tpu_torch.diffusion.ddim import ddim_timesteps, sample_ddim
     from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
-    from camels_diffusion_model_tpu_torch.serving import load_model, resolve_serving_config
+    from camels_diffusion_model_tpu_torch.serving import (
+        certification_contexts,
+        load_model,
+        resolve_serving_config,
+    )
     from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
 
     if not torch.cuda.is_available():
@@ -67,7 +72,7 @@ def main(argv=None) -> int:
         def run():
             out = sample_ddim(model, schedule, torch.Generator(device=dev).manual_seed(0),
                               n_sample=args.batch, guide_w=cfg.guide_w, taus=taus,
-                              device=dev)
+                              params=certification_contexts(args.batch), device=dev)
             torch.cuda.synchronize()
             return out
 

@@ -3,11 +3,13 @@
     python scripts/torch_serving_pk_check.py --guide-w 2 --n 64 [--first-seed 100]
 
 Serves ``--n`` maps of the certified row through ``cli.serve`` in fp32
-(batches of 32, seeds ``--first-seed``, +1, ...; each batch draws its own
-contexts) and prints the mean P(k) over the reference's P(k) per linear
-bin, against the N=16384 exact chain of seed A under
-``artifacts/certification/n16k/``, and its mean over three bands of bins.
-A diagnostic on the card, not the statistical hold (ROADMAP item 10).
+(batches of 32, seeds ``--first-seed``, +1, ...) on the first ``--n`` of
+the certification's test-split contexts (``serving.certification_contexts``),
+the contexts the references were sampled on, and prints the mean P(k) over
+the reference's P(k) per linear bin, against the N=16384 exact chain of
+seed A under ``artifacts/certification/n16k/``, and its mean over three
+bands of bins.  A diagnostic on the card, not the statistical hold
+(ROADMAP section 1, item 3).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from camels_diffusion_model_tpu_torch.cli.serve import serve  # noqa: E402
+from camels_diffusion_model_tpu_torch.serving import certification_contexts  # noqa: E402
 
 REFS = os.path.join(REPO, "artifacts", "certification", "n16k")
 
@@ -37,8 +40,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     w = int(args.guide_w)
+    contexts = certification_contexts(args.n)
     pk = np.concatenate([
-        serve(w, 32, os.path.join(REPO, "build", "pk_check"), seed=args.first_seed + s)["pk"]
+        serve(w, 32, os.path.join(REPO, "build", "pk_check"), seed=args.first_seed + s,
+              params=contexts[32 * s:32 * (s + 1)])["pk"]
         for s in range(args.n // 32)
     ])
     ref = np.load(os.path.join(REFS, f"w{w}", "DDPM_1500_seed_A.npz"))["pk"]

@@ -20,8 +20,8 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     launch_plan,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
-    fused_sampler_step,
-    sampler_step_plain,
+    fused_head_step,
+    head_step_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -34,6 +34,13 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def fp32_convs(monkeypatch):
+    """cuDNN convolutions in full fp32: the plain versions' F.conv2d would
+    run in TF32 otherwise (three decimal digits)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
 def _randn(dev, *shape, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randn(shape, generator=g, device=dev)
@@ -41,18 +48,45 @@ def _randn(dev, *shape, seed=0):
 
 @pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
 @pytest.mark.parametrize("with_z", [True, False])
-def test_sampler_step_kernel_matches_plain(dev, w, with_z):
-    """FMA contraction only: atol 1e-5."""
-    x, z = _randn(dev, 5, 64, 64, 1, seed=1), _randn(dev, 5, 64, 64, 1, seed=2)
-    eps = _randn(dev, 10 if w is not None else 5, 64, 64, 1, seed=3)
+@pytest.mark.parametrize("b", [16, 4, 2])
+def test_head_step_kernel_at_the_path_shapes(dev, fp32_convs, b, with_z, w):
+    """Output conv + guidance + step on (2B or B, 64, 64, 128) features,
+    the path's shapes at B = 16 (decoder batch 32 under CFG, 16 without)
+    and 4, and B = 2; sigma = 0 skips z.  The conv's 1152-term sums are
+    taken in another order than cuDNN's: atol 1e-4."""
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, 64, 64, 128, seed=1).relu()
+    weight = _randn(dev, 1, 128, 3, 3, seed=2).mul(0.05).contiguous(
+        memory_format=torch.channels_last)
+    bias = _randn(dev, 1, seed=3)
+    x, z = _randn(dev, b, 64, 64, 1, seed=4), _randn(dev, b, 64, 64, 1, seed=5)
     if w == "per-sample":
-        w = torch.linspace(0.5, 3.0, 5, device=dev)
+        w = torch.linspace(0.5, 3.0, b, device=dev)
     sigma = 0.3 if with_z else 0.0
-    args = (x, eps, z if with_z else None, 0.02, 1.01, sigma, w)
-    before = fused_sampler_step.launches
-    got = fused_sampler_step(*args)
-    assert fused_sampler_step.launches == before + 1
-    torch.testing.assert_close(got, sampler_step_plain(*args), atol=1e-5, rtol=0)
+    args = (h, weight, bias, x, z if with_z else None, 0.02, 1.01, sigma, w)
+    before = fused_head_step.launches
+    got = fused_head_step(*args)
+    assert fused_head_step.launches == before + 1
+    torch.testing.assert_close(got, head_step_plain(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(3, 64, 64, 128), (2, 16, 16, 48), (2, 16, 16, 8),
+                                   (2, 12, 12, 12)])
+def test_head_step_kernel_every_plan(dev, fp32_convs, monkeypatch, rows, shape):
+    """Every band height (3 leaves a ragged band) and chunk width (32, 16,
+    8 and 4 channels) under CFG and without, an odd batch: atol 1e-4."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "ROWS", (rows,))
+    b, hw, _, c = shape
+    weight, bias = _randn(dev, 1, c, 3, 3, seed=2) * 0.1, _randn(dev, 1, seed=3)
+    for cfg in (True, False):
+        h = _randn(dev, 2 * b if cfg else b, hw, hw, c, seed=1).relu()
+        x, z = _randn(dev, b, hw, hw, 1, seed=4), _randn(dev, b, hw, hw, 1, seed=5)
+        args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, 2.0 if cfg else None)
+        torch.testing.assert_close(fused_head_step(*args), head_step_plain(*args),
+                                   atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("act", ["relu", "gelu", "leaky_relu", "none"])
@@ -146,10 +180,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fused_film(x, _randn(dev, 3, 16), row)
     with pytest.raises(ValueError, match="groups"):
         fused_groupnorm_act(_randn(dev, 2, 4, 4, 12), row[0, :12], row[0, :12])
-    with pytest.raises(ValueError, match="eps must be"):
-        fused_sampler_step(x, x, x, 0.1, 1.0, 0.1, 2.0)
+    weight, bias = _randn(dev, 1, 16, 3, 3), _randn(dev, 1)
+    x1 = _randn(dev, 2, 8, 8, 1)
+    with pytest.raises(ValueError, match="samples"):
+        fused_head_step(x, weight, bias, x1, x1, 0.1, 1.0, 0.1, 2.0)
     with pytest.raises(ValueError, match="contiguous float32"):
-        fused_sampler_step(x, x.cpu(), x, 0.1, 1.0, 0.1)
+        fused_head_step(x, weight, bias, x1.cpu(), x1, 0.1, 1.0, 0.1)
+    with pytest.raises(ValueError, match="one output channel"):
+        fused_head_step(x, _randn(dev, 2, 16, 3, 3), bias, x1, x1, 0.1, 1.0, 0.1)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_head_step(_misaligned(x), weight, bias, x1, x1, 0.1, 1.0, 0.1)
 
 
 @pytest.mark.parametrize("guide_w", [0.0, 2.0])

@@ -1,6 +1,6 @@
 """PyTorch port: each kernel's plain version (what its wrapper runs on CPU
 tensors) against the JAX Pallas kernel in interpret mode and the JAX XLA
-path, on the same numpy inputs."""
+path, on the same numpy inputs; the launch plans' index maps."""
 
 import numpy as np
 import pytest
@@ -30,13 +30,15 @@ from camels_diffusion_model_tpu_torch.diffusion.schedule import (
 from camels_diffusion_model_tpu_torch.ops import _build
 from camels_diffusion_model_tpu_torch.ops import film as film_ops
 from camels_diffusion_model_tpu_torch.ops import groupnorm as groupnorm_ops
+from camels_diffusion_model_tpu_torch.ops import sampler_step as sampler_step_ops
 from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
     groupnorm_act_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
-    fused_sampler_step,
+    fused_head_step,
+    head_step_plain,
     sampler_step_plain,
 )
 
@@ -71,7 +73,7 @@ def test_sampler_step_ddpm_matches_jax_xla(t, w):
     want = np.asarray(jax_p_sample_step(jax_make_schedule(T), jnp.asarray(x), t, eps_j, z_j))
     c_eps, inv_sqrt_a, sigma = ddpm_coefficients(make_schedule(T), torch.tensor([t]))[0].tolist()
     w_t = torch.tensor(w_val) if w == "per-sample" else w_val
-    got = fused_sampler_step(
+    got = sampler_step_plain(
         torch.tensor(x), torch.tensor(eps), torch.tensor(z) if t > 1 else None,
         c_eps, inv_sqrt_a, sigma, w_t,
     )
@@ -86,7 +88,7 @@ def test_sampler_step_matches_jax_pallas_interpret(t):
     want = np.asarray(jax_fused_p_sample_step(
         s.beta, s.alpha, s.alpha_bar, x, t, eps, z, interpret=True))
     c = ddpm_coefficients(make_schedule(T), torch.tensor([t]))[0].tolist()
-    got = fused_sampler_step(torch.tensor(x), torch.tensor(eps), torch.tensor(z), *c)
+    got = sampler_step_plain(torch.tensor(x), torch.tensor(eps), torch.tensor(z), *c)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
@@ -108,7 +110,7 @@ def test_sampler_step_beta_coefficients_match_jax_ddim(stride, w):
         sigma = jnp.where(t_prev > 0, jnp.sqrt(jnp.clip(1.0 - a_jump, 0.0, None)), 0.0)
         want = np.asarray(mean + sigma * z)
         c_eps, inv_sqrt_a, sig = coefs[k]
-        got = fused_sampler_step(
+        got = sampler_step_plain(
             torch.tensor(x), torch.tensor(eps), torch.tensor(z) if t_prev > 0 else None,
             c_eps, inv_sqrt_a, sig, w,
         )
@@ -118,7 +120,181 @@ def test_sampler_step_beta_coefficients_match_jax_ddim(stride, w):
 def test_sampler_step_requires_z_when_sigma_nonzero():
     x, eps, _ = _inputs(0, False)
     with pytest.raises(ValueError, match="sigma"):
-        fused_sampler_step(torch.tensor(x), torch.tensor(eps), None, 0.1, 1.0, 0.5)
+        sampler_step_plain(torch.tensor(x), torch.tensor(eps), None, 0.1, 1.0, 0.5)
+    h = torch.zeros(B, 16, 16, 8)
+    with pytest.raises(ValueError, match="sigma"):
+        fused_head_step(h, torch.zeros(1, 8, 3, 3), torch.zeros(1), torch.tensor(x),
+                        None, 0.1, 1.0, 0.5)
+
+
+# ---- K1: output conv + guidance + step ---------------------------------------
+
+def _head_inputs(seed, cfg, b=B, hw=16, c=16):
+    rs = np.random.RandomState(seed)
+    h = np.maximum(rs.randn(2 * b if cfg else b, hw, hw, c), 0).astype(np.float32)
+    kernel = (rs.randn(3, 3, c, 1) * 0.1).astype(np.float32)  # flax HWIO
+    bias = rs.randn(1).astype(np.float32)
+    x, z = (rs.randn(b, hw, hw, 1).astype(np.float32) for _ in range(2))
+    return h, kernel, bias, x, z
+
+
+def _torch_head(kernel, bias):
+    """flax HWIO (3, 3, C, 1) -> torch OIHW (1, C, 3, 3)."""
+    return torch.tensor(kernel.transpose(3, 2, 0, 1).copy()), torch.tensor(bias)
+
+
+@pytest.mark.parametrize("t", [1, 17, T])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+def test_head_step_plain_matches_jax_conv_and_pallas_step(t, w):
+    """out_conv2 through ``lax.conv_general_dilated`` (SAME, as the flax
+    ``nn.Conv`` of ``context_unet.py:314``), the CFG combine of
+    ``sampler.py::_combine_cfg``, then the Pallas ``fused_p_sample_step``
+    in interpret mode (z = 0 at t = 1).  Conv sums of 144 terms in another
+    order, then one step: atol 2e-6."""
+    cfg = w is not None
+    h, kernel, bias, x, z = _head_inputs(t, cfg)
+    w_val = np.array([1.5, 3.0], np.float32) if w == "per-sample" else w
+    eps = jax.lax.conv_general_dilated(
+        jnp.asarray(h), jnp.asarray(kernel), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC")) + bias
+    if cfg:
+        eps = _combine_cfg(eps[:B], eps[B:], w_val)
+    z_j = z if t > 1 else np.zeros_like(z)
+    s = jax_make_schedule(T)
+    want = np.asarray(jax_fused_p_sample_step(
+        s.beta, s.alpha, s.alpha_bar, x, t, eps, z_j, interpret=True))
+    c_eps, inv_sqrt_a, sigma = ddpm_coefficients(make_schedule(T), torch.tensor([t]))[0].tolist()
+    w_t = torch.tensor(w_val) if w == "per-sample" else w_val
+    got = head_step_plain(torch.tensor(h), *_torch_head(kernel, bias), torch.tensor(x),
+                          torch.tensor(z) if t > 1 else None, c_eps, inv_sqrt_a, sigma, w_t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+def _head_kernel_index_map(plan, units, height, width, cfg):
+    """The index maps of ``csrc/head_step.cu`` under ``plan``: per CTA
+    (unit major, band minor) the tile rows' (sample, input row, column) and
+    the output pixels' (unit, row, column), each as arrays."""
+    t = plan.threads
+    npix = (plan.rows + 2) * width
+    bands = -(-height // plan.rows)
+    k = np.arange(2 * t)
+    half = (k >= t).astype(np.int64)
+    for cta in range(units * bands):
+        unit, y0 = cta // bands, (cta % bands) * plan.rows
+        sample = unit + half * units if cfg else np.full_like(k, unit)
+        pix = k - half * t if cfg else k
+        assert (pix < npix).all()
+        staged = (sample, y0 - 1 + pix // width, pix % width)
+        o = np.arange(min(plan.rows, height - y0) * width)
+        out = (unit, y0 + o // width, o % width)
+        yield staged, out
+
+
+@pytest.mark.parametrize("units,cfg", [(16, True), (16, False), (4, False)])
+def test_head_launch_plan_at_the_path_shapes(units, cfg):
+    """Decoder batches 32 (w=2: 16 pairs), 16 (w=0) and 4 (exact chain) at
+    64x64x128: every output pixel is written once, every staged pixel of a
+    band is one of its rows or their halo, each band stages all of them,
+    the band is the tallest whose grid keeps one CTA per SM, the chunk the
+    one that keeps the most CTAs resident (two an SM fit at w=0, where the
+    grid has two an SM to run), and a CTA's shared memory fits in 227 KB."""
+    plan = sampler_step_ops.launch_plan(units, 64, 64, 128, cfg=cfg, sms=132)
+    assert (plan.rows, plan.ck) == {(16, True): (4, 32), (16, False): (4, 16),
+                                    (4, False): (2, 32)}[units, cfg]
+    assert plan.ctas >= sampler_step_ops.MIN_CTAS >= 128
+    resident = sampler_step_ops.SM_SMEM // (plan.smem_bytes + 1024)
+    assert resident == (1 if cfg else 2)
+    assert plan.smem_bytes <= 227 * 1024 and plan.threads <= sampler_step_ops.MAX_THREADS
+    written = np.zeros((units, 64, 64), np.int64)
+    ctas = 0
+    for (sample, gy, gx), (unit, oy, ox) in _head_kernel_index_map(plan, units, 64, 64, cfg):
+        ctas += 1
+        np.add.at(written, (unit, oy, ox), 1)
+        samples = (unit, unit + units) if cfg else (unit,)
+        need = {(s, y, x) for s in samples for y in range(oy.min() - 1, oy.max() + 2)
+                for x in range(64)}
+        assert set(zip(sample.tolist(), gy.tolist(), gx.tolist())) == need
+    assert ctas == plan.ctas
+    assert (written == 1).all()
+
+
+def _emulate_head_kernel(plan, h, wt, bias, x, z, c_eps, inv_sqrt_a, sigma, w, cfg):
+    """``csrc/head_step.cu`` in numpy: stage each CTA's tile rows (zero
+    outside the map), reduce them into 9 per-tap partials, gather each
+    output pixel's 3x3 neighbourhood from the partials, combine, step."""
+    units, height, width = x.shape[:3]
+    out = np.full(x.shape[:3], np.nan, np.float32)
+    for (sample, gy, gx), (unit, oy, ox) in _head_kernel_index_map(plan, units, height, width, cfg):
+        valid = (gy >= 0) & (gy < height)
+        tile = np.where(valid[:, None], h[sample, np.clip(gy, 0, height - 1), gx], 0.0)
+        part = tile @ wt.T  # (2T, 9)
+        r = oy - oy.min()
+        eps = []
+        for s in range(2 if cfg else 1):
+            acc = np.full(r.shape, bias[0], np.float64)
+            for ky in range(3):
+                for kx in range(3):
+                    col = ox + kx - 1
+                    ok = (col >= 0) & (col < width)
+                    idx = s * plan.threads + (r + ky) * width + np.clip(col, 0, width - 1)
+                    acc += np.where(ok, part[idx, ky * 3 + kx], 0.0)
+            eps.append(acc)
+        if cfg:
+            wu = w[unit] if isinstance(w, np.ndarray) else w
+            e = eps[1] + wu * (eps[0] - eps[1])
+        else:
+            e = eps[0]
+        v = (x[unit, oy, ox, 0] - e * c_eps) * inv_sqrt_a
+        if z is not None:
+            v = v + sigma * z[unit, oy, ox, 0]
+        out[unit, oy, ox] = v
+    return out[..., None]
+
+
+@pytest.mark.parametrize("rows", [None, 1, 2, 4, 5])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("hw,c", [(16, 8), (12, 12), (8, 48)])
+def test_head_kernel_algorithm_matches_plain(monkeypatch, rows, w, hw, c):
+    """The kernel's staging, per-tap partials and gather, emulated on the
+    CPU at narrow test widths and every band height (5 leaves a ragged last
+    band), against :func:`head_step_plain`: atol 1e-5."""
+    cfg = w is not None
+    h, kernel, bias, x, z = _head_inputs(len(str(w)) + (rows or 0), cfg, b=3, hw=hw, c=c)
+    w_val = np.array([1.5, 3.0, 0.5], np.float32) if w == "per-sample" else w
+    weight, bias_t = _torch_head(kernel, bias)
+    if rows is not None:
+        monkeypatch.setattr(sampler_step_ops, "ROWS", (rows,))
+    plan = sampler_step_ops.launch_plan(3, hw, hw, c, cfg=cfg)
+    assert rows in (None, plan.rows)
+    assert c % plan.ck == 0
+    wt = weight[0].permute(1, 2, 0).reshape(9, c).numpy().astype(np.float64)
+    got = _emulate_head_kernel(plan, h.astype(np.float64), wt, bias, x, z,
+                               0.02, 1.01, 0.3, w_val, cfg)
+    want = head_step_plain(torch.tensor(h), weight, bias_t, torch.tensor(x), torch.tensor(z),
+                           0.02, 1.01, 0.3,
+                           torch.tensor(w_val) if w == "per-sample" else w_val)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"cout": 2}, "one output channel"),
+    ({"c": 126}, "channels % 4"),
+    ({"aligned": False}, "aligned"),
+    ({"width": 63, "cfg": False}, "even width"),
+    ({"width": 512}, "takes no path"),
+])
+def test_head_launch_plan_raises_on_shapes_no_path_takes(kwargs, match):
+    args = {"units": 4, "height": 64, "width": 64, "c": 128, **kwargs}
+    with pytest.raises(ValueError, match=match):
+        sampler_step_ops.launch_plan(**args)
+
+
+def test_head_staged_pixels_hit_eight_bank_groups():
+    """A 16-byte shared-memory access serves 8 threads at a time; thread t
+    reads staged pixel t, so the stride in 16-byte slots must be odd."""
+    for ck in sampler_step_ops.CHUNKS:
+        slots = sampler_step_ops.staged_stride(ck) // 4
+        assert len({(t * slots) % 8 for t in range(8)}) == 8
 
 
 # ---- K2: GroupNorm + act ----------------------------------------------------
@@ -274,17 +450,18 @@ def test_film_matches_jax(scale_rows, shift_rows):
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     before = (fused_film.launches, fused_groupnorm_act.launches,
-              fused_sampler_step.launches)
+              fused_head_step.launches)
     x = torch.randn(2, 4, 4, 8)
     row = torch.randn(1, 8)
     assert torch.equal(fused_film(x, row, row), film_plain(x, row, row))
     g, b = torch.ones(8), torch.zeros(8)
     assert torch.equal(fused_groupnorm_act(x, g, b), groupnorm_act_plain(x, g, b))
-    e = torch.randn(4, 4, 4, 8)
-    assert torch.equal(fused_sampler_step(x, e, x, 0.1, 1.1, 0.2, 2.0),
-                      sampler_step_plain(x, e, x, 0.1, 1.1, 0.2, 2.0))
+    h, x1 = torch.randn(4, 4, 4, 8), torch.randn(2, 4, 4, 1)
+    head = (torch.randn(1, 8, 3, 3), torch.randn(1))
+    assert torch.equal(fused_head_step(h, *head, x1, x1, 0.1, 1.1, 0.2, 2.0),
+                       head_step_plain(h, *head, x1, x1, 0.1, 1.1, 0.2, 2.0))
     assert (fused_film.launches, fused_groupnorm_act.launches,
-            fused_sampler_step.launches) == before
+            fused_head_step.launches) == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -295,7 +472,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         fused_groupnorm_act(x, torch.empty(8, device="meta"), torch.empty(8, device="meta"))
     with pytest.raises(ValueError, match="device"):
-        fused_sampler_step(x, x, x, 0.1, 1.0, 0.1)
+        fused_head_step(x, torch.empty(1, 8, 3, 3, device="meta"),
+                        torch.empty(1, device="meta"), x[..., :1], x[..., :1], 0.1, 1.0, 0.1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -158,10 +158,26 @@ def test_decoder_runs_film_stage_0_as_the_groupnorm_epilogue(tiny, monkeypatch):
         port(x, t, c)
     names = [name for name, _ in calls]
     assert {n: names.count(n) for n in set(names)} == {
-        k: v for k, v in chip_smoke.LAUNCHES_PER_STEP.items() if k != "sampler_step"}
+        k: v for k, v in chip_smoke.LAUNCHES_PER_STEP.items() if k != "head_step"}
     up0, out = [args for name, args in calls if name == "groupnorm_act"]
     assert up0[0].shape == (3, 4, 4, 16) and out[6] is None
     assert torch.equal(up0[6][0], cemb1) and torch.equal(up0[6][1], temb1)
+
+
+def test_decode_is_out_conv2_of_decode_features(tiny):
+    """``decode`` = ``out_conv2`` of ``decode_features`` (bitwise), whose
+    output is out_norm's, channels_last, and what the samplers hand the
+    step kernel."""
+    _, variables = tiny
+    port = load_model(variables, "cpu")
+    x, t, c = (torch.tensor(a) for a in _inputs(7))
+    with torch.no_grad():
+        enc = port.encode(x)
+        feats = port.decode_features(enc, t, c)
+        assert feats.shape == (3, port.n_feat, 16, 16)
+        assert feats.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(port.decode(enc, t, c), blocks.to_nhwc(port.out_conv2(feats)))
+        assert torch.equal(port(x, t, c), port.decode(enc, t, c))
 
 
 def test_folded_equals_unfolded(tiny):

@@ -299,3 +299,70 @@ def test_serve_end_to_end_on_cpu(tiny, tmp_path, monkeypatch):
     assert os.path.dirname(r["path"]) == str(out)
     np.testing.assert_array_equal(saved["pk"], r["pk"])
     assert "maps" not in saved.files and float(saved["guide_w"]) == 2.0
+
+
+@pytest.fixture
+def recorded_serve(tiny, tmp_path, monkeypatch):
+    """``cli.serve`` on the mock certified tree with ``sample_ddim``
+    replaced by a recorder: returns (serve, the recorded calls)."""
+    _, variables, _ = tiny
+    data = serialization.to_bytes({**variables, "opt_state": {"mu": np.ones(3)}})
+    art = _mock_art_dir(tmp_path, steps=3, model_bytes=data)
+    calls = []
+
+    def record(model, schedule, generator, n_sample, size, params, **kw):
+        calls.append({"params": params, "n_sample": n_sample, **kw})
+        return torch.zeros(n_sample, size, size, 1)
+
+    monkeypatch.setattr(serve_cli, "sample_ddim", record)
+
+    def run(n, **kw):
+        return serve_cli.serve(2, n, str(tmp_path / "out"), device="cpu", art_dir=art, **kw)
+    return run, calls
+
+
+def test_serve_tiles_one_given_context(recorded_serve):
+    """One context, tiled to every map as ``cli/sample.py:127`` does."""
+    run, calls = recorded_serve
+    ctx = np.array([0.1, 0.9, 0.5], np.float32)
+    r = run(4, params=ctx)
+    np.testing.assert_array_equal(calls[0]["params"], np.tile(ctx, (4, 1)))
+    np.testing.assert_array_equal(r["params"], np.tile(ctx, (4, 1)))
+    assert calls[0]["guide_w"] == 2.0 and calls[0]["n_steps"] == 3
+
+
+def test_serve_passes_one_context_per_map_through(recorded_serve):
+    run, calls = recorded_serve
+    ctx = np.random.RandomState(0).rand(3, NC).astype(np.float32)
+    run(3, params=ctx)
+    np.testing.assert_array_equal(calls[0]["params"], ctx)
+    with pytest.raises(ValueError, match="params must be"):
+        run(2, params=ctx)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_serve_without_params_serves_the_jax_clis_context(recorded_serve, seed):
+    """The JAX serving CLI's context on this tree (data files absent): the
+    synthetic stand-in's 8 sets, min-max over them, the set
+    ``random.Random(seed).randint(0, 7)`` (``cli/sample.py:101-116``), cut
+    to the model's ``n_cfeat`` as ``:127`` does."""
+    import random
+
+    from camels_diffusion_model_tpu.data.synthetic import synthetic_camels
+
+    run, calls = recorded_serve
+    _, raw = synthetic_camels(n_param_sets=8, maps_per_set=1, size=8, seed=seed or 0)
+    norm = (raw - raw.min(axis=0)) / (raw.max(axis=0) - raw.min(axis=0) + 1e-8)
+    want = norm[random.Random(seed).randint(0, 7)].astype(np.float32)[:NC]
+    run(2, seed=seed)
+    np.testing.assert_array_equal(calls[0]["params"], np.tile(want, (2, 1)))
+
+
+def test_serve_cli_takes_params(recorded_serve, monkeypatch):
+    run, calls = recorded_serve
+    seen = {}
+    monkeypatch.setattr(serve_cli, "serve", lambda *a, **k: seen.update(a=a, k=k) or {
+        "config": "c", "guide_w": 2.0, "seconds": 1.0, "path": "p"})
+    serve_cli.main(["--guide-w", "2", "--n", "2", "--out", "o", "--params",
+                    "0.1", "0.2", "0.3", "0.4", "0.5", "0.6"])
+    assert seen["k"]["params"] == [0.1, 0.2, 0.3, 0.4, 0.5, 0.6]

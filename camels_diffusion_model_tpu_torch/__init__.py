@@ -7,11 +7,14 @@ model, activations are NCHW tensors in ``torch.channels_last`` memory, so the
 NHWC view that the hand-written kernels take is free.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
-raise when CUDA is absent.  On a CPU tensor each kernel wrapper runs its plain
+raise when CUDA is absent.  Those that run the model (``cli.serve``, the
+likelihood passes) run it in fp32 with TF32 off (:func:`fp32_math`).  On a CPU tensor each kernel wrapper runs its plain
 PyTorch version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,3 +36,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Run the block in fp32: cuDNN convolutions and cuBLAS matmuls with
+    TF32 off (torch lets cuDNN use TF32 by default, about three decimal
+    digits).  Restores the caller's two flags on exit; usable as a
+    decorator."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul

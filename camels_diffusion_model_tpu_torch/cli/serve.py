@@ -11,6 +11,12 @@ applies the row's spectral calibration, computes the linear- and log-bin
 P(k), and writes them to one small ``.npz`` under ``DIR``.  The port of
 ``sample_power_spectra.py --serving`` without its plot.  Runs on CUDA
 unless ``--device cpu``.
+
+Precision: fp32 throughout.  ``serve`` turns TF32 off for cuDNN's
+convolutions and cuBLAS's matmuls while it runs and restores the caller's
+settings after it (``fp32_math``); torch's default would let the
+convolutions run in TF32, which is not what the certified rows were checked
+against on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import fp32_math, resolve_device
 from ..diffusion.calibration import SpectralCalibration, apply_spectral_calibration
 from ..diffusion.ddim import sample_ddim
 from ..data.synthetic import synthetic_params
@@ -61,15 +67,17 @@ def serving_params(params, n: int, seed: int = 0, n_cfeat: int = 6) -> np.ndarra
     return p
 
 
+@fp32_math()
 def serve(guide_w: float, n: int, out_dir: str, seed: int = 0,
           device=None, art_dir=None, params=None) -> dict:
     """Serve ``n`` calibrated maps of the certified row for ``guide_w`` on
     the normalised contexts ``params``: one ``(6,)``, tiled, or one per map
     ``(n, 6)``; None serves :func:`default_params` of ``seed``.
 
-    Returns the maps ``(n, 64, 64, 1)`` (a tensor on ``device``), their
-    spectra, the contexts, the row and the wall seconds of sampling through
-    P(k); writes everything but the maps to ``out_dir/serve_w{w}_n{n}.npz``.
+    Runs in fp32 with TF32 off (:func:`fp32_math`).  Returns the maps
+    ``(n, 64, 64, 1)`` (a tensor on ``device``), their spectra, the
+    contexts, the row and the wall seconds of sampling through P(k); writes
+    everything but the maps to ``out_dir/serve_w{w}_n{n}.npz``.
     """
     device = resolve_device(device)
     cfg = resolve_serving_config(guide_w, art_dir)
@@ -102,7 +110,10 @@ def serve(guide_w: float, n: int, out_dir: str, seed: int = 0,
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="Precision: fp32; TF32 is off for the convolutions and "
+               "matmuls while the maps are served.")
     ap.add_argument("--guide-w", type=float, required=True,
                     help="guidance weight of a certified row (0 or 2)")
     ap.add_argument("--n", type=int, default=16, help="maps to serve")

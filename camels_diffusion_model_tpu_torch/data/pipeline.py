@@ -1,9 +1,9 @@
-"""Parameter normalisation and the train/test split (counterpart of
-``camels_diffusion_model_tpu/data/pipeline.py``, numpy)."""
+"""Parameter normalisation, the train/test split and the batch iterator
+(counterpart of ``camels_diffusion_model_tpu/data/pipeline.py``, numpy)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -48,3 +48,22 @@ def train_test_split(
     permutation) (``pipeline.py:130-137``)."""
     perm = np.random.default_rng(seed).permutation(n_total)
     return perm[: n_total - test_size], perm[n_total - test_size :], perm
+
+
+def batch_iterator(
+    x: np.ndarray,
+    c: np.ndarray,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    shuffle: bool = True,
+    drop_last: bool = False,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """One epoch of ``(x, c)`` batches of host arrays, shuffled by ``rng``
+    or in order (``pipeline.py:202-220``)."""
+    idx = np.arange(x.shape[0])
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(idx)
+    end = (x.shape[0] // batch_size) * batch_size if drop_last else x.shape[0]
+    for start in range(0, end, batch_size):
+        sel = idx[start : start + batch_size]
+        yield x[sel], c[sel]

@@ -10,11 +10,13 @@ of the loop (``:369-381``): the context MLPs run once per call and the time
 MLPs once for all ``T + 1`` timesteps.  With
 ``guide_w == 0`` the model runs once per step with the conditional context
 and no guidance, as in the reference; ``z = 0`` at ``t == 1``.
+``sample_ddpm_from_noise`` runs the same chain from given noisy maps and
+keeps the states of the reference's save schedule (``sampler.py:95-102``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -27,6 +29,21 @@ from .schedule import DDPMSchedule, ddpm_coefficients
 # z_fn(step, t) -> z for reverse step number ``step`` (0 first) at timestep
 # ``t``: the tests' hook for feeding both packages the same noise.
 ZFn = Callable[[int, int], torch.Tensor]
+
+
+class SamplerOutput(NamedTuple):
+    x: torch.Tensor  # final samples, (B, H, W, C)
+    intermediate: torch.Tensor  # saved states, (n_saves, B, H, W, C)
+
+
+def save_schedule(timesteps: int, save_rate: int) -> tuple:
+    """``(mask, slots, n_saves)``: which of the reversed steps ``T..1`` keep
+    the state they produce (``t % save_rate == 0``, ``t == T`` or ``t <
+    8``), and the chronological slot of each (``sampler.py:95-102``)."""
+    steps = np.arange(timesteps, 0, -1)
+    mask = (steps % save_rate == 0) | (steps == timesteps) | (steps < 8)
+    slots = np.cumsum(mask) - 1
+    return mask.astype(np.bool_), slots.astype(np.int32), int(mask.sum())
 
 
 def guidance(guide_w, batch: int, device) -> tuple:
@@ -118,20 +135,58 @@ def sample_ddpm(
     x, params, use_cfg, w = prepare(
         model, n_sample, size, params, guide_w, x_init, generator, device
     )
+    x, _ = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn)
+    return x
+
+
+def sample_ddpm_from_noise(
+    model,
+    schedule: DDPMSchedule,
+    generator: torch.Generator,
+    noise_images,
+    params=None,
+    guide_w=0.0,
+    save_rate: int = 20,
+    device=None,
+    z_fn: Optional[ZFn] = None,
+) -> SamplerOutput:
+    """The exact ``T``-step chain seeded with forward-diffused maps
+    ``noise_images`` ``(B, H, W, C)`` (``sampler.py:344-366``).
+    ``params=None`` means the zero context, and then no guidance.  Returns
+    the samples and the states of :func:`save_schedule` in chronological
+    order; other arguments as :func:`sample_ddpm`."""
+    noise_images = torch.as_tensor(noise_images)
+    if params is None:
+        params = torch.zeros(noise_images.shape[0], model.n_cfeat)
+        guide_w = 0.0
+    x, params, use_cfg, w = prepare(
+        model, None, None, params, guide_w, noise_images, generator, device
+    )
+    mask, _, _ = save_schedule(schedule.timesteps, save_rate)
+    x, saved = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator,
+                           z_fn, mask)
+    return SamplerOutput(x, torch.stack(saved))
+
+
+def _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
+                save_mask=None):
     steps = torch.arange(schedule.timesteps, 0, -1)
     coefs = ddpm_coefficients(schedule, steps)
     return run_chain(model, x, params, use_cfg, w, schedule.timesteps,
-                     steps.tolist(), coefs, generator, z_fn)
+                     steps.tolist(), coefs, generator, z_fn, save_mask)
 
 
 def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
-              coefs: torch.Tensor, generator, z_fn: Optional[ZFn]):
-    """The reverse loop of both samplers: at each timestep of ``steps``
+              coefs: torch.Tensor, generator, z_fn: Optional[ZFn],
+              save_mask: Optional[np.ndarray] = None):
+    """The reverse loop of the samplers: at each timestep of ``steps``
     (descending) the decoder's features and one launch of the step kernel
     (output conv, guidance, update) with that step's ``[c_eps, inv_sqrt_a,
     sigma]`` row of ``coefs``; z is drawn (or taken from ``z_fn``) only
-    where sigma is not 0."""
+    where sigma is not 0.  Returns the last state and the list of the
+    states of the steps where ``save_mask`` (one bool a step) is set."""
     head = model.out_conv2
+    saved = []
     with torch.inference_mode():
         tables = film_tables(model, params, timesteps, use_cfg)
         for k, (t, (c_eps, inv_sqrt_a, sigma)) in enumerate(zip(steps, coefs.tolist())):
@@ -142,4 +197,6 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
                      torch.randn(x.shape, generator=generator, device=x.device))
             x = fused_head_step(h, head.weight, head.bias, x, z, c_eps,
                                 inv_sqrt_a, sigma, w)
-    return x
+            if save_mask is not None and save_mask[k]:
+                saved.append(x)
+    return x, saved

@@ -1,16 +1,33 @@
-"""DDPM noise schedule and the reverse-step coefficients.
+"""DDPM noise schedule, the forward perturbation and the reverse-step
+coefficients.
 
 Counterpart of ``camels_diffusion_model_tpu/diffusion/schedule.py``:
-``make_schedule`` (``:68-85``) and ``p_sample_step`` in its rsqrt form
-(``:116-133``).  The schedule lives on the CPU in fp32: the samplers read
-three scalar coefficients per step from it and hand them to the step kernel.
+``NoiseScaling`` (``:32``), ``make_schedule`` (``:68-85``), ``q_sample`` in
+both scalings (``:97``), ``p_sample_step`` in its rsqrt form (``:116-133``)
+and ``ddpm_loss`` (``:136``).  The schedule lives on the CPU in fp32: the
+samplers read three scalar coefficients per step from it and hand them to
+the step kernel; ``q_sample`` gathers its coefficients there and moves them
+to the maps' device.
 """
 
 from __future__ import annotations
 
+import enum
 from typing import NamedTuple
 
 import torch
+
+
+class NoiseScaling(str, enum.Enum):
+    """Which ``q_sample`` noise scaling to use.
+
+    REFERENCE: ``sqrt(ab_t) * x + (1 - ab_t) * noise``, the form of the
+    reference's trainers and of its NLL sweep.  STANDARD: ``sqrt(ab_t) * x
+    + sqrt(1 - ab_t) * noise``, the textbook form of its ELBO evaluator.
+    """
+
+    REFERENCE = "reference"
+    STANDARD = "standard"
 
 
 class DDPMSchedule(NamedTuple):
@@ -57,3 +74,30 @@ def p_sample_step(schedule: DDPMSchedule, x, t: int, eps, z):
     c_eps = float((1.0 - a) * torch.rsqrt(1.0 - schedule.alpha_bar[t]))
     mean = (x - eps * c_eps) * float(torch.rsqrt(a))
     return mean + float(torch.sqrt(schedule.beta[t])) * z
+
+
+def _bcast_t(coeff: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
+    """``coeff[t]`` broadcastable against ``like`` (``schedule.py:88-94``):
+    for a scalar ``t`` a 0-d CPU tensor, which torch applies to a tensor on
+    any device as a scalar; for a ``(B,)`` one ``(B, 1, ...)`` on
+    ``like``'s device."""
+    g = coeff[torch.as_tensor(t, dtype=torch.long).cpu()]
+    if g.dim() == 0:
+        return g
+    return g.reshape(g.shape + (1,) * (like.dim() - g.dim())).to(like.device)
+
+
+def q_sample(schedule: DDPMSchedule, x0: torch.Tensor, t, noise: torch.Tensor,
+             scaling: NoiseScaling = NoiseScaling.REFERENCE) -> torch.Tensor:
+    """Forward-diffuse ``x0`` to integer timestep ``t`` (scalar or ``(B,)``,
+    in ``[0, T]``) with ``noise`` of ``x0``'s shape."""
+    ab = _bcast_t(schedule.alpha_bar, t, x0)
+    omab = 1.0 - ab
+    if NoiseScaling(scaling) == NoiseScaling.REFERENCE:
+        return torch.sqrt(ab) * x0 + omab * noise
+    return torch.sqrt(ab) * x0 + torch.sqrt(omab) * noise
+
+
+def ddpm_loss(pred_noise: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The epsilon-prediction MSE, a 0-d tensor."""
+    return torch.mean(torch.square(pred_noise - noise))

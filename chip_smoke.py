@@ -18,14 +18,29 @@ Phases, each timed on its own line:
       test-split contexts (``serving.certification_contexts``), the
       contexts of the exact-chain references;
   (f) the exact 1500-step DDPM at w=0 on 4 maps, on the first 4;
-  (g) neither ``jax`` nor ``camels_diffusion_model_tpu`` was imported.
+  (g) neither ``jax`` nor ``camels_diffusion_model_tpu`` was imported;
+  (h) the certification's battery on the maps (e) served: the pooled pixel
+      PDF and its TV distance to the exact-chain reference, and ELBO/BPD
+      with a fixed generator beside the reference's (information: N=16);
+      gate: the ELBO of 2 maps on the card vs the CPU, same noise;
+  (i) the NLL sweep over all 1500 timesteps at batch 4 on the exact
+      chain's maps of (f); gates: finite, and t = 1..8 on the card vs the
+      CPU, same noise;
+  (j) DDIM in its posterior mode, eta 0, 50 steps, w=2, 16 maps; gate: its
+      last four steps on the card vs the CPU;
+  (k) reconstruction: 4 served maps forward-diffused to t = T (reference
+      scaling), then the exact chain from that noise with its saved
+      intermediates; gate: their count.
 
-Each of the three paths of (e)-(f) -- serving at w=2, serving at w=0, the
-exact chain -- is driven with every kernel's launch count set to 0 just
-before it and read just after; a kernel that did not launch on one of them,
-or launched other than ``LAUNCHES_PER_STEP`` times a step, fails the run;
-so does a separate conv to one channel (``out_conv2``, which the step
-kernel applies) on any of them.
+Each main path -- serving at w=2 and w=0, the exact chain, the battery's
+ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction -- is
+driven with every kernel's launch count set to 0 just before it and read
+just after, and must show its expected counts: a sampler path
+``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
+which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
+a forward and one conv to one channel each (the JAX package runs
+``out_conv2`` as an XLA conv there too).  The whole run is fp32 with TF32
+off.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -44,9 +59,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from camels_diffusion_model_tpu_torch.cli.experiment import reconstruct
 from camels_diffusion_model_tpu_torch.cli.serve import TIMESTEPS, serve
-from camels_diffusion_model_tpu_torch.diffusion.ddim import sample_ddim
-from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
+from camels_diffusion_model_tpu_torch.diffusion.ddim import ddim_timesteps, sample_ddim
+from camels_diffusion_model_tpu_torch.diffusion.likelihood import (
+    calculate_elbo_and_bpd,
+    elbo_bpd_batch,
+    nll_batch,
+)
+from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm, save_schedule
 from camels_diffusion_model_tpu_torch.diffusion.schedule import (
     ddpm_coefficients,
     make_schedule,
@@ -62,6 +83,7 @@ from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     head_step_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
+from camels_diffusion_model_tpu_torch.ops.stats import PooledPdf, pdf_tv
 from camels_diffusion_model_tpu_torch.serving import (
     certification_contexts,
     load_model,
@@ -110,6 +132,13 @@ LIBRARY = {
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
 LAUNCHES_PER_STEP = {"head_step": 1, "groupnorm_act": 2, "film": 1}
+# Launches per forward of the likelihood passes: the decoder's K2 (twice)
+# and K3, and out_conv2 as a conv (K1 is a sampler's step).
+LAUNCHES_PER_FORWARD = {"head_step": 0, "groupnorm_act": 2, "film": 1}
+# Card vs CPU on the likelihood passes, relative to the largest value: the
+# NLL's weight 1/(2 b_1) = 4.4e3 puts the whole sum on t = 1's eps.
+LIKELIHOOD_REL = 1e-4
+ELBO_SEED = 4242  # the certification's fixed ELBO rng (certify_fast_sampler.py:284)
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
                   "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
@@ -175,8 +204,9 @@ def time_ms(fn, args, iters: int = 20, replays: int = 5) -> float:
 
 def check_kernels(dev, model) -> dict:
     """Phase (c): each kernel vs its plain version at the shapes each main
-    path gives it: serving w=2 (decoder batch 32), serving w=0 (16) and the
-    exact chain (4).
+    path gives it: serving w=2 (decoder batch 32; posterior DDIM's too),
+    serving w=0 (16; the battery's ELBO forwards too) and the exact chain
+    (4; the NLL sweep's and reconstruction's too).
 
     Returns per kernel the worst error over all its cases and the summed
     times and bounds of its summed cases: the launch of one reverse step
@@ -303,29 +333,49 @@ def check_golden(dev, model) -> None:
             raise SystemExit(f"golden forward {label}: {err} > {GOLDEN_TOL}")
 
 
-def check_sampler_vs_cpu(dev, variables) -> None:
-    """Phase (d): the last four steps of the certified w=2 row (t = 10, 7,
-    4, 1 -> 0) at full width on the card (the kernels) vs the CPU (their
-    plain versions), same x_init, params and z.  Wide jumps would amplify
-    the fp32 differences of the convs by 1/sqrt(a_jump) per step."""
+def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str) -> None:
+    """The steps ``taus`` (the last ones of a row) of the guided w=2 sampler
+    at full width on the card (the kernels) vs the CPU (their plain
+    versions), same x_init, params and z; ``models`` = (card, CPU).  Wide
+    jumps would amplify the fp32 differences of the convs by 1/sqrt(a_jump)
+    per step."""
     rs = np.random.RandomState(0)
     x0 = rs.randn(2, 64, 64, 1).astype(np.float32)
     params = rs.rand(2, 6).astype(np.float32)
-    zs = [torch.tensor(rs.randn(2, 64, 64, 1).astype(np.float32)) for _ in range(3)]
+    zs = [torch.tensor(rs.randn(2, 64, 64, 1).astype(np.float32)) for _ in taus]
     outs = []
-    for d in (dev, torch.device("cpu")):
-        model = load_model(variables, d)
+    for model in models:
         outs.append(sample_ddim(
-            model, make_schedule(TIMESTEPS), torch.Generator(device=d),
-            params=params, guide_w=2.0, x_init=x0,
-            taus=np.array([1, 4, 7, 10]), device=d,
-            z_fn=lambda k, t: zs[k],
+            model, make_schedule(TIMESTEPS), torch.Generator(device=on(model)),
+            params=params, guide_w=2.0, x_init=x0, taus=np.asarray(taus),
+            sigma_mode=sigma_mode, device=on(model), z_fn=lambda k, t: zs[k],
         ).cpu())
     err = (outs[0] - outs[1]).abs().max().item()
-    print(f"  strided w=2, last 4 steps, card vs CPU: max abs err {err:.3e} "
-          f"(tol {GOLDEN_TOL:g})")
+    print(f"  {label}, last 4 steps {[int(t) for t in taus]}, card vs CPU: max abs err "
+          f"{err:.3e} (tol {GOLDEN_TOL:g})")
     if not err <= GOLDEN_TOL:
-        raise SystemExit(f"sampler on the card vs the CPU: {err} > {GOLDEN_TOL}")
+        raise SystemExit(f"{label} on the card vs the CPU: {err} > {GOLDEN_TOL}")
+
+
+def check_likelihood_vs_cpu(models, fn, x, c, n_noise: int, label: str,
+                            fail: bool = True) -> bool:
+    """``fn(model, x, c, noise_fn)`` -> ``(B,)`` on the card and the CPU
+    (``models``) with the same ``n_noise`` noise tensors: whether they agree
+    within ``LIKELIHOOD_REL`` of the largest value (if not, and ``fail``,
+    the run fails)."""
+    rs = np.random.RandomState(1)
+    noise = [rs.randn(*x.shape).astype(np.float32) for _ in range(n_noise)]
+    outs = [fn(m, x, c, lambda bi, k, t, shape: noise[k]).double().cpu() for m in models]
+    rel = ((outs[0] - outs[1]).abs().max() / outs[1].abs().max()).item()
+    print(f"  {label}: card {outs[0].tolist()} CPU {outs[1].tolist()}: rel err "
+          f"{rel:.3e} (tol {LIKELIHOOD_REL:g})")
+    if fail and not rel <= LIKELIHOOD_REL:
+        raise SystemExit(f"{label} on the card vs the CPU: rel {rel} > {LIKELIHOOD_REL}")
+    return rel <= LIKELIHOOD_REL
+
+
+def on(model) -> torch.device:
+    return next(model.parameters()).device
 
 
 def check_maps(maps, n: int, label: str) -> None:
@@ -377,16 +427,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_golden(dev, model)
-    check_sampler_vs_cpu(dev, variables)
+    models = (model, load_model(variables, "cpu"))  # the card's and the CPU's
+    check_sampler_vs_cpu(models, [1, 4, 7, 10], "beta", "strided w=2")
     phase("(d) golden forward, sampler vs CPU", t0)
 
     launches = {}  # path -> kernel -> launches on that path
 
-    def drive(path, steps, fn):
-        """Run one main path of ``steps`` reverse steps with every launch
-        count at 0; read the counts, which must be LAUNCHES_PER_STEP each,
-        and count the forward calls of convs to one channel, which must be
-        none: the step kernel applies ``out_conv2``."""
+    def drive(path, fn, steps=0, forwards=0):
+        """Run one main path with every launch count at 0 and read the
+        counts: a sampler path of ``steps`` reverse steps must show
+        ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
+        kernel applies ``out_conv2``); a likelihood path of ``forwards``
+        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each."""
         one_channel_convs = [0]
 
         def hook(module, args, output):
@@ -398,28 +450,33 @@ def main() -> int:
             wrapper.launches = 0
         try:
             result = fn()
+            torch.cuda.synchronize()
         finally:
             handle.remove()
         launches[path] = {name: w.launches for name, w in WRAPPERS.items()}
         print(f"  launches on {path}: {launches[path]}; convs to one channel: "
               f"{one_channel_convs[0]}", flush=True)
-        if one_channel_convs[0]:
-            raise SystemExit(f"out_conv2 ran outside the step kernel on {path}")
-        if not all(launches[path].values()):
+        if one_channel_convs[0] != forwards:
+            raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
+                             f"expected {forwards}")
+        want = {name: steps * LAUNCHES_PER_STEP[name] + forwards * LAUNCHES_PER_FORWARD[name]
+                for name in WRAPPERS}
+        if any(want[name] and not launches[path][name] for name in WRAPPERS):
             raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
-        want = {name: steps * k for name, k in LAUNCHES_PER_STEP.items()}
         if launches[path] != want:
             raise SystemExit(f"launches on {path}: {launches[path]}, expected {want}")
         return result
 
     t0 = time.perf_counter()
+    served = {}
     for w, steps in ((2, 500), (0, 430)):
-        r = drive(f"serve_w{w}", steps,
+        r = drive(f"serve_w{w}",
                   lambda w=w: serve(w, BATCH, OUT_DIR, seed=0, device=dev,
-                                    params=certification_contexts(BATCH)))
+                                    params=certification_contexts(BATCH)), steps=steps)
         check_maps(r["maps"], BATCH, f"serve w={w}")
         if r["steps"] != steps or not np.isfinite(r["pk"]).all():
             raise SystemExit(f"serve w={w}: {r['steps']} steps or non-finite P(k)")
+        served[w] = r
         print(f"  serve w={w}: {r['config']}, {BATCH} maps in {r['seconds']:.3f} s "
               f"({BATCH / r['seconds'] * 60:.1f} maps/min on this card); "
               f"P(k) vs exact chain, N={BATCH} (information only): "
@@ -429,10 +486,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     t1 = time.perf_counter()
-    maps = drive("ddpm_exact", TIMESTEPS, lambda: sample_ddpm(
+    maps = drive("ddpm_exact", lambda: sample_ddpm(
         model, make_schedule(TIMESTEPS), gen, n_sample=4,
-        params=certification_contexts(4), guide_w=0.0, device=dev))
-    torch.cuda.synchronize()
+        params=certification_contexts(4), guide_w=0.0, device=dev), steps=TIMESTEPS)
     seconds = time.perf_counter() - t1
     check_maps(maps, 4, "exact DDPM")
     _, pk = power_spectrum_batch(maps[..., 0])
@@ -447,6 +503,85 @@ def main() -> int:
     if foreign:
         raise SystemExit(f"the port imported {foreign[:5]}")
     phase("(g) imports", t0)
+
+    t0 = time.perf_counter()
+    schedule = make_schedule(TIMESTEPS)
+    for w in (2, 0):
+        maps_np = served[w]["maps"].cpu().numpy()
+        ref = np.load(os.path.join(REFS, f"w{w}", "DDPM_1500_seed_A.npz"))
+        pdf = PooledPdf().add(maps_np).pdf
+        t1 = time.perf_counter()
+        elbo, bpd = drive(f"battery_w{w}", lambda: calculate_elbo_and_bpd(
+            model, schedule, [(maps_np, served[w]["params"])],
+            torch.Generator(device=dev).manual_seed(ELBO_SEED), device=dev),
+            forwards=10)
+        print(f"  battery w={w}, N={BATCH} served maps (information only): pixel PDF "
+              f"TV to the exact chain {pdf_tv(pdf, ref['pdf']):.5f}; ELBO {elbo:.6g} "
+              f"BPD {bpd:.6g} (reference, N=16384, bf16 on a TPU: ELBO "
+              f"{float(ref['elbo']):.6g} BPD {float(ref['bpd']):.6g}); ELBO in "
+              f"{time.perf_counter() - t1:.3f} s", flush=True)
+    check_likelihood_vs_cpu(
+        models, lambda m, x, c, nf: elbo_bpd_batch(m, schedule, x, c, noise_fn=nf,
+                                                   device=on(m)),
+        served[2]["maps"][:2].cpu().numpy(), served[2]["params"][:2], 10,
+        "ELBO of 2 served w=2 maps")
+    phase("(h) battery on served maps", t0)
+
+    t0 = time.perf_counter()
+    c4 = certification_contexts(4)
+    t1 = time.perf_counter()
+    nll = drive("nll_sweep", lambda: nll_batch(
+        model, schedule, maps, c4, torch.Generator(device=dev).manual_seed(1),
+        device=dev), forwards=TIMESTEPS)
+    seconds = time.perf_counter() - t1
+    if tuple(nll.shape) != (4,) or not bool(torch.isfinite(nll).all()):
+        raise SystemExit(f"NLL sweep: {nll}")
+    print(f"  NLL sweep, {TIMESTEPS} timesteps at batch 4 in {seconds:.3f} s "
+          f"({seconds / TIMESTEPS * 1e3:.3f} ms a timestep): {nll.tolist()}")
+    x2, c2 = maps[:2].cpu().numpy(), c4[:2]
+    if not check_likelihood_vs_cpu(
+            models, lambda m, x, c, nf: nll_batch(m, schedule, x, c, ts=range(1, 9),
+                                                  noise_fn=nf, device=on(m)),
+            x2, c2, 8, "NLL over t = 1..8", fail=False):
+        for t in range(1, 9):  # 1/(2 b_1) = 4.4e3 weighs t = 1 most: each term
+            check_likelihood_vs_cpu(
+                models, lambda m, x, c, nf, t=t: nll_batch(
+                    m, schedule, x, c, ts=[t], noise_fn=nf, device=on(m)),
+                x2, c2, 1, f"NLL term t={t}", fail=False)
+        raise SystemExit(f"NLL over t = 1..8 on the card vs the CPU: beyond "
+                         f"rel {LIKELIHOOD_REL}")
+    phase("(i) NLL sweep", t0)
+
+    t0 = time.perf_counter()
+    taus = ddim_timesteps(TIMESTEPS, 50)
+    t1 = time.perf_counter()
+    ddim_maps = drive("ddim_posterior_w2", lambda: sample_ddim(
+        model, schedule, torch.Generator(device=dev).manual_seed(2), n_sample=BATCH,
+        params=certification_contexts(BATCH), guide_w=2.0, n_steps=50, eta=0.0,
+        sigma_mode="posterior", device=dev), steps=len(taus))
+    seconds = time.perf_counter() - t1
+    check_maps(ddim_maps, BATCH, "posterior DDIM")
+    print(f"  posterior DDIM w=2, eta 0: {BATCH} maps, {len(taus)} steps in "
+          f"{seconds:.3f} s ({seconds / len(taus) * 1e3:.3f} ms a step)")
+    check_sampler_vs_cpu(models, taus[:4], "posterior", "posterior DDIM w=2")
+    phase("(j) posterior DDIM", t0)
+
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    recon = drive("reconstruct", lambda: reconstruct(
+        model, schedule, served[2]["maps"][:4], c4,
+        torch.Generator(device=dev).manual_seed(3), save_rate=20, device=dev),
+        steps=TIMESTEPS)
+    seconds = time.perf_counter() - t1
+    check_maps(recon.x, 4, "reconstruction")
+    n_saves = save_schedule(TIMESTEPS, 20)[2]
+    if (tuple(recon.intermediate.shape) != (n_saves, 4, 64, 64, 1)
+            or not bool(torch.isfinite(recon.intermediate).all())):
+        raise SystemExit(f"reconstruction: intermediates {tuple(recon.intermediate.shape)}, "
+                         f"expected {n_saves} finite states")
+    print(f"  reconstruction: 4 maps from t = {TIMESTEPS} in {seconds:.3f} s, "
+          f"{n_saves} saved states")
+    phase("(k) reconstruction", t0)
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-the wrappers' checks and launch counts, and the samplers on the GPU.
+the wrappers' checks and launch counts, and the samplers and likelihood
+passes on the GPU against the CPU.
 
 Marked ``cuda``; the card is looked for inside a fixture, so every worker
 collects the same tests and they skip on machines without one.  Run them
@@ -9,7 +10,12 @@ on the card with ``python -m pytest tests/test_torch_port_cuda.py -m cuda``.
 import pytest
 import torch
 
-from camels_diffusion_model_tpu_torch.diffusion.ddim import sample_ddim
+from camels_diffusion_model_tpu_torch.diffusion import likelihood
+from camels_diffusion_model_tpu_torch.diffusion.ddim import (
+    ddim_timesteps,
+    posterior_coefficients,
+    sample_ddim,
+)
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
 from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
 from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
@@ -202,8 +208,60 @@ def test_samplers_on_the_card_match_the_cpu(dev, guide_w, monkeypatch):
     x0 = torch.randn(2, 16, 16, 1)
     params = torch.rand(2, 3)
     zs = [torch.randn(2, 16, 16, 1) for _ in range(8)]
-    for fn, kw in ((sample_ddpm, {}), (sample_ddim, {"n_steps": 4})):
+    for fn, kw in ((sample_ddpm, {}), (sample_ddim, {"n_steps": 4, "sigma_mode": "beta"})):
         outs = [fn(m, make_schedule(8), torch.Generator(device=d), params=params,
                    guide_w=guide_w, x_init=x0, device=d, z_fn=lambda k, t: zs[k], **kw)
                 for m, d in ((cpu_model, "cpu"), (gpu_model, dev))]
         torch.testing.assert_close(outs[1].cpu(), outs[0], atol=1e-4, rtol=0)
+
+
+def _twin_models(dev):
+    """The same narrow model on the CPU and on the card, eval mode."""
+    cpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16).eval()
+    gpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, gpu_model.to(dev, memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_posterior_sampler_on_the_card_matches_the_cpu(dev, eta, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    models = _twin_models(dev)
+    x0, params = torch.randn(2, 16, 16, 1), torch.rand(2, 3)
+    zs = [torch.randn(2, 16, 16, 1) for _ in range(8)]
+    outs = [sample_ddim(m, make_schedule(8), torch.Generator(device=d), params=params,
+                        guide_w=2.0, x_init=x0, device=d, n_steps=4, eta=eta,
+                        z_fn=lambda k, t: zs[k])
+            for m, d in zip(models, ("cpu", dev))]
+    torch.testing.assert_close(outs[1].cpu(), outs[0], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_posterior_coefficients_through_the_head_step_kernel(dev, fp32_convs, eta):
+    """Every row of the posterior table of a T=1500, 50-step schedule
+    through K1 at the w=2 path shape, against its plain step: atol 1e-4."""
+    h = _randn(dev, 32, 64, 64, 128, seed=1).relu()
+    weight = _randn(dev, 1, 128, 3, 3, seed=2).mul(0.05)
+    bias = _randn(dev, 1, seed=3)
+    x, z = _randn(dev, 16, 64, 64, 1, seed=4), _randn(dev, 16, 64, 64, 1, seed=5)
+    coefs = posterior_coefficients(make_schedule(1500), ddim_timesteps(1500, 50), eta)
+    for c_eps, inv_sqrt_a, sigma in coefs.tolist():
+        args = (h, weight, bias, x, z if sigma else None, c_eps, inv_sqrt_a, sigma, 2.0)
+        torch.testing.assert_close(fused_head_step(*args), head_step_plain(*args),
+                                   atol=1e-4, rtol=0)
+
+
+def test_elbo_batch_on_the_card_matches_the_cpu(dev):
+    """The same noise on both devices; the card runs K2 and K3 in every
+    forward and no K1: rel 1e-4."""
+    models = _twin_models(dev)
+    x, c = torch.randn(3, 16, 16, 1), torch.rand(3, 3)
+    noise = [torch.randn(3, 16, 16, 1) for _ in range(10)]
+    before = (fused_head_step.launches, fused_groupnorm_act.launches, fused_film.launches)
+    outs = [likelihood.elbo_bpd_batch(m, make_schedule(1500), x, c, device=d,
+                                      noise_fn=lambda bi, k, t, s: noise[k])
+            for m, d in zip(models, ("cpu", dev))]
+    after = (fused_head_step.launches, fused_groupnorm_act.launches, fused_film.launches)
+    assert [b - a for a, b in zip(before, after)] == [0, 20, 10]
+    rel = ((outs[1].cpu() - outs[0]).abs().max() / outs[0].abs().max()).item()
+    assert rel <= 1e-4

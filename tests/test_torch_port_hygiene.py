@@ -34,13 +34,17 @@ PORT_MODULES = [
     "camels_diffusion_model_tpu_torch.diffusion.sampler",
     "camels_diffusion_model_tpu_torch.diffusion.ddim",
     "camels_diffusion_model_tpu_torch.diffusion.calibration",
+    "camels_diffusion_model_tpu_torch.diffusion.likelihood",
     "camels_diffusion_model_tpu_torch.ops._build",
     "camels_diffusion_model_tpu_torch.ops.sampler_step",
     "camels_diffusion_model_tpu_torch.ops.groupnorm",
     "camels_diffusion_model_tpu_torch.ops.film",
     "camels_diffusion_model_tpu_torch.ops.spectrum",
+    "camels_diffusion_model_tpu_torch.ops.stats",
     "camels_diffusion_model_tpu_torch.serving",
     "camels_diffusion_model_tpu_torch.cli.serve",
+    "camels_diffusion_model_tpu_torch.cli.experiment",
+    "camels_diffusion_model_tpu_torch.data.pipeline",
     "chip_smoke",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "matplotlib", "camels_diffusion_model_tpu")

@@ -124,7 +124,7 @@ def test_sample_ddim_beta_matches_jax_under_injected_noise(tiny, guide):
     zs = _z_sequence(rng, len(taus), x0.shape)
     got = sample_ddim(
         port, make_schedule(T), torch.Generator(), params=params, guide_w=w,
-        x_init=x0, taus=taus, device="cpu",
+        x_init=x0, taus=taus, sigma_mode="beta", device="cpu",
         z_fn=lambda k, t: torch.tensor(zs[k]),
     ).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
@@ -142,7 +142,7 @@ def test_beta_at_stride_one_is_sample_ddpm(tiny):
               z_fn=lambda k, t: zs[k])
     a = sample_ddpm(port, make_schedule(T), torch.Generator(), **kw)
     b = sample_ddim(port, make_schedule(T), torch.Generator(),
-                    taus=np.arange(1, T + 1), **kw)
+                    taus=np.arange(1, T + 1), sigma_mode="beta", **kw)
     torch.testing.assert_close(b, a, atol=0.02, rtol=0)
 
 
@@ -150,7 +150,8 @@ def test_samplers_draw_from_the_generator(tiny):
     _, _, port = tiny
     outs = [
         sample_ddim(port, make_schedule(T), torch.Generator().manual_seed(s),
-                    n_sample=2, size=H, guide_w=2.0, n_steps=4, device="cpu")
+                    n_sample=2, size=H, guide_w=2.0, n_steps=4, sigma_mode="beta",
+                    device="cpu")
         for s in (0, 0, 1)
     ]
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
@@ -173,9 +174,9 @@ def test_sample_ddim_rejects_bad_taus_and_modes(tiny):
     _, _, port = tiny
     with pytest.raises(ValueError, match="increasing"):
         sample_ddim(port, make_schedule(T), torch.Generator(), taus=[5, 3], device="cpu")
-    with pytest.raises(ValueError, match="beta"):
+    with pytest.raises(ValueError, match="unknown sigma_mode"):
         sample_ddim(port, make_schedule(T), torch.Generator(),
-                    sigma_mode="posterior", device="cpu")
+                    sigma_mode="ddpm", device="cpu")
 
 
 # ---- calibration and spectra ------------------------------------------------
@@ -356,6 +357,40 @@ def test_serve_without_params_serves_the_jax_clis_context(recorded_serve, seed):
     want = norm[random.Random(seed).randint(0, 7)].astype(np.float32)[:NC]
     run(2, seed=seed)
     np.testing.assert_array_equal(calls[0]["params"], np.tile(want, (2, 1)))
+
+
+def test_serve_runs_in_fp32_and_restores_the_flags(tiny, tmp_path, monkeypatch):
+    """Both TF32 flags are False while ``serve`` samples, and the caller's
+    values come back after it (``cli/serve.py`` states its precision)."""
+    _, variables, _ = tiny
+    data = serialization.to_bytes({**variables, "opt_state": {"mu": np.ones(3)}})
+    art = _mock_art_dir(tmp_path, steps=3, model_bytes=data)
+    monkeypatch.setattr(serve_cli, "TIMESTEPS", T)
+    seen = []
+    real = serve_cli.sample_ddim
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return real(*a, **k)
+
+    monkeypatch.setattr(serve_cli, "sample_ddim", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    r = serve_cli.serve(2, 2, str(tmp_path / "out"), device="cpu", art_dir=art)
+    assert seen == [(False, False)] and bool(torch.isfinite(r["maps"]).all())
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(ServingConfigError):
+        serve_cli.serve(2, 2, str(tmp_path / "out"), device="cpu",
+                        art_dir=str(tmp_path / "missing"))
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert "fp32" in serve_cli.__doc__ and "TF32" in serve_cli.__doc__
+
+
+def test_serve_help_states_the_precision(capsys):
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--help"])
+    assert "fp32" in capsys.readouterr().out
 
 
 def test_serve_cli_takes_params(recorded_serve, monkeypatch):

@@ -1,27 +1,86 @@
-"""Post-training evaluation of the experiment CLI (counterpart of parts of
-``camels_diffusion_model_tpu/cli/experiment.py``).
+"""The experiment runner: training, periodic evaluation, checkpoints and
+the post-training reconstruction (counterpart of
+``camels_diffusion_model_tpu/cli/experiment.py:139-677``).
 
-Plain functions for now; ``run_experiment`` itself comes with training.
+    python -m camels_diffusion_model_tpu_torch.cli.experiment <mode> <lr> <epochs> <timesteps> [n]
 
-* :func:`sample_metrics`: ELBO, BPD and NLL of a map set
-  (``_sample_metrics``, ``experiment.py:103-115``).
-* :func:`reconstruct`: maps forward-diffused to ``t = T`` by ``q_sample``,
-  then the exact chain from that noise with its saved intermediates
-  (``experiment.py:609-630``).
+``mode`` is one of ``config.MODES`` and the positional arguments are those
+of the reference script it stands for (``config.config_from_argv``).  It
+runs on the CUDA card, in fp32 with TF32 off; :func:`run_experiment` takes
+``device="cpu"`` for tests.
+
+What runs, in the JAX runner's order and with its artifact names and log
+lines: the data (the ``.npy`` maps, or the synthetic stand-ins when they are
+absent, ``data_source: "synthetic"``); the eval-image selection; the epoch
+loop over wrap-padded, masked batches staged on the card
+(``data.prefetch``); the periodic validation MSE (a no-grad forward: kernels
+K2 and K3), the per-batch ELBO and the eval-point ELBO/BPD/NLL of the
+mode; the weights files and ``weights/train_state.msgpack`` on their
+cadence, and ``resume``; the BatchNorm fold, the reconstruction (the exact
+chain: kernels K1, K2 and K3), its ELBO/BPD/NLL and the pixel-PDF
+statistics.
+
+What waits: the port writes no figure (no PNG; ``utils/viz.py`` needs
+matplotlib, ROADMAP item 10), and not the stages after ``experiment.py:677``
+(recon P(k), mean correction, parameter grid, guidance sweep, sensitivity;
+item 10).  A run skips both, prints what it skipped and lists it in
+``results["not_ported"]``.  ``dtype="bfloat16"`` (item 4), the deep/big
+variants and ``shortcut="stochastic"`` (item 8) and ``mesh_devices > 1``
+(item 11), which would change what the run computes, raise
+``NotImplementedError``.
+
+Noise comes from torch generators seeded by the run seed (the training
+step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
+epoch)``, the reconstruction's from ``(seed, 2)``), so the values differ
+from the JAX runner's; the data, the split, the selected images and the
+batch order are the same.  A resumed run shuffles its epochs as the unbroken
+run did (the shuffles of the epochs done are drawn again first).
+
+Also :func:`sample_metrics` (``_sample_metrics``, ``experiment.py:103-115``)
+and :func:`reconstruct` (``experiment.py:609-630``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import sys
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..data.pipeline import batch_iterator
-from ..diffusion.likelihood import NoiseFn, calculate_elbo_and_bpd, calculate_likelihood
+from .. import fp32_math, resolve_device
+from ..config import ExperimentConfig, config_from_argv
+from ..data.pipeline import batch_iterator, load_camels_dataset, num_batches
+from ..data.prefetch import device_prefetch
+from ..data.synthetic import synthetic_camels
+from ..diffusion.likelihood import (
+    NoiseFn,
+    calculate_elbo_and_bpd,
+    calculate_likelihood,
+    elbo_per_batch,
+)
 from ..diffusion.sampler import SamplerOutput, ZFn, sample_ddpm_from_noise
-from ..diffusion.schedule import DDPMSchedule, NoiseScaling, q_sample
+from ..diffusion.schedule import DDPMSchedule, NoiseScaling, make_schedule, q_sample
+from ..models.context_unet import ContextUnet
+from ..ops.stats import compare_pdf_stats
+from ..serving import load_model
+from ..training.checkpoints import (
+    load_train_checkpoint,
+    save_model_weights,
+    save_train_checkpoint,
+    weights_checkpoint_plan,
+)
+from ..training.trainer import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    parse_remat_env,
+    seeded_generator,
+)
+from ..utils.run_logging import RunLogger
+from ..utils.weights import to_jax_variables
 
 
 def sample_metrics(model, schedule: DDPMSchedule, x, c, generator,
@@ -60,3 +119,353 @@ def reconstruct(model, schedule: DDPMSchedule, images, params, generator,
     x_fwd = q_sample(schedule, images, schedule.timesteps, noise, scaling)
     return sample_ddpm_from_noise(model, schedule, generator, x_fwd, params=params,
                                   save_rate=save_rate, device=device, z_fn=z_fn)
+
+
+def _load_raw_data(cfg: ExperimentConfig):
+    """The real ``.npy`` inputs, or the synthetic stand-ins
+    (``experiment.py:71-95``)."""
+    if os.path.exists(cfg.maps_path) and os.path.exists(cfg.params_path):
+        maps, params, source = np.load(cfg.maps_path), np.load(cfg.params_path), "real"
+    elif cfg.synthetic_fallback:
+        maps, params = synthetic_camels(n_param_sets=cfg.synthetic_param_sets,
+                                        maps_per_set=15, size=cfg.data_size, seed=cfg.seed)
+        source = "synthetic"
+    else:
+        raise FileNotFoundError(f"data files not found: {cfg.maps_path} / {cfg.params_path}")
+    if cfg.max_maps is not None and maps.shape[0] > cfg.max_maps:
+        n_sets = max(1, cfg.max_maps // 15)
+        maps, params = maps[: n_sets * 15], params[:n_sets]
+    return maps, params, source
+
+
+def _subset_batches(x, c, n, batch_size, rng):
+    """A random subset in ordered batches (``experiment.py:98-101``)."""
+    idx = rng.choice(x.shape[0], size=min(n, x.shape[0]), replace=False)
+    return list(batch_iterator(x[idx], c[idx], batch_size, shuffle=False))
+
+
+def _unported(cfg: ExperimentConfig) -> List[str]:
+    """The parts of ``cfg``'s run that this package does not do yet, which
+    :func:`run_experiment` skips; raises ``NotImplementedError`` for options
+    that would change what the run computes (module docstring)."""
+    spec = cfg.spec
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port trains and serves fp32 "
+                                  "only (ROADMAP section 1, item 4)")
+    if spec.model_variant != "canonical" or cfg.shortcut != "learned":
+        raise NotImplementedError(
+            f"model variant {spec.model_variant!r} with shortcut {cfg.shortcut!r}: the "
+            "port has the canonical ContextUnet with the learned shortcut only "
+            "(ROADMAP section 1, item 8)")
+    if cfg.mesh_devices is not None and cfg.mesh_devices > 1:
+        raise NotImplementedError(f"mesh_devices={cfg.mesh_devices}: the port runs on "
+                                  "one card (ROADMAP section 1, item 11)")
+    conditional = spec.conditional
+    stages = [name for name, on in (
+        ("recon_power_spectra", spec.recon_power_spectra),
+        ("mean_correction", spec.mean_correction),
+        ("param_grid", spec.param_grid and conditional),
+        ("guidance_sweep", spec.guidance_sweep and conditional),
+        ("sensitivity", spec.sensitivity and conditional and cfg.num_params > 0),
+    ) if on]
+    return stages + ["figures"]
+
+
+def run_experiment(cfg: ExperimentConfig, *, device=None) -> Dict[str, object]:
+    """Train and evaluate as ``cfg`` says (module docstring); returns the
+    JAX runner's ``results`` keys for the parts run, ``"pdf_stats"`` (the
+    pixel-PDF comparison its figure would plot) and ``"not_ported"``, the
+    parts skipped."""
+    not_ported = _unported(cfg)
+    device = resolve_device(device)
+    with fp32_math():
+        return _run(cfg, device, not_ported)
+
+
+def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> dict:
+    spec = cfg.spec
+    output_dir = cfg.output_dir()
+    save_dir = os.path.join(output_dir, "weights")
+    os.makedirs(save_dir, exist_ok=True)
+    logger = RunLogger(output_dir, device)
+    if spec.timing_log:
+        logger.write_header(cfg.lrate, cfg.n_epoch, cfg.timesteps, None if not spec.conditional
+                            else (cfg.param_index if spec.param_index_mode else cfg.num_params))
+    schedule = make_schedule(cfg.timesteps, cfg.beta1, cfg.beta2)
+    on_device = DDPMSchedule(*(a.to(device) for a in schedule[:3]), schedule.timesteps)
+
+    # ---- data (experiment.py:157-187) ------------------------------------
+    raw_maps, raw_params, data_source = _load_raw_data(cfg)
+    ds = load_camels_dataset(
+        raw_maps, raw_params, num_params=cfg.num_params, height=cfg.height,
+        test_size=min(cfg.test_size, max(raw_maps.shape[0] // 10, 1)), seed=cfg.seed,
+        style=spec.data_style, param_index=cfg.param_index if spec.param_index_mode else None,
+    )
+    del raw_maps
+    if spec.conditional:
+        train_c, test_c = ds.train_c, ds.test_c
+        np.save(os.path.join(output_dir, "param_min.npy"), ds.param_min)
+        np.save(os.path.join(output_dir, "param_max.npy"), ds.param_max)
+        if spec.param_index_mode:
+            np.save(os.path.join(output_dir, "param_index.npy"), cfg.param_index)
+        logger.dataset_info(ds.info)
+    else:  # a zero context of the model's width (train_diffusion.py:147)
+        train_c = np.zeros((ds.n_train, cfg.n_cfeat), np.float32)
+        test_c = np.zeros((ds.n_test, cfg.n_cfeat), np.float32)
+
+    # ---- model, optimizer, steps (experiment.py:189-237) ------------------
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = ContextUnet(n_feat=cfg.n_feat, n_cfeat=cfg.n_cfeat, height=cfg.height)
+    model = model.to(device=device, memory_format=torch.channels_last)
+    steps_per_epoch = num_batches(ds.n_train, cfg.batch_size)
+    state = create_train_state(model, cfg.lrate, cfg.n_epoch, steps_per_epoch, seed=cfg.seed)
+    try:
+        remat = parse_remat_env(os.environ.get("CAMELS_TRAIN_REMAT", ""))
+    except ValueError as e:
+        raise SystemExit(f"CAMELS_TRAIN_REMAT: {e}")
+    step_args = (cfg.timesteps, spec.q_scaling, cfg.beta1, cfg.beta2)
+    train_step = make_train_step(model, *step_args, remat=remat)
+    eval_step = make_eval_step(model, *step_args)
+
+    def pad(bx, bc):
+        """Wrap-pad a partial batch to ``batch_size`` rows and mask the pad
+        rows (``experiment.py:259-286``): one shape for every step."""
+        n = bx.shape[0]
+        if n < cfg.batch_size:
+            idx = np.arange(cfg.batch_size) % n
+            bx, bc = bx[idx], bc[idx]
+        return bx, bc, (np.arange(cfg.batch_size) < n).astype(np.float32)
+
+    start_epoch = 0
+    ckpt_path = os.path.join(save_dir, "train_state.msgpack")
+    if cfg.resume and os.path.exists(ckpt_path):
+        state, start_epoch, _ = load_train_checkpoint(state, ckpt_path)
+        print(f"Resumed from epoch {start_epoch}")
+
+    # ---- eval image selection (experiment.py:299-318) ---------------------
+    sel_rng = np.random.default_rng(cfg.seed + 1)
+    if spec.conditional:
+        sel_idx = sel_rng.choice(ds.n_test, size=min(cfg.n_eval_images, ds.n_test),
+                                 replace=False)
+        selected_images, selected_params = ds.test_x[sel_idx], ds.test_c[sel_idx]
+        logger.selected_params(selected_params)
+    else:
+        all_x = np.concatenate([ds.train_x, ds.test_x])
+        sel_idx = sel_rng.choice(all_x.shape[0], size=cfg.n_eval_images, replace=False)
+        selected_images = all_x[sel_idx]
+        selected_params = np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32)
+    processed_images_mean = float(selected_images.mean())
+
+    # ---- training loop (experiment.py:320-420) ----------------------------
+    loss_log: List[float] = []
+    val_loss_log: List[float] = []
+    likelihood_log: List[float] = []
+    val_likelihood_log: List[float] = []
+    elbo_log: List[float] = []
+    bpd_log: List[float] = []
+    val_elbo_log: List[float] = []
+    val_bpd_log: List[float] = []
+    epoch_times: List[float] = []
+    epoch_rng = np.random.default_rng(cfg.seed + 2)
+    for _ in range(start_epoch):  # the shuffles of the epochs already done
+        epoch_rng.shuffle(np.arange(ds.n_train))
+    eval_np_rng = np.random.default_rng(cfg.seed + 3)
+    dims = cfg.height * cfg.height
+    ln2 = np.log(2.0)
+
+    def folded():
+        """The BatchNorm-folded inference copy of the model (the JAX
+        runner's ``fold_inference``)."""
+        return load_model(to_jax_variables(model.state_dict()), device)
+
+    training_start = time.time()
+    for ep in range(start_epoch, cfg.n_epoch):
+        ep_start = time.time()
+        logger.device_line()
+        loss_acc = torch.zeros((), device=device)
+        elbo_acc = torch.zeros((), device=device)
+        n_b = 0
+        staged = device_prefetch(
+            batch_iterator(ds.train_x, train_c, cfg.batch_size, rng=epoch_rng),
+            device, transform=lambda item: pad(*item))
+        for bx, bc, bmask in staged:
+            metrics = train_step(state, bx, bc, bmask)
+            loss_acc += metrics["loss"]
+            if spec.per_batch_elbo:
+                elbo_acc += elbo_per_batch(on_device, metrics["per_sample_mse"],
+                                           metrics["t"], bmask)
+            n_b += 1
+        epoch_loss = float(loss_acc) / n_b
+        epoch_elbo = float(elbo_acc)
+        epoch_bpd = epoch_elbo / (dims * ln2)
+        loss_log.append(epoch_loss)
+        epoch_times.append(time.time() - ep_start)
+        if spec.timing_log:
+            if spec.per_batch_elbo:
+                logger.append(
+                    f"Epoch {ep + 1}/{cfg.n_epoch} completed in {epoch_times[-1]:.2f} seconds\n"
+                    f"  Training Loss: {epoch_loss:.6f}, ELBO: {epoch_elbo / n_b:.6f}, "
+                    f"BPD: {epoch_bpd / n_b:.6f}\n")
+            else:
+                logger.epoch(ep, cfg.n_epoch, epoch_times[-1], epoch_loss)
+        if spec.per_batch_elbo:
+            elbo_log.append(epoch_elbo / n_b)
+            bpd_log.append(epoch_bpd / n_b)
+
+        # ---- periodic eval (experiment.py:391-535) ------------------------
+        if spec.track_val_mse and (ep % cfg.eval_every == 0 or ep == cfg.n_epoch - 1):
+            generator = seeded_generator(device, cfg.seed, 1, ep)
+            vloss_acc = torch.zeros((), device=device)
+            velbo_acc = torch.zeros((), device=device)
+            v_b = 0
+            for bx, bc in batch_iterator(ds.test_x, test_c, cfg.batch_size, shuffle=False):
+                bx, bc, bmask = pad(bx, bc)
+                em = eval_step(bx, bc, bmask, generator=generator)
+                vloss_acc += em["loss"]
+                if spec.per_batch_elbo:
+                    velbo_acc += elbo_per_batch(on_device, em["per_sample_mse"], em["t"],
+                                                torch.as_tensor(bmask, device=device))
+                v_b += 1
+            val_loss = float(vloss_acc) / max(v_b, 1)
+            val_loss_log.append(val_loss)
+
+            train_elbo = train_bpd = val_elbo = val_bpd = None
+            train_nll = val_nll = None
+            nll_seconds = 0.0
+            inf_model = folded() if (spec.per_batch_elbo or spec.eval_elbo
+                                     or spec.eval_nll) else None
+            eb = cfg.eval_batch_size
+
+            def nll_of(x, c):
+                return calculate_likelihood(
+                    inf_model, schedule, _subset_batches(x, c, cfg.nll_subset, eb, eval_np_rng),
+                    generator, batch_size=eb, device=device)
+
+            if spec.per_batch_elbo:
+                val_elbo = float(velbo_acc) / max(v_b, 1)
+                val_bpd = val_elbo / (dims * ln2)
+                val_elbo_log.append(val_elbo)
+                val_bpd_log.append(val_bpd)
+                nll_start = time.time()
+                val_nll = nll_of(ds.test_x, test_c)
+                val_likelihood_log.append(val_nll)
+                nll_seconds = time.time() - nll_start
+            if spec.eval_elbo and not spec.per_batch_elbo:
+                train_elbo, train_bpd = calculate_elbo_and_bpd(
+                    inf_model, schedule,
+                    _subset_batches(ds.train_x, train_c, cfg.elbo_subset, eb, eval_np_rng),
+                    generator, dims=dims, batch_size=eb, device=device)
+                val_elbo, val_bpd = calculate_elbo_and_bpd(
+                    inf_model, schedule, list(batch_iterator(ds.test_x, test_c, eb, shuffle=False)),
+                    generator, dims=dims, batch_size=eb, device=device)
+                elbo_log.append(train_elbo)
+                bpd_log.append(train_bpd)
+                val_elbo_log.append(val_elbo)
+                val_bpd_log.append(val_bpd)
+            if spec.eval_nll:
+                nll_start = time.time()
+                if not spec.val_nll_only:
+                    train_nll = nll_of(ds.train_x, train_c)
+                    likelihood_log.append(train_nll)
+                val_nll = nll_of(ds.test_x, test_c)
+                val_likelihood_log.append(val_nll)
+                nll_seconds = time.time() - nll_start
+
+            if spec.timing_log:
+                if spec.per_batch_elbo:
+                    logger.append(
+                        f"  Validation Loss: {val_loss:.6f}, "
+                        f"Val ELBO: {val_elbo:.6f}, Val BPD: {val_bpd:.6f}\n"
+                        f"  Negative Log Likelihood: {val_nll:.6f}\n"
+                        f"  Likelihood calculation took {nll_seconds:.2f} seconds\n")
+                elif spec.eval_elbo and spec.eval_nll:
+                    logger.eval_metrics(
+                        val_loss, train_elbo or 0.0, train_bpd or 0.0, val_elbo or 0.0,
+                        val_bpd or 0.0, train_nll if train_nll is not None else 0.0,
+                        val_nll if val_nll is not None else 0.0, nll_seconds)
+                elif spec.eval_nll:
+                    logger.append(
+                        f"  Validation Loss: {val_loss:.6f}\n"
+                        + (f"  Train Negative Log Likelihood: {train_nll:.6f}\n"
+                           if train_nll is not None else "")
+                        + f"  Val Negative Log Likelihood: {val_nll:.6f}\n"
+                        f"  Likelihood calculation took {nll_seconds:.2f} seconds\n")
+                else:
+                    logger.append(f"  Validation Loss: {val_loss:.6f}\n")
+            print(f"Epoch {ep + 1}/{cfg.n_epoch}, Train Loss: {epoch_loss:.6f}, "
+                  f"Val Loss: {val_loss:.6f}")
+
+        # ---- checkpoints (experiment.py:537-554) --------------------------
+        save_weights, ckpt_name = weights_checkpoint_plan(spec.ckpt_style, ep, cfg.n_epoch,
+                                                          cfg.ckpt_every)
+        if save_weights:
+            save_model_weights(model, os.path.join(save_dir, ckpt_name))
+        if (ep + 1) % cfg.ckpt_every == 0 or ep == cfg.n_epoch - 1:
+            save_train_checkpoint(state, ep + 1, ckpt_path)
+
+    total_training_time = time.time() - training_start
+    inf_model = folded()
+    if spec.timing_log:
+        logger.training_complete(
+            total_training_time, epoch_times or [0.0], loss_log[-1] if loss_log else 0.0,
+            val_loss_log[-1] if val_loss_log else None, bpd_log[-1] if bpd_log else None,
+            val_bpd_log[-1] if val_bpd_log else None,
+            likelihood_log[-1] if likelihood_log else None,
+            val_likelihood_log[-1] if val_likelihood_log else None)
+    results: Dict[str, object] = {
+        "output_dir": output_dir,
+        "data_source": data_source,
+        "loss_log": loss_log,
+        "val_loss_log": val_loss_log,
+        "total_training_time": total_training_time,
+        "epoch_times": epoch_times,
+        "n_train": ds.n_train,
+        "not_ported": not_ported,
+    }
+
+    # ---- reconstruction (experiment.py:600-665) ---------------------------
+    if spec.timing_log:
+        logger.sampling_header()
+    generator = seeded_generator(device, cfg.seed, 2)
+    scaling = NoiseScaling(spec.q_scaling)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.time()
+    recon = reconstruct(inf_model, schedule, selected_images,
+                        selected_params if spec.conditional else None, generator,
+                        scaling=scaling, device=device)
+    recon_x = recon.x.cpu().numpy()
+    seconds = time.time() - t0
+    if spec.timing_log:
+        logger.reconstruction_perf(len(selected_images), seconds, seconds / cfg.timesteps,
+                                   cfg.timesteps)
+    if spec.post_metrics:
+        r_elbo, r_bpd, r_nll = sample_metrics(inf_model, schedule, recon_x, selected_params,
+                                              generator, cfg.batch_size, dims, device=device)
+        logger.sample_metrics("reconstructed images", r_elbo, r_bpd, r_nll)
+        results["recon_metrics"] = {"elbo": r_elbo, "bpd": r_bpd, "nll": r_nll}
+
+    # ---- pixel-PDF comparison (experiment.py:667-677) ----------------------
+    results["pdf_stats"] = compare_pdf_stats(selected_images[..., 0], recon_x[..., 0])
+    results["means"] = {"processed": processed_images_mean,
+                        "reconstructed": float(recon_x.mean())}
+    print("Not run by the port (ROADMAP section 1, item 10): " + ", ".join(not_ported))
+    print("Training and evaluation completed"
+          + (f" with {cfg.num_params} conditioning parameters." if spec.conditional else "."))
+    return results
+
+
+def main(argv=None) -> int:
+    """``<mode> <lr> <epochs> <timesteps> [num_params | param_index]``."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv:
+        raise SystemExit("usage: python -m camels_diffusion_model_tpu_torch.cli.experiment "
+                         "<mode> <lr> <epochs> <timesteps> [n]")
+    results = run_experiment(config_from_argv(argv[0], argv[1:]))
+    print(f"outputs in {results['output_dir']} (data: {results['data_source']})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -168,9 +168,10 @@ def elbo_per_batch(schedule: DDPMSchedule, mse_per_sample: torch.Tensor, t,
                    mask=None) -> torch.Tensor:
     """Training-time ELBO of one batch: ``mean(0.5*(1/(1-ab_t)-1) * mse)``
     at the batch's timesteps ``t`` ``(B,)``; with ``mask`` ``(B,)`` the mean
-    over the real rows of a padded batch."""
+    over the real rows of a padded batch.  The weights are gathered where
+    the schedule lives."""
     mse_per_sample = torch.as_tensor(mse_per_sample)
-    ab = schedule.alpha_bar[torch.as_tensor(t, dtype=torch.long, device="cpu")]
+    ab = schedule.alpha_bar[torch.as_tensor(t, dtype=torch.long).to(schedule.alpha_bar.device)]
     weight = (0.5 * (1.0 / (1.0 - ab) - 1.0)).to(mse_per_sample.device)
     if mask is None:
         return torch.mean(weight * mse_per_sample)

@@ -77,11 +77,12 @@ def p_sample_step(schedule: DDPMSchedule, x, t: int, eps, z):
 
 
 def _bcast_t(coeff: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
-    """``coeff[t]`` broadcastable against ``like`` (``schedule.py:88-94``):
-    for a scalar ``t`` a 0-d CPU tensor, which torch applies to a tensor on
-    any device as a scalar; for a ``(B,)`` one ``(B, 1, ...)`` on
-    ``like``'s device."""
-    g = coeff[torch.as_tensor(t, dtype=torch.long).cpu()]
+    """``coeff[t]`` broadcastable against ``like`` (``schedule.py:88-94``),
+    gathered on ``coeff``'s device (a schedule moved to the maps' device
+    costs no host sync): for a scalar ``t`` a 0-d tensor, which torch
+    applies as a scalar when it is on the CPU; for a ``(B,)`` one
+    ``(B, 1, ...)`` on ``like``'s device."""
+    g = coeff[torch.as_tensor(t, dtype=torch.long).to(coeff.device)]
     if g.dim() == 0:
         return g
     return g.reshape(g.shape + (1,) * (like.dim() - g.dim())).to(like.device)

@@ -14,6 +14,14 @@ memory.  The two GroupNorm heads go through kernel K2, which applies FiLM
 stage 0 as the epilogue of ``up0_norm``; FiLM stage 1 goes through K3.
 The samplers stop at :meth:`ContextUnet.decode_features` and hand
 ``out_conv2`` to the step kernel K1.
+
+``train=True`` (the training step's forward) normalises the BatchNorms with
+batch statistics and runs the decoder's GroupNorm and FiLM in plain PyTorch
+under autograd, as the JAX package trains without its Pallas kernels
+(``pallas_gn=False``); with ``train=False`` the kernels run.  Parameters
+start at torch's defaults, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the
+convolutions and dense layers as the JAX package's ``torch_conv_init``
+(``blocks.py:77-87``), ones and zeros for the norms.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.film import fused_film
+from ..ops.film import film_plain, fused_film
 from .blocks import (
     EmbedFC,
     GroupNormAct,
@@ -84,12 +92,12 @@ class ContextUnet(nn.Module):
     def bottleneck_feat(self) -> int:
         return self.n_feat * 2 ** (self.levels - 1)
 
-    def encode(self, x: torch.Tensor) -> EncoderState:
+    def encode(self, x: torch.Tensor, train: bool = False) -> EncoderState:
         """init_conv + down path + pooled bottleneck of NHWC ``x``."""
         x = to_nchw(x).contiguous(memory_format=torch.channels_last)
-        x0 = self.init_conv(x)
-        d1 = self.down1(x0)
-        d2 = self.down2(d1)
+        x0 = self.init_conv(x, train)
+        d1 = self.down1(x0, train)
+        d2 = self.down2(d1, train)
         # AvgPool over the whole bottleneck map is a global mean; then GELU.
         hidden = F.gelu(d2.mean(dim=(2, 3), keepdim=True), approximate="none")
         return EncoderState(x0, (d1, d2), hidden)
@@ -103,7 +111,8 @@ class ContextUnet(nn.Module):
         return self.contextembed1(c), self.contextembed2(c)
 
     def decode_features(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
-                        c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
+                        c: Optional[torch.Tensor] = None, *, film=None,
+                        train: bool = False) -> torch.Tensor:
         """FiLM-conditioned decoder up to and including ``out_norm``: the
         features ``out_conv2`` takes, NCHW in channels_last memory.
 
@@ -121,20 +130,24 @@ class ContextUnet(nn.Module):
         else:
             cemb1, temb1, cemb2, temb2 = film
         u = self.up0_norm(self.up0_conv(enc.hiddenvec),
-                          film=(cemb1.contiguous(), temb1.contiguous()))
-        u = self.up1(u, enc.downs[1])
-        u = to_nchw(fused_film(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
-        u = self.up2(u, enc.downs[0])
-        return self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)))
+                          film=(cemb1.contiguous(), temb1.contiguous()), train=train)
+        u = self.up1(u, enc.downs[1], train)
+        film1 = film_plain if train else fused_film
+        u = to_nchw(film1(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
+        u = self.up2(u, enc.downs[0], train)
+        return self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)), train=train)
 
     def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
-               c: Optional[torch.Tensor] = None, *, film=None) -> torch.Tensor:
+               c: Optional[torch.Tensor] = None, *, film=None,
+               train: bool = False) -> torch.Tensor:
         """FiLM-conditioned decoder -> NHWC eps: ``out_conv2`` of
         :meth:`decode_features` (same arguments).  The samplers run
         ``out_conv2`` inside the step kernel instead."""
-        return to_nhwc(self.out_conv2(self.decode_features(enc, t, c, film=film)))
+        h = self.decode_features(enc, t, c, film=film, train=train)
+        return to_nhwc(self.out_conv2(h))
 
-    def forward(self, x, t, c=None):
+    def forward(self, x, t, c=None, train: bool = False):
         """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and
-        context ``c`` ((B, n_cfeat) or None)."""
-        return self.decode(self.encode(x), t, c)
+        context ``c`` ((B, n_cfeat) or None); ``train=True`` is the training
+        forward (module docstring)."""
+        return self.decode(self.encode(x, train), t, c, train=train)

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -80,6 +82,25 @@ def kernel(name: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where autograd would record a call of kernel ``name``.
+
+    A kernel writes its output through a pointer, outside autograd: the
+    output would have no ``grad_fn``, and a backward pass would give every
+    parameter before it no gradient without a word.  The kernels have no
+    backward (nor have the Pallas kernels they port), so a forward that
+    needs gradients takes the plain versions: the model's ``train=True``
+    path.  ``tensors`` may hold None.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and a tensor it was "
+            "given requires grad; run the forward under torch.no_grad() or "
+            "torch.inference_mode(), or with train=True (the plain path)"
+        )
 
 
 def check(err: int, name: str) -> None:

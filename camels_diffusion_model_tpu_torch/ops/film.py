@@ -76,8 +76,9 @@ def fused_film(x, scale, shift):
     """FiLM of NHWC ``x`` by ``scale``/``shift`` rows, each ``(N, C)`` or
     ``(1, C)`` (broadcast over the batch).
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs
-    :func:`film_plain`.
+    On CUDA tensors this launches the kernel, and raises where autograd
+    would record the call (:func:`_build.refuse_autograd`); on CPU tensors
+    it runs :func:`film_plain`.
     """
     if x.device.type == "cpu":
         return film_plain(x, scale, shift)
@@ -93,6 +94,7 @@ def fused_film(x, scale, shift):
                 f"{x.device}"
             )
     check_rows((scale, shift), n, c)
+    _build.refuse_autograd("fused_film", x, scale, shift)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out

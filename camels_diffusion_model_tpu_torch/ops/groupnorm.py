@@ -116,8 +116,9 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     ``y * scale + shift`` when ``film=(scale, shift)`` is given, with rows
     ``(N, C)`` or ``(1, C)`` (broadcast over the batch).
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs
-    :func:`groupnorm_act_plain`.
+    On CUDA tensors this launches the kernel, and raises where autograd
+    would record the call (:func:`_build.refuse_autograd`); on CPU tensors
+    it runs :func:`groupnorm_act_plain`.
     """
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -141,6 +142,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         raise ValueError(f"gamma/beta must be ({c},)")
     if film is not None:
         check_rows(film, b, c)
+    _build.refuse_autograd("fused_groupnorm_act", *tensors.values())
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
     plan = launch_plan(b, h * w, c, num_groups, aligned)

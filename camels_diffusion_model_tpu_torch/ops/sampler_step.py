@@ -143,8 +143,9 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     given.  ``x`` and ``z`` are ``(B, H, W, 1)``; ``z`` may be None only when
     ``sigma`` is 0.
 
-    On CUDA tensors this launches the kernel; on CPU tensors it runs
-    :func:`head_step_plain`.
+    On CUDA tensors this launches the kernel, and raises where autograd
+    would record the call (:func:`_build.refuse_autograd`); on CPU tensors
+    it runs :func:`head_step_plain`.
     """
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
@@ -187,6 +188,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
                          f"{tuple(x.shape)} and {tuple(bias.shape)}")
     if z is not None and z.shape != x.shape:
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
+    _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
     plan = launch_plan(b, height, width, c, weight.shape[0], cfg,
                        h.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0,
                        torch.cuda.get_device_properties(h.device).multi_processor_count)

@@ -1,4 +1,5 @@
-"""Carry flax variables across into this package's ``state_dict`` layout.
+"""Carry flax variables across into this package's ``state_dict`` layout,
+and back (:func:`to_jax_variables`).
 
 The port's modules mirror the flax module tree, so a parameter's name is its
 flax path joined with dots; only the leaf names and layouts change:
@@ -15,6 +16,8 @@ flax path joined with dots; only the leaf names and layouts change:
 
 Every leaf is carried, ``params/init_conv/shortcut/{kernel,bias}`` (the
 learned 1x1 projection) included; ``torch_interop``'s export drops it.
+The maps are permutations, so the Adam moments of a parameter go through
+them as the parameter does.
 """
 
 from __future__ import annotations
@@ -66,3 +69,50 @@ def from_jax_variables(variables: dict) -> dict:
         k: torch.from_numpy(np.array(v))
         for k, v in sd.items()
     }
+
+
+def _leaf(name: str, arr: np.ndarray):
+    """Inverse of :func:`_param`: a ``state_dict`` entry -> its flax path
+    and value (None for ``num_batches_tracked``) and its collection."""
+    *mods, leaf = name.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", tuple(mods) + (leaf[len("running_"):],), arr
+    if leaf == "weight" and arr.ndim == 4:
+        if mods[-1] in _CONV_TRANSPOSE:
+            arr = np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+        else:
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        leaf = "kernel"
+    elif leaf == "weight" and arr.ndim == 2:
+        arr, leaf = arr.T, "kernel"
+    elif leaf == "weight" and arr.ndim == 1:
+        leaf = "scale"
+    elif leaf != "bias":
+        raise ValueError(f"unexpected state_dict entry {name}")
+    return "params", tuple(mods) + (leaf,), arr
+
+
+def to_jax_variables(state_dict) -> dict:
+    """torch ``state_dict`` (or any map of its names to tensors, such as
+    the Adam moments) -> flax ``{"params", "batch_stats"}`` of contiguous
+    numpy arrays; the inverse of :func:`from_jax_variables`
+    (``num_batches_tracked`` is dropped: flax keeps no count).  Each tree's
+    keys are sorted, as a tree that went through ``jax.jit`` holds them, so
+    a file written from it is the JAX package's byte for byte."""
+    out = {"params": {}, "batch_stats": {}}
+    for name, value in state_dict.items():
+        entry = _leaf(name, value.detach().cpu().numpy())
+        if entry is None:
+            continue
+        col, path, arr = entry
+        node = out[col]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {col: _sorted(tree) for col, tree in out.items()}
+
+
+def _sorted(tree):
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}

@@ -30,7 +30,19 @@ Phases, each timed on its own line:
       last four steps on the card vs the CPU;
   (k) reconstruction: 4 served maps forward-diffused to t = T (reference
       scaling), then the exact chain from that noise with its saved
-      intermediates; gate: their count.
+      intermediates; gate: their count;
+  (l) training: one full-width train step at batch 32 (4 wrap-padded rows
+      masked, injected t and noise) from the committed checkpoint's
+      unfolded weights on the card against the CPU (loss, gradients,
+      BatchNorm running statistics), and the same step on the card in
+      float64 and without cuDNN as the witness for a leaf beyond 1e-4 (see
+      ``TRAIN_REL``); the kernel path refusing a forward
+      that needs gradients; 30 Adam steps on one fixed batch from a fresh
+      init, the loss falling, no kernel launched; ms per step, steps/s,
+      peak memory and the top device ops of a step; then
+      ``run_experiment("condition", 1e-4, 2 epochs, T 1500, 6 params)`` on
+      the synthetic data, and a run resumed from its epoch-1 train
+      checkpoint against its epoch-2 state.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction -- is
@@ -39,8 +51,8 @@ just after, and must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
 which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
 a forward and one conv to one channel each (the JAX package runs
-``out_conv2`` as an XLA conv there too).  The whole run is fp32 with TF32
-off.
+``out_conv2`` as an XLA conv there too); a training forward no launch and
+one such conv.  The whole run is fp32 with TF32 off.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -51,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +72,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from camels_diffusion_model_tpu_torch import _msgpack
+from camels_diffusion_model_tpu_torch.cli import experiment
 from camels_diffusion_model_tpu_torch.cli.experiment import reconstruct
 from camels_diffusion_model_tpu_torch.cli.serve import TIMESTEPS, serve
 from camels_diffusion_model_tpu_torch.diffusion.ddim import ddim_timesteps, sample_ddim
@@ -67,10 +82,14 @@ from camels_diffusion_model_tpu_torch.diffusion.likelihood import (
     elbo_bpd_batch,
     nll_batch,
 )
+from camels_diffusion_model_tpu_torch.config import ExperimentConfig
+from camels_diffusion_model_tpu_torch.data.pipeline import normalize_maps
+from camels_diffusion_model_tpu_torch.data.synthetic import synthetic_camels
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm, save_schedule
 from camels_diffusion_model_tpu_torch.diffusion.schedule import (
     ddpm_coefficients,
     make_schedule,
+    q_sample,
 )
 from camels_diffusion_model_tpu_torch.ops import _build
 from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
@@ -89,7 +108,10 @@ from camels_diffusion_model_tpu_torch.serving import (
     load_model,
     resolve_serving_config,
 )
+from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
+from camels_diffusion_model_tpu_torch.training import trainer
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
+from camels_diffusion_model_tpu_torch.utils.weights import from_jax_variables
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
@@ -139,6 +161,35 @@ LAUNCHES_PER_FORWARD = {"head_step": 0, "groupnorm_act": 2, "film": 1}
 # NLL's weight 1/(2 b_1) = 4.4e3 puts the whole sum on t = 1's eps.
 LIKELIHOOD_REL = 1e-4
 ELBO_SEED = 4242  # the certification's fixed ELBO rng (certify_fast_sampler.py:284)
+# Phase (l).  One train step on the card vs the CPU: the loss and the
+# gradients (together, and each leaf) to 1e-4 relative, as cuDNN's weight
+# gradients sum in their own order.  A leaf beyond that passes on max abs
+# LEAF_ABS if its gradient is zero up to rounding (the conv biases ahead of
+# a BatchNorm: norm below ROUNDING of all gradients'), which leaves no
+# relative error to speak of.  Any other leaf beyond TRAIN_REL passes only
+# on a witness taken in the same run: the step again on the card in float64
+# and in fp32 with cuDNN off (no FFT or Winograd convolution).  It passes if
+# its max abs is within LEAF_ABS, its card-vs-CPU error within
+# SMALL_LEAF_REL, and the card's fp32 gradient without cuDNN within
+# TRAIN_REL of the float64 one: the port's fp32 math meets the tolerance,
+# and the gap is the rounding of cuDNN's algorithms (on an H100 they put
+# leaves of down2 and up1 1.1e-4 to 3.5e-4 from float64, where the direct
+# sums stay within 6.6e-5).  Running statistics STATS_TOL abs; a resumed
+# run's state against the unbroken run's RESUME_TOL abs (cuDNN's
+# deterministic algorithms for both runs).
+TRAIN_BATCH, TRAIN_REAL = 32, 28  # the config's batch; 4 wrap-padded rows masked
+TRAIN_REL = 1e-4
+LEAF_ABS = 1e-6
+ROUNDING = 1e-6  # a leaf's gradient norm below this share of all gradients'
+SMALL_LEAF_REL = 1e-3
+STATS_TOL = 1e-5
+RESUME_TOL = 1e-5
+FIXED_STEPS = 30  # Adam steps on one fixed batch
+TIMED_STEPS = 20
+# Substrings of the names of cuDNN's and cuBLAS's convolution kernels (FFT,
+# implicit GEMM, data and weight gradients), for the conv share of a step.
+CONV_KERNELS = ("fft", "xmma", "gemm", "dgrad", "wgrad", "convolve", "conv2d", "cudnn",
+                "pointwise_mult_and_sum_complex")
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
                   "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
@@ -398,6 +449,224 @@ def pk_deviation(pk: np.ndarray, w: int) -> str:
     return f"max {dev.max():.2f}% median {np.median(dev):.2f}%"
 
 
+def train_batch(seed: int = 0):
+    """A full-width training batch: ``TRAIN_REAL`` synthetic maps in the
+    ``code`` normalisation, wrap-padded to ``TRAIN_BATCH`` rows with the
+    pad rows masked, contexts, and the injected t and noise."""
+    rs = np.random.RandomState(seed)
+    maps, _ = synthetic_camels(n_param_sets=2, maps_per_set=15, size=64, seed=seed)
+    idx = np.arange(TRAIN_BATCH) % TRAIN_REAL
+    x = normalize_maps(maps[:TRAIN_REAL]).astype(np.float32)[idx, ..., None]
+    c = rs.rand(TRAIN_REAL, 6).astype(np.float32)[idx]
+    mask = (np.arange(TRAIN_BATCH) < TRAIN_REAL).astype(np.float32)
+    t = rs.randint(1, TIMESTEPS + 1, TRAIN_BATCH)
+    noise = rs.randn(TRAIN_BATCH, 64, 64, 1).astype(np.float32)
+    return x, c, mask, torch.tensor(t), torch.tensor(noise)
+
+
+def training_model(variables, device) -> ContextUnet:
+    """The unfolded full-width model holding ``variables``, for training."""
+    model = ContextUnet()
+    model.load_state_dict(from_jax_variables(variables))
+    return model.to(device=device, memory_format=torch.channels_last)
+
+
+def witness_grads(variables, dev, x, c, mask, t, noise) -> dict:
+    """Phase (l): the one step's gradients on the card in float64 and in
+    fp32 with cuDNN off, from the same noised batch (noised on the CPU):
+    ``{"float64": {name: grad}, "no cuDNN": {...}}``, float64 on the CPU."""
+    x_pert = q_sample(make_schedule(TIMESTEPS), torch.as_tensor(x), t, noise, "reference")
+    grads = {}
+    for label, dtype, cudnn in (("float64", torch.float64, True),
+                                ("no cuDNN", torch.float32, False)):
+        model = training_model(variables, dev).to(dtype)
+        x_d, t_d, c_d, noise_d, mask_d = (
+            torch.as_tensor(a).to(device=dev, dtype=dtype)
+            for a in (x_pert, t.float() / TIMESTEPS, c, noise, mask))
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            eps = model(x_d, t_d, c_d, train=True)
+            _, loss = trainer.masked_mean(((eps - noise_d) ** 2).mean(dim=(1, 2, 3)), mask_d)
+            loss.backward()
+        finally:
+            torch.backends.cudnn.enabled = True
+        grads[label] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    return grads
+
+
+def check_train_step(variables, dev) -> None:
+    """Phase (l): one train step from the committed checkpoint's unfolded
+    weights on the card and on the CPU, same batch, t and noise, with the
+    float64 witness of :func:`witness_grads` for the leaves beyond
+    ``TRAIN_REL``; then the guard: the card's model refuses a grad-enabled
+    forward through the kernels."""
+    x, c, mask, t, noise = train_batch()
+    models, losses = [], []
+    for device in (dev, torch.device("cpu")):
+        model = training_model(variables, device)
+        state = trainer.create_train_state(model, 1e-4, 2, 14)
+        m = trainer.make_train_step(model, TIMESTEPS)(state, x, c, mask, t=t, noise=noise)
+        losses.append(float(m["loss"]))
+        models.append(model)
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"  train step, batch {TRAIN_BATCH} ({TRAIN_BATCH - TRAIN_REAL} pad rows masked), "
+          f"card vs CPU: loss {losses[0]:.8f} / {losses[1]:.8f}, rel {rel:.3e} "
+          f"(tol {TRAIN_REL:g})")
+    if not rel <= TRAIN_REL:
+        raise SystemExit(f"train step loss on the card vs the CPU: rel {rel} > {TRAIN_REL}")
+    grads = [{n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+             for m in models]
+    total = torch.cat([g.flatten() for g in grads[1].values()])
+    diff = torch.cat([(grads[0][n] - g).flatten() for n, g in grads[1].items()])
+    rel_all = (diff.norm() / total.norm()).item()
+    witness = {"card": grads[0], "CPU": grads[1], **witness_grads(variables, dev, x, c, mask,
+                                                                  t, noise)}
+    ref = witness["float64"]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else float("inf")
+
+    def flat(tree):
+        return torch.cat([tree[n].flatten() for n in ref])
+
+    print("  gradients vs the card's float64 step, all leaves together: " + ", ".join(
+        f"{k} fp32 rel L2 {rel(flat(v), flat(ref)):.3e}"
+        for k, v in witness.items() if k != "float64"))
+    worst, failed, on_abs, witnessed = (0.0, ""), [], [], []
+    for name, g in grads[1].items():
+        d = grads[0][name] - g
+        rel_leaf = rel(grads[0][name], g)
+        max_abs = d.abs().max().item()
+        if rel_leaf > worst[0]:
+            worst = (rel_leaf, f"{name} rel {rel_leaf:.3e} max abs {max_abs:.3e} "
+                               f"(norm {g.norm().item():.3e})")
+        if rel_leaf <= TRAIN_REL:
+            continue
+        line = f"{name} rel {rel_leaf:.3e} max abs {max_abs:.3e} norm {g.norm().item():.3e}"
+        if max_abs <= LEAF_ABS and g.norm() <= ROUNDING * total.norm():
+            on_abs.append(line)
+            continue
+        vs64 = {k: rel(v[name], ref[name]) for k, v in witness.items() if k != "float64"}
+        line += "; vs float64: " + ", ".join(f"{k} {e:.3e}" for k, e in vs64.items())
+        if (max_abs <= LEAF_ABS and rel_leaf <= SMALL_LEAF_REL
+                and vs64["no cuDNN"] <= TRAIN_REL):
+            witnessed.append(line)
+        else:
+            failed.append(line)
+    print(f"  gradients card vs CPU: all {len(grads[1])} leaves together rel L2 "
+          f"{rel_all:.3e} (tol {TRAIN_REL:g}), total norm {total.norm().item():.3e}; "
+          f"worst leaf {worst[1]}; {len(on_abs)} leaves at rounding level held on max abs "
+          f"{LEAF_ABS:g}; {len(witnessed)} held on the float64 witness:")
+    for line in on_abs + witnessed:
+        print(f"    {line}")
+    if not rel_all <= TRAIN_REL or failed:
+        raise SystemExit(f"train step gradients on the card vs the CPU: together "
+                         f"{rel_all}; leaves beyond rel {TRAIN_REL}, abs {LEAF_ABS} and "
+                         f"the float64 witness: {failed[:5]}")
+    stats = max((a.double().cpu() - b.double()).abs().max().item()
+                for (n, a), b in zip(models[0].named_buffers(), models[1].buffers())
+                if n.endswith(("running_mean", "running_var")))
+    print(f"  BatchNorm running statistics card vs CPU: max abs {stats:.3e} "
+          f"(tol {STATS_TOL:g})")
+    if not stats <= STATS_TOL:
+        raise SystemExit(f"running statistics on the card vs the CPU: {stats} > {STATS_TOL}")
+    model = models[0]
+    x_dev = torch.tensor(x[:2], device=dev)
+    try:
+        model(x_dev, torch.full((2,), 0.5, device=dev), torch.tensor(c[:2], device=dev))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"  guard: a grad-enabled forward through the kernels raised: {e}")
+    else:
+        raise SystemExit("a grad-enabled forward through the kernels did not raise")
+
+
+def fixed_objective(dev):
+    """Phase (l): ``FIXED_STEPS`` Adam steps at lr 1e-3 from a fresh init on
+    one fixed batch, t and noise: ``(model, state, step, batch, losses)``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = ContextUnet()
+    model = model.to(device=dev, memory_format=torch.channels_last)
+    state = trainer.create_train_state(model, 1e-3, 1, 10 * FIXED_STEPS)
+    step = trainer.make_train_step(model, TIMESTEPS)
+    batch = [torch.as_tensor(a).to(dev) for a in train_batch(1)]
+    x, c, mask, t, noise = batch
+    losses = [step(state, x, c, mask, t=t, noise=noise)["loss"] for _ in range(FIXED_STEPS)]
+    return model, state, step, batch, [float(v) for v in losses]
+
+
+def time_train_steps(dev, state, step, batch) -> dict:
+    """Phase (l): ms per train step at batch 32 (CUDA events around
+    ``TIMED_STEPS`` steps after the warm-up), steps/s, peak device memory,
+    and the device time by kernel of 5 steps under ``torch.profiler``.  The
+    steps draw t and the noise from their own generator, as
+    ``run_experiment``'s do; the batch stays on the card (a run stages the
+    next batch on a side stream meanwhile)."""
+    x, c, mask = batch[:3]
+    step(state, x, c, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_STEPS):
+        step(state, x, c, mask)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, x, c, mask)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5 * 1e3
+
+    def device_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device time")
+    busy = sum(device_us(e) for e in kernels) / 5 / 1e3
+    convs = sum(device_us(e) for e in kernels
+                if any(k in e.key.lower() for k in CONV_KERNELS)) / 5 / 1e3
+    top = sorted(kernels, key=device_us, reverse=True)[:5]
+    return {"ms": ms, "steps_per_s": 1e3 / ms, "peak_bytes": peak, "busy_ms": busy,
+            "profiled_ms": wall, "conv_ms": convs,
+            "top": [(e.key, device_us(e) / 5 / 1e3) for e in top]}
+
+
+def compare_train_states(path_a: str, path_b: str) -> float:
+    """Max abs difference over params, batch_stats and Adam moments of two
+    train checkpoints; their step and epoch must be equal."""
+    with open(path_a, "rb") as f:
+        a = _msgpack.unpackb(f.read())
+    with open(path_b, "rb") as f:
+        b = _msgpack.unpackb(f.read())
+    if (a["step"], a["epoch"]) != (b["step"], b["epoch"]):
+        raise SystemExit(f"resumed run at step {b['step']} epoch {b['epoch']}, the unbroken "
+                         f"run at {a['step']} {a['epoch']}")
+
+    def leaves(tree):
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                yield from leaves(tree[key])
+            else:
+                yield np.asarray(tree[key], np.float64)
+
+    trees = [[t["params"], t["batch_stats"], t["opt_state"]["0"]["mu"],
+              t["opt_state"]["0"]["nu"]] for t in (a, b)]
+    return max(float(np.abs(x - y).max()) for ta, tb in zip(*trees)
+               for x, y in zip(leaves(ta), leaves(tb)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -433,12 +702,14 @@ def main() -> int:
 
     launches = {}  # path -> kernel -> launches on that path
 
-    def drive(path, fn, steps=0, forwards=0):
+    def drive(path, fn, steps=0, forwards=0, train_forwards=0):
         """Run one main path with every launch count at 0 and read the
         counts: a sampler path of ``steps`` reverse steps must show
         ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
         kernel applies ``out_conv2``); a likelihood path of ``forwards``
-        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each."""
+        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
+        ``train_forwards`` training forwards no launch and one such conv
+        each."""
         one_channel_convs = [0]
 
         def hook(module, args, output):
@@ -456,9 +727,9 @@ def main() -> int:
         launches[path] = {name: w.launches for name, w in WRAPPERS.items()}
         print(f"  launches on {path}: {launches[path]}; convs to one channel: "
               f"{one_channel_convs[0]}", flush=True)
-        if one_channel_convs[0] != forwards:
+        if one_channel_convs[0] != forwards + train_forwards:
             raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
-                             f"expected {forwards}")
+                             f"expected {forwards + train_forwards}")
         want = {name: steps * LAUNCHES_PER_STEP[name] + forwards * LAUNCHES_PER_FORWARD[name]
                 for name in WRAPPERS}
         if any(want[name] and not launches[path][name] for name in WRAPPERS):
@@ -582,6 +853,81 @@ def main() -> int:
     print(f"  reconstruction: 4 maps from t = {TIMESTEPS} in {seconds:.3f} s, "
           f"{n_saves} saved states")
     phase("(k) reconstruction", t0)
+
+    t0 = time.perf_counter()
+    check_train_step(variables, dev)
+    model_l, state_l, step_l, batch_l, losses = drive(
+        "train_steps", lambda: fixed_objective(dev), train_forwards=FIXED_STEPS)
+    print(f"  fixed objective, {FIXED_STEPS} Adam steps at lr 1e-3 from a fresh init: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} (ratio {losses[-1] / losses[0]:.4f})")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"the loss did not fall on a fixed batch: {losses}")
+    tr = time_train_steps(dev, state_l, step_l, batch_l)
+    print(f"  train step, batch {TRAIN_BATCH}, fp32 with TF32 off: {tr['ms']:.3f} ms "
+          f"({tr['steps_per_s']:.2f} steps/s); peak device memory "
+          f"{tr['peak_bytes'] / 2**30:.3f} GiB; under the profiler {tr['profiled_ms']:.3f} "
+          f"ms a step, device busy {tr['busy_ms']:.3f} ms (idle share "
+          f"{1 - tr['busy_ms'] / tr['profiled_ms']:.3f}), convolution kernels "
+          f"{tr['conv_ms']:.3f} ms ({tr['conv_ms'] / tr['busy_ms'] * 100:.1f}% of busy)")
+    for name, ms in tr["top"]:
+        print(f"    {ms:.3f} ms a step ({ms / tr['busy_ms'] * 100:.1f}% of busy)  {name[:110]}")
+    del model_l, state_l, step_l, batch_l
+    phase("(l1) train step vs CPU, guard, fixed objective, step time", t0)
+
+    t0 = time.perf_counter()
+    snapshots = os.path.join(OUT_DIR, "train_state_by_epoch")
+    os.makedirs(snapshots, exist_ok=True)
+    save = experiment.save_train_checkpoint
+
+    def save_and_keep(state, epoch, path):
+        save(state, epoch, path)
+        shutil.copy(path, os.path.join(snapshots, f"epoch_{epoch}.msgpack"))
+
+    experiment.save_train_checkpoint = save_and_keep
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the resumed run must retrace the first
+    try:
+        runs = {}
+        for name, resume, epochs in (("exp_a", False, 2), ("exp_b", True, 1)):
+            cfg = ExperimentConfig(mode="condition", lrate=1e-4, n_epoch=2,
+                                   timesteps=TIMESTEPS, num_params=6, n_eval_images=4,
+                                   ckpt_every=1, resume=resume,
+                                   output_root=os.path.join(OUT_DIR, name))
+            shutil.rmtree(cfg.output_root, ignore_errors=True)
+            if resume:  # the epoch-1 train checkpoint of the unbroken run
+                os.makedirs(os.path.join(cfg.output_dir(), "weights"))
+                shutil.copy(os.path.join(snapshots, "epoch_1.msgpack"),
+                            os.path.join(cfg.output_dir(), "weights", "train_state.msgpack"))
+            evals = 2 * epochs  # a val pass: batches of 32 and 16 (padded) maps
+            t1 = time.perf_counter()
+            res = drive(f"run_experiment{'_resume' if resume else ''}",
+                        lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
+                        steps=TIMESTEPS, forwards=evals,
+                        train_forwards=14 * epochs)
+            runs[name] = res
+            logs = res["loss_log"] + res["val_loss_log"]
+            print(f"  run_experiment {name}: {res['data_source']} data, {res['n_train']} train "
+                  f"maps, epochs {res['epoch_times']} s, losses {logs}, in "
+                  f"{time.perf_counter() - t1:.3f} s")
+            if not np.isfinite(logs).all():
+                raise SystemExit(f"run_experiment {name}: a loss is not finite: {logs}")
+    finally:
+        experiment.save_train_checkpoint = save
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    out_a = runs["exp_a"]["output_dir"]
+    for rel_path in ("weights/model_epoch_1.msgpack", "weights/model_epoch_2.msgpack",
+                     "weights/train_state.msgpack", "dataset_info.txt", "selected_params.txt",
+                     "param_min.npy", "param_max.npy", "output.log"):
+        if not os.path.exists(os.path.join(out_a, rel_path)):
+            raise SystemExit(f"run_experiment wrote no {rel_path}")
+    diff = compare_train_states(os.path.join(out_a, "weights", "train_state.msgpack"),
+                                os.path.join(runs["exp_b"]["output_dir"], "weights",
+                                             "train_state.msgpack"))
+    print(f"  resumed from the epoch-1 train checkpoint vs the unbroken run at epoch 2: "
+          f"params, batch_stats and Adam moments max abs {diff:.3e} (tol {RESUME_TOL:g})")
+    if not diff <= RESUME_TOL:
+        raise SystemExit(f"resumed run vs the unbroken run: {diff} > {RESUME_TOL}")
+    phase("(l2) run_experiment and resume", t0)
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -29,6 +29,7 @@ from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
     head_step_plain,
 )
+from camels_diffusion_model_tpu_torch.training import trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -265,3 +266,48 @@ def test_elbo_batch_on_the_card_matches_the_cpu(dev):
     assert [b - a for a, b in zip(before, after)] == [0, 20, 10]
     rel = ((outs[1].cpu() - outs[0]).abs().max() / outs[0].abs().max()).item()
     assert rel <= 1e-4
+
+
+def test_kernel_path_refuses_a_forward_that_needs_gradients(dev):
+    """With grad enabled, the model's kernel path (``train=False``) raises
+    instead of returning a tensor cut from the graph; without grad it runs
+    the kernels, and ``train=True`` gives every parameter a gradient."""
+    model = ContextUnet(n_feat=8, n_cfeat=3, height=16).to(dev)
+    x, t, c = (torch.randn(2, 16, 16, 1, device=dev), torch.rand(2, device=dev),
+               torch.rand(2, 3, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(x, t, c)
+    before = fused_groupnorm_act.launches
+    with torch.no_grad():
+        model(x, t, c)
+    assert fused_groupnorm_act.launches == before + 2
+    model(x, t, c, train=True).square().mean().backward()
+    assert fused_groupnorm_act.launches == before + 2
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev, fp32_convs):
+    """One step (injected t and noise, 2 masked pad rows) on the card and
+    the CPU from the same weights: loss rel 1e-5, the gradients together
+    rel 1e-4 in L2, running statistics 1e-5; no kernel launches."""
+    cpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16)
+    gpu_model = ContextUnet(n_feat=8, n_cfeat=3, height=16)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(dev)
+    x, c = torch.rand(8, 16, 16, 1), torch.rand(8, 3)
+    mask = (torch.arange(8) < 6).float()
+    t, noise = torch.randint(1, 9, (8,)), torch.randn(8, 16, 16, 1)
+    before = (fused_head_step.launches, fused_groupnorm_act.launches, fused_film.launches)
+    losses = []
+    for model in (cpu_model, gpu_model):
+        state = trainer.create_train_state(model, 1e-3, 4, 2)
+        m = trainer.make_train_step(model, 8)(state, x, c, mask, t=t, noise=noise)
+        losses.append(float(m["loss"]))
+    assert (fused_head_step.launches, fused_groupnorm_act.launches,
+            fused_film.launches) == before
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    g_cpu = torch.cat([p.grad.flatten() for p in cpu_model.parameters()])
+    g_gpu = torch.cat([p.grad.flatten().cpu() for p in gpu_model.parameters()])
+    assert ((g_gpu - g_cpu).norm() / g_cpu.norm()).item() <= 1e-4
+    for (name, a), b in zip(cpu_model.named_buffers(), gpu_model.buffers()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5, msg=name)

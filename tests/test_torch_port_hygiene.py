@@ -15,7 +15,9 @@ import torch
 
 import chip_smoke
 from camels_diffusion_model_tpu_torch import resolve_device
+from camels_diffusion_model_tpu_torch.cli import experiment as experiment_cli
 from camels_diffusion_model_tpu_torch.cli import serve as serve_cli
+from camels_diffusion_model_tpu_torch.ops import _build
 from camels_diffusion_model_tpu_torch.diffusion.ddim import sample_ddim
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
 from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
@@ -45,6 +47,12 @@ PORT_MODULES = [
     "camels_diffusion_model_tpu_torch.cli.serve",
     "camels_diffusion_model_tpu_torch.cli.experiment",
     "camels_diffusion_model_tpu_torch.data.pipeline",
+    "camels_diffusion_model_tpu_torch.data.synthetic",
+    "camels_diffusion_model_tpu_torch.data.prefetch",
+    "camels_diffusion_model_tpu_torch.ops.resize",
+    "camels_diffusion_model_tpu_torch.training.trainer",
+    "camels_diffusion_model_tpu_torch.config",
+    "camels_diffusion_model_tpu_torch.utils.run_logging",
     "chip_smoke",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "matplotlib", "camels_diffusion_model_tpu")
@@ -83,6 +91,26 @@ def test_serve_without_device_raises_instead_of_running_on_cpu(no_cuda, tmp_path
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--guide-w", "2", "--n", "1", "--out", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+def test_experiment_without_device_raises_before_writing(no_cuda, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        experiment_cli.main(["condition", "1e-4", "2", "8", "6"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_kernels_refuse_tensors_autograd_would_record():
+    """The guard each wrapper runs on CUDA tensors before a launch: a
+    kernel's output, written through a pointer, would have no grad_fn."""
+    w = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _build.refuse_autograd("fused_film", torch.ones(3), w, None)
+    with torch.no_grad():
+        _build.refuse_autograd("fused_film", torch.ones(3), w, None)
+    with torch.inference_mode():
+        _build.refuse_autograd("fused_film", w)
+    _build.refuse_autograd("fused_film", torch.ones(3), w.detach(), None)
 
 
 @pytest.mark.parametrize("sampler", [sample_ddpm, sample_ddim])

@@ -1,6 +1,6 @@
-"""The experiment runner: training, periodic evaluation, checkpoints and
-the post-training reconstruction (counterpart of
-``camels_diffusion_model_tpu/cli/experiment.py:139-677``).
+"""The experiment runner: training, periodic evaluation, checkpoints, the
+post-training reconstruction and the stages after it (counterpart of
+``camels_diffusion_model_tpu/cli/experiment.py``).
 
     python -m camels_diffusion_model_tpu_torch.cli.experiment <mode> <lr> <epochs> <timesteps> [n]
 
@@ -9,32 +9,37 @@ of the reference script it stands for (``config.config_from_argv``).  It
 runs on the CUDA card, in fp32 with TF32 off; :func:`run_experiment` takes
 ``device="cpu"`` for tests.
 
-What runs, in the JAX runner's order and with its artifact names and log
-lines: the data (the ``.npy`` maps, or the synthetic stand-ins when they are
-absent, ``data_source: "synthetic"``); the eval-image selection; the epoch
-loop over wrap-padded, masked batches staged on the card
-(``data.prefetch``); the periodic validation MSE (a no-grad forward: kernels
-K2 and K3), the per-batch ELBO and the eval-point ELBO/BPD/NLL of the
-mode; the weights files and ``weights/train_state.msgpack`` on their
+What runs, in the JAX runner's order and with its artifact names, log
+lines, ``results`` keys and batching: the data (the ``.npy`` maps, or the
+synthetic stand-ins when they are absent, ``data_source: "synthetic"``);
+the model of the mode's variant (canonical, deep or big); the eval-image
+selection; the epoch loop over wrap-padded, masked batches staged on the
+card (``data.prefetch``); the periodic validation MSE (a no-grad forward:
+kernels K2 and K3), the per-batch ELBO and the eval-point ELBO/BPD/NLL of
+the mode; the weights files and ``weights/train_state.msgpack`` on their
 cadence, and ``resume``; the BatchNorm fold, the reconstruction (the exact
-chain: kernels K1, K2 and K3), its ELBO/BPD/NLL and the pixel-PDF
-statistics.
+chain: kernels K1, K2 and K3; ``main`` samples from pure noise instead), its
+ELBO/BPD/NLL and the pixel-PDF statistics; then the recon P(k) with its
+nan-safe ratio line, the mean correction (``means.txt``,
+``corrected_means.txt``), the parameter grid, the guidance sweep (w <= 0
+alone, every w > 0 in one call with a per-sample w) and the sensitivity
+rows (one sampler call for all of them), each with its post metrics.
 
 What waits: the port writes no figure (no PNG; ``utils/viz.py`` needs
-matplotlib, ROADMAP item 10), and not the stages after ``experiment.py:677``
-(recon P(k), mean correction, parameter grid, guidance sweep, sensitivity;
-item 10).  A run skips both, prints what it skipped and lists it in
-``results["not_ported"]``.  ``dtype="bfloat16"`` (item 4), the deep/big
-variants and ``shortcut="stochastic"`` (item 8) and ``mesh_devices > 1``
-(item 11), which would change what the run computes, raise
-``NotImplementedError``.
+matplotlib, ROADMAP item 10).  A run prints that it skipped them and lists
+them in ``results["not_ported"]``.  ``dtype="bfloat16"`` (item 4),
+``shortcut="stochastic"`` (item 9) and ``mesh_devices > 1`` (item 11),
+which would change what the run computes, raise ``NotImplementedError``.
 
 Noise comes from torch generators seeded by the run seed (the training
 step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
-epoch)``, the reconstruction's from ``(seed, 2)``), so the values differ
-from the JAX runner's; the data, the split, the selected images and the
-batch order are the same.  A resumed run shuffles its epochs as the unbroken
-run did (the shuffles of the epochs done are drawn again first).
+epoch)``, the reconstruction's from ``(seed, 2)``, the parameter grid's,
+the guidance sweep's and the sensitivity's from ``(seed, 3)``, ``(seed, 4)``
+and ``(seed, 5)``), so the values differ from the JAX runner's; the data,
+the split, the selected images, the batch order and the stages' contexts
+and guidance weights are the same.  A resumed run shuffles its epochs as
+the unbroken run did (the shuffles of the epochs done are drawn again
+first).
 
 Also :func:`sample_metrics` (``_sample_metrics``, ``experiment.py:103-115``)
 and :func:`reconstruct` (``experiment.py:609-630``).
@@ -59,11 +64,14 @@ from ..diffusion.likelihood import (
     NoiseFn,
     calculate_elbo_and_bpd,
     calculate_likelihood,
+    elbo_bpd_batch,
     elbo_per_batch,
+    nll_batch,
 )
-from ..diffusion.sampler import SamplerOutput, ZFn, sample_ddpm_from_noise
+from ..diffusion.sampler import SamplerOutput, ZFn, sample_ddpm, sample_ddpm_from_noise
 from ..diffusion.schedule import DDPMSchedule, NoiseScaling, make_schedule, q_sample
 from ..models.context_unet import ContextUnet
+from ..ops.spectrum import compare_power_spectra_stats
 from ..ops.stats import compare_pdf_stats
 from ..serving import load_model
 from ..training.checkpoints import (
@@ -148,27 +156,71 @@ def _unported(cfg: ExperimentConfig) -> List[str]:
     """The parts of ``cfg``'s run that this package does not do yet, which
     :func:`run_experiment` skips; raises ``NotImplementedError`` for options
     that would change what the run computes (module docstring)."""
-    spec = cfg.spec
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the port trains and serves fp32 "
                                   "only (ROADMAP section 1, item 4)")
-    if spec.model_variant != "canonical" or cfg.shortcut != "learned":
+    if cfg.shortcut != "learned":
         raise NotImplementedError(
-            f"model variant {spec.model_variant!r} with shortcut {cfg.shortcut!r}: the "
-            "port has the canonical ContextUnet with the learned shortcut only "
-            "(ROADMAP section 1, item 8)")
+            f"shortcut {cfg.shortcut!r}: the port has the learned shortcut only (ROADMAP "
+            "section 1, item 9, which took it over from item 8)")
     if cfg.mesh_devices is not None and cfg.mesh_devices > 1:
         raise NotImplementedError(f"mesh_devices={cfg.mesh_devices}: the port runs on "
                                   "one card (ROADMAP section 1, item 11)")
-    conditional = spec.conditional
-    stages = [name for name, on in (
-        ("recon_power_spectra", spec.recon_power_spectra),
-        ("mean_correction", spec.mean_correction),
-        ("param_grid", spec.param_grid and conditional),
-        ("guidance_sweep", spec.guidance_sweep and conditional),
-        ("sensitivity", spec.sensitivity and conditional and cfg.num_params > 0),
-    ) if on]
-    return stages + ["figures"]
+    return ["figures"]
+
+
+def _build_grid_params(cfg: ExperimentConfig, selected_params: np.ndarray) -> np.ndarray:
+    """A 5x5 grid over the first two parameters, or 25 values of the first
+    (``experiment.py:889-908``), around the first selected context."""
+    axis = np.linspace(0.0, 1.0, 5, dtype=np.float32)
+    if cfg.num_params >= 2:
+        pairs = [(a, b) for a in axis for b in axis]
+    else:
+        pairs = [(a,) for a in np.linspace(0.0, 1.0, 25, dtype=np.float32)]
+    rows = []
+    for values in pairs:
+        row = selected_params[0].copy()
+        row[:len(values)] = values
+        rows.append(row)
+    return np.stack(rows)
+
+
+SENSITIVITY_VALUES = np.linspace(0.0, 1.0, 5, dtype=np.float32)
+
+
+def _sensitivity_params(cfg: ExperimentConfig, selected_params: np.ndarray) -> np.ndarray:
+    """``(num_params * 5, n_cfeat)``: the first selected context with one
+    parameter at a time set to each of ``SENSITIVITY_VALUES``
+    (``experiment.py:821-829``)."""
+    rows = []
+    for p_idx in range(cfg.num_params):
+        for v in SENSITIVITY_VALUES:
+            row = selected_params[0].copy()
+            row[p_idx] = v
+            rows.append(row)
+    return np.stack(rows)
+
+
+def guidance_sweep(model, schedule: DDPMSchedule, base: np.ndarray, strengths,
+                   generator, size: int, device=None) -> Dict[float, np.ndarray]:
+    """The maps of each guidance strength on the contexts ``base`` (5
+    rows): each ``w <= 0`` in a call of its own (the single-forward
+    semantics), every ``w > 0`` together in one call with a per-sample w
+    (``experiment.py:771-806``)."""
+    by_w: Dict[float, np.ndarray] = {}
+    n = len(base)
+    for w in [w for w in strengths if w <= 0]:
+        by_w[w] = sample_ddpm(model, schedule, generator, n_sample=n, size=size,
+                              params=base, guide_w=w, device=device).cpu().numpy()
+    pos = [w for w in strengths if w > 0]
+    if pos:
+        x = sample_ddpm(model, schedule, generator, n_sample=n * len(pos), size=size,
+                        params=np.tile(base, (len(pos), 1)),
+                        guide_w=np.repeat(np.asarray(pos, np.float32), n),
+                        device=device).cpu().numpy()
+        for i, w in enumerate(pos):
+            by_w[w] = x[i * n:(i + 1) * n]
+    return by_w
 
 
 def run_experiment(cfg: ExperimentConfig, *, device=None) -> Dict[str, object]:
@@ -214,9 +266,10 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         test_c = np.zeros((ds.n_test, cfg.n_cfeat), np.float32)
 
     # ---- model, optimizer, steps (experiment.py:189-237) ------------------
+    factory = getattr(ContextUnet, spec.model_variant)  # canonical, deep or big
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = ContextUnet(n_feat=cfg.n_feat, n_cfeat=cfg.n_cfeat, height=cfg.height)
+        model = factory(n_cfeat=cfg.n_cfeat, n_feat=cfg.n_feat, height=cfg.height)
     model = model.to(device=device, memory_format=torch.channels_last)
     steps_per_epoch = num_batches(ds.n_train, cfg.batch_size)
     state = create_train_state(model, cfg.lrate, cfg.n_epoch, steps_per_epoch, seed=cfg.seed)
@@ -425,6 +478,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     }
 
     # ---- reconstruction (experiment.py:600-665) ---------------------------
+    # (main samples fresh maps from pure noise with a zero context instead)
     if spec.timing_log:
         logger.sampling_header()
     generator = seeded_generator(device, cfg.seed, 2)
@@ -432,10 +486,16 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
-    recon = reconstruct(inf_model, schedule, selected_images,
-                        selected_params if spec.conditional else None, generator,
-                        scaling=scaling, device=device)
-    recon_x = recon.x.cpu().numpy()
+    if spec.pure_noise_sampling:
+        recon_x = sample_ddpm(inf_model, schedule, generator, n_sample=cfg.n_eval_images,
+                              size=cfg.height,
+                              params=np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32),
+                              device=device).cpu().numpy()
+    else:
+        recon = reconstruct(inf_model, schedule, selected_images,
+                            selected_params if spec.conditional else None, generator,
+                            scaling=scaling, device=device)
+        recon_x = recon.x.cpu().numpy()
     seconds = time.time() - t0
     if spec.timing_log:
         logger.reconstruction_perf(len(selected_images), seconds, seconds / cfg.timesteps,
@@ -448,8 +508,96 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
 
     # ---- pixel-PDF comparison (experiment.py:667-677) ----------------------
     results["pdf_stats"] = compare_pdf_stats(selected_images[..., 0], recon_x[..., 0])
+    reconstructed_mean = float(recon_x.mean())
     results["means"] = {"processed": processed_images_mean,
-                        "reconstructed": float(recon_x.mean())}
+                        "reconstructed": reconstructed_mean}
+
+    # ---- recon power spectra (experiment.py:679-715) -----------------------
+    if spec.recon_power_spectra:
+        k, om, _, gm, _ = compare_power_spectra_stats(selected_images[..., 0],
+                                                      recon_x[..., 0])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pk_ratio = gm / om
+        # The reference's mean takes in the 0/0 bins and logs nan; the
+        # second line is over the populated bins.
+        ratio_mean = float(np.mean(pk_ratio[1:]))
+        ratio_std = float(np.std(pk_ratio[1:]))
+        finite = np.isfinite(pk_ratio[1:])
+        safe_mean = float(np.mean(pk_ratio[1:][finite])) if finite.any() else float("nan")
+        safe_std = float(np.std(pk_ratio[1:][finite])) if finite.any() else float("nan")
+        logger.append(
+            "\nPower Spectrum Analysis:\n"
+            f"  Mean P(k) ratio (generated/original): {ratio_mean:.4f} ± {ratio_std:.4f}\n"
+            f"  Mean P(k) ratio over populated bins: {safe_mean:.4f} ± {safe_std:.4f}\n")
+        good = np.where((pk_ratio > 0.8) & (pk_ratio < 1.2) & (k > 0))[0]
+        if len(good) > 0:
+            logger.append(f"  Good P(k) match (within 20%) for k range: "
+                          f"[{k[good[0]]:.4f}, {k[good[-1]]:.4f}]\n")
+        results["pk_ratio"] = {"mean": ratio_mean, "std": ratio_std,
+                               "safe_mean": safe_mean, "safe_std": safe_std}
+
+    # ---- mean-ratio correction (experiment.py:717-736) ---------------------
+    if spec.mean_correction:
+        with open(os.path.join(output_dir, "means.txt"), "w") as f:
+            f.write(f"Processed Images Mean: {processed_images_mean}\n")
+            f.write(f"Reconstructed Images Mean: {reconstructed_mean}\n")
+        mean_ratio = processed_images_mean / reconstructed_mean
+        corrected = recon_x * mean_ratio
+        with open(os.path.join(output_dir, "corrected_means.txt"), "w") as f:
+            f.write(f"Processed Images Mean: {processed_images_mean}\n")
+            f.write(f"Corrected Reconstructed Images Mean: {float(corrected.mean())}\n")
+        results["mean_ratio"] = mean_ratio
+
+    # ---- parameter grid (experiment.py:738-765) ----------------------------
+    if spec.param_grid and spec.conditional:
+        grid_params = _build_grid_params(cfg, selected_params)
+        generator = seeded_generator(device, cfg.seed, 3)
+        t0 = time.time()
+        grid_x = sample_ddpm(inf_model, schedule, generator, n_sample=len(grid_params),
+                             size=cfg.height, params=grid_params,
+                             device=device).cpu().numpy()
+        if spec.timing_log:
+            logger.grid_perf(len(grid_params), time.time() - t0)
+        if spec.post_metrics:
+            g_elbo, g_bpd, g_nll = sample_metrics(inf_model, schedule, grid_x, grid_params,
+                                                  generator, cfg.batch_size, dims,
+                                                  device=device)
+            logger.sample_metrics("parameter grid samples", g_elbo, g_bpd, g_nll)
+            results["grid_metrics"] = {"elbo": g_elbo, "bpd": g_bpd, "nll": g_nll}
+
+    # ---- guidance sweep (experiment.py:767-817) ----------------------------
+    if spec.guidance_sweep and spec.conditional:
+        base = np.tile(selected_params[0], (5, 1))
+        generator = seeded_generator(device, cfg.seed, 4)
+        guided_by_w = guidance_sweep(inf_model, schedule, base, cfg.guidance_strengths,
+                                     generator, cfg.height, device)
+        if spec.post_metrics:
+            guided_metrics = []
+            for w in cfg.guidance_strengths:
+                e, b, nll = sample_metrics(inf_model, schedule, guided_by_w[w], base,
+                                           generator, 5, dims, device=device)
+                guided_metrics.append({"guidance": w, "elbo": e, "bpd": b, "nll": nll})
+                logger.guidance_metrics(w, e, b, nll)
+            results["guidance_metrics"] = guided_metrics
+
+    # ---- sensitivity, one sampler call (experiment.py:819-875) -------------
+    if spec.sensitivity and spec.conditional and cfg.num_params > 0:
+        sens_params = _sensitivity_params(cfg, selected_params)
+        generator = seeded_generator(device, cfg.seed, 5)
+        sens_x = sample_ddpm(inf_model, schedule, generator, n_sample=len(sens_params),
+                             size=cfg.height, params=sens_params, device=device)
+        if spec.post_metrics:
+            per_elbo = elbo_bpd_batch(inf_model, schedule, sens_x, sens_params, generator,
+                                      device=device).cpu().numpy()
+            per_nll = nll_batch(inf_model, schedule, sens_x, sens_params, generator,
+                                device=device).cpu().numpy()
+            for p_idx in range(cfg.num_params):
+                logger.sensitivity_header(p_idx)
+                for i, v in enumerate(SENSITIVITY_VALUES):
+                    e = float(per_elbo[p_idx * 5 + i])
+                    logger.sensitivity_value(float(v), e, e / (dims * np.log(2.0)),
+                                             float(per_nll[p_idx * 5 + i]))
+
     print("Not run by the port (ROADMAP section 1, item 10): " + ", ".join(not_ported))
     print("Training and evaluation completed"
           + (f" with {cfg.num_params} conditioning parameters." if spec.conditional else "."))

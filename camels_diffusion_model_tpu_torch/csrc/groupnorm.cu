@@ -27,6 +27,15 @@
 //    come from that on-chip copy, and the CTAs of a cluster add their
 //    partials through distributed shared memory in rank order, so every CTA
 //    gets the same statistics.  Device memory sees one read and one write.
+//  - A slice larger than a CTA's shared memory (the big model's out_norm,
+//    (N, 128, 128, 256): 2 MiB a group, 256 KiB a CTA in a cluster of 8)
+//    keeps its first resident_pixels in shared memory and spills the rest:
+//    the variance and output passes read the spilled pixels again from
+//    device memory (12% of that slice, so 1.23 reads of x in all).  The
+//    alternative, a non-portable cluster of 16 at 128 KiB a CTA, needs 16
+//    free SMs of one GPC for each group and was not taken: the plan could
+//    not know before the launch whether the card schedules it.  The sums
+//    are the same, in the same order, on both paths.
 //  - A thread keeps the same channels for its whole slice (the block covers
 //    whole pixels), so gamma, beta, scale and shift sit in registers and the
 //    loops do no division.  Shapes whose channels per group are not a
@@ -84,8 +93,8 @@ __global__ void groupnorm_act_kernel(
     const float* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* __restrict__ scale,
     const float* __restrict__ shift, float* __restrict__ out, int hw, int c,
-    int groups, int cluster_size, int pixels_per_cta, int scale_stride,
-    int shift_stride, float eps, int act) {
+    int groups, int cluster_size, int pixels_per_cta, int resident_pixels,
+    int scale_stride, int shift_stride, float eps, int act) {
   extern __shared__ float4 slice_storage[];
   __shared__ float warp_sums[32];
   __shared__ float partials[2];
@@ -104,12 +113,24 @@ __global__ void groupnorm_act_kernel(
   const int ch = g * cgroup + j;
   const long long base = ((long long)n * hw + p0) * c + ch;
   float* mine = reinterpret_cast<float*>(slice_storage) + j;
+  const float* xs = x + base;  // this thread's channels of the slice
+  // Pixels [0, res) of the slice sit in shared memory, [res, np) spill;
+  // spill is this thread's first pixel at or past res.
+  const int res = min(np, resident_pixels);
+  const int spill =
+      first >= res ? first : first + (res - first + pstride - 1) / pstride * pstride;
+  // Second and third passes: this thread's pixels in order, each with its
+  // values, from shared memory and then (spilled) from device memory.
+  auto sweep = [&](auto&& body) {
+    for (int p = first; p < res; p += pstride) body(p, load<V>(mine + p * cgroup));
+    for (int p = spill; p < np; p += pstride) body(p, load<V>(xs + (long long)p * c));
+  };
 
   float s = 0.0f;
 #pragma unroll 4
   for (int p = first; p < np; p += pstride) {
-    Pack<V> v = load<V>(x + base + (long long)p * c);
-    store<V>(mine + p * cgroup, v);  // only this thread reads it back
+    Pack<V> v = load<V>(xs + (long long)p * c);
+    if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
 #pragma unroll
     for (int i = 0; i < V; ++i) s += v.v[i];
   }
@@ -118,14 +139,13 @@ __global__ void groupnorm_act_kernel(
       cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
 
   float q = 0.0f;
-  for (int p = first; p < np; p += pstride) {
-    Pack<V> v = load<V>(mine + p * cgroup);
+  sweep([&](int, const Pack<V>& v) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       float d = v.v[i] - mean;
       q += d * d;
     }
-  }
+  });
   const float var =
       cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size) / count;
   const float rstd = rsqrtf(var + eps);
@@ -140,15 +160,14 @@ __global__ void groupnorm_act_kernel(
     sc = load<V>(scale + (long long)n * scale_stride + ch);
     sh = load<V>(shift + (long long)n * shift_stride + ch);
   }
-  for (int p = first; p < np; p += pstride) {
-    Pack<V> v = load<V>(mine + p * cgroup);
+  sweep([&](int p, Pack<V> v) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       float y = activate((v.v[i] - mean) * rstd * ga.v[i] + be.v[i], act);
       v.v[i] = film ? y * sc.v[i] + sh.v[i] : y;
     }
     store<V>(out + base + (long long)p * c, v);
-  }
+  });
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
@@ -156,8 +175,8 @@ template <int V>
 cudaError_t launch(cudaLaunchConfig_t* cfg, const float* x, const float* gamma,
                    const float* beta, const float* scale, const float* shift,
                    float* out, int hw, int c, int groups, int cluster,
-                   int pixels_per_cta, int scale_stride, int shift_stride,
-                   float eps, int act) {
+                   int pixels_per_cta, int resident_pixels, int scale_stride,
+                   int shift_stride, float eps, int act) {
   cudaError_t err = cudaSuccess;
   if (cfg->dynamicSmemBytes > 48 * 1024)
     err = cudaFuncSetAttribute(groupnorm_act_kernel<V>,
@@ -166,7 +185,7 @@ cudaError_t launch(cudaLaunchConfig_t* cfg, const float* x, const float* gamma,
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<V>, x, gamma, beta, scale,
                              shift, out, hw, c, groups, cluster, pixels_per_cta,
-                             scale_stride, shift_stride, eps, act);
+                             resident_pixels, scale_stride, shift_stride, eps, act);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -175,7 +194,8 @@ cudaError_t launch(cudaLaunchConfig_t* cfg, const float* x, const float* gamma,
 
 // x/out: (n, hw, c) contiguous NHWC; gamma/beta: (c,); scale/shift: null, or
 // rows of c floats with strides 0 or c.  vec, cluster, threads,
-// pixels_per_cta and smem_bytes come from ops/groupnorm.py::launch_plan
+// pixels_per_cta, resident_pixels and smem_bytes come from
+// ops/groupnorm.py::launch_plan
 // (vec 4 needs c/groups % 4 == 0 and 16-byte aligned pointers).  Returns
 // the cudaError_t of the launch.
 extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
@@ -184,8 +204,8 @@ extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
                                     int hw, int c, int groups, int scale_stride,
                                     int shift_stride, float eps, int act,
                                     int vec, int cluster, int threads,
-                                    int pixels_per_cta, int smem_bytes,
-                                    void* stream) {
+                                    int pixels_per_cta, int resident_pixels,
+                                    int smem_bytes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * groups * cluster));
@@ -201,11 +221,11 @@ extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
   cfg.numAttrs = 1;
   if (vec == 4)
     return (int)launch<4>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                          cluster, pixels_per_cta, scale_stride, shift_stride,
-                          eps, act);
+                          cluster, pixels_per_cta, resident_pixels, scale_stride,
+                          shift_stride, eps, act);
   if (vec == 1)
     return (int)launch<1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                          cluster, pixels_per_cta, scale_stride, shift_stride,
-                          eps, act);
+                          cluster, pixels_per_cta, resident_pixels, scale_stride,
+                          shift_stride, eps, act);
   return (int)cudaErrorInvalidValue;
 }

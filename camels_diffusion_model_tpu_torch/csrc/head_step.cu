@@ -9,6 +9,8 @@
 //
 //   eps[s](y, x) = bias + sum_{ky, kx, c} W[c, ky, kx] * h[s, y+ky-1, x+kx-1, c]
 //                  (zero padding)
+//   eps  = tanh_out ? tanhf(eps) : eps                 (deep/big variants,
+//                                                      context_unet.py:315-316)
 //   e    = cfg ? eps_u + w * (eps_c - eps_u) : eps    (w scalar or per sample)
 //   out  = (x - c_eps * e) * inv_sqrt_a + sigma * z    (z skipped when null)
 //
@@ -80,7 +82,7 @@ __global__ void head_step_kernel(
     const float* __restrict__ bias, const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
     float w, float* __restrict__ out, int batch, int height, int width, int c,
-    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma) {
+    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
   constexpr int V = CK / 4;  // 16-byte copies per pixel and chunk
   constexpr int STRIDE = 4 * (V + (V % 2 == 0 ? 1 : 2));  // floats per staged pixel
   extern __shared__ float4 smem4[];
@@ -197,7 +199,9 @@ __global__ void head_step_kernel(
           if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * 2 * T + gx];
         }
       }
-      e[s] = sum;
+      // Full-precision tanhf (not tanh.approx.f32): the step scales eps by
+      // c_eps, and the variants' eps is the model's output.
+      e[s] = tanh_out ? tanhf(sum) : sum;
       if (!cfg) break;
     }
     const float ee = cfg ? e[1] + wu * (e[0] - e[1]) : e[0];
@@ -213,7 +217,8 @@ cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
                    const float* h, const float* wt, const float* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c,
-                   int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma) {
+                   int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
+                   int tanh_out) {
   cudaError_t err = cudaSuccess;
   if (smem_bytes > 48 * 1024)
     err = cudaFuncSetAttribute(head_step_kernel<CK, STAGES>,
@@ -221,7 +226,7 @@ cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
   if (err == cudaSuccess)
     head_step_kernel<CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
         h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
-        cfg, c_eps, inv_sqrt_a, sigma);
+        cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -231,16 +236,16 @@ cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
 // h: (cfg ? 2 * batch : batch, height, width, c) NHWC, 16-byte aligned;
 // wt: (9, c) tap-major weights (tap = ky * 3 + kx); bias: one float;
 // x, z, out: (batch, height, width); z null to skip the noise term;
-// w_per_sample: null for the scalar w.  rows, ck, stages, threads and
-// smem_bytes come from ops/sampler_step.py::launch_plan.  Returns the
-// cudaError_t of the launch.
+// w_per_sample: null for the scalar w; tanh_out: 1 to take eps = tanh(conv).
+// rows, ck, stages, threads and smem_bytes come from
+// ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the launch.
 extern "C" int camels_head_step(const float* h, const float* wt, const float* bias,
                                 const float* x, const float* z,
                                 const float* w_per_sample, float w, float* out,
                                 int batch, int height, int width, int c, int rows,
                                 int cfg, int ck, int stages, int threads,
                                 int smem_bytes, float c_eps, float inv_sqrt_a,
-                                float sigma, void* stream) {
+                                float sigma, int tanh_out, void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
   dim3 grid((unsigned)(batch * ((height + rows - 1) / rows)));
   cudaStream_t st = (cudaStream_t)stream;
@@ -248,7 +253,8 @@ extern "C" int camels_head_step(const float* h, const float* wt, const float* bi
   if (ck == CK && stages == STAGES)                                               \
     return (int)launch<CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, \
                                    z, w_per_sample, w, out, batch, height, width, \
-                                   c, rows, cfg, c_eps, inv_sqrt_a, sigma);
+                                   c, rows, cfg, c_eps, inv_sqrt_a, sigma,        \
+                                   tanh_out);
   CAMELS_HEAD_STEP(32, 2)
   CAMELS_HEAD_STEP(32, 3)
   CAMELS_HEAD_STEP(16, 2)

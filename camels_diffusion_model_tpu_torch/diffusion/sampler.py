@@ -4,8 +4,9 @@
 A Python loop over the reverse steps; each step runs the encoder once, the
 FiLM decoder up to ``out_norm`` on ``[cond, uncond]`` under classifier-free
 guidance (the unconditional context is zeros, ``sampler.py:144-167``), and
-one launch of the step kernel K1, which applies the decoder's output conv,
-the guidance combine and the update.  The FiLM embeddings are hoisted out
+one launch of the step kernel K1, which applies the decoder's output conv
+(and the tanh of the deep and big variants), the guidance combine and the
+update.  The FiLM embeddings are hoisted out
 of the loop (``:369-381``): the context MLPs run once per call and the time
 MLPs once for all ``T + 1`` timesteps.  With
 ``guide_w == 0`` the model runs once per step with the conditional context
@@ -196,7 +197,7 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
                 z = (z_fn(k, t).to(x.device) if z_fn is not None else
                      torch.randn(x.shape, generator=generator, device=x.device))
             x = fused_head_step(h, head.weight, head.bias, x, z, c_eps,
-                                inv_sqrt_a, sigma, w)
+                                inv_sqrt_a, sigma, w, tanh=model.final_tanh)
             if save_mask is not None and save_mask[k]:
                 saved.append(x)
     return x, saved

@@ -1,19 +1,25 @@
-"""The canonical ContextUnet (counterpart of
+"""The ContextUnet family (counterpart of
 ``camels_diffusion_model_tpu/models/context_unet.py``).
 
-64x64 maps, ``n_feat`` 128, ``n_cfeat`` 6, two levels and ReLU heads by
-default; ``n_feat``, ``n_cfeat`` and ``height`` are free so the tests can
+Three variants, built by the factories of the JAX package
+(``context_unet.py:100-136``): :meth:`ContextUnet.canonical` (64x64,
+``n_feat`` 128, ``n_cfeat`` 6, two levels, ReLU heads),
+:meth:`ContextUnet.deep` (128x128, ``n_cfeat`` 5, three levels, leaky-ReLU
+heads, tanh output) and :meth:`ContextUnet.big` (``n_feat`` 256, ``n_cfeat``
+10, 128x128, three levels, GELU heads, tanh output, an extra output
+conv).  ``n_feat``, ``n_cfeat`` and ``height`` are free so the tests can
 build a narrow one.  The forward splits into a condition-free ``encode`` and
 a FiLM-conditioned ``decode`` (``context_unet.py:227-317``), so that
-classifier-free guidance runs the encoder once and the decoder on the doubled
-``[cond, uncond]`` batch.
+classifier-free guidance runs the encoder once and the decoder on the
+doubled ``[cond, uncond]`` batch.
 
 Layout: public inputs and outputs are NHWC ``(B, H, W, C)`` as in the JAX
 package; inside, activations are NCHW tensors in ``torch.channels_last``
 memory.  The two GroupNorm heads go through kernel K2, which applies FiLM
 stage 0 as the epilogue of ``up0_norm``; FiLM stage 1 goes through K3.
 The samplers stop at :meth:`ContextUnet.decode_features` and hand
-``out_conv2`` to the step kernel K1.
+``out_conv2`` (and the tanh of the deep and big variants) to the step
+kernel K1.
 
 ``train=True`` (the training step's forward) normalises the BatchNorms with
 batch statistics and runs the decoder's GroupNorm and FiLM in plain PyTorch
@@ -60,33 +66,71 @@ class EncoderState(NamedTuple):
                             cat(self.hiddenvec))
 
 
-class ContextUnet(nn.Module):
-    """Parameter-conditional U-Net denoiser, canonical two-level variant."""
+# The JAX factories' settings by variant name (``context_unet.py:100-136``).
+VARIANTS = {
+    "canonical": dict(levels=2),
+    "deep": dict(levels=3, up0_act="leaky_relu", out_act="leaky_relu", final_tanh=True),
+    "big": dict(levels=3, up0_act="gelu", out_act="gelu", final_tanh=True,
+                extra_out_conv=True),
+}
 
-    levels = 2
+
+class ContextUnet(nn.Module):
+    """Parameter-conditional U-Net denoiser (the JAX module's arguments but
+    ``shortcut`` and ``dtype``: the learned shortcut, fp32)."""
 
     def __init__(self, in_channels: int = 1, n_feat: int = 128,
-                 n_cfeat: int = 6, height: int = 64, fold_bn: bool = False):
+                 n_cfeat: int = 6, height: int = 64, levels: int = 2,
+                 up0_act: str = "relu", out_act: str = "relu",
+                 final_tanh: bool = False, extra_out_conv: bool = False,
+                 fold_bn: bool = False):
         super().__init__()
         self.in_channels, self.n_feat, self.n_cfeat = in_channels, n_feat, n_cfeat
-        self.height = height
+        self.height, self.levels = height, levels
+        self.final_tanh = final_tanh
         n = n_feat
         cb = self.bottleneck_feat
         self.init_conv = ResidualConvBlock(in_channels, n, is_res=True, fold_bn=fold_bn)
-        self.down1 = UnetDown(n, n, fold_bn=fold_bn)
-        self.down2 = UnetDown(n, 2 * n, fold_bn=fold_bn)
+        # Down-path widths [n, 2n] (two levels) or [n, 2n, 4n] (three).
+        skip_feats = [n, n] + [n * 2**i for i in range(1, levels)]  # x0, then downs
+        for i in range(levels):
+            self.add_module(f"down{i + 1}", UnetDown(skip_feats[i], skip_feats[i + 1],
+                                                     fold_bn=fold_bn))
         self.timeembed1 = EmbedFC(1, cb)
         self.timeembed2 = EmbedFC(1, cb // 2)
         self.contextembed1 = EmbedFC(n_cfeat, cb)
         self.contextembed2 = EmbedFC(n_cfeat, cb // 2)
-        bottom = height // 2**self.levels
+        bottom = height // 2**levels
         self.up0_conv = nn.ConvTranspose2d(cb, cb, bottom, stride=bottom)
-        self.up0_norm = GroupNormAct(cb, act="relu")
-        self.up1 = UnetUp(2 * cb, n, fold_bn=fold_bn)
-        self.up2 = UnetUp(2 * n, n, fold_bn=fold_bn)
-        self.out_conv1 = nn.Conv2d(2 * n, n, 3, padding=1)
-        self.out_norm = GroupNormAct(n, act="relu")
+        self.up0_norm = GroupNormAct(cb, act=up0_act)
+        # Up-path widths: n, n (two levels); 2n, n, n (three).
+        width = cb
+        for i in range(levels):
+            out = max(n, cb // 2 ** (i + 1))
+            self.add_module(f"up{i + 1}", UnetUp(width + skip_feats[levels - i], out,
+                                                 fold_bn=fold_bn))
+            width = out
+        self.out_conv1 = nn.Conv2d(width + n, n, 3, padding=1)
+        if extra_out_conv:
+            self.out_conv_extra = nn.Conv2d(n, n, 3, padding=1)
+        self.out_norm = GroupNormAct(n, act=out_act)
         self.out_conv2 = nn.Conv2d(n, in_channels, 3, padding=1)
+
+    @classmethod
+    def canonical(cls, n_cfeat: int = 6, n_feat: int = 128, height: int = 64, **kw):
+        """The canonical 64x64 two-level model."""
+        return cls(n_feat=n_feat, n_cfeat=n_cfeat, height=height, **VARIANTS["canonical"], **kw)
+
+    @classmethod
+    def deep(cls, n_cfeat: int = 5, n_feat: int = 128, height: int = 128, **kw):
+        """The 128x128 three-level leaky-ReLU/tanh variant (``initial.py``)."""
+        return cls(n_feat=n_feat, n_cfeat=n_cfeat, height=height, **VARIANTS["deep"], **kw)
+
+    @classmethod
+    def big(cls, n_cfeat: int = 10, n_feat: int = 256, height: int = 128, **kw):
+        """The ``n_feat`` 256, 128x128 three-level GELU/tanh variant with the
+        extra output conv (``main.py``)."""
+        return cls(n_feat=n_feat, n_cfeat=n_cfeat, height=height, **VARIANTS["big"], **kw)
 
     @property
     def bottleneck_feat(self) -> int:
@@ -96,11 +140,14 @@ class ContextUnet(nn.Module):
         """init_conv + down path + pooled bottleneck of NHWC ``x``."""
         x = to_nchw(x).contiguous(memory_format=torch.channels_last)
         x0 = self.init_conv(x, train)
-        d1 = self.down1(x0, train)
-        d2 = self.down2(d1, train)
+        downs = []
+        h = x0
+        for i in range(self.levels):
+            h = getattr(self, f"down{i + 1}")(h, train)
+            downs.append(h)
         # AvgPool over the whole bottleneck map is a global mean; then GELU.
-        hidden = F.gelu(d2.mean(dim=(2, 3), keepdim=True), approximate="none")
-        return EncoderState(x0, (d1, d2), hidden)
+        hidden = F.gelu(h.mean(dim=(2, 3), keepdim=True), approximate="none")
+        return EncoderState(x0, tuple(downs), hidden)
 
     def time_embed(self, t: torch.Tensor):
         """Both time MLPs for normalised timesteps: ``((N, cb), (N, cb//2))``."""
@@ -131,20 +178,26 @@ class ContextUnet(nn.Module):
             cemb1, temb1, cemb2, temb2 = film
         u = self.up0_norm(self.up0_conv(enc.hiddenvec),
                           film=(cemb1.contiguous(), temb1.contiguous()), train=train)
-        u = self.up1(u, enc.downs[1], train)
-        film1 = film_plain if train else fused_film
-        u = to_nchw(film1(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
-        u = self.up2(u, enc.downs[0], train)
-        return self.out_norm(self.out_conv1(torch.cat([u, enc.x0], dim=1)), train=train)
+        skips = (enc.x0,) + enc.downs  # shallowest first
+        for i in range(self.levels):
+            if i == 1:  # FiLM stage 1; stage 0 was up0_norm's epilogue
+                film1 = film_plain if train else fused_film
+                u = to_nchw(film1(to_nhwc(u), cemb2.contiguous(), temb2.contiguous()))
+            u = getattr(self, f"up{i + 1}")(u, skips[self.levels - i], train)
+        h = self.out_conv1(torch.cat([u, enc.x0], dim=1))
+        if hasattr(self, "out_conv_extra"):
+            h = self.out_conv_extra(h)
+        return self.out_norm(h, train=train)
 
     def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
                c: Optional[torch.Tensor] = None, *, film=None,
                train: bool = False) -> torch.Tensor:
         """FiLM-conditioned decoder -> NHWC eps: ``out_conv2`` of
-        :meth:`decode_features` (same arguments).  The samplers run
-        ``out_conv2`` inside the step kernel instead."""
-        h = self.decode_features(enc, t, c, film=film, train=train)
-        return to_nhwc(self.out_conv2(h))
+        :meth:`decode_features` (same arguments), then tanh where
+        ``final_tanh`` is set.  The samplers run both inside the step kernel
+        instead."""
+        eps = self.out_conv2(self.decode_features(enc, t, c, film=film, train=train))
+        return to_nhwc(torch.tanh(eps) if self.final_tanh else eps)
 
     def forward(self, x, t, c=None, train: bool = False):
         """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and

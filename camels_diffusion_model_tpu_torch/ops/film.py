@@ -2,9 +2,11 @@
 
 Wraps ``csrc/film.cu``, the counterpart of the Pallas ``fused_film``
 (``camels_diffusion_model_tpu/ops/pallas/film.py:29``).  The decoder runs it
-at FiLM stage 1 ``(N, 32, 32, 128)`` (``context_unet.py:304-307``), one
-launch per decoder call; stage 0 is the epilogue of the GroupNorm kernel
-(``ops/groupnorm.py``).  :func:`launch_plan` chooses the kernel's geometry.
+at FiLM stage 1 (``context_unet.py:304-307``), one launch per decoder call,
+at ``(N, 32, 32, 128)`` in the canonical model, ``(N, 32, 32, 256)`` in the
+deep one and ``(N, 32, 32, 512)`` in the big one; stage 0 is the epilogue
+of the GroupNorm kernel (``ops/groupnorm.py``).  :func:`launch_plan` chooses
+the kernel's geometry.
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@ epilogue.
 
 Wraps ``csrc/groupnorm.cu``, the counterpart of the Pallas
 ``fused_groupnorm_act`` (``camels_diffusion_model_tpu/ops/pallas/
-groupnorm.py:65``).  The decoder runs it at ``up0_norm`` ``(N, 16, 16, 256)``
-with FiLM stage 0 as its epilogue, and at ``out_norm`` ``(N, 64, 64, 128)``:
-two launches per decoder call.  :func:`launch_plan` chooses the kernel's
-geometry.
+groupnorm.py:65``).  The decoder runs it at ``up0_norm``, with FiLM stage 0
+as its epilogue, and at ``out_norm``: two launches per decoder call, at
+``(N, 16, 16, 256)`` and ``(N, 64, 64, 128)`` in the canonical model,
+``(N, 16, 16, 512)`` and ``(N, 128, 128, 128)`` in the deep one,
+``(N, 16, 16, 1024)`` and ``(N, 128, 128, 256)`` in the big one.
+:func:`launch_plan` chooses the kernel's geometry.
 """
 
 from __future__ import annotations
@@ -23,19 +25,21 @@ from .film import check_rows, film_plain
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "leaky_relu": 3}
 
 THREADS = 256  # a CTA; a multiple of 32 for the warp-shuffle sums
+WIDE_THREADS = 512  # a CTA whose slice leaves no room for a second on its SM
 MIN_CTAS = 256  # about two per SM on the 132 SMs of an H100
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
 SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 #                           for several CTAs on one SM (228 KB of shared memory)
 SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
 #                                less room for the kernel's static arrays
+SPILL_MAX = 2 * SLICE_MAX  # the largest slice: at most half of it spills
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
 )
 
 
@@ -46,7 +50,13 @@ class Plan(NamedTuple):
     cluster: int  # CTAs that share one (sample, group)
     threads: int  # per CTA
     pixels_per_cta: int  # a CTA's run of pixels of its group
-    smem_bytes: int  # dynamic shared memory per CTA: its slice
+    smem_bytes: int  # dynamic shared memory per CTA: the resident part of its slice
+    resident_pixels: int  # pixels of the slice held in shared memory; the
+    #                       rest spill: read again from device memory
+
+    @property
+    def spills(self) -> bool:
+        return self.resident_pixels < self.pixels_per_cta
 
 
 def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> Plan:
@@ -57,9 +67,15 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> P
     other shapes take the scalar path.  The cluster is the smallest of 1, 2,
     4, 8 whose per-CTA slice is at most ``SLICE_TARGET`` bytes and whose grid
     reaches ``MIN_CTAS``; it stops growing once it reaches ``hw``.  A slice
-    over 48 KB is allowed up to ``SLICE_MAX``.  Raises ``ValueError``
-    for a shape no path takes: a group wider than a CTA's threads, or a
-    slice over ``SLICE_MAX`` bytes even in a cluster of 8.
+    over ``SLICE_TARGET`` leaves its SM no room for another CTA, so the CTA
+    takes ``WIDE_THREADS`` threads.  A slice over ``SLICE_MAX`` (a group of
+    over 1.8 MB, as the big model's ``out_norm``: 2 MiB) spills: its first
+    ``SLICE_MAX`` bytes stay in shared memory and the rest is read from
+    device memory again by the variance and the output passes.  Raises
+    ``ValueError`` for a shape no path takes: a group wider than a CTA's
+    threads, or a slice over ``SPILL_MAX`` bytes even in a cluster of 8,
+    where most of it would be read three times (no model of the repository
+    runs one).
     """
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
@@ -75,12 +91,15 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> P
     while (cluster < MAX_CLUSTER and cluster < hw
            and (slice_bytes(cluster) > SLICE_TARGET or n * groups * cluster < MIN_CTAS)):
         cluster *= 2
-    if slice_bytes(cluster) > SLICE_MAX:
+    if slice_bytes(cluster) > SPILL_MAX:
         raise ValueError(
-            f"a group of {hw} x {cg} floats needs {slice_bytes(cluster)} bytes of "
-            f"shared memory per CTA even in a cluster of {cluster}"
+            f"a group of {hw} x {cg} floats needs {slice_bytes(cluster)} bytes "
+            f"per CTA even in a cluster of {cluster}, over {SPILL_MAX}"
         )
-    return Plan(vec, cluster, THREADS, -(-hw // cluster), slice_bytes(cluster))
+    pixels = -(-hw // cluster)
+    resident = min(pixels, SLICE_MAX // (cg * 4))
+    threads = WIDE_THREADS if slice_bytes(cluster) > SLICE_TARGET else THREADS
+    return Plan(vec, cluster, threads, pixels, resident * cg * 4, resident)
 
 
 def activation(y, act: str):
@@ -157,7 +176,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
         out.data_ptr(), b, h * w, c, num_groups, *strides,
         float(eps), ACTS[act], plan.vec, plan.cluster, plan.threads,
-        plan.pixels_per_cta, plan.smem_bytes,
+        plan.pixels_per_cta, plan.resident_pixels, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "camels_groupnorm_act")

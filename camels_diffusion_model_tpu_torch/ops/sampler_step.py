@@ -6,7 +6,9 @@ Wraps ``csrc/head_step.cu``, the counterpart of the Pallas
 sampler_step.py:34``) with the decoder's last layer folded in: the kernel
 takes out_norm's features and the 3x3 ``out_conv2`` weights, so eps is
 computed in registers and never goes to device memory.  One launch per
-reverse step of ``sample_ddpm`` and of ``sample_ddim(sigma_mode="beta")``.
+reverse step of ``sample_ddpm`` and of ``sample_ddim``.  With ``tanh=True``
+(the deep and big variants, ``context_unet.py:315-316``) eps is the tanh of
+the conv, per branch before the guidance combine.
 :func:`launch_plan` chooses the kernel's geometry.
 """
 
@@ -38,21 +40,25 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
 
 
-def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
+def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
+                       tanh: bool = False):
     """The step in plain PyTorch, the counterpart of the JAX
     ``fused_p_sample_step`` / ``p_sample_step`` with the guidance combine.
 
     ``eps`` is ``(B, ...)``, or ``(2B, ...)`` stacked ``[cond; uncond]`` when
     ``guide_w`` (a float or a ``(B,)`` tensor) is given; then the guided
     ``eps_u + w * (eps_c - eps_u)`` is used (``sampler.py:137-141``).
+    ``tanh`` takes the tanh of ``eps`` first (the model's output layer).
     ``z`` may be None only when ``sigma`` is 0.
     """
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
+    if tanh:
+        eps = torch.tanh(eps)
     if guide_w is not None:
         eps_c, eps_u = eps.chunk(2)
         w = guide_w
@@ -65,12 +71,13 @@ def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
     return out
 
 
-def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None):
+def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
+                    tanh: bool = False):
     """The kernel's function in plain PyTorch: eps = the 3x3 conv
     (``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)``, zero padding) of the
     NHWC features ``h``, then :func:`sampler_step_plain`."""
     eps = F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1).permute(0, 2, 3, 1)
-    return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w)
+    return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
 
 
 class Plan(NamedTuple):
@@ -98,8 +105,9 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     ``c`` channels on a card of ``sms`` SMs.
 
     A CTA stages its band's ``rows + 2`` rows, two pixels a thread, in
-    chunks of ``ck`` channels.  The band is the tallest of ``ROWS`` whose
-    grid still has ``MIN_CTAS`` CTAs (else the last).  The chunk is the one
+    chunks of ``ck`` channels.  The band is the tallest of ``ROWS`` within
+    ``MAX_THREADS`` threads whose grid still has ``MIN_CTAS`` CTAs (else
+    the shortest; under CFG at width 128, one row).  The chunk is the one
     of ``CHUNKS`` dividing ``c`` (16 channels or more where ``c`` allows)
     that lets the most of the CTAs an SM has to run be resident at once,
     the widest on a tie; the ring the deepest of ``STAGES`` that fits in
@@ -116,8 +124,12 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
         raise ValueError("the head kernel needs 16-byte aligned features")
     if not cfg and width % 2:
         raise ValueError(f"without CFG the head kernel needs an even width, got {width}")
-    rows = next((r for r in ROWS if units * -(-height // r) >= MIN_CTAS), ROWS[-1])
-    threads = (rows + 2) * width // (1 if cfg else 2)
+    def band_threads(r):
+        return (r + 2) * width // (1 if cfg else 2)
+
+    fits = [r for r in ROWS if band_threads(r) <= MAX_THREADS] or ROWS[-1:]
+    rows = next((r for r in fits if units * -(-height // r) >= MIN_CTAS), fits[-1])
+    threads = band_threads(rows)
     ctas = units * -(-height // rows)
     widths = [ck for ck in CHUNKS if c % ck == 0]
     best, best_resident = None, 0
@@ -135,13 +147,13 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
 
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
-                    sigma: float, guide_w=None):
+                    sigma: float, guide_w=None, tanh: bool = False):
     """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
     of the 3x3 conv ``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)`` over the
-    NHWC features ``h``: ``(B, H, W, C)``, or ``(2B, H, W, C)`` stacked
-    ``[cond; uncond]`` when ``guide_w`` (a float or a ``(B,)`` tensor) is
-    given.  ``x`` and ``z`` are ``(B, H, W, 1)``; ``z`` may be None only when
-    ``sigma`` is 0.
+    NHWC features ``h`` (its tanh per branch with ``tanh=True``):
+    ``(B, H, W, C)``, or ``(2B, H, W, C)`` stacked ``[cond; uncond]`` when
+    ``guide_w`` (a float or a ``(B,)`` tensor) is given.  ``x`` and ``z``
+    are ``(B, H, W, 1)``; ``z`` may be None only when ``sigma`` is 0.
 
     On CUDA tensors this launches the kernel, and raises where autograd
     would record the call (:func:`_build.refuse_autograd`); on CPU tensors
@@ -150,7 +162,8 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
     if h.device.type == "cpu":
-        return head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w)
+        return head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w,
+                               tanh)
     if h.device.type != "cuda":
         raise ValueError(f"fused_head_step: unsupported device {h.device}")
     if h.dim() != 4 or weight.dim() != 4:
@@ -203,7 +216,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         float(guide_w) if cfg and w_vec is None else 0.0,
         out.data_ptr(), b, height, width, c, plan.rows, int(cfg), plan.ck,
         plan.stages, plan.threads, plan.smem_bytes,
-        float(c_eps), float(inv_sqrt_a), float(sigma),
+        float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(err, "camels_head_step")

@@ -26,7 +26,7 @@ from . import resolve_device
 from .data.pipeline import normalize_params, train_test_split
 from .data.synthetic import synthetic_params
 from .diffusion.calibration import load_calibration_meta
-from .models.context_unet import ContextUnet
+from .models.context_unet import VARIANTS, ContextUnet
 from .models.fold_bn import fold_batchnorm_variables
 from .training.checkpoints import md5
 from .utils.weights import from_jax_variables
@@ -152,20 +152,23 @@ def certification_contexts(n: int, param_sets: int = 1000) -> np.ndarray:
 
 def load_model(variables: dict, device=None, fold_bn: bool = True) -> ContextUnet:
     """A ContextUnet holding flax ``variables`` (numpy tree from
-    ``load_variables``; widths read from it), BatchNorms folded by default,
-    in eval mode on ``device`` with channels_last weights."""
+    ``load_variables``; widths and variant read from it: a ``down3`` makes
+    it three-level, deep or, with ``out_conv_extra``, big), BatchNorms
+    folded by default, in eval mode on ``device`` with channels_last
+    weights."""
     device = resolve_device(device)
     if fold_bn:
         variables = fold_batchnorm_variables(variables)
     p = variables["params"]
+    variant = VARIANTS["big" if "out_conv_extra" in p else "deep" if "down3" in p
+                       else "canonical"]
     model = ContextUnet(
         in_channels=p["init_conv"]["conv1"]["conv"]["kernel"].shape[2],
         n_feat=p["init_conv"]["conv1"]["conv"]["kernel"].shape[3],
         n_cfeat=p["contextembed1"]["fc1"]["kernel"].shape[0],
-        height=p["up0_conv"]["kernel"].shape[0] * 2**ContextUnet.levels,
-        fold_bn=fold_bn,
+        height=p["up0_conv"]["kernel"].shape[0] * 2 ** variant["levels"],
+        fold_bn=fold_bn, **variant,
     )
     model.load_state_dict(from_jax_variables(variables))
     model.requires_grad_(False)
     return model.eval().to(device=device, memory_format=torch.channels_last)
-

@@ -1,10 +1,11 @@
 """Plain-text run logs with the reference's line formats (counterpart of
-``camels_diffusion_model_tpu/utils/run_logging.py``, the lines the training
-path writes).
+``camels_diffusion_model_tpu/utils/run_logging.py``, the lines a run
+writes).
 
 ``timing_and_performance.log`` (header, per-epoch timing and metric
-blocks), ``dataset_info.txt``, ``selected_params.txt`` and a per-epoch
-device line in ``output.log`` inside the run's directory.  The device line
+blocks, sampling, the parameter grid, guidance and sensitivity lines),
+``dataset_info.txt``, ``selected_params.txt`` and a per-epoch device line in
+``output.log`` inside the run's directory.  The device line
 names the platform as the JAX package does (``GPU`` or ``CPU``) and, on a
 card, the card by ``torch.cuda.get_device_name``.
 """
@@ -100,12 +101,27 @@ class RunLogger:
             f"Total timesteps: {timesteps}\n"
         )
 
+    def grid_perf(self, n_samples: int, seconds: float) -> None:
+        self.append(f"Generating {n_samples} parameter grid samples took "
+                    f"{seconds:.2f} seconds\n")
+
     def sample_metrics(self, label: str, elbo: float, bpd: float, nll: float) -> None:
         self.append(
             f"ELBO of {label}: {elbo:.6f}\n"
             f"BPD of {label}: {bpd:.6f}\n"
             f"Negative log likelihood of {label}: {nll:.6f}\n"
         )
+
+    def guidance_metrics(self, w: float, elbo: float, bpd: float, nll: float) -> None:
+        self.append(f"Guidance strength {w} - ELBO: {elbo:.6f}, "
+                    f"BPD: {bpd:.6f}, NLL: {nll:.6f}\n")
+
+    def sensitivity_header(self, param_idx: int) -> None:
+        self.append(f"\nParameter {param_idx + 1} sensitivity metrics:\n")
+
+    def sensitivity_value(self, value: float, elbo: float, bpd: float, nll: float) -> None:
+        self.append(f"  Value {value:.2f} - ELBO: {elbo:.6f}, "
+                    f"BPD: {bpd:.6f}, NLL: {nll:.6f}\n")
 
     def dataset_info(self, info: Dict[str, object]) -> None:
         with open(os.path.join(self.output_dir, "dataset_info.txt"), "w") as f:

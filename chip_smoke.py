@@ -10,7 +10,9 @@ Phases, each timed on its own line:
       md5-checked, fold its BatchNorms and put it on the card;
   (c) hold each kernel against its plain PyTorch version at the shapes each
       main path gives it (max abs error, ms, plain ms, library ms; times
-      with the data in device memory, not L2);
+      with the data in device memory, not L2), the deep and big models'
+      shapes included (K1 with their tanh, K2 with leaky ReLU and GELU and
+      on its spill path, K3 at their widths; 10 maps, 32 for validation);
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -40,13 +42,25 @@ Phases, each timed on its own line:
       that needs gradients; 30 Adam steps on one fixed batch from a fresh
       init, the loss falling, no kernel launched; ms per step, steps/s,
       peak memory and the top device ops of a step; then
-      ``run_experiment("condition", 1e-4, 2 epochs, T 1500, 6 params)`` on
-      the synthetic data, and a run resumed from its epoch-1 train
-      checkpoint against its epoch-2 state.
+      ``run_experiment("nov26", 1e-4, 2 epochs, T 1500)`` on the synthetic
+      data, and a run resumed from its epoch-1 train checkpoint against its
+      epoch-2 state;
+  (m) the deep (n_feat 128, n_cfeat 5) and big (n_feat 256, n_cfeat 10)
+      models at 128x128 from a seeded init: the forward on the card against
+      the CPU at batch 2, one train step at batch 2 under phase (l)'s gate
+      and witness on pinned kinks (see ``kink_sides``), four exact-chain
+      steps against the CPU under injected z, ten strided steps at 10 maps
+      and an ELBO batch with their launch counts, and the train step at
+      batch 32 without remat (ms, idle share, peak memory);
+  (n) ``run_experiment`` of ``initial`` (deep) and ``main`` (big) at full
+      width and of ``paper`` (the parameter grid, guidance sweep and
+      sensitivity with their post metrics) on the synthetic data, cut to
+      ``RUN_T`` timesteps, one epoch and ``RUN_MAPS`` maps.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
-ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction -- is
-driven with every kernel's launch count set to 0 just before it and read
+ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
+training runs, the variants' samplers and ELBO batches, the three runs of
+phase (n) -- is driven with every kernel's launch count set to 0 just before it and read
 just after, and must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
 which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
@@ -61,12 +75,15 @@ non-zero before that line; without CUDA it exits 2 and runs nothing.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -83,7 +100,7 @@ from camels_diffusion_model_tpu_torch.diffusion.likelihood import (
     nll_batch,
 )
 from camels_diffusion_model_tpu_torch.config import ExperimentConfig
-from camels_diffusion_model_tpu_torch.data.pipeline import normalize_maps
+from camels_diffusion_model_tpu_torch.data.pipeline import normalize_maps, num_batches
 from camels_diffusion_model_tpu_torch.data.synthetic import synthetic_camels
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm, save_schedule
 from camels_diffusion_model_tpu_torch.diffusion.schedule import (
@@ -97,6 +114,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
     groupnorm_act_plain,
 )
+from camels_diffusion_model_tpu_torch.ops.groupnorm import launch_plan as groupnorm_launch_plan
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
     head_step_plain,
@@ -190,6 +208,34 @@ TIMED_STEPS = 20
 # implicit GEMM, data and weight gradients), for the conv share of a step.
 CONV_KERNELS = ("fft", "xmma", "gemm", "dgrad", "wgrad", "convolve", "conv2d", "cudnn",
                 "pointwise_mult_and_sum_complex")
+# Phases (m) and (n): the deep and big models at full width.
+VARIANT_SEED = 0  # torch.manual_seed of their init (on the CPU)
+VARIANT_BATCH = 10  # maps a variant run samples (n_eval_images)
+VARIANT_CHECK_BATCH = 2  # card vs CPU: forward, train step, exact-chain steps
+# Card vs CPU forward at full width, abs, eps in [-1, 1]: cuDNN's fp32
+# algorithms reorder the sums of some thirty convolutions.
+VARIANT_TOL = 1e-4
+VARIANT_STEPS = 10  # strided steps of the timed sampler path
+VARIANT_TIMED = {"deep": (5, 3), "big": (3, 2)}  # timed and profiled train steps
+# A variant's train step at batch 2 from its fresh init crosses kinks: its
+# ReLUs, leaky ReLUs and max-pools each take one side or the other of a
+# point where the gradient jumps, and a few of their inputs lie within fp32
+# rounding of it (126 of 67 M for the deep model at full width on an
+# H100).  One element whose side flips moves every gradient upstream of
+# it: unpinned, any fp32 step sits 1e-3 to 1e-2 from float64, the CPU's as
+# well as the card's.  So the variants' step is compared on pinned kinks
+# (kink_sides): the card's float64 step records the side of each kink it
+# takes, and every fp32 step takes those sides; then phase (l)'s gate
+# applies as it stands.  scripts/variant_kink_check.py shows it on the CPU
+# (deep, n_feat 64, 64x64: 6.9e-3 from float64 free, 6.6e-3 with the norm
+# statistics in float64, 2.1e-6 pinned).
+# Phase (l2): run_experiment("nov26") at the reference's T and its resume;
+# no stage follows its reconstruction.  Phase (n): run_experiment cut to the
+# card's time: RUN_T timesteps (the reference runs 1500; a conditional run
+# samples with up to five chains of them), RUN_EPOCHS epoch(s), at most
+# RUN_MAPS synthetic maps; widths and the batch of 32 as configured.
+RUN_T, RUN_EPOCHS = 50, 1
+RUN_MAPS = {"initial": 90, "main": 90, "paper": 240}
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
                   "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
@@ -259,8 +305,12 @@ def check_kernels(dev, model) -> dict:
     serving w=0 (16; the battery's ELBO forwards too) and the exact chain
     (4; the NLL sweep's and reconstruction's too).
 
-    Returns per kernel the worst error over all its cases and the summed
-    times and bounds of its summed cases: the launch of one reverse step
+    Also the deep and big models' shapes (:func:`check_variant`'s batch of
+    10 maps and the validation batch of 32).
+
+    Returns per kernel the worst error over all its cases, each case's
+    numbers (``shapes``), and the summed times and bounds of its summed
+    cases: the launch of one reverse step
     (K1: output conv, guidance, update) or one decoder call (K2: up0_norm
     with the FiLM epilogue and out_norm) of the w=2 serving batch, and for
     K3 both FiLM stages (stage 0 is timed for continuity; the path runs it
@@ -299,6 +349,23 @@ def check_kernels(dev, model) -> dict:
             args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5),
             isinstance(w, float) and with_z,  # the w=2 serving path's form
         ))
+    # K1 at the deep and big heads (width 128, 128 and 256 channels) with
+    # the tanh of their output layer, at the sampling batch of 10 maps, with
+    # and without CFG; weights drawn at the scale of out_conv2's init.
+    for label, c, cfg in (("deep, tanh (initial)", 128, False), ("big, tanh (main)", 256, False),
+                          ("deep, tanh, cfg w=2", 128, True), ("big, tanh, cfg w=2", 256, True)):
+        b = VARIANT_BATCH
+        x, z = randn(b, 128, 128, 1), randn(b, 128, 128, 1)
+        h = randn(2 * b if cfg else b, 128, 128, c)
+        weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5))
+        args = (h, weight, randn(1), x, z, c_eps, inv_sqrt_a, sigma, 2.0 if cfg else None, True)
+        cases.append((
+            "head_step", f"{label} h{tuple(h.shape)} x{tuple(x.shape)}",
+            fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: torch.tanh(F.conv2d(h.permute(0, 3, 1, 2), weight,
+                                                            bias, padding=1)),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5), False,
+        ))
     # K2 as the decoder holds it; the FiLM rows as the sampler gives them:
     # the context embedding one row per sample, the time embedding one row.
     blocks = (("up0_norm + FiLM epilogue (serve w=2)", model.up0_norm, n, 16, True, True),
@@ -308,6 +375,14 @@ def check_kernels(dev, model) -> dict:
               ("out_norm (serve w=2)", model.out_norm, n, 64, False, True),
               ("out_norm (serve w=0)", model.out_norm, BATCH, 64, False, False),
               ("out_norm (exact chain)", model.out_norm, 4, 64, False, False))
+    # The deep and big models' heads: sampling (10 maps) and validation (32).
+    for batch in (VARIANT_BATCH, TRAIN_BATCH):
+        for label, c, hw, act, film in (("deep up0_norm + FiLM", 512, 16, "leaky_relu", True),
+                                        ("big up0_norm + FiLM", 1024, 16, "gelu", True),
+                                        ("deep out_norm", 128, 128, "leaky_relu", False),
+                                        ("big out_norm (spill path)", 256, 128, "gelu", False)):
+            blocks += ((label, types.SimpleNamespace(weight=randn(c), bias=randn(c), act=act),
+                        batch, hw, film, False),)
     for label, mod, batch, hw, film, summed in blocks:
         c = mod.weight.shape[0]
         xg = randn(batch, hw, hw, c)
@@ -322,7 +397,11 @@ def check_kernels(dev, model) -> dict:
     for label, batch, shape, summed in (("stage 0", n, (16, 16, 256), True),
                                         ("stage 1 (serve w=2)", n, (32, 32, 128), True),
                                         ("stage 1 (serve w=0)", BATCH, (32, 32, 128), False),
-                                        ("stage 1 (exact chain)", 4, (32, 32, 128), False)):
+                                        ("stage 1 (exact chain)", 4, (32, 32, 128), False),
+                                        ("deep stage 1", VARIANT_BATCH, (32, 32, 256), False),
+                                        ("big stage 1", VARIANT_BATCH, (32, 32, 512), False),
+                                        ("deep stage 1", TRAIN_BATCH, (32, 32, 256), False),
+                                        ("big stage 1", TRAIN_BATCH, (32, 32, 512), False)):
         args = (randn(batch, *shape), randn(batch, shape[-1]), randn(1, shape[-1]))
         cases.append((
             "film", f"{label} {tuple(args[0].shape)}", fused_film, film_plain,
@@ -341,15 +420,21 @@ def check_kernels(dev, model) -> dict:
         lib_ms = time_ms(lib, args) if lib is not None else None
         bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
         bound_ms = max(nb / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        moved = nb + (spilled_bytes(args[0], args[3]) if name == "groupnorm_act" else 0)
         print(f"  {name} {label}: max_abs_err {err:.3e} (tol {TOL[name]:g}) "
               f"ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
               f"({LIBRARY[name]}) bound_ms {bound_ms:.6f} ({bound_by}, {nb} bytes) "
-              f"share of bound {bound_ms / ms:.3f}{'' if summed else ' (information)'}",
-              flush=True)
+              f"share of bound {bound_ms / ms:.3f}"
+              + (f"; bytes it moves {moved} (spilled pixels read twice more), bound "
+                 f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms" if moved != nb else "")
+              + ("" if summed else " (information)"), flush=True)
         r = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                   "bound_ms": 0.0, "bound_by": bound_by,
-                                  "library_ms": None})
+                                  "library_ms": None, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["shapes"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                            "moved_bound_ms": moved / HBM_BYTES_PER_S * 1e3})
         if not summed:
             continue
         r["ms"] += ms
@@ -384,26 +469,27 @@ def check_golden(dev, model) -> None:
             raise SystemExit(f"golden forward {label}: {err} > {GOLDEN_TOL}")
 
 
-def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str) -> None:
-    """The steps ``taus`` (the last ones of a row) of the guided w=2 sampler
-    at full width on the card (the kernels) vs the CPU (their plain
-    versions), same x_init, params and z; ``models`` = (card, CPU).  Wide
-    jumps would amplify the fp32 differences of the convs by 1/sqrt(a_jump)
-    per step."""
+def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str, size: int = 64,
+                         guide_w: float = 2.0) -> None:
+    """The steps ``taus`` (the last ones of a row) of the sampler at
+    ``guide_w`` at full width on the card (the kernels) vs the CPU (their
+    plain versions), same x_init, params and z; ``models`` = (card, CPU).
+    Wide jumps would amplify the fp32 differences of the convs by
+    1/sqrt(a_jump) per step."""
     rs = np.random.RandomState(0)
-    x0 = rs.randn(2, 64, 64, 1).astype(np.float32)
-    params = rs.rand(2, 6).astype(np.float32)
-    zs = [torch.tensor(rs.randn(2, 64, 64, 1).astype(np.float32)) for _ in taus]
+    x0 = rs.randn(2, size, size, 1).astype(np.float32)
+    params = rs.rand(2, models[1].n_cfeat).astype(np.float32)
+    zs = [torch.tensor(rs.randn(2, size, size, 1).astype(np.float32)) for _ in taus]
     outs = []
     for model in models:
         outs.append(sample_ddim(
             model, make_schedule(TIMESTEPS), torch.Generator(device=on(model)),
-            params=params, guide_w=2.0, x_init=x0, taus=np.asarray(taus),
+            params=params, guide_w=guide_w, x_init=x0, taus=np.asarray(taus),
             sigma_mode=sigma_mode, device=on(model), z_fn=lambda k, t: zs[k],
         ).cpu())
     err = (outs[0] - outs[1]).abs().max().item()
-    print(f"  {label}, last 4 steps {[int(t) for t in taus]}, card vs CPU: max abs err "
-          f"{err:.3e} (tol {GOLDEN_TOL:g})")
+    print(f"  {label}, last {len(taus)} steps {[int(t) for t in taus]}, card vs CPU: max abs "
+          f"err {err:.3e} (tol {GOLDEN_TOL:g})", flush=True)
     if not err <= GOLDEN_TOL:
         raise SystemExit(f"{label} on the card vs the CPU: {err} > {GOLDEN_TOL}")
 
@@ -429,8 +515,8 @@ def on(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def check_maps(maps, n: int, label: str) -> None:
-    if tuple(maps.shape) != (n, 64, 64, 1) or not bool(torch.isfinite(maps).all()):
+def check_maps(maps, n: int, label: str, size: int = 64) -> None:
+    if tuple(maps.shape) != (n, size, size, 1) or not bool(torch.isfinite(maps).all()):
         raise SystemExit(f"{label}: maps of shape {tuple(maps.shape)}, "
                          "or not all finite")
 
@@ -471,45 +557,104 @@ def training_model(variables, device) -> ContextUnet:
     return model.to(device=device, memory_format=torch.channels_last)
 
 
-def witness_grads(variables, dev, x, c, mask, t, noise) -> dict:
-    """Phase (l): the one step's gradients on the card in float64 and in
-    fp32 with cuDNN off, from the same noised batch (noised on the CPU):
-    ``{"float64": {name: grad}, "no cuDNN": {...}}``, float64 on the CPU."""
-    x_pert = q_sample(make_schedule(TIMESTEPS), torch.as_tensor(x), t, noise, "reference")
-    grads = {}
-    for label, dtype, cudnn in (("float64", torch.float64, True),
-                                ("no cuDNN", torch.float32, False)):
-        model = training_model(variables, dev).to(dtype)
-        x_d, t_d, c_d, noise_d, mask_d = (
-            torch.as_tensor(a).to(device=dev, dtype=dtype)
-            for a in (x_pert, t.float() / TIMESTEPS, c, noise, mask))
-        torch.backends.cudnn.enabled = cudnn
-        try:
-            eps = model(x_d, t_d, c_d, train=True)
-            _, loss = trainer.masked_mean(((eps - noise_d) ** 2).mean(dim=(1, 2, 3)), mask_d)
-            loss.backward()
-        finally:
-            torch.backends.cudnn.enabled = True
-        grads[label] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
-    return grads
+@contextlib.contextmanager
+def kink_sides(sides: list, replay: bool):
+    """While active, ``F.relu``, ``F.leaky_relu`` and ``F.max_pool2d``, the
+    only functions of the model whose gradient jumps, take their kinks on
+    recorded sides: without ``replay`` each call appends the side its own
+    input takes to ``sides`` (the sign of each input, the argmax of each
+    pool window); with ``replay`` each call takes the next recorded side
+    instead.  Yields ``[flips, sides]``: how many recorded sides the calls'
+    own inputs would have left, of how many."""
+    relu, leaky, pool = F.relu, F.leaky_relu, F.max_pool2d
+    recorded, counts = iter(sides), [0, 0]
+
+    def side(own):
+        if not replay:
+            sides.append(own.cpu())
+            return own
+        pinned = next(recorded).to(own.device)
+        counts[0] += int((pinned != own).sum())
+        counts[1] += pinned.numel()
+        return pinned
+
+    def pinned_relu(x, inplace=False):
+        return x * side(x > 0).to(x.dtype)
+
+    def pinned_leaky_relu(x, negative_slope=0.01, inplace=False):
+        return torch.where(side(x > 0), x, x * negative_slope)
+
+    def pinned_max_pool2d(x, kernel_size, *args, **kwargs):
+        _, idx = pool(x, kernel_size, *args, return_indices=True, **kwargs)
+        idx = side(idx)
+        y = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return y.contiguous(memory_format=torch.channels_last)
+
+    F.relu, F.leaky_relu, F.max_pool2d = pinned_relu, pinned_leaky_relu, pinned_max_pool2d
+    try:
+        yield counts
+    finally:
+        F.relu, F.leaky_relu, F.max_pool2d = relu, leaky, pool
+    if replay and next(recorded, None) is not None:
+        raise SystemExit("a pinned step took fewer kinks than the step it replays")
 
 
-def check_train_step(variables, dev) -> None:
-    """Phase (l): one train step from the committed checkpoint's unfolded
-    weights on the card and on the CPU, same batch, t and noise, with the
-    float64 witness of :func:`witness_grads` for the leaves beyond
-    ``TRAIN_REL``; then the guard: the card's model refuses a grad-enabled
-    forward through the kernels."""
-    x, c, mask, t, noise = train_batch()
-    models, losses = [], []
-    for device in (dev, torch.device("cpu")):
-        model = training_model(variables, device)
+def witness_grads(make, dev, x, c, mask, t, noise, scaling, dtype, cudnn) -> dict:
+    """Phases (l) and (m): the one step's gradients on the card in ``dtype``
+    with cuDNN on or off, from the same noised batch (noised on the CPU),
+    for the model ``make(device)`` gives: ``{name: grad}``, float64 on the
+    CPU."""
+    x_pert = q_sample(make_schedule(TIMESTEPS), torch.as_tensor(x), t, noise, scaling)
+    model = make(dev).to(dtype)
+    x_d, t_d, c_d, noise_d, mask_d = (
+        torch.as_tensor(a).to(device=dev, dtype=dtype)
+        for a in (x_pert, t.float() / TIMESTEPS, c, noise, mask))
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        eps = model(x_d, t_d, c_d, train=True)
+        _, loss = trainer.masked_mean(((eps - noise_d) ** 2).mean(dim=(1, 2, 3)), mask_d)
+        loss.backward()
+    finally:
+        torch.backends.cudnn.enabled = True
+    return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+
+
+def check_train_step(make, dev, batch, scaling="reference", label="",
+                     pin_kinks: bool = False) -> None:
+    """Phases (l) and (m): one train step of the model ``make(device)``
+    gives on the card and on the CPU, same ``batch`` (x, c, mask, t,
+    noise), with the witness of the same step on the card in float64 and in
+    fp32 without cuDNN for the leaves beyond ``TRAIN_REL``; then the guard:
+    the card's model refuses a grad-enabled forward through the kernels.
+    ``pin_kinks`` (phase (m)): every fp32 step takes its kinks on the
+    sides the float64 step took (:func:`kink_sides`)."""
+    x, c, mask, t, noise = batch
+    sides = []
+
+    def kinks(replay):
+        return kink_sides(sides, replay) if pin_kinks else contextlib.nullcontext([0, 0])
+
+    with kinks(replay=False):
+        ref = witness_grads(make, dev, x, c, mask, t, noise, scaling, torch.float64, True)
+    models, losses, flips = [], [], {}
+    for name, device in (("card", dev), ("CPU", torch.device("cpu"))):
+        model = make(device)
         state = trainer.create_train_state(model, 1e-4, 2, 14)
-        m = trainer.make_train_step(model, TIMESTEPS)(state, x, c, mask, t=t, noise=noise)
+        with kinks(replay=True) as flips[name]:
+            m = trainer.make_train_step(model, TIMESTEPS, scaling)(state, x, c, mask, t=t,
+                                                                   noise=noise)
         losses.append(float(m["loss"]))
         models.append(model)
+        del state
+    with kinks(replay=True) as flips["no cuDNN"]:
+        no_cudnn = witness_grads(make, dev, x, c, mask, t, noise, scaling, torch.float32,
+                                 False)
+    if pin_kinks:
+        print(f"  {label}kinks pinned to the float64 step's sides: " + ", ".join(
+            f"{k} fp32 {f[0]} of {f[1]} the other way" for k, f in flips.items()))
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    print(f"  train step, batch {TRAIN_BATCH} ({TRAIN_BATCH - TRAIN_REAL} pad rows masked), "
+    n_pad = int((np.asarray(mask) == 0).sum())
+    print(f"  {label}train step, batch {len(x)} ({n_pad} pad rows masked), "
           f"card vs CPU: loss {losses[0]:.8f} / {losses[1]:.8f}, rel {rel:.3e} "
           f"(tol {TRAIN_REL:g})")
     if not rel <= TRAIN_REL:
@@ -519,9 +664,7 @@ def check_train_step(variables, dev) -> None:
     total = torch.cat([g.flatten() for g in grads[1].values()])
     diff = torch.cat([(grads[0][n] - g).flatten() for n, g in grads[1].items()])
     rel_all = (diff.norm() / total.norm()).item()
-    witness = {"card": grads[0], "CPU": grads[1], **witness_grads(variables, dev, x, c, mask,
-                                                                  t, noise)}
-    ref = witness["float64"]
+    witness = {"card": grads[0], "CPU": grads[1], "no cuDNN": no_cudnn}
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else float("inf")
@@ -530,8 +673,7 @@ def check_train_step(variables, dev) -> None:
         return torch.cat([tree[n].flatten() for n in ref])
 
     print("  gradients vs the card's float64 step, all leaves together: " + ", ".join(
-        f"{k} fp32 rel L2 {rel(flat(v), flat(ref)):.3e}"
-        for k, v in witness.items() if k != "float64"))
+        f"{k} fp32 rel L2 {rel(flat(v), flat(ref)):.3e}" for k, v in witness.items()))
     worst, failed, on_abs, witnessed = (0.0, ""), [], [], []
     for name, g in grads[1].items():
         d = grads[0][name] - g
@@ -546,7 +688,7 @@ def check_train_step(variables, dev) -> None:
         if max_abs <= LEAF_ABS and g.norm() <= ROUNDING * total.norm():
             on_abs.append(line)
             continue
-        vs64 = {k: rel(v[name], ref[name]) for k, v in witness.items() if k != "float64"}
+        vs64 = {k: rel(v[name], ref[name]) for k, v in witness.items()}
         line += "; vs float64: " + ", ".join(f"{k} {e:.3e}" for k, e in vs64.items())
         if (max_abs <= LEAF_ABS and rel_leaf <= SMALL_LEAF_REL
                 and vs64["no cuDNN"] <= TRAIN_REL):
@@ -597,10 +739,11 @@ def fixed_objective(dev):
     return model, state, step, batch, [float(v) for v in losses]
 
 
-def time_train_steps(dev, state, step, batch) -> dict:
-    """Phase (l): ms per train step at batch 32 (CUDA events around
-    ``TIMED_STEPS`` steps after the warm-up), steps/s, peak device memory,
-    and the device time by kernel of 5 steps under ``torch.profiler``.  The
+def time_train_steps(dev, state, step, batch, timed=TIMED_STEPS, profiled=5) -> dict:
+    """Phases (l) and (m): ms per train step at batch 32 (CUDA events
+    around ``timed`` steps after the warm-up), steps/s, peak device memory,
+    and the device time by kernel of ``profiled`` steps under
+    ``torch.profiler``.  The
     steps draw t and the noise from their own generator, as
     ``run_experiment``'s do; the batch stays on the card (a run stages the
     next batch on a side stream meanwhile)."""
@@ -610,19 +753,19 @@ def time_train_steps(dev, state, step, batch) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         step(state, x, c, mask)
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
+    ms = start.elapsed_time(end) / timed
     peak = torch.cuda.max_memory_allocated(dev)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(profiled):
             step(state, x, c, mask)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 5 * 1e3
+        wall = (time.perf_counter() - t0) / profiled * 1e3
 
     def device_us(e):
         for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -634,13 +777,122 @@ def time_train_steps(dev, state, step, batch) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     if not kernels:
         raise SystemExit("the profiler recorded no device time")
-    busy = sum(device_us(e) for e in kernels) / 5 / 1e3
+    busy = sum(device_us(e) for e in kernels) / profiled / 1e3
     convs = sum(device_us(e) for e in kernels
-                if any(k in e.key.lower() for k in CONV_KERNELS)) / 5 / 1e3
+                if any(k in e.key.lower() for k in CONV_KERNELS)) / profiled / 1e3
     top = sorted(kernels, key=device_us, reverse=True)[:5]
     return {"ms": ms, "steps_per_s": 1e3 / ms, "peak_bytes": peak, "busy_ms": busy,
             "profiled_ms": wall, "conv_ms": convs,
-            "top": [(e.key, device_us(e) / 5 / 1e3) for e in top]}
+            "top": [(e.key, device_us(e) / profiled / 1e3) for e in top]}
+
+
+def print_train_time(label: str, tr: dict) -> None:
+    print(f"  {label}train step, batch {TRAIN_BATCH}, fp32 with TF32 off: {tr['ms']:.3f} ms "
+          f"({tr['steps_per_s']:.2f} steps/s); peak device memory "
+          f"{tr['peak_bytes'] / 2**30:.3f} GiB; under the profiler {tr['profiled_ms']:.3f} "
+          f"ms a step, device busy {tr['busy_ms']:.3f} ms (idle share "
+          f"{1 - tr['busy_ms'] / tr['profiled_ms']:.3f}), convolution kernels "
+          f"{tr['conv_ms']:.3f} ms ({tr['conv_ms'] / tr['busy_ms'] * 100:.1f}% of busy)")
+    for name, ms in tr["top"]:
+        print(f"    {ms:.3f} ms a step ({ms / tr['busy_ms'] * 100:.1f}% of busy)  {name[:110]}")
+
+
+def spilled_bytes(x, groups: int) -> int:
+    """Bytes K2's spill path reads again for NHWC ``x``: the pixels of each
+    CTA's slice past its resident ones, by the variance and the output
+    passes."""
+    n, h, w, c = x.shape
+    plan = groupnorm_launch_plan(n, h * w, c, groups)
+    return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
+        c // groups) * 4
+
+
+def variant_model(name: str) -> ContextUnet:
+    """The deep or big model at full width on the CPU, its init drawn under
+    a fixed seed."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(VARIANT_SEED)
+        return getattr(ContextUnet, name)().to(memory_format=torch.channels_last)
+
+
+def variant_batch(model, n: int, seed: int):
+    """``n`` maps in [-1, 1) at the model's size with contexts, no pad rows,
+    and injected t and noise."""
+    rs = np.random.RandomState(seed)
+    size = model.height
+    x = (rs.rand(n, size, size, 1) * 2 - 1).astype(np.float32)
+    c = rs.rand(n, model.n_cfeat).astype(np.float32)
+    t = rs.randint(1, TIMESTEPS + 1, n)
+    noise = rs.randn(n, size, size, 1).astype(np.float32)
+    return x, c, np.ones(n, np.float32), torch.tensor(t), torch.tensor(noise)
+
+
+def check_variant(name: str, dev, drive) -> dict:
+    """Phase (m): the deep or big model at full width.  Its forward on the
+    card against the CPU at batch 2; one train step card vs CPU under
+    phase (l)'s gate; four exact-chain steps card vs CPU under injected z;
+    ``VARIANT_STEPS`` strided steps at ``VARIANT_BATCH`` maps and the
+    likelihood forwards of one ELBO batch with their launch counts; the
+    train step's time, idle share and peak memory at batch 32, without
+    remat."""
+    cpu = variant_model(name)
+    scaling = "standard" if name == "big" else "reference"  # main.py:156
+    n_params = sum(p.numel() for p in cpu.parameters())
+    print(f"  {name}: n_feat {cpu.n_feat}, n_cfeat {cpu.n_cfeat}, {cpu.height}x{cpu.height}, "
+          f"{cpu.levels} levels, {cpu.up0_norm.act} heads, tanh output, "
+          f"{n_params} parameters", flush=True)
+
+    def make(device):
+        return copy.deepcopy(cpu).to(device=device, memory_format=torch.channels_last)
+
+    gpu = make(dev).eval()
+    cpu.eval()
+    x, c, _, t, _ = variant_batch(cpu, VARIANT_CHECK_BATCH, 1)
+    t_norm = t.float() / TIMESTEPS
+    with torch.inference_mode():
+        eps_card = gpu(torch.tensor(x, device=dev), t_norm.to(dev), torch.tensor(c, device=dev))
+        eps_cpu = cpu(torch.tensor(x), t_norm, torch.tensor(c))
+    err = (eps_card.cpu() - eps_cpu).abs().max().item()
+    print(f"  {name} forward, batch {VARIANT_CHECK_BATCH}, card vs CPU: max abs err {err:.3e} "
+          f"(tol {VARIANT_TOL:g}; |eps| <= 1)", flush=True)
+    if not err <= VARIANT_TOL:
+        raise SystemExit(f"{name} forward on the card vs the CPU: {err} > {VARIANT_TOL}")
+    check_train_step(make, dev, variant_batch(cpu, VARIANT_CHECK_BATCH, 2), scaling,
+                     label=f"{name} ", pin_kinks=True)
+    check_sampler_vs_cpu((gpu, cpu), [1, 2, 3, 4], "beta", f"{name} exact chain w=0",
+                         size=cpu.height, guide_w=0.0)
+    schedule = make_schedule(TIMESTEPS)
+    taus = ddim_timesteps(TIMESTEPS, VARIANT_STEPS)
+
+    def sample():
+        return sample_ddim(
+            gpu, schedule, torch.Generator(device=dev).manual_seed(4), n_sample=VARIANT_BATCH,
+            size=cpu.height, params=np.zeros((VARIANT_BATCH, cpu.n_cfeat), np.float32),
+            taus=taus, sigma_mode="beta", device=dev)
+
+    maps = drive(f"{name}_sampler", sample, steps=len(taus))
+    check_maps(maps, VARIANT_BATCH, f"{name} sampler", cpu.height)
+    t1 = time.perf_counter()  # the same call again, warm
+    sample()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / len(taus) * 1e3
+    print(f"  {name} sampler: {VARIANT_BATCH} maps, {len(taus)} strided steps, {step_ms:.3f} "
+          f"ms a step (host clock, warm)")
+    elbo = drive(f"{name}_elbo", lambda: elbo_bpd_batch(
+        gpu, schedule, x, c, torch.Generator(device=dev).manual_seed(5), device=dev),
+        forwards=10)
+    if not bool(torch.isfinite(elbo).all()):
+        raise SystemExit(f"{name} ELBO: {elbo}")
+    del gpu
+    torch.cuda.empty_cache()
+    batch = [torch.as_tensor(a).to(dev) for a in variant_batch(cpu, TRAIN_BATCH, 3)]
+    model = make(dev)
+    state = trainer.create_train_state(model, 1e-4, 2, 14)
+    step = trainer.make_train_step(model, TIMESTEPS, scaling)
+    tr = time_train_steps(dev, state, step, batch, *VARIANT_TIMED[name])
+    del model, state, step
+    torch.cuda.empty_cache()
+    print_train_time(f"{name} ", tr)
 
 
 def compare_train_states(path_a: str, path_b: str) -> float:
@@ -665,6 +917,78 @@ def compare_train_states(path_a: str, path_b: str) -> float:
               t["opt_state"]["0"]["nu"]] for t in (a, b)]
     return max(float(np.abs(x - y).max()) for ta, tb in zip(*trees)
                for x, y in zip(leaves(ta), leaves(tb)))
+
+
+def check_artifacts(output_dir: str, rel_paths, label: str) -> None:
+    """Fail unless a run wrote each of ``rel_paths`` under ``output_dir``."""
+    for rel_path in rel_paths:
+        if not os.path.exists(os.path.join(output_dir, rel_path)):
+            raise SystemExit(f"run_experiment {label} wrote no {rel_path}")
+
+
+def sampler_calls(cfg) -> int:
+    """Sampler chains a run of ``cfg`` drives: the reconstruction (or
+    sampling from noise), and in a conditional mode the parameter grid,
+    the guidance sweep (one for the w <= 0 strengths and one for the w > 0
+    ones) and the sensitivity rows."""
+    spec = cfg.spec
+    guidance = [any(w <= 0 for w in cfg.guidance_strengths),
+                any(w > 0 for w in cfg.guidance_strengths)]
+    return 1 + spec.conditional * (
+        spec.param_grid + spec.guidance_sweep * sum(guidance)
+        + (spec.sensitivity and cfg.num_params > 0))
+
+
+def check_runs(dev, drive) -> None:
+    """Phase (n): ``run_experiment`` of modes ``initial`` (deep), ``main``
+    (big) and ``paper`` (canonical: the parameter grid, the guidance sweep
+    and the sensitivity rows with their post metrics) on the synthetic
+    stand-ins, cut to ``RUN_T`` timesteps, ``RUN_EPOCHS`` epoch(s) and
+    ``RUN_MAPS`` maps, each driven with its launch counts
+    (:func:`sampler_calls` chains of ``RUN_T`` steps, the likelihood
+    forwards counted by their convs to one channel); the conditional
+    run's artifacts."""
+    for mode in ("initial", "main", "paper"):
+        cfg = ExperimentConfig(mode=mode, lrate=1e-4, n_epoch=RUN_EPOCHS, timesteps=RUN_T,
+                               max_maps=RUN_MAPS[mode],
+                               output_root=os.path.join(OUT_DIR, f"exp_{mode}"))
+        shutil.rmtree(cfg.output_root, ignore_errors=True)
+        n_maps = min(cfg.synthetic_param_sets, max(1, RUN_MAPS[mode] // 15)) * 15
+        n_train = n_maps - min(cfg.test_size, max(n_maps // 10, 1))
+        variant = cfg.spec.model_variant
+        t1 = time.perf_counter()
+        res = drive(f"run_experiment_{mode}",
+                    lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
+                    steps=RUN_T * sampler_calls(cfg), forwards=None,
+                    train_forwards=RUN_EPOCHS * num_batches(n_train, cfg.batch_size))
+        logs = res["loss_log"] + res["val_loss_log"]
+        print(f"  run_experiment {mode} ({variant}, n_feat {cfg.n_feat}, {cfg.height}x"
+              f"{cfg.height}, T {RUN_T}, {RUN_EPOCHS} epoch): "
+              f"{res['data_source']} data, {res['n_train']} train maps, losses {logs}, "
+              f"reconstructed mean {res['means']['reconstructed']:.6f}, not ported "
+              f"{res['not_ported']}, in {time.perf_counter() - t1:.3f} s", flush=True)
+        if (res["n_train"] != n_train or not np.isfinite(logs).all()
+                or not np.isfinite(res["means"]["reconstructed"])
+                or res["not_ported"] != ["figures"]):
+            raise SystemExit(f"run_experiment {mode}: {res['n_train']} train maps, losses "
+                             f"{logs}, means {res['means']}, not ported {res['not_ported']}")
+        if mode == "paper":
+            check_artifacts(res["output_dir"], (
+                "weights/model_epoch_1.msgpack", "weights/train_state.msgpack",
+                "dataset_info.txt", "selected_params.txt", "param_min.npy", "param_max.npy",
+                "output.log", "timing_and_performance.log"), mode)
+            metrics = [res["recon_metrics"], res["grid_metrics"], *res["guidance_metrics"]]
+            if not all(np.isfinite([m["elbo"], m["bpd"], m["nll"]]).all() for m in metrics):
+                raise SystemExit(f"run_experiment paper: post metrics {metrics}")
+            with open(os.path.join(res["output_dir"], "timing_and_performance.log")) as f:
+                log = f.read()
+            for line in ("Generating 25 parameter grid samples took",
+                         "ELBO of parameter grid samples:", "Guidance strength 5.0 - ELBO:",
+                         "Parameter 6 sensitivity metrics:", "  Value 1.00 - ELBO:"):
+                if line not in log:
+                    raise SystemExit(f"run_experiment paper: no line {line!r} in its log")
+            print(f"  paper: grid {res['grid_metrics']}; guidance "
+                  f"{[(m['guidance'], round(m['nll'], 3)) for m in res['guidance_metrics']]}")
 
 
 def main() -> int:
@@ -709,7 +1033,8 @@ def main() -> int:
         kernel applies ``out_conv2``); a likelihood path of ``forwards``
         model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
         ``train_forwards`` training forwards no launch and one such conv
-        each."""
+        each.  ``forwards=None``: as many likelihood forwards as convs to
+        one channel beyond the training forwards (a run's many passes)."""
         one_channel_convs = [0]
 
         def hook(module, args, output):
@@ -727,7 +1052,9 @@ def main() -> int:
         launches[path] = {name: w.launches for name, w in WRAPPERS.items()}
         print(f"  launches on {path}: {launches[path]}; convs to one channel: "
               f"{one_channel_convs[0]}", flush=True)
-        if one_channel_convs[0] != forwards + train_forwards:
+        if forwards is None:
+            forwards = one_channel_convs[0] - train_forwards
+        if forwards < 0 or one_channel_convs[0] != forwards + train_forwards:
             raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
                              f"expected {forwards + train_forwards}")
         want = {name: steps * LAUNCHES_PER_STEP[name] + forwards * LAUNCHES_PER_FORWARD[name]
@@ -855,22 +1182,14 @@ def main() -> int:
     phase("(k) reconstruction", t0)
 
     t0 = time.perf_counter()
-    check_train_step(variables, dev)
+    check_train_step(lambda device: training_model(variables, device), dev, train_batch())
     model_l, state_l, step_l, batch_l, losses = drive(
         "train_steps", lambda: fixed_objective(dev), train_forwards=FIXED_STEPS)
     print(f"  fixed objective, {FIXED_STEPS} Adam steps at lr 1e-3 from a fresh init: loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f} (ratio {losses[-1] / losses[0]:.4f})")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"the loss did not fall on a fixed batch: {losses}")
-    tr = time_train_steps(dev, state_l, step_l, batch_l)
-    print(f"  train step, batch {TRAIN_BATCH}, fp32 with TF32 off: {tr['ms']:.3f} ms "
-          f"({tr['steps_per_s']:.2f} steps/s); peak device memory "
-          f"{tr['peak_bytes'] / 2**30:.3f} GiB; under the profiler {tr['profiled_ms']:.3f} "
-          f"ms a step, device busy {tr['busy_ms']:.3f} ms (idle share "
-          f"{1 - tr['busy_ms'] / tr['profiled_ms']:.3f}), convolution kernels "
-          f"{tr['conv_ms']:.3f} ms ({tr['conv_ms'] / tr['busy_ms'] * 100:.1f}% of busy)")
-    for name, ms in tr["top"]:
-        print(f"    {ms:.3f} ms a step ({ms / tr['busy_ms'] * 100:.1f}% of busy)  {name[:110]}")
+    print_train_time("", time_train_steps(dev, state_l, step_l, batch_l))
     del model_l, state_l, step_l, batch_l
     phase("(l1) train step vs CPU, guard, fixed objective, step time", t0)
 
@@ -889,8 +1208,8 @@ def main() -> int:
     try:
         runs = {}
         for name, resume, epochs in (("exp_a", False, 2), ("exp_b", True, 1)):
-            cfg = ExperimentConfig(mode="condition", lrate=1e-4, n_epoch=2,
-                                   timesteps=TIMESTEPS, num_params=6, n_eval_images=4,
+            cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=2,
+                                   timesteps=TIMESTEPS, n_eval_images=4,
                                    ckpt_every=1, resume=resume,
                                    output_root=os.path.join(OUT_DIR, name))
             shutil.rmtree(cfg.output_root, ignore_errors=True)
@@ -898,28 +1217,23 @@ def main() -> int:
                 os.makedirs(os.path.join(cfg.output_dir(), "weights"))
                 shutil.copy(os.path.join(snapshots, "epoch_1.msgpack"),
                             os.path.join(cfg.output_dir(), "weights", "train_state.msgpack"))
-            evals = 2 * epochs  # a val pass: batches of 32 and 16 (padded) maps
             t1 = time.perf_counter()
             res = drive(f"run_experiment{'_resume' if resume else ''}",
                         lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
-                        steps=TIMESTEPS, forwards=evals,
-                        train_forwards=14 * epochs)
+                        steps=TIMESTEPS * sampler_calls(cfg), train_forwards=14 * epochs)
             runs[name] = res
-            logs = res["loss_log"] + res["val_loss_log"]
+            logs = res["loss_log"]
             print(f"  run_experiment {name}: {res['data_source']} data, {res['n_train']} train "
-                  f"maps, epochs {res['epoch_times']} s, losses {logs}, in "
-                  f"{time.perf_counter() - t1:.3f} s")
-            if not np.isfinite(logs).all():
-                raise SystemExit(f"run_experiment {name}: a loss is not finite: {logs}")
+                  f"maps, epochs {res['epoch_times']} s, losses {logs}, reconstructed mean "
+                  f"{res['means']['reconstructed']:.6f}, in {time.perf_counter() - t1:.3f} s")
+            if not (np.isfinite(logs).all() and np.isfinite(res["means"]["reconstructed"])):
+                raise SystemExit(f"run_experiment {name}: losses {logs}, means {res['means']}")
     finally:
         experiment.save_train_checkpoint = save
         torch.backends.cudnn.deterministic = cudnn_deterministic
     out_a = runs["exp_a"]["output_dir"]
-    for rel_path in ("weights/model_epoch_1.msgpack", "weights/model_epoch_2.msgpack",
-                     "weights/train_state.msgpack", "dataset_info.txt", "selected_params.txt",
-                     "param_min.npy", "param_max.npy", "output.log"):
-        if not os.path.exists(os.path.join(out_a, rel_path)):
-            raise SystemExit(f"run_experiment wrote no {rel_path}")
+    check_artifacts(out_a, ("weights/model_epoch_0.msgpack", "weights/model_epoch_1.msgpack",
+                            "weights/train_state.msgpack", "output.log"), "nov26")
     diff = compare_train_states(os.path.join(out_a, "weights", "train_state.msgpack"),
                                 os.path.join(runs["exp_b"]["output_dir"], "weights",
                                              "train_state.msgpack"))
@@ -929,6 +1243,18 @@ def main() -> int:
         raise SystemExit(f"resumed run vs the unbroken run: {diff} > {RESUME_TOL}")
     phase("(l2) run_experiment and resume", t0)
 
+    t0 = time.perf_counter()
+    for name in ("deep", "big"):
+        t1 = time.perf_counter()
+        check_variant(name, dev, drive)
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t1:.3f} s", flush=True)
+    phase("(m) the deep and big models at full width", t0)
+
+    t0 = time.perf_counter()
+    check_runs(dev, drive)
+    phase("(n) run_experiment initial, main, paper", t0)
+
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
@@ -936,7 +1262,7 @@ def main() -> int:
         "launches_by_path": {path: counts[name] for path, counts in launches.items()},
         "library_call": LIBRARY[name],
         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")},
+                                       "bound_ms", "bound_by", "library_ms", "shapes")},
     } for name in WRAPPERS]
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -311,3 +311,81 @@ def test_train_step_on_the_card_matches_the_cpu(dev, fp32_convs):
     assert ((g_gpu - g_cpu).norm() / g_cpu.norm()).item() <= 1e-4
     for (name, a), b in zip(cpu_model.named_buffers(), gpu_model.buffers()):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5, msg=name)
+
+
+# ---- the deep and big variants' shapes --------------------------------------
+
+@pytest.mark.parametrize("tanh", [True, False])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("c", [128, 256])
+def test_head_step_kernel_at_the_variant_shapes(dev, fp32_convs, c, w, tanh):
+    """K1 on (10 or 20, 128, 128, C) features, C = 128 (deep) and 256
+    (big), with the tanh of their output layer per branch: atol 1e-4, as
+    at the canonical shapes."""
+    b, cfg = 10, w is not None
+    h = _randn(dev, 2 * b if cfg else b, 128, 128, c, seed=11).relu()
+    weight = _randn(dev, 1, c, 3, 3, seed=12).mul(0.05)
+    bias = _randn(dev, 1, seed=13)
+    x, z = _randn(dev, b, 128, 128, 1, seed=14), _randn(dev, b, 128, 128, 1, seed=15)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    torch.testing.assert_close(fused_head_step(*args, tanh=tanh),
+                               head_step_plain(*args, tanh=tanh), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n", [10, 32])
+@pytest.mark.parametrize("shape,act,film", [
+    ((128, 128, 128), "leaky_relu", False), ((128, 128, 256), "gelu", False),
+    ((16, 16, 512), "leaky_relu", True), ((16, 16, 1024), "gelu", True)])
+def test_groupnorm_kernel_at_the_variant_shapes(dev, n, shape, act, film):
+    """K2 at the deep and big models' out_norm and up0_norm (with its FiLM
+    epilogue); the big out_norm takes the spill path: atol 1e-4."""
+    x = _randn(dev, n, *shape, seed=21).mul(3).add(1)
+    c = shape[-1]
+    gamma, beta = _randn(dev, c, seed=22), _randn(dev, c, seed=23)
+    rows = (_randn(dev, n, c, seed=24), _randn(dev, 1, c, seed=25)) if film else None
+    plan = launch_plan(n, shape[0] * shape[1], c, 8)
+    assert plan.spills == (shape == (128, 128, 256))
+    args = (x, gamma, beta, 8, 1e-5, act, rows)
+    torch.testing.assert_close(fused_groupnorm_act(*args), groupnorm_act_plain(*args),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n", [10, 32])
+@pytest.mark.parametrize("c", [256, 512])
+def test_film_kernel_at_the_variant_shapes(dev, n, c):
+    x = _randn(dev, n, 32, 32, c, seed=31)
+    scale, shift = _randn(dev, n, c, seed=32), _randn(dev, 1, c, seed=33)
+    torch.testing.assert_close(fused_film(x, scale, shift), film_plain(x, scale, shift),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["deep", "big"])
+def test_variant_forward_and_sampler_steps_on_the_card_match_the_cpu(dev, fp32_convs,
+                                                                     variant):
+    """A narrow deep / big model (n_feat 16, 32x32): the forward and three
+    exact-chain steps under injected z on the card against the CPU, atol
+    1e-5; each step launches K1 once, K2 twice and K3 once."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cpu_model = getattr(ContextUnet, variant)(n_feat=16, height=32).eval()
+    gpu_model = getattr(ContextUnet, variant)(n_feat=16, height=32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.to(dev, memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 32, 1, generator=g)
+    t = torch.rand(2, generator=g)
+    c = torch.rand(2, cpu_model.n_cfeat, generator=g)
+    with torch.inference_mode():
+        want = cpu_model(x, t, c)
+        got = gpu_model(x.to(dev), t.to(dev), c.to(dev)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    zs = [torch.randn(2, 32, 32, 1, generator=g) for _ in range(3)]
+    counts = (fused_head_step.launches, fused_groupnorm_act.launches, fused_film.launches)
+    outs = [sample_ddpm(m, make_schedule(3), torch.Generator(device=d), params=c.numpy(),
+                        x_init=x.numpy(), device=d, z_fn=lambda k, t: zs[k]).cpu()
+            for m, d in ((gpu_model, dev), (cpu_model, "cpu"))]
+    assert (fused_head_step.launches - counts[0], fused_groupnorm_act.launches - counts[1],
+            fused_film.launches - counts[2]) == (3, 6, 3)
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)

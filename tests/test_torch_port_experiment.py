@@ -1,9 +1,10 @@
 """PyTorch port: ``run_experiment`` at the tiny size on the CPU -- the JAX
 runner's artifact names and log-line formats, a resume that reproduces the
-unbroken run, the stages not ported skipped and listed, and the options not
-ported raising ``NotImplementedError``; the run logger's lines against the
-JAX package's.  Values differ from the JAX runner's (torch generators, not
-threefry), so formats are compared with the numbers masked."""
+unbroken run, the deep and big variants' modes end to end, the figures
+skipped and listed, and the options not ported raising
+``NotImplementedError``; the run logger's lines against the JAX package's.
+Values differ from the JAX runner's (torch generators, not threefry), so
+formats are compared with the numbers masked."""
 
 import os
 import re
@@ -76,7 +77,7 @@ def test_condition_run_writes_the_jax_artifacts_and_resumes(tmp_path, monkeypatc
     assert res["data_source"] == "synthetic" and res["n_train"] == 54
     assert len(res["loss_log"]) == len(res["val_loss_log"]) == 2
     assert np.isfinite(res["loss_log"] + res["val_loss_log"]).all()
-    assert res["not_ported"] == ["param_grid", "guidance_sweep", "sensitivity", "figures"]
+    assert res["not_ported"] == ["figures"]
     assert _read(os.path.join(out, "output.log")) == b"Device used: CPU\n" * 2
 
     maps, params = synthetic_camels(4, 15, 32, seed=cfg.seed)
@@ -103,11 +104,12 @@ def test_condition_run_writes_the_jax_artifacts_and_resumes(tmp_path, monkeypatc
 
 def test_paper_run_writes_the_jax_timing_log_lines(tmp_path):
     """Mode ``paper``: every line of ``timing_and_performance.log``, numbers
-    masked, is the line the JAX runner's logger writes at that point, up to
-    the stages the port does not run."""
+    masked, is the line the JAX runner's logger writes at that point, the
+    parameter grid, guidance sweep and sensitivity included."""
     res = experiment.run_experiment(
         ExperimentConfig(mode="paper", output_root=str(tmp_path), **TINY), device="cpu")
     assert set(res["recon_metrics"]) == {"elbo", "bpd", "nll"}
+    assert [m["guidance"] for m in res["guidance_metrics"]] == [0.0, 1.0, 2.0, 3.0, 5.0]
     jax_log = JaxRunLogger(str(tmp_path / "jax"))
     jax_log.write_header(1e-3, 2, 8, 3)
     for ep in range(2):
@@ -117,6 +119,14 @@ def test_paper_run_writes_the_jax_timing_log_lines(tmp_path):
     jax_log.sampling_header()
     jax_log.reconstruction_perf(2, 0.1, 0.1, 8)
     jax_log.sample_metrics("reconstructed images", 0.1, 0.1, 0.1)
+    jax_log.grid_perf(25, 0.1)
+    jax_log.sample_metrics("parameter grid samples", 0.1, 0.1, 0.1)
+    for w in (0.0, 1.0, 2.0, 3.0, 5.0):
+        jax_log.guidance_metrics(w, 0.1, 0.1, 0.1)
+    for p_idx in range(3):
+        jax_log.sensitivity_header(p_idx)
+        for v in np.linspace(0.0, 1.0, 5):
+            jax_log.sensitivity_value(float(v), 0.1, 0.1, 0.1)
 
     def masked(path):
         with open(path) as f:
@@ -136,6 +146,12 @@ def test_run_logger_writes_the_jax_packages_lines(tmp_path):
         ("training_complete", (1.0, [1.0], 0.5)),
         ("sampling_header", ()), ("reconstruction_perf", (10, 19.38, 0.0125, 1500)),
         ("sample_metrics", ("reconstructed images", 0.1, 0.01, 100.0)),
+        ("grid_perf", (25, 31.416)),
+        ("guidance_metrics", (2.0, 0.123456789, 0.0015, 612.5)),
+        ("guidance_metrics", (0.0, 1.0, 2.0, 3.0)),
+        ("sensitivity_header", (0,)), ("sensitivity_header", (5,)),
+        ("sensitivity_value", (0.25, 0.1, 0.0007, 600.25)),
+        ("sensitivity_value", (1.0, 2.0, 3.0, 4.0)),
         ("dataset_info", ({"total": 480, "train": 432, "test": 48, "num_params": 6,
                            "original_param_shape": (32, 6), "expanded_param_shape": (480, 6),
                            "final_param_shape": (480, 6)},)),
@@ -152,12 +168,13 @@ def test_run_logger_writes_the_jax_packages_lines(tmp_path):
 
 
 @pytest.mark.parametrize("mode,skipped", [
-    ("condition", ["param_grid", "guidance_sweep", "sensitivity", "figures"]),
+    ("condition", ["figures"]),
     ("nov26", ["figures"]),
 ])
 def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, mode, skipped):
-    """The stages after the reconstruction and the figures (ROADMAP item
-    10) are skipped, listed in ``results["not_ported"]`` and printed."""
+    """The figures (ROADMAP item 10) are skipped, listed in
+    ``results["not_ported"]`` and printed; the stages after the
+    reconstruction run."""
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **TINY)
     res = experiment.run_experiment(cfg, device="cpu")
     assert res["not_ported"] == skipped
@@ -168,9 +185,7 @@ def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, mode, skipped
 
 @pytest.mark.parametrize("mode,overrides,item", [
     ("condition", {"dtype": "bfloat16"}, "item 4"),
-    ("main", {}, "item 8"),
-    ("initial", {}, "item 8"),
-    ("condition", {"shortcut": "stochastic"}, "item 8"),
+    ("condition", {"shortcut": "stochastic"}, "item 9"),
     ("condition", {"mesh_devices": 2}, "item 11"),
 ])
 def test_parts_not_ported_raise(tmp_path, mode, overrides, item):
@@ -178,3 +193,36 @@ def test_parts_not_ported_raise(tmp_path, mode, overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         experiment.run_experiment(cfg, device="cpu")
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("mode,variant", [("initial", "deep"), ("main", "big")])
+def test_variant_modes_run_end_to_end(tmp_path, capsys, monkeypatch, mode, variant):
+    """Modes ``initial`` (the deep model) and ``main`` (the big one, standard
+    q-scaling, maps sampled from pure noise) at n_feat 8, 16x16: the JAX
+    runner's files but its PNGs (weights on its ``mod0`` cadence, the
+    train checkpoint, the device lines), its ``results`` keys, finite
+    losses and maps of the selected images' count."""
+    cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **TINY)
+    assert cfg.spec.model_variant == variant and cfg.n_cfeat == {"deep": 5, "big": 10}[variant]
+    seen = []
+    factory = getattr(experiment.ContextUnet, variant)
+
+    def spy(*args, **kw):
+        model = factory(*args, **kw)
+        seen.append(model)
+        return model
+
+    monkeypatch.setattr(experiment.ContextUnet, variant, spy)
+    res = experiment.run_experiment(cfg, device="cpu")
+    model, = seen
+    assert model.final_tanh and model.levels == 3
+    assert hasattr(model, "out_conv_extra") == (variant == "big")
+    out = res["output_dir"]
+    weights = sorted({f"weights/{jax_weights_checkpoint_plan('mod0', ep, 2, 4)[1]}"
+                      for ep in range(2) if jax_weights_checkpoint_plan('mod0', ep, 2, 4)[0]})
+    assert _files(out) == sorted(["output.log", "weights/train_state.msgpack", *weights])
+    assert {"output_dir", "data_source", "loss_log", "val_loss_log", "total_training_time",
+            "epoch_times", "n_train", "means"} <= set(res)
+    assert res["not_ported"] == ["figures"] and len(res["loss_log"]) == 2
+    assert np.isfinite(res["loss_log"]).all() and np.isfinite(res["means"]["reconstructed"])
+    assert "Training and evaluation completed." in capsys.readouterr().out

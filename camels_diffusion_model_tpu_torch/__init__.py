@@ -8,8 +8,12 @@ NHWC view that the hand-written kernels take is free.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
 raise when CUDA is absent.  Those that run the model (``cli.serve``, the
-likelihood passes) run it in fp32 with TF32 off (:func:`fp32_math`).  On a CPU tensor each kernel wrapper runs its plain
-PyTorch version; on a CUDA tensor it launches the kernel or raises.
+likelihood passes, the trainer) run it inside :func:`fp32_math`: whatever
+stays fp32 without TF32, and bf16 matmuls summed in fp32.  The model
+computes in fp32, or in bf16 with ``ContextUnet(dtype=torch.bfloat16)``
+(``models/context_unet.py``).  On a CPU tensor each kernel wrapper runs
+its plain PyTorch version; on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -40,16 +44,19 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def fp32_math():
-    """Run the block in fp32: cuDNN convolutions and cuBLAS matmuls with
-    TF32 off (torch lets cuDNN use TF32 by default, about three decimal
-    digits).  Restores the caller's two flags on exit; usable as a
-    decorator."""
-    cudnn = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
+    """Run the block with fp32 sums: cuDNN convolutions and cuBLAS matmuls
+    with TF32 off (torch lets cuDNN use TF32 by default, about three decimal
+    digits), and cuBLAS's bf16 matmuls without reduced-precision reductions
+    (on by default; the JAX package's bf16 dense layers sum in fp32).
+    Restores the caller's three flags on exit; usable as a decorator."""
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved

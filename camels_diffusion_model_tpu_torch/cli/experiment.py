@@ -6,8 +6,12 @@ post-training reconstruction and the stages after it (counterpart of
 
 ``mode`` is one of ``config.MODES`` and the positional arguments are those
 of the reference script it stands for (``config.config_from_argv``).  It
-runs on the CUDA card, in fp32 with TF32 off; :func:`run_experiment` takes
-``device="cpu"`` for tests.
+runs on the CUDA card inside ``fp32_math`` (TF32 off); :func:`run_experiment`
+takes ``device="cpu"`` for tests.  ``ExperimentConfig.dtype`` is the model's
+compute dtype, ``"float32"`` (the CLI's) or ``"bfloat16"``, as in the JAX
+runner (``experiment.py:158,199``): training, validation, the likelihood
+passes and every sampler then compute in bf16 with fp32 parameters, Adam
+state, loss and sampler state.
 
 What runs, in the JAX runner's order and with its artifact names, log
 lines, ``results`` keys and batching: the data (the ``.npy`` maps, or the
@@ -27,9 +31,9 @@ rows (one sampler call for all of them), each with its post metrics.
 
 What waits: the port writes no figure (no PNG; ``utils/viz.py`` needs
 matplotlib, ROADMAP item 10).  A run prints that it skipped them and lists
-them in ``results["not_ported"]``.  ``dtype="bfloat16"`` (item 4),
-``shortcut="stochastic"`` (item 9) and ``mesh_devices > 1`` (item 11),
-which would change what the run computes, raise ``NotImplementedError``.
+them in ``results["not_ported"]``.  ``shortcut="stochastic"`` (item 9)
+and ``mesh_devices > 1`` (item 11), which would change what the run
+computes, raise ``NotImplementedError``.
 
 Noise comes from torch generators seeded by the run seed (the training
 step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
@@ -152,13 +156,16 @@ def _subset_batches(x, c, n, batch_size, rng):
     return list(batch_iterator(x[idx], c[idx], batch_size, shuffle=False))
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _unported(cfg: ExperimentConfig) -> List[str]:
     """The parts of ``cfg``'s run that this package does not do yet, which
     :func:`run_experiment` skips; raises ``NotImplementedError`` for options
-    that would change what the run computes (module docstring)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port trains and serves fp32 "
-                                  "only (ROADMAP section 1, item 4)")
+    that would change what the run computes (module docstring), and
+    ``ValueError`` for a dtype neither package knows."""
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"dtype={cfg.dtype!r}: 'float32' or 'bfloat16'")
     if cfg.shortcut != "learned":
         raise NotImplementedError(
             f"shortcut {cfg.shortcut!r}: the port has the learned shortcut only (ROADMAP "
@@ -269,7 +276,8 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     factory = getattr(ContextUnet, spec.model_variant)  # canonical, deep or big
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = factory(n_cfeat=cfg.n_cfeat, n_feat=cfg.n_feat, height=cfg.height)
+        model = factory(n_cfeat=cfg.n_cfeat, n_feat=cfg.n_feat, height=cfg.height,
+                        dtype=DTYPES[cfg.dtype])
     model = model.to(device=device, memory_format=torch.channels_last)
     steps_per_epoch = num_batches(ds.n_train, cfg.batch_size)
     state = create_train_state(model, cfg.lrate, cfg.n_epoch, steps_per_epoch, seed=cfg.seed)
@@ -328,9 +336,9 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     ln2 = np.log(2.0)
 
     def folded():
-        """The BatchNorm-folded inference copy of the model (the JAX
-        runner's ``fold_inference``)."""
-        return load_model(to_jax_variables(model.state_dict()), device)
+        """The BatchNorm-folded inference copy of the model in its dtype
+        (the JAX runner's ``fold_inference``)."""
+        return load_model(to_jax_variables(model.state_dict()), device, dtype=model.dtype)
 
     training_start = time.time()
     for ep in range(start_epoch, cfg.n_epoch):

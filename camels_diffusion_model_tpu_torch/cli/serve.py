@@ -12,11 +12,16 @@ P(k), and writes them to one small ``.npz`` under ``DIR``.  The port of
 ``sample_power_spectra.py --serving`` without its plot.  Runs on CUDA
 unless ``--device cpu``.
 
-Precision: fp32 throughout.  ``serve`` turns TF32 off for cuDNN's
-convolutions and cuBLAS's matmuls while it runs and restores the caller's
-settings after it (``fp32_math``); torch's default would let the
-convolutions run in TF32, which is not what the certified rows were checked
-against on the card.
+Precision: the CLI serves in fp32, as the JAX serving CLI has no dtype
+option.  The library call ``serve(..., dtype=torch.bfloat16)`` serves the
+rows in the precision they were certified in (``bench.py`` and
+``scripts/certify_fast_sampler.py`` run the JAX model in bf16): the folded
+model computes in bf16 and the sampler's state stays fp32.  ``serve`` turns
+TF32 off for cuDNN's convolutions and cuBLAS's matmuls, and reduced-precision
+sums off for bf16 matmuls, while it runs and restores the caller's settings
+after it (``fp32_math``); torch's default would let the fp32 convolutions
+run in TF32, which is not what the certified rows were checked against on
+the card.
 """
 
 from __future__ import annotations
@@ -69,19 +74,21 @@ def serving_params(params, n: int, seed: int = 0, n_cfeat: int = 6) -> np.ndarra
 
 @fp32_math()
 def serve(guide_w: float, n: int, out_dir: str, seed: int = 0,
-          device=None, art_dir=None, params=None) -> dict:
+          device=None, art_dir=None, params=None,
+          dtype: torch.dtype = torch.float32) -> dict:
     """Serve ``n`` calibrated maps of the certified row for ``guide_w`` on
     the normalised contexts ``params``: one ``(6,)``, tiled, or one per map
     ``(n, 6)``; None serves :func:`default_params` of ``seed``.
 
-    Runs in fp32 with TF32 off (:func:`fp32_math`).  Returns the maps
+    The model computes in ``dtype`` (float32 or bfloat16), inside
+    :func:`fp32_math`.  Returns the maps
     ``(n, 64, 64, 1)`` (a tensor on ``device``), their spectra, the
     contexts, the row and the wall seconds of sampling through P(k); writes
     everything but the maps to ``out_dir/serve_w{w}_n{n}.npz``.
     """
     device = resolve_device(device)
     cfg = resolve_serving_config(guide_w, art_dir)
-    model = load_model(load_variables(cfg.model_path), device)
+    model = load_model(load_variables(cfg.model_path), device, dtype=dtype)
     params = serving_params(params, n, seed, model.n_cfeat)
     calib = SpectralCalibration.load(cfg.calibration_path)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -99,6 +106,7 @@ def serve(guide_w: float, n: int, out_dir: str, seed: int = 0,
     result = {
         "guide_w": cfg.guide_w, "steps": cfg.steps, "config": cfg.config,
         "checkpoint_fingerprint": cfg.checkpoint_fingerprint, "seed": seed,
+        "dtype": str(dtype).split(".")[-1],
         "params": params,
         "k": k, "pk": pk, "k_log": k_log, "pk_log": pk_log,
         "seconds": seconds,

@@ -8,9 +8,9 @@ One runner, ``cli.experiment.run_experiment``, is parameterised by a
 The reference's module constants (beta1/beta2, n_feat, batch size, test
 size, eval and checkpoint cadences, data paths) are fields of
 :class:`ExperimentConfig`.  Fields that select what this package does not
-run yet (``dtype="bfloat16"``, the deep/big variants,
-``shortcut="stochastic"``, ``mesh_devices > 1``) make ``run_experiment``
-raise ``NotImplementedError``.
+run yet (``shortcut="stochastic"``, ``mesh_devices > 1``) make
+``run_experiment`` raise ``NotImplementedError``; every mode, the deep and
+big variants' included, runs in ``dtype`` "float32" or "bfloat16".
 """
 
 from __future__ import annotations

@@ -39,8 +39,18 @@
 //  - A thread keeps the same channels for its whole slice (the block covers
 //    whole pixels), so gamma, beta, scale and shift sit in registers and the
 //    loops do no division.  Shapes whose channels per group are not a
-//    multiple of 4, or pointers not 16-byte aligned, take the scalar
-//    instance (V = 1) of the same kernel.
+//    multiple of one 16-byte access (4 floats, 8 bf16), or pointers not
+//    16-byte aligned, take the scalar instance (V = 1) of the same kernel.
+//
+// The I/O type T is float or bf16 (the bf16 model, blocks.py:316-321 with
+// dtype=bfloat16).  Whatever T, the statistics, gamma/beta and the
+// activation are fp32 and y is rounded to T once, as the Pallas kernel
+// does (ops/pallas/groupnorm.py:52-57); the FiLM epilogue then runs in T
+// as context_unet.py:300-307 does: scale * y rounded, + shift rounded
+// (rows of T).  Shared memory holds the slice as T, exact: a bf16 group is
+// half the bytes, so the big model's out_norm (1 MiB a group in bf16,
+// 128 KiB a CTA in a cluster of 8) stays resident; the spill path serves
+// the fp32 instance.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,12 +97,13 @@ __device__ __forceinline__ float activate(float y, int act) {
 }
 
 // Grid: (sample, group) major, cluster rank minor.  Dynamic shared memory:
-// pixels_per_cta * cg floats, the CTA's slice as [pixel][channel of group].
-template <int V>
+// resident_pixels * cg elements of T, the CTA's slice as [pixel][channel of
+// group].
+template <typename T, int V>
 __global__ void groupnorm_act_kernel(
-    const float* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const float* __restrict__ scale,
-    const float* __restrict__ shift, float* __restrict__ out, int hw, int c,
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const T* __restrict__ scale,
+    const T* __restrict__ shift, T* __restrict__ out, int hw, int c,
     int groups, int cluster_size, int pixels_per_cta, int resident_pixels,
     int scale_stride, int shift_stride, float eps, int act) {
   extern __shared__ float4 slice_storage[];
@@ -112,8 +123,8 @@ __global__ void groupnorm_act_kernel(
   const int first = threadIdx.x < pstride * vpp ? threadIdx.x / vpp : np;
   const int ch = g * cgroup + j;
   const long long base = ((long long)n * hw + p0) * c + ch;
-  float* mine = reinterpret_cast<float*>(slice_storage) + j;
-  const float* xs = x + base;  // this thread's channels of the slice
+  T* mine = reinterpret_cast<T*>(slice_storage) + j;
+  const T* xs = x + base;  // this thread's channels of the slice
   // Pixels [0, res) of the slice sit in shared memory, [res, np) spill;
   // spill is this thread's first pixel at or past res.
   const int res = min(np, resident_pixels);
@@ -164,48 +175,38 @@ __global__ void groupnorm_act_kernel(
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       float y = activate((v.v[i] - mean) * rstd * ga.v[i] + be.v[i], act);
-      v.v[i] = film ? y * sc.v[i] + sh.v[i] : y;
+      v.v[i] = film ? round_to<T>(round_to<T>(round_to<T>(y) * sc.v[i]) + sh.v[i]) : y;
     }
     store<V>(out + base + (long long)p * c, v);
   });
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-template <int V>
-cudaError_t launch(cudaLaunchConfig_t* cfg, const float* x, const float* gamma,
-                   const float* beta, const float* scale, const float* shift,
-                   float* out, int hw, int c, int groups, int cluster,
+template <typename T, int V>
+cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
+                   const float* beta, const T* scale, const T* shift,
+                   T* out, int hw, int c, int groups, int cluster,
                    int pixels_per_cta, int resident_pixels, int scale_stride,
                    int shift_stride, float eps, int act) {
   cudaError_t err = cudaSuccess;
   if (cfg->dynamicSmemBytes > 48 * 1024)
-    err = cudaFuncSetAttribute(groupnorm_act_kernel<V>,
+    err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg->dynamicSmemBytes);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<V>, x, gamma, beta, scale,
+    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V>, x, gamma, beta, scale,
                              shift, out, hw, c, groups, cluster, pixels_per_cta,
                              resident_pixels, scale_stride, shift_stride, eps, act);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-}  // namespace
-
-// x/out: (n, hw, c) contiguous NHWC; gamma/beta: (c,); scale/shift: null, or
-// rows of c floats with strides 0 or c.  vec, cluster, threads,
-// pixels_per_cta, resident_pixels and smem_bytes come from
-// ops/groupnorm.py::launch_plan
-// (vec 4 needs c/groups % 4 == 0 and 16-byte aligned pointers).  Returns
-// the cudaError_t of the launch.
-extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
-                                    const float* beta, const float* scale,
-                                    const float* shift, float* out, int n,
-                                    int hw, int c, int groups, int scale_stride,
-                                    int shift_stride, float eps, int act,
-                                    int vec, int cluster, int threads,
-                                    int pixels_per_cta, int resident_pixels,
-                                    int smem_bytes, void* stream) {
+template <typename T>
+int entry(const T* x, const float* gamma, const float* beta, const T* scale,
+          const T* shift, T* out, int n, int hw, int c, int groups,
+          int scale_stride, int shift_stride, float eps, int act, int vec,
+          int cluster, int threads, int pixels_per_cta, int resident_pixels,
+          int smem_bytes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * groups * cluster));
@@ -219,13 +220,37 @@ extern "C" int camels_groupnorm_act(const float* x, const float* gamma,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (vec == 4)
-    return (int)launch<4>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                          cluster, pixels_per_cta, resident_pixels, scale_stride,
-                          shift_stride, eps, act);
+  if (vec == kVec<T>)
+    return (int)launch<T, kVec<T>>(&cfg, x, gamma, beta, scale, shift, out, hw, c,
+                                   groups, cluster, pixels_per_cta, resident_pixels,
+                                   scale_stride, shift_stride, eps, act);
   if (vec == 1)
-    return (int)launch<1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                          cluster, pixels_per_cta, resident_pixels, scale_stride,
-                          shift_stride, eps, act);
+    return (int)launch<T, 1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
+                             cluster, pixels_per_cta, resident_pixels, scale_stride,
+                             shift_stride, eps, act);
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// x/out: (n, hw, c) contiguous NHWC of float (camels_groupnorm_act) or bf16
+// (camels_groupnorm_act_bf16); gamma/beta: (c,) float; scale/shift: null,
+// or rows of c elements of x's type with strides 0 or c.  vec, cluster,
+// threads, pixels_per_cta, resident_pixels and smem_bytes come from
+// ops/groupnorm.py::launch_plan (vec 4 for float, 8 for bf16, needs
+// c/groups % vec == 0 and 16-byte aligned pointers).  Returns the
+// cudaError_t of the launch.
+#define CAMELS_GROUPNORM_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const T* x, const float* gamma, const float* beta,            \
+                      const T* scale, const T* shift, T* out, int n, int hw, int c, \
+                      int groups, int scale_stride, int shift_stride, float eps,    \
+                      int act, int vec, int cluster, int threads,                   \
+                      int pixels_per_cta, int resident_pixels, int smem_bytes,      \
+                      void* stream) {                                               \
+    return entry<T>(x, gamma, beta, scale, shift, out, n, hw, c, groups,            \
+                    scale_stride, shift_stride, eps, act, vec, cluster, threads,    \
+                    pixels_per_cta, resident_pixels, smem_bytes, stream);           \
+  }
+CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
+CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act_bf16, bf16)
+#undef CAMELS_GROUPNORM_ENTRY

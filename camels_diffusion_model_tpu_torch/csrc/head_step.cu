@@ -48,12 +48,24 @@
 //    which the grid order starts at about the same time, so they should
 //    come from L2; the hit rate is not measured.
 //  - The per-sample w is read once per CTA (no division per element).
+//
+// The feature type T is float or bf16 (h, the (9, c) weights and the bias;
+// the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
+// and bias to bf16 as blocks.py:122 does).  Products of bf16 values are
+// exact in fp32 and sum in fp32; eps is the conv plus bias rounded to T per
+// branch, its tanh rounded to T, and the guidance combine rounds each of its
+// three operations to T with w rounded to T (sampler.py:137-141).  The step
+// is fp32: x, z and out are float whatever T (sampler.py:264-276 casts eps
+// to x's type).  A 16-byte copy stages 4 float or 8 bf16 channels; the
+// chunk's bytes, and so the plan, are the same at twice the channels.
 
 #include <cuda_runtime.h>
 
+#include "pack.cuh"
+
 namespace {
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   int bytes = valid ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
@@ -74,30 +86,31 @@ __device__ __forceinline__ void cp_async_wait() {
 // under CFG, pixel k % T (T = (rows+2)*width) of sample unit + (k/T)*batch,
 // otherwise pixel k (T = (rows+2)*width/2) of sample unit; a pixel p of the
 // band is at global row y0 - 1 + p / width.  Dynamic shared memory: the
-// weights [9][c], then STAGES stages of [2T][STRIDE] floats; the partials
-// [9][2T] reuse the first stage at the end.
-template <int CK, int STAGES>
+// weights [9][c] as floats, then STAGES stages of [2T][STRIDE] elements of
+// E; the partials [9][2T] (floats) reuse the ring at the end.
+template <typename E, int CK, int STAGES>
 __global__ void head_step_kernel(
-    const float* __restrict__ h, const float* __restrict__ wt,
-    const float* __restrict__ bias, const float* __restrict__ x,
+    const E* __restrict__ h, const E* __restrict__ wt,
+    const E* __restrict__ bias, const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
     float w, float* __restrict__ out, int batch, int height, int width, int c,
     int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
-  constexpr int V = CK / 4;  // 16-byte copies per pixel and chunk
-  constexpr int STRIDE = 4 * (V + (V % 2 == 0 ? 1 : 2));  // floats per staged pixel
+  constexpr int L = kVec<E>;  // elements per 16-byte copy
+  constexpr int V = CK / L;   // 16-byte copies per pixel and chunk
+  constexpr int STRIDE = L * (V + (V % 2 == 0 ? 1 : 2));  // elements per staged pixel
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);
-  float* ring = ws + 9 * c;
+  E* ring = reinterpret_cast<E*>(ws + 9 * c);
   const int T = blockDim.x, tid = threadIdx.x;
   const int bands = (height + rows - 1) / rows;
   const int unit = blockIdx.x / bands;
   const int y0 = (blockIdx.x - unit * bands) * rows;
-  const int stage_floats = 2 * T * STRIDE;
+  const int stage_elems = 2 * T * STRIDE;
   const int chunks = c / CK;
 
-  for (int i = tid; i < 9 * c; i += T) ws[i] = wt[i];
+  for (int i = tid; i < 9 * c; i += T) ws[i] = to_float(wt[i]);
 
-  // This thread's copies: the offset (in floats from h) of each one's
+  // This thread's copies: the offset (in elements from h) of each one's
   // 16 bytes in chunk 0, -1 for a halo row outside the map.  Only the chunk
   // offset changes from chunk to chunk, so no copy divides again.
   int src[2 * V];
@@ -110,23 +123,23 @@ __global__ void head_step_kernel(
     const int lr = pix / width;
     const int gy = y0 - 1 + lr;
     src[m] = gy >= 0 && gy < height
-                 ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * 4
+                 ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * L
                  : -1;
   }
   auto issue = [&](int chunk) {
-    float* st = ring + (chunk % STAGES) * stage_floats;
+    E* st = ring + (chunk % STAGES) * stage_elems;
 #pragma unroll
     for (int m = 0; m < 2 * V; ++m) {
       const int i = tid + m * T;
-      cp_async16(st + (i / V) * STRIDE + (i % V) * 4,
+      cp_async16(st + (i / V) * STRIDE + (i % V) * L,
                  src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
     }
   };
 
   // The step's inputs of this thread's first output pixel, requested now
   // so that their latency passes under the reduction.
-  const float b0 = *bias;
-  const float wu = cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f;
+  const float b0 = to_float(*bias);
+  const float wu = round_to<E>(cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
   const int outs = min(rows, height - y0) * width;
   const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
   float x_first = 0.0f, z_first = 0.0f;
@@ -150,32 +163,35 @@ __global__ void head_step_kernel(
                                   // next was reduced by all in the last pass
     if (chunk + STAGES - 1 < chunks) issue(chunk + STAGES - 1);
     cp_async_commit();
-    const float* st = ring + (chunk % STAGES) * stage_floats;
-    const float* a = st + tid * STRIDE;
-    const float* b = st + (tid + T) * STRIDE;
+    const E* st = ring + (chunk % STAGES) * stage_elems;
+    const E* a = st + tid * STRIDE;
+    const E* b = st + (tid + T) * STRIDE;
     const float* wc = ws + chunk * CK;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const float4 d0 = *reinterpret_cast<const float4*>(a + 4 * j);
-      const float4 d1 = *reinterpret_cast<const float4*>(b + 4 * j);
+      const Pack<L> d0 = load<L>(a + L * j);
+      const Pack<L> d1 = load<L>(b + L * j);
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const float4 wv = *reinterpret_cast<const float4*>(wc + t * c + 4 * j);
-        acc0[t] = fmaf(d0.x, wv.x, acc0[t]);
-        acc0[t] = fmaf(d0.y, wv.y, acc0[t]);
-        acc0[t] = fmaf(d0.z, wv.z, acc0[t]);
-        acc0[t] = fmaf(d0.w, wv.w, acc0[t]);
-        acc1[t] = fmaf(d1.x, wv.x, acc1[t]);
-        acc1[t] = fmaf(d1.y, wv.y, acc1[t]);
-        acc1[t] = fmaf(d1.z, wv.z, acc1[t]);
-        acc1[t] = fmaf(d1.w, wv.w, acc1[t]);
+      for (int q = 0; q < L / 4; ++q) {
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const float4 wv = *reinterpret_cast<const float4*>(wc + t * c + L * j + 4 * q);
+          acc0[t] = fmaf(d0.v[4 * q], wv.x, acc0[t]);
+          acc0[t] = fmaf(d0.v[4 * q + 1], wv.y, acc0[t]);
+          acc0[t] = fmaf(d0.v[4 * q + 2], wv.z, acc0[t]);
+          acc0[t] = fmaf(d0.v[4 * q + 3], wv.w, acc0[t]);
+          acc1[t] = fmaf(d1.v[4 * q], wv.x, acc1[t]);
+          acc1[t] = fmaf(d1.v[4 * q + 1], wv.y, acc1[t]);
+          acc1[t] = fmaf(d1.v[4 * q + 2], wv.z, acc1[t]);
+          acc1[t] = fmaf(d1.v[4 * q + 3], wv.w, acc1[t]);
+        }
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // every thread is done with the ring
 
-  float* part = ring;  // [9][2T]
+  float* part = reinterpret_cast<float*>(ring);  // [9][2T]
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
     part[t * 2 * T + tid] = acc0[t];
@@ -201,10 +217,12 @@ __global__ void head_step_kernel(
       }
       // Full-precision tanhf (not tanh.approx.f32): the step scales eps by
       // c_eps, and the variants' eps is the model's output.
-      e[s] = tanh_out ? tanhf(sum) : sum;
+      sum = round_to<E>(sum);
+      e[s] = tanh_out ? round_to<E>(tanhf(sum)) : sum;
       if (!cfg) break;
     }
-    const float ee = cfg ? e[1] + wu * (e[0] - e[1]) : e[0];
+    const float ee =
+        cfg ? round_to<E>(e[1] + round_to<E>(wu * round_to<E>(e[0] - e[1]))) : e[0];
     const long long idx = first + (o - tid);
     float v = ((o == tid ? x_first : x[idx]) - ee * c_eps) * inv_sqrt_a;
     if (z) v += sigma * (o == tid ? z_first : z[idx]);
@@ -212,57 +230,75 @@ __global__ void head_step_kernel(
   }
 }
 
-template <int CK, int STAGES>
+template <typename E, int CK, int STAGES>
 cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
-                   const float* h, const float* wt, const float* bias,
+                   const E* h, const E* wt, const E* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c,
                    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
                    int tanh_out) {
   cudaError_t err = cudaSuccess;
   if (smem_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(head_step_kernel<CK, STAGES>,
+    err = cudaFuncSetAttribute(head_step_kernel<E, CK, STAGES>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
-    head_step_kernel<CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
+    head_step_kernel<E, CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
         h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
         cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-}  // namespace
-
-// h: (cfg ? 2 * batch : batch, height, width, c) NHWC, 16-byte aligned;
-// wt: (9, c) tap-major weights (tap = ky * 3 + kx); bias: one float;
-// x, z, out: (batch, height, width); z null to skip the noise term;
-// w_per_sample: null for the scalar w; tanh_out: 1 to take eps = tanh(conv).
-// rows, ck, stages, threads and smem_bytes come from
-// ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the launch.
-extern "C" int camels_head_step(const float* h, const float* wt, const float* bias,
-                                const float* x, const float* z,
-                                const float* w_per_sample, float w, float* out,
-                                int batch, int height, int width, int c, int rows,
-                                int cfg, int ck, int stages, int threads,
-                                int smem_bytes, float c_eps, float inv_sqrt_a,
-                                float sigma, int tanh_out, void* stream) {
+// ck: channels per staged chunk, 128, 64, 32 or 16 bytes of them.
+template <typename E>
+int entry(const E* h, const E* wt, const E* bias, const float* x, const float* z,
+          const float* w_per_sample, float w, float* out, int batch, int height,
+          int width, int c, int rows, int cfg, int ck, int stages, int threads,
+          int smem_bytes, float c_eps, float inv_sqrt_a, float sigma, int tanh_out,
+          void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
   dim3 grid((unsigned)(batch * ((height + rows - 1) / rows)));
   cudaStream_t st = (cudaStream_t)stream;
-#define CAMELS_HEAD_STEP(CK, STAGES)                                              \
-  if (ck == CK && stages == STAGES)                                               \
-    return (int)launch<CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, \
-                                   z, w_per_sample, w, out, batch, height, width, \
-                                   c, rows, cfg, c_eps, inv_sqrt_a, sigma,        \
-                                   tanh_out);
-  CAMELS_HEAD_STEP(32, 2)
-  CAMELS_HEAD_STEP(32, 3)
-  CAMELS_HEAD_STEP(16, 2)
-  CAMELS_HEAD_STEP(16, 3)
-  CAMELS_HEAD_STEP(8, 2)
-  CAMELS_HEAD_STEP(8, 3)
-  CAMELS_HEAD_STEP(4, 2)
-  CAMELS_HEAD_STEP(4, 3)
+  constexpr int K = 32 / (int)sizeof(E);  // channels of 32 bytes
+#define CAMELS_HEAD_STEP(CK, STAGES)                                                 \
+  if (ck == CK && stages == STAGES)                                                  \
+    return (int)launch<E, CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, \
+                                      z, w_per_sample, w, out, batch, height, width, \
+                                      c, rows, cfg, c_eps, inv_sqrt_a, sigma,        \
+                                      tanh_out);
+  CAMELS_HEAD_STEP(4 * K, 2)
+  CAMELS_HEAD_STEP(4 * K, 3)
+  CAMELS_HEAD_STEP(2 * K, 2)
+  CAMELS_HEAD_STEP(2 * K, 3)
+  CAMELS_HEAD_STEP(K, 2)
+  CAMELS_HEAD_STEP(K, 3)
+  CAMELS_HEAD_STEP(K / 2, 2)
+  CAMELS_HEAD_STEP(K / 2, 3)
 #undef CAMELS_HEAD_STEP
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// h: (cfg ? 2 * batch : batch, height, width, c) NHWC of float
+// (camels_head_step) or bf16 (camels_head_step_bf16), 16-byte aligned;
+// wt: (9, c) tap-major weights (tap = ky * 3 + kx) and bias: one element,
+// both of h's type; x, z, out: (batch, height, width) float; z null to skip
+// the noise term; w_per_sample: null for the scalar w (floats); tanh_out: 1
+// to take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
+// from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
+// launch.
+#define CAMELS_HEAD_STEP_ENTRY(NAME, E)                                              \
+  extern "C" int NAME(const E* h, const E* wt, const E* bias, const float* x,       \
+                      const float* z, const float* w_per_sample, float w,           \
+                      float* out, int batch, int height, int width, int c,          \
+                      int rows, int cfg, int ck, int stages, int threads,           \
+                      int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
+                      int tanh_out, void* stream) {                                 \
+    return entry<E>(h, wt, bias, x, z, w_per_sample, w, out, batch, height, width,  \
+                    c, rows, cfg, ck, stages, threads, smem_bytes, c_eps,           \
+                    inv_sqrt_a, sigma, tanh_out, stream);                           \
+  }
+CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
+CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16, bf16)
+#undef CAMELS_HEAD_STEP_ENTRY

@@ -19,7 +19,9 @@ noise scaling and weight:
 Each forward is ``ContextUnet.forward`` -- the encoder, the decoder with
 kernels K2 (FiLM stage 0 as its epilogue) and K3, then ``out_conv2`` as a
 cuDNN conv, as the JAX package runs it outside any Pallas kernel -- under
-``torch.inference_mode()`` and :func:`fp32_math`.  The sweeps take an
+``torch.inference_mode()`` and :func:`fp32_math`.  With a bf16 model eps is
+bf16 (its ``out_conv2`` a bf16 conv) and its squared error against the fp32
+noise promotes to fp32, as in JAX.  The sweeps take an
 explicit range of timesteps (default ``1..T``) and run it as one loop.
 
 Noise: JAX draws each tensor from a key chain; here every noise tensor comes

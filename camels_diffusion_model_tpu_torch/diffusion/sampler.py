@@ -13,6 +13,12 @@ MLPs once for all ``T + 1`` timesteps.  With
 and no guidance, as in the reference; ``z = 0`` at ``t == 1``.
 ``sample_ddpm_from_noise`` runs the same chain from given noisy maps and
 keeps the states of the reference's save schedule (``sampler.py:95-102``).
+
+With a bf16 model (``ContextUnet(dtype=torch.bfloat16)``) the FiLM tables,
+the features and eps are bf16 and the state x stays fp32, as in JAX
+(``sampler.py:264-276``): K1's bf16 instance takes the bf16 features and
+``out_conv2``'s weights cast to bf16 once per call, and z is drawn in x's
+dtype.
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..models.blocks import to_nhwc
+from .. import fp32_math, resolve_device
+from ..models.blocks import to_compute, to_nhwc
 from ..ops.sampler_step import fused_head_step
 from .schedule import DDPMSchedule, ddpm_coefficients
 
@@ -70,9 +76,10 @@ def guidance(guide_w, batch: int, device) -> tuple:
 
 
 def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
-    """``(cemb1, cemb2, temb1_tab, temb2_tab)``: context embeddings once per
-    call (for ``[cond, uncond]`` under CFG) and the time embeddings of every
-    timestep ``0..T`` as ``(T+1, C)`` tables."""
+    """``(cemb1, cemb2, temb1_tab, temb2_tab)`` in the model's dtype:
+    context embeddings once per call (for ``[cond, uncond]`` under CFG) and
+    the time embeddings of every timestep ``0..T`` (normalised in fp32) as
+    ``(T+1, C)`` tables."""
     c = params
     if use_cfg:
         c = torch.cat([params, torch.zeros_like(params)], dim=0)
@@ -85,8 +92,9 @@ def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
 
 def predict_features(model, x, tables, t: int, use_cfg: bool) -> torch.Tensor:
     """The decoder's features at timestep ``t`` (``out_norm``'s output as
-    NHWC): ``(B, ...)``, or ``(2B, ...)`` stacked ``[cond; uncond]`` under
-    CFG, for the step kernel to apply ``out_conv2`` and combine."""
+    NHWC, in the model's dtype): ``(B, ...)``, or ``(2B, ...)`` stacked
+    ``[cond; uncond]`` under CFG, for the step kernel to apply ``out_conv2``
+    and combine."""
     cemb1, cemb2, temb1_tab, temb2_tab = tables
     enc = model.encode(x)
     if use_cfg:
@@ -185,10 +193,12 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
     (output conv, guidance, update) with that step's ``[c_eps, inv_sqrt_a,
     sigma]`` row of ``coefs``; z is drawn (or taken from ``z_fn``) only
     where sigma is not 0.  Returns the last state and the list of the
-    states of the steps where ``save_mask`` (one bool a step) is set."""
-    head = model.out_conv2
+    states of the steps where ``save_mask`` (one bool a step) is set.
+    Runs inside :func:`fp32_math`."""
     saved = []
-    with torch.inference_mode():
+    with torch.inference_mode(), fp32_math():
+        head = (to_compute(model.out_conv2.weight, model.dtype),
+                to_compute(model.out_conv2.bias, model.dtype))
         tables = film_tables(model, params, timesteps, use_cfg)
         for k, (t, (c_eps, inv_sqrt_a, sigma)) in enumerate(zip(steps, coefs.tolist())):
             h = predict_features(model, x, tables, t, use_cfg)
@@ -196,8 +206,8 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
             if sigma != 0.0:
                 z = (z_fn(k, t).to(x.device) if z_fn is not None else
                      torch.randn(x.shape, generator=generator, device=x.device))
-            x = fused_head_step(h, head.weight, head.bias, x, z, c_eps,
-                                inv_sqrt_a, sigma, w, tanh=model.final_tanh)
+            x = fused_head_step(h, *head, x, z, c_eps, inv_sqrt_a, sigma, w,
+                                tanh=model.final_tanh)
             if save_mask is not None and save_mask[k]:
                 saved.append(x)
     return x, saved

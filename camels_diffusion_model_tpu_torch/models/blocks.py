@@ -12,6 +12,23 @@ BatchNorm runs on its running statistics (or is folded away,
 ``train=True`` BatchNorm normalises with flax's batch statistics and stages
 their running averages (:class:`BatchNorm`), and the heads take the plain
 GroupNorm under autograd: the kernels have no backward.
+
+Compute dtype (the flax modules' ``dtype``): the parameters stay as they
+are (fp32) and each conv and dense layer casts its input, kernel and bias
+to the compute dtype where it uses them (:class:`Conv2d`,
+:class:`ConvTranspose2d`, :class:`Linear`), as flax does; autograd carries
+the gradient through the cast to the fp32 parameters.  In bf16 a layer
+adds its bias after the conv or matmul, each rounding to nearest, as the
+flax layers' ``y = conv(x) + bias`` does.  torch's own bf16 conv fuses
+the bias on the CPU (one rounding) and adds it after cuDNN's output on the
+card (two): the two roundings run 0.118 ulp toward zero at the canonical
+widths, so the devices' BatchNorm statistics drifted apart (PERF.md
+Findings PR 10).  Done here, both devices round as the JAX program does.
+BatchNorm computes in fp32 and returns fp32 (``blocks.py:184-191``), so in
+the unfolded bf16 model a stage's ReLU runs in fp32 and its residual sum
+promotes to fp32, as JAX's does.  ``torch.float32`` casts nothing: the
+fp32 model computes in its parameters' dtype (a copy moved to float64
+computes in float64).
 """
 
 from __future__ import annotations
@@ -34,20 +51,99 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def to_compute(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` cast to the compute dtype ``dtype`` (no copy when it is
+    already); ``torch.float32`` leaves ``t`` as it is (module docstring)."""
+    return t if dtype == torch.float32 else t.to(dtype)
+
+
+def with_bias(op, x, weight, bias, dtype: torch.dtype):
+    """``op(x, weight, bias)`` in the compute dtype: in fp32 one call; in
+    bf16 ``op(x, weight, None)`` then ``+ bias`` (channel dim 1), each
+    rounded to nearest (module docstring)."""
+    x, weight, bias = (to_compute(t, dtype) for t in (x, weight, bias))
+    if dtype == torch.float32:
+        return op(x, weight, bias)
+    y = op(x, weight, None)
+    return y + bias.reshape((1, -1) + (1,) * (y.dim() - 2))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` (flax ``nn.Conv``
+    with ``dtype``; :func:`with_bias`)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return with_bias(self._conv_forward, x, self.weight, self.bias, self.compute_dtype)
+
+
+class OutputConv2d(Conv2d):
+    """The decoder's last conv (``out_conv2``, to the image channels).  In
+    bf16 it sums the exact fp32 products of its bf16 operands and its bias
+    in fp32 and rounds once, as kernel K1 computes eps on the samplers'
+    path, so the likelihood passes' eps is the samplers'.  (Rounded twice,
+    as torch's bf16 conv and its bias are on the card, eps was 0.80 ulp
+    from the exact sum at full width against 0.49, and the battery's ELBO
+    of 2 maps 0.5% off the CPU's: PERF.md Findings PR 10.)"""
+
+    def forward(self, x):
+        d = self.compute_dtype
+        if d == torch.float32:
+            return super().forward(x)
+        return self._conv_forward(x.to(d).float(), self.weight.to(d).float(),
+                                  self.bias.to(d).float()).to(d)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` (flax
+    ``nn.ConvTranspose`` with ``dtype``)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        def op(x, weight, bias):
+            return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                      self.output_padding, self.groups, self.dilation)
+
+        return with_bias(op, x, self.weight, self.bias, self.compute_dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (flax ``nn.Dense``
+    with ``dtype``)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return with_bias(F.linear, x, self.weight, self.bias, self.compute_dtype)
+
+
 class Conv3x3(nn.Module):
     """3x3 same-padding conv; the flax ``Conv3x3`` holds it as ``conv``."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.conv = Conv2d(in_channels, features, 3, padding=1, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.conv(x)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW
-    (``blocks.py:181-190``), in fp32.
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
+    NCHW (``blocks.py:181-190``): a bf16 input is promoted, and the output
+    is fp32 (float64 in a float64 copy).
 
     ``train=False`` normalises with the running statistics, whatever the
     module's ``training`` flag.  ``train=True`` normalises with the batch
@@ -70,6 +166,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.staged = None
 
     def forward(self, h, train: bool = False):
+        h = h.to(torch.promote_types(h.dtype, torch.float32))
         if not train:
             return F.batch_norm(h, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
@@ -98,19 +195,23 @@ def commit_batch_stats(model: nn.Module) -> None:
 class ResidualConvBlock(nn.Module):
     """Two (3x3 conv -> BatchNorm -> ReLU) stages, with the residual add of
     ``is_res`` blocks: identity when the widths match, else the learned 1x1
-    ``shortcut`` (``blocks.py:163-236``)."""
+    ``shortcut`` (``blocks.py:163-236``).  In the compute dtype; with
+    BatchNorm unfolded a stage returns fp32 and the residual sum (a bf16
+    shortcut plus an fp32 stage) promotes to fp32, as in JAX
+    (``blocks.py:201,236``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 is_res: bool = False, fold_bn: bool = False):
+                 is_res: bool = False, fold_bn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.is_res = is_res
-        self.conv1 = Conv3x3(in_channels, out_channels)
-        self.conv2 = Conv3x3(out_channels, out_channels)
+        self.conv1 = Conv3x3(in_channels, out_channels, compute_dtype)
+        self.conv2 = Conv3x3(out_channels, out_channels, compute_dtype)
         if not fold_bn:
             self.conv1_bn = BatchNorm(out_channels)
             self.conv2_bn = BatchNorm(out_channels)
         if is_res and in_channels != out_channels:
-            self.shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.shortcut = Conv2d(in_channels, out_channels, 1, compute_dtype=compute_dtype)
 
     def _stage(self, h, name: str, train: bool):
         h = getattr(self, name)(h)
@@ -131,23 +232,32 @@ class ResidualConvBlock(nn.Module):
 class UnetDown(nn.Module):
     """Two ResidualConvBlocks then a 2x2 max-pool."""
 
-    def __init__(self, in_channels: int, out_channels: int, fold_bn: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, fold_bn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.block1 = ResidualConvBlock(in_channels, out_channels, fold_bn=fold_bn)
-        self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn)
+        self.block1 = ResidualConvBlock(in_channels, out_channels, fold_bn=fold_bn,
+                                        compute_dtype=compute_dtype)
+        self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn,
+                                        compute_dtype=compute_dtype)
 
     def forward(self, x, train: bool = False):
         return F.max_pool2d(self.block2(self.block1(x, train), train), 2)
 
 
 class UnetUp(nn.Module):
-    """Concat skip -> 2x2 stride-2 transposed conv -> two ResidualConvBlocks."""
+    """Concat skip -> 2x2 stride-2 transposed conv -> two ResidualConvBlocks.
+    The concat promotes as ``jnp.concatenate`` does (a bf16 input and an
+    fp32 skip give fp32); the transposed conv casts back."""
 
-    def __init__(self, in_channels: int, out_channels: int, fold_bn: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, fold_bn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.upconv = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
-        self.block1 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn)
-        self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn)
+        self.upconv = ConvTranspose2d(in_channels, out_channels, 2, stride=2,
+                                      compute_dtype=compute_dtype)
+        self.block1 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn,
+                                        compute_dtype=compute_dtype)
+        self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn,
+                                        compute_dtype=compute_dtype)
 
     def forward(self, x, skip, train: bool = False):
         x = self.upconv(torch.cat([x, skip], dim=1))
@@ -157,7 +267,11 @@ class UnetUp(nn.Module):
 class GroupNormAct(nn.Module):
     """GroupNorm(8, eps 1e-5) + affine + act through kernel K2; with
     ``film=(scale, shift)`` rows, K2's FiLM epilogue follows the act.
-    ``train=True`` runs the plain version under autograd instead."""
+    ``train=True`` runs the plain version under autograd instead.  Output in
+    the input's dtype (the compute dtype); ``gamma``/``beta`` and the
+    statistics fp32.  K2 and its plain version apply the activation before
+    rounding, as the Pallas kernel does; the training forward rounds first,
+    as JAX's XLA path (``pallas_gn=False``) does."""
 
     def __init__(self, channels: int, act: str = "relu",
                  num_groups: int = 8, eps: float = 1e-5):
@@ -167,21 +281,26 @@ class GroupNormAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, film=None, train: bool = False):
-        fn = groupnorm_act_plain if train else fused_groupnorm_act
-        y = fn(to_nhwc(x), self.weight, self.bias, self.num_groups, self.eps,
-               self.act, film)
+        if train:
+            y = groupnorm_act_plain(to_nhwc(x), self.weight, self.bias, self.num_groups,
+                                    self.eps, self.act, film, act_after_rounding=True)
+        else:
+            y = fused_groupnorm_act(to_nhwc(x), self.weight, self.bias, self.num_groups,
+                                    self.eps, self.act, film)
         return to_nchw(y)
 
 
 class EmbedFC(nn.Module):
     """Linear -> erf-GELU -> Linear on the input flattened to
-    ``(-1, input_dim)`` (``blocks.py:333-364``)."""
+    ``(-1, input_dim)`` (``blocks.py:333-364``), in the compute dtype (the
+    input, a normalised time or a context, is cast to it first)."""
 
-    def __init__(self, input_dim: int, emb_dim: int):
+    def __init__(self, input_dim: int, emb_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_dim = input_dim
-        self.fc1 = nn.Linear(input_dim, emb_dim)
-        self.fc2 = nn.Linear(emb_dim, emb_dim)
+        self.fc1 = Linear(input_dim, emb_dim, compute_dtype=compute_dtype)
+        self.fc2 = Linear(emb_dim, emb_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         x = x.reshape(-1, self.input_dim).to(self.fc1.weight.dtype)

@@ -8,7 +8,9 @@ numpy variables tree (flax names and HWIO layout), before
     bias'   = (bias - mean) * f + bn_bias
 
 The result loads into ``ContextUnet(fold_bn=True)``.  GroupNorms are
-data-dependent and stay.
+data-dependent and stay.  The fold is fp32 whatever the model's compute
+dtype, as JAX folds the fp32 variables (``models/fold_bn.py:60-87``); a
+bf16 model casts the folded kernels where it uses them.
 """
 
 from __future__ import annotations

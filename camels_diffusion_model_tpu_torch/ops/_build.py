@@ -103,6 +103,11 @@ def refuse_autograd(name: str, *tensors) -> None:
         )
 
 
+def type_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` -> ``"float32"``, for the wrappers' messages."""
+    return str(dtype).removeprefix("torch.")
+
+
 def check(err: int, name: str) -> None:
     """Raise if a launch returned a non-zero ``cudaError_t``."""
     if err != 0:

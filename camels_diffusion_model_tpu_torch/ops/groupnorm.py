@@ -9,6 +9,13 @@ as its epilogue, and at ``out_norm``: two launches per decoder call, at
 ``(N, 16, 16, 512)`` and ``(N, 128, 128, 128)`` in the deep one,
 ``(N, 16, 16, 1024)`` and ``(N, 128, 128, 256)`` in the big one.
 :func:`launch_plan` chooses the kernel's geometry.
+
+Two instances: float32 and bfloat16 I/O (the bf16 model's heads), each
+with its own launch count (``fused_groupnorm_act.launches`` and
+``.launches_bf16``).  Both compute the statistics, the affine and the
+activation in fp32 and round once to the I/O type, as the Pallas kernel
+does; the bf16 FiLM epilogue rounds as the JAX program does
+(:func:`groupnorm_act_plain`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ MIN_CTAS = 256  # about two per SM on the 132 SMs of an H100
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
 SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 #                           for several CTAs on one SM (228 KB of shared memory)
+ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' I/O types
+C_NAMES = {torch.float32: "camels_groupnorm_act", torch.bfloat16: "camels_groupnorm_act_bf16"}
 SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
 #                                less room for the kernel's static arrays
 SPILL_MAX = 2 * SLICE_MAX  # the largest slice: at most half of it spills
@@ -46,7 +55,7 @@ _ARGTYPES = (
 class Plan(NamedTuple):
     """The kernel's launch geometry for one input shape."""
 
-    vec: int  # floats per access: 4 (16 bytes) or 1
+    vec: int  # elements per access: 16 bytes (4 floats, 8 bf16) or 1
     cluster: int  # CTAs that share one (sample, group)
     threads: int  # per CTA
     pixels_per_cta: int  # a CTA's run of pixels of its group
@@ -59,19 +68,23 @@ class Plan(NamedTuple):
         return self.resident_pixels < self.pixels_per_cta
 
 
-def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> Plan:
+def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
+                element_bytes: int = 4) -> Plan:
     """Geometry of :func:`fused_groupnorm_act` for ``n`` samples of ``hw``
-    pixels and ``c`` channels in ``groups`` groups.
+    pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
+    each (4 fp32, 2 bf16).
 
-    The 16-byte path needs ``c / groups % 4 == 0`` and ``aligned`` pointers;
-    other shapes take the scalar path.  The cluster is the smallest of 1, 2,
-    4, 8 whose per-CTA slice is at most ``SLICE_TARGET`` bytes and whose grid
-    reaches ``MIN_CTAS``; it stops growing once it reaches ``hw``.  A slice
-    over ``SLICE_TARGET`` leaves its SM no room for another CTA, so the CTA
-    takes ``WIDE_THREADS`` threads.  A slice over ``SLICE_MAX`` (a group of
-    over 1.8 MB, as the big model's ``out_norm``: 2 MiB) spills: its first
-    ``SLICE_MAX`` bytes stay in shared memory and the rest is read from
-    device memory again by the variance and the output passes.  Raises
+    The 16-byte path needs ``c / groups`` to be a multiple of one access's
+    elements and ``aligned`` pointers; other shapes take the scalar path.
+    The cluster is the smallest of 1, 2, 4, 8 whose per-CTA slice is at most
+    ``SLICE_TARGET`` bytes and whose grid reaches ``MIN_CTAS``; it stops
+    growing once it reaches ``hw``.  A slice over ``SLICE_TARGET`` leaves
+    its SM no room for another CTA, so the CTA takes ``WIDE_THREADS``
+    threads.  A slice over ``SLICE_MAX`` (a group of over 1.8 MB, as the big
+    model's fp32 ``out_norm``: 2 MiB; in bf16 it is 1 MiB and stays
+    resident) spills: its first ``SLICE_MAX`` bytes stay in shared memory
+    and the rest is read from device memory again by the variance and the
+    output passes.  Raises
     ``ValueError`` for a shape no path takes: a group wider than a CTA's
     threads, or a slice over ``SPILL_MAX`` bytes even in a cluster of 8,
     where most of it would be read three times (no model of the repository
@@ -80,12 +93,13 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> P
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     cg = c // groups
-    vec = 4 if aligned and cg % 4 == 0 else 1
+    wide = 16 // element_bytes
+    vec = wide if aligned and cg % wide == 0 else 1
     if cg // vec > THREADS:
         raise ValueError(f"a group of {cg} channels is wider than {THREADS} threads")
 
     def slice_bytes(cluster):
-        return -(-hw // cluster) * cg * 4
+        return -(-hw // cluster) * cg * element_bytes
 
     cluster = 1
     while (cluster < MAX_CLUSTER and cluster < hw
@@ -93,13 +107,13 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> P
         cluster *= 2
     if slice_bytes(cluster) > SPILL_MAX:
         raise ValueError(
-            f"a group of {hw} x {cg} floats needs {slice_bytes(cluster)} bytes "
+            f"a group of {hw} x {cg} elements needs {slice_bytes(cluster)} bytes "
             f"per CTA even in a cluster of {cluster}, over {SPILL_MAX}"
         )
     pixels = -(-hw // cluster)
-    resident = min(pixels, SLICE_MAX // (cg * 4))
+    resident = min(pixels, SLICE_MAX // (cg * element_bytes))
     threads = WIDE_THREADS if slice_bytes(cluster) > SLICE_TARGET else THREADS
-    return Plan(vec, cluster, threads, pixels, resident * cg * 4, resident)
+    return Plan(vec, cluster, threads, pixels, resident * cg * element_bytes, resident)
 
 
 def activation(y, act: str):
@@ -116,16 +130,29 @@ def activation(y, act: str):
 
 
 def groupnorm_act_plain(x, gamma, beta, num_groups: int = 8,
-                        eps: float = 1e-5, act: str = "relu", film=None):
-    """Two-pass fp32 GroupNorm + affine + act over NHWC, as the JAX XLA
-    path computes it (``models/blocks.py:322-330``); then, with
-    ``film=(scale, shift)``, :func:`film_plain`."""
+                        eps: float = 1e-5, act: str = "relu", film=None,
+                        act_after_rounding: bool = False):
+    """Two-pass fp32 GroupNorm + affine + act over NHWC ``x``, rounded to
+    ``x``'s dtype; then, with ``film=(scale, shift)``, :func:`film_plain` in
+    that dtype.
+
+    The statistics and the affine are fp32 whatever ``x``'s dtype, as both
+    JAX paths compute them.  By default the activation is fp32 too and the
+    result rounds once, as the Pallas kernel does
+    (``ops/pallas/groupnorm.py:52-57``) and kernel K2 does.
+    ``act_after_rounding`` takes the JAX XLA path's order instead
+    (``models/blocks.py:322-330``): round to ``x``'s dtype, then the
+    activation in it, the training forward's GroupNorm (JAX trains with
+    ``pallas_gn=False``).  For fp32, and for ReLU, the two agree."""
     b, h, w, c = x.shape
     xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    y = activation(y * gamma + beta, act).to(x.dtype)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * gamma + beta
+    if act_after_rounding:
+        y = activation(y.to(x.dtype), act)
+    else:
+        y = activation(y, act).to(x.dtype)
     return y if film is None else film_plain(y, *film)
 
 
@@ -133,11 +160,13 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
                         eps: float = 1e-5, act: str = "relu", film=None):
     """GroupNorm(num_groups) + ``gamma``/``beta`` + act of NHWC ``x``, then
     ``y * scale + shift`` when ``film=(scale, shift)`` is given, with rows
-    ``(N, C)`` or ``(1, C)`` (broadcast over the batch).
+    ``(N, C)`` or ``(1, C)`` (broadcast over the batch).  ``x``, ``out`` and
+    the rows are float32 or bfloat16 (one type); ``gamma``/``beta`` float32.
 
-    On CUDA tensors this launches the kernel, and raises where autograd
-    would record the call (:func:`_build.refuse_autograd`); on CPU tensors
-    it runs :func:`groupnorm_act_plain`.
+    On CUDA tensors this launches the kernel of ``x``'s dtype, and raises
+    for another dtype or where autograd would record the call
+    (:func:`_build.refuse_autograd`); on CPU tensors it runs
+    :func:`groupnorm_act_plain`.
     """
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -148,13 +177,17 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
+    if x.dtype not in ELEMENT_BYTES:
+        raise ValueError(f"fused_groupnorm_act: no kernel for {x.dtype}; "
+                         "float32 or bfloat16")
     tensors = {"x": x, "gamma": gamma, "beta": beta}
     if film is not None:
         tensors["scale"], tensors["shift"] = film
     for name, t in tensors.items():
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+        dtype = torch.float32 if name in ("gamma", "beta") else x.dtype
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"fused_groupnorm_act: {name} must be a contiguous float32 "
+                f"fused_groupnorm_act: {name} must be a contiguous {_build.type_name(dtype)} "
                 f"tensor on {x.device}"
             )
     if gamma.shape != (c,) or beta.shape != (c,):
@@ -164,14 +197,14 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     _build.refuse_autograd("fused_groupnorm_act", *tensors.values())
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
-    plan = launch_plan(b, h * w, c, num_groups, aligned)
+    plan = launch_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype])
     if out.numel() == 0:
         return out
     rows, strides = (None, None), (0, 0)
     if film is not None:  # a row stride of 0 broadcasts the one row
         rows = tuple(t.data_ptr() for t in film)
         strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
-    fn = _build.kernel("camels_groupnorm_act", _ARGTYPES)
+    fn = _build.kernel(C_NAMES[x.dtype], _ARGTYPES)
     err = fn(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
         out.data_ptr(), b, h * w, c, num_groups, *strides,
@@ -179,9 +212,13 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         plan.pixels_per_cta, plan.resident_pixels, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "camels_groupnorm_act")
-    fused_groupnorm_act.launches += 1
+    _build.check(err, C_NAMES[x.dtype])
+    if x.dtype == torch.bfloat16:
+        fused_groupnorm_act.launches_bf16 += 1
+    else:
+        fused_groupnorm_act.launches += 1
     return out
 
 
 fused_groupnorm_act.launches = 0
+fused_groupnorm_act.launches_bf16 = 0

@@ -10,6 +10,11 @@ reverse step of ``sample_ddpm`` and of ``sample_ddim``.  With ``tanh=True``
 (the deep and big variants, ``context_unet.py:315-316``) eps is the tanh of
 the conv, per branch before the guidance combine.
 :func:`launch_plan` chooses the kernel's geometry.
+
+Two instances by the features' dtype: float32, and bfloat16 for the bf16
+model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
+JAX program rounds it; ``x``, ``z`` and the step fp32), each with its own
+launch count (``fused_head_step.launches`` and ``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -29,11 +34,14 @@ MAX_THREADS = 384  # a CTA: at the kernel's most registers (164 a thread,
 #                    32-channel chunks) 384 threads fill an SM's 64K
 SMEM_MAX = 227 * 1024  # the dynamic shared memory a CTA may ask for
 ROWS = (4, 2, 1)  # band heights, tallest (least halo) first
-CHUNKS = (32, 16, 8, 4)  # channels per staged chunk, widest first; below
-#                          16 only when nothing wider divides C: narrower
-#                          chunks read slower at every path batch, even
-#                          with more CTAs resident
+CHUNKS = (32, 16, 8, 4)  # fp32 channels per staged chunk, widest first;
+#                          below 16 only when nothing wider divides C:
+#                          narrower chunks read slower at every path batch,
+#                          even with more CTAs resident.  A bf16 chunk
+#                          holds twice the channels in the same bytes.
 STAGES = (3, 2)  # depths of the ring of shared-memory stages
+ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
+C_NAMES = {torch.float32: "camels_head_step", torch.bfloat16: "camels_head_step_bf16"}
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -44,27 +52,38 @@ _ARGTYPES = (
 )
 
 
+def guided_eps(eps, guide_w, tanh: bool = False):
+    """The model's eps in its dtype: with ``tanh`` its tanh, then, when
+    ``guide_w`` (a float or a ``(B,)`` tensor) is given, the combine
+    ``eps_u + w * (eps_c - eps_u)`` of the stacked ``[cond; uncond]`` halves
+    with ``w`` cast to eps's dtype (``sampler.py:137-141``): in bf16 each
+    operation rounds."""
+    if tanh:
+        eps = torch.tanh(eps)
+    if guide_w is None:
+        return eps
+    eps_c, eps_u = eps.chunk(2)
+    if torch.is_tensor(guide_w):
+        w = guide_w.to(eps.dtype).reshape((-1,) + (1,) * (eps.dim() - 1))
+    else:  # a Python number stays on the host
+        w = torch.tensor(float(guide_w), dtype=torch.float32).to(eps.dtype).item()
+    return eps_u + w * (eps_c - eps_u)
+
+
 def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
                        tanh: bool = False):
     """The step in plain PyTorch, the counterpart of the JAX
     ``fused_p_sample_step`` / ``p_sample_step`` with the guidance combine.
 
     ``eps`` is ``(B, ...)``, or ``(2B, ...)`` stacked ``[cond; uncond]`` when
-    ``guide_w`` (a float or a ``(B,)`` tensor) is given; then the guided
-    ``eps_u + w * (eps_c - eps_u)`` is used (``sampler.py:137-141``).
+    ``guide_w`` (a float or a ``(B,)`` tensor) is given: :func:`guided_eps`
+    in eps's dtype, then cast to ``x``'s (``sampler.py:264-276``).
     ``tanh`` takes the tanh of ``eps`` first (the model's output layer).
     ``z`` may be None only when ``sigma`` is 0.
     """
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
-    if tanh:
-        eps = torch.tanh(eps)
-    if guide_w is not None:
-        eps_c, eps_u = eps.chunk(2)
-        w = guide_w
-        if torch.is_tensor(w):
-            w = w.reshape((-1,) + (1,) * (x.dim() - 1))
-        eps = eps_u + w * (eps_c - eps_u)
+    eps = guided_eps(eps, guide_w, tanh).to(x.dtype)
     out = (x - eps * c_eps) * inv_sqrt_a
     if z is not None:
         out = out + sigma * z
@@ -75,8 +94,11 @@ def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=Non
                     tanh: bool = False):
     """The kernel's function in plain PyTorch: eps = the 3x3 conv
     (``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)``, zero padding) of the
-    NHWC features ``h``, then :func:`sampler_step_plain`."""
-    eps = F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1).permute(0, 2, 3, 1)
+    NHWC features ``h``, then :func:`sampler_step_plain`.  In bf16 the conv
+    sums the exact products of its bf16 operands in fp32 and rounds once,
+    with the bias, to bf16, as the kernel does."""
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(),
+                   padding=1).to(h.dtype).permute(0, 2, 3, 1)
     return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
 
 
@@ -91,35 +113,41 @@ class Plan(NamedTuple):
     smem_bytes: int  # dynamic shared memory per CTA
 
 
-def staged_stride(ck: int) -> int:
-    """Floats between two staged pixels: an odd number of 16-byte slots,
+def staged_stride(ck: int, element_bytes: int = 4) -> int:
+    """Elements between two staged pixels: an odd number of 16-byte slots,
     so 8 threads on 8 pixels hit 8 bank groups."""
-    v = ck // 4
-    return 4 * (v + (1 if v % 2 == 0 else 2))
+    per_slot = 16 // element_bytes
+    v = ck // per_slot
+    return per_slot * (v + (1 if v % 2 == 0 else 2))
 
 
 def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
-                cfg: bool = True, aligned: bool = True, sms: int = SMS) -> Plan:
+                cfg: bool = True, aligned: bool = True, sms: int = SMS,
+                element_bytes: int = 4) -> Plan:
     """Geometry of :func:`fused_head_step` for ``units`` CTA units (sample
     pairs under ``cfg``, else samples) of ``height`` x ``width`` pixels of
-    ``c`` channels on a card of ``sms`` SMs.
+    ``c`` channels of ``element_bytes`` each (4 fp32, 2 bf16) on a card of
+    ``sms`` SMs.
 
     A CTA stages its band's ``rows + 2`` rows, two pixels a thread, in
-    chunks of ``ck`` channels.  The band is the tallest of ``ROWS`` within
+    chunks of ``ck`` channels (``CHUNKS``, or twice them in bf16: the same
+    bytes).  The band is the tallest of ``ROWS`` within
     ``MAX_THREADS`` threads whose grid still has ``MIN_CTAS`` CTAs (else
     the shortest; under CFG at width 128, one row).  The chunk is the one
-    of ``CHUNKS`` dividing ``c`` (16 channels or more where ``c`` allows)
+    dividing ``c`` (64 bytes or more where ``c`` allows)
     that lets the most of the CTAs an SM has to run be resident at once,
     the widest on a tie; the ring the deepest of ``STAGES`` that fits in
     shared memory.  Raises ``ValueError`` for a
-    shape no path takes: ``cout != 1``, ``c % 4 != 0``, a pointer off a
+    shape no path takes: ``cout != 1``, ``c`` not a multiple of one 16-byte
+    copy (4 fp32, 8 bf16), a pointer off a
     16-byte boundary (``aligned``), an odd ``width`` without CFG, or a band
     over ``MAX_THREADS`` threads or shared memory.
     """
     if cout != 1:
         raise ValueError(f"the head kernel computes one output channel, not {cout}")
-    if c <= 0 or c % 4:
-        raise ValueError(f"the head kernel needs channels % 4 == 0, got {c}")
+    per_copy = 16 // element_bytes
+    if c <= 0 or c % per_copy:
+        raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
     if not aligned:
         raise ValueError("the head kernel needs 16-byte aligned features")
     if not cfg and width % 2:
@@ -131,11 +159,12 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     rows = next((r for r in fits if units * -(-height // r) >= MIN_CTAS), fits[-1])
     threads = band_threads(rows)
     ctas = units * -(-height // rows)
-    widths = [ck for ck in CHUNKS if c % ck == 0]
+    widths = [ck * 4 // element_bytes for ck in CHUNKS if c % (ck * 4 // element_bytes) == 0]
     best, best_resident = None, 0
-    for ck in [ck for ck in widths if ck >= 16] or widths[:1]:
+    for ck in [ck for ck in widths if ck * element_bytes >= 64] or widths[:1]:
         for stages in STAGES:
-            smem = 4 * (9 * c + stages * 2 * threads * staged_stride(ck))
+            smem = 4 * 9 * c + element_bytes * stages * 2 * threads * staged_stride(
+                ck, element_bytes)
             if smem <= SMEM_MAX:
                 resident = min(SM_SMEM // (smem + 1024), -(-ctas // sms))
                 if resident > best_resident:
@@ -152,12 +181,15 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     of the 3x3 conv ``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)`` over the
     NHWC features ``h`` (its tanh per branch with ``tanh=True``):
     ``(B, H, W, C)``, or ``(2B, H, W, C)`` stacked ``[cond; uncond]`` when
-    ``guide_w`` (a float or a ``(B,)`` tensor) is given.  ``x`` and ``z``
-    are ``(B, H, W, 1)``; ``z`` may be None only when ``sigma`` is 0.
+    ``guide_w`` (a float or a ``(B,)`` tensor) is given.  ``h``, ``weight``
+    and ``bias`` are float32, or all bfloat16 (the bf16 model); ``x``,
+    ``z`` ``(B, H, W, 1)`` and a per-sample ``guide_w`` float32; ``z`` may
+    be None only when ``sigma`` is 0.
 
-    On CUDA tensors this launches the kernel, and raises where autograd
-    would record the call (:func:`_build.refuse_autograd`); on CPU tensors
-    it runs :func:`head_step_plain`.
+    On CUDA tensors this launches the kernel of ``h``'s dtype, and raises
+    for another dtype or where autograd would record the call
+    (:func:`_build.refuse_autograd`); on CPU tensors it runs
+    :func:`head_step_plain`.
     """
     if z is None and sigma != 0.0:
         raise ValueError("z may be omitted only when sigma == 0")
@@ -186,14 +218,17 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         tensors["guide_w"] = w_vec
         if tuple(w_vec.shape) != (b,):
             raise ValueError(f"per-sample guide_w must be ({b},), got {tuple(w_vec.shape)}")
+    if h.dtype not in ELEMENT_BYTES:
+        raise ValueError(f"fused_head_step: no kernel for {h.dtype}; float32 or bfloat16")
     for name, t in tensors.items():
-        if t.device != h.device or t.dtype != torch.float32 or not t.is_contiguous():
+        dtype = h.dtype if name in ("h", "bias", "weight") else torch.float32
+        if t.device != h.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"fused_head_step: {name} must be a contiguous float32 "
+                f"fused_head_step: {name} must be a contiguous {_build.type_name(dtype)} "
                 f"tensor on {h.device}"
             )
     if h.numel() >= 2**31:  # the kernel's offsets into h are 32-bit
-        raise ValueError(f"h of {h.numel()} floats is too large for the head kernel")
+        raise ValueError(f"h of {h.numel()} elements is too large for the head kernel")
     if nd != (2 * b if cfg else b):
         raise ValueError(f"h must hold {2 * b if cfg else b} samples, got {nd}")
     if tuple(x.shape) != (b, height, width, 1) or bias.shape != (1,):
@@ -204,11 +239,12 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
     plan = launch_plan(b, height, width, c, weight.shape[0], cfg,
                        h.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0,
-                       torch.cuda.get_device_properties(h.device).multi_processor_count)
+                       torch.cuda.get_device_properties(h.device).multi_processor_count,
+                       ELEMENT_BYTES[h.dtype])
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    fn = _build.kernel("camels_head_step", _ARGTYPES)
+    fn = _build.kernel(C_NAMES[h.dtype], _ARGTYPES)
     err = fn(
         h.data_ptr(), wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
         z.data_ptr() if z is not None else None,
@@ -219,9 +255,13 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
-    _build.check(err, "camels_head_step")
-    fused_head_step.launches += 1
+    _build.check(err, C_NAMES[h.dtype])
+    if h.dtype == torch.bfloat16:
+        fused_head_step.launches_bf16 += 1
+    else:
+        fused_head_step.launches += 1
     return out
 
 
 fused_head_step.launches = 0
+fused_head_step.launches_bf16 = 0

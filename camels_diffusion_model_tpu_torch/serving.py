@@ -26,6 +26,7 @@ from . import resolve_device
 from .data.pipeline import normalize_params, train_test_split
 from .data.synthetic import synthetic_params
 from .diffusion.calibration import load_calibration_meta
+from .models.blocks import Conv2d, ConvTranspose2d, Linear
 from .models.context_unet import VARIANTS, ContextUnet
 from .models.fold_bn import fold_batchnorm_variables
 from .training.checkpoints import md5
@@ -150,12 +151,19 @@ def certification_contexts(n: int, param_sets: int = 1000) -> np.ndarray:
     return np.tile(test_c, (n // test_c.shape[0] + 1, 1))[:n]
 
 
-def load_model(variables: dict, device=None, fold_bn: bool = True) -> ContextUnet:
+def load_model(variables: dict, device=None, fold_bn: bool = True,
+               dtype: torch.dtype = torch.float32) -> ContextUnet:
     """A ContextUnet holding flax ``variables`` (numpy tree from
     ``load_variables``; widths and variant read from it: a ``down3`` makes
     it three-level, deep or, with ``out_conv_extra``, big), BatchNorms
-    folded by default, in eval mode on ``device`` with channels_last
-    weights."""
+    folded by default, computing in ``dtype`` (float32 or bfloat16: the JAX
+    package's ``ContextUnet(dtype=...)`` plus ``fold_inference``), in eval
+    mode on ``device`` with channels_last weights.
+
+    The BatchNorms fold in fp32 (``models/fold_bn.py``).  A folded bf16
+    model keeps its conv and dense weights as bf16 copies, the cast each
+    use would make; its GroupNorm parameters stay fp32, as kernel K2 takes
+    them.  An unfolded one keeps every parameter and statistic fp32."""
     device = resolve_device(device)
     if fold_bn:
         variables = fold_batchnorm_variables(variables)
@@ -167,8 +175,12 @@ def load_model(variables: dict, device=None, fold_bn: bool = True) -> ContextUne
         n_feat=p["init_conv"]["conv1"]["conv"]["kernel"].shape[3],
         n_cfeat=p["contextembed1"]["fc1"]["kernel"].shape[0],
         height=p["up0_conv"]["kernel"].shape[0] * 2 ** variant["levels"],
-        fold_bn=fold_bn, **variant,
+        fold_bn=fold_bn, dtype=dtype, **variant,
     )
     model.load_state_dict(from_jax_variables(variables))
     model.requires_grad_(False)
+    if fold_bn and dtype != torch.float32:
+        for m in model.modules():
+            if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+                m.to(dtype)
     return model.eval().to(device=device, memory_format=torch.channels_last)

@@ -15,8 +15,12 @@ Noise: JAX draws ``t`` and the noise of each step from ``split(rng, 3)`` of
 the step's key.  Here a step draws ``t`` first, then the noise, from a
 generator seeded by ``(run seed, 0, step)`` (:func:`seeded_generator`), so a
 run resumed at step ``n`` draws what the unbroken run drew; the tests inject
-JAX's draws through ``t=`` and ``noise=``.  The steps run in fp32 with TF32
-off (:func:`fp32_math`).
+JAX's draws through ``t=`` and ``noise=``.  The steps run inside
+:func:`fp32_math` (TF32 off).  A bf16 model (``ContextUnet(dtype=
+torch.bfloat16)``) computes its forward in bf16 on fp32 parameters: its eps
+is bf16, the loss against the fp32 noise promotes to fp32, autograd carries
+the gradient through the layers' casts to the fp32 parameters, and Adam
+updates those (fp32 masters, fp32 moments), as the JAX step does.
 """
 
 from __future__ import annotations

@@ -55,7 +55,18 @@ Phases, each timed on its own line:
   (n) ``run_experiment`` of ``initial`` (deep) and ``main`` (big) at full
       width and of ``paper`` (the parameter grid, guidance sweep and
       sensitivity with their post metrics) on the synthetic data, cut to
-      ``RUN_T`` timesteps, one epoch and ``RUN_MAPS`` maps.
+      ``RUN_T`` timesteps, one epoch and ``RUN_MAPS`` maps;
+  (o) the bf16 compute path at full width, the committed checkpoint folded
+      in bf16 (``load_model(..., dtype=torch.bfloat16)``): the forward
+      against the JAX bf16 golden; both certified rows served in bf16 at 16
+      maps (``serve(..., dtype=...)``) on the same noise as (e)'s fp32 maps,
+      with maps/min, the largest map difference and each row's P(k)
+      deviation beside fp32's; four strided steps and the battery's ELBO of
+      2 maps on the card against the CPU; a bf16 train step at batch 32
+      against the CPU with its time, idle share and peak memory; and
+      ``run_experiment("nov26", dtype="bfloat16")`` with its resume.  bf16
+      gates are yardsticks: the card's bf16 within ``BF16_FACTOR`` x the
+      distance of the reference's bf16 from its fp32.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
@@ -66,7 +77,9 @@ just after, and must show its expected counts: a sampler path
 which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
 a forward and one conv to one channel each (the JAX package runs
 ``out_conv2`` as an XLA conv there too); a training forward no launch and
-one such conv.  The whole run is fp32 with TF32 off.
+one such conv.  Each kernel has an fp32 and a bf16 instance with launch
+counts of their own: an fp32 path launches no bf16 instance and a bf16
+path (phase o) no fp32 one.  TF32 is off throughout.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -117,6 +130,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
 from camels_diffusion_model_tpu_torch.ops.groupnorm import launch_plan as groupnorm_launch_plan
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
+    guided_eps,
     head_step_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
@@ -126,6 +140,7 @@ from camels_diffusion_model_tpu_torch.serving import (
     load_model,
     resolve_serving_config,
 )
+from camels_diffusion_model_tpu_torch.models.blocks import Conv2d
 from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
 from camels_diffusion_model_tpu_torch.training import trainer
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
@@ -134,10 +149,12 @@ from camels_diffusion_model_tpu_torch.utils.weights import from_jax_variables
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
+GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
 REFS = os.path.join(REPO, "artifacts", "certification", "n16k")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
 FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MB L2 (see time_ms)
 BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 
@@ -145,18 +162,43 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
 # sums its statistics in another order and uses rsqrtf; K1 sums the 1152
 # terms of its conv in another order than cuDNN.
-TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5}
+TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
+       # The bf16 instances round where their plain versions round, from
+       # fp32 sums taken in another order: an output may land on the
+       # neighbouring bf16 value.  In bf16 ulps: K2's output, 2 (the FiLM
+       # epilogue's two roundings may carry one on); K1's eps, 4 (the CFG
+       # combine's three roundings), times the step's c_eps / sqrt(a); K3
+       # computes its plain version's two roundings from the same fp32
+       # operations: exact.  And all but BF16_SHARE of the elements within
+       # fp32 rounding (K1: its fp32 step's FMAs, 1e-5).
+       "head_step_bf16": 4, "groupnorm_act_bf16": 2, "film_bf16": 0}
+BF16_SHARE = 1e-2
+# Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
+# reference's (JAX's golden, the CPU's) bf16 distance from its fp32 on the
+# same inputs, as tests/test_torch_port_bf16.py holds the port to JAX.
+BF16_FACTOR = 2.0
 # Full-width forward on the card vs the JAX CPU golden, and four strided
 # steps on the card vs the same sampler on the CPU: cuDNN's fp32
 # convolution algorithms reorder the sums of some twenty convs (observed
 # about 3e-6 and 5e-7 on an H100 with TF32 off).
 GOLDEN_TOL = 1e-4
 
+# Each kernel instance: its wrapper and the wrapper's launch count for it.
 WRAPPERS = {
-    "head_step": fused_head_step,
-    "groupnorm_act": fused_groupnorm_act,
-    "film": fused_film,
+    "head_step": (fused_head_step, "launches"),
+    "groupnorm_act": (fused_groupnorm_act, "launches"),
+    "film": (fused_film, "launches"),
+    "head_step_bf16": (fused_head_step, "launches_bf16"),
+    "groupnorm_act_bf16": (fused_groupnorm_act, "launches_bf16"),
+    "film_bf16": (fused_film, "launches_bf16"),
 }
+
+
+def instance(name: str, dtype: str) -> str:
+    """The instance of kernel ``name`` ("head_step", ...) a ``dtype`` path
+    launches."""
+    return name if dtype == "float32" else f"{name}_bf16"
+
 # library_ms: one PyTorch call timed beside each kernel as its yardstick;
 # the port never calls it.  No single call adds K2's activation (or its FiLM
 # epilogue), which move no bytes, so F.group_norm stands in for it; for K1
@@ -168,6 +210,7 @@ LIBRARY = {
                      "GroupNorm + affine without the activation or FiLM",
     "film": "torch.addcmul",
 }
+LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -234,7 +277,7 @@ VARIANT_TIMED = {"deep": (5, 3), "big": (3, 2)}  # timed and profiled train step
 # card's time: RUN_T timesteps (the reference runs 1500; a conditional run
 # samples with up to five chains of them), RUN_EPOCHS epoch(s), at most
 # RUN_MAPS synthetic maps; widths and the batch of 32 as configured.
-RUN_T, RUN_EPOCHS = 50, 1
+RUN_T, RUN_EPOCHS = 20, 1
 RUN_MAPS = {"initial": 90, "main": 90, "paper": 240}
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
@@ -244,6 +287,7 @@ SOURCES = {
     "film": ("camels_diffusion_model_tpu_torch/csrc/film.cu",
              "camels_diffusion_model_tpu/ops/pallas/film.py:29"),
 }
+SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # one template each
 
 
 def phase(name: str, t0: float) -> None:
@@ -410,18 +454,29 @@ def check_kernels(dev, model) -> dict:
             args, nbytes(*args, args[0]), args[0].numel() * 2, summed,
         ))
 
+    cases += bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma)
     out = {}
     for name, label, kern, plain, lib, args, nb, flops, summed in cases:
-        err = (kern(*args) - plain(*args)).abs().max().item()
+        got, want = kern(*args), plain(*args)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        tol, fp32_rounding = tolerance(name, args, want)
+        share = (diff > fp32_rounding).float().mean().item()
         torch.cuda.synchronize()
-        if not err <= TOL[name]:
-            raise SystemExit(f"{name} {label}: max abs err {err} > {TOL[name]}")
+        if not err <= tol:
+            raise SystemExit(f"{name} {label}: max abs err {err} > {tol}")
+        if name.endswith("_bf16") and not share <= BF16_SHARE:
+            raise SystemExit(f"{name} {label}: {share:.4f} of the elements differ by more "
+                             f"than {fp32_rounding}, over {BF16_SHARE}")
         ms, plain_ms = time_ms(kern, args), time_ms(plain, args)
         lib_ms = time_ms(lib, args) if lib is not None else None
-        bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
-        bound_ms = max(nb / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        moved = nb + (spilled_bytes(args[0], args[3]) if name == "groupnorm_act" else 0)
-        print(f"  {name} {label}: max_abs_err {err:.3e} (tol {TOL[name]:g}) "
+        peak = BF16_FLOPS if name.endswith("_bf16") else FP32_FLOPS
+        bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
+        bound_ms = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
+        moved = nb + (spilled_bytes(args[0], args[3]) if name.startswith("groupnorm") else 0)
+        print(f"  {name} {label}: max_abs_err {err:.3e} (tol {tol:g}"
+              + (f"; {share:.4f} differ beyond {fp32_rounding:g}" if name.endswith("_bf16")
+                 else "") + ") "
               f"ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
               f"({LIBRARY[name]}) bound_ms {bound_ms:.6f} ({bound_by}, {nb} bytes) "
               f"share of bound {bound_ms / ms:.3f}"
@@ -445,9 +500,97 @@ def check_kernels(dev, model) -> dict:
     return out
 
 
-def check_golden(dev, model) -> None:
-    """Phase (d): the folded serving model at full width vs the JAX eps."""
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(v, 2.0**-126))) - 7)
+
+
+def tolerance(name: str, args, want) -> tuple:
+    """``(max abs tolerance, fp32 rounding)`` of a kernel case against its
+    plain version's output ``want`` (``TOL``)."""
+    if not name.endswith("_bf16"):
+        return TOL[name], 0.0
+    if name == "head_step_bf16":
+        h, weight, bias, _, _, c_eps, inv_sqrt_a, _, w, tanh = args
+        eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+        eps = guided_eps(eps.bfloat16(), w, tanh).float()
+        return (TOL[name] * abs(c_eps * inv_sqrt_a) * bf16_ulp(eps.abs().max().item()),
+                1e-5)
+    return TOL[name] * bf16_ulp(want.float().abs().max().item()), 0.0
+
+
+def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
+    """Phase (c)'s cases of the bf16 instances: the canonical w=2 serving
+    shapes (summed: one reverse step of the bf16 model) and w=0, and the
+    deep and big models' shapes at 10 maps; weights and norm parameters of
+    the serving model, features and rows in bf16."""
+    bf = torch.bfloat16
+    cases = []
+    head = (model.out_conv2.weight.detach().to(bf), model.out_conv2.bias.detach().to(bf))
+    for label, b, hw, c, cfg, tanh, summed in (
+            ("cfg w=2 (serve w=2)", BATCH, 64, model.n_feat, True, False, True),
+            ("no cfg (serve w=0)", BATCH, 64, model.n_feat, False, False, False),
+            ("deep, tanh (initial)", VARIANT_BATCH, 128, 128, False, True, False),
+            ("big, tanh (main)", VARIANT_BATCH, 128, 256, False, True, False)):
+        x, z = randn(b, hw, hw, 1), randn(b, hw, hw, 1)
+        h = randn(2 * b if cfg else b, hw, hw, c).relu().to(bf)
+        weight, bias = head if c == model.n_feat else (
+            randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(bf), randn(1).to(bf))
+        args = (h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, 2.0 if cfg else None, tanh)
+        cases.append((
+            "head_step_bf16", f"{label} h{tuple(h.shape)} bf16, x{tuple(x.shape)} fp32",
+            fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                 padding=1),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5), summed))
+    n = 2 * BATCH
+    for label, batch, hw, c, act, film, norm, summed in (
+            ("up0_norm + FiLM epilogue (serve w=2)", n, 16, 256, "relu", True,
+             model.up0_norm, True),
+            ("out_norm (serve w=2)", n, 64, 128, "relu", False, model.out_norm, True),
+            ("deep up0_norm + FiLM", VARIANT_BATCH, 16, 512, "leaky_relu", True, None, False),
+            ("big up0_norm + FiLM", VARIANT_BATCH, 16, 1024, "gelu", True, None, False),
+            ("deep out_norm", VARIANT_BATCH, 128, 128, "leaky_relu", False, None, False),
+            ("big out_norm (resident in bf16)", VARIANT_BATCH, 128, 256, "gelu", False,
+             None, False)):
+        gamma, beta = ((norm.weight.detach(), norm.bias.detach()) if norm is not None
+                       else (randn(c), randn(c)))
+        xg = randn(batch, hw, hw, c).to(bf)
+        rows_film = (randn(batch, c).to(bf), randn(1, c).to(bf)) if film else None
+        args = (xg, gamma, beta, 8, 1e-5, act, rows_film)
+        cases.append((
+            "groupnorm_act_bf16", f"{label} {tuple(xg.shape)}",
+            fused_groupnorm_act, groupnorm_act_plain,
+            lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
+                                                    beta.to(x.dtype), 1e-5),
+            args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed))
+    for label, batch, shape, summed in (("stage 0", n, (16, 16, 256), True),
+                                        ("stage 1 (serve w=2)", n, (32, 32, 128), True),
+                                        ("deep stage 1", VARIANT_BATCH, (32, 32, 256), False),
+                                        ("big stage 1", VARIANT_BATCH, (32, 32, 512), False)):
+        args = (randn(batch, *shape).to(bf), randn(batch, shape[-1]).to(bf),
+                randn(1, shape[-1]).to(bf))
+        cases.append((
+            "film_bf16", f"{label} {tuple(args[0].shape)}", fused_film, film_plain,
+            lambda x, scale, shift: torch.addcmul(
+                shift[:, None, None, :], x, scale[:, None, None, :]),
+            args, nbytes(*args, args[0]), args[0].numel() * 2, summed))
+    return cases
+
+
+def check_golden(dev, model, bf16: bool = False) -> None:
+    """Phase (d): the folded serving model at full width vs the JAX eps.
+    Phase (o), ``bf16``: the model folded in bf16 vs JAX's folded bf16
+    (``GOLDEN_BF16``), within ``BF16_FACTOR`` x that file's yardstick, its
+    bf16 eps's distance from its fp32 eps."""
     d = np.load(GOLDEN)
+    want, tols = {k: d[k] for k in ("eps", "eps_uncond")}, {}
+    if bf16:
+        g = np.load(GOLDEN_BF16)
+        for k in ("eps", "eps_uncond"):
+            want[k] = g[f"{k}_bf16"]
+            tols[k] = BF16_FACTOR * float(np.abs(g[f"{k}_bf16"] - g[f"{k}_fp32"]).max())
+        tols["cfg pair"] = max(tols.values())
     x, t, c = (torch.tensor(d[k], device=dev) for k in ("x", "t", "c"))
     with torch.inference_mode():
         eps = model(x, t, c)
@@ -457,25 +600,31 @@ def check_golden(dev, model) -> None:
         cemb1, cemb2 = model.context_embed(torch.cat([c, torch.zeros_like(c)]))
         temb1, temb2 = model.time_embed(torch.cat([t, t]))
         eps2 = model.decode(enc, film=(cemb1, temb1, cemb2, temb2))
+    if (eps.dtype == torch.bfloat16) != bf16:
+        raise SystemExit(f"golden forward: eps is {eps.dtype}")
     errs = {
-        "eps": (eps.cpu().numpy() - d["eps"]),
-        "eps_uncond": (eps_u.cpu().numpy() - d["eps_uncond"]),
-        "cfg pair": (eps2.cpu().numpy() - np.concatenate([d["eps"], d["eps_uncond"]])),
+        "eps": (eps.float().cpu().numpy() - want["eps"]),
+        "eps_uncond": (eps_u.float().cpu().numpy() - want["eps_uncond"]),
+        "cfg pair": (eps2.float().cpu().numpy()
+                     - np.concatenate([want["eps"], want["eps_uncond"]])),
     }
     for label, e in errs.items():
-        err = float(np.abs(e).max())
-        print(f"  golden {label}: max abs err {err:.3e} (tol {GOLDEN_TOL:g})")
-        if not err <= GOLDEN_TOL:
-            raise SystemExit(f"golden forward {label}: {err} > {GOLDEN_TOL}")
+        err, tol = float(np.abs(e).max()), tols.get(label, GOLDEN_TOL)
+        print(f"  golden{' bf16' if bf16 else ''} {label}: max abs err {err:.3e} (tol {tol:g}"
+              + (f" = {BF16_FACTOR:g} x JAX's bf16 vs fp32" if bf16 else "") + ")")
+        if not err <= tol:
+            raise SystemExit(f"golden forward {label}: {err} > {tol}")
 
 
 def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str, size: int = 64,
                          guide_w: float = 2.0) -> None:
     """The steps ``taus`` (the last ones of a row) of the sampler at
     ``guide_w`` at full width on the card (the kernels) vs the CPU (their
-    plain versions), same x_init, params and z; ``models`` = (card, CPU).
-    Wide jumps would amplify the fp32 differences of the convs by
-    1/sqrt(a_jump) per step."""
+    plain versions), same x_init, params and z; ``models`` = (card, CPU),
+    or (card, CPU, CPU fp32) for bf16 models: then the gate is
+    ``BF16_FACTOR`` x the CPU's bf16 distance from its fp32.  Wide jumps
+    would amplify the fp32 differences of the convs by 1/sqrt(a_jump) per
+    step."""
     rs = np.random.RandomState(0)
     x0 = rs.randn(2, size, size, 1).astype(np.float32)
     params = rs.rand(2, models[1].n_cfeat).astype(np.float32)
@@ -488,10 +637,14 @@ def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str, size: int = 
             sigma_mode=sigma_mode, device=on(model), z_fn=lambda k, t: zs[k],
         ).cpu())
     err = (outs[0] - outs[1]).abs().max().item()
+    tol, what = GOLDEN_TOL, ""
+    if len(models) == 3:
+        yard = (outs[1] - outs[2]).abs().max().item()
+        tol, what = BF16_FACTOR * yard, f" = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 {yard:.3e}"
     print(f"  {label}, last {len(taus)} steps {[int(t) for t in taus]}, card vs CPU: max abs "
-          f"err {err:.3e} (tol {GOLDEN_TOL:g})", flush=True)
-    if not err <= GOLDEN_TOL:
-        raise SystemExit(f"{label} on the card vs the CPU: {err} > {GOLDEN_TOL}")
+          f"err {err:.3e} (tol {tol:g}{what})", flush=True)
+    if not err <= tol:
+        raise SystemExit(f"{label} on the card vs the CPU: {err} > {tol}")
 
 
 def check_likelihood_vs_cpu(models, fn, x, c, n_noise: int, label: str,
@@ -499,16 +652,22 @@ def check_likelihood_vs_cpu(models, fn, x, c, n_noise: int, label: str,
     """``fn(model, x, c, noise_fn)`` -> ``(B,)`` on the card and the CPU
     (``models``) with the same ``n_noise`` noise tensors: whether they agree
     within ``LIKELIHOOD_REL`` of the largest value (if not, and ``fail``,
-    the run fails)."""
+    the run fails).  With a third model (the CPU's fp32, for bf16 models)
+    the tolerance is ``BF16_FACTOR`` x the CPU's bf16 distance from it."""
     rs = np.random.RandomState(1)
     noise = [rs.randn(*x.shape).astype(np.float32) for _ in range(n_noise)]
     outs = [fn(m, x, c, lambda bi, k, t, shape: noise[k]).double().cpu() for m in models]
     rel = ((outs[0] - outs[1]).abs().max() / outs[1].abs().max()).item()
+    tol, what = LIKELIHOOD_REL, ""
+    if len(models) == 3:
+        yard = ((outs[1] - outs[2]).abs().max() / outs[1].abs().max()).item()
+        tol = BF16_FACTOR * yard
+        what = f" = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 {yard:.3e}; fp32 {outs[2].tolist()}"
     print(f"  {label}: card {outs[0].tolist()} CPU {outs[1].tolist()}: rel err "
-          f"{rel:.3e} (tol {LIKELIHOOD_REL:g})")
-    if fail and not rel <= LIKELIHOOD_REL:
-        raise SystemExit(f"{label} on the card vs the CPU: rel {rel} > {LIKELIHOOD_REL}")
-    return rel <= LIKELIHOOD_REL
+          f"{rel:.3e} (tol {tol:g}{what})")
+    if fail and not rel <= tol:
+        raise SystemExit(f"{label} on the card vs the CPU: rel {rel} > {tol}")
+    return rel <= tol
 
 
 def on(model) -> torch.device:
@@ -550,9 +709,10 @@ def train_batch(seed: int = 0):
     return x, c, mask, torch.tensor(t), torch.tensor(noise)
 
 
-def training_model(variables, device) -> ContextUnet:
-    """The unfolded full-width model holding ``variables``, for training."""
-    model = ContextUnet()
+def training_model(variables, device, dtype=torch.float32) -> ContextUnet:
+    """The unfolded full-width model holding ``variables``, for training,
+    computing in ``dtype`` (its parameters fp32)."""
+    model = ContextUnet(dtype=dtype)
     model.load_state_dict(from_jax_variables(variables))
     return model.to(device=device, memory_format=torch.channels_last)
 
@@ -620,14 +780,16 @@ def witness_grads(make, dev, x, c, mask, t, noise, scaling, dtype, cudnn) -> dic
 
 
 def check_train_step(make, dev, batch, scaling="reference", label="",
-                     pin_kinks: bool = False) -> None:
+                     pin_kinks: bool = False) -> dict:
     """Phases (l) and (m): one train step of the model ``make(device)``
     gives on the card and on the CPU, same ``batch`` (x, c, mask, t,
     noise), with the witness of the same step on the card in float64 and in
     fp32 without cuDNN for the leaves beyond ``TRAIN_REL``; then the guard:
     the card's model refuses a grad-enabled forward through the kernels.
     ``pin_kinks`` (phase (m)): every fp32 step takes its kinks on the
-    sides the float64 step took (:func:`kink_sides`)."""
+    sides the float64 step took (:func:`kink_sides`).  Returns the CPU
+    step's loss, per-sample MSE, gradients and running statistics, the
+    fp32 reference of phase (o)'s bf16 step."""
     x, c, mask, t, noise = batch
     sides = []
 
@@ -644,6 +806,7 @@ def check_train_step(make, dev, batch, scaling="reference", label="",
             m = trainer.make_train_step(model, TIMESTEPS, scaling)(state, x, c, mask, t=t,
                                                                    noise=noise)
         losses.append(float(m["loss"]))
+        cpu_per_sample = m["per_sample_mse"].double().cpu()
         models.append(model)
         del state
     with kinks(replay=True) as flips["no cuDNN"]:
@@ -722,6 +885,9 @@ def check_train_step(make, dev, batch, scaling="reference", label="",
         print(f"  guard: a grad-enabled forward through the kernels raised: {e}")
     else:
         raise SystemExit("a grad-enabled forward through the kernels did not raise")
+    return {"loss": losses[1], "per_sample": cpu_per_sample, "grads": grads[1],
+            "stats": {n: b.double() for n, b in models[1].named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
 
 
 def fixed_objective(dev):
@@ -786,8 +952,8 @@ def time_train_steps(dev, state, step, batch, timed=TIMED_STEPS, profiled=5) -> 
             "top": [(e.key, device_us(e) / profiled / 1e3) for e in top]}
 
 
-def print_train_time(label: str, tr: dict) -> None:
-    print(f"  {label}train step, batch {TRAIN_BATCH}, fp32 with TF32 off: {tr['ms']:.3f} ms "
+def print_train_time(label: str, tr: dict, precision: str = "fp32 with TF32 off") -> None:
+    print(f"  {label}train step, batch {TRAIN_BATCH}, {precision}: {tr['ms']:.3f} ms "
           f"({tr['steps_per_s']:.2f} steps/s); peak device memory "
           f"{tr['peak_bytes'] / 2**30:.3f} GiB; under the profiler {tr['profiled_ms']:.3f} "
           f"ms a step, device busy {tr['busy_ms']:.3f} ms (idle share "
@@ -802,9 +968,9 @@ def spilled_bytes(x, groups: int) -> int:
     CTA's slice past its resident ones, by the variance and the output
     passes."""
     n, h, w, c = x.shape
-    plan = groupnorm_launch_plan(n, h * w, c, groups)
+    plan = groupnorm_launch_plan(n, h * w, c, groups, element_bytes=x.element_size())
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
-        c // groups) * 4
+        c // groups) * x.element_size()
 
 
 def variant_model(name: str) -> ContextUnet:
@@ -991,6 +1157,226 @@ def check_runs(dev, drive) -> None:
                   f"{[(m['guidance'], round(m['nll'], 3)) for m in res['guidance_metrics']]}")
 
 
+def check_nov26(dev, drive, dtype: str) -> None:
+    """Phases (l2) and (o): ``run_experiment("nov26", 1e-4, 2 epochs, T
+    1500)`` in ``dtype`` on the synthetic data (its reconstruction the
+    exact chain on 4 maps; no stage follows it), then a run resumed from its
+    epoch-1 train checkpoint against its epoch-2 state (cuDNN's
+    deterministic algorithms for both), each driven with its launch
+    counts."""
+    snapshots = os.path.join(OUT_DIR, f"train_state_by_epoch_{dtype}")
+    os.makedirs(snapshots, exist_ok=True)
+    save = experiment.save_train_checkpoint
+
+    def save_and_keep(state, epoch, path):
+        save(state, epoch, path)
+        shutil.copy(path, os.path.join(snapshots, f"epoch_{epoch}.msgpack"))
+
+    experiment.save_train_checkpoint = save_and_keep
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the resumed run must retrace the first
+    try:
+        runs = {}
+        for name, resume, epochs in (("exp_a", False, 2), ("exp_b", True, 1)):
+            name += "" if dtype == "float32" else "_bf16"
+            cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=2,
+                                   timesteps=TIMESTEPS, n_eval_images=4,
+                                   ckpt_every=1, resume=resume, dtype=dtype,
+                                   output_root=os.path.join(OUT_DIR, name))
+            shutil.rmtree(cfg.output_root, ignore_errors=True)
+            if resume:  # the epoch-1 train checkpoint of the unbroken run
+                os.makedirs(os.path.join(cfg.output_dir(), "weights"))
+                shutil.copy(os.path.join(snapshots, "epoch_1.msgpack"),
+                            os.path.join(cfg.output_dir(), "weights", "train_state.msgpack"))
+            t1 = time.perf_counter()
+            res = drive(f"run_experiment{'_resume' if resume else ''}"
+                        + ("" if dtype == "float32" else "_bf16"),
+                        lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
+                        steps=TIMESTEPS * sampler_calls(cfg), train_forwards=14 * epochs,
+                        dtype=dtype)
+            runs[name] = res
+            logs = res["loss_log"]
+            print(f"  run_experiment {name}: {res['data_source']} data, {res['n_train']} train "
+                  f"maps, epochs {res['epoch_times']} s, losses {logs}, reconstructed mean "
+                  f"{res['means']['reconstructed']:.6f}, in {time.perf_counter() - t1:.3f} s")
+            if not (np.isfinite(logs).all() and np.isfinite(res["means"]["reconstructed"])):
+                raise SystemExit(f"run_experiment {name}: losses {logs}, means {res['means']}")
+    finally:
+        experiment.save_train_checkpoint = save
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    out_a, out_b = (runs[k + ("" if dtype == "float32" else "_bf16")]["output_dir"]
+                    for k in ("exp_a", "exp_b"))
+    check_artifacts(out_a, ("weights/model_epoch_0.msgpack", "weights/model_epoch_1.msgpack",
+                            "weights/train_state.msgpack", "output.log"), "nov26")
+    diff = compare_train_states(os.path.join(out_a, "weights", "train_state.msgpack"),
+                                os.path.join(out_b, "weights", "train_state.msgpack"))
+    print(f"  resumed from the epoch-1 train checkpoint vs the unbroken run at epoch 2: "
+          f"params, batch_stats and Adam moments max abs {diff:.3e} (tol {RESUME_TOL:g})")
+    if not diff <= RESUME_TOL:
+        raise SystemExit(f"resumed run vs the unbroken run: {diff} > {RESUME_TOL}")
+
+
+def check_train_step_bf16(variables, dev, batch, ref: dict) -> None:
+    """Phase (o): one train step of the unfolded full-width model computing
+    in bf16 (fp32 parameters) from the committed checkpoint, phase (l)'s
+    batch, on the card and on the CPU; gated by the CPU's bf16 distance from
+    its fp32 step ``ref`` (phase (l)'s CPU step): the per-sample MSE and the
+    loss by the largest sample's, the gradients in L2 together and each
+    leaf (its yardstick no less than the whole gradient's relative one
+    applied to it, as ``tests/test_torch_port_bf16.py`` holds them), and
+    the running statistics in L2 together; then its time, idle share and
+    peak memory at batch 32."""
+    x, c, mask, t, noise = batch
+    out = {}
+    for name, device in (("card", dev), ("CPU", torch.device("cpu"))):
+        model = training_model(variables, device, torch.bfloat16)
+        state = trainer.create_train_state(model, 1e-4, 2, 14)
+        m = trainer.make_train_step(model, TIMESTEPS)(state, x, c, mask, t=t, noise=noise)
+        if m["loss"].dtype != torch.float32 or any(
+                p.dtype != torch.float32 for p in model.parameters()):
+            raise SystemExit("bf16 train step: the loss or a parameter is not fp32")
+        out[name] = {
+            "loss": float(m["loss"]), "per_sample": m["per_sample_mse"].double().cpu(),
+            "grads": {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.double().cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
+        del model, state
+    card, cpu = out["card"], out["CPU"]
+    yard = (cpu["per_sample"] - ref["per_sample"]).abs().max().item()
+    err = max((card["per_sample"] - cpu["per_sample"]).abs().max().item(),
+              abs(card["loss"] - cpu["loss"]))
+    print(f"  bf16 train step, batch {len(x)}: loss card {card['loss']:.8f} CPU "
+          f"{cpu['loss']:.8f} (fp32 {ref['loss']:.8f}); per-sample MSE and loss card vs CPU "
+          f"max abs {err:.3e} (tol {BF16_FACTOR:g} x the CPU's bf16 vs fp32 {yard:.3e})")
+    if not err <= BF16_FACTOR * yard:
+        raise SystemExit(f"bf16 train step loss: {err} > {BF16_FACTOR} x {yard}")
+
+    def l2(a, b, names):
+        return torch.cat([(a[n] - b[n]).flatten() for n in names]).norm().item()
+
+    names = sorted(cpu["grads"])
+    full = torch.cat([ref["grads"][n].flatten() for n in names]).norm().item()
+    yard = l2(cpu["grads"], ref["grads"], names)
+    err = l2(card["grads"], cpu["grads"], names)
+    rho = yard / full
+    worst = max(((l2(card["grads"], cpu["grads"], [n])
+                  / max(l2(cpu["grads"], ref["grads"], [n]), rho * ref["grads"][n].norm().item()),
+                  n) for n in names))
+    stats = sorted(cpu["stats"])
+    s_err, s_yard = l2(card["stats"], cpu["stats"], stats), l2(cpu["stats"], ref["stats"], stats)
+    print(f"  bf16 gradients card vs CPU: together L2 {err:.3e} (tol {BF16_FACTOR:g} x the "
+          f"CPU's bf16 vs fp32 {yard:.3e}, {rho:.3e} of the gradient); worst leaf "
+          f"{worst[1]} at {worst[0]:.3f} of its yardstick (tol {BF16_FACTOR:g}); running "
+          f"statistics L2 {s_err:.3e} (tol {BF16_FACTOR:g} x {s_yard:.3e})")
+    if not (err <= BF16_FACTOR * yard and worst[0] <= BF16_FACTOR
+            and s_err <= BF16_FACTOR * s_yard):
+        raise SystemExit("bf16 train step on the card vs the CPU: beyond the yardsticks")
+    model = training_model(variables, dev, torch.bfloat16)
+    state = trainer.create_train_state(model, 1e-4, 2, 14)
+    step = trainer.make_train_step(model, TIMESTEPS)
+    print_train_time("bf16 ", time_train_steps(dev, state, step,
+                                               [torch.as_tensor(a).to(dev) for a in batch]),
+                     "bf16 compute, fp32 parameters and Adam, TF32 off")
+
+
+def print_rounding(dev) -> None:
+    """Phase (o), information: how bf16 convs at the canonical model's width
+    (128 to 128 channels, 3x3, 64x64) round on the card and on the CPU,
+    against the float64 conv of the same bf16 operands: the share of
+    outputs that are the nearest bf16 value, and the mean error toward
+    zero in bf16 ulps (0 for rounding to nearest, about 0.5 for
+    truncation).  F.conv2d without a bias, with it (cuDNN fuses it), and
+    the port's bf16 ``Conv2d`` (the conv, then + bias, each rounded to
+    nearest: two roundings, so not always the nearest value of the exact
+    sum, but unbiased)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(8, 128, 64, 64, generator=g).bfloat16()
+    w = (torch.randn(128, 128, 3, 3, generator=g) / 34).bfloat16()
+    b = torch.randn(128, generator=g).bfloat16()
+    port = Conv2d(128, 128, 3, padding=1, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        port.weight.copy_(w.float())
+        port.bias.copy_(b.float())
+    for label, bias in (("F.conv2d, no bias", None), ("F.conv2d with bias", b),
+                        ("the port's Conv2d", b)):
+        exact = F.conv2d(x.double(), w.double(), None if bias is None else bias.double(),
+                         padding=1)
+        ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0**-126))) - 7)
+        parts = []
+        for where, device in (("card", dev), ("CPU", torch.device("cpu"))):
+            xd = x.to(device, memory_format=torch.channels_last)
+            with torch.no_grad():
+                if label.startswith("the port"):
+                    got = port.to(device)(xd)
+                else:
+                    got = F.conv2d(xd, w.to(device), None if bias is None else bias.to(device),
+                                   padding=1)
+            got = got.double().cpu()
+            nearest = (got == exact.to(torch.bfloat16).double()).double().mean().item()
+            toward_zero = ((exact - got) * exact.sign() / ulp).mean().item()
+            parts.append(f"{where} {nearest:.4f} nearest, {toward_zero:+.3f} ulp toward zero")
+        print(f"  bf16 conv rounding, {label} (information): " + "; ".join(parts))
+
+
+def check_bf16(dev, drive, variables, cpu32, served, train_ref) -> None:
+    """Phase (o): the bf16 compute path at full width (module docstring);
+    ``cpu32`` is the CPU's fp32 serving model, ``served`` phase (e)'s fp32
+    maps (the same seed, so the same noise), ``train_ref`` phase (l)'s CPU
+    step."""
+    bf = torch.bfloat16
+    model16 = load_model(variables, dev, dtype=bf)
+    cpu16 = load_model(variables, "cpu", dtype=bf)
+    check_golden(dev, model16, bf16=True)
+    d = np.load(GOLDEN)
+    x, t, c = (torch.tensor(d[k], device=dev) for k in ("x", "t", "c"))
+    with torch.inference_mode():
+        feats = model16.decode_features(model16.encode(x), t, c)
+        w, b = model16.out_conv2.weight, model16.out_conv2.bias
+        exact = F.conv2d(feats.double(), w.double(), b.double(), padding=1)
+        errs = {label: (out.double() - exact).abs().max().item() for label, out in (
+            ("cuDNN's bf16 conv", F.conv2d(feats, w, b, padding=1)),
+            ("out_conv2 (fp32 sums, one rounding)", model16.out_conv2(feats)))}
+    print("  bf16 conv to one channel at full width vs float64 (information): "
+          + ", ".join(f"{k} max abs {v:.3e} ({v / bf16_ulp(exact.abs().max().item()):.2f} ulp "
+                      f"of max |eps|)" for k, v in errs.items()))
+    print_rounding(dev)
+    served16 = {}
+    for w, steps in ((2, 500), (0, 430)):
+        r = drive(f"serve_bf16_w{w}",
+                  lambda w=w: serve(w, BATCH, OUT_DIR, seed=0, device=dev,
+                                    params=certification_contexts(BATCH), dtype=bf),
+                  steps=steps, dtype="bfloat16")
+        check_maps(r["maps"], BATCH, f"serve bf16 w={w}")
+        if r["steps"] != steps or not np.isfinite(r["pk"]).all():
+            raise SystemExit(f"serve bf16 w={w}: {r['steps']} steps or non-finite P(k)")
+        served16[w] = r
+        diff = (r["maps"] - served[w]["maps"]).abs().max().item()
+        print(f"  serve bf16 w={w}: {r['config']}, {BATCH} maps in {r['seconds']:.3f} s "
+              f"({BATCH / r['seconds'] * 60:.1f} maps/min on this card; fp32 "
+              f"{BATCH / served[w]['seconds'] * 60:.1f}); same noise as fp32 (information "
+              f"only): largest map difference {diff:.4f}; P(k) vs exact chain, N={BATCH}: "
+              f"bf16 {pk_deviation(r['pk'], w)}, fp32 {pk_deviation(served[w]['pk'], w)}",
+              flush=True)
+    check_sampler_vs_cpu((model16, cpu16, cpu32), [1, 4, 7, 10], "beta", "bf16 strided w=2")
+    schedule = make_schedule(TIMESTEPS)
+    maps_np = served16[2]["maps"].cpu().numpy()
+    elbo, bpd = drive("battery_bf16_w2", lambda: calculate_elbo_and_bpd(
+        model16, schedule, [(maps_np, served16[2]["params"])],
+        torch.Generator(device=dev).manual_seed(ELBO_SEED), device=dev),
+        forwards=10, dtype="bfloat16")
+    print(f"  battery bf16 w=2, N={BATCH} bf16-served maps (information only): ELBO "
+          f"{elbo:.6g} BPD {bpd:.6g}")
+    check_likelihood_vs_cpu(
+        (model16, cpu16, cpu32),
+        lambda m, x, c, nf: elbo_bpd_batch(m, schedule, x, c, noise_fn=nf, device=on(m)),
+        maps_np[:2], served16[2]["params"][:2], 10, "bf16 ELBO of 2 served w=2 maps")
+    del model16, cpu16
+    torch.cuda.empty_cache()
+    check_train_step_bf16(variables, dev, train_batch(), train_ref)
+    torch.cuda.empty_cache()
+    check_nov26(dev, drive, "bfloat16")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1026,7 +1412,7 @@ def main() -> int:
 
     launches = {}  # path -> kernel -> launches on that path
 
-    def drive(path, fn, steps=0, forwards=0, train_forwards=0):
+    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32"):
         """Run one main path with every launch count at 0 and read the
         counts: a sampler path of ``steps`` reverse steps must show
         ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
@@ -1034,7 +1420,9 @@ def main() -> int:
         model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
         ``train_forwards`` training forwards no launch and one such conv
         each.  ``forwards=None``: as many likelihood forwards as convs to
-        one channel beyond the training forwards (a run's many passes)."""
+        one channel beyond the training forwards (a run's many passes).
+        The launches are those of the ``dtype`` instances; the other
+        instances must show none."""
         one_channel_convs = [0]
 
         def hook(module, args, output):
@@ -1042,14 +1430,14 @@ def main() -> int:
                 one_channel_convs[0] += 1
 
         handle = torch.nn.modules.module.register_module_forward_hook(hook)
-        for wrapper in WRAPPERS.values():
-            wrapper.launches = 0
+        for wrapper, count in WRAPPERS.values():
+            setattr(wrapper, count, 0)
         try:
             result = fn()
             torch.cuda.synchronize()
         finally:
             handle.remove()
-        launches[path] = {name: w.launches for name, w in WRAPPERS.items()}
+        launches[path] = {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}
         print(f"  launches on {path}: {launches[path]}; convs to one channel: "
               f"{one_channel_convs[0]}", flush=True)
         if forwards is None:
@@ -1057,8 +1445,10 @@ def main() -> int:
         if forwards < 0 or one_channel_convs[0] != forwards + train_forwards:
             raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
                              f"expected {forwards + train_forwards}")
-        want = {name: steps * LAUNCHES_PER_STEP[name] + forwards * LAUNCHES_PER_FORWARD[name]
-                for name in WRAPPERS}
+        want = {name: 0 for name in WRAPPERS}
+        for name in LAUNCHES_PER_STEP:
+            want[instance(name, dtype)] = (steps * LAUNCHES_PER_STEP[name]
+                                           + forwards * LAUNCHES_PER_FORWARD[name])
         if any(want[name] and not launches[path][name] for name in WRAPPERS):
             raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
         if launches[path] != want:
@@ -1182,7 +1572,8 @@ def main() -> int:
     phase("(k) reconstruction", t0)
 
     t0 = time.perf_counter()
-    check_train_step(lambda device: training_model(variables, device), dev, train_batch())
+    train_ref = check_train_step(lambda device: training_model(variables, device), dev,
+                                 train_batch())
     model_l, state_l, step_l, batch_l, losses = drive(
         "train_steps", lambda: fixed_objective(dev), train_forwards=FIXED_STEPS)
     print(f"  fixed objective, {FIXED_STEPS} Adam steps at lr 1e-3 from a fresh init: loss "
@@ -1194,53 +1585,7 @@ def main() -> int:
     phase("(l1) train step vs CPU, guard, fixed objective, step time", t0)
 
     t0 = time.perf_counter()
-    snapshots = os.path.join(OUT_DIR, "train_state_by_epoch")
-    os.makedirs(snapshots, exist_ok=True)
-    save = experiment.save_train_checkpoint
-
-    def save_and_keep(state, epoch, path):
-        save(state, epoch, path)
-        shutil.copy(path, os.path.join(snapshots, f"epoch_{epoch}.msgpack"))
-
-    experiment.save_train_checkpoint = save_and_keep
-    cudnn_deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True  # the resumed run must retrace the first
-    try:
-        runs = {}
-        for name, resume, epochs in (("exp_a", False, 2), ("exp_b", True, 1)):
-            cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=2,
-                                   timesteps=TIMESTEPS, n_eval_images=4,
-                                   ckpt_every=1, resume=resume,
-                                   output_root=os.path.join(OUT_DIR, name))
-            shutil.rmtree(cfg.output_root, ignore_errors=True)
-            if resume:  # the epoch-1 train checkpoint of the unbroken run
-                os.makedirs(os.path.join(cfg.output_dir(), "weights"))
-                shutil.copy(os.path.join(snapshots, "epoch_1.msgpack"),
-                            os.path.join(cfg.output_dir(), "weights", "train_state.msgpack"))
-            t1 = time.perf_counter()
-            res = drive(f"run_experiment{'_resume' if resume else ''}",
-                        lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
-                        steps=TIMESTEPS * sampler_calls(cfg), train_forwards=14 * epochs)
-            runs[name] = res
-            logs = res["loss_log"]
-            print(f"  run_experiment {name}: {res['data_source']} data, {res['n_train']} train "
-                  f"maps, epochs {res['epoch_times']} s, losses {logs}, reconstructed mean "
-                  f"{res['means']['reconstructed']:.6f}, in {time.perf_counter() - t1:.3f} s")
-            if not (np.isfinite(logs).all() and np.isfinite(res["means"]["reconstructed"])):
-                raise SystemExit(f"run_experiment {name}: losses {logs}, means {res['means']}")
-    finally:
-        experiment.save_train_checkpoint = save
-        torch.backends.cudnn.deterministic = cudnn_deterministic
-    out_a = runs["exp_a"]["output_dir"]
-    check_artifacts(out_a, ("weights/model_epoch_0.msgpack", "weights/model_epoch_1.msgpack",
-                            "weights/train_state.msgpack", "output.log"), "nov26")
-    diff = compare_train_states(os.path.join(out_a, "weights", "train_state.msgpack"),
-                                os.path.join(runs["exp_b"]["output_dir"], "weights",
-                                             "train_state.msgpack"))
-    print(f"  resumed from the epoch-1 train checkpoint vs the unbroken run at epoch 2: "
-          f"params, batch_stats and Adam moments max abs {diff:.3e} (tol {RESUME_TOL:g})")
-    if not diff <= RESUME_TOL:
-        raise SystemExit(f"resumed run vs the unbroken run: {diff} > {RESUME_TOL}")
+    check_nov26(dev, drive, "float32")
     phase("(l2) run_experiment and resume", t0)
 
     t0 = time.perf_counter()
@@ -1255,6 +1600,14 @@ def main() -> int:
     check_runs(dev, drive)
     phase("(n) run_experiment initial, main, paper", t0)
 
+    t0 = time.perf_counter()
+    check_bf16(dev, drive, variables, models[1], served, train_ref)
+    phase("(o) bf16 at full width", t0)
+
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))
+    if foreign:
+        raise SystemExit(f"the port imported {foreign[:5]}")
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],

@@ -1,8 +1,10 @@
 """Where a served batch's time goes on the card, for the PyTorch port.
 
-    python scripts/profile_torch_serving.py [--steps 40] [--batch 16] [--nll-batch 4]
+    python scripts/profile_torch_serving.py [--steps 40] [--batch 16] [--nll-batch 4] \
+        [--dtype bfloat16]
 
-Loads the certified checkpoint, then profiles under ``torch.profiler`` (CPU
+Loads the certified checkpoint, folded, computing in ``--dtype`` (float32
+by default, or bfloat16), then profiles under ``torch.profiler`` (CPU
 and CUDA activity), each after one unprofiled warm-up pass:
 
 * for w=2 and w=0, ``--steps`` strided-DDPM steps of the certified row's
@@ -12,7 +14,8 @@ and CUDA activity), each after one unprofiled warm-up pass:
   ``--batch`` maps;
 * ``--steps`` timesteps (t = 1, 2, ...) of the NLL sweep at ``--nll-batch``
   maps, with the device time of the model's output conv to one channel
-  (``out_conv2``, a cuDNN conv on this path) marked.
+  (``out_conv2``: a cuDNN conv in fp32; in bf16 an fp32 conv of the bf16
+  operands, rounded once) marked.
 
 Prints per row: wall ms per step, device-busy ms per step (sum of kernel
 times), the idle share, and the kernels by device time, with this port's
@@ -73,7 +76,7 @@ def profile_row(label: str, run, n: int) -> dict:
     ours = {k: sum(us for us, key, _ in rows if k in key) / n / 1e3 for k in OURS}
     print("  port kernels ms/step: " + json.dumps(ours))
     if head_us:
-        print(f"  out_conv2 (cuDNN conv to one channel): {head_us / n / 1e3:.4f} ms/step, "
+        print(f"  out_conv2 (the conv to one channel): {head_us / n / 1e3:.4f} ms/step, "
               f"{head_us / busy / 1e4:.2f}% of device busy")
     return {**ours, "out_conv2": head_us / n / 1e3}
 
@@ -83,6 +86,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--nll-batch", type=int, default=4)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the model's compute dtype")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -108,9 +113,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"card: {smi}; torch {torch.__version__}; model in {args.dtype}")
     schedule = make_schedule(1500)
-    model = load_model(load_variables(resolve_serving_config(2).model_path), dev)
+    model = load_model(load_variables(resolve_serving_config(2).model_path), dev,
+                       dtype=getattr(torch, args.dtype))
     head_forward = model.out_conv2.forward
 
     def marked_head(x):

@@ -7,8 +7,11 @@ collects the same tests and they skip on machines without one.  Run them
 on the card with ``python -m pytest tests/test_torch_port_cuda.py -m cuda``.
 """
 
+import math
+
 import pytest
 import torch
+import torch.nn.functional as F
 
 from camels_diffusion_model_tpu_torch.diffusion import likelihood
 from camels_diffusion_model_tpu_torch.diffusion.ddim import (
@@ -27,6 +30,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
+    guided_eps,
     head_step_plain,
 )
 from camels_diffusion_model_tpu_torch.training import trainer
@@ -389,3 +393,153 @@ def test_variant_forward_and_sampler_steps_on_the_card_match_the_cpu(dev, fp32_c
     assert (fused_head_step.launches - counts[0], fused_groupnorm_act.launches - counts[1],
             fused_film.launches - counts[2]) == (3, 6, 3)
     torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
+
+
+# ---- the bf16 instances ------------------------------------------------------
+
+def _bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(v, 2.0**-126))) - 7)
+
+
+def _assert_bf16_close(got, want, atol, share=1e-2, fp32_rounding=0.0):
+    """Within ``atol`` everywhere, and within ``fp32_rounding`` on all but
+    ``share`` of the elements: the kernel and its plain version round to
+    bf16 at the same points, so they differ by more than fp32 rounding only
+    where an fp32 sum taken in another order lands on the other side of a
+    bf16 rounding boundary."""
+    assert got.dtype == want.dtype
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() <= atol, (d.max().item(), atol)
+    assert (d > fp32_rounding).float().mean().item() <= share
+
+
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("b,hw,c", [(16, 64, 128), (4, 64, 128), (10, 128, 128), (10, 128, 256)])
+def test_head_step_bf16_kernel_at_the_path_shapes(dev, fp32_convs, b, hw, c, w, tanh):
+    """K1's bf16 instance (bf16 features, weights and bias; fp32 x, z and
+    step) against its plain version: eps rounds to bf16 per branch, so a
+    sum on the other side of a rounding boundary moves x' by ``c_eps /
+    sqrt(a)`` times a bf16 ulp of eps, and the CFG combine's three roundings
+    by up to four: atol 4 ulp of max |eps| times 0.02 * 1.01.  The fp32
+    step itself differs by its FMAs (1e-5, as the fp32 instance's)."""
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, hw, hw, c, seed=41).relu().bfloat16()
+    weight = _randn(dev, 1, c, 3, 3, seed=42).mul(0.05).bfloat16()
+    bias = _randn(dev, 1, seed=43).bfloat16()
+    x, z = _randn(dev, b, hw, hw, 1, seed=44), _randn(dev, b, hw, hw, 1, seed=45)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    before = (fused_head_step.launches, fused_head_step.launches_bf16)
+    got = fused_head_step(*args, tanh=tanh)
+    assert (fused_head_step.launches, fused_head_step.launches_bf16) == (before[0], before[1] + 1)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w, tanh).float()
+    _assert_bf16_close(got, head_step_plain(*args, tanh=tanh),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "leaky_relu"])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("shape", [(32, 16, 16, 256), (32, 64, 64, 128), (4, 64, 64, 128),
+                                   (10, 16, 16, 1024), (10, 128, 128, 256), (2, 5, 7, 24)])
+def test_groupnorm_bf16_kernel_matches_plain(dev, shape, film, act):
+    """K2's bf16 instance (bf16 I/O, fp32 statistics, affine and activation,
+    one rounding; the FiLM epilogue in bf16) against its plain version at
+    the heads' shapes, the big out_norm (1 MiB a group in bf16: resident,
+    no spill) and a scalar-path shape.  The statistics sum in another order:
+    an output may round to the neighbouring bf16 value, and the epilogue's
+    two roundings may carry that on: atol 2 ulp of max |out|."""
+    n, c = shape[0], shape[-1]
+    x = (_randn(dev, *shape, seed=51) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, c, seed=52), _randn(dev, c, seed=53)
+    rows = ((_randn(dev, n, c, seed=54).bfloat16(), _randn(dev, 1, c, seed=55).bfloat16())
+            if film else None)
+    plan = launch_plan(n, shape[1] * shape[2], c, 8, element_bytes=2)
+    assert not plan.spills
+    args = (x, gamma, beta, 8, 1e-5, act, rows)
+    before = (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16)
+    got = fused_groupnorm_act(*args)
+    assert (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16) == (
+        before[0], before[1] + 1)
+    want = groupnorm_act_plain(*args)
+    _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("scale_rows", [1, 32])
+@pytest.mark.parametrize("shape", [(32, 32, 32, 128), (10, 32, 32, 512), (4, 5, 7, 6)])
+def test_film_bf16_kernel_matches_plain_exactly(dev, shape, scale_rows):
+    """K3's bf16 instance rounds the product and then the sum to bf16, as
+    its plain version does, from the same fp32 operations: equal."""
+    n, c = shape[0], shape[-1]
+    x = _randn(dev, *shape, seed=61).bfloat16()
+    scale = _randn(dev, min(scale_rows, n), c, seed=62).bfloat16()
+    shift = _randn(dev, 1, c, seed=63).bfloat16()
+    before = (fused_film.launches, fused_film.launches_bf16)
+    got = fused_film(x, scale, shift)
+    assert (fused_film.launches, fused_film.launches_bf16) == (before[0], before[1] + 1)
+    assert torch.equal(got, film_plain(x, scale, shift))
+
+
+def test_wrappers_refuse_dtypes_without_a_kernel(dev):
+    """fp16, or a bf16 x with fp32 rows, raises on the card."""
+    x = _randn(dev, 2, 8, 8, 16)
+    row = _randn(dev, 1, 16)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_film(x.half(), row.half(), row.half())
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_film(x.bfloat16(), row, row)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_groupnorm_act(x.half(), row[0], row[0])
+    with pytest.raises(ValueError, match="float32"):
+        fused_groupnorm_act(x.bfloat16(), row[0].bfloat16(), row[0].bfloat16())
+    x1 = _randn(dev, 2, 8, 8, 1)
+    weight, bias = _randn(dev, 1, 16, 3, 3), _randn(dev, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_head_step(x.half(), weight.half(), bias.half(), x1, x1, 0.1, 1.0, 0.1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_head_step(x.bfloat16(), weight, bias, x1, x1, 0.1, 1.0, 0.1)
+
+
+@pytest.mark.parametrize("variant", ["canonical", "deep", "big"])
+def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
+    """A narrow bf16 model (n_feat 16, 32x32), folded: its forward and three
+    exact-chain steps under injected z on the card against the CPU's bf16,
+    within twice the CPU's own distance from its fp32 model (bf16 rounds
+    where cuDNN's and the CPU's sums fall on either side of a boundary);
+    each step launches the bf16 instances of K1 once, K2 twice and K3
+    once, and no fp32 instance."""
+    from camels_diffusion_model_tpu_torch.serving import load_model
+    from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        variables = to_jax_variables(
+            getattr(ContextUnet, variant)(n_feat=16, height=32).state_dict())
+    cpu32, cpu16 = (load_model(variables, "cpu", dtype=d)
+                    for d in (torch.float32, torch.bfloat16))
+    gpu16 = load_model(variables, dev, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 32, 1, generator=g)
+    t = torch.rand(2, generator=g)
+    c = torch.rand(2, cpu16.n_cfeat, generator=g)
+    with torch.inference_mode():
+        want32, want = cpu32(x, t, c), cpu16(x, t, c)
+        got = gpu16(x.to(dev), t.to(dev), c.to(dev)).cpu()
+    assert got.dtype == want.dtype == torch.bfloat16
+    yard = (want.float() - want32).abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2 * yard
+    zs = [torch.randn(2, 32, 32, 1, generator=g) for _ in range(3)]
+    kernels = (fused_head_step, fused_groupnorm_act, fused_film)
+    counts = [(k.launches, k.launches_bf16) for k in kernels]
+    outs = [sample_ddpm(m, make_schedule(3), torch.Generator(device=d), params=c.numpy(),
+                        x_init=x.numpy(), guide_w=2.0, device=d,
+                        z_fn=lambda k, t: zs[k]).cpu()
+            for m, d in ((gpu16, dev), (cpu16, "cpu"), (cpu32, "cpu"))]
+    assert [(k.launches - a, k.launches_bf16 - b) for k, (a, b) in zip(kernels, counts)] == [
+        (0, 3), (0, 6), (0, 3)]
+    assert all(o.dtype == torch.float32 for o in outs)
+    yard = (outs[1] - outs[2]).abs().max().item()
+    assert (outs[0] - outs[1]).abs().max().item() <= 2 * yard

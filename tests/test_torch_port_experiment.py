@@ -1,7 +1,7 @@
 """PyTorch port: ``run_experiment`` at the tiny size on the CPU -- the JAX
 runner's artifact names and log-line formats, a resume that reproduces the
-unbroken run, the deep and big variants' modes end to end, the figures
-skipped and listed, and the options not ported raising
+unbroken run, the deep and big variants' modes end to end, a bf16 run, the
+figures skipped and listed, and the options not ported raising
 ``NotImplementedError``; the run logger's lines against the JAX package's.
 Values differ from the JAX runner's (torch generators, not threefry), so
 formats are compared with the numbers masked."""
@@ -22,6 +22,7 @@ from camels_diffusion_model_tpu.utils.run_logging import RunLogger as JaxRunLogg
 from camels_diffusion_model_tpu_torch.cli import experiment
 from camels_diffusion_model_tpu_torch.config import ExperimentConfig
 from camels_diffusion_model_tpu_torch.data.synthetic import synthetic_camels
+from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
 from camels_diffusion_model_tpu_torch.utils.run_logging import RunLogger
 
 TINY = dict(lrate=1e-3, n_epoch=2, timesteps=8, num_params=3, n_feat=8, height=16,
@@ -183,8 +184,37 @@ def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, mode, skipped
     assert not any(name.endswith(".png") for name in _files(tmp_path))
 
 
+def test_bf16_run_trains_and_evaluates_in_bf16(tmp_path, monkeypatch):
+    """``dtype="bfloat16"``, which raised until the port had the bf16 path:
+    mode ``condition`` runs to its end with the fp32 run's files; the model
+    computes in bf16 on fp32 parameters, the folded inference copy in bf16,
+    and the weights file holds fp32 arrays, as JAX writes for a bf16 run."""
+    seen = []
+    load_model = experiment.load_model
+
+    def spy(*args, **kw):
+        seen.append(load_model(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(experiment, "load_model", spy)
+    cfg = ExperimentConfig(mode="condition", output_root=str(tmp_path), dtype="bfloat16",
+                           **TINY)
+    res = experiment.run_experiment(cfg, device="cpu")
+    assert np.isfinite(res["loss_log"] + res["val_loss_log"]).all()
+    assert np.isfinite(res["means"]["reconstructed"])
+    assert seen and all(m.dtype == torch.bfloat16 for m in seen)
+    weights = load_variables(
+        os.path.join(res["output_dir"], "weights", "train_state.msgpack"))
+    leaves = [v for tree in weights.values() for v in _leaves(tree)]
+    assert leaves and all(v.dtype == np.float32 for v in leaves)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (np.asarray(v),)
+
+
 @pytest.mark.parametrize("mode,overrides,item", [
-    ("condition", {"dtype": "bfloat16"}, "item 4"),
     ("condition", {"shortcut": "stochastic"}, "item 9"),
     ("condition", {"mesh_devices": 2}, "item 11"),
 ])

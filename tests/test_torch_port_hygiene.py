@@ -174,3 +174,33 @@ def test_profile_script_names_the_port_kernels():
             kernels |= set(re.findall(r"__global__ void (\w+)", f.read()))
     assert kernels and all(any(k in name for name in kernels) for k in profile.OURS)
     assert all(any(k in name for k in profile.OURS) for name in kernels)
+
+
+def test_bf16_golden_is_what_its_script_writes():
+    """``tests/data/torch_port_golden_bf16.npz`` holds the arrays
+    ``scripts/make_torch_port_golden.py`` names (``BF16_KEYS``) and the
+    checkpoint's md5, each of the fp32 golden's shape, as float32, under
+    200 KB; its bf16 arrays are bf16 values."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden", os.path.join(REPO, "scripts", "make_torch_port_golden.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert os.path.getsize(script.OUT_BF16) < 200_000
+    d, fp32 = np.load(script.OUT_BF16), np.load(script.OUT)
+    assert set(d.files) == {*script.BF16_KEYS, "checkpoint_md5"}
+    assert str(d["checkpoint_md5"]) == str(fp32["checkpoint_md5"])
+    for key in script.BF16_KEYS:
+        assert d[key].shape == fp32["eps"].shape and d[key].dtype == np.float32
+    for key in ("eps_bf16", "eps_uncond_bf16"):
+        assert np.array_equal(torch.tensor(d[key]).bfloat16().float().numpy(), d[key])
+
+
+def test_no_module_of_the_port_calls_autocast():
+    """The bf16 path casts at the JAX package's cast points; torch.autocast
+    would keep its own op list in fp32 and pick its own output types."""
+    root = os.path.join(REPO, "camels_diffusion_model_tpu_torch")
+    sources = [os.path.join(d, f) for d, _, names in os.walk(root) for f in names
+               if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    for path in sources:
+        with open(path) as f:
+            assert "autocast" not in f.read(), path

@@ -29,11 +29,20 @@ nan-safe ratio line, the mean correction (``means.txt``,
 alone, every w > 0 in one call with a per-sample w) and the sensitivity
 rows (one sampler call for all of them), each with its post metrics.
 
-What waits: the port writes no figure (no PNG; ``utils/viz.py`` needs
-matplotlib, ROADMAP item 10).  A run prints that it skipped them and lists
-them in ``results["not_ported"]``.  ``shortcut="stochastic"`` (item 9)
-and ``mesh_devices > 1`` (item 11), which would change what the run
-computes, raise ``NotImplementedError``.
+``shortcut="stochastic"`` builds the reference's model with a fresh
+random init_conv projection a forward; every phase draws it from that
+phase's generator, after its other draws (the trainer's ``(seed, 0,
+step)``, the validation pass's, the likelihood passes' and the samplers'
+below), and the folded inference copy keeps the mode (``load_model`` reads
+it from the tree, which has no shortcut leaves).  The JAX runner seeds the
+model's ``"shortcut"`` stream for ``init`` with ``fold_in(init_key, 1)``
+(``experiment.py:200-206``); that draw touches no parameter, and the
+port's init takes none.
+
+What waits: the port writes no figure (no PNG; the run figures of
+``utils/viz.py`` are not ported).  A run prints that it skipped them and
+lists them in ``results["not_ported"]``.  ``mesh_devices > 1``, which
+would change what the run computes, raises ``NotImplementedError``.
 
 Noise comes from torch generators seeded by the run seed (the training
 step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
@@ -74,6 +83,7 @@ from ..diffusion.likelihood import (
 )
 from ..diffusion.sampler import SamplerOutput, ZFn, sample_ddpm, sample_ddpm_from_noise
 from ..diffusion.schedule import DDPMSchedule, NoiseScaling, make_schedule, q_sample
+from ..models.blocks import SHORTCUTS
 from ..models.context_unet import ContextUnet
 from ..ops.spectrum import compare_power_spectra_stats
 from ..ops.stats import compare_pdf_stats
@@ -163,16 +173,14 @@ def _unported(cfg: ExperimentConfig) -> List[str]:
     """The parts of ``cfg``'s run that this package does not do yet, which
     :func:`run_experiment` skips; raises ``NotImplementedError`` for options
     that would change what the run computes (module docstring), and
-    ``ValueError`` for a dtype neither package knows."""
+    ``ValueError`` for a dtype or shortcut mode neither package knows."""
     if cfg.dtype not in DTYPES:
         raise ValueError(f"dtype={cfg.dtype!r}: 'float32' or 'bfloat16'")
-    if cfg.shortcut != "learned":
-        raise NotImplementedError(
-            f"shortcut {cfg.shortcut!r}: the port has the learned shortcut only (ROADMAP "
-            "section 1, item 9, which took it over from item 8)")
+    if cfg.shortcut not in SHORTCUTS:
+        raise ValueError(f"unknown shortcut mode: {cfg.shortcut!r}")
     if cfg.mesh_devices is not None and cfg.mesh_devices > 1:
         raise NotImplementedError(f"mesh_devices={cfg.mesh_devices}: the port runs on "
-                                  "one card (ROADMAP section 1, item 11)")
+                                  "one card (ROADMAP section 1, multi-device)")
     return ["figures"]
 
 
@@ -277,7 +285,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         model = factory(n_cfeat=cfg.n_cfeat, n_feat=cfg.n_feat, height=cfg.height,
-                        dtype=DTYPES[cfg.dtype])
+                        dtype=DTYPES[cfg.dtype], shortcut=cfg.shortcut)
     model = model.to(device=device, memory_format=torch.channels_last)
     steps_per_epoch = num_batches(ds.n_train, cfg.batch_size)
     state = create_train_state(model, cfg.lrate, cfg.n_epoch, steps_per_epoch, seed=cfg.seed)
@@ -606,7 +614,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
                     logger.sensitivity_value(float(v), e, e / (dims * np.log(2.0)),
                                              float(per_nll[p_idx * 5 + i]))
 
-    print("Not run by the port (ROADMAP section 1, item 10): " + ", ".join(not_ported))
+    print("Not run by the port (ROADMAP section 1, leftovers): " + ", ".join(not_ported))
     print("Training and evaluation completed"
           + (f" with {cfg.num_params} conditioning parameters." if spec.conditional else "."))
     return results

@@ -7,10 +7,10 @@ One runner, ``cli.experiment.run_experiment``, is parameterised by a
 ``outputs/<prefix>...`` directory, its artifact names and its log lines.
 The reference's module constants (beta1/beta2, n_feat, batch size, test
 size, eval and checkpoint cadences, data paths) are fields of
-:class:`ExperimentConfig`.  Fields that select what this package does not
-run yet (``shortcut="stochastic"``, ``mesh_devices > 1``) make
-``run_experiment`` raise ``NotImplementedError``; every mode, the deep and
-big variants' included, runs in ``dtype`` "float32" or "bfloat16".
+:class:`ExperimentConfig`.  ``mesh_devices > 1``, which this package does
+not run yet, makes ``run_experiment`` raise ``NotImplementedError``; every
+mode, the deep and big variants' included, runs in ``dtype`` "float32" or
+"bfloat16", with ``shortcut`` "learned" or "stochastic".
 """
 
 from __future__ import annotations

@@ -8,9 +8,11 @@ to [0, 1]), ``"initial"`` (shift positive, log10, z-score, clip to [-1, 1])
 and ``"big"`` (shift positive, log10, z-score, min-max to [-1, 1]), in
 float64 as the reference's numpy.  The split is a numpy permutation of seed
 42, as in the JAX package (the reference's ``torch.random_split`` order
-cannot be reproduced).  The JAX package's multithreaded C++ path for the
-``"code"`` style (``native/``) is numerically equivalent to this one
-(``tests/test_native_prep.py``) and is not ported.
+cannot be reproduced).  Style ``"code"`` takes the multithreaded C++ path
+(``data/native_prep.py``, the repository's ``native/camels_prep.cpp``)
+whenever its library loads, and the numpy path otherwise, as the JAX
+package does (``pipeline.py:160-173``): the two differ by an ulp on about
+a third of the pixels, so both packages take the same one.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from ..ops.resize import _interp_matrix
+from . import native_prep
 
 
 @dataclasses.dataclass
@@ -141,9 +144,14 @@ def load_camels_dataset(
     cond, pmin, pmax = normalize_params(
         params, n_maps, num_params, expand=expand, param_index=param_index
     )
-    data = normalize_maps(maps, style=style).astype(np.float32)
+    use_native = style == "code" and native_prep.available()
+    if use_native:
+        data = native_prep.normalize_maps_native(maps)
+    else:
+        data = normalize_maps(maps, style=style).astype(np.float32)
     if data.shape[1] != height or data.shape[2] != height:
-        data = resize_maps_np(data, height)
+        resize = native_prep.resize_maps_native if use_native else resize_maps_np
+        data = resize(data, height)
     data = data[..., None]
     train_idx, test_idx, perm = train_test_split(n_maps, test_size, seed)
     info = {

@@ -14,8 +14,9 @@
   which the step kernel takes as ``inv_sqrt_a = A``, ``c_eps = -B/A``.
 
 Both set ``sigma = 0`` on the last jump and run the same loop
-(``sampler.run_chain``), guidance, FiLM tables and step kernel K1 as
-``sample_ddpm``, each with its own table of step coefficients.
+(``sampler.run_chain``), guidance, FiLM tables, step kernel K1 and
+stochastic-shortcut draws (``ddim.py:84``) as ``sample_ddpm``, each with
+its own table of step coefficients.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .sampler import ZFn, prepare, run_chain
+from .sampler import ShortcutFn, ZFn, prepare, run_chain
 from .schedule import DDPMSchedule
 
 
@@ -98,6 +99,7 @@ def sample_ddim(
     sigma_mode: str = "posterior",
     device=None,
     z_fn: Optional[ZFn] = None,
+    shortcut_fn: Optional[ShortcutFn] = None,
 ) -> torch.Tensor:
     """Samples ``(B, size, size, C)`` over ``taus`` (default
     :func:`ddim_timesteps` of ``n_steps``) by DDIM (``sigma_mode=
@@ -122,5 +124,6 @@ def sample_ddim(
     coefs = (beta_coefficients(schedule, taus) if sigma_mode == "beta"
              else posterior_coefficients(schedule, taus, eta))
     x, _ = run_chain(model, x, params, use_cfg, w, schedule.timesteps,
-                     taus[::-1].tolist(), coefs, generator, z_fn)
+                     taus[::-1].tolist(), coefs, generator, z_fn,
+                     shortcut_fn=shortcut_fn)
     return x

@@ -28,7 +28,10 @@ Noise: JAX draws each tensor from a key chain; here every noise tensor comes
 from ``generator`` (on the device) unless ``noise_fn(batch_index,
 step_index, t, shape)`` gives it, as ``z_fn`` does for the samplers.
 ``batch_index`` counts the batches of the dataset-level functions (0 for a
-single batch), ``step_index`` the timesteps of one batch's pass.
+single batch), ``step_index`` the timesteps of one batch's pass.  A
+stochastic-shortcut model takes one projection draw a forward, after that
+forward's noise (JAX: ``nkey, skey``, ``likelihood.py:76,105``), from
+``generator`` unless ``shortcut_fn(batch_index, step_index, t)`` gives it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .. import fp32_math, resolve_device
 from .schedule import DDPMSchedule, NoiseScaling, q_sample
 
 NoiseFn = Callable[[int, int, int, tuple], torch.Tensor]
+ShortcutFn = Callable[[int, int, int], tuple]
 
 
 def elbo_timesteps(timesteps: int, n: int = 10) -> np.ndarray:
@@ -63,12 +67,10 @@ def _per_sample_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def _on_device(model, x, c, device):
     """``x`` and ``c`` as fp32 tensors on the device the pass runs on, after
     checking the model can run it: on that device, BatchNorm (if not
-    folded) in eval mode, no stochastic shortcut."""
+    folded) in eval mode."""
     device = resolve_device(device)
     if next(model.parameters()).device != device:
         raise ValueError(f"model is not on {device}")
-    if getattr(model, "shortcut", "learned") == "stochastic":
-        raise NotImplementedError("the stochastic init_conv shortcut is not ported")
     if any(isinstance(m, nn.BatchNorm2d) and m.training for m in model.modules()):
         raise ValueError("BatchNorm must be in eval mode (model.eval()) or folded")
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -88,18 +90,27 @@ def _noise(noise_fn: Optional[NoiseFn], generator, batch_index: int, k: int,
     return torch.randn(x.shape, generator=generator, device=x.device)
 
 
-def _eps(model, x_t: torch.Tensor, t: int, timesteps: int, c: torch.Tensor):
+def _eps(model, x_t: torch.Tensor, t: int, timesteps: int, c: torch.Tensor,
+         generator, shortcut_fn: Optional[ShortcutFn], batch_index: int, k: int):
     """The model's eps at integer timestep ``t`` (normalised to ``t / T`` in
-    fp32, one row for the batch)."""
+    fp32, one row for the batch), with a stochastic model's draw."""
     t_norm = torch.full((1,), float(t), device=x_t.device) / timesteps
-    return model(x_t, t_norm, c)
+    proj = None
+    if model.stochastic:
+        if shortcut_fn is not None:
+            proj = shortcut_fn(batch_index, k, t)
+        elif generator is None:
+            raise ValueError("pass a generator or a shortcut_fn")
+        else:
+            proj = model.draw_shortcut(generator)
+    return model(x_t, t_norm, c, shortcut=proj)
 
 
 @fp32_math()
 def elbo_bpd_batch(model, schedule: DDPMSchedule, x, c, generator=None,
                    sampled_t: Optional[Sequence[int]] = None,
                    noise_fn: Optional[NoiseFn] = None, batch_index: int = 0,
-                   device=None) -> torch.Tensor:
+                   device=None, shortcut_fn: Optional[ShortcutFn] = None) -> torch.Tensor:
     """Per-sample ELBO ``(B,)`` of one batch (paper form) at ``sampled_t``
     (default :func:`elbo_timesteps` of T); ``x`` NHWC, ``c`` ``(B,
     n_cfeat)``."""
@@ -111,7 +122,9 @@ def elbo_bpd_batch(model, schedule: DDPMSchedule, x, c, generator=None,
         for k, t in enumerate(ts):
             noise = _noise(noise_fn, generator, batch_index, k, t, x)
             x_t = q_sample(schedule, x, t, noise, NoiseScaling.STANDARD)
-            mse = _per_sample_mse(_eps(model, x_t, t, schedule.timesteps, c), noise)
+            eps = _eps(model, x_t, t, schedule.timesteps, c, generator, shortcut_fn,
+                       batch_index, k)
+            mse = _per_sample_mse(eps, noise)
             weight = 0.5 * schedule.beta[t] / (1.0 - schedule.alpha_bar[t])
             acc = acc + (float(weight) if t > 1 else 0.0) * mse / len(ts)
     return acc
@@ -129,7 +142,7 @@ def _sweep_weights(schedule: DDPMSchedule, weighting: str) -> torch.Tensor:
 def _t_sweep(model, schedule: DDPMSchedule, x, c, generator=None,
             ts: Optional[Sequence[int]] = None, weighting: str = "nll",
             noise_fn: Optional[NoiseFn] = None, batch_index: int = 0,
-            device=None) -> torch.Tensor:
+            device=None, shortcut_fn: Optional[ShortcutFn] = None) -> torch.Tensor:
     """``sum_t w_t * mse_t`` per sample ``(B,)`` over the timesteps ``ts``
     (default ``1..T``, ascending as in JAX), REFERENCE scaling; ``w_t`` of
     ``weighting`` "nll" (``1/(2 b_t)``) or "elbo" (``0.5*(1/(1-ab_t)-1)``)
@@ -142,27 +155,30 @@ def _t_sweep(model, schedule: DDPMSchedule, x, c, generator=None,
         for k, t in enumerate(int(t) for t in ts):
             noise = _noise(noise_fn, generator, batch_index, k, t, x)
             x_t = q_sample(schedule, x, t, noise, NoiseScaling.REFERENCE)
-            mse = _per_sample_mse(_eps(model, x_t, t, schedule.timesteps, c), noise)
+            eps = _eps(model, x_t, t, schedule.timesteps, c, generator, shortcut_fn,
+                       batch_index, k)
+            mse = _per_sample_mse(eps, noise)
             acc = acc + float(weights[t]) * mse
     return acc
 
 
 def nll_batch(model, schedule: DDPMSchedule, x, c, generator=None, ts=None,
               noise_fn: Optional[NoiseFn] = None, batch_index: int = 0,
-              device=None) -> torch.Tensor:
+              device=None, shortcut_fn: Optional[ShortcutFn] = None) -> torch.Tensor:
     """Per-sample NLL ``(B,)`` of one batch: the "nll" :func:`_t_sweep`."""
     return _t_sweep(model, schedule, x, c, generator, ts, "nll", noise_fn,
-                   batch_index, device)
+                   batch_index, device, shortcut_fn)
 
 
 def elbo_full_trajectory_batch(model, schedule: DDPMSchedule, x, c,
                                generator=None, ts=None,
                                noise_fn: Optional[NoiseFn] = None,
-                               batch_index: int = 0, device=None) -> torch.Tensor:
+                               batch_index: int = 0, device=None,
+                               shortcut_fn: Optional[ShortcutFn] = None) -> torch.Tensor:
     """Per-sample full-trajectory ELBO ``(B,)``: the "elbo" :func:`_t_sweep`
     divided by T."""
     acc = _t_sweep(model, schedule, x, c, generator, ts, "elbo", noise_fn,
-                  batch_index, device)
+                  batch_index, device, shortcut_fn)
     return acc / schedule.timesteps
 
 
@@ -212,12 +228,13 @@ def calculate_elbo_and_bpd(model, schedule: DDPMSchedule,
                            generator=None, dims: Optional[int] = None,
                            batch_size: Optional[int] = None,
                            noise_fn: Optional[NoiseFn] = None,
-                           device=None) -> Tuple[float, float]:
+                           device=None,
+                           shortcut_fn: Optional[ShortcutFn] = None) -> Tuple[float, float]:
     """Dataset-level ELBO and BPD (paper form) over ``(x NHWC, c)``
     batches; ``dims`` defaults to H*W of the first batch."""
     elbo, hw = _dataset_mean(batches, batch_size, lambda bi, x, c: elbo_bpd_batch(
         model, schedule, x, c, generator, noise_fn=noise_fn, batch_index=bi,
-        device=device))
+        device=device, shortcut_fn=shortcut_fn))
     return elbo, elbo / ((dims or hw or 1) * math.log(2.0))
 
 
@@ -225,8 +242,8 @@ def calculate_likelihood(model, schedule: DDPMSchedule,
                          batches: Iterable[Tuple[np.ndarray, np.ndarray]],
                          generator=None, batch_size: Optional[int] = None,
                          ts=None, noise_fn: Optional[NoiseFn] = None,
-                         device=None) -> float:
+                         device=None, shortcut_fn: Optional[ShortcutFn] = None) -> float:
     """Dataset-mean NLL over ``(x NHWC, c)`` batches (:func:`nll_batch`)."""
     nll, _ = _dataset_mean(batches, batch_size, lambda bi, x, c: nll_batch(
-        model, schedule, x, c, generator, ts, noise_fn, bi, device))
+        model, schedule, x, c, generator, ts, noise_fn, bi, device, shortcut_fn))
     return nll

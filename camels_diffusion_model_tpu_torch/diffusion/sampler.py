@@ -10,7 +10,12 @@ update.  The FiLM embeddings are hoisted out
 of the loop (``:369-381``): the context MLPs run once per call and the time
 MLPs once for all ``T + 1`` timesteps.  With
 ``guide_w == 0`` the model runs once per step with the conditional context
-and no guidance, as in the reference; ``z = 0`` at ``t == 1``.
+and no guidance, as in the reference; ``z = 0`` at ``t == 1``.  A
+stochastic-shortcut model (``ContextUnet(shortcut="stochastic")``) takes
+one projection draw a step, before the forward, and z after it (JAX: ``key,
+zkey, skey = split(key, 3)``, ``sampler.py:244-262``); under guidance the
+encoder runs once, so both halves share that draw, as in JAX
+(``:105-135``).
 ``sample_ddpm_from_noise`` runs the same chain from given noisy maps and
 keeps the states of the reference's save schedule (``sampler.py:95-102``).
 
@@ -36,6 +41,9 @@ from .schedule import DDPMSchedule, ddpm_coefficients
 # z_fn(step, t) -> z for reverse step number ``step`` (0 first) at timestep
 # ``t``: the tests' hook for feeding both packages the same noise.
 ZFn = Callable[[int, int], torch.Tensor]
+# shortcut_fn(step, t) -> (kernel, bias): a stochastic-shortcut model's
+# projection draw for that step, in place of the generator's.
+ShortcutFn = Callable[[int, int], tuple]
 
 
 class SamplerOutput(NamedTuple):
@@ -90,13 +98,14 @@ def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
     return cemb1, cemb2, temb1_tab, temb2_tab
 
 
-def predict_features(model, x, tables, t: int, use_cfg: bool) -> torch.Tensor:
+def predict_features(model, x, tables, t: int, use_cfg: bool,
+                     shortcut=None) -> torch.Tensor:
     """The decoder's features at timestep ``t`` (``out_norm``'s output as
     NHWC, in the model's dtype): ``(B, ...)``, or ``(2B, ...)`` stacked
     ``[cond; uncond]`` under CFG, for the step kernel to apply ``out_conv2``
-    and combine."""
+    and combine.  ``shortcut``: a stochastic model's draw for this step."""
     cemb1, cemb2, temb1_tab, temb2_tab = tables
-    enc = model.encode(x)
+    enc = model.encode(x, shortcut=shortcut)
     if use_cfg:
         enc = enc.doubled()
     film = (cemb1, temb1_tab[t:t + 1], cemb2, temb2_tab[t:t + 1])
@@ -133,18 +142,21 @@ def sample_ddpm(
     x_init=None,
     device=None,
     z_fn: Optional[ZFn] = None,
+    shortcut_fn: Optional[ShortcutFn] = None,
 ) -> torch.Tensor:
     """Samples ``(B, size, size, C)`` by the exact ``T``-step ancestral chain.
 
     ``generator`` (on ``device``) draws ``x_init`` and ``params`` when they
     are not given (params uniform in [0, 1) per sample) and every step's z
-    unless ``z_fn`` supplies it.  ``guide_w``: a float, or a ``(B,)`` array
-    of all-positive weights.
+    unless ``z_fn`` supplies it (and a stochastic model's projection unless
+    ``shortcut_fn`` does).  ``guide_w``: a float, or a ``(B,)`` array of
+    all-positive weights.
     """
     x, params, use_cfg, w = prepare(
         model, n_sample, size, params, guide_w, x_init, generator, device
     )
-    x, _ = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn)
+    x, _ = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
+                       shortcut_fn=shortcut_fn)
     return x
 
 
@@ -158,6 +170,7 @@ def sample_ddpm_from_noise(
     save_rate: int = 20,
     device=None,
     z_fn: Optional[ZFn] = None,
+    shortcut_fn: Optional[ShortcutFn] = None,
 ) -> SamplerOutput:
     """The exact ``T``-step chain seeded with forward-diffused maps
     ``noise_images`` ``(B, H, W, C)`` (``sampler.py:344-366``).
@@ -173,35 +186,41 @@ def sample_ddpm_from_noise(
     )
     mask, _, _ = save_schedule(schedule.timesteps, save_rate)
     x, saved = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator,
-                           z_fn, mask)
+                           z_fn, mask, shortcut_fn)
     return SamplerOutput(x, torch.stack(saved))
 
 
 def _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
-                save_mask=None):
+                save_mask=None, shortcut_fn=None):
     steps = torch.arange(schedule.timesteps, 0, -1)
     coefs = ddpm_coefficients(schedule, steps)
     return run_chain(model, x, params, use_cfg, w, schedule.timesteps,
-                     steps.tolist(), coefs, generator, z_fn, save_mask)
+                     steps.tolist(), coefs, generator, z_fn, save_mask, shortcut_fn)
 
 
 def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
               coefs: torch.Tensor, generator, z_fn: Optional[ZFn],
-              save_mask: Optional[np.ndarray] = None):
+              save_mask: Optional[np.ndarray] = None,
+              shortcut_fn: Optional[ShortcutFn] = None):
     """The reverse loop of the samplers: at each timestep of ``steps``
-    (descending) the decoder's features and one launch of the step kernel
-    (output conv, guidance, update) with that step's ``[c_eps, inv_sqrt_a,
-    sigma]`` row of ``coefs``; z is drawn (or taken from ``z_fn``) only
-    where sigma is not 0.  Returns the last state and the list of the
-    states of the steps where ``save_mask`` (one bool a step) is set.
-    Runs inside :func:`fp32_math`."""
+    (descending) a stochastic model's projection draw (from ``generator``,
+    or ``shortcut_fn``), the decoder's features and one launch of the step
+    kernel (output conv, guidance, update) with that step's ``[c_eps,
+    inv_sqrt_a, sigma]`` row of ``coefs``; z is drawn (or taken from
+    ``z_fn``) only where sigma is not 0.  Returns the last state and the
+    list of the states of the steps where ``save_mask`` (one bool a step)
+    is set.  Runs inside :func:`fp32_math`."""
     saved = []
     with torch.inference_mode(), fp32_math():
         head = (to_compute(model.out_conv2.weight, model.dtype),
                 to_compute(model.out_conv2.bias, model.dtype))
         tables = film_tables(model, params, timesteps, use_cfg)
         for k, (t, (c_eps, inv_sqrt_a, sigma)) in enumerate(zip(steps, coefs.tolist())):
-            h = predict_features(model, x, tables, t, use_cfg)
+            proj = None
+            if model.stochastic:
+                proj = (shortcut_fn(k, t) if shortcut_fn is not None
+                        else model.draw_shortcut(generator))
+            h = predict_features(model, x, tables, t, use_cfg, proj)
             z = None
             if sigma != 0.0:
                 z = (z_fn(k, t).to(x.device) if z_fn is not None else

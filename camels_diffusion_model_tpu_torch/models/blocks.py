@@ -192,25 +192,39 @@ def commit_batch_stats(model: nn.Module) -> None:
                 m.staged = None
 
 
+SHORTCUTS = ("learned", "stochastic")
+
+
 class ResidualConvBlock(nn.Module):
     """Two (3x3 conv -> BatchNorm -> ReLU) stages, with the residual add of
-    ``is_res`` blocks: identity when the widths match, else the learned 1x1
-    ``shortcut`` (``blocks.py:163-236``).  In the compute dtype; with
+    ``is_res`` blocks: identity when the widths match, else a 1x1
+    projection (``blocks.py:163-236``): the learned ``shortcut`` conv, or
+    with ``shortcut="stochastic"`` the reference's fresh random projection
+    of each forward (``diffusion_utilities.py:54``, ``blocks.py:212-233``),
+    which the caller draws and passes as ``proj=(kernel (O, I, 1, 1),
+    bias (O,))`` in fp32 (:meth:`ContextUnet.draw_shortcut`); the block
+    holds no parameter for it.  Either projection computes in the compute
+    dtype, its kernel and bias cast to it, as JAX casts the draws.  With
     BatchNorm unfolded a stage returns fp32 and the residual sum (a bf16
-    shortcut plus an fp32 stage) promotes to fp32, as in JAX
+    projection plus an fp32 stage) promotes to fp32, as in JAX
     (``blocks.py:201,236``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  is_res: bool = False, fold_bn: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 shortcut: str = "learned"):
         super().__init__()
-        self.is_res = is_res
+        if shortcut not in SHORTCUTS:
+            raise ValueError(f"unknown shortcut mode: {shortcut!r}")
+        self.is_res, self.compute_dtype = is_res, compute_dtype
         self.conv1 = Conv3x3(in_channels, out_channels, compute_dtype)
         self.conv2 = Conv3x3(out_channels, out_channels, compute_dtype)
         if not fold_bn:
             self.conv1_bn = BatchNorm(out_channels)
             self.conv2_bn = BatchNorm(out_channels)
-        if is_res and in_channels != out_channels:
+        self.stochastic = (is_res and in_channels != out_channels
+                           and shortcut == "stochastic")
+        if is_res and in_channels != out_channels and not self.stochastic:
             self.shortcut = Conv2d(in_channels, out_channels, 1, compute_dtype=compute_dtype)
 
     def _stage(self, h, name: str, train: bool):
@@ -220,10 +234,17 @@ class ResidualConvBlock(nn.Module):
             h = bn(h, train)
         return F.relu(h)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, proj=None):
         x2 = self._stage(self._stage(x, "conv1", train), "conv2", train)
         if not self.is_res:
             return x2
+        if self.stochastic:
+            if proj is None:
+                raise ValueError("a stochastic shortcut needs its draw: proj=(kernel, bias)")
+            # fp32 keeps x's dtype (a float64 copy computes in float64)
+            d = x.dtype if self.compute_dtype == torch.float32 else self.compute_dtype
+            kernel, bias = (p.to(device=x.device, dtype=d) for p in proj)
+            return with_bias(F.conv2d, x, kernel, bias, self.compute_dtype) + x2
         if hasattr(self, "shortcut"):
             return self.shortcut(x) + x2
         return x + x2

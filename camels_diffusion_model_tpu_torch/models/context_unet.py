@@ -88,25 +88,37 @@ VARIANTS = {
 
 
 class ContextUnet(nn.Module):
-    """Parameter-conditional U-Net denoiser (the JAX module's arguments but
-    ``shortcut``: the learned shortcut; ``dtype`` as in the module
-    docstring)."""
+    """Parameter-conditional U-Net denoiser (the JAX module's arguments;
+    ``dtype`` as in the module docstring).
+
+    ``shortcut``: ``"learned"`` (the default: ``init_conv`` has a 1x1
+    ``shortcut`` conv) or ``"stochastic"``, the reference's fresh random
+    1x1 projection in ``init_conv`` on every forward
+    (``diffusion_utilities.py:54``; ``context_unet.py:77-80``).  A
+    stochastic model holds no ``init_conv.shortcut`` parameter; each
+    :meth:`encode` (and so each forward) takes the draw as
+    ``shortcut=(kernel, bias)``, drawn by :meth:`draw_shortcut`.  The samplers, the likelihood passes and the
+    trainer draw one per model evaluation from their generator, or take
+    it from their ``shortcut_fn`` / ``shortcut=`` hooks.
+    """
 
     def __init__(self, in_channels: int = 1, n_feat: int = 128,
                  n_cfeat: int = 6, height: int = 64, levels: int = 2,
                  up0_act: str = "relu", out_act: str = "relu",
                  final_tanh: bool = False, extra_out_conv: bool = False,
-                 fold_bn: bool = False, dtype: torch.dtype = torch.float32):
+                 fold_bn: bool = False, dtype: torch.dtype = torch.float32,
+                 shortcut: str = "learned"):
         super().__init__()
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
         self.in_channels, self.n_feat, self.n_cfeat = in_channels, n_feat, n_cfeat
         self.height, self.levels = height, levels
-        self.final_tanh, self.dtype = final_tanh, dtype
+        self.final_tanh, self.dtype, self.shortcut = final_tanh, dtype, shortcut
         n = n_feat
         cb = self.bottleneck_feat
         d = dict(compute_dtype=dtype)
-        self.init_conv = ResidualConvBlock(in_channels, n, is_res=True, fold_bn=fold_bn, **d)
+        self.init_conv = ResidualConvBlock(in_channels, n, is_res=True, fold_bn=fold_bn,
+                                           shortcut=shortcut, **d)
         # Down-path widths [n, 2n] (two levels) or [n, 2n, 4n] (three).
         skip_feats = [n, n] + [n * 2**i for i in range(1, levels)]  # x0, then downs
         for i in range(levels):
@@ -152,11 +164,32 @@ class ContextUnet(nn.Module):
     def bottleneck_feat(self) -> int:
         return self.n_feat * 2 ** (self.levels - 1)
 
-    def encode(self, x: torch.Tensor, train: bool = False) -> EncoderState:
+    @property
+    def stochastic(self) -> bool:
+        """Whether ``init_conv`` draws a fresh projection each forward."""
+        return self.shortcut == "stochastic"
+
+    def draw_shortcut(self, generator: torch.Generator) -> tuple:
+        """One draw of the stochastic projection from ``generator``, on its
+        device, fp32: ``kernel (n_feat, in_channels, 1, 1)``, then ``bias
+        (n_feat,)``, each uniform in +-1/sqrt(in_channels), torch's
+        ``Conv2d`` init (``blocks.py:212-222``)."""
+        bound = 1.0 / self.in_channels ** 0.5
+        dev = generator.device
+        kernel = torch.empty((self.n_feat, self.in_channels, 1, 1), device=dev)
+        bias = torch.empty((self.n_feat,), device=dev)
+        return (kernel.uniform_(-bound, bound, generator=generator),
+                bias.uniform_(-bound, bound, generator=generator))
+
+    def encode(self, x: torch.Tensor, train: bool = False, shortcut=None) -> EncoderState:
         """init_conv + down path + pooled bottleneck of NHWC ``x``, cast to
-        the compute dtype first."""
+        the compute dtype first.  ``shortcut``: a stochastic model's
+        projection ``(kernel, bias)`` (:meth:`draw_shortcut`); a
+        learned-shortcut model takes none."""
         x = to_compute(to_nchw(x).contiguous(memory_format=torch.channels_last), self.dtype)
-        x0 = self.init_conv(x, train)
+        if shortcut is not None and not self.stochastic:
+            raise ValueError("a learned-shortcut model takes no shortcut draw")
+        x0 = self.init_conv(x, train, proj=shortcut)
         downs = []
         h = x0
         for i in range(self.levels):
@@ -220,8 +253,8 @@ class ContextUnet(nn.Module):
         eps = self.out_conv2(self.decode_features(enc, t, c, film=film, train=train))
         return to_nhwc(torch.tanh(eps) if self.final_tanh else eps)
 
-    def forward(self, x, t, c=None, train: bool = False):
+    def forward(self, x, t, c=None, train: bool = False, shortcut=None):
         """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and
         context ``c`` ((B, n_cfeat) or None); ``train=True`` is the training
-        forward (module docstring)."""
-        return self.decode(self.encode(x, train), t, c, train=train)
+        forward (module docstring); ``shortcut`` as :meth:`encode`."""
+        return self.decode(self.encode(x, train, shortcut), t, c, train=train)

@@ -155,10 +155,12 @@ def load_model(variables: dict, device=None, fold_bn: bool = True,
                dtype: torch.dtype = torch.float32) -> ContextUnet:
     """A ContextUnet holding flax ``variables`` (numpy tree from
     ``load_variables``; widths and variant read from it: a ``down3`` makes
-    it three-level, deep or, with ``out_conv_extra``, big), BatchNorms
-    folded by default, computing in ``dtype`` (float32 or bfloat16: the JAX
-    package's ``ContextUnet(dtype=...)`` plus ``fold_inference``), in eval
-    mode on ``device`` with channels_last weights.
+    it three-level, deep or, with ``out_conv_extra``, big; no
+    ``init_conv/shortcut`` makes it a stochastic-shortcut model, whose tree
+    has none), BatchNorms folded by default, computing in ``dtype`` (float32
+    or bfloat16: the JAX package's ``ContextUnet(dtype=...)`` plus
+    ``fold_inference``), in eval mode on ``device`` with channels_last
+    weights.
 
     The BatchNorms fold in fp32 (``models/fold_bn.py``).  A folded bf16
     model keeps its conv and dense weights as bf16 copies, the cast each
@@ -170,9 +172,11 @@ def load_model(variables: dict, device=None, fold_bn: bool = True,
     p = variables["params"]
     variant = VARIANTS["big" if "out_conv_extra" in p else "deep" if "down3" in p
                        else "canonical"]
+    in_channels, n_feat = p["init_conv"]["conv1"]["conv"]["kernel"].shape[2:]
+    stochastic = in_channels != n_feat and "shortcut" not in p["init_conv"]
     model = ContextUnet(
-        in_channels=p["init_conv"]["conv1"]["conv"]["kernel"].shape[2],
-        n_feat=p["init_conv"]["conv1"]["conv"]["kernel"].shape[3],
+        in_channels=in_channels, n_feat=n_feat,
+        shortcut="stochastic" if stochastic else "learned",
         n_cfeat=p["contextembed1"]["fc1"]["kernel"].shape[0],
         height=p["up0_conv"]["kernel"].shape[0] * 2 ** variant["levels"],
         fold_bn=fold_bn, dtype=dtype, **variant,

@@ -11,11 +11,15 @@ decoder's GroupNorm and FiLM in plain PyTorch under autograd, as the JAX
 package trains without its Pallas kernels; the validation step is a no-grad
 ``train=False`` forward, so it runs kernels K2 and K3 on the card.
 
-Noise: JAX draws ``t`` and the noise of each step from ``split(rng, 3)`` of
-the step's key.  Here a step draws ``t`` first, then the noise, from a
-generator seeded by ``(run seed, 0, step)`` (:func:`seeded_generator`), so a
-run resumed at step ``n`` draws what the unbroken run drew; the tests inject
-JAX's draws through ``t=`` and ``noise=``.  The steps run inside
+Noise: JAX draws ``t``, the noise and a stochastic-shortcut model's
+projection of each step from ``split(rng, 3)`` of the step's key
+(``trainer.py:168-183,247``).  Here a step draws ``t`` first, then the
+noise, then the projection (stochastic models only) from a generator
+seeded by ``(run seed, 0, step)`` (:func:`seeded_generator`), so a run
+resumed at step ``n`` draws what the unbroken run drew; the tests inject
+JAX's draws through ``t=``, ``noise=`` and ``shortcut=``.  The projection
+goes into the forward as an argument, so a rematerialised forward uses
+the same one.  The steps run inside
 :func:`fp32_math` (TF32 off).  A bf16 model (``ContextUnet(dtype=
 torch.bfloat16)``) computes its forward in bf16 on fp32 parameters: its eps
 is bf16, the loss against the fp32 noise promotes to fp32, autograd carries
@@ -124,16 +128,16 @@ def _save_convolutions(ctx, op, *args, **kwargs):
 
 
 def _training_forward(model: nn.Module, remat):
-    def forward(x, t, c):
-        return model(x, t, c, train=True)
+    def forward(x, t, c, proj=None):
+        return model(x, t, c, train=True, shortcut=proj)
 
     if remat == "convs":
         context = functools.partial(create_selective_checkpoint_contexts,
                                     _save_convolutions)
-        return lambda x, t, c: checkpoint(forward, x, t, c, use_reentrant=False,
-                                          context_fn=context)
+        return lambda *args: checkpoint(forward, *args, use_reentrant=False,
+                                        context_fn=context)
     if remat:
-        return lambda x, t, c: checkpoint(forward, x, t, c, use_reentrant=False)
+        return lambda *args: checkpoint(forward, *args, use_reentrant=False)
     return forward
 
 
@@ -147,26 +151,35 @@ class _Noising:
         self.schedule = make_schedule(timesteps, beta1, beta2)
         self._on = {}  # device -> the schedule there (no host sync a step)
 
-    def __call__(self, x, c, mask, generator, t, noise):
+    def needs_generator(self, t, noise, shortcut) -> bool:
+        return t is None or noise is None or (self.model.stochastic and shortcut is None)
+
+    def __call__(self, x, c, mask, generator, t, noise, shortcut):
         dev = next(self.model.parameters()).device
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         c = torch.as_tensor(c, dtype=torch.float32, device=dev)
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-        if (t is None or noise is None) and generator is None:
-            raise ValueError("give a generator, or both t and noise")
+        if self.needs_generator(t, noise, shortcut) and generator is None:
+            raise ValueError("give a generator, or t, noise (and a stochastic "
+                             "model's shortcut)")
         if t is None:
             t = torch.randint(1, self.timesteps + 1, (x.shape[0],),
                               generator=generator, device=dev)
         if noise is None:
             noise = torch.randn(x.shape, generator=generator, device=dev)
+        if self.model.stochastic and shortcut is None:
+            shortcut = self.model.draw_shortcut(generator)
+        if shortcut is not None:
+            shortcut = tuple(torch.as_tensor(p, dtype=torch.float32, device=dev)
+                             for p in shortcut)
         t = torch.as_tensor(t, dtype=torch.long, device=dev)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
         if dev not in self._on:
             self._on[dev] = DDPMSchedule(*(a.to(dev) for a in self.schedule[:3]),
                                          self.timesteps)
         x_pert = q_sample(self._on[dev], x, t, noise, self.scaling)
-        return x_pert, t, t.float() / self.timesteps, c, noise, mask
+        return x_pert, t, t.float() / self.timesteps, c, noise, mask, shortcut
 
 
 def _per_sample_mse(out, noise):
@@ -177,13 +190,14 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
                     beta1: float = 1e-4, beta2: float = 0.02, remat=False):
     """The training step (``trainer.py:107-214``):
 
-        metrics = step(state, x, c, mask=None, *, t=None, noise=None)
+        metrics = step(state, x, c, mask=None, *, t=None, noise=None, shortcut=None)
 
     ``x`` NHWC, ``c`` ``(B, n_cfeat)``, ``mask`` ``(B,)`` (1 real row, 0
     pad row: the loss and its gradient are the mean over the real rows;
     the pad rows still count in the BatchNorm statistics, as in JAX).
-    ``t`` ``(B,)`` and ``noise`` (``x``'s shape) replace the draws from the
-    step's generator.  The step updates ``state`` in place -- parameters,
+    ``t`` ``(B,)``, ``noise`` (``x``'s shape) and ``shortcut`` (a stochastic
+    model's ``(kernel, bias)``) replace the draws from the step's
+    generator.  The step updates ``state`` in place -- parameters,
     Adam moments, BatchNorm running statistics, ``step`` -- and leaves this
     step's gradients in each parameter's ``.grad``; the JAX step's
     ``donate`` has no counterpart, as torch updates in place anyway.
@@ -198,17 +212,20 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
     noising = _Noising(model, timesteps, scaling, beta1, beta2)
     forward = _training_forward(model, remat)
 
-    def train_step(state: TrainState, x, c, mask=None, *, t=None, noise=None):
+    def train_step(state: TrainState, x, c, mask=None, *, t=None, noise=None,
+                   shortcut=None):
         if state.model is not model:
             raise ValueError("the state holds another model than this step's")
         dev = next(model.parameters()).device
         generator = None
-        if t is None or noise is None:
+        if noising.needs_generator(t, noise, shortcut):
             generator = seeded_generator(dev, state.seed, 0, state.step)
         with fp32_math():
-            x_pert, t, t_norm, c, noise, mask = noising(x, c, mask, generator, t, noise)
+            x_pert, t, t_norm, c, noise, mask, proj = noising(x, c, mask, generator, t,
+                                                              noise, shortcut)
             state.optimizer.zero_grad(set_to_none=True)
-            per_sample = _per_sample_mse(forward(x_pert, t_norm, c), noise)
+            args = (x_pert, t_norm, c) + ((proj,) if proj is not None else ())
+            per_sample = _per_sample_mse(forward(*args), noise)
             per_sample, loss = masked_mean(per_sample, mask)
             loss.backward()
             for group in state.optimizer.param_groups:
@@ -225,18 +242,21 @@ def make_eval_step(model: nn.Module, timesteps: int, scaling: str = "reference",
                    beta1: float = 1e-4, beta2: float = 0.02):
     """The validation MSE step (``trainer.py:217-255``):
 
-        metrics = eval_step(x, c, mask=None, *, generator=None, t=None, noise=None)
+        metrics = eval_step(x, c, mask=None, *, generator=None, t=None, noise=None,
+                            shortcut=None)
 
     A ``train=False`` forward of ``model`` (running statistics; kernels K2
-    and K3 on the card) under ``torch.inference_mode()``, with ``t`` and
-    the noise drawn from ``generator`` unless given.  Returns
+    and K3 on the card) under ``torch.inference_mode()``, with ``t``, the
+    noise and a stochastic model's projection drawn from ``generator`` in
+    that order unless given.  Returns
     ``{"loss", "per_sample_mse", "t"}`` as device tensors."""
     noising = _Noising(model, timesteps, scaling, beta1, beta2)
 
-    def eval_step(x, c, mask=None, *, generator=None, t=None, noise=None):
+    def eval_step(x, c, mask=None, *, generator=None, t=None, noise=None, shortcut=None):
         with torch.inference_mode(), fp32_math():
-            x_pert, t, t_norm, c, noise, mask = noising(x, c, mask, generator, t, noise)
-            per_sample = _per_sample_mse(model(x_pert, t_norm, c), noise)
+            x_pert, t, t_norm, c, noise, mask, proj = noising(x, c, mask, generator, t,
+                                                              noise, shortcut)
+            per_sample = _per_sample_mse(model(x_pert, t_norm, c, shortcut=proj), noise)
             per_sample, loss = masked_mean(per_sample, mask)
         return {"loss": loss, "per_sample_mse": per_sample, "t": t}
 

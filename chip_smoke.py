@@ -66,12 +66,25 @@ Phases, each timed on its own line:
       against the CPU with its time, idle share and peak memory; and
       ``run_experiment("nov26", dtype="bfloat16")`` with its resume.  bf16
       gates are yardsticks: the card's bf16 within ``BF16_FACTOR`` x the
-      distance of the reference's bf16 from its fp32.
+      distance of the reference's bf16 from its fp32;
+  (p) the reference's own workflow at full width: the native C++ prep
+      (``native/camels_prep.cpp``, built by the port) must load; its
+      ``"code"`` prep of a synthetic 1500x256x256 stack timed against the
+      numpy path, with their largest difference (gate: an ulp of 1.0); the
+      committed checkpoint exported to a reference ``.pth`` and served by
+      the comparison CLI (``cli.sample.generate_comparison_plot``: the
+      exact 1500-step chain, w 0, 15 maps; wall time and maps/min); the
+      ``.pth`` model's eps on the card against the ``.msgpack`` model with
+      the threefry shortcut put in and against the CPU; the stochastic
+      init_conv shortcut: four exact-chain steps and an ELBO batch on the
+      card against the CPU under injected z and draws, and
+      ``run_experiment("nov26", shortcut="stochastic")``, one epoch at T
+      1500.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
-phase (n) -- is driven with every kernel's launch count set to 0 just before it and read
+phase (n), the comparison CLI and the stochastic paths of phase (p) -- is driven with every kernel's launch count set to 0 just before it and read
 just after, and must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
 which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
@@ -95,6 +108,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -104,6 +118,7 @@ import torch.nn.functional as F
 
 from camels_diffusion_model_tpu_torch import _msgpack
 from camels_diffusion_model_tpu_torch.cli import experiment
+from camels_diffusion_model_tpu_torch.cli import sample as sample_cli
 from camels_diffusion_model_tpu_torch.cli.experiment import reconstruct
 from camels_diffusion_model_tpu_torch.cli.serve import TIMESTEPS, serve
 from camels_diffusion_model_tpu_torch.diffusion.ddim import ddim_timesteps, sample_ddim
@@ -113,7 +128,12 @@ from camels_diffusion_model_tpu_torch.diffusion.likelihood import (
     nll_batch,
 )
 from camels_diffusion_model_tpu_torch.config import ExperimentConfig
-from camels_diffusion_model_tpu_torch.data.pipeline import normalize_maps, num_batches
+from camels_diffusion_model_tpu_torch.data import native_prep
+from camels_diffusion_model_tpu_torch.data.pipeline import (
+    normalize_maps,
+    num_batches,
+    resize_maps_np,
+)
 from camels_diffusion_model_tpu_torch.data.synthetic import synthetic_camels
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm, save_schedule
 from camels_diffusion_model_tpu_torch.diffusion.schedule import (
@@ -144,7 +164,8 @@ from camels_diffusion_model_tpu_torch.models.blocks import Conv2d
 from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
 from camels_diffusion_model_tpu_torch.training import trainer
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
-from camels_diffusion_model_tpu_torch.utils.weights import from_jax_variables
+from camels_diffusion_model_tpu_torch.utils import torch_interop
+from camels_diffusion_model_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
@@ -278,6 +299,10 @@ VARIANT_TIMED = {"deep": (5, 3), "big": (3, 2)}  # timed and profiled train step
 # samples with up to five chains of them), RUN_EPOCHS epoch(s), at most
 # RUN_MAPS synthetic maps; widths and the batch of 32 as configured.
 RUN_T, RUN_EPOCHS = 20, 1
+# Phase (p).  The native and numpy "code" normalisations round differently
+# on some pixels of maps in [0, 1]: by at most an ulp of 1.0 (2^-23).
+PREP_MAPS, PREP_SIZE, PREP_TOL = 1500, 256, 2.0**-23
+CLI_MAPS = 15  # the comparison CLI's default n_maps
 RUN_MAPS = {"initial": 90, "main": 90, "paper": 240}
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
@@ -1377,6 +1402,152 @@ def check_bf16(dev, drive, variables, cpu32, served, train_ref) -> None:
     check_nov26(dev, drive, "bfloat16")
 
 
+def check_native_prep() -> None:
+    """Phase (p): the port's build of the native prep loads, and its
+    ``"code"`` prep (normalise, resize to 64) of a synthetic
+    ``PREP_MAPS`` x ``PREP_SIZE``^2 stack against the numpy path: times and
+    the largest difference (normalised maps within ``PREP_TOL``)."""
+    t1 = time.perf_counter()
+    if not native_prep.available():
+        raise SystemExit("the native prep library did not build or load")
+    print(f"  native prep: {native_prep.library_path()} built and loaded in "
+          f"{time.perf_counter() - t1:.3f} s")
+    raw, _ = synthetic_camels(n_param_sets=PREP_MAPS // 15, maps_per_set=15, size=PREP_SIZE,
+                              seed=0)
+    t1 = time.perf_counter()
+    nat = native_prep.normalize_maps_native(raw)
+    nat64 = native_prep.resize_maps_native(nat, 64)
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ref = normalize_maps(raw, "code").astype(np.float32)
+    ref64 = resize_maps_np(ref, 64)
+    numpy_s = time.perf_counter() - t1
+    err, err64 = float(np.abs(nat - ref).max()), float(np.abs(nat64 - ref64).max())
+    print(f"  \"code\" prep of {raw.shape} float32 to 64x64 on the host: native "
+          f"{native_s:.3f} s, numpy {numpy_s:.3f} s ({numpy_s / native_s:.2f}x); max abs "
+          f"difference normalised {err:.3e} (tol {PREP_TOL:.3e}), resized {err64:.3e}; "
+          f"pixels that differ {float(np.mean(nat != ref)):.4f}", flush=True)
+    if not err <= PREP_TOL:
+        raise SystemExit(f"native vs numpy prep: {err} > {PREP_TOL}")
+
+
+def stochastic_variables(variables: dict) -> dict:
+    """The checkpoint's tree without its learned ``init_conv/shortcut``: a
+    stochastic-shortcut model's (the reference's ContextUnet)."""
+    params = dict(variables["params"])
+    params["init_conv"] = {k: v for k, v in params["init_conv"].items() if k != "shortcut"}
+    return {"params": params, "batch_stats": variables["batch_stats"]}
+
+
+def check_reference_workflow(dev, drive, variables) -> None:
+    """Phase (p) (module docstring) on the committed checkpoint's
+    ``variables``."""
+    check_native_prep()
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        template = to_jax_variables(ContextUnet().state_dict())
+    out = os.path.join(OUT_DIR, "sample_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "reference.pth")
+        t1 = time.perf_counter()
+        torch_interop.save_torch_checkpoint(variables, pth)
+        imported = torch_interop.load_torch_checkpoint(template, pth)
+        print(f"  committed checkpoint -> reference .pth ({os.path.getsize(pth) / 2**20:.1f} "
+              f"MiB) -> imported in {time.perf_counter() - t1:.3f} s")
+        t1 = time.perf_counter()
+        res = drive("sample_cli_pth", lambda: sample_cli.generate_comparison_plot(
+            model_path=pth, camels_data_path=os.path.join(tmp, "absent.npy"),
+            params_path=os.path.join(tmp, "absent.npy"), output_dir=out,
+            selected_params_dict=dict(sample_cli.SELECTED_PARAMS), n_maps=CLI_MAPS,
+            timesteps=TIMESTEPS, seed=0, serving_steps=0, calibration_path="",
+            guide_w=0.0, device=dev), steps=TIMESTEPS)
+        seconds = time.perf_counter() - t1
+    ratio = res["hicdm_pk_mean"] / res["camels_pk_mean"]
+    print(f"  comparison CLI on the .pth: {CLI_MAPS} maps, exact chain of {TIMESTEPS} steps, "
+          f"w 0, in {seconds:.3f} s ({CLI_MAPS / seconds * 60:.2f} maps/min, "
+          f"{seconds / TIMESTEPS * 1e3:.3f} ms a step, model load and P(k) included); "
+          f"mean P(k) ratio HI-CDM/CAMELS {np.mean(ratio):.4f} ± {np.std(ratio):.4f}; "
+          f"files {sorted(os.listdir(out))}", flush=True)
+    if (not all(np.isfinite(res[k]).all() for k in ("hicdm_pk_mean", "hicdm_pk_std"))
+            or not os.path.exists(os.path.join(out, "power_spectrum_results.npy"))):
+        raise SystemExit(f"comparison CLI: non-finite spectra or no results file in {out}")
+
+    # The .pth model is the .msgpack one with the learned shortcut re-seeded
+    # by threefry (torch_interop.shortcut_seed_draw).
+    seeded = {"params": dict(variables["params"]), "batch_stats": variables["batch_stats"]}
+    sc = variables["params"]["init_conv"]["shortcut"]
+    kernel, bias = torch_interop.shortcut_seed_draw(sc["kernel"].shape, sc["bias"].shape)
+    seeded["params"]["init_conv"] = {**variables["params"]["init_conv"],
+                                     "shortcut": {"kernel": kernel, "bias": bias}}
+    d = np.load(GOLDEN)
+    x, t, c = (torch.tensor(d[k]) for k in ("x", "t", "c"))
+    eps = {}
+    for name, tree, device in (("pth", imported, dev), ("msgpack_seeded", seeded, dev),
+                               ("pth_cpu", imported, "cpu")):
+        m = load_model(tree, device)
+        with torch.no_grad():
+            eps[name] = m(x.to(device), t.to(device), c.to(device)).cpu()
+    same = (eps["pth"] - eps["msgpack_seeded"]).abs().max().item()
+    cpu = (eps["pth"] - eps["pth_cpu"]).abs().max().item()
+    print(f"  .pth model's eps on the card vs the .msgpack model with the threefry shortcut: "
+          f"max abs {same:.3e}; vs the .pth model on the CPU {cpu:.3e} (tol {GOLDEN_TOL:g})")
+    if not (same <= GOLDEN_TOL and cpu <= GOLDEN_TOL):
+        raise SystemExit(f".pth model eps: {same} / {cpu} > {GOLDEN_TOL}")
+
+    # The stochastic shortcut: one draw a model evaluation, injected.
+    stoch = stochastic_variables(variables)
+    smodels = (load_model(stoch, dev), load_model(stoch, "cpu"))
+    if not all(m.stochastic for m in smodels):
+        raise SystemExit("the tree without init_conv/shortcut did not load as stochastic")
+    rs = np.random.RandomState(5)
+    draws = [(torch.tensor(rs.uniform(-1, 1, (128, 1, 1, 1)).astype(np.float32)),
+              torch.tensor(rs.uniform(-1, 1, (128,)).astype(np.float32))) for _ in range(10)]
+    taus = [1, 2, 3, 4]
+    x0 = rs.randn(2, 64, 64, 1).astype(np.float32)
+    params = certification_contexts(2)
+    zs = [torch.tensor(rs.randn(2, 64, 64, 1).astype(np.float32)) for _ in taus]
+
+    def on_card_driven(path, m, run, **counts):
+        """``run()``, driven as ``path`` with its launch counts on the card."""
+        return drive(path, run, **counts) if on(m).type == "cuda" else run()
+
+    outs = [on_card_driven("stochastic_exact_steps", m, lambda m=m: sample_ddim(
+        m, make_schedule(TIMESTEPS), torch.Generator(device=on(m)), params=params,
+        guide_w=2.0, x_init=x0, taus=np.asarray(taus), sigma_mode="beta", device=on(m),
+        z_fn=lambda k, t: zs[k], shortcut_fn=lambda k, t: draws[k]),
+        steps=len(taus)).cpu() for m in smodels]
+    err = (outs[0] - outs[1]).abs().max().item()
+    print(f"  stochastic shortcut, exact chain t = 4..1 at w=2 (the strided sampler at "
+          f"stride 1), card vs CPU: max abs err {err:.3e} (tol {GOLDEN_TOL:g})", flush=True)
+    if not err <= GOLDEN_TOL:
+        raise SystemExit(f"stochastic exact steps on the card vs the CPU: {err} > {GOLDEN_TOL}")
+    schedule = make_schedule(TIMESTEPS)
+    check_likelihood_vs_cpu(
+        smodels, lambda m, x, c, nf: on_card_driven("stochastic_elbo", m, lambda: elbo_bpd_batch(
+            m, schedule, x, c, noise_fn=nf, shortcut_fn=lambda bi, k, t: draws[k],
+            device=on(m)), forwards=10),
+        outs[0].numpy(), params, 10, "stochastic shortcut, ELBO of 2 maps")
+
+    cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=1, timesteps=TIMESTEPS,
+                           n_eval_images=4, shortcut="stochastic",
+                           output_root=os.path.join(OUT_DIR, "exp_stochastic"))
+    shutil.rmtree(cfg.output_root, ignore_errors=True)
+    t1 = time.perf_counter()
+    res = drive("run_experiment_stochastic",
+                lambda: experiment.run_experiment(cfg, device=dev),
+                steps=TIMESTEPS * sampler_calls(cfg), train_forwards=14)
+    ckpt = load_variables(os.path.join(res["output_dir"], "weights", "train_state.msgpack"))
+    print(f"  run_experiment nov26, shortcut stochastic, 1 epoch, T {TIMESTEPS}: losses "
+          f"{res['loss_log']}, reconstructed mean {res['means']['reconstructed']:.6f}, "
+          f"in {time.perf_counter() - t1:.3f} s", flush=True)
+    if (not np.isfinite(res["loss_log"]).all() or not np.isfinite(res["means"]["reconstructed"])
+            or "shortcut" in ckpt["params"]["init_conv"]):
+        raise SystemExit(f"run_experiment stochastic: losses {res['loss_log']}, means "
+                         f"{res['means']}, init_conv leaves {sorted(ckpt['params']['init_conv'])}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1603,6 +1774,10 @@ def main() -> int:
     t0 = time.perf_counter()
     check_bf16(dev, drive, variables, models[1], served, train_ref)
     phase("(o) bf16 at full width", t0)
+
+    t0 = time.perf_counter()
+    check_reference_workflow(dev, drive, variables)
+    phase("(p) the reference workflow at full width", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

@@ -70,8 +70,10 @@ def test_resize_matches_jax_and_torch_bilinear(raw, size):
 def test_load_camels_dataset_matches_jax_numpy_path(raw, monkeypatch, style, num_params,
                                                      param_index):
     """Split, maps, contexts, parameter min/max and ``info`` equal the JAX
-    package's numpy path (its C++ fast path is not ported)."""
+    package's numpy path, both packages' C++ path switched off
+    (``tests/test_torch_port_native_prep.py`` holds the default path)."""
     monkeypatch.setattr(native_prep, "available", lambda: False)
+    monkeypatch.setattr(pipeline.native_prep, "available", lambda: False)
     maps, params = raw
     kw = dict(num_params=num_params, height=16, test_size=6, seed=42, style=style,
               param_index=param_index)

@@ -173,13 +173,13 @@ def test_run_logger_writes_the_jax_packages_lines(tmp_path):
     ("nov26", ["figures"]),
 ])
 def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, mode, skipped):
-    """The figures (ROADMAP item 10) are skipped, listed in
+    """The figures (ROADMAP section 1, leftovers) are skipped, listed in
     ``results["not_ported"]`` and printed; the stages after the
     reconstruction run."""
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **TINY)
     res = experiment.run_experiment(cfg, device="cpu")
     assert res["not_ported"] == skipped
-    assert ("Not run by the port (ROADMAP section 1, item 10): " + ", ".join(skipped)
+    assert ("Not run by the port (ROADMAP section 1, leftovers): " + ", ".join(skipped)
             in capsys.readouterr().out.splitlines())
     assert not any(name.endswith(".png") for name in _files(tmp_path))
 
@@ -215,8 +215,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("mode,overrides,item", [
-    ("condition", {"shortcut": "stochastic"}, "item 9"),
-    ("condition", {"mesh_devices": 2}, "item 11"),
+    ("condition", {"mesh_devices": 2}, "multi-device"),
 ])
 def test_parts_not_ported_raise(tmp_path, mode, overrides, item):
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **{**TINY, **overrides})

@@ -16,6 +16,7 @@ import torch
 import chip_smoke
 from camels_diffusion_model_tpu_torch import resolve_device
 from camels_diffusion_model_tpu_torch.cli import experiment as experiment_cli
+from camels_diffusion_model_tpu_torch.cli import sample as sample_cli
 from camels_diffusion_model_tpu_torch.cli import serve as serve_cli
 from camels_diffusion_model_tpu_torch.ops import _build
 from camels_diffusion_model_tpu_torch.diffusion.ddim import sample_ddim
@@ -53,6 +54,13 @@ PORT_MODULES = [
     "camels_diffusion_model_tpu_torch.training.trainer",
     "camels_diffusion_model_tpu_torch.config",
     "camels_diffusion_model_tpu_torch.utils.run_logging",
+    "camels_diffusion_model_tpu_torch.data.native_prep",
+    "camels_diffusion_model_tpu_torch.data.map_dataset",
+    "camels_diffusion_model_tpu_torch.utils.threefry",
+    "camels_diffusion_model_tpu_torch.utils.torch_interop",
+    "camels_diffusion_model_tpu_torch.utils.image_norm",
+    "camels_diffusion_model_tpu_torch.utils.viz",
+    "camels_diffusion_model_tpu_torch.cli.sample",
     "chip_smoke",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "matplotlib", "camels_diffusion_model_tpu")
@@ -97,6 +105,19 @@ def test_experiment_without_device_raises_before_writing(no_cuda, tmp_path, monk
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         experiment_cli.main(["condition", "1e-4", "2", "8", "6"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_sample_cli_without_device_raises_before_writing(no_cuda, tmp_path, monkeypatch):
+    """``python -m camels_diffusion_model_tpu_torch.cli.sample`` runs on
+    the card unless ``--device cpu``."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("CAMELS_ALLOW_FRESH_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_cli.main(["none.msgpack", "4", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_cli.generate_comparison_plot("none.msgpack", "a.npy", "b.npy",
+                                            str(tmp_path / "out"), {})
     assert not any(tmp_path.iterdir())
 
 

@@ -28,6 +28,7 @@ from camels_diffusion_model_tpu_torch.diffusion.schedule import (
     make_schedule,
     q_sample,
 )
+from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
 from camels_diffusion_model_tpu_torch.serving import load_model
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
 
@@ -319,10 +320,10 @@ def test_likelihood_checks_the_model(tiny):
     model.train()
     with pytest.raises(ValueError, match="eval mode"):
         tl.elbo_bpd_batch(model, make_schedule(T), x, c, torch.Generator(), device="cpu")
-    model.eval()
-    model.shortcut = "stochastic"
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        tl.nll_batch(model, make_schedule(T), x, c, torch.Generator(), device="cpu")
+    stochastic = ContextUnet(n_feat=8, n_cfeat=NC, height=H, shortcut="stochastic").eval()
+    with pytest.raises(ValueError, match="generator or a shortcut_fn"):
+        tl.nll_batch(stochastic, make_schedule(T), x, c, device="cpu",
+                     noise_fn=lambda bi, k, t, shape: np.zeros(shape, np.float32))
     with pytest.raises(ValueError, match="generator or a noise_fn"):
         tl.elbo_bpd_batch(tiny[2]["folded"], make_schedule(T), x, c, device="cpu")
 

@@ -24,7 +24,6 @@ import jax.numpy as jnp
 
 from camels_diffusion_model_tpu.cli import experiment as jax_experiment
 from camels_diffusion_model_tpu.config import ExperimentConfig as JaxExperimentConfig
-from camels_diffusion_model_tpu.data.pipeline import load_camels_dataset as jax_load_camels_dataset
 from camels_diffusion_model_tpu.ops import spectrum as jax_spectrum
 from camels_diffusion_model_tpu_torch.cli import experiment
 from camels_diffusion_model_tpu_torch.config import ExperimentConfig
@@ -100,13 +99,10 @@ def _run_jax(mode, root, calls, monkeypatch, **kw):
         JaxExperimentConfig(mode=mode, output_root=str(root), **kw))
 
 
-def _run_port(mode, root, calls, monkeypatch, jax_data=False, **kw):
+def _run_port(mode, root, calls, monkeypatch, **kw):
     """The port's runner with recording samplers and the stand-in
-    metrics; with ``jax_data``, on the JAX package's dataset (the port's
-    pipeline gives the same maps up to an ulp,
-    ``tests/test_torch_port_data.py``)."""
-    if jax_data:
-        monkeypatch.setattr(experiment, "load_camels_dataset", jax_load_camels_dataset)
+    metrics, on its own dataset (the JAX package's bit for bit,
+    ``tests/test_torch_port_native_prep.py``)."""
 
     def sampler(model, schedule, generator, n_sample=1, size=64, params=None,
                 guide_w=0.0, device=None):
@@ -183,10 +179,10 @@ def test_spectrum_indiv_pk_lines_equal_the_jax_runners(tmp_path, monkeypatch):
     for byte, on the same maps.  The port's spectra differ from the JAX
     package's by float32 rounding (within 1e-5 relative here, as
     ``test_torch_port_eval.py::test_compare_power_spectra_stats_matches_jax``
-    holds them), and its data by an ulp; a ratio of nearly empty bins
-    carries either into the fourth decimal.  So the port runs on the JAX
-    dataset and takes the JAX spectra of the maps it is given, and the
-    stage's own arithmetic and lines are compared."""
+    holds them); a ratio of nearly empty bins carries that into the fourth
+    decimal.  So the port takes the JAX spectra of the maps it is given
+    (its dataset is the JAX package's bit for bit), and the stage's own
+    arithmetic and lines are compared."""
     kw = dict(TINY, num_params=1, param_index=2)
     seen = []
 
@@ -196,8 +192,7 @@ def test_spectrum_indiv_pk_lines_equal_the_jax_runners(tmp_path, monkeypatch):
 
     monkeypatch.setattr(experiment, "compare_power_spectra_stats", jax_stats)
     jax_res = _run_jax("spectrum_indiv", tmp_path / "jax", [], monkeypatch, **kw)
-    port_res = _run_port("spectrum_indiv", tmp_path / "port", [], monkeypatch,
-                         jax_data=True, **kw)
+    port_res = _run_port("spectrum_indiv", tmp_path / "port", [], monkeypatch, **kw)
     (original, generated), = seen
     for got, want in zip(port_spectrum.compare_power_spectra_stats(original, generated),
                          jax_spectrum.compare_power_spectra_stats(original, generated)):
@@ -219,7 +214,7 @@ def test_mean_correction_files_equal_the_jax_runners(tmp_path, monkeypatch, mode
     """``means.txt`` and ``corrected_means.txt`` byte for byte, and
     ``results["mean_ratio"]``, on the same data and reconstructed maps."""
     jax_res = _run_jax(mode, tmp_path / "jax", [], monkeypatch, **TINY)
-    port_res = _run_port(mode, tmp_path / "port", [], monkeypatch, jax_data=True, **TINY)
+    port_res = _run_port(mode, tmp_path / "port", [], monkeypatch, **TINY)
     for name in ("means.txt", "corrected_means.txt"):
         assert (_read(os.path.join(port_res["output_dir"], name))
                 == _read(os.path.join(jax_res["output_dir"], name)))

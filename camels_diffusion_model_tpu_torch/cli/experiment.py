@@ -39,10 +39,25 @@ model's ``"shortcut"`` stream for ``init`` with ``fold_in(init_key, 1)``
 (``experiment.py:200-206``); that draw touches no parameter, and the
 port's init takes none.
 
+Data parallelism (``experiment.py:239-276``): the run takes a mesh
+(``parallel/mesh.py``) when ``cfg.mesh_devices`` is set or the process
+group has more than one process; with ``torchrun`` that is
+
+    torchrun --nproc-per-node N -m camels_diffusion_model_tpu_torch.cli.experiment <mode> ...
+
+(:func:`main` joins the group).  The batch is padded to a multiple of the
+world size (pad rows wrap around the real rows, masked), each process
+trains on its rows with the gradients summed and BatchNorm's statistics
+global, the samplers shard their batches (``experiment.py:610, 628, 746,
+781, 792, 835``), and only rank 0 writes metrics and artifacts; the
+likelihood passes run whole on every process, as JAX runs them unsharded.
+``mesh_devices`` greater than the group's size (no group: 1) raises.
+``CAMELS_PROFILE=<dir>`` writes a trace of the second epoch
+(``utils/profiling.py``).
+
 What waits: the port writes no figure (no PNG; the run figures of
 ``utils/viz.py`` are not ported).  A run prints that it skipped them and
-lists them in ``results["not_ported"]``.  ``mesh_devices > 1``, which
-would change what the run computes, raises ``NotImplementedError``.
+lists them in ``results["not_ported"]``.
 
 Noise comes from torch generators seeded by the run seed (the training
 step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
@@ -60,6 +75,7 @@ and :func:`reconstruct` (``experiment.py:609-630``).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -87,6 +103,14 @@ from ..models.blocks import SHORTCUTS
 from ..models.context_unet import ContextUnet
 from ..ops.spectrum import compare_power_spectra_stats
 from ..ops.stats import compare_pdf_stats
+from ..parallel.mesh import (
+    Mesh,
+    init_distributed,
+    make_mesh,
+    replicate,
+    shard_rows,
+    world_size,
+)
 from ..serving import load_model
 from ..training.checkpoints import (
     load_train_checkpoint,
@@ -101,6 +125,7 @@ from ..training.trainer import (
     parse_remat_env,
     seeded_generator,
 )
+from ..utils.profiling import maybe_trace
 from ..utils.run_logging import RunLogger
 from ..utils.weights import to_jax_variables
 
@@ -128,19 +153,20 @@ def sample_metrics(model, schedule: DDPMSchedule, x, c, generator,
 def reconstruct(model, schedule: DDPMSchedule, images, params, generator,
                 scaling: NoiseScaling = NoiseScaling.REFERENCE,
                 save_rate: int = 20, noise=None, z_fn: Optional[ZFn] = None,
-                device=None) -> SamplerOutput:
+                device=None, mesh: Optional[Mesh] = None) -> SamplerOutput:
     """Forward-diffuse ``images`` (NHWC) to ``t = T`` with ``noise`` (drawn
     from ``generator`` when None) and run ``sample_ddpm_from_noise`` from
     there on ``params`` (None: the zero context, as for an unconditional
-    experiment)."""
-    device = resolve_device(device)
+    experiment), its batch sharded over ``mesh``."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     images = torch.as_tensor(images, dtype=torch.float32, device=device)
     if noise is None:
         noise = torch.randn(images.shape, generator=generator, device=device)
     noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
     x_fwd = q_sample(schedule, images, schedule.timesteps, noise, scaling)
     return sample_ddpm_from_noise(model, schedule, generator, x_fwd, params=params,
-                                  save_rate=save_rate, device=device, z_fn=z_fn)
+                                  save_rate=save_rate, device=device, z_fn=z_fn,
+                                  mesh=mesh)
 
 
 def _load_raw_data(cfg: ExperimentConfig):
@@ -171,16 +197,19 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _unported(cfg: ExperimentConfig) -> List[str]:
     """The parts of ``cfg``'s run that this package does not do yet, which
-    :func:`run_experiment` skips; raises ``NotImplementedError`` for options
-    that would change what the run computes (module docstring), and
-    ``ValueError`` for a dtype or shortcut mode neither package knows."""
+    :func:`run_experiment` skips; raises ``ValueError`` for a dtype or
+    shortcut mode neither package knows, and ``RuntimeError`` for a
+    ``mesh_devices`` that is not the process group's size."""
     if cfg.dtype not in DTYPES:
         raise ValueError(f"dtype={cfg.dtype!r}: 'float32' or 'bfloat16'")
     if cfg.shortcut not in SHORTCUTS:
         raise ValueError(f"unknown shortcut mode: {cfg.shortcut!r}")
-    if cfg.mesh_devices is not None and cfg.mesh_devices > 1:
-        raise NotImplementedError(f"mesh_devices={cfg.mesh_devices}: the port runs on "
-                                  "one card (ROADMAP section 1, multi-device)")
+    if cfg.mesh_devices and cfg.mesh_devices != world_size():
+        raise RuntimeError(
+            f"mesh_devices={cfg.mesh_devices}, but the process group has {world_size()} "
+            "process(es): a multi-device run takes one process a device, e.g. torchrun "
+            f"--nproc-per-node {cfg.mesh_devices} -m "
+            "camels_diffusion_model_tpu_torch.cli.experiment ...")
     return ["figures"]
 
 
@@ -217,22 +246,24 @@ def _sensitivity_params(cfg: ExperimentConfig, selected_params: np.ndarray) -> n
 
 
 def guidance_sweep(model, schedule: DDPMSchedule, base: np.ndarray, strengths,
-                   generator, size: int, device=None) -> Dict[float, np.ndarray]:
+                   generator, size: int, device=None,
+                   mesh: Optional[Mesh] = None) -> Dict[float, np.ndarray]:
     """The maps of each guidance strength on the contexts ``base`` (5
     rows): each ``w <= 0`` in a call of its own (the single-forward
     semantics), every ``w > 0`` together in one call with a per-sample w
-    (``experiment.py:771-806``)."""
+    (``experiment.py:771-806``); each call's batch sharded over ``mesh``."""
     by_w: Dict[float, np.ndarray] = {}
     n = len(base)
     for w in [w for w in strengths if w <= 0]:
         by_w[w] = sample_ddpm(model, schedule, generator, n_sample=n, size=size,
-                              params=base, guide_w=w, device=device).cpu().numpy()
+                              params=base, guide_w=w, device=device,
+                              mesh=mesh).cpu().numpy()
     pos = [w for w in strengths if w > 0]
     if pos:
         x = sample_ddpm(model, schedule, generator, n_sample=n * len(pos), size=size,
                         params=np.tile(base, (len(pos), 1)),
                         guide_w=np.repeat(np.asarray(pos, np.float32), n),
-                        device=device).cpu().numpy()
+                        device=device, mesh=mesh).cpu().numpy()
         for i, w in enumerate(pos):
             by_w[w] = x[i * n:(i + 1) * n]
     return by_w
@@ -249,12 +280,26 @@ def run_experiment(cfg: ExperimentConfig, *, device=None) -> Dict[str, object]:
         return _run(cfg, device, not_ported)
 
 
+class _NoLog:
+    """The run logger of a process other than rank 0: it writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> dict:
     spec = cfg.spec
+    # ---- data-parallel mesh (experiment.py:239-276) -----------------------
+    mesh = None
+    if cfg.mesh_devices or world_size() > 1:
+        mesh = make_mesh(cfg.mesh_devices or None, device=device)
+        device = mesh.device
+        print(f"Data-parallel over {mesh.world_size} process(es)")
+    main = mesh is None or mesh.rank == 0  # rank 0 writes metrics and artifacts
     output_dir = cfg.output_dir()
     save_dir = os.path.join(output_dir, "weights")
     os.makedirs(save_dir, exist_ok=True)
-    logger = RunLogger(output_dir, device)
+    logger = RunLogger(output_dir, device) if main else _NoLog()
     if spec.timing_log:
         logger.write_header(cfg.lrate, cfg.n_epoch, cfg.timesteps, None if not spec.conditional
                             else (cfg.param_index if spec.param_index_mode else cfg.num_params))
@@ -271,10 +316,11 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     del raw_maps
     if spec.conditional:
         train_c, test_c = ds.train_c, ds.test_c
-        np.save(os.path.join(output_dir, "param_min.npy"), ds.param_min)
-        np.save(os.path.join(output_dir, "param_max.npy"), ds.param_max)
-        if spec.param_index_mode:
-            np.save(os.path.join(output_dir, "param_index.npy"), cfg.param_index)
+        if main:
+            np.save(os.path.join(output_dir, "param_min.npy"), ds.param_min)
+            np.save(os.path.join(output_dir, "param_max.npy"), ds.param_max)
+            if spec.param_index_mode:
+                np.save(os.path.join(output_dir, "param_index.npy"), cfg.param_index)
         logger.dataset_info(ds.info)
     else:  # a zero context of the model's width (train_diffusion.py:147)
         train_c = np.zeros((ds.n_train, cfg.n_cfeat), np.float32)
@@ -289,22 +335,34 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     model = model.to(device=device, memory_format=torch.channels_last)
     steps_per_epoch = num_batches(ds.n_train, cfg.batch_size)
     state = create_train_state(model, cfg.lrate, cfg.n_epoch, steps_per_epoch, seed=cfg.seed)
+    if mesh is not None:
+        replicate(mesh, state)
     try:
         remat = parse_remat_env(os.environ.get("CAMELS_TRAIN_REMAT", ""))
     except ValueError as e:
         raise SystemExit(f"CAMELS_TRAIN_REMAT: {e}")
     step_args = (cfg.timesteps, spec.q_scaling, cfg.beta1, cfg.beta2)
-    train_step = make_train_step(model, *step_args, remat=remat)
-    eval_step = make_eval_step(model, *step_args)
+    train_step = make_train_step(model, *step_args, remat=remat, mesh=mesh)
+    eval_step = make_eval_step(model, *step_args, mesh=mesh)
+    # one batch shape for every step: batch_size rounded up to a multiple of
+    # the world size
+    pad_to = cfg.batch_size + (-cfg.batch_size) % (mesh.world_size if mesh else 1)
 
-    def pad(bx, bc):
-        """Wrap-pad a partial batch to ``batch_size`` rows and mask the pad
-        rows (``experiment.py:259-286``): one shape for every step."""
+    def pad(item):
+        """Wrap-pad a partial batch to ``pad_to`` rows and mask the pad rows
+        (``experiment.py:259-286``); under a mesh, this process's rows of
+        the padded batch, then the global mask (the metrics are the global
+        batch's)."""
+        bx, bc = item
         n = bx.shape[0]
-        if n < cfg.batch_size:
-            idx = np.arange(cfg.batch_size) % n
+        if n < pad_to:
+            idx = np.arange(pad_to) % n
             bx, bc = bx[idx], bc[idx]
-        return bx, bc, (np.arange(cfg.batch_size) < n).astype(np.float32)
+        mask = (np.arange(pad_to) < n).astype(np.float32)
+        if mesh is None:
+            return bx, bc, mask
+        start, rows = shard_rows(mesh, pad_to)
+        return bx[start:start + rows], bc[start:start + rows], mask[start:start + rows], mask
 
     start_epoch = 0
     ckpt_path = os.path.join(save_dir, "train_state.msgpack")
@@ -350,26 +408,28 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
 
     training_start = time.time()
     for ep in range(start_epoch, cfg.n_epoch):
-        ep_start = time.time()
-        logger.device_line()
-        loss_acc = torch.zeros((), device=device)
-        elbo_acc = torch.zeros((), device=device)
-        n_b = 0
-        staged = device_prefetch(
-            batch_iterator(ds.train_x, train_c, cfg.batch_size, rng=epoch_rng),
-            device, transform=lambda item: pad(*item))
-        for bx, bc, bmask in staged:
-            metrics = train_step(state, bx, bc, bmask)
-            loss_acc += metrics["loss"]
-            if spec.per_batch_elbo:
-                elbo_acc += elbo_per_batch(on_device, metrics["per_sample_mse"],
-                                           metrics["t"], bmask)
-            n_b += 1
-        epoch_loss = float(loss_acc) / n_b
-        epoch_elbo = float(elbo_acc)
-        epoch_bpd = epoch_elbo / (dims * ln2)
-        loss_log.append(epoch_loss)
-        epoch_times.append(time.time() - ep_start)
+        # CAMELS_PROFILE=<dir>: a trace of the second epoch (experiment.py:325-334)
+        with maybe_trace() if ep == start_epoch + 1 else contextlib.nullcontext():
+            ep_start = time.time()
+            logger.device_line()
+            loss_acc = torch.zeros((), device=device)
+            elbo_acc = torch.zeros((), device=device)
+            n_b = 0
+            staged = device_prefetch(
+                batch_iterator(ds.train_x, train_c, cfg.batch_size, rng=epoch_rng),
+                device, transform=pad)
+            for bx, bc, bmask, *whole in staged:
+                metrics = train_step(state, bx, bc, bmask)
+                loss_acc += metrics["loss"]
+                if spec.per_batch_elbo:
+                    elbo_acc += elbo_per_batch(on_device, metrics["per_sample_mse"],
+                                               metrics["t"], whole[0] if whole else bmask)
+                n_b += 1
+            epoch_loss = float(loss_acc) / n_b
+            epoch_elbo = float(elbo_acc)
+            epoch_bpd = epoch_elbo / (dims * ln2)
+            loss_log.append(epoch_loss)
+            epoch_times.append(time.time() - ep_start)
         if spec.timing_log:
             if spec.per_batch_elbo:
                 logger.append(
@@ -388,13 +448,14 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
             vloss_acc = torch.zeros((), device=device)
             velbo_acc = torch.zeros((), device=device)
             v_b = 0
-            for bx, bc in batch_iterator(ds.test_x, test_c, cfg.batch_size, shuffle=False):
-                bx, bc, bmask = pad(bx, bc)
+            for item in batch_iterator(ds.test_x, test_c, cfg.batch_size, shuffle=False):
+                bx, bc, bmask, *whole = pad(item)
                 em = eval_step(bx, bc, bmask, generator=generator)
                 vloss_acc += em["loss"]
                 if spec.per_batch_elbo:
                     velbo_acc += elbo_per_batch(on_device, em["per_sample_mse"], em["t"],
-                                                torch.as_tensor(bmask, device=device))
+                                                torch.as_tensor(whole[0] if whole else bmask,
+                                                                device=device))
                 v_b += 1
             val_loss = float(vloss_acc) / max(v_b, 1)
             val_loss_log.append(val_loss)
@@ -468,9 +529,9 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         # ---- checkpoints (experiment.py:537-554) --------------------------
         save_weights, ckpt_name = weights_checkpoint_plan(spec.ckpt_style, ep, cfg.n_epoch,
                                                           cfg.ckpt_every)
-        if save_weights:
+        if save_weights and main:
             save_model_weights(model, os.path.join(save_dir, ckpt_name))
-        if (ep + 1) % cfg.ckpt_every == 0 or ep == cfg.n_epoch - 1:
+        if main and ((ep + 1) % cfg.ckpt_every == 0 or ep == cfg.n_epoch - 1):
             save_train_checkpoint(state, ep + 1, ckpt_path)
 
     total_training_time = time.time() - training_start
@@ -506,11 +567,11 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         recon_x = sample_ddpm(inf_model, schedule, generator, n_sample=cfg.n_eval_images,
                               size=cfg.height,
                               params=np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32),
-                              device=device).cpu().numpy()
+                              device=device, mesh=mesh).cpu().numpy()
     else:
         recon = reconstruct(inf_model, schedule, selected_images,
                             selected_params if spec.conditional else None, generator,
-                            scaling=scaling, device=device)
+                            scaling=scaling, device=device, mesh=mesh)
         recon_x = recon.x.cpu().numpy()
     seconds = time.time() - t0
     if spec.timing_log:
@@ -554,14 +615,15 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
 
     # ---- mean-ratio correction (experiment.py:717-736) ---------------------
     if spec.mean_correction:
-        with open(os.path.join(output_dir, "means.txt"), "w") as f:
-            f.write(f"Processed Images Mean: {processed_images_mean}\n")
-            f.write(f"Reconstructed Images Mean: {reconstructed_mean}\n")
         mean_ratio = processed_images_mean / reconstructed_mean
         corrected = recon_x * mean_ratio
-        with open(os.path.join(output_dir, "corrected_means.txt"), "w") as f:
-            f.write(f"Processed Images Mean: {processed_images_mean}\n")
-            f.write(f"Corrected Reconstructed Images Mean: {float(corrected.mean())}\n")
+        if main:
+            with open(os.path.join(output_dir, "means.txt"), "w") as f:
+                f.write(f"Processed Images Mean: {processed_images_mean}\n")
+                f.write(f"Reconstructed Images Mean: {reconstructed_mean}\n")
+            with open(os.path.join(output_dir, "corrected_means.txt"), "w") as f:
+                f.write(f"Processed Images Mean: {processed_images_mean}\n")
+                f.write(f"Corrected Reconstructed Images Mean: {float(corrected.mean())}\n")
         results["mean_ratio"] = mean_ratio
 
     # ---- parameter grid (experiment.py:738-765) ----------------------------
@@ -571,7 +633,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         t0 = time.time()
         grid_x = sample_ddpm(inf_model, schedule, generator, n_sample=len(grid_params),
                              size=cfg.height, params=grid_params,
-                             device=device).cpu().numpy()
+                             device=device, mesh=mesh).cpu().numpy()
         if spec.timing_log:
             logger.grid_perf(len(grid_params), time.time() - t0)
         if spec.post_metrics:
@@ -586,7 +648,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         base = np.tile(selected_params[0], (5, 1))
         generator = seeded_generator(device, cfg.seed, 4)
         guided_by_w = guidance_sweep(inf_model, schedule, base, cfg.guidance_strengths,
-                                     generator, cfg.height, device)
+                                     generator, cfg.height, device, mesh)
         if spec.post_metrics:
             guided_metrics = []
             for w in cfg.guidance_strengths:
@@ -601,7 +663,7 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         sens_params = _sensitivity_params(cfg, selected_params)
         generator = seeded_generator(device, cfg.seed, 5)
         sens_x = sample_ddpm(inf_model, schedule, generator, n_sample=len(sens_params),
-                             size=cfg.height, params=sens_params, device=device)
+                             size=cfg.height, params=sens_params, device=device, mesh=mesh)
         if spec.post_metrics:
             per_elbo = elbo_bpd_batch(inf_model, schedule, sens_x, sens_params, generator,
                                       device=device).cpu().numpy()
@@ -621,12 +683,19 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
 
 
 def main(argv=None) -> int:
-    """``<mode> <lr> <epochs> <timesteps> [num_params | param_index]``."""
+    """``<mode> <lr> <epochs> <timesteps> [num_params | param_index]``; joins
+    the process group first when one is configured (torchrun)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv:
         raise SystemExit("usage: python -m camels_diffusion_model_tpu_torch.cli.experiment "
                          "<mode> <lr> <epochs> <timesteps> [n]")
-    results = run_experiment(config_from_argv(argv[0], argv[1:]))
+    joined = not torch.distributed.is_initialized()
+    init_distributed()
+    try:
+        results = run_experiment(config_from_argv(argv[0], argv[1:]))
+    finally:
+        if joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(f"outputs in {results['output_dir']} (data: {results['data_source']})")
     return 0
 

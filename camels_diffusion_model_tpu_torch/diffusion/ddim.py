@@ -14,9 +14,10 @@
   which the step kernel takes as ``inv_sqrt_a = A``, ``c_eps = -B/A``.
 
 Both set ``sigma = 0`` on the last jump and run the same loop
-(``sampler.run_chain``), guidance, FiLM tables, step kernel K1 and
-stochastic-shortcut draws (``ddim.py:84``) as ``sample_ddpm``, each with
-its own table of step coefficients.
+(``sampler.run_chain``), guidance, FiLM tables, step kernel K1,
+stochastic-shortcut draws (``ddim.py:84``) and ``mesh=`` batch sharding
+(``ddim.py:200-218``) as ``sample_ddpm``, each with its own table of step
+coefficients.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
 from .sampler import ShortcutFn, ZFn, prepare, run_chain
 from .schedule import DDPMSchedule
 
@@ -100,12 +102,13 @@ def sample_ddim(
     device=None,
     z_fn: Optional[ZFn] = None,
     shortcut_fn: Optional[ShortcutFn] = None,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Samples ``(B, size, size, C)`` over ``taus`` (default
     :func:`ddim_timesteps` of ``n_steps``) by DDIM (``sigma_mode=
     "posterior"``, noise scaled by ``eta``; ``eta=0`` draws no z) or by the
-    strided DDPM (``"beta"``, ``eta`` ignored); other arguments as
-    ``sample_ddpm``."""
+    strided DDPM (``"beta"``, ``eta`` ignored); other arguments, ``mesh``
+    included, as ``sample_ddpm``."""
     if sigma_mode not in ("posterior", "beta"):
         raise ValueError(f"unknown sigma_mode {sigma_mode!r}: 'posterior' or 'beta'")
     if taus is None:
@@ -118,12 +121,12 @@ def sample_ddim(
             "taus must be a strictly increasing subsequence of "
             f"[1, {schedule.timesteps}]"
         )
-    x, params, use_cfg, w = prepare(
-        model, n_sample, size, params, guide_w, x_init, generator, device
+    x, params, use_cfg, w, shard = prepare(
+        model, n_sample, size, params, guide_w, x_init, generator, device, mesh
     )
     coefs = (beta_coefficients(schedule, taus) if sigma_mode == "beta"
              else posterior_coefficients(schedule, taus, eta))
     x, _ = run_chain(model, x, params, use_cfg, w, schedule.timesteps,
                      taus[::-1].tolist(), coefs, generator, z_fn,
-                     shortcut_fn=shortcut_fn)
+                     shortcut_fn=shortcut_fn, shard=shard)
     return x

@@ -19,6 +19,14 @@ encoder runs once, so both halves share that draw, as in JAX
 ``sample_ddpm_from_noise`` runs the same chain from given noisy maps and
 keeps the states of the reference's save schedule (``sampler.py:95-102``).
 
+``mesh=`` (``parallel/mesh.py``) shards the batch over the processes of a
+data-parallel mesh, as JAX's ``mesh=`` does (``sampler.py:426-461``): the
+batch is padded to a multiple of the world size with zero maps, zero
+contexts and per-sample w of 1, each rank runs its rows through the same
+kernels, and every rank gets the global maps back.  Each rank draws the
+global batch's initial noise and each step's z (or takes them from
+``z_fn``) and keeps its own rows, so R processes give the maps of one.
+
 With a bf16 model (``ContextUnet(dtype=torch.bfloat16)``) the FiLM tables,
 the features and eps are bf16 and the state x stays fp32, as in JAX
 (``sampler.py:264-276``): K1's bf16 instance takes the bf16 features and
@@ -35,6 +43,7 @@ import torch
 
 from .. import fp32_math, resolve_device
 from ..models.blocks import to_compute, to_nhwc
+from ..parallel.mesh import Mesh, gather_batch, local_rows
 from ..ops.sampler_step import fused_head_step
 from .schedule import DDPMSchedule, ddpm_coefficients
 
@@ -49,6 +58,23 @@ ShortcutFn = Callable[[int, int], tuple]
 class SamplerOutput(NamedTuple):
     x: torch.Tensor  # final samples, (B, H, W, C)
     intermediate: torch.Tensor  # saved states, (n_saves, B, H, W, C)
+
+
+class Shard(NamedTuple):
+    """The rows of a sampler's global batch of ``n_real`` rows that this
+    process holds: all of them without a mesh; on a mesh, the rank's slice
+    of the batch padded to a multiple of the world size."""
+
+    mesh: Optional[Mesh]
+    n_real: int
+
+    def local(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """This process's rows of the global batch ``a``, pad rows ``fill``."""
+        return a if self.mesh is None else local_rows(self.mesh, a, fill=fill)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch from each process's rows ``x``."""
+        return x if self.mesh is None else gather_batch(self.mesh, x, self.n_real)
 
 
 def save_schedule(timesteps: int, save_rate: int) -> tuple:
@@ -112,9 +138,16 @@ def predict_features(model, x, tables, t: int, use_cfg: bool,
     return to_nhwc(model.decode_features(enc, film=film))
 
 
-def prepare(model, n_sample, size, params, guide_w, x_init, generator, device):
-    """Shared set-up of both samplers on ``device``: initial noise, context
-    and guidance."""
+def prepare(model, n_sample, size, params, guide_w, x_init, generator, device,
+            mesh: Optional[Mesh] = None):
+    """Shared set-up of the samplers on ``device`` (the mesh's device under a
+    mesh): initial noise, context and guidance of the global batch, then
+    this process's rows of them (:class:`Shard`).  Returns ``(x, params,
+    use_cfg, w, shard)``."""
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
     if next(model.parameters()).device != device:
         raise ValueError(f"model is not on {device}")
@@ -128,7 +161,10 @@ def prepare(model, n_sample, size, params, guide_w, x_init, generator, device):
                             device=device)
     params = torch.as_tensor(params, dtype=torch.float32, device=device)
     use_cfg, w = guidance(guide_w, x.shape[0], device)
-    return x, params, use_cfg, w
+    shard = Shard(mesh, x.shape[0])
+    if torch.is_tensor(w):
+        w = shard.local(w, fill=1.0)
+    return shard.local(x), shard.local(params), use_cfg, w, shard
 
 
 def sample_ddpm(
@@ -143,6 +179,8 @@ def sample_ddpm(
     device=None,
     z_fn: Optional[ZFn] = None,
     shortcut_fn: Optional[ShortcutFn] = None,
+    mesh: Optional[Mesh] = None,
+    spatial: bool = False,
 ) -> torch.Tensor:
     """Samples ``(B, size, size, C)`` by the exact ``T``-step ancestral chain.
 
@@ -150,13 +188,18 @@ def sample_ddpm(
     are not given (params uniform in [0, 1) per sample) and every step's z
     unless ``z_fn`` supplies it (and a stochastic model's projection unless
     ``shortcut_fn`` does).  ``guide_w``: a float, or a ``(B,)`` array of
-    all-positive weights.
+    all-positive weights.  ``mesh``: shard the batch (module docstring).
+    ``spatial=True`` (JAX's image-height sharding over a 2-D mesh) is not
+    ported and raises.
     """
-    x, params, use_cfg, w = prepare(
-        model, n_sample, size, params, guide_w, x_init, generator, device
+    if spatial:
+        raise NotImplementedError("spatial=True: the 2-D (data x space) mesh is not "
+                                  "ported (ROADMAP section 1)")
+    x, params, use_cfg, w, shard = prepare(
+        model, n_sample, size, params, guide_w, x_init, generator, device, mesh
     )
     x, _ = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
-                       shortcut_fn=shortcut_fn)
+                       shortcut_fn=shortcut_fn, shard=shard)
     return x
 
 
@@ -171,6 +214,7 @@ def sample_ddpm_from_noise(
     device=None,
     z_fn: Optional[ZFn] = None,
     shortcut_fn: Optional[ShortcutFn] = None,
+    mesh: Optional[Mesh] = None,
 ) -> SamplerOutput:
     """The exact ``T``-step chain seeded with forward-diffused maps
     ``noise_images`` ``(B, H, W, C)`` (``sampler.py:344-366``).
@@ -181,35 +225,41 @@ def sample_ddpm_from_noise(
     if params is None:
         params = torch.zeros(noise_images.shape[0], model.n_cfeat)
         guide_w = 0.0
-    x, params, use_cfg, w = prepare(
-        model, None, None, params, guide_w, noise_images, generator, device
+    x, params, use_cfg, w, shard = prepare(
+        model, None, None, params, guide_w, noise_images, generator, device, mesh
     )
     mask, _, _ = save_schedule(schedule.timesteps, save_rate)
     x, saved = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator,
-                           z_fn, mask, shortcut_fn)
+                           z_fn, mask, shortcut_fn, shard)
     return SamplerOutput(x, torch.stack(saved))
 
 
 def _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
-                save_mask=None, shortcut_fn=None):
+                save_mask=None, shortcut_fn=None, shard=None):
     steps = torch.arange(schedule.timesteps, 0, -1)
     coefs = ddpm_coefficients(schedule, steps)
     return run_chain(model, x, params, use_cfg, w, schedule.timesteps,
-                     steps.tolist(), coefs, generator, z_fn, save_mask, shortcut_fn)
+                     steps.tolist(), coefs, generator, z_fn, save_mask, shortcut_fn,
+                     shard)
 
 
 def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
               coefs: torch.Tensor, generator, z_fn: Optional[ZFn],
               save_mask: Optional[np.ndarray] = None,
-              shortcut_fn: Optional[ShortcutFn] = None):
+              shortcut_fn: Optional[ShortcutFn] = None,
+              shard: Optional[Shard] = None):
     """The reverse loop of the samplers: at each timestep of ``steps``
     (descending) a stochastic model's projection draw (from ``generator``,
     or ``shortcut_fn``), the decoder's features and one launch of the step
     kernel (output conv, guidance, update) with that step's ``[c_eps,
     inv_sqrt_a, sigma]`` row of ``coefs``; z is drawn (or taken from
-    ``z_fn``) only where sigma is not 0.  Returns the last state and the
-    list of the states of the steps where ``save_mask`` (one bool a step)
-    is set.  Runs inside :func:`fp32_math`."""
+    ``z_fn``) only where sigma is not 0, for the global batch, and
+    ``shard`` keeps this process's rows (:func:`prepare`; None: all).
+    Returns the last state and the list of the states of the steps where
+    ``save_mask`` (one bool a step) is set, both of the global batch.  Runs
+    inside :func:`fp32_math`."""
+    shard = Shard(None, x.shape[0]) if shard is None else shard
+    z_shape = (shard.n_real,) + tuple(x.shape[1:])
     saved = []
     with torch.inference_mode(), fp32_math():
         head = (to_compute(model.out_conv2.weight, model.dtype),
@@ -223,10 +273,14 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
             h = predict_features(model, x, tables, t, use_cfg, proj)
             z = None
             if sigma != 0.0:
-                z = (z_fn(k, t).to(x.device) if z_fn is not None else
-                     torch.randn(x.shape, generator=generator, device=x.device))
+                z = shard.local(
+                    z_fn(k, t).to(x.device) if z_fn is not None else
+                    torch.randn(z_shape, generator=generator, device=x.device))
             x = fused_head_step(h, *head, x, z, c_eps, inv_sqrt_a, sigma, w,
                                 tanh=model.final_tanh)
             if save_mask is not None and save_mask[k]:
                 saved.append(x)
+        if shard.mesh is not None and saved:
+            saved = list(shard.gather(torch.stack(saved, 1)).unbind(1))
+        x = shard.gather(x)
     return x, saved

@@ -33,11 +33,14 @@ computes in float64).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.groupnorm import fused_groupnorm_act, groupnorm_act_plain
+from ..parallel.mesh import all_reduce_sum
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -157,6 +160,21 @@ class BatchNorm(nn.BatchNorm2d):
     ``torch.utils.checkpoint`` stages the same values instead of applying
     the update twice.  ``num_batches_tracked`` stays 0: flax keeps no
     count.
+
+    The statistics are float64 sums of ``(x, x^2, n)`` over batch and
+    pixels, through a differentiable all-reduce (:func:`all_reduce_sum`,
+    whose backward all-reduces the gradient); the mean and clamped
+    ``E[x^2] - E[x]^2`` follow in float64 and are rounded to the input's
+    precision.  Off a mesh the all-reduce is a no-op.  On a data-parallel
+    mesh (:func:`global_batch_stats`, set by the trainer) it sums over the
+    processes, so ``train=True`` takes the statistics of the global batch,
+    as XLA's collectives give them in JAX, and the staged running
+    statistics are the global ones, the same on every process.  One
+    arithmetic serves both: the sums are float64 because the subtraction
+    cancels most of their digits, and an fp32 sum split over processes
+    rounds once more before it (on the canonical model's maps that put a
+    two-process weight gradient 1.3e-4 from a float64 step, where one
+    process's fp32 step is 1.2e-5 from it).
     """
 
     momentum_flax = 0.9
@@ -164,15 +182,21 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5)
         self.staged = None
+        self.mesh = None  # a collective mesh while global_batch_stats is active
 
     def forward(self, h, train: bool = False):
         h = h.to(torch.promote_types(h.dtype, torch.float32))
         if not train:
             return F.batch_norm(h, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        dims = (0, 2, 3)
-        mean = h.mean(dim=dims)
-        var = torch.clamp((h * h).mean(dim=dims) - mean * mean, min=0.0)
+        dims, c = (0, 2, 3), h.shape[1]
+        wide = torch.promote_types(h.dtype, torch.float64)
+        sums = all_reduce_sum(self.mesh, torch.cat([
+            h.sum(dim=dims, dtype=wide), (h * h).sum(dim=dims, dtype=wide),
+            torch.full((1,), h.numel() // c, dtype=wide, device=h.device)]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        mean, var = mean.to(h.dtype), var.to(h.dtype)
         with torch.no_grad():
             m = self.momentum_flax
             self.staged = (m * self.running_mean + (1.0 - m) * mean,
@@ -190,6 +214,22 @@ def commit_batch_stats(model: nn.Module) -> None:
                 m.running_mean.copy_(m.staged[0])
                 m.running_var.copy_(m.staged[1])
                 m.staged = None
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, mesh):
+    """While active, ``model``'s :class:`BatchNorm` layers take their
+    training statistics over the global batch of ``mesh`` (a no-op for
+    None or a mesh of one process)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    active = mesh if mesh is not None and mesh.collective else None
+    for m in norms:
+        m.mesh = active
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 SHORTCUTS = ("learned", "stochastic")

@@ -25,6 +25,18 @@ torch.bfloat16)``) computes its forward in bf16 on fp32 parameters: its eps
 is bf16, the loss against the fp32 noise promotes to fp32, autograd carries
 the gradient through the layers' casts to the fp32 parameters, and Adam
 updates those (fp32 masters, fp32 moments), as the JAX step does.
+
+``mesh=`` (``parallel/mesh.py``) makes the steps data-parallel, with the
+JAX mesh step's semantics (``tests/test_parallel.py``): each process takes
+its rows of the global batch (``shard_batch``), draws ``t`` and the noise
+of the global batch from the step's generator and keeps its rows, so R
+processes draw what one does; BatchNorm takes its statistics over the
+global batch (``models/blocks.py::global_batch_stats``); each process's
+loss is its masked per-sample sum over the global count of real rows, and
+the parameter gradients are summed over the processes, so the update is
+the single-process step's on the whole batch.  Adam state stays
+replicated: every process applies the same update.  The metrics are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ from torch.utils.checkpoint import (
 
 from .. import fp32_math
 from ..diffusion.schedule import DDPMSchedule, make_schedule, q_sample
-from ..models.blocks import commit_batch_stats
+from ..models.blocks import commit_batch_stats, global_batch_stats
+from ..parallel.mesh import Mesh, all_reduce, local_rows, shard_rows
 
 
 def linear_decay_schedule(lrate: float, n_epoch: int, steps_per_epoch: int):
@@ -143,18 +156,22 @@ def _training_forward(model: nn.Module, remat):
 
 class _Noising:
     """``t``, the noise and ``q_sample`` of one batch on the model's device:
-    the part the train and the eval step share."""
+    the part the train and the eval step share.  On a collective ``mesh``
+    ``x``, ``c`` and ``mask`` are this process's rows and ``t`` and the
+    noise (drawn or given) the global batch's, of which it keeps its rows."""
 
     def __init__(self, model: nn.Module, timesteps: int, scaling: str,
-                 beta1: float, beta2: float):
+                 beta1: float, beta2: float, mesh: Optional[Mesh]):
         self.model, self.timesteps, self.scaling = model, timesteps, scaling
         self.schedule = make_schedule(timesteps, beta1, beta2)
+        self.mesh = mesh if mesh is not None and mesh.collective else None
         self._on = {}  # device -> the schedule there (no host sync a step)
 
     def needs_generator(self, t, noise, shortcut) -> bool:
         return t is None or noise is None or (self.model.stochastic and shortcut is None)
 
     def __call__(self, x, c, mask, generator, t, noise, shortcut):
+        """``(x_pert, t, t_norm, c, noise, mask, shortcut, t_global)``."""
         dev = next(self.model.parameters()).device
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         c = torch.as_tensor(c, dtype=torch.float32, device=dev)
@@ -163,23 +180,53 @@ class _Noising:
         if self.needs_generator(t, noise, shortcut) and generator is None:
             raise ValueError("give a generator, or t, noise (and a stochastic "
                              "model's shortcut)")
+        n = x.shape[0] * (self.mesh.world_size if self.mesh is not None else 1)
         if t is None:
-            t = torch.randint(1, self.timesteps + 1, (x.shape[0],),
-                              generator=generator, device=dev)
+            t = torch.randint(1, self.timesteps + 1, (n,), generator=generator, device=dev)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
+            noise = torch.randn((n,) + tuple(x.shape[1:]), generator=generator, device=dev)
         if self.model.stochastic and shortcut is None:
             shortcut = self.model.draw_shortcut(generator)
         if shortcut is not None:
             shortcut = tuple(torch.as_tensor(p, dtype=torch.float32, device=dev)
                              for p in shortcut)
-        t = torch.as_tensor(t, dtype=torch.long, device=dev)
+        t_all = torch.as_tensor(t, dtype=torch.long, device=dev)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        t = t_all
+        if self.mesh is not None:
+            t, noise = local_rows(self.mesh, t_all), local_rows(self.mesh, noise)
         if dev not in self._on:
             self._on[dev] = DDPMSchedule(*(a.to(dev) for a in self.schedule[:3]),
                                          self.timesteps)
         x_pert = q_sample(self._on[dev], x, t, noise, self.scaling)
-        return x_pert, t, t.float() / self.timesteps, c, noise, mask, shortcut
+        return x_pert, t, t.float() / self.timesteps, c, noise, mask, shortcut, t_all
+
+    def global_mean(self, per_sample, mask):
+        """:func:`masked_mean` of the global batch on a collective mesh:
+        ``(per_sample_local_masked, loss_local)``, the loss this process's
+        masked sum over the global count of real rows (the processes'
+        losses sum to the global mean)."""
+        count = (torch.sum(mask) if mask is not None
+                 else per_sample.new_tensor(float(per_sample.shape[0])))
+        count = all_reduce(self.mesh, count.to(per_sample.dtype).reshape(1))
+        if mask is not None:
+            per_sample = per_sample * mask.to(per_sample.dtype)
+        return per_sample, torch.sum(per_sample) / count[0]
+
+    def gather_metrics(self, per_sample, loss, extra=()):
+        """The global ``(per_sample, loss)`` from each process's masked
+        per-sample rows and loss share, in one all-reduce together with the
+        tensors ``extra`` (summed in place: the gradients)."""
+        start, rows = shard_rows(self.mesh, per_sample.shape[0] * self.mesh.world_size)
+        ps = per_sample.new_zeros(rows * self.mesh.world_size)
+        ps[start:start + rows] = per_sample.detach()
+        parts = [e.reshape(-1) for e in extra] + [ps, loss.detach().reshape(1)]
+        flat = all_reduce(self.mesh, torch.cat(parts))
+        offset = 0
+        for e in extra:
+            e.copy_(flat[offset:offset + e.numel()].view_as(e))
+            offset += e.numel()
+        return flat[offset:offset + ps.numel()], flat[-1]
 
 
 def _per_sample_mse(out, noise):
@@ -187,7 +234,8 @@ def _per_sample_mse(out, noise):
 
 
 def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference",
-                    beta1: float = 1e-4, beta2: float = 0.02, remat=False):
+                    beta1: float = 1e-4, beta2: float = 0.02, remat=False,
+                    mesh: Optional[Mesh] = None):
     """The training step (``trainer.py:107-214``):
 
         metrics = step(state, x, c, mask=None, *, t=None, noise=None, shortcut=None)
@@ -208,8 +256,16 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
     (``torch.utils.checkpoint``) saves none and runs the forward again in
     the backward pass; ``"convs"`` saves only the convolution outputs
     (selective checkpointing).  The math is the same in all three.
+
+    ``mesh``: the data-parallel step (module docstring): ``x``, ``c`` and
+    ``mask`` are this process's rows, ``t`` and ``noise`` the global
+    batch's, and the metrics and the gradients left in ``.grad`` the global
+    batch's.  The gradients are summed by one all-reduce after the backward
+    pass rather than by ``DistributedDataParallel``, which averages them:
+    with each process's loss already over the global count, the global
+    step needs their sum.
     """
-    noising = _Noising(model, timesteps, scaling, beta1, beta2)
+    noising = _Noising(model, timesteps, scaling, beta1, beta2, mesh)
     forward = _training_forward(model, remat)
 
     def train_step(state: TrainState, x, c, mask=None, *, t=None, noise=None,
@@ -220,26 +276,36 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
         generator = None
         if noising.needs_generator(t, noise, shortcut):
             generator = seeded_generator(dev, state.seed, 0, state.step)
-        with fp32_math():
-            x_pert, t, t_norm, c, noise, mask, proj = noising(x, c, mask, generator, t,
-                                                              noise, shortcut)
+        with fp32_math(), global_batch_stats(model, noising.mesh):
+            x_pert, t, t_norm, c, noise, mask, proj, t_all = noising(
+                x, c, mask, generator, t, noise, shortcut)
             state.optimizer.zero_grad(set_to_none=True)
             args = (x_pert, t_norm, c) + ((proj,) if proj is not None else ())
             per_sample = _per_sample_mse(forward(*args), noise)
-            per_sample, loss = masked_mean(per_sample, mask)
+            if noising.mesh is None:
+                per_sample, loss = masked_mean(per_sample, mask)
+            else:
+                per_sample, loss = noising.global_mean(per_sample, mask)
             loss.backward()
+            if noising.mesh is not None:
+                grads = []
+                for p in model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
+                per_sample, loss = noising.gather_metrics(per_sample, loss, grads)
             for group in state.optimizer.param_groups:
                 group["lr"] = state.lr_schedule(state.step)
             state.optimizer.step()
             commit_batch_stats(model)
         state.step += 1
-        return {"loss": loss.detach(), "per_sample_mse": per_sample.detach(), "t": t}
+        return {"loss": loss.detach(), "per_sample_mse": per_sample.detach(), "t": t_all}
 
     return train_step
 
 
 def make_eval_step(model: nn.Module, timesteps: int, scaling: str = "reference",
-                   beta1: float = 1e-4, beta2: float = 0.02):
+                   beta1: float = 1e-4, beta2: float = 0.02, mesh: Optional[Mesh] = None):
     """The validation MSE step (``trainer.py:217-255``):
 
         metrics = eval_step(x, c, mask=None, *, generator=None, t=None, noise=None,
@@ -249,15 +315,21 @@ def make_eval_step(model: nn.Module, timesteps: int, scaling: str = "reference",
     and K3 on the card) under ``torch.inference_mode()``, with ``t``, the
     noise and a stochastic model's projection drawn from ``generator`` in
     that order unless given.  Returns
-    ``{"loss", "per_sample_mse", "t"}`` as device tensors."""
-    noising = _Noising(model, timesteps, scaling, beta1, beta2)
+    ``{"loss", "per_sample_mse", "t"}`` as device tensors.  ``mesh`` as
+    :func:`make_train_step`: this process's rows in, the global batch's
+    draws and metrics."""
+    noising = _Noising(model, timesteps, scaling, beta1, beta2, mesh)
 
     def eval_step(x, c, mask=None, *, generator=None, t=None, noise=None, shortcut=None):
         with torch.inference_mode(), fp32_math():
-            x_pert, t, t_norm, c, noise, mask, proj = noising(x, c, mask, generator, t,
-                                                              noise, shortcut)
+            x_pert, t, t_norm, c, noise, mask, proj, t_all = noising(
+                x, c, mask, generator, t, noise, shortcut)
             per_sample = _per_sample_mse(model(x_pert, t_norm, c, shortcut=proj), noise)
-            per_sample, loss = masked_mean(per_sample, mask)
-        return {"loss": loss, "per_sample_mse": per_sample, "t": t}
+            if noising.mesh is None:
+                per_sample, loss = masked_mean(per_sample, mask)
+            else:
+                per_sample, loss = noising.gather_metrics(
+                    *noising.global_mean(per_sample, mask))
+        return {"loss": loss, "per_sample_mse": per_sample, "t": t_all}
 
     return eval_step

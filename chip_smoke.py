@@ -79,18 +79,37 @@ Phases, each timed on its own line:
       init_conv shortcut: four exact-chain steps and an ELBO batch on the
       card against the CPU under injected z and draws, and
       ``run_experiment("nov26", shortcut="stochastic")``, one epoch at T
-      1500.
+      1500;
+  (q) data parallelism, DPM-Solver++(2M) and ``CAMELS_PROFILE``: (q1)
+      phase (l2)'s ``run_experiment("nov26", T 1500)`` with
+      ``mesh_devices=1`` inside an NCCL group of one (a ``FileStore``), its
+      train state against phase (l2)'s mesh-less run; (q2) two gloo ranks
+      sharing the card (``parallel.launch.spawn``; NCCL refuses two ranks
+      on one device): a full-width train step at batch 32 (16 a rank) and
+      one of 30 maps padded to 32 with the mask, from the committed
+      checkpoint, against the single-process card step under phase (l)'s
+      gate, and the strided DDPM at w=2 (10 steps, 5 maps: 3 + 2 real rows)
+      against one process, with each rank's launch counts; (q3)
+      ``sample_dpm2m`` at full width, 25 steps at w=2 on 16 maps, fp32 and
+      bf16, its first 4 maps against the CPU's (1 in bf16, under phase
+      (o)'s yardstick), wall time, maps/min and P(k) as information; (q4)
+      ``run_experiment("nov26")`` of two epochs at T 20 on 90 maps with
+      ``CAMELS_PROFILE`` set: a Chrome trace of its second epoch holding
+      CUDA kernels.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
-phase (n), the comparison CLI and the stochastic paths of phase (p) -- is driven with every kernel's launch count set to 0 just before it and read
-just after, and must show its expected counts: a sampler path
+phase (n), the comparison CLI and the stochastic paths of phase (p), the
+mesh paths and DPM-Solver++(2M) of phase (q) -- is driven with every
+kernel's launch count set to 0 just before it and read just after, and
+must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
 which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
 a forward and one conv to one channel each (the JAX package runs
-``out_conv2`` as an XLA conv there too); a training forward no launch and
-one such conv.  Each kernel has an fp32 and a bf16 instance with launch
+``out_conv2`` as an XLA conv there too; DPM-Solver++(2M) runs its forwards
+as these do); a training forward no launch and one such conv.  Each
+kernel has an fp32 and a bf16 instance with launch
 counts of their own: an fp32 path launches no bf16 instance and a bf16
 path (phase o) no fp32 one.  TF32 is off throughout.
 
@@ -101,8 +120,10 @@ non-zero before that line; without CUDA it exits 2 and runs nothing.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import shutil
@@ -122,6 +143,7 @@ from camels_diffusion_model_tpu_torch.cli import sample as sample_cli
 from camels_diffusion_model_tpu_torch.cli.experiment import reconstruct
 from camels_diffusion_model_tpu_torch.cli.serve import TIMESTEPS, serve
 from camels_diffusion_model_tpu_torch.diffusion.ddim import ddim_timesteps, sample_ddim
+from camels_diffusion_model_tpu_torch.diffusion.dpm_solver import sample_dpm2m
 from camels_diffusion_model_tpu_torch.diffusion.likelihood import (
     calculate_elbo_and_bpd,
     elbo_bpd_batch,
@@ -155,6 +177,8 @@ from camels_diffusion_model_tpu_torch.ops.sampler_step import (
 )
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
 from camels_diffusion_model_tpu_torch.ops.stats import PooledPdf, pdf_tv
+from camels_diffusion_model_tpu_torch.parallel.launch import spawn
+from camels_diffusion_model_tpu_torch.parallel.mesh import init_distributed, shard_batch
 from camels_diffusion_model_tpu_torch.serving import (
     certification_contexts,
     load_model,
@@ -303,6 +327,18 @@ RUN_T, RUN_EPOCHS = 20, 1
 # on some pixels of maps in [0, 1]: by at most an ulp of 1.0 (2^-23).
 PREP_MAPS, PREP_SIZE, PREP_TOL = 1500, 256, 2.0**-23
 CLI_MAPS = 15  # the comparison CLI's default n_maps
+# Phase (q).  Two ranks sharing the card: the sampler's 5 maps split 3 + 2
+# real rows and a pad row, and cuDNN picks its algorithms by batch size
+# (PERF.md section 5), so a rank's maps may differ from one process's by
+# the reordered sums of some twenty convolutions: MESH_TOL abs, as
+# GOLDEN_TOL for the card against the CPU.
+MESH_TIMEOUT = 300  # seconds the two ranks may take, start-up included
+MESH_MAPS, MESH_STEPS, MESH_TOL = 5, 10, 1e-4
+DPM_STEPS = 25
+# Maps held against the CPU: bf16 takes 6 s a map there, so one fits the
+# phase's 90 s (PERF.md Findings PR 12).
+DPM_CPU_MAPS = {"float32": 4, "bfloat16": 1}
+PROFILE_T, PROFILE_MAPS = 20, 90
 RUN_MAPS = {"initial": 90, "main": 90, "paper": 240}
 SOURCES = {
     "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
@@ -1182,13 +1218,13 @@ def check_runs(dev, drive) -> None:
                   f"{[(m['guidance'], round(m['nll'], 3)) for m in res['guidance_metrics']]}")
 
 
-def check_nov26(dev, drive, dtype: str) -> None:
+def check_nov26(dev, drive, dtype: str) -> str:
     """Phases (l2) and (o): ``run_experiment("nov26", 1e-4, 2 epochs, T
     1500)`` in ``dtype`` on the synthetic data (its reconstruction the
     exact chain on 4 maps; no stage follows it), then a run resumed from its
     epoch-1 train checkpoint against its epoch-2 state (cuDNN's
     deterministic algorithms for both), each driven with its launch
-    counts."""
+    counts.  Returns the unbroken run's train checkpoint."""
     snapshots = os.path.join(OUT_DIR, f"train_state_by_epoch_{dtype}")
     os.makedirs(snapshots, exist_ok=True)
     save = experiment.save_train_checkpoint
@@ -1231,14 +1267,16 @@ def check_nov26(dev, drive, dtype: str) -> None:
         torch.backends.cudnn.deterministic = cudnn_deterministic
     out_a, out_b = (runs[k + ("" if dtype == "float32" else "_bf16")]["output_dir"]
                     for k in ("exp_a", "exp_b"))
+    state_a = os.path.join(out_a, "weights", "train_state.msgpack")
     check_artifacts(out_a, ("weights/model_epoch_0.msgpack", "weights/model_epoch_1.msgpack",
                             "weights/train_state.msgpack", "output.log"), "nov26")
-    diff = compare_train_states(os.path.join(out_a, "weights", "train_state.msgpack"),
+    diff = compare_train_states(state_a,
                                 os.path.join(out_b, "weights", "train_state.msgpack"))
     print(f"  resumed from the epoch-1 train checkpoint vs the unbroken run at epoch 2: "
           f"params, batch_stats and Adam moments max abs {diff:.3e} (tol {RESUME_TOL:g})")
     if not diff <= RESUME_TOL:
         raise SystemExit(f"resumed run vs the unbroken run: {diff} > {RESUME_TOL}")
+    return state_a
 
 
 def check_train_step_bf16(variables, dev, batch, ref: dict) -> None:
@@ -1548,6 +1586,376 @@ def check_reference_workflow(dev, drive, variables) -> None:
                          f"{res['means']}, init_conv leaves {sorted(ckpt['params']['init_conv'])}")
 
 
+def mesh_batch(real: int, seed: int = 2):
+    """Phase (q2): a full-width batch of ``TRAIN_BATCH`` rows, ``real`` of
+    them real and the rest wrap-padded and masked, with the global batch's
+    t and noise."""
+    rs = np.random.RandomState(seed)
+    maps, _ = synthetic_camels(n_param_sets=3, maps_per_set=15, size=64, seed=seed)
+    idx = np.arange(TRAIN_BATCH) % real
+    x = normalize_maps(maps[:real]).astype(np.float32)[idx, ..., None]
+    c = rs.rand(real, 6).astype(np.float32)[idx]
+    mask = (np.arange(TRAIN_BATCH) < real).astype(np.float32)
+    t = rs.randint(1, TIMESTEPS + 1, TRAIN_BATCH)
+    noise = rs.randn(TRAIN_BATCH, 64, 64, 1).astype(np.float32)
+    return x, c, mask, t, noise
+
+
+def mesh_step(variables, dev, batch, mesh=None) -> dict:
+    """Phase (q2): one train step of the unfolded full-width model holding
+    ``variables`` on ``batch`` (t and noise injected), in one process or
+    over ``mesh`` on this rank's rows: loss, gradients and running
+    statistics, on the host."""
+    x, c, mask, t, noise = batch
+    model = training_model(variables, dev)
+    state = trainer.create_train_state(model, 1e-4, 2, 14)
+    rows = (x, c, mask) if mesh is None else shard_batch(mesh, x, c, mask)
+    m = trainer.make_train_step(model, TIMESTEPS, mesh=mesh)(
+        state, *rows, t=torch.tensor(t), noise=torch.tensor(noise))
+    return {"loss": float(m["loss"]),
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
+
+
+def mesh_sampler(model, dev, mesh=None) -> torch.Tensor:
+    """Phase (q2): the strided DDPM at w=2 over ``MESH_STEPS`` steps on
+    ``MESH_MAPS`` maps, its draws from a seeded generator on ``dev``."""
+    return sample_ddim(model, make_schedule(TIMESTEPS), torch.Generator(device=dev).manual_seed(5),
+                       n_sample=MESH_MAPS, params=certification_contexts(MESH_MAPS), guide_w=2.0,
+                       n_steps=MESH_STEPS, sigma_mode="beta", device=dev, mesh=mesh)
+
+
+def time_mesh_steps(variables, dev, batch, mesh=None, warm: int = 1, timed: int = 3) -> float:
+    """Phase (q2): ms a train step of ``batch`` (host clock around
+    ``timed`` steps after ``warm``, each ended by a synchronize), in one
+    process or over ``mesh``."""
+    x, c, mask, t, noise = batch
+    model = training_model(variables, dev)
+    state = trainer.create_train_state(model, 1e-4, 2, 14)
+    step = trainer.make_train_step(model, TIMESTEPS, mesh=mesh)
+    rows = (x, c, mask) if mesh is None else shard_batch(mesh, x, c, mask)
+    draws = dict(t=torch.tensor(t, device=dev), noise=torch.tensor(noise, device=dev))
+    for k in range(warm + timed):
+        if k == warm:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+        step(state, *rows, **draws)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / timed * 1e3
+
+
+def grads_digest(grads: dict) -> str:
+    """A digest of a step's gradients, bit for bit."""
+    h = hashlib.sha256()
+    for name, g in grads.items():
+        h.update(name.encode())
+        h.update(g.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(mesh, model_path: str, batches, spawned: float) -> dict:
+    """Phase (q2), in each of two ranks sharing the card: the train steps
+    of ``batches`` (rank 0's in full, the others' gradients as a digest,
+    for they must be rank 0's), the ms of a step of the first, and the
+    sampler over the mesh with its launch counts (each rank counts its own
+    launches); the seconds of each part, the start-up's from ``spawned``
+    (``time.time()`` in the parent)."""
+    seconds, t1 = {"start-up": time.time() - spawned}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t1
+        seconds[part], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    variables = load_variables(model_path)
+    lap("load")
+    steps = [mesh_step(variables, mesh.device, b, mesh) for b in batches]
+    for step in steps:
+        step["digest"] = grads_digest(step["grads"])
+        if mesh.rank:
+            del step["grads"]
+    lap("gated steps")
+    step_ms = time_mesh_steps(variables, mesh.device, batches[0], mesh)
+    lap("timed steps")
+    model = load_model(variables, mesh.device)
+    for wrapper, count in WRAPPERS.values():
+        setattr(wrapper, count, 0)
+    maps = mesh_sampler(model, mesh.device, mesh).cpu()
+    lap("sampler")
+    return {"steps": steps, "maps": maps, "step_ms": step_ms, "seconds": seconds,
+            "launches": {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}}
+
+
+def hold_mesh_step(label: str, got: dict, want: dict, witness: dict) -> None:
+    """Phase (q2): a two-rank train step against the single-process step on
+    the card under phase (l)'s gate: loss and all gradients together within
+    ``TRAIN_REL``; each leaf within it, or at rounding level (max abs
+    ``LEAF_ABS``, norm below ``ROUNDING`` of all gradients'), or held on
+    the witness as phase (l) holds it: max abs within ``LEAF_ABS``, error
+    within ``SMALL_LEAF_REL``, and the one-process fp32 step without cuDNN
+    within ``TRAIN_REL`` of the float64 step (``witness``: ``{"float64":
+    grads, "no cuDNN": grads}`` of the one-process step), so that
+    the gap is the rounding of cuDNN's algorithms at the ranks' batch of 16
+    and of each rank's partial gradient, not the port's math.  Running
+    statistics ``STATS_TOL`` abs."""
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    total = torch.cat([g.double().flatten() for g in want["grads"].values()])
+    diff = torch.cat([(got["grads"][n].double() - g.double()).flatten()
+                      for n, g in want["grads"].items()])
+    rel_all = (diff.norm() / total.norm()).item()
+
+    def rel_to(a, b):
+        return ((a.double() - b).norm() / b.norm()).item() if b.norm() > 0 else float("inf")
+
+    worst, failed, small = (0.0, ""), [], []
+    for name, g in want["grads"].items():
+        g = g.double()
+        d = got["grads"][name].double() - g
+        rel_leaf = rel_to(got["grads"][name], g)
+        line = f"{name} rel {rel_leaf:.3e} max abs {d.abs().max().item():.3e}"
+        worst = max(worst, (rel_leaf, line))
+        if rel_leaf <= TRAIN_REL or (d.abs().max() <= LEAF_ABS
+                                     and g.norm() <= ROUNDING * total.norm()):
+            continue
+        f64 = witness["float64"][name]
+        no_cudnn = rel_to(witness["no cuDNN"][name], f64)
+        line += (f"; vs float64: two ranks {rel_to(got['grads'][name], f64):.3e}, one "
+                 f"process {rel_to(g, f64):.3e}, one process without cuDNN {no_cudnn:.3e}")
+        if d.abs().max() <= LEAF_ABS and rel_leaf <= SMALL_LEAF_REL and no_cudnn <= TRAIN_REL:
+            small.append(line)
+        else:
+            failed.append(line)
+    stats = max((got["stats"][n].double() - v.double()).abs().max().item()
+                for n, v in want["stats"].items())
+    print(f"  {label}: two ranks vs one process on the card: loss {got['loss']:.8f} / "
+          f"{want['loss']:.8f} rel {rel:.3e}; gradients together rel L2 {rel_all:.3e} "
+          f"(tol {TRAIN_REL:g}), worst leaf {worst[1]}; {len(small)} leaves beyond "
+          f"{TRAIN_REL:g} held on the witness; running statistics max abs {stats:.3e} "
+          f"(tol {STATS_TOL:g})", flush=True)
+    for line in small:
+        print(f"    {line}")
+    if not (rel <= TRAIN_REL and rel_all <= TRAIN_REL and not failed and stats <= STATS_TOL):
+        raise SystemExit(f"{label}: two ranks vs one process beyond phase (l)'s gate: loss "
+                         f"{rel}, gradients {rel_all}, leaves {failed[:5]}, stats {stats}")
+
+
+def check_mesh_one(dev, drive, nov26_state: str) -> None:
+    """Phase (q1): phase (l2)'s ``run_experiment("nov26", T 1500)`` with
+    ``mesh_devices=1`` inside an NCCL group of one process (a mesh of one
+    runs no collective), its train state against phase (l2)'s mesh-less
+    run's: equal (cuDNN's deterministic algorithms for both)."""
+    store = tempfile.mkdtemp(dir=OUT_DIR)
+    init_distributed(backend="nccl", rank=0, world_size=1,
+                     store=torch.distributed.FileStore(os.path.join(store, "store"), 1))
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=2, timesteps=TIMESTEPS,
+                               n_eval_images=4, ckpt_every=1, mesh_devices=1,
+                               output_root=os.path.join(OUT_DIR, "exp_mesh1"))
+        shutil.rmtree(cfg.output_root, ignore_errors=True)
+        t1 = time.perf_counter()
+        res = drive("run_experiment_mesh1", lambda: experiment.run_experiment(cfg, device=dev),
+                    steps=TIMESTEPS * sampler_calls(cfg), train_forwards=28)
+        print(f"  run_experiment nov26, mesh_devices=1 in an NCCL group of "
+              f"{torch.distributed.get_world_size()}: losses {res['loss_log']} in "
+              f"{time.perf_counter() - t1:.3f} s")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+        torch.distributed.destroy_process_group()
+    diff = compare_train_states(nov26_state, os.path.join(
+        res["output_dir"], "weights", "train_state.msgpack"))
+    print(f"  train state vs phase (l2)'s mesh-less run: params, batch_stats and Adam "
+          f"moments max abs {diff:.3e} (must be 0)")
+    if diff != 0.0:
+        raise SystemExit(f"the mesh path of one process vs the mesh-less run: {diff}")
+
+
+def check_mesh_two(dev, variables, model, model_path: str, launches: dict) -> None:
+    """Phase (q2): two gloo ranks sharing the card (module docstring).
+    While the ranks start (a process takes seconds to import torch and to
+    run its first step on the card), this process takes its own steps,
+    their witnesses and its sampler; it times its step once they are
+    done, so the card is its own then."""
+    batches = [mesh_batch(TRAIN_BATCH), mesh_batch(30)]
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(spawn, mesh_rank, 2, (model_path, batches, time.time()),
+                              store_dir=tempfile.mkdtemp(dir=OUT_DIR), backend="gloo",
+                              device=dev, timeout=MESH_TIMEOUT)
+        wants = [mesh_step(variables, dev, batch) for batch in batches]
+        witnesses = [{name: witness_grads(lambda device: training_model(variables, device),
+                                          dev, x, c, mask, torch.tensor(t), torch.tensor(noise),
+                                          "reference", dtype, cudnn)
+                      for name, dtype, cudnn in (("float64", torch.float64, True),
+                                                 ("no cuDNN", torch.float32, False))}
+                     for x, c, mask, t, noise in batches]
+        want = mesh_sampler(model, dev).cpu()
+        ranks = pending.result()
+    print(f"  two gloo ranks on {dev}: {time.perf_counter() - t1:.3f} s, start-up included "
+          f"(rank 0: {', '.join(f'{k} {v:.3f}' for k, v in ranks[0]['seconds'].items())} s); "
+          f"a train step of the batch of 32 (16 a rank): "
+          f"{', '.join(f'{r['step_ms']:.3f}' for r in ranks)} ms (ranks 0, 1); in one "
+          f"process {time_mesh_steps(variables, dev, batches[0]):.3f} ms", flush=True)
+    for label, i in (("batch 32 (16 a rank)", 0), ("30 maps padded to 32 (2 pad rows masked)", 1)):
+        steps = [r["steps"][i] for r in ranks]
+        if steps[1]["digest"] != steps[0]["digest"]:  # summed: one value on both ranks
+            raise SystemExit(f"{label}: the ranks' gradients differ")
+        hold_mesh_step(label, steps[0], wants[i], witnesses[i])
+    want_launches = {name: 0 for name in WRAPPERS}
+    want_launches.update({name: MESH_STEPS * n for name, n in LAUNCHES_PER_STEP.items()})
+    for r, rank in enumerate(ranks):
+        err = (rank["maps"] - want).abs().max().item()
+        launches[f"mesh2_strided_w2_rank{r}"] = rank["launches"]
+        print(f"  rank {r}: strided DDPM w=2, {MESH_STEPS} steps, {MESH_MAPS} maps over two "
+              f"ranks vs one process: max abs {err:.3e} (tol {MESH_TOL:g}); launches "
+              f"{rank['launches']}")
+        if not err <= MESH_TOL or rank["launches"] != want_launches:
+            raise SystemExit(f"rank {r}: sharded sampler {err}, launches {rank['launches']} "
+                             f"(expected {want_launches})")
+
+
+def dpm_inputs(dev) -> tuple:
+    """Phase (q3): the contexts and the starting noise (on the card) of its
+    ``BATCH`` maps."""
+    return certification_contexts(BATCH), torch.randn(
+        (BATCH, 64, 64, 1), device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+
+
+def dpm_on_cpu(variables, cpu32, params, x_init) -> dict:
+    """Phase (q3)'s reference: ``sample_dpm2m`` on the CPU on the first
+    ``DPM_CPU_MAPS[dtype]`` maps' inputs (``x_init`` on the host), in fp32
+    and bf16: ``{dtype: (maps, seconds)}``.  ``main`` runs it in a thread
+    beside phase (q1), which runs on the card in fp32: the two share
+    ``fp32_math``'s flags, whose TF32 flags this script keeps off anyway, so
+    only the bf16 reduction flag can race, and no fp32 run reads it."""
+    out = {}
+    for dtype, host in (("float32", cpu32),
+                        ("bfloat16", load_model(variables, "cpu", dtype=torch.bfloat16))):
+        n = DPM_CPU_MAPS[dtype]
+        t1 = time.perf_counter()
+        maps = sample_dpm2m(host, make_schedule(TIMESTEPS), torch.Generator(), params=params[:n],
+                            guide_w=2.0, n_steps=DPM_STEPS, x_init=x_init[:n], device="cpu")
+        out[dtype] = (maps, time.perf_counter() - t1)
+    return out
+
+
+def check_dpm(dev, drive, variables, model, params, x_init, cpu: dict) -> None:
+    """Phase (q3): ``sample_dpm2m`` at full width on the card, fp32 and
+    bf16, against ``cpu`` (:func:`dpm_on_cpu`; module docstring)."""
+    schedule = make_schedule(TIMESTEPS)
+    for dtype, card in (("float32", model),
+                        ("bfloat16", load_model(variables, dev, dtype=torch.bfloat16))):
+        suffix = "" if dtype == "float32" else "_bf16"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        maps = drive(f"dpm2m_w2{suffix}", lambda card=card: sample_dpm2m(
+            card, schedule, torch.Generator(device=dev), params=params, guide_w=2.0,
+            n_steps=DPM_STEPS, x_init=x_init, device=dev), forwards=DPM_STEPS, dtype=dtype)
+        seconds = time.perf_counter() - t1
+        n = DPM_CPU_MAPS[dtype]
+        check_maps(maps, BATCH, f"DPM-Solver++(2M) {dtype}")
+        _, pk = power_spectrum_batch(maps[..., 0])
+        ref, cpu_seconds = cpu[dtype]
+        err = (maps[:n].cpu() - ref).abs().max().item()
+        if dtype == "float32":
+            tol, what = GOLDEN_TOL, f"tol {GOLDEN_TOL:g}"
+        else:
+            yard = (ref - cpu["float32"][0][:n]).abs().max().item()
+            tol, what = BF16_FACTOR * yard, f"{BF16_FACTOR:g} x the CPU's bf16-vs-fp32 {yard:.3e}"
+        print(f"  DPM-Solver++(2M) {dtype}, w=2, {DPM_STEPS} steps: {BATCH} maps in "
+              f"{seconds:.3f} s ({BATCH / seconds * 60:.1f} maps/min on this card, "
+              f"{seconds / DPM_STEPS * 1e3:.3f} ms a step); first {n} vs the CPU "
+              f"({cpu_seconds:.3f} s): max abs {err:.3e} ({what}); P(k) vs exact chain, "
+              f"N={BATCH} (information only): {pk_deviation(pk.cpu().numpy(), 2)}", flush=True)
+        if not err <= tol:
+            raise SystemExit(f"DPM-Solver++(2M) {dtype} on the card vs the CPU: {err} > {tol}")
+
+
+def check_profile(dev, drive) -> None:
+    """Phase (q4): ``run_experiment("nov26")`` of two epochs at
+    ``PROFILE_T`` on ``PROFILE_MAPS`` maps with ``CAMELS_PROFILE`` set: one Chrome trace, of the
+    second epoch, holding CUDA kernel events."""
+    trace_dir = os.path.join(OUT_DIR, "profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cfg = ExperimentConfig(mode="nov26", lrate=1e-4, n_epoch=2, timesteps=PROFILE_T,
+                           n_eval_images=4, max_maps=PROFILE_MAPS,
+                           output_root=os.path.join(OUT_DIR, "exp_profile"))
+    shutil.rmtree(cfg.output_root, ignore_errors=True)
+    n_maps = min(cfg.synthetic_param_sets, max(1, PROFILE_MAPS // 15)) * 15
+    n_train = n_maps - min(cfg.test_size, max(n_maps // 10, 1))
+    os.environ["CAMELS_PROFILE"] = trace_dir
+    try:
+        drive("run_experiment_profiled", lambda: experiment.run_experiment(cfg, device=dev),
+              steps=PROFILE_T * sampler_calls(cfg),
+              train_forwards=2 * num_batches(n_train, cfg.batch_size))
+    finally:
+        del os.environ["CAMELS_PROFILE"]
+    names = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if len(names) != 1:
+        raise SystemExit(f"CAMELS_PROFILE: expected one trace in {trace_dir}, found {names}")
+    path = os.path.join(trace_dir, names[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"  CAMELS_PROFILE: {names[0]}, {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"{len(kernels)} CUDA kernels ({busy:.3f} ms of kernel time)")
+    if not kernels:
+        raise SystemExit("CAMELS_PROFILE: the trace holds no CUDA kernel")
+
+
+def make_drive(launches: dict):
+    """``drive``, which runs one main path and records its launch counts
+    in ``launches[path]``."""
+
+    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32"):
+        """Run one main path with every launch count at 0 and read the
+        counts: a sampler path of ``steps`` reverse steps must show
+        ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
+        kernel applies ``out_conv2``); a likelihood path of ``forwards``
+        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
+        ``train_forwards`` training forwards no launch and one such conv
+        each.  ``forwards=None``: as many likelihood forwards as convs to
+        one channel beyond the training forwards (a run's many passes).
+        The launches are those of the ``dtype`` instances; the other
+        instances must show none."""
+        one_channel_convs = [0]
+
+        def hook(module, args, output):  # the card's only: q3 runs CPU forwards beside q1
+            if (isinstance(module, torch.nn.Conv2d) and module.out_channels == 1
+                    and output.is_cuda):
+                one_channel_convs[0] += 1
+
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        for wrapper, count in WRAPPERS.values():
+            setattr(wrapper, count, 0)
+        try:
+            result = fn()
+            torch.cuda.synchronize()
+        finally:
+            handle.remove()
+        launches[path] = {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}
+        print(f"  launches on {path}: {launches[path]}; convs to one channel: "
+              f"{one_channel_convs[0]}", flush=True)
+        if forwards is None:
+            forwards = one_channel_convs[0] - train_forwards
+        if forwards < 0 or one_channel_convs[0] != forwards + train_forwards:
+            raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
+                             f"expected {forwards + train_forwards}")
+        want = {name: 0 for name in WRAPPERS}
+        for name in LAUNCHES_PER_STEP:
+            want[instance(name, dtype)] = (steps * LAUNCHES_PER_STEP[name]
+                                           + forwards * LAUNCHES_PER_FORWARD[name])
+        if any(want[name] and not launches[path][name] for name in WRAPPERS):
+            raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
+        if launches[path] != want:
+            raise SystemExit(f"launches on {path}: {launches[path]}, expected {want}")
+        return result
+
+    return drive
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1582,49 +1990,7 @@ def main() -> int:
     phase("(d) golden forward, sampler vs CPU", t0)
 
     launches = {}  # path -> kernel -> launches on that path
-
-    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32"):
-        """Run one main path with every launch count at 0 and read the
-        counts: a sampler path of ``steps`` reverse steps must show
-        ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
-        kernel applies ``out_conv2``); a likelihood path of ``forwards``
-        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
-        ``train_forwards`` training forwards no launch and one such conv
-        each.  ``forwards=None``: as many likelihood forwards as convs to
-        one channel beyond the training forwards (a run's many passes).
-        The launches are those of the ``dtype`` instances; the other
-        instances must show none."""
-        one_channel_convs = [0]
-
-        def hook(module, args, output):
-            if isinstance(module, torch.nn.Conv2d) and module.out_channels == 1:
-                one_channel_convs[0] += 1
-
-        handle = torch.nn.modules.module.register_module_forward_hook(hook)
-        for wrapper, count in WRAPPERS.values():
-            setattr(wrapper, count, 0)
-        try:
-            result = fn()
-            torch.cuda.synchronize()
-        finally:
-            handle.remove()
-        launches[path] = {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}
-        print(f"  launches on {path}: {launches[path]}; convs to one channel: "
-              f"{one_channel_convs[0]}", flush=True)
-        if forwards is None:
-            forwards = one_channel_convs[0] - train_forwards
-        if forwards < 0 or one_channel_convs[0] != forwards + train_forwards:
-            raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
-                             f"expected {forwards + train_forwards}")
-        want = {name: 0 for name in WRAPPERS}
-        for name in LAUNCHES_PER_STEP:
-            want[instance(name, dtype)] = (steps * LAUNCHES_PER_STEP[name]
-                                           + forwards * LAUNCHES_PER_FORWARD[name])
-        if any(want[name] and not launches[path][name] for name in WRAPPERS):
-            raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
-        if launches[path] != want:
-            raise SystemExit(f"launches on {path}: {launches[path]}, expected {want}")
-        return result
+    drive = make_drive(launches)
 
     t0 = time.perf_counter()
     served = {}
@@ -1756,7 +2122,7 @@ def main() -> int:
     phase("(l1) train step vs CPU, guard, fixed objective, step time", t0)
 
     t0 = time.perf_counter()
-    check_nov26(dev, drive, "float32")
+    nov26_state = check_nov26(dev, drive, "float32")
     phase("(l2) run_experiment and resume", t0)
 
     t0 = time.perf_counter()
@@ -1778,6 +2144,24 @@ def main() -> int:
     t0 = time.perf_counter()
     check_reference_workflow(dev, drive, variables)
     phase("(p) the reference workflow at full width", t0)
+
+    t0 = time.perf_counter()
+    params, x_init = dpm_inputs(dev)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # q3's CPU side beside q1
+        dpm_cpu = pool.submit(dpm_on_cpu, variables, models[1], params, x_init.cpu())
+        for name, run in (
+                ("(q1) mesh of one process, NCCL", lambda: check_mesh_one(dev, drive,
+                                                                          nov26_state)),
+                ("(q2) two gloo ranks on the card", lambda: check_mesh_two(
+                    dev, variables, model, cfg2.model_path, launches)),
+                ("(q3) DPM-Solver++(2M)", lambda: check_dpm(
+                    dev, drive, variables, model, params, x_init, dpm_cpu.result())),
+                ("(q4) CAMELS_PROFILE", lambda: check_profile(dev, drive))):
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            phase(name, t1)
+    phase("(q) data parallelism, DPM-Solver++(2M), CAMELS_PROFILE", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

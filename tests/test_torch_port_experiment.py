@@ -1,8 +1,8 @@
 """PyTorch port: ``run_experiment`` at the tiny size on the CPU -- the JAX
 runner's artifact names and log-line formats, a resume that reproduces the
 unbroken run, the deep and big variants' modes end to end, a bf16 run, the
-figures skipped and listed, and the options not ported raising
-``NotImplementedError``; the run logger's lines against the JAX package's.
+figures skipped and listed, and ``mesh_devices`` beyond the process group
+raising; the run logger's lines against the JAX package's.
 Values differ from the JAX runner's (torch generators, not threefry), so
 formats are compared with the numbers masked."""
 
@@ -218,8 +218,11 @@ def _leaves(tree):
     ("condition", {"mesh_devices": 2}, "multi-device"),
 ])
 def test_parts_not_ported_raise(tmp_path, mode, overrides, item):
+    """``mesh_devices=2`` without a process group of two (the mesh path runs
+    under one, ``tests/test_torch_port_parallel.py``) raises before the run
+    writes anything; it never trains on one process instead."""
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **{**TINY, **overrides})
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         experiment.run_experiment(cfg, device="cpu")
     assert not os.listdir(tmp_path)
 

@@ -61,6 +61,11 @@ PORT_MODULES = [
     "camels_diffusion_model_tpu_torch.utils.image_norm",
     "camels_diffusion_model_tpu_torch.utils.viz",
     "camels_diffusion_model_tpu_torch.cli.sample",
+    "camels_diffusion_model_tpu_torch.parallel",
+    "camels_diffusion_model_tpu_torch.parallel.mesh",
+    "camels_diffusion_model_tpu_torch.parallel.launch",
+    "camels_diffusion_model_tpu_torch.diffusion.dpm_solver",
+    "camels_diffusion_model_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "matplotlib", "camels_diffusion_model_tpu")

@@ -105,12 +105,12 @@ def _run_port(mode, root, calls, monkeypatch, **kw):
     ``tests/test_torch_port_native_prep.py``)."""
 
     def sampler(model, schedule, generator, n_sample=1, size=64, params=None,
-                guide_w=0.0, device=None):
+                guide_w=0.0, device=None, mesh=None):
         calls.append((n_sample, _np(params), _np(guide_w)))
         return torch.tensor(_maps(n_sample))
 
     def from_noise(model, schedule, generator, noise_images, params=None, save_rate=20,
-                   device=None, z_fn=None):
+                   device=None, z_fn=None, mesh=None):
         n = noise_images.shape[0]
         calls.append((n, _np(params), None))
         return SamplerOutput(torch.tensor(_maps(n)), torch.zeros(1, *noise_images.shape))

@@ -55,9 +55,12 @@ likelihood passes run whole on every process, as JAX runs them unsharded.
 ``CAMELS_PROFILE=<dir>`` writes a trace of the second epoch
 (``utils/profiling.py``).
 
-What waits: the port writes no figure (no PNG; the run figures of
-``utils/viz.py`` are not ported).  A run prints that it skipped them and
-lists them in ``results["not_ported"]``.
+Figures: rank 0 writes the JAX runner's PNG files at its call sites
+(``experiment.py:299-876``; ``utils/viz.py``).  Where matplotlib is
+absent, as on the card's machine, each figure prints a line saying it was
+skipped and its file name is listed in ``results["figures_skipped"]``.
+``results["not_ported"]`` lists the parts of a run the port does not do:
+none.
 
 Noise comes from torch generators seeded by the run seed (the training
 step's from ``(seed, 0, step)``, the validation pass's from ``(seed, 1,
@@ -105,6 +108,7 @@ from ..ops.spectrum import compare_power_spectra_stats
 from ..ops.stats import compare_pdf_stats
 from ..parallel.mesh import (
     Mesh,
+    all_reduce,
     init_distributed,
     make_mesh,
     replicate,
@@ -125,6 +129,7 @@ from ..training.trainer import (
     parse_remat_env,
     seeded_generator,
 )
+from ..utils import viz
 from ..utils.profiling import maybe_trace
 from ..utils.run_logging import RunLogger
 from ..utils.weights import to_jax_variables
@@ -210,7 +215,7 @@ def _unported(cfg: ExperimentConfig) -> List[str]:
             "process(es): a multi-device run takes one process a device, e.g. torchrun "
             f"--nproc-per-node {cfg.mesh_devices} -m "
             "camels_diffusion_model_tpu_torch.cli.experiment ...")
-    return ["figures"]
+    return []
 
 
 def _build_grid_params(cfg: ExperimentConfig, selected_params: np.ndarray) -> np.ndarray:
@@ -271,9 +276,10 @@ def guidance_sweep(model, schedule: DDPMSchedule, base: np.ndarray, strengths,
 
 def run_experiment(cfg: ExperimentConfig, *, device=None) -> Dict[str, object]:
     """Train and evaluate as ``cfg`` says (module docstring); returns the
-    JAX runner's ``results`` keys for the parts run, ``"pdf_stats"`` (the
-    pixel-PDF comparison its figure would plot) and ``"not_ported"``, the
-    parts skipped."""
+    JAX runner's ``results`` keys, ``"pdf_stats"`` (the pixel-PDF
+    comparison its figure plots), ``"not_ported"`` (the parts skipped:
+    none) and ``"figures_skipped"`` (the PNG files not written for want of
+    matplotlib)."""
     not_ported = _unported(cfg)
     device = resolve_device(device)
     with fp32_math():
@@ -297,6 +303,16 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         print(f"Data-parallel over {mesh.world_size} process(es)")
     main = mesh is None or mesh.rank == 0  # rank 0 writes metrics and artifacts
     output_dir = cfg.output_dir()
+    figures_skipped: List[str] = []
+
+    def figure(writer, *args, name=None, **kwargs):
+        """``writer(*args, **kwargs)`` on rank 0; the file name of a figure
+        it skipped (no matplotlib) goes into ``figures_skipped``: ``name``,
+        or the path among ``args``."""
+        if main and writer(*args, **kwargs) is None:
+            figures_skipped.append(name or os.path.basename(
+                next(a for a in args if isinstance(a, str) and a.endswith(".png"))))
+
     save_dir = os.path.join(output_dir, "weights")
     os.makedirs(save_dir, exist_ok=True)
     logger = RunLogger(output_dir, device) if main else _NoLog()
@@ -376,12 +392,15 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         sel_idx = sel_rng.choice(ds.n_test, size=min(cfg.n_eval_images, ds.n_test),
                                  replace=False)
         selected_images, selected_params = ds.test_x[sel_idx], ds.test_c[sel_idx]
+        figure(viz.save_image_grid, selected_images, os.path.join(output_dir, "test_images.png"))
         logger.selected_params(selected_params)
     else:
         all_x = np.concatenate([ds.train_x, ds.test_x])
         sel_idx = sel_rng.choice(all_x.shape[0], size=cfg.n_eval_images, replace=False)
         selected_images = all_x[sel_idx]
         selected_params = np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32)
+        figure(viz.save_image_grid, selected_images,
+               os.path.join(output_dir, "processed_images.png"))
     processed_images_mean = float(selected_images.mean())
 
     # ---- training loop (experiment.py:320-420) ----------------------------
@@ -543,6 +562,17 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
             val_bpd_log[-1] if val_bpd_log else None,
             likelihood_log[-1] if likelihood_log else None,
             val_likelihood_log[-1] if val_likelihood_log else None)
+    # ---- loss figures (experiment.py:567-591) -----------------------------
+    if spec.training_metrics_figure:
+        figure(viz.plot_training_metrics, output_dir, cfg.n_epoch, loss_log, val_loss_log,
+               likelihood_log, val_likelihood_log, elbo_log, val_elbo_log, bpd_log,
+               val_bpd_log, eval_every=cfg.eval_every, elbo_per_epoch=spec.per_batch_elbo,
+               style=spec.plot_style, name="training_metrics.png")
+    elif loss_log:
+        title = (f"Loss Evolution with {cfg.num_params} conditioning parameters"
+                 if spec.conditional and spec.track_val_mse else "")
+        figure(viz.plot_loss_curve, output_dir, loss_log, val_loss_log,
+               eval_every=cfg.eval_every, title=title, name="loss_evolution.png")
     results: Dict[str, object] = {
         "output_dir": output_dir,
         "data_source": data_source,
@@ -564,19 +594,35 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         torch.cuda.synchronize(device)
     t0 = time.time()
     if spec.pure_noise_sampling:
-        recon_x = sample_ddpm(inf_model, schedule, generator, n_sample=cfg.n_eval_images,
-                              size=cfg.height,
-                              params=np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32),
-                              device=device, mesh=mesh).cpu().numpy()
+        # sample_ddpm's chain from noise drawn here, keeping its saved states
+        x_init = torch.randn((cfg.n_eval_images, cfg.height, cfg.height, 1),
+                             generator=generator, device=device)
+        recon = sample_ddpm_from_noise(
+            inf_model, schedule, generator, x_init,
+            params=np.zeros((cfg.n_eval_images, cfg.n_cfeat), np.float32),
+            device=device, mesh=mesh)
     else:
         recon = reconstruct(inf_model, schedule, selected_images,
                             selected_params if spec.conditional else None, generator,
                             scaling=scaling, device=device, mesh=mesh)
-        recon_x = recon.x.cpu().numpy()
+    recon_x = recon.x.cpu().numpy()
     seconds = time.time() - t0
     if spec.timing_log:
         logger.reconstruction_perf(len(selected_images), seconds, seconds / cfg.timesteps,
                                    cfg.timesteps)
+    # the tanh variants' maps in [-1, 1] show in [0, 1] (main.py:254)
+    recon_display = (recon_x + 1.0) / 2.0 if spec.model_variant in ("deep", "big") else recon_x
+    intermediate = recon.intermediate.cpu().numpy()
+    for idx in range(0, intermediate.shape[0], 5 if spec.conditional else 1):
+        figure(viz.save_image_grid, intermediate[idx],
+               os.path.join(output_dir, f"intermediate_step_{idx}.png"))
+    figure(viz.save_image_grid, recon_display,
+           os.path.join(output_dir, "reconstructed_images.png"))
+    if spec.viridis:
+        figure(viz.visualize_viridis_style, recon_x,
+               os.path.join(output_dir, "reconstructed_images_viridis.png"))
+        figure(viz.visualize_reconstruction_comparison, selected_images, recon_x,
+               os.path.join(output_dir, "reconstruction_comparison_viridis.png"))
     if spec.post_metrics:
         r_elbo, r_bpd, r_nll = sample_metrics(inf_model, schedule, recon_x, selected_params,
                                               generator, cfg.batch_size, dims, device=device)
@@ -585,14 +631,20 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
 
     # ---- pixel-PDF comparison (experiment.py:667-677) ----------------------
     results["pdf_stats"] = compare_pdf_stats(selected_images[..., 0], recon_x[..., 0])
+    figure(viz.plot_distribution_comparison, *results["pdf_stats"], output_dir=output_dir,
+           styled=spec.styled_plots, style=spec.plot_style,
+           name="distribution_comparison.png")
     reconstructed_mean = float(recon_x.mean())
     results["means"] = {"processed": processed_images_mean,
                         "reconstructed": reconstructed_mean}
 
     # ---- recon power spectra (experiment.py:679-715) -----------------------
     if spec.recon_power_spectra:
-        k, om, _, gm, _ = compare_power_spectra_stats(selected_images[..., 0],
-                                                      recon_x[..., 0])
+        k, om, os_, gm, gs = compare_power_spectra_stats(selected_images[..., 0],
+                                                         recon_x[..., 0])
+        figure(viz.plot_power_spectrum_comparison, k, om, os_, gm, gs, output_dir,
+               title=f"Power Spectrum conditioning on Parameter {cfg.param_index}",
+               name="power_spectrum_comparison.png")
         with np.errstate(divide="ignore", invalid="ignore"):
             pk_ratio = gm / om
         # The reference's mean takes in the 0/0 bins and logs nan; the
@@ -617,6 +669,11 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
     if spec.mean_correction:
         mean_ratio = processed_images_mean / reconstructed_mean
         corrected = recon_x * mean_ratio
+        figure(viz.save_image_grid, corrected,
+               os.path.join(output_dir, "corrected_reconstructed_images.png"))
+        figure(viz.plot_distribution_comparison,
+               *compare_pdf_stats(selected_images[..., 0], corrected[..., 0]),
+               output_dir=output_dir, styled=False, name="distribution_comparison.png")
         if main:
             with open(os.path.join(output_dir, "means.txt"), "w") as f:
                 f.write(f"Processed Images Mean: {processed_images_mean}\n")
@@ -636,6 +693,9 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
                              device=device, mesh=mesh).cpu().numpy()
         if spec.timing_log:
             logger.grid_perf(len(grid_params), time.time() - t0)
+        figure(viz.save_image_grid, grid_x, os.path.join(
+            output_dir, f"parameter_grid_samples_{cfg.num_params}params.png"),
+            nrow=int(np.sqrt(len(grid_x))))
         if spec.post_metrics:
             g_elbo, g_bpd, g_nll = sample_metrics(inf_model, schedule, grid_x, grid_params,
                                                   generator, cfg.batch_size, dims,
@@ -657,6 +717,12 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
                 guided_metrics.append({"guidance": w, "elbo": e, "bpd": b, "nll": nll})
                 logger.guidance_metrics(w, e, b, nll)
             results["guidance_metrics"] = guided_metrics
+        figure(viz.save_image_grid,
+               np.concatenate([guided_by_w[w] for w in cfg.guidance_strengths]),
+               os.path.join(output_dir, "guidance_strength_samples.png"), nrow=5)
+        if spec.post_metrics and guided_metrics:
+            figure(viz.plot_guidance_metrics, guided_metrics, output_dir,
+                   name="guidance_metrics.png")
 
     # ---- sensitivity, one sampler call (experiment.py:819-875) -------------
     if spec.sensitivity and spec.conditional and cfg.num_params > 0:
@@ -664,6 +730,9 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
         generator = seeded_generator(device, cfg.seed, 5)
         sens_x = sample_ddpm(inf_model, schedule, generator, n_sample=len(sens_params),
                              size=cfg.height, params=sens_params, device=device, mesh=mesh)
+        figure(viz.plot_sensitivity_grid,
+               sens_x.cpu().numpy().reshape(cfg.num_params, 5, cfg.height, cfg.height),
+               SENSITIVITY_VALUES, output_dir, name="parameter_sensitivity.png")
         if spec.post_metrics:
             per_elbo = elbo_bpd_batch(inf_model, schedule, sens_x, sens_params, generator,
                                       device=device).cpu().numpy()
@@ -671,12 +740,23 @@ def _run(cfg: ExperimentConfig, device: torch.device, not_ported: List[str]) -> 
                                 device=device).cpu().numpy()
             for p_idx in range(cfg.num_params):
                 logger.sensitivity_header(p_idx)
+                metrics = []
                 for i, v in enumerate(SENSITIVITY_VALUES):
                     e = float(per_elbo[p_idx * 5 + i])
-                    logger.sensitivity_value(float(v), e, e / (dims * np.log(2.0)),
-                                             float(per_nll[p_idx * 5 + i]))
+                    b, nll = e / (dims * np.log(2.0)), float(per_nll[p_idx * 5 + i])
+                    logger.sensitivity_value(float(v), e, b, nll)
+                    metrics.append({"param_idx": p_idx, "param_value": float(v), "elbo": e,
+                                    "bpd": b, "nll": nll})
+                figure(viz.plot_parameter_metrics, metrics, p_idx, output_dir,
+                       name=f"parameter_{p_idx + 1}_metrics.png")
 
-    print("Not run by the port (ROADMAP section 1, leftovers): " + ", ".join(not_ported))
+    results["figures_skipped"] = figures_skipped
+    if mesh is not None:  # no rank returns before rank 0 has written everything
+        all_reduce(mesh, torch.zeros(1, device=device))
+    if figures_skipped:
+        print(f"Figures skipped (matplotlib is not installed): {', '.join(figures_skipped)}")
+    if not_ported:
+        print("Not run by the port: " + ", ".join(not_ported))
     print("Training and evaluation completed"
           + (f" with {cfg.num_params} conditioning parameters." if spec.conditional else "."))
     return results

@@ -51,6 +51,22 @@
 // half the bytes, so the big model's out_norm (1 MiB a group in bf16,
 // 128 KiB a CTA in a cluster of 8) stays resident; the spill path serves
 // the fp32 instance.
+//
+// Sharded statistics (a height shard of a spatial mesh, whose GroupNorm
+// statistics span every shard; XLA's SPMD partitioner inserts them in JAX):
+// the kernel's MODE template argument.  MODE 0 is the single launch above.
+// MODE 1 (statistics) reads the shard once into shared memory as MODE 0
+// does, takes its local mean and then its local centred sum of squares
+// M2, writes (count, mean, M2) of each (sample, group) in fp32, and stops.
+// The host all-reduces the shards' triples into an (n_parts, n, groups, 3)
+// buffer.  MODE 2 (apply) merges the n_parts triples of its (sample,
+// group) in shard order by Chan's formula in its prologue:
+//   n = na + nb, d = mb - ma, mean = ma + d * (nb / n),
+//   M2 = M2a + M2b + d * d * (na * nb / n),
+// which keeps the centred variance of MODE 0 (no E[x^2] - E[x]^2
+// cancellation), then normalises, applies gamma/beta, the activation and
+// the FiLM epilogue as MODE 0 does, reading x once from device memory
+// (no slice in shared memory: it reads each pixel once).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -98,14 +114,17 @@ __device__ __forceinline__ float activate(float y, int act) {
 
 // Grid: (sample, group) major, cluster rank minor.  Dynamic shared memory:
 // resident_pixels * cg elements of T, the CTA's slice as [pixel][channel of
-// group].
-template <typename T, int V>
+// group].  MODE: 0 the single launch, 1 statistics into stats (float
+// triples per (sample, group)), 2 apply with the n_parts triples of
+// partials.
+template <typename T, int V, int MODE>
 __global__ void groupnorm_act_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const T* __restrict__ scale,
     const T* __restrict__ shift, T* __restrict__ out, int hw, int c,
     int groups, int cluster_size, int pixels_per_cta, int resident_pixels,
-    int scale_stride, int shift_stride, float eps, int act) {
+    int scale_stride, int shift_stride, float eps, int act,
+    float* __restrict__ stats, const float* __restrict__ parts, int n_parts) {
   extern __shared__ float4 slice_storage[];
   __shared__ float warp_sums[32];
   __shared__ float partials[2];
@@ -137,32 +156,57 @@ __global__ void groupnorm_act_kernel(
     for (int p = spill; p < np; p += pstride) body(p, load<V>(xs + (long long)p * c));
   };
 
-  float s = 0.0f;
-#pragma unroll 4
-  for (int p = first; p < np; p += pstride) {
-    Pack<V> v = load<V>(xs + (long long)p * c);
-    if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
-#pragma unroll
-    for (int i = 0; i < V; ++i) s += v.v[i];
-  }
-  const float count = (float)((long long)hw * cgroup);
-  const float mean =
-      cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
-
-  float q = 0.0f;
-  sweep([&](int, const Pack<V>& v) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      float d = v.v[i] - mean;
-      q += d * d;
+  float mean, rstd;
+  if constexpr (MODE == 2) {
+    // Chan's merge of the shards' (count, mean, M2), in shard order.
+    const long long ngs = (long long)gridDim.x / cluster_size;
+    const float* p = parts + (long long)ng * 3;
+    float cnt = p[0], m2 = p[2];
+    mean = p[1];
+    for (int k = 1; k < n_parts; ++k) {
+      const float* q = parts + ((long long)k * ngs + ng) * 3;
+      const float nb = q[0], nab = cnt + nb, delta = q[1] - mean;
+      mean = mean + delta * (nb / nab);
+      m2 = m2 + q[2] + delta * delta * (cnt * nb / nab);
+      cnt = nab;
     }
-  });
-  const float var =
-      cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size) / count;
-  const float rstd = rsqrtf(var + eps);
-  // Done with the other CTAs' shared memory; wait for them before exiting,
-  // so no CTA's partials vanish while another still reads them.
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+    rstd = rsqrtf(m2 / cnt + eps);
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  } else {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int p = first; p < np; p += pstride) {
+      Pack<V> v = load<V>(xs + (long long)p * c);
+      if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
+#pragma unroll
+      for (int i = 0; i < V; ++i) s += v.v[i];
+    }
+    const float count = (float)((long long)hw * cgroup);
+    mean = cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
+
+    float q = 0.0f;
+    sweep([&](int, const Pack<V>& v) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float d = v.v[i] - mean;
+        q += d * d;
+      }
+    });
+    const float m2 = cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size);
+    rstd = rsqrtf(m2 / count + eps);
+    // Done with the other CTAs' shared memory; wait for them before exiting,
+    // so no CTA's partials vanish while another still reads them.
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+    if constexpr (MODE == 1) {
+      if (rank == 0 && threadIdx.x == 0) {
+        stats[(long long)ng * 3] = count;
+        stats[(long long)ng * 3 + 1] = mean;
+        stats[(long long)ng * 3 + 2] = m2;
+      }
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      return;
+    }
+  }
 
   const Pack<V> ga = load<V>(gamma + ch), be = load<V>(beta + ch);
   const bool film = scale != nullptr;
@@ -182,31 +226,33 @@ __global__ void groupnorm_act_kernel(
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-template <typename T, int V>
+template <typename T, int V, int MODE>
 cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
                    const float* beta, const T* scale, const T* shift,
                    T* out, int hw, int c, int groups, int cluster,
                    int pixels_per_cta, int resident_pixels, int scale_stride,
-                   int shift_stride, float eps, int act) {
+                   int shift_stride, float eps, int act, float* stats,
+                   const float* parts, int n_parts) {
   cudaError_t err = cudaSuccess;
   if (cfg->dynamicSmemBytes > 48 * 1024)
-    err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V>,
+    err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg->dynamicSmemBytes);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V>, x, gamma, beta, scale,
+    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V, MODE>, x, gamma, beta, scale,
                              shift, out, hw, c, groups, cluster, pixels_per_cta,
-                             resident_pixels, scale_stride, shift_stride, eps, act);
+                             resident_pixels, scale_stride, shift_stride, eps, act, stats,
+                             parts, n_parts);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <typename T>
+template <typename T, int MODE>
 int entry(const T* x, const float* gamma, const float* beta, const T* scale,
           const T* shift, T* out, int n, int hw, int c, int groups,
           int scale_stride, int shift_stride, float eps, int act, int vec,
           int cluster, int threads, int pixels_per_cta, int resident_pixels,
-          int smem_bytes, void* stream) {
+          int smem_bytes, float* stats, const float* parts, int n_parts, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * groups * cluster));
@@ -221,13 +267,14 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (vec == kVec<T>)
-    return (int)launch<T, kVec<T>>(&cfg, x, gamma, beta, scale, shift, out, hw, c,
-                                   groups, cluster, pixels_per_cta, resident_pixels,
-                                   scale_stride, shift_stride, eps, act);
+    return (int)launch<T, kVec<T>, MODE>(&cfg, x, gamma, beta, scale, shift, out, hw, c,
+                                         groups, cluster, pixels_per_cta, resident_pixels,
+                                         scale_stride, shift_stride, eps, act, stats, parts,
+                                         n_parts);
   if (vec == 1)
-    return (int)launch<T, 1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                             cluster, pixels_per_cta, resident_pixels, scale_stride,
-                             shift_stride, eps, act);
+    return (int)launch<T, 1, MODE>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
+                                   cluster, pixels_per_cta, resident_pixels, scale_stride,
+                                   shift_stride, eps, act, stats, parts, n_parts);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -247,10 +294,43 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
                       int act, int vec, int cluster, int threads,                   \
                       int pixels_per_cta, int resident_pixels, int smem_bytes,      \
                       void* stream) {                                               \
-    return entry<T>(x, gamma, beta, scale, shift, out, n, hw, c, groups,            \
-                    scale_stride, shift_stride, eps, act, vec, cluster, threads,    \
-                    pixels_per_cta, resident_pixels, smem_bytes, stream);           \
+    return entry<T, 0>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
+                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
+                       pixels_per_cta, resident_pixels, smem_bytes, nullptr,        \
+                       nullptr, 0, stream);                                         \
   }
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act_bf16, bf16)
 #undef CAMELS_GROUPNORM_ENTRY
+
+// The sharded mode.  Statistics: the arguments above (gamma, beta, the rows
+// and out unused, null) and stats, (n, groups, 3) float: count, mean, M2.
+// Apply: the arguments above with resident_pixels and smem_bytes 0, then
+// parts, (n_parts, n, groups, 3) float in shard order, and n_parts.
+#define CAMELS_GROUPNORM_SHARDED_ENTRIES(STATS, APPLY, T)                            \
+  extern "C" int STATS(const T* x, const float* gamma, const float* beta,           \
+                       const T* scale, const T* shift, T* out, int n, int hw,       \
+                       int c, int groups, int scale_stride, int shift_stride,       \
+                       float eps, int act, int vec, int cluster, int threads,       \
+                       int pixels_per_cta, int resident_pixels, int smem_bytes,     \
+                       float* stats, void* stream) {                                \
+    return entry<T, 1>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
+                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
+                       pixels_per_cta, resident_pixels, smem_bytes, stats, nullptr, \
+                       0, stream);                                                  \
+  }                                                                                 \
+  extern "C" int APPLY(const T* x, const float* gamma, const float* beta,           \
+                       const T* scale, const T* shift, T* out, int n, int hw,       \
+                       int c, int groups, int scale_stride, int shift_stride,       \
+                       float eps, int act, int vec, int cluster, int threads,       \
+                       int pixels_per_cta, int resident_pixels, int smem_bytes,     \
+                       const float* parts, int n_parts, void* stream) {             \
+    return entry<T, 2>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
+                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
+                       pixels_per_cta, resident_pixels, smem_bytes, nullptr, parts, \
+                       n_parts, stream);                                            \
+  }
+CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats, camels_groupnorm_apply, float)
+CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats_bf16, camels_groupnorm_apply_bf16,
+                                 bf16)
+#undef CAMELS_GROUPNORM_SHARDED_ENTRIES

@@ -49,6 +49,15 @@
 //    come from L2; the hit rate is not measured.
 //  - The per-sample w is read once per CTA (no division per element).
 //
+// Halo rows (a height shard of a spatial mesh, where out_conv2's window
+// reads one row beyond the shard on each side; XLA's SPMD partitioner
+// exchanges them in JAX): the HALO template argument.  halo is (2, units'
+// samples, width, c) of h's type: [0] the row above this shard's first,
+// [1] the row below its last, for every sample h holds.  A band's halo row
+// -1 or `height` is then copied from it instead of zero-filled; a copy's
+// offset into it is encoded as -2 - offset, so the copies keep one int
+// each.  HALO false is the unsharded kernel as it was.
+//
 // The feature type T is float or bf16 (h, the (9, c) weights and the bias;
 // the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
 // and bias to bf16 as blocks.py:122 does).  Products of bf16 values are
@@ -88,9 +97,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // band is at global row y0 - 1 + p / width.  Dynamic shared memory: the
 // weights [9][c] as floats, then STAGES stages of [2T][STRIDE] elements of
 // E; the partials [9][2T] (floats) reuse the ring at the end.
-template <typename E, int CK, int STAGES>
+template <typename E, int CK, int STAGES, bool HALO>
 __global__ void head_step_kernel(
-    const E* __restrict__ h, const E* __restrict__ wt,
+    const E* __restrict__ h, const E* __restrict__ halo, const E* __restrict__ wt,
     const E* __restrict__ bias, const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
     float w, float* __restrict__ out, int batch, int height, int width, int c,
@@ -125,14 +134,27 @@ __global__ void head_step_kernel(
     src[m] = gy >= 0 && gy < height
                  ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * L
                  : -1;
+    if constexpr (HALO) {
+      const int nd = cfg ? 2 * batch : batch;  // samples of h (and of halo)
+      if (gy == -1 || gy == height)
+        src[m] = -2 - (((gy == height) * nd + sample) * width + (pix - lr * width)) * c -
+                 j * L;
+    }
   }
   auto issue = [&](int chunk) {
     E* st = ring + (chunk % STAGES) * stage_elems;
 #pragma unroll
     for (int m = 0; m < 2 * V; ++m) {
       const int i = tid + m * T;
-      cp_async16(st + (i / V) * STRIDE + (i % V) * L,
-                 src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
+      if constexpr (HALO) {
+        const E* from = src[m] >= 0    ? h + src[m] + chunk * CK
+                        : src[m] < -1 ? halo + (-2 - src[m]) + chunk * CK
+                                      : h;
+        cp_async16(st + (i / V) * STRIDE + (i % V) * L, from, src[m] != -1);
+      } else {
+        cp_async16(st + (i / V) * STRIDE + (i % V) * L,
+                   src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
+      }
     }
   };
 
@@ -230,28 +252,29 @@ __global__ void head_step_kernel(
   }
 }
 
-template <typename E, int CK, int STAGES>
+template <typename E, int CK, int STAGES, bool HALO>
 cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
-                   const E* h, const E* wt, const E* bias,
+                   const E* h, const E* halo, const E* wt, const E* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c,
                    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
                    int tanh_out) {
   cudaError_t err = cudaSuccess;
   if (smem_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(head_step_kernel<E, CK, STAGES>,
+    err = cudaFuncSetAttribute(head_step_kernel<E, CK, STAGES, HALO>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
-    head_step_kernel<E, CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
-        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
+    head_step_kernel<E, CK, STAGES, HALO><<<grid, threads, smem_bytes, stream>>>(
+        h, halo, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
         cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 // ck: channels per staged chunk, 128, 64, 32 or 16 bytes of them.
-template <typename E>
-int entry(const E* h, const E* wt, const E* bias, const float* x, const float* z,
+template <typename E, bool HALO>
+int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
+          const float* z,
           const float* w_per_sample, float w, float* out, int batch, int height,
           int width, int c, int rows, int cfg, int ck, int stages, int threads,
           int smem_bytes, float c_eps, float inv_sqrt_a, float sigma, int tanh_out,
@@ -262,10 +285,10 @@ int entry(const E* h, const E* wt, const E* bias, const float* x, const float* z
   constexpr int K = 32 / (int)sizeof(E);  // channels of 32 bytes
 #define CAMELS_HEAD_STEP(CK, STAGES)                                                 \
   if (ck == CK && stages == STAGES)                                                  \
-    return (int)launch<E, CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, \
-                                      z, w_per_sample, w, out, batch, height, width, \
-                                      c, rows, cfg, c_eps, inv_sqrt_a, sigma,        \
-                                      tanh_out);
+    return (int)launch<E, CK, STAGES, HALO>(grid, threads, smem_bytes, st, h, halo,  \
+                                            wt, bias, x, z, w_per_sample, w, out,    \
+                                            batch, height, width, c, rows, cfg,      \
+                                            c_eps, inv_sqrt_a, sigma, tanh_out);
   CAMELS_HEAD_STEP(4 * K, 2)
   CAMELS_HEAD_STEP(4 * K, 3)
   CAMELS_HEAD_STEP(2 * K, 2)
@@ -295,10 +318,27 @@ int entry(const E* h, const E* wt, const E* bias, const float* x, const float* z
                       int rows, int cfg, int ck, int stages, int threads,           \
                       int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
                       int tanh_out, void* stream) {                                 \
-    return entry<E>(h, wt, bias, x, z, w_per_sample, w, out, batch, height, width,  \
-                    c, rows, cfg, ck, stages, threads, smem_bytes, c_eps,           \
-                    inv_sqrt_a, sigma, tanh_out, stream);                           \
+    return entry<E, false>(h, nullptr, wt, bias, x, z, w_per_sample, w, out, batch, \
+                           height, width, c, rows, cfg, ck, stages, threads,        \
+                           smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream); \
   }
 CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
 CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16, bf16)
 #undef CAMELS_HEAD_STEP_ENTRY
+
+// The halo mode: the arguments above with halo, (2, cfg ? 2 * batch :
+// batch, width, c) of h's type, after h.
+#define CAMELS_HEAD_STEP_HALO_ENTRY(NAME, E)                                         \
+  extern "C" int NAME(const E* h, const E* halo, const E* wt, const E* bias,        \
+                      const float* x, const float* z, const float* w_per_sample,    \
+                      float w, float* out, int batch, int height, int width, int c, \
+                      int rows, int cfg, int ck, int stages, int threads,           \
+                      int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
+                      int tanh_out, void* stream) {                                 \
+    return entry<E, true>(h, halo, wt, bias, x, z, w_per_sample, w, out, batch,     \
+                          height, width, c, rows, cfg, ck, stages, threads,         \
+                          smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);  \
+  }
+CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo, float)
+CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_bf16, bf16)
+#undef CAMELS_HEAD_STEP_HALO_ENTRY

@@ -5,6 +5,10 @@ A fixed radial Fourier filter ``g(|k|) = r_fit(|k|)^(-1/2)`` (DC passes
 through) fitted offline against the exact chain; serving applies it to each
 map with one fp32 ``rfft2``/``irfft2`` pair (``calibration.py:199-251``).
 The filter table is numpy float64 cast to fp32, as in the JAX package.
+:meth:`SpectralCalibration.save` and :func:`fit_spectral_transfer` are
+numpy copies of the JAX package's (``calibration.py:95-120, 153-196``), so
+a calibration refit on the port's maps is written in the same file format
+that both packages load.
 """
 
 from __future__ import annotations
@@ -50,6 +54,18 @@ class SpectralCalibration:
         """Full fitted power ratio: polynomial x binwise."""
         return self.ratio(k) * self.bin_ratio(k, n)
 
+    def save(self, path: str, meta: Optional[dict] = None) -> None:
+        """Write the filter as an npz, with ``meta`` entries as
+        ``meta_<key>`` arrays (provenance, e.g. ``checkpoint_fingerprint``,
+        read by :func:`load_calibration_meta`) and ``bin_ratios`` when the
+        filter has a binwise table (``calibration.py:95-120``)."""
+        extra = {f"meta_{key}": np.asarray(val) for key, val in (meta or {}).items()}
+        if self.bin_ratios is not None:
+            extra["bin_ratios"] = np.asarray(self.bin_ratios, np.float64)
+        np.savez(path, coeffs=np.asarray(self.coeffs, np.float64), k_min=self.k_min,
+                 k_max=self.k_max, dl=self.dl, clip=np.asarray(self.clip, np.float64),
+                 **extra)
+
     @staticmethod
     def load(path: str) -> "SpectralCalibration":
         z = np.load(path)
@@ -76,6 +92,32 @@ def load_calibration_meta(path: str) -> dict:
             v = z[name]
             out[name[len("meta_"):]] = v.item() if v.ndim == 0 else v.tolist()
     return out
+
+
+def fit_spectral_transfer(k_bins, pk_fast, pk_ref, *, deg: int = 6, counts=None,
+                          dl: float = 1.0,
+                          clip: Tuple[float, float] = (0.7, 1.4)) -> SpectralCalibration:
+    """A polynomial of degree ``deg`` (at most the populated bins less one)
+    fitted to the per-bin power ratio ``pk_fast / pk_ref`` over the
+    populated non-DC bins, weighted by ``sqrt(counts)`` when the modes per
+    bin are given (``calibration.py:153-196``); raises ``ValueError`` when
+    no bin is usable."""
+    k_bins = np.asarray(k_bins, np.float64)
+    pk_fast = np.asarray(pk_fast, np.float64)
+    pk_ref = np.asarray(pk_ref, np.float64)
+    good = (k_bins > 0) & np.isfinite(pk_ref) & (pk_ref > 0)
+    good &= np.isfinite(pk_fast) & (pk_fast > 0)
+    k = k_bins[good]
+    if k.size == 0:
+        raise ValueError(
+            "fit_spectral_transfer: no valid (positive, finite) bins in the "
+            "calibration input — check the sweep spectra"
+        )
+    r = pk_fast[good] / pk_ref[good]
+    w = np.sqrt(np.asarray(counts, np.float64)[good]) if counts is not None else None
+    coeffs = np.polyfit(k, r, min(deg, len(k) - 1), w=w)
+    return SpectralCalibration(coeffs=tuple(float(c) for c in coeffs), k_min=float(k.min()),
+                               k_max=float(k.max()), dl=dl, clip=clip)
 
 
 @functools.lru_cache(maxsize=16)

@@ -43,7 +43,15 @@ import torch
 
 from .. import fp32_math, resolve_device
 from ..models.blocks import to_compute, to_nhwc
-from ..parallel.mesh import Mesh, gather_batch, local_rows
+from ..parallel.mesh import (
+    Mesh,
+    Mesh2D,
+    gather_batch,
+    gather_blocks,
+    halo_rows,
+    local_rows,
+    local_rows_of,
+)
 from ..ops.sampler_step import fused_head_step
 from .schedule import DDPMSchedule, ddpm_coefficients
 
@@ -63,18 +71,35 @@ class SamplerOutput(NamedTuple):
 class Shard(NamedTuple):
     """The rows of a sampler's global batch of ``n_real`` rows that this
     process holds: all of them without a mesh; on a mesh, the rank's slice
-    of the batch padded to a multiple of the world size."""
+    of the batch padded to a multiple of the (data axis's) world size, and
+    with ``spatial`` (a 2-D mesh) its block of the image height too."""
 
     mesh: Optional[Mesh]
     n_real: int
+    spatial: bool = False
+
+    @property
+    def space(self):
+        """The space axis the maps are split over, or None."""
+        return self.mesh.space if self.spatial else None
 
     def local(self, a: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
         """This process's rows of the global batch ``a``, pad rows ``fill``."""
-        return a if self.mesh is None else local_rows(self.mesh, a, fill=fill)
+        return a if self.mesh is None else local_rows(self.mesh.data, a, fill=fill)
+
+    def local_map(self, a: torch.Tensor) -> torch.Tensor:
+        """This process's block of the global NHWC maps ``a``: its rows of
+        the batch, and with ``spatial`` its rows of the image."""
+        a = self.local(a)
+        return local_rows_of(self.mesh.space, a, 1).contiguous() if self.spatial else a
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The global batch from each process's rows ``x``."""
-        return x if self.mesh is None else gather_batch(self.mesh, x, self.n_real)
+        """The global batch from each process's block ``x``."""
+        if self.mesh is None:
+            return x
+        if self.spatial:
+            return gather_blocks(self.mesh, x, self.n_real)
+        return gather_batch(self.mesh, x, self.n_real)
 
 
 def save_schedule(timesteps: int, save_rate: int) -> tuple:
@@ -125,13 +150,14 @@ def film_tables(model, params: torch.Tensor, timesteps: int, use_cfg: bool):
 
 
 def predict_features(model, x, tables, t: int, use_cfg: bool,
-                     shortcut=None) -> torch.Tensor:
+                     shortcut=None, space=None) -> torch.Tensor:
     """The decoder's features at timestep ``t`` (``out_norm``'s output as
     NHWC, in the model's dtype): ``(B, ...)``, or ``(2B, ...)`` stacked
     ``[cond; uncond]`` under CFG, for the step kernel to apply ``out_conv2``
-    and combine.  ``shortcut``: a stochastic model's draw for this step."""
+    and combine.  ``shortcut``: a stochastic model's draw for this step;
+    ``space``: ``x`` is a height shard over that space axis."""
     cemb1, cemb2, temb1_tab, temb2_tab = tables
-    enc = model.encode(x, shortcut=shortcut)
+    enc = model.encode(x, shortcut=shortcut, space=space)
     if use_cfg:
         enc = enc.doubled()
     film = (cemb1, temb1_tab[t:t + 1], cemb2, temb2_tab[t:t + 1])
@@ -139,11 +165,15 @@ def predict_features(model, x, tables, t: int, use_cfg: bool,
 
 
 def prepare(model, n_sample, size, params, guide_w, x_init, generator, device,
-            mesh: Optional[Mesh] = None):
+            mesh: Optional[Mesh] = None, spatial: bool = False):
     """Shared set-up of the samplers on ``device`` (the mesh's device under a
     mesh): initial noise, context and guidance of the global batch, then
-    this process's rows of them (:class:`Shard`).  Returns ``(x, params,
-    use_cfg, w, shard)``."""
+    this process's rows of them (:class:`Shard`; with ``spatial``, its
+    block of the maps).  Returns ``(x, params, use_cfg, w, shard)``."""
+    if spatial and not isinstance(mesh, Mesh2D):
+        raise ValueError("spatial=True requires a 2-D mesh (make_mesh_2d)")
+    if isinstance(mesh, Mesh2D) and not spatial:
+        mesh = mesh.world  # the batch over every process, as one axis
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's {mesh.device}")
@@ -161,10 +191,10 @@ def prepare(model, n_sample, size, params, guide_w, x_init, generator, device,
                             device=device)
     params = torch.as_tensor(params, dtype=torch.float32, device=device)
     use_cfg, w = guidance(guide_w, x.shape[0], device)
-    shard = Shard(mesh, x.shape[0])
+    shard = Shard(mesh, x.shape[0], spatial)
     if torch.is_tensor(w):
         w = shard.local(w, fill=1.0)
-    return shard.local(x), shard.local(params), use_cfg, w, shard
+    return shard.local_map(x), shard.local(params), use_cfg, w, shard
 
 
 def sample_ddpm(
@@ -188,15 +218,11 @@ def sample_ddpm(
     are not given (params uniform in [0, 1) per sample) and every step's z
     unless ``z_fn`` supplies it (and a stochastic model's projection unless
     ``shortcut_fn`` does).  ``guide_w``: a float, or a ``(B,)`` array of
-    all-positive weights.  ``mesh``: shard the batch (module docstring).
-    ``spatial=True`` (JAX's image-height sharding over a 2-D mesh) is not
-    ported and raises.
+    all-positive weights.  ``mesh``: shard the batch; with ``spatial`` (a
+    2-D mesh) the image height too (module docstring).
     """
-    if spatial:
-        raise NotImplementedError("spatial=True: the 2-D (data x space) mesh is not "
-                                  "ported (ROADMAP section 1)")
     x, params, use_cfg, w, shard = prepare(
-        model, n_sample, size, params, guide_w, x_init, generator, device, mesh
+        model, n_sample, size, params, guide_w, x_init, generator, device, mesh, spatial
     )
     x, _ = _ddpm_chain(model, schedule, x, params, use_cfg, w, generator, z_fn,
                        shortcut_fn=shortcut_fn, shard=shard)
@@ -259,7 +285,8 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
     ``save_mask`` (one bool a step) is set, both of the global batch.  Runs
     inside :func:`fp32_math`."""
     shard = Shard(None, x.shape[0]) if shard is None else shard
-    z_shape = (shard.n_real,) + tuple(x.shape[1:])
+    z_shape = (shard.n_real, x.shape[1] * (shard.space.world_size if shard.spatial else 1)
+               ) + tuple(x.shape[2:])
     saved = []
     with torch.inference_mode(), fp32_math():
         head = (to_compute(model.out_conv2.weight, model.dtype),
@@ -270,14 +297,17 @@ def run_chain(model, x, params, use_cfg: bool, w, timesteps: int, steps,
             if model.stochastic:
                 proj = (shortcut_fn(k, t) if shortcut_fn is not None
                         else model.draw_shortcut(generator))
-            h = predict_features(model, x, tables, t, use_cfg, proj)
+            h = predict_features(model, x, tables, t, use_cfg, proj, shard.space)
             z = None
             if sigma != 0.0:
-                z = shard.local(
+                z = shard.local_map(
                     z_fn(k, t).to(x.device) if z_fn is not None else
                     torch.randn(z_shape, generator=generator, device=x.device))
+            halo = None
+            if shard.space is not None and shard.space.collective:
+                halo = halo_rows(shard.space, h, 1)
             x = fused_head_step(h, *head, x, z, c_eps, inv_sqrt_a, sigma, w,
-                                tanh=model.final_tanh)
+                                tanh=model.final_tanh, halo=halo)
             if save_mask is not None and save_mask[k]:
                 saved.append(x)
         if shard.mesh is not None and saved:

@@ -13,6 +13,14 @@ BatchNorm runs on its running statistics (or is folded away,
 their running averages (:class:`BatchNorm`), and the heads take the plain
 GroupNorm under autograd: the kernels have no backward.
 
+On a height shard of a spatial mesh (``space``, the space axis of
+``parallel.mesh.make_mesh_2d``; None elsewhere) each 3x3 convolution reads
+its halo rows from the neighbouring shards (``parallel.mesh.with_halo``)
+and pads only the width, the GroupNorm heads take their statistics over
+the space axis, and BatchNorm its training statistics over the mesh's
+world (:func:`global_batch_stats`); max-pool and the transposed
+convolutions stay local.
+
 Compute dtype (the flax modules' ``dtype``): the parameters stay as they
 are (fp32) and each conv and dense layer casts its input, kernel and bias
 to the compute dtype where it uses them (:class:`Conv2d`,
@@ -39,8 +47,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.groupnorm import fused_groupnorm_act, groupnorm_act_plain
-from ..parallel.mesh import all_reduce_sum
+from ..ops.groupnorm import (
+    fused_groupnorm_act,
+    fused_groupnorm_act_sharded,
+    groupnorm_act_plain,
+    groupnorm_act_plain_sharded,
+)
+from ..parallel.mesh import all_reduce_sum, gather_rows, with_halo
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +76,21 @@ def to_compute(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if dtype == torch.float32 else t.to(dtype)
 
 
+def torch_conv_init(fan_in: int, generator=None):
+    """An initialiser ``init(tensor)`` that fills a tensor in place from
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), torch's default for the weights and
+    biases of ``Conv2d`` and ``Linear`` (the JAX package's
+    ``torch_conv_init``, ``blocks.py:77-87``, which the port's layers get
+    from torch itself)."""
+    bound = 1.0 / fan_in ** 0.5
+
+    def init(tensor: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return tensor.uniform_(-bound, bound, generator=generator)
+
+    return init
+
+
 def with_bias(op, x, weight, bias, dtype: torch.dtype):
     """``op(x, weight, bias)`` in the compute dtype: in fp32 one call; in
     bf16 ``op(x, weight, None)`` then ``+ bias`` (channel dim 1), each
@@ -82,8 +110,19 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
-        return with_bias(self._conv_forward, x, self.weight, self.bias, self.compute_dtype)
+    def conv_op(self, x, space=None):
+        """``(x, op)``: ``x`` with its halo rows on a height shard of the
+        space axis ``space`` and the convolution that pads the width only,
+        else ``x`` and ``self._conv_forward``."""
+        if space is None or not space.collective:
+            return x, self._conv_forward
+        x = with_halo(space, x, 2)
+        return x, lambda x, w, b: F.conv2d(x, w, b, self.stride, (0, self.padding[1]),
+                                           self.dilation, self.groups)
+
+    def forward(self, x, space=None):
+        x, op = self.conv_op(x, space)
+        return with_bias(op, x, self.weight, self.bias, self.compute_dtype)
 
 
 class OutputConv2d(Conv2d):
@@ -95,12 +134,12 @@ class OutputConv2d(Conv2d):
     from the exact sum at full width against 0.49, and the battery's ELBO
     of 2 maps 0.5% off the CPU's: PERF.md Findings PR 10.)"""
 
-    def forward(self, x):
+    def forward(self, x, space=None):
         d = self.compute_dtype
         if d == torch.float32:
-            return super().forward(x)
-        return self._conv_forward(x.to(d).float(), self.weight.to(d).float(),
-                                  self.bias.to(d).float()).to(d)
+            return super().forward(x, space)
+        x, op = self.conv_op(x, space)
+        return op(x.to(d).float(), self.weight.to(d).float(), self.bias.to(d).float()).to(d)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -139,8 +178,8 @@ class Conv3x3(nn.Module):
         super().__init__()
         self.conv = Conv2d(in_channels, features, 3, padding=1, compute_dtype=compute_dtype)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, space=None):
+        return self.conv(x, space)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -267,15 +306,15 @@ class ResidualConvBlock(nn.Module):
         if is_res and in_channels != out_channels and not self.stochastic:
             self.shortcut = Conv2d(in_channels, out_channels, 1, compute_dtype=compute_dtype)
 
-    def _stage(self, h, name: str, train: bool):
-        h = getattr(self, name)(h)
+    def _stage(self, h, name: str, train: bool, space=None):
+        h = getattr(self, name)(h, space)
         bn = getattr(self, f"{name}_bn", None)
         if bn is not None:
             h = bn(h, train)
         return F.relu(h)
 
-    def forward(self, x, train: bool = False, proj=None):
-        x2 = self._stage(self._stage(x, "conv1", train), "conv2", train)
+    def forward(self, x, train: bool = False, proj=None, space=None):
+        x2 = self._stage(self._stage(x, "conv1", train, space), "conv2", train, space)
         if not self.is_res:
             return x2
         if self.stochastic:
@@ -301,8 +340,13 @@ class UnetDown(nn.Module):
         self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn,
                                         compute_dtype=compute_dtype)
 
-    def forward(self, x, train: bool = False):
-        return F.max_pool2d(self.block2(self.block1(x, train), train), 2)
+    def forward(self, x, train: bool = False, space=None, gather=None):
+        """``gather``: the space axis to gather the height over before the
+        pool, where the pooled level no longer splits over it."""
+        x = self.block2(self.block1(x, train, space=space), train, space=space)
+        if gather is not None:
+            x = gather_rows(gather, x, 2)
+        return F.max_pool2d(x, 2)
 
 
 class UnetUp(nn.Module):
@@ -320,9 +364,9 @@ class UnetUp(nn.Module):
         self.block2 = ResidualConvBlock(out_channels, out_channels, fold_bn=fold_bn,
                                         compute_dtype=compute_dtype)
 
-    def forward(self, x, skip, train: bool = False):
+    def forward(self, x, skip, train: bool = False, space=None):
         x = self.upconv(torch.cat([x, skip], dim=1))
-        return self.block2(self.block1(x, train), train)
+        return self.block2(self.block1(x, train, space=space), train, space=space)
 
 
 class GroupNormAct(nn.Module):
@@ -341,8 +385,19 @@ class GroupNormAct(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, film=None, train: bool = False):
-        if train:
+    def forward(self, x, film=None, train: bool = False, space=None):
+        """``space``: the statistics over the height shards of that space
+        axis (the plain sharded GroupNorm under autograd with ``train``,
+        K2's sharded launches without)."""
+        if space is not None and space.collective:
+            if train:
+                y = groupnorm_act_plain_sharded(
+                    space, to_nhwc(x), self.weight, self.bias, self.num_groups, self.eps,
+                    self.act, film, act_after_rounding=True)
+            else:
+                y = fused_groupnorm_act_sharded(space, to_nhwc(x), self.weight, self.bias,
+                                                self.num_groups, self.eps, self.act, film)
+        elif train:
             y = groupnorm_act_plain(to_nhwc(x), self.weight, self.bias, self.num_groups,
                                     self.eps, self.act, film, act_after_rounding=True)
         else:

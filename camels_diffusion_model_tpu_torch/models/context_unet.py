@@ -26,6 +26,17 @@ batch statistics and runs the decoder's GroupNorm and FiLM in plain PyTorch
 under autograd, as the JAX package trains without its Pallas kernels
 (``pallas_gn=False``); with ``train=False`` the kernels run.
 
+``space=`` (the space axis of a 2-D mesh, ``parallel.mesh.make_mesh_2d``)
+runs the forward on a height shard: ``x`` holds this process's rows, each
+3x3 convolution takes its halo rows, the norms take their statistics over
+the shards (``blocks.py``), the bottleneck's global mean sums over them,
+and ``up0_conv``'s ``bottom x bottom`` output is cut to this shard's rows.
+A level whose height no longer splits over the space axis into row counts
+a 2x2 max-pool takes (:func:`space_levels`) is gathered before its pool
+and runs replicated from there on, XLA's resharding in JAX; the decoder
+cuts the replicated maps back to the shard's rows where its skip is
+sharded again.
+
 ``dtype`` is the compute dtype, ``torch.float32`` or ``torch.bfloat16``
 (the JAX module's ``dtype``): parameters, norm statistics and the samplers'
 state stay fp32, each conv and dense layer computes in ``dtype``
@@ -46,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.film import film_plain, fused_film
+from ..parallel.mesh import all_reduce_sum, local_rows_of
 from .blocks import (
     COMPUTE_DTYPES,
     Conv2d,
@@ -68,6 +80,7 @@ class EncoderState(NamedTuple):
     x0: torch.Tensor  # init_conv output
     downs: tuple  # down-path outputs, shallowest first
     hiddenvec: torch.Tensor  # pooled bottleneck, (B, Cb, 1, 1)
+    space: Optional[object] = None  # the space axis of a height shard, or None
 
     def doubled(self) -> "EncoderState":
         """The same state twice along the batch, for the [cond, uncond]
@@ -75,7 +88,21 @@ class EncoderState(NamedTuple):
         def cat(a):
             return torch.cat([a, a], dim=0)
         return EncoderState(cat(self.x0), tuple(cat(d) for d in self.downs),
-                            cat(self.hiddenvec))
+                            cat(self.hiddenvec), self.space)
+
+
+def space_levels(height: int, levels: int, n_space: int) -> tuple:
+    """Whether each level ``0..levels`` (the input's height, then each
+    pool's) is split over a space axis of ``n_space`` processes: the input
+    if its height divides (else ``ValueError``, as JAX's sharding of it
+    fails), each deeper level while the one above it was and its height
+    still divides, so that every pool sees an even number of rows."""
+    if height % n_space:
+        raise ValueError(f"a height of {height} does not split over {n_space} processes")
+    split = [True]
+    for i in range(1, levels + 1):
+        split.append(split[-1] and (height // 2**i) % n_space == 0)
+    return tuple(split)
 
 
 # The JAX factories' settings by variant name (``context_unet.py:100-136``).
@@ -181,23 +208,44 @@ class ContextUnet(nn.Module):
         return (kernel.uniform_(-bound, bound, generator=generator),
                 bias.uniform_(-bound, bound, generator=generator))
 
-    def encode(self, x: torch.Tensor, train: bool = False, shortcut=None) -> EncoderState:
+    def split_levels(self, space) -> tuple:
+        """:func:`space_levels` of this model on the space axis ``space``
+        (all False without a collective one)."""
+        if space is None or not space.collective:
+            return (False,) * (self.levels + 1)
+        return space_levels(self.height, self.levels, space.world_size)
+
+    def encode(self, x: torch.Tensor, train: bool = False, shortcut=None,
+               space=None) -> EncoderState:
         """init_conv + down path + pooled bottleneck of NHWC ``x``, cast to
         the compute dtype first.  ``shortcut``: a stochastic model's
         projection ``(kernel, bias)`` (:meth:`draw_shortcut`); a
-        learned-shortcut model takes none."""
+        learned-shortcut model takes none.  ``space``: ``x`` is this
+        process's height shard over that space axis (module docstring)."""
         x = to_compute(to_nchw(x).contiguous(memory_format=torch.channels_last), self.dtype)
         if shortcut is not None and not self.stochastic:
             raise ValueError("a learned-shortcut model takes no shortcut draw")
-        x0 = self.init_conv(x, train, proj=shortcut)
+        split = self.split_levels(space)
+        space = space if split[0] else None
+        if space is not None and x.shape[2] * space.world_size != self.height:
+            raise ValueError(f"a shard of {x.shape[2]} rows over {space.world_size} "
+                             f"processes is not the model's height {self.height}")
+        x0 = self.init_conv(x, train, proj=shortcut, space=space)
         downs = []
         h = x0
         for i in range(self.levels):
-            h = getattr(self, f"down{i + 1}")(h, train)
+            gather = space if split[i] and not split[i + 1] else None
+            h = getattr(self, f"down{i + 1}")(h, train, space=space if split[i] else None,
+                                              gather=gather)
             downs.append(h)
         # AvgPool over the whole bottleneck map is a global mean; then GELU.
-        hidden = F.gelu(h.mean(dim=(2, 3), keepdim=True), approximate="none")
-        return EncoderState(x0, tuple(downs), hidden)
+        if split[self.levels]:  # a sum over every shard, over the global count
+            total = all_reduce_sum(space, h.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+            mean = (total / (h.shape[2] * space.world_size * h.shape[3])).to(h.dtype)
+        else:
+            mean = h.mean(dim=(2, 3), keepdim=True)
+        hidden = F.gelu(mean, approximate="none")
+        return EncoderState(x0, tuple(downs), hidden, space)
 
     def time_embed(self, t: torch.Tensor):
         """Both time MLPs for normalised timesteps: ``((N, cb), (N, cb//2))``."""
@@ -229,19 +277,33 @@ class ContextUnet(nn.Module):
             temb1, temb2 = self.time_embed(t)
         else:
             cemb1, temb1, cemb2, temb2 = (to_compute(a, self.dtype) for a in film)
-        u = self.up0_norm(self.up0_conv(enc.hiddenvec),
-                          film=(cemb1.contiguous(), temb1.contiguous()), train=train)
+        space, split = enc.space, self.split_levels(enc.space)
+
+        def on(level):  # the space axis of a level split over it, else None
+            return space if split[level] else None
+
+        u = self.up0_conv(enc.hiddenvec)
+        if split[self.levels]:
+            u = local_rows_of(space, u, 2)
+        u = self.up0_norm(u, film=(cemb1.contiguous(), temb1.contiguous()), train=train,
+                          space=on(self.levels))
         skips = (enc.x0,) + enc.downs  # shallowest first
+        u_split = split[self.levels]
         for i in range(self.levels):
             if i == 1:  # FiLM stage 1; stage 0 was up0_norm's epilogue
                 film1 = film_plain if train else fused_film
                 u = to_nchw(film1(to_nhwc(u), cemb2.to(u.dtype).contiguous(),
                                   temb2.to(u.dtype).contiguous()))
-            u = getattr(self, f"up{i + 1}")(u, skips[self.levels - i], train)
-        h = self.out_conv1(torch.cat([u, enc.x0], dim=1))
+            level = self.levels - i
+            if split[level] and not u_split:  # back to this shard's rows
+                u, u_split = local_rows_of(space, u, 2), True
+            u = getattr(self, f"up{i + 1}")(u, skips[level], train, space=on(level))
+        if split[0] and not u_split:
+            u = local_rows_of(space, u, 2)
+        h = self.out_conv1(torch.cat([u, enc.x0], dim=1), on(0))
         if hasattr(self, "out_conv_extra"):
-            h = self.out_conv_extra(h)
-        return self.out_norm(h, train=train)
+            h = self.out_conv_extra(h, on(0))
+        return self.out_norm(h, train=train, space=on(0))
 
     def decode(self, enc: EncoderState, t: Optional[torch.Tensor] = None,
                c: Optional[torch.Tensor] = None, *, film=None,
@@ -250,11 +312,19 @@ class ContextUnet(nn.Module):
         ``out_conv2`` of :meth:`decode_features` (same arguments), then tanh
         where ``final_tanh`` is set.  The samplers run both inside the step
         kernel instead."""
-        eps = self.out_conv2(self.decode_features(enc, t, c, film=film, train=train))
+        eps = self.out_conv2(self.decode_features(enc, t, c, film=film, train=train),
+                             enc.space)
         return to_nhwc(torch.tanh(eps) if self.final_tanh else eps)
 
-    def forward(self, x, t, c=None, train: bool = False, shortcut=None):
+    def forward(self, x, t, c=None, train: bool = False, shortcut=None, space=None):
         """eps for NHWC ``x`` at normalised time ``t`` ((1,) or (B,)) and
         context ``c`` ((B, n_cfeat) or None); ``train=True`` is the training
-        forward (module docstring); ``shortcut`` as :meth:`encode`."""
-        return self.decode(self.encode(x, train, shortcut), t, c, train=train)
+        forward (module docstring); ``shortcut`` and ``space`` as
+        :meth:`encode`."""
+        return self.decode(self.encode(x, train, shortcut, space), t, c, train=train)
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of parameter elements of a module, as the JAX package
+    counts its ``params`` collection (``context_unet.py:344-347``)."""
+    return sum(p.numel() for p in model.parameters())

@@ -52,3 +52,20 @@ def fold_batchnorm_variables(variables: dict) -> dict:
         return out
 
     return {"params": walk(variables["params"], stats)}
+
+
+def fold_inference(model):
+    """``(folded model, its state_dict)``: the BatchNorm-free inference copy
+    of the port's ``ContextUnet`` ``model``, on its device and in its
+    compute dtype (``fold_bn.py:81-87`` of the JAX package, which returns
+    the folded module and variables); ``model`` itself when it holds no
+    BatchNorm."""
+    from ..serving import load_model
+    from ..utils.weights import to_jax_variables
+    from .blocks import BatchNorm
+
+    if not any(isinstance(m, BatchNorm) for m in model.modules()):
+        return model, model.state_dict()
+    folded = load_model(to_jax_variables(model.state_dict()),
+                        next(model.parameters()).device, dtype=model.dtype)
+    return folded, folded.state_dict()

@@ -10,6 +10,15 @@ as its epilogue, and at ``out_norm``: two launches per decoder call, at
 ``(N, 16, 16, 1024)`` and ``(N, 128, 128, 256)`` in the big one.
 :func:`launch_plan` chooses the kernel's geometry.
 
+On a height shard of a spatial mesh the statistics span every shard
+(:func:`fused_groupnorm_act_sharded`): a statistics launch
+(:func:`groupnorm_stats`) writes each (sample, group)'s count, local mean
+and local centred sum of squares in fp32, the space axis gathers them with
+one all-reduce of a zeroed buffer, and an apply launch
+(:func:`groupnorm_apply`) merges them by Chan's formula in its prologue,
+then normalises, applies gamma/beta, the activation and the FiLM epilogue
+as the single launch does.  Each has its own launch counts.
+
 Two instances: float32 and bfloat16 I/O (the bf16 model's heads), each
 with its own launch count (``fused_groupnorm_act.launches`` and
 ``.launches_bf16``).  Both compute the statistics, the affine and the
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .film import check_rows, film_plain
+from ..parallel.mesh import all_reduce, all_reduce_sum
 
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "leaky_relu": 3}
 
@@ -39,6 +49,10 @@ SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 #                           for several CTAs on one SM (228 KB of shared memory)
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' I/O types
 C_NAMES = {torch.float32: "camels_groupnorm_act", torch.bfloat16: "camels_groupnorm_act_bf16"}
+STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
+               torch.bfloat16: "camels_groupnorm_stats_bf16"}
+APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
+               torch.bfloat16: "camels_groupnorm_apply_bf16"}
 SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
 #                                less room for the kernel's static arrays
 SPILL_MAX = 2 * SLICE_MAX  # the largest slice: at most half of it spills
@@ -50,6 +64,10 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 )
+# The sharded launches take two more: the (n, groups, 3) statistics out
+# (stats), or the (n_parts, n, groups, 3) partials in and n_parts (apply).
+_STATS_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_void_p)
+_APPLY_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 
 
 class Plan(NamedTuple):
@@ -148,12 +166,203 @@ def groupnorm_act_plain(x, gamma, beta, num_groups: int = 8,
     xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    return _normalise(x, xg, mean, var, gamma, beta, eps, act, film, act_after_rounding)
+
+
+def _normalise(x, xg, mean, var, gamma, beta, eps, act, film, act_after_rounding):
+    """:func:`groupnorm_act_plain` from the statistics ``mean``/``var``
+    ``(B, 1, G, 1)`` of the grouped fp32 view ``xg`` of ``x``."""
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * gamma + beta
     if act_after_rounding:
         y = activation(y.to(x.dtype), act)
     else:
         y = activation(y, act).to(x.dtype)
     return y if film is None else film_plain(y, *film)
+
+
+def groupnorm_stats_plain(x, num_groups: int = 8) -> torch.Tensor:
+    """``(B, G, 3)`` fp32: each (sample, group)'s element count, mean and
+    centred sum of squares over the NHWC shard ``x`` (the mean first, then
+    the squares about it)."""
+    b, h, w, c = x.shape
+    xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3))
+    m2 = (xg - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, float(h * w * (c // num_groups))), mean, m2],
+                       dim=-1)
+
+
+def merge_stats(partials: torch.Tensor) -> tuple:
+    """``(mean, var)``, each ``(B, G)``, of the whole image from the
+    ``(n_parts, B, G, 3)`` partials of its shards, merged in shard order by
+    Chan's formula in fp32, in the operation order kernel K2's apply
+    launch uses."""
+    cnt, mean, m2 = partials[0].unbind(-1)
+    for k in range(1, partials.shape[0]):
+        nb, mb, m2b = partials[k].unbind(-1)
+        nab = cnt + nb
+        delta = mb - mean
+        mean = mean + delta * (nb / nab)
+        m2 = m2 + m2b + delta * delta * (cnt * nb / nab)
+        cnt = nab
+    return mean, m2 / cnt
+
+
+def groupnorm_apply_plain(x, partials, gamma, beta, num_groups: int = 8,
+                          eps: float = 1e-5, act: str = "relu", film=None):
+    """:func:`groupnorm_act_plain` of the shard ``x`` with the statistics
+    merged from ``partials`` (:func:`merge_stats`)."""
+    b, h, w, c = x.shape
+    xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
+    mean, var = merge_stats(partials.float())
+    return _normalise(x, xg, mean[:, None, :, None], var[:, None, :, None], gamma, beta,
+                      eps, act, film, False)
+
+
+def groupnorm_act_plain_sharded(space, x, gamma, beta, num_groups: int = 8,
+                                eps: float = 1e-5, act: str = "relu", film=None,
+                                act_after_rounding: bool = False):
+    """:func:`groupnorm_act_plain` of the height shard ``x`` with
+    statistics over every shard of the space axis ``space``, under
+    autograd (the training forward): the mean from the shards' summed fp32
+    sums, then the variance from their summed centred squares, each sum
+    one differentiable all-reduce."""
+    b, h, w, c = x.shape
+    xg = x.float().reshape(b, h * w, num_groups, c // num_groups)
+    count = float(h * w * (c // num_groups) * space.world_size)
+    mean = all_reduce_sum(space, xg.sum(dim=(1, 3), keepdim=True)) / count
+    var = all_reduce_sum(space, (xg - mean).square().sum(dim=(1, 3), keepdim=True)) / count
+    return _normalise(x, xg, mean, var, gamma, beta, eps, act, film, act_after_rounding)
+
+
+def _check(name, x, gamma, beta, film):
+    """Validate a launch's tensors; returns them by name."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if x.dtype not in ELEMENT_BYTES:
+        raise ValueError(f"{name}: no kernel for {x.dtype}; float32 or bfloat16")
+    tensors = {"x": x}
+    if gamma is not None:
+        tensors["gamma"], tensors["beta"] = gamma, beta
+    if film is not None:
+        tensors["scale"], tensors["shift"] = film
+    for key, t in tensors.items():
+        dtype = torch.float32 if key in ("gamma", "beta") else x.dtype
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {key} must be a contiguous {_build.type_name(dtype)} "
+                f"tensor on {x.device}"
+            )
+    if gamma is not None and (gamma.shape != (c,) or beta.shape != (c,)):
+        raise ValueError(f"gamma/beta must be ({c},)")
+    if film is not None:
+        check_rows(film, b, c)
+    _build.refuse_autograd(name, *tensors.values())
+    return tensors
+
+
+def _count(fn, x) -> None:
+    if x.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def groupnorm_stats(x, num_groups: int = 8) -> torch.Tensor:
+    """The statistics launch of the sharded mode: :func:`groupnorm_stats_plain`
+    of the NHWC shard ``x`` (float32 or bfloat16), in one read of ``x``.
+    On CUDA tensors it launches K2's statistics kernel (raising for another
+    dtype or where autograd would record the call); on CPU tensors it runs
+    the plain version."""
+    if x.device.type == "cpu":
+        return groupnorm_stats_plain(x, num_groups)
+    tensors = _check("groupnorm_stats", x, None, None, None)
+    b, h, w, c = x.shape
+    out = torch.empty((b, num_groups, 3), dtype=torch.float32, device=x.device)
+    plan = launch_plan(b, h * w, c, num_groups, x.data_ptr() % 16 == 0,
+                       ELEMENT_BYTES[x.dtype])
+    if out.numel() == 0:
+        return out
+    fn = _build.kernel(STATS_NAMES[x.dtype], _STATS_ARGTYPES)
+    err = fn(tensors["x"].data_ptr(), None, None, None, None, None, b, h * w, c, num_groups,
+             0, 0, 0.0, 0, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
+             plan.resident_pixels, plan.smem_bytes, out.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, STATS_NAMES[x.dtype])
+    _count(groupnorm_stats, x)
+    return out
+
+
+groupnorm_stats.launches = 0
+groupnorm_stats.launches_bf16 = 0
+
+
+def groupnorm_apply(x, partials, gamma, beta, num_groups: int = 8, eps: float = 1e-5,
+                    act: str = "relu", film=None):
+    """The apply launch of the sharded mode: :func:`groupnorm_apply_plain`,
+    the ``(n_parts, B, G, 3)`` fp32 ``partials`` merged by Chan's formula in
+    the kernel's prologue, then the shard ``x`` normalised as
+    :func:`fused_groupnorm_act` does (arguments as there).  On CUDA tensors
+    it launches K2's apply kernel; on CPU tensors it runs the plain
+    version."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return groupnorm_apply_plain(x, partials, gamma, beta, num_groups, eps, act, film)
+    tensors = _check("groupnorm_apply", x, gamma, beta, film)
+    b, h, w, c = x.shape
+    if (partials.device != x.device or partials.dtype != torch.float32
+            or not partials.is_contiguous() or partials.dim() != 4
+            or tuple(partials.shape[1:]) != (b, num_groups, 3)):
+        raise ValueError(f"partials must be a contiguous float32 (n_parts, {b}, "
+                         f"{num_groups}, 3) tensor on {x.device}")
+    out = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
+    # x is read once, from device memory: no slice is kept on chip.
+    plan = launch_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype])._replace(
+        smem_bytes=0, resident_pixels=0)
+    if out.numel() == 0:
+        return out
+    rows, strides = (None, None), (0, 0)
+    if film is not None:
+        rows = tuple(t.data_ptr() for t in film)
+        strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
+    fn = _build.kernel(APPLY_NAMES[x.dtype], _APPLY_ARGTYPES)
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows, out.data_ptr(), b,
+             h * w, c, num_groups, *strides, float(eps), ACTS[act], plan.vec, plan.cluster,
+             plan.threads, plan.pixels_per_cta, plan.resident_pixels, plan.smem_bytes,
+             partials.data_ptr(), partials.shape[0],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, APPLY_NAMES[x.dtype])
+    _count(groupnorm_apply, x)
+    return out
+
+
+groupnorm_apply.launches = 0
+groupnorm_apply.launches_bf16 = 0
+
+
+def gather_stats(space, stats: torch.Tensor) -> torch.Tensor:
+    """``(n_space, B, G, 3)``: every shard's statistics of the space axis
+    ``space``, in shard order (a zeroed buffer summed)."""
+    full = stats.new_zeros((space.world_size,) + tuple(stats.shape))
+    full[space.rank] = stats
+    return all_reduce(space, full)
+
+
+def fused_groupnorm_act_sharded(space, x, gamma, beta, num_groups: int = 8,
+                                eps: float = 1e-5, act: str = "relu", film=None):
+    """:func:`fused_groupnorm_act` of the height shard ``x`` with the
+    statistics of the whole image over the space axis ``space``: the
+    statistics launch, the all-reduce of the shards' partials, the apply
+    launch (module docstring).  No arithmetic runs between the launches
+    but the collective."""
+    stats = groupnorm_stats(x, num_groups)
+    return groupnorm_apply(x, gather_stats(space, stats), gamma, beta, num_groups, eps,
+                           act, film)
 
 
 def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
@@ -172,29 +381,8 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
         return groupnorm_act_plain(x, gamma, beta, num_groups, eps, act, film)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_groupnorm_act: unsupported device {x.device}")
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    tensors = _check("fused_groupnorm_act", x, gamma, beta, film)
     b, h, w, c = x.shape
-    if x.dtype not in ELEMENT_BYTES:
-        raise ValueError(f"fused_groupnorm_act: no kernel for {x.dtype}; "
-                         "float32 or bfloat16")
-    tensors = {"x": x, "gamma": gamma, "beta": beta}
-    if film is not None:
-        tensors["scale"], tensors["shift"] = film
-    for name, t in tensors.items():
-        dtype = torch.float32 if name in ("gamma", "beta") else x.dtype
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"fused_groupnorm_act: {name} must be a contiguous {_build.type_name(dtype)} "
-                f"tensor on {x.device}"
-            )
-    if gamma.shape != (c,) or beta.shape != (c,):
-        raise ValueError(f"gamma/beta must be ({c},)")
-    if film is not None:
-        check_rows(film, b, c)
-    _build.refuse_autograd("fused_groupnorm_act", *tensors.values())
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
     plan = launch_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype])
@@ -213,10 +401,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, C_NAMES[x.dtype])
-    if x.dtype == torch.bfloat16:
-        fused_groupnorm_act.launches_bf16 += 1
-    else:
-        fused_groupnorm_act.launches += 1
+    _count(fused_groupnorm_act, x)
     return out
 
 

@@ -31,10 +31,18 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
+def bilinear_resize(x, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize the trailing two axes of ``x`` (any ``(..., H, W)``) to
+    ``(out_h, out_w)`` with ``F.interpolate(mode="bilinear",
+    align_corners=False)`` semantics, on its device, in fp32
+    (``resize.py:58-63``)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    wh = torch.from_numpy(_interp_matrix(x.shape[-2], int(out_h))).to(x.device)
+    ww = torch.from_numpy(_interp_matrix(x.shape[-1], int(out_w))).to(x.device)
+    return torch.einsum("pw,...ow->...op", ww, torch.einsum("oh,...hw->...ow", wh, x))
+
+
 def resize_maps(maps: torch.Tensor, size: int) -> torch.Tensor:
     """Resize the trailing two axes of ``maps`` (``(B, H, W)`` or any
-    ``(..., H, W)``) to ``(size, size)`` on their device, in fp32."""
-    maps = torch.as_tensor(maps, dtype=torch.float32)
-    wh = torch.from_numpy(_interp_matrix(maps.shape[-2], size)).to(maps.device)
-    ww = torch.from_numpy(_interp_matrix(maps.shape[-1], size)).to(maps.device)
-    return torch.einsum("pw,...ow->...op", ww, torch.einsum("oh,...hw->...ow", wh, maps))
+    ``(..., H, W)``) to ``(size, size)``: :func:`bilinear_resize`."""
+    return bilinear_resize(maps, size, size)

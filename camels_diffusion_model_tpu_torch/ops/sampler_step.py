@@ -11,6 +11,12 @@ reverse step of ``sample_ddpm`` and of ``sample_ddim``.  With ``tanh=True``
 the conv, per branch before the guidance combine.
 :func:`launch_plan` chooses the kernel's geometry.
 
+On a height shard of a spatial mesh ``out_conv2`` reads one row beyond
+the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
+(None for a side at the image's edge, which stays zero padding), and the
+kernel's halo mode copies a band's row -1 or H from them (counts
+``.launches_halo`` and ``.launches_halo_bf16``).
+
 Two instances by the features' dtype: float32, and bfloat16 for the bf16
 model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
 JAX program rounds it; ``x``, ``z`` and the step fp32), each with its own
@@ -42,6 +48,8 @@ CHUNKS = (32, 16, 8, 4)  # fp32 channels per staged chunk, widest first;
 STAGES = (3, 2)  # depths of the ring of shared-memory stages
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
 C_NAMES = {torch.float32: "camels_head_step", torch.bfloat16: "camels_head_step_bf16"}
+HALO_NAMES = {torch.float32: "camels_head_step_halo",
+              torch.bfloat16: "camels_head_step_halo_bf16"}
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -50,6 +58,7 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
+_HALO_ARGTYPES = _ARGTYPES[:1] + (ctypes.c_void_p,) + _ARGTYPES[1:]  # halo after h
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -90,15 +99,31 @@ def sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
     return out
 
 
+def halo_buffer(h, halo):
+    """``(2, N, W, C)`` in ``h``'s dtype: the rows above and below the
+    shard ``h`` ``(N, H, W, C)`` from ``halo=(top, bottom)`` (each ``(N,
+    W, C)`` or ``(N, 1, W, C)``; None: zeros)."""
+    n, _, w, c = h.shape
+    rows = [h.new_zeros((n, w, c)) if r is None else r.reshape(n, w, c) for r in halo]
+    return torch.stack(rows).to(h.dtype).contiguous()
+
+
 def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
-                    tanh: bool = False):
+                    tanh: bool = False, halo=None):
     """The kernel's function in plain PyTorch: eps = the 3x3 conv
     (``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)``, zero padding) of the
     NHWC features ``h``, then :func:`sampler_step_plain`.  In bf16 the conv
     sums the exact products of its bf16 operands in fp32 and rounds once,
-    with the bias, to bf16, as the kernel does."""
+    with the bias, to bf16, as the kernel does.  ``halo=(top, bottom)``:
+    the rows beyond the shard ``h`` take the place of the zero padding
+    above and below it (:func:`halo_buffer`)."""
+    padding = 1
+    if halo is not None:
+        rows = halo_buffer(h, halo)
+        h = torch.cat([rows[0][:, None], h, rows[1][:, None]], dim=1)
+        padding = (0, 1)
     eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(),
-                   padding=1).to(h.dtype).permute(0, 2, 3, 1)
+                   padding=padding).to(h.dtype).permute(0, 2, 3, 1)
     return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
 
 
@@ -176,7 +201,7 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
 
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
-                    sigma: float, guide_w=None, tanh: bool = False):
+                    sigma: float, guide_w=None, tanh: bool = False, halo=None):
     """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
     of the 3x3 conv ``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)`` over the
     NHWC features ``h`` (its tanh per branch with ``tanh=True``):
@@ -184,7 +209,9 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     ``guide_w`` (a float or a ``(B,)`` tensor) is given.  ``h``, ``weight``
     and ``bias`` are float32, or all bfloat16 (the bf16 model); ``x``,
     ``z`` ``(B, H, W, 1)`` and a per-sample ``guide_w`` float32; ``z`` may
-    be None only when ``sigma`` is 0.
+    be None only when ``sigma`` is 0.  ``halo=(top, bottom)``: the rows of
+    the neighbouring height shards (module docstring), ``(N, W, C)`` or
+    ``(N, 1, W, C)`` of ``h``'s dtype, None at the image's edge.
 
     On CUDA tensors this launches the kernel of ``h``'s dtype, and raises
     for another dtype or where autograd would record the call
@@ -195,7 +222,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         raise ValueError("z may be omitted only when sigma == 0")
     if h.device.type == "cpu":
         return head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w,
-                               tanh)
+                               tanh, halo)
     if h.device.type != "cuda":
         raise ValueError(f"fused_head_step: unsupported device {h.device}")
     if h.dim() != 4 or weight.dim() != 4:
@@ -210,6 +237,13 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     # holds, a small copy otherwise.
     wt = weight[0].permute(1, 2, 0).reshape(9, c).contiguous()
     tensors = {"h": h, "bias": bias, "x": x, "weight": wt}
+    if halo is not None:
+        for r in halo:
+            if r is not None and (r.device != h.device or r.dtype != h.dtype
+                                  or r.numel() != nd * width * c):
+                raise ValueError(f"fused_head_step: a halo row must be ({nd}, {width}, {c}) "
+                                 f"of {_build.type_name(h.dtype)} on {h.device}")
+        tensors["halo"] = halo_buffer(h, halo)
     if z is not None:
         tensors["z"] = z
     w_vec = None
@@ -221,7 +255,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if h.dtype not in ELEMENT_BYTES:
         raise ValueError(f"fused_head_step: no kernel for {h.dtype}; float32 or bfloat16")
     for name, t in tensors.items():
-        dtype = h.dtype if name in ("h", "bias", "weight") else torch.float32
+        dtype = h.dtype if name in ("h", "bias", "weight", "halo") else torch.float32
         if t.device != h.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
                 f"fused_head_step: {name} must be a contiguous {_build.type_name(dtype)} "
@@ -238,15 +272,17 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
     plan = launch_plan(b, height, width, c, weight.shape[0], cfg,
-                       h.data_ptr() % 16 == 0 and wt.data_ptr() % 16 == 0,
+                       all(t.data_ptr() % 16 == 0 for t in (h, wt, tensors.get("halo", h))),
                        torch.cuda.get_device_properties(h.device).multi_processor_count,
                        ELEMENT_BYTES[h.dtype])
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    fn = _build.kernel(C_NAMES[h.dtype], _ARGTYPES)
+    names = HALO_NAMES if halo is not None else C_NAMES
+    fn = _build.kernel(names[h.dtype], _HALO_ARGTYPES if halo is not None else _ARGTYPES)
     err = fn(
-        h.data_ptr(), wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
+        h.data_ptr(), *((tensors["halo"].data_ptr(),) if halo is not None else ()),
+        wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
         z.data_ptr() if z is not None else None,
         w_vec.data_ptr() if w_vec is not None else None,
         float(guide_w) if cfg and w_vec is None else 0.0,
@@ -255,13 +291,15 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
-    _build.check(err, C_NAMES[h.dtype])
-    if h.dtype == torch.bfloat16:
-        fused_head_step.launches_bf16 += 1
-    else:
-        fused_head_step.launches += 1
+    _build.check(err, names[h.dtype])
+    mode = "_halo" if halo is not None else ""
+    suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
+    count = f"launches{mode}{suffix}"
+    setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
     return out
 
 
 fused_head_step.launches = 0
 fused_head_step.launches_bf16 = 0
+fused_head_step.launches_halo = 0
+fused_head_step.launches_halo_bf16 = 0

@@ -37,6 +37,16 @@ the parameter gradients are summed over the processes, so the update is
 the single-process step's on the whole batch.  Adam state stays
 replicated: every process applies the same update.  The metrics are the
 global batch's.
+
+A 2-D mesh (``parallel.mesh.make_mesh_2d``, ``tests/test_spatial_sharding.py``
+of the JAX package) shards the image height too: ``x`` is this process's
+(batch, height) block (``shard_batch_spatial``), the noise is drawn for the
+global batch and cut to the block, the model runs on its height shard
+(``models/context_unet.py``), BatchNorm sums its statistics over the
+world, each process's loss share sums its block's pixels over the global
+pixel count (so the space axis's shares of a sample sum to its MSE), and
+the gradients, the per-sample MSE and the loss are summed over the world
+in one all-reduce.
 """
 
 from __future__ import annotations
@@ -57,7 +67,14 @@ from torch.utils.checkpoint import (
 from .. import fp32_math
 from ..diffusion.schedule import DDPMSchedule, make_schedule, q_sample
 from ..models.blocks import commit_batch_stats, global_batch_stats
-from ..parallel.mesh import Mesh, all_reduce, local_rows, shard_rows
+from ..parallel.mesh import (
+    Mesh,
+    Mesh2D,
+    all_reduce,
+    local_rows,
+    shard_rows,
+    spatial_sharding,
+)
 
 
 def linear_decay_schedule(lrate: float, n_epoch: int, steps_per_epoch: int):
@@ -140,9 +157,9 @@ def _save_convolutions(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _training_forward(model: nn.Module, remat):
+def _training_forward(model: nn.Module, remat, space=None):
     def forward(x, t, c, proj=None):
-        return model(x, t, c, train=True, shortcut=proj)
+        return model(x, t, c, train=True, shortcut=proj, space=space)
 
     if remat == "convs":
         context = functools.partial(create_selective_checkpoint_contexts,
@@ -158,13 +175,17 @@ class _Noising:
     """``t``, the noise and ``q_sample`` of one batch on the model's device:
     the part the train and the eval step share.  On a collective ``mesh``
     ``x``, ``c`` and ``mask`` are this process's rows and ``t`` and the
-    noise (drawn or given) the global batch's, of which it keeps its rows."""
+    noise (drawn or given) the global batch's, of which it keeps its rows
+    (on a 2-D mesh its (batch, height) block of the noise)."""
 
     def __init__(self, model: nn.Module, timesteps: int, scaling: str,
                  beta1: float, beta2: float, mesh: Optional[Mesh]):
         self.model, self.timesteps, self.scaling = model, timesteps, scaling
         self.schedule = make_schedule(timesteps, beta1, beta2)
         self.mesh = mesh if mesh is not None and mesh.collective else None
+        self.spatial = isinstance(self.mesh, Mesh2D)
+        # The model's space axis: a height shard's, else None.
+        self.space = self.mesh.space if self.spatial else None
         self._on = {}  # device -> the schedule there (no host sync a step)
 
     def needs_generator(self, t, noise, shortcut) -> bool:
@@ -180,11 +201,13 @@ class _Noising:
         if self.needs_generator(t, noise, shortcut) and generator is None:
             raise ValueError("give a generator, or t, noise (and a stochastic "
                              "model's shortcut)")
-        n = x.shape[0] * (self.mesh.world_size if self.mesh is not None else 1)
+        n = x.shape[0] * (self.mesh.data.world_size if self.mesh is not None else 1)
         if t is None:
             t = torch.randint(1, self.timesteps + 1, (n,), generator=generator, device=dev)
         if noise is None:
-            noise = torch.randn((n,) + tuple(x.shape[1:]), generator=generator, device=dev)
+            shape = (n, x.shape[1] * (self.mesh.n_space if self.spatial else 1)) + tuple(
+                x.shape[2:])
+            noise = torch.randn(shape, generator=generator, device=dev)
         if self.model.stochastic and shortcut is None:
             shortcut = self.model.draw_shortcut(generator)
         if shortcut is not None:
@@ -193,7 +216,9 @@ class _Noising:
         t_all = torch.as_tensor(t, dtype=torch.long, device=dev)
         noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
         t = t_all
-        if self.mesh is not None:
+        if self.spatial:
+            t, noise = local_rows(self.mesh.data, t_all), spatial_sharding(self.mesh).block(noise)
+        elif self.mesh is not None:
             t, noise = local_rows(self.mesh, t_all), local_rows(self.mesh, noise)
         if dev not in self._on:
             self._on[dev] = DDPMSchedule(*(a.to(dev) for a in self.schedule[:3]),
@@ -208,7 +233,7 @@ class _Noising:
         losses sum to the global mean)."""
         count = (torch.sum(mask) if mask is not None
                  else per_sample.new_tensor(float(per_sample.shape[0])))
-        count = all_reduce(self.mesh, count.to(per_sample.dtype).reshape(1))
+        count = all_reduce(self.mesh.data, count.to(per_sample.dtype).reshape(1))
         if mask is not None:
             per_sample = per_sample * mask.to(per_sample.dtype)
         return per_sample, torch.sum(per_sample) / count[0]
@@ -216,12 +241,14 @@ class _Noising:
     def gather_metrics(self, per_sample, loss, extra=()):
         """The global ``(per_sample, loss)`` from each process's masked
         per-sample rows and loss share, in one all-reduce together with the
-        tensors ``extra`` (summed in place: the gradients)."""
-        start, rows = shard_rows(self.mesh, per_sample.shape[0] * self.mesh.world_size)
-        ps = per_sample.new_zeros(rows * self.mesh.world_size)
+        tensors ``extra`` (summed in place: the gradients).  On a 2-D mesh
+        the space axis's shares of each sample's MSE sum there too."""
+        data = self.mesh.data
+        start, rows = shard_rows(data, per_sample.shape[0] * data.world_size)
+        ps = per_sample.new_zeros(rows * data.world_size)
         ps[start:start + rows] = per_sample.detach()
         parts = [e.reshape(-1) for e in extra] + [ps, loss.detach().reshape(1)]
-        flat = all_reduce(self.mesh, torch.cat(parts))
+        flat = all_reduce(self.mesh.world, torch.cat(parts))
         offset = 0
         for e in extra:
             e.copy_(flat[offset:offset + e.numel()].view_as(e))
@@ -229,8 +256,12 @@ class _Noising:
         return flat[offset:offset + ps.numel()], flat[-1]
 
 
-def _per_sample_mse(out, noise):
-    return torch.mean(torch.square(out - noise), dim=tuple(range(1, out.dim())))
+def _per_sample_mse(out, noise, n_space: int = 1):
+    """Each sample's mean squared error over its pixels; on a height shard
+    of ``n_space`` its share of it (the shard's sum over the whole image's
+    pixel count)."""
+    mse = torch.mean(torch.square(out - noise), dim=tuple(range(1, out.dim())))
+    return mse if n_space == 1 else mse / n_space
 
 
 def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference",
@@ -266,7 +297,8 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
     step needs their sum.
     """
     noising = _Noising(model, timesteps, scaling, beta1, beta2, mesh)
-    forward = _training_forward(model, remat)
+    forward = _training_forward(model, remat, noising.space)
+    n_space = noising.mesh.n_space if noising.mesh is not None else 1
 
     def train_step(state: TrainState, x, c, mask=None, *, t=None, noise=None,
                    shortcut=None):
@@ -276,12 +308,13 @@ def make_train_step(model: nn.Module, timesteps: int, scaling: str = "reference"
         generator = None
         if noising.needs_generator(t, noise, shortcut):
             generator = seeded_generator(dev, state.seed, 0, state.step)
-        with fp32_math(), global_batch_stats(model, noising.mesh):
+        world = noising.mesh.world if noising.mesh is not None else None
+        with fp32_math(), global_batch_stats(model, world):
             x_pert, t, t_norm, c, noise, mask, proj, t_all = noising(
                 x, c, mask, generator, t, noise, shortcut)
             state.optimizer.zero_grad(set_to_none=True)
             args = (x_pert, t_norm, c) + ((proj,) if proj is not None else ())
-            per_sample = _per_sample_mse(forward(*args), noise)
+            per_sample = _per_sample_mse(forward(*args), noise, n_space)
             if noising.mesh is None:
                 per_sample, loss = masked_mean(per_sample, mask)
             else:
@@ -319,12 +352,14 @@ def make_eval_step(model: nn.Module, timesteps: int, scaling: str = "reference",
     :func:`make_train_step`: this process's rows in, the global batch's
     draws and metrics."""
     noising = _Noising(model, timesteps, scaling, beta1, beta2, mesh)
+    n_space = noising.mesh.n_space if noising.mesh is not None else 1
 
     def eval_step(x, c, mask=None, *, generator=None, t=None, noise=None, shortcut=None):
         with torch.inference_mode(), fp32_math():
             x_pert, t, t_norm, c, noise, mask, proj, t_all = noising(
                 x, c, mask, generator, t, noise, shortcut)
-            per_sample = _per_sample_mse(model(x_pert, t_norm, c, shortcut=proj), noise)
+            per_sample = _per_sample_mse(
+                model(x_pert, t_norm, c, shortcut=proj, space=noising.space), noise, n_space)
             if noising.mesh is None:
                 per_sample, loss = masked_mean(per_sample, mask)
             else:

@@ -27,6 +27,16 @@ def device_name(device) -> str:
     return "CPU"
 
 
+def log_device_used(device, output_file: str = "output.log") -> None:
+    """Append the reference's ``Device used: <platform>`` line
+    (``train_diffusion_paper.py:72-75``; ``run_logging.py:21-27`` of the
+    JAX package) to ``output_file``: ``GPU`` for a CUDA device, ``CPU``
+    otherwise."""
+    used = "GPU" if torch.device(device).type == "cuda" else "CPU"
+    with open(output_file, "a") as f:
+        f.write(f"Device used: {used}\n")
+
+
 class RunLogger:
     """Writer of the ``outputs/<tag>/`` log files of a run on ``device``."""
 

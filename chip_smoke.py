@@ -95,13 +95,29 @@ Phases, each timed on its own line:
       (o)'s yardstick), wall time, maps/min and P(k) as information; (q4)
       ``run_experiment("nov26")`` of two epochs at T 20 on 90 maps with
       ``CAMELS_PROFILE`` set: a Chrome trace of its second epoch holding
-      CUDA kernels.
+      CUDA kernels;
+  (r) the spatial (data x space) mesh and int8: (r1) K2's sharded
+      statistics and apply launches and K1's halo mode, fp32 and bf16,
+      against their plain versions on half of the w=2 serving heads' maps
+      (a 1x2 mesh's shard) and of the deep model's out_norm (10 maps); (r2)
+      two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
+      committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
+      (the exact chain of a 10-step schedule) against one process, in fp32
+      and in bf16 (phase (o)'s yardstick), one train
+      step of (q2)'s batch of 32 under phase (l)'s gate against (q2)'s
+      one-process step, and one folded forward of the deep model at full
+      width (128x128, 2 maps) against one process, each rank's launch
+      counts, ms a step and collectives a step; (r3) ``QuantConv`` (W8A8,
+      int32 sums) on the card bit for bit against the CPU at the canonical
+      model's widest 3x3 conv (``down2.block2.conv2``, 256 -> 256 at 32x32,
+      32 maps), timed beside cuDNN's fp32 and bf16 conv of that shape.
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
 phase (n), the comparison CLI and the stochastic paths of phase (p), the
-mesh paths and DPM-Solver++(2M) of phase (q) -- is driven with every
+mesh paths and DPM-Solver++(2M) of phase (q), the spatial paths of phase
+(r) in each rank -- is driven with every
 kernel's launch count set to 0 just before it and read just after, and
 must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
@@ -124,6 +140,7 @@ import concurrent.futures
 import contextlib
 import copy
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -168,6 +185,10 @@ from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
     groupnorm_act_plain,
+    groupnorm_apply,
+    groupnorm_apply_plain,
+    groupnorm_stats,
+    groupnorm_stats_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.groupnorm import launch_plan as groupnorm_launch_plan
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
@@ -178,7 +199,20 @@ from camels_diffusion_model_tpu_torch.ops.sampler_step import (
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
 from camels_diffusion_model_tpu_torch.ops.stats import PooledPdf, pdf_tv
 from camels_diffusion_model_tpu_torch.parallel.launch import spawn
-from camels_diffusion_model_tpu_torch.parallel.mesh import init_distributed, shard_batch
+from camels_diffusion_model_tpu_torch.models.fold_bn import fold_batchnorm_variables
+from camels_diffusion_model_tpu_torch.models.quantize import (
+    QuantConv,
+    int8_conv_sums,
+    quantize_symmetric,
+)
+from camels_diffusion_model_tpu_torch.parallel.mesh import (
+    Mesh2D,
+    gather_blocks,
+    init_distributed,
+    make_mesh_2d,
+    shard_batch,
+    shard_batch_spatial,
+)
 from camels_diffusion_model_tpu_torch.serving import (
     certification_contexts,
     load_model,
@@ -192,6 +226,9 @@ from camels_diffusion_model_tpu_torch.utils import torch_interop
 from camels_diffusion_model_tpu_torch.utils.weights import from_jax_variables, to_jax_variables
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# run_experiment writes its figures where matplotlib is installed and lists
+# them as skipped where not (the card's machine has none).
+NO_MATPLOTLIB = importlib.util.find_spec("matplotlib") is None
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
@@ -216,7 +253,13 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # computes its plain version's two roundings from the same fp32
        # operations: exact.  And all but BF16_SHARE of the elements within
        # fp32 rounding (K1: its fp32 step's FMAs, 1e-5).
-       "head_step_bf16": 4, "groupnorm_act_bf16": 2, "film_bf16": 0}
+       "head_step_bf16": 4, "groupnorm_act_bf16": 2, "film_bf16": 0,
+       # The sharded modes (phase r1): K1's halo mode as K1; K2's apply
+       # launch as K2 (its statistics merged by Chan's formula in fp32);
+       # its statistics launch relative to each column's largest value
+       # (count, mean, centred sum of squares), sums in another order.
+       "head_step_halo": 1e-4, "groupnorm_apply": 1e-4, "groupnorm_stats": 1e-5,
+       "head_step_halo_bf16": 4, "groupnorm_apply_bf16": 2, "groupnorm_stats_bf16": 1e-5}
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
 # reference's (JAX's golden, the CPU's) bf16 distance from its fp32 on the
@@ -236,6 +279,13 @@ WRAPPERS = {
     "head_step_bf16": (fused_head_step, "launches_bf16"),
     "groupnorm_act_bf16": (fused_groupnorm_act, "launches_bf16"),
     "film_bf16": (fused_film, "launches_bf16"),
+    # The sharded modes of phase (r): K1 with halo rows, K2's two launches.
+    "head_step_halo": (fused_head_step, "launches_halo"),
+    "groupnorm_stats": (groupnorm_stats, "launches"),
+    "groupnorm_apply": (groupnorm_apply, "launches"),
+    "head_step_halo_bf16": (fused_head_step, "launches_halo_bf16"),
+    "groupnorm_stats_bf16": (groupnorm_stats, "launches_bf16"),
+    "groupnorm_apply_bf16": (groupnorm_apply, "launches_bf16"),
 }
 
 
@@ -254,6 +304,13 @@ LIBRARY = {
     "groupnorm_act": "F.group_norm on the channels_last NCHW view: "
                      "GroupNorm + affine without the activation or FiLM",
     "film": "torch.addcmul",
+    "head_step_halo": "F.conv2d(h, W, b) of the shard with zero rows in place of the halo "
+                      "rows: the output conv alone, the same bytes and operations",
+    "groupnorm_stats": "torch.var_mean over each (sample, group) of the shard, "
+                       "correction 0",
+    "groupnorm_apply": "none: F.batch_norm(training=False) takes given statistics, but "
+                       "per channel; none applies per-(sample, group) statistics with a "
+                       "per-channel affine on the NHWC layout",
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
 # Launches per reverse step: one step kernel (output conv, guidance,
@@ -348,7 +405,20 @@ SOURCES = {
     "film": ("camels_diffusion_model_tpu_torch/csrc/film.cu",
              "camels_diffusion_model_tpu/ops/pallas/film.py:29"),
 }
+SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
+                "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # one template each
+# Phase (r2): the spatial chain, its one-process reference and the deep
+# model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
+# card.  Each rank's maps are held to one process's within SPATIAL_TOL
+# (MESH_TOL's reasoning: cuDNN picks its algorithms by shape, and a shard
+# is half the map).  Launches a spatial reverse step: K1's halo mode once,
+# K2's statistics and apply launches at up0_norm and out_norm, K3 once; a
+# spatial forward: K2's two launches at both heads and K3.
+SPATIAL_MESH, SPATIAL_MAPS, SPATIAL_T, SPATIAL_TOL = (1, 2), 16, 10, 1e-4
+SPATIAL_PER_STEP = {"head_step_halo": 1, "groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
+SPATIAL_PER_FORWARD = {"groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
+QUANT_BATCH = 32  # phase (r3): the training batch through down2.block2.conv2
 
 
 def phase(name: str, t0: float) -> None:
@@ -516,11 +586,28 @@ def check_kernels(dev, model) -> dict:
         ))
 
     cases += bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma)
+    return hold_cases(cases)
+
+
+def stats_error(got, want) -> float:
+    """K2's statistics launch against its plain version: the largest error
+    of each of count, mean and centred sum of squares relative to that
+    column's largest value, the worst of the three."""
+    diff = (got - want).abs().flatten(0, -2).amax(0)
+    return (diff / want.abs().flatten(0, -2).amax(0).clamp_min(1e-30)).max().item()
+
+
+def hold_cases(cases) -> dict:
+    """Each case ``(kernel, label, kernel fn, plain fn, library fn, args,
+    bytes, flops, summed)``: the kernel against its plain version within
+    its tolerance, and the kernel's, plain version's and library call's
+    device ms beside the bound (see :func:`check_kernels`)."""
     out = {}
     for name, label, kern, plain, lib, args, nb, flops, summed in cases:
         got, want = kern(*args), plain(*args)
         diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
+        err = (stats_error(got, want) if name.startswith("groupnorm_stats")
+               else diff.max().item())
         tol, fp32_rounding = tolerance(name, args, want)
         share = (diff > fp32_rounding).float().mean().item()
         torch.cuda.synchronize()
@@ -534,7 +621,8 @@ def check_kernels(dev, model) -> dict:
         peak = BF16_FLOPS if name.endswith("_bf16") else FP32_FLOPS
         bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
         bound_ms = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
-        moved = nb + (spilled_bytes(args[0], args[3]) if name.startswith("groupnorm") else 0)
+        moved = nb + (spilled_bytes(args[0], args[3]) if name.startswith("groupnorm_act")
+                      else 0)
         print(f"  {name} {label}: max_abs_err {err:.3e} (tol {tol:g}"
               + (f"; {share:.4f} differ beyond {fp32_rounding:g}" if name.endswith("_bf16")
                  else "") + ") "
@@ -571,8 +659,10 @@ def tolerance(name: str, args, want) -> tuple:
     plain version's output ``want`` (``TOL``)."""
     if not name.endswith("_bf16"):
         return TOL[name], 0.0
-    if name == "head_step_bf16":
-        h, weight, bias, _, _, c_eps, inv_sqrt_a, _, w, tanh = args
+    if name.startswith("groupnorm_stats"):
+        return TOL[name], float("inf")  # relative, per column (stats_error)
+    if name.startswith("head_step") and name.endswith("_bf16"):
+        h, weight, bias, _, _, c_eps, inv_sqrt_a, _, w, tanh = args[:10]
         eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
         eps = guided_eps(eps.bfloat16(), w, tanh).float()
         return (TOL[name] * abs(c_eps * inv_sqrt_a) * bf16_ulp(eps.abs().max().item()),
@@ -1193,12 +1283,15 @@ def check_runs(dev, drive) -> None:
               f"{cfg.height}, T {RUN_T}, {RUN_EPOCHS} epoch): "
               f"{res['data_source']} data, {res['n_train']} train maps, losses {logs}, "
               f"reconstructed mean {res['means']['reconstructed']:.6f}, not ported "
-              f"{res['not_ported']}, in {time.perf_counter() - t1:.3f} s", flush=True)
+              f"{res['not_ported']}, {len(res['figures_skipped'])} figures skipped (matplotlib "
+              f"{'absent' if NO_MATPLOTLIB else 'present'}), in "
+              f"{time.perf_counter() - t1:.3f} s", flush=True)
         if (res["n_train"] != n_train or not np.isfinite(logs).all()
                 or not np.isfinite(res["means"]["reconstructed"])
-                or res["not_ported"] != ["figures"]):
+                or res["not_ported"] != [] or bool(res["figures_skipped"]) != NO_MATPLOTLIB):
             raise SystemExit(f"run_experiment {mode}: {res['n_train']} train maps, losses "
-                             f"{logs}, means {res['means']}, not ported {res['not_ported']}")
+                             f"{logs}, means {res['means']}, not ported {res['not_ported']}, "
+                             f"figures skipped {res['figures_skipped']}")
         if mode == "paper":
             check_artifacts(res["output_dir"], (
                 "weights/model_epoch_1.msgpack", "weights/train_state.msgpack",
@@ -1601,6 +1694,16 @@ def mesh_batch(real: int, seed: int = 2):
     return x, c, mask, t, noise
 
 
+def mesh_rows(mesh, x, c, mask):
+    """This process's part of a batch: all of it, its rows on a 1-D mesh,
+    its (batch, height) block of ``x`` on a 2-D one."""
+    if mesh is None:
+        return x, c, mask
+    if isinstance(mesh, Mesh2D):
+        return shard_batch_spatial(mesh, x, c, mask)
+    return shard_batch(mesh, x, c, mask)
+
+
 def mesh_step(variables, dev, batch, mesh=None) -> dict:
     """Phase (q2): one train step of the unfolded full-width model holding
     ``variables`` on ``batch`` (t and noise injected), in one process or
@@ -1609,7 +1712,7 @@ def mesh_step(variables, dev, batch, mesh=None) -> dict:
     x, c, mask, t, noise = batch
     model = training_model(variables, dev)
     state = trainer.create_train_state(model, 1e-4, 2, 14)
-    rows = (x, c, mask) if mesh is None else shard_batch(mesh, x, c, mask)
+    rows = mesh_rows(mesh, x, c, mask)
     m = trainer.make_train_step(model, TIMESTEPS, mesh=mesh)(
         state, *rows, t=torch.tensor(t), noise=torch.tensor(noise))
     return {"loss": float(m["loss"]),
@@ -1634,7 +1737,7 @@ def time_mesh_steps(variables, dev, batch, mesh=None, warm: int = 1, timed: int 
     model = training_model(variables, dev)
     state = trainer.create_train_state(model, 1e-4, 2, 14)
     step = trainer.make_train_step(model, TIMESTEPS, mesh=mesh)
-    rows = (x, c, mask) if mesh is None else shard_batch(mesh, x, c, mask)
+    rows = mesh_rows(mesh, x, c, mask)
     draws = dict(t=torch.tensor(t, device=dev), noise=torch.tensor(noise, device=dev))
     for k in range(warm + timed):
         if k == warm:
@@ -1771,7 +1874,7 @@ def check_mesh_one(dev, drive, nov26_state: str) -> None:
         raise SystemExit(f"the mesh path of one process vs the mesh-less run: {diff}")
 
 
-def check_mesh_two(dev, variables, model, model_path: str, launches: dict) -> None:
+def check_mesh_two(dev, variables, model, model_path: str, launches: dict) -> dict:
     """Phase (q2): two gloo ranks sharing the card (module docstring).
     While the ranks start (a process takes seconds to import torch and to
     run its first step on the card), this process takes its own steps,
@@ -1813,6 +1916,7 @@ def check_mesh_two(dev, variables, model, model_path: str, launches: dict) -> No
         if not err <= MESH_TOL or rank["launches"] != want_launches:
             raise SystemExit(f"rank {r}: sharded sampler {err}, launches {rank['launches']} "
                              f"(expected {want_launches})")
+    return {"batch": batches[0], "want": wants[0], "witness": witnesses[0]}
 
 
 def dpm_inputs(dev) -> tuple:
@@ -1903,6 +2007,293 @@ def check_profile(dev, drive) -> None:
           f"{len(kernels)} CUDA kernels ({busy:.3f} ms of kernel time)")
     if not kernels:
         raise SystemExit("CAMELS_PROFILE: the trace holds no CUDA kernel")
+
+
+def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
+    """Phase (r1)'s cases, fp32 and bf16: K2's statistics and apply
+    launches on one half of the w=2 serving heads' maps (summed: one
+    spatial decoder call of a 1x2 mesh's rank) and of the deep model's
+    out_norm at 10 maps, the partials of both halves merged; K1's halo
+    mode on half of the w=2 serving features (summed: one spatial reverse
+    step), its rows above and below from the other half's edge."""
+    cases = []
+    n = 2 * BATCH
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for label, batch, hw, c, act, norm, summed in (
+                ("up0_norm (apply: with the FiLM epilogue), half of (32,16,16,256)", n, (8, 16),
+                 256, "relu", model.up0_norm, True),
+                ("out_norm, half of (32,64,64,128)", n, (32, 64), 128, "relu", model.out_norm,
+                 True),
+                ("deep out_norm, half of (10,128,128,128)", VARIANT_BATCH, (64, 128), 128,
+                 "leaky_relu", None, False)):
+            gamma, beta = ((norm.weight.detach(), norm.bias.detach()) if norm is not None
+                           else (randn(c), randn(c)))
+            halves = [randn(batch, *hw, c).to(dtype) for _ in range(2)]
+            x = halves[0]
+            parts = torch.stack([groupnorm_stats_plain(hf, 8) for hf in halves])
+            rows = ((randn(batch, c).to(dtype), randn(1, c).to(dtype))
+                    if norm is model.up0_norm else None)
+            stats_args = (x, 8)
+            cases.append((
+                f"groupnorm_stats{sfx}", f"{label} {tuple(x.shape)}", groupnorm_stats,
+                groupnorm_stats_plain,
+                lambda x, g: torch.var_mean(x.reshape(x.shape[0], -1, g, x.shape[-1] // g).float(),
+                                            dim=(1, 3), correction=0),
+                stats_args, nbytes(x) + 4 * 3 * batch * 8, x.numel() * 3, summed))
+            apply_args = (x, parts, gamma, beta, 8, 1e-5, act, rows)
+            cases.append((
+                f"groupnorm_apply{sfx}", f"{label} {tuple(x.shape)}", groupnorm_apply,
+                groupnorm_apply_plain, None, apply_args, nbytes(*apply_args, x),
+                x.numel() * (12 if rows else 10), summed))
+        b = BATCH
+        h = randn(2 * b, 32, 64, model.n_feat).relu().to(dtype)
+        halo = tuple(randn(2 * b, 64, model.n_feat).relu().to(dtype) for _ in range(2))
+        x, z = randn(b, 32, 64, 1), randn(b, 32, 64, 1)
+        head = (model.out_conv2.weight.detach().to(dtype), model.out_conv2.bias.detach().to(dtype))
+        args = (h, *head, x, z, c_eps, inv_sqrt_a, sigma, 2.0, False, halo)
+        cases.append((
+            f"head_step_halo{sfx}", f"cfg w=2, half of h(32,64,64,128) h{tuple(h.shape)} "
+            f"x{tuple(x.shape)}, halo rows (2, 32, 64, 128)", fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, True))
+    return cases
+
+
+def check_shard_kernels(dev, model) -> dict:
+    """Phase (r1): :func:`shard_cases` held by :func:`hold_cases`."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    c_eps, inv_sqrt_a, sigma = ddpm_coefficients(
+        make_schedule(TIMESTEPS), torch.tensor([750]))[0].tolist()
+    return hold_cases(shard_cases(model, randn, c_eps, inv_sqrt_a, sigma))
+
+
+def count_collectives():
+    """A context that counts ``torch.distributed.all_reduce`` calls and
+    ``broadcast`` calls in ``counts[0]``."""
+    counts = [0]
+    dist = torch.distributed
+    calls = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def counting(fn):
+        def call(*args, **kwargs):
+            counts[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        for name, fn in calls.items():
+            setattr(dist, name, counting(fn))
+        try:
+            yield counts
+        finally:
+            for name, fn in calls.items():
+                setattr(dist, name, fn)
+
+    return ctx()
+
+
+def spatial_chain(model, dev, mesh=None) -> torch.Tensor:
+    """Phase (r2): ``sample_ddpm`` at w=2 on ``SPATIAL_MAPS`` maps over the
+    exact chain of a ``SPATIAL_T``-step schedule, its draws from a seeded
+    generator on ``dev``; with ``mesh`` (2-D) ``spatial=True``."""
+    return sample_ddpm(model, make_schedule(SPATIAL_T), torch.Generator(device=dev).manual_seed(7),
+                       n_sample=SPATIAL_MAPS, params=certification_contexts(SPATIAL_MAPS),
+                       guide_w=2.0, device=dev, mesh=mesh, spatial=mesh is not None)
+
+
+def deep_folded(dev) -> ContextUnet:
+    """Phase (r2): the deep model at full width from its seeded init
+    (:func:`variant_model`), BatchNorms folded, on ``dev``."""
+    return load_model(to_jax_variables(variant_model("deep").state_dict()), dev)
+
+
+def deep_forward(model, dev, mesh=None) -> torch.Tensor:
+    """Phase (r2): the folded deep model's eps on ``VARIANT_CHECK_BATCH``
+    maps of :func:`variant_batch` at t/T 0.5, in one process or on this
+    rank's height shard, gathered."""
+    x, c, _, _, _ = variant_batch(model, VARIANT_CHECK_BATCH, seed=8)
+    t = np.full(VARIANT_CHECK_BATCH, 0.5, np.float32)
+    with torch.no_grad():
+        if mesh is None:
+            return model(torch.tensor(x, device=dev), torch.tensor(t, device=dev),
+                         torch.tensor(c, device=dev))
+        xs, ts, cs = shard_batch_spatial(mesh, x, t, c)
+        return gather_blocks(mesh, model(xs, ts, cs, space=mesh.space), VARIANT_CHECK_BATCH)
+
+
+def read_launches() -> dict:
+    return {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}
+
+
+def zero_launches() -> None:
+    for wrapper, count in WRAPPERS.values():
+        setattr(wrapper, count, 0)
+
+
+def spatial_rank(world, model_path: str, batch, spawned: float) -> dict:
+    """Phase (r2), in each of two ranks sharing the card as a (1 x 2)
+    mesh: one train step of ``batch`` (rank 0's gradients in full, the
+    other's as a digest) and the ms and collectives of a step; the spatial
+    chain with its launch counts, then again timed; the deep model's folded
+    forward with its launch counts; the seconds of each part, the
+    start-up's from ``spawned``."""
+    seconds, t1 = {"start-up": time.time() - spawned}, time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # a new process: the forward is called directly
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def lap(part):
+        nonlocal t1
+        torch.cuda.synchronize(world.device)
+        seconds[part], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    mesh = make_mesh_2d(*SPATIAL_MESH, device=world.device)
+    dev = mesh.device
+    variables = load_variables(model_path)
+    lap("load")
+    step = mesh_step(variables, dev, batch, mesh)
+    step["digest"] = grads_digest(step["grads"])
+    if mesh.rank:
+        del step["grads"]
+    lap("gated step")
+    with count_collectives() as step_calls:
+        step_ms = time_mesh_steps(variables, dev, batch, mesh, warm=1, timed=2)
+    lap("timed step")
+    model = load_model(variables, dev)
+    zero_launches()
+    maps = spatial_chain(model, dev, mesh).cpu()
+    torch.cuda.synchronize(dev)
+    chain_launches = read_launches()
+    lap("chain")
+    with count_collectives() as chain_calls:
+        spatial_chain(model, dev, mesh)
+        torch.cuda.synchronize(dev)
+    chain_ms = (time.perf_counter() - t1) / SPATIAL_T * 1e3
+    lap("timed chain")
+    model_bf16 = load_model(variables, dev, dtype=torch.bfloat16)
+    zero_launches()
+    maps_bf16 = spatial_chain(model_bf16, dev, mesh).cpu()
+    torch.cuda.synchronize(dev)
+    bf16_launches = read_launches()
+    lap("bf16 chain")
+    deep = deep_folded(dev)
+    zero_launches()
+    eps = deep_forward(deep, dev, mesh).cpu()
+    torch.cuda.synchronize(dev)
+    deep_launches = read_launches()
+    lap("deep forward")
+    return {"step": step, "step_ms": step_ms, "step_collectives": step_calls[0] / 3,
+            "maps": maps, "chain_ms": chain_ms, "chain_collectives": chain_calls[0] / SPATIAL_T,
+            "chain_launches": chain_launches, "maps_bf16": maps_bf16,
+            "bf16_launches": bf16_launches, "deep_eps": eps, "deep_launches": deep_launches,
+            "seconds": seconds}
+
+
+def check_spatial(dev, model, variables, model_path: str, q2: dict, launches: dict) -> None:
+    """Phase (r2) (module docstring): the ranks start while this process
+    takes the one-process chains (fp32 and bf16) and the deep model's
+    forward; the train step is held against (q2)'s one-process step and
+    witness of the same batch; the bf16 chain within ``BF16_FACTOR`` x one
+    process's bf16-vs-fp32 distance of one process's bf16 chain."""
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(spawn, spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
+                              (model_path, q2["batch"], time.time()),
+                              store_dir=tempfile.mkdtemp(dir=OUT_DIR), backend="gloo",
+                              device=dev, timeout=MESH_TIMEOUT)
+        want_maps = spatial_chain(model, dev).cpu()
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        spatial_chain(model, dev)
+        torch.cuda.synchronize(dev)
+        one_chain_ms = (time.perf_counter() - t2) / SPATIAL_T * 1e3
+        want_bf16 = spatial_chain(load_model(variables, dev, dtype=torch.bfloat16), dev).cpu()
+        deep = deep_folded(dev)
+        want_eps = deep_forward(deep, dev).cpu()
+        del deep
+        ranks = pending.result()
+    print(f"  (1 x 2) mesh of two gloo ranks on {dev}: {time.perf_counter() - t1:.3f} s, "
+          f"start-up included (rank 0: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in ranks[0]['seconds'].items())} s)", flush=True)
+    if ranks[1]["step"]["digest"] != ranks[0]["step"]["digest"]:
+        raise SystemExit("spatial train step: the ranks' gradients differ")
+    hold_mesh_step("spatial train step, batch 32 on a (1 x 2) mesh", ranks[0]["step"],
+                   q2["want"], q2["witness"])
+    want_chain = {name: 0 for name in WRAPPERS}
+    want_chain.update({k: v * SPATIAL_T for k, v in SPATIAL_PER_STEP.items()})
+    want_bf16_launches = {name: 0 for name in WRAPPERS}
+    want_bf16_launches.update({instance(k, "bfloat16"): v * SPATIAL_T
+                               for k, v in SPATIAL_PER_STEP.items()})
+    yard = (want_bf16 - want_maps).abs().max().item()
+    want_deep = {name: 0 for name in WRAPPERS}
+    want_deep.update(SPATIAL_PER_FORWARD)
+    for r, rank in enumerate(ranks):
+        err = (rank["maps"] - want_maps).abs().max().item()
+        deep_err = (rank["deep_eps"] - want_eps).abs().max().item()
+        launches[f"spatial_ddpm_w2_rank{r}"] = rank["chain_launches"]
+        launches[f"spatial_deep_forward_rank{r}"] = rank["deep_launches"]
+        launches[f"spatial_ddpm_w2_bf16_rank{r}"] = rank["bf16_launches"]
+        err16 = (rank["maps_bf16"] - want_bf16).abs().max().item()
+        print(f"  rank {r}: sample_ddpm(spatial=True) w=2, {SPATIAL_MAPS} maps, T "
+              f"{SPATIAL_T}: max abs vs one process {err:.3e} (tol {SPATIAL_TOL:g}), "
+              f"{rank['chain_ms']:.3f} ms a step (one process {one_chain_ms:.3f}), "
+              f"{rank['chain_collectives']:g} collectives a step; launches "
+              f"{rank['chain_launches']}; train step {rank['step_ms']:.3f} ms, "
+              f"{rank['step_collectives']:g} collectives; deep folded forward (2 maps, 128x128) "
+              f"max abs vs one process {deep_err:.3e} (tol {SPATIAL_TOL:g}); launches "
+              f"{rank['deep_launches']}", flush=True)
+        print(f"  rank {r}: the same chain in bf16: max abs vs one process's bf16 chain "
+              f"{err16:.3e} ({BF16_FACTOR:g} x one process's bf16-vs-fp32 {yard:.3e}); "
+              f"launches {rank['bf16_launches']}", flush=True)
+        if not (err <= SPATIAL_TOL and deep_err <= SPATIAL_TOL and err16 <= BF16_FACTOR * yard):
+            raise SystemExit(f"rank {r}: spatial chain {err}, deep forward {deep_err}, "
+                             f"bf16 chain {err16} (yardstick {yard})")
+        for path, got, want in (("chain", rank["chain_launches"], want_chain),
+                                ("bf16 chain", rank["bf16_launches"], want_bf16_launches),
+                                ("deep forward", rank["deep_launches"], want_deep)):
+            if got != want:
+                raise SystemExit(f"rank {r}: launches on the spatial {path}: {got}, "
+                                 f"expected {want}")
+
+
+def check_quantconv(dev, variables) -> None:
+    """Phase (r3): ``QuantConv`` holding the folded checkpoint's
+    ``down2.block2.conv2`` on ``QUANT_BATCH`` ReLU'd maps of 256 channels
+    at 32x32, on the card against the CPU bit for bit, timed beside
+    cuDNN's fp32 and bf16 conv of the same shape (information only)."""
+    params = fold_batchnorm_variables(variables)["params"]["down2"]["block2"]["conv2"]["conv"]
+    cin, cout = params["kernel"].shape[2:]
+    conv = QuantConv(cin, cout).load_jax_params(params)
+    x = torch.randn((QUANT_BATCH, cin, 32, 32), generator=torch.Generator().manual_seed(9)).relu()
+    with torch.no_grad():
+        want = conv(x)
+        conv_card = copy.deepcopy(conv).to(dev)
+        x_card = x.to(dev)
+        got = conv_card(x_card).cpu()
+        same = torch.equal(got, want)
+        diff = (got - want).abs().max().item()
+        # The card's int32 sums against the exact ones (float64 on the card).
+        x_q, _ = quantize_symmetric(x_card)
+        w_q, _ = quantize_symmetric(conv_card.weight, axis=(1, 2, 3))
+        exact = F.conv2d(x_q.double(), w_q.double(), padding=1)
+        sums_exact = torch.equal(int8_conv_sums(x_q, w_q).double(), exact)
+        w, b = conv_card.weight, conv_card.bias
+        ms = time_ms(conv_card, (x_card,))
+        fp32_ms = time_ms(lambda x: F.conv2d(x, w, b, padding=1), (x_card,))
+        bf16_ms = time_ms(lambda x: F.conv2d(x, w.bfloat16(), b.bfloat16(), padding=1),
+                          (x_card.bfloat16(),))
+    print(f"  QuantConv W8A8 (down2.block2.conv2, {cin} -> {cout}, x{tuple(x.shape)}): card vs "
+          f"CPU {'bit for bit' if same else 'DIFFERENT'} (max abs {diff:.3e}), the card's int32 "
+          f"sums {'exact' if sums_exact else 'NOT exact'}; "
+          f"{ms:.5f} ms against cuDNN fp32 {fp32_ms:.5f} ms and bf16 {bf16_ms:.5f} ms "
+          "(information only)", flush=True)
+    if not (same and sums_exact):
+        raise SystemExit(f"QuantConv on the card vs the CPU: max abs {diff}, int32 sums "
+                         f"exact: {sums_exact}")
 
 
 def make_drive(launches: dict):
@@ -2147,13 +2538,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     params, x_init = dpm_inputs(dev)
+    q2 = {}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # q3's CPU side beside q1
         dpm_cpu = pool.submit(dpm_on_cpu, variables, models[1], params, x_init.cpu())
         for name, run in (
                 ("(q1) mesh of one process, NCCL", lambda: check_mesh_one(dev, drive,
                                                                           nov26_state)),
-                ("(q2) two gloo ranks on the card", lambda: check_mesh_two(
-                    dev, variables, model, cfg2.model_path, launches)),
+                ("(q2) two gloo ranks on the card", lambda: q2.update(check_mesh_two(
+                    dev, variables, model, cfg2.model_path, launches))),
                 ("(q3) DPM-Solver++(2M)", lambda: check_dpm(
                     dev, drive, variables, model, params, x_init, dpm_cpu.result())),
                 ("(q4) CAMELS_PROFILE", lambda: check_profile(dev, drive))):
@@ -2162,6 +2554,19 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase(name, t1)
     phase("(q) data parallelism, DPM-Solver++(2M), CAMELS_PROFILE", t0)
+
+    t0 = time.perf_counter()
+    for name, run in (
+            ("(r1) sharded kernel modes vs plain", lambda: stats.update(
+                check_shard_kernels(dev, model))),
+            ("(r2) a (1 x 2) spatial mesh of two gloo ranks", lambda: check_spatial(
+                dev, model, variables, cfg2.model_path, q2, launches)),
+            ("(r3) QuantConv", lambda: check_quantconv(dev, variables))):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        phase(name, t1)
+    phase("(r) the spatial mesh, QuantConv", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

@@ -22,10 +22,15 @@ from camels_diffusion_model_tpu_torch.diffusion.ddim import (
 from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
 from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
 from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
+from camels_diffusion_model_tpu_torch.models.quantize import QuantConv
 from camels_diffusion_model_tpu_torch.ops.film import film_plain, fused_film
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     fused_groupnorm_act,
     groupnorm_act_plain,
+    groupnorm_apply,
+    groupnorm_apply_plain,
+    groupnorm_stats,
+    groupnorm_stats_plain,
     launch_plan,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
@@ -138,6 +143,85 @@ def test_groupnorm_kernel_slice_over_48_kb(dev):
     args = (x, _randn(dev, 128, seed=4), _randn(dev, 128, seed=5), 8, 1e-5, "relu")
     torch.testing.assert_close(fused_groupnorm_act(*args), groupnorm_act_plain(*args),
                                atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,film", [((32, 8, 16, 256), True), ((32, 32, 64, 128), False),
+                                        ((2, 5, 7, 24), True), ((2, 64, 128, 256), False)])
+def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film):
+    """K2's sharded mode on four height shards: each statistics launch
+    against its plain version (each column within 1e-5 of its largest
+    value), each apply launch against its plain version on the shards'
+    partials (fp32 1e-4; bf16 two ulps of the output), and the shards'
+    outputs together the whole map's GroupNorm; one launch counted each."""
+    n, h, w, c = shape
+    x = (_randn(dev, n, 4 * h, w, c) * 3 + 1).to(dtype)
+    gamma, beta = _randn(dev, c, seed=4), _randn(dev, c, seed=5)
+    rows = (_randn(dev, n, c, seed=6).to(dtype), _randn(dev, 1, c, seed=7).to(dtype)) if film else None
+    shards = list(x.chunk(4, dim=1))
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(groupnorm_stats, count), getattr(groupnorm_apply, count)
+    parts = torch.stack([groupnorm_stats(s, 8) for s in shards])
+    want_parts = torch.stack([groupnorm_stats_plain(s, 8) for s in shards])
+    scale = want_parts.abs().flatten(0, -2).amax(0)
+    assert ((parts - want_parts).abs().flatten(0, -2).amax(0) <= 1e-5 * scale).all()
+    outs = [groupnorm_apply(s, want_parts, gamma, beta, 8, 1e-5, "relu", rows) for s in shards]
+    assert (getattr(groupnorm_stats, count), getattr(groupnorm_apply, count)) == (
+        before[0] + 4, before[1] + 4)
+    for s, got in zip(shards, outs):
+        want = groupnorm_apply_plain(s, want_parts, gamma, beta, 8, 1e-5, "relu", rows)
+        tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** -7 * want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    whole = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "relu", rows)
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** -7 * whole.float().abs().max().item()
+    torch.testing.assert_close(torch.cat(outs, 1).float(), whole.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [None, 2.0])
+def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dtype, w):
+    """K1's halo mode on two height shards of the w=2 serving features (and
+    without CFG): against its plain version, and the two shards' steps
+    together the whole map's step; ``launches_halo`` counted.  fp32 within
+    1e-4 (1e-5 against the whole map); bf16 within four bf16 ulps of eps
+    times the step's ``c_eps * inv_sqrt_a`` (the guidance combine's
+    roundings), as ``chip_smoke.py`` holds it."""
+    b = 16
+    h = _randn(dev, 2 * b if w else b, 64, 64, 128).relu().to(dtype)
+    weight = (_randn(dev, 1, 128, 3, 3, seed=2) / 30).to(dtype)
+    bias = _randn(dev, 1, seed=3).to(dtype)
+    x, z = _randn(dev, b, 64, 64, 1, seed=4), _randn(dev, b, 64, 64, 1, seed=5)
+    whole = fused_head_step(h, weight, bias, x, z, 0.3, 1.1, 0.2, w)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    ulp = 2.0 ** (math.floor(math.log2(eps.abs().max().item())) - 7)
+    tol, tol_whole = (1e-4, 1e-5) if dtype == torch.float32 else (4 * 0.33 * ulp,) * 2
+    count = "launches_halo_bf16" if dtype == torch.bfloat16 else "launches_halo"
+    before = getattr(fused_head_step, count)
+    outs = []
+    for top, sl, bottom in ((None, slice(0, 32), h[:, 32]), (h[:, 31], slice(32, 64), None)):
+        args = (h[:, sl].contiguous(), weight, bias, x[:, sl].contiguous(),
+                z[:, sl].contiguous(), 0.3, 1.1, 0.2, w)
+        got = fused_head_step(*args, halo=(top, bottom))
+        torch.testing.assert_close(got, head_step_plain(*args, halo=(top, bottom)),
+                                   atol=tol, rtol=0)
+        outs.append(got)
+    assert getattr(fused_head_step, count) == before + 2
+    torch.testing.assert_close(torch.cat(outs, 1), whole, atol=tol_whole, rtol=0)
+
+
+@pytest.mark.parametrize("cin,cout,b", [(256, 256, 4), (8, 16, 2), (1, 3, 2)])
+def test_quantconv_on_the_card_equals_the_cpu_bit_for_bit(dev, cin, cout, b):
+    """The int8 sums are exact on both (``_int_mm`` on the card, float64 on
+    the CPU), and every division is a true one (a Python divisor would be
+    a multiplication by its reciprocal on the card)."""
+    conv = QuantConv(cin, cout)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=torch.Generator().manual_seed(1)))
+        conv.bias.copy_(torch.randn(cout, generator=torch.Generator().manual_seed(2)))
+        x = torch.randn((b, cin, 16, 16), generator=torch.Generator().manual_seed(3))
+        want = conv(x)
+        got = conv.to(dev)(x.to(dev)).cpu()
+    assert torch.equal(got, want)
 
 
 def _misaligned(t):

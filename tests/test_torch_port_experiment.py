@@ -1,14 +1,16 @@
 """PyTorch port: ``run_experiment`` at the tiny size on the CPU -- the JAX
 runner's artifact names and log-line formats, a resume that reproduces the
 unbroken run, the deep and big variants' modes end to end, a bf16 run, the
-figures skipped and listed, and ``mesh_devices`` beyond the process group
-raising; the run logger's lines against the JAX package's.
+figures written (and, without matplotlib, skipped and listed), and
+``mesh_devices`` beyond the process group raising; the run logger's lines
+against the JAX package's.
 Values differ from the JAX runner's (torch generators, not threefry), so
 formats are compared with the numbers masked."""
 
 import os
 import re
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +31,12 @@ TINY = dict(lrate=1e-3, n_epoch=2, timesteps=8, num_params=3, n_feat=8, height=1
             data_size=32, synthetic_param_sets=4, batch_size=8, n_eval_images=2,
             eval_batch_size=8, nll_subset=8, elbo_subset=8)
 NUMBER = re.compile(r"-?\d+(\.\d+)?(e[-+]?\d+)?")
+# The figures of a ``condition`` run at TINY (8 saved states: every 5th),
+# the JAX runner's (tests/test_torch_port_stochastic.py compares the names).
+CONDITION_PNGS = ["distribution_comparison.png", "guidance_strength_samples.png",
+                  "intermediate_step_0.png", "intermediate_step_5.png", "loss_evolution.png",
+                  "parameter_grid_samples_3params.png", "parameter_sensitivity.png",
+                  "reconstructed_images.png", "test_images.png"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,9 +61,9 @@ def _read(path):
 
 def test_condition_run_writes_the_jax_artifacts_and_resumes(tmp_path, monkeypatch):
     """Mode ``condition`` (2 epochs, T 8, a train checkpoint every epoch):
-    the JAX runner's files but its PNGs, its sidecars byte for byte, its
-    ``results`` keys; then a run resumed from the epoch-1 train checkpoint
-    ends with the unbroken run's train state, bit for bit."""
+    the JAX runner's files (its PNGs by name), its sidecars byte for byte,
+    its ``results`` keys; then a run resumed from the epoch-1 train
+    checkpoint ends with the unbroken run's train state, bit for bit."""
     snapshots = tmp_path / "snapshots"
     snapshots.mkdir()
     save = experiment.save_train_checkpoint
@@ -72,13 +80,13 @@ def test_condition_run_writes_the_jax_artifacts_and_resumes(tmp_path, monkeypatc
     weights = [f"weights/{jax_weights_checkpoint_plan('plus1', ep, 2, 1)[1]}" for ep in range(2)]
     assert _files(out) == sorted(["dataset_info.txt", "output.log", "param_max.npy",
                                   "param_min.npy", "selected_params.txt",
-                                  "weights/train_state.msgpack", *weights])
+                                  "weights/train_state.msgpack", *weights, *CONDITION_PNGS])
     assert {"output_dir", "data_source", "loss_log", "val_loss_log", "total_training_time",
             "epoch_times", "n_train", "means"} <= set(res)
     assert res["data_source"] == "synthetic" and res["n_train"] == 54
     assert len(res["loss_log"]) == len(res["val_loss_log"]) == 2
     assert np.isfinite(res["loss_log"] + res["val_loss_log"]).all()
-    assert res["not_ported"] == ["figures"]
+    assert res["not_ported"] == [] and res["figures_skipped"] == []
     assert _read(os.path.join(out, "output.log")) == b"Device used: CPU\n" * 2
 
     maps, params = synthetic_camels(4, 15, 32, seed=cfg.seed)
@@ -169,19 +177,28 @@ def test_run_logger_writes_the_jax_packages_lines(tmp_path):
 
 
 @pytest.mark.parametrize("mode,skipped", [
-    ("condition", ["figures"]),
-    ("nov26", ["figures"]),
+    ("condition", []),
+    ("nov26", []),
 ])
-def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, mode, skipped):
-    """The figures (ROADMAP section 1, leftovers) are skipped, listed in
-    ``results["not_ported"]`` and printed; the stages after the
-    reconstruction run."""
+def test_parts_not_ported_are_skipped_and_listed(tmp_path, capsys, monkeypatch, mode, skipped):
+    """The port runs every part of a run (``results["not_ported"]`` is
+    empty and no line names a part not run); where matplotlib is absent,
+    as on the card's machine, each figure prints that it was skipped and
+    is listed in ``results["figures_skipped"]``, the run writes no PNG and
+    the stages after the reconstruction run."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **TINY)
     res = experiment.run_experiment(cfg, device="cpu")
     assert res["not_ported"] == skipped
-    assert ("Not run by the port (ROADMAP section 1, leftovers): " + ", ".join(skipped)
-            in capsys.readouterr().out.splitlines())
-    assert not any(name.endswith(".png") for name in _files(tmp_path))
+    out = capsys.readouterr().out.splitlines()
+    assert not any(line.startswith("Not run by the port") for line in out)
+    assert res["figures_skipped"] and not any(name.endswith(".png") for name in _files(tmp_path))
+    assert [f"skipped {name}: matplotlib is not installed" for name in res["figures_skipped"]
+            ] == [line for line in out if line.startswith("skipped ")]
+    assert (f"Figures skipped (matplotlib is not installed): "
+            f"{', '.join(res['figures_skipped'])}") in out
+    if mode == "condition":
+        assert sorted(set(res["figures_skipped"])) == CONDITION_PNGS
 
 
 def test_bf16_run_trains_and_evaluates_in_bf16(tmp_path, monkeypatch):
@@ -233,7 +250,9 @@ def test_variant_modes_run_end_to_end(tmp_path, capsys, monkeypatch, mode, varia
     q-scaling, maps sampled from pure noise) at n_feat 8, 16x16: the JAX
     runner's files but its PNGs (weights on its ``mod0`` cadence, the
     train checkpoint, the device lines), its ``results`` keys, finite
-    losses and maps of the selected images' count."""
+    losses and maps of the selected images' count, and its PNGs: every
+    saved state of the unconditional chain, the [0, 1] display of the tanh
+    variants' maps."""
     cfg = ExperimentConfig(mode=mode, output_root=str(tmp_path), **TINY)
     assert cfg.spec.model_variant == variant and cfg.n_cfeat == {"deep": 5, "big": 10}[variant]
     seen = []
@@ -252,9 +271,14 @@ def test_variant_modes_run_end_to_end(tmp_path, capsys, monkeypatch, mode, varia
     out = res["output_dir"]
     weights = sorted({f"weights/{jax_weights_checkpoint_plan('mod0', ep, 2, 4)[1]}"
                       for ep in range(2) if jax_weights_checkpoint_plan('mod0', ep, 2, 4)[0]})
-    assert _files(out) == sorted(["output.log", "weights/train_state.msgpack", *weights])
+    pngs = [f for f in _files(out) if f.endswith(".png")]
+    assert _files(out) == sorted(["output.log", "weights/train_state.msgpack", *weights,
+                                  *pngs])
+    assert sorted(pngs) == sorted(["distribution_comparison.png", "loss_evolution.png",
+                                   "processed_images.png", "reconstructed_images.png"]
+                                  + [f"intermediate_step_{i}.png" for i in range(8)])
     assert {"output_dir", "data_source", "loss_log", "val_loss_log", "total_training_time",
             "epoch_times", "n_train", "means"} <= set(res)
-    assert res["not_ported"] == ["figures"] and len(res["loss_log"]) == 2
+    assert res["not_ported"] == [] and len(res["loss_log"]) == 2
     assert np.isfinite(res["loss_log"]).all() and np.isfinite(res["means"]["reconstructed"])
     assert "Training and evaluation completed." in capsys.readouterr().out

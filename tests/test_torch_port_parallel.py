@@ -41,11 +41,8 @@ from camels_diffusion_model_tpu.training.trainer import _noise_coeff
 from camels_diffusion_model_tpu.training.trainer import masked_mean as jax_masked_mean
 from camels_diffusion_model_tpu_torch.cli import experiment
 from camels_diffusion_model_tpu_torch.config import ExperimentConfig
-from camels_diffusion_model_tpu_torch.diffusion.sampler import sample_ddpm
-from camels_diffusion_model_tpu_torch.diffusion.schedule import make_schedule
 from camels_diffusion_model_tpu_torch.parallel import mesh as port_mesh
 from camels_diffusion_model_tpu_torch.parallel.launch import spawn
-from camels_diffusion_model_tpu_torch.serving import load_model
 from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -315,12 +312,6 @@ def test_sharded_sampler_equals_one_process(cases, name):
         assert r[name].shape == one[name].shape
         np.testing.assert_allclose(r[name].numpy(), want, atol=MAP_TOL, rtol=0)
     assert torch.equal(ranks[0][name], ranks[1][name])
-
-
-def test_spatial_sharding_is_not_ported(variables):
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1"):
-        sample_ddpm(load_model(variables, "cpu"), make_schedule(T), torch.Generator(),
-                    n_sample=2, size=H, device="cpu", spatial=True)
 
 
 # ---- run_experiment ----------------------------------------------------------

@@ -6,10 +6,13 @@ sensitivity rows.
 Both runners run the same mode at the tiny size of
 ``tests/test_torch_port_experiment.py`` with their samplers replaced by
 one that records what it was asked for and returns the same maps, so the
-stages see the same input in both.  The JAX runner's training, likelihood
-passes and figures are replaced by stand-ins (its stage code runs as it
+stages see the same input in both.  The JAX runner's training and
+likelihood passes are replaced by stand-ins (its stage code runs as it
 is; no JAX file changes), and so are the port's likelihood passes, so the
-metric lines carry the same numbers in both logs.
+metric lines carry the same numbers in both logs.  In one case of the
+paper stages both runners write their figures (dpi 300, seconds each),
+and the port's PNG files are the JAX runner's by name; elsewhere both
+runners' figure writers are stand-ins.
 """
 
 import os
@@ -57,13 +60,17 @@ def _np(a):
     return None if a is None else np.asarray(a.cpu() if torch.is_tensor(a) else a)
 
 
-def _run_jax(mode, root, calls, monkeypatch, **kw):
-    """The JAX runner with recording samplers and stand-ins for its
-    training, likelihood passes and figures."""
+class NoFigures:
+    """A stand-in for a runner's ``viz`` module: every writer does nothing
+    and returns a true value (nothing skipped)."""
 
-    class NoFigures:
-        def __getattr__(self, name):
-            return lambda *a, **k: None
+    def __getattr__(self, name):
+        return lambda *a, **k: True
+
+
+def _run_jax(mode, root, calls, monkeypatch, figures=False, **kw):
+    """The JAX runner with recording samplers and stand-ins for its
+    training, likelihood passes and (unless ``figures``) figures."""
 
     def train_step(state, bx, bc, key, mask):
         n = bx.shape[0]
@@ -86,7 +93,8 @@ def _run_jax(mode, root, calls, monkeypatch, **kw):
                                      sampling_time=0.1, timestep_times=np.array([0.01]))
 
     for name, value in (
-            ("viz", NoFigures()), ("make_train_step", lambda *a, **k: train_step),
+            *(() if figures else (("viz", NoFigures()),)),
+            ("make_train_step", lambda *a, **k: train_step),
             ("make_eval_step", lambda *a, **k: eval_step),
             ("calculate_elbo_and_bpd", lambda *a, **k: (ELBO, BPD)),
             ("calculate_likelihood", lambda *a, **k: NLL),
@@ -99,10 +107,10 @@ def _run_jax(mode, root, calls, monkeypatch, **kw):
         JaxExperimentConfig(mode=mode, output_root=str(root), **kw))
 
 
-def _run_port(mode, root, calls, monkeypatch, **kw):
-    """The port's runner with recording samplers and the stand-in
-    metrics, on its own dataset (the JAX package's bit for bit,
-    ``tests/test_torch_port_native_prep.py``)."""
+def _run_port(mode, root, calls, monkeypatch, figures=False, **kw):
+    """The port's runner with recording samplers, the stand-in metrics and
+    (unless ``figures``) figure writers, on its own dataset (the JAX
+    package's bit for bit, ``tests/test_torch_port_native_prep.py``)."""
 
     def sampler(model, schedule, generator, n_sample=1, size=64, params=None,
                 guide_w=0.0, device=None, mesh=None):
@@ -119,10 +127,17 @@ def _run_port(mode, root, calls, monkeypatch, **kw):
             ("sample_metrics", lambda *a, **k: (ELBO, BPD, NLL)),
             ("elbo_bpd_batch", lambda model, schedule, x, *a, **k: torch.full((len(x),), ELBO)),
             ("nll_batch", lambda model, schedule, x, *a, **k: torch.full((len(x),), NLL)),
-            ("sample_ddpm", sampler), ("sample_ddpm_from_noise", from_noise)):
+            ("sample_ddpm", sampler), ("sample_ddpm_from_noise", from_noise),
+            *(() if figures else (("viz", NoFigures()),))):
         monkeypatch.setattr(experiment, name, value)
     return experiment.run_experiment(ExperimentConfig(mode=mode, output_root=str(root), **kw),
                                      device="cpu")
+
+
+def _pngs(root):
+    pngs = sorted(f for f in os.listdir(root) if f.endswith(".png"))
+    assert pngs
+    return pngs
 
 
 def _read(path):
@@ -143,11 +158,13 @@ def test_paper_stages_equal_the_jax_runners(tmp_path, monkeypatch, num_params):
     order (the reconstruction, the 25 grid contexts, each w <= 0 of the
     sweep alone and every w > 0 in one call with a per-sample w, one call
     for all ``num_params * 5`` sensitivity rows), and the log from the
-    sampling header on is the JAX runner's line for line, times masked."""
+    sampling header on is the JAX runner's line for line, times masked;
+    with two parameters both runners write the same PNG files."""
     kw = dict(TINY, num_params=num_params)
+    figures = num_params == 2
     jax_calls, port_calls = [], []
-    jax_res = _run_jax("paper", tmp_path / "jax", jax_calls, monkeypatch, **kw)
-    port_res = _run_port("paper", tmp_path / "port", port_calls, monkeypatch, **kw)
+    jax_res = _run_jax("paper", tmp_path / "jax", jax_calls, monkeypatch, figures, **kw)
+    port_res = _run_port("paper", tmp_path / "port", port_calls, monkeypatch, figures, **kw)
     assert [n for n, _, _ in port_calls] == [n for n, _, _ in jax_calls] == [
         2, 25, 5, 20, 5 * num_params]
     for (_, p_port, w_port), (_, p_jax, w_jax) in zip(port_calls, jax_calls):
@@ -158,7 +175,9 @@ def test_paper_stages_equal_the_jax_runners(tmp_path, monkeypatch, num_params):
             == _stage_lines(os.path.join(jax_res["output_dir"], "timing_and_performance.log")))
     for key in ("grid_metrics", "guidance_metrics"):
         assert port_res[key] == jax_res[key]
-    assert port_res["not_ported"] == ["figures"]
+    assert port_res["not_ported"] == [] and port_res["figures_skipped"] == []
+    if figures:
+        assert _pngs(port_res["output_dir"]) == _pngs(jax_res["output_dir"])
 
 
 @pytest.mark.parametrize("num_params", [1, 2, 6])

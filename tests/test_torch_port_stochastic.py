@@ -487,10 +487,10 @@ def _files(root):
 
 def test_stochastic_condition_run_writes_the_jax_runners_files(tmp_path):
     """Mode ``condition`` with ``shortcut="stochastic"``, both runners: the
-    JAX runner's files but its figures, the same sidecars, the JAX
-    ``results`` keys but its figures' (the port adds ``pdf_stats`` and
-    ``not_ported``), a checkpoint without shortcut leaves that the port
-    serves as a stochastic model, and finite losses."""
+    JAX runner's files, its PNGs by name among them, the same sidecars, the
+    JAX ``results`` keys (the port adds ``pdf_stats``, ``not_ported`` and
+    ``figures_skipped``), a checkpoint without shortcut leaves that the
+    port serves as a stochastic model, and finite losses."""
     want = jax_run_experiment(JaxExperimentConfig(mode="condition",
                                                   output_root=str(tmp_path / "jax"), **TINY))
     got = experiment.run_experiment(
@@ -498,8 +498,7 @@ def test_stochastic_condition_run_writes_the_jax_runners_files(tmp_path):
         device="cpu")
     figures = [f for f in _files(want["output_dir"]) if f.endswith(".png")]
     assert figures
-    assert _files(got["output_dir"]) == [f for f in _files(want["output_dir"])
-                                         if f not in figures]
+    assert _files(got["output_dir"]) == _files(want["output_dir"])
     for name in ("param_min.npy", "param_max.npy"):
         np.testing.assert_array_equal(np.load(os.path.join(got["output_dir"], name)),
                                       np.load(os.path.join(want["output_dir"], name)))
@@ -507,8 +506,8 @@ def test_stochastic_condition_run_writes_the_jax_runners_files(tmp_path):
         with open(os.path.join(got["output_dir"], name)) as a, \
                 open(os.path.join(want["output_dir"], name)) as b:
             assert a.read() == b.read()
-    assert set(got) - {"pdf_stats", "not_ported"} == set(want)
-    assert got["not_ported"] == ["figures"]
+    assert set(got) - {"pdf_stats", "not_ported", "figures_skipped"} == set(want)
+    assert got["not_ported"] == [] and got["figures_skipped"] == []
     assert np.isfinite(got["loss_log"] + got["val_loss_log"]).all()
     ckpt = load_variables(os.path.join(got["output_dir"], "weights", "train_state.msgpack"))
     assert "shortcut" not in ckpt["params"]["init_conv"]

@@ -47,10 +47,12 @@
 // activation are fp32 and y is rounded to T once, as the Pallas kernel
 // does (ops/pallas/groupnorm.py:52-57); the FiLM epilogue then runs in T
 // as context_unet.py:300-307 does: scale * y rounded, + shift rounded
-// (rows of T).  Shared memory holds the slice as T, exact: a bf16 group is
-// half the bytes, so the big model's out_norm (1 MiB a group in bf16,
-// 128 KiB a CTA in a cluster of 8) stays resident; the spill path serves
-// the fp32 instance.
+// (rows of T).  Shared memory holds the slice as T, exact.  The template
+// serves the float single launch and both types' sharded modes; the bf16
+// single launch is a kernel of its own, groupnorm_bf16_kernel below (the
+// bf16 instance of this template took 78% of the float time for half
+// the bytes, its 1024 CTAs at the w=2 out_norm 1.3 waves of one latency-
+// bound chain each), with the same arithmetic and roundings.
 //
 // Sharded statistics (a height shard of a spatial mesh, whose GroupNorm
 // statistics span every shard; XLA's SPMD partitioner inserts them in JAX):
@@ -278,15 +280,211 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- The bf16 instance of MODE 0: segments of groups, one merge. ----
+//
+// A unit is a (sample, segment): seg consecutive groups of one sample, so
+// that a pixel's slice of the unit is at least 64 bytes, two sectors (2
+// groups of the out_norm's 16 channels; up0_norm's groups of 32 are one
+// each): the out_norm's 32-byte slices of one group read slower, and of
+// segments of 1, 2, 4 and 8 groups two ran fastest
+// (scripts/compare_torch_kernels.py --dtype bfloat16).  A unit's pixels
+// split over a cluster of `cluster` CTAs, `part_px` each, as the
+// template's (sample, group) does (ops/groupnorm.py::bf16_plan).  A
+// thread issues all K of its 16-byte loads at once, before anything else,
+// and keeps its packs in registers: no copy of the part goes to shared
+// memory and back (the template's bf16 slices in shared memory left the
+// w=2 out_norm's 1024 CTAs 1.3 waves).  Statistics in one merge: each
+// thread merges the centred moments (count, mean, M2) of its packs, one
+// pack as it lands, by Chan's formula (the k-th pack of V weighs 1 / k);
+// the lanes of one group merge by the same formula across the warp (a
+// butterfly over the lane bits that keep the group), then the block's
+// warps in order and the cluster's CTAs in rank order, so every CTA gets
+// the same statistics: one cluster barrier where the template takes two,
+// and the variance stays centred.  The segment's gamma, beta and FiLM rows
+// go to shared memory while the packs land (no registers held for them).
+// The output is normalised from the registers and written once.
+
+struct Moments {
+  float n, mean, m2;
+};
+
+// Chan's merge of a (first) and b, in that order (the weight b.n / n by
+// the fast division: 2 ulps, far inside the statistics' fp32 rounding).
+__device__ __forceinline__ Moments merge(Moments a, Moments b) {
+  if (b.n == 0.0f) return a;
+  const float n = a.n + b.n, f = __fdividef(b.n, n), d = b.mean - a.mean;
+  return {n, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
+}
+
+// Four bf16 (8 bytes) as floats.
+__device__ __forceinline__ Pack<4> load4(const bf16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  return Pack<4>{{__uint_as_float(t.x << 16), __uint_as_float(t.x & 0xffff0000u),
+                  __uint_as_float(t.y << 16), __uint_as_float(t.y & 0xffff0000u)}};
+}
+
+__device__ __forceinline__ uint4 load_stream(const bf16* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+constexpr int MAX_SEG = 8;  // groups of one segment
+constexpr int MAX_SEG_CH = 256;  // channels of one segment
+
+// Grid: unit (sample major, segment minor) major, cluster rank minor.
+// Thread t holds pack t % vs (vs = the segment's packs a pixel) of pixels
+// t / vs, + pstride, ... (K of them) of its part: one group's 8 channels.
+template <int K, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ scale,
+    const bf16* __restrict__ shift, bf16* __restrict__ out, int hw, int c, int groups,
+    int seg, int cluster_size, int part_px, int scale_stride, int shift_stride, float eps,
+    int act) {
+  constexpr int V = 8;  // one 16-byte pack
+  __shared__ Moments warp_moments[MAX_THREADS / 32][MAX_SEG];
+  __shared__ Moments block_moments[MAX_SEG];
+  // The segment's gamma, beta (float) and FiLM rows (bf16, as floats):
+  // read in the output pass, not held in registers through the loads.
+  __shared__ float4 operands[4][MAX_SEG_CH / 4];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int vpg = c / groups / V, vs = vpg * seg;  // packs per group, per segment
+  const int segs = groups / seg;
+  const int unit = blockIdx.x / cluster_size;
+  const int nn = unit / segs, sg = unit - nn * segs;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = min(hw, rank * part_px);
+  const int np = min(hw, p0 + part_px) - p0;
+  const int pstride = blockDim.x / vs;  // pixels the block covers per step
+  const int j = tid % vs, gl = j / vpg;  // this thread's pack and group in the segment
+  // Threads past the last whole pixel of the block only join the merges.
+  const int first = tid < pstride * vs ? tid / vs : np;
+  const int ch = sg * vs * V + j * V;
+  const long long base = ((long long)nn * hw + p0) * c + ch;
+
+  uint4 raw[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int p = first + i * pstride;
+    raw[i] = p < np ? load_stream(x + base + (long long)p * c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  // The per-channel operands of the segment into shared memory, 4 floats
+  // a thread, their latency under the statistics and the merges.
+  const bool film = scale != nullptr;
+  const int seg0 = sg * vs * V;
+  for (int q = tid; q < vs * 2; q += blockDim.x) {  // 4 channels each
+    const int cq = seg0 + 4 * q;
+    operands[0][q] = *reinterpret_cast<const float4*>(gamma + cq);
+    operands[1][q] = *reinterpret_cast<const float4*>(beta + cq);
+    if (film) {
+      const Pack<4> a = load4(scale + (long long)nn * scale_stride + cq);
+      const Pack<4> b = load4(shift + (long long)nn * shift_stride + cq);
+      operands[2][q] = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+      operands[3][q] = make_float4(b.v[0], b.v[1], b.v[2], b.v[3]);
+    }
+  }
+  Moments m{0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (first + i * pstride < np) {
+      const Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum += v.v[e];
+      const float pm = sum * (1.0f / V);
+      float pq = 0.0f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v.v[e] - pm;
+        pq += d * d;
+      }
+      const float f = 1.0f / (float)(i + 1), d = pm - m.mean;
+      m.mean += d * f;
+      m.m2 += pq + d * d * (m.n * f);
+      m.n += (float)V;
+    }
+  }
+  // The lanes of one group: the butterfly skips the lane bits that change
+  // the group (at and above a group's packs, below a pixel's).  Partners
+  // merge the lower lane first, so every lane of the group gets the same.
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= vpg && off < vs) continue;
+    const Moments o{__shfl_xor_sync(0xffffffffu, m.n, off),
+                    __shfl_xor_sync(0xffffffffu, m.mean, off),
+                    __shfl_xor_sync(0xffffffffu, m.m2, off)};
+    m = (lane & off) ? merge(o, m) : merge(m, o);
+  }
+  // A warp's lanes hold packs (32 warp) % vs, ... (all of a pixel's where
+  // vs <= 32); its first lane of each group writes the group's moments.
+  if (lane % vpg == 0 && lane < vs) warp_moments[warp][gl] = m;
+  __syncthreads();
+  if (tid < seg) {
+    Moments b{0.0f, 0.0f, 0.0f};
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int jw = (w * 32) % vs;
+      if (vs <= 32 || (tid * vpg >= jw && tid * vpg < jw + 32)) b = merge(b, warp_moments[w][tid]);
+    }
+    block_moments[tid] = b;
+  }
+  cluster.sync();  // every CTA's block_moments is written
+  // The ranks' moments, all requested before the merges (in rank order).
+  Moments ranks[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (r < cluster_size) ranks[r] = *cluster.map_shared_rank(&block_moments[gl], r);
+  Moments t = ranks[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (r < cluster_size) t = merge(t, ranks[r]);
+  // Done with the other CTAs' shared memory; wait for them before exiting.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  const float mean = t.mean, rstd = rsqrtf(t.m2 / t.n + eps);
+
+  const float* ops = reinterpret_cast<const float*>(operands) + j * V;
+  constexpr int ROW = MAX_SEG_CH;  // floats of one operand row
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int p = first + i * pstride;
+    if (p < np) {
+      Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float y = activate((v.v[e] - mean) * rstd * ops[e] + ops[ROW + e], act);
+        v.v[e] = film ? round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * ops[2 * ROW + e]) +
+                                       ops[3 * ROW + e])
+                      : y;
+      }
+      store<V>(out + base + (long long)p * c, v);
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int K, int MAX_THREADS>
+cudaError_t launch_bf16(cudaLaunchConfig_t* cfg, const bf16* x, const float* gamma,
+                        const float* beta, const bf16* scale, const bf16* shift, bf16* out,
+                        int hw, int c, int groups, int seg, int cluster, int part_px,
+                        int scale_stride, int shift_stride, float eps, int act) {
+  cudaError_t err = cudaLaunchKernelEx(cfg, groupnorm_bf16_kernel<K, MAX_THREADS>, x, gamma,
+                                       beta, scale, shift, out, hw, c, groups, seg, cluster,
+                                       part_px, scale_stride, shift_stride, eps, act);
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 }  // namespace
 
-// x/out: (n, hw, c) contiguous NHWC of float (camels_groupnorm_act) or bf16
-// (camels_groupnorm_act_bf16); gamma/beta: (c,) float; scale/shift: null,
-// or rows of c elements of x's type with strides 0 or c.  vec, cluster,
-// threads, pixels_per_cta, resident_pixels and smem_bytes come from
-// ops/groupnorm.py::launch_plan (vec 4 for float, 8 for bf16, needs
-// c/groups % vec == 0 and 16-byte aligned pointers).  Returns the
-// cudaError_t of the launch.
+// x/out: (n, hw, c) contiguous NHWC float; gamma/beta: (c,) float;
+// scale/shift: null, or rows of c floats with strides 0 or c.  vec,
+// cluster, threads, pixels_per_cta, resident_pixels and smem_bytes come
+// from ops/groupnorm.py::launch_plan (vec 4 needs c/groups % 4 == 0 and
+// 16-byte aligned pointers).  Returns the cudaError_t of the launch.
 #define CAMELS_GROUPNORM_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const T* x, const float* gamma, const float* beta,            \
                       const T* scale, const T* shift, T* out, int n, int hw, int c, \
@@ -300,8 +498,49 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
                        nullptr, 0, stream);                                         \
   }
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
-CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act_bf16, bf16)
 #undef CAMELS_GROUPNORM_ENTRY
+
+// The bf16 instance of the single launch: x/out (n, hw, c) contiguous NHWC
+// bf16, 16-byte aligned, c/groups a multiple of 8; gamma/beta (c,) float;
+// scale/shift null or rows of c bf16 with strides 0 or c.  seg (groups a
+// unit, dividing groups, at most 8 and 256 channels), cluster, threads,
+// packs (K: 1, 2, 4, 8 or 16 a thread; 1024 threads only with 8) and
+// part_px come from ops/groupnorm.py::bf16_plan.  Returns the
+// cudaError_t of the launch.
+extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, const float* beta,
+                                         const bf16* scale, const bf16* shift, bf16* out,
+                                         int n, int hw, int c, int groups, int scale_stride,
+                                         int shift_stride, float eps, int act, int seg,
+                                         int cluster, int threads, int packs, int part_px,
+                                         void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (seg > MAX_SEG || groups % seg || c / groups * seg > MAX_SEG_CH)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define CAMELS_GROUPNORM_BF16(K, T)                                                       \
+  if (packs == K && threads <= T)                                                         \
+    return (int)launch_bf16<K, T>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, \
+                                  seg, cluster, part_px, scale_stride, shift_stride, eps, \
+                                  act);
+  CAMELS_GROUPNORM_BF16(1, 512)
+  CAMELS_GROUPNORM_BF16(2, 512)
+  CAMELS_GROUPNORM_BF16(4, 512)
+  CAMELS_GROUPNORM_BF16(8, 512)
+  CAMELS_GROUPNORM_BF16(8, 1024)
+  CAMELS_GROUPNORM_BF16(16, 512)
+#undef CAMELS_GROUPNORM_BF16
+  return (int)cudaErrorInvalidValue;
+}
 
 // The sharded mode.  Statistics: the arguments above (gamma, beta, the rows
 // and out unused, null) and stats, (n, groups, 3) float: count, mean, M2.

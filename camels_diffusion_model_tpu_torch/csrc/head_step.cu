@@ -58,6 +58,13 @@
 // offset into it is encoded as -2 - offset, so the copies keep one int
 // each.  HALO false is the unsharded kernel as it was.
 //
+// The template serves the float unsharded launch and both types' halo
+// mode; the bf16 unsharded launch is a kernel of its own,
+// head_step_bf16_kernel below (in bf16 the template's taps on CUDA
+// cores did twice the arithmetic per staged byte, one CTA fit an SM, and
+// the first chunk's copy was exposed), with the same arithmetic and
+// roundings.
+//
 // The feature type T is float or bf16 (h, the (9, c) weights and the bias;
 // the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
 // and bias to bf16 as blocks.py:122 does).  Products of bf16 values are
@@ -301,12 +308,218 @@ int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---- The bf16 instance of the unsharded launch: the taps on tensor cores. ----
+//
+// The nine per-tap partials of a band are one product, P[pixel, tap] =
+// sum_c h[pixel, c] * W[c, tap]: pixels by C, times C by 9 (padded to 16
+// with zero taps), run with mma.sync m16n8k16 (bf16 in, fp32 sums).  Each
+// warp streams its own 16-pixel tiles of the band (tiles w, w + 8, ... of
+// each branch's rows + 2 halo rows), 64 channels an item, through a
+// private ring of RING shared-memory slots (2 KiB each) filled by 16-byte
+// cp.async copies (8 lanes a pixel's 128 bytes; rows outside the map and
+// pixels past the band are zero-filled by the copy itself).  A warp
+// waits only for its own copies (cp.async.wait_group, __syncwarp): no
+// block barrier runs until the partials are done, and RING - 1 items a
+// warp are in flight, the first issued before the weights are staged and the
+// step's x and z are requested.  Lane (g, t) reads 16 bytes (channels
+// 8t..8t+7 of a 32-channel half) of tile rows g and g + 8, and those 8
+// channels fill its A fragment's four columns of two k-steps (the half's
+// channels permuted; the weights' B fragments, read by the same 16-byte
+// pattern from shared memory, are permuted alike, so the product is the
+// same sum).  A pixel's 16-byte chunk q sits at slot q ^ 4 (p & 1), so a
+// quarter warp's reads (2 pixels x 4 chunks) and writes (one pixel's 8
+// chunks) hit 8 bank groups.  The warp keeps its tile's accumulators over
+// the channel blocks and stores the partials after the last; then the 3x3
+// gather epilogue runs as in the float kernel, with x and z of a thread's
+// first OUTS output pixels requested in the prologue.  A band pixel's
+// source offset is its run's base plus q * c (a branch's rows y0 - 1 ..
+// y0 + rows are contiguous), so issuing a copy costs no division.
+// ops/sampler_step.py::bf16_plan takes the shortest band whose grid is one
+// wave of two CTAs an SM (4 rows at the w=2 serving shape, 256 CTAs), so
+// one CTA's gather runs beside the other's copies.
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+constexpr int BF16_THREADS = 256;  // 8 warps
+constexpr int TILE = 16, BLOCK = 64;  // an item: 16 pixels x 64 channels (2 KiB)
+constexpr int OUTS = 4;  // output pixels a thread's x and z are prefetched for
+// Slots of a warp's ring: 3 let two CTAs share an SM, which ran faster at
+// every path shape than one CTA with 4, 6 or 8 (scripts/
+// compare_torch_kernels.py --dtype bfloat16).
+constexpr int RING = 3;
+
+// Grid: unit major, band minor.  Block: BF16_THREADS.  Band pixel p < m
+// (m = branches * pb, pb = (rows + 2) * width) is, under CFG, pixel p %
+// pb of sample unit + (p / pb) * batch, else pixel p of sample unit; a
+// branch's pixel q is at global row y0 - 1 + q / width.  Dynamic shared
+// memory: the weights [16][wstride] bf16 (taps 9-15 zero; a row is 4 mod
+// 8 16-byte slots, so a quarter warp's 2 taps x 4 chunks hit 8 bank
+// groups), the warps' rings (8 x RING slots), then the partials
+// [9][pstride] floats.
+__global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
+    const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  constexpr int SLOT = TILE * BLOCK;  // elements
+  constexpr int WARPS = BF16_THREADS / 32;
+  extern __shared__ float4 smem4[];
+  const int wstride = c + (c % 64 == 0 ? 32 : 0);
+  bf16* ws = reinterpret_cast<bf16*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* ring = ws + 16 * wstride + warp * RING * SLOT;  // this warp's
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int pb = (rows + 2) * width, m = (cfg ? 2 : 1) * pb;
+  const int tiles = (m + TILE - 1) / TILE;
+  const int pstride = (m + 31) / 32 * 32 + 4;  // 4 mod 32: a store's 4 taps, 4 banks apart
+  float* part = reinterpret_cast<float*>(ws + 16 * wstride + WARPS * RING * SLOT);
+  const int cblocks = c / BLOCK;
+  const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
+
+  // A branch's band pixel q is pixel q of the contiguous run of pixels
+  // that starts at its sample's row y0 - 1 (offset base[s] in elements,
+  // negative for the row above the map); it reads if inside the map's
+  // rows, q_lo <= q < q_hi.
+  const int base0 = ((unit * height + y0 - 1) * width) * c;
+  const int base1 = cfg ? (((unit + batch) * height + y0 - 1) * width) * c : 0;
+  const int q_lo = y0 == 0 ? width : 0, q_hi = min(pb, (height - y0 + 1) * width);
+  // Item it of this warp: tile warp + (it / cblocks) * WARPS, channel block
+  // it % cblocks; lane l copies chunk l & 7 of tile pixels l / 8 + 4i.
+  auto issue = [&](int it) {
+    bf16* dst = ring + (it % RING) * SLOT;
+    const int k = it / cblocks, cb = it - k * cblocks;
+    const int p0 = (warp + k * WARPS) * TILE, q = lane & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pp = (lane >> 3) + 4 * i, p = p0 + pp;
+      const int s = p >= pb, qq = p - s * pb;
+      const bool reads = p < m && qq >= q_lo && qq < q_hi;
+      const int off = (s ? base1 : base0) + qq * c + cb * BLOCK + 8 * q;
+      cp_async16(dst + pp * BLOCK + 8 * (q ^ ((pp & 1) << 2)), reads ? h + off : h, reads);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < items) issue(s);
+    cp_async_commit();
+  }
+
+  for (int i = tid; i < 16 * (c / 8); i += BF16_THREADS) {
+    const int tap = i / (c / 8), q = i - tap * (c / 8);
+    *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
+        tap < 9 ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+  // The step's inputs of this thread's first OUTS output pixels.
+  const float b0 = to_float(*bias);
+  const float wu = round_to<bf16>(cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
+  const int outs = min(rows, height - y0) * width;
+  const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
+  float xs[OUTS], zs[OUTS];
+#pragma unroll
+  for (int k = 0; k < OUTS; ++k) {
+    const int o = tid + k * BF16_THREADS;
+    xs[k] = o < outs ? x[first + k * BF16_THREADS] : 0.0f;
+    zs[k] = o < outs && z ? z[first + k * BF16_THREADS] : 0.0f;
+  }
+  __syncthreads();  // the weights are staged
+
+  float acc0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int swz = (g & 1) << 2;  // rows g and g + 8 share a parity
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<RING - 2>();  // this item's copies (this lane's) have landed
+    __syncwarp();            // ... every lane's; the slot refilled next was
+                             // read by all in the last pass
+    if (it + RING - 1 < items) issue(it + RING - 1);
+    cp_async_commit();
+    const bf16* slot = ring + (it % RING) * SLOT;
+    const int k = it / cblocks, cb = it - k * cblocks;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int chunk = (4 * half + t) ^ swz;
+      const uint4 a = *reinterpret_cast<const uint4*>(slot + g * BLOCK + 8 * chunk);
+      const uint4 b = *reinterpret_cast<const uint4*>(slot + (g + 8) * BLOCK + 8 * chunk);
+      const int col = cb * BLOCK + 32 * half + 8 * t;
+      const uint4 w0 = *reinterpret_cast<const uint4*>(ws + g * wstride + col);
+      const uint4 w1 = *reinterpret_cast<const uint4*>(ws + (8 + g) * wstride + col);
+      // k-step 0: channels 8t, 8t+1 (columns 2t, 2t+1) and 8t+2, 8t+3
+      // (columns 2t+8, 2t+9); k-step 1: 8t+4..8t+7 likewise.
+      mma_bf16(acc0, a.x, b.x, a.y, b.y, w0.x, w0.y);
+      mma_bf16(acc1, a.x, b.x, a.y, b.y, w1.x, w1.y);
+      mma_bf16(acc0, a.z, b.z, a.w, b.w, w0.z, w0.w);
+      mma_bf16(acc1, a.z, b.z, a.w, b.w, w1.z, w1.w);
+    }
+    if (cb == cblocks - 1) {  // the tile's partials: taps 2t, 2t+1 (and 8) of rows g, g+8
+      const int p = (warp + k * WARPS) * TILE + g;
+      part[2 * t * pstride + p] = acc0[0];
+      part[(2 * t + 1) * pstride + p] = acc0[1];
+      part[2 * t * pstride + p + 8] = acc0[2];
+      part[(2 * t + 1) * pstride + p + 8] = acc0[3];
+      if (t == 0) {
+        part[8 * pstride + p] = acc1[0];
+        part[8 * pstride + p + 8] = acc1[2];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc0[q] = acc1[q] = 0.0f;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every partial is in shared memory
+
+  // Output pixel o = tid + k * BF16_THREADS, its x and z prefetched for k < OUTS.
+  auto step = [&](int k, float xo, float zo) {
+    const int o = tid + k * BF16_THREADS;
+    const int r = o / width, xx = o - r * width;
+    float e[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* ps = part + s * pb;  // under CFG the uncond pixels start at pb
+      float sum = b0;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* prow = ps + (r + ky) * width;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int gx = xx + kx - 1;
+          if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * pstride + gx];
+        }
+      }
+      sum = round_to<bf16>(sum);
+      e[s] = tanh_out ? round_to<bf16>(tanhf(sum)) : sum;
+      if (!cfg) break;
+    }
+    const float ee =
+        cfg ? round_to<bf16>(e[1] + round_to<bf16>(wu * round_to<bf16>(e[0] - e[1]))) : e[0];
+    float v = (xo - ee * c_eps) * inv_sqrt_a;
+    if (z) v += sigma * zo;
+    out[first + k * BF16_THREADS] = v;
+  };
+#pragma unroll
+  for (int k = 0; k < OUTS; ++k)
+    if (tid + k * BF16_THREADS < outs) step(k, xs[k], zs[k]);
+  for (int k = OUTS; tid + k * BF16_THREADS < outs; ++k) {
+    const long long idx = first + k * BF16_THREADS;
+    step(k, x[idx], z ? z[idx] : 0.0f);
+  }
+}
+
 }  // namespace
 
-// h: (cfg ? 2 * batch : batch, height, width, c) NHWC of float
-// (camels_head_step) or bf16 (camels_head_step_bf16), 16-byte aligned;
-// wt: (9, c) tap-major weights (tap = ky * 3 + kx) and bias: one element,
-// both of h's type; x, z, out: (batch, height, width) float; z null to skip
+// h: (cfg ? 2 * batch : batch, height, width, c) NHWC float, 16-byte
+// aligned; wt: (9, c) tap-major weights (tap = ky * 3 + kx) and bias: one
+// element, both of h's type; x, z, out: (batch, height, width) float; z null to skip
 // the noise term; w_per_sample: null for the scalar w (floats); tanh_out: 1
 // to take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
 // from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
@@ -323,8 +536,31 @@ int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream); \
   }
 CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
-CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16, bf16)
 #undef CAMELS_HEAD_STEP_ENTRY
+
+// The bf16 instance (h, wt, bias bf16; c a multiple of 64): the arguments
+// of camels_head_step without ck and stages; threads 256; rows and
+// smem_bytes come from ops/sampler_step.py::bf16_plan.
+extern "C" int camels_head_step_bf16(const bf16* h, const bf16* wt, const bf16* bias,
+                                     const float* x, const float* z,
+                                     const float* w_per_sample, float w, float* out,
+                                     int batch, int height, int width, int c, int rows,
+                                     int cfg, int threads, int smem_bytes, float c_eps,
+                                     float inv_sqrt_a, float sigma, int tanh_out,
+                                     void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (threads != BF16_THREADS || c % BLOCK) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(head_step_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err == cudaSuccess)
+    head_step_bf16_kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows))),
+                            BF16_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg, c_eps,
+        inv_sqrt_a, sigma, tanh_out);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
 
 // The halo mode: the arguments above with halo, (2, cfg ? 2 * batch :
 // batch, width, c) of h's type, after h.

@@ -6,7 +6,9 @@ a shared library with a plain C interface, under
 ``build/torch_kernels/<hash of sources and flags>/`` at the repository root.
 Nothing includes PyTorch's headers, so the build takes seconds.  Each C
 function takes device pointers and the CUDA stream as ``c_void_p`` and
-returns its ``cudaError_t``.
+returns its ``cudaError_t``.  ``ptxas`` reports each kernel's registers,
+shared memory and spills (``-Xptxas -v``) into ``nvcc.log`` beside the
+library (:func:`ptxas_report`).
 
 The build runs at the first launch, never at import: the CPU tests import
 every module on machines without ``nvcc``.
@@ -28,9 +30,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libcamels_torch_kernels.so"
+LOG_NAME = "nvcc.log"
 
 
 def _nvcc() -> str:
@@ -66,8 +69,27 @@ def build() -> Path:
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    (out_dir / LOG_NAME).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
+
+
+def ptxas_report(lib: Path, names=()) -> list:
+    """``ptxas``'s lines for each kernel of the build of ``lib`` whose
+    (mangled) name holds one of ``names`` (all kernels if none): one
+    string a kernel, its name, registers, shared memory and spills."""
+    lines = (lib.parent / LOG_NAME).read_text().splitlines()
+    report, current = {}, None
+    for line in lines:
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+            if names and not any(n in current for n in names):
+                current = None
+            else:
+                report[current] = []
+        elif current and ("Used" in line or "stack frame" in line):
+            report[current].append(line.split(":", 1)[-1].strip())
+    return [f"{k}: {'; '.join(v)}" for k, v in report.items()]
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,7 +24,13 @@ with its own launch count (``fused_groupnorm_act.launches`` and
 ``.launches_bf16``).  Both compute the statistics, the affine and the
 activation in fp32 and round once to the I/O type, as the Pallas kernel
 does; the bf16 FiLM epilogue rounds as the JAX program does
-(:func:`groupnorm_act_plain`).
+(:func:`groupnorm_act_plain`).  The bf16 single launch is a kernel of its
+own (``csrc/groupnorm.cu``, ``groupnorm_bf16_kernel``): a unit of a few
+groups of a sample (64 bytes of a pixel at least), its pixels split over
+a cluster, each CTA's part held in registers from one burst of loads; the
+statistics in one merge by Chan's formula (one cluster barrier);
+:func:`bf16_plan` chooses its geometry.  The sharded launches keep the
+float kernel's design in both instances.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ MAX_CLUSTER = 8  # the largest portable thread-block cluster
 SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 #                           for several CTAs on one SM (228 KB of shared memory)
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' I/O types
-C_NAMES = {torch.float32: "camels_groupnorm_act", torch.bfloat16: "camels_groupnorm_act_bf16"}
+C_NAME = "camels_groupnorm_act"  # the float single launch
+BF16_NAME = "camels_groupnorm_act_bf16"  # the bf16 single launch (bf16_plan)
 STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
                torch.bfloat16: "camels_groupnorm_stats_bf16"}
 APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
@@ -68,6 +75,18 @@ _ARGTYPES = (
 # (stats), or the (n_parts, n, groups, 3) partials in and n_parts (apply).
 _STATS_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_void_p)
 _APPLY_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+# The bf16 launch: x, gamma, beta, scale, shift, out, n, hw, c, groups, the
+# row strides, eps, act, then seg, cluster, threads, packs, part_px and
+# the stream.
+_BF16_ARGTYPES = _ARGTYPES[:14] + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+# bf16_plan's choices.
+BF16_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
+BF16_MAX_SEG = 8  # groups of a unit at most
+BF16_PART = 128 * 1024  # bytes of a CTA's part at most: 16 packs of 512 threads
+BF16_PACKS = (1, 2, 4, 8, 16)  # 16-byte packs a thread may hold (kernel instances)
+BF16_SPREAD = 256  # CTAs a launch should reach: a small batch's units split further
+BF16_PART_MIN = 8 * 1024  # bytes a part keeps when it is split for the grid's sake
 
 
 class Plan(NamedTuple):
@@ -132,6 +151,80 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     resident = min(pixels, SLICE_MAX // (cg * element_bytes))
     threads = WIDE_THREADS if slice_bytes(cluster) > SLICE_TARGET else THREADS
     return Plan(vec, cluster, threads, pixels, resident * cg * element_bytes, resident)
+
+
+class Bf16Plan(NamedTuple):
+    """The bf16 kernel's launch geometry for one input shape."""
+
+    seg: int  # groups of a unit (a pixel's slice of them at least BF16_LINE bytes)
+    cluster: int  # CTAs that share one unit
+    threads: int  # per CTA
+    packs: int  # 16-byte packs a thread holds in registers
+    part_px: int  # a CTA's run of pixels of its unit
+
+    def ctas(self, n: int, groups: int) -> int:
+        return n * groups // self.seg * self.cluster
+
+
+def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
+              sms: int = 132) -> Bf16Plan:
+    """Geometry of the bf16 :func:`fused_groupnorm_act` for ``n`` samples
+    of ``hw`` pixels and ``c`` channels in ``groups`` groups on a card of
+    ``sms`` SMs.
+
+    A unit is ``seg`` consecutive groups of a sample: the fewest whose
+    slice of a pixel is ``BF16_LINE`` bytes, within ``BF16_MAX_SEG`` and
+    256 channels, and fewer where the unit would not fit 8 parts of
+    ``BF16_PART`` bytes.  The cluster (the unit's pixels split over it, a
+    part a CTA) is the smallest of 1, 2, 4, 8 whose part fits
+    ``BF16_PART`` bytes, doubled while the grid is short of
+    ``BF16_SPREAD`` CTAs and a part would keep ``BF16_PART_MIN`` bytes,
+    for parts of at most half ``BF16_PART`` (small launches wait on
+    latency: more, shorter CTAs) or grids short of half the SMs.  A part
+    over 32 KiB takes 512 threads, else 256 (fewer for one pack a thread), and the
+    fewest packs of ``BF16_PACKS`` that cover it; in a cluster of 8 a part
+    over 64 KiB takes 1024 threads of 8 packs (the big model's out_norm:
+    measured faster there than 512 of 16).  Raises ``ValueError`` for a
+    shape no plan takes: channels per group not a multiple of 8 (one
+    16-byte pack), an unaligned pointer, a group over 32 packs (256
+    channels), or a group over ``BF16_PART`` bytes even in a cluster of 8.
+    """
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    cg = c // groups
+    if cg % 8 or not aligned:
+        raise ValueError(f"the bf16 GroupNorm kernel needs 16-byte aligned tensors and "
+                         f"channels per group a multiple of 8, got {cg}")
+    if cg > 256:
+        raise ValueError(f"a group of {cg} channels is wider than the bf16 kernel takes")
+    seg = 1
+    while (seg < BF16_MAX_SEG and seg * cg * 2 < BF16_LINE and groups % (2 * seg) == 0
+           and 2 * seg * cg <= 256 and hw * 2 * seg * cg * 2 <= 8 * BF16_PART):
+        seg *= 2
+    units = n * groups // seg
+
+    def part_bytes_of(cluster):
+        return -(-hw // cluster) * seg * cg * 2
+
+    cluster = next((cl for cl in (1, 2, 4, 8) if part_bytes_of(cl) <= BF16_PART), 8)
+    while cluster < 8 and cluster < hw and units * cluster < BF16_SPREAD and (
+            part_bytes_of(cluster) // 2 >= BF16_PART_MIN) and (
+            part_bytes_of(cluster) <= BF16_PART // 2 or 2 * units * cluster < sms):
+        cluster *= 2
+    part = -(-hw // cluster)
+    part_bytes = part_bytes_of(cluster)
+    if part_bytes > BF16_PART:
+        raise ValueError(f"a group of {hw} x {cg} bf16 elements takes no plan: "
+                         f"{part_bytes} bytes a CTA even in a cluster of 8")
+    vs = seg * cg // 8
+    if cluster == 8 and part_bytes > BF16_PART // 2:
+        threads = 1024
+    else:
+        threads = 512 if part_bytes > 32 * 1024 else 256
+    packs = next(k for k in BF16_PACKS if k * (threads // vs) >= part)
+    if packs == 1:  # fewer threads for a small part
+        threads = min(threads, max(32, -(-part * vs // 32) * 32))
+    return Bf16Plan(seg, cluster, threads, packs, part)
 
 
 def activation(y, act: str):
@@ -385,22 +478,28 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
-    plan = launch_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype])
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        plan = bf16_plan(b, h * w, c, num_groups, aligned,
+                         torch.cuda.get_device_properties(x.device).multi_processor_count)
+    else:
+        plan = launch_plan(b, h * w, c, num_groups, aligned)
     if out.numel() == 0:
         return out
     rows, strides = (None, None), (0, 0)
     if film is not None:  # a row stride of 0 broadcasts the one row
         rows = tuple(t.data_ptr() for t in film)
         strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
-    fn = _build.kernel(C_NAMES[x.dtype], _ARGTYPES)
-    err = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
-        out.data_ptr(), b, h * w, c, num_groups, *strides,
-        float(eps), ACTS[act], plan.vec, plan.cluster, plan.threads,
-        plan.pixels_per_cta, plan.resident_pixels, plan.smem_bytes,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, C_NAMES[x.dtype])
+    head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows, out.data_ptr(), b, h * w,
+            c, num_groups, *strides, float(eps), ACTS[act])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        err = _build.kernel(BF16_NAME, _BF16_ARGTYPES)(*head, *plan, stream)
+    else:
+        err = _build.kernel(C_NAME, _ARGTYPES)(
+            *head, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
+            plan.resident_pixels, plan.smem_bytes, stream)
+    _build.check(err, BF16_NAME if bf16 else C_NAME)
     _count(fused_groupnorm_act, x)
     return out
 

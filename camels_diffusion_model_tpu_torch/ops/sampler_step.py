@@ -20,7 +20,13 @@ kernel's halo mode copies a band's row -1 or H from them (counts
 Two instances by the features' dtype: float32, and bfloat16 for the bf16
 model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
 JAX program rounds it; ``x``, ``z`` and the step fp32), each with its own
-launch count (``fused_head_step.launches`` and ``.launches_bf16``).
+launch count (``fused_head_step.launches`` and ``.launches_bf16``).  The
+bf16 unsharded launch is a kernel of its own (``csrc/head_step.cu``,
+``head_step_bf16_kernel``): the nine per-tap partials of a band as one
+product on the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 sums),
+each warp streaming its tiles of ``h`` through a ring of its own in
+shared memory; :func:`bf16_plan` chooses its band height.  The halo mode
+keeps the float kernel's design in both instances.
 """
 
 from __future__ import annotations
@@ -46,8 +52,15 @@ CHUNKS = (32, 16, 8, 4)  # fp32 channels per staged chunk, widest first;
 #                          even with more CTAs resident.  A bf16 chunk
 #                          holds twice the channels in the same bytes.
 STAGES = (3, 2)  # depths of the ring of shared-memory stages
+ROWS_BF16 = (8, 4, 2, 1)  # band heights of the bf16 kernel
+BF16_RING = 3  # slots of each warp's ring in the bf16 kernel (csrc RING)
+BF16_PER_SM = 2  # CTAs of the bf16 kernel an SM runs at once
+BF16_THREADS = 256  # a CTA of the bf16 kernel: 8 warps
+BF16_TILE = 16  # pixels of a warp's item (the MMA's 16 rows)
+BF16_BLOCK = 64  # channels of an item: 128 bytes a pixel, 8 copies of 16
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
-C_NAMES = {torch.float32: "camels_head_step", torch.bfloat16: "camels_head_step_bf16"}
+C_NAME = "camels_head_step"  # the float unsharded launch
+BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
 HALO_NAMES = {torch.float32: "camels_head_step_halo",
               torch.bfloat16: "camels_head_step_halo_bf16"}
 
@@ -59,6 +72,7 @@ _ARGTYPES = (
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
 _HALO_ARGTYPES = _ARGTYPES[:1] + (ctypes.c_void_p,) + _ARGTYPES[1:]  # halo after h
+_BF16_ARGTYPES = _ARGTYPES[:14] + _ARGTYPES[16:]  # no ck, stages
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -200,6 +214,64 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     return best
 
 
+class Bf16Plan(NamedTuple):
+    """The bf16 kernel's launch geometry for one input shape."""
+
+    rows: int  # output rows of a CTA's band
+    threads: int  # per CTA
+    ctas: int
+    smem_bytes: int  # dynamic shared memory per CTA: weights, rings, partials
+
+
+def weight_stride(c: int) -> int:
+    """bf16 elements between two taps' weight rows in the bf16 kernel's
+    shared memory: 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4
+    chunks hit 8 bank groups."""
+    return c + (32 if c % 64 == 0 else 0)
+
+
+def partial_stride(m: int) -> int:
+    """Floats between two taps' partials of ``m`` band pixels: 4 mod 32, so
+    the 4 taps a warp stores at once sit 4 banks apart."""
+    return -(-m // 32) * 32 + 4
+
+
+def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
+              cfg: bool = True, aligned: bool = True, sms: int = SMS) -> Bf16Plan:
+    """Geometry of the bf16 :func:`fused_head_step` for ``units`` CTA units
+    (sample pairs under ``cfg``, else samples) of ``height`` x ``width``
+    pixels of ``c`` channels on a card of ``sms`` SMs.
+
+    A CTA takes a band of ``rows`` output rows and multiplies its ``rows +
+    2`` rows of ``h`` (each branch's) by the weights, each warp its
+    ``BF16_TILE``-pixel tiles ``BF16_BLOCK`` channels an item through a
+    ring of its own, ``BF16_RING`` deep.  The band is the shortest of
+    ``ROWS_BF16`` whose grid still fits ``BF16_PER_SM`` CTAs an SM, so the
+    grid is one wave and each SM streams for two CTAs (one's gather over
+    the other's copies), else the tallest.  Raises ``ValueError`` for a shape no path takes:
+    ``cout != 1``, ``c`` not a multiple of ``BF16_BLOCK``, a pointer off a
+    16-byte boundary (``aligned``), or a band over shared memory.
+    """
+    if cout != 1:
+        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    if c <= 0 or c % BF16_BLOCK:
+        raise ValueError(f"the bf16 head kernel needs channels % {BF16_BLOCK} == 0, got {c}")
+    if not aligned:
+        raise ValueError("the head kernel needs 16-byte aligned features")
+
+    def smem(rows):
+        m = (2 if cfg else 1) * (rows + 2) * width
+        return (2 * 16 * weight_stride(c) + 2 * BF16_THREADS // 32 * BF16_RING * BF16_TILE
+                * BF16_BLOCK + 4 * 9 * partial_stride(m))
+
+    ordered = sorted(ROWS_BF16)  # shortest first
+    rows = next((r for r in ordered if units * -(-height // r) <= BF16_PER_SM * sms),
+                ordered[-1])
+    if smem(rows) > SMEM_MAX:
+        raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
+    return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows))
+
+
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
                     sigma: float, guide_w=None, tanh: bool = False, halo=None):
     """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
@@ -271,27 +343,33 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if z is not None and z.shape != x.shape:
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
-    plan = launch_plan(b, height, width, c, weight.shape[0], cfg,
-                       all(t.data_ptr() % 16 == 0 for t in (h, wt, tensors.get("halo", h))),
-                       torch.cuda.get_device_properties(h.device).multi_processor_count,
-                       ELEMENT_BYTES[h.dtype])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (h, wt, tensors.get("halo", h)))
+    bf16 = h.dtype == torch.bfloat16 and halo is None
+    if bf16:
+        plan = bf16_plan(b, height, width, c, weight.shape[0], cfg, aligned,
+                         torch.cuda.get_device_properties(h.device).multi_processor_count)
+    else:
+        plan = launch_plan(b, height, width, c, weight.shape[0], cfg, aligned,
+                           torch.cuda.get_device_properties(h.device).multi_processor_count,
+                           ELEMENT_BYTES[h.dtype])
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    names = HALO_NAMES if halo is not None else C_NAMES
-    fn = _build.kernel(names[h.dtype], _HALO_ARGTYPES if halo is not None else _ARGTYPES)
+    name = (HALO_NAMES[h.dtype] if halo is not None else BF16_NAME if bf16 else C_NAME)
+    fn = _build.kernel(name, _HALO_ARGTYPES if halo is not None
+                       else _BF16_ARGTYPES if bf16 else _ARGTYPES)
+    geometry = (plan.threads,) if bf16 else (plan.ck, plan.stages, plan.threads)
     err = fn(
         h.data_ptr(), *((tensors["halo"].data_ptr(),) if halo is not None else ()),
         wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
         z.data_ptr() if z is not None else None,
         w_vec.data_ptr() if w_vec is not None else None,
         float(guide_w) if cfg and w_vec is None else 0.0,
-        out.data_ptr(), b, height, width, c, plan.rows, int(cfg), plan.ck,
-        plan.stages, plan.threads, plan.smem_bytes,
-        float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
+        out.data_ptr(), b, height, width, c, plan.rows, int(cfg), *geometry,
+        plan.smem_bytes, float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
-    _build.check(err, names[h.dtype])
+    _build.check(err, name)
     mode = "_halo" if halo is not None else ""
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"

@@ -5,7 +5,9 @@
 
 Phases, each timed on its own line:
 
-  (a) build the three CUDA kernels (one nvcc call, ctypes);
+  (a) build the three CUDA kernels (one nvcc call, ctypes) and print
+      ptxas's registers, shared memory and spills of the bf16 designs of
+      K1 and K2;
   (b) load the committed checkpoint through the port's own msgpack decoder,
       md5-checked, fold its BatchNorms and put it on the card;
   (c) hold each kernel against its plain PyTorch version at the shapes each
@@ -239,6 +241,9 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
 FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MB L2 (see time_ms)
 BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
+# Kernels whose ptxas report (registers, shared memory, spills) phase (a)
+# prints: the bf16 designs of K1 and K2.
+PTXAS_KERNELS = ("head_step_bf16_kernel", "groupnorm_bf16_kernel")
 
 # Kernel vs plain version on the card.  K3 differs only by the fused
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
@@ -407,7 +412,7 @@ SOURCES = {
 }
 SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
-SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # one template each
+SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
@@ -1117,7 +1122,10 @@ def print_train_time(label: str, tr: dict, precision: str = "fp32 with TF32 off"
 def spilled_bytes(x, groups: int) -> int:
     """Bytes K2's spill path reads again for NHWC ``x``: the pixels of each
     CTA's slice past its resident ones, by the variance and the output
-    passes."""
+    passes.  The bf16 kernel has no spill path (``bf16_plan`` holds every
+    part in shared memory or raises)."""
+    if x.dtype == torch.bfloat16:
+        return 0
     n, h, w, c = x.shape
     plan = groupnorm_launch_plan(n, h * w, c, groups, element_bytes=x.element_size())
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
@@ -2362,6 +2370,8 @@ def main() -> int:
     lib = _build.build()
     phase("(a) build kernels", t0)
     print(f"  {lib}")
+    for line in _build.ptxas_report(lib, PTXAS_KERNELS):
+        print(f"  ptxas {line}")
 
     t0 = time.perf_counter()
     cfg2 = resolve_serving_config(2)  # md5 of the checkpoint vs every stamp

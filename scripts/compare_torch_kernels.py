@@ -20,7 +20,16 @@ are also compiled once with ``-Xptxas -v`` (registers, shared memory and
 spills per kernel).  Each case is checked against the checkout's plain
 version, then timed old, new, new, old with ``chip_smoke.time_ms`` (device
 ms per launch, data in device memory), with TF32 off as the port serves.
-Needs a CUDA card.
+
+``--dtype bfloat16`` compares the bf16 instances instead (K1 and K2 at the
+w=2 and w=0 serving shapes, the exact chain's, and the deep and big
+models' at 10 maps), each held to its plain version under
+``chip_smoke.tolerance`` and ``BF16_SHARE``, and times the checkout's bf16
+K1 at every band height of ``ROWS_BF16``, and its bf16 K2 at units of 1,
+2, 4 and 8 groups and
+clusters grown to grids of 1, 64, 128 and 256 CTAs (``BF16_LINE``,
+``BF16_SPREAD``).  ``--warm`` times every call on one copy of its inputs
+(in L2, as in a served step) instead.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,11 +73,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
                     help=f"directory holding an earlier revision's {PACKAGE}/")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the instances compared (default float32)")
+    ap.add_argument("--warm", action="store_true",
+                    help="time every call on the same inputs, left in L2 by the last "
+                         "(as a served step finds the features the conv before wrote), "
+                         "not on copies that come round after four times the L2")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
 
     import chip_smoke
+    if args.warm:
+        chip_smoke.FLUSH_BYTES = 1  # one copy of the inputs: each call finds them in L2
     import torch.nn.functional as F
 
     from camels_diffusion_model_tpu_torch.diffusion.schedule import (
@@ -129,6 +146,8 @@ def main(argv=None) -> int:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
+    if args.dtype == "bfloat16":
+        return compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
     cases = []  # (label, old fn, new fn, plain fn, args, tolerance)
     for n in (32, 16, 4):
         for head, hw, c in (("up0_norm", 16, 256), ("out_norm", 64, 128)):
@@ -192,6 +211,110 @@ def main(argv=None) -> int:
         print(f"{label}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms "
               f"(mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); "
               f"max abs err old {errs[0]:.2e} new {errs[1]:.2e}", flush=True)
+    return 0
+
+
+def hold(chip_smoke, name: str, label: str, fn, plain, args) -> float:
+    """``fn(*args)`` against ``plain(*args)`` under phase (c)'s bf16 gate
+    (``chip_smoke.tolerance``, ``BF16_SHARE``); returns the max abs error."""
+    got, want = fn(*args), plain(*args)
+    diff = (got.float() - want.float()).abs()
+    tol, fp32_rounding = chip_smoke.tolerance(name, args, want)
+    err, share = diff.max().item(), (diff > fp32_rounding).float().mean().item()
+    if not (err <= tol and share <= chip_smoke.BF16_SHARE):
+        raise SystemExit(f"{label}: max abs err {err} (tol {tol}), {share} of the elements "
+                         f"differ beyond {fp32_rounding}")
+    return err
+
+
+def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -> int:
+    """The bf16 instances: old vs new in turns, then the new plans' sweeps."""
+    import torch
+
+    bf = torch.bfloat16
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+    k1, k2 = [], []  # (label, args)
+    for label, b, hw, c, cfg, tanh in (("serve w=2", 16, 64, 128, True, False),
+                                       ("serve w=0", 16, 64, 128, False, False),
+                                       ("exact chain", 4, 64, 128, False, False),
+                                       ("deep, tanh", 10, 128, 128, False, True),
+                                       ("big, tanh", 10, 128, 256, False, True)):
+        h = randn(2 * b if cfg else b, hw, hw, c).relu().to(bf)
+        weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(bf)
+        k1.append((f"K1 bf16 {label} h{tuple(h.shape)}",
+                   (h, weight, randn(1).to(bf), randn(b, hw, hw, 1), randn(b, hw, hw, 1),
+                    c_eps, inv_sqrt_a, sigma, 2.0 if cfg else None, tanh)))
+    for label, n, hw, c, act, film in (("up0_norm + FiLM, serve w=2", 32, 16, 256, "relu", True),
+                                       ("out_norm, serve w=2", 32, 64, 128, "relu", False),
+                                       ("up0_norm + FiLM, serve w=0", 16, 16, 256, "relu", True),
+                                       ("out_norm, serve w=0", 16, 64, 128, "relu", False),
+                                       ("up0_norm + FiLM, exact chain", 4, 16, 256, "relu", True),
+                                       ("out_norm, exact chain", 4, 64, 128, "relu", False),
+                                       ("deep up0_norm + FiLM", 10, 16, 512, "leaky_relu", True),
+                                       ("big up0_norm + FiLM", 10, 16, 1024, "gelu", True),
+                                       ("deep out_norm", 10, 128, 128, "leaky_relu", False),
+                                       ("big out_norm", 10, 128, 256, "gelu", False)):
+        rows = (randn(n, c).to(bf), randn(1, c).to(bf)) if film else None
+        k2.append((f"K2 bf16 {label} {(n, hw, hw, c)}",
+                   ((randn(n, hw, hw, c) * 3 + 1).to(bf), randn(c), randn(c), 8, 1e-5, act,
+                    rows)))
+
+    def gn_old(x, gamma, beta, groups, eps, act, rows):
+        return old_gn.fused_groupnorm_act(x, gamma, beta, groups, eps, act, rows)
+
+    for kernel, cases, f_old, f_new, f_plain in (
+            ("head_step_bf16", k1, old_step.fused_head_step, sampler_step.fused_head_step,
+             sampler_step.head_step_plain),
+            ("groupnorm_act_bf16", k2, gn_old, groupnorm.fused_groupnorm_act,
+             groupnorm.groupnorm_act_plain)):
+        for label, a in cases:
+            errs = [hold(chip_smoke, kernel, label, f, f_plain, a) for f in (f_old, f_new)]
+            t = [chip_smoke.time_ms(f, a) for f in (f_old, f_new, f_new, f_old)]
+            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            print(f"{label}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms "
+                  f"(mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); "
+                  f"max abs err old {errs[0]:.2e} new {errs[1]:.2e}", flush=True)
+
+    # The new designs at each band height and cluster size their plans
+    # choose from, forced through the plans' module constants.
+    rows_all = sampler_step.ROWS_BF16
+    for label, a in k1:
+        b, hw, c = a[3].shape[0], a[3].shape[1], a[0].shape[-1]
+        picked = sampler_step.bf16_plan(b, hw, hw, c, cfg=a[8] is not None)
+        times = {}
+        for rows in rows_all:
+            sampler_step.ROWS_BF16 = (rows,)
+            try:
+                sampler_step.bf16_plan(b, hw, hw, c, cfg=a[8] is not None)
+            except ValueError:
+                continue
+            hold(chip_smoke, "head_step_bf16", f"{label} rows={rows}",
+                 sampler_step.fused_head_step, sampler_step.head_step_plain, a)
+            times[rows] = chip_smoke.time_ms(sampler_step.fused_head_step, a)
+        sampler_step.ROWS_BF16 = rows_all
+        print(f"new {label} by band rows: "
+              + ", ".join(f"{k}: {v:.5f} ms" for k, v in times.items())
+              + f" (the plan picks {tuple(picked)})", flush=True)
+    line, spread = groupnorm.BF16_LINE, groupnorm.BF16_SPREAD
+    for label, a in k2:
+        n, hw, c = a[0].shape[0], a[0].shape[1] * a[0].shape[2], a[0].shape[-1]
+        picked = groupnorm.bf16_plan(n, hw, c, 8)
+        times = {}
+        for groupnorm.BF16_LINE in (16, 64, 128, 256):  # a unit of 1, 2, 4 or 8 groups
+            for groupnorm.BF16_SPREAD in (1, 64, 128, 256):  # clusters grown to this grid
+                try:
+                    plan = groupnorm.bf16_plan(n, hw, c, 8)
+                except ValueError:
+                    continue
+                if tuple(plan) in times:
+                    continue
+                hold(chip_smoke, "groupnorm_act_bf16", f"{label} plan={tuple(plan)}",
+                     groupnorm.fused_groupnorm_act, groupnorm.groupnorm_act_plain, a)
+                times[tuple(plan)] = chip_smoke.time_ms(groupnorm.fused_groupnorm_act, a)
+        groupnorm.BF16_LINE, groupnorm.BF16_SPREAD = line, spread
+        print(f"new {label} by plan (seg, cluster, threads, packs, part_px): "
+              + ", ".join(f"{k}: {v:.5f} ms" for k, v in times.items())
+              + f" (the plan picks {tuple(picked)})", flush=True)
     return 0
 
 

@@ -32,7 +32,10 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OURS = ("head_step_kernel", "groupnorm_act_kernel", "film_kernel")
+# The port's kernels by name: K1 and K2 (the float design, and the bf16
+# single launch's own kernel), K3.
+OURS = ("head_step_kernel", "head_step_bf16_kernel", "groupnorm_act_kernel",
+        "groupnorm_bf16_kernel", "film_kernel")
 
 
 def _device_us(evt) -> float:

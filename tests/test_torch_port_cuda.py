@@ -31,6 +31,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     groupnorm_apply_plain,
     groupnorm_stats,
     groupnorm_stats_plain,
+    bf16_plan,
     launch_plan,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
@@ -158,7 +159,7 @@ def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film):
     x = (_randn(dev, n, 4 * h, w, c) * 3 + 1).to(dtype)
     gamma, beta = _randn(dev, c, seed=4), _randn(dev, c, seed=5)
     rows = (_randn(dev, n, c, seed=6).to(dtype), _randn(dev, 1, c, seed=7).to(dtype)) if film else None
-    shards = list(x.chunk(4, dim=1))
+    shards = [s.contiguous() for s in x.chunk(4, dim=1)]  # as the mesh holds them
     count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
     before = getattr(groupnorm_stats, count), getattr(groupnorm_apply, count)
     parts = torch.stack([groupnorm_stats(s, 8) for s in shards])
@@ -533,17 +534,23 @@ def test_groupnorm_bf16_kernel_matches_plain(dev, shape, film, act):
     """K2's bf16 instance (bf16 I/O, fp32 statistics, affine and activation,
     one rounding; the FiLM epilogue in bf16) against its plain version at
     the heads' shapes, the big out_norm (1 MiB a group in bf16: resident,
-    no spill) and a scalar-path shape.  The statistics sum in another order:
-    an output may round to the neighbouring bf16 value, and the epilogue's
-    two roundings may carry that on: atol 2 ulp of max |out|."""
+    no spill), and a shape no bf16 plan takes (3 channels a group: the
+    launch raises).  The statistics sum in another order: an output may
+    round to the neighbouring bf16 value, and the epilogue's two roundings
+    may carry that on: atol 2 ulp of max |out|."""
     n, c = shape[0], shape[-1]
     x = (_randn(dev, *shape, seed=51) * 3 + 1).bfloat16()
     gamma, beta = _randn(dev, c, seed=52), _randn(dev, c, seed=53)
     rows = ((_randn(dev, n, c, seed=54).bfloat16(), _randn(dev, 1, c, seed=55).bfloat16())
             if film else None)
-    plan = launch_plan(n, shape[1] * shape[2], c, 8, element_bytes=2)
-    assert not plan.spills
     args = (x, gamma, beta, 8, 1e-5, act, rows)
+    if c // 8 % 8:  # no bf16 plan takes 3 channels a group: the launch raises
+        with pytest.raises(ValueError, match="multiple of 8"):
+            bf16_plan(n, shape[1] * shape[2], c, 8)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fused_groupnorm_act(*args)
+        return
+    bf16_plan(n, shape[1] * shape[2], c, 8)  # every part held in shared memory
     before = (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16)
     got = fused_groupnorm_act(*args)
     assert (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16) == (
@@ -589,7 +596,9 @@ def test_wrappers_refuse_dtypes_without_a_kernel(dev):
 
 @pytest.mark.parametrize("variant", ["canonical", "deep", "big"])
 def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
-    """A narrow bf16 model (n_feat 16, 32x32), folded: its forward and three
+    """A narrow bf16 model (n_feat 64, 32x32: the narrowest whose heads the
+    bf16 kernels take, 8 channels a group at out_norm and 64 channels at
+    out_conv2; see the next test for n_feat 16), folded: its forward and three
     exact-chain steps under injected z on the card against the CPU's bf16,
     within twice the CPU's own distance from its fp32 model (bf16 rounds
     where cuDNN's and the CPU's sums fall on either side of a boundary);
@@ -601,7 +610,7 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         variables = to_jax_variables(
-            getattr(ContextUnet, variant)(n_feat=16, height=32).state_dict())
+            getattr(ContextUnet, variant)(n_feat=64, height=32).state_dict())
     cpu32, cpu16 = (load_model(variables, "cpu", dtype=d)
                     for d in (torch.float32, torch.bfloat16))
     gpu16 = load_model(variables, dev, dtype=torch.bfloat16)
@@ -627,3 +636,74 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     assert all(o.dtype == torch.float32 for o in outs)
     yard = (outs[1] - outs[2]).abs().max().item()
     assert (outs[0] - outs[1]).abs().max().item() <= 2 * yard
+
+
+def test_bf16_model_narrower_than_the_kernels_take_raises(dev):
+    """n_feat 16 gives up0_norm 4 channels a group and out_conv2 16
+    channels: no bf16 plan takes them (a 16-byte pack a group; K1's stages
+    of 64 channels), so the kernel path raises ValueError, where the fp32
+    kernels and the CPU's plain path run."""
+    from camels_diffusion_model_tpu_torch.serving import load_model
+    from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        variables = to_jax_variables(ContextUnet.canonical(n_feat=16, height=32).state_dict())
+    x, t, c = torch.randn(2, 32, 32, 1), torch.rand(2), torch.rand(2, 6)
+    with torch.inference_mode():
+        load_model(variables, dev)(x.to(dev), t.to(dev), c.to(dev))
+        with pytest.raises(ValueError, match="multiple of"):
+            load_model(variables, dev, dtype=torch.bfloat16)(x.to(dev), t.to(dev), c.to(dev))
+
+
+@pytest.mark.parametrize("rows", [8, 4, 2, 1])
+@pytest.mark.parametrize("shape,w,tanh", [((3, 64, 64, 128), 2.0, False),
+                                          ((3, 64, 64, 128), None, False),
+                                          ((2, 12, 12, 64), "per-sample", True),
+                                          ((2, 16, 16, 192), None, True)])
+def test_head_step_bf16_kernel_every_band(dev, fp32_convs, monkeypatch, rows, shape, w, tanh):
+    """The bf16 K1 at every band height of ``ROWS_BF16`` (ragged last bands
+    at height 12), under CFG and without, 64-channel stages 1 to 3 a pixel
+    block:
+    phase (c)'s gate, 4 bf16 ulps of eps times c_eps / sqrt(a), the step's
+    fp32 FMAs on all but 1% of the pixels."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "ROWS_BF16", (rows,))
+    b, hw, _, c = shape
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, hw, hw, c, seed=71).relu().bfloat16()
+    weight = _randn(dev, 1, c, 3, 3, seed=72).mul(0.05).bfloat16()
+    bias = _randn(dev, 1, seed=73).bfloat16()
+    x, z = _randn(dev, b, hw, hw, 1, seed=74), _randn(dev, b, hw, hw, 1, seed=75)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    assert sampler_step.bf16_plan(b, hw, hw, c, cfg=cfg).rows == rows
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w, tanh).float()
+    _assert_bf16_close(fused_head_step(*args, tanh=tanh), head_step_plain(*args, tanh=tanh),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("line,spread", [(16, 1), (64, 256), (128, 64), (256, 1)])
+@pytest.mark.parametrize("shape,film", [((32, 16, 16, 256), True), ((32, 64, 64, 128), False),
+                                        ((4, 64, 64, 128), False), ((3, 7, 7, 64), True),
+                                        ((10, 16, 16, 1024), True)])
+def test_groupnorm_bf16_kernel_every_plan(dev, monkeypatch, line, spread, shape, film):
+    """The bf16 K2 at units of 1 to 8 groups (``BF16_LINE``) and grids of 1
+    to 256 CTAs (``BF16_SPREAD``: clusters of 1 to 8, one to 16 packs a
+    thread, ragged parts at 7x7), against its plain version: phase (c)'s
+    gate, 2 bf16 ulps and at most 1% of the elements differing."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    monkeypatch.setattr(groupnorm, "BF16_LINE", line)
+    monkeypatch.setattr(groupnorm, "BF16_SPREAD", spread)
+    n, c = shape[0], shape[-1]
+    x = (_randn(dev, *shape, seed=81) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, c, seed=82), _randn(dev, c, seed=83)
+    rows = ((_randn(dev, n, c, seed=84).bfloat16(), _randn(dev, 1, c, seed=85).bfloat16())
+            if film else None)
+    want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "gelu", rows)
+    _assert_bf16_close(fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "gelu", rows), want,
+                       2 * _bf16_ulp(want.float().abs().max().item()))

@@ -197,7 +197,8 @@ def test_profile_script_names_the_port_kernels():
     kernels = set()
     for name in os.listdir(csrc):
         with open(os.path.join(csrc, name)) as f:
-            kernels |= set(re.findall(r"__global__ void (\w+)", f.read()))
+            kernels |= set(re.findall(
+                r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)", f.read()))
     assert kernels and all(any(k in name for name in kernels) for k in profile.OURS)
     assert all(any(k in name for k in profile.OURS) for name in kernels)
 

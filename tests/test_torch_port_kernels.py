@@ -5,6 +5,7 @@ path, on the same numpy inputs; the launch plans' index maps."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -445,6 +446,393 @@ def test_film_matches_jax(scale_rows, shift_rows):
         pallas = jax_fused_film(x, s4, h4, interpret=True)
         np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-6, rtol=1e-6)
 
+
+# ---- K1 bf16: the taps on tensor cores ----------------------------------------
+
+def _head_bf16_index_map(plan, units, height, width, cfg):
+    """The index maps of ``csrc/head_step.cu::head_step_bf16_kernel`` under
+    ``plan``: per CTA (unit major, band minor) each tile row's band index,
+    (sample, input row, column) and whether its copy reads (inside the
+    band and the map; else it is zero-filled), and the output pixels'
+    (unit, row, column)."""
+    pb = (plan.rows + 2) * width
+    m = (2 if cfg else 1) * pb
+    tile = sampler_step_ops.BF16_TILE
+    p = np.arange(-(-m // tile) * tile)
+    s = (p >= pb).astype(np.int64)
+    q = p - s * pb
+    bands = -(-height // plan.rows)
+    for cta in range(units * bands):
+        unit, y0 = cta // bands, (cta % bands) * plan.rows
+        gy = y0 - 1 + q // width
+        valid = (p < m) & (gy >= 0) & (gy < height)
+        sample = unit + s * units if cfg else np.full_like(p, unit)
+        o = np.arange(min(plan.rows, height - y0) * width)
+        yield (p, sample, gy, q % width, valid), (unit, y0 + o // width, o % width)
+
+
+HEAD_BF16_SHAPES = {  # (units, height, width, c, cfg): the shapes the bf16 paths give K1
+    "serve w=2": (16, 64, 64, 128, True), "serve w=0": (16, 64, 64, 128, False),
+    "exact chain": (4, 64, 64, 128, False), "deep": (10, 128, 128, 128, False),
+    "big": (10, 128, 128, 256, False), "deep cfg": (10, 128, 128, 128, True),
+    "big cfg": (10, 128, 128, 256, True), "one pair": (1, 64, 64, 128, True),
+}
+
+
+@pytest.mark.parametrize("shape", HEAD_BF16_SHAPES, ids=list(HEAD_BF16_SHAPES))
+def test_head_bf16_plan_at_the_path_shapes(shape):
+    """Every output pixel written once; the tile rows that read are each
+    band's rows and halo rows of every sample it needs, each once (the
+    rest zero-filled); warp w takes tiles w, w + 8, ..., every tile once,
+    an item a lane's 4 copies of 16 bytes; the grid is the CTAs the plan
+    claims; shared memory (weights, the warps' rings, partials) fits in
+    227 KB; the band is the shortest whose grid is one wave of two CTAs an
+    SM; and the strides keep their bank patterns.  At the w=2
+    serving shape: bands of 4 rows, 256 CTAs."""
+    units, height, width, c, cfg = HEAD_BF16_SHAPES[shape]
+    ops = sampler_step_ops
+    plan = ops.bf16_plan(units, height, width, c, cfg=cfg, sms=132)
+    m = (2 if cfg else 1) * (plan.rows + 2) * width
+    warps = plan.threads // 32
+    ring = 2 * warps * ops.BF16_TILE * ops.BF16_BLOCK  # bytes a ring slot takes, all warps
+    assert plan.smem_bytes == (2 * 16 * ops.weight_stride(c) + ops.BF16_RING * ring
+                               + 4 * 9 * ops.partial_stride(m))
+    assert plan.smem_bytes <= 227 * 1024
+    fit = [r for r in sorted(ops.ROWS_BF16)
+           if units * -(-height // r) <= ops.BF16_PER_SM * 132]
+    assert plan.rows == (fit[0] if fit else max(ops.ROWS_BF16))  # one wave of 2 an SM
+    assert 32 * 4 == ops.BF16_TILE * ops.BF16_BLOCK // 8  # an item: 4 copies a lane
+    assert ops.partial_stride(m) % 32 == 4 and ops.partial_stride(m) >= -(-m // 16) * 16
+    assert ops.weight_stride(c) // 8 % 8 == 4
+    if shape == "serve w=2":
+        assert (plan.rows, plan.ctas) == (4, 256)
+    tiles = -(-m // ops.BF16_TILE)
+    owned = sorted(t for w in range(warps) for t in range(w, tiles, warps))
+    assert owned == list(range(tiles))
+    written = np.zeros((units, height, width), np.int64)
+    ctas = 0
+    for (p, sample, gy, gx, valid), (unit, oy, ox) in _head_bf16_index_map(
+            plan, units, height, width, cfg):
+        ctas += 1
+        np.add.at(written, (unit, oy, ox), 1)
+        samples = (unit, unit + units) if cfg else (unit,)
+        need = {(sm, y, x) for sm in samples for y in range(oy.min() - 1, oy.max() + 2)
+                if 0 <= y < height for x in range(width)}
+        loaded = list(zip(sample[valid].tolist(), gy[valid].tolist(), gx[valid].tolist()))
+        assert len(loaded) == len(set(loaded)) and set(loaded) == need
+    assert ctas == plan.ctas
+    assert (written == 1).all()
+
+
+def test_head_bf16_staged_chunks_hit_eight_bank_groups():
+    """An item's pixel pp keeps its 16-byte chunk q at slot q ^ 4 (pp & 1)
+    of its 8: one pixel's 8 copies (a quarter warp's writes) and a quarter
+    warp's reads (lanes (g, t): rows g of one parity pair, or g + 8, and 4
+    chunks of a 32-channel half) each hit 8 distinct bank groups."""
+    def slot(pp, q):
+        return (pp * 8 + (q ^ ((pp & 1) << 2))) % 8
+
+    for pp in range(sampler_step_ops.BF16_TILE):
+        assert len({slot(pp, q) for q in range(8)}) == 8
+    for quarter in range(4):  # lanes 8 quarter .. 8 quarter + 7: g = 2 quarter + {0, 1}
+        for half in range(2):
+            for rows in (0, 8):
+                got = {slot(2 * quarter + k + rows, 4 * half + t) for k in range(2)
+                       for t in range(4)}
+                assert len(got) == 8
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"cout": 2}, "one output channel"),
+    ({"c": 96}, "channels % 64"),
+    ({"aligned": False}, "aligned"),
+    ({"width": 4096}, "takes no path"),
+])
+def test_head_bf16_plan_raises_on_shapes_no_path_takes(kwargs, match):
+    args = {"units": 4, "height": 64, "width": 64, "c": 128, **kwargs}
+    with pytest.raises(ValueError, match=match):
+        sampler_step_ops.bf16_plan(**args)
+
+
+def _emulate_head_bf16_kernel(plan, h, wt, bias, x, z, c_eps, inv_sqrt_a, sigma, w, cfg,
+                              tanh, round_eps):
+    """``head_step_bf16_kernel`` in numpy (float64): each 16-pixel tile's
+    partials as the warp's m16n8k16 products, built fragment by fragment
+    (lane (g, t) loads channels 8t..8t+7 of a 32-channel block for tile
+    rows g and g+8; k-step 0 takes 8t, 8t+1 as columns 2t, 2t+1 and 8t+2,
+    8t+3 as 2t+8, 2t+9, k-step 1 the next four; the weights' B fragments
+    alike, taps 9-15 zero), then the 3x3 gather from the partials with
+    the bias, ``round_eps`` (eps's rounding, per branch and in the
+    combine), the combine and the step."""
+    units, height, width = x.shape[:3]
+    c = h.shape[-1]
+    wpad = np.zeros((16, c))
+    wpad[:9] = wt
+    out = np.full(x.shape[:3], np.nan)
+    pb = (plan.rows + 2) * width
+    for (p, sample, gy, gx, valid), (unit, oy, ox) in _head_bf16_index_map(
+            plan, units, height, width, cfg):
+        rows = np.where(valid[:, None], h[sample, np.clip(gy, 0, height - 1), gx], 0.0)
+        part = np.zeros((len(p), 16))
+        for tile in range(len(p) // 16):
+            a_rows = rows[tile * 16:(tile + 1) * 16]
+            for blk in range(c // 32):
+                for step in range(2):
+                    a = np.zeros((16, 16))
+                    b = np.zeros((16, 16))
+                    for t in range(4):
+                        for i in range(2):
+                            for col, off in ((2 * t + i, 4 * step + i),
+                                             (2 * t + 8 + i, 4 * step + 2 + i)):
+                                ch = blk * 32 + 8 * t + off
+                                a[:, col] = a_rows[:, ch]
+                                b[col, :] = wpad[:, ch]
+                    part[tile * 16:(tile + 1) * 16] += a @ b
+        r = oy - oy.min()
+        eps = []
+        for s in range(2 if cfg else 1):
+            acc = np.full(r.shape, float(bias[0]))
+            for ky in range(3):
+                for kx in range(3):
+                    col = ox + kx - 1
+                    ok = (col >= 0) & (col < width)
+                    idx = s * pb + (r + ky) * width + np.clip(col, 0, width - 1)
+                    acc += np.where(ok, part[idx, ky * 3 + kx], 0.0)
+            e = round_eps(acc)
+            eps.append(round_eps(np.tanh(e)) if tanh else e)
+        if cfg:
+            wu = round_eps(np.float64(w[unit] if isinstance(w, np.ndarray) else w))
+            e = round_eps(eps[1] + round_eps(wu * round_eps(eps[0] - eps[1])))
+        else:
+            e = eps[0]
+        v = (x[unit, oy, ox, 0] - e * c_eps) * inv_sqrt_a
+        if z is not None:
+            v = v + sigma * z[unit, oy, ox, 0]
+        out[unit, oy, ox] = v
+    return out[..., None]
+
+
+def _round_bf16(v):
+    return torch.tensor(np.asarray(v, np.float32)).bfloat16().double().numpy()
+
+
+@pytest.mark.parametrize("rows", [None, 1, 2, 8])
+@pytest.mark.parametrize("w,tanh", [(None, False), (2.0, False), ("per-sample", True)])
+@pytest.mark.parametrize("hw,c", [(12, 64), (8, 128)])
+def test_head_bf16_decomposition_matches_plain(monkeypatch, rows, w, tanh, hw, c):
+    """The bf16 kernel's decomposition, emulated on the CPU (a matmul of
+    each band's staged pixels to 9 tap partials through the MMA fragments'
+    channel permutation, then the 3x3 gather with zero rows at the map's
+    edge), on
+    bf16 features and weights, against :func:`head_step_plain`: summed in
+    float64 against the plain version's fp32 conv, eps may round to the
+    neighbouring bf16 value, so 4 bf16 ulps of eps times c_eps / sqrt(a)
+    (the card's gate), and exact arithmetic (no rounding of eps) within
+    1e-5 of the plain version in float32."""
+    cfg = w is not None
+    h, kernel, bias, x, z = _head_inputs(hw + c + (rows or 0), cfg, b=3, hw=hw, c=c)
+    w_val = np.array([1.5, 3.0, 0.5], np.float32) if w == "per-sample" else w
+    w_t = torch.tensor(w_val) if w == "per-sample" else w_val
+    if rows is not None:
+        monkeypatch.setattr(sampler_step_ops, "ROWS_BF16", (rows,))
+    plan = sampler_step_ops.bf16_plan(3, hw, hw, c, cfg=cfg)
+    assert rows in (None, plan.rows)
+    weight, bias_t = _torch_head(kernel, bias)
+    hb, wb, bb = (torch.tensor(h).bfloat16(), weight.bfloat16(), bias_t.bfloat16())
+    wt = wb[0].permute(1, 2, 0).reshape(9, c).double().numpy()
+    args = (0.02, 1.01, 0.3, w_val, cfg, tanh)
+    exact = _emulate_head_bf16_kernel(plan, h.astype(np.float64),
+                                      weight[0].permute(1, 2, 0).reshape(9, c).numpy(),
+                                      bias, x, z, *args, lambda v: v)
+    want32 = head_step_plain(torch.tensor(h), weight, bias_t, torch.tensor(x),
+                             torch.tensor(z), 0.02, 1.01, 0.3, w_t, tanh=tanh)
+    np.testing.assert_allclose(exact, want32.numpy(), atol=1e-5, rtol=0)
+    got = _emulate_head_bf16_kernel(plan, hb.double().numpy(), wt, bb.double().numpy(), x, z,
+                                    *args, _round_bf16)
+    want = head_step_plain(hb, wb, bb, torch.tensor(x), torch.tensor(z), 0.02, 1.01, 0.3,
+                           w_t, tanh=tanh).numpy()
+    eps = F.conv2d(hb.permute(0, 3, 1, 2).float(), wb.float(), bb.float(), padding=1)
+    ulp = 2.0 ** (np.floor(np.log2(eps.abs().max().item())) - 7)
+    diff = np.abs(got - want)
+    assert diff.max() <= 4 * 0.02 * 1.01 * ulp
+    assert (diff > 1e-5).mean() <= 0.01
+
+
+# ---- K2 bf16: one read, one merge, whole waves ---------------------------------
+
+GROUPNORM_BF16_SHAPES = {  # (n, hw, c): the shapes the bf16 paths give K2
+    "up0_norm serve w=2": (32, 16 * 16, 256), "out_norm serve w=2": (32, 64 * 64, 128),
+    "up0_norm serve w=0": (16, 16 * 16, 256), "out_norm serve w=0": (16, 64 * 64, 128),
+    "up0_norm exact chain": (4, 16 * 16, 256), "out_norm exact chain": (4, 64 * 64, 128),
+    "deep up0_norm": (10, 16 * 16, 512), "big up0_norm": (10, 16 * 16, 1024),
+    "deep out_norm": (10, 128 * 128, 128), "big out_norm": (10, 128 * 128, 256),
+    "deep out_norm, validation batch": (32, 128 * 128, 128),
+    "big out_norm, validation batch": (32, 128 * 128, 256),
+    "out_norm, 2 maps": (2, 64 * 64, 128), "up0_norm, 2 maps": (2, 16 * 16, 256),
+}
+
+
+def _groupnorm_bf16_coverage(plan, hw, cg):
+    """How often the bf16 kernel's index map touches each (pixel, channel)
+    of one unit (``plan.seg`` groups of ``cg`` channels of a sample) under
+    ``plan``: rank r's part, thread t's pack t % vs of its ``packs`` pixels
+    ``threads / vs`` apart from t / vs (vs: the unit's packs a pixel)."""
+    vs = plan.seg * cg // 8
+    counts = np.zeros((hw, plan.seg * cg), np.int64)
+    step = plan.threads // vs
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        p1 = min(hw, p0 + plan.part_px)
+        for t in range(step * vs):
+            j = (t % vs) * 8
+            pix = p0 + t // vs + step * np.arange(plan.packs)
+            counts[pix[pix < p1], j:j + 8] += 1
+    return counts
+
+
+@pytest.mark.parametrize("shape", GROUPNORM_BF16_SHAPES, ids=list(GROUPNORM_BF16_SHAPES))
+def test_groupnorm_bf16_plan_at_the_path_shapes(shape):
+    """Every (pixel, channel) of a unit read once by the ranks' parts and
+    the threads' packs (a thread keeps one group's 8 channels); a unit's
+    slice of a pixel is ``BF16_LINE`` bytes where the groups allow; a part
+    fits ``BF16_PART`` bytes (16 packs of 512 threads, or 8 of 1024); the
+    cluster stops where the plan's rule stops (a grid of ``BF16_SPREAD``
+    CTAs, parts of ``BF16_PART_MIN`` bytes, large parts on half the SMs).
+    At the w=2 serving out_norm: units of 2 groups (32 channels),
+    clusters of 2 parts of 128 KiB, 256 CTAs."""
+    n, hw, c = GROUPNORM_BF16_SHAPES[shape]
+    plan = groupnorm_ops.bf16_plan(n, hw, c, 8)
+    cg = c // 8
+    vs = plan.seg * cg // 8
+    part_bytes = plan.part_px * plan.seg * cg * 2
+    assert plan.packs in groupnorm_ops.BF16_PACKS and 8 % plan.seg == 0
+    assert plan.seg * cg * 2 >= groupnorm_ops.BF16_LINE or plan.seg == 8 or (
+        hw * 2 * plan.seg * cg * 2 > 8 * groupnorm_ops.BF16_PART) or 2 * plan.seg * cg > 256
+    assert plan.threads % 32 == 0 and plan.threads % vs == 0
+    assert plan.threads * plan.packs * 16 <= groupnorm_ops.BF16_PART
+    assert part_bytes <= groupnorm_ops.BF16_PART
+    assert plan.part_px * plan.cluster >= hw > plan.part_px * (plan.cluster - 1)
+    ops = groupnorm_ops
+    grows = (plan.cluster < 8 and plan.cluster < hw and plan.ctas(n, 8) < ops.BF16_SPREAD
+             and part_bytes // 2 >= ops.BF16_PART_MIN
+             and (part_bytes <= ops.BF16_PART // 2 or 2 * plan.ctas(n, 8) < 132))
+    assert not grows  # the cluster stopped where the plan's rule stops
+    assert (_groupnorm_bf16_coverage(plan, hw, cg) == 1).all()
+    if shape == "out_norm serve w=2":
+        assert tuple(plan) == (2, 2, 512, 16, 2048)
+
+
+@pytest.mark.parametrize("shape,aligned", [((4, 64, 24), True), ((4, 64, 128), False),
+                                           ((4, 16, 8 * 512), True), ((4, 128 * 4096, 256), True)])
+def test_groupnorm_bf16_plan_raises_on_shapes_no_path_takes(shape, aligned):
+    """Channels per group not a multiple of one 16-byte pack, an unaligned
+    tensor, a group of over 256 channels, or a group over 8 parts of
+    ``BF16_PART`` bytes."""
+    with pytest.raises(ValueError):
+        groupnorm_ops.bf16_plan(*shape, 8, aligned)
+
+
+def _merge(a, b):
+    """Chan's merge of moments (n, mean, m2) a then b, as the kernel's
+    ``merge``: float32 arrays, b.n == 0 leaves a."""
+    n = a[0] + b[0]
+    f = np.divide(b[0], n, out=np.zeros_like(n), where=n > 0)
+    d = b[1] - a[1]
+    keep = b[0] == 0
+    return tuple(np.where(keep, x, y) for x, y in
+                 zip(a, (n, a[1] + d * f, a[2] + b[2] + d * d * a[0] * f)))
+
+
+def _warp_merge(m, skip=()):
+    """The kernel's butterfly over the 32 lanes of each warp (axis -1),
+    leaving out the offsets ``skip``."""
+    lane = np.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        if off in skip:
+            continue
+        o = tuple(x[..., lane ^ off] for x in m)
+        up = (lane & off) > 0
+        lo, hi = _merge(m, o), _merge(o, m)
+        m = tuple(np.where(up, h, l) for l, h in zip(lo, hi))
+    return m
+
+
+def _kernel_statistics(x_unit, plan, cg):
+    """(mean, var) of each group of one unit ``(hw, seg * cg)`` float32 as
+    the bf16 kernel takes them: each thread's packs in its order (a pack's
+    centred moments merged with weight 1 / k for the k-th), the warps'
+    butterflies over each group's lanes, the block's warps in order, then
+    the cluster's CTAs in rank order."""
+    f32 = np.float32
+    hw = x_unit.shape[0]
+    vpg = cg // 8
+    vs = plan.seg * vpg
+    step = plan.threads // vs
+    skip = tuple(off for off in (1, 2, 4, 8, 16) if vpg <= off < vs)
+    total = None
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        p1 = min(hw, p0 + plan.part_px)
+        m = [np.zeros(plan.threads, f32) for _ in range(3)]
+        for t in range(plan.threads):
+            j = (t % vs) * 8
+            for k, p in enumerate(range(p0 + t // vs, p1, step)[:plan.packs]):
+                v = x_unit[p, j:j + 8]
+                s = f32(0)
+                for e in v:
+                    s = f32(s + e)
+                pm = f32(s * f32(0.125))
+                q = f32(0)
+                for e in v:
+                    q = f32(q + f32(e - pm) * f32(e - pm))
+                f = f32(f32(1) / f32(k + 1))
+                d = f32(pm - m[1][t])
+                m[1][t] = f32(m[1][t] + d * f)
+                m[2][t] = f32(m[2][t] + f32(q + d * d * f32(m[0][t] * f)))
+                m[0][t] = f32(m[0][t] + 8)
+        wm = _warp_merge(tuple(x.reshape(plan.threads // 32, 32) for x in m), skip)
+        block = []
+        for g in range(plan.seg):
+            b = tuple(f32(0) for _ in range(3))
+            for w in range(plan.threads // 32):
+                lanes = [l for l in range(32) if ((w * 32 + l) % vs) // vpg == g]
+                if lanes:  # the warp holds the group: its first lane's moments
+                    b = _merge(b, tuple(x[w, lanes[0]] for x in wm))
+            block.append(b)
+        total = block if total is None else [_merge(a, b) for a, b in zip(total, block)]
+    return [(f32(t[1]), f32(f32(t[2]) / f32(t[0]))) for t in total]
+
+
+@pytest.mark.parametrize("spread", [1, 256])
+@pytest.mark.parametrize("c,offset", [(128, 0.0), (128, 100.0), (512, 0.0)])
+def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, spread, c,
+                                                              offset):
+    """Chan's merge of per-pack moments in the kernel's order (each
+    thread's packs, the butterflies over a group's lanes, the block's
+    warps, the cluster's ranks: 1 or 8 here), in float32, against the
+    plain version's statistics (the mean, then the centred variance) in
+    float64: within fp32 rounding, 1e-6 of the mean's scale and 1e-5 of
+    the variance, also for maps far from zero (offset 100, where
+    E[x^2] - E[x]^2 in fp32 loses five digits), for units of 2 groups
+    (c 128: 16 channels a group) and of one (c 512)."""
+    monkeypatch.setattr(groupnorm_ops, "BF16_SPREAD", spread)
+    n, hw = 2, 96
+    rs = np.random.RandomState(spread + c)
+    x = (rs.randn(n, hw, c) * 2 + offset).astype(np.float32)
+    x = torch.tensor(x).bfloat16().float().numpy()  # the bf16 values the kernel reads
+    plan = groupnorm_ops.bf16_plan(n, hw, c, 8)
+    cg = c // 8
+    assert plan.seg == (2 if c == 128 else 1)
+    xg = x.reshape(n, hw, 8, cg).astype(np.float64)
+    want_mean = xg.mean(axis=(1, 3))
+    want_var = ((xg - want_mean[:, None, :, None]) ** 2).mean(axis=(1, 3))
+    for b in range(n):
+        for s0 in range(0, 8, plan.seg):
+            unit = x[b, :, s0 * cg:(s0 + plan.seg) * cg]
+            for gl, (mean, var) in enumerate(_kernel_statistics(unit, plan, cg)):
+                g = s0 + gl
+                assert abs(mean - want_mean[b, g]) <= 1e-6 * (abs(want_mean[b, g]) + 1)
+                assert abs(var - want_var[b, g]) <= 1e-5 * want_var[b, g]
 
 # ---- wrappers on the CPU ----------------------------------------------------
 

@@ -302,7 +302,8 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
 // the same statistics: one cluster barrier where the template takes two,
 // and the variance stays centred.  The segment's gamma, beta and FiLM rows
 // go to shared memory while the packs land (no registers held for them).
-// The output is normalised from the registers and written once.
+// The output is normalised from the registers and written once, with the
+// activation and the FiLM epilogue fixed at compile time (see the kernel).
 
 struct Moments {
   float n, mean, m2;
@@ -333,19 +334,24 @@ __device__ __forceinline__ uint4 load_stream(const bf16* p) {
 
 constexpr int MAX_SEG = 8;  // groups of one segment
 constexpr int MAX_SEG_CH = 256;  // channels of one segment
+constexpr int BF16_THREADS = 512;  // a CTA at most
 
 // Grid: unit (sample major, segment minor) major, cluster rank minor.
 // Thread t holds pack t % vs (vs = the segment's packs a pixel) of pixels
 // t / vs, + pstride, ... (K of them) of its part: one group's 8 channels.
-template <int K, int MAX_THREADS>
-__global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
+// The activation (ACT, as activate's act) and the FiLM epilogue (FILM) are
+// template arguments: with K packs unrolled, a runtime choice inlines every
+// activation's code (erff's among them) beside each of the K * 8 outputs,
+// and the instruction fetch of that code, cold after the layers before it,
+// cost a served step's out_norm more than the isolated launch takes.
+template <int K, int ACT, bool FILM>
+__global__ void __launch_bounds__(BF16_THREADS) groupnorm_bf16_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ scale,
     const bf16* __restrict__ shift, bf16* __restrict__ out, int hw, int c, int groups,
-    int seg, int cluster_size, int part_px, int scale_stride, int shift_stride, float eps,
-    int act) {
+    int seg, int cluster_size, int part_px, int scale_stride, int shift_stride, float eps) {
   constexpr int V = 8;  // one 16-byte pack
-  __shared__ Moments warp_moments[MAX_THREADS / 32][MAX_SEG];
+  __shared__ Moments warp_moments[BF16_THREADS / 32][MAX_SEG];
   __shared__ Moments block_moments[MAX_SEG];
   // The segment's gamma, beta (float) and FiLM rows (bf16, as floats):
   // read in the output pass, not held in registers through the loads.
@@ -375,13 +381,12 @@ __global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
   }
   // The per-channel operands of the segment into shared memory, 4 floats
   // a thread, their latency under the statistics and the merges.
-  const bool film = scale != nullptr;
   const int seg0 = sg * vs * V;
   for (int q = tid; q < vs * 2; q += blockDim.x) {  // 4 channels each
     const int cq = seg0 + 4 * q;
     operands[0][q] = *reinterpret_cast<const float4*>(gamma + cq);
     operands[1][q] = *reinterpret_cast<const float4*>(beta + cq);
-    if (film) {
+    if constexpr (FILM) {
       const Pack<4> a = load4(scale + (long long)nn * scale_stride + cq);
       const Pack<4> b = load4(shift + (long long)nn * shift_stride + cq);
       operands[2][q] = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
@@ -410,8 +415,10 @@ __global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
     }
   }
   // The lanes of one group: the butterfly skips the lane bits that change
-  // the group (at and above a group's packs, below a pixel's).  Partners
-  // merge the lower lane first, so every lane of the group gets the same.
+  // the group (at and above a group's packs, below a pixel's), which needs
+  // vpg and vs powers of two where seg > 1; with seg 1 every lane holds the
+  // one group and no offset is skipped, whatever vpg.  Partners merge the
+  // lower lane first, so every lane of the group gets the same.
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     if (off >= vpg && off < vs) continue;
@@ -420,16 +427,13 @@ __global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
                     __shfl_xor_sync(0xffffffffu, m.m2, off)};
     m = (lane & off) ? merge(o, m) : merge(m, o);
   }
-  // A warp's lanes hold packs (32 warp) % vs, ... (all of a pixel's where
-  // vs <= 32); its first lane of each group writes the group's moments.
+  // A warp's lanes hold packs (32 warp) % vs, ... (all of a pixel's: vs is
+  // at most 32); its first lane of each group writes the group's moments.
   if (lane % vpg == 0 && lane < vs) warp_moments[warp][gl] = m;
   __syncthreads();
   if (tid < seg) {
     Moments b{0.0f, 0.0f, 0.0f};
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      const int jw = (w * 32) % vs;
-      if (vs <= 32 || (tid * vpg >= jw && tid * vpg < jw + 32)) b = merge(b, warp_moments[w][tid]);
-    }
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) b = merge(b, warp_moments[w][tid]);
     block_moments[tid] = b;
   }
   cluster.sync();  // every CTA's block_moments is written
@@ -455,10 +459,12 @@ __global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
       Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        const float y = activate((v.v[e] - mean) * rstd * ops[e] + ops[ROW + e], act);
-        v.v[e] = film ? round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * ops[2 * ROW + e]) +
-                                       ops[3 * ROW + e])
-                      : y;
+        const float y = activate((v.v[e] - mean) * rstd * ops[e] + ops[ROW + e], ACT);
+        if constexpr (FILM)
+          v.v[e] = round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * ops[2 * ROW + e]) +
+                                  ops[3 * ROW + e]);
+        else
+          v.v[e] = y;
       }
       store<V>(out + base + (long long)p * c, v);
     }
@@ -466,16 +472,39 @@ __global__ void __launch_bounds__(MAX_THREADS) groupnorm_bf16_kernel(
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-template <int K, int MAX_THREADS>
+template <int K, int ACT, bool FILM>
 cudaError_t launch_bf16(cudaLaunchConfig_t* cfg, const bf16* x, const float* gamma,
                         const float* beta, const bf16* scale, const bf16* shift, bf16* out,
                         int hw, int c, int groups, int seg, int cluster, int part_px,
-                        int scale_stride, int shift_stride, float eps, int act) {
-  cudaError_t err = cudaLaunchKernelEx(cfg, groupnorm_bf16_kernel<K, MAX_THREADS>, x, gamma,
+                        int scale_stride, int shift_stride, float eps) {
+  cudaError_t err = cudaLaunchKernelEx(cfg, groupnorm_bf16_kernel<K, ACT, FILM>, x, gamma,
                                        beta, scale, shift, out, hw, c, groups, seg, cluster,
-                                       part_px, scale_stride, shift_stride, eps, act);
+                                       part_px, scale_stride, shift_stride, eps);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
+}
+
+// launch_bf16 with the activation and the FiLM epilogue as template
+// arguments (act as activate's; FiLM where scale is given).
+template <int K>
+cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float* gamma,
+                            const float* beta, const bf16* scale, const bf16* shift, bf16* out,
+                            int hw, int c, int groups, int seg, int cluster, int part_px,
+                            int scale_stride, int shift_stride, float eps, int act) {
+#define CAMELS_BF16_ACT(A)                                                                    \
+  if (act == A)                                                                               \
+    return scale ? launch_bf16<K, A, true>(cfg, x, gamma, beta, scale, shift, out, hw, c,   \
+                                           groups, seg, cluster, part_px, scale_stride,     \
+                                           shift_stride, eps)                               \
+                 : launch_bf16<K, A, false>(cfg, x, gamma, beta, scale, shift, out, hw, c,  \
+                                            groups, seg, cluster, part_px, scale_stride,    \
+                                            shift_stride, eps);
+  CAMELS_BF16_ACT(0)
+  CAMELS_BF16_ACT(1)
+  CAMELS_BF16_ACT(2)
+  CAMELS_BF16_ACT(3)
+#undef CAMELS_BF16_ACT
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -503,8 +532,9 @@ CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
 // The bf16 instance of the single launch: x/out (n, hw, c) contiguous NHWC
 // bf16, 16-byte aligned, c/groups a multiple of 8; gamma/beta (c,) float;
 // scale/shift null or rows of c bf16 with strides 0 or c.  seg (groups a
-// unit, dividing groups, at most 8 and 256 channels), cluster, threads,
-// packs (K: 1, 2, 4, 8 or 16 a thread; 1024 threads only with 8) and
+// unit, dividing groups, at most 8 and 256 channels; 1 unless c/groups/8
+// is a power of two), cluster, threads,
+// packs (K: 1, 2, 4, 8 or 16 a thread; at most 512 threads) and
 // part_px come from ops/groupnorm.py::bf16_plan.  Returns the
 // cudaError_t of the launch.
 extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, const float* beta,
@@ -514,7 +544,9 @@ extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, cons
                                          int cluster, int threads, int packs, int part_px,
                                          void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (seg > MAX_SEG || groups % seg || c / groups * seg > MAX_SEG_CH)
+  const int vpg = c / groups / 8;  // packs a group: a power of two where seg > 1
+  if (seg > MAX_SEG || groups % seg || c / groups * seg > MAX_SEG_CH ||
+      (seg > 1 && (vpg & (vpg - 1))))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
@@ -527,17 +559,16 @@ extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, cons
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-#define CAMELS_GROUPNORM_BF16(K, T)                                                       \
-  if (packs == K && threads <= T)                                                         \
-    return (int)launch_bf16<K, T>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, \
-                                  seg, cluster, part_px, scale_stride, shift_stride, eps, \
-                                  act);
-  CAMELS_GROUPNORM_BF16(1, 512)
-  CAMELS_GROUPNORM_BF16(2, 512)
-  CAMELS_GROUPNORM_BF16(4, 512)
-  CAMELS_GROUPNORM_BF16(8, 512)
-  CAMELS_GROUPNORM_BF16(8, 1024)
-  CAMELS_GROUPNORM_BF16(16, 512)
+  if (threads > BF16_THREADS) return (int)cudaErrorInvalidValue;
+#define CAMELS_GROUPNORM_BF16(K)                                                               \
+  if (packs == K)                                                                              \
+    return (int)launch_bf16_act<K>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, seg, \
+                                   cluster, part_px, scale_stride, shift_stride, eps, act);
+  CAMELS_GROUPNORM_BF16(1)
+  CAMELS_GROUPNORM_BF16(2)
+  CAMELS_GROUPNORM_BF16(4)
+  CAMELS_GROUPNORM_BF16(8)
+  CAMELS_GROUPNORM_BF16(16)
 #undef CAMELS_GROUPNORM_BF16
   return (int)cudaErrorInvalidValue;
 }

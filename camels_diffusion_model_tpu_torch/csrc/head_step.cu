@@ -373,7 +373,7 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
   constexpr int SLOT = TILE * BLOCK;  // elements
   constexpr int WARPS = BF16_THREADS / 32;
   extern __shared__ float4 smem4[];
-  const int wstride = c + (c % 64 == 0 ? 32 : 0);
+  const int wstride = c + 32;  // ops/sampler_step.py::weight_stride (c % 64 == 0)
   bf16* ws = reinterpret_cast<bf16*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;

@@ -36,6 +36,7 @@ float kernel's design in both instances.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -83,6 +84,7 @@ _BF16_ARGTYPES = _ARGTYPES[:14] + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 # bf16_plan's choices.
 BF16_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
 BF16_MAX_SEG = 8  # groups of a unit at most
+BF16_THREADS = 512  # a CTA at most (the kernel's launch bound)
 BF16_PART = 128 * 1024  # bytes of a CTA's part at most: 16 packs of 512 threads
 BF16_PACKS = (1, 2, 4, 8, 16)  # 16-byte packs a thread may hold (kernel instances)
 BF16_SPREAD = 256  # CTAs a launch should reach: a small batch's units split further
@@ -175,19 +177,21 @@ def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     A unit is ``seg`` consecutive groups of a sample: the fewest whose
     slice of a pixel is ``BF16_LINE`` bytes, within ``BF16_MAX_SEG`` and
     256 channels, and fewer where the unit would not fit 8 parts of
-    ``BF16_PART`` bytes.  The cluster (the unit's pixels split over it, a
-    part a CTA) is the smallest of 1, 2, 4, 8 whose part fits
-    ``BF16_PART`` bytes, doubled while the grid is short of
+    ``BF16_PART`` bytes; one group where the channels per group are not
+    8 times a power of two (the kernel's warp butterfly splits a warp's
+    lanes by their bits).  The cluster (the unit's pixels split over it, a
+    part a CTA) is the smallest of 1, 2, 4, 8 whose part fits 16 packs of
+    ``BF16_THREADS`` threads, doubled while the grid is short of
     ``BF16_SPREAD`` CTAs and a part would keep ``BF16_PART_MIN`` bytes,
     for parts of at most half ``BF16_PART`` (small launches wait on
     latency: more, shorter CTAs) or grids short of half the SMs.  A part
-    over 32 KiB takes 512 threads, else 256 (fewer for one pack a thread), and the
-    fewest packs of ``BF16_PACKS`` that cover it; in a cluster of 8 a part
-    over 64 KiB takes 1024 threads of 8 packs (the big model's out_norm:
-    measured faster there than 512 of 16).  Raises ``ValueError`` for a
+    over 32 KiB takes 512 threads, else 256 (fewer for one pack a thread;
+    a multiple of both 32 and the unit's packs a pixel), and the fewest
+    packs of ``BF16_PACKS`` that cover it.  Raises ``ValueError`` for a
     shape no plan takes: channels per group not a multiple of 8 (one
     16-byte pack), an unaligned pointer, a group over 32 packs (256
-    channels), or a group over ``BF16_PART`` bytes even in a cluster of 8.
+    channels), or a group over 16 packs of 512 threads a CTA even in a
+    cluster of 8.
     """
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
@@ -197,33 +201,35 @@ def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
                          f"channels per group a multiple of 8, got {cg}")
     if cg > 256:
         raise ValueError(f"a group of {cg} channels is wider than the bf16 kernel takes")
+    vpg = cg // 8  # 16-byte packs a group
     seg = 1
     while (seg < BF16_MAX_SEG and seg * cg * 2 < BF16_LINE and groups % (2 * seg) == 0
-           and 2 * seg * cg <= 256 and hw * 2 * seg * cg * 2 <= 8 * BF16_PART):
+           and 2 * seg * cg <= 256 and hw * 2 * seg * cg * 2 <= 8 * BF16_PART
+           and vpg & (vpg - 1) == 0):  # the warp butterfly's lane bits (groupnorm.cu)
         seg *= 2
     units = n * groups // seg
+    vs = seg * vpg
+    whole = math.lcm(32, vs)  # threads in whole warps and whole pixels
+    # pixels a CTA holds at most: BF16_PACKS[-1] packs of BF16_THREADS threads
+    most = BF16_PACKS[-1] * ((BF16_THREADS - BF16_THREADS % whole) // vs)
 
     def part_bytes_of(cluster):
         return -(-hw // cluster) * seg * cg * 2
 
-    cluster = next((cl for cl in (1, 2, 4, 8) if part_bytes_of(cl) <= BF16_PART), 8)
+    cluster = next((cl for cl in (1, 2, 4, 8) if -(-hw // cl) <= most), None)
+    if cluster is None:
+        raise ValueError(f"a group of {hw} x {cg} bf16 elements takes no plan: over "
+                         f"{most} pixels a CTA even in a cluster of 8")
     while cluster < 8 and cluster < hw and units * cluster < BF16_SPREAD and (
             part_bytes_of(cluster) // 2 >= BF16_PART_MIN) and (
             part_bytes_of(cluster) <= BF16_PART // 2 or 2 * units * cluster < sms):
         cluster *= 2
     part = -(-hw // cluster)
-    part_bytes = part_bytes_of(cluster)
-    if part_bytes > BF16_PART:
-        raise ValueError(f"a group of {hw} x {cg} bf16 elements takes no plan: "
-                         f"{part_bytes} bytes a CTA even in a cluster of 8")
-    vs = seg * cg // 8
-    if cluster == 8 and part_bytes > BF16_PART // 2:
-        threads = 1024
-    else:
-        threads = 512 if part_bytes > 32 * 1024 else 256
+    threads = BF16_THREADS if part_bytes_of(cluster) > 32 * 1024 else BF16_THREADS // 2
+    threads -= threads % whole
     packs = next(k for k in BF16_PACKS if k * (threads // vs) >= part)
     if packs == 1:  # fewer threads for a small part
-        threads = min(threads, max(32, -(-part * vs // 32) * 32))
+        threads = min(threads, -(-part * vs // whole) * whole)
     return Bf16Plan(seg, cluster, threads, packs, part)
 
 

@@ -226,8 +226,8 @@ class Bf16Plan(NamedTuple):
 def weight_stride(c: int) -> int:
     """bf16 elements between two taps' weight rows in the bf16 kernel's
     shared memory: 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4
-    chunks hit 8 bank groups."""
-    return c + (32 if c % 64 == 0 else 0)
+    chunks hit 8 bank groups (``c`` is a multiple of 64: :func:`bf16_plan`)."""
+    return c + 32
 
 
 def partial_stride(m: int) -> int:

@@ -447,7 +447,7 @@ def copy_args(args):
                  a.clone() if torch.is_tensor(a) else a for a in args)
 
 
-def time_ms(fn, args, iters: int = 20, replays: int = 5) -> float:
+def time_ms(fn, args, iters: int = 20, replays: int = 5, warm: bool = False) -> float:
     """Device ms per call of ``fn(*args)`` with its data in device memory.
 
     The calls are captured in one CUDA graph, replayed ``replays`` times
@@ -456,9 +456,10 @@ def time_ms(fn, args, iters: int = 20, replays: int = 5) -> float:
     arguments and keeps its output, and the copies come round again only
     after four times the L2's bytes, so a call finds neither its inputs nor
     its output's lines in L2 and the byte bound at ``HBM_BYTES_PER_S`` is a
-    floor."""
+    floor.  ``warm``: every call takes one copy, which the last call left
+    in L2 (as a served step finds the features the layer before wrote)."""
     out = fn(*args)  # warm-up outside the capture
-    copies = -(-FLUSH_BYTES // max(1, nbytes(*args, out)))
+    copies = 1 if warm else -(-FLUSH_BYTES // max(1, nbytes(*args, out)))
     iters = copies * -(-iters // copies)
     sets = [copy_args(args) for _ in range(copies)]
     torch.cuda.synchronize()
@@ -622,6 +623,7 @@ def hold_cases(cases) -> dict:
             raise SystemExit(f"{name} {label}: {share:.4f} of the elements differ by more "
                              f"than {fp32_rounding}, over {BF16_SHARE}")
         ms, plain_ms = time_ms(kern, args), time_ms(plain, args)
+        warm_ms = time_ms(kern, args, warm=True)
         lib_ms = time_ms(lib, args) if lib is not None else None
         peak = BF16_FLOPS if name.endswith("_bf16") else FP32_FLOPS
         bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
@@ -631,22 +633,24 @@ def hold_cases(cases) -> dict:
         print(f"  {name} {label}: max_abs_err {err:.3e} (tol {tol:g}"
               + (f"; {share:.4f} differ beyond {fp32_rounding:g}" if name.endswith("_bf16")
                  else "") + ") "
-              f"ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
+              f"ms {ms:.5f} warm_ms {warm_ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
               f"({LIBRARY[name]}) bound_ms {bound_ms:.6f} ({bound_by}, {nb} bytes) "
               f"share of bound {bound_ms / ms:.3f}"
               + (f"; bytes it moves {moved} (spilled pixels read twice more), bound "
                  f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms" if moved != nb else "")
               + ("" if summed else " (information)"), flush=True)
-        r = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                  "bound_ms": 0.0, "bound_by": bound_by,
+        r = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "warm_ms": 0.0,
+                                  "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": bound_by,
                                   "library_ms": None, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        r["shapes"].append({"case": label, "max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
+                            "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                             "moved_bound_ms": moved / HBM_BYTES_PER_S * 1e3})
         if not summed:
             continue
         r["ms"] += ms
+        r["warm_ms"] += warm_ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound_ms
         if lib_ms is not None:
@@ -2588,7 +2592,7 @@ def main() -> int:
         "launches": sum(counts[name] for counts in launches.values()),
         "launches_by_path": {path: counts[name] for path, counts in launches.items()},
         "library_call": LIBRARY[name],
-        **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+        **{k: stats[name][k] for k in ("max_abs_err", "ms", "warm_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms", "shapes")},
     } for name in WRAPPERS]
     print(f"total: {time.perf_counter() - t_all:.3f} s")

@@ -25,20 +25,28 @@ ms per launch, data in device memory), with TF32 off as the port serves.
 w=2 and w=0 serving shapes, the exact chain's, and the deep and big
 models' at 10 maps), each held to its plain version under
 ``chip_smoke.tolerance`` and ``BF16_SHARE``, and times the checkout's bf16
-K1 at every band height of ``ROWS_BF16``, and its bf16 K2 at units of 1,
-2, 4 and 8 groups and
-clusters grown to grids of 1, 64, 128 and 256 CTAs (``BF16_LINE``,
-``BF16_SPREAD``).  ``--warm`` times every call on one copy of its inputs
-(in L2, as in a served step) instead.  Needs a CUDA card.
+K1 at every band height of ``ROWS_BF16``, and its bf16 K2 under every
+plan its kernel takes (:func:`k2_bf16_candidates`: units of 1 to 8
+groups, clusters of 1 to 8, 256 or 512 threads).  Each bf16 case is
+timed five ways: cold (``chip_smoke.time_ms``: inputs in device memory),
+warm (one copy of the inputs, left in L2 by the last call), lone
+(:func:`lone_ms`: each launch alone after a synchronize, as a host-bound
+served step launches it), and lone right after a cuDNN bf16 conv of the
+served out_conv1's shape ("after conv", as the served out_norm runs) or
+after a tiny elementwise kernel ("after add"); the plans cold and after
+the conv.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import functools
 import importlib
 import importlib.util
 import inspect
+import math
 import os
 import subprocess
 import sys
@@ -75,17 +83,11 @@ def main(argv=None) -> int:
                     help=f"directory holding an earlier revision's {PACKAGE}/")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="the instances compared (default float32)")
-    ap.add_argument("--warm", action="store_true",
-                    help="time every call on the same inputs, left in L2 by the last "
-                         "(as a served step finds the features the conv before wrote), "
-                         "not on copies that come round after four times the L2")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
 
     import chip_smoke
-    if args.warm:
-        chip_smoke.FLUSH_BYTES = 1  # one copy of the inputs: each call finds them in L2
     import torch.nn.functional as F
 
     from camels_diffusion_model_tpu_torch.diffusion.schedule import (
@@ -214,6 +216,87 @@ def main(argv=None) -> int:
     return 0
 
 
+def lone_ms(fn, args, before=None, n: int = 20, tries: int = 3) -> float:
+    """Device ms per call of ``fn(*args)``'s own kernels with each call
+    launched alone after a synchronize, as a host-bound served step
+    launches a kernel, from the profiler's kernel times (host and device
+    activity traced, as ``profile_torch_serving.py`` does); with
+    ``before``, each call comes right after ``before()`` (another layer's
+    kernel, as in the step), whose kernels are not counted.  A trace that
+    holds none of ``fn``'s kernels is taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(calls: int, first=None, call=True) -> dict:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if first is not None:
+                    first()
+                if call:
+                    fn(*args)
+                torch.cuda.synchronize()
+        return {e.key: float(getattr(e, "self_device_time_total", 0.0))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    for _ in range(tries):
+        names = {key for key, us in kernels(n).items() if us > 0}
+        if before is not None:
+            names -= set(kernels(2, before, call=False))
+        us = sum(t for key, t in kernels(n, before).items() if key in names) if names else 0.0
+        if us > 0:
+            return us / n / 1e3
+    raise SystemExit(f"lone_ms: no kernel time in {tries} traces")
+
+
+def k2_bf16_candidates(groupnorm, n: int, hw: int, c: int, groups: int = 8) -> list:
+    """Every launch plan the bf16 K2 takes for ``n`` samples of ``hw``
+    pixels and ``c`` channels: units of 1, 2, 4 or 8 groups (one where the
+    warp butterfly cannot split a group's packs), clusters of 1 to 8, and
+    256 or 512 threads (whole warps and pixels) with the fewest packs of
+    ``BF16_PACKS`` that cover a part."""
+    cg = c // groups
+    vpg = cg // 8
+    plans = []
+    for seg in (1, 2, 4, 8):
+        if groups % seg or seg * cg > 256 or (seg > 1 and vpg & (vpg - 1)):
+            continue
+        vs = seg * vpg
+        whole = math.lcm(32, vs)
+        for cluster in (1, 2, 4, 8):
+            part = -(-hw // cluster)
+            if cluster > hw:
+                continue
+            for threads in (256, 512):
+                threads -= threads % whole
+                packs = next((k for k in groupnorm.BF16_PACKS if k * (threads // vs) >= part),
+                             None)
+                if packs is None:
+                    continue
+                if packs == 1:
+                    threads = min(threads, -(-part * vs // whole) * whole)
+                plan = groupnorm.Bf16Plan(seg, cluster, threads, packs, part)
+                if plan not in plans:
+                    plans.append(plan)
+    return plans
+
+
+@contextlib.contextmanager
+def forced_plan(groupnorm, plan, shape=None):
+    """The bf16 K2 launches under ``plan``: at every shape, or only at
+    ``shape`` ``(n, hw, c)`` (its own plan elsewhere)."""
+    real = groupnorm.bf16_plan
+
+    def forced(n, hw, c, *args, **kwargs):
+        return plan if shape in (None, (n, hw, c)) else real(n, hw, c, *args, **kwargs)
+
+    groupnorm.bf16_plan = forced
+    try:
+        yield
+    finally:
+        groupnorm.bf16_plan = real
+
+
 def hold(chip_smoke, name: str, label: str, fn, plain, args) -> float:
     """``fn(*args)`` against ``plain(*args)`` under phase (c)'s bf16 gate
     (``chip_smoke.tolerance``, ``BF16_SHARE``); returns the max abs error."""
@@ -230,6 +313,7 @@ def hold(chip_smoke, name: str, label: str, fn, plain, args) -> float:
 def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -> int:
     """The bf16 instances: old vs new in turns, then the new plans' sweeps."""
     import torch
+    import torch.nn.functional as F
 
     bf = torch.bfloat16
     c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
@@ -262,6 +346,19 @@ def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -
     def gn_old(x, gamma, beta, groups, eps, act, rows):
         return old_gn.fused_groupnorm_act(x, gamma, beta, groups, eps, act, rows)
 
+    # The layer before out_norm in the served step (out_conv1: a cuDNN bf16
+    # conv of 256 to 128 channels at 64x64, decoder batch 32), and a tiny
+    # elementwise kernel, each launched before a timed call.
+    u = randn(32, 256, 64, 64).to(bf).contiguous(memory_format=torch.channels_last)
+    w_conv = randn(128, 256, 3, 3).mul(0.02).to(bf).contiguous(
+        memory_format=torch.channels_last)
+    tiny = u.new_zeros(1024)
+    timers = {"cold": chip_smoke.time_ms,
+              "warm": functools.partial(chip_smoke.time_ms, warm=True), "lone": lone_ms,
+              "after conv": functools.partial(
+                  lone_ms, before=lambda: F.conv2d(u, w_conv, padding=1)),
+              "after add": functools.partial(lone_ms, before=lambda: tiny.add_(1))}
+
     for kernel, cases, f_old, f_new, f_plain in (
             ("head_step_bf16", k1, old_step.fused_head_step, sampler_step.fused_head_step,
              sampler_step.head_step_plain),
@@ -269,11 +366,12 @@ def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -
              groupnorm.groupnorm_act_plain)):
         for label, a in cases:
             errs = [hold(chip_smoke, kernel, label, f, f_plain, a) for f in (f_old, f_new)]
-            t = [chip_smoke.time_ms(f, a) for f in (f_old, f_new, f_new, f_old)]
-            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            print(f"{label}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms "
-                  f"(mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); "
-                  f"max abs err old {errs[0]:.2e} new {errs[1]:.2e}", flush=True)
+            for how, timer in timers.items():
+                t = [timer(f, a) for f in (f_old, f_new, f_new, f_old)]
+                o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+                print(f"{label} [{how}]: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} "
+                      f"ms (mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); "
+                      f"max abs err old {errs[0]:.2e} new {errs[1]:.2e}", flush=True)
 
     # The new designs at each band height and cluster size their plans
     # choose from, forced through the plans' module constants.
@@ -295,26 +393,19 @@ def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -
         print(f"new {label} by band rows: "
               + ", ".join(f"{k}: {v:.5f} ms" for k, v in times.items())
               + f" (the plan picks {tuple(picked)})", flush=True)
-    line, spread = groupnorm.BF16_LINE, groupnorm.BF16_SPREAD
     for label, a in k2:
         n, hw, c = a[0].shape[0], a[0].shape[1] * a[0].shape[2], a[0].shape[-1]
         picked = groupnorm.bf16_plan(n, hw, c, 8)
-        times = {}
-        for groupnorm.BF16_LINE in (16, 64, 128, 256):  # a unit of 1, 2, 4 or 8 groups
-            for groupnorm.BF16_SPREAD in (1, 64, 128, 256):  # clusters grown to this grid
-                try:
-                    plan = groupnorm.bf16_plan(n, hw, c, 8)
-                except ValueError:
-                    continue
-                if tuple(plan) in times:
-                    continue
+        print(f"new {label} by plan (seg, cluster, threads, packs, part_px), ms cold / "
+              f"after conv; the plan picks {tuple(picked)}:", flush=True)
+        for plan in k2_bf16_candidates(groupnorm, n, hw, c):
+            with forced_plan(groupnorm, plan):
                 hold(chip_smoke, "groupnorm_act_bf16", f"{label} plan={tuple(plan)}",
                      groupnorm.fused_groupnorm_act, groupnorm.groupnorm_act_plain, a)
-                times[tuple(plan)] = chip_smoke.time_ms(groupnorm.fused_groupnorm_act, a)
-        groupnorm.BF16_LINE, groupnorm.BF16_SPREAD = line, spread
-        print(f"new {label} by plan (seg, cluster, threads, packs, part_px): "
-              + ", ".join(f"{k}: {v:.5f} ms" for k, v in times.items())
-              + f" (the plan picks {tuple(picked)})", flush=True)
+                t = [timers[how](groupnorm.fused_groupnorm_act, a)
+                     for how in ("cold", "after conv")]
+            print(f"  {tuple(plan)} ctas {plan.ctas(n, 8)}: {t[0]:.5f} / {t[1]:.5f}"
+                  + (" <- picked" if plan == picked else ""), flush=True)
     return 0
 
 

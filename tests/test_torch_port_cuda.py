@@ -689,12 +689,15 @@ def test_head_step_bf16_kernel_every_band(dev, fp32_convs, monkeypatch, rows, sh
 @pytest.mark.parametrize("line,spread", [(16, 1), (64, 256), (128, 64), (256, 1)])
 @pytest.mark.parametrize("shape,film", [((32, 16, 16, 256), True), ((32, 64, 64, 128), False),
                                         ((4, 64, 64, 128), False), ((3, 7, 7, 64), True),
-                                        ((10, 16, 16, 1024), True)])
+                                        ((10, 16, 16, 1024), True), ((32, 64, 64, 192), False),
+                                        ((4, 64, 64, 192), False), ((32, 16, 16, 384), True)])
 def test_groupnorm_bf16_kernel_every_plan(dev, monkeypatch, line, spread, shape, film):
     """The bf16 K2 at units of 1 to 8 groups (``BF16_LINE``) and grids of 1
     to 256 CTAs (``BF16_SPREAD``: clusters of 1 to 8, one to 16 packs a
-    thread, ragged parts at 7x7), against its plain version: phase (c)'s
-    gate, 2 bf16 ulps and at most 1% of the elements differing."""
+    thread, ragged parts at 7x7), and n_feat 192's heads (24 and 48
+    channels a group: units of one group, threads a multiple of 3 packs),
+    against its plain version: phase (c)'s gate, 2 bf16 ulps and at most
+    1% of the elements differing."""
     from camels_diffusion_model_tpu_torch.ops import groupnorm
 
     monkeypatch.setattr(groupnorm, "BF16_LINE", line)

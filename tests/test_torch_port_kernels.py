@@ -669,6 +669,10 @@ GROUPNORM_BF16_SHAPES = {  # (n, hw, c): the shapes the bf16 paths give K2
     "deep out_norm, validation batch": (32, 128 * 128, 128),
     "big out_norm, validation batch": (32, 128 * 128, 256),
     "out_norm, 2 maps": (2, 64 * 64, 128), "up0_norm, 2 maps": (2, 16 * 16, 256),
+    # n_feat 192: 24 channels a group, 3 packs, which no warp's lane bits split
+    "out_norm n_feat 192 serve w=2": (32, 64 * 64, 192),
+    "out_norm n_feat 192 exact chain": (4, 64 * 64, 192),
+    "up0_norm n_feat 192 serve w=2": (32, 16 * 16, 384),
 }
 
 
@@ -695,7 +699,7 @@ def test_groupnorm_bf16_plan_at_the_path_shapes(shape):
     """Every (pixel, channel) of a unit read once by the ranks' parts and
     the threads' packs (a thread keeps one group's 8 channels); a unit's
     slice of a pixel is ``BF16_LINE`` bytes where the groups allow; a part
-    fits ``BF16_PART`` bytes (16 packs of 512 threads, or 8 of 1024); the
+    fits ``BF16_PART`` bytes (16 packs of 512 threads); the
     cluster stops where the plan's rule stops (a grid of ``BF16_SPREAD``
     CTAs, parts of ``BF16_PART_MIN`` bytes, large parts on half the SMs).
     At the w=2 serving out_norm: units of 2 groups (32 channels),
@@ -705,9 +709,12 @@ def test_groupnorm_bf16_plan_at_the_path_shapes(shape):
     cg = c // 8
     vs = plan.seg * cg // 8
     part_bytes = plan.part_px * plan.seg * cg * 2
+    vpg = cg // 8
     assert plan.packs in groupnorm_ops.BF16_PACKS and 8 % plan.seg == 0
+    assert plan.seg == 1 or vpg & (vpg - 1) == 0  # the butterfly's lane bits
     assert plan.seg * cg * 2 >= groupnorm_ops.BF16_LINE or plan.seg == 8 or (
-        hw * 2 * plan.seg * cg * 2 > 8 * groupnorm_ops.BF16_PART) or 2 * plan.seg * cg > 256
+        hw * 2 * plan.seg * cg * 2 > 8 * groupnorm_ops.BF16_PART) or (
+        2 * plan.seg * cg > 256) or vpg & (vpg - 1)
     assert plan.threads % 32 == 0 and plan.threads % vs == 0
     assert plan.threads * plan.packs * 16 <= groupnorm_ops.BF16_PART
     assert part_bytes <= groupnorm_ops.BF16_PART
@@ -720,14 +727,18 @@ def test_groupnorm_bf16_plan_at_the_path_shapes(shape):
     assert (_groupnorm_bf16_coverage(plan, hw, cg) == 1).all()
     if shape == "out_norm serve w=2":
         assert tuple(plan) == (2, 2, 512, 16, 2048)
+    if shape == "out_norm n_feat 192 serve w=2":
+        assert tuple(plan) == (1, 2, 480, 16, 2048)
 
 
 @pytest.mark.parametrize("shape,aligned", [((4, 64, 24), True), ((4, 64, 128), False),
-                                           ((4, 16, 8 * 512), True), ((4, 128 * 4096, 256), True)])
+                                           ((4, 16, 8 * 512), True), ((4, 128 * 4096, 256), True),
+                                           ((4, 64 * 64, 8 * 20), True),
+                                           ((4, 64 * 64, 192), False)])
 def test_groupnorm_bf16_plan_raises_on_shapes_no_path_takes(shape, aligned):
-    """Channels per group not a multiple of one 16-byte pack, an unaligned
-    tensor, a group of over 256 channels, or a group over 8 parts of
-    ``BF16_PART`` bytes."""
+    """Channels per group not a multiple of one 16-byte pack (20), an
+    unaligned tensor (also at 24 channels a group), a group of over 256
+    channels, or a group over 8 parts of ``BF16_PART`` bytes."""
     with pytest.raises(ValueError):
         groupnorm_ops.bf16_plan(*shape, 8, aligned)
 
@@ -791,20 +802,22 @@ def _kernel_statistics(x_unit, plan, cg):
                 m[2][t] = f32(m[2][t] + f32(q + d * d * f32(m[0][t] * f)))
                 m[0][t] = f32(m[0][t] + 8)
         wm = _warp_merge(tuple(x.reshape(plan.threads // 32, 32) for x in m), skip)
+        warp_moments = {}  # (warp, group): written by lanes l % vpg == 0, l < vs
+        for w in range(plan.threads // 32):
+            for lane in range(0, min(vs, 32), vpg):
+                warp_moments[w, ((w * 32 + lane) % vs) // vpg] = tuple(x[w, lane] for x in wm)
         block = []
         for g in range(plan.seg):
             b = tuple(f32(0) for _ in range(3))
-            for w in range(plan.threads // 32):
-                lanes = [l for l in range(32) if ((w * 32 + l) % vs) // vpg == g]
-                if lanes:  # the warp holds the group: its first lane's moments
-                    b = _merge(b, tuple(x[w, lanes[0]] for x in wm))
+            for w in range(plan.threads // 32):  # every warp wrote every group
+                b = _merge(b, warp_moments[w, g])
             block.append(b)
         total = block if total is None else [_merge(a, b) for a, b in zip(total, block)]
     return [(f32(t[1]), f32(f32(t[2]) / f32(t[0]))) for t in total]
 
 
 @pytest.mark.parametrize("spread", [1, 256])
-@pytest.mark.parametrize("c,offset", [(128, 0.0), (128, 100.0), (512, 0.0)])
+@pytest.mark.parametrize("c,offset", [(128, 0.0), (128, 100.0), (512, 0.0), (192, 0.0)])
 def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, spread, c,
                                                               offset):
     """Chan's merge of per-pack moments in the kernel's order (each
@@ -814,7 +827,8 @@ def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, sprea
     float64: within fp32 rounding, 1e-6 of the mean's scale and 1e-5 of
     the variance, also for maps far from zero (offset 100, where
     E[x^2] - E[x]^2 in fp32 loses five digits), for units of 2 groups
-    (c 128: 16 channels a group) and of one (c 512)."""
+    (c 128: 16 channels a group) and of one (c 512; c 192, whose 3 packs
+    a group no lane bits split)."""
     monkeypatch.setattr(groupnorm_ops, "BF16_SPREAD", spread)
     n, hw = 2, 96
     rs = np.random.RandomState(spread + c)
@@ -823,6 +837,7 @@ def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, sprea
     plan = groupnorm_ops.bf16_plan(n, hw, c, 8)
     cg = c // 8
     assert plan.seg == (2 if c == 128 else 1)
+    assert plan.threads % (plan.seg * cg // 8) == 0
     xg = x.reshape(n, hw, 8, cg).astype(np.float64)
     want_mean = xg.mean(axis=(1, 3))
     want_var = ((xg - want_mean[:, None, :, None]) ** 2).mean(axis=(1, 3))

@@ -48,27 +48,22 @@
 // does (ops/pallas/groupnorm.py:52-57); the FiLM epilogue then runs in T
 // as context_unet.py:300-307 does: scale * y rounded, + shift rounded
 // (rows of T).  Shared memory holds the slice as T, exact.  The template
-// serves the float single launch and both types' sharded modes; the bf16
-// single launch is a kernel of its own, groupnorm_bf16_kernel below (the
-// bf16 instance of this template took 78% of the float time for half
-// the bytes, its 1024 CTAs at the w=2 out_norm 1.3 waves of one latency-
-// bound chain each), with the same arithmetic and roundings.
+// serves the float single launch, and the bf16 single launch at the shapes
+// groupnorm_bf16_kernel below does not take (ops/groupnorm.py::
+// single_route: channels per group not a multiple of 8, as n_feat 32, 96
+// and 160 give at out_norm); groupnorm_bf16_kernel, the bf16 kernel of its
+// own, takes the rest (the bf16 instance of this template took 78% of the
+// float time for half the bytes, its 1024 CTAs at the w=2 out_norm 1.3
+// waves of one latency-bound chain each), with the same arithmetic and
+// roundings.
 //
 // Sharded statistics (a height shard of a spatial mesh, whose GroupNorm
-// statistics span every shard; XLA's SPMD partitioner inserts them in JAX):
-// the kernel's MODE template argument.  MODE 0 is the single launch above.
-// MODE 1 (statistics) reads the shard once into shared memory as MODE 0
-// does, takes its local mean and then its local centred sum of squares
-// M2, writes (count, mean, M2) of each (sample, group) in fp32, and stops.
-// The host all-reduces the shards' triples into an (n_parts, n, groups, 3)
-// buffer.  MODE 2 (apply) merges the n_parts triples of its (sample,
-// group) in shard order by Chan's formula in its prologue:
-//   n = na + nb, d = mb - ma, mean = ma + d * (nb / n),
-//   M2 = M2a + M2b + d * d * (na * nb / n),
-// which keeps the centred variance of MODE 0 (no E[x^2] - E[x]^2
-// cancellation), then normalises, applies gamma/beta, the activation and
-// the FiLM epilogue as MODE 0 does, reading x once from device memory
-// (no slice in shared memory: it reads each pixel once).
+// statistics span every shard; XLA's SPMD partitioner inserts them in JAX)
+// take two launches of their own, groupnorm_stats_kernel and
+// groupnorm_apply_kernel at the end of this file: the first writes each
+// (sample, group)'s (count, mean, centred M2) of the shard, the host
+// all-reduces the shards' triples into an (n_parts, n, groups, 3) buffer,
+// and the second merges them by Chan's formula and normalises.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,17 +111,14 @@ __device__ __forceinline__ float activate(float y, int act) {
 
 // Grid: (sample, group) major, cluster rank minor.  Dynamic shared memory:
 // resident_pixels * cg elements of T, the CTA's slice as [pixel][channel of
-// group].  MODE: 0 the single launch, 1 statistics into stats (float
-// triples per (sample, group)), 2 apply with the n_parts triples of
-// partials.
-template <typename T, int V, int MODE>
+// group].
+template <typename T, int V>
 __global__ void groupnorm_act_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const T* __restrict__ scale,
     const T* __restrict__ shift, T* __restrict__ out, int hw, int c,
     int groups, int cluster_size, int pixels_per_cta, int resident_pixels,
-    int scale_stride, int shift_stride, float eps, int act,
-    float* __restrict__ stats, const float* __restrict__ parts, int n_parts) {
+    int scale_stride, int shift_stride, float eps, int act) {
   extern __shared__ float4 slice_storage[];
   __shared__ float warp_sums[32];
   __shared__ float partials[2];
@@ -158,57 +150,31 @@ __global__ void groupnorm_act_kernel(
     for (int p = spill; p < np; p += pstride) body(p, load<V>(xs + (long long)p * c));
   };
 
-  float mean, rstd;
-  if constexpr (MODE == 2) {
-    // Chan's merge of the shards' (count, mean, M2), in shard order.
-    const long long ngs = (long long)gridDim.x / cluster_size;
-    const float* p = parts + (long long)ng * 3;
-    float cnt = p[0], m2 = p[2];
-    mean = p[1];
-    for (int k = 1; k < n_parts; ++k) {
-      const float* q = parts + ((long long)k * ngs + ng) * 3;
-      const float nb = q[0], nab = cnt + nb, delta = q[1] - mean;
-      mean = mean + delta * (nb / nab);
-      m2 = m2 + q[2] + delta * delta * (cnt * nb / nab);
-      cnt = nab;
-    }
-    rstd = rsqrtf(m2 / cnt + eps);
-    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-  } else {
-    float s = 0.0f;
+  float s = 0.0f;
 #pragma unroll 4
-    for (int p = first; p < np; p += pstride) {
-      Pack<V> v = load<V>(xs + (long long)p * c);
-      if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
+  for (int p = first; p < np; p += pstride) {
+    Pack<V> v = load<V>(xs + (long long)p * c);
+    if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
 #pragma unroll
-      for (int i = 0; i < V; ++i) s += v.v[i];
-    }
-    const float count = (float)((long long)hw * cgroup);
-    mean = cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
-
-    float q = 0.0f;
-    sweep([&](int, const Pack<V>& v) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float d = v.v[i] - mean;
-        q += d * d;
-      }
-    });
-    const float m2 = cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size);
-    rstd = rsqrtf(m2 / count + eps);
-    // Done with the other CTAs' shared memory; wait for them before exiting,
-    // so no CTA's partials vanish while another still reads them.
-    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-    if constexpr (MODE == 1) {
-      if (rank == 0 && threadIdx.x == 0) {
-        stats[(long long)ng * 3] = count;
-        stats[(long long)ng * 3 + 1] = mean;
-        stats[(long long)ng * 3 + 2] = m2;
-      }
-      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-      return;
-    }
+    for (int i = 0; i < V; ++i) s += v.v[i];
   }
+  const float count = (float)((long long)hw * cgroup);
+  const float mean =
+      cluster_sum(cluster, &partials[0], block_sum(s, warp_sums), cluster_size) / count;
+
+  float q = 0.0f;
+  sweep([&](int, const Pack<V>& v) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float d = v.v[i] - mean;
+      q += d * d;
+    }
+  });
+  const float m2 = cluster_sum(cluster, &partials[1], block_sum(q, warp_sums), cluster_size);
+  const float rstd = rsqrtf(m2 / count + eps);
+  // Done with the other CTAs' shared memory; wait for them before exiting,
+  // so no CTA's partials vanish while another still reads them.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
 
   const Pack<V> ga = load<V>(gamma + ch), be = load<V>(beta + ch);
   const bool film = scale != nullptr;
@@ -228,33 +194,31 @@ __global__ void groupnorm_act_kernel(
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-template <typename T, int V, int MODE>
+template <typename T, int V>
 cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
                    const float* beta, const T* scale, const T* shift,
                    T* out, int hw, int c, int groups, int cluster,
                    int pixels_per_cta, int resident_pixels, int scale_stride,
-                   int shift_stride, float eps, int act, float* stats,
-                   const float* parts, int n_parts) {
+                   int shift_stride, float eps, int act) {
   cudaError_t err = cudaSuccess;
   if (cfg->dynamicSmemBytes > 48 * 1024)
-    err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V, MODE>,
+    err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg->dynamicSmemBytes);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V, MODE>, x, gamma, beta, scale,
-                             shift, out, hw, c, groups, cluster, pixels_per_cta,
-                             resident_pixels, scale_stride, shift_stride, eps, act, stats,
-                             parts, n_parts);
+    err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V>, x, gamma, beta, scale, shift,
+                             out, hw, c, groups, cluster, pixels_per_cta, resident_pixels,
+                             scale_stride, shift_stride, eps, act);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <typename T, int MODE>
+template <typename T>
 int entry(const T* x, const float* gamma, const float* beta, const T* scale,
           const T* shift, T* out, int n, int hw, int c, int groups,
           int scale_stride, int shift_stride, float eps, int act, int vec,
           int cluster, int threads, int pixels_per_cta, int resident_pixels,
-          int smem_bytes, float* stats, const float* parts, int n_parts, void* stream) {
+          int smem_bytes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * groups * cluster));
@@ -269,18 +233,17 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (vec == kVec<T>)
-    return (int)launch<T, kVec<T>, MODE>(&cfg, x, gamma, beta, scale, shift, out, hw, c,
-                                         groups, cluster, pixels_per_cta, resident_pixels,
-                                         scale_stride, shift_stride, eps, act, stats, parts,
-                                         n_parts);
-  if (vec == 1)
-    return (int)launch<T, 1, MODE>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
+    return (int)launch<T, kVec<T>>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
                                    cluster, pixels_per_cta, resident_pixels, scale_stride,
-                                   shift_stride, eps, act, stats, parts, n_parts);
+                                   shift_stride, eps, act);
+  if (vec == 1)
+    return (int)launch<T, 1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, cluster,
+                             pixels_per_cta, resident_pixels, scale_stride, shift_stride,
+                             eps, act);
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- The bf16 instance of MODE 0: segments of groups, one merge. ----
+// ---- The bf16 single launch: segments of groups, one merge. ----
 //
 // A unit is a (sample, segment): seg consecutive groups of one sample, so
 // that a pixel's slice of the unit is at least 64 bytes, two sectors (2
@@ -507,13 +470,322 @@ cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float*
   return cudaErrorInvalidValue;
 }
 
+// ---- The sharded launches: statistics, then apply. ----
+//
+// Statistics (groupnorm_stats_kernel).  Bound: bytes, the shard read once.
+// A unit is a (sample, segment): seg consecutive groups of one sample, the
+// fewest whose slice of a pixel is 64 bytes where the groups allow (the
+// out_norm's 16 channels a group: one group in fp32, two in bf16).  Its
+// pixels split over a cluster of `cluster` CTAs, a part of part_px each,
+// and the cluster is 1 (no barrier at all) wherever the units alone give
+// every SM a CTA (ops/groupnorm.py::stats_plan).  A thread keeps one pack
+// of the segment (one group's channels) and streams its pixels STATS_LOADS
+// packs at a time, all requested before any is used, straight into
+// registers: the statistics need one read, so no copy of the slice goes
+// to shared memory (two rounds in flight, the next requested before this
+// one merges, ran slower: 100 registers against 71, fewer CTAs an SM).
+// Each pack's centred moments (count, mean, M2) merge into the thread's by
+// Chan's formula as it lands; then the lanes of one group (a butterfly),
+// the block's warps in order and the cluster's CTAs in rank order, as
+// groupnorm_bf16_kernel does.  Rank 0 writes the unit's triples.
+//
+// Apply (groupnorm_apply_kernel).  Bound: bytes, the shard read once and
+// its output written once.  A streaming pass: no cluster and no barrier.
+// A CTA takes part_px whole pixels (all c channels) of one sample, so its
+// loads and stores are 16-byte packs running contiguously along the rows;
+// a thread keeps the same pack of every pixel, so its prologue merges, in
+// shard order by Chan's formula, the n_parts triples of the one group its
+// channels belong to (the formula and order of ops/groupnorm.py::
+// merge_stats), and gamma, beta and the FiLM rows then sit in registers.
+// The first APPLY_LOADS packs are requested before the prologue, so its
+// reads of the partials pass under them.  The activation (ACT, as
+// activate's act) and the FiLM epilogue (FILM) are template arguments, as
+// in groupnorm_bf16_kernel: a runtime choice costs a launch that follows a
+// conv its cold instruction fetch.  y rounds to T once, then the epilogue
+// rounds scale * y and + shift in T, as the single launches do.
+//
+// Both take V = 1 (a thread one channel) where the channels per group are
+// not a multiple of a 16-byte pack or a pointer is unaligned.
+
+// A pack of V elements of T as loaded: 16 bytes, or one element.
+template <typename T, int V>
+struct Raw {
+  uint4 bits;
+};
+template <typename T>
+struct Raw<T, 1> {
+  T bits;
+};
+
+// Read once: no L1 line kept for it.
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  Raw<T, V> r;
+  if constexpr (V == 1) {
+    r.bits = *p;
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r.bits.x), "=r"(r.bits.y), "=r"(r.bits.z), "=r"(r.bits.w)
+                 : "l"(p));
+  }
+  return r;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Pack<V> unpack(const Raw<T, V>& r) {
+  return load<V>(reinterpret_cast<const T*>(&r.bits));
+}
+
+constexpr int STATS_LOADS = 8;  // packs a thread requests at once
+constexpr int STATS_THREADS = 512;  // a CTA at most
+constexpr int APPLY_LOADS = 4;
+
+// Grid: unit (sample major, segment minor) major, cluster rank minor.
+// Thread t holds pack t % vs (vs = the segment's packs a pixel; the block
+// a multiple of it) of pixels t / vs, + pstride, ... of its part.
+template <typename T, int V>
+__global__ void __launch_bounds__(STATS_THREADS) groupnorm_stats_kernel(
+    const T* __restrict__ x, float* __restrict__ stats, int hw, int c, int groups, int seg,
+    int cluster_size, int part_px) {
+  __shared__ Moments warp_moments[STATS_THREADS / 32][MAX_SEG];
+  __shared__ Moments block_moments[MAX_SEG];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgroup = c / groups, vpg = cgroup / V, vs = vpg * seg;
+  const int segs = groups / seg;
+  const int unit = blockIdx.x / cluster_size, rank = blockIdx.x - unit * cluster_size;
+  const int nn = unit / segs, sg = unit - nn * segs;
+  const int p0 = min(hw, rank * part_px);
+  const int np = min(hw, p0 + part_px) - p0;
+  const int pstride = blockDim.x / vs;  // pixels the block covers per step
+  const int j = tid % vs, gl = j / vpg;  // this thread's pack and group in the segment
+  const T* xs = x + ((long long)nn * hw + p0) * c + sg * seg * cgroup + j * V;
+
+  Moments m{0.0f, 0.0f, 0.0f};
+  for (int p = tid / vs; p < np; p += STATS_LOADS * pstride) {
+    Raw<T, V> raw[STATS_LOADS];
+#pragma unroll
+    for (int i = 0; i < STATS_LOADS; ++i)
+      if (p + i * pstride < np) raw[i] = load_raw<T, V>(xs + (long long)(p + i * pstride) * c);
+#pragma unroll
+    for (int i = 0; i < STATS_LOADS; ++i) {
+      if (p + i * pstride < np) {
+        const Pack<V> v = unpack<T, V>(raw[i]);
+        float sum = 0.0f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) sum += v.v[e];
+        const float pm = sum * (1.0f / V);
+        float pq = 0.0f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float d = v.v[e] - pm;
+          pq += d * d;
+        }
+        m = merge(m, Moments{(float)V, pm, pq});
+      }
+    }
+  }
+  // The lanes of one group, as in groupnorm_bf16_kernel: the butterfly
+  // skips the lane bits that change the group (vpg and vs powers of two
+  // where seg > 1; with seg 1 every lane holds the one group).
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    if (off >= vpg && off < vs) continue;
+    const Moments o{__shfl_xor_sync(0xffffffffu, m.n, off),
+                    __shfl_xor_sync(0xffffffffu, m.mean, off),
+                    __shfl_xor_sync(0xffffffffu, m.m2, off)};
+    m = (lane & off) ? merge(o, m) : merge(m, o);
+  }
+  // A warp holds every group of the segment where vs <= 32, else 32 / vpg
+  // of them; the others stay empty.
+  if (lane < seg) warp_moments[warp][lane] = Moments{0.0f, 0.0f, 0.0f};
+  __syncwarp();
+  if (lane % vpg == 0 && lane < vs) warp_moments[warp][gl] = m;
+  __syncthreads();
+  const float count = (float)((long long)hw * cgroup);
+  float* out = stats + ((long long)nn * groups + sg * seg) * 3;
+  Moments b{0.0f, 0.0f, 0.0f};
+  if (tid < seg) {
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) b = merge(b, warp_moments[w][tid]);
+    block_moments[tid] = b;
+  }
+  if (cluster_size == 1) {
+    if (tid < seg) {
+      out[3 * tid] = count;
+      out[3 * tid + 1] = b.mean;
+      out[3 * tid + 2] = b.m2;
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every CTA's block_moments is written
+  if (rank == 0 && tid < seg) {
+    for (int r = 1; r < cluster_size; ++r)
+      b = merge(b, *cluster.map_shared_rank(&block_moments[tid], r));
+    out[3 * tid] = count;
+    out[3 * tid + 1] = b.mean;
+    out[3 * tid + 2] = b.m2;
+  }
+  // Rank 0 is done with the others' shared memory: no CTA leaves before.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <typename T>
+struct ApplyArgs {
+  const T* x;
+  const float* parts;  // (n_parts, n, groups, 3): count, mean, M2 of each shard
+  const float* gamma;
+  const float* beta;
+  const T* scale;  // FiLM rows, strides scale_stride and shift_stride (0 or c)
+  const T* shift;
+  T* out;
+  int n_parts, n, hw, c, groups, part_px, scale_stride, shift_stride;
+  float eps;
+};
+
+// Grid: sample major, part minor.  Thread t holds pack t % (c / V) of
+// pixels t / (c / V), + pstride, ... of its part (the block a multiple of
+// c / V).
+template <typename T, int V, int ACT, bool FILM>
+__global__ void __launch_bounds__(V == 1 ? 1024 : 512)
+    groupnorm_apply_kernel(const ApplyArgs<T> a) {
+  const int tid = threadIdx.x;
+  const int vpp = a.c / V;  // packs a pixel
+  const int ctas = (a.hw + a.part_px - 1) / a.part_px;  // a sample's
+  const int nn = blockIdx.x / ctas;
+  const int p0 = (blockIdx.x - nn * ctas) * a.part_px;
+  const int np = min(a.hw, p0 + a.part_px) - p0;
+  const int pstride = blockDim.x / vpp;  // pixels the block covers per step
+  const int ch = (tid % vpp) * V, g = ch / (a.c / a.groups);
+  const int first = tid / vpp;
+  const T* xs = a.x + ((long long)nn * a.hw + p0) * a.c + ch;
+  T* os = a.out + ((long long)nn * a.hw + p0) * a.c + ch;
+
+  Raw<T, V> raw[APPLY_LOADS];
+  auto fetch = [&](int p) {
+#pragma unroll
+    for (int i = 0; i < APPLY_LOADS; ++i)
+      if (p + i * pstride < np) raw[i] = load_raw<T, V>(xs + (long long)(p + i * pstride) * a.c);
+  };
+  fetch(first);
+
+  // Chan's merge of the shards' (count, mean, M2) of (sample, group), in
+  // shard order.
+  const long long ngs = (long long)a.n * a.groups, ng = (long long)nn * a.groups + g;
+  float cnt = a.parts[ng * 3], mean = a.parts[ng * 3 + 1], m2 = a.parts[ng * 3 + 2];
+  for (int k = 1; k < a.n_parts; ++k) {
+    const float* q = a.parts + (k * ngs + ng) * 3;
+    const float nb = q[0], nab = cnt + nb, delta = q[1] - mean;
+    mean = mean + delta * (nb / nab);
+    m2 = m2 + q[2] + delta * delta * (cnt * nb / nab);
+    cnt = nab;
+  }
+  const float rstd = rsqrtf(m2 / cnt + a.eps);
+  const Pack<V> ga = load<V>(a.gamma + ch), be = load<V>(a.beta + ch);
+  Pack<V> sc{}, sh{};
+  if constexpr (FILM) {
+    sc = load<V>(a.scale + (long long)nn * a.scale_stride + ch);
+    sh = load<V>(a.shift + (long long)nn * a.shift_stride + ch);
+  }
+
+  for (int p = first; p < np; p += APPLY_LOADS * pstride) {
+    if (p != first) fetch(p);
+#pragma unroll
+    for (int i = 0; i < APPLY_LOADS; ++i) {
+      const int q = p + i * pstride;
+      if (q < np) {
+        Pack<V> v = unpack<T, V>(raw[i]);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float y = activate((v.v[e] - mean) * rstd * ga.v[e] + be.v[e], ACT);
+          if constexpr (FILM)
+            v.v[e] = round_to<T>(round_to<T>(round_to<T>(y) * sc.v[e]) + sh.v[e]);
+          else
+            v.v[e] = y;
+        }
+        store<V>(os + (long long)q * a.c, v);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+cudaError_t apply_launch(dim3 grid, int threads, cudaStream_t stream, const ApplyArgs<T>& a,
+                         int act) {
+#define CAMELS_GROUPNORM_APPLY(A)                                                         \
+  if (act == A) {                                                                         \
+    if (a.scale)                                                                          \
+      groupnorm_apply_kernel<T, V, A, true><<<grid, threads, 0, stream>>>(a);             \
+    else                                                                                  \
+      groupnorm_apply_kernel<T, V, A, false><<<grid, threads, 0, stream>>>(a);            \
+    return cudaGetLastError();                                                            \
+  }
+  CAMELS_GROUPNORM_APPLY(0)
+  CAMELS_GROUPNORM_APPLY(1)
+  CAMELS_GROUPNORM_APPLY(2)
+  CAMELS_GROUPNORM_APPLY(3)
+#undef CAMELS_GROUPNORM_APPLY
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int vec, int seg,
+                int cluster, int threads, int part_px, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if ((vec != 1 && vec != kVec<T>) || groups <= 0 || c % groups || c / groups % vec)
+    return (int)cudaErrorInvalidValue;
+  const int vpg = c / groups / vec, vs = vpg * seg;
+  if (seg < 1 || seg > MAX_SEG || groups % seg || (seg > 1 && (vs & (vs - 1))) ||
+      threads > STATS_THREADS || threads % 32 || threads % vs || cluster < 1 ||
+      cluster > 8 || part_px < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;  // a cluster of 1 is launched as a plain grid
+  cudaError_t err =
+      vec == 1 ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1>, x, stats, hw, c,
+                                    groups, seg, cluster, part_px)
+               : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>>, x, stats, hw, c,
+                                    groups, seg, cluster, part_px);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+template <typename T>
+int apply_entry(const T* x, const float* parts, const float* gamma, const float* beta,
+                const T* scale, const T* shift, T* out, int n_parts, int n, int hw, int c,
+                int groups, int scale_stride, int shift_stride, float eps, int act, int vec,
+                int threads, int part_px, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if ((vec != 1 && vec != kVec<T>) || groups <= 0 || c % groups || c / groups % vec ||
+      n_parts < 1 || part_px < 1 || threads % (c / vec) || threads > (vec == 1 ? 1024 : 512))
+    return (int)cudaErrorInvalidValue;
+  const ApplyArgs<T> a{x,  parts, gamma,  beta,    scale,        shift,        out, n_parts,
+                       n,  hw,    c,      groups,  part_px,      scale_stride, shift_stride,
+                       eps};
+  const dim3 grid((unsigned)(n * ((hw + part_px - 1) / part_px)));
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(vec == 1 ? apply_launch<T, 1>(grid, threads, st, a, act)
+                        : apply_launch<T, kVec<T>>(grid, threads, st, a, act));
+}
+
 }  // namespace
 
-// x/out: (n, hw, c) contiguous NHWC float; gamma/beta: (c,) float;
-// scale/shift: null, or rows of c floats with strides 0 or c.  vec,
-// cluster, threads, pixels_per_cta, resident_pixels and smem_bytes come
-// from ops/groupnorm.py::launch_plan (vec 4 needs c/groups % 4 == 0 and
-// 16-byte aligned pointers).  Returns the cudaError_t of the launch.
+// x/out: (n, hw, c) contiguous NHWC of T; gamma/beta: (c,) float;
+// scale/shift: null, or rows of c elements of T with strides 0 or c.
+// vec, cluster, threads, pixels_per_cta, resident_pixels and smem_bytes
+// come from ops/groupnorm.py::launch_plan (vec a 16-byte pack needs
+// c/groups a multiple of it and 16-byte aligned pointers).  The float
+// single launch, and the bf16 one at the shapes bf16_plan refuses
+// (ops/groupnorm.py::single_route).  Returns the cudaError_t of the launch.
 #define CAMELS_GROUPNORM_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const T* x, const float* gamma, const float* beta,            \
                       const T* scale, const T* shift, T* out, int n, int hw, int c, \
@@ -521,12 +793,12 @@ cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float*
                       int act, int vec, int cluster, int threads,                   \
                       int pixels_per_cta, int resident_pixels, int smem_bytes,      \
                       void* stream) {                                               \
-    return entry<T, 0>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
-                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
-                       pixels_per_cta, resident_pixels, smem_bytes, nullptr,        \
-                       nullptr, 0, stream);                                         \
+    return entry<T>(x, gamma, beta, scale, shift, out, n, hw, c, groups,            \
+                    scale_stride, shift_stride, eps, act, vec, cluster, threads,    \
+                    pixels_per_cta, resident_pixels, smem_bytes, stream);           \
   }
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
+CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act_bf16_generic, bf16)
 #undef CAMELS_GROUPNORM_ENTRY
 
 // The bf16 instance of the single launch: x/out (n, hw, c) contiguous NHWC
@@ -573,32 +845,29 @@ extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, cons
   return (int)cudaErrorInvalidValue;
 }
 
-// The sharded mode.  Statistics: the arguments above (gamma, beta, the rows
-// and out unused, null) and stats, (n, groups, 3) float: count, mean, M2.
-// Apply: the arguments above with resident_pixels and smem_bytes 0, then
-// parts, (n_parts, n, groups, 3) float in shard order, and n_parts.
-#define CAMELS_GROUPNORM_SHARDED_ENTRIES(STATS, APPLY, T)                            \
-  extern "C" int STATS(const T* x, const float* gamma, const float* beta,           \
-                       const T* scale, const T* shift, T* out, int n, int hw,       \
-                       int c, int groups, int scale_stride, int shift_stride,       \
-                       float eps, int act, int vec, int cluster, int threads,       \
-                       int pixels_per_cta, int resident_pixels, int smem_bytes,     \
-                       float* stats, void* stream) {                                \
-    return entry<T, 1>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
-                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
-                       pixels_per_cta, resident_pixels, smem_bytes, stats, nullptr, \
-                       0, stream);                                                  \
-  }                                                                                 \
-  extern "C" int APPLY(const T* x, const float* gamma, const float* beta,           \
-                       const T* scale, const T* shift, T* out, int n, int hw,       \
-                       int c, int groups, int scale_stride, int shift_stride,       \
-                       float eps, int act, int vec, int cluster, int threads,       \
-                       int pixels_per_cta, int resident_pixels, int smem_bytes,     \
-                       const float* parts, int n_parts, void* stream) {             \
-    return entry<T, 2>(x, gamma, beta, scale, shift, out, n, hw, c, groups,         \
-                       scale_stride, shift_stride, eps, act, vec, cluster, threads, \
-                       pixels_per_cta, resident_pixels, smem_bytes, nullptr, parts, \
-                       n_parts, stream);                                            \
+// The sharded launches.  Statistics: x (n, hw, c) contiguous NHWC of T;
+// stats (n, groups, 3) float: each (sample, group)'s count, mean and
+// centred M2; vec, seg, cluster, threads and part_px from
+// ops/groupnorm.py::stats_plan.  Apply: x and out as the single launch's,
+// parts (n_parts, n, groups, 3) float in shard order, gamma/beta and the
+// rows as above, act as activate's; vec, threads and part_px from
+// ops/groupnorm.py::apply_plan.  Each returns the cudaError_t of its
+// launch.
+#define CAMELS_GROUPNORM_SHARDED_ENTRIES(STATS, APPLY, T)                                  \
+  extern "C" int STATS(const T* x, float* stats, int n, int hw, int c, int groups,        \
+                       int vec, int seg, int cluster, int threads, int part_px,           \
+                       void* stream) {                                                    \
+    return stats_entry<T>(x, stats, n, hw, c, groups, vec, seg, cluster, threads,         \
+                          part_px, stream);                                               \
+  }                                                                                       \
+  extern "C" int APPLY(const T* x, const float* parts, const float* gamma,                \
+                       const float* beta, const T* scale, const T* shift, T* out,         \
+                       int n_parts, int n, int hw, int c, int groups, int scale_stride,   \
+                       int shift_stride, float eps, int act, int vec, int threads,        \
+                       int part_px, void* stream) {                                       \
+    return apply_entry<T>(x, parts, gamma, beta, scale, shift, out, n_parts, n, hw, c,    \
+                          groups, scale_stride, shift_stride, eps, act, vec, threads,     \
+                          part_px, stream);                                               \
   }
 CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats, camels_groupnorm_apply, float)
 CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats_bf16, camels_groupnorm_apply_bf16,

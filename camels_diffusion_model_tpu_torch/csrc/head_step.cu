@@ -58,8 +58,9 @@
 // offset into it is encoded as -2 - offset, so the copies keep one int
 // each.  HALO false is the unsharded kernel as it was.
 //
-// The template serves the float unsharded launch and both types' halo
-// mode; the bf16 unsharded launch is a kernel of its own,
+// The template serves the float unsharded launch, both types' halo mode,
+// and the bf16 unsharded launch where c is not a multiple of 64; the bf16
+// unsharded launch is otherwise a kernel of its own,
 // head_step_bf16_kernel below (in bf16 the template's taps on CUDA
 // cores did twice the arithmetic per staged byte, one CTA fit an SM, and
 // the first chunk's copy was exposed), with the same arithmetic and
@@ -523,7 +524,9 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
 // the noise term; w_per_sample: null for the scalar w (floats); tanh_out: 1
 // to take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
 // from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
-// launch.
+// launch.  The float unsharded launch, and the bf16 one at the shapes
+// head_step_bf16_kernel does not take (ops/sampler_step.py::route: c not
+// a multiple of 64, as n_feat 32, 96 and 160 give).
 #define CAMELS_HEAD_STEP_ENTRY(NAME, E)                                              \
   extern "C" int NAME(const E* h, const E* wt, const E* bias, const float* x,       \
                       const float* z, const float* w_per_sample, float w,           \
@@ -536,6 +539,7 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream); \
   }
 CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
+CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16_generic, bf16)
 #undef CAMELS_HEAD_STEP_ENTRY
 
 // The bf16 instance (h, wt, bias bf16; c a multiple of 64): the arguments

@@ -17,7 +17,12 @@ and local centred sum of squares in fp32, the space axis gathers them with
 one all-reduce of a zeroed buffer, and an apply launch
 (:func:`groupnorm_apply`) merges them by Chan's formula in its prologue,
 then normalises, applies gamma/beta, the activation and the FiLM epilogue
-as the single launch does.  Each has its own launch counts.
+as the single launch does.  Each has its own launch counts and its own
+kernel in both instances (``csrc/groupnorm.cu``, ``groupnorm_stats_kernel``:
+each thread's packs in registers from one burst of loads, Chan's merge per
+thread, warp and block, no cluster barrier where the grid is wide enough;
+``groupnorm_apply_kernel``: a streaming pass over whole pixels, no
+cluster), planned by :func:`stats_plan` and :func:`apply_plan`.
 
 Two instances: float32 and bfloat16 I/O (the bf16 model's heads), each
 with its own launch count (``fused_groupnorm_act.launches`` and
@@ -29,8 +34,11 @@ own (``csrc/groupnorm.cu``, ``groupnorm_bf16_kernel``): a unit of a few
 groups of a sample (64 bytes of a pixel at least), its pixels split over
 a cluster, each CTA's part held in registers from one burst of loads; the
 statistics in one merge by Chan's formula (one cluster barrier);
-:func:`bf16_plan` chooses its geometry.  The sharded launches keep the
-float kernel's design in both instances.
+:func:`bf16_plan` chooses its geometry.  Where that plan refuses a shape
+(channels per group not a multiple of 8, as the out_norm of n_feat 32, 96
+and 160 gives), the bf16 single launch takes the float kernel's bf16
+instance instead (:func:`single_route`), counted under ``.launches_bf16``
+and also under ``.launches_generic_bf16``.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' I/O types
 C_NAME = "camels_groupnorm_act"  # the float single launch
 BF16_NAME = "camels_groupnorm_act_bf16"  # the bf16 single launch (bf16_plan)
+BF16_GENERIC_NAME = "camels_groupnorm_act_bf16_generic"  # the float kernel's bf16 instance
 STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
                torch.bfloat16: "camels_groupnorm_stats_bf16"}
 APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
@@ -72,10 +81,14 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 )
-# The sharded launches take two more: the (n, groups, 3) statistics out
-# (stats), or the (n_parts, n, groups, 3) partials in and n_parts (apply).
-_STATS_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_void_p)
-_APPLY_ARGTYPES = _ARGTYPES[:-1] + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+# The statistics launch: x, stats, n, hw, c, groups, vec, seg, cluster,
+# threads, part_px, the stream.
+_STATS_ARGTYPES = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+# The apply launch: x, partials, gamma, beta, scale, shift, out, n_parts, n,
+# hw, c, groups, the row strides, eps, act, vec, threads, part_px, the
+# stream.
+_APPLY_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_float,)
+                   + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 # The bf16 launch: x, gamma, beta, scale, shift, out, n, hw, c, groups, the
 # row strides, eps, act, then seg, cluster, threads, packs, part_px and
 # the stream.
@@ -89,6 +102,14 @@ BF16_PART = 128 * 1024  # bytes of a CTA's part at most: 16 packs of 512 threads
 BF16_PACKS = (1, 2, 4, 8, 16)  # 16-byte packs a thread may hold (kernel instances)
 BF16_SPREAD = 256  # CTAs a launch should reach: a small batch's units split further
 BF16_PART_MIN = 8 * 1024  # bytes a part keeps when it is split for the grid's sake
+
+# stats_plan's and apply_plan's choices (the sharded launches).
+STATS_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
+STATS_THREADS = 256  # a CTA, in whole warps and whole pixels
+STATS_MAX_THREADS = 512  # the statistics kernel's launch bound
+STATS_PART_MIN = 16 * 1024  # bytes a part keeps when a unit splits over a cluster
+APPLY_THREADS = 256  # a CTA, in whole warps and whole pixels
+APPLY_PACKS = 16  # packs a thread takes at most: four rounds of the kernel's four loads
 
 
 class Plan(NamedTuple):
@@ -233,6 +254,130 @@ def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     return Bf16Plan(seg, cluster, threads, packs, part)
 
 
+def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = True,
+                 sms: int = 132) -> tuple:
+    """``(C name, plan)`` of :func:`fused_groupnorm_act`'s launch for a
+    ``dtype`` input: the float kernel under :func:`launch_plan` for
+    float32; for bfloat16 the bf16 kernel under :func:`bf16_plan`, or,
+    where that plan refuses the shape, the float kernel's bf16 instance
+    (``BF16_GENERIC_NAME``) under :func:`launch_plan`.  A function of the
+    shape, the dtype and the alignment alone, chosen before the launch;
+    raises ``ValueError`` where no kernel takes the shape."""
+    if dtype != torch.bfloat16:
+        return C_NAME, launch_plan(n, hw, c, groups, aligned)
+    try:
+        return BF16_NAME, bf16_plan(n, hw, c, groups, aligned, sms)
+    except ValueError:
+        return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
+
+
+class StatsPlan(NamedTuple):
+    """The statistics launch's geometry for one shard shape."""
+
+    vec: int  # elements per access: a 16-byte pack (4 floats, 8 bf16) or 1
+    seg: int  # groups of a unit
+    cluster: int  # CTAs that share one unit (1: no cluster, no barrier)
+    threads: int  # per CTA
+    part_px: int  # a CTA's run of pixels of its unit
+
+    def ctas(self, n: int, groups: int) -> int:
+        return n * groups // self.seg * self.cluster
+
+
+def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
+               element_bytes: int = 4, sms: int = 132) -> StatsPlan:
+    """Geometry of :func:`groupnorm_stats` for ``n`` samples of ``hw``
+    pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
+    each (4 fp32, 2 bf16), on a card of ``sms`` SMs.
+
+    A thread reads one 16-byte pack of a pixel (or one element: channels
+    per group not a multiple of a pack, or ``aligned`` false).  A unit is
+    ``seg`` consecutive groups of a sample: the fewest whose slice of a
+    pixel is ``STATS_LINE`` bytes, within ``BF16_MAX_SEG`` (one group where
+    the packs of a group are not a power of two: the kernel's warp
+    butterfly splits a warp's lanes by their bits).  The units' pixels
+    split over a cluster, doubled from 1 while the grid has fewer CTAs
+    than the card has SMs and a part would keep ``STATS_PART_MIN`` bytes:
+    a cluster of 1 takes no barrier.  ``STATS_THREADS`` threads in whole
+    warps and whole pixels of the unit, fewer where a part fills fewer.
+    Raises ``ValueError`` where the channels do not split into the groups
+    or a pixel's slice of a unit is wider than ``STATS_MAX_THREADS``
+    threads in whole warps."""
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    cg = c // groups
+    wide = 16 // element_bytes
+    vec = wide if aligned and cg % wide == 0 else 1
+    vpg = cg // vec  # packs a group
+    seg = 1
+    while (seg < BF16_MAX_SEG and groups % (2 * seg) == 0
+           and seg * cg * element_bytes < STATS_LINE and vpg & (vpg - 1) == 0):
+        seg *= 2
+    vs = seg * vpg
+    whole = math.lcm(32, vs)  # threads in whole warps and whole pixels
+    if whole > STATS_MAX_THREADS:
+        raise ValueError(f"a group of {cg} channels takes {vs} threads a pixel, over "
+                         f"{STATS_MAX_THREADS} in whole warps")
+    units = n * groups // seg
+
+    def part_bytes(cluster):
+        return -(-hw // cluster) * seg * cg * element_bytes
+
+    cluster = 1
+    while (cluster < MAX_CLUSTER and cluster < hw and units * cluster < sms
+           and part_bytes(cluster) // 2 >= STATS_PART_MIN):
+        cluster *= 2
+    part = max(1, -(-hw // cluster))
+    threads = max(whole, STATS_THREADS - STATS_THREADS % whole)
+    threads = min(threads, -(-part * vs // whole) * whole)
+    return StatsPlan(vec, seg, cluster, threads, part)
+
+
+class ApplyPlan(NamedTuple):
+    """The apply launch's geometry for one shard shape."""
+
+    vec: int  # elements per access: a 16-byte pack (4 floats, 8 bf16) or 1
+    threads: int  # per CTA
+    part_px: int  # a CTA's run of whole pixels of one sample
+
+    def ctas(self, n: int, hw: int) -> int:
+        return n * -(-hw // self.part_px)
+
+
+def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
+               element_bytes: int = 4, sms: int = 132) -> ApplyPlan:
+    """Geometry of :func:`groupnorm_apply` for ``n`` samples of ``hw``
+    pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
+    each, on a card of ``sms`` SMs.
+
+    A CTA takes whole pixels of one sample, a thread the same 16-byte pack
+    (or element, as :func:`stats_plan`) of each: ``APPLY_THREADS`` threads
+    in whole warps and whole pixels.  A thread takes ``APPLY_PACKS``
+    pixels, halved while the grid has fewer CTAs than the card has SMs
+    (at phase (r1)'s shapes two CTAs an SM ran no faster, and the
+    up0_norm's 8-pixel parts slower: ``scripts/compare_torch_kernels.py
+    --sharded``).  Raises
+    ``ValueError`` where the channels do not split into the groups or a
+    pixel is wider than the kernel's launch bound in whole warps (512
+    threads of packs, 1024 of elements)."""
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    wide = 16 // element_bytes
+    vec = wide if aligned and c // groups % wide == 0 else 1
+    vpp = c // vec  # packs a pixel
+    whole = math.lcm(32, vpp)
+    most = 1024 if vec == 1 else 512
+    if whole > most:
+        raise ValueError(f"a pixel of {vpp} accesses is wider than {most} threads in whole "
+                         f"warps")
+    threads = max(whole, APPLY_THREADS - APPLY_THREADS % whole)
+    step = threads // vpp  # pixels a CTA covers per step
+    packs = APPLY_PACKS
+    while packs > 1 and n * -(-hw // (step * packs)) < sms:
+        packs //= 2
+    return ApplyPlan(vec, threads, step * packs)
+
+
 def activation(y, act: str):
     """The activations of the JAX package (``context_unet.py:54-61``)."""
     if act == "relu":
@@ -370,26 +515,28 @@ def _count(fn, x) -> None:
         fn.launches += 1
 
 
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def groupnorm_stats(x, num_groups: int = 8) -> torch.Tensor:
     """The statistics launch of the sharded mode: :func:`groupnorm_stats_plain`
     of the NHWC shard ``x`` (float32 or bfloat16), in one read of ``x``.
-    On CUDA tensors it launches K2's statistics kernel (raising for another
-    dtype or where autograd would record the call); on CPU tensors it runs
-    the plain version."""
+    On CUDA tensors it launches K2's statistics kernel under
+    :func:`stats_plan` (raising for another dtype or where autograd would
+    record the call); on CPU tensors it runs the plain version."""
     if x.device.type == "cpu":
         return groupnorm_stats_plain(x, num_groups)
-    tensors = _check("groupnorm_stats", x, None, None, None)
+    _check("groupnorm_stats", x, None, None, None)
     b, h, w, c = x.shape
     out = torch.empty((b, num_groups, 3), dtype=torch.float32, device=x.device)
-    plan = launch_plan(b, h * w, c, num_groups, x.data_ptr() % 16 == 0,
-                       ELEMENT_BYTES[x.dtype])
+    plan = stats_plan(b, h * w, c, num_groups, x.data_ptr() % 16 == 0,
+                      ELEMENT_BYTES[x.dtype], _sms(x))
     if out.numel() == 0:
         return out
-    fn = _build.kernel(STATS_NAMES[x.dtype], _STATS_ARGTYPES)
-    err = fn(tensors["x"].data_ptr(), None, None, None, None, None, b, h * w, c, num_groups,
-             0, 0, 0.0, 0, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
-             plan.resident_pixels, plan.smem_bytes, out.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.kernel(STATS_NAMES[x.dtype], _STATS_ARGTYPES)(
+        x.data_ptr(), out.data_ptr(), b, h * w, c, num_groups, *plan,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, STATS_NAMES[x.dtype])
     _count(groupnorm_stats, x)
     return out
@@ -405,8 +552,8 @@ def groupnorm_apply(x, partials, gamma, beta, num_groups: int = 8, eps: float = 
     the ``(n_parts, B, G, 3)`` fp32 ``partials`` merged by Chan's formula in
     the kernel's prologue, then the shard ``x`` normalised as
     :func:`fused_groupnorm_act` does (arguments as there).  On CUDA tensors
-    it launches K2's apply kernel; on CPU tensors it runs the plain
-    version."""
+    it launches K2's apply kernel under :func:`apply_plan`; on CPU tensors
+    it runs the plain version."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
@@ -420,21 +567,17 @@ def groupnorm_apply(x, partials, gamma, beta, num_groups: int = 8, eps: float = 
                          f"{num_groups}, 3) tensor on {x.device}")
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
-    # x is read once, from device memory: no slice is kept on chip.
-    plan = launch_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype])._replace(
-        smem_bytes=0, resident_pixels=0)
+    plan = apply_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype], _sms(x))
     if out.numel() == 0:
         return out
     rows, strides = (None, None), (0, 0)
     if film is not None:
         rows = tuple(t.data_ptr() for t in film)
         strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
-    fn = _build.kernel(APPLY_NAMES[x.dtype], _APPLY_ARGTYPES)
-    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows, out.data_ptr(), b,
-             h * w, c, num_groups, *strides, float(eps), ACTS[act], plan.vec, plan.cluster,
-             plan.threads, plan.pixels_per_cta, plan.resident_pixels, plan.smem_bytes,
-             partials.data_ptr(), partials.shape[0],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.kernel(APPLY_NAMES[x.dtype], _APPLY_ARGTYPES)(
+        x.data_ptr(), partials.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
+        out.data_ptr(), partials.shape[0], b, h * w, c, num_groups, *strides, float(eps),
+        ACTS[act], *plan, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, APPLY_NAMES[x.dtype])
     _count(groupnorm_apply, x)
     return out
@@ -484,12 +627,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (out, *tensors.values()))
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        plan = bf16_plan(b, h * w, c, num_groups, aligned,
-                         torch.cuda.get_device_properties(x.device).multi_processor_count)
-    else:
-        plan = launch_plan(b, h * w, c, num_groups, aligned)
+    name, plan = single_route(b, h * w, c, num_groups, x.dtype, aligned, _sms(x))
     if out.numel() == 0:
         return out
     rows, strides = (None, None), (0, 0)
@@ -499,16 +637,19 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows, out.data_ptr(), b, h * w,
             c, num_groups, *strides, float(eps), ACTS[act])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
-        err = _build.kernel(BF16_NAME, _BF16_ARGTYPES)(*head, *plan, stream)
+    if name == BF16_NAME:
+        err = _build.kernel(name, _BF16_ARGTYPES)(*head, *plan, stream)
     else:
-        err = _build.kernel(C_NAME, _ARGTYPES)(
+        err = _build.kernel(name, _ARGTYPES)(
             *head, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
             plan.resident_pixels, plan.smem_bytes, stream)
-    _build.check(err, BF16_NAME if bf16 else C_NAME)
+    _build.check(err, name)
     _count(fused_groupnorm_act, x)
+    if name == BF16_GENERIC_NAME:
+        fused_groupnorm_act.launches_generic_bf16 += 1
     return out
 
 
 fused_groupnorm_act.launches = 0
-fused_groupnorm_act.launches_bf16 = 0
+fused_groupnorm_act.launches_bf16 = 0  # every bf16 launch
+fused_groupnorm_act.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME

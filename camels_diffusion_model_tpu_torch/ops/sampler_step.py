@@ -25,8 +25,12 @@ bf16 unsharded launch is a kernel of its own (``csrc/head_step.cu``,
 ``head_step_bf16_kernel``): the nine per-tap partials of a band as one
 product on the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 sums),
 each warp streaming its tiles of ``h`` through a ring of its own in
-shared memory; :func:`bf16_plan` chooses its band height.  The halo mode
-keeps the float kernel's design in both instances.
+shared memory; :func:`bf16_plan` chooses its band height.  Where that
+plan refuses a shape (``c`` not a multiple of 64, as n_feat 32, 96 and 160
+give), the bf16 unsharded launch takes the float kernel's bf16 instance
+instead (:func:`route`), counted under ``.launches_bf16`` and also under
+``.launches_generic_bf16``.  The halo mode keeps the float kernel's design
+in both instances.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ BF16_BLOCK = 64  # channels of an item: 128 bytes a pixel, 8 copies of 16
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
 C_NAME = "camels_head_step"  # the float unsharded launch
 BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
+BF16_GENERIC_NAME = "camels_head_step_bf16_generic"  # the float kernel's bf16 instance
 HALO_NAMES = {torch.float32: "camels_head_step_halo",
               torch.bfloat16: "camels_head_step_halo_bf16"}
 
@@ -272,6 +277,28 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows))
 
 
+def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
+          cfg: bool = True, aligned: bool = True, halo: bool = False,
+          sms: int = SMS) -> tuple:
+    """``(C name, plan)`` of :func:`fused_head_step`'s launch for features
+    of ``dtype`` (arguments as :func:`launch_plan`'s): with ``halo`` the
+    float kernel's halo mode; else for float32 the float kernel, and for
+    bfloat16 the bf16 kernel under :func:`bf16_plan` or, where that plan
+    refuses the shape, the float kernel's bf16 instance
+    (``BF16_GENERIC_NAME``) under :func:`launch_plan`.  A function of the
+    shape, the dtype and the alignment alone, chosen before the launch;
+    raises ``ValueError`` where no kernel takes the shape."""
+    args = (units, height, width, c, cout, cfg, aligned, sms)
+    if halo:
+        return HALO_NAMES[dtype], launch_plan(*args, ELEMENT_BYTES[dtype])
+    if dtype != torch.bfloat16:
+        return C_NAME, launch_plan(*args)
+    try:
+        return BF16_NAME, bf16_plan(*args)
+    except ValueError:
+        return BF16_GENERIC_NAME, launch_plan(*args, 2)
+
+
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
                     sigma: float, guide_w=None, tanh: bool = False, halo=None):
     """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
@@ -344,18 +371,13 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
     aligned = all(t.data_ptr() % 16 == 0 for t in (h, wt, tensors.get("halo", h)))
-    bf16 = h.dtype == torch.bfloat16 and halo is None
-    if bf16:
-        plan = bf16_plan(b, height, width, c, weight.shape[0], cfg, aligned,
-                         torch.cuda.get_device_properties(h.device).multi_processor_count)
-    else:
-        plan = launch_plan(b, height, width, c, weight.shape[0], cfg, aligned,
-                           torch.cuda.get_device_properties(h.device).multi_processor_count,
-                           ELEMENT_BYTES[h.dtype])
+    name, plan = route(b, height, width, c, h.dtype, weight.shape[0], cfg, aligned,
+                       halo is not None,
+                       torch.cuda.get_device_properties(h.device).multi_processor_count)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    name = (HALO_NAMES[h.dtype] if halo is not None else BF16_NAME if bf16 else C_NAME)
+    bf16 = name == BF16_NAME
     fn = _build.kernel(name, _HALO_ARGTYPES if halo is not None
                        else _BF16_ARGTYPES if bf16 else _ARGTYPES)
     geometry = (plan.threads,) if bf16 else (plan.ck, plan.stages, plan.threads)
@@ -374,10 +396,13 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
+    if name == BF16_GENERIC_NAME:
+        fused_head_step.launches_generic_bf16 += 1
     return out
 
 
 fused_head_step.launches = 0
-fused_head_step.launches_bf16 = 0
+fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
+fused_head_step.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
 fused_head_step.launches_halo = 0
 fused_head_step.launches_halo_bf16 = 0

@@ -14,7 +14,9 @@ Phases, each timed on its own line:
       main path gives it (max abs error, ms, plain ms, library ms; times
       with the data in device memory, not L2), the deep and big models'
       shapes included (K1 with their tanh, K2 with leaky ReLU and GELU and
-      on its spill path, K3 at their widths; 10 maps, 32 for validation);
+      on its spill path, K3 at their widths; 10 maps, 32 for validation),
+      and the float kernels' bf16 instances of K1 and K2 at the narrow bf16
+      model's shapes of phase (o);
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -65,8 +67,11 @@ Phases, each timed on its own line:
       with maps/min, the largest map difference and each row's P(k)
       deviation beside fp32's; four strided steps and the battery's ELBO of
       2 maps on the card against the CPU; a bf16 train step at batch 32
-      against the CPU with its time, idle share and peak memory; and
-      ``run_experiment("nov26", dtype="bfloat16")`` with its resume.  bf16
+      against the CPU with its time, idle share and peak memory;
+      ``run_experiment("nov26", dtype="bfloat16")`` with its resume; and a
+      narrow bf16 model (n_feat 32, seeded init), whose out_norm and
+      out_conv2 take the float kernels' bf16 instances: its forward and
+      four strided w=2 steps on the card against the CPU.  bf16
       gates are yardsticks: the card's bf16 within ``BF16_FACTOR`` x the
       distance of the reference's bf16 from its fp32;
   (p) the reference's own workflow at full width: the native C++ prep
@@ -75,7 +80,7 @@ Phases, each timed on its own line:
       numpy path, with their largest difference (gate: an ulp of 1.0); the
       committed checkpoint exported to a reference ``.pth`` and served by
       the comparison CLI (``cli.sample.generate_comparison_plot``: the
-      exact 1500-step chain, w 0, 15 maps; wall time and maps/min); the
+      exact 1500-step chain, w 0, 8 maps; wall time and maps/min); the
       ``.pth`` model's eps on the card against the ``.msgpack`` model with
       the threefry shortcut put in and against the CPU; the stochastic
       init_conv shortcut: four exact-chain steps and an ELBO batch on the
@@ -192,7 +197,8 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     groupnorm_stats,
     groupnorm_stats_plain,
 )
-from camels_diffusion_model_tpu_torch.ops.groupnorm import launch_plan as groupnorm_launch_plan
+from camels_diffusion_model_tpu_torch.ops.groupnorm import BF16_NAME as GROUPNORM_BF16_NAME
+from camels_diffusion_model_tpu_torch.ops.groupnorm import single_route as groupnorm_route
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
     guided_eps,
@@ -242,8 +248,9 @@ BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
 FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MB L2 (see time_ms)
 BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # Kernels whose ptxas report (registers, shared memory, spills) phase (a)
-# prints: the bf16 designs of K1 and K2.
-PTXAS_KERNELS = ("head_step_bf16_kernel", "groupnorm_bf16_kernel")
+# prints: the bf16 designs of K1 and K2, and K2's sharded launches.
+PTXAS_KERNELS = ("head_step_bf16_kernel", "groupnorm_bf16_kernel", "groupnorm_stats_kernel",
+                 "groupnorm_apply_kernel")
 
 # Kernel vs plain version on the card.  K3 differs only by the fused
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
@@ -264,7 +271,10 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # its statistics launch relative to each column's largest value
        # (count, mean, centred sum of squares), sums in another order.
        "head_step_halo": 1e-4, "groupnorm_apply": 1e-4, "groupnorm_stats": 1e-5,
-       "head_step_halo_bf16": 4, "groupnorm_apply_bf16": 2, "groupnorm_stats_bf16": 1e-5}
+       "head_step_halo_bf16": 4, "groupnorm_apply_bf16": 2, "groupnorm_stats_bf16": 1e-5,
+       # The float kernels' bf16 instances, which take the bf16 shapes the
+       # bf16 kernels do not (narrow models): as those.
+       "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2}
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
 # reference's (JAX's golden, the CPU's) bf16 distance from its fp32 on the
@@ -291,6 +301,11 @@ WRAPPERS = {
     "head_step_halo_bf16": (fused_head_step, "launches_halo_bf16"),
     "groupnorm_stats_bf16": (groupnorm_stats, "launches_bf16"),
     "groupnorm_apply_bf16": (groupnorm_apply, "launches_bf16"),
+    # The float kernels' bf16 instances (the narrow bf16 model of phase o):
+    # their launches are also counted in head_step_bf16's and
+    # groupnorm_act_bf16's.
+    "head_step_generic_bf16": (fused_head_step, "launches_generic_bf16"),
+    "groupnorm_act_generic_bf16": (fused_groupnorm_act, "launches_generic_bf16"),
 }
 
 
@@ -318,6 +333,7 @@ LIBRARY = {
                        "per-channel affine on the NHWC layout",
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
+LIBRARY.update({f"{k}_generic_bf16": LIBRARY[f"{k}_bf16"] for k in ("head_step", "groupnorm_act")})
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -388,7 +404,12 @@ RUN_T, RUN_EPOCHS = 20, 1
 # Phase (p).  The native and numpy "code" normalisations round differently
 # on some pixels of maps in [0, 1]: by at most an ulp of 1.0 (2^-23).
 PREP_MAPS, PREP_SIZE, PREP_TOL = 1500, 256, 2.0**-23
-CLI_MAPS = 15  # the comparison CLI's default n_maps
+# The comparison CLI's maps: 8, where its default is 15.  Its exact chain of
+# 1500 steps at 15 maps sits on cuDNN's fp32 cliff (a tiled FFT at most
+# batch sizes but 1-5 and multiples of 8) and took 228-355 s of the
+# script's 1200 s; at 8 maps cuDNN takes its fast algorithms (PERF.md
+# section 5).
+CLI_MAPS = 8
 # Phase (q).  Two ranks sharing the card: the sampler's 5 maps split 3 + 2
 # real rows and a pad row, and cuDNN picks its algorithms by batch size
 # (PERF.md section 5), so a rank's maps may differ from one process's by
@@ -413,6 +434,7 @@ SOURCES = {
 SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
+SOURCES.update({f"{k}_generic_bf16": SOURCES[k] for k in ("head_step", "groupnorm_act")})
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
@@ -424,6 +446,15 @@ SPATIAL_MESH, SPATIAL_MAPS, SPATIAL_T, SPATIAL_TOL = (1, 2), 16, 10, 1e-4
 SPATIAL_PER_STEP = {"head_step_halo": 1, "groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
 SPATIAL_PER_FORWARD = {"groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
 QUANT_BATCH = 32  # phase (r3): the training batch through down2.block2.conv2
+# Phase (o): a narrow bf16 model, whose out_norm (4 channels a group) and
+# out_conv2 (32 channels) the bf16 kernels' plans refuse, so the float
+# kernels' bf16 instances take them; its up0_norm (8 channels a group)
+# keeps the bf16 kernel.  Its forward and four strided w=2 steps on 2 maps,
+# as check_sampler_vs_cpu takes them.  Launches of the float kernels' bf16
+# instances a decoder call: K2 at out_norm, K1 at the step.
+NARROW_FEAT, NARROW_MAPS = 32, 2
+NARROW_PER_STEP = {"head_step_generic_bf16": 1, "groupnorm_act_generic_bf16": 1}
+NARROW_PER_FORWARD = {"head_step_generic_bf16": 0, "groupnorm_act_generic_bf16": 1}
 
 
 def phase(name: str, t0: float) -> None:
@@ -683,7 +714,8 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     """Phase (c)'s cases of the bf16 instances: the canonical w=2 serving
     shapes (summed: one reverse step of the bf16 model) and w=0, and the
     deep and big models' shapes at 10 maps; weights and norm parameters of
-    the serving model, features and rows in bf16."""
+    the serving model, features and rows in bf16.  And the float kernels'
+    bf16 instances at the narrow bf16 model's K1 and out_norm shapes."""
     bf = torch.bfloat16
     cases = []
     head = (model.out_conv2.weight.detach().to(bf), model.out_conv2.bias.detach().to(bf))
@@ -724,6 +756,29 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
             lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
                                                     beta.to(x.dtype), 1e-5),
             args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed))
+    # The float kernels' bf16 instances at the narrow bf16 model's shapes:
+    # phase (o)'s strided w=2 steps (summed), and served at BATCH maps.
+    c = NARROW_FEAT
+    for label, b, summed in ((f"n_feat {c}, cfg w=2 (phase o)", NARROW_MAPS, True),
+                             (f"n_feat {c}, cfg w=2, {BATCH} maps", BATCH, False)):
+        x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
+        h = randn(2 * b, 64, 64, c).relu().to(bf)
+        args = (h, randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(bf), randn(1).to(bf), x, z,
+                c_eps, inv_sqrt_a, sigma, 2.0, False)
+        cases.append((
+            "head_step_generic_bf16", f"{label} h{tuple(h.shape)} bf16, x{tuple(x.shape)} fp32",
+            fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                 padding=1),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, summed))
+        xg = randn(2 * b, 64, 64, c).to(bf)
+        args = (xg, randn(c), randn(c), 8, 1e-5, "relu", None)
+        cases.append((
+            "groupnorm_act_generic_bf16", f"out_norm, {label} {tuple(xg.shape)}",
+            fused_groupnorm_act, groupnorm_act_plain,
+            lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
+                                                    beta.to(x.dtype), 1e-5),
+            args, nbytes(*args, xg), xg.numel() * 10, summed))
     for label, batch, shape, summed in (("stage 0", n, (16, 16, 256), True),
                                         ("stage 1 (serve w=2)", n, (32, 32, 128), True),
                                         ("deep stage 1", VARIANT_BATCH, (32, 32, 256), False),
@@ -1127,11 +1182,11 @@ def spilled_bytes(x, groups: int) -> int:
     """Bytes K2's spill path reads again for NHWC ``x``: the pixels of each
     CTA's slice past its resident ones, by the variance and the output
     passes.  The bf16 kernel has no spill path (``bf16_plan`` holds every
-    part in shared memory or raises)."""
-    if x.dtype == torch.bfloat16:
-        return 0
+    part in registers or refuses the shape)."""
     n, h, w, c = x.shape
-    plan = groupnorm_launch_plan(n, h * w, c, groups, element_bytes=x.element_size())
+    name, plan = groupnorm_route(n, h * w, c, groups, x.dtype)
+    if name == GROUPNORM_BF16_NAME:
+        return 0
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
         c // groups) * x.element_size()
 
@@ -1540,9 +1595,47 @@ def check_bf16(dev, drive, variables, cpu32, served, train_ref) -> None:
         maps_np[:2], served16[2]["params"][:2], 10, "bf16 ELBO of 2 served w=2 maps")
     del model16, cpu16
     torch.cuda.empty_cache()
+    check_bf16_narrow(dev, drive)
     check_train_step_bf16(variables, dev, train_batch(), train_ref)
     torch.cuda.empty_cache()
     check_nov26(dev, drive, "bfloat16")
+
+
+def check_bf16_narrow(dev, drive) -> None:
+    """Phase (o): the canonical model at n_feat ``NARROW_FEAT`` from a
+    seeded init, folded in bf16 (module docstring): its forward on
+    ``NARROW_MAPS`` maps and four strided w=2 steps on the card against the
+    CPU's bf16, within ``BF16_FACTOR`` x the CPU's bf16 distance from its
+    fp32, each with its launch counts."""
+    bf = torch.bfloat16
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(VARIANT_SEED)
+        variables = to_jax_variables(ContextUnet.canonical(n_feat=NARROW_FEAT).state_dict())
+    gpu16 = load_model(variables, dev, dtype=bf)
+    cpu16, cpu32 = (load_model(variables, "cpu", dtype=d) for d in (bf, torch.float32))
+    rs = np.random.RandomState(3)
+    x = torch.tensor(rs.randn(NARROW_MAPS, 64, 64, 1).astype(np.float32))
+    t = torch.tensor(rs.rand(NARROW_MAPS).astype(np.float32))
+    c = torch.tensor(rs.rand(NARROW_MAPS, cpu16.n_cfeat).astype(np.float32))
+    with torch.inference_mode():
+        got = drive("narrow_bf16_forward", lambda: gpu16(x.to(dev), t.to(dev), c.to(dev)),
+                    forwards=1, dtype="bfloat16", extra=NARROW_PER_FORWARD)
+        want, want32 = cpu16(x, t, c), cpu32(x, t, c)
+    if got.dtype != bf or want.dtype != bf:
+        raise SystemExit(f"n_feat {NARROW_FEAT} bf16 forward: eps is {got.dtype}, {want.dtype}")
+    yard = (want.float() - want32).abs().max().item()
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    print(f"  n_feat {NARROW_FEAT} bf16 forward, {NARROW_MAPS} maps, card vs CPU: max abs err "
+          f"{err:.3e} (tol {BF16_FACTOR * yard:g} = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 "
+          f"{yard:.3e})", flush=True)
+    if not err <= BF16_FACTOR * yard:
+        raise SystemExit(f"n_feat {NARROW_FEAT} bf16 forward on the card vs the CPU: {err} > "
+                         f"{BF16_FACTOR * yard}")
+    taus = [1, 4, 7, 10]
+    drive("narrow_bf16_steps", lambda: check_sampler_vs_cpu(
+        (gpu16, cpu16, cpu32), taus, "beta", f"n_feat {NARROW_FEAT} bf16 strided w=2"),
+        steps=len(taus), dtype="bfloat16",
+        extra={k: len(taus) * v for k, v in NARROW_PER_STEP.items()})
 
 
 def check_native_prep() -> None:
@@ -2312,7 +2405,7 @@ def make_drive(launches: dict):
     """``drive``, which runs one main path and records its launch counts
     in ``launches[path]``."""
 
-    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32"):
+    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32", extra=None):
         """Run one main path with every launch count at 0 and read the
         counts: a sampler path of ``steps`` reverse steps must show
         ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
@@ -2322,7 +2415,8 @@ def make_drive(launches: dict):
         each.  ``forwards=None``: as many likelihood forwards as convs to
         one channel beyond the training forwards (a run's many passes).
         The launches are those of the ``dtype`` instances; the other
-        instances must show none."""
+        instances must show none, but for ``extra`` (instance -> launches:
+        the float kernels' bf16 instances of a narrow bf16 model)."""
         one_channel_convs = [0]
 
         def hook(module, args, output):  # the card's only: q3 runs CPU forwards beside q1
@@ -2350,6 +2444,7 @@ def make_drive(launches: dict):
         for name in LAUNCHES_PER_STEP:
             want[instance(name, dtype)] = (steps * LAUNCHES_PER_STEP[name]
                                            + forwards * LAUNCHES_PER_FORWARD[name])
+        want.update(extra or {})
         if any(want[name] and not launches[path][name] for name in WRAPPERS):
             raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
         if launches[path] != want:

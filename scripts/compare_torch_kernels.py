@@ -34,7 +34,23 @@ warm (one copy of the inputs, left in L2 by the last call), lone
 served step launches it), and lone right after a cuDNN bf16 conv of the
 served out_conv1's shape ("after conv", as the served out_norm runs) or
 after a tiny elementwise kernel ("after add"); the plans cold and after
-the conv.  Needs a CUDA card.
+the conv.
+
+``--sharded`` compares K2's sharded launches instead (``groupnorm_stats``
+and ``groupnorm_apply``), fp32 and bf16, at ``chip_smoke.py`` phase
+(r1)'s shard shapes: half of the w=2 serving heads' maps (up0_norm with
+the FiLM epilogue, out_norm) and half of the deep model's out_norm (leaky
+ReLU, 10 maps).  Each launch is held to the checkout's plain version
+(statistics: each column within 1e-5 of its largest value; apply:
+``chip_smoke.tolerance``), then timed old, new, new, old cold and lone
+right after a cuDNN conv of the preceding layer's shape (``up0_conv``'s
+transposed conv, ``out_conv1``; CUDA events around the one launch),
+beside the bound, a one-element add in
+the same graph (the floor a launch shows) and a clone of the shard (its
+bytes read and written); then the new launches under every plan their
+kernels take.  It prints the SASS instruction count of each instance of
+the new kernels (``cuobjdump -sass``).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "build", "compare_torch_kernels")
 PACKAGE = "camels_diffusion_model_tpu_torch"
+SPIN_CYCLES = 1_000_000  # about 0.6 ms of an H100's clock: longer than the host's enqueue
 
 
 def load_package(root: str, name: str):
@@ -83,6 +100,8 @@ def main(argv=None) -> int:
                     help=f"directory holding an earlier revision's {PACKAGE}/")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="the instances compared (default float32)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="K2's sharded statistics and apply launches, both dtypes")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -148,6 +167,8 @@ def main(argv=None) -> int:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
+    if args.sharded:
+        return compare_sharded(randn, old_gn, chip_smoke, groupnorm)
     if args.dtype == "bfloat16":
         return compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
     cases = []  # (label, old fn, new fn, plain fn, args, tolerance)
@@ -406,6 +427,201 @@ def compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -
                      for how in ("cold", "after conv")]
             print(f"  {tuple(plan)} ctas {plan.ctas(n, 8)}: {t[0]:.5f} / {t[1]:.5f}"
                   + (" <- picked" if plan == picked else ""), flush=True)
+    return 0
+
+
+def sharded_candidates(groupnorm, n: int, hw: int, c: int, eb: int, groups: int = 8):
+    """Every plan the statistics and apply kernels take for ``n`` samples
+    of ``hw`` pixels and ``c`` channels of ``eb`` bytes: statistics units
+    of 1 to 8 groups (one where the butterfly cannot split a group's
+    packs) and clusters of 1 to 8 at 256 and 512 threads; apply 1 to 16
+    packs a thread at 256 and 512 threads."""
+    cg = c // groups
+    vec = 16 // eb
+    vpg = cg // vec
+    stats, apply = [], []
+    for seg in (1, 2, 4, 8):
+        vs = seg * vpg
+        if groups % seg or (seg > 1 and vs & (vs - 1)) or math.lcm(32, vs) > 512:
+            continue
+        for cluster in (1, 2, 4, 8):
+            if cluster > hw:
+                continue
+            part = -(-hw // cluster)
+            whole = math.lcm(32, vs)
+            for threads in (256, 512):
+                threads = min(max(whole, threads - threads % whole),
+                              -(-part * vs // whole) * whole)
+                plan = groupnorm.StatsPlan(vec, seg, cluster, threads, part)
+                if plan not in stats:
+                    stats.append(plan)
+    vpp = c // vec
+    for threads in (256, 512):
+        if threads % math.lcm(32, vpp):
+            continue
+        for packs in (1, 2, 4, 8, 16):
+            apply.append(groupnorm.ApplyPlan(vec, threads, threads // vpp * packs))
+    return stats, apply
+
+
+@contextlib.contextmanager
+def forced(module, name: str, plan):
+    """``module.name`` (a plan function) returns ``plan`` inside."""
+    real = getattr(module, name)
+    setattr(module, name, lambda *a, **k: plan)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def sass_counts(build, names) -> dict:
+    """SASS instructions of each kernel of the checkout's library whose
+    (mangled) name holds one of ``names``, from ``cuobjdump -sass``."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    counts, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1) if any(n in m.group(1) for n in names) else None
+            if current:
+                counts[current] = 0
+        elif current and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[current] += 1
+    return counts
+
+
+def compare_sharded(randn, old_gn, chip_smoke, groupnorm) -> int:
+    """K2's sharded launches: old vs new in turns, then the new plans."""
+    import torch
+    import torch.nn.functional as F
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    for name, n in sass_counts(_build, ("groupnorm_stats_kernel",
+                                        "groupnorm_apply_kernel")).items():
+        print(f"SASS {n} instructions: {name}", flush=True)
+
+    def stats_new(x):
+        return groupnorm.groupnorm_stats(x, 8)
+
+    def stats_old(x):
+        return old_gn.groupnorm_stats(x, 8)
+
+    def stats_plain(x):
+        return groupnorm.groupnorm_stats_plain(x, 8)
+
+    def hold_stats(label, fn, x):
+        err = chip_smoke.stats_error(fn(x), stats_plain(x))
+        if not err <= chip_smoke.TOL["groupnorm_stats"]:
+            raise SystemExit(f"{label}: statistics off by {err} of a column's largest value")
+        return err
+
+    def hold_apply(name, label, fn, a):
+        got, want = fn(*a), groupnorm.groupnorm_apply_plain(*a)
+        diff = (got.float() - want.float()).abs()
+        tol, fp32_rounding = chip_smoke.tolerance(name, a, want)
+        err, share = diff.max().item(), (diff > fp32_rounding).float().mean().item()
+        if not (err <= tol and (not name.endswith("_bf16") or share <= chip_smoke.BF16_SHARE)):
+            raise SystemExit(f"{label}: max abs err {err} (tol {tol}), {share} beyond "
+                             f"{fp32_rounding}")
+        return err
+
+    def after(fn, args, before, n: int = 20) -> float:
+        """Device ms of one ``fn(*args)`` right after ``before()``: CUDA
+        events around the call, the median of ``n``.  A spin kernel first
+        keeps the card busy while the host enqueues the conv, the events
+        and the call, so no host gap is timed (no profiler: its traces of
+        these launches after a large conv can hold no kernel)."""
+        fn(*args)
+        before()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            before()
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[n // 2]
+
+    tiny = torch.zeros(1, device="cuda")
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        eb = 4 if dtype == torch.float32 else 2
+        for label, n, hw, c, act, film, conv in (
+                ("up0_norm half + FiLM (32,8,16,256)", 32, (8, 16), 256, "relu", True,
+                 ("transposed", (32, 256, 4, 4), (256, 256, 4, 4))),
+                ("out_norm half (32,32,64,128)", 32, (32, 64), 128, "relu", False,
+                 ("conv", (32, 256, 32, 64), (128, 256, 3, 3))),
+                ("deep out_norm half, leaky (10,64,128,128)", 10, (64, 128), 128, "leaky_relu",
+                 False, ("conv", (10, 256, 64, 128), (128, 256, 3, 3)))):
+            kind, ushape, wshape = conv
+            u = randn(*ushape).to(dtype).contiguous(memory_format=torch.channels_last)
+            w_conv = randn(*wshape).mul(0.02).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            if kind == "conv":
+                def before(u=u, w_conv=w_conv):
+                    return F.conv2d(u, w_conv, padding=1)
+            else:
+                def before(u=u, w_conv=w_conv):
+                    return F.conv_transpose2d(u, w_conv, stride=4)
+            halves = [(randn(n, *hw, c) * 3 + 1).to(dtype) for _ in range(2)]
+            x = halves[0]
+            parts = torch.stack([stats_plain(h) for h in halves])
+            rows = (randn(n, c).to(dtype), randn(1, c).to(dtype)) if film else None
+            a = (x, parts, randn(c), randn(c), 8, 1e-5, act, rows)
+            nb_stats = x.numel() * eb + n * 8 * 3 * 4
+            nb_apply = chip_smoke.nbytes(*a, x)
+            floors = {"one-element add": chip_smoke.time_ms(lambda t: t.add_(1), (tiny,),
+                                                            warm=True),
+                      "clone of x": chip_smoke.time_ms(lambda t: t.clone(), (x,))}
+            for kernel, f_old, f_new, args, nb in (
+                    ("groupnorm_stats" + sfx, stats_old, stats_new, (x,), nb_stats),
+                    ("groupnorm_apply" + sfx,
+                     lambda *a: old_gn.groupnorm_apply(*a), groupnorm.groupnorm_apply, a,
+                     nb_apply)):
+                title = f"{kernel} {label}"
+                if kernel.startswith("groupnorm_stats"):
+                    errs = [hold_stats(title, f, x) for f in (f_old, f_new)]
+                else:
+                    errs = [hold_apply(kernel, title, f, a) for f in (f_old, f_new)]
+                bound = nb / chip_smoke.HBM_BYTES_PER_S * 1e3
+                for how, timer in (("cold", chip_smoke.time_ms),
+                                   ("after conv", functools.partial(after, before=before))):
+                    t = [timer(f, args) for f in (f_old, f_new, f_new, f_old)]
+                    o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+                    print(f"{title} [{how}]: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} "
+                          f"{t[2]:.5f} ms (mean old {o:.5f}, new {nw:.5f}, old/new "
+                          f"{o / nw:.2f}); bound {bound:.6f} ms ({nb} bytes): share old "
+                          f"{bound / o:.3f} new {bound / nw:.3f}; max err old {errs[0]:.2e} "
+                          f"new {errs[1]:.2e}", flush=True)
+                print(f"{title} floors: "
+                      + ", ".join(f"{k} {v:.5f} ms" for k, v in floors.items()), flush=True)
+            spec = (n, hw[0] * hw[1], c, 8, True, eb)
+            sp, ap_ = groupnorm.stats_plan(*spec), groupnorm.apply_plan(*spec)
+            stats_plans, apply_plans = sharded_candidates(groupnorm, n, hw[0] * hw[1], c, eb)
+            for name, plans, picked, fn, args, hold in (
+                    ("stats_plan", stats_plans, sp, stats_new, (x,),
+                     lambda: hold_stats(label, stats_new, x)),
+                    ("apply_plan", apply_plans, ap_, groupnorm.groupnorm_apply, a,
+                     lambda: hold_apply("groupnorm_apply" + sfx, label,
+                                        groupnorm.groupnorm_apply, a))):
+                print(f"new {label} {dtype} by {name}, ms cold / after conv; the plan picks "
+                      f"{tuple(picked)}:", flush=True)
+                for plan in plans:
+                    with forced(groupnorm, name, plan):
+                        hold()
+                        t = [chip_smoke.time_ms(fn, args), after(fn, args, before)]
+                    print(f"  {tuple(plan)}: {t[0]:.5f} / {t[1]:.5f}"
+                          + (" <- picked" if plan == picked else ""), flush=True)
     return 0
 
 

@@ -9,6 +9,7 @@ on the card with ``python -m pytest tests/test_torch_port_cuda.py -m cuda``.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -147,14 +148,18 @@ def test_groupnorm_kernel_slice_over_48_kb(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,film", [((32, 8, 16, 256), True), ((32, 32, 64, 128), False),
-                                        ((2, 5, 7, 24), True), ((2, 64, 128, 256), False)])
-def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film):
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "leaky_relu"])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("shape", [(32, 8, 16, 256), (32, 32, 64, 128), (2, 5, 7, 24),
+                                   (2, 64, 128, 256)])
+def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film, act):
     """K2's sharded mode on four height shards: each statistics launch
     against its plain version (each column within 1e-5 of its largest
     value), each apply launch against its plain version on the shards'
-    partials (fp32 1e-4; bf16 two ulps of the output), and the shards'
-    outputs together the whole map's GroupNorm; one launch counted each."""
+    partials (fp32 1e-4; bf16 two ulps of the output) under every
+    activation compiled in, with and without the FiLM epilogue, and the
+    shards' outputs together the whole map's GroupNorm; one launch counted
+    each."""
     n, h, w, c = shape
     x = (_randn(dev, n, 4 * h, w, c) * 3 + 1).to(dtype)
     gamma, beta = _randn(dev, c, seed=4), _randn(dev, c, seed=5)
@@ -166,14 +171,14 @@ def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film):
     want_parts = torch.stack([groupnorm_stats_plain(s, 8) for s in shards])
     scale = want_parts.abs().flatten(0, -2).amax(0)
     assert ((parts - want_parts).abs().flatten(0, -2).amax(0) <= 1e-5 * scale).all()
-    outs = [groupnorm_apply(s, want_parts, gamma, beta, 8, 1e-5, "relu", rows) for s in shards]
+    outs = [groupnorm_apply(s, want_parts, gamma, beta, 8, 1e-5, act, rows) for s in shards]
     assert (getattr(groupnorm_stats, count), getattr(groupnorm_apply, count)) == (
         before[0] + 4, before[1] + 4)
     for s, got in zip(shards, outs):
-        want = groupnorm_apply_plain(s, want_parts, gamma, beta, 8, 1e-5, "relu", rows)
+        want = groupnorm_apply_plain(s, want_parts, gamma, beta, 8, 1e-5, act, rows)
         tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** -7 * want.float().abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
-    whole = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "relu", rows)
+    whole = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, act, rows)
     tol = 1e-4 if dtype == torch.float32 else 2 * 2.0 ** -7 * whole.float().abs().max().item()
     torch.testing.assert_close(torch.cat(outs, 1).float(), whole.float(), atol=tol, rtol=0)
 
@@ -535,26 +540,27 @@ def test_groupnorm_bf16_kernel_matches_plain(dev, shape, film, act):
     one rounding; the FiLM epilogue in bf16) against its plain version at
     the heads' shapes, the big out_norm (1 MiB a group in bf16: resident,
     no spill), and a shape no bf16 plan takes (3 channels a group: the
-    launch raises).  The statistics sum in another order: an output may
-    round to the neighbouring bf16 value, and the epilogue's two roundings
-    may carry that on: atol 2 ulp of max |out|."""
+    float kernel's bf16 instance, counted under both ``.launches_bf16``
+    and ``.launches_generic_bf16``).  The statistics sum in another order:
+    an output may round to the neighbouring bf16 value, and the epilogue's
+    two roundings may carry that on: atol 2 ulp of max |out|."""
     n, c = shape[0], shape[-1]
     x = (_randn(dev, *shape, seed=51) * 3 + 1).bfloat16()
     gamma, beta = _randn(dev, c, seed=52), _randn(dev, c, seed=53)
     rows = ((_randn(dev, n, c, seed=54).bfloat16(), _randn(dev, 1, c, seed=55).bfloat16())
             if film else None)
     args = (x, gamma, beta, 8, 1e-5, act, rows)
-    if c // 8 % 8:  # no bf16 plan takes 3 channels a group: the launch raises
+    generic = c // 8 % 8 != 0  # no bf16 plan takes 3 channels a group
+    if generic:
         with pytest.raises(ValueError, match="multiple of 8"):
             bf16_plan(n, shape[1] * shape[2], c, 8)
-        with pytest.raises(ValueError, match="multiple of 8"):
-            fused_groupnorm_act(*args)
-        return
-    bf16_plan(n, shape[1] * shape[2], c, 8)  # every part held in shared memory
-    before = (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16)
+    else:
+        bf16_plan(n, shape[1] * shape[2], c, 8)  # every part held in shared memory
+    counts = ("launches", "launches_bf16", "launches_generic_bf16")
+    before = [getattr(fused_groupnorm_act, k) for k in counts]
     got = fused_groupnorm_act(*args)
-    assert (fused_groupnorm_act.launches, fused_groupnorm_act.launches_bf16) == (
-        before[0], before[1] + 1)
+    assert [getattr(fused_groupnorm_act, k) for k in counts] == [
+        before[0], before[1] + 1, before[2] + generic]
     want = groupnorm_act_plain(*args)
     _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
 
@@ -598,7 +604,7 @@ def test_wrappers_refuse_dtypes_without_a_kernel(dev):
 def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     """A narrow bf16 model (n_feat 64, 32x32: the narrowest whose heads the
     bf16 kernels take, 8 channels a group at out_norm and 64 channels at
-    out_conv2; see the next test for n_feat 16), folded: its forward and three
+    out_conv2; see the next test for n_feat 32), folded: its forward and three
     exact-chain steps under injected z on the card against the CPU's bf16,
     within twice the CPU's own distance from its fp32 model (bf16 rounds
     where cuDNN's and the CPU's sums fall on either side of a boundary);
@@ -638,22 +644,60 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     assert (outs[0] - outs[1]).abs().max().item() <= 2 * yard
 
 
-def test_bf16_model_narrower_than_the_kernels_take_raises(dev):
-    """n_feat 16 gives up0_norm 4 channels a group and out_conv2 16
-    channels: no bf16 plan takes them (a 16-byte pack a group; K1's stages
-    of 64 channels), so the kernel path raises ValueError, where the fp32
-    kernels and the CPU's plain path run."""
+@pytest.mark.parametrize("n_feat", [32, 128, 256])
+def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs, n_feat):
+    """A canonical bf16 model at n_feat 32 (32x32, folded): out_norm's 4
+    channels a group and out_conv2's 32 channels, which the bf16 kernels'
+    plans refuse, take the float kernels' bf16 instances; its forward and
+    four strided w=2 steps under injected z on the card against the CPU's
+    bf16, within phase (o)'s yardstick (``BF16_FACTOR`` x the CPU's bf16
+    distance from its fp32), each launch counted under ``.launches_bf16``
+    and the float kernels' instances under ``.launches_generic_bf16``.
+    At n_feat 128 and 256 the bf16 kernels take every shape: no generic
+    launch (256: the forward only, the CPU's bf16 is slow)."""
     from camels_diffusion_model_tpu_torch.serving import load_model
     from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
 
+    bf16_factor = 2.0  # chip_smoke.BF16_FACTOR
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        variables = to_jax_variables(ContextUnet.canonical(n_feat=16, height=32).state_dict())
-    x, t, c = torch.randn(2, 32, 32, 1), torch.rand(2), torch.rand(2, 6)
+        variables = to_jax_variables(ContextUnet.canonical(n_feat=n_feat, height=32).state_dict())
+    cpu32, cpu16 = (load_model(variables, "cpu", dtype=d)
+                    for d in (torch.float32, torch.bfloat16))
+    gpu16 = load_model(variables, dev, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 32, 1, generator=g)
+    t = torch.rand(2, generator=g)
+    c = torch.rand(2, cpu16.n_cfeat, generator=g)
+    kernels = (fused_head_step, fused_groupnorm_act, fused_film)
+    counts = ("launches", "launches_bf16", "launches_generic_bf16")
+
+    def launched():
+        return [tuple(getattr(k, n, 0) for n in counts) for k in kernels]
+
+    narrow = n_feat == 32
+    before = launched()
     with torch.inference_mode():
-        load_model(variables, dev)(x.to(dev), t.to(dev), c.to(dev))
-        with pytest.raises(ValueError, match="multiple of"):
-            load_model(variables, dev, dtype=torch.bfloat16)(x.to(dev), t.to(dev), c.to(dev))
+        got = gpu16(x.to(dev), t.to(dev), c.to(dev)).cpu()
+        want32, want = cpu32(x, t, c), cpu16(x, t, c)
+    assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
+        (0, 0, 0), (0, 2, int(narrow)), (0, 1, 0)]
+    assert got.dtype == want.dtype == torch.bfloat16
+    yard = (want.float() - want32).abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bf16_factor * yard
+    if n_feat == 256:
+        return
+    taus = np.asarray([1, 4, 7, 10])
+    zs = [torch.randn(2, 32, 32, 1, generator=g) for _ in taus]
+    before = launched()
+    outs = [sample_ddim(m, make_schedule(1500), torch.Generator(device=d), params=c.numpy(),
+                        guide_w=2.0, x_init=x.numpy(), taus=taus, sigma_mode="beta", device=d,
+                        z_fn=lambda k, t: zs[k]).cpu()
+            for m, d in ((gpu16, dev), (cpu16, "cpu"), (cpu32, "cpu"))]
+    assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
+        (0, 4, 4 * narrow), (0, 8, 4 * narrow), (0, 4, 0)]
+    yard = (outs[1] - outs[2]).abs().max().item()
+    assert (outs[0] - outs[1]).abs().max().item() <= bf16_factor * yard
 
 
 @pytest.mark.parametrize("rows", [8, 4, 2, 1])

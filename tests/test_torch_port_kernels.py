@@ -28,6 +28,7 @@ from camels_diffusion_model_tpu_torch.diffusion.schedule import (
     ddpm_coefficients,
     make_schedule,
 )
+from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
 from camels_diffusion_model_tpu_torch.ops import _build
 from camels_diffusion_model_tpu_torch.ops import film as film_ops
 from camels_diffusion_model_tpu_torch.ops import groupnorm as groupnorm_ops
@@ -848,6 +849,275 @@ def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, sprea
                 g = s0 + gl
                 assert abs(mean - want_mean[b, g]) <= 1e-6 * (abs(want_mean[b, g]) + 1)
                 assert abs(var - want_var[b, g]) <= 1e-5 * want_var[b, g]
+
+# ---- K2's sharded launches: statistics and apply -------------------------------
+
+SHARDED_SHAPES = {  # (n, hw, c, element bytes, aligned): phase (r1)'s shards and more
+    "up0_norm half fp32": (32, 8 * 16, 256, 4, True),
+    "out_norm half fp32": (32, 32 * 64, 128, 4, True),
+    "deep out_norm half fp32": (10, 64 * 128, 128, 4, True),
+    "up0_norm half bf16": (32, 8 * 16, 256, 2, True),
+    "out_norm half bf16": (32, 32 * 64, 128, 2, True),
+    "deep out_norm half bf16": (10, 64 * 128, 128, 2, True),
+    "big up0_norm half bf16": (10, 8 * 16, 1024, 2, True),
+    "3 channels a group fp32": (2, 5 * 7, 24, 4, True),
+    "3 channels a group bf16": (2, 5 * 7, 24, 2, True),
+    "unaligned out_norm half fp32": (4, 32 * 64, 128, 4, False),
+    "unaligned up0_norm half bf16": (4, 8 * 16, 256, 2, False),
+    "n_feat 32 out_norm bf16 (4 channels a group)": (8, 32 * 64, 32, 2, True),
+}
+
+
+def _stats_coverage(plan, n, hw, c, groups=8):
+    """How often the statistics kernel's index map reads each (sample,
+    pixel, channel) under ``plan``: unit u = (sample, segment) of CTA
+    blockIdx // cluster, its part of rank blockIdx % cluster, thread t's
+    pack t % vs of pixels t / vs, + threads / vs, ... of the part."""
+    cg = c // groups
+    vs = plan.seg * cg // plan.vec
+    counts = np.zeros((n, hw, c), np.int64)
+    step = plan.threads // vs
+    t = np.arange(plan.threads)
+    for block in range(plan.ctas(n, groups)):
+        unit, rank = divmod(block, plan.cluster)
+        nn, sg = divmod(unit, groups // plan.seg)
+        p0 = min(hw, rank * plan.part_px)
+        p1 = min(hw, p0 + plan.part_px)
+        for k in range(-(-plan.part_px // step)):
+            pix = p0 + t // vs + k * step
+            ok = pix < p1
+            for e in range(plan.vec):
+                ch = sg * plan.seg * cg + (t % vs) * plan.vec + e
+                np.add.at(counts[nn], (pix[ok], ch[ok]), 1)
+    return counts
+
+
+def _apply_coverage(plan, n, hw, c):
+    """How often the apply kernel's index map reads (and writes) each
+    (sample, pixel, channel): CTA b takes sample b // ctas, pixels
+    [part_px * (b % ctas), + part_px); thread t the pack t % (c / vec) of
+    pixels t // (c / vec), + threads / (c / vec), ...; and the channels'
+    group of each thread."""
+    vpp = c // plan.vec
+    counts = np.zeros((n, hw, c), np.int64)
+    step = plan.threads // vpp
+    t = np.arange(plan.threads)
+    ctas = -(-hw // plan.part_px)
+    for block in range(plan.ctas(n, hw)):
+        nn, r = divmod(block, ctas)
+        p0 = r * plan.part_px
+        p1 = min(hw, p0 + plan.part_px)
+        for k in range(-(-plan.part_px // step)):
+            pix = p0 + t // vpp + k * step
+            ok = pix < p1
+            for e in range(plan.vec):
+                np.add.at(counts[nn], (pix[ok], ((t % vpp) * plan.vec + e)[ok]), 1)
+    return counts
+
+
+@pytest.mark.parametrize("shape", SHARDED_SHAPES, ids=list(SHARDED_SHAPES))
+def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
+    """The statistics and apply launches' plans at phase (r1)'s shard
+    shapes, 3 channels a group, unaligned tensors and n_feat 32's out_norm:
+    every (sample, pixel, channel) read once; threads whole warps, whole
+    pixels of a unit (a pack within one group) and within the kernels'
+    launch bounds; clusters of 1 to 8, 1 wherever the units alone give
+    each of 132 SMs a CTA; a unit of several groups only where a group's
+    packs are a power of two (the warp butterfly).  At the out_norm half in
+    fp32 the statistics take no cluster: 256 units of one group."""
+    n, hw, c, eb, aligned = SHARDED_SHAPES[shape]
+    cg = c // 8
+    sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
+    wide = 16 // eb
+    assert sp.vec == (wide if aligned and cg % wide == 0 else 1)
+    vpg = cg // sp.vec
+    vs = sp.seg * vpg
+    assert 8 % sp.seg == 0 and (sp.seg == 1 or vs & (vs - 1) == 0)
+    assert sp.threads % 32 == 0 and sp.threads % vs == 0
+    assert sp.threads <= groupnorm_ops.STATS_MAX_THREADS
+    assert sp.cluster in (1, 2, 4, 8)
+    assert sp.cluster == 1 or n * 8 // sp.seg < 132
+    assert sp.part_px * sp.cluster >= hw > sp.part_px * (sp.cluster - 1)
+    assert (_stats_coverage(sp, n, hw, c) == 1).all()
+    ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
+    assert ap.vec == sp.vec and cg % ap.vec == 0
+    assert ap.threads % 32 == 0 and ap.threads % (c // ap.vec) == 0
+    assert ap.threads <= (1024 if ap.vec == 1 else 512)
+    assert (_apply_coverage(ap, n, hw, c) == 1).all()
+    if shape == "out_norm half fp32":
+        assert tuple(sp) == (4, 1, 1, 256, 2048) and sp.ctas(n, 8) == 256
+        assert ap.ctas(n, hw) >= 132
+    if shape == "out_norm half bf16":
+        assert (sp.seg, sp.cluster) == (2, 2)
+    if shape in ("up0_norm half fp32", "up0_norm half bf16"):
+        assert ap.part_px == 16 and ap.ctas(n, hw) == 256  # one CTA an SM at least
+
+
+@pytest.mark.parametrize("n,hw,c,eb,aligned", [(2, 64, 30, 4, True), (2, 64, 4096, 4, True),
+                                               (2, 64, 6144, 4, False), (2, 64, 8192, 2, True)])
+def test_groupnorm_sharded_plans_raise_on_shapes_no_path_takes(n, hw, c, eb, aligned):
+    """Channels that do not split into 8 groups (30), or a pixel wider than
+    the apply kernel's launch bound in whole warps: 1024 packs of 16 bytes
+    (fp32 4096, bf16 8192 channels), 1024 elements on the scalar path; the
+    statistics raise for 30 channels and for a unit's pixel over 512
+    threads (an unaligned 6144-channel shard: 768 elements a group)."""
+    with pytest.raises(ValueError):
+        groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb)
+    if c == 30 or not aligned:
+        with pytest.raises(ValueError):
+            groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb)
+
+
+def _stats_kernel_statistics(x, plan, groups=8):
+    """``(n, groups, 3)`` float32 as the statistics kernel takes them from
+    ``x`` ``(n, hw, c)`` float32: each thread's packs in order (a pack's
+    centred moments merged by Chan's formula), the butterfly over each
+    group's lanes, the block's warps in order, the cluster's ranks in
+    order."""
+    f32 = np.float32
+    n, hw, c = x.shape
+    cg = c // groups
+    vpg = cg // plan.vec
+    vs = plan.seg * vpg
+    step = plan.threads // vs
+    warps = plan.threads // 32
+    skip = tuple(off for off in (1, 2, 4, 8, 16) if vpg <= off < vs)
+    t = np.arange(plan.threads)
+    out = np.zeros((n, groups, 3), f32)
+    for unit in range(n * groups // plan.seg):
+        nn, sg = divmod(unit, groups // plan.seg)
+        total = None
+        for rank in range(plan.cluster):
+            p0 = min(hw, rank * plan.part_px)
+            p1 = min(hw, p0 + plan.part_px)
+            m = tuple(np.zeros(plan.threads, f32) for _ in range(3))
+            ch0 = sg * plan.seg * cg + (t % vs) * plan.vec
+            for k in range(-(-plan.part_px // step)):
+                pix = p0 + t // vs + k * step
+                ok = pix < p1
+                v = x[nn, np.minimum(pix, hw - 1)[:, None], ch0[:, None] + np.arange(plan.vec)]
+                s = np.zeros(plan.threads, f32)
+                for e in range(plan.vec):
+                    s = (s + v[:, e]).astype(f32)
+                pm = (s * f32(1.0 / plan.vec)).astype(f32)
+                q = np.zeros(plan.threads, f32)
+                for e in range(plan.vec):
+                    q = (q + (v[:, e] - pm) * (v[:, e] - pm)).astype(f32)
+                pack = (np.where(ok, f32(plan.vec), f32(0)).astype(f32), pm, q)
+                m = _merge(m, pack)
+            wm = _warp_merge(tuple(a.reshape(warps, 32) for a in m), skip)
+            warp_moments = {}
+            for w in range(warps):
+                for g in range(plan.seg):
+                    warp_moments[w, g] = (f32(0), f32(0), f32(0))
+                for lane in range(0, min(vs, 32), vpg):
+                    g = ((w * 32 + lane) % vs) // vpg
+                    warp_moments[w, g] = tuple(a[w, lane] for a in wm)
+            block = []
+            for g in range(plan.seg):
+                b = (f32(0), f32(0), f32(0))
+                for w in range(warps):
+                    b = _merge(b, warp_moments[w, g])
+                block.append(b)
+            total = block if total is None else [_merge(a, b) for a, b in zip(total, block)]
+        for gl, b in enumerate(total):
+            out[nn, sg * plan.seg + gl] = (hw * cg, b[1], b[2])
+    return out
+
+
+@pytest.mark.parametrize("shape,offset", [((4, 2048, 128, 4), 0.0), ((4, 2048, 128, 2), 100.0),
+                                          ((2, 35, 24, 4), 0.0), ((3, 1024, 64, 2), 0.0),
+                                          ((2, 64, 1024, 4), 0.0)])
+def test_groupnorm_stats_kernel_merge_gives_the_plain_statistics(shape, offset):
+    """The statistics kernel's merge order (each thread's packs by Chan's
+    formula, the butterfly, the block's warps, the cluster's ranks), in
+    float32, against the plain version's statistics in float64: the
+    count exact, the mean within 1e-6 of its scale and the centred sum of
+    squares within 1e-5, also far from zero (offset 100), under clusters of
+    1 to 8, units of 1 and 2 groups and the scalar path (24 channels)."""
+    n, hw, c, eb = shape
+    rs = np.random.RandomState(hw + c)
+    x = (rs.randn(n, hw, c) * 2 + offset).astype(np.float32)
+    if eb == 2:
+        x = torch.tensor(x).bfloat16().float().numpy()  # the bf16 values the kernel reads
+    plan = groupnorm_ops.stats_plan(n, hw, c, 8, True, eb, sms=132)
+    got = _stats_kernel_statistics(x, plan)
+    want = groupnorm_ops.groupnorm_stats_plain(
+        torch.tensor(x, dtype=torch.float64).reshape(n, hw, 1, c), 8).numpy()
+    assert np.array_equal(got[..., 0], want[..., 0])
+    assert (np.abs(got[..., 1] - want[..., 1]) <= 1e-6 * (np.abs(want[..., 1]) + 1)).all()
+    assert (np.abs(got[..., 2] - want[..., 2]) <= 1e-5 * want[..., 2]).all()
+
+
+def _narrow_model_shapes(n_feat, maps=4, height=64):
+    """The shapes a canonical model of ``n_feat`` gives the unsharded
+    bf16 K1 and K2 at a served w=2 step of ``maps`` maps: up0_norm (2 n_feat
+    channels at height / 4), out_norm (n_feat at height), out_conv2's
+    features (n_feat channels, 2 maps a pair under CFG)."""
+    n = 2 * maps
+    return {"up0_norm": (n, (height // 4) ** 2, 2 * n_feat),
+            "out_norm": (n, height * height, n_feat),
+            "head_step": (maps, height, height, n_feat)}
+
+
+def test_narrow_model_shapes_are_the_models():
+    model = ContextUnet.canonical(n_feat=32, height=64)
+    shapes = _narrow_model_shapes(32)
+    assert model.up0_norm.weight.shape[0] == shapes["up0_norm"][2]
+    assert model.out_norm.weight.shape[0] == shapes["out_norm"][2]
+    assert model.out_conv2.weight.shape[1] == shapes["head_step"][3]
+
+
+@pytest.mark.parametrize("n_feat", [32, 96, 128, 160, 256])
+def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
+    """The repair of narrow bf16 widths: where the bf16 kernels' plans
+    refuse a bf16 model's K1 or K2 shape (out_conv2's channels not a
+    multiple of 64; out_norm's channels a group not a multiple of 8, at
+    n_feat 32, 96 and 160), the route is the float kernel's bf16 instance
+    under its float plan; n_feat 128 and 256 keep the bf16 kernels, as do
+    the up0_norm heads (8 to 64 channels a group).  fp32 always takes the
+    float kernels."""
+    bf = torch.bfloat16
+    shapes = _narrow_model_shapes(n_feat)
+    narrow = n_feat in (32, 96, 160)
+    name, plan = groupnorm_ops.single_route(*shapes["out_norm"], 8, bf)
+    if narrow:
+        assert name == groupnorm_ops.BF16_GENERIC_NAME
+        assert plan == groupnorm_ops.launch_plan(*shapes["out_norm"], 8, True, 2)
+        with pytest.raises(ValueError):
+            groupnorm_ops.bf16_plan(*shapes["out_norm"], 8)
+    else:
+        assert (name, plan) == (groupnorm_ops.BF16_NAME,
+                                groupnorm_ops.bf16_plan(*shapes["out_norm"], 8))
+    assert groupnorm_ops.single_route(*shapes["up0_norm"], 8, bf)[0] == groupnorm_ops.BF16_NAME
+    for head in ("up0_norm", "out_norm"):
+        assert groupnorm_ops.single_route(*shapes[head], 8, torch.float32) == (
+            groupnorm_ops.C_NAME, groupnorm_ops.launch_plan(*shapes[head], 8))
+    name, plan = sampler_step_ops.route(*shapes["head_step"], bf)
+    if narrow:
+        assert name == sampler_step_ops.BF16_GENERIC_NAME
+        assert plan == sampler_step_ops.launch_plan(*shapes["head_step"], element_bytes=2)
+    else:
+        assert (name, plan) == (sampler_step_ops.BF16_NAME,
+                                sampler_step_ops.bf16_plan(*shapes["head_step"]))
+    assert sampler_step_ops.route(*shapes["head_step"], torch.float32)[0] == (
+        sampler_step_ops.C_NAME)
+    assert sampler_step_ops.route(*shapes["head_step"], bf, halo=True)[0] == (
+        sampler_step_ops.HALO_NAMES[bf])
+
+
+def test_bf16_routes_raise_where_no_kernel_takes_the_shape():
+    """An unaligned bf16 feature map, or one of channels not a multiple of
+    8, takes neither K1 kernel; a group of 3 channels of a map too large
+    for the float plan (a slice over ``SPILL_MAX``) neither K2 kernel."""
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="aligned"):
+        sampler_step_ops.route(4, 64, 64, 128, bf, aligned=False)
+    with pytest.raises(ValueError, match="channels"):
+        sampler_step_ops.route(4, 64, 64, 36, bf)
+    with pytest.raises(ValueError):
+        groupnorm_ops.single_route(2, 4096 * 4096, 24, 8, bf)
+
 
 # ---- wrappers on the CPU ----------------------------------------------------
 

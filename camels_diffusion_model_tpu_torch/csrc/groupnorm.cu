@@ -505,7 +505,13 @@ cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float*
 // rounds scale * y and + shift in T, as the single launches do.
 //
 // Both take V = 1 (a thread one channel) where the channels per group are
-// not a multiple of a 16-byte pack or a pointer is unaligned.
+// not a multiple of a 16-byte pack or a pointer is unaligned.  Where whole
+// warps of whole pixels would exceed the launch bound (a statistics unit
+// of one group of 17 or 33 elements, an apply pixel of 264), the block is
+// whole warps and the lanes past its last whole pixel idle
+// (ops/groupnorm.py::idle_lane_threads): in the statistics they hold
+// empty moments (the unit is one group, so every lane's merge is the
+// group's), in the apply they return at once.
 
 // A pack of V elements of T as loaded: 16 bytes, or one element.
 template <typename T, int V>
@@ -541,9 +547,13 @@ constexpr int STATS_THREADS = 512;  // a CTA at most
 constexpr int APPLY_LOADS = 4;
 
 // Grid: unit (sample major, segment minor) major, cluster rank minor.
-// Thread t holds pack t % vs (vs = the segment's packs a pixel; the block
-// a multiple of it) of pixels t / vs, + pstride, ... of its part.
-template <typename T, int V>
+// Thread t < pstride * vs holds pack t % vs (vs = the segment's packs a
+// pixel; the block a multiple of it but where IDLE, seg 1) of pixels t /
+// vs, + pstride, ... of its part.  IDLE is a template argument so that the
+// plans of whole pixels compile as they did without idle lanes (their
+// launch read 5% slower with the test, scripts/compare_torch_kernels.py
+// --sharded).
+template <typename T, int V, bool IDLE>
 __global__ void __launch_bounds__(STATS_THREADS) groupnorm_stats_kernel(
     const T* __restrict__ x, float* __restrict__ stats, int hw, int c, int groups, int seg,
     int cluster_size, int part_px) {
@@ -561,7 +571,8 @@ __global__ void __launch_bounds__(STATS_THREADS) groupnorm_stats_kernel(
   const T* xs = x + ((long long)nn * hw + p0) * c + sg * seg * cgroup + j * V;
 
   Moments m{0.0f, 0.0f, 0.0f};
-  for (int p = tid / vs; p < np; p += STATS_LOADS * pstride) {
+  for (int p = !IDLE || tid < pstride * vs ? tid / vs : np; p < np;
+       p += STATS_LOADS * pstride) {
     Raw<T, V> raw[STATS_LOADS];
 #pragma unroll
     for (int i = 0; i < STATS_LOADS; ++i)
@@ -643,19 +654,19 @@ struct ApplyArgs {
   float eps;
 };
 
-// Grid: sample major, part minor.  Thread t holds pack t % (c / V) of
-// pixels t / (c / V), + pstride, ... of its part (the block a multiple of
-// c / V).
+// Grid: sample major, part minor.  Thread t < pstride * (c / V) holds
+// pack t % (c / V) of pixels t / (c / V), + pstride, ... of its part.
 template <typename T, int V, int ACT, bool FILM>
 __global__ void __launch_bounds__(V == 1 ? 1024 : 512)
     groupnorm_apply_kernel(const ApplyArgs<T> a) {
   const int tid = threadIdx.x;
   const int vpp = a.c / V;  // packs a pixel
+  const int pstride = blockDim.x / vpp;  // pixels the block covers per step
+  if (tid >= pstride * vpp) return;  // an idle lane past the last whole pixel
   const int ctas = (a.hw + a.part_px - 1) / a.part_px;  // a sample's
   const int nn = blockIdx.x / ctas;
   const int p0 = (blockIdx.x - nn * ctas) * a.part_px;
   const int np = min(a.hw, p0 + a.part_px) - p0;
-  const int pstride = blockDim.x / vpp;  // pixels the block covers per step
   const int ch = (tid % vpp) * V, g = ch / (a.c / a.groups);
   const int first = tid / vpp;
   const T* xs = a.x + ((long long)nn * a.hw + p0) * a.c + ch;
@@ -736,7 +747,8 @@ int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int 
     return (int)cudaErrorInvalidValue;
   const int vpg = c / groups / vec, vs = vpg * seg;
   if (seg < 1 || seg > MAX_SEG || groups % seg || (seg > 1 && (vs & (vs - 1))) ||
-      threads > STATS_THREADS || threads % 32 || threads % vs || cluster < 1 ||
+      threads > STATS_THREADS || threads % 32 || threads < vs || (seg > 1 && threads % vs) ||
+      cluster < 1 ||
       cluster > 8 || part_px < 1)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -750,11 +762,16 @@ int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;  // a cluster of 1 is launched as a plain grid
+  const bool idle = threads % vs != 0;  // lanes past the last whole pixel
   cudaError_t err =
-      vec == 1 ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1>, x, stats, hw, c,
-                                    groups, seg, cluster, part_px)
-               : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>>, x, stats, hw, c,
-                                    groups, seg, cluster, part_px);
+      vec == 1 ? (idle ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1, true>, x, stats,
+                                            hw, c, groups, seg, cluster, part_px)
+                       : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1, false>, x, stats,
+                                            hw, c, groups, seg, cluster, part_px))
+      : idle ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>, true>, x, stats, hw,
+                                  c, groups, seg, cluster, part_px)
+             : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>, false>, x, stats, hw,
+                                  c, groups, seg, cluster, part_px);
   cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -766,7 +783,8 @@ int apply_entry(const T* x, const float* parts, const float* gamma, const float*
                 int threads, int part_px, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if ((vec != 1 && vec != kVec<T>) || groups <= 0 || c % groups || c / groups % vec ||
-      n_parts < 1 || part_px < 1 || threads % (c / vec) || threads > (vec == 1 ? 1024 : 512))
+      n_parts < 1 || part_px < 1 || threads % 32 || threads < c / vec ||
+      threads > (vec == 1 ? 1024 : 512))
     return (int)cudaErrorInvalidValue;
   const ApplyArgs<T> a{x,  parts, gamma,  beta,    scale,        shift,        out, n_parts,
                        n,  hw,    c,      groups,  part_px,      scale_stride, shift_stride,

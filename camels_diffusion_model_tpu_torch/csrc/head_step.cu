@@ -51,20 +51,25 @@
 //
 // Halo rows (a height shard of a spatial mesh, where out_conv2's window
 // reads one row beyond the shard on each side; XLA's SPMD partitioner
-// exchanges them in JAX): the HALO template argument.  halo is (2, units'
-// samples, width, c) of h's type: [0] the row above this shard's first,
-// [1] the row below its last, for every sample h holds.  A band's halo row
-// -1 or `height` is then copied from it instead of zero-filled; a copy's
-// offset into it is encoded as -2 - offset, so the copies keep one int
-// each.  HALO false is the unsharded kernel as it was.
+// exchanges them in JAX): the HALO template argument.  top and bottom are
+// (units' samples, width, c) of h's type: the row above this shard's first
+// and the row below its last, for every sample h holds, or null at the
+// image's edge.  A band's halo row -1 or `height` is then copied from them
+// instead of zero-filled (a null row stays zero-filled); a copy's offset
+// into them (bottom's after top's) is encoded as -2 - offset, so the copies
+// keep one int each.  HALO false is the unsharded kernel as it was.
 //
-// The template serves the float unsharded launch, both types' halo mode,
-// and the bf16 unsharded launch where c is not a multiple of 64; the bf16
-// unsharded launch is otherwise a kernel of its own,
-// head_step_bf16_kernel below (in bf16 the template's taps on CUDA
+// The template serves the float unsharded launch, and the shapes the
+// kernels of their own below do not take: the bf16 unsharded launch and
+// halo mode where c is not a multiple of 64, the float halo mode where its
+// weights outgrow shared memory (ops/sampler_step.py::route).  The bf16
+// launches are otherwise head_step_bf16_kernel and
+// head_step_bf16_halo_kernel below (in bf16 the template's taps on CUDA
 // cores did twice the arithmetic per staged byte, one CTA fit an SM, and
-// the first chunk's copy was exposed), with the same arithmetic and
-// roundings.
+// the first chunk's copy was exposed), the float halo mode
+// head_step_halo_f32_kernel (the template's halo mode ran one CTA an SM
+// with a 2-stage ring and a block barrier per chunk), each with the same
+// arithmetic and roundings.
 //
 // The feature type T is float or bf16 (h, the (9, c) weights and the bias;
 // the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
@@ -99,6 +104,61 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Where the staged pixels of a CTA's band come from, for the halo kernels
+// that stage a band as a list of pixels (head_step_bf16_halo_kernel,
+// head_step_halo_f32_kernel).  Band pixel p < m (m = branches * pb, pb =
+// (rows + 2) * width) is pixel q = p % pb of branch s = p / pb (under CFG
+// sample unit + s * batch, else sample unit); a branch's pixel q sits at
+// global row y0 - 1 + q / width.  A branch's rows y0 - 1 .. y0 + rows are
+// contiguous in h, and its rows -1 and `height` in the halo rows, so each
+// source is a base plus q * c: no division per copy.  Rows inside the map
+// (q_lo <= q < q_hi) read h; row -1 (q < q_lo, only in the first band)
+// reads top and row `height` (q_hi <= q < qb_hi) bottom, each (cfg ? 2 *
+// batch : batch, width, c) or null (zero) at the image's edge; every other
+// pixel (beyond the band) is zero.
+struct Band {
+  int pb, m, q_lo, q_hi, qb_hi;
+  int base0, base1, top0, top1, bottom0, bottom1;  // element offsets of a branch's pixel 0
+};
+
+__device__ __forceinline__ Band band_of(int unit, int batch, int height, int width, int c,
+                                        int rows, int cfg, int y0) {
+  Band b;
+  b.pb = (rows + 2) * width;
+  b.m = (cfg ? 2 : 1) * b.pb;
+  b.q_lo = y0 == 0 ? width : 0;
+  const int q_bottom = (height - y0 + 1) * width;  // row `height`'s first pixel
+  b.q_hi = min(b.pb, q_bottom);
+  b.qb_hi = min(b.pb, q_bottom + width);
+  const int s1 = cfg ? unit + batch : unit;  // branch 1's sample (unused without CFG)
+  b.base0 = ((unit * height + y0 - 1) * width) * c;
+  b.base1 = cfg ? ((s1 * height + y0 - 1) * width) * c : 0;
+  b.top0 = unit * width * c;
+  b.top1 = s1 * width * c;
+  b.bottom0 = (unit * width - q_bottom) * c;
+  b.bottom1 = (s1 * width - q_bottom) * c;
+  return b;
+}
+
+// Band pixel p's channel 0: element off of array where reads (else a zero
+// pixel).
+template <typename E>
+struct Source {
+  const E* array;
+  int off;
+  bool reads;
+};
+
+template <typename E>
+__device__ __forceinline__ Source<E> band_source(const Band& b, const E* h, const E* top,
+                                                 const E* bottom, int p, int c) {
+  const int s = p >= b.pb, q = p - s * b.pb;
+  if (p < b.m && q < b.q_lo) return Source<E>{top, (s ? b.top1 : b.top0) + q * c, top != nullptr};
+  if (p < b.m && q >= b.q_hi && q < b.qb_hi)
+    return Source<E>{bottom, (s ? b.bottom1 : b.bottom0) + q * c, bottom != nullptr};
+  return Source<E>{h, (s ? b.base1 : b.base0) + q * c, p < b.m && q >= b.q_lo && q < b.q_hi};
+}
+
 // Grid: unit major, band minor.  Block: T threads; tile row k < 2T holds,
 // under CFG, pixel k % T (T = (rows+2)*width) of sample unit + (k/T)*batch,
 // otherwise pixel k (T = (rows+2)*width/2) of sample unit; a pixel p of the
@@ -107,8 +167,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // E; the partials [9][2T] (floats) reuse the ring at the end.
 template <typename E, int CK, int STAGES, bool HALO>
 __global__ void head_step_kernel(
-    const E* __restrict__ h, const E* __restrict__ halo, const E* __restrict__ wt,
-    const E* __restrict__ bias, const float* __restrict__ x,
+    const E* __restrict__ h, const E* __restrict__ top, const E* __restrict__ bottom,
+    const E* __restrict__ wt, const E* __restrict__ bias, const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
     float w, float* __restrict__ out, int batch, int height, int width, int c,
     int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
@@ -143,22 +203,26 @@ __global__ void head_step_kernel(
                  ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * L
                  : -1;
     if constexpr (HALO) {
-      const int nd = cfg ? 2 * batch : batch;  // samples of h (and of halo)
+      const int nd = cfg ? 2 * batch : batch;  // samples of h (and of the halo rows)
       if (gy == -1 || gy == height)
         src[m] = -2 - (((gy == height) * nd + sample) * width + (pix - lr * width)) * c -
                  j * L;
     }
   }
+  const int row_elems = (cfg ? 2 * batch : batch) * width * c;  // of top: bottom's follow
   auto issue = [&](int chunk) {
     E* st = ring + (chunk % STAGES) * stage_elems;
 #pragma unroll
     for (int m = 0; m < 2 * V; ++m) {
       const int i = tid + m * T;
       if constexpr (HALO) {
-        const E* from = src[m] >= 0    ? h + src[m] + chunk * CK
-                        : src[m] < -1 ? halo + (-2 - src[m]) + chunk * CK
-                                      : h;
-        cp_async16(st + (i / V) * STRIDE + (i % V) * L, from, src[m] != -1);
+        const int o = -2 - src[m];  // a halo row's offset
+        const E* row = o >= row_elems ? bottom : top;
+        const bool halo_row = src[m] < -1 && row != nullptr;
+        const E* from = src[m] >= 0 ? h + src[m] + chunk * CK
+                        : halo_row  ? row + (o >= row_elems ? o - row_elems : o) + chunk * CK
+                                    : h;
+        cp_async16(st + (i / V) * STRIDE + (i % V) * L, from, src[m] >= 0 || halo_row);
       } else {
         cp_async16(st + (i / V) * STRIDE + (i % V) * L,
                    src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
@@ -262,7 +326,7 @@ __global__ void head_step_kernel(
 
 template <typename E, int CK, int STAGES, bool HALO>
 cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
-                   const E* h, const E* halo, const E* wt, const E* bias,
+                   const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c,
                    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
@@ -273,15 +337,16 @@ cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
     head_step_kernel<E, CK, STAGES, HALO><<<grid, threads, smem_bytes, stream>>>(
-        h, halo, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
-        cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+        h, top, bottom, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c,
+        rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 // ck: channels per staged chunk, 128, 64, 32 or 16 bytes of them.
 template <typename E, bool HALO>
-int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
+int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+          const float* x,
           const float* z,
           const float* w_per_sample, float w, float* out, int batch, int height,
           int width, int c, int rows, int cfg, int ck, int stages, int threads,
@@ -293,8 +358,9 @@ int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
   constexpr int K = 32 / (int)sizeof(E);  // channels of 32 bytes
 #define CAMELS_HEAD_STEP(CK, STAGES)                                                 \
   if (ck == CK && stages == STAGES)                                                  \
-    return (int)launch<E, CK, STAGES, HALO>(grid, threads, smem_bytes, st, h, halo,  \
-                                            wt, bias, x, z, w_per_sample, w, out,    \
+    return (int)launch<E, CK, STAGES, HALO>(grid, threads, smem_bytes, st, h, top,   \
+                                            bottom, wt, bias, x, z, w_per_sample, w, \
+                                            out,                                     \
                                             batch, height, width, c, rows, cfg,      \
                                             c_eps, inv_sqrt_a, sigma, tanh_out);
   CAMELS_HEAD_STEP(4 * K, 2)
@@ -339,6 +405,14 @@ int entry(const E* h, const E* halo, const E* wt, const E* bias, const float* x,
 // ops/sampler_step.py::bf16_plan takes the shortest band whose grid is one
 // wave of two CTAs an SM (4 rows at the w=2 serving shape, 256 CTAs), so
 // one CTA's gather runs beside the other's copies.
+//
+// The halo mode (head_step_bf16_halo_kernel, a height shard's launch)
+// copies a band's row -1 or `height` from the halo rows (band_source); the
+// two launches share one body (bf16_step_body) and differ only in that copy
+// map and their launch bounds: the same items, products, sums and
+// roundings, so two shards' steps equal the unsharded launch's step on the
+// whole map bit for bit (each pixel's partials are the same products
+// summed in the same order, whichever band or tile holds it).
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
@@ -357,18 +431,22 @@ constexpr int OUTS = 4;  // output pixels a thread's x and z are prefetched for
 // compare_torch_kernels.py --dtype bfloat16).
 constexpr int RING = 3;
 
-// Grid: unit major, band minor.  Block: BF16_THREADS.  Band pixel p < m
-// (m = branches * pb, pb = (rows + 2) * width) is, under CFG, pixel p %
-// pb of sample unit + (p / pb) * batch, else pixel p of sample unit; a
-// branch's pixel q is at global row y0 - 1 + q / width.  Dynamic shared
-// memory: the weights [16][wstride] bf16 (taps 9-15 zero; a row is 4 mod
-// 8 16-byte slots, so a quarter warp's 2 taps x 4 chunks hit 8 bank
+// The body of both bf16 kernels.  Grid: unit major, band minor (this
+// CTA: unit, band rows y0 ..).  Block: BF16_THREADS.  Band pixel p < m (m =
+// branches * pb, pb = (rows + 2) * width) is, under CFG, pixel p % pb of
+// sample unit + (p / pb) * batch, else pixel p of sample unit; a branch's
+// pixel q is at global row y0 - 1 + q / width.  source_of(p) is band pixel
+// p's channel 0 (a Source<bf16>): the launch's own copy map.  Dynamic
+// shared memory: the weights [16][wstride] bf16 (taps 9-15 zero; a row is
+// 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4 chunks hit 8 bank
 // groups), the warps' rings (8 x RING slots), then the partials
 // [9][pstride] floats.
-__global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
+template <typename SourceOf>
+__device__ __forceinline__ void bf16_step_body(
+    SourceOf source_of, int unit, int y0, int pb, int m, const bf16* __restrict__ h,
+    const bf16* __restrict__ wt, const bf16* __restrict__ bias,
     const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out,
     int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
     float sigma, int tanh_out) {
   constexpr int SLOT = TILE * BLOCK;  // elements
@@ -379,23 +457,12 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   bf16* ring = ws + 16 * wstride + warp * RING * SLOT;  // this warp's
-  const int bands = (height + rows - 1) / rows;
-  const int unit = blockIdx.x / bands;
-  const int y0 = (blockIdx.x - unit * bands) * rows;
-  const int pb = (rows + 2) * width, m = (cfg ? 2 : 1) * pb;
   const int tiles = (m + TILE - 1) / TILE;
   const int pstride = (m + 31) / 32 * 32 + 4;  // 4 mod 32: a store's 4 taps, 4 banks apart
   float* part = reinterpret_cast<float*>(ws + 16 * wstride + WARPS * RING * SLOT);
   const int cblocks = c / BLOCK;
   const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
 
-  // A branch's band pixel q is pixel q of the contiguous run of pixels
-  // that starts at its sample's row y0 - 1 (offset base[s] in elements,
-  // negative for the row above the map); it reads if inside the map's
-  // rows, q_lo <= q < q_hi.
-  const int base0 = ((unit * height + y0 - 1) * width) * c;
-  const int base1 = cfg ? (((unit + batch) * height + y0 - 1) * width) * c : 0;
-  const int q_lo = y0 == 0 ? width : 0, q_hi = min(pb, (height - y0 + 1) * width);
   // Item it of this warp: tile warp + (it / cblocks) * WARPS, channel block
   // it % cblocks; lane l copies chunk l & 7 of tile pixels l / 8 + 4i.
   auto issue = [&](int it) {
@@ -404,11 +471,13 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
     const int p0 = (warp + k * WARPS) * TILE, q = lane & 7;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int pp = (lane >> 3) + 4 * i, p = p0 + pp;
-      const int s = p >= pb, qq = p - s * pb;
-      const bool reads = p < m && qq >= q_lo && qq < q_hi;
-      const int off = (s ? base1 : base0) + qq * c + cb * BLOCK + 8 * q;
-      cp_async16(dst + pp * BLOCK + 8 * (q ^ ((pp & 1) << 2)), reads ? h + off : h, reads);
+      const int pp = (lane >> 3) + 4 * i;
+      const Source<bf16> src = source_of(p0 + pp);
+      // One int offset, then the pointer: src.off + (cb * BLOCK + 8 * q)
+      // cost the unsharded launch 32 SASS instructions and 4% at w=2.
+      const int off = src.off + cb * BLOCK + 8 * q;
+      cp_async16(dst + pp * BLOCK + 8 * (q ^ ((pp & 1) << 2)), src.reads ? src.array + off : h,
+                 src.reads);
     }
   };
 #pragma unroll
@@ -516,6 +585,284 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
   }
 }
 
+// The unsharded launch: rows outside the map are zero.
+__global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
+    const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int pb = (rows + 2) * width, m = (cfg ? 2 : 1) * pb;
+  // A branch's band pixel q is pixel q of the contiguous run of pixels
+  // that starts at its sample's row y0 - 1 (offset base[s] in elements,
+  // negative for the row above the map); it reads if inside the map's
+  // rows, q_lo <= q < q_hi.
+  const int base0 = ((unit * height + y0 - 1) * width) * c;
+  const int base1 = cfg ? (((unit + batch) * height + y0 - 1) * width) * c : 0;
+  const int q_lo = y0 == 0 ? width : 0, q_hi = min(pb, (height - y0 + 1) * width);
+  auto source_of = [&](int p) {
+    const int s = p >= pb, qq = p - s * pb;
+    return Source<bf16>{h, (s ? base1 : base0) + qq * c, p < m && qq >= q_lo && qq < q_hi};
+  };
+  bf16_step_body(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w, out,
+                 height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+}
+
+// The halo mode: a band's row -1 or `height` copied from the halo rows
+// (band_source).  Its launch bound asks for two CTAs an SM, as bf16_plan
+// places them.
+__global__ void __launch_bounds__(BF16_THREADS, 2) head_step_bf16_halo_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ top, const bf16* __restrict__ bottom,
+    const bf16* __restrict__ wt, const bf16* __restrict__ bias,
+    const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
+  auto source_of = [&](int p) { return band_source<bf16>(band, h, top, bottom, p, c); };
+  bf16_step_body(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z, w_per_sample, w,
+                 out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+}
+
+// ---- The float halo mode: warp-private rings, the taps on CUDA cores. ----
+//
+// A height shard's launch (ops/sampler_step.py::fused_head_step with halo)
+// in fp32.  Bound: bytes, as the template's (h is 99% of them); the 9 fp32
+// FMAs per staged float, about a fifth of the byte time at 67 TFLOP/s,
+// stay on the CUDA cores with fmaf: no TF32, as the fp32 path serves with
+// TF32 off and holds the JAX golden to 1e-4.  The layout is
+// head_step_bf16_kernel's with the tensor-core product replaced:
+//  - A CTA (8 warps) takes a band of `rows` rows of a unit, staged as the
+//    list of band pixels of band_source (h, a halo row or zero).  Each
+//    warp owns tiles w, w + 8, ... of F32_TILE band pixels and streams
+//    each tile's channels F32_CK at a time (an item: the tile's pixels'
+//    whole 128-byte lines) through a private ring of F32_RING slots with
+//    16-byte cp.async copies (8 lanes a pixel), the sources of a tile
+//    computed once when its first item is issued.  Items of whole lines
+//    matter: with 32-byte items each pixel's lines stayed open over 16
+//    items and the kernel ran slower than the template
+//    (scripts/compare_torch_kernels.py --halo).  A warp waits only for its
+//    own copies (cp.async.wait_group, __syncwarp): no block barrier runs
+//    until the partials are done; F32_RING - 1 items a warp are in flight,
+//    the first issued before the weights are staged.  c need only be a
+//    multiple of 4: the last item's channels past c are zero-filled, as
+//    are the weights' (rows of c32 floats).
+//  - Lane (quarter, l) reduces channels 8 quarter .. 8 quarter + 7 of each
+//    item for tile pixels l, l + 8, ... (PX of them) into the 9 per-tap
+//    partials with fmaf, in channel order; the weights ([9][c32] floats in
+//    shared memory) are read as float4, one address a quarter.  A tile
+//    skips the taps no output reads from its rows (a staged row r feeds
+//    output row r - ky through tap row ky only where that row is in the
+//    band: the band's first and last staged rows one tap row of three, at
+//    bands of 2 rows half the taps in all).  After a
+//    tile's last item the quarters' sums meet in a butterfly (shuffles
+//    over lanes 8 and 16 apart) and lane t < F32_TILE stores pixel t's
+//    partials.  A pixel's 16-byte chunk q sits at slot q ^ (pp & 7), so a
+//    quarter warp's reads (8 pixels, one chunk each) and writes (one
+//    pixel's 8 chunks) hit 8 bank groups.
+//  - After a block barrier the 3x3 gather epilogue runs as in
+//    head_step_bf16_kernel, x and z of a thread's first output requested
+//    in the prologue.
+//  - The shared memory of a CTA (weights, 64 KiB of rings, partials) lets
+//    two CTAs share an SM, so one CTA's gather runs beside another's
+//    copies; ops/sampler_step.py::halo_plan takes the shortest band whose
+//    grid is one wave of two CTAs an SM (2 rows at half the w=2 serving
+//    features, 256 CTAs).
+//  - Against the template's halo mode (the halo rows passed the same way)
+//    at that shape it ties cold, runs 1.10x faster right after a cuDNN
+//    conv (as the spatial chain launches it, after out_conv1) and 3%
+//    slower alone (scripts/compare_torch_kernels.py --halo).
+constexpr int F32_THREADS = 256;  // 8 warps
+constexpr int F32_TILE = 32;      // pixels of a warp's tile (a multiple of 8)
+constexpr int F32_CK = 32;        // channels of an item: 128 bytes a pixel, 8 copies of 16
+constexpr int F32_RING = 2;       // slots of a warp's ring
+constexpr int F32_OUTS = 1;       // output pixels a thread's x and z are prefetched for
+
+// Grid: unit major, band minor.  Block: F32_THREADS.  Band pixels as
+// band_source's.  Dynamic shared memory: the weights [9][c32] (c32: c
+// rounded up to F32_CK), the warps' rings (8 x F32_RING slots of F32_TILE
+// x F32_CK floats), then the partials [9][pstride] (pstride: the tiles'
+// pixels).
+__global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
+    const float* __restrict__ h, const float* __restrict__ top,
+    const float* __restrict__ bottom, const float* __restrict__ wt,
+    const float* __restrict__ bias, const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  constexpr int SLOT = F32_TILE * F32_CK;  // floats
+  constexpr int WARPS = F32_THREADS / 32;
+  constexpr int PX = F32_TILE / 8;      // tile pixels a lane reduces
+  constexpr int COPIES = F32_TILE / 4;  // 16-byte copies a lane issues an item
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cblocks = (c + F32_CK - 1) / F32_CK, c32 = cblocks * F32_CK;
+  float* ring = ws + 9 * c32 + warp * F32_RING * SLOT;  // this warp's
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
+  const int tiles = (band.m + F32_TILE - 1) / F32_TILE;
+  const int pstride = tiles * F32_TILE;
+  float* part = ws + 9 * c32 + WARPS * F32_RING * SLOT;
+  const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
+
+  // Item it of this warp: tile warp + (it / cblocks) * WARPS, channel block
+  // it % cblocks; lane l copies chunk l & 7 of tile pixels l / 8 + 4 i,
+  // from[i] (null: zero-filled), set when the tile's first item is issued.
+  const float* from[COPIES];
+  auto issue = [&](int it) {
+    float* dst = ring + (it % F32_RING) * SLOT;
+    const int k = it / cblocks, cb = it - k * cblocks;
+    const int q = lane & 7;
+    const bool inside = cb * F32_CK + 4 * q < c;  // the last item's tail is zero
+#pragma unroll
+    for (int i = 0; i < COPIES; ++i) {
+      const int pp = (lane >> 3) + 4 * i;
+      if (cb == 0) {
+        const Source<float> src = band_source<float>(
+            band, h, top, bottom, (warp + k * WARPS) * F32_TILE + pp, c);
+        from[i] = src.reads ? src.array + src.off : nullptr;
+      }
+      const bool reads = from[i] != nullptr && inside;
+      cp_async16(dst + pp * F32_CK + 4 * (q ^ (pp & 7)),
+                 reads ? from[i] + cb * F32_CK + 4 * q : h, reads);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < F32_RING - 1; ++s) {
+    if (s < items) issue(s);
+    cp_async_commit();
+  }
+
+  for (int i = tid; i < 9 * c32 / 4; i += F32_THREADS) {
+    const int tap = i / (c32 / 4), q = i - tap * (c32 / 4);
+    reinterpret_cast<float4*>(ws)[i] = 4 * q < c
+        ? *reinterpret_cast<const float4*>(wt + tap * c + 4 * q)
+        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // The step's inputs of this thread's first F32_OUTS output pixels.
+  const float b0 = *bias;
+  const float wu = cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f;
+  const int out_rows = min(rows, height - y0), outs = out_rows * width;
+  const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
+  float xs[F32_OUTS], zs[F32_OUTS];
+#pragma unroll
+  for (int k = 0; k < F32_OUTS; ++k) {
+    const int o = tid + k * F32_THREADS;
+    xs[k] = o < outs ? x[first + k * F32_THREADS] : 0.0f;
+    zs[k] = o < outs && z ? z[first + k * F32_THREADS] : 0.0f;
+  }
+  __syncthreads();  // the weights are staged
+
+  const int quarter = lane >> 3, pl = lane & 7;
+  int ky_lo = 0, ky_hi = 2;  // the tap rows the current tile's staged rows feed
+  float acc[PX][9];
+#pragma unroll
+  for (int i = 0; i < PX; ++i)
+#pragma unroll
+    for (int t = 0; t < 9; ++t) acc[i][t] = 0.0f;
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<F32_RING - 2>();  // this item's copies (this lane's) have landed
+    __syncwarp();                   // ... every lane's; the slot refilled next was
+                                    // read by all in the last pass
+    if (it + F32_RING - 1 < items) issue(it + F32_RING - 1);
+    cp_async_commit();
+    const float* slot = ring + (it % F32_RING) * SLOT;
+    const int k = it / cblocks, cb = it - k * cblocks;
+    if (cb == 0) {  // a new tile: the staged rows r_lo .. r_hi it holds
+      const int p_first = (warp + k * WARPS) * F32_TILE;
+      const int p_last = min(p_first + F32_TILE, band.m) - 1;
+      const int s_first = p_first >= band.pb, s_last = p_last >= band.pb;
+      int r_lo = 0, r_hi = rows + 1;  // a tile across both branches: every row
+      if (s_first == s_last) {
+        r_lo = (p_first - s_first * band.pb) / width;
+        r_hi = (p_last - s_last * band.pb) / width;
+      }
+      ky_lo = max(0, r_lo - out_rows + 1);  // output row r - ky within the band
+      ky_hi = min(2, r_hi);
+    }
+    const float* wc = ws + cb * F32_CK + 8 * quarter;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float4 d[PX];
+#pragma unroll
+      for (int i = 0; i < PX; ++i)  // tile pixel pl + 8 i: its chunk 2 quarter + j
+        d[i] = *reinterpret_cast<const float4*>(slot + (pl + 8 * i) * F32_CK +
+                                                4 * ((2 * quarter + j) ^ pl));
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        if (t / 3 < ky_lo || t / 3 > ky_hi) continue;  // warp-uniform
+        const float4 wv = *reinterpret_cast<const float4*>(wc + t * c32 + 4 * j);
+#pragma unroll
+        for (int i = 0; i < PX; ++i) {
+          acc[i][t] = fmaf(d[i].x, wv.x, acc[i][t]);
+          acc[i][t] = fmaf(d[i].y, wv.y, acc[i][t]);
+          acc[i][t] = fmaf(d[i].z, wv.z, acc[i][t]);
+          acc[i][t] = fmaf(d[i].w, wv.w, acc[i][t]);
+        }
+      }
+    }
+    if (cb == cblocks - 1) {  // the tile's partials: the quarters' sums, pixel lane
+      const int p = (warp + k * WARPS) * F32_TILE + lane;
+#pragma unroll
+      for (int i = 0; i < PX; ++i) {
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          float v = acc[i][t];
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (i == quarter) part[t * pstride + p] = v;  // lane = pl + 8 quarter
+          acc[i][t] = 0.0f;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every partial is in shared memory
+
+  // Output pixel o = tid + k * F32_THREADS, its x and z prefetched for k < F32_OUTS.
+  auto step = [&](int k, float xo, float zo) {
+    const int o = tid + k * F32_THREADS;
+    const int r = o / width, xx = o - r * width;
+    float e[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* ps = part + s * band.pb;  // under CFG the uncond pixels start at pb
+      float sum = b0;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* prow = ps + (r + ky) * width;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int gx = xx + kx - 1;
+          if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * pstride + gx];
+        }
+      }
+      e[s] = tanh_out ? tanhf(sum) : sum;
+      if (!cfg) break;
+    }
+    const float ee = cfg ? e[1] + wu * (e[0] - e[1]) : e[0];
+    float v = (xo - ee * c_eps) * inv_sqrt_a;
+    if (z) v += sigma * zo;
+    out[first + k * F32_THREADS] = v;
+  };
+#pragma unroll
+  for (int k = 0; k < F32_OUTS; ++k)
+    if (tid + k * F32_THREADS < outs) step(k, xs[k], zs[k]);
+  for (int k = F32_OUTS; tid + k * F32_THREADS < outs; ++k) {
+    const long long idx = first + k * F32_THREADS;
+    step(k, x[idx], z ? z[idx] : 0.0f);
+  }
+}
+
 }  // namespace
 
 // h: (cfg ? 2 * batch : batch, height, width, c) NHWC float, 16-byte
@@ -534,13 +881,41 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
                       int rows, int cfg, int ck, int stages, int threads,           \
                       int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
                       int tanh_out, void* stream) {                                 \
-    return entry<E, false>(h, nullptr, wt, bias, x, z, w_per_sample, w, out, batch, \
+    return entry<E, false>(h, nullptr, nullptr, wt, bias, x, z, w_per_sample, w, out, \
+                           batch,                                                   \
                            height, width, c, rows, cfg, ck, stages, threads,        \
                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream); \
   }
 CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
 CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16_generic, bf16)
 #undef CAMELS_HEAD_STEP_ENTRY
+
+namespace {
+
+// One launch of a halo kernel of its own (head_step_bf16_halo_kernel,
+// head_step_halo_f32_kernel): a CTA a band of `rows` rows of a unit.
+template <typename E>
+int band_launch(void (*kernel)(const E*, const E*, const E*, const E*, const E*,
+                               const float*, const float*, const float*, float, float*, int,
+                               int, int, int, int, int, float, float, float, int),
+                const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+                const float* x,
+                const float* z, const float* w_per_sample, float w, float* out, int batch,
+                int height, int width, int c, int rows, int cfg, int threads, int smem_bytes,
+                float c_eps, float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows))), threads, smem_bytes,
+             (cudaStream_t)stream>>>(h, top, bottom, wt, bias, x, z, w_per_sample, w, out,
+                                     batch, height, width, c, rows, cfg, c_eps, inv_sqrt_a,
+                                     sigma, tanh_out);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+}  // namespace
 
 // The bf16 instance (h, wt, bias bf16; c a multiple of 64): the arguments
 // of camels_head_step without ck and stages; threads 256; rows and
@@ -566,19 +941,57 @@ extern "C" int camels_head_step_bf16(const bf16* h, const bf16* wt, const bf16* 
   return (int)(err != cudaSuccess ? err : last);
 }
 
-// The halo mode: the arguments above with halo, (2, cfg ? 2 * batch :
-// batch, width, c) of h's type, after h.
+// The halo mode of the kernels of their own: camels_head_step_bf16's
+// arguments with top and bottom after h, each (cfg ? 2 * batch : batch,
+// width, c) of h's type, or null (zero rows) at the image's edge.  bf16:
+// head_step_bf16_halo_kernel (c a multiple of 64, threads 256, rows and
+// smem_bytes from ops/sampler_step.py::bf16_plan); float:
+// head_step_halo_f32_kernel (c a multiple of 4, threads 256, rows and
+// smem_bytes from ops/sampler_step.py::halo_plan).
+extern "C" int camels_head_step_halo_bf16(const bf16* h, const bf16* top, const bf16* bottom,
+                                          const bf16* wt, const bf16* bias, const float* x,
+                                          const float* z,
+                                          const float* w_per_sample, float w, float* out,
+                                          int batch, int height, int width, int c, int rows,
+                                          int cfg, int threads, int smem_bytes, float c_eps,
+                                          float inv_sqrt_a, float sigma, int tanh_out,
+                                          void* stream) {
+  if (threads != BF16_THREADS || c % BLOCK) return (int)cudaErrorInvalidValue;
+  return band_launch<bf16>(head_step_bf16_halo_kernel, h, top, bottom, wt, bias, x, z,
+                           w_per_sample, w, out, batch, height, width, c, rows, cfg, threads,
+                           smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
+
+extern "C" int camels_head_step_halo(const float* h, const float* top, const float* bottom,
+                                     const float* wt, const float* bias, const float* x,
+                                     const float* z,
+                                     const float* w_per_sample, float w, float* out,
+                                     int batch, int height, int width, int c, int rows,
+                                     int cfg, int threads, int smem_bytes, float c_eps,
+                                     float inv_sqrt_a, float sigma, int tanh_out,
+                                     void* stream) {
+  if (threads != F32_THREADS || c % 4) return (int)cudaErrorInvalidValue;
+  return band_launch<float>(head_step_halo_f32_kernel, h, top, bottom, wt, bias, x, z,
+                            w_per_sample, w, out, batch, height, width, c, rows, cfg, threads,
+                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
+
+// The template's halo mode, at the shapes the kernels of their own do not
+// take (ops/sampler_step.py::route): the arguments of camels_head_step with
+// top and bottom after h, as camels_head_step_halo's.
 #define CAMELS_HEAD_STEP_HALO_ENTRY(NAME, E)                                         \
-  extern "C" int NAME(const E* h, const E* halo, const E* wt, const E* bias,        \
+  extern "C" int NAME(const E* h, const E* top, const E* bottom, const E* wt,       \
+                      const E* bias,                                                \
                       const float* x, const float* z, const float* w_per_sample,    \
                       float w, float* out, int batch, int height, int width, int c, \
                       int rows, int cfg, int ck, int stages, int threads,           \
                       int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
                       int tanh_out, void* stream) {                                 \
-    return entry<E, true>(h, halo, wt, bias, x, z, w_per_sample, w, out, batch,     \
+    return entry<E, true>(h, top, bottom, wt, bias, x, z, w_per_sample, w, out,     \
+                          batch,                                                    \
                           height, width, c, rows, cfg, ck, stages, threads,         \
                           smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);  \
   }
-CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo, float)
-CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_bf16, bf16)
+CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_generic, float)
+CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_generic_bf16, bf16)
 #undef CAMELS_HEAD_STEP_HALO_ENTRY

@@ -271,6 +271,15 @@ def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = Tr
         return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
 
 
+def idle_lane_threads(width: int, most: int) -> int:
+    """Threads of a CTA of whole warps that covers whole slices of
+    ``width`` threads, the lanes past its last whole slice idle: the
+    multiple of 32 from ``STATS_THREADS`` (at least ``width``) up to
+    ``most`` that leaves the smallest share idle, the fewest on a tie."""
+    return min(range(max(STATS_THREADS, -(-width // 32) * 32), most + 1, 32),
+               key=lambda t: (t % width / t, t))
+
+
 class StatsPlan(NamedTuple):
     """The statistics launch's geometry for one shard shape."""
 
@@ -300,9 +309,13 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     than the card has SMs and a part would keep ``STATS_PART_MIN`` bytes:
     a cluster of 1 takes no barrier.  ``STATS_THREADS`` threads in whole
     warps and whole pixels of the unit, fewer where a part fills fewer.
-    Raises ``ValueError`` where the channels do not split into the groups
-    or a pixel's slice of a unit is wider than ``STATS_MAX_THREADS``
-    threads in whole warps."""
+    Where whole warps of whole pixels exceed ``STATS_MAX_THREADS`` (a
+    unit of one group of an odd number of packs over 16, as n_feat 136's
+    17 channels a group), the lanes past the CTA's last whole pixel idle
+    (:func:`idle_lane_threads`): every lane of the unit's one group merges
+    in the butterfly, the idle ones empty.  Raises ``ValueError`` where
+    the channels do not split into the groups or a pixel's slice of a
+    unit is wider than ``STATS_MAX_THREADS`` threads."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     cg = c // groups
@@ -315,9 +328,9 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
         seg *= 2
     vs = seg * vpg
     whole = math.lcm(32, vs)  # threads in whole warps and whole pixels
-    if whole > STATS_MAX_THREADS:
+    if vs > STATS_MAX_THREADS:
         raise ValueError(f"a group of {cg} channels takes {vs} threads a pixel, over "
-                         f"{STATS_MAX_THREADS} in whole warps")
+                         f"{STATS_MAX_THREADS}")
     units = n * groups // seg
 
     def part_bytes(cluster):
@@ -328,6 +341,9 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
            and part_bytes(cluster) // 2 >= STATS_PART_MIN):
         cluster *= 2
     part = max(1, -(-hw // cluster))
+    if whole > STATS_MAX_THREADS:  # seg is 1: a unit of several groups is 2^k packs
+        threads = idle_lane_threads(vs, STATS_MAX_THREADS)
+        return StatsPlan(vec, seg, cluster, min(threads, -(-part * vs // 32) * 32), part)
     threads = max(whole, STATS_THREADS - STATS_THREADS % whole)
     threads = min(threads, -(-part * vs // whole) * whole)
     return StatsPlan(vec, seg, cluster, threads, part)
@@ -352,14 +368,17 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
 
     A CTA takes whole pixels of one sample, a thread the same 16-byte pack
     (or element, as :func:`stats_plan`) of each: ``APPLY_THREADS`` threads
-    in whole warps and whole pixels.  A thread takes ``APPLY_PACKS``
+    in whole warps and whole pixels.  Where whole warps of whole pixels
+    exceed the kernel's launch bound (512 threads of packs, 1024 of
+    elements; n_feat 264's out_norm: 264 elements a pixel, 1056 threads),
+    the lanes past the CTA's last whole pixel idle
+    (:func:`idle_lane_threads`).  A thread takes ``APPLY_PACKS``
     pixels, halved while the grid has fewer CTAs than the card has SMs
     (at phase (r1)'s shapes two CTAs an SM ran no faster, and the
     up0_norm's 8-pixel parts slower: ``scripts/compare_torch_kernels.py
     --sharded``).  Raises
     ``ValueError`` where the channels do not split into the groups or a
-    pixel is wider than the kernel's launch bound in whole warps (512
-    threads of packs, 1024 of elements)."""
+    pixel is wider than the kernel's launch bound."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     wide = 16 // element_bytes
@@ -367,10 +386,12 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     vpp = c // vec  # packs a pixel
     whole = math.lcm(32, vpp)
     most = 1024 if vec == 1 else 512
+    if vpp > most:
+        raise ValueError(f"a pixel of {vpp} accesses is wider than {most} threads")
     if whole > most:
-        raise ValueError(f"a pixel of {vpp} accesses is wider than {most} threads in whole "
-                         f"warps")
-    threads = max(whole, APPLY_THREADS - APPLY_THREADS % whole)
+        threads = idle_lane_threads(vpp, most)
+    else:
+        threads = max(whole, APPLY_THREADS - APPLY_THREADS % whole)
     step = threads // vpp  # pixels a CTA covers per step
     packs = APPLY_PACKS
     while packs > 1 and n * -(-hw // (step * packs)) < sms:

@@ -15,7 +15,13 @@ On a height shard of a spatial mesh ``out_conv2`` reads one row beyond
 the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
 (None for a side at the image's edge, which stays zero padding), and the
 kernel's halo mode copies a band's row -1 or H from them (counts
-``.launches_halo`` and ``.launches_halo_bf16``).
+``.launches_halo`` and ``.launches_halo_bf16``).  The halo mode is the
+bf16 kernel's in bf16 (``c`` a multiple of 64), and in fp32 a kernel of
+its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
+kernel's warp-private rings, the taps on the CUDA cores in fp32) under
+:func:`halo_plan`; other widths take the float kernel's halo mode
+(:func:`route`), counted also under ``.launches_halo_generic`` and
+``.launches_halo_generic_bf16``.
 
 Two instances by the features' dtype: float32, and bfloat16 for the bf16
 model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
@@ -29,8 +35,7 @@ shared memory; :func:`bf16_plan` chooses its band height.  Where that
 plan refuses a shape (``c`` not a multiple of 64, as n_feat 32, 96 and 160
 give), the bf16 unsharded launch takes the float kernel's bf16 instance
 instead (:func:`route`), counted under ``.launches_bf16`` and also under
-``.launches_generic_bf16``.  The halo mode keeps the float kernel's design
-in both instances.
+``.launches_generic_bf16``.
 """
 
 from __future__ import annotations
@@ -62,12 +67,21 @@ BF16_PER_SM = 2  # CTAs of the bf16 kernel an SM runs at once
 BF16_THREADS = 256  # a CTA of the bf16 kernel: 8 warps
 BF16_TILE = 16  # pixels of a warp's item (the MMA's 16 rows)
 BF16_BLOCK = 64  # channels of an item: 128 bytes a pixel, 8 copies of 16
+ROWS_HALO = (8, 4, 2, 1)  # band heights of the fp32 halo kernel
+HALO_THREADS = 256  # a CTA of the fp32 halo kernel: 8 warps
+HALO_TILE = 32  # pixels of a warp's tile: four a lane, 8 channels of each an item
+HALO_CK = 32  # fp32 channels of an item: a pixel's 128-byte line, 8 copies of 16
+HALO_RING = 2  # slots of each warp's ring (csrc F32_RING)
+HALO_PER_SM = 2  # CTAs of the fp32 halo kernel an SM runs at once
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
 C_NAME = "camels_head_step"  # the float unsharded launch
 BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
 BF16_GENERIC_NAME = "camels_head_step_bf16_generic"  # the float kernel's bf16 instance
-HALO_NAMES = {torch.float32: "camels_head_step_halo",
-              torch.bfloat16: "camels_head_step_halo_bf16"}
+HALO_NAMES = {torch.float32: "camels_head_step_halo",  # halo_plan
+              torch.bfloat16: "camels_head_step_halo_bf16"}  # bf16_plan
+# The float kernel's halo mode (launch_plan), where the kernels above refuse.
+HALO_GENERIC_NAMES = {torch.float32: "camels_head_step_halo_generic",
+                      torch.bfloat16: "camels_head_step_halo_generic_bf16"}
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -76,8 +90,9 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
-_HALO_ARGTYPES = _ARGTYPES[:1] + (ctypes.c_void_p,) + _ARGTYPES[1:]  # halo after h
+_HALO_ARGTYPES = _ARGTYPES[:1] + (ctypes.c_void_p,) * 2 + _ARGTYPES[1:]  # top, bottom after h
 _BF16_ARGTYPES = _ARGTYPES[:14] + _ARGTYPES[16:]  # no ck, stages
+_BAND_HALO_ARGTYPES = _HALO_ARGTYPES[:16] + _HALO_ARGTYPES[18:]  # halo_plan's, bf16_plan's
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -277,26 +292,78 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows))
 
 
+class HaloPlan(NamedTuple):
+    """The fp32 halo kernel's launch geometry for one input shape."""
+
+    rows: int  # output rows of a CTA's band
+    threads: int  # per CTA
+    ctas: int
+    smem_bytes: int  # dynamic shared memory per CTA: weights, rings, partials
+
+
+def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
+              cfg: bool = True, aligned: bool = True, sms: int = SMS) -> HaloPlan:
+    """Geometry of the fp32 :func:`fused_head_step` with ``halo`` for
+    ``units`` CTA units (sample pairs under ``cfg``, else samples) of
+    ``height`` x ``width`` pixels of ``c`` channels on a card of ``sms``
+    SMs.
+
+    A CTA of ``HALO_THREADS`` threads takes a band of ``rows`` output rows
+    and reduces its ``rows + 2`` rows of ``h`` (each branch's), each warp
+    its ``HALO_TILE``-pixel tiles ``HALO_CK`` channels (a pixel's 128-byte
+    line) an item through a ring of its own, ``HALO_RING`` deep; its shared
+    memory holds the weights (rows of ``c`` rounded up to ``HALO_CK``), the
+    rings and the band's partials.  The band is the shortest of
+    ``ROWS_HALO`` whose grid is one wave of the CTAs an SM holds (at most
+    ``HALO_PER_SM``: one CTA's gather runs beside another's copies), else
+    the tallest that fits.  Raises ``ValueError`` for a shape it does not take:
+    ``cout != 1``, ``c`` not a multiple of one 16-byte copy (4), a pointer
+    off a 16-byte boundary (``aligned``), or no band whose shared memory
+    fits (weights of over ~3700 channels).
+    """
+    if cout != 1:
+        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    if c <= 0 or c % 4:
+        raise ValueError(f"the fp32 halo kernel needs channels % 4 == 0, got {c}")
+    if not aligned:
+        raise ValueError("the head kernel needs 16-byte aligned features")
+
+    def smem(rows):
+        m = (2 if cfg else 1) * (rows + 2) * width
+        return 4 * (9 * -(-c // HALO_CK) * HALO_CK
+                    + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
+                    + 9 * -(-m // HALO_TILE) * HALO_TILE)
+
+    fits = [r for r in sorted(ROWS_HALO) if smem(r) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"a band of {width} pixels x {c} channels takes no fp32 halo plan")
+    rows = next((r for r in fits if units * -(-height // r) <= sms * min(
+        HALO_PER_SM, SM_SMEM // (smem(r) + 1024))), fits[-1])
+    return HaloPlan(rows, HALO_THREADS, units * -(-height // rows), smem(rows))
+
+
 def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
           cfg: bool = True, aligned: bool = True, halo: bool = False,
           sms: int = SMS) -> tuple:
     """``(C name, plan)`` of :func:`fused_head_step`'s launch for features
-    of ``dtype`` (arguments as :func:`launch_plan`'s): with ``halo`` the
-    float kernel's halo mode; else for float32 the float kernel, and for
-    bfloat16 the bf16 kernel under :func:`bf16_plan` or, where that plan
-    refuses the shape, the float kernel's bf16 instance
-    (``BF16_GENERIC_NAME``) under :func:`launch_plan`.  A function of the
-    shape, the dtype and the alignment alone, chosen before the launch;
-    raises ``ValueError`` where no kernel takes the shape."""
+    of ``dtype`` (arguments as :func:`launch_plan`'s): for float32 the
+    float kernel, with ``halo`` the fp32 halo kernel under
+    :func:`halo_plan`; for bfloat16 the bf16 kernel (with ``halo`` its
+    halo mode) under :func:`bf16_plan`.  Where that plan refuses the shape,
+    the float kernel's instance of ``dtype`` under :func:`launch_plan`
+    (``BF16_GENERIC_NAME``, with ``halo`` ``HALO_GENERIC_NAMES``).  A
+    function of the shape, the dtype and the alignment alone, chosen
+    before the launch; raises ``ValueError`` where no kernel takes the
+    shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
-    if halo:
-        return HALO_NAMES[dtype], launch_plan(*args, ELEMENT_BYTES[dtype])
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 and not halo:
         return C_NAME, launch_plan(*args)
+    own, generic = ((HALO_NAMES[dtype], HALO_GENERIC_NAMES[dtype]) if halo
+                    else (BF16_NAME, BF16_GENERIC_NAME))
     try:
-        return BF16_NAME, bf16_plan(*args)
+        return own, (bf16_plan if dtype == torch.bfloat16 else halo_plan)(*args)
     except ValueError:
-        return BF16_GENERIC_NAME, launch_plan(*args, 2)
+        return generic, launch_plan(*args, ELEMENT_BYTES[dtype])
 
 
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
@@ -337,12 +404,13 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     wt = weight[0].permute(1, 2, 0).reshape(9, c).contiguous()
     tensors = {"h": h, "bias": bias, "x": x, "weight": wt}
     if halo is not None:
-        for r in halo:
-            if r is not None and (r.device != h.device or r.dtype != h.dtype
-                                  or r.numel() != nd * width * c):
+        for side, r in zip(("top", "bottom"), halo):
+            if r is None:
+                continue
+            if r.numel() != nd * width * c:
                 raise ValueError(f"fused_head_step: a halo row must be ({nd}, {width}, {c}) "
                                  f"of {_build.type_name(h.dtype)} on {h.device}")
-        tensors["halo"] = halo_buffer(h, halo)
+            tensors[side] = r.reshape(nd, width, c).contiguous()  # no copy: halo_rows gives views
     if z is not None:
         tensors["z"] = z
     w_vec = None
@@ -354,7 +422,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if h.dtype not in ELEMENT_BYTES:
         raise ValueError(f"fused_head_step: no kernel for {h.dtype}; float32 or bfloat16")
     for name, t in tensors.items():
-        dtype = h.dtype if name in ("h", "bias", "weight", "halo") else torch.float32
+        dtype = h.dtype if name in ("h", "bias", "weight", "top", "bottom") else torch.float32
         if t.device != h.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
                 f"fused_head_step: {name} must be a contiguous {_build.type_name(dtype)} "
@@ -370,20 +438,22 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if z is not None and z.shape != x.shape:
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
-    aligned = all(t.data_ptr() % 16 == 0 for t in (h, wt, tensors.get("halo", h)))
+    aligned = all(tensors[k].data_ptr() % 16 == 0 for k in ("h", "weight", "top", "bottom")
+                  if k in tensors)
     name, plan = route(b, height, width, c, h.dtype, weight.shape[0], cfg, aligned,
                        halo is not None,
                        torch.cuda.get_device_properties(h.device).multi_processor_count)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    bf16 = name == BF16_NAME
-    fn = _build.kernel(name, _HALO_ARGTYPES if halo is not None
-                       else _BF16_ARGTYPES if bf16 else _ARGTYPES)
-    geometry = (plan.threads,) if bf16 else (plan.ck, plan.stages, plan.threads)
+    band = not isinstance(plan, Plan)  # a kernel of its own: no ck, stages
+    fn = _build.kernel(name, (_BAND_HALO_ARGTYPES if band else _HALO_ARGTYPES)
+                       if halo is not None else _BF16_ARGTYPES if band else _ARGTYPES)
+    geometry = (plan.threads,) if band else (plan.ck, plan.stages, plan.threads)
+    rows = (tuple(tensors[k].data_ptr() if k in tensors else None for k in ("top", "bottom"))
+            if halo is not None else ())
     err = fn(
-        h.data_ptr(), *((tensors["halo"].data_ptr(),) if halo is not None else ()),
-        wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
+        h.data_ptr(), *rows, wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
         z.data_ptr() if z is not None else None,
         w_vec.data_ptr() if w_vec is not None else None,
         float(guide_w) if cfg and w_vec is None else 0.0,
@@ -396,13 +466,16 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    if name == BF16_GENERIC_NAME:
-        fused_head_step.launches_generic_bf16 += 1
+    if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values():
+        count = f"launches{mode}_generic{suffix}"
+        setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
     return out
 
 
 fused_head_step.launches = 0
 fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
 fused_head_step.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
-fused_head_step.launches_halo = 0
-fused_head_step.launches_halo_bf16 = 0
+fused_head_step.launches_halo = 0  # every fp32 halo launch
+fused_head_step.launches_halo_generic = 0  # those of them that took the float kernel
+fused_head_step.launches_halo_bf16 = 0  # every bf16 halo launch
+fused_head_step.launches_halo_generic_bf16 = 0  # those of them that took the float kernel

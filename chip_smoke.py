@@ -106,7 +106,9 @@ Phases, each timed on its own line:
   (r) the spatial (data x space) mesh and int8: (r1) K2's sharded
       statistics and apply launches and K1's halo mode, fp32 and bf16,
       against their plain versions on half of the w=2 serving heads' maps
-      (a 1x2 mesh's shard) and of the deep model's out_norm (10 maps); (r2)
+      (a 1x2 mesh's shard), of the deep model's out_norm (10 maps) and of
+      n_feat 136's and 264's heads; K3 on a shard; the float kernel's halo
+      mode at the widths K1's halo kernels do not take; (r2)
       two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
       committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
       (the exact chain of a 10-step schedule) against one process, in fp32
@@ -248,8 +250,11 @@ BF16_FLOPS = 989e12  # H100 SXM bf16, dense, on the tensor cores
 FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MB L2 (see time_ms)
 BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # Kernels whose ptxas report (registers, shared memory, spills) phase (a)
-# prints: the bf16 designs of K1 and K2, and K2's sharded launches.
-PTXAS_KERNELS = ("head_step_bf16_kernel", "groupnorm_bf16_kernel", "groupnorm_stats_kernel",
+# prints: the bf16 designs of K1 and K2, K1's halo kernels and K2's sharded
+# launches.
+PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+                 "head_step_halo_f32_kernel", "groupnorm_bf16_kernel",
+                 "groupnorm_stats_kernel",
                  "groupnorm_apply_kernel")
 
 # Kernel vs plain version on the card.  K3 differs only by the fused
@@ -273,8 +278,11 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        "head_step_halo": 1e-4, "groupnorm_apply": 1e-4, "groupnorm_stats": 1e-5,
        "head_step_halo_bf16": 4, "groupnorm_apply_bf16": 2, "groupnorm_stats_bf16": 1e-5,
        # The float kernels' bf16 instances, which take the bf16 shapes the
-       # bf16 kernels do not (narrow models): as those.
-       "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2}
+       # bf16 kernels do not (narrow models), and the float kernel's halo
+       # mode, which takes the halo shapes the kernels of their own do not:
+       # as those.
+       "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2,
+       "head_step_halo_generic": 1e-4, "head_step_halo_generic_bf16": 4}
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
 # reference's (JAX's golden, the CPU's) bf16 distance from its fp32 on the
@@ -301,11 +309,14 @@ WRAPPERS = {
     "head_step_halo_bf16": (fused_head_step, "launches_halo_bf16"),
     "groupnorm_stats_bf16": (groupnorm_stats, "launches_bf16"),
     "groupnorm_apply_bf16": (groupnorm_apply, "launches_bf16"),
-    # The float kernels' bf16 instances (the narrow bf16 model of phase o):
-    # their launches are also counted in head_step_bf16's and
-    # groupnorm_act_bf16's.
+    # The float kernels' bf16 instances (the narrow bf16 model of phase o)
+    # and the float kernel's halo mode (channels the halo kernels of their
+    # own do not take): their launches are also counted in head_step_bf16's,
+    # groupnorm_act_bf16's, head_step_halo's and head_step_halo_bf16's.
     "head_step_generic_bf16": (fused_head_step, "launches_generic_bf16"),
     "groupnorm_act_generic_bf16": (fused_groupnorm_act, "launches_generic_bf16"),
+    "head_step_halo_generic": (fused_head_step, "launches_halo_generic"),
+    "head_step_halo_generic_bf16": (fused_head_step, "launches_halo_generic_bf16"),
 }
 
 
@@ -333,7 +344,9 @@ LIBRARY = {
                        "per-channel affine on the NHWC layout",
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
-LIBRARY.update({f"{k}_generic_bf16": LIBRARY[f"{k}_bf16"] for k in ("head_step", "groupnorm_act")})
+LIBRARY.update({f"{k}_generic_bf16": LIBRARY[f"{k}_bf16"]
+                for k in ("head_step", "groupnorm_act", "head_step_halo")})
+LIBRARY["head_step_halo_generic"] = LIBRARY["head_step_halo"]
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -434,13 +447,16 @@ SOURCES = {
 SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
-SOURCES.update({f"{k}_generic_bf16": SOURCES[k] for k in ("head_step", "groupnorm_act")})
+SOURCES.update({f"{k}_generic_bf16": SOURCES[k]
+                for k in ("head_step", "groupnorm_act", "head_step_halo")})
+SOURCES["head_step_halo_generic"] = SOURCES["head_step"]
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
 # (MESH_TOL's reasoning: cuDNN picks its algorithms by shape, and a shard
-# is half the map).  Launches a spatial reverse step: K1's halo mode once,
-# K2's statistics and apply launches at up0_norm and out_norm, K3 once; a
+# is half the map).  Launches a spatial reverse step: K1's halo mode once
+# (the halo kernels of their own: the float kernel's halo mode none), K2's
+# statistics and apply launches at up0_norm and out_norm, K3 once; a
 # spatial forward: K2's two launches at both heads and K3.
 SPATIAL_MESH, SPATIAL_MAPS, SPATIAL_T, SPATIAL_TOL = (1, 2), 16, 10, 1e-4
 SPATIAL_PER_STEP = {"head_step_halo": 1, "groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
@@ -2117,27 +2133,36 @@ def check_profile(dev, drive) -> None:
 def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     """Phase (r1)'s cases, fp32 and bf16: K2's statistics and apply
     launches on one half of the w=2 serving heads' maps (summed: one
-    spatial decoder call of a 1x2 mesh's rank) and of the deep model's
-    out_norm at 10 maps, the partials of both halves merged; K1's halo
-    mode on half of the w=2 serving features (summed: one spatial reverse
-    step), its rows above and below from the other half's edge."""
+    spatial decoder call of a 1x2 mesh's rank), of the deep model's
+    out_norm at 10 maps and of n_feat 136's and 264's heads (17, 33 and 66
+    channels a group: lanes past a CTA's last whole pixel idle), the
+    partials of both halves merged; K3 on half of FiLM stage 1's map; K1's
+    halo mode on half of the w=2 serving features (summed: one spatial
+    reverse step), its rows above and below from the other half's edge,
+    and the float kernel's halo mode at the widths the kernels of their
+    own do not take (n_feat 32 in bf16; 6000 fp32 channels, no model's)."""
     cases = []
     n = 2 * BATCH
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-        for label, batch, hw, c, act, norm, summed in (
+        for label, batch, hw, c, act, norm, film, summed in (
                 ("up0_norm (apply: with the FiLM epilogue), half of (32,16,16,256)", n, (8, 16),
-                 256, "relu", model.up0_norm, True),
+                 256, "relu", model.up0_norm, True, True),
                 ("out_norm, half of (32,64,64,128)", n, (32, 64), 128, "relu", model.out_norm,
-                 True),
+                 False, True),
                 ("deep out_norm, half of (10,128,128,128)", VARIANT_BATCH, (64, 128), 128,
-                 "leaky_relu", None, False)):
+                 "leaky_relu", None, False, False),
+                ("n_feat 136 out_norm, half of (32,64,64,136)", n, (32, 64), 136, "relu", None,
+                 False, False),
+                ("n_feat 264 out_norm, half of (32,64,64,264)", n, (32, 64), 264, "relu", None,
+                 False, False),
+                ("n_feat 264 up0_norm (apply: with the FiLM epilogue), half of (32,16,16,528)",
+                 n, (8, 16), 528, "relu", None, True, False)):
             gamma, beta = ((norm.weight.detach(), norm.bias.detach()) if norm is not None
                            else (randn(c), randn(c)))
             halves = [randn(batch, *hw, c).to(dtype) for _ in range(2)]
             x = halves[0]
             parts = torch.stack([groupnorm_stats_plain(hf, 8) for hf in halves])
-            rows = ((randn(batch, c).to(dtype), randn(1, c).to(dtype))
-                    if norm is model.up0_norm else None)
+            rows = (randn(batch, c).to(dtype), randn(1, c).to(dtype)) if film else None
             stats_args = (x, 8)
             cases.append((
                 f"groupnorm_stats{sfx}", f"{label} {tuple(x.shape)}", groupnorm_stats,
@@ -2150,18 +2175,48 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
                 f"groupnorm_apply{sfx}", f"{label} {tuple(x.shape)}", groupnorm_apply,
                 groupnorm_apply_plain, None, apply_args, nbytes(*apply_args, x),
                 x.numel() * (12 if rows else 10), summed))
-        b = BATCH
-        h = randn(2 * b, 32, 64, model.n_feat).relu().to(dtype)
-        halo = tuple(randn(2 * b, 64, model.n_feat).relu().to(dtype) for _ in range(2))
-        x, z = randn(b, 32, 64, 1), randn(b, 32, 64, 1)
-        head = (model.out_conv2.weight.detach().to(dtype), model.out_conv2.bias.detach().to(dtype))
-        args = (h, *head, x, z, c_eps, inv_sqrt_a, sigma, 2.0, False, halo)
+        args = (randn(n, 16, 32, 128).to(dtype), randn(n, 128).to(dtype),
+                randn(1, 128).to(dtype))
         cases.append((
-            f"head_step_halo{sfx}", f"cfg w=2, half of h(32,64,64,128) h{tuple(h.shape)} "
-            f"x{tuple(x.shape)}, halo rows (2, 32, 64, 128)", fused_head_step, head_step_plain,
-            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1),
-            args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, True))
+            f"film{sfx}", f"stage 1, half of (32,32,32,128) {tuple(args[0].shape)}", fused_film,
+            film_plain,
+            lambda x, scale, shift: torch.addcmul(
+                shift[:, None, None, :], x, scale[:, None, None, :]),
+            args, nbytes(*args, args[0]), args[0].numel() * 2, False))
+        for name, b, height, width, c, label in (
+                (f"head_step_halo{sfx}", BATCH, 32, 64, model.n_feat,
+                 "cfg w=2, half of h(32,64,64,128)"),
+                (f"head_step_halo_generic{sfx}", BATCH, 32, 64, 32,
+                 "cfg w=2, n_feat 32 (a narrow model), half of h(32,64,64,32)") if sfx else
+                (f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
+                 "cfg w=2, 6000 channels (no model's: weights over the fp32 halo kernel's "
+                 "shared memory), half of h(2,8,8,6000)")):
+            h = randn(2 * b, height, width, c).relu().to(dtype)
+            halo = tuple(randn(2 * b, width, c).relu().to(dtype) for _ in range(2))
+            x, z = randn(b, height, width, 1), randn(b, height, width, 1)
+            head = ((model.out_conv2.weight.detach().to(dtype),
+                     model.out_conv2.bias.detach().to(dtype)) if c == model.n_feat else
+                    (randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(dtype), randn(1).to(dtype)))
+            args = (h, *head, x, z, c_eps, inv_sqrt_a, sigma, 2.0, False, halo)
+            cases.append((
+                name, f"{label} h{tuple(h.shape)} x{tuple(x.shape)}, halo rows "
+                f"(2, {2 * b}, {width}, {c})", fused_head_step, head_step_plain,
+                lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                     padding=1),
+                args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, True))
     return cases
+
+
+def merge_cases(stats: dict, more: dict) -> None:
+    """Phase (r1)'s :func:`hold_cases` results into phase (c)'s: a kernel
+    both phases hold (K3 on a shard, for information) keeps phase (c)'s
+    summed times and gains the cases and the worst error."""
+    for name, r in more.items():
+        if name not in stats:
+            stats[name] = r
+            continue
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], r["max_abs_err"])
+        stats[name]["shapes"] += r["shapes"]
 
 
 def check_shard_kernels(dev, model) -> dict:
@@ -2666,8 +2721,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     for name, run in (
-            ("(r1) sharded kernel modes vs plain", lambda: stats.update(
-                check_shard_kernels(dev, model))),
+            ("(r1) sharded kernel modes vs plain", lambda: merge_cases(
+                stats, check_shard_kernels(dev, model))),
             ("(r2) a (1 x 2) spatial mesh of two gloo ranks", lambda: check_spatial(
                 dev, model, variables, cfg2.model_path, q2, launches)),
             ("(r3) QuantConv", lambda: check_quantconv(dev, variables))):

@@ -50,6 +50,23 @@ the same graph (the floor a launch shows) and a clone of the shard (its
 bytes read and written); then the new launches under every plan their
 kernels take.  It prints the SASS instruction count of each instance of
 the new kernels (``cuobjdump -sass``).
+
+``--halo`` compares K1's halo mode instead (``fused_head_step`` with
+``halo=(top, bottom)``), fp32 and bf16, at ``chip_smoke.py`` phase (r1)'s
+shape: half of the w=2 serving features, ``h (32, 32, 64, 128)``, its
+rows above and below from the other half.  Each launch is held to the
+checkout's plain version (fp32 1e-4, bf16 ``chip_smoke.tolerance``), then
+timed old, new, new, old cold and right after a cuDNN conv of
+``out_conv1``'s shard shape (256 to 128 channels at 32x64, as
+``--sharded`` times), beside the bound, and the kernel alone (the
+profiler's device time of the step kernel, without the earlier wrapper's
+copy of the halo rows into one buffer); the same three timings of the
+checkout's float template's halo mode (the rows as two pointers) against
+the new kernels, in turns; then the new kernels at every
+band height of their plans (``ROWS_HALO``, ``ROWS_BF16``), and, for
+information, the fp32 halo kernel on the whole w=2 map (zero halo rows)
+against the unsharded fp32 launch in turns.  It prints the SASS
+instruction count of the new halo kernels.
 Needs a CUDA card.
 """
 
@@ -102,6 +119,7 @@ def main(argv=None) -> int:
                     help="the instances compared (default float32)")
     ap.add_argument("--sharded", action="store_true",
                     help="K2's sharded statistics and apply launches, both dtypes")
+    ap.add_argument("--halo", action="store_true", help="K1's halo mode, both dtypes")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -169,6 +187,8 @@ def main(argv=None) -> int:
 
     if args.sharded:
         return compare_sharded(randn, old_gn, chip_smoke, groupnorm)
+    if args.halo:
+        return compare_halo(randn, old_step, chip_smoke, sampler_step)
     if args.dtype == "bfloat16":
         return compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
     cases = []  # (label, old fn, new fn, plain fn, args, tolerance)
@@ -495,6 +515,202 @@ def sass_counts(build, names) -> dict:
     return counts
 
 
+def after(fn, args, before, n: int = 20) -> float:
+    """Device ms of one ``fn(*args)`` right after ``before()``: CUDA
+    events around the call, the median of ``n``.  A spin kernel first
+    keeps the card busy while the host enqueues the conv, the events and
+    the call, so no host gap is timed (no profiler: its traces of these
+    launches after a large conv can hold no kernel)."""
+    import torch
+
+    fn(*args)
+    before()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        before()
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[n // 2]
+
+
+def kernel_alone_ms(chip_smoke, fn, args, key: str, n: int = 24) -> float:
+    """Device ms of the kernels whose name holds ``key`` per call of
+    ``fn(*args)``, from the profiler (host activity traced too), each call
+    on its own copy of the tensors, the copies more than the L2's bytes:
+    the kernel's own time, without the other launches ``fn`` makes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    copies = -(-chip_smoke.FLUSH_BYTES // chip_smoke.nbytes(*args))
+    sets = [chip_smoke.copy_args(args) for _ in range(copies)]
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*sets[i % copies])
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
+    if not us > 0:
+        raise SystemExit(f"kernel_alone_ms: no {key} kernel in the trace")
+    return us / n / 1e3
+
+
+def compare_halo(randn, old_step, chip_smoke, sampler_step) -> int:
+    """K1's halo mode: old vs new in turns, the new plans' band heights,
+    and the fp32 halo kernel on the whole w=2 map."""
+    import torch
+    import torch.nn.functional as F
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    for name, n in sass_counts(_build, ("head_step_halo_f32_kernel", "head_step_bf16_kernel",
+                                        "head_step_bf16_halo_kernel")).items():
+        print(f"SASS {n} instructions: {name}", flush=True)
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+    b = 16
+
+    def template_route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True,
+                       halo=False, sms=sampler_step.SMS):
+        return sampler_step.HALO_GENERIC_NAMES[dtype], sampler_step.launch_plan(
+            units, height, width, c, cout, cfg, aligned, sms, sampler_step.ELEMENT_BYTES[dtype])
+
+    def template_step(*a):
+        """The halo launch through the float template whatever the shape."""
+        real = sampler_step.route
+        sampler_step.route = template_route
+        try:
+            return sampler_step.fused_head_step(*a)
+        finally:
+            sampler_step.route = real
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        u = randn(2 * b, 256, 32, 64).to(dtype).contiguous(memory_format=torch.channels_last)
+        w_conv = randn(128, 256, 3, 3).mul(0.02).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+        def before(u=u, w_conv=w_conv):
+            return F.conv2d(u, w_conv, padding=1)
+
+        weight = randn(1, 128, 3, 3).mul(1 / (3 * 128**0.5)).to(dtype).contiguous(
+            memory_format=torch.channels_last)  # as the model holds it: no copy a launch
+        bias = randn(1).to(dtype)
+        h = randn(2 * b, 32, 64, 128).relu().to(dtype)
+        halo = tuple(randn(2 * b, 64, 128).relu().to(dtype) for _ in range(2))
+        x, z = randn(b, 32, 64, 1), randn(b, 32, 64, 1)
+        a = (h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, 2.0, False, halo)
+        name = f"head_step_halo{sfx}"
+        label = f"K1 halo {dtype} half of the w=2 features h{tuple(h.shape)}"
+        out = sampler_step.fused_head_step(*a)
+        nb = chip_smoke.nbytes(*a, out)
+        peak = chip_smoke.BF16_FLOPS if sfx else chip_smoke.FP32_FLOPS
+        bound = max(nb / chip_smoke.HBM_BYTES_PER_S, (h.numel() * 18 + x.numel() * 8) / peak) * 1e3
+
+        def held(fn, title, a=a):
+            got, want = fn(*a), sampler_step.head_step_plain(*a)
+            err = (got - want).abs().max().item()
+            tol = chip_smoke.tolerance(name, a, want)[0]
+            if not err <= tol:
+                raise SystemExit(f"{title}: max abs err {err} > {tol}")
+            return err
+
+        errs = [held(f, label) for f in (old_step.fused_head_step, sampler_step.fused_head_step)]
+        for how, timer in (("cold", chip_smoke.time_ms),
+                           ("after conv", functools.partial(after, before=before))):
+            t = [timer(f, a) for f in (old_step.fused_head_step, sampler_step.fused_head_step,
+                                       sampler_step.fused_head_step, old_step.fused_head_step)]
+            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            print(f"{label} [{how}]: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms "
+                  f"(mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); bound {bound:.6f} "
+                  f"ms ({nb} bytes): share old {bound / o:.3f} new {bound / nw:.3f}; max err "
+                  f"old {errs[0]:.2e} new {errs[1]:.2e}", flush=True)
+        alone = [kernel_alone_ms(chip_smoke, f, a, "head_step")
+                 for f in (old_step.fused_head_step, sampler_step.fused_head_step,
+                           sampler_step.fused_head_step, old_step.fused_head_step)]
+        o, nw = (alone[0] + alone[3]) / 2, (alone[1] + alone[2]) / 2
+        print(f"{label} [kernel alone, profiler]: old {alone[0]:.5f} {alone[3]:.5f} new "
+              f"{alone[1]:.5f} {alone[2]:.5f} ms (mean old {o:.5f}, new {nw:.5f}, old/new "
+              f"{o / nw:.2f}); share old {bound / o:.3f} new {bound / nw:.3f}", flush=True)
+        # The checkout's float template's halo mode (the halo rows as two
+        # pointers, as the new kernels take them) against the new kernel:
+        # the kernel each forks from, without the earlier wrapper's row copy.
+        errs = [held(f, label) for f in (template_step, sampler_step.fused_head_step)]
+        for how, timer in (("cold", chip_smoke.time_ms),
+                           ("after conv", functools.partial(after, before=before)),
+                           ("kernel alone, profiler",
+                            functools.partial(kernel_alone_ms, chip_smoke, key="head_step"))):
+            t = [timer(f, a) for f in (template_step, sampler_step.fused_head_step,
+                                       sampler_step.fused_head_step, template_step)]
+            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            print(f"{label} [template vs new, {how}]: template {t[0]:.5f} {t[3]:.5f} new "
+                  f"{t[1]:.5f} {t[2]:.5f} ms (mean template {o:.5f}, new {nw:.5f}, "
+                  f"template/new {o / nw:.2f}); share template {bound / o:.3f} new "
+                  f"{bound / nw:.3f}; max err template {errs[0]:.2e} new {errs[1]:.2e}",
+                  flush=True)
+        rows_name = "ROWS_BF16" if sfx else "ROWS_HALO"
+        plan_fn = sampler_step.bf16_plan if sfx else sampler_step.halo_plan
+        rows_all = getattr(sampler_step, rows_name)
+        picked = plan_fn(b, 32, 64, 128)
+        times = {}
+        for rows in rows_all:
+            setattr(sampler_step, rows_name, (rows,))
+            try:
+                plan = plan_fn(b, 32, 64, 128)
+                held(sampler_step.fused_head_step, f"{label} rows={rows}")
+                times[rows] = (plan.ctas, chip_smoke.time_ms(sampler_step.fused_head_step, a),
+                               after(sampler_step.fused_head_step, a, before))
+            except ValueError:
+                pass
+            finally:
+                setattr(sampler_step, rows_name, rows_all)
+        print(f"new {label} by band rows (CTAs, ms cold, ms after conv): "
+              + ", ".join(f"{k}: {v[0]}, {v[1]:.5f}, {v[2]:.5f}" for k, v in times.items())
+              + f" (the plan picks {tuple(picked)})", flush=True)
+
+    # The unsharded bf16 launch at the w=2 serving shape, old and new in
+    # turns: the bf16 kernel serves both modes.
+    h = randn(2 * b, 64, 64, 128).relu().bfloat16()
+    weight = randn(1, 128, 3, 3).mul(1 / (3 * 128**0.5)).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
+    a = (h, weight, randn(1).bfloat16(), x, z, c_eps, inv_sqrt_a, sigma, 2.0)
+    t = [chip_smoke.time_ms(f, a) for f in (old_step.fused_head_step, sampler_step.fused_head_step,
+                                           sampler_step.fused_head_step, old_step.fused_head_step)]
+    print(f"unsharded bf16 launch, w=2 h{tuple(h.shape)}: old {t[0]:.5f} {t[3]:.5f} new "
+          f"{t[1]:.5f} {t[2]:.5f} ms (old/new {(t[0] + t[3]) / (t[1] + t[2]):.2f})", flush=True)
+
+    # Information: the fp32 halo kernel on the whole w=2 map (its halo
+    # rows zero: the unsharded step) against the unsharded fp32 launch.
+    h = randn(2 * b, 64, 64, 128).relu()
+    weight = randn(1, 128, 3, 3).mul(1 / (3 * 128**0.5)).contiguous(
+        memory_format=torch.channels_last)
+    x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
+    a = (h, weight, randn(1), x, z, c_eps, inv_sqrt_a, sigma, 2.0)
+
+    def as_halo(*a):
+        return sampler_step.fused_head_step(*a, halo=(None, None))
+
+    want = sampler_step.head_step_plain(*a)
+    errs = [(f(*a) - want).abs().max().item() for f in (sampler_step.fused_head_step, as_halo)]
+    nb = chip_smoke.nbytes(*a, want)
+    t = [chip_smoke.time_ms(f, a) for f in (sampler_step.fused_head_step, as_halo, as_halo,
+                                           sampler_step.fused_head_step)]
+    print(f"whole w=2 map h{tuple(h.shape)}: unsharded fp32 launch {t[0]:.5f} {t[3]:.5f}, "
+          f"fp32 halo kernel with zero halo rows {t[1]:.5f} {t[2]:.5f} ms (plan "
+          f"{tuple(sampler_step.halo_plan(b, 64, 64, 128))}); bound "
+          f"{nb / chip_smoke.HBM_BYTES_PER_S * 1e3:.6f} ms; max err {errs[0]:.2e} "
+          f"{errs[1]:.2e}", flush=True)
+    return 0
+
+
 def compare_sharded(randn, old_gn, chip_smoke, groupnorm) -> int:
     """K2's sharded launches: old vs new in turns, then the new plans."""
     import torch
@@ -530,28 +746,6 @@ def compare_sharded(randn, old_gn, chip_smoke, groupnorm) -> int:
             raise SystemExit(f"{label}: max abs err {err} (tol {tol}), {share} beyond "
                              f"{fp32_rounding}")
         return err
-
-    def after(fn, args, before, n: int = 20) -> float:
-        """Device ms of one ``fn(*args)`` right after ``before()``: CUDA
-        events around the call, the median of ``n``.  A spin kernel first
-        keeps the card busy while the host enqueues the conv, the events
-        and the call, so no host gap is timed (no profiler: its traces of
-        these launches after a large conv can hold no kernel)."""
-        fn(*args)
-        before()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            before()
-            start.record()
-            fn(*args)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return sorted(times)[n // 2]
 
     tiny = torch.zeros(1, device="cuda")
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):

@@ -44,7 +44,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The port's kernels by name: K1 and K2 (the float design, and the bf16
 # single launch's own kernel), K3.
-OURS = ("head_step_kernel", "head_step_bf16_kernel", "groupnorm_act_kernel",
+OURS = ("head_step_kernel", "head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+        "head_step_halo_f32_kernel",
+        "groupnorm_act_kernel",
         "groupnorm_bf16_kernel", "groupnorm_stats_kernel", "groupnorm_apply_kernel",
         "film_kernel")
 # Ranges whose device time a row reports: the conv to one channel, and

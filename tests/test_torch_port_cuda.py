@@ -151,7 +151,8 @@ def test_groupnorm_kernel_slice_over_48_kb(dev):
 @pytest.mark.parametrize("act", ["none", "relu", "gelu", "leaky_relu"])
 @pytest.mark.parametrize("film", [False, True])
 @pytest.mark.parametrize("shape", [(32, 8, 16, 256), (32, 32, 64, 128), (2, 5, 7, 24),
-                                   (2, 64, 128, 256)])
+                                   (2, 64, 128, 256), (2, 8, 16, 136), (2, 8, 16, 264),
+                                   (2, 4, 8, 528)])
 def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film, act):
     """K2's sharded mode on four height shards: each statistics launch
     against its plain version (each column within 1e-5 of its largest
@@ -159,7 +160,9 @@ def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film, act):
     partials (fp32 1e-4; bf16 two ulps of the output) under every
     activation compiled in, with and without the FiLM epilogue, and the
     shards' outputs together the whole map's GroupNorm; one launch counted
-    each."""
+    each.  Also n_feat 136's and 264's out_norm and 264's up0_norm (17, 33
+    and 66 channels a group), whose plans leave lanes past the last whole
+    pixel idle."""
     n, h, w, c = shape
     x = (_randn(dev, n, 4 * h, w, c) * 3 + 1).to(dtype)
     gamma, beta = _randn(dev, c, seed=4), _randn(dev, c, seed=5)
@@ -185,34 +188,76 @@ def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film, act):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w", [None, 2.0])
-def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dtype, w):
+@pytest.mark.parametrize("kernel", ["own", "generic"])
+def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dtype, w, kernel):
     """K1's halo mode on two height shards of the w=2 serving features (and
     without CFG): against its plain version, and the two shards' steps
-    together the whole map's step; ``launches_halo`` counted.  fp32 within
-    1e-4 (1e-5 against the whole map); bf16 within four bf16 ulps of eps
-    times the step's ``c_eps * inv_sqrt_a`` (the guidance combine's
-    roundings), as ``chip_smoke.py`` holds it."""
-    b = 16
-    h = _randn(dev, 2 * b if w else b, 64, 64, 128).relu().to(dtype)
-    weight = (_randn(dev, 1, 128, 3, 3, seed=2) / 30).to(dtype)
+    together the whole map's step; ``launches_halo`` counted.  The kernels
+    of their own at 128 channels (fp32: the halo kernel; bf16: the bf16
+    kernel's halo mode); the float kernel's halo mode ("generic") where
+    they refuse the width (bf16: n_feat 32; fp32: 6000 channels on 8x8
+    maps, weights over the halo kernel's shared memory), counted also
+    under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
+    whole map); bf16 within four bf16 ulps of eps times the step's ``c_eps
+    * inv_sqrt_a`` (the guidance combine's roundings), as ``chip_smoke.py``
+    holds it, and with its own kernel equal to the unsharded bf16 kernel's
+    step on the whole map (the same products summed in the same order)."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    bf16 = dtype == torch.bfloat16
+    b, hw, c = (16, 64, 128) if kernel == "own" else (16, 64, 32) if bf16 else (1, 8, 6000)
+    h = _randn(dev, 2 * b if w else b, hw, hw, c).relu().to(dtype)
+    weight = (_randn(dev, 1, c, 3, 3, seed=2) / (3 * c**0.5)).to(dtype)
     bias = _randn(dev, 1, seed=3).to(dtype)
-    x, z = _randn(dev, b, 64, 64, 1, seed=4), _randn(dev, b, 64, 64, 1, seed=5)
+    x, z = _randn(dev, b, hw, hw, 1, seed=4), _randn(dev, b, hw, hw, 1, seed=5)
     whole = fused_head_step(h, weight, bias, x, z, 0.3, 1.1, 0.2, w)
     eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
     ulp = 2.0 ** (math.floor(math.log2(eps.abs().max().item())) - 7)
-    tol, tol_whole = (1e-4, 1e-5) if dtype == torch.float32 else (4 * 0.33 * ulp,) * 2
-    count = "launches_halo_bf16" if dtype == torch.bfloat16 else "launches_halo"
-    before = getattr(fused_head_step, count)
+    tol, tol_whole = (4 * 0.33 * ulp,) * 2 if bf16 else (1e-4, 1e-5)
+    half = hw // 2
+    name = sampler_step.route(b, half, hw, c, dtype, cfg=w is not None, halo=True)[0]
+    assert (name in sampler_step.HALO_GENERIC_NAMES.values()) == (kernel == "generic")
+    sfx = "_bf16" if bf16 else ""
+    counts = (f"launches_halo{sfx}", f"launches_halo_generic{sfx}")
+    before = [getattr(fused_head_step, k) for k in counts]
     outs = []
-    for top, sl, bottom in ((None, slice(0, 32), h[:, 32]), (h[:, 31], slice(32, 64), None)):
+    for top, sl, bottom in ((None, slice(0, half), h[:, half]),
+                            (h[:, half - 1], slice(half, hw), None)):
         args = (h[:, sl].contiguous(), weight, bias, x[:, sl].contiguous(),
                 z[:, sl].contiguous(), 0.3, 1.1, 0.2, w)
         got = fused_head_step(*args, halo=(top, bottom))
         torch.testing.assert_close(got, head_step_plain(*args, halo=(top, bottom)),
                                    atol=tol, rtol=0)
         outs.append(got)
-    assert getattr(fused_head_step, count) == before + 2
-    torch.testing.assert_close(torch.cat(outs, 1), whole, atol=tol_whole, rtol=0)
+    assert [getattr(fused_head_step, k) for k in counts] == [
+        before[0] + 2, before[1] + (2 if kernel == "generic" else 0)]
+    diff = (torch.cat(outs, 1) - whole).abs().max().item()
+    print(f"{dtype} {kernel} c {c} w {w}: two shards vs the whole map's launch: max abs "
+          f"{diff:.3e}")
+    assert diff <= (0.0 if bf16 and kernel == "own" else tol_whole)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 8])
+def test_head_step_halo_kernel_every_band(dev, fp32_convs, monkeypatch, rows):
+    """The fp32 halo kernel at every band height (3 leaves a ragged band),
+    under CFG and without, on 40 channels (the last 32-channel item half
+    zero) and an odd width, with the rows above and below from the
+    neighbouring shards: atol 1e-4."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "ROWS_HALO", (rows,))
+    b, height, width, c = 3, 16, 21, 40
+    weight, bias = _randn(dev, 1, c, 3, 3, seed=2) * 0.1, _randn(dev, 1, seed=3)
+    for cfg in (True, False):
+        n = 2 * b if cfg else b
+        h = _randn(dev, n, height, width, c, seed=1).relu()
+        halo = (_randn(dev, n, width, c, seed=6), _randn(dev, n, width, c, seed=7))
+        x, z = _randn(dev, b, height, width, 1, seed=4), _randn(dev, b, height, width, 1, seed=5)
+        args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, 2.0 if cfg else None)
+        name, plan = sampler_step.route(b, height, width, c, torch.float32, cfg=cfg, halo=True)
+        assert (name, plan.rows) == (sampler_step.HALO_NAMES[torch.float32], rows)
+        torch.testing.assert_close(fused_head_step(*args, halo=halo),
+                                   head_step_plain(*args, halo=halo), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("cin,cout,b", [(256, 256, 4), (8, 16, 2), (1, 3, 2)])

@@ -2,6 +2,8 @@
 tensors) against the JAX Pallas kernel in interpret mode and the JAX XLA
 path, on the same numpy inputs; the launch plans' index maps."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -659,6 +661,257 @@ def test_head_bf16_decomposition_matches_plain(monkeypatch, rows, w, tanh, hw, c
     assert (diff > 1e-5).mean() <= 0.01
 
 
+# ---- K1's halo mode: the bf16 kernel's and the fp32 halo kernel --------------
+
+def _band_sources(plan, units, height, width, c, cfg, halo, tile):
+    """The copy map of ``csrc/head_step.cu::band_of`` / ``band_source``
+    under ``plan``: per CTA (unit major, band minor) each band pixel's
+    (whole tiles of ``tile``) source of its channel 0, ``where`` (0 zero,
+    1 ``h``, 2 the row above the shard, 3 the row below) and the element
+    offset into it, computed as the kernel computes them (a base per branch
+    plus q * c), its (sample, input row, column), and the output pixels'
+    (unit, row, column)."""
+    pb = (plan.rows + 2) * width
+    m = (2 if cfg else 1) * pb
+    p = np.arange(-(-m // tile) * tile)
+    s = (p >= pb).astype(np.int64)
+    q = p - s * pb
+    bands = -(-height // plan.rows)
+    for cta in range(units * bands):
+        unit, y0 = cta // bands, (cta % bands) * plan.rows
+        q_lo = width if y0 == 0 else 0
+        q_bottom = (height - y0 + 1) * width
+        q_hi, qb_hi = min(pb, q_bottom), min(pb, q_bottom + width)
+        sample = unit + s * units if cfg else np.full_like(p, unit)
+        base = ((sample * height + y0 - 1) * width) * c
+        top = sample * width * c
+        bottom = (sample * width - q_bottom) * c
+        inside = (p < m) & (q >= q_lo) & (q < q_hi)
+        where = np.where(inside, 1, 0)
+        off = np.where(inside, base + q * c, 0)
+        if halo:
+            for code, rows_of, start in ((2, (p < m) & (q < q_lo), top),
+                                         (3, (p < m) & (q >= q_hi) & (q < qb_hi), bottom)):
+                where[rows_of] = code
+                off[rows_of] = (start + q * c)[rows_of]
+        o = np.arange(min(plan.rows, height - y0) * width)
+        yield (where, off, sample, y0 - 1 + q // width, q % width, p < m), (
+            unit, y0 + o // width, o % width)
+
+
+def _staged(where, off, h, top, bottom):
+    """The band pixels' channels as the copies stage them from ``h`` and
+    the halo rows ``top`` and ``bottom`` (None: zero-filled)."""
+    c = h.shape[-1]
+    got = np.zeros((len(where), c), h.dtype)
+    for code, src in ((1, h), (2, top), (3, bottom)):
+        if src is None:
+            continue
+        src = src.reshape(-1)
+        sel = where == code
+        assert (off[sel] >= 0).all() and (off[sel] + c <= src.size).all()
+        got[sel] = src[off[sel][:, None] + np.arange(c)]
+    return got
+
+
+HALO_SHAPES = {  # (units, height, width, c, cfg): half of the path's maps and small ones
+    "half of serve w=2": (16, 32, 64, 128, True), "half of serve w=0": (16, 32, 64, 128, False),
+    "half of the exact chain": (4, 32, 64, 128, False),
+    "half of deep": (10, 64, 128, 128, False), "half of deep cfg": (10, 64, 128, 128, True),
+    "serve w=2 whole": (16, 64, 64, 128, True), "small ragged": (3, 7, 5, 64, True),
+}
+
+
+@pytest.mark.parametrize("kernel", ["fp32", "bf16"])
+@pytest.mark.parametrize("halo", [True, False])
+@pytest.mark.parametrize("shape", ["small ragged", "half of serve w=2", "half of serve w=0"])
+def test_head_band_copies_stage_the_padded_map(kernel, halo, shape):
+    """The copy map of the band kernels (the bf16 kernel in both modes,
+    the fp32 halo kernel), modelled in numpy from the kernel's base-plus-
+    offset arithmetic: every staged band element comes from ``h``, from a
+    halo row or from zero exactly as in the padded map that
+    :func:`head_step_plain` builds from ``halo=(top, bottom)`` (rows -1
+    and H from the rows, zero for a side at the image's edge; zero without
+    ``halo``, beyond the map's rows and past the band), at every band
+    height of the plan's choice."""
+    units, height, width, c, cfg = HALO_SHAPES[shape]
+    c = 16 if shape == "small ragged" else 8  # the map's arithmetic, at a narrow width
+    rs = np.random.RandomState(units + height)
+    nd = 2 * units if cfg else units
+    h = rs.randn(nd, height, width, c).astype(np.float32) + 5
+    buf = rs.randn(2, nd, width, c).astype(np.float32) - 5
+    top, bottom = (buf[0], None) if halo else (None, None)  # a shard at the image's bottom
+    rows = tuple(None if r is None else torch.tensor(r) for r in (top, bottom))
+    padded = sampler_step_ops.halo_buffer(torch.tensor(h), rows)
+    padded = torch.cat([padded[0][:, None], torch.tensor(h), padded[1][:, None]], dim=1).numpy()
+    tile = sampler_step_ops.HALO_TILE if kernel == "fp32" else sampler_step_ops.BF16_TILE
+    for band_rows in (1, 2, 4, 8, 3):
+        plan = sampler_step_ops.HaloPlan(band_rows, 256, 0, 0)
+        written = np.zeros((units, height, width), np.int64)
+        for (where, off, sample, gy, gx, real), (unit, oy, ox) in _band_sources(
+                plan, units, height, width, c, cfg, halo, tile):
+            np.add.at(written, (unit, oy, ox), 1)
+            got = _staged(where, off, h, top, bottom)
+            keep = real & (gy >= -1) & (gy <= height)
+            want = np.where(keep[:, None], padded[sample, np.clip(gy + 1, 0, height + 1), gx], 0)
+            np.testing.assert_array_equal(got, want)
+        assert (written == 1).all()
+
+
+def test_head_halo_routes_pick_the_kernels_of_their_own():
+    """With ``halo``: fp32 takes the fp32 halo kernel under
+    :func:`halo_plan` (channels a multiple of 4), else (weights too wide
+    for its shared memory) the float kernel's halo mode; bf16 at channels
+    a multiple of 64 the bf16 kernel's halo mode under :func:`bf16_plan`,
+    else the float kernel's bf16 halo mode, each under :func:`launch_plan`;
+    without ``halo`` the routes are unchanged."""
+    ops = sampler_step_ops
+    f32, bf = torch.float32, torch.bfloat16
+    for c in (32, 36, 40, 64, 96, 128, 160, 256, 512):
+        args = (16, 32, 64, c)
+        assert ops.route(*args, f32, halo=True) == (ops.HALO_NAMES[f32], ops.halo_plan(*args))
+        if c % 64 == 0:
+            assert ops.route(*args, bf, halo=True) == (ops.HALO_NAMES[bf], ops.bf16_plan(*args))
+        elif c % 8 == 0:
+            assert ops.route(*args, bf, halo=True) == (
+                ops.HALO_GENERIC_NAMES[bf], ops.launch_plan(*args, element_bytes=2))
+        assert ops.route(*args, f32) == (ops.C_NAME, ops.launch_plan(*args))
+    assert ops.route(1, 8, 8, 6000, f32, halo=True) == (
+        ops.HALO_GENERIC_NAMES[f32], ops.launch_plan(1, 8, 8, 6000))
+    with pytest.raises(ValueError, match="aligned"):
+        ops.route(16, 32, 64, 128, f32, aligned=False, halo=True)
+
+
+def test_head_halo_plan_takes_every_shape_the_float_kernels_halo_mode_took():
+    """Every shard shape of n_feat 4 to 512 (steps of 4) at the path's
+    units, heights and widths, under CFG and without, that the float
+    kernel's halo mode took, the fp32 halo kernel's plan takes."""
+    for n_feat in range(4, 513, 4):
+        for units, height, width, cfg in ((16, 32, 64, True), (16, 32, 64, False),
+                                          (4, 32, 64, False), (10, 64, 128, False),
+                                          (10, 64, 128, True), (1, 8, 16, True)):
+            try:
+                sampler_step_ops.launch_plan(units, height, width, n_feat, cfg=cfg)
+            except ValueError:
+                continue
+            sampler_step_ops.halo_plan(units, height, width, n_feat, cfg=cfg)
+
+
+@pytest.mark.parametrize("shape", HALO_SHAPES, ids=list(HALO_SHAPES))
+def test_head_halo_plan_at_the_path_shapes(shape):
+    """The fp32 halo kernel's plan: the shortest band of ``ROWS_HALO``
+    whose grid is one wave of the CTAs 132 SMs hold at once (at most
+    ``HALO_PER_SM`` an SM; else the tallest that fits); shared memory (weights, the
+    warps' rings, the partials of whole tiles) within 227 KB and room for
+    ``HALO_PER_SM`` CTAs an SM; warp w owns tiles w, w + 8, ..., every
+    tile once; at half the w=2 serving features: bands of 2 rows, 256
+    CTAs; at the whole w=2 map (an unsharded launch, timed for
+    information): 4 rows."""
+    units, height, width, c, cfg = HALO_SHAPES[shape]
+    ops = sampler_step_ops
+    plan = ops.halo_plan(units, height, width, c, cfg=cfg, sms=132)
+    m = (2 if cfg else 1) * (plan.rows + 2) * width
+    tiles = -(-m // ops.HALO_TILE)
+    assert plan.smem_bytes == 4 * (9 * -(-c // ops.HALO_CK) * ops.HALO_CK
+                                   + 8 * ops.HALO_RING * ops.HALO_TILE * ops.HALO_CK
+                                   + 9 * tiles * ops.HALO_TILE)
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.ctas == units * -(-height // plan.rows)
+    def smem(rows):
+        tiles = -(-(2 if cfg else 1) * (rows + 2) * width // ops.HALO_TILE)
+        return plan.smem_bytes + 4 * 9 * (tiles * ops.HALO_TILE - pstride)
+
+    pstride = -(-m // ops.HALO_TILE) * ops.HALO_TILE
+    fits = [r for r in sorted(ops.ROWS_HALO) if smem(r) <= 227 * 1024]
+    wave = [r for r in fits if units * -(-height // r)
+            <= 132 * min(ops.HALO_PER_SM, ops.SM_SMEM // (smem(r) + 1024))]
+    assert plan.rows == (wave[0] if wave else fits[-1])
+    warps = plan.threads // 32
+    owned = sorted(t for w in range(warps) for t in range(w, tiles, warps))
+    assert owned == list(range(tiles))
+    assert ops.HALO_TILE * ops.HALO_CK * 4 // 16 == ops.HALO_TILE // 4 * 32  # copies a lane
+    assert ops.HALO_TILE % 8 == 0 and ops.HALO_CK * 4 == 128  # a pixel's whole line an item
+    if shape == "half of serve w=2":
+        assert (plan.rows, plan.ctas) == (2, 256)
+    if shape == "serve w=2 whole":
+        assert (plan.rows, plan.ctas) == (4, 256)
+
+
+def test_head_halo_staged_chunks_hit_eight_bank_groups():
+    """The fp32 halo kernel keeps a pixel's 16-byte chunk q (of 8: its
+    128-byte line) at slot q ^ (pp & 7): a quarter warp's reads (lanes
+    (quarter, l), l < 8: pixel l + 8 i, chunk 2 quarter + j) and writes (one
+    pixel's 8 chunks) hit 8 bank groups."""
+    def group(pp, q):
+        return (pp * 8 + (q ^ (pp & 7))) % 8
+
+    for i in range(sampler_step_ops.HALO_TILE // 8):
+        for quarter in range(4):
+            for j in range(2):
+                assert len({group(pl + 8 * i, 2 * quarter + j) for pl in range(8)}) == 8
+    for pp in range(sampler_step_ops.HALO_TILE):
+        assert len({group(pp, q) for q in range(8)}) == 8
+
+
+@pytest.mark.parametrize("rows", [None, 1, 2, 3])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("edge", ["top", "middle", "bottom"])
+def test_head_halo_kernel_algorithm_matches_plain(monkeypatch, rows, w, edge):
+    """The fp32 halo kernel's staging (:func:`_band_sources`), per-tap
+    partials (each tile skipping the tap rows its staged rows feed no
+    output through: their partials zero here) and gather, emulated on the
+    CPU on a shard at the image's top edge, in its middle and at its bottom
+    edge, at every band height (3 leaves a ragged band), against
+    :func:`head_step_plain` with the same ``halo``: atol 1e-5."""
+    cfg = w is not None
+    b, hw, c = 3, 12, 16
+    h, kernel, bias, x, z = _head_inputs(hw + (rows or 0), cfg, b=b, hw=hw, c=c)
+    rs = np.random.RandomState(7)
+    nd = h.shape[0]
+    halo = tuple(None if side == edge else torch.tensor(np.maximum(
+        rs.randn(nd, hw, c), 0).astype(np.float32)) for side in ("top", "bottom"))
+    w_val = np.array([1.5, 3.0, 0.5], np.float32) if w == "per-sample" else w
+    weight, bias_t = _torch_head(kernel, bias)
+    if rows is not None:
+        monkeypatch.setattr(sampler_step_ops, "ROWS_HALO", (rows,))
+    plan = sampler_step_ops.halo_plan(b, hw, hw, c, cfg=cfg)
+    assert rows in (None, plan.rows)
+    rows = [None if r is None else r.numpy().astype(np.float64) for r in halo]
+    wt = weight[0].permute(1, 2, 0).reshape(9, c).numpy().astype(np.float64)
+    pb = (plan.rows + 2) * hw
+    out = np.full((b, hw, hw), np.nan)
+    for (where, off, _, _, _, _), (unit, oy, ox) in _band_sources(
+            plan, b, hw, hw, c, cfg, True, sampler_step_ops.HALO_TILE):
+        part = _staged(where, off, h.astype(np.float64), *rows) @ wt.T
+        out_rows = len(np.unique(oy))
+        tile = sampler_step_ops.HALO_TILE
+        for first in range(0, len(part), tile):  # the kernel's tap rows a tile computes
+            last = min(first + tile, 2 * pb if cfg else pb) - 1
+            r_lo, r_hi = ((first % pb) // hw, (last % pb) // hw) if first // pb == last // pb \
+                else (0, plan.rows + 1)
+            for ky in range(3):
+                if not max(0, r_lo - out_rows + 1) <= ky <= min(2, r_hi):
+                    part[first:first + tile, 3 * ky:3 * ky + 3] = 0.0
+        r = oy - oy.min()
+        eps = []
+        for s in range(2 if cfg else 1):
+            acc = np.full(r.shape, float(bias[0]))
+            for ky in range(3):
+                for kx in range(3):
+                    col = ox + kx - 1
+                    ok = (col >= 0) & (col < hw)
+                    acc += np.where(ok, part[s * pb + (r + ky) * hw + np.clip(col, 0, hw - 1),
+                                             ky * 3 + kx], 0.0)
+            eps.append(acc)
+        wu = w_val[unit] if isinstance(w_val, np.ndarray) else w_val
+        e = eps[1] + wu * (eps[0] - eps[1]) if cfg else eps[0]
+        out[unit, oy, ox] = (x[unit, oy, ox, 0] - e * 0.02) * 1.01 + 0.3 * z[unit, oy, ox, 0]
+    want = head_step_plain(torch.tensor(h), weight, bias_t, torch.tensor(x), torch.tensor(z),
+                           0.02, 1.01, 0.3, torch.tensor(w_val) if w == "per-sample" else w_val,
+                           halo=halo)
+    np.testing.assert_allclose(out[..., None], want.numpy(), atol=1e-5, rtol=0)
+
+
 # ---- K2 bf16: one read, one merge, whole waves ---------------------------------
 
 GROUPNORM_BF16_SHAPES = {  # (n, hw, c): the shapes the bf16 paths give K2
@@ -865,6 +1118,12 @@ SHARDED_SHAPES = {  # (n, hw, c, element bytes, aligned): phase (r1)'s shards an
     "unaligned out_norm half fp32": (4, 32 * 64, 128, 4, False),
     "unaligned up0_norm half bf16": (4, 8 * 16, 256, 2, False),
     "n_feat 32 out_norm bf16 (4 channels a group)": (8, 32 * 64, 32, 2, True),
+    # n_feat 136 and 264: 17, 33 and 66 channels a group, whole warps of
+    # whole pixels over the launch bounds (lanes past the last pixel idle)
+    "n_feat 136 out_norm half fp32": (32, 32 * 64, 136, 4, True),
+    "n_feat 136 up0_norm half bf16": (32, 8 * 16, 272, 2, True),
+    "n_feat 264 out_norm half bf16": (32, 32 * 64, 264, 2, True),
+    "n_feat 264 up0_norm half fp32": (32, 8 * 16, 528, 4, True),
 }
 
 
@@ -872,12 +1131,13 @@ def _stats_coverage(plan, n, hw, c, groups=8):
     """How often the statistics kernel's index map reads each (sample,
     pixel, channel) under ``plan``: unit u = (sample, segment) of CTA
     blockIdx // cluster, its part of rank blockIdx % cluster, thread t's
-    pack t % vs of pixels t / vs, + threads / vs, ... of the part."""
+    pack t % vs of pixels t / vs, + threads / vs, ... of the part (the
+    threads past the last whole pixel, t >= (threads / vs) * vs, idle)."""
     cg = c // groups
     vs = plan.seg * cg // plan.vec
     counts = np.zeros((n, hw, c), np.int64)
     step = plan.threads // vs
-    t = np.arange(plan.threads)
+    t = np.arange(step * vs)
     for block in range(plan.ctas(n, groups)):
         unit, rank = divmod(block, plan.cluster)
         nn, sg = divmod(unit, groups // plan.seg)
@@ -896,12 +1156,12 @@ def _apply_coverage(plan, n, hw, c):
     """How often the apply kernel's index map reads (and writes) each
     (sample, pixel, channel): CTA b takes sample b // ctas, pixels
     [part_px * (b % ctas), + part_px); thread t the pack t % (c / vec) of
-    pixels t // (c / vec), + threads / (c / vec), ...; and the channels'
-    group of each thread."""
+    pixels t // (c / vec), + threads / (c / vec), ... (the threads past the
+    last whole pixel idle)."""
     vpp = c // plan.vec
     counts = np.zeros((n, hw, c), np.int64)
     step = plan.threads // vpp
-    t = np.arange(plan.threads)
+    t = np.arange(step * vpp)
     ctas = -(-hw // plan.part_px)
     for block in range(plan.ctas(n, hw)):
         nn, r = divmod(block, ctas)
@@ -918,13 +1178,16 @@ def _apply_coverage(plan, n, hw, c):
 @pytest.mark.parametrize("shape", SHARDED_SHAPES, ids=list(SHARDED_SHAPES))
 def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
     """The statistics and apply launches' plans at phase (r1)'s shard
-    shapes, 3 channels a group, unaligned tensors and n_feat 32's out_norm:
-    every (sample, pixel, channel) read once; threads whole warps, whole
-    pixels of a unit (a pack within one group) and within the kernels'
-    launch bounds; clusters of 1 to 8, 1 wherever the units alone give
-    each of 132 SMs a CTA; a unit of several groups only where a group's
-    packs are a power of two (the warp butterfly).  At the out_norm half in
-    fp32 the statistics take no cluster: 256 units of one group."""
+    shapes, 3 channels a group, unaligned tensors, n_feat 32's out_norm
+    and n_feat 136's and 264's heads: every (sample, pixel, channel) read
+    once; threads whole warps, whole pixels of a unit (a pack within one
+    group) where whole warps of them fit the kernels' launch bounds (else
+    whole warps, one group a unit, the lanes past the last whole pixel
+    idle) and within the bounds; clusters of 1 to 8, 1 wherever the units
+    alone give each of 132 SMs a CTA; a unit of several groups only where
+    a group's packs are a power of two (the warp butterfly).  At the
+    out_norm half in fp32 the statistics take no cluster: 256 units of one
+    group."""
     n, hw, c, eb, aligned = SHARDED_SHAPES[shape]
     cg = c // 8
     sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
@@ -933,7 +1196,9 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
     vpg = cg // sp.vec
     vs = sp.seg * vpg
     assert 8 % sp.seg == 0 and (sp.seg == 1 or vs & (vs - 1) == 0)
-    assert sp.threads % 32 == 0 and sp.threads % vs == 0
+    idle = math.lcm(32, vs) > groupnorm_ops.STATS_MAX_THREADS
+    assert sp.threads % 32 == 0 and sp.threads >= vs
+    assert sp.threads % vs == 0 if not idle else sp.seg == 1
     assert sp.threads <= groupnorm_ops.STATS_MAX_THREADS
     assert sp.cluster in (1, 2, 4, 8)
     assert sp.cluster == 1 or n * 8 // sp.seg < 132
@@ -941,8 +1206,10 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
     assert (_stats_coverage(sp, n, hw, c) == 1).all()
     ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
     assert ap.vec == sp.vec and cg % ap.vec == 0
-    assert ap.threads % 32 == 0 and ap.threads % (c // ap.vec) == 0
-    assert ap.threads <= (1024 if ap.vec == 1 else 512)
+    most = 1024 if ap.vec == 1 else 512
+    assert ap.threads % 32 == 0 and ap.threads >= c // ap.vec
+    assert ap.threads % (c // ap.vec) == 0 or math.lcm(32, c // ap.vec) > most
+    assert ap.threads <= most
     assert (_apply_coverage(ap, n, hw, c) == 1).all()
     if shape == "out_norm half fp32":
         assert tuple(sp) == (4, 1, 1, 256, 2048) and sp.ctas(n, 8) == 256
@@ -951,6 +1218,46 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
         assert (sp.seg, sp.cluster) == (2, 2)
     if shape in ("up0_norm half fp32", "up0_norm half bf16"):
         assert ap.part_px == 16 and ap.ctas(n, hw) == 256  # one CTA an SM at least
+    if shape == "n_feat 136 out_norm half fp32":  # 17 elements a group: 15 pixels of 256
+        assert (sp.vec, sp.seg, sp.threads) == (1, 1, 256)
+    if shape == "n_feat 264 up0_norm half fp32":  # 528 elements a pixel: one of 544
+        assert (ap.vec, ap.threads) == (1, 544)
+
+
+@pytest.mark.parametrize("head,eb,aligned", [(head, eb, aligned) for head in ("out_norm", "up0_norm")
+                                             for eb in (4, 2) for aligned in (True, False)])
+def test_groupnorm_sharded_plans_take_every_shape_the_single_launch_takes(head, eb, aligned):
+    """For every n_feat from 8 to 512 in steps of 8, at the out_norm half
+    ``(32, 32 * 64, n_feat)`` and the up0_norm half ``(32, 8 * 16, 2 n_feat)``
+    of a 1x2 mesh: wherever :func:`launch_plan` takes the shape, the
+    statistics and apply plans take it too; where whole warps of whole
+    pixels fit the kernels' launch bounds they keep their earlier plans (a
+    block of whole pixels), elsewhere their lanes past the last whole pixel idle,
+    fewer than an eighth of them."""
+    taken = 0
+    for n_feat in range(8, 513, 8):
+        n, hw, c = (32, 32 * 64, n_feat) if head == "out_norm" else (32, 8 * 16, 2 * n_feat)
+        try:
+            groupnorm_ops.launch_plan(n, hw, c, 8, aligned, eb)
+        except ValueError:
+            continue
+        taken += 1
+        sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
+        ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
+        vs = sp.seg * (c // 8) // sp.vec
+        vpp = c // ap.vec
+        whole = math.lcm(32, vs)
+        if whole <= groupnorm_ops.STATS_MAX_THREADS:  # whole warps of whole pixels
+            assert sp.threads == min(max(whole, 256 - 256 % whole),
+                                     -(-sp.part_px * vs // whole) * whole)
+        else:
+            assert sp.seg == 1 and sp.threads % vs < sp.threads / 8
+        whole = math.lcm(32, vpp)
+        if whole <= (1024 if ap.vec == 1 else 512):
+            assert ap.threads == max(whole, 256 - 256 % whole)
+        else:
+            assert ap.threads % vpp < ap.threads / 8
+    assert taken == 64
 
 
 @pytest.mark.parametrize("n,hw,c,eb,aligned", [(2, 64, 30, 4, True), (2, 64, 4096, 4, True),
@@ -994,7 +1301,7 @@ def _stats_kernel_statistics(x, plan, groups=8):
             ch0 = sg * plan.seg * cg + (t % vs) * plan.vec
             for k in range(-(-plan.part_px // step)):
                 pix = p0 + t // vs + k * step
-                ok = pix < p1
+                ok = (pix < p1) & (t < step * vs)  # the lanes past the last whole pixel idle
                 v = x[nn, np.minimum(pix, hw - 1)[:, None], ch0[:, None] + np.arange(plan.vec)]
                 s = np.zeros(plan.threads, f32)
                 for e in range(plan.vec):
@@ -1027,14 +1334,15 @@ def _stats_kernel_statistics(x, plan, groups=8):
 
 @pytest.mark.parametrize("shape,offset", [((4, 2048, 128, 4), 0.0), ((4, 2048, 128, 2), 100.0),
                                           ((2, 35, 24, 4), 0.0), ((3, 1024, 64, 2), 0.0),
-                                          ((2, 64, 1024, 4), 0.0)])
+                                          ((2, 64, 1024, 4), 0.0), ((2, 300, 264, 4), 0.0)])
 def test_groupnorm_stats_kernel_merge_gives_the_plain_statistics(shape, offset):
     """The statistics kernel's merge order (each thread's packs by Chan's
     formula, the butterfly, the block's warps, the cluster's ranks), in
     float32, against the plain version's statistics in float64: the
     count exact, the mean within 1e-6 of its scale and the centred sum of
     squares within 1e-5, also far from zero (offset 100), under clusters of
-    1 to 8, units of 1 and 2 groups and the scalar path (24 channels)."""
+    1 to 8, units of 1 and 2 groups, the scalar path (24 channels) and
+    idle lanes past the last whole pixel (33 channels a group)."""
     n, hw, c, eb = shape
     rs = np.random.RandomState(hw + c)
     x = (rs.randn(n, hw, c) * 2 + offset).astype(np.float32)
@@ -1074,9 +1382,9 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     refuse a bf16 model's K1 or K2 shape (out_conv2's channels not a
     multiple of 64; out_norm's channels a group not a multiple of 8, at
     n_feat 32, 96 and 160), the route is the float kernel's bf16 instance
-    under its float plan; n_feat 128 and 256 keep the bf16 kernels, as do
-    the up0_norm heads (8 to 64 channels a group).  fp32 always takes the
-    float kernels."""
+    under its float plan (in the halo mode too); n_feat 128 and 256 keep
+    the bf16 kernels, as do the up0_norm heads (8 to 64 channels a group).
+    fp32 always takes the float kernels."""
     bf = torch.bfloat16
     shapes = _narrow_model_shapes(n_feat)
     narrow = n_feat in (32, 96, 160)
@@ -1103,7 +1411,7 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     assert sampler_step_ops.route(*shapes["head_step"], torch.float32)[0] == (
         sampler_step_ops.C_NAME)
     assert sampler_step_ops.route(*shapes["head_step"], bf, halo=True)[0] == (
-        sampler_step_ops.HALO_NAMES[bf])
+        sampler_step_ops.HALO_GENERIC_NAMES[bf] if narrow else sampler_step_ops.HALO_NAMES[bf])
 
 
 def test_bf16_routes_raise_where_no_kernel_takes_the_shape():

@@ -48,14 +48,16 @@
 // does (ops/pallas/groupnorm.py:52-57); the FiLM epilogue then runs in T
 // as context_unet.py:300-307 does: scale * y rounded, + shift rounded
 // (rows of T).  Shared memory holds the slice as T, exact.  The template
-// serves the float single launch, and the bf16 single launch at the shapes
-// groupnorm_bf16_kernel below does not take (ops/groupnorm.py::
-// single_route: channels per group not a multiple of 8, as n_feat 32, 96
-// and 160 give at out_norm); groupnorm_bf16_kernel, the bf16 kernel of its
-// own, takes the rest (the bf16 instance of this template took 78% of the
-// float time for half the bytes, its 1024 CTAs at the w=2 out_norm 1.3
-// waves of one latency-bound chain each), with the same arithmetic and
-// roundings.
+// serves the float single launch, and the bf16 single launch only at the
+// shapes neither bf16 kernel below takes (ops/groupnorm.py::single_route:
+// an unaligned pointer, or a unit of whole packs over 256 channels, as 33
+// channels a group give).  groupnorm_bf16_kernel takes groups of whole
+// 16-byte packs (the bf16 instance of this template took 78% of the float
+// time for half the bytes, its 1024 CTAs at the w=2 out_norm 1.3 waves of
+// one latency-bound chain each), groupnorm_bf16_narrow_kernel the groups
+// that are not (the out_norm of n_feat 32, 96 and 160, where this
+// template's scalar instance read 2 bytes a load), each with the same
+// arithmetic and roundings.
 //
 // Sharded statistics (a height shard of a spatial mesh, whose GroupNorm
 // statistics span every shard; XLA's SPMD partitioner inserts them in JAX)
@@ -201,7 +203,10 @@ cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
                    int pixels_per_cta, int resident_pixels, int scale_stride,
                    int shift_stride, float eps, int act) {
   cudaError_t err = cudaSuccess;
-  if (cfg->dynamicSmemBytes > 48 * 1024)
+  // Past 48 KiB in all, static arrays included (warp_sums, partials), a
+  // launch needs the opt-in: a 48 KiB slice (bf16 n_feat 96's unaligned
+  // out_norm in a cluster of 2) was refused without it.
+  if (cfg->dynamicSmemBytes + 1024 > 48 * 1024)
     err = cudaFuncSetAttribute(groupnorm_act_kernel<T, V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg->dynamicSmemBytes);
@@ -468,6 +473,256 @@ cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float*
   CAMELS_BF16_ACT(3)
 #undef CAMELS_BF16_ACT
   return cudaErrorInvalidValue;
+}
+
+// ---- The bf16 single launch where a group is not whole 16-byte packs. ----
+//
+// groupnorm_bf16_narrow_kernel: the shapes groupnorm_bf16_kernel refuses
+// because a group's channels are not a multiple of 8 (the out_norm of
+// n_feat 32, 96 and 160: 4, 12 and 20 channels a group), with its
+// arithmetic: fp32 statistics, centred, merged by Chan's formula; fp32
+// gamma/beta and activation, one rounding to bf16; the FiLM epilogue in
+// bf16.  Bound: bytes, x read once and out written once.
+//
+// A unit is a segment of seg groups of a sample whose slice of a pixel is
+// whole 16-byte packs (seg * cg a multiple of 8: seg = 8 / gcd(cg, 8)),
+// widened until it is whole 32-byte sectors where the groups allow
+// (ops/groupnorm.py::narrow_plan: 4 groups at n_feat 32, 96 and 160: 2, 6
+// and 10 packs).  Its pixels split over a cluster (the smallest whose
+// parts fit: at 16 maps clusters of 8 ran 1.35x slower than of 2), a
+// part a CTA, and a thread holds pack t % vs of
+// pixels t / vs, + pstride, ... (vs the unit's packs a pixel, the block a
+// multiple of it), all K loads issued at once into registers, as in
+// groupnorm_bf16_kernel: a warp's loads run along whole slices of pixels.
+// Two things break that kernel's merge here: a pack straddles groups (at
+// cg 12 pack 1 holds channels 8-11 of group 0 and 12-15 of group 1; at cg
+// 3 it touches up to 4 groups), and vs is not a power of two (6 at n_feat
+// 96, 10 at 160), so no butterfly over lane bits keeps a group.  So the
+// statistics are merged per channel, which a thread keeps for the whole
+// launch, and grouped last:
+//  - a thread's 8 channels: their mean over its pixels, then the sums of
+//    squares about them (both from registers; one count for all 8);
+//  - the lanes of a warp that hold the same pack (lanes vs apart) merge by
+//    Chan's formula in a tree of shuffles vs, 2 vs, 4 vs, ... lanes down,
+//    lower lane first, into lanes 0 .. vs - 1 (one lane a pack: vs <= 32);
+//  - the block's warps, in order, a thread a channel (shared memory);
+//  - a group from its channels (equal counts: the mean of their means, and
+//    their sums of squares plus the spread of their means);
+//  - the cluster's CTAs in rank order, through distributed shared memory,
+//    so every CTA gets the same statistics.
+// A thread's channels map to their groups once, before the output pass:
+// each channel's mean, rstd * gamma, beta and FiLM rows go from shared
+// memory to registers once (a global store may alias shared memory as far
+// as the compiler knows, so operands read inside the pass would be read
+// again after every pack's store), and the pass writes each pack once.
+
+constexpr int NARROW_THREADS = 512;  // a CTA at most
+constexpr int NARROW_CH = 256;  // channels of one unit at most (32 packs: a warp's lanes)
+
+// Grid: unit (sample major, segment minor) major, cluster rank minor.
+// ACT and FILM as in groupnorm_bf16_kernel.
+template <int K, int ACT, bool FILM>
+__global__ void __launch_bounds__(NARROW_THREADS) groupnorm_bf16_narrow_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ scale,
+    const bf16* __restrict__ shift, bf16* __restrict__ out, int hw, int c, int groups,
+    int seg, int cluster_size, int part_px, int scale_stride, int shift_stride, float eps) {
+  constexpr int V = 8;  // one 16-byte pack
+  constexpr int WARPS = NARROW_THREADS / 32;
+  __shared__ float4 warp_mean[WARPS][NARROW_CH / 4];  // each warp's per-channel moments
+  __shared__ float4 warp_m2[WARPS][NARROW_CH / 4];
+  __shared__ float warp_n[WARPS][NARROW_CH / V];  // one count a (warp, pack)
+  __shared__ float chan_mean[NARROW_CH], chan_m2[NARROW_CH];  // the block's, a channel
+  __shared__ Moments block_moments[MAX_SEG];
+  // A channel's gamma, beta, FiLM rows (as floats), its group's mean and rstd.
+  __shared__ float4 operands[6][NARROW_CH / 4];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgroup = c / groups, uc = seg * cgroup;  // channels of a group, of the unit
+  const int vs = uc / V;  // packs of a unit's pixel
+  const int segs = groups / seg;
+  const int unit = blockIdx.x / cluster_size;
+  const int nn = unit / segs, sg = unit - nn * segs;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = min(hw, rank * part_px);
+  const int np = min(hw, p0 + part_px) - p0;
+  const int pstride = blockDim.x / vs;  // pixels the block covers per step
+  const int j = tid % vs, first = tid / vs;  // this thread's pack and first pixel
+  const int seg0 = sg * uc;  // the unit's first channel
+  const long long base = ((long long)nn * hw + p0) * c + seg0 + j * V;
+
+  uint4 raw[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int p = first + i * pstride;
+    raw[i] = p < np ? load_stream(x + base + (long long)p * c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int q = tid; q < uc / 4; q += blockDim.x) {  // 4 channels each
+    const int cq = seg0 + 4 * q;
+    operands[0][q] = *reinterpret_cast<const float4*>(gamma + cq);
+    operands[1][q] = *reinterpret_cast<const float4*>(beta + cq);
+    if constexpr (FILM) {
+      const Pack<4> a = load4(scale + (long long)nn * scale_stride + cq);
+      const Pack<4> b = load4(shift + (long long)nn * shift_stride + cq);
+      operands[2][q] = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+      operands[3][q] = make_float4(b.v[0], b.v[1], b.v[2], b.v[3]);
+    }
+  }
+
+  // This thread's channels: the mean over its pixels, then the centred sum
+  // of squares.
+  const int mine = np > first ? min(K, (np - first + pstride - 1) / pstride) : 0;
+  float cnt = (float)mine, mean[V], m2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) mean[e] = m2[e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < mine) {
+      const Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+      for (int e = 0; e < V; ++e) mean[e] += v.v[e];
+    }
+  }
+  const float inv = mine ? 1.0f / cnt : 0.0f;
+#pragma unroll
+  for (int e = 0; e < V; ++e) mean[e] *= inv;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < mine) {
+      const Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v.v[e] - mean[e];
+        m2[e] += d * d;
+      }
+    }
+  }
+  // The lanes that hold this pack (row lane / vs of the warp): row r takes
+  // row r + s where r % 2s == 0, so lanes 0 .. vs - 1 end with the warp's.
+  const int row = lane / vs;
+  for (int s = 1; s * vs < 32; s <<= 1) {
+    const int off = s * vs;
+    const float on = __shfl_down_sync(0xffffffffu, cnt, off);
+    float om[V], oq[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      om[e] = __shfl_down_sync(0xffffffffu, mean[e], off);
+      oq[e] = __shfl_down_sync(0xffffffffu, m2[e], off);
+    }
+    if (row % (2 * s) == 0 && lane + off < 32 && on > 0.0f) {
+      const float tot = cnt + on, f = __fdividef(on, tot);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = om[e] - mean[e];
+        mean[e] += d * f;
+        m2[e] += oq[e] + d * d * (cnt * f);
+      }
+      cnt = tot;
+    }
+  }
+  if (lane < vs) {  // lanes 0 .. vs - 1 hold every pack once
+    warp_n[warp][j] = cnt;
+    warp_mean[warp][2 * j] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+    warp_mean[warp][2 * j + 1] = make_float4(mean[4], mean[5], mean[6], mean[7]);
+    warp_m2[warp][2 * j] = make_float4(m2[0], m2[1], m2[2], m2[3]);
+    warp_m2[warp][2 * j + 1] = make_float4(m2[4], m2[5], m2[6], m2[7]);
+  }
+  __syncthreads();
+  const int warps = (int)(blockDim.x >> 5);
+  for (int t = tid; t < uc; t += blockDim.x) {  // a channel: the warps in order
+    Moments b{0.0f, 0.0f, 0.0f};
+    for (int w = 0; w < warps; ++w)
+      b = merge(b, Moments{warp_n[w][t / V], reinterpret_cast<const float*>(warp_mean[w])[t],
+                           reinterpret_cast<const float*>(warp_m2[w])[t]});
+    chan_mean[t] = b.mean;
+    chan_m2[t] = b.m2;
+  }
+  __syncthreads();
+  if (tid < seg) {  // a group from its channels, each over the part's np pixels
+    const float* cm = chan_mean + tid * cgroup;
+    const float* cq = chan_m2 + tid * cgroup;
+    float s = 0.0f;
+    for (int k = 0; k < cgroup; ++k) s += cm[k];
+    const float gm = s / (float)cgroup;
+    float q = 0.0f, spread = 0.0f;
+    for (int k = 0; k < cgroup; ++k) {
+      const float d = cm[k] - gm;
+      q += cq[k];
+      spread += d * d;
+    }
+    block_moments[tid] = Moments{(float)np * cgroup, gm, q + (float)np * spread};
+  }
+  cluster.sync();  // every CTA's block_moments is written
+  for (int t = tid; t < uc; t += blockDim.x) {  // a channel's group: the ranks in order
+    const int g = t / cgroup;
+    Moments ranks[8];  // all requested before the merges
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < cluster_size) ranks[r] = *cluster.map_shared_rank(&block_moments[g], r);
+    Moments m = ranks[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r)
+      if (r < cluster_size) m = merge(m, ranks[r]);
+    reinterpret_cast<float*>(operands[4])[t] = m.mean;
+    reinterpret_cast<float*>(operands[5])[t] = rsqrtf(m.m2 / m.n + eps);
+  }
+  // Done with the other CTAs' shared memory; wait for them before exiting.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  __syncthreads();  // every channel's operands are in shared memory
+
+  const float* ops = reinterpret_cast<const float*>(operands) + j * V;
+  constexpr int ROW = NARROW_CH;  // floats of one operand row
+  float mu[V], ga[V], be[V], sc[V], sh[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    mu[e] = ops[4 * ROW + e];
+    ga[e] = ops[5 * ROW + e] * ops[e];  // rstd * gamma
+    be[e] = ops[ROW + e];
+    sc[e] = FILM ? ops[2 * ROW + e] : 0.0f;
+    sh[e] = FILM ? ops[3 * ROW + e] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (i < mine) {
+      const int p = first + i * pstride;
+      Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float y = activate((v.v[e] - mu[e]) * ga[e] + be[e], ACT);
+        if constexpr (FILM)
+          v.v[e] = round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * sc[e]) + sh[e]);
+        else
+          v.v[e] = y;
+      }
+      store<V>(out + base + (long long)p * c, v);
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int K>
+cudaError_t launch_narrow_act(cudaLaunchConfig_t* cfg, const bf16* x, const float* gamma,
+                              const float* beta, const bf16* scale, const bf16* shift,
+                              bf16* out, int hw, int c, int groups, int seg, int cluster,
+                              int part_px, int scale_stride, int shift_stride, float eps,
+                              int act) {
+  cudaError_t err = cudaErrorInvalidValue;
+#define CAMELS_NARROW_ACT(A)                                                                  \
+  if (act == A)                                                                               \
+    err = scale ? cudaLaunchKernelEx(cfg, groupnorm_bf16_narrow_kernel<K, A, true>, x, gamma, \
+                                     beta, scale, shift, out, hw, c, groups, seg, cluster,    \
+                                     part_px, scale_stride, shift_stride, eps)                \
+                : cudaLaunchKernelEx(cfg, groupnorm_bf16_narrow_kernel<K, A, false>, x,       \
+                                     gamma, beta, scale, shift, out, hw, c, groups, seg,      \
+                                     cluster, part_px, scale_stride, shift_stride, eps);
+  CAMELS_NARROW_ACT(0)
+  CAMELS_NARROW_ACT(1)
+  CAMELS_NARROW_ACT(2)
+  CAMELS_NARROW_ACT(3)
+#undef CAMELS_NARROW_ACT
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 // ---- The sharded launches: statistics, then apply. ----
@@ -802,8 +1057,9 @@ int apply_entry(const T* x, const float* parts, const float* gamma, const float*
 // vec, cluster, threads, pixels_per_cta, resident_pixels and smem_bytes
 // come from ops/groupnorm.py::launch_plan (vec a 16-byte pack needs
 // c/groups a multiple of it and 16-byte aligned pointers).  The float
-// single launch, and the bf16 one at the shapes bf16_plan refuses
-// (ops/groupnorm.py::single_route).  Returns the cudaError_t of the launch.
+// single launch, and the bf16 one at the shapes bf16_plan and narrow_plan
+// refuse (ops/groupnorm.py::single_route).  Returns the cudaError_t of the
+// launch.
 #define CAMELS_GROUPNORM_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const T* x, const float* gamma, const float* beta,            \
                       const T* scale, const T* shift, T* out, int n, int hw, int c, \
@@ -860,6 +1116,48 @@ extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, cons
   CAMELS_GROUPNORM_BF16(8)
   CAMELS_GROUPNORM_BF16(16)
 #undef CAMELS_GROUPNORM_BF16
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 single launch where a group is not whole 16-byte packs
+// (groupnorm_bf16_narrow_kernel): camels_groupnorm_act_bf16's arguments;
+// x/out 16-byte aligned, seg groups (dividing groups, at most 8) whose
+// channels are whole packs, at most 256 of them; threads a multiple of 32
+// and of the unit's packs a pixel, at most 512; packs (K) 4, 8 or 16 a
+// thread; all from ops/groupnorm.py::narrow_plan.  Returns the cudaError_t
+// of the launch.
+extern "C" int camels_groupnorm_act_bf16_narrow(
+    const bf16* x, const float* gamma, const float* beta, const bf16* scale,
+    const bf16* shift, bf16* out, int n, int hw, int c, int groups, int scale_stride,
+    int shift_stride, float eps, int act, int seg, int cluster, int threads, int packs,
+    int part_px, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (groups <= 0 || c % groups || seg < 1 || seg > MAX_SEG || groups % seg)
+    return (int)cudaErrorInvalidValue;
+  const int uc = c / groups * seg;  // channels of a unit
+  if (uc % 8 || uc > NARROW_CH || threads > NARROW_THREADS || threads % 32 ||
+      threads % (uc / 8) || cluster < 1 || cluster > 8 || part_px < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define CAMELS_GROUPNORM_NARROW(K)                                                          \
+  if (packs == K)                                                                           \
+    return (int)launch_narrow_act<K>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, \
+                                     seg, cluster, part_px, scale_stride, shift_stride, eps, \
+                                     act);
+  CAMELS_GROUPNORM_NARROW(4)
+  CAMELS_GROUPNORM_NARROW(8)
+  CAMELS_GROUPNORM_NARROW(16)
+#undef CAMELS_GROUPNORM_NARROW
   return (int)cudaErrorInvalidValue;
 }
 

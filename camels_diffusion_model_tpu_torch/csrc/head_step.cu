@@ -61,15 +61,16 @@
 //
 // The template serves the float unsharded launch, and the shapes the
 // kernels of their own below do not take: the bf16 unsharded launch and
-// halo mode where c is not a multiple of 64, the float halo mode where its
+// halo mode where c is not a multiple of 32, the float halo mode where its
 // weights outgrow shared memory (ops/sampler_step.py::route).  The bf16
 // launches are otherwise head_step_bf16_kernel and
-// head_step_bf16_halo_kernel below (in bf16 the template's taps on CUDA
-// cores did twice the arithmetic per staged byte, one CTA fit an SM, and
-// the first chunk's copy was exposed), the float halo mode
-// head_step_halo_f32_kernel (the template's halo mode ran one CTA an SM
-// with a 2-stage ring and a block barrier per chunk), each with the same
-// arithmetic and roundings.
+// head_step_bf16_halo_kernel below, at items of 64 channels or, where c
+// is an odd multiple of 32 (n_feat 32, 96, 160), of 32 (in bf16 the
+// template's taps on CUDA cores did twice the arithmetic per staged byte,
+// one CTA fit an SM, and the first chunk's copy was exposed), the float
+// halo mode head_step_halo_f32_kernel (the template's halo mode ran one
+// CTA an SM with a 2-stage ring and a block barrier per chunk), each with
+// the same arithmetic and roundings.
 //
 // The feature type T is float or bf16 (h, the (9, c) weights and the bias;
 // the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
@@ -413,6 +414,23 @@ int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
 // roundings, so two shards' steps equal the unsharded launch's step on the
 // whole map bit for bit (each pixel's partials are the same products
 // summed in the same order, whichever band or tile holds it).
+//
+// The narrow item (n_feat 32, 96 and 160: c an odd multiple of 32, which
+// no 64-channel item divides): both launches instantiate the same body at
+// items of 32 pixels x 32 channels (bf16_step_body<NARROW_BLOCK>), two
+// tiles of the wide item's fragments and sums, so the narrow halo mode too
+// equals its unsharded launch bit for bit.  At c = 32 the fixed costs of
+// a band (the weights' staging, the x and z prefetch, the 18-partial
+// gather) weigh four times as much per byte of h as at c = 128: with no
+// read of h at all the launch kept 69% of its time at n_feat 32, 16 maps,
+// and without the halo rows' reads all of it (scripts/
+// compare_torch_kernels.py --narrow on diagnostic copies), so the item
+// spends its fixed instructions on 2 KiB, and the narrow path counts its
+// items' tiles and channel blocks instead of dividing (the wide path's
+// text is as it was).  Its ring is RING slots too: with items of 2 KiB 3
+// slots ran faster than 4 and 6 at n_feat 32, 96 and 160.  The 64-channel
+// instance's text is kept as it was (if constexpr), so its SASS does not
+// change (68 registers, 2424 instructions; the halo mode 86, 2744).
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
@@ -425,13 +443,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1
 
 constexpr int BF16_THREADS = 256;  // 8 warps
 constexpr int TILE = 16, BLOCK = 64;  // an item: 16 pixels x 64 channels (2 KiB)
+constexpr int NARROW_BLOCK = 32;  // the narrow item: 32 pixels x 32 channels (2 KiB)
 constexpr int OUTS = 4;  // output pixels a thread's x and z are prefetched for
 // Slots of a warp's ring: 3 let two CTAs share an SM, which ran faster at
 // every path shape than one CTA with 4, 6 or 8 (scripts/
 // compare_torch_kernels.py --dtype bfloat16).
 constexpr int RING = 3;
 
-// The body of both bf16 kernels.  Grid: unit major, band minor (this
+// The body of both bf16 kernels, at items of IB channels (BLOCK, or
+// NARROW_BLOCK where c is an odd multiple of 32).
+// Grid: unit major, band minor (this
 // CTA: unit, band rows y0 ..).  Block: BF16_THREADS.  Band pixel p < m (m =
 // branches * pb, pb = (rows + 2) * width) is, under CFG, pixel p % pb of
 // sample unit + (p / pb) * batch, else pixel p of sample unit; a branch's
@@ -441,7 +462,19 @@ constexpr int RING = 3;
 // 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4 chunks hit 8 bank
 // groups), the warps' rings (8 x RING slots), then the partials
 // [9][pstride] floats.
-template <typename SourceOf>
+//
+// The narrow item (IB = NARROW_BLOCK, c an odd multiple of 32: n_feat 32,
+// 96 and 160): 32 pixels x 32 channels, the same 2 KiB as the wide item,
+// two 16-pixel tiles of one 32-channel block: the same fragments, 8 MMAs
+// an item, each tile's products summed as in the wide item, the weights'
+// fragments read once for both tiles (items of one tile, half the bytes,
+// paid the item's fixed instructions twice a byte).  Lane l copies chunk l
+// & 3 of pixels l / 4 + 8i (a quarter warp's writes: two pixels' 64
+// contiguous bytes) and lane (g, t) reads chunk t of rows g, g + 8, g + 16
+// and g + 24 (a quarter warp: rows of one parity pair, 128 contiguous
+// bytes), so no swizzle is needed; the weights' rows are c apart, c / 8 =
+// 4 mod 8 slots.
+template <int IB, typename SourceOf>
 __device__ __forceinline__ void bf16_step_body(
     SourceOf source_of, int unit, int y0, int pb, int m, const bf16* __restrict__ h,
     const bf16* __restrict__ wt, const bf16* __restrict__ bias,
@@ -449,35 +482,52 @@ __device__ __forceinline__ void bf16_step_body(
     const float* __restrict__ w_per_sample, float w, float* __restrict__ out,
     int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
     float sigma, int tanh_out) {
-  constexpr int SLOT = TILE * BLOCK;  // elements
+  constexpr int BLOCK = IB;  // the item's channels
+  constexpr int IPX = TILE * 64 / BLOCK;  // an item's pixels: one tile, or the narrow item's two
+  constexpr int SLOT = IPX * BLOCK;  // elements (2 KiB)
   constexpr int WARPS = BF16_THREADS / 32;
   extern __shared__ float4 smem4[];
-  const int wstride = c + 32;  // ops/sampler_step.py::weight_stride (c % 64 == 0)
+  // ops/sampler_step.py::weight_stride: c + 32 at c % 64 == 0, else c.
+  const int wstride = BLOCK == 64 ? c + 32 : c;
   bf16* ws = reinterpret_cast<bf16*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   bf16* ring = ws + 16 * wstride + warp * RING * SLOT;  // this warp's
-  const int tiles = (m + TILE - 1) / TILE;
+  const int tiles = (m + IPX - 1) / IPX;  // of an item's pixels
   const int pstride = (m + 31) / 32 * 32 + 4;  // 4 mod 32: a store's 4 taps, 4 banks apart
   float* part = reinterpret_cast<float*>(ws + 16 * wstride + WARPS * RING * SLOT);
   const int cblocks = c / BLOCK;
   const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
 
   // Item it of this warp: tile warp + (it / cblocks) * WARPS, channel block
-  // it % cblocks; lane l copies chunk l & 7 of tile pixels l / 8 + 4i.
+  // it % cblocks; lane l copies chunk l & 7 of tile pixels l / 8 + 4i (the
+  // narrow item: chunk l & 3 of its 32 pixels l / 4 + 8i).
+  int ik = 0, icb = 0;  // the narrow item issued next: its tile and channel block
   auto issue = [&](int it) {
     bf16* dst = ring + (it % RING) * SLOT;
-    const int k = it / cblocks, cb = it - k * cblocks;
-    const int p0 = (warp + k * WARPS) * TILE, q = lane & 7;
+    if constexpr (BLOCK == 64) {
+      const int k = it / cblocks, cb = it - k * cblocks;
+      const int p0 = (warp + k * WARPS) * TILE, q = lane & 7;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pp = (lane >> 3) + 4 * i;
-      const Source<bf16> src = source_of(p0 + pp);
-      // One int offset, then the pointer: src.off + (cb * BLOCK + 8 * q)
-      // cost the unsharded launch 32 SASS instructions and 4% at w=2.
-      const int off = src.off + cb * BLOCK + 8 * q;
-      cp_async16(dst + pp * BLOCK + 8 * (q ^ ((pp & 1) << 2)), src.reads ? src.array + off : h,
-                 src.reads);
+      for (int i = 0; i < 4; ++i) {
+        const int pp = (lane >> 3) + 4 * i;
+        const Source<bf16> src = source_of(p0 + pp);
+        // One int offset, then the pointer: src.off + (cb * BLOCK + 8 * q)
+        // cost the unsharded launch 32 SASS instructions and 4% at w=2.
+        const int off = src.off + cb * BLOCK + 8 * q;
+        cp_async16(dst + pp * BLOCK + 8 * (q ^ ((pp & 1) << 2)),
+                   src.reads ? src.array + off : h, src.reads);
+      }
+    } else {  // items are issued in order
+      const int p0 = (warp + ik * WARPS) * IPX, q = lane & 3;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pp = (lane >> 2) + 8 * i;
+        const Source<bf16> src = source_of(p0 + pp);
+        const int off = src.off + icb * BLOCK + 8 * q;
+        cp_async16(dst + pp * BLOCK + 8 * q, src.reads ? src.array + off : h, src.reads);
+      }
+      if (++icb == cblocks) icb = 0, ++ik;
     }
   };
 #pragma unroll
@@ -507,7 +557,23 @@ __device__ __forceinline__ void bf16_step_body(
   __syncthreads();  // the weights are staged
 
   float acc0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc3[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // narrow tile 1
+  int nk = 0, ncb = 0;  // the narrow item reduced next: its tile and channel block
   const int swz = (g & 1) << 2;  // rows g and g + 8 share a parity
+  // A tile's partials: taps 2t, 2t+1 (and 8) of its rows g, g + 8 (tile
+  // pixel p), from its accumulators c0 (taps 0-7) and c1 (8-15), zeroed.
+  auto store_tile = [&](float (&c0)[4], float (&c1)[4], int p) {
+    part[2 * t * pstride + p] = c0[0];
+    part[(2 * t + 1) * pstride + p] = c0[1];
+    part[2 * t * pstride + p + 8] = c0[2];
+    part[(2 * t + 1) * pstride + p + 8] = c0[3];
+    if (t == 0) {
+      part[8 * pstride + p] = c1[0];
+      part[8 * pstride + p + 8] = c1[2];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c0[q] = c1[q] = 0.0f;
+  };
   for (int it = 0; it < items; ++it) {
     cp_async_wait<RING - 2>();  // this item's copies (this lane's) have landed
     __syncwarp();            // ... every lane's; the slot refilled next was
@@ -515,34 +581,58 @@ __device__ __forceinline__ void bf16_step_body(
     if (it + RING - 1 < items) issue(it + RING - 1);
     cp_async_commit();
     const bf16* slot = ring + (it % RING) * SLOT;
-    const int k = it / cblocks, cb = it - k * cblocks;
+    if constexpr (BLOCK == 64) {
+      const int k = it / cblocks, cb = it - k * cblocks;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int chunk = (4 * half + t) ^ swz;
-      const uint4 a = *reinterpret_cast<const uint4*>(slot + g * BLOCK + 8 * chunk);
-      const uint4 b = *reinterpret_cast<const uint4*>(slot + (g + 8) * BLOCK + 8 * chunk);
-      const int col = cb * BLOCK + 32 * half + 8 * t;
+      for (int half = 0; half < 2; ++half) {
+        const int chunk = (4 * half + t) ^ swz;
+        const uint4 a = *reinterpret_cast<const uint4*>(slot + g * BLOCK + 8 * chunk);
+        const uint4 b = *reinterpret_cast<const uint4*>(slot + (g + 8) * BLOCK + 8 * chunk);
+        const int col = cb * BLOCK + 32 * half + 8 * t;
+        const uint4 w0 = *reinterpret_cast<const uint4*>(ws + g * wstride + col);
+        const uint4 w1 = *reinterpret_cast<const uint4*>(ws + (8 + g) * wstride + col);
+        // k-step 0: channels 8t, 8t+1 (columns 2t, 2t+1) and 8t+2, 8t+3
+        // (columns 2t+8, 2t+9); k-step 1: 8t+4..8t+7 likewise.
+        mma_bf16(acc0, a.x, b.x, a.y, b.y, w0.x, w0.y);
+        mma_bf16(acc1, a.x, b.x, a.y, b.y, w1.x, w1.y);
+        mma_bf16(acc0, a.z, b.z, a.w, b.w, w0.z, w0.w);
+        mma_bf16(acc1, a.z, b.z, a.w, b.w, w1.z, w1.w);
+      }
+      if (cb == cblocks - 1) {  // the tile's partials: taps 2t, 2t+1 (and 8) of rows g, g+8
+        const int p = (warp + k * WARPS) * TILE + g;
+        part[2 * t * pstride + p] = acc0[0];
+        part[(2 * t + 1) * pstride + p] = acc0[1];
+        part[2 * t * pstride + p + 8] = acc0[2];
+        part[(2 * t + 1) * pstride + p + 8] = acc0[3];
+        if (t == 0) {
+          part[8 * pstride + p] = acc1[0];
+          part[8 * pstride + p + 8] = acc1[2];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc0[q] = acc1[q] = 0.0f;
+      }
+    } else {  // the narrow item: its two tiles, the same weight fragments
+      const int col = ncb * BLOCK + 8 * t;
       const uint4 w0 = *reinterpret_cast<const uint4*>(ws + g * wstride + col);
       const uint4 w1 = *reinterpret_cast<const uint4*>(ws + (8 + g) * wstride + col);
-      // k-step 0: channels 8t, 8t+1 (columns 2t, 2t+1) and 8t+2, 8t+3
-      // (columns 2t+8, 2t+9); k-step 1: 8t+4..8t+7 likewise.
-      mma_bf16(acc0, a.x, b.x, a.y, b.y, w0.x, w0.y);
-      mma_bf16(acc1, a.x, b.x, a.y, b.y, w1.x, w1.y);
-      mma_bf16(acc0, a.z, b.z, a.w, b.w, w0.z, w0.w);
-      mma_bf16(acc1, a.z, b.z, a.w, b.w, w1.z, w1.w);
-    }
-    if (cb == cblocks - 1) {  // the tile's partials: taps 2t, 2t+1 (and 8) of rows g, g+8
-      const int p = (warp + k * WARPS) * TILE + g;
-      part[2 * t * pstride + p] = acc0[0];
-      part[(2 * t + 1) * pstride + p] = acc0[1];
-      part[2 * t * pstride + p + 8] = acc0[2];
-      part[(2 * t + 1) * pstride + p + 8] = acc0[3];
-      if (t == 0) {
-        part[8 * pstride + p] = acc1[0];
-        part[8 * pstride + p + 8] = acc1[2];
+      const uint4 a0 = *reinterpret_cast<const uint4*>(slot + g * BLOCK + 8 * t);
+      const uint4 b0 = *reinterpret_cast<const uint4*>(slot + (g + 8) * BLOCK + 8 * t);
+      const uint4 a1 = *reinterpret_cast<const uint4*>(slot + (g + 16) * BLOCK + 8 * t);
+      const uint4 b1 = *reinterpret_cast<const uint4*>(slot + (g + 24) * BLOCK + 8 * t);
+      mma_bf16(acc0, a0.x, b0.x, a0.y, b0.y, w0.x, w0.y);
+      mma_bf16(acc1, a0.x, b0.x, a0.y, b0.y, w1.x, w1.y);
+      mma_bf16(acc0, a0.z, b0.z, a0.w, b0.w, w0.z, w0.w);
+      mma_bf16(acc1, a0.z, b0.z, a0.w, b0.w, w1.z, w1.w);
+      mma_bf16(acc2, a1.x, b1.x, a1.y, b1.y, w0.x, w0.y);
+      mma_bf16(acc3, a1.x, b1.x, a1.y, b1.y, w1.x, w1.y);
+      mma_bf16(acc2, a1.z, b1.z, a1.w, b1.w, w0.z, w0.w);
+      mma_bf16(acc3, a1.z, b1.z, a1.w, b1.w, w1.z, w1.w);
+      if (ncb == cblocks - 1) {
+        const int p = (warp + nk * WARPS) * IPX + g;
+        store_tile(acc0, acc1, p);
+        store_tile(acc2, acc3, p + TILE);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc0[q] = acc1[q] = 0.0f;
+      if (++ncb == cblocks) ncb = 0, ++nk;
     }
   }
   cp_async_wait<0>();
@@ -586,6 +676,7 @@ __device__ __forceinline__ void bf16_step_body(
 }
 
 // The unsharded launch: rows outside the map are zero.
+template <int IB>
 __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
     const bf16* __restrict__ h, const bf16* __restrict__ wt, const bf16* __restrict__ bias,
     const float* __restrict__ x, const float* __restrict__ z,
@@ -607,13 +698,14 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
     const int s = p >= pb, qq = p - s * pb;
     return Source<bf16>{h, (s ? base1 : base0) + qq * c, p < m && qq >= q_lo && qq < q_hi};
   };
-  bf16_step_body(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w, out,
-                 height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+  bf16_step_body<IB>(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w, out,
+                     height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
 }
 
 // The halo mode: a band's row -1 or `height` copied from the halo rows
 // (band_source).  Its launch bound asks for two CTAs an SM, as bf16_plan
 // places them.
+template <int IB>
 __global__ void __launch_bounds__(BF16_THREADS, 2) head_step_bf16_halo_kernel(
     const bf16* __restrict__ h, const bf16* __restrict__ top, const bf16* __restrict__ bottom,
     const bf16* __restrict__ wt, const bf16* __restrict__ bias,
@@ -626,8 +718,8 @@ __global__ void __launch_bounds__(BF16_THREADS, 2) head_step_bf16_halo_kernel(
   const int y0 = (blockIdx.x - unit * bands) * rows;
   const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
   auto source_of = [&](int p) { return band_source<bf16>(band, h, top, bottom, p, c); };
-  bf16_step_body(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z, w_per_sample, w,
-                 out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+  bf16_step_body<IB>(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z, w_per_sample,
+                     w, out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
 }
 
 // ---- The float halo mode: warp-private rings, the taps on CUDA cores. ----
@@ -873,7 +965,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
 // from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
 // launch.  The float unsharded launch, and the bf16 one at the shapes
 // head_step_bf16_kernel does not take (ops/sampler_step.py::route: c not
-// a multiple of 64, as n_feat 32, 96 and 160 give).
+// a multiple of 32, or an unaligned pointer).
 #define CAMELS_HEAD_STEP_ENTRY(NAME, E)                                              \
   extern "C" int NAME(const E* h, const E* wt, const E* bias, const float* x,       \
                       const float* z, const float* w_per_sample, float w,           \
@@ -917,6 +1009,28 @@ int band_launch(void (*kernel)(const E*, const E*, const E*, const E*, const E*,
 
 }  // namespace
 
+namespace {
+
+// One launch of the unsharded bf16 kernel at items of IB channels.
+template <int IB>
+int bf16_launch(const bf16* h, const bf16* wt, const bf16* bias, const float* x,
+                const float* z, const float* w_per_sample, float w, float* out, int batch,
+                int height, int width, int c, int rows, int cfg, int smem_bytes, float c_eps,
+                float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(head_step_bf16_kernel<IB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err == cudaSuccess)
+    head_step_bf16_kernel<IB><<<dim3((unsigned)(batch * ((height + rows - 1) / rows))),
+                                BF16_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg, c_eps,
+        inv_sqrt_a, sigma, tanh_out);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+}  // namespace
+
 // The bf16 instance (h, wt, bias bf16; c a multiple of 64): the arguments
 // of camels_head_step without ck and stages; threads 256; rows and
 // smem_bytes come from ops/sampler_step.py::bf16_plan.
@@ -929,22 +1043,33 @@ extern "C" int camels_head_step_bf16(const bf16* h, const bf16* wt, const bf16* 
                                      void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
   if (threads != BF16_THREADS || c % BLOCK) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(head_step_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-  if (err == cudaSuccess)
-    head_step_bf16_kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows))),
-                            BF16_THREADS, smem_bytes, (cudaStream_t)stream>>>(
-        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg, c_eps,
-        inv_sqrt_a, sigma, tanh_out);
-  cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
+  return bf16_launch<BLOCK>(h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c,
+                            rows, cfg, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
+
+// The narrow bf16 instance (c an odd multiple of 32: items of NARROW_BLOCK
+// channels): camels_head_step_bf16's arguments; rows and smem_bytes from
+// ops/sampler_step.py::bf16_plan.
+extern "C" int camels_head_step_bf16_narrow(const bf16* h, const bf16* wt, const bf16* bias,
+                                            const float* x, const float* z,
+                                            const float* w_per_sample, float w, float* out,
+                                            int batch, int height, int width, int c, int rows,
+                                            int cfg, int threads, int smem_bytes, float c_eps,
+                                            float inv_sqrt_a, float sigma, int tanh_out,
+                                            void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (threads != BF16_THREADS || c % NARROW_BLOCK || c % BLOCK == 0)
+    return (int)cudaErrorInvalidValue;
+  return bf16_launch<NARROW_BLOCK>(h, wt, bias, x, z, w_per_sample, w, out, batch, height,
+                                   width, c, rows, cfg, smem_bytes, c_eps, inv_sqrt_a, sigma,
+                                   tanh_out, stream);
 }
 
 // The halo mode of the kernels of their own: camels_head_step_bf16's
 // arguments with top and bottom after h, each (cfg ? 2 * batch : batch,
 // width, c) of h's type, or null (zero rows) at the image's edge.  bf16:
-// head_step_bf16_halo_kernel (c a multiple of 64, threads 256, rows and
+// head_step_bf16_halo_kernel (c a multiple of 64 here, an odd multiple of
+// 32 in camels_head_step_halo_bf16_narrow below; threads 256, rows and
 // smem_bytes from ops/sampler_step.py::bf16_plan); float:
 // head_step_halo_f32_kernel (c a multiple of 4, threads 256, rows and
 // smem_bytes from ops/sampler_step.py::halo_plan).
@@ -957,9 +1082,23 @@ extern "C" int camels_head_step_halo_bf16(const bf16* h, const bf16* top, const 
                                           float inv_sqrt_a, float sigma, int tanh_out,
                                           void* stream) {
   if (threads != BF16_THREADS || c % BLOCK) return (int)cudaErrorInvalidValue;
-  return band_launch<bf16>(head_step_bf16_halo_kernel, h, top, bottom, wt, bias, x, z,
+  return band_launch<bf16>(head_step_bf16_halo_kernel<BLOCK>, h, top, bottom, wt, bias, x, z,
                            w_per_sample, w, out, batch, height, width, c, rows, cfg, threads,
                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
+
+// The narrow bf16 halo mode (c an odd multiple of 32): the arguments of
+// camels_head_step_halo_bf16.
+extern "C" int camels_head_step_halo_bf16_narrow(
+    const bf16* h, const bf16* top, const bf16* bottom, const bf16* wt, const bf16* bias,
+    const float* x, const float* z, const float* w_per_sample, float w, float* out, int batch,
+    int height, int width, int c, int rows, int cfg, int threads, int smem_bytes, float c_eps,
+    float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
+  if (threads != BF16_THREADS || c % NARROW_BLOCK || c % BLOCK == 0)
+    return (int)cudaErrorInvalidValue;
+  return band_launch<bf16>(head_step_bf16_halo_kernel<NARROW_BLOCK>, h, top, bottom, wt, bias,
+                           x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg,
+                           threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
 }
 
 extern "C" int camels_head_step_halo(const float* h, const float* top, const float* bottom,

@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` (with the ``*.cuh`` headers
-they include) for Hopper (``sm_90a``) into
-a shared library with a plain C interface, under
-``build/torch_kernels/<hash of sources and flags>/`` at the repository root.
+One ``nvcc`` process a source, all started together, compiles every
+``csrc/*.cu`` (with the ``*.cuh`` headers they include) for Hopper
+(``sm_90a``); one more links the objects into a shared library with a
+plain C interface, under ``build/torch_kernels/<hash of sources and
+flags>/`` at the repository root.
 Nothing includes PyTorch's headers, so the build takes seconds.  Each C
 function takes device pointers and the CUDA stream as ``c_void_p`` and
 returns its ``cudaError_t``.  ``ptxas`` reports each kernel's registers,
@@ -32,6 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)  # a source to an object
 LIB_NAME = "libcamels_torch_kernels.so"
 LOG_NAME = "nvcc.log"
 
@@ -61,15 +63,27 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    compiles = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
+    for cmd, proc, log in zip(compiles, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for obj in objects:
+        obj.unlink()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    (out_dir / LOG_NAME).write_text(proc.stdout + proc.stderr)
+    (out_dir / LOG_NAME).write_text("".join(logs) + proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 

@@ -34,11 +34,15 @@ own (``csrc/groupnorm.cu``, ``groupnorm_bf16_kernel``): a unit of a few
 groups of a sample (64 bytes of a pixel at least), its pixels split over
 a cluster, each CTA's part held in registers from one burst of loads; the
 statistics in one merge by Chan's formula (one cluster barrier);
-:func:`bf16_plan` chooses its geometry.  Where that plan refuses a shape
-(channels per group not a multiple of 8, as the out_norm of n_feat 32, 96
-and 160 gives), the bf16 single launch takes the float kernel's bf16
-instance instead (:func:`single_route`), counted under ``.launches_bf16``
-and also under ``.launches_generic_bf16``.
+:func:`bf16_plan` chooses its geometry.  Where a group's channels are not
+a multiple of 8 (the out_norm of n_feat 32, 96 and 160), the bf16 single
+launch takes the narrow bf16 kernel (``groupnorm_bf16_narrow_kernel``:
+units of groups whose slice of a pixel is whole packs, the statistics
+merged per channel and grouped last; :func:`narrow_plan`), counted under
+``.launches_bf16`` and also under ``.launches_narrow_bf16``; where both
+plans refuse a shape (an unaligned pointer, a unit over 256 channels) the
+float kernel's bf16 instance (:func:`single_route`), counted also under
+``.launches_generic_bf16``.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' I/O types
 C_NAME = "camels_groupnorm_act"  # the float single launch
 BF16_NAME = "camels_groupnorm_act_bf16"  # the bf16 single launch (bf16_plan)
+BF16_NARROW_NAME = "camels_groupnorm_act_bf16_narrow"  # groups not whole packs (narrow_plan)
 BF16_GENERIC_NAME = "camels_groupnorm_act_bf16_generic"  # the float kernel's bf16 instance
 STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
                torch.bfloat16: "camels_groupnorm_stats_bf16"}
@@ -102,6 +107,12 @@ BF16_PART = 128 * 1024  # bytes of a CTA's part at most: 16 packs of 512 threads
 BF16_PACKS = (1, 2, 4, 8, 16)  # 16-byte packs a thread may hold (kernel instances)
 BF16_SPREAD = 256  # CTAs a launch should reach: a small batch's units split further
 BF16_PART_MIN = 8 * 1024  # bytes a part keeps when it is split for the grid's sake
+# narrow_plan's choices (scripts/compare_torch_kernels.py --narrow: at 16
+# maps small clusters of large parts beat clusters of 8 by 1.35x).
+NARROW_PACKS = (4, 8, 16)  # packs a thread of the narrow bf16 kernel may hold
+NARROW_SECTOR = 32  # bytes a unit's slice of a pixel is a multiple of, where the groups allow
+NARROW_THREADS = 256  # a CTA's threads aimed at (whole warps and pixels)
+NARROW_SPREAD = 66  # CTAs a launch should reach (half the SMs): small batches split further
 
 # stats_plan's and apply_plan's choices (the sharded launches).
 STATS_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
@@ -254,21 +265,94 @@ def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     return Bf16Plan(seg, cluster, threads, packs, part)
 
 
+def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
+                sms: int = 132) -> Bf16Plan:
+    """Geometry of the bf16 :func:`fused_groupnorm_act` where a group's
+    channels are not a multiple of 8 (``csrc/groupnorm.cu``,
+    ``groupnorm_bf16_narrow_kernel``): the shapes :func:`bf16_plan`
+    refuses for that reason, as the out_norm of n_feat 32, 96 and 160 (4,
+    12 and 20 channels a group).
+
+    A unit is ``seg`` consecutive groups of a sample whose slice of a
+    pixel is whole 16-byte packs (``seg * cg`` a multiple of 8: ``seg = 8
+    / gcd(cg, 8)``), doubled while that slice is not whole
+    ``NARROW_SECTOR``-byte sectors and the groups allow (at most
+    ``BF16_MAX_SEG`` groups and 256 channels): n_feat 32's 4 groups (32
+    bytes), 96's 4 of 12 (96 bytes), 160's 4 of 20 (160 bytes).  A CTA
+    is ``NARROW_THREADS`` threads in whole warps and whole pixels of the
+    unit (at least one of each; up to 512 where a unit's pixels would
+    need a cluster over 8), each thread the most packs of
+    ``NARROW_PACKS``, so the cluster (1, 2, 4 or 8 CTAs a unit) is the
+    smallest whose parts fit: fewer, larger parts, and fewer CTAs in each
+    cluster barrier.  While the grid is short of ``NARROW_SPREAD`` CTAs
+    the cluster doubles (a small batch: more, shorter CTAs) if a part
+    keeps ``BF16_PART_MIN`` bytes.  Packs are
+    the fewest that cover a part, threads the fewest whole warps that do
+    where that is one pack's worth.  At n_feat 32, 16 maps: units of 4
+    groups in clusters of 2, 256 threads of 16 packs, 128 CTAs.  Raises
+    ``ValueError`` for a shape it does not take: an unaligned pointer,
+    channels a group a multiple of 8 (:func:`bf16_plan`'s), groups that a
+    unit of whole packs does not divide, a unit over 256 channels, or one
+    over 16 packs of 512 threads a CTA even in a cluster of 8."""
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    cg = c // groups
+    if not aligned:
+        raise ValueError("the narrow bf16 GroupNorm kernel needs 16-byte aligned tensors")
+    if cg % 8 == 0:
+        raise ValueError(f"{cg} channels a group are whole packs: bf16_plan's shape")
+    seg = 8 // math.gcd(cg, 8)
+    if groups % seg or seg * cg > 256:
+        raise ValueError(f"{groups} groups of {cg} channels split into no units of whole "
+                         f"16-byte packs of at most 256 channels")
+    while (seg < BF16_MAX_SEG and seg * cg * 2 % NARROW_SECTOR and groups % (2 * seg) == 0
+           and 2 * seg * cg <= 256):
+        seg *= 2
+    vs = seg * cg // 8  # packs of a unit's pixel
+    whole = math.lcm(32, vs)
+    units = n * groups // seg
+    most, cluster = NARROW_PACKS[-1], None
+    for budget in (NARROW_THREADS, BF16_THREADS):
+        threads = max(whole, budget - budget % whole)
+        if threads > BF16_THREADS:
+            break
+        cluster = next((cl for cl in (1, 2, 4, 8)
+                        if -(-hw // cl) <= most * (threads // vs)), None)
+        if cluster is not None:
+            break
+    if cluster is None:
+        raise ValueError(f"a unit of {hw} x {seg * cg} bf16 elements takes no plan: over "
+                         f"{most} packs of {BF16_THREADS} threads a CTA even in a cluster of 8")
+    while (cluster < 8 and cluster < hw and units * cluster < NARROW_SPREAD
+           and -(-hw // cluster) * seg * cg * 2 // 2 >= BF16_PART_MIN):
+        cluster *= 2
+    part = -(-hw // cluster)
+    packs = next(k for k in NARROW_PACKS if k * (threads // vs) >= part)
+    if packs == NARROW_PACKS[0]:  # fewer threads for a small part
+        threads = min(threads, -(-part * vs // whole) * whole)
+    return Bf16Plan(seg, cluster, threads, packs, part)
+
+
 def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = True,
                  sms: int = 132) -> tuple:
     """``(C name, plan)`` of :func:`fused_groupnorm_act`'s launch for a
     ``dtype`` input: the float kernel under :func:`launch_plan` for
-    float32; for bfloat16 the bf16 kernel under :func:`bf16_plan`, or,
-    where that plan refuses the shape, the float kernel's bf16 instance
-    (``BF16_GENERIC_NAME``) under :func:`launch_plan`.  A function of the
-    shape, the dtype and the alignment alone, chosen before the launch;
-    raises ``ValueError`` where no kernel takes the shape."""
+    float32; for bfloat16 the bf16 kernel under :func:`bf16_plan`, where
+    that plan refuses the shape the narrow bf16 kernel under
+    :func:`narrow_plan` (``BF16_NARROW_NAME``: groups not whole packs),
+    and where both refuse it (an unaligned pointer, say) the float
+    kernel's bf16 instance (``BF16_GENERIC_NAME``) under
+    :func:`launch_plan`.  A function of the shape, the dtype and the
+    alignment alone, chosen before the launch; raises ``ValueError``
+    where no kernel takes the shape."""
     if dtype != torch.bfloat16:
         return C_NAME, launch_plan(n, hw, c, groups, aligned)
-    try:
-        return BF16_NAME, bf16_plan(n, hw, c, groups, aligned, sms)
-    except ValueError:
-        return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
+    for name, plan in ((BF16_NAME, bf16_plan), (BF16_NARROW_NAME, narrow_plan)):
+        try:
+            return name, plan(n, hw, c, groups, aligned, sms)
+        except ValueError:
+            pass
+    return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
 
 
 def idle_lane_threads(width: int, most: int) -> int:
@@ -658,7 +742,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     head = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows, out.data_ptr(), b, h * w,
             c, num_groups, *strides, float(eps), ACTS[act])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if name == BF16_NAME:
+    if name in (BF16_NAME, BF16_NARROW_NAME):
         err = _build.kernel(name, _BF16_ARGTYPES)(*head, *plan, stream)
     else:
         err = _build.kernel(name, _ARGTYPES)(
@@ -666,6 +750,8 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
             plan.resident_pixels, plan.smem_bytes, stream)
     _build.check(err, name)
     _count(fused_groupnorm_act, x)
+    if name == BF16_NARROW_NAME:
+        fused_groupnorm_act.launches_narrow_bf16 += 1
     if name == BF16_GENERIC_NAME:
         fused_groupnorm_act.launches_generic_bf16 += 1
     return out
@@ -673,4 +759,6 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
 
 fused_groupnorm_act.launches = 0
 fused_groupnorm_act.launches_bf16 = 0  # every bf16 launch
+fused_groupnorm_act.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_groupnorm_act.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
+

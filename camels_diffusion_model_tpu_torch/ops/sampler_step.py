@@ -16,7 +16,8 @@ the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
 (None for a side at the image's edge, which stays zero padding), and the
 kernel's halo mode copies a band's row -1 or H from them (counts
 ``.launches_halo`` and ``.launches_halo_bf16``).  The halo mode is the
-bf16 kernel's in bf16 (``c`` a multiple of 64), and in fp32 a kernel of
+bf16 kernel's in bf16 (``c`` a multiple of 32; its narrow item counted
+also under ``.launches_halo_narrow_bf16``), and in fp32 a kernel of
 its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
 kernel's warp-private rings, the taps on the CUDA cores in fp32) under
 :func:`halo_plan`; other widths take the float kernel's halo mode
@@ -31,11 +32,13 @@ bf16 unsharded launch is a kernel of its own (``csrc/head_step.cu``,
 ``head_step_bf16_kernel``): the nine per-tap partials of a band as one
 product on the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 sums),
 each warp streaming its tiles of ``h`` through a ring of its own in
-shared memory; :func:`bf16_plan` chooses its band height.  Where that
-plan refuses a shape (``c`` not a multiple of 64, as n_feat 32, 96 and 160
-give), the bf16 unsharded launch takes the float kernel's bf16 instance
-instead (:func:`route`), counted under ``.launches_bf16`` and also under
-``.launches_generic_bf16``.
+shared memory; :func:`bf16_plan` chooses its band height.  Where ``c``
+is an odd multiple of 32 (n_feat 32, 96 and 160) the same kernel runs at
+its narrow item, 32 channels (``BF16_NARROW_NAME``, counted under
+``.launches_bf16`` and also under ``.launches_narrow_bf16``).  Where that
+plan refuses a shape (``c`` not a multiple of 32, an unaligned pointer),
+the bf16 unsharded launch takes the float kernel's bf16 instance instead
+(:func:`route`), counted also under ``.launches_generic_bf16``.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ BF16_PER_SM = 2  # CTAs of the bf16 kernel an SM runs at once
 BF16_THREADS = 256  # a CTA of the bf16 kernel: 8 warps
 BF16_TILE = 16  # pixels of a warp's item (the MMA's 16 rows)
 BF16_BLOCK = 64  # channels of an item: 128 bytes a pixel, 8 copies of 16
+BF16_NARROW_BLOCK = 32  # the narrow item's (c an odd multiple of 32): 32 pixels of 64 bytes
 ROWS_HALO = (8, 4, 2, 1)  # band heights of the fp32 halo kernel
 HALO_THREADS = 256  # a CTA of the fp32 halo kernel: 8 warps
 HALO_TILE = 32  # pixels of a warp's tile: four a lane, 8 channels of each an item
@@ -76,9 +80,11 @@ HALO_PER_SM = 2  # CTAs of the fp32 halo kernel an SM runs at once
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
 C_NAME = "camels_head_step"  # the float unsharded launch
 BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
+BF16_NARROW_NAME = "camels_head_step_bf16_narrow"  # ... at the narrow item
 BF16_GENERIC_NAME = "camels_head_step_bf16_generic"  # the float kernel's bf16 instance
 HALO_NAMES = {torch.float32: "camels_head_step_halo",  # halo_plan
               torch.bfloat16: "camels_head_step_halo_bf16"}  # bf16_plan
+HALO_NARROW_NAME = "camels_head_step_halo_bf16_narrow"  # bf16_plan at the narrow item
 # The float kernel's halo mode (launch_plan), where the kernels above refuse.
 HALO_GENERIC_NAMES = {torch.float32: "camels_head_step_halo_generic",
                       torch.bfloat16: "camels_head_step_halo_generic_bf16"}
@@ -241,13 +247,16 @@ class Bf16Plan(NamedTuple):
     threads: int  # per CTA
     ctas: int
     smem_bytes: int  # dynamic shared memory per CTA: weights, rings, partials
+    block: int = BF16_BLOCK  # channels of an item: BF16_BLOCK or BF16_NARROW_BLOCK
 
 
 def weight_stride(c: int) -> int:
     """bf16 elements between two taps' weight rows in the bf16 kernel's
     shared memory: 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4
-    chunks hit 8 bank groups (``c`` is a multiple of 64: :func:`bf16_plan`)."""
-    return c + 32
+    chunks hit 8 bank groups (``c`` a multiple of 32: :func:`bf16_plan`):
+    ``c + 32`` where ``c`` is a multiple of 64, ``c`` where it is an odd
+    multiple of 32 (``c / 8`` is then 4 mod 8 slots)."""
+    return c + 32 if c % 64 == 0 else c
 
 
 def partial_stride(m: int) -> int:
@@ -265,21 +274,26 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     A CTA takes a band of ``rows`` output rows and multiplies its ``rows +
     2`` rows of ``h`` (each branch's) by the weights, each warp its
     ``BF16_TILE``-pixel tiles ``BF16_BLOCK`` channels an item through a
-    ring of its own, ``BF16_RING`` deep.  The band is the shortest of
-    ``ROWS_BF16`` whose grid still fits ``BF16_PER_SM`` CTAs an SM, so the
-    grid is one wave and each SM streams for two CTAs (one's gather over
-    the other's copies), else the tallest.  Raises ``ValueError`` for a shape no path takes:
-    ``cout != 1``, ``c`` not a multiple of ``BF16_BLOCK``, a pointer off a
+    ring of its own, ``BF16_RING`` deep; where ``c`` is an odd multiple
+    of 32 (n_feat 32, 96, 160) the narrow item, two tiles of
+    ``BF16_NARROW_BLOCK`` channels (the same 2 KiB).  The
+    band is the shortest of ``ROWS_BF16`` whose grid still fits
+    ``BF16_PER_SM`` CTAs an SM, so the grid is one wave and each SM
+    streams for two CTAs (one's gather over the other's copies), else the
+    tallest.  Raises ``ValueError`` for a shape no path takes: ``cout !=
+    1``, ``c`` not a multiple of ``BF16_NARROW_BLOCK``, a pointer off a
     16-byte boundary (``aligned``), or a band over shared memory.
     """
     if cout != 1:
         raise ValueError(f"the head kernel computes one output channel, not {cout}")
-    if c <= 0 or c % BF16_BLOCK:
-        raise ValueError(f"the bf16 head kernel needs channels % {BF16_BLOCK} == 0, got {c}")
+    if c <= 0 or c % BF16_NARROW_BLOCK:
+        raise ValueError(f"the bf16 head kernel needs channels % {BF16_NARROW_BLOCK} == 0, "
+                         f"got {c}")
     if not aligned:
         raise ValueError("the head kernel needs 16-byte aligned features")
+    block = BF16_BLOCK if c % BF16_BLOCK == 0 else BF16_NARROW_BLOCK
 
-    def smem(rows):
+    def smem(rows):  # an item is 2 KiB at either width
         m = (2 if cfg else 1) * (rows + 2) * width
         return (2 * 16 * weight_stride(c) + 2 * BF16_THREADS // 32 * BF16_RING * BF16_TILE
                 * BF16_BLOCK + 4 * 9 * partial_stride(m))
@@ -289,7 +303,7 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
                 ordered[-1])
     if smem(rows) > SMEM_MAX:
         raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
-    return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows))
+    return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows), block)
 
 
 class HaloPlan(NamedTuple):
@@ -349,21 +363,25 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     of ``dtype`` (arguments as :func:`launch_plan`'s): for float32 the
     float kernel, with ``halo`` the fp32 halo kernel under
     :func:`halo_plan`; for bfloat16 the bf16 kernel (with ``halo`` its
-    halo mode) under :func:`bf16_plan`.  Where that plan refuses the shape,
-    the float kernel's instance of ``dtype`` under :func:`launch_plan`
-    (``BF16_GENERIC_NAME``, with ``halo`` ``HALO_GENERIC_NAMES``).  A
-    function of the shape, the dtype and the alignment alone, chosen
-    before the launch; raises ``ValueError`` where no kernel takes the
-    shape."""
+    halo mode) under :func:`bf16_plan`, at the narrow item where ``c`` is
+    an odd multiple of 32 (``BF16_NARROW_NAME``, ``HALO_NARROW_NAME``).
+    Where that plan refuses the shape, the float kernel's instance of
+    ``dtype`` under :func:`launch_plan` (``BF16_GENERIC_NAME``, with
+    ``halo`` ``HALO_GENERIC_NAMES``).  A function of the shape, the dtype
+    and the alignment alone, chosen before the launch; raises
+    ``ValueError`` where no kernel takes the shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
     if dtype != torch.bfloat16 and not halo:
         return C_NAME, launch_plan(*args)
     own, generic = ((HALO_NAMES[dtype], HALO_GENERIC_NAMES[dtype]) if halo
                     else (BF16_NAME, BF16_GENERIC_NAME))
     try:
-        return own, (bf16_plan if dtype == torch.bfloat16 else halo_plan)(*args)
+        plan = (bf16_plan if dtype == torch.bfloat16 else halo_plan)(*args)
     except ValueError:
         return generic, launch_plan(*args, ELEMENT_BYTES[dtype])
+    if isinstance(plan, Bf16Plan) and plan.block == BF16_NARROW_BLOCK:
+        return (HALO_NARROW_NAME if halo else BF16_NARROW_NAME), plan
+    return own, plan
 
 
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
@@ -466,16 +484,20 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values():
-        count = f"launches{mode}_generic{suffix}"
+    kind = ("_generic" if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values()
+            else "_narrow" if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else None)
+    if kind:
+        count = f"launches{mode}{kind}{suffix}"
         setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
     return out
 
 
 fused_head_step.launches = 0
 fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
+fused_head_step.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_head_step.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
 fused_head_step.launches_halo = 0  # every fp32 halo launch
 fused_head_step.launches_halo_generic = 0  # those of them that took the float kernel
 fused_head_step.launches_halo_bf16 = 0  # every bf16 halo launch
+fused_head_step.launches_halo_narrow_bf16 = 0  # those of them that took HALO_NARROW_NAME
 fused_head_step.launches_halo_generic_bf16 = 0  # those of them that took the float kernel

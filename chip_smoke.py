@@ -15,8 +15,9 @@ Phases, each timed on its own line:
       with the data in device memory, not L2), the deep and big models'
       shapes included (K1 with their tanh, K2 with leaky ReLU and GELU and
       on its spill path, K3 at their widths; 10 maps, 32 for validation),
-      and the float kernels' bf16 instances of K1 and K2 at the narrow bf16
-      model's shapes of phase (o);
+      the narrow bf16 kernels of K1 and K2 at the narrow bf16 models'
+      shapes (n_feat 32 of phase (o), 96 and 160), and the float kernels'
+      bf16 instances at widths no bf16 kernel takes;
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -70,8 +71,8 @@ Phases, each timed on its own line:
       against the CPU with its time, idle share and peak memory;
       ``run_experiment("nov26", dtype="bfloat16")`` with its resume; and a
       narrow bf16 model (n_feat 32, seeded init), whose out_norm and
-      out_conv2 take the float kernels' bf16 instances: its forward and
-      four strided w=2 steps on the card against the CPU.  bf16
+      out_conv2 take the narrow bf16 kernels: its forward and four
+      strided w=2 steps on the card against the CPU.  bf16
       gates are yardsticks: the card's bf16 within ``BF16_FACTOR`` x the
       distance of the reference's bf16 from its fp32;
   (p) the reference's own workflow at full width: the native C++ prep
@@ -107,8 +108,9 @@ Phases, each timed on its own line:
       statistics and apply launches and K1's halo mode, fp32 and bf16,
       against their plain versions on half of the w=2 serving heads' maps
       (a 1x2 mesh's shard), of the deep model's out_norm (10 maps) and of
-      n_feat 136's and 264's heads; K3 on a shard; the float kernel's halo
-      mode at the widths K1's halo kernels do not take; (r2)
+      n_feat 136's and 264's heads; K3 on a shard; the bf16 halo mode's
+      narrow item at n_feat 32's half; the float kernel's halo mode at the
+      widths K1's halo kernels do not take; (r2)
       two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
       committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
       (the exact chain of a 10-step schedule) against one process, in fp32
@@ -200,6 +202,9 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     groupnorm_stats_plain,
 )
 from camels_diffusion_model_tpu_torch.ops.groupnorm import BF16_NAME as GROUPNORM_BF16_NAME
+from camels_diffusion_model_tpu_torch.ops.groupnorm import (
+    BF16_NARROW_NAME as GROUPNORM_NARROW_NAME,
+)
 from camels_diffusion_model_tpu_torch.ops.groupnorm import single_route as groupnorm_route
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
@@ -254,6 +259,7 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # launches.
 PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
                  "head_step_halo_f32_kernel", "groupnorm_bf16_kernel",
+                 "groupnorm_bf16_narrow_kernel",
                  "groupnorm_stats_kernel",
                  "groupnorm_apply_kernel")
 
@@ -277,10 +283,13 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # (count, mean, centred sum of squares), sums in another order.
        "head_step_halo": 1e-4, "groupnorm_apply": 1e-4, "groupnorm_stats": 1e-5,
        "head_step_halo_bf16": 4, "groupnorm_apply_bf16": 2, "groupnorm_stats_bf16": 1e-5,
-       # The float kernels' bf16 instances, which take the bf16 shapes the
-       # bf16 kernels do not (narrow models), and the float kernel's halo
-       # mode, which takes the halo shapes the kernels of their own do not:
-       # as those.
+       # The narrow bf16 kernels (K1's narrow item in both modes, K2 where
+       # groups are not whole packs: narrow models), the float kernels'
+       # bf16 instances, which take the bf16 shapes no bf16 kernel takes,
+       # and the float kernel's halo mode, which takes the halo shapes the
+       # kernels of their own do not: as those.
+       "head_step_narrow_bf16": 4, "groupnorm_act_narrow_bf16": 2,
+       "head_step_halo_narrow_bf16": 4,
        "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2,
        "head_step_halo_generic": 1e-4, "head_step_halo_generic_bf16": 4}
 BF16_SHARE = 1e-2
@@ -309,10 +318,15 @@ WRAPPERS = {
     "head_step_halo_bf16": (fused_head_step, "launches_halo_bf16"),
     "groupnorm_stats_bf16": (groupnorm_stats, "launches_bf16"),
     "groupnorm_apply_bf16": (groupnorm_apply, "launches_bf16"),
-    # The float kernels' bf16 instances (the narrow bf16 model of phase o)
-    # and the float kernel's halo mode (channels the halo kernels of their
-    # own do not take): their launches are also counted in head_step_bf16's,
+    # The narrow bf16 kernels (the narrow bf16 model of phase o: K1's
+    # narrow item, K2 where groups are not whole packs), the float kernels'
+    # bf16 instances (bf16 shapes no bf16 kernel takes) and the float
+    # kernel's halo mode (channels the halo kernels of their own do not
+    # take): their launches are also counted in head_step_bf16's,
     # groupnorm_act_bf16's, head_step_halo's and head_step_halo_bf16's.
+    "head_step_narrow_bf16": (fused_head_step, "launches_narrow_bf16"),
+    "groupnorm_act_narrow_bf16": (fused_groupnorm_act, "launches_narrow_bf16"),
+    "head_step_halo_narrow_bf16": (fused_head_step, "launches_halo_narrow_bf16"),
     "head_step_generic_bf16": (fused_head_step, "launches_generic_bf16"),
     "groupnorm_act_generic_bf16": (fused_groupnorm_act, "launches_generic_bf16"),
     "head_step_halo_generic": (fused_head_step, "launches_halo_generic"),
@@ -344,7 +358,7 @@ LIBRARY = {
                        "per-channel affine on the NHWC layout",
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
-LIBRARY.update({f"{k}_generic_bf16": LIBRARY[f"{k}_bf16"]
+LIBRARY.update({f"{k}_{kind}_bf16": LIBRARY[f"{k}_bf16"] for kind in ("narrow", "generic")
                 for k in ("head_step", "groupnorm_act", "head_step_halo")})
 LIBRARY["head_step_halo_generic"] = LIBRARY["head_step_halo"]
 # Launches per reverse step: one step kernel (output conv, guidance,
@@ -447,7 +461,7 @@ SOURCES = {
 SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
-SOURCES.update({f"{k}_generic_bf16": SOURCES[k]
+SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for kind in ("narrow", "generic")
                 for k in ("head_step", "groupnorm_act", "head_step_halo")})
 SOURCES["head_step_halo_generic"] = SOURCES["head_step"]
 # Phase (r2): the spatial chain, its one-process reference and the deep
@@ -462,15 +476,24 @@ SPATIAL_MESH, SPATIAL_MAPS, SPATIAL_T, SPATIAL_TOL = (1, 2), 16, 10, 1e-4
 SPATIAL_PER_STEP = {"head_step_halo": 1, "groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
 SPATIAL_PER_FORWARD = {"groupnorm_stats": 2, "groupnorm_apply": 2, "film": 1}
 QUANT_BATCH = 32  # phase (r3): the training batch through down2.block2.conv2
-# Phase (o): a narrow bf16 model, whose out_norm (4 channels a group) and
-# out_conv2 (32 channels) the bf16 kernels' plans refuse, so the float
-# kernels' bf16 instances take them; its up0_norm (8 channels a group)
-# keeps the bf16 kernel.  Its forward and four strided w=2 steps on 2 maps,
-# as check_sampler_vs_cpu takes them.  Launches of the float kernels' bf16
-# instances a decoder call: K2 at out_norm, K1 at the step.
+# Phase (o): a narrow bf16 model, whose out_norm (4 channels a group) takes
+# the narrow bf16 GroupNorm kernel and whose out_conv2 (32 channels) the
+# bf16 step kernel's narrow item; its up0_norm (8 channels a group) keeps
+# the bf16 kernel, and no launch takes a float kernel's bf16 instance.  Its
+# forward and four strided w=2 steps on 2 maps, as check_sampler_vs_cpu
+# takes them.  Narrow launches a decoder call: K2 at out_norm, K1 at the
+# step.
 NARROW_FEAT, NARROW_MAPS = 32, 2
-NARROW_PER_STEP = {"head_step_generic_bf16": 1, "groupnorm_act_generic_bf16": 1}
-NARROW_PER_FORWARD = {"head_step_generic_bf16": 0, "groupnorm_act_generic_bf16": 1}
+NARROW_PER_STEP = {"head_step_narrow_bf16": 1, "groupnorm_act_narrow_bf16": 1}
+NARROW_PER_FORWARD = {"head_step_narrow_bf16": 0, "groupnorm_act_narrow_bf16": 1}
+# Phase (c): the narrow kernels at n_feat 32 (2 maps: phase (o)'s, summed;
+# 16 maps), 96 and 160 (16 maps); the float kernels' bf16 instances at
+# widths no bf16 kernel takes: K1 at 40 channels (not a multiple of 32),
+# K2 at n_feat 264's out_norm (33 channels a group: a unit of whole packs
+# over 256 channels).
+NARROW_CASES = ((32, NARROW_MAPS, True), (32, BATCH, False), (96, BATCH, False),
+                (160, BATCH, False))
+GENERIC_K1_FEAT, GENERIC_K2_FEAT = 40, 264
 
 
 def phase(name: str, t0: float) -> None:
@@ -730,8 +753,9 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     """Phase (c)'s cases of the bf16 instances: the canonical w=2 serving
     shapes (summed: one reverse step of the bf16 model) and w=0, and the
     deep and big models' shapes at 10 maps; weights and norm parameters of
-    the serving model, features and rows in bf16.  And the float kernels'
-    bf16 instances at the narrow bf16 model's K1 and out_norm shapes."""
+    the serving model, features and rows in bf16.  And the narrow kernels
+    at the narrow bf16 models' K1 and out_norm shapes, and the float
+    kernels' bf16 instances at widths no bf16 kernel takes."""
     bf = torch.bfloat16
     cases = []
     head = (model.out_conv2.weight.detach().to(bf), model.out_conv2.bias.detach().to(bf))
@@ -772,25 +796,33 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
             lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
                                                     beta.to(x.dtype), 1e-5),
             args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed))
-    # The float kernels' bf16 instances at the narrow bf16 model's shapes:
-    # phase (o)'s strided w=2 steps (summed), and served at BATCH maps.
-    c = NARROW_FEAT
-    for label, b, summed in ((f"n_feat {c}, cfg w=2 (phase o)", NARROW_MAPS, True),
-                             (f"n_feat {c}, cfg w=2, {BATCH} maps", BATCH, False)):
+    # The narrow kernels at the narrow bf16 models' shapes (NARROW_CASES:
+    # phase (o)'s strided w=2 steps summed, the rest served at BATCH maps),
+    # and the float kernels' bf16 instances at widths no bf16 kernel takes.
+    head_cases = [(f"n_feat {c}, cfg w=2" + (" (phase o)" if summed else f", {b} maps"),
+                   "head_step_narrow_bf16", b, c, summed) for c, b, summed in NARROW_CASES]
+    head_cases.append((f"{GENERIC_K1_FEAT} channels, cfg w=2, {NARROW_MAPS} maps",
+                       "head_step_generic_bf16", NARROW_MAPS, GENERIC_K1_FEAT, True))
+    for label, name, b, c, summed in head_cases:
         x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
         h = randn(2 * b, 64, 64, c).relu().to(bf)
         args = (h, randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(bf), randn(1).to(bf), x, z,
                 c_eps, inv_sqrt_a, sigma, 2.0, False)
         cases.append((
-            "head_step_generic_bf16", f"{label} h{tuple(h.shape)} bf16, x{tuple(x.shape)} fp32",
+            name, f"{label} h{tuple(h.shape)} bf16, x{tuple(x.shape)} fp32",
             fused_head_step, head_step_plain,
             lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
                                                  padding=1),
             args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, summed))
+    norm_cases = [(f"out_norm, n_feat {c}" + (" (phase o)" if summed else "") + f", {b} maps",
+                   "groupnorm_act_narrow_bf16", b, c, summed) for c, b, summed in NARROW_CASES]
+    norm_cases.append((f"out_norm, n_feat {GENERIC_K2_FEAT}, {NARROW_MAPS} maps",
+                       "groupnorm_act_generic_bf16", NARROW_MAPS, GENERIC_K2_FEAT, True))
+    for label, name, b, c, summed in norm_cases:
         xg = randn(2 * b, 64, 64, c).to(bf)
         args = (xg, randn(c), randn(c), 8, 1e-5, "relu", None)
         cases.append((
-            "groupnorm_act_generic_bf16", f"out_norm, {label} {tuple(xg.shape)}",
+            name, f"{label} {tuple(xg.shape)}",
             fused_groupnorm_act, groupnorm_act_plain,
             lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
                                                     beta.to(x.dtype), 1e-5),
@@ -1197,11 +1229,11 @@ def print_train_time(label: str, tr: dict, precision: str = "fp32 with TF32 off"
 def spilled_bytes(x, groups: int) -> int:
     """Bytes K2's spill path reads again for NHWC ``x``: the pixels of each
     CTA's slice past its resident ones, by the variance and the output
-    passes.  The bf16 kernel has no spill path (``bf16_plan`` holds every
-    part in registers or refuses the shape)."""
+    passes.  The bf16 kernels have no spill path (``bf16_plan`` and
+    ``narrow_plan`` hold every part in registers or refuse the shape)."""
     n, h, w, c = x.shape
     name, plan = groupnorm_route(n, h * w, c, groups, x.dtype)
-    if name == GROUPNORM_BF16_NAME:
+    if name in (GROUPNORM_BF16_NAME, GROUPNORM_NARROW_NAME):
         return 0
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
         c // groups) * x.element_size()
@@ -2139,8 +2171,9 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     partials of both halves merged; K3 on half of FiLM stage 1's map; K1's
     halo mode on half of the w=2 serving features (summed: one spatial
     reverse step), its rows above and below from the other half's edge,
-    and the float kernel's halo mode at the widths the kernels of their
-    own do not take (n_feat 32 in bf16; 6000 fp32 channels, no model's)."""
+    the bf16 kernel's narrow item in its halo mode at n_feat 32's half, and
+    the float kernel's halo mode at the widths the kernels of their own do
+    not take (40 channels in bf16; 6000 fp32 channels, no model's)."""
     cases = []
     n = 2 * BATCH
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
@@ -2183,14 +2216,18 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
             lambda x, scale, shift: torch.addcmul(
                 shift[:, None, None, :], x, scale[:, None, None, :]),
             args, nbytes(*args, args[0]), args[0].numel() * 2, False))
-        for name, b, height, width, c, label in (
-                (f"head_step_halo{sfx}", BATCH, 32, 64, model.n_feat,
-                 "cfg w=2, half of h(32,64,64,128)"),
-                (f"head_step_halo_generic{sfx}", BATCH, 32, 64, 32,
-                 "cfg w=2, n_feat 32 (a narrow model), half of h(32,64,64,32)") if sfx else
-                (f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
-                 "cfg w=2, 6000 channels (no model's: weights over the fp32 halo kernel's "
-                 "shared memory), half of h(2,8,8,6000)")):
+        halo_cases = [(f"head_step_halo{sfx}", BATCH, 32, 64, model.n_feat,
+                       "cfg w=2, half of h(32,64,64,128)")]
+        halo_cases += ([(f"head_step_halo_narrow{sfx}", BATCH, 32, 64, NARROW_FEAT,
+                         f"cfg w=2, n_feat {NARROW_FEAT} (a narrow model), half of "
+                         f"h(32,64,64,{NARROW_FEAT})"),
+                        (f"head_step_halo_generic{sfx}", BATCH, 32, 64, GENERIC_K1_FEAT,
+                         f"cfg w=2, {GENERIC_K1_FEAT} channels (no bf16 kernel's item), half "
+                         f"of h(32,64,64,{GENERIC_K1_FEAT})")] if sfx else
+                       [(f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
+                         "cfg w=2, 6000 channels (no model's: weights over the fp32 halo "
+                         "kernel's shared memory), half of h(2,8,8,6000)")])
+        for name, b, height, width, c, label in halo_cases:
             h = randn(2 * b, height, width, c).relu().to(dtype)
             halo = tuple(randn(2 * b, width, c).relu().to(dtype) for _ in range(2))
             x, z = randn(b, height, width, 1), randn(b, height, width, 1)
@@ -2471,7 +2508,7 @@ def make_drive(launches: dict):
         one channel beyond the training forwards (a run's many passes).
         The launches are those of the ``dtype`` instances; the other
         instances must show none, but for ``extra`` (instance -> launches:
-        the float kernels' bf16 instances of a narrow bf16 model)."""
+        the narrow bf16 kernels of a narrow bf16 model)."""
         one_channel_convs = [0]
 
         def hook(module, args, output):  # the card's only: q3 runs CPU forwards beside q1

@@ -67,6 +67,26 @@ band height of their plans (``ROWS_HALO``, ``ROWS_BF16``), and, for
 information, the fp32 halo kernel on the whole w=2 map (zero halo rows)
 against the unsharded fp32 launch in turns.  It prints the SASS
 instruction count of the new halo kernels.
+
+``--narrow`` compares the narrow bf16 kernels instead, at the narrow
+models' shapes (n_feat 32 at 2 and 16 maps under CFG, 96 and 160 at 16):
+K2 where groups are not whole packs (``groupnorm_bf16_narrow_kernel``,
+out_norm) and K1 at its narrow item (``fused_head_step``'s 32-channel
+items), each against the float kernels' bf16 instance it replaces (the
+checkout's, forced through the routes: the earlier package's template
+refused n_feat 96's out_norm, whose 48 KiB slice launched without the
+shared-memory opt-in), held to the checkout's plain version under
+``chip_smoke.tolerance``, then timed old, new, new, old cold, right after
+a cuDNN bf16 conv of out_conv1's shape (2 n_feat to n_feat channels at
+64x64, :func:`after`) and the kernel alone (the profiler), beside the
+bound and the library call (``F.group_norm``, ``F.conv2d`` in bf16, cold);
+K1's narrow halo mode likewise at half of n_feat 32's 16-map features.
+Then the new kernels' sweeps (K1: every band height of ``ROWS_BF16`` at
+every band height; K2: every plan the narrow kernel
+takes, :func:`narrow_candidates`), cold and after the conv; and the
+served 64-channel bf16 K1, unsharded at w=2 and in its halo mode at phase
+(r1)'s shape, old and new in turns, three rounds, with the SASS
+instruction counts of both bf16 step kernels' instances.
 Needs a CUDA card.
 """
 
@@ -120,6 +140,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded", action="store_true",
                     help="K2's sharded statistics and apply launches, both dtypes")
     ap.add_argument("--halo", action="store_true", help="K1's halo mode, both dtypes")
+    ap.add_argument("--narrow", action="store_true",
+                    help="the narrow bf16 kernels (n_feat 32, 96, 160) and the served bf16 K1")
+    ap.add_argument("--prev", help="with --narrow: a revision's package dir that has the narrow "
+                                   "kernels, timed against the checkout's in turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -189,6 +213,14 @@ def main(argv=None) -> int:
         return compare_sharded(randn, old_gn, chip_smoke, groupnorm)
     if args.halo:
         return compare_halo(randn, old_step, chip_smoke, sampler_step)
+    if args.narrow:
+        prev = None
+        if args.prev:
+            load_package(args.prev, "prev_port")
+            prev = tuple(importlib.import_module(f"prev_port.ops.{m}")
+                         for m in ("groupnorm", "sampler_step"))
+        return compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
+                              prev)
     if args.dtype == "bfloat16":
         return compare_bf16(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
     cases = []  # (label, old fn, new fn, plain fn, args, tolerance)
@@ -708,6 +740,229 @@ def compare_halo(randn, old_step, chip_smoke, sampler_step) -> int:
           f"{tuple(sampler_step.halo_plan(b, 64, 64, 128))}); bound "
           f"{nb / chip_smoke.HBM_BYTES_PER_S * 1e3:.6f} ms; max err {errs[0]:.2e} "
           f"{errs[1]:.2e}", flush=True)
+    return 0
+
+
+def narrow_candidates(groupnorm, n: int, hw: int, c: int, groups: int = 8) -> list:
+    """Every launch plan the narrow bf16 K2 takes for ``n`` samples of
+    ``hw`` pixels and ``c`` channels: units of the fewest groups whose
+    slice of a pixel is whole packs, doubled up to 8 groups and 256
+    channels, clusters of 1 to 8, 256 or 512 threads (whole warps and
+    pixels) with the fewest packs of ``NARROW_PACKS`` that cover a part."""
+    cg = c // groups
+    plans = []
+    seg = 8 // math.gcd(cg, 8)
+    while seg <= 8 and groups % seg == 0 and seg * cg <= 256:
+        vs = seg * cg // 8
+        whole = math.lcm(32, vs)
+        for cluster in (1, 2, 4, 8):
+            part = -(-hw // cluster)
+            for threads in (256, 512):
+                threads -= threads % whole
+                if threads == 0:
+                    continue
+                packs = next((k for k in groupnorm.NARROW_PACKS
+                              if k * (threads // vs) >= part), None)
+                if packs is None:
+                    continue
+                if packs == groupnorm.NARROW_PACKS[0]:
+                    threads = min(threads, -(-part * vs // whole) * whole)
+                plan = groupnorm.Bf16Plan(seg, cluster, threads, packs, part)
+                if plan not in plans:
+                    plans.append(plan)
+        seg *= 2
+    return plans
+
+
+def compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
+                   prev=None) -> int:
+    """The narrow bf16 kernels: the generic instances vs new in turns at
+    the narrow models' shapes, their sweeps, and the served 64-channel bf16
+    K1 in turns; with ``prev`` (an earlier revision's groupnorm and
+    sampler_step modules that have the narrow kernels), that revision's
+    narrow launches vs the checkout's in turns, cold and after the conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    for name, n in sass_counts(_build, ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+                                        "groupnorm_bf16_narrow_kernel")).items():
+        print(f"SASS {n} instructions: {name}", flush=True)
+    bf = torch.bfloat16
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+    cl = torch.channels_last
+
+    def bound(args, out, flops):
+        nb = chip_smoke.nbytes(*args, out)
+        return max(nb / chip_smoke.HBM_BYTES_PER_S, flops / chip_smoke.BF16_FLOPS) * 1e3, nb
+
+    def turns(label, name, old, new, plain, lib, args, flops, before, key):
+        """Hold both, then time old (the generic instance), new, new, old
+        three ways, and the library call cold."""
+        errs = [hold(chip_smoke, name, label, f, plain, args) for f in (old, new)]
+        b, nb = bound(args, plain(*args), flops)
+        lib_ms = chip_smoke.time_ms(lib, args)
+        for how, timer in (("cold", chip_smoke.time_ms),
+                           ("after conv", functools.partial(after, before=before)),
+                           ("kernel alone, profiler",
+                            functools.partial(kernel_alone_ms, chip_smoke, key=key))):
+            t = [timer(f, args) for f in (old, new, new, old)]
+            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            print(f"{label} [{how}]: generic {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} "
+                  f"ms (mean generic {o:.5f}, new {nw:.5f}, generic/new {o / nw:.2f}); bound "
+                  f"{b:.6f} ms ({nb} bytes): share generic {b / o:.3f} new {b / nw:.3f}; "
+                  f"library {lib_ms:.5f} ms (library/new {lib_ms / nw:.2f}); max err generic "
+                  f"{errs[0]:.2e} new {errs[1]:.2e}", flush=True)
+
+    def generic_gn(*a):
+        """K2 through the float kernel's bf16 instance whatever the shape."""
+        real = groupnorm.single_route
+        groupnorm.single_route = lambda n, hw, c, groups, dtype, aligned=True, sms=132: (
+            groupnorm.BF16_GENERIC_NAME, groupnorm.launch_plan(n, hw, c, groups, aligned, 2))
+        try:
+            return groupnorm.fused_groupnorm_act(*a)
+        finally:
+            groupnorm.single_route = real
+
+    def generic_step(*a):
+        """K1 (either mode) through the float kernel's bf16 instance."""
+        real = sampler_step.route
+
+        def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
+                  sms=sampler_step.SMS):
+            return ((sampler_step.HALO_GENERIC_NAMES[dtype] if halo
+                     else sampler_step.BF16_GENERIC_NAME),
+                    sampler_step.launch_plan(units, height, width, c, cout, cfg, aligned, sms,
+                                             2))
+
+        sampler_step.route = route
+        try:
+            return sampler_step.fused_head_step(*a)
+        finally:
+            sampler_step.route = real
+
+    def gn_lib(x, gamma, beta, *_):
+        return F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype), beta.to(x.dtype), 1e-5)
+
+    def conv_lib(h, weight, bias, *_):
+        return F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1)
+
+    k1, k2 = [], []  # (label, args, before)
+    for n_feat, maps in ((32, 2), (32, 16), (96, 16), (160, 16)):
+        n = 2 * maps
+        u = randn(n, 2 * n_feat, 64, 64).to(bf).contiguous(memory_format=cl)
+        w_conv = randn(n_feat, 2 * n_feat, 3, 3).mul(0.02).to(bf).contiguous(memory_format=cl)
+
+        def before(u=u, w_conv=w_conv):  # out_conv1: 2 n_feat to n_feat channels
+            return F.conv2d(u, w_conv, padding=1)
+
+        k2.append((f"K2 narrow, out_norm n_feat {n_feat}, {maps} maps {(n, 64, 64, n_feat)}",
+                   ((randn(n, 64, 64, n_feat) * 3 + 1).to(bf), randn(n_feat), randn(n_feat), 8,
+                    1e-5, "relu", None), before))
+        h = randn(n, 64, 64, n_feat).relu().to(bf)
+        weight = randn(1, n_feat, 3, 3).mul(1 / (3 * n_feat**0.5)).to(bf).contiguous(
+            memory_format=cl)
+        k1.append((f"K1 narrow, n_feat {n_feat}, {maps} maps h{tuple(h.shape)}",
+                   (h, weight, randn(1).to(bf), randn(maps, 64, 64, 1), randn(maps, 64, 64, 1),
+                    c_eps, inv_sqrt_a, sigma, 2.0, False), before))
+    for label, a, before in k2:
+        turns(label, "groupnorm_act_narrow_bf16", generic_gn, groupnorm.fused_groupnorm_act,
+              groupnorm.groupnorm_act_plain, gn_lib, a, a[0].numel() * 10, before, "groupnorm")
+    for label, a, before in k1:
+        turns(label, "head_step_narrow_bf16", generic_step, sampler_step.fused_head_step, sampler_step.head_step_plain, conv_lib, a,
+              a[0].numel() * 18 + a[3].numel() * 8, before, "head_step")
+    if prev is not None:  # an earlier revision's narrow kernels, in turns
+        for kernel, cases, f_prev, f_new in (
+                ("groupnorm_act_narrow_bf16", k2, prev[0].fused_groupnorm_act,
+                 groupnorm.fused_groupnorm_act),
+                ("head_step_narrow_bf16", k1, prev[1].fused_head_step,
+                 sampler_step.fused_head_step)):
+            plain = (groupnorm.groupnorm_act_plain if kernel.startswith("groupnorm")
+                     else sampler_step.head_step_plain)
+            for label, a, before in cases:
+                for f in (f_prev, f_new):
+                    hold(chip_smoke, kernel, label, f, plain, a)
+                for how, timer in (("cold", chip_smoke.time_ms),
+                                   ("after conv", functools.partial(after, before=before))):
+                    t = [timer(f, a) for f in (f_prev, f_new, f_new, f_prev)]
+                    print(f"{label} [prev vs new, {how}]: prev {t[0]:.5f} {t[3]:.5f} new "
+                          f"{t[1]:.5f} {t[2]:.5f} ms (prev/new "
+                          f"{(t[0] + t[3]) / (t[1] + t[2]):.3f})", flush=True)
+    # K1's narrow halo mode at half of n_feat 32's 16-map features.
+    h = randn(32, 32, 64, 32).relu().to(bf)
+    halo = tuple(randn(32, 64, 32).relu().to(bf) for _ in range(2))
+    a = (h, k1[1][1][1], k1[1][1][2], randn(16, 32, 64, 1), randn(16, 32, 64, 1), c_eps,
+         inv_sqrt_a, sigma, 2.0, False, halo)
+    turns(f"K1 narrow halo, half of n_feat 32's 16 maps h{tuple(h.shape)}",
+          "head_step_halo_narrow_bf16", generic_step, sampler_step.fused_head_step,
+          sampler_step.head_step_plain, conv_lib, a, h.numel() * 18 + a[3].numel() * 8,
+          k1[1][2], "head_step")
+
+    # The new designs under every band height and ring (K1) and plan (K2).
+    rows_all = sampler_step.ROWS_BF16
+    for label, a, before in k1:
+        b, c = a[3].shape[0], a[0].shape[-1]
+        picked = sampler_step.bf16_plan(b, 64, 64, c)
+        print(f"new {label} by band rows: ms cold / after conv; the plan picks "
+              f"{tuple(picked)}:", flush=True)
+        for rows in rows_all:
+            sampler_step.ROWS_BF16 = (rows,)
+            try:
+                plan = sampler_step.bf16_plan(b, 64, 64, c)
+                hold(chip_smoke, "head_step_narrow_bf16", f"{label} rows={rows}",
+                     sampler_step.fused_head_step, sampler_step.head_step_plain, a)
+                t = (chip_smoke.time_ms(sampler_step.fused_head_step, a),
+                     after(sampler_step.fused_head_step, a, before))
+            except ValueError:
+                continue
+            finally:
+                sampler_step.ROWS_BF16 = rows_all
+            print(f"  rows {rows} ctas {plan.ctas}: {t[0]:.5f} / {t[1]:.5f}"
+                  + (" <- picked" if plan == picked else ""), flush=True)
+    for label, a, before in k2:
+        n, hw, c = a[0].shape[0], a[0].shape[1] * a[0].shape[2], a[0].shape[-1]
+        picked = groupnorm.narrow_plan(n, hw, c, 8)
+        print(f"new {label} by plan (seg, cluster, threads, packs, part_px), ms cold / "
+              f"after conv; the plan picks {tuple(picked)}:", flush=True)
+        for plan in narrow_candidates(groupnorm, n, hw, c):
+            with forced(groupnorm, "narrow_plan", plan):
+                hold(chip_smoke, "groupnorm_act_narrow_bf16", f"{label} plan={tuple(plan)}",
+                     groupnorm.fused_groupnorm_act, groupnorm.groupnorm_act_plain, a)
+                t = (chip_smoke.time_ms(groupnorm.fused_groupnorm_act, a),
+                     after(groupnorm.fused_groupnorm_act, a, before))
+            print(f"  {tuple(plan)} ctas {plan.ctas(n, 8)}: {t[0]:.5f} / {t[1]:.5f}"
+                  + (" <- picked" if plan == picked else ""), flush=True)
+
+    # The served 64-channel bf16 K1, which now shares its body with the
+    # narrow item: unsharded at w=2, and its halo mode at phase (r1)'s shape.
+    weight = randn(1, 128, 3, 3).mul(1 / (3 * 128**0.5)).bfloat16().contiguous(memory_format=cl)
+    bias = randn(1).bfloat16()
+    h = randn(32, 64, 64, 128).relu().bfloat16()
+    served = [("unsharded, w=2 h(32,64,64,128)", (h, weight, bias, randn(16, 64, 64, 1),
+                                                   randn(16, 64, 64, 1), c_eps, inv_sqrt_a,
+                                                   sigma, 2.0, False))]
+    h = randn(32, 32, 64, 128).relu().bfloat16()
+    halo = tuple(randn(32, 64, 128).relu().bfloat16() for _ in range(2))
+    served.append(("halo, half of the w=2 features h(32,32,64,128)",
+                   (h, weight, bias, randn(16, 32, 64, 1), randn(16, 32, 64, 1), c_eps,
+                    inv_sqrt_a, sigma, 2.0, False, halo)))
+    for label, a in served:
+        name = "head_step_halo_bf16" if len(a) > 10 else "head_step_bf16"
+        errs = [hold(chip_smoke, name, label, f, sampler_step.head_step_plain, a)
+                for f in (old_step.fused_head_step, sampler_step.fused_head_step)]
+        ratios = []
+        for _ in range(3):
+            t = [chip_smoke.time_ms(f, a) for f in (old_step.fused_head_step,
+                                                   sampler_step.fused_head_step,
+                                                   sampler_step.fused_head_step,
+                                                   old_step.fused_head_step)]
+            ratios.append((t[0] + t[3]) / (t[1] + t[2]))
+            print(f"served bf16 K1 {label}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} "
+                  f"{t[2]:.5f} ms (old/new {ratios[-1]:.3f}); max err old {errs[0]:.2e} new "
+                  f"{errs[1]:.2e}", flush=True)
+        print(f"served bf16 K1 {label}: old/new by round "
+              + ", ".join(f"{r:.3f}" for r in ratios), flush=True)
     return 0
 
 

@@ -335,6 +335,31 @@ def test_narrow_model_bf16_eps_and_cfg_pair_match_jax(narrow, pallas_interpret, 
     gate(got_pair, *pair)
 
 
+@pytest.mark.parametrize("n_feat", [32, 96])
+def test_narrow_bf16_widths_forward_matches_jax(pallas_interpret, n_feat):
+    """The folded canonical model at n_feat 32 and 96 (16x16) in bf16, the
+    widths whose out_norm groups (4 and 12 channels) are not whole 16-byte
+    packs and whose out_conv2 (32 and 96 channels) is an odd multiple of
+    32, as the narrow bf16 kernels take them on the card: eps of a forward
+    on the port's plain path against JAX's bf16 ``ContextUnet`` (its
+    Pallas GroupNorm in interpret mode), within ``FACTOR`` x JAX's own
+    bf16-vs-fp32 distance on the same inputs (the module's gate)."""
+    model = JaxContextUnet.canonical(n_feat=n_feat, height=H, n_cfeat=NCFEAT["canonical"])
+    variables = _random_stats(jax.jit(model.init)(
+        jax.random.PRNGKey(n_feat), np.zeros((1, H, H, 1), np.float32),
+        np.array([0.5], np.float32)), n_feat)
+    folded = [fold_inference(model.clone(dtype=d, pallas_gn=True), variables)
+              for d in (BF16, jnp.float32)]
+    port = load_model(variables, "cpu", dtype=torch.bfloat16)
+    assert port.out_norm.weight.shape[0] == port.out_conv2.weight.shape[1] == n_feat
+    x, t, c = _model_inputs("canonical", seed=n_feat)
+    want = [m.apply(fv, x, t, c) for m, fv in folded]
+    with torch.no_grad():
+        got = port(torch.tensor(x), torch.tensor(t), torch.tensor(c))
+    assert got.dtype == torch.bfloat16 and want[0].dtype == jnp.bfloat16
+    gate(got, *want)
+
+
 def _z_chain(key, n_steps, shape):
     """``key, zkey, skey = split(key, 3)`` a step, ``z = normal(zkey)`` in
     x's dtype, fp32 (``tests/test_trajectory_parity.py:55-69``)."""

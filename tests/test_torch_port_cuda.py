@@ -34,6 +34,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     groupnorm_stats_plain,
     bf16_plan,
     launch_plan,
+    narrow_plan,
 )
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
@@ -195,9 +196,9 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
     together the whole map's step; ``launches_halo`` counted.  The kernels
     of their own at 128 channels (fp32: the halo kernel; bf16: the bf16
     kernel's halo mode); the float kernel's halo mode ("generic") where
-    they refuse the width (bf16: n_feat 32; fp32: 6000 channels on 8x8
-    maps, weights over the halo kernel's shared memory), counted also
-    under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
+    they refuse the width (bf16: 40 channels, not a multiple of 32; fp32:
+    6000 channels on 8x8 maps, weights over the halo kernel's shared
+    memory), counted also under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
     whole map); bf16 within four bf16 ulps of eps times the step's ``c_eps
     * inv_sqrt_a`` (the guidance combine's roundings), as ``chip_smoke.py``
     holds it, and with its own kernel equal to the unsharded bf16 kernel's
@@ -205,7 +206,7 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
     from camels_diffusion_model_tpu_torch.ops import sampler_step
 
     bf16 = dtype == torch.bfloat16
-    b, hw, c = (16, 64, 128) if kernel == "own" else (16, 64, 32) if bf16 else (1, 8, 6000)
+    b, hw, c = (16, 64, 128) if kernel == "own" else (16, 64, 40) if bf16 else (1, 8, 6000)
     h = _randn(dev, 2 * b if w else b, hw, hw, c).relu().to(dtype)
     weight = (_randn(dev, 1, c, 3, 3, seed=2) / (3 * c**0.5)).to(dtype)
     bias = _randn(dev, 1, seed=3).to(dtype)
@@ -584,28 +585,30 @@ def test_groupnorm_bf16_kernel_matches_plain(dev, shape, film, act):
     """K2's bf16 instance (bf16 I/O, fp32 statistics, affine and activation,
     one rounding; the FiLM epilogue in bf16) against its plain version at
     the heads' shapes, the big out_norm (1 MiB a group in bf16: resident,
-    no spill), and a shape no bf16 plan takes (3 channels a group: the
-    float kernel's bf16 instance, counted under both ``.launches_bf16``
-    and ``.launches_generic_bf16``).  The statistics sum in another order:
-    an output may round to the neighbouring bf16 value, and the epilogue's
-    two roundings may carry that on: atol 2 ulp of max |out|."""
+    no spill), and a shape the bf16 kernel's plan refuses (3 channels a
+    group: the narrow bf16 kernel, counted under both ``.launches_bf16``
+    and ``.launches_narrow_bf16``, and no launch of the float kernel's
+    instance).  The statistics sum in another order: an output may round
+    to the neighbouring bf16 value, and the epilogue's two roundings may
+    carry that on: atol 2 ulp of max |out|."""
     n, c = shape[0], shape[-1]
     x = (_randn(dev, *shape, seed=51) * 3 + 1).bfloat16()
     gamma, beta = _randn(dev, c, seed=52), _randn(dev, c, seed=53)
     rows = ((_randn(dev, n, c, seed=54).bfloat16(), _randn(dev, 1, c, seed=55).bfloat16())
             if film else None)
     args = (x, gamma, beta, 8, 1e-5, act, rows)
-    generic = c // 8 % 8 != 0  # no bf16 plan takes 3 channels a group
-    if generic:
+    narrow = c // 8 % 8 != 0  # the bf16 kernel's plan refuses 3 channels a group
+    if narrow:
         with pytest.raises(ValueError, match="multiple of 8"):
             bf16_plan(n, shape[1] * shape[2], c, 8)
+        narrow_plan(n, shape[1] * shape[2], c, 8)
     else:
         bf16_plan(n, shape[1] * shape[2], c, 8)  # every part held in shared memory
-    counts = ("launches", "launches_bf16", "launches_generic_bf16")
+    counts = ("launches", "launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
     before = [getattr(fused_groupnorm_act, k) for k in counts]
     got = fused_groupnorm_act(*args)
     assert [getattr(fused_groupnorm_act, k) for k in counts] == [
-        before[0], before[1] + 1, before[2] + generic]
+        before[0], before[1] + 1, before[2] + narrow, before[3]]
     want = groupnorm_act_plain(*args)
     _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
 
@@ -689,17 +692,19 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     assert (outs[0] - outs[1]).abs().max().item() <= 2 * yard
 
 
-@pytest.mark.parametrize("n_feat", [32, 128, 256])
+@pytest.mark.parametrize("n_feat", [32, 96, 128, 256])
 def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs, n_feat):
-    """A canonical bf16 model at n_feat 32 (32x32, folded): out_norm's 4
-    channels a group and out_conv2's 32 channels, which the bf16 kernels'
-    plans refuse, take the float kernels' bf16 instances; its forward and
-    four strided w=2 steps under injected z on the card against the CPU's
-    bf16, within phase (o)'s yardstick (``BF16_FACTOR`` x the CPU's bf16
-    distance from its fp32), each launch counted under ``.launches_bf16``
-    and the float kernels' instances under ``.launches_generic_bf16``.
-    At n_feat 128 and 256 the bf16 kernels take every shape: no generic
-    launch (256: the forward only, the CPU's bf16 is slow)."""
+    """A canonical bf16 model at n_feat 32 and 96 (32x32, folded):
+    out_norm's 4 and 12 channels a group take the narrow bf16 GroupNorm
+    kernel, out_conv2's 32 and 96 channels the bf16 step kernel's narrow
+    item; its forward and four strided w=2 steps under injected z on the
+    card against the CPU's bf16, within phase (o)'s yardstick
+    (``BF16_FACTOR`` x the CPU's bf16 distance from its fp32), each launch
+    counted under ``.launches_bf16``, the narrow ones also under
+    ``.launches_narrow_bf16``, and none of the float kernels' bf16
+    instances (``.launches_generic_bf16``).  At n_feat 128 and 256 the
+    bf16 kernels take every shape at their wide items: no narrow launch
+    (256: the forward only, the CPU's bf16 is slow)."""
     from camels_diffusion_model_tpu_torch.serving import load_model
     from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
 
@@ -715,18 +720,18 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
     t = torch.rand(2, generator=g)
     c = torch.rand(2, cpu16.n_cfeat, generator=g)
     kernels = (fused_head_step, fused_groupnorm_act, fused_film)
-    counts = ("launches", "launches_bf16", "launches_generic_bf16")
+    counts = ("launches", "launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
 
     def launched():
         return [tuple(getattr(k, n, 0) for n in counts) for k in kernels]
 
-    narrow = n_feat == 32
+    narrow = n_feat in (32, 96)
     before = launched()
     with torch.inference_mode():
         got = gpu16(x.to(dev), t.to(dev), c.to(dev)).cpu()
         want32, want = cpu32(x, t, c), cpu16(x, t, c)
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 0, 0), (0, 2, int(narrow)), (0, 1, 0)]
+        (0, 0, 0, 0), (0, 2, int(narrow), 0), (0, 1, 0, 0)]
     assert got.dtype == want.dtype == torch.bfloat16
     yard = (want.float() - want32).abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= bf16_factor * yard
@@ -740,7 +745,7 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
                         z_fn=lambda k, t: zs[k]).cpu()
             for m, d in ((gpu16, dev), (cpu16, "cpu"), (cpu32, "cpu"))]
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 4, 4 * narrow), (0, 8, 4 * narrow), (0, 4, 0)]
+        (0, 4, 4 * narrow, 0), (0, 8, 4 * narrow, 0), (0, 4, 0, 0)]
     yard = (outs[1] - outs[2]).abs().max().item()
     assert (outs[0] - outs[1]).abs().max().item() <= bf16_factor * yard
 
@@ -799,3 +804,193 @@ def test_groupnorm_bf16_kernel_every_plan(dev, monkeypatch, line, spread, shape,
     want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "gelu", rows)
     _assert_bf16_close(fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "gelu", rows), want,
                        2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+# ---- the narrow bf16 kernels: K2 where groups are not whole packs, K1 at
+# ---- 32-channel items (n_feat 32, 96 and 160) ------------------------------
+
+NARROW_FEATS = (32, 96, 160)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "leaky_relu"])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("n", [4, 32])
+@pytest.mark.parametrize("n_feat", NARROW_FEATS)
+def test_groupnorm_bf16_narrow_kernel_matches_plain(dev, n_feat, n, film, act):
+    """The narrow bf16 K2 at the out_norm of n_feat 32, 96 and 160 (4, 12
+    and 20 channels a group: packs straddle groups; 4, 6 and 5 packs a
+    unit's pixel) at 2 and 16 maps under CFG, every activation, with and
+    without the FiLM epilogue, against its plain version: 2 bf16 ulps of
+    max |out| (phase (c)'s gate), at most 1% of the elements differing;
+    counted under ``.launches_bf16`` and ``.launches_narrow_bf16``."""
+    x = (_randn(dev, n, 64, 64, n_feat, seed=91) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, n_feat, seed=92), _randn(dev, n_feat, seed=93)
+    rows = ((_randn(dev, n, n_feat, seed=94).bfloat16(),
+             _randn(dev, 1, n_feat, seed=95).bfloat16()) if film else None)
+    args = (x, gamma, beta, 8, 1e-5, act, rows)
+    counts = ("launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
+    before = [getattr(fused_groupnorm_act, k) for k in counts]
+    got = fused_groupnorm_act(*args)
+    assert [getattr(fused_groupnorm_act, k) - b for k, b in zip(counts, before)] == [1, 1, 0]
+    want = groupnorm_act_plain(*args)
+    _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("sector,spread,threads,part_min", [(16, 1, 256, 8192),
+                                                            (32, 66, 256, 8192),
+                                                            (64, 512, 512, 0), (128, 8, 128, 0)])
+@pytest.mark.parametrize("shape,film", [((32, 64, 64, 32), False), ((4, 64, 64, 96), True),
+                                        ((8, 32, 32, 160), False), ((3, 7, 7, 24), True),
+                                        ((2, 9, 9, 16), False), ((2, 16, 16, 40), True),
+                                        ((5, 8, 8, 56), False)])
+def test_groupnorm_bf16_narrow_kernel_every_plan(dev, monkeypatch, sector, spread, threads,
+                                                  part_min, shape, film):
+    """The narrow bf16 K2 under units of the fewest whole packs to 8 groups
+    (``NARROW_SECTOR``), clusters of 1 to 8 (``NARROW_SPREAD``,
+    ``BF16_PART_MIN``: 4 to 16 packs a thread, ragged parts of a few
+    pixels at 7x7 and 9x9) and CTAs of 32 to 512 threads
+    (``NARROW_THREADS``), at 2 to 20 channels a group (1 to 20
+    packs a unit's pixel), against its plain version (GELU): phase (c)'s
+    gate, 2 bf16 ulps and at most 1% of the elements differing."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    monkeypatch.setattr(groupnorm, "NARROW_SECTOR", sector)
+    monkeypatch.setattr(groupnorm, "NARROW_SPREAD", spread)
+    monkeypatch.setattr(groupnorm, "NARROW_THREADS", threads)
+    monkeypatch.setattr(groupnorm, "BF16_PART_MIN", part_min)
+    n, c = shape[0], shape[-1]
+    assert groupnorm.single_route(n, shape[1] * shape[2], c, 8, torch.bfloat16)[0] == (
+        groupnorm.BF16_NARROW_NAME)
+    x = (_randn(dev, *shape, seed=96) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, c, seed=97), _randn(dev, c, seed=98)
+    rows = ((_randn(dev, n, c, seed=99).bfloat16(), _randn(dev, 1, c, seed=100).bfloat16())
+            if film else None)
+    want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "gelu", rows)
+    _assert_bf16_close(fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "gelu", rows), want,
+                       2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+def test_bf16_generic_instances_take_only_the_shapes_the_kernels_refuse(dev, fp32_convs):
+    """The float kernels' bf16 instances still take what both bf16 kernels
+    refuse, chosen before the launch: K2 on unaligned bf16 maps of 4 and
+    12 channels a group (n_feat 96's out_norm at 16 maps: a slice of
+    exactly 48 KiB, which needs the shared-memory opt-in with the kernel's
+    static arrays), K1 at 40 channels (not a multiple of 32); each against
+    its plain version under phase (c)'s gates, counted under
+    ``.launches_generic_bf16`` and not ``.launches_narrow_bf16``."""
+    for n, c in ((4, 32), (32, 96)):
+        buf = (_randn(dev, n * 64 * 64 * c + 1, seed=101) * 3 + 1).bfloat16()
+        x = buf[1:].view(n, 64, 64, c)  # 2 bytes off a 16-byte boundary
+        gamma, beta = _randn(dev, c, seed=102), _randn(dev, c, seed=103)
+        before = (fused_groupnorm_act.launches_narrow_bf16,
+                  fused_groupnorm_act.launches_generic_bf16)
+        got = fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "relu")
+        assert (fused_groupnorm_act.launches_narrow_bf16,
+                fused_groupnorm_act.launches_generic_bf16) == (before[0], before[1] + 1)
+        want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "relu")
+        _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
+    assert launch_plan(32, 64 * 64, 96, 8, False, 2).smem_bytes == 48 * 1024
+    b, c = 4, 40
+    h = _randn(dev, 2 * b, 64, 64, c, seed=104).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=105) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=106).bfloat16()
+    x1, z = _randn(dev, b, 64, 64, 1, seed=107), _randn(dev, b, 64, 64, 1, seed=108)
+    args = (h, weight, bias, x1, z, 0.02, 1.01, 0.3, 2.0)
+    before = (fused_head_step.launches_narrow_bf16, fused_head_step.launches_generic_bf16)
+    got = fused_head_step(*args)
+    assert (fused_head_step.launches_narrow_bf16,
+            fused_head_step.launches_generic_bf16) == (before[0], before[1] + 1)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), 2.0).float()
+    _assert_bf16_close(got, head_step_plain(*args),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("b", [2, 16])
+@pytest.mark.parametrize("c", NARROW_FEATS)
+def test_head_step_bf16_narrow_kernel_matches_plain(dev, fp32_convs, c, b, w, tanh):
+    """K1's bf16 kernel at its narrow item (32 pixels x 32 channels) on
+    out_norm's features of n_feat 32, 96 and 160 at 2 and 16 maps, under
+    CFG (scalar and per-sample w) and without, with and without the tanh:
+    ``test_head_step_bf16_kernel_at_the_path_shapes``'s gate (4 bf16 ulps
+    of eps times c_eps / sqrt(a), the step's FMAs on all but 1%); counted
+    under ``.launches_bf16`` and ``.launches_narrow_bf16``."""
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, 64, 64, c, seed=111).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=112) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=113).bfloat16()
+    x, z = _randn(dev, b, 64, 64, 1, seed=114), _randn(dev, b, 64, 64, 1, seed=115)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    counts = ("launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
+    before = [getattr(fused_head_step, k) for k in counts]
+    got = fused_head_step(*args, tanh=tanh)
+    assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [1, 1, 0]
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w, tanh).float()
+    _assert_bf16_close(got, head_step_plain(*args, tanh=tanh),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("rows", [8, 4, 2, 1])
+@pytest.mark.parametrize("shape,w", [((3, 12, 12, 32), 2.0), ((2, 16, 16, 96), None),
+                                     ((2, 9, 8, 160), "per-sample")])
+def test_head_step_bf16_narrow_kernel_every_band(dev, fp32_convs, monkeypatch, rows, shape, w):
+    """The narrow item at every band height of ``ROWS_BF16`` (ragged last
+    bands at heights 12 and 9, a last item of fewer than 32 band pixels),
+    one to five channel blocks an item: the same gate."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "ROWS_BF16", (rows,))
+    b, height, width, c = shape
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, height, width, c, seed=121).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=122) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=123).bfloat16()
+    x, z = (_randn(dev, b, height, width, 1, seed=124),
+            _randn(dev, b, height, width, 1, seed=125))
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    plan = sampler_step.bf16_plan(b, height, width, c, cfg=cfg)
+    assert (plan.rows, plan.block) == (rows, sampler_step.BF16_NARROW_BLOCK)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w).float()
+    _assert_bf16_close(fused_head_step(*args), head_step_plain(*args),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("w", [None, 2.0])
+@pytest.mark.parametrize("c", NARROW_FEATS)
+def test_head_step_narrow_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c, w):
+    """The narrow item's halo mode on two height shards of 16 maps'
+    features of n_feat 32, 96 and 160: each shard against its plain
+    version (phase (r1)'s gate), and the two shards' steps equal to the
+    unsharded narrow launch's step on the whole map bit for bit (each
+    pixel's partials are the same products summed in the same order);
+    counted under ``.launches_halo_bf16`` and
+    ``.launches_halo_narrow_bf16``, none under the generic halo count."""
+    b, hw = 16, 64
+    h = _randn(dev, 2 * b if w else b, hw, hw, c, seed=131).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=132) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=133).bfloat16()
+    x, z = _randn(dev, b, hw, hw, 1, seed=134), _randn(dev, b, hw, hw, 1, seed=135)
+    whole = fused_head_step(h, weight, bias, x, z, 0.3, 1.1, 0.2, w)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    tol = 4 * 0.33 * _bf16_ulp(eps.abs().max().item())
+    counts = ("launches_halo_bf16", "launches_halo_narrow_bf16", "launches_halo_generic_bf16")
+    before = [getattr(fused_head_step, k) for k in counts]
+    half, outs = hw // 2, []
+    for top, sl, bottom in ((None, slice(0, half), h[:, half]),
+                            (h[:, half - 1], slice(half, hw), None)):
+        args = (h[:, sl].contiguous(), weight, bias, x[:, sl].contiguous(),
+                z[:, sl].contiguous(), 0.3, 1.1, 0.2, w)
+        got = fused_head_step(*args, halo=(top, bottom))
+        torch.testing.assert_close(got, head_step_plain(*args, halo=(top, bottom)),
+                                   atol=tol, rtol=0)
+        outs.append(got)
+    assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [2, 2, 0]
+    assert torch.equal(torch.cat(outs, 1), whole)

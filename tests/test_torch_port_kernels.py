@@ -479,6 +479,10 @@ HEAD_BF16_SHAPES = {  # (units, height, width, c, cfg): the shapes the bf16 path
     "exact chain": (4, 64, 64, 128, False), "deep": (10, 128, 128, 128, False),
     "big": (10, 128, 128, 256, False), "deep cfg": (10, 128, 128, 128, True),
     "big cfg": (10, 128, 128, 256, True), "one pair": (1, 64, 64, 128, True),
+    # the narrow item: n_feat 32, 96 and 160 (c an odd multiple of 32)
+    "n_feat 32 serve w=2": (16, 64, 64, 32, True), "n_feat 32 2 maps": (2, 64, 64, 32, True),
+    "n_feat 96 serve w=2": (16, 64, 64, 96, True), "n_feat 160 serve w=2": (16, 64, 64, 160, True),
+    "n_feat 32 exact chain": (4, 64, 64, 32, False),
 }
 
 
@@ -491,25 +495,30 @@ def test_head_bf16_plan_at_the_path_shapes(shape):
     claims; shared memory (weights, the warps' rings, partials) fits in
     227 KB; the band is the shortest whose grid is one wave of two CTAs an
     SM; and the strides keep their bank patterns.  At the w=2
-    serving shape: bands of 4 rows, 256 CTAs."""
+    serving shape: bands of 4 rows, 256 CTAs.  Where ``c`` is an odd
+    multiple of 32 (n_feat 32, 96, 160) the narrow item, 32 pixels x 32
+    channels; else 16 pixels x 64: 2 KiB either way, ``BF16_RING``
+    slots."""
     units, height, width, c, cfg = HEAD_BF16_SHAPES[shape]
     ops = sampler_step_ops
     plan = ops.bf16_plan(units, height, width, c, cfg=cfg, sms=132)
     m = (2 if cfg else 1) * (plan.rows + 2) * width
     warps = plan.threads // 32
-    ring = 2 * warps * ops.BF16_TILE * ops.BF16_BLOCK  # bytes a ring slot takes, all warps
+    assert plan.block == (ops.BF16_BLOCK if c % 64 == 0 else ops.BF16_NARROW_BLOCK)
+    item_px = ops.BF16_TILE * ops.BF16_BLOCK // plan.block  # an item's pixels: 16 or 32
+    ring = 2 * warps * item_px * plan.block  # bytes a ring slot takes, all warps
     assert plan.smem_bytes == (2 * 16 * ops.weight_stride(c) + ops.BF16_RING * ring
                                + 4 * 9 * ops.partial_stride(m))
     assert plan.smem_bytes <= 227 * 1024
     fit = [r for r in sorted(ops.ROWS_BF16)
            if units * -(-height // r) <= ops.BF16_PER_SM * 132]
     assert plan.rows == (fit[0] if fit else max(ops.ROWS_BF16))  # one wave of 2 an SM
-    assert 32 * 4 == ops.BF16_TILE * ops.BF16_BLOCK // 8  # an item: 4 copies a lane
+    assert 32 * 4 == item_px * plan.block // 8  # an item: 4 copies a lane
     assert ops.partial_stride(m) % 32 == 4 and ops.partial_stride(m) >= -(-m // 16) * 16
     assert ops.weight_stride(c) // 8 % 8 == 4
-    if shape == "serve w=2":
+    if shape in ("serve w=2", "n_feat 32 serve w=2"):
         assert (plan.rows, plan.ctas) == (4, 256)
-    tiles = -(-m // ops.BF16_TILE)
+    tiles = -(-m // item_px)  # of an item's pixels
     owned = sorted(t for w in range(warps) for t in range(w, tiles, warps))
     assert owned == list(range(tiles))
     written = np.zeros((units, height, width), np.int64)
@@ -545,9 +554,69 @@ def test_head_bf16_staged_chunks_hit_eight_bank_groups():
                 assert len(got) == 8
 
 
+@pytest.mark.parametrize("c", [32, 96, 160])
+def test_head_bf16_narrow_item_hits_eight_bank_groups(c):
+    """The narrow item (32 pixels x 32 channels, 64 bytes a pixel, no
+    swizzle): one quarter warp's copies (lanes 8 q .. 8 q + 7: chunk l & 3
+    of pixels l / 4 + 8 i, two pixels' 64 contiguous bytes) and its
+    A-fragment reads (lanes (g, t), g = 2 q + {0, 1}: chunk t of rows g,
+    g + 8, g + 16 and g + 24) each hit 8 distinct bank groups; so do its
+    B-fragment reads of
+    the weights (taps g and g + 1, chunk t of a 32-channel block), whose
+    rows are ``weight_stride(c)`` apart: 4 mod 8 slots at c = 32, 96 and
+    160, where the wide item's ``c + 32`` would be 0 mod 8."""
+    def slot(pp, q):  # the item's pixel pp, chunk q: 16-byte slots from the item's start
+        return (pp * 4 + q) % 8
+
+    stride = sampler_step_ops.weight_stride(c)
+    assert stride // 8 % 8 == 4 and stride >= c and (c + 32) // 8 % 8 == 0
+    for quarter in range(4):
+        lanes = range(8 * quarter, 8 * quarter + 8)
+        for i in range(4):  # the copies: pixel l / 4 + 8 i, chunk l & 3
+            assert len({slot(l // 4 + 8 * i, l & 3) for l in lanes}) == 8
+        for rows in (0, 8, 16, 24):  # the reads: rows g (+ 8, 16, 24), chunk t
+            assert len({slot(l // 4 + rows, l & 3) for l in lanes}) == 8
+        for blk in range(c // 32):  # the weights: tap g, chunk t of block blk
+            assert len({((l // 4) * stride // 8 + 4 * blk + (l & 3)) % 8 for l in lanes}) == 8
+
+
+@pytest.mark.parametrize("c", [32, 96, 160])
+@pytest.mark.parametrize("maps", [2, 16])
+def test_head_narrow_halo_shards_cover_the_map_once(c, maps):
+    """Two height shards of a narrow bf16 model's w=2 features (n_feat 32,
+    96, 160; the narrow item's plan for the shard): their bands' staged
+    pixels (from ``h``, the halo rows or zero, ``band_source``'s
+    arithmetic) are the padded whole map's rows each band needs, and the
+    two shards' bands write every output pixel of the whole map once; the
+    plan's shared memory fits two CTAs an SM."""
+    ops = sampler_step_ops
+    units, height, width = maps, 64, 64
+    half = height // 2
+    plan = ops.bf16_plan(units, half, width, c, cfg=True)
+    assert plan.block == ops.BF16_NARROW_BLOCK
+    assert 2 * (plan.smem_bytes + 1024) <= ops.SM_SMEM
+    cw = 8  # the map's arithmetic at a narrow width
+    rs = np.random.RandomState(c + maps)
+    h = rs.randn(2 * units, height, width, cw).astype(np.float32) + 5
+    padded = np.concatenate([np.zeros_like(h[:, :1]), h, np.zeros_like(h[:, :1])], axis=1)
+    written = np.zeros((units, height, width), np.int64)
+    for shard, (top, rows, bottom) in enumerate(((None, slice(0, half), h[:, half]),
+                                                 (h[:, half - 1], slice(half, height), None))):
+        hs = np.ascontiguousarray(h[:, rows])
+        for (where, off, sample, gy, gx, real), (unit, oy, ox) in _band_sources(
+                plan, units, half, width, cw, True, True, 2 * ops.BF16_TILE):
+            np.add.at(written, (unit, oy + shard * half, ox), 1)
+            got = _staged(where, off, hs, top, bottom)
+            keep = real & (gy >= -1) & (gy <= half)
+            gy_whole = np.clip(gy + shard * half + 1, 0, height + 1)
+            want = np.where(keep[:, None], padded[sample, gy_whole, gx], 0)
+            np.testing.assert_array_equal(got, want)
+    assert (written == 1).all()
+
+
 @pytest.mark.parametrize("kwargs,match", [
     ({"cout": 2}, "one output channel"),
-    ({"c": 96}, "channels % 64"),
+    ({"c": 40}, "channels % 32"),
     ({"aligned": False}, "aligned"),
     ({"width": 4096}, "takes no path"),
 ])
@@ -621,7 +690,7 @@ def _round_bf16(v):
 
 @pytest.mark.parametrize("rows", [None, 1, 2, 8])
 @pytest.mark.parametrize("w,tanh", [(None, False), (2.0, False), ("per-sample", True)])
-@pytest.mark.parametrize("hw,c", [(12, 64), (8, 128)])
+@pytest.mark.parametrize("hw,c", [(12, 64), (8, 128), (12, 32), (8, 96)])
 def test_head_bf16_decomposition_matches_plain(monkeypatch, rows, w, tanh, hw, c):
     """The bf16 kernel's decomposition, emulated on the CPU (a matmul of
     each band's staged pixels to 9 tap partials through the MMA fragments'
@@ -763,6 +832,7 @@ def test_head_halo_routes_pick_the_kernels_of_their_own():
     :func:`halo_plan` (channels a multiple of 4), else (weights too wide
     for its shared memory) the float kernel's halo mode; bf16 at channels
     a multiple of 64 the bf16 kernel's halo mode under :func:`bf16_plan`,
+    at odd multiples of 32 its narrow item's halo mode under the same plan,
     else the float kernel's bf16 halo mode, each under :func:`launch_plan`;
     without ``halo`` the routes are unchanged."""
     ops = sampler_step_ops
@@ -772,6 +842,9 @@ def test_head_halo_routes_pick_the_kernels_of_their_own():
         assert ops.route(*args, f32, halo=True) == (ops.HALO_NAMES[f32], ops.halo_plan(*args))
         if c % 64 == 0:
             assert ops.route(*args, bf, halo=True) == (ops.HALO_NAMES[bf], ops.bf16_plan(*args))
+        elif c % 32 == 0:
+            assert ops.route(*args, bf, halo=True) == (ops.HALO_NARROW_NAME,
+                                                       ops.bf16_plan(*args))
         elif c % 8 == 0:
             assert ops.route(*args, bf, halo=True) == (
                 ops.HALO_GENERIC_NAMES[bf], ops.launch_plan(*args, element_bytes=2))
@@ -1103,6 +1176,221 @@ def test_groupnorm_bf16_chan_merge_gives_the_plain_statistics(monkeypatch, sprea
                 assert abs(mean - want_mean[b, g]) <= 1e-6 * (abs(want_mean[b, g]) + 1)
                 assert abs(var - want_var[b, g]) <= 1e-5 * want_var[b, g]
 
+# ---- K2 bf16 where groups are not whole packs: the narrow kernel ---------------
+
+NARROW_SHAPES = {  # (n, hw, c): out_norm of the narrow widths, and small ragged maps
+    "n_feat 32 16 maps": (32, 64 * 64, 32), "n_feat 32 2 maps": (4, 64 * 64, 32),
+    "n_feat 96 16 maps": (32, 64 * 64, 96), "n_feat 160 16 maps": (32, 64 * 64, 160),
+    "n_feat 96 2 maps": (4, 64 * 64, 96), "n_feat 160 2 maps": (4, 64 * 64, 160),
+    "3 channels a group": (2, 5 * 7, 24), "3 channels a group, 7x7": (3, 7 * 7, 24),
+    "n_feat 16 (2 a group)": (2, 9 * 9, 16), "n_feat 40 (5 a group)": (2, 16 * 16, 40),
+    "n_feat 56 (7 a group)": (5, 8 * 8, 56),
+}
+NARROW_PATH_PLANS = {  # (seg, cluster, threads, packs, part_px) at the path's widths
+    "n_feat 32 16 maps": (4, 2, 256, 16, 2048), "n_feat 32 2 maps": (4, 8, 256, 4, 512),
+    "n_feat 96 16 maps": (4, 8, 192, 16, 512), "n_feat 160 16 maps": (4, 8, 480, 16, 512),
+    "3 channels a group": (8, 1, 192, 4, 35),
+}
+
+
+def _narrow_map(plan, hw, cg):
+    """The narrow kernel's index map of one unit (``plan.seg`` groups of
+    ``cg`` channels) under ``plan``: per (rank, thread) its pack j = t % vs,
+    its pixels t / vs + k * (threads / vs) (k < packs) inside its part, and
+    the unit's 8 channels it holds."""
+    vs = plan.seg * cg // 8
+    step = plan.threads // vs
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        p1 = min(hw, p0 + plan.part_px)
+        for t in range(plan.threads):
+            pix = p0 + t // vs + step * np.arange(plan.packs)
+            yield rank, t, pix[pix < p1], (t % vs) * 8 + np.arange(8)
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES, ids=list(NARROW_SHAPES))
+def test_groupnorm_narrow_plan_covers_every_pixel_channel_and_group_once(shape):
+    """The narrow bf16 K2's plan: a unit is the fewest groups whose slice of
+    a pixel is whole 16-byte packs, widened until it is whole
+    ``NARROW_SECTOR``-byte sectors where the groups allow (n_feat 32: 4
+    groups, 32 bytes; 96: 4 of 12, 6 packs; 160: 4 of 20, 10 packs); the
+    block is whole warps and whole pixels of the unit, ``NARROW_THREADS``
+    where a cluster of at most 8 then fits, at most 512; the cluster is the
+    smallest whose parts fit 16 packs a thread, doubled only while the
+    grid is short of ``NARROW_SPREAD`` CTAs and a part keeps
+    ``BF16_PART_MIN`` bytes; every (pixel, channel) of a unit is read
+    once by the ranks' parts and the threads' packs; every group's
+    channels once across the packs that straddle it (a pack's 8 channels
+    split over up to 4 groups at 3 channels a group); each warp's lanes 0
+    .. vs - 1 hold every pack once, and the shuffle tree (lanes vs, 2 vs,
+    4 vs, ... apart) gives each of them every lane of its pack once."""
+    n, hw, c = NARROW_SHAPES[shape]
+    ops = groupnorm_ops
+    plan = ops.narrow_plan(n, hw, c, 8)
+    cg = c // 8
+    uc = plan.seg * cg
+    vs = uc // 8
+    assert uc % 8 == 0 and cg % 8 and 8 % plan.seg == 0 and uc <= 256
+    seg0 = 8 // math.gcd(cg, 8)
+    sector = ops.NARROW_SECTOR
+    assert plan.seg == seg0 or plan.seg // 2 * cg * 2 % sector  # widened to whole sectors
+    assert plan.seg == 8 or plan.seg * cg * 2 % sector == 0 or 2 * plan.seg * cg > 256
+    assert plan.threads % 32 == 0 and plan.threads % vs == 0 and plan.threads <= 512
+    assert plan.packs in ops.NARROW_PACKS
+    assert plan.part_px * plan.cluster >= hw > plan.part_px * (plan.cluster - 1)
+    part_bytes = plan.part_px * uc * 2
+    spread = plan.cluster // 2 * plan.ctas(n, 8) // plan.cluster < ops.NARROW_SPREAD
+    fits_half = plan.cluster > 1 and -(-hw // (plan.cluster // 2)) <= 16 * (plan.threads // vs)
+    assert not fits_half or spread  # the smallest cluster that fits, but to spread
+    grows = (plan.cluster < 8 and plan.cluster < hw and plan.ctas(n, 8) < ops.NARROW_SPREAD
+             and part_bytes // 2 >= ops.BF16_PART_MIN)
+    assert not grows
+    if shape in NARROW_PATH_PLANS:
+        assert tuple(plan) == NARROW_PATH_PLANS[shape]
+    counts = np.zeros((hw, uc), np.int64)
+    group_elems = np.zeros(plan.seg, np.int64)
+    for _, _, pix, chans in _narrow_map(plan, hw, cg):
+        counts[np.ix_(pix, chans)] += 1
+        np.add.at(group_elems, chans // cg, len(pix))  # the channel -> group map
+    assert (counts == 1).all()
+    assert (group_elems == hw * cg).all()  # each group's channels, each pixel once
+    packs_per_group = [len({ch // 8 for ch in range(g * cg, (g + 1) * cg)})
+                       for g in range(plan.seg)]
+    assert max(packs_per_group) <= -(-cg // 8) + 1
+    for w in range(plan.threads // 32):
+        lane = np.arange(32)
+        j = (32 * w + lane) % vs
+        assert sorted(j[:vs]) == list(range(vs))  # lanes 0 .. vs - 1: every pack once
+        held = [{l} for l in range(32)]
+        s = 1
+        while s * vs < 32:
+            off = s * vs
+            for l in range(32):
+                if (l // vs) % (2 * s) == 0 and l + off < 32:
+                    held[l] |= held[l + off]
+            s *= 2
+        for l in range(vs):
+            assert held[l] == {m for m in range(32) if j[m] == j[l]}
+
+
+def _narrow_kernel_statistics(x_unit, plan, cg):
+    """(mean, var) of each group of one unit ``(hw, seg * cg)`` float32 as
+    the narrow bf16 kernel takes them: each thread's 8 channels, their
+    mean over its pixels then the sums of squares about it; the warps'
+    shuffle trees over the lanes of a pack (lanes vs, 2 vs, ... apart,
+    lower lane first, Chan's formula); the block's warps in order, a
+    channel at a time; a group from its channels (equal counts: the mean
+    of their means, their sums of squares plus the spread of their means);
+    the cluster's CTAs in rank order."""
+    f32 = np.float32
+    hw = x_unit.shape[0]
+    vs = plan.seg * cg // 8
+    step, warps = plan.threads // vs, plan.threads // 32
+    total = None
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        npx = min(hw, p0 + plan.part_px) - p0
+        t = np.arange(plan.threads)
+        j, first = t % vs, t // vs
+        cnt = np.zeros(plan.threads, f32)
+        mean = np.zeros((plan.threads, 8), f32)
+        m2 = np.zeros((plan.threads, 8), f32)
+        vals = []
+        for k in range(plan.packs):
+            p = first + k * step
+            ok = p < npx
+            v = x_unit[p0 + np.minimum(p, max(npx - 1, 0)), :].reshape(hw and -1, 8 * vs)
+            v = np.stack([v[i, 8 * j[i]:8 * j[i] + 8] for i in range(plan.threads)])
+            vals.append((ok, v.astype(f32)))
+            cnt += ok
+            mean = np.where(ok[:, None], (mean + v).astype(f32), mean)
+        inv = np.where(cnt > 0, f32(1) / np.maximum(cnt, 1), f32(0)).astype(f32)
+        mean = (mean * inv[:, None]).astype(f32)
+        for ok, v in vals:
+            d = (v - mean).astype(f32)
+            m2 = np.where(ok[:, None], (m2 + d * d).astype(f32), m2)
+        warp_slots = {}
+        for w in range(warps):
+            c_, mu, q = (cnt[32 * w:32 * w + 32].copy(), mean[32 * w:32 * w + 32].copy(),
+                         m2[32 * w:32 * w + 32].copy())
+            s = 1
+            while s * vs < 32:
+                off = s * vs
+                c0, mu0, q0 = c_.copy(), mu.copy(), q.copy()
+                for l in range(32):
+                    if (l // vs) % (2 * s) == 0 and l + off < 32 and c0[l + off] > 0:
+                        tot = f32(c0[l] + c0[l + off])
+                        f = f32(c0[l + off] / tot)
+                        d = (mu0[l + off] - mu0[l]).astype(f32)
+                        mu[l] = (mu0[l] + d * f).astype(f32)
+                        q[l] = (q0[l] + q0[l + off] + d * d * f32(c0[l] * f)).astype(f32)
+                        c_[l] = tot
+                s *= 2
+            for l in range(vs):
+                warp_slots[w, (32 * w + l) % vs] = (c_[l], mu[l], q[l])
+        chan = []
+        for ch in range(8 * vs):
+            b = (f32(0), f32(0), f32(0))
+            for w in range(warps):
+                cw_, mw, qw = warp_slots[w, ch // 8]
+                b = _merge(b, (cw_, mw[ch % 8], qw[ch % 8]))
+            chan.append(b)
+        block = []
+        for g in range(plan.seg):
+            cm = [chan[g * cg + k][1] for k in range(cg)]
+            cq = [chan[g * cg + k][2] for k in range(cg)]
+            gm = f32(f32(sum(cm, f32(0))) / f32(cg))
+            spread = sum((f32(m - gm) * f32(m - gm) for m in cm), f32(0))
+            block.append((f32(npx * cg), gm, f32(sum(cq, f32(0)) + f32(npx) * spread)))
+        total = block if total is None else [_merge(a, b) for a, b in zip(total, block)]
+    return [(f32(t[1]), f32(f32(t[2]) / f32(t[0]))) for t in total]
+
+
+@pytest.mark.parametrize("offset", [0.0, 100.0])
+@pytest.mark.parametrize("shape", ["3 channels a group", "n_feat 16 (2 a group)",
+                                   "n_feat 40 (5 a group)", "n_feat 56 (7 a group)",
+                                   "n_feat 32, 4 a group", "n_feat 96, 12 a group",
+                                   "n_feat 160, 20 a group"])
+def test_groupnorm_narrow_merge_gives_the_plain_statistics(shape, offset):
+    """The narrow kernel's statistics in its merge order, in float32 (each
+    thread's per-channel moments, the warps' shuffle trees, the block's
+    warps, its groups from their channels, the cluster's ranks: 1 to 8
+    here), against the plain version's (the mean, then the centred
+    variance) in float64: the mean within 1e-6 of its scale and the
+    variance within 1e-5, also for maps far from zero (offset 100), at 2
+    to 20 channels a group, whose packs straddle groups."""
+    n, hw, c = {"n_feat 32, 4 a group": (2, 24 * 24, 32), "n_feat 96, 12 a group": (1, 20 * 20, 96),
+                "n_feat 160, 20 a group": (1, 16 * 16, 160)}.get(shape) or NARROW_SHAPES[shape]
+    rs = np.random.RandomState(c + int(offset))
+    x = (rs.randn(n, hw, c) * 2 + offset).astype(np.float32)
+    x = torch.tensor(x).bfloat16().float().numpy()  # the bf16 values the kernel reads
+    plan = groupnorm_ops.narrow_plan(n, hw, c, 8)
+    cg = c // 8
+    xg = x.reshape(n, hw, 8, cg).astype(np.float64)
+    want_mean = xg.mean(axis=(1, 3))
+    want_var = ((xg - want_mean[:, None, :, None]) ** 2).mean(axis=(1, 3))
+    for b in range(n):
+        for s0 in range(0, 8, plan.seg):
+            unit = x[b, :, s0 * cg:(s0 + plan.seg) * cg]
+            for gl, (mean, var) in enumerate(_narrow_kernel_statistics(unit, plan, cg)):
+                g = s0 + gl
+                assert abs(mean - want_mean[b, g]) <= 1e-6 * (abs(want_mean[b, g]) + 1)
+                assert abs(var - want_var[b, g]) <= 1e-5 * want_var[b, g]
+
+
+@pytest.mark.parametrize("shape,aligned", [((4, 64, 32), False), ((4, 64, 128), True),
+                                           ((4, 64, 8 * 33), True), ((4, 64, 8 * 31), True),
+                                           ((4, 64, 30), True)])
+def test_groupnorm_narrow_plan_raises_on_shapes_it_does_not_take(shape, aligned):
+    """An unaligned tensor, channels a group a multiple of 8
+    (:func:`bf16_plan`'s shapes), a unit of whole packs over 256 channels
+    (33 a group), one whose packs a pixel leave no whole warp of pixels
+    within 512 threads (31 a group: 31 packs), or channels that do not
+    split into the groups."""
+    with pytest.raises(ValueError):
+        groupnorm_ops.narrow_plan(*shape, 8, aligned)
+
+
 # ---- K2's sharded launches: statistics and apply -------------------------------
 
 SHARDED_SHAPES = {  # (n, hw, c, element bytes, aligned): phase (r1)'s shards and more
@@ -1378,20 +1666,23 @@ def test_narrow_model_shapes_are_the_models():
 
 @pytest.mark.parametrize("n_feat", [32, 96, 128, 160, 256])
 def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
-    """The repair of narrow bf16 widths: where the bf16 kernels' plans
-    refuse a bf16 model's K1 or K2 shape (out_conv2's channels not a
-    multiple of 64; out_norm's channels a group not a multiple of 8, at
-    n_feat 32, 96 and 160), the route is the float kernel's bf16 instance
-    under its float plan (in the halo mode too); n_feat 128 and 256 keep
-    the bf16 kernels, as do the up0_norm heads (8 to 64 channels a group).
-    fp32 always takes the float kernels."""
+    """The routes of narrow bf16 widths: where a bf16 model's out_norm has
+    channels a group not a multiple of 8 and its out_conv2 an odd multiple
+    of 32 channels (n_feat 32, 96 and 160), K2 takes the narrow bf16
+    kernel under :func:`narrow_plan` and K1 the bf16 kernel's narrow item
+    under :func:`bf16_plan` (in the halo mode too); n_feat 128 and 256
+    keep the bf16 kernels at their wide items, as do the up0_norm heads (8
+    to 64 channels a group).  fp32 always takes the float kernels.  The
+    float kernels' bf16 instances are reached only by the shapes both
+    refuse: unaligned pointers, and for K1 channels not a multiple of 32
+    (24, 40)."""
     bf = torch.bfloat16
     shapes = _narrow_model_shapes(n_feat)
     narrow = n_feat in (32, 96, 160)
     name, plan = groupnorm_ops.single_route(*shapes["out_norm"], 8, bf)
     if narrow:
-        assert name == groupnorm_ops.BF16_GENERIC_NAME
-        assert plan == groupnorm_ops.launch_plan(*shapes["out_norm"], 8, True, 2)
+        assert (name, plan) == (groupnorm_ops.BF16_NARROW_NAME,
+                                groupnorm_ops.narrow_plan(*shapes["out_norm"], 8))
         with pytest.raises(ValueError):
             groupnorm_ops.bf16_plan(*shapes["out_norm"], 8)
     else:
@@ -1401,17 +1692,27 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     for head in ("up0_norm", "out_norm"):
         assert groupnorm_ops.single_route(*shapes[head], 8, torch.float32) == (
             groupnorm_ops.C_NAME, groupnorm_ops.launch_plan(*shapes[head], 8))
+        assert groupnorm_ops.single_route(*shapes[head], 8, bf, aligned=False) == (
+            groupnorm_ops.BF16_GENERIC_NAME,
+            groupnorm_ops.launch_plan(*shapes[head], 8, False, 2))
     name, plan = sampler_step_ops.route(*shapes["head_step"], bf)
-    if narrow:
-        assert name == sampler_step_ops.BF16_GENERIC_NAME
-        assert plan == sampler_step_ops.launch_plan(*shapes["head_step"], element_bytes=2)
-    else:
-        assert (name, plan) == (sampler_step_ops.BF16_NAME,
-                                sampler_step_ops.bf16_plan(*shapes["head_step"]))
+    assert (name, plan) == (
+        sampler_step_ops.BF16_NARROW_NAME if narrow else sampler_step_ops.BF16_NAME,
+        sampler_step_ops.bf16_plan(*shapes["head_step"]))
+    assert plan.block == (sampler_step_ops.BF16_NARROW_BLOCK if narrow
+                          else sampler_step_ops.BF16_BLOCK)
     assert sampler_step_ops.route(*shapes["head_step"], torch.float32)[0] == (
         sampler_step_ops.C_NAME)
     assert sampler_step_ops.route(*shapes["head_step"], bf, halo=True)[0] == (
-        sampler_step_ops.HALO_GENERIC_NAMES[bf] if narrow else sampler_step_ops.HALO_NAMES[bf])
+        sampler_step_ops.HALO_NARROW_NAME if narrow else sampler_step_ops.HALO_NAMES[bf])
+    units, height, width, _ = shapes["head_step"]
+    for c in (24, 40):  # widths no bf16 kernel's item divides
+        for halo in (False, True):
+            name, plan = sampler_step_ops.route(units, height, width, c, bf, halo=halo)
+            assert name == (sampler_step_ops.HALO_GENERIC_NAMES[bf] if halo
+                            else sampler_step_ops.BF16_GENERIC_NAME)
+            assert plan == sampler_step_ops.launch_plan(units, height, width, c,
+                                                        element_bytes=2)
 
 
 def test_bf16_routes_raise_where_no_kernel_takes_the_shape():

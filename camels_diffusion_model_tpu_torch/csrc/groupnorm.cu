@@ -49,15 +49,17 @@
 // as context_unet.py:300-307 does: scale * y rounded, + shift rounded
 // (rows of T).  Shared memory holds the slice as T, exact.  The template
 // serves the float single launch, and the bf16 single launch only at the
-// shapes neither bf16 kernel below takes (ops/groupnorm.py::single_route:
-// an unaligned pointer, or a unit of whole packs over 256 channels, as 33
-// channels a group give).  groupnorm_bf16_kernel takes groups of whole
+// shapes no bf16 kernel below takes (ops/groupnorm.py::single_route: an
+// unaligned pointer, a group of over 256 channels, or a group of whole
+// packs whose part exceeds groupnorm_bf16_kernel's registers even in a
+// cluster of 8; no model's).  groupnorm_bf16_kernel takes groups of whole
 // 16-byte packs (the bf16 instance of this template took 78% of the float
 // time for half the bytes, its 1024 CTAs at the w=2 out_norm 1.3 waves of
-// one latency-bound chain each), groupnorm_bf16_narrow_kernel the groups
-// that are not (the out_norm of n_feat 32, 96 and 160, where this
-// template's scalar instance read 2 bytes a load), each with the same
-// arithmetic and roundings.
+// one latency-bound chain each), groupnorm_bf16_narrow_kernel and
+// groupnorm_bf16_wide_kernel the groups that are not (the out_norm of
+// n_feat 32, 96 and 160; units of over 256 channels, as n_feat 264's
+// heads: 33 packs a pixel), where this template's scalar instance read 2
+// bytes a load, each with the same arithmetic and roundings.
 //
 // Sharded statistics (a height shard of a spatial mesh, whose GroupNorm
 // statistics span every shard; XLA's SPMD partitioner inserts them in JAX)
@@ -515,9 +517,146 @@ cudaError_t launch_bf16_act(cudaLaunchConfig_t* cfg, const bf16* x, const float*
 // memory to registers once (a global store may alias shared memory as far
 // as the compiler knows, so operands read inside the pass would be read
 // again after every pack's store), and the pass writes each pack once.
+//
+// groupnorm_bf16_wide_kernel: the units that layout cannot hold, with the
+// same arithmetic and, from the block's channels up, the same merges.  A
+// unit's packs a pixel tile no whole warps of whole pixels within 512
+// threads where they are over 32 (a unit of over 256 channels: n_feat
+// 264's out_norm, 8 groups of 33, and up0_norm, 4 of 66: 33 packs; n_feat
+// 280's out_norm, 35) or an odd number from 17 to 31 (n_feat 136-248's
+// out_norm); and a part may be over 16 packs a thread even in a cluster of
+// 8 (n_feat 264's 64x64 out_norm: 512 pixels of 33 packs a CTA).  So:
+//  - a CTA is whole warps (ops/groupnorm.py::idle_lane_threads), thread t <
+//    pstride * vs holding pack t % vs of pixels t / vs, + pstride, ...;
+//    the lanes past its last whole pixel hold no pixel and only join the
+//    merges and barriers (the sharded launches' layout);
+//  - a thread takes its pixels in rounds of K packs, the K loads of a
+//    round issued at once into registers; each round's per-channel mean
+//    and centred squares merge into the thread's by Chan's formula (the
+//    first round is the narrow kernel's whole computation); the output
+//    pass writes the last round from the registers and reads the earlier
+//    rounds again (from L2 where a wave's parts fit it);
+//  - with no lane tree (a pixel's packs straddle warps), each thread
+//    publishes its 8 channels' (count, mean, M2) to shared memory once,
+//    and one thread a channel merges that channel's entries in the
+//    threads' pixel rows' order: a fixed order whatever vs, within shared
+//    memory at the widest unit the plan takes (8 groups of 255: 98 KiB).
+// Its shared memory is dynamic (wide_smem_bytes): the unit's operand rows
+// [6][uc], the threads' moments [pstride * vs][8] twice, the block's
+// per-channel moments [uc] twice, the threads' counts [pstride * vs].
 
 constexpr int NARROW_THREADS = 512;  // a CTA at most
 constexpr int NARROW_CH = 256;  // channels of one unit at most (32 packs: a warp's lanes)
+constexpr int NARROW_GROUP_CH = 256;  // channels of a group at most (a wide unit: 8 of them)
+
+// The unit's per-channel operands into shared memory, 4 channels a thread,
+// rows of `row` floats: 0 gamma, 1 beta, 2 and 3 sample nn's FiLM scale and
+// shift (as floats).
+template <bool FILM>
+__device__ __forceinline__ void stage_operands(float* ops, int row, int seg0, int uc,
+                                               const float* __restrict__ gamma,
+                                               const float* __restrict__ beta,
+                                               const bf16* __restrict__ scale,
+                                               const bf16* __restrict__ shift, int nn,
+                                               int scale_stride, int shift_stride) {
+  float4* o = reinterpret_cast<float4*>(ops);
+  const int r4 = row / 4;
+  for (int q = threadIdx.x; q < uc / 4; q += blockDim.x) {  // 4 channels each
+    const int cq = seg0 + 4 * q;
+    o[q] = *reinterpret_cast<const float4*>(gamma + cq);
+    o[r4 + q] = *reinterpret_cast<const float4*>(beta + cq);
+    if constexpr (FILM) {
+      const Pack<4> a = load4(scale + (long long)nn * scale_stride + cq);
+      const Pack<4> b = load4(shift + (long long)nn * shift_stride + cq);
+      o[2 * r4 + q] = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+      o[3 * r4 + q] = make_float4(b.v[0], b.v[1], b.v[2], b.v[3]);
+    }
+  }
+}
+
+// Thread g < seg: group g's moments over the part's np pixels from its
+// cgroup channels' (equal counts: the mean of their means, their sums of
+// squares plus the spread of their means).
+__device__ __forceinline__ void group_from_channels(Moments* block_moments,
+                                                    const float* chan_mean,
+                                                    const float* chan_m2, int seg, int cgroup,
+                                                    int np) {
+  const int tid = threadIdx.x;
+  if (tid < seg) {
+    const float* cm = chan_mean + tid * cgroup;
+    const float* cq = chan_m2 + tid * cgroup;
+    float s = 0.0f;
+    for (int k = 0; k < cgroup; ++k) s += cm[k];
+    const float gm = s / (float)cgroup;
+    float q = 0.0f, spread = 0.0f;
+    for (int k = 0; k < cgroup; ++k) {
+      const float d = cm[k] - gm;
+      q += cq[k];
+      spread += d * d;
+    }
+    block_moments[tid] = Moments{(float)np * cgroup, gm, q + (float)np * spread};
+  }
+}
+
+// After the cluster barrier: each of the unit's uc channels' group
+// statistics, the cluster's ranks merged in order, its mean into
+// mean_row and its rstd into rstd_row.
+__device__ __forceinline__ void channel_statistics(cg::cluster_group& cluster,
+                                                   Moments* block_moments, float* mean_row,
+                                                   float* rstd_row, int uc, int cgroup,
+                                                   int cluster_size, float eps) {
+  for (int t = threadIdx.x; t < uc; t += blockDim.x) {  // a channel's group: the ranks in order
+    const int g = t / cgroup;
+    Moments ranks[8];  // all requested before the merges
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < cluster_size) ranks[r] = *cluster.map_shared_rank(&block_moments[g], r);
+    Moments m = ranks[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r)
+      if (r < cluster_size) m = merge(m, ranks[r]);
+    mean_row[t] = m.mean;
+    rstd_row[t] = rsqrtf(m.m2 / m.n + eps);
+  }
+}
+
+// A thread's 8 channels' operands, in registers for the output pass: the
+// group mean, rstd * gamma, beta and the FiLM rows.
+struct ChannelOps {
+  float mu[8], ga[8], be[8], sc[8], sh[8];
+};
+
+// From the operand rows (stage_operands' and channel_statistics' rows 4
+// and 5) at this thread's first channel, rows `row` floats apart.
+template <bool FILM>
+__device__ __forceinline__ ChannelOps channel_operands(const float* ops, int row) {
+  ChannelOps o;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    o.mu[e] = ops[4 * row + e];
+    o.ga[e] = ops[5 * row + e] * ops[e];  // rstd * gamma
+    o.be[e] = ops[row + e];
+    o.sc[e] = FILM ? ops[2 * row + e] : 0.0f;
+    o.sh[e] = FILM ? ops[3 * row + e] : 0.0f;
+  }
+  return o;
+}
+
+// One pack normalised, activated, through the FiLM epilogue and stored.
+template <int ACT, bool FILM>
+__device__ __forceinline__ void normalise_store(const uint4& raw, const ChannelOps& o,
+                                                bf16* dst) {
+  Pack<8> v = load<8>(reinterpret_cast<const bf16*>(&raw));
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float y = activate((v.v[e] - o.mu[e]) * o.ga[e] + o.be[e], ACT);
+    if constexpr (FILM)
+      v.v[e] = round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * o.sc[e]) + o.sh[e]);
+    else
+      v.v[e] = y;
+  }
+  store<8>(dst, v);
+}
 
 // Grid: unit (sample major, segment minor) major, cluster rank minor.
 // ACT and FILM as in groupnorm_bf16_kernel.
@@ -551,6 +690,8 @@ __global__ void __launch_bounds__(NARROW_THREADS) groupnorm_bf16_narrow_kernel(
   const int j = tid % vs, first = tid / vs;  // this thread's pack and first pixel
   const int seg0 = sg * uc;  // the unit's first channel
   const long long base = ((long long)nn * hw + p0) * c + seg0 + j * V;
+  float* ops = reinterpret_cast<float*>(operands);
+  constexpr int ROW = NARROW_CH;  // floats of one operand row
 
   uint4 raw[K];
 #pragma unroll
@@ -558,17 +699,8 @@ __global__ void __launch_bounds__(NARROW_THREADS) groupnorm_bf16_narrow_kernel(
     const int p = first + i * pstride;
     raw[i] = p < np ? load_stream(x + base + (long long)p * c) : make_uint4(0u, 0u, 0u, 0u);
   }
-  for (int q = tid; q < uc / 4; q += blockDim.x) {  // 4 channels each
-    const int cq = seg0 + 4 * q;
-    operands[0][q] = *reinterpret_cast<const float4*>(gamma + cq);
-    operands[1][q] = *reinterpret_cast<const float4*>(beta + cq);
-    if constexpr (FILM) {
-      const Pack<4> a = load4(scale + (long long)nn * scale_stride + cq);
-      const Pack<4> b = load4(shift + (long long)nn * shift_stride + cq);
-      operands[2][q] = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-      operands[3][q] = make_float4(b.v[0], b.v[1], b.v[2], b.v[3]);
-    }
-  }
+  stage_operands<FILM>(ops, ROW, seg0, uc, gamma, beta, scale, shift, nn, scale_stride,
+                       shift_stride);
 
   // This thread's channels: the mean over its pixels, then the centred sum
   // of squares.
@@ -639,88 +771,191 @@ __global__ void __launch_bounds__(NARROW_THREADS) groupnorm_bf16_narrow_kernel(
     chan_m2[t] = b.m2;
   }
   __syncthreads();
-  if (tid < seg) {  // a group from its channels, each over the part's np pixels
-    const float* cm = chan_mean + tid * cgroup;
-    const float* cq = chan_m2 + tid * cgroup;
-    float s = 0.0f;
-    for (int k = 0; k < cgroup; ++k) s += cm[k];
-    const float gm = s / (float)cgroup;
-    float q = 0.0f, spread = 0.0f;
-    for (int k = 0; k < cgroup; ++k) {
-      const float d = cm[k] - gm;
-      q += cq[k];
-      spread += d * d;
-    }
-    block_moments[tid] = Moments{(float)np * cgroup, gm, q + (float)np * spread};
-  }
+  group_from_channels(block_moments, chan_mean, chan_m2, seg, cgroup, np);
   cluster.sync();  // every CTA's block_moments is written
-  for (int t = tid; t < uc; t += blockDim.x) {  // a channel's group: the ranks in order
-    const int g = t / cgroup;
-    Moments ranks[8];  // all requested before the merges
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      if (r < cluster_size) ranks[r] = *cluster.map_shared_rank(&block_moments[g], r);
-    Moments m = ranks[0];
-#pragma unroll
-    for (int r = 1; r < 8; ++r)
-      if (r < cluster_size) m = merge(m, ranks[r]);
-    reinterpret_cast<float*>(operands[4])[t] = m.mean;
-    reinterpret_cast<float*>(operands[5])[t] = rsqrtf(m.m2 / m.n + eps);
-  }
+  channel_statistics(cluster, block_moments, ops + 4 * ROW, ops + 5 * ROW, uc, cgroup,
+                     cluster_size, eps);
   // Done with the other CTAs' shared memory; wait for them before exiting.
   asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
   __syncthreads();  // every channel's operands are in shared memory
 
-  const float* ops = reinterpret_cast<const float*>(operands) + j * V;
-  constexpr int ROW = NARROW_CH;  // floats of one operand row
-  float mu[V], ga[V], be[V], sc[V], sh[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    mu[e] = ops[4 * ROW + e];
-    ga[e] = ops[5 * ROW + e] * ops[e];  // rstd * gamma
-    be[e] = ops[ROW + e];
-    sc[e] = FILM ? ops[2 * ROW + e] : 0.0f;
-    sh[e] = FILM ? ops[3 * ROW + e] : 0.0f;
-  }
+  const ChannelOps o = channel_operands<FILM>(ops + j * V, ROW);
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    if (i < mine) {
-      const int p = first + i * pstride;
-      Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+    if (i < mine)
+      normalise_store<ACT, FILM>(raw[i], o, out + base + (long long)(first + i * pstride) * c);
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Grid as groupnorm_bf16_narrow_kernel's.  Block: whole warps, at least a
+// unit's pixel; threads past the last whole pixel idle.  K packs a round.
+template <int K, int ACT, bool FILM>
+__global__ void __launch_bounds__(NARROW_THREADS) groupnorm_bf16_wide_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ scale,
+    const bf16* __restrict__ shift, bf16* __restrict__ out, int hw, int c, int groups,
+    int seg, int cluster_size, int part_px, int scale_stride, int shift_stride, float eps) {
+  constexpr int V = 8;  // one 16-byte pack
+  extern __shared__ float4 wide_smem[];
+  __shared__ Moments block_moments[MAX_SEG];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x;
+  const int cgroup = c / groups, uc = seg * cgroup;  // channels of a group, of the unit
+  const int vs = uc / V;  // packs of a unit's pixel
+  const int segs = groups / seg;
+  const int unit = blockIdx.x / cluster_size;
+  const int nn = unit / segs, sg = unit - nn * segs;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = min(hw, rank * part_px);
+  const int np = min(hw, p0 + part_px) - p0;
+  const int pstride = blockDim.x / vs;  // whole pixels the block covers per step
+  const int active = pstride * vs;  // the threads that hold pixels
+  const int j = tid % vs;
+  const int first = tid < active ? tid / vs : np;  // an idle lane: no pixel
+  const int seg0 = sg * uc;  // the unit's first channel
+  const long long base = ((long long)nn * hw + p0) * c + seg0 + j * V;
+  float* ops = reinterpret_cast<float*>(wide_smem);  // [6][uc]
+  float* tmean = ops + 6 * uc;  // [active][V]: a thread's channels' moments
+  float* tm2 = tmean + pstride * uc;
+  float* chan_mean = tm2 + pstride * uc;  // [uc]: the block's, a channel
+  float* chan_m2 = chan_mean + uc;
+  float* tcnt = chan_m2 + uc;  // [active]
+
+  const int rows = first < np ? (np - first + pstride - 1) / pstride : 0;  // this thread's pixels
+  const int rounds = (rows + K - 1) / K;
+  uint4 raw[K];
+  auto fetch = [&](int r) {  // round r's K packs, all requested at once
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float y = activate((v.v[e] - mu[e]) * ga[e] + be[e], ACT);
-        if constexpr (FILM)
-          v.v[e] = round_to<bf16>(round_to<bf16>(round_to<bf16>(y) * sc[e]) + sh[e]);
-        else
-          v.v[e] = y;
+    for (int i = 0; i < K; ++i) {
+      const int p = first + (r * K + i) * pstride;
+      raw[i] = p < np ? load_stream(x + base + (long long)p * c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  fetch(0);
+  stage_operands<FILM>(ops, uc, seg0, uc, gamma, beta, scale, shift, nn, scale_stride,
+                       shift_stride);
+
+  // This thread's channels: each round's mean over its pixels and centred
+  // sum of squares, merged into the thread's by Chan's formula.
+  float cnt = 0.0f, mean[V], m2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) mean[e] = m2[e] = 0.0f;
+  for (int r = 0; r < rounds; ++r) {
+    if (r) fetch(r);
+    const int m = min(K, rows - r * K);
+    float rm[V], rq[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) rm[e] = rq[e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i < m) {
+        const Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+        for (int e = 0; e < V; ++e) rm[e] += v.v[e];
       }
-      store<V>(out + base + (long long)p * c, v);
+    }
+    const float inv = 1.0f / (float)m;
+#pragma unroll
+    for (int e = 0; e < V; ++e) rm[e] *= inv;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i < m) {
+        const Pack<V> v = load<V>(reinterpret_cast<const bf16*>(&raw[i]));
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float d = v.v[e] - rm[e];
+          rq[e] += d * d;
+        }
+      }
+    }
+    const float tot = cnt + (float)m, f = __fdividef((float)m, tot);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = rm[e] - mean[e];
+      mean[e] += d * f;
+      m2[e] += rq[e] + d * d * (cnt * f);
+    }
+    cnt = tot;
+  }
+  if (tid < active) {  // published once; thread t = r * vs + j holds row r's pack j
+    tcnt[tid] = cnt;
+    float4* tm = reinterpret_cast<float4*>(tmean) + 2 * tid;
+    float4* tq = reinterpret_cast<float4*>(tm2) + 2 * tid;
+    tm[0] = make_float4(mean[0], mean[1], mean[2], mean[3]);
+    tm[1] = make_float4(mean[4], mean[5], mean[6], mean[7]);
+    tq[0] = make_float4(m2[0], m2[1], m2[2], m2[3]);
+    tq[1] = make_float4(m2[4], m2[5], m2[6], m2[7]);
+  }
+  __syncthreads();
+  for (int t = tid; t < uc; t += blockDim.x) {  // a channel: the pixel rows in order
+    Moments b{0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < pstride; ++r)
+      b = merge(b, Moments{tcnt[r * vs + t / V], tmean[r * uc + t], tm2[r * uc + t]});
+    chan_mean[t] = b.mean;
+    chan_m2[t] = b.m2;
+  }
+  __syncthreads();
+  group_from_channels(block_moments, chan_mean, chan_m2, seg, cgroup, np);
+  cluster.sync();  // every CTA's block_moments is written
+  channel_statistics(cluster, block_moments, ops + 4 * uc, ops + 5 * uc, uc, cgroup,
+                     cluster_size, eps);
+  // Done with the other CTAs' shared memory; wait for them before exiting.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  __syncthreads();  // every channel's operands are in shared memory
+
+  const ChannelOps o = channel_operands<FILM>(ops + j * V, uc);
+  auto emit = [&](int r) {  // round r's packs, from raw
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int p = first + (r * K + i) * pstride;
+      if (p < np) normalise_store<ACT, FILM>(raw[i], o, out + base + (long long)p * c);
+    }
+  };
+  if (rounds) {
+    emit(rounds - 1);  // the last round, still in registers
+    for (int r = 0; r + 1 < rounds; ++r) {
+      fetch(r);
+      emit(r);
     }
   }
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
+// Dynamic shared memory of groupnorm_bf16_wide_kernel (its layout above).
+__host__ __device__ constexpr int wide_smem_bytes(int uc, int threads) {
+  return 4 * (8 * uc + 2 * (threads / (uc / 8)) * uc + threads / (uc / 8) * (uc / 8));
+}
+
 template <int K>
-cudaError_t launch_narrow_act(cudaLaunchConfig_t* cfg, const bf16* x, const float* gamma,
-                              const float* beta, const bf16* scale, const bf16* shift,
-                              bf16* out, int hw, int c, int groups, int seg, int cluster,
-                              int part_px, int scale_stride, int shift_stride, float eps,
-                              int act) {
-  cudaError_t err = cudaErrorInvalidValue;
-#define CAMELS_NARROW_ACT(A)                                                                  \
-  if (act == A)                                                                               \
-    err = scale ? cudaLaunchKernelEx(cfg, groupnorm_bf16_narrow_kernel<K, A, true>, x, gamma, \
-                                     beta, scale, shift, out, hw, c, groups, seg, cluster,    \
-                                     part_px, scale_stride, shift_stride, eps)                \
-                : cudaLaunchKernelEx(cfg, groupnorm_bf16_narrow_kernel<K, A, false>, x,       \
-                                     gamma, beta, scale, shift, out, hw, c, groups, seg,      \
-                                     cluster, part_px, scale_stride, shift_stride, eps);
+cudaError_t launch_narrow_act(cudaLaunchConfig_t* cfg, bool wide, const bf16* x,
+                              const float* gamma, const float* beta, const bf16* scale,
+                              const bf16* shift, bf16* out, int hw, int c, int groups, int seg,
+                              int cluster, int part_px, int scale_stride, int shift_stride,
+                              float eps, int act) {
+  using Kernel = void (*)(const bf16*, const float*, const float*, const bf16*, const bf16*,
+                          bf16*, int, int, int, int, int, int, int, int, float);
+  Kernel kernel = nullptr;
+#define CAMELS_NARROW_ACT(A)                                                             \
+  if (act == A)                                                                          \
+    kernel = wide ? (scale ? groupnorm_bf16_wide_kernel<K, A, true>                      \
+                           : groupnorm_bf16_wide_kernel<K, A, false>)                    \
+                  : (scale ? groupnorm_bf16_narrow_kernel<K, A, true>                    \
+                           : groupnorm_bf16_narrow_kernel<K, A, false>);
   CAMELS_NARROW_ACT(0)
   CAMELS_NARROW_ACT(1)
   CAMELS_NARROW_ACT(2)
   CAMELS_NARROW_ACT(3)
 #undef CAMELS_NARROW_ACT
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (cfg->dynamicSmemBytes > 0)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cfg->dynamicSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(cfg, kernel, x, gamma, beta, scale, shift, out, hw, c, groups,
+                             seg, cluster, part_px, scale_stride, shift_stride, eps);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -1119,28 +1354,34 @@ extern "C" int camels_groupnorm_act_bf16(const bf16* x, const float* gamma, cons
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 single launch where a group is not whole 16-byte packs
-// (groupnorm_bf16_narrow_kernel): camels_groupnorm_act_bf16's arguments;
-// x/out 16-byte aligned, seg groups (dividing groups, at most 8) whose
-// channels are whole packs, at most 256 of them; threads a multiple of 32
-// and of the unit's packs a pixel, at most 512; packs (K) 4, 8 or 16 a
-// thread; all from ops/groupnorm.py::narrow_plan.  Returns the cudaError_t
-// of the launch.
+// The bf16 single launch where a group is not whole 16-byte packs:
+// camels_groupnorm_act_bf16's arguments, then wide; x/out 16-byte aligned,
+// seg groups (dividing groups, at most 8) of at most 256 channels whose
+// channels are whole packs; threads a multiple of 32, at most 512; packs
+// (K) 4, 8 or 16 a thread; all from ops/groupnorm.py::narrow_plan.  wide
+// 0: groupnorm_bf16_narrow_kernel (a unit of at most 256 channels, threads
+// a multiple of its packs a pixel, a part within packs of a thread); wide
+// 1: groupnorm_bf16_wide_kernel (threads at least a unit's packs a pixel,
+// parts of any size).  Returns the cudaError_t of the launch.
 extern "C" int camels_groupnorm_act_bf16_narrow(
     const bf16* x, const float* gamma, const float* beta, const bf16* scale,
     const bf16* shift, bf16* out, int n, int hw, int c, int groups, int scale_stride,
     int shift_stride, float eps, int act, int seg, int cluster, int threads, int packs,
-    int part_px, void* stream) {
+    int part_px, int wide, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (groups <= 0 || c % groups || seg < 1 || seg > MAX_SEG || groups % seg)
+  if (groups <= 0 || c % groups || c / groups > NARROW_GROUP_CH || seg < 1 || seg > MAX_SEG ||
+      groups % seg)
     return (int)cudaErrorInvalidValue;
-  const int uc = c / groups * seg;  // channels of a unit
-  if (uc % 8 || uc > NARROW_CH || threads > NARROW_THREADS || threads % 32 ||
-      threads % (uc / 8) || cluster < 1 || cluster > 8 || part_px < 1)
+  const int uc = c / groups * seg, vs = uc / 8;  // channels and packs of a unit's pixel
+  if (uc % 8 || threads > NARROW_THREADS || threads % 32 || threads < vs || cluster < 1 ||
+      cluster > 8 || part_px < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!wide && (uc > NARROW_CH || threads % vs || part_px > packs * (threads / vs)))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
   cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = wide ? (size_t)wide_smem_bytes(uc, threads) : 0;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1149,11 +1390,11 @@ extern "C" int camels_groupnorm_act_bf16_narrow(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-#define CAMELS_GROUPNORM_NARROW(K)                                                          \
-  if (packs == K)                                                                           \
-    return (int)launch_narrow_act<K>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, \
-                                     seg, cluster, part_px, scale_stride, shift_stride, eps, \
-                                     act);
+#define CAMELS_GROUPNORM_NARROW(K)                                                         \
+  if (packs == K)                                                                          \
+    return (int)launch_narrow_act<K>(&cfg, wide != 0, x, gamma, beta, scale, shift, out, hw, \
+                                     c, groups, seg, cluster, part_px, scale_stride,        \
+                                     shift_stride, eps, act);
   CAMELS_GROUPNORM_NARROW(4)
   CAMELS_GROUPNORM_NARROW(8)
   CAMELS_GROUPNORM_NARROW(16)

@@ -61,14 +61,15 @@
 //
 // The template serves the float unsharded launch, and the shapes the
 // kernels of their own below do not take: the bf16 unsharded launch and
-// halo mode where c is not a multiple of 32, the float halo mode where its
-// weights outgrow shared memory (ops/sampler_step.py::route).  The bf16
+// halo mode and the float halo mode where their weights outgrow shared
+// memory (c in the thousands; ops/sampler_step.py::route).  The bf16
 // launches are otherwise head_step_bf16_kernel and
 // head_step_bf16_halo_kernel below, at items of 64 channels or, where c
-// is an odd multiple of 32 (n_feat 32, 96, 160), of 32 (in bf16 the
-// template's taps on CUDA cores did twice the arithmetic per staged byte,
-// one CTA fit an SM, and the first chunk's copy was exposed), the float
-// halo mode head_step_halo_f32_kernel (the template's halo mode ran one
+// is any other multiple of 8 (n_feat 8-56, 72, 96, 160, 264, ...), of 32,
+// the last block masked past c (in bf16 the template's taps on CUDA cores
+// did twice the arithmetic per staged byte, one CTA fit an SM, and the
+// first chunk's copy was exposed), the float halo mode
+// head_step_halo_f32_kernel (the template's halo mode ran one
 // CTA an SM with a 2-stage ring and a block barrier per chunk), each with
 // the same arithmetic and roundings.
 //
@@ -415,11 +416,13 @@ int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
 // whole map bit for bit (each pixel's partials are the same products
 // summed in the same order, whichever band or tile holds it).
 //
-// The narrow item (n_feat 32, 96 and 160: c an odd multiple of 32, which
-// no 64-channel item divides): both launches instantiate the same body at
-// items of 32 pixels x 32 channels (bf16_step_body<NARROW_BLOCK>), two
-// tiles of the wide item's fragments and sums, so the narrow halo mode too
-// equals its unsharded launch bit for bit.  At c = 32 the fixed costs of
+// The narrow item (c a multiple of 8 that no 64-channel item divides:
+// n_feat 32, 96 and 160, and where c is not a multiple of 32, as 40 or
+// 264, with a last channel block masked past c): both launches
+// instantiate the same body at items of 32 pixels x 32 channels
+// (bf16_step_body<NARROW_BLOCK>), two tiles of the wide item's fragments
+// and sums, so the narrow halo mode too equals its unsharded launch bit
+// for bit.  At c = 32 the fixed costs of
 // a band (the weights' staging, the x and z prefetch, the 18-partial
 // gather) weigh four times as much per byte of h as at c = 128: with no
 // read of h at all the launch kept 69% of its time at n_feat 32, 16 maps,
@@ -451,7 +454,7 @@ constexpr int OUTS = 4;  // output pixels a thread's x and z are prefetched for
 constexpr int RING = 3;
 
 // The body of both bf16 kernels, at items of IB channels (BLOCK, or
-// NARROW_BLOCK where c is an odd multiple of 32).
+// NARROW_BLOCK where c is a multiple of 8 but not of 64).
 // Grid: unit major, band minor (this
 // CTA: unit, band rows y0 ..).  Block: BF16_THREADS.  Band pixel p < m (m =
 // branches * pb, pb = (rows + 2) * width) is, under CFG, pixel p % pb of
@@ -463,17 +466,25 @@ constexpr int RING = 3;
 // groups), the warps' rings (8 x RING slots), then the partials
 // [9][pstride] floats.
 //
-// The narrow item (IB = NARROW_BLOCK, c an odd multiple of 32: n_feat 32,
-// 96 and 160): 32 pixels x 32 channels, the same 2 KiB as the wide item,
-// two 16-pixel tiles of one 32-channel block: the same fragments, 8 MMAs
+// The narrow item (IB = NARROW_BLOCK, c a multiple of 8 but not of 64:
+// n_feat 32, 96 and 160, and 40, 264, ...): 32 pixels x 32 channels, the
+// same 2 KiB as the wide item, two 16-pixel tiles of one 32-channel
+// block: the same fragments, 8 MMAs
 // an item, each tile's products summed as in the wide item, the weights'
 // fragments read once for both tiles (items of one tile, half the bytes,
 // paid the item's fixed instructions twice a byte).  Lane l copies chunk l
 // & 3 of pixels l / 4 + 8i (a quarter warp's writes: two pixels' 64
 // contiguous bytes) and lane (g, t) reads chunk t of rows g, g + 8, g + 16
 // and g + 24 (a quarter warp: rows of one parity pair, 128 contiguous
-// bytes), so no swizzle is needed; the weights' rows are c apart, c / 8 =
-// 4 mod 8 slots.
+// bytes), so no swizzle is needed; the weights' rows are
+// weight_stride(cpad) apart, 4 mod 8 slots.  Where c is not a multiple of
+// 32 (cpad = c rounded up to 32), the last block is masked: a 16-byte
+// chunk (8 channels) lies wholly inside c or wholly past it, and a chunk
+// past c is zero-filled by its copy (never read: it would be the next
+// pixel's channels), as are the weights' rows past c, so the block's
+// extra products are zeros and each pixel's fp32 partials are the sums of
+// its c channels alone; the halo mode masks alike, and two shards still
+// equal the unsharded launch bit for bit.
 template <int IB, typename SourceOf>
 __device__ __forceinline__ void bf16_step_body(
     SourceOf source_of, int unit, int y0, int pb, int m, const bf16* __restrict__ h,
@@ -487,8 +498,12 @@ __device__ __forceinline__ void bf16_step_body(
   constexpr int SLOT = IPX * BLOCK;  // elements (2 KiB)
   constexpr int WARPS = BF16_THREADS / 32;
   extern __shared__ float4 smem4[];
-  // ops/sampler_step.py::weight_stride: c + 32 at c % 64 == 0, else c.
-  const int wstride = BLOCK == 64 ? c + 32 : c;
+  // The narrow item's channel blocks: the last one masked past c where c
+  // is not a multiple of 32 (cpad channels in all).
+  const int cpad = BLOCK == 64 ? c : (c + BLOCK - 1) / BLOCK * BLOCK;
+  // ops/sampler_step.py::weight_stride(cpad): cpad + 32 at cpad % 64 == 0,
+  // else cpad.
+  const int wstride = BLOCK == 64 ? c + 32 : cpad % 64 == 0 ? cpad + 32 : cpad;
   bf16* ws = reinterpret_cast<bf16*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -496,7 +511,7 @@ __device__ __forceinline__ void bf16_step_body(
   const int tiles = (m + IPX - 1) / IPX;  // of an item's pixels
   const int pstride = (m + 31) / 32 * 32 + 4;  // 4 mod 32: a store's 4 taps, 4 banks apart
   float* part = reinterpret_cast<float*>(ws + 16 * wstride + WARPS * RING * SLOT);
-  const int cblocks = c / BLOCK;
+  const int cblocks = cpad / BLOCK;
   const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
 
   // Item it of this warp: tile warp + (it / cblocks) * WARPS, channel block
@@ -520,12 +535,16 @@ __device__ __forceinline__ void bf16_step_body(
       }
     } else {  // items are issued in order
       const int p0 = (warp + ik * WARPS) * IPX, q = lane & 3;
+      // A chunk past c (the last block's tail) is zero-filled: never the
+      // next pixel's channels.
+      const bool inside = icb * BLOCK + 8 * q < c;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int pp = (lane >> 2) + 8 * i;
         const Source<bf16> src = source_of(p0 + pp);
         const int off = src.off + icb * BLOCK + 8 * q;
-        cp_async16(dst + pp * BLOCK + 8 * q, src.reads ? src.array + off : h, src.reads);
+        const bool reads = src.reads && inside;
+        cp_async16(dst + pp * BLOCK + 8 * q, reads ? src.array + off : h, reads);
       }
       if (++icb == cblocks) icb = 0, ++ik;
     }
@@ -536,11 +555,20 @@ __device__ __forceinline__ void bf16_step_body(
     cp_async_commit();
   }
 
-  for (int i = tid; i < 16 * (c / 8); i += BF16_THREADS) {
-    const int tap = i / (c / 8), q = i - tap * (c / 8);
-    *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
-        tap < 9 ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
-                : make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (BLOCK == 64) {
+    for (int i = tid; i < 16 * (c / 8); i += BF16_THREADS) {
+      const int tap = i / (c / 8), q = i - tap * (c / 8);
+      *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
+          tap < 9 ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {  // rows of cpad channels, zero past c
+    for (int i = tid; i < 16 * (cpad / 8); i += BF16_THREADS) {
+      const int tap = i / (cpad / 8), q = i - tap * (cpad / 8);
+      *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
+          tap < 9 && 8 * q < c ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
+                               : make_uint4(0u, 0u, 0u, 0u);
+    }
   }
   // The step's inputs of this thread's first OUTS output pixels.
   const float b0 = to_float(*bias);
@@ -964,8 +992,8 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
 // to take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
 // from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
 // launch.  The float unsharded launch, and the bf16 one at the shapes
-// head_step_bf16_kernel does not take (ops/sampler_step.py::route: c not
-// a multiple of 32, or an unaligned pointer).
+// head_step_bf16_kernel does not take (ops/sampler_step.py::route: weights
+// over its shared memory, c in the thousands).
 #define CAMELS_HEAD_STEP_ENTRY(NAME, E)                                              \
   extern "C" int NAME(const E* h, const E* wt, const E* bias, const float* x,       \
                       const float* z, const float* w_per_sample, float w,           \
@@ -1047,8 +1075,9 @@ extern "C" int camels_head_step_bf16(const bf16* h, const bf16* wt, const bf16* 
                             rows, cfg, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
 }
 
-// The narrow bf16 instance (c an odd multiple of 32: items of NARROW_BLOCK
-// channels): camels_head_step_bf16's arguments; rows and smem_bytes from
+// The narrow bf16 instance (c a multiple of 8 but not of 64: items of
+// NARROW_BLOCK channels, the last block masked past c):
+// camels_head_step_bf16's arguments; rows and smem_bytes from
 // ops/sampler_step.py::bf16_plan.
 extern "C" int camels_head_step_bf16_narrow(const bf16* h, const bf16* wt, const bf16* bias,
                                             const float* x, const float* z,
@@ -1058,8 +1087,7 @@ extern "C" int camels_head_step_bf16_narrow(const bf16* h, const bf16* wt, const
                                             float inv_sqrt_a, float sigma, int tanh_out,
                                             void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  if (threads != BF16_THREADS || c % NARROW_BLOCK || c % BLOCK == 0)
-    return (int)cudaErrorInvalidValue;
+  if (threads != BF16_THREADS || c % 8 || c % BLOCK == 0) return (int)cudaErrorInvalidValue;
   return bf16_launch<NARROW_BLOCK>(h, wt, bias, x, z, w_per_sample, w, out, batch, height,
                                    width, c, rows, cfg, smem_bytes, c_eps, inv_sqrt_a, sigma,
                                    tanh_out, stream);
@@ -1068,8 +1096,8 @@ extern "C" int camels_head_step_bf16_narrow(const bf16* h, const bf16* wt, const
 // The halo mode of the kernels of their own: camels_head_step_bf16's
 // arguments with top and bottom after h, each (cfg ? 2 * batch : batch,
 // width, c) of h's type, or null (zero rows) at the image's edge.  bf16:
-// head_step_bf16_halo_kernel (c a multiple of 64 here, an odd multiple of
-// 32 in camels_head_step_halo_bf16_narrow below; threads 256, rows and
+// head_step_bf16_halo_kernel (c a multiple of 64 here, any other multiple
+// of 8 in camels_head_step_halo_bf16_narrow below; threads 256, rows and
 // smem_bytes from ops/sampler_step.py::bf16_plan); float:
 // head_step_halo_f32_kernel (c a multiple of 4, threads 256, rows and
 // smem_bytes from ops/sampler_step.py::halo_plan).
@@ -1087,15 +1115,14 @@ extern "C" int camels_head_step_halo_bf16(const bf16* h, const bf16* top, const 
                            smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
 }
 
-// The narrow bf16 halo mode (c an odd multiple of 32): the arguments of
-// camels_head_step_halo_bf16.
+// The narrow bf16 halo mode (c a multiple of 8 but not of 64): the
+// arguments of camels_head_step_halo_bf16.
 extern "C" int camels_head_step_halo_bf16_narrow(
     const bf16* h, const bf16* top, const bf16* bottom, const bf16* wt, const bf16* bias,
     const float* x, const float* z, const float* w_per_sample, float w, float* out, int batch,
     int height, int width, int c, int rows, int cfg, int threads, int smem_bytes, float c_eps,
     float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
-  if (threads != BF16_THREADS || c % NARROW_BLOCK || c % BLOCK == 0)
-    return (int)cudaErrorInvalidValue;
+  if (threads != BF16_THREADS || c % 8 || c % BLOCK == 0) return (int)cudaErrorInvalidValue;
   return band_launch<bf16>(head_step_bf16_halo_kernel<NARROW_BLOCK>, h, top, bottom, wt, bias,
                            x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg,
                            threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);

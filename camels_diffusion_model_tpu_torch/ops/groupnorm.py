@@ -39,9 +39,14 @@ a multiple of 8 (the out_norm of n_feat 32, 96 and 160), the bf16 single
 launch takes the narrow bf16 kernel (``groupnorm_bf16_narrow_kernel``:
 units of groups whose slice of a pixel is whole packs, the statistics
 merged per channel and grouped last; :func:`narrow_plan`), counted under
-``.launches_bf16`` and also under ``.launches_narrow_bf16``; where both
-plans refuse a shape (an unaligned pointer, a unit over 256 channels) the
-float kernel's bf16 instance (:func:`single_route`), counted also under
+``.launches_bf16`` and also under ``.launches_narrow_bf16``; where that
+kernel's layout cannot hold a unit (over 256 channels, as n_feat 264's
+heads, or 17-31 packs a pixel, or a part over its registers) its wide
+layout (``groupnorm_bf16_wide_kernel``: whole warps with idle lanes,
+parts in rounds, the per-channel merge through shared memory), counted
+also under ``.launches_wide_bf16``.  Where both plans refuse a shape (an
+unaligned pointer, a group of over 256 channels) the float kernel's bf16
+instance (:func:`single_route`), counted also under
 ``.launches_generic_bf16``.
 """
 
@@ -98,6 +103,7 @@ _APPLY_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_floa
 # row strides, eps, act, then seg, cluster, threads, packs, part_px and
 # the stream.
 _BF16_ARGTYPES = _ARGTYPES[:14] + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_NARROW_ARGTYPES = _BF16_ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)  # then wide
 
 # bf16_plan's choices.
 BF16_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
@@ -113,6 +119,17 @@ NARROW_PACKS = (4, 8, 16)  # packs a thread of the narrow bf16 kernel may hold
 NARROW_SECTOR = 32  # bytes a unit's slice of a pixel is a multiple of, where the groups allow
 NARROW_THREADS = 256  # a CTA's threads aimed at (whole warps and pixels)
 NARROW_SPREAD = 66  # CTAs a launch should reach (half the SMs): small batches split further
+NARROW_GROUP_CH = 256  # channels of a group the narrow kernels take at most
+# The wide layout's CTAs (whole warps, lanes past the last whole pixel idle;
+# scripts/compare_torch_kernels.py --generic, n_feat 264's heads at 2 and
+# 16 maps): of at most WIDE_THREADS where its CTAs have an SM each (384 ran
+# 1.05-1.10x 512); where a part takes rounds and the grid holds more CTAs
+# than SMs, of WIDE_SHARED_THREADS with WIDE_SHARED_PACKS a round (about 80
+# registers: three CTAs share an SM, the grid one wave; 1.2x 512 threads of
+# 16 packs at n_feat 264's 16-map out_norm).
+WIDE_THREADS = 384
+WIDE_SHARED_THREADS = 256
+WIDE_SHARED_PACKS = 4
 
 # stats_plan's and apply_plan's choices (the sharded launches).
 STATS_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
@@ -258,27 +275,43 @@ def bf16_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
         cluster *= 2
     part = -(-hw // cluster)
     threads = BF16_THREADS if part_bytes_of(cluster) > 32 * 1024 else BF16_THREADS // 2
-    threads -= threads % whole
+    threads = max(whole, threads - threads % whole)  # whole: at most BF16_THREADS here
     packs = next(k for k in BF16_PACKS if k * (threads // vs) >= part)
     if packs == 1:  # fewer threads for a small part
         threads = min(threads, -(-part * vs // whole) * whole)
     return Bf16Plan(seg, cluster, threads, packs, part)
 
 
+class NarrowPlan(NamedTuple):
+    """The narrow bf16 kernels' launch geometry for one input shape."""
+
+    seg: int  # groups of a unit (its slice of a pixel whole 16-byte packs)
+    cluster: int  # CTAs that share one unit
+    threads: int  # per CTA
+    packs: int  # 16-byte packs a thread holds in registers (the wide layout: a round's)
+    part_px: int  # a CTA's run of pixels of its unit
+    wide: bool = False  # groupnorm_bf16_wide_kernel: idle lanes, rounds, shared-memory merge
+
+    def ctas(self, n: int, groups: int) -> int:
+        return n * groups // self.seg * self.cluster
+
+
 def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
-                sms: int = 132) -> Bf16Plan:
+                sms: int = 132) -> NarrowPlan:
     """Geometry of the bf16 :func:`fused_groupnorm_act` where a group's
     channels are not a multiple of 8 (``csrc/groupnorm.cu``,
-    ``groupnorm_bf16_narrow_kernel``): the shapes :func:`bf16_plan`
-    refuses for that reason, as the out_norm of n_feat 32, 96 and 160 (4,
-    12 and 20 channels a group).
+    ``groupnorm_bf16_narrow_kernel`` and ``groupnorm_bf16_wide_kernel``):
+    the shapes :func:`bf16_plan` refuses for that reason, as the out_norm
+    of n_feat 32, 96 and 160 (4, 12 and 20 channels a group) and n_feat
+    264's heads (33 and 66).
 
     A unit is ``seg`` consecutive groups of a sample whose slice of a
     pixel is whole 16-byte packs (``seg * cg`` a multiple of 8: ``seg = 8
     / gcd(cg, 8)``), doubled while that slice is not whole
     ``NARROW_SECTOR``-byte sectors and the groups allow (at most
     ``BF16_MAX_SEG`` groups and 256 channels): n_feat 32's 4 groups (32
-    bytes), 96's 4 of 12 (96 bytes), 160's 4 of 20 (160 bytes).  A CTA
+    bytes), 96's 4 of 12 (96 bytes), 160's 4 of 20 (160 bytes), 264's 8
+    of 33 (out_norm) and 4 of 66 (up0_norm), 264 channels.  A CTA
     is ``NARROW_THREADS`` threads in whole warps and whole pixels of the
     unit (at least one of each; up to 512 where a unit's pixels would
     need a cluster over 8), each thread the most packs of
@@ -289,30 +322,53 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     keeps ``BF16_PART_MIN`` bytes.  Packs are
     the fewest that cover a part, threads the fewest whole warps that do
     where that is one pack's worth.  At n_feat 32, 16 maps: units of 4
-    groups in clusters of 2, 256 threads of 16 packs, 128 CTAs.  Raises
-    ``ValueError`` for a shape it does not take: an unaligned pointer,
-    channels a group a multiple of 8 (:func:`bf16_plan`'s), groups that a
-    unit of whole packs does not divide, a unit over 256 channels, or one
-    over 16 packs of 512 threads a CTA even in a cluster of 8."""
+    groups in clusters of 2, 256 threads of 16 packs, 128 CTAs.
+
+    Where that layout cannot hold the unit (over 256 channels, whole
+    warps of whole pixels over 512 threads as at 17-31 packs a pixel, or
+    parts over 16 packs a thread even in a cluster of 8), and for the
+    groups of whole packs that :func:`bf16_plan` refuses but for their
+    width or alignment (parts over its registers, as n_feat 320's out_norm
+    at 128x128; 17 packs a group and more, as n_feat 544's up0_norm), the
+    wide layout (``wide``): a CTA of whole warps of at most
+    ``WIDE_THREADS``, the lanes past its last whole pixel idle
+    (:func:`idle_lane_threads`), and the same cluster and part rules, a
+    part over 16 packs a thread taken in rounds (the cluster then 8);
+    where it does and the grid has more CTAs than the card has SMs, CTAs
+    of at most ``WIDE_SHARED_THREADS`` and ``WIDE_SHARED_PACKS`` packs a
+    round, so several share an SM.  At n_feat 264's 2-map out_norm: 384
+    threads (11 pixels of 33 packs, 21 lanes idle), clusters of 8, parts
+    of 512 pixels in 3 rounds of 16; at 16 maps 256 threads (7 pixels),
+    19 rounds of 4.  Raises ``ValueError`` for a shape it does not take:
+    an unaligned pointer, channels a group a multiple of 8 that
+    :func:`bf16_plan` takes, a group of over ``NARROW_GROUP_CH`` channels,
+    or groups that a unit of whole packs does not divide."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     cg = c // groups
     if not aligned:
         raise ValueError("the narrow bf16 GroupNorm kernel needs 16-byte aligned tensors")
     if cg % 8 == 0:
-        raise ValueError(f"{cg} channels a group are whole packs: bf16_plan's shape")
+        try:
+            bf16_plan(n, hw, c, groups, aligned, sms)
+        except ValueError:
+            pass  # whole packs bf16_plan's layout cannot hold: the wide layout's
+        else:
+            raise ValueError(f"{cg} channels a group are whole packs: bf16_plan's shape")
+    if cg > NARROW_GROUP_CH:
+        raise ValueError(f"a group of {cg} channels is wider than the narrow kernels take")
     seg = 8 // math.gcd(cg, 8)
-    if groups % seg or seg * cg > 256:
+    if groups % seg:
         raise ValueError(f"{groups} groups of {cg} channels split into no units of whole "
-                         f"16-byte packs of at most 256 channels")
+                         f"16-byte packs")
     while (seg < BF16_MAX_SEG and seg * cg * 2 % NARROW_SECTOR and groups % (2 * seg) == 0
            and 2 * seg * cg <= 256):
         seg *= 2
     vs = seg * cg // 8  # packs of a unit's pixel
     whole = math.lcm(32, vs)
     units = n * groups // seg
-    most, cluster = NARROW_PACKS[-1], None
-    for budget in (NARROW_THREADS, BF16_THREADS):
+    most, cluster, wide = NARROW_PACKS[-1], None, seg * cg > 256
+    for budget in (() if wide else (NARROW_THREADS, BF16_THREADS)):
         threads = max(whole, budget - budget % whole)
         if threads > BF16_THREADS:
             break
@@ -320,17 +376,20 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
                         if -(-hw // cl) <= most * (threads // vs)), None)
         if cluster is not None:
             break
-    if cluster is None:
-        raise ValueError(f"a unit of {hw} x {seg * cg} bf16 elements takes no plan: over "
-                         f"{most} packs of {BF16_THREADS} threads a CTA even in a cluster of 8")
+    if cluster is None:  # the wide layout
+        wide, threads = True, idle_lane_threads(vs, WIDE_THREADS)
+        cluster = next((cl for cl in (1, 2, 4) if -(-hw // cl) <= most * (threads // vs)), 8)
     while (cluster < 8 and cluster < hw and units * cluster < NARROW_SPREAD
            and -(-hw // cluster) * seg * cg * 2 // 2 >= BF16_PART_MIN):
         cluster *= 2
     part = -(-hw // cluster)
-    packs = next(k for k in NARROW_PACKS if k * (threads // vs) >= part)
-    if packs == NARROW_PACKS[0]:  # fewer threads for a small part
+    if wide and part > most * (threads // vs) and units * cluster > sms:  # CTAs share SMs
+        threads = idle_lane_threads(vs, max(WIDE_SHARED_THREADS, -(-vs // 32) * 32))
+        return NarrowPlan(seg, cluster, threads, WIDE_SHARED_PACKS, part, wide)
+    packs = next((k for k in NARROW_PACKS if k * (threads // vs) >= part), most)
+    if packs == NARROW_PACKS[0] and not wide:  # fewer threads for a small part
         threads = min(threads, -(-part * vs // whole) * whole)
-    return Bf16Plan(seg, cluster, threads, packs, part)
+    return NarrowPlan(seg, cluster, threads, packs, part, wide)
 
 
 def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = True,
@@ -338,13 +397,17 @@ def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = Tr
     """``(C name, plan)`` of :func:`fused_groupnorm_act`'s launch for a
     ``dtype`` input: the float kernel under :func:`launch_plan` for
     float32; for bfloat16 the bf16 kernel under :func:`bf16_plan`, where
-    that plan refuses the shape the narrow bf16 kernel under
-    :func:`narrow_plan` (``BF16_NARROW_NAME``: groups not whole packs),
-    and where both refuse it (an unaligned pointer, say) the float
-    kernel's bf16 instance (``BF16_GENERIC_NAME``) under
-    :func:`launch_plan`.  A function of the shape, the dtype and the
-    alignment alone, chosen before the launch; raises ``ValueError``
-    where no kernel takes the shape."""
+    that plan refuses the shape the narrow bf16 kernels under
+    :func:`narrow_plan` (``BF16_NARROW_NAME``: groups not whole packs, in
+    its wide layout where a unit is over 256 channels), and where both
+    refuse it the float kernel's bf16 instance (``BF16_GENERIC_NAME``)
+    under :func:`launch_plan`: exactly an unaligned pointer, a group of
+    over ``NARROW_GROUP_CH`` channels (8 groups: over 2048 channels), or
+    groups that a unit of whole packs does not divide (not at 8 groups):
+    no head of the repository's models at any width to 1024 (from 1032,
+    up0_norm's groups are over 256 channels).  A function of the shape,
+    the dtype and the alignment alone, chosen before the launch; raises
+    ``ValueError`` where no kernel takes the shape."""
     if dtype != torch.bfloat16:
         return C_NAME, launch_plan(n, hw, c, groups, aligned)
     for name, plan in ((BF16_NAME, bf16_plan), (BF16_NARROW_NAME, narrow_plan)):
@@ -743,7 +806,8 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
             c, num_groups, *strides, float(eps), ACTS[act])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if name in (BF16_NAME, BF16_NARROW_NAME):
-        err = _build.kernel(name, _BF16_ARGTYPES)(*head, *plan, stream)
+        argtypes = _NARROW_ARGTYPES if name == BF16_NARROW_NAME else _BF16_ARGTYPES
+        err = _build.kernel(name, argtypes)(*head, *plan, stream)
     else:
         err = _build.kernel(name, _ARGTYPES)(
             *head, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
@@ -752,6 +816,7 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     _count(fused_groupnorm_act, x)
     if name == BF16_NARROW_NAME:
         fused_groupnorm_act.launches_narrow_bf16 += 1
+        fused_groupnorm_act.launches_wide_bf16 += plan.wide
     if name == BF16_GENERIC_NAME:
         fused_groupnorm_act.launches_generic_bf16 += 1
     return out
@@ -760,5 +825,6 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
 fused_groupnorm_act.launches = 0
 fused_groupnorm_act.launches_bf16 = 0  # every bf16 launch
 fused_groupnorm_act.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
+fused_groupnorm_act.launches_wide_bf16 = 0  # ... in its wide layout
 fused_groupnorm_act.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
 

@@ -16,9 +16,10 @@ the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
 (None for a side at the image's edge, which stays zero padding), and the
 kernel's halo mode copies a band's row -1 or H from them (counts
 ``.launches_halo`` and ``.launches_halo_bf16``).  The halo mode is the
-bf16 kernel's in bf16 (``c`` a multiple of 32; its narrow item counted
-also under ``.launches_halo_narrow_bf16``), and in fp32 a kernel of
-its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
+bf16 kernel's in bf16 (``c`` a multiple of 8; its narrow item counted
+also under ``.launches_halo_narrow_bf16``, and where its last channel
+block is masked also under ``.launches_halo_masked_bf16``), and in fp32 a
+kernel of its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
 kernel's warp-private rings, the taps on the CUDA cores in fp32) under
 :func:`halo_plan`; other widths take the float kernel's halo mode
 (:func:`route`), counted also under ``.launches_halo_generic`` and
@@ -33,12 +34,15 @@ bf16 unsharded launch is a kernel of its own (``csrc/head_step.cu``,
 product on the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 sums),
 each warp streaming its tiles of ``h`` through a ring of its own in
 shared memory; :func:`bf16_plan` chooses its band height.  Where ``c``
-is an odd multiple of 32 (n_feat 32, 96 and 160) the same kernel runs at
-its narrow item, 32 channels (``BF16_NARROW_NAME``, counted under
-``.launches_bf16`` and also under ``.launches_narrow_bf16``).  Where that
-plan refuses a shape (``c`` not a multiple of 32, an unaligned pointer),
-the bf16 unsharded launch takes the float kernel's bf16 instance instead
-(:func:`route`), counted also under ``.launches_generic_bf16``.
+is a multiple of 8 but not of 64 (n_feat 8-56, 72, 96, 160, 264, ...)
+the same kernel runs at its narrow item, 32 channels
+(``BF16_NARROW_NAME``, counted under ``.launches_bf16`` and also under
+``.launches_narrow_bf16``); where ``c`` is not a multiple of 32 its last
+channel block is masked past ``c`` (counted also under
+``.launches_masked_bf16``).  Where that plan refuses a shape (weights
+over its shared memory, ``c`` in the thousands), the bf16 unsharded
+launch takes the float kernel's bf16 instance instead (:func:`route`),
+counted also under ``.launches_generic_bf16``.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ BF16_PER_SM = 2  # CTAs of the bf16 kernel an SM runs at once
 BF16_THREADS = 256  # a CTA of the bf16 kernel: 8 warps
 BF16_TILE = 16  # pixels of a warp's item (the MMA's 16 rows)
 BF16_BLOCK = 64  # channels of an item: 128 bytes a pixel, 8 copies of 16
-BF16_NARROW_BLOCK = 32  # the narrow item's (c an odd multiple of 32): 32 pixels of 64 bytes
+BF16_NARROW_BLOCK = 32  # the narrow item's (c not a multiple of 64): 32 pixels of 64 bytes
 ROWS_HALO = (8, 4, 2, 1)  # band heights of the fp32 halo kernel
 HALO_THREADS = 256  # a CTA of the fp32 halo kernel: 8 warps
 HALO_TILE = 32  # pixels of a warp's tile: four a lane, 8 channels of each an item
@@ -253,10 +257,18 @@ class Bf16Plan(NamedTuple):
 def weight_stride(c: int) -> int:
     """bf16 elements between two taps' weight rows in the bf16 kernel's
     shared memory: 4 mod 8 16-byte slots, so a quarter warp's 2 taps x 4
-    chunks hit 8 bank groups (``c`` a multiple of 32: :func:`bf16_plan`):
-    ``c + 32`` where ``c`` is a multiple of 64, ``c`` where it is an odd
-    multiple of 32 (``c / 8`` is then 4 mod 8 slots)."""
+    chunks hit 8 bank groups, for the ``c`` staged channels, a multiple of
+    32 (:func:`staged_channels`): ``c + 32`` where ``c`` is a multiple of
+    64, ``c`` where it is an odd multiple of 32 (``c / 8`` is then 4 mod 8
+    slots)."""
     return c + 32 if c % 64 == 0 else c
+
+
+def staged_channels(c: int) -> int:
+    """The channels the bf16 kernel stages a pixel: ``c`` where it is a
+    multiple of 64 (the wide item), else ``c`` rounded up to the narrow
+    item's 32-channel blocks, the last one masked past ``c``."""
+    return c if c % BF16_BLOCK == 0 else -(-c // BF16_NARROW_BLOCK) * BF16_NARROW_BLOCK
 
 
 def partial_stride(m: int) -> int:
@@ -274,29 +286,31 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     A CTA takes a band of ``rows`` output rows and multiplies its ``rows +
     2`` rows of ``h`` (each branch's) by the weights, each warp its
     ``BF16_TILE``-pixel tiles ``BF16_BLOCK`` channels an item through a
-    ring of its own, ``BF16_RING`` deep; where ``c`` is an odd multiple
-    of 32 (n_feat 32, 96, 160) the narrow item, two tiles of
-    ``BF16_NARROW_BLOCK`` channels (the same 2 KiB).  The
-    band is the shortest of ``ROWS_BF16`` whose grid still fits
+    ring of its own, ``BF16_RING`` deep; where ``c`` is not a multiple of
+    64 (n_feat 32, 96, 160; 40, 264, ...) the narrow item, two tiles of
+    ``BF16_NARROW_BLOCK`` channels (the same 2 KiB), ``ceil(c / 32)``
+    blocks a pixel, the last masked past ``c`` where ``c`` is not a
+    multiple of 32 (its weights staged as rows of :func:`staged_channels`
+    channels, zero past ``c``).  The band is the shortest of ``ROWS_BF16`` whose grid still fits
     ``BF16_PER_SM`` CTAs an SM, so the grid is one wave and each SM
     streams for two CTAs (one's gather over the other's copies), else the
     tallest.  Raises ``ValueError`` for a shape no path takes: ``cout !=
-    1``, ``c`` not a multiple of ``BF16_NARROW_BLOCK``, a pointer off a
-    16-byte boundary (``aligned``), or a band over shared memory.
+    1``, ``c`` not a multiple of 8 (one 16-byte copy), a pointer off a
+    16-byte boundary (``aligned``), or a band over shared memory (weights
+    of over ~5600 channels).
     """
     if cout != 1:
         raise ValueError(f"the head kernel computes one output channel, not {cout}")
-    if c <= 0 or c % BF16_NARROW_BLOCK:
-        raise ValueError(f"the bf16 head kernel needs channels % {BF16_NARROW_BLOCK} == 0, "
-                         f"got {c}")
+    if c <= 0 or c % 8:
+        raise ValueError(f"the bf16 head kernel needs channels % 8 == 0, got {c}")
     if not aligned:
         raise ValueError("the head kernel needs 16-byte aligned features")
     block = BF16_BLOCK if c % BF16_BLOCK == 0 else BF16_NARROW_BLOCK
 
     def smem(rows):  # an item is 2 KiB at either width
         m = (2 if cfg else 1) * (rows + 2) * width
-        return (2 * 16 * weight_stride(c) + 2 * BF16_THREADS // 32 * BF16_RING * BF16_TILE
-                * BF16_BLOCK + 4 * 9 * partial_stride(m))
+        return (2 * 16 * weight_stride(staged_channels(c)) + 2 * BF16_THREADS // 32 * BF16_RING
+                * BF16_TILE * BF16_BLOCK + 4 * 9 * partial_stride(m))
 
     ordered = sorted(ROWS_BF16)  # shortest first
     rows = next((r for r in ordered if units * -(-height // r) <= BF16_PER_SM * sms),
@@ -364,12 +378,18 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     float kernel, with ``halo`` the fp32 halo kernel under
     :func:`halo_plan`; for bfloat16 the bf16 kernel (with ``halo`` its
     halo mode) under :func:`bf16_plan`, at the narrow item where ``c`` is
-    an odd multiple of 32 (``BF16_NARROW_NAME``, ``HALO_NARROW_NAME``).
-    Where that plan refuses the shape, the float kernel's instance of
-    ``dtype`` under :func:`launch_plan` (``BF16_GENERIC_NAME``, with
-    ``halo`` ``HALO_GENERIC_NAMES``).  A function of the shape, the dtype
-    and the alignment alone, chosen before the launch; raises
-    ``ValueError`` where no kernel takes the shape."""
+    a multiple of 8 but not of 64 (``BF16_NARROW_NAME``,
+    ``HALO_NARROW_NAME``).  Where that plan refuses the shape, the float
+    kernel's instance of ``dtype`` under :func:`launch_plan`
+    (``BF16_GENERIC_NAME``, with ``halo`` ``HALO_GENERIC_NAMES``): in bf16
+    exactly the shapes whose weights overflow :func:`bf16_plan`'s shared
+    memory and fit :func:`launch_plan`'s (``c`` a multiple of 8 from about
+    5600 channels at width 8; no model's), in fp32 with ``halo`` those
+    over :func:`halo_plan`'s (from about 3700).  An unaligned pointer, a
+    ``c`` not a multiple of one 16-byte copy or ``cout != 1`` take no
+    kernel.  A function of the shape, the dtype and the alignment alone,
+    chosen before the launch; raises ``ValueError`` where no kernel takes
+    the shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
     if dtype != torch.bfloat16 and not halo:
         return C_NAME, launch_plan(*args)
@@ -484,9 +504,10 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    kind = ("_generic" if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values()
-            else "_narrow" if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else None)
-    if kind:
+    kinds = (["_generic"] if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values()
+             else ["_narrow"] + (["_masked"] if c % BF16_NARROW_BLOCK else [])
+             if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else [])
+    for kind in kinds:
         count = f"launches{mode}{kind}{suffix}"
         setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
     return out
@@ -495,9 +516,11 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
 fused_head_step.launches = 0
 fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
 fused_head_step.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
+fused_head_step.launches_masked_bf16 = 0  # ... with a last channel block masked past c
 fused_head_step.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
 fused_head_step.launches_halo = 0  # every fp32 halo launch
 fused_head_step.launches_halo_generic = 0  # those of them that took the float kernel
 fused_head_step.launches_halo_bf16 = 0  # every bf16 halo launch
 fused_head_step.launches_halo_narrow_bf16 = 0  # those of them that took HALO_NARROW_NAME
+fused_head_step.launches_halo_masked_bf16 = 0  # ... with a last channel block masked past c
 fused_head_step.launches_halo_generic_bf16 = 0  # those of them that took the float kernel

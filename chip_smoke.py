@@ -16,8 +16,11 @@ Phases, each timed on its own line:
       shapes included (K1 with their tanh, K2 with leaky ReLU and GELU and
       on its spill path, K3 at their widths; 10 maps, 32 for validation),
       the narrow bf16 kernels of K1 and K2 at the narrow bf16 models'
-      shapes (n_feat 32 of phase (o), 96 and 160), and the float kernels'
-      bf16 instances at widths no bf16 kernel takes;
+      shapes (n_feat 32 of phase (o), 96 and 160), K1's narrow item with
+      a masked last block (n_feat 264 of phase (o), 40, 48, 8) and K2's
+      wide layout (n_feat 264's heads, 280's out_norm) at 2 and 16 maps,
+      and the float kernels' bf16 instances at the shapes no bf16 kernel
+      takes (no model's: K1 weights of 6000 channels, K2 groups of 264);
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -71,8 +74,11 @@ Phases, each timed on its own line:
       against the CPU with its time, idle share and peak memory;
       ``run_experiment("nov26", dtype="bfloat16")`` with its resume; and a
       narrow bf16 model (n_feat 32, seeded init), whose out_norm and
-      out_conv2 take the narrow bf16 kernels: its forward and four
-      strided w=2 steps on the card against the CPU.  bf16
+      out_conv2 take the narrow bf16 kernels, and a wide one (n_feat 264),
+      whose heads take K2's wide layout and out_conv2 K1's masked narrow
+      item: each one's forward and four strided w=2 steps on the card
+      against the CPU, with no launch of a float kernel's bf16 instance.
+      bf16
       gates are yardsticks: the card's bf16 within ``BF16_FACTOR`` x the
       distance of the reference's bf16 from its fp32;
   (p) the reference's own workflow at full width: the native C++ prep
@@ -109,8 +115,9 @@ Phases, each timed on its own line:
       against their plain versions on half of the w=2 serving heads' maps
       (a 1x2 mesh's shard), of the deep model's out_norm (10 maps) and of
       n_feat 136's and 264's heads; K3 on a shard; the bf16 halo mode's
-      narrow item at n_feat 32's half; the float kernel's halo mode at the
-      widths K1's halo kernels do not take; (r2)
+      narrow item at n_feat 32's half, and with a masked last block at
+      n_feat 40's and 264's; the float kernel's halo mode at the widths
+      K1's halo kernels do not take (6000 channels); (r2)
       two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
       committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
       (the exact chain of a 10-step schedule) against one process, in fp32
@@ -259,7 +266,7 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # launches.
 PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
                  "head_step_halo_f32_kernel", "groupnorm_bf16_kernel",
-                 "groupnorm_bf16_narrow_kernel",
+                 "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
                  "groupnorm_stats_kernel",
                  "groupnorm_apply_kernel")
 
@@ -290,6 +297,10 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # kernels of their own do not: as those.
        "head_step_narrow_bf16": 4, "groupnorm_act_narrow_bf16": 2,
        "head_step_halo_narrow_bf16": 4,
+       # K1's narrow item with a masked last block (both modes), K2's wide
+       # layout: as the narrow kernels.
+       "head_step_masked_bf16": 4, "head_step_halo_masked_bf16": 4,
+       "groupnorm_act_wide_bf16": 2,
        "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2,
        "head_step_halo_generic": 1e-4, "head_step_halo_generic_bf16": 4}
 BF16_SHARE = 1e-2
@@ -327,6 +338,12 @@ WRAPPERS = {
     "head_step_narrow_bf16": (fused_head_step, "launches_narrow_bf16"),
     "groupnorm_act_narrow_bf16": (fused_groupnorm_act, "launches_narrow_bf16"),
     "head_step_halo_narrow_bf16": (fused_head_step, "launches_halo_narrow_bf16"),
+    # Of those, K1's narrow item with a masked last block (c not a multiple
+    # of 32) and K2's wide layout (units over 256 channels: the wide bf16
+    # model of phase o).
+    "head_step_masked_bf16": (fused_head_step, "launches_masked_bf16"),
+    "head_step_halo_masked_bf16": (fused_head_step, "launches_halo_masked_bf16"),
+    "groupnorm_act_wide_bf16": (fused_groupnorm_act, "launches_wide_bf16"),
     "head_step_generic_bf16": (fused_head_step, "launches_generic_bf16"),
     "groupnorm_act_generic_bf16": (fused_groupnorm_act, "launches_generic_bf16"),
     "head_step_halo_generic": (fused_head_step, "launches_halo_generic"),
@@ -358,8 +375,11 @@ LIBRARY = {
                        "per-channel affine on the NHWC layout",
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
-LIBRARY.update({f"{k}_{kind}_bf16": LIBRARY[f"{k}_bf16"] for kind in ("narrow", "generic")
-                for k in ("head_step", "groupnorm_act", "head_step_halo")})
+# The bf16 kernels' further counts (WRAPPERS): kernel and kind.
+BF16_KINDS = tuple((k, kind) for kind in ("narrow", "generic")
+                   for k in ("head_step", "groupnorm_act", "head_step_halo")) + (
+    ("head_step", "masked"), ("head_step_halo", "masked"), ("groupnorm_act", "wide"))
+LIBRARY.update({f"{k}_{kind}_bf16": LIBRARY[f"{k}_bf16"] for k, kind in BF16_KINDS})
 LIBRARY["head_step_halo_generic"] = LIBRARY["head_step_halo"]
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
@@ -461,8 +481,7 @@ SOURCES = {
 SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
-SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for kind in ("narrow", "generic")
-                for k in ("head_step", "groupnorm_act", "head_step_halo")})
+SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for k, kind in BF16_KINDS})
 SOURCES["head_step_halo_generic"] = SOURCES["head_step"]
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
@@ -485,15 +504,33 @@ QUANT_BATCH = 32  # phase (r3): the training batch through down2.block2.conv2
 # step.
 NARROW_FEAT, NARROW_MAPS = 32, 2
 NARROW_PER_STEP = {"head_step_narrow_bf16": 1, "groupnorm_act_narrow_bf16": 1}
-NARROW_PER_FORWARD = {"head_step_narrow_bf16": 0, "groupnorm_act_narrow_bf16": 1}
+NARROW_PER_FORWARD = {"groupnorm_act_narrow_bf16": 1}
+# And a wide bf16 model (n_feat 264): both heads (33 and 66 channels a
+# group, units of 264) take K2's wide layout, out_conv2 (264 channels)
+# K1's narrow item with a masked last block; the same forward and steps.
+WIDE_FEAT = 264
+WIDE_PER_STEP = {"head_step_narrow_bf16": 1, "head_step_masked_bf16": 1,
+                 "groupnorm_act_narrow_bf16": 2, "groupnorm_act_wide_bf16": 2}
+WIDE_PER_FORWARD = {"groupnorm_act_narrow_bf16": 2, "groupnorm_act_wide_bf16": 2}
 # Phase (c): the narrow kernels at n_feat 32 (2 maps: phase (o)'s, summed;
-# 16 maps), 96 and 160 (16 maps); the float kernels' bf16 instances at
-# widths no bf16 kernel takes: K1 at 40 channels (not a multiple of 32),
-# K2 at n_feat 264's out_norm (33 channels a group: a unit of whole packs
-# over 256 channels).
+# 16 maps), 96 and 160 (16 maps); K1's masked narrow item at n_feat 264
+# (2 maps: phase (o)'s, summed; 16), 40 (2, 16), 48 and 8 (16); K2's wide
+# layout at n_feat 264's out_norm and up0_norm with the FiLM epilogue (2
+# maps: a decoder call of phase (o)'s, summed; 16) and 280's out_norm (16).
 NARROW_CASES = ((32, NARROW_MAPS, True), (32, BATCH, False), (96, BATCH, False),
                 (160, BATCH, False))
-GENERIC_K1_FEAT, GENERIC_K2_FEAT = 40, 264
+MASKED_CASES = ((WIDE_FEAT, NARROW_MAPS, True), (WIDE_FEAT, BATCH, False),
+                (40, NARROW_MAPS, False), (40, BATCH, False), (48, BATCH, False),
+                (8, BATCH, False))
+WIDE_CASES = (("out_norm", WIDE_FEAT, NARROW_MAPS, True), ("up0_norm", WIDE_FEAT, NARROW_MAPS, True),
+              ("out_norm", WIDE_FEAT, BATCH, False), ("up0_norm", WIDE_FEAT, BATCH, False),
+              ("out_norm", 280, BATCH, False))
+# The float kernels' bf16 instances at the shapes every bf16 kernel refuses
+# (no model's): K1 on weights of 6000 channels (over the bf16 kernel's
+# shared memory; 1 map, 8x8), K2 on 8 groups of 264 channels (over 256;
+# 4 maps, 16x16).
+GENERIC_K1 = (1, 8, 6000)  # maps, height and width, channels
+GENERIC_K2 = (4, 16, 8 * 264)
 
 
 def phase(name: str, t0: float) -> None:
@@ -706,8 +743,8 @@ def hold_cases(cases) -> dict:
               f"ms {ms:.5f} warm_ms {warm_ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
               f"({LIBRARY[name]}) bound_ms {bound_ms:.6f} ({bound_by}, {nb} bytes) "
               f"share of bound {bound_ms / ms:.3f}"
-              + (f"; bytes it moves {moved} (spilled pixels read twice more), bound "
-                 f"{moved / HBM_BYTES_PER_S * 1e3:.6f} ms" if moved != nb else "")
+              + (f"; bytes it moves {moved} (pixels read again: spilled or earlier rounds), "
+                 f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms" if moved != nb else "")
               + ("" if summed else " (information)"), flush=True)
         r = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "warm_ms": 0.0,
                                   "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": bound_by,
@@ -798,14 +835,18 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
             args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed))
     # The narrow kernels at the narrow bf16 models' shapes (NARROW_CASES:
     # phase (o)'s strided w=2 steps summed, the rest served at BATCH maps),
-    # and the float kernels' bf16 instances at widths no bf16 kernel takes.
+    # K1's masked narrow item (MASKED_CASES) and K2's wide layout
+    # (WIDE_CASES) likewise, and the float kernels' bf16 instances at the
+    # shapes no bf16 kernel takes (GENERIC_K1, GENERIC_K2).
     head_cases = [(f"n_feat {c}, cfg w=2" + (" (phase o)" if summed else f", {b} maps"),
-                   "head_step_narrow_bf16", b, c, summed) for c, b, summed in NARROW_CASES]
-    head_cases.append((f"{GENERIC_K1_FEAT} channels, cfg w=2, {NARROW_MAPS} maps",
-                       "head_step_generic_bf16", NARROW_MAPS, GENERIC_K1_FEAT, True))
-    for label, name, b, c, summed in head_cases:
-        x, z = randn(b, 64, 64, 1), randn(b, 64, 64, 1)
-        h = randn(2 * b, 64, 64, c).relu().to(bf)
+                   "head_step_narrow_bf16", b, 64, c, summed) for c, b, summed in NARROW_CASES]
+    head_cases += [(f"n_feat {c}, cfg w=2" + (" (phase o)" if summed else "") + f", {b} maps",
+                    "head_step_masked_bf16", b, 64, c, summed) for c, b, summed in MASKED_CASES]
+    head_cases.append((f"{GENERIC_K1[2]} channels (no model's: weights over the bf16 kernel's "
+                       f"shared memory), cfg w=2", "head_step_generic_bf16", *GENERIC_K1, True))
+    for label, name, b, hw, c, summed in head_cases:
+        x, z = randn(b, hw, hw, 1), randn(b, hw, hw, 1)
+        h = randn(2 * b, hw, hw, c).relu().to(bf)
         args = (h, randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(bf), randn(1).to(bf), x, z,
                 c_eps, inv_sqrt_a, sigma, 2.0, False)
         cases.append((
@@ -815,18 +856,26 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
                                                  padding=1),
             args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, summed))
     norm_cases = [(f"out_norm, n_feat {c}" + (" (phase o)" if summed else "") + f", {b} maps",
-                   "groupnorm_act_narrow_bf16", b, c, summed) for c, b, summed in NARROW_CASES]
-    norm_cases.append((f"out_norm, n_feat {GENERIC_K2_FEAT}, {NARROW_MAPS} maps",
-                       "groupnorm_act_generic_bf16", NARROW_MAPS, GENERIC_K2_FEAT, True))
-    for label, name, b, c, summed in norm_cases:
-        xg = randn(2 * b, 64, 64, c).to(bf)
-        args = (xg, randn(c), randn(c), 8, 1e-5, "relu", None)
+                   "groupnorm_act_narrow_bf16", 2 * b, 64, c, False, summed)
+                  for c, b, summed in NARROW_CASES]
+    norm_cases += [(f"{head}" + (" + FiLM epilogue" if head == "up0_norm" else "")
+                    + f", n_feat {nf}" + (" (phase o)" if summed else "") + f", {b} maps",
+                    "groupnorm_act_wide_bf16", 2 * b, 16 if head == "up0_norm" else 64,
+                    2 * nf if head == "up0_norm" else nf, head == "up0_norm", summed)
+                   for head, nf, b, summed in WIDE_CASES]
+    norm_cases.append((f"groups of {GENERIC_K2[2] // 8} channels (no model's: over 256)",
+                       "groupnorm_act_generic_bf16", GENERIC_K2[0], GENERIC_K2[1], GENERIC_K2[2],
+                       False, True))
+    for label, name, batch, hw, c, film, summed in norm_cases:
+        xg = randn(batch, hw, hw, c).to(bf)
+        rows_film = (randn(batch, c).to(bf), randn(1, c).to(bf)) if film else None
+        args = (xg, randn(c), randn(c), 8, 1e-5, "relu", rows_film)
         cases.append((
             name, f"{label} {tuple(xg.shape)}",
             fused_groupnorm_act, groupnorm_act_plain,
             lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
                                                     beta.to(x.dtype), 1e-5),
-            args, nbytes(*args, xg), xg.numel() * 10, summed))
+            args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed))
     for label, batch, shape, summed in (("stage 0", n, (16, 16, 256), True),
                                         ("stage 1 (serve w=2)", n, (32, 32, 128), True),
                                         ("deep stage 1", VARIANT_BATCH, (32, 32, 256), False),
@@ -1227,12 +1276,25 @@ def print_train_time(label: str, tr: dict, precision: str = "fp32 with TF32 off"
 
 
 def spilled_bytes(x, groups: int) -> int:
-    """Bytes K2's spill path reads again for NHWC ``x``: the pixels of each
-    CTA's slice past its resident ones, by the variance and the output
-    passes.  The bf16 kernels have no spill path (``bf16_plan`` and
-    ``narrow_plan`` hold every part in registers or refuse the shape)."""
+    """Bytes K2 reads again for NHWC ``x``: on the float template's spill
+    path the pixels of each CTA's slice past its resident ones, by the
+    variance and the output passes; in the narrow kernel's wide layout the
+    packs of every round but a thread's last, by the output pass (from L2
+    where a wave's parts fit it).  The other bf16 launches hold every part
+    in registers."""
     n, h, w, c = x.shape
     name, plan = groupnorm_route(n, h * w, c, groups, x.dtype)
+    if name == GROUPNORM_NARROW_NAME and plan.wide:
+        vs = plan.seg * (c // groups) // 8
+        step = plan.threads // vs
+        packs = 0  # read again, a unit's
+        for rank in range(plan.cluster):
+            p0 = min(h * w, rank * plan.part_px)
+            npx = min(h * w, p0 + plan.part_px) - p0
+            for first in range(step):
+                rows = len(range(first, npx, step))
+                packs += vs * (-(-rows // plan.packs) - 1) * plan.packs if rows else 0
+        return n * groups // plan.seg * packs * 16
     if name in (GROUPNORM_BF16_NAME, GROUPNORM_NARROW_NAME):
         return 0
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
@@ -1643,22 +1705,27 @@ def check_bf16(dev, drive, variables, cpu32, served, train_ref) -> None:
         maps_np[:2], served16[2]["params"][:2], 10, "bf16 ELBO of 2 served w=2 maps")
     del model16, cpu16
     torch.cuda.empty_cache()
-    check_bf16_narrow(dev, drive)
+    check_bf16_narrow(dev, drive, NARROW_FEAT, "narrow", NARROW_PER_FORWARD, NARROW_PER_STEP)
+    check_bf16_narrow(dev, drive, WIDE_FEAT, "wide", WIDE_PER_FORWARD, WIDE_PER_STEP)
+    torch.cuda.empty_cache()
     check_train_step_bf16(variables, dev, train_batch(), train_ref)
     torch.cuda.empty_cache()
     check_nov26(dev, drive, "bfloat16")
 
 
-def check_bf16_narrow(dev, drive) -> None:
-    """Phase (o): the canonical model at n_feat ``NARROW_FEAT`` from a
-    seeded init, folded in bf16 (module docstring): its forward on
-    ``NARROW_MAPS`` maps and four strided w=2 steps on the card against the
-    CPU's bf16, within ``BF16_FACTOR`` x the CPU's bf16 distance from its
-    fp32, each with its launch counts."""
+def check_bf16_narrow(dev, drive, n_feat: int, kind: str, per_forward: dict,
+                      per_step: dict) -> None:
+    """Phase (o): the canonical model at ``n_feat`` (``NARROW_FEAT`` or
+    ``WIDE_FEAT``) from a seeded init, folded in bf16 (module docstring):
+    its forward on ``NARROW_MAPS`` maps and four strided w=2 steps on the
+    card against the CPU's bf16, within ``BF16_FACTOR`` x the CPU's bf16
+    distance from its fp32, each driven as the paths ``{kind}_bf16_forward``
+    and ``{kind}_bf16_steps`` with the narrow launches ``per_forward`` and
+    ``per_step`` (no float kernel's bf16 instance)."""
     bf = torch.bfloat16
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(VARIANT_SEED)
-        variables = to_jax_variables(ContextUnet.canonical(n_feat=NARROW_FEAT).state_dict())
+        variables = to_jax_variables(ContextUnet.canonical(n_feat=n_feat).state_dict())
     gpu16 = load_model(variables, dev, dtype=bf)
     cpu16, cpu32 = (load_model(variables, "cpu", dtype=d) for d in (bf, torch.float32))
     rs = np.random.RandomState(3)
@@ -1666,24 +1733,24 @@ def check_bf16_narrow(dev, drive) -> None:
     t = torch.tensor(rs.rand(NARROW_MAPS).astype(np.float32))
     c = torch.tensor(rs.rand(NARROW_MAPS, cpu16.n_cfeat).astype(np.float32))
     with torch.inference_mode():
-        got = drive("narrow_bf16_forward", lambda: gpu16(x.to(dev), t.to(dev), c.to(dev)),
-                    forwards=1, dtype="bfloat16", extra=NARROW_PER_FORWARD)
+        got = drive(f"{kind}_bf16_forward", lambda: gpu16(x.to(dev), t.to(dev), c.to(dev)),
+                    forwards=1, dtype="bfloat16", extra=per_forward)
         want, want32 = cpu16(x, t, c), cpu32(x, t, c)
     if got.dtype != bf or want.dtype != bf:
-        raise SystemExit(f"n_feat {NARROW_FEAT} bf16 forward: eps is {got.dtype}, {want.dtype}")
+        raise SystemExit(f"n_feat {n_feat} bf16 forward: eps is {got.dtype}, {want.dtype}")
     yard = (want.float() - want32).abs().max().item()
     err = (got.float().cpu() - want.float()).abs().max().item()
-    print(f"  n_feat {NARROW_FEAT} bf16 forward, {NARROW_MAPS} maps, card vs CPU: max abs err "
+    print(f"  n_feat {n_feat} bf16 forward, {NARROW_MAPS} maps, card vs CPU: max abs err "
           f"{err:.3e} (tol {BF16_FACTOR * yard:g} = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 "
           f"{yard:.3e})", flush=True)
     if not err <= BF16_FACTOR * yard:
-        raise SystemExit(f"n_feat {NARROW_FEAT} bf16 forward on the card vs the CPU: {err} > "
+        raise SystemExit(f"n_feat {n_feat} bf16 forward on the card vs the CPU: {err} > "
                          f"{BF16_FACTOR * yard}")
     taus = [1, 4, 7, 10]
-    drive("narrow_bf16_steps", lambda: check_sampler_vs_cpu(
-        (gpu16, cpu16, cpu32), taus, "beta", f"n_feat {NARROW_FEAT} bf16 strided w=2"),
+    drive(f"{kind}_bf16_steps", lambda: check_sampler_vs_cpu(
+        (gpu16, cpu16, cpu32), taus, "beta", f"n_feat {n_feat} bf16 strided w=2"),
         steps=len(taus), dtype="bfloat16",
-        extra={k: len(taus) * v for k, v in NARROW_PER_STEP.items()})
+        extra={k: len(taus) * v for k, v in per_step.items()})
 
 
 def check_native_prep() -> None:
@@ -2171,9 +2238,10 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     partials of both halves merged; K3 on half of FiLM stage 1's map; K1's
     halo mode on half of the w=2 serving features (summed: one spatial
     reverse step), its rows above and below from the other half's edge,
-    the bf16 kernel's narrow item in its halo mode at n_feat 32's half, and
-    the float kernel's halo mode at the widths the kernels of their own do
-    not take (40 channels in bf16; 6000 fp32 channels, no model's)."""
+    the bf16 kernel's narrow item in its halo mode at n_feat 32's half and
+    with a masked last block at n_feat 40's and 264's, and the float
+    kernel's halo mode at the widths the kernels of their own do not take
+    (6000 channels in either type, no model's)."""
     cases = []
     n = 2 * BATCH
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
@@ -2220,13 +2288,13 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
                        "cfg w=2, half of h(32,64,64,128)")]
         halo_cases += ([(f"head_step_halo_narrow{sfx}", BATCH, 32, 64, NARROW_FEAT,
                          f"cfg w=2, n_feat {NARROW_FEAT} (a narrow model), half of "
-                         f"h(32,64,64,{NARROW_FEAT})"),
-                        (f"head_step_halo_generic{sfx}", BATCH, 32, 64, GENERIC_K1_FEAT,
-                         f"cfg w=2, {GENERIC_K1_FEAT} channels (no bf16 kernel's item), half "
-                         f"of h(32,64,64,{GENERIC_K1_FEAT})")] if sfx else
-                       [(f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
-                         "cfg w=2, 6000 channels (no model's: weights over the fp32 halo "
-                         "kernel's shared memory), half of h(2,8,8,6000)")])
+                         f"h(32,64,64,{NARROW_FEAT})")]
+                       + [(f"head_step_halo_masked{sfx}", BATCH, 32, 64, c,
+                           f"cfg w=2, n_feat {c} (a masked last block), half of "
+                           f"h(32,64,64,{c})") for c in (40, WIDE_FEAT)] if sfx else [])
+        halo_cases.append((f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
+                           "cfg w=2, 6000 channels (no model's: weights over the halo "
+                           "kernels' shared memory), half of h(2,8,8,6000)"))
         for name, b, height, width, c, label in halo_cases:
             h = randn(2 * b, height, width, c).relu().to(dtype)
             halo = tuple(randn(2 * b, width, c).relu().to(dtype) for _ in range(2))

@@ -87,6 +87,22 @@ takes, :func:`narrow_candidates`), cold and after the conv; and the
 served 64-channel bf16 K1, unsharded at w=2 and in its halo mode at phase
 (r1)'s shape, old and new in turns, three rounds, with the SASS
 instruction counts of both bf16 step kernels' instances.
+
+``--generic`` compares the designs that took over the float kernels'
+bf16 instances' last model shapes: K1's narrow item with a masked last
+channel block (40 and 264 channels at 2 and 16 maps, 48 and 8 at 16; the
+halo mode at half of 40's and 264's 16 maps) and K2's wide layout
+(``groupnorm_bf16_wide_kernel``: n_feat 264's out_norm and up0_norm with
+the FiLM epilogue at 2 and 16 maps, 280's and 136's out_norm at 16),
+each against the checkout's float-kernel bf16 instance (forced through
+the routes) as ``--narrow`` does (cold, after a cuDNN bf16 conv of the
+layer before, the kernel alone; bound and library call); then K1's band
+heights and every plan of the wide layout (:func:`wide_candidates`),
+cold and after the conv, the picked one marked; then the existing bf16
+kernels (the served w=2 K1 unsharded and in its halo mode, the served K2
+heads, the narrow K1 and K2 at n_feat 32, 96 and 160) against the
+``--old`` package in turns, three rounds; with the SASS instruction
+counts of the bf16 step kernels and of the narrow and wide K2.
 Needs a CUDA card.
 """
 
@@ -142,6 +158,9 @@ def main(argv=None) -> int:
     ap.add_argument("--halo", action="store_true", help="K1's halo mode, both dtypes")
     ap.add_argument("--narrow", action="store_true",
                     help="the narrow bf16 kernels (n_feat 32, 96, 160) and the served bf16 K1")
+    ap.add_argument("--generic", action="store_true",
+                    help="K1's masked narrow item and K2's wide layout against the checkout's "
+                         "generic instances, and the existing bf16 kernels against --old")
     ap.add_argument("--prev", help="with --narrow: a revision's package dir that has the narrow "
                                    "kernels, timed against the checkout's in turns")
     args = ap.parse_args(argv)
@@ -213,6 +232,8 @@ def main(argv=None) -> int:
         return compare_sharded(randn, old_gn, chip_smoke, groupnorm)
     if args.halo:
         return compare_halo(randn, old_step, chip_smoke, sampler_step)
+    if args.generic:
+        return compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
     if args.narrow:
         prev = None
         if args.prev:
@@ -767,11 +788,74 @@ def narrow_candidates(groupnorm, n: int, hw: int, c: int, groups: int = 8) -> li
                     continue
                 if packs == groupnorm.NARROW_PACKS[0]:
                     threads = min(threads, -(-part * vs // whole) * whole)
-                plan = groupnorm.Bf16Plan(seg, cluster, threads, packs, part)
+                plan = groupnorm.NarrowPlan(seg, cluster, threads, packs, part)
                 if plan not in plans:
                     plans.append(plan)
         seg *= 2
     return plans
+
+
+def route_generic_gn(groupnorm, *a):
+    """K2 through the float kernel's bf16 instance whatever the shape."""
+    real = groupnorm.single_route
+    groupnorm.single_route = lambda n, hw, c, groups, dtype, aligned=True, sms=132: (
+        groupnorm.BF16_GENERIC_NAME, groupnorm.launch_plan(n, hw, c, groups, aligned, 2))
+    try:
+        return groupnorm.fused_groupnorm_act(*a)
+    finally:
+        groupnorm.single_route = real
+
+
+def route_generic_step(sampler_step, *a):
+    """K1 (either mode) through the float kernel's bf16 instance."""
+    real = sampler_step.route
+
+    def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
+              sms=sampler_step.SMS):
+        return ((sampler_step.HALO_GENERIC_NAMES[dtype] if halo
+                 else sampler_step.BF16_GENERIC_NAME),
+                sampler_step.launch_plan(units, height, width, c, cout, cfg, aligned, sms, 2))
+
+    sampler_step.route = route
+    try:
+        return sampler_step.fused_head_step(*a)
+    finally:
+        sampler_step.route = real
+
+
+def gn_lib(x, gamma, beta, *_):
+    """The library call beside K2: ``F.group_norm`` in x's dtype."""
+    import torch.nn.functional as F
+
+    return F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype), beta.to(x.dtype), 1e-5)
+
+
+def conv_lib(h, weight, bias, *_):
+    """The library call beside K1: the output conv, ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    return F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1)
+
+
+def generic_turns(chip_smoke, label, name, old, new, plain, lib, args, flops, before, key):
+    """Hold both, then time old (the generic instance), new, new, old
+    three ways (cold, right after ``before()``, the kernel alone), beside
+    the bound and the library call ``lib`` cold."""
+    errs = [hold(chip_smoke, name, label, f, plain, args) for f in (old, new)]
+    nb = chip_smoke.nbytes(*args, plain(*args))
+    b = max(nb / chip_smoke.HBM_BYTES_PER_S, flops / chip_smoke.BF16_FLOPS) * 1e3
+    lib_ms = chip_smoke.time_ms(lib, args)
+    for how, timer in (("cold", chip_smoke.time_ms),
+                       ("after conv", functools.partial(after, before=before)),
+                       ("kernel alone, profiler",
+                        functools.partial(kernel_alone_ms, chip_smoke, key=key))):
+        t = [timer(f, args) for f in (old, new, new, old)]
+        o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"{label} [{how}]: generic {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} "
+              f"ms (mean generic {o:.5f}, new {nw:.5f}, generic/new {o / nw:.2f}); bound "
+              f"{b:.6f} ms ({nb} bytes): share generic {b / o:.3f} new {b / nw:.3f}; "
+              f"library {lib_ms:.5f} ms (library/new {lib_ms / nw:.2f}); max err generic "
+              f"{errs[0]:.2e} new {errs[1]:.2e}", flush=True)
 
 
 def compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
@@ -792,61 +876,9 @@ def compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
     bf = torch.bfloat16
     c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
     cl = torch.channels_last
-
-    def bound(args, out, flops):
-        nb = chip_smoke.nbytes(*args, out)
-        return max(nb / chip_smoke.HBM_BYTES_PER_S, flops / chip_smoke.BF16_FLOPS) * 1e3, nb
-
-    def turns(label, name, old, new, plain, lib, args, flops, before, key):
-        """Hold both, then time old (the generic instance), new, new, old
-        three ways, and the library call cold."""
-        errs = [hold(chip_smoke, name, label, f, plain, args) for f in (old, new)]
-        b, nb = bound(args, plain(*args), flops)
-        lib_ms = chip_smoke.time_ms(lib, args)
-        for how, timer in (("cold", chip_smoke.time_ms),
-                           ("after conv", functools.partial(after, before=before)),
-                           ("kernel alone, profiler",
-                            functools.partial(kernel_alone_ms, chip_smoke, key=key))):
-            t = [timer(f, args) for f in (old, new, new, old)]
-            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            print(f"{label} [{how}]: generic {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} "
-                  f"ms (mean generic {o:.5f}, new {nw:.5f}, generic/new {o / nw:.2f}); bound "
-                  f"{b:.6f} ms ({nb} bytes): share generic {b / o:.3f} new {b / nw:.3f}; "
-                  f"library {lib_ms:.5f} ms (library/new {lib_ms / nw:.2f}); max err generic "
-                  f"{errs[0]:.2e} new {errs[1]:.2e}", flush=True)
-
-    def generic_gn(*a):
-        """K2 through the float kernel's bf16 instance whatever the shape."""
-        real = groupnorm.single_route
-        groupnorm.single_route = lambda n, hw, c, groups, dtype, aligned=True, sms=132: (
-            groupnorm.BF16_GENERIC_NAME, groupnorm.launch_plan(n, hw, c, groups, aligned, 2))
-        try:
-            return groupnorm.fused_groupnorm_act(*a)
-        finally:
-            groupnorm.single_route = real
-
-    def generic_step(*a):
-        """K1 (either mode) through the float kernel's bf16 instance."""
-        real = sampler_step.route
-
-        def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
-                  sms=sampler_step.SMS):
-            return ((sampler_step.HALO_GENERIC_NAMES[dtype] if halo
-                     else sampler_step.BF16_GENERIC_NAME),
-                    sampler_step.launch_plan(units, height, width, c, cout, cfg, aligned, sms,
-                                             2))
-
-        sampler_step.route = route
-        try:
-            return sampler_step.fused_head_step(*a)
-        finally:
-            sampler_step.route = real
-
-    def gn_lib(x, gamma, beta, *_):
-        return F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype), beta.to(x.dtype), 1e-5)
-
-    def conv_lib(h, weight, bias, *_):
-        return F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1)
+    turns = functools.partial(generic_turns, chip_smoke)
+    generic_gn = functools.partial(route_generic_gn, groupnorm)
+    generic_step = functools.partial(route_generic_step, sampler_step)
 
     k1, k2 = [], []  # (label, args, before)
     for n_feat, maps in ((32, 2), (32, 16), (96, 16), (160, 16)):
@@ -963,6 +995,160 @@ def compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
                   f"{errs[1]:.2e}", flush=True)
         print(f"served bf16 K1 {label}: old/new by round "
               + ", ".join(f"{r:.3f}" for r in ratios), flush=True)
+    return 0
+
+
+def wide_candidates(groupnorm, n: int, hw: int, c: int, groups: int = 8) -> list:
+    """Every launch plan the wide layout of the narrow bf16 K2 takes for
+    ``n`` samples of ``hw`` pixels and ``c`` channels: ``narrow_plan``'s
+    unit, CTAs of whole warps of 256 to 512 threads (the fewest idle lanes
+    under each bound, :func:`idle_lane_threads`), clusters of 1 to 8 and
+    4, 8 or 16 packs a round."""
+    picked = groupnorm.narrow_plan(n, hw, c, groups)
+    vs = picked.seg * (c // groups) // 8
+    plans = []
+    for threads in sorted({groupnorm.idle_lane_threads(vs, t) for t in (256, 384, 512)}):
+        for cluster in (1, 2, 4, 8):
+            if cluster > hw:
+                continue
+            for packs in groupnorm.NARROW_PACKS:
+                plan = groupnorm.NarrowPlan(picked.seg, cluster, threads, packs,
+                                            -(-hw // cluster), True)
+                if plan not in plans:
+                    plans.append(plan)
+    return plans
+
+
+def compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step) -> int:
+    """K1's narrow item with a masked last block and K2's wide layout: the
+    checkout's generic instances vs new in turns at 2 and 16 maps, their
+    sweeps, and the existing bf16 kernels (served w=2, the narrow widths)
+    against the earlier package in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    for name, n in sass_counts(_build, ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+                                        "groupnorm_bf16_narrow_kernel",
+                                        "groupnorm_bf16_wide_kernel")).items():
+        print(f"SASS {n} instructions: {name}", flush=True)
+    bf = torch.bfloat16
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+    cl = torch.channels_last
+    turns = functools.partial(generic_turns, chip_smoke)
+    generic_gn = functools.partial(route_generic_gn, groupnorm)
+    generic_step = functools.partial(route_generic_step, sampler_step)
+
+    def conv_before(n, cin, cout, hw):  # the layer before a head: a conv to its channels
+        u = randn(n, cin, hw, hw).to(bf).contiguous(memory_format=cl)
+        w_conv = randn(cout, cin, 3, 3).mul(0.02).to(bf).contiguous(memory_format=cl)
+        return lambda: F.conv2d(u, w_conv, padding=1)
+
+    def k1_args(n_feat, maps, height=64, halo=False):
+        h = randn(2 * maps, height, 64, n_feat).relu().to(bf)
+        weight = randn(1, n_feat, 3, 3).mul(1 / (3 * n_feat**0.5)).to(bf).contiguous(
+            memory_format=cl)
+        rows = (tuple(randn(2 * maps, 64, n_feat).relu().to(bf) for _ in range(2)),) if halo \
+            else ()
+        return (h, weight, randn(1).to(bf), randn(maps, height, 64, 1),
+                randn(maps, height, 64, 1), c_eps, inv_sqrt_a, sigma, 2.0, False, *rows)
+
+    def k2_args(c, n, hw, film):
+        rows = (randn(n, c).to(bf), randn(1, c).to(bf)) if film else None
+        return ((randn(n, hw, hw, c) * 3 + 1).to(bf), randn(c), randn(c), 8, 1e-5, "relu", rows)
+
+    k1 = [(f"K1 masked, n_feat {nf}, {maps} maps", k1_args(nf, maps),
+           conv_before(2 * maps, 2 * nf, nf, 64))
+          for nf, maps in ((40, 2), (40, 16), (264, 2), (264, 16), (48, 16), (8, 16))]
+    k1 += [(f"K1 masked halo, half of n_feat {nf}'s {maps} maps", k1_args(nf, maps, 32, True),
+            conv_before(2 * maps, 2 * nf, nf, 32)) for nf, maps in ((40, 16), (264, 16))]
+    k2 = []
+    for head, nf, maps in (("out_norm", 264, 2), ("out_norm", 264, 16), ("up0_norm", 264, 2),
+                           ("up0_norm", 264, 16), ("out_norm", 280, 16), ("out_norm", 136, 16)):
+        up0 = head == "up0_norm"
+        c, hw = (2 * nf, 16) if up0 else (nf, 64)
+        k2.append((f"K2 wide, {head}" + (" + FiLM" if up0 else "") + f" n_feat {nf}, "
+                   f"{maps} maps {(2 * maps, hw, hw, c)}", k2_args(c, 2 * maps, hw, up0),
+                   conv_before(2 * maps, c, c, hw)))
+    for label, a, before in k2:
+        flops = a[0].numel() * (12 if a[6] is not None else 10)
+        turns(label, "groupnorm_act_wide_bf16", generic_gn, groupnorm.fused_groupnorm_act,
+              groupnorm.groupnorm_act_plain, gn_lib, a, flops, before, "groupnorm")
+    for label, a, before in k1:
+        name = "head_step_halo_masked_bf16" if len(a) > 10 else "head_step_masked_bf16"
+        turns(label, name, generic_step, sampler_step.fused_head_step,
+              sampler_step.head_step_plain, conv_lib, a, a[0].numel() * 18 + a[3].numel() * 8,
+              before, "head_step")
+
+    # The new designs under every band height (K1) and plan (K2).
+    rows_all = sampler_step.ROWS_BF16
+    for label, a, before in k1:
+        if len(a) > 10 or a[3].shape[0] != 16:
+            continue
+        b, c = a[3].shape[0], a[0].shape[-1]
+        picked = sampler_step.bf16_plan(b, 64, 64, c)
+        print(f"new {label} by band rows: ms cold / after conv; the plan picks "
+              f"{tuple(picked)}:", flush=True)
+        for rows in rows_all:
+            sampler_step.ROWS_BF16 = (rows,)
+            try:
+                plan = sampler_step.bf16_plan(b, 64, 64, c)
+                hold(chip_smoke, "head_step_masked_bf16", f"{label} rows={rows}",
+                     sampler_step.fused_head_step, sampler_step.head_step_plain, a)
+                t = (chip_smoke.time_ms(sampler_step.fused_head_step, a),
+                     after(sampler_step.fused_head_step, a, before))
+            finally:
+                sampler_step.ROWS_BF16 = rows_all
+            print(f"  rows {rows} ctas {plan.ctas}: {t[0]:.5f} / {t[1]:.5f}"
+                  + (" <- picked" if plan == picked else ""), flush=True)
+    for label, a, before in k2:
+        n, hw, c = a[0].shape[0], a[0].shape[1] * a[0].shape[2], a[0].shape[-1]
+        picked = groupnorm.narrow_plan(n, hw, c, 8)
+        print(f"new {label} by plan (seg, cluster, threads, packs, part_px, wide), ms cold / "
+              f"after conv; the plan picks {tuple(picked)}:", flush=True)
+        for plan in wide_candidates(groupnorm, n, hw, c):
+            with forced(groupnorm, "narrow_plan", plan):
+                hold(chip_smoke, "groupnorm_act_wide_bf16", f"{label} plan={tuple(plan)}",
+                     groupnorm.fused_groupnorm_act, groupnorm.groupnorm_act_plain, a)
+                t = (chip_smoke.time_ms(groupnorm.fused_groupnorm_act, a),
+                     after(groupnorm.fused_groupnorm_act, a, before))
+            print(f"  {tuple(plan)} ctas {plan.ctas(n, 8)}: {t[0]:.5f} / {t[1]:.5f}"
+                  + (" <- picked" if plan == picked else ""), flush=True)
+
+    # The existing bf16 kernels against the earlier package, three rounds
+    # in turns: the served w=2 K1 (unsharded, and its halo mode at phase
+    # (r1)'s shape) and K2 heads, and the narrow kernels at n_feat 32, 96
+    # and 160 (16 maps).
+    existing = [("served K1 w=2 h(32,64,64,128)", "head_step_bf16", k1_args(128, 16)),
+                ("served K1 halo, half of the w=2 features", "head_step_halo_bf16",
+                 k1_args(128, 16, 32, True)),
+                ("served K2 out_norm (32,64,64,128)", "groupnorm_act_bf16",
+                 k2_args(128, 32, 64, False)),
+                ("served K2 up0_norm + FiLM (32,16,16,256)", "groupnorm_act_bf16",
+                 k2_args(256, 32, 16, True))]
+    for nf in (32, 96, 160):
+        existing += [(f"narrow K1 n_feat {nf}, 16 maps", "head_step_narrow_bf16",
+                      k1_args(nf, 16)),
+                     (f"narrow K2 out_norm n_feat {nf}, 16 maps", "groupnorm_act_narrow_bf16",
+                      k2_args(nf, 32, 64, False))]
+    for label, name, a in existing:
+        mods = ((old_gn, groupnorm) if name.startswith("groupnorm")
+                else (old_step, sampler_step))
+        fns = [m.fused_groupnorm_act if name.startswith("groupnorm") else m.fused_head_step
+               for m in mods]
+        plain = (groupnorm.groupnorm_act_plain if name.startswith("groupnorm")
+                 else sampler_step.head_step_plain)
+        errs = [hold(chip_smoke, name, label, f, plain, a) for f in fns]
+        ratios = []
+        for _ in range(3):
+            t = [chip_smoke.time_ms(f, a) for f in (fns[0], fns[1], fns[1], fns[0])]
+            ratios.append((t[0] + t[3]) / (t[1] + t[2]))
+            print(f"existing {label}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms "
+                  f"(old/new {ratios[-1]:.3f}); max err old {errs[0]:.2e} new {errs[1]:.2e}",
+                  flush=True)
+        print(f"existing {label}: old/new by round " + ", ".join(f"{r:.3f}" for r in ratios),
+              flush=True)
     return 0
 
 

@@ -47,7 +47,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OURS = ("head_step_kernel", "head_step_bf16_kernel", "head_step_bf16_halo_kernel",
         "head_step_halo_f32_kernel",
         "groupnorm_act_kernel",
-        "groupnorm_bf16_kernel", "groupnorm_bf16_narrow_kernel", "groupnorm_stats_kernel",
+        "groupnorm_bf16_kernel", "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
+        "groupnorm_stats_kernel",
         "groupnorm_apply_kernel",
         "film_kernel")
 # Ranges whose device time a row reports: the conv to one channel, and

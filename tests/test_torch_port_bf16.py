@@ -335,12 +335,16 @@ def test_narrow_model_bf16_eps_and_cfg_pair_match_jax(narrow, pallas_interpret, 
     gate(got_pair, *pair)
 
 
-@pytest.mark.parametrize("n_feat", [32, 96])
+@pytest.mark.parametrize("n_feat", [32, 96, 40, 264])
 def test_narrow_bf16_widths_forward_matches_jax(pallas_interpret, n_feat):
     """The folded canonical model at n_feat 32 and 96 (16x16) in bf16, the
     widths whose out_norm groups (4 and 12 channels) are not whole 16-byte
     packs and whose out_conv2 (32 and 96 channels) is an odd multiple of
-    32, as the narrow bf16 kernels take them on the card: eps of a forward
+    32, and at n_feat 40 and 264, whose out_conv2 (40, 264 channels) is no
+    multiple of 32 (the narrow item's masked last block) and whose heads'
+    units of whole packs are 40 channels and, at 264, over 256 (out_norm's
+    8 groups of 33, up0_norm's 4 of 66: the narrow kernel's wide layout),
+    as the narrow bf16 kernels take them on the card: eps of a forward
     on the port's plain path against JAX's bf16 ``ContextUnet`` (its
     Pallas GroupNorm in interpret mode), within ``FACTOR`` x JAX's own
     bf16-vs-fp32 distance on the same inputs (the module's gate)."""

@@ -196,9 +196,10 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
     together the whole map's step; ``launches_halo`` counted.  The kernels
     of their own at 128 channels (fp32: the halo kernel; bf16: the bf16
     kernel's halo mode); the float kernel's halo mode ("generic") where
-    they refuse the width (bf16: 40 channels, not a multiple of 32; fp32:
-    6000 channels on 8x8 maps, weights over the halo kernel's shared
-    memory), counted also under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
+    they refuse the width (6000 channels on 8x8 maps in either type,
+    weights over the halo kernels' shared memory; 40 bf16 channels, which
+    it took before, now take the bf16 kernel's masked narrow item),
+    counted also under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
     whole map); bf16 within four bf16 ulps of eps times the step's ``c_eps
     * inv_sqrt_a`` (the guidance combine's roundings), as ``chip_smoke.py``
     holds it, and with its own kernel equal to the unsharded bf16 kernel's
@@ -206,7 +207,7 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
     from camels_diffusion_model_tpu_torch.ops import sampler_step
 
     bf16 = dtype == torch.bfloat16
-    b, hw, c = (16, 64, 128) if kernel == "own" else (16, 64, 40) if bf16 else (1, 8, 6000)
+    b, hw, c = (16, 64, 128) if kernel == "own" else (1, 8, 6000)
     h = _randn(dev, 2 * b if w else b, hw, hw, c).relu().to(dtype)
     weight = (_randn(dev, 1, c, 3, 3, seed=2) / (3 * c**0.5)).to(dtype)
     bias = _randn(dev, 1, seed=3).to(dtype)
@@ -692,19 +693,25 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, fp32_convs, variant):
     assert (outs[0] - outs[1]).abs().max().item() <= 2 * yard
 
 
-@pytest.mark.parametrize("n_feat", [32, 96, 128, 256])
+@pytest.mark.parametrize("n_feat", [32, 96, 128, 256, 40, 264])
 def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs, n_feat):
     """A canonical bf16 model at n_feat 32 and 96 (32x32, folded):
     out_norm's 4 and 12 channels a group take the narrow bf16 GroupNorm
     kernel, out_conv2's 32 and 96 channels the bf16 step kernel's narrow
-    item; its forward and four strided w=2 steps under injected z on the
+    item; at n_feat 40 both heads (5 and 10 channels a group) the narrow
+    kernel and out_conv2 the narrow item with a masked last block; at 264
+    both heads (33 and 66 channels a group, units of 264) the narrow
+    kernel's wide layout and out_conv2 the masked narrow item; its forward
+    and four strided w=2 steps under injected z on the
     card against the CPU's bf16, within phase (o)'s yardstick
     (``BF16_FACTOR`` x the CPU's bf16 distance from its fp32), each launch
     counted under ``.launches_bf16``, the narrow ones also under
-    ``.launches_narrow_bf16``, and none of the float kernels' bf16
-    instances (``.launches_generic_bf16``).  At n_feat 128 and 256 the
-    bf16 kernels take every shape at their wide items: no narrow launch
-    (256: the forward only, the CPU's bf16 is slow)."""
+    ``.launches_narrow_bf16`` (the wide and masked ones also under
+    ``.launches_wide_bf16`` and ``.launches_masked_bf16``), and none of
+    the float kernels' bf16 instances (``.launches_generic_bf16``).  At
+    n_feat 128 and 256 the bf16 kernels take every shape at their wide
+    items: no narrow launch (256: the forward only, the CPU's bf16 is
+    slow)."""
     from camels_diffusion_model_tpu_torch.serving import load_model
     from camels_diffusion_model_tpu_torch.utils.weights import to_jax_variables
 
@@ -720,18 +727,23 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
     t = torch.rand(2, generator=g)
     c = torch.rand(2, cpu16.n_cfeat, generator=g)
     kernels = (fused_head_step, fused_groupnorm_act, fused_film)
-    counts = ("launches", "launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
+    counts = ("launches", "launches_bf16", "launches_narrow_bf16", "launches_generic_bf16",
+              "launches_masked_bf16", "launches_wide_bf16")
 
     def launched():
         return [tuple(getattr(k, n, 0) for n in counts) for k in kernels]
 
-    narrow = n_feat in (32, 96)
+    # K2's narrow launches a decoder call (up0_norm, out_norm), its wide
+    # ones, and whether K1 takes the narrow item, masked.
+    k2_narrow = {32: 1, 96: 1, 40: 2, 264: 2}.get(n_feat, 0)
+    k2_wide = 2 if n_feat == 264 else 0
+    k1_narrow, k1_masked = n_feat % 64 != 0, n_feat % 32 != 0
     before = launched()
     with torch.inference_mode():
         got = gpu16(x.to(dev), t.to(dev), c.to(dev)).cpu()
         want32, want = cpu32(x, t, c), cpu16(x, t, c)
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 0, 0, 0), (0, 2, int(narrow), 0), (0, 1, 0, 0)]
+        (0, 0, 0, 0, 0, 0), (0, 2, k2_narrow, 0, 0, k2_wide), (0, 1, 0, 0, 0, 0)]
     assert got.dtype == want.dtype == torch.bfloat16
     yard = (want.float() - want32).abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= bf16_factor * yard
@@ -745,7 +757,8 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
                         z_fn=lambda k, t: zs[k]).cpu()
             for m, d in ((gpu16, dev), (cpu16, "cpu"), (cpu32, "cpu"))]
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 4, 4 * narrow, 0), (0, 8, 4 * narrow, 0), (0, 4, 0, 0)]
+        (0, 4, 4 * k1_narrow, 0, 4 * k1_masked, 0), (0, 8, 4 * k2_narrow, 0, 0, 4 * k2_wide),
+        (0, 4, 0, 0, 0, 0)]
     yard = (outs[1] - outs[2]).abs().max().item()
     assert (outs[0] - outs[1]).abs().max().item() <= bf16_factor * yard
 
@@ -871,16 +884,21 @@ def test_groupnorm_bf16_narrow_kernel_every_plan(dev, monkeypatch, sector, sprea
 
 
 def test_bf16_generic_instances_take_only_the_shapes_the_kernels_refuse(dev, fp32_convs):
-    """The float kernels' bf16 instances still take what both bf16 kernels
-    refuse, chosen before the launch: K2 on unaligned bf16 maps of 4 and
-    12 channels a group (n_feat 96's out_norm at 16 maps: a slice of
+    """The float kernels' bf16 instances still take what every bf16
+    kernel refuses, chosen before the launch: K2 on unaligned bf16 maps of
+    4 and 12 channels a group (n_feat 96's out_norm at 16 maps: a slice of
     exactly 48 KiB, which needs the shared-memory opt-in with the kernel's
-    static arrays), K1 at 40 channels (not a multiple of 32); each against
-    its plain version under phase (c)'s gates, counted under
-    ``.launches_generic_bf16`` and not ``.launches_narrow_bf16``."""
-    for n, c in ((4, 32), (32, 96)):
-        buf = (_randn(dev, n * 64 * 64 * c + 1, seed=101) * 3 + 1).bfloat16()
-        x = buf[1:].view(n, 64, 64, c)  # 2 bytes off a 16-byte boundary
+    static arrays) and on groups of 264 channels (over 256: no model's),
+    K1 on weights of 6000 channels (over the bf16 kernel's shared memory:
+    no model's), each against its plain version under phase (c)'s gates,
+    counted under ``.launches_generic_bf16`` and not
+    ``.launches_narrow_bf16``.  K1 at 40 channels (not a multiple of 32),
+    which took the float kernel's instance before, takes the narrow item
+    with a masked last block: counted under ``.launches_narrow_bf16`` and
+    ``.launches_masked_bf16``, not ``.launches_generic_bf16``."""
+    for n, c, hw, offset in ((4, 32, 64, 1), (32, 96, 64, 1), (4, 8 * 264, 16, 0)):
+        buf = (_randn(dev, n * hw * hw * c + 1, seed=101) * 3 + 1).bfloat16()
+        x = buf[offset:offset + n * hw * hw * c].view(n, hw, hw, c)  # offset 1: 2 bytes off
         gamma, beta = _randn(dev, c, seed=102), _randn(dev, c, seed=103)
         before = (fused_groupnorm_act.launches_narrow_bf16,
                   fused_groupnorm_act.launches_generic_bf16)
@@ -890,20 +908,22 @@ def test_bf16_generic_instances_take_only_the_shapes_the_kernels_refuse(dev, fp3
         want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "relu")
         _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
     assert launch_plan(32, 64 * 64, 96, 8, False, 2).smem_bytes == 48 * 1024
-    b, c = 4, 40
-    h = _randn(dev, 2 * b, 64, 64, c, seed=104).relu().bfloat16()
-    weight = (_randn(dev, 1, c, 3, 3, seed=105) / (3 * c**0.5)).bfloat16()
-    bias = _randn(dev, 1, seed=106).bfloat16()
-    x1, z = _randn(dev, b, 64, 64, 1, seed=107), _randn(dev, b, 64, 64, 1, seed=108)
-    args = (h, weight, bias, x1, z, 0.02, 1.01, 0.3, 2.0)
-    before = (fused_head_step.launches_narrow_bf16, fused_head_step.launches_generic_bf16)
-    got = fused_head_step(*args)
-    assert (fused_head_step.launches_narrow_bf16,
-            fused_head_step.launches_generic_bf16) == (before[0], before[1] + 1)
-    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
-    eps = guided_eps(eps.bfloat16(), 2.0).float()
-    _assert_bf16_close(got, head_step_plain(*args),
-                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+    for b, hw, c, generic in ((4, 64, 40, False), (1, 8, 6000, True)):
+        h = _randn(dev, 2 * b, hw, hw, c, seed=104).relu().bfloat16()
+        weight = (_randn(dev, 1, c, 3, 3, seed=105) / (3 * c**0.5)).bfloat16()
+        bias = _randn(dev, 1, seed=106).bfloat16()
+        x1, z = _randn(dev, b, hw, hw, 1, seed=107), _randn(dev, b, hw, hw, 1, seed=108)
+        args = (h, weight, bias, x1, z, 0.02, 1.01, 0.3, 2.0)
+        counts = ("launches_narrow_bf16", "launches_masked_bf16", "launches_generic_bf16")
+        before = [getattr(fused_head_step, k) for k in counts]
+        got = fused_head_step(*args)
+        assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == (
+            [0, 0, 1] if generic else [1, 1, 0])
+        eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+        eps = guided_eps(eps.bfloat16(), 2.0).float()
+        _assert_bf16_close(got, head_step_plain(*args),
+                           4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()),
+                           fp32_rounding=1e-5)
 
 
 @pytest.mark.parametrize("tanh", [False, True])
@@ -994,3 +1014,172 @@ def test_head_step_narrow_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c
         outs.append(got)
     assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [2, 2, 0]
     assert torch.equal(torch.cat(outs, 1), whole)
+
+
+# ---- K1 with a masked last channel block, K2's wide layout -------------------
+
+MASKED_FEATS = (40, 48, 264, 8)  # K1 widths no 32-channel block divides
+
+
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("b", [2, 16])
+@pytest.mark.parametrize("c", MASKED_FEATS)
+def test_head_step_bf16_masked_block_matches_plain(dev, fp32_convs, c, b, w, tanh):
+    """K1's bf16 kernel at its narrow item with a masked last channel
+    block (40, 48, 264 and 8 channels: the last block holds 8, 16, 8 and 8
+    of its 32) on features of those widths at 2 and 16 maps, under CFG
+    (scalar and per-sample w) and without, with and without the tanh:
+    ``test_head_step_bf16_kernel_at_the_path_shapes``'s gate (4 bf16 ulps
+    of eps times c_eps / sqrt(a), the step's FMAs on all but 1%); counted
+    under ``.launches_bf16``, ``.launches_narrow_bf16`` and
+    ``.launches_masked_bf16``, none under the generic count."""
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, 64, 64, c, seed=141).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=142) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=143).bfloat16()
+    x, z = _randn(dev, b, 64, 64, 1, seed=144), _randn(dev, b, 64, 64, 1, seed=145)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    counts = ("launches_bf16", "launches_narrow_bf16", "launches_masked_bf16",
+              "launches_generic_bf16")
+    before = [getattr(fused_head_step, k) for k in counts]
+    got = fused_head_step(*args, tanh=tanh)
+    assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [1, 1, 1, 0]
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w, tanh).float()
+    _assert_bf16_close(got, head_step_plain(*args, tanh=tanh),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("rows", [8, 4, 2, 1])
+@pytest.mark.parametrize("shape,w", [((3, 12, 12, 40), 2.0), ((2, 16, 16, 264), None),
+                                     ((2, 9, 8, 8), "per-sample")])
+def test_head_step_bf16_masked_block_every_band(dev, fp32_convs, monkeypatch, rows, shape, w):
+    """The masked narrow item at every band height of ``ROWS_BF16``
+    (ragged last bands at heights 12 and 9): the same gate."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "ROWS_BF16", (rows,))
+    b, height, width, c = shape
+    cfg = w is not None
+    h = _randn(dev, 2 * b if cfg else b, height, width, c, seed=151).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=152) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=153).bfloat16()
+    x, z = (_randn(dev, b, height, width, 1, seed=154),
+            _randn(dev, b, height, width, 1, seed=155))
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+    plan = sampler_step.bf16_plan(b, height, width, c, cfg=cfg)
+    assert (plan.rows, plan.block) == (rows, sampler_step.BF16_NARROW_BLOCK)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), w).float()
+    _assert_bf16_close(fused_head_step(*args), head_step_plain(*args),
+                       4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("w", [None, 2.0])
+@pytest.mark.parametrize("c", MASKED_FEATS)
+def test_head_step_masked_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c, w):
+    """The masked narrow item's halo mode on two height shards of 16
+    maps' features of 40, 48, 264 and 8 channels: each shard against its
+    plain version (phase (r1)'s gate), and the two shards' steps equal to
+    the unsharded launch's step on the whole map bit for bit (the masked
+    products are zeros in both); counted under ``.launches_halo_bf16``,
+    ``.launches_halo_narrow_bf16`` and ``.launches_halo_masked_bf16``,
+    none under the generic halo count."""
+    b, hw = 16, 64
+    h = _randn(dev, 2 * b if w else b, hw, hw, c, seed=161).relu().bfloat16()
+    weight = (_randn(dev, 1, c, 3, 3, seed=162) / (3 * c**0.5)).bfloat16()
+    bias = _randn(dev, 1, seed=163).bfloat16()
+    x, z = _randn(dev, b, hw, hw, 1, seed=164), _randn(dev, b, hw, hw, 1, seed=165)
+    whole = fused_head_step(h, weight, bias, x, z, 0.3, 1.1, 0.2, w)
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    tol = 4 * 0.33 * _bf16_ulp(eps.abs().max().item())
+    counts = ("launches_halo_bf16", "launches_halo_narrow_bf16", "launches_halo_masked_bf16",
+              "launches_halo_generic_bf16")
+    before = [getattr(fused_head_step, k) for k in counts]
+    half, outs = hw // 2, []
+    for top, sl, bottom in ((None, slice(0, half), h[:, half]),
+                            (h[:, half - 1], slice(half, hw), None)):
+        args = (h[:, sl].contiguous(), weight, bias, x[:, sl].contiguous(),
+                z[:, sl].contiguous(), 0.3, 1.1, 0.2, w)
+        got = fused_head_step(*args, halo=(top, bottom))
+        torch.testing.assert_close(got, head_step_plain(*args, halo=(top, bottom)),
+                                   atol=tol, rtol=0)
+        outs.append(got)
+    assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [2, 2, 2, 0]
+    assert torch.equal(torch.cat(outs, 1), whole)
+
+
+WIDE_HEADS = {  # (channels, height): n_feat 264's and 280's heads, units over 256 channels
+    "n_feat 264 out_norm": (264, 64), "n_feat 264 up0_norm": (528, 16),
+    "n_feat 280 out_norm": (280, 64),
+}
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "leaky_relu"])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("maps", [2, 16])
+@pytest.mark.parametrize("head", WIDE_HEADS)
+def test_groupnorm_bf16_wide_kernel_matches_plain(dev, head, maps, film, act):
+    """The narrow bf16 K2's wide layout at n_feat 264's out_norm (8 groups
+    of 33 channels: a unit of 264, 33 packs a pixel) and up0_norm (4 of
+    66: 264) and n_feat 280's out_norm (35 packs) at 2 and 16 maps under
+    CFG, every activation, with and without the FiLM epilogue, against its
+    plain version: 2 bf16 ulps of max |out| (phase (c)'s gate), at most 1%
+    of the elements differing; counted under ``.launches_bf16``,
+    ``.launches_narrow_bf16`` and ``.launches_wide_bf16``."""
+    c, hw = WIDE_HEADS[head]
+    n = 2 * maps
+    x = (_randn(dev, n, hw, hw, c, seed=171) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, c, seed=172), _randn(dev, c, seed=173)
+    rows = ((_randn(dev, n, c, seed=174).bfloat16(),
+             _randn(dev, 1, c, seed=175).bfloat16()) if film else None)
+    args = (x, gamma, beta, 8, 1e-5, act, rows)
+    assert narrow_plan(n, hw * hw, c, 8).wide
+    counts = ("launches_bf16", "launches_narrow_bf16", "launches_wide_bf16",
+              "launches_generic_bf16")
+    before = [getattr(fused_groupnorm_act, k) for k in counts]
+    got = fused_groupnorm_act(*args)
+    assert [getattr(fused_groupnorm_act, k) - b for k, b in zip(counts, before)] == [1, 1, 1, 0]
+    want = groupnorm_act_plain(*args)
+    _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("threads,spread,part_min", [(512, 66, 8192), (256, 66, 8192),
+                                                     (320, 512, 0), (256, 1, 8192)])
+@pytest.mark.parametrize("shape,film", [((4, 64, 64, 264), False), ((8, 16, 16, 528), True),
+                                        ((32, 64, 64, 136), False), ((3, 7, 7, 264), True),
+                                        ((2, 5, 5, 8 * 255), False),
+                                        ((2, 128, 128, 40), True),
+                                        ((2, 128, 128, 320), False), ((4, 16, 16, 1088), True)])
+def test_groupnorm_bf16_wide_kernel_every_plan(dev, monkeypatch, threads, spread, part_min,
+                                               shape, film):
+    """The wide layout under CTAs of 256 to 512 threads (``WIDE_THREADS``;
+    17 to 255 packs a pixel, the lanes past the last whole pixel idle) and
+    clusters of 1 to 8 (``NARROW_SPREAD``, ``BF16_PART_MIN``: parts of
+    one to many rounds, ragged parts at 7x7 and 5x5, where the last ranks
+    of a cluster hold no pixel), at units over 256 channels (n_feat 264's
+    heads, 255 channels a group), 17 packs (n_feat 136), parts over 16
+    packs (n_feat 40 at 128x128), and groups of whole packs that the bf16
+    kernel's plan refuses (n_feat 320 at 128x128; 17 packs a group, n_feat
+    544's up0_norm), against its plain version (GELU): phase (c)'s gate, 2
+    bf16 ulps and at most 1% of the elements differing."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    monkeypatch.setattr(groupnorm, "WIDE_THREADS", threads)
+    monkeypatch.setattr(groupnorm, "NARROW_SPREAD", spread)
+    monkeypatch.setattr(groupnorm, "BF16_PART_MIN", part_min)
+    n, c = shape[0], shape[-1]
+    name, plan = groupnorm.single_route(n, shape[1] * shape[2], c, 8, torch.bfloat16)
+    assert name == groupnorm.BF16_NARROW_NAME and plan.wide
+    x = (_randn(dev, *shape, seed=176) * 3 + 1).bfloat16()
+    gamma, beta = _randn(dev, c, seed=177), _randn(dev, c, seed=178)
+    rows = ((_randn(dev, n, c, seed=179).bfloat16(), _randn(dev, 1, c, seed=180).bfloat16())
+            if film else None)
+    want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "gelu", rows)
+    _assert_bf16_close(fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "gelu", rows), want,
+                       2 * _bf16_ulp(want.float().abs().max().item()))

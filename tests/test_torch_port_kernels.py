@@ -483,6 +483,10 @@ HEAD_BF16_SHAPES = {  # (units, height, width, c, cfg): the shapes the bf16 path
     "n_feat 32 serve w=2": (16, 64, 64, 32, True), "n_feat 32 2 maps": (2, 64, 64, 32, True),
     "n_feat 96 serve w=2": (16, 64, 64, 96, True), "n_feat 160 serve w=2": (16, 64, 64, 160, True),
     "n_feat 32 exact chain": (4, 64, 64, 32, False),
+    # the narrow item with a masked last block: c a multiple of 8, not of 32
+    "n_feat 40 serve w=2": (16, 64, 64, 40, True), "n_feat 40 2 maps": (2, 64, 64, 40, True),
+    "n_feat 264 serve w=2": (16, 64, 64, 264, True), "n_feat 264 2 maps": (2, 64, 64, 264, True),
+    "n_feat 8 exact chain": (4, 64, 64, 8, False),
 }
 
 
@@ -495,9 +499,10 @@ def test_head_bf16_plan_at_the_path_shapes(shape):
     claims; shared memory (weights, the warps' rings, partials) fits in
     227 KB; the band is the shortest whose grid is one wave of two CTAs an
     SM; and the strides keep their bank patterns.  At the w=2
-    serving shape: bands of 4 rows, 256 CTAs.  Where ``c`` is an odd
-    multiple of 32 (n_feat 32, 96, 160) the narrow item, 32 pixels x 32
-    channels; else 16 pixels x 64: 2 KiB either way, ``BF16_RING``
+    serving shape: bands of 4 rows, 256 CTAs.  Where ``c`` is not a
+    multiple of 64 (n_feat 32, 96, 160; 8, 40, 264) the narrow item, 32
+    pixels x 32 channels, its weights staged as rows of ``c`` rounded up
+    to 32; else 16 pixels x 64: 2 KiB either way, ``BF16_RING``
     slots."""
     units, height, width, c, cfg = HEAD_BF16_SHAPES[shape]
     ops = sampler_step_ops
@@ -507,7 +512,9 @@ def test_head_bf16_plan_at_the_path_shapes(shape):
     assert plan.block == (ops.BF16_BLOCK if c % 64 == 0 else ops.BF16_NARROW_BLOCK)
     item_px = ops.BF16_TILE * ops.BF16_BLOCK // plan.block  # an item's pixels: 16 or 32
     ring = 2 * warps * item_px * plan.block  # bytes a ring slot takes, all warps
-    assert plan.smem_bytes == (2 * 16 * ops.weight_stride(c) + ops.BF16_RING * ring
+    staged = ops.staged_channels(c)
+    assert staged == (c if c % 64 == 0 else -(-c // 32) * 32)
+    assert plan.smem_bytes == (2 * 16 * ops.weight_stride(staged) + ops.BF16_RING * ring
                                + 4 * 9 * ops.partial_stride(m))
     assert plan.smem_bytes <= 227 * 1024
     fit = [r for r in sorted(ops.ROWS_BF16)
@@ -515,8 +522,9 @@ def test_head_bf16_plan_at_the_path_shapes(shape):
     assert plan.rows == (fit[0] if fit else max(ops.ROWS_BF16))  # one wave of 2 an SM
     assert 32 * 4 == item_px * plan.block // 8  # an item: 4 copies a lane
     assert ops.partial_stride(m) % 32 == 4 and ops.partial_stride(m) >= -(-m // 16) * 16
-    assert ops.weight_stride(c) // 8 % 8 == 4
-    if shape in ("serve w=2", "n_feat 32 serve w=2"):
+    assert ops.weight_stride(staged) // 8 % 8 == 4
+    if shape in ("serve w=2", "n_feat 32 serve w=2", "n_feat 40 serve w=2",
+                 "n_feat 264 serve w=2"):
         assert (plan.rows, plan.ctas) == (4, 256)
     tiles = -(-m // item_px)  # of an item's pixels
     owned = sorted(t for w in range(warps) for t in range(w, tiles, warps))
@@ -554,7 +562,7 @@ def test_head_bf16_staged_chunks_hit_eight_bank_groups():
                 assert len(got) == 8
 
 
-@pytest.mark.parametrize("c", [32, 96, 160])
+@pytest.mark.parametrize("c", [32, 96, 160, 8, 40, 264])
 def test_head_bf16_narrow_item_hits_eight_bank_groups(c):
     """The narrow item (32 pixels x 32 channels, 64 bytes a pixel, no
     swizzle): one quarter warp's copies (lanes 8 q .. 8 q + 7: chunk l & 3
@@ -563,28 +571,125 @@ def test_head_bf16_narrow_item_hits_eight_bank_groups(c):
     g + 8, g + 16 and g + 24) each hit 8 distinct bank groups; so do its
     B-fragment reads of
     the weights (taps g and g + 1, chunk t of a 32-channel block), whose
-    rows are ``weight_stride(c)`` apart: 4 mod 8 slots at c = 32, 96 and
-    160, where the wide item's ``c + 32`` would be 0 mod 8."""
+    rows are ``weight_stride`` of the staged channels apart (``c`` rounded
+    up to 32 where the last block is masked: 8, 40, 264): 4 mod 8 slots,
+    where at c = 32, 96 and 160 the wide item's ``c + 32`` would be 0 mod
+    8."""
     def slot(pp, q):  # the item's pixel pp, chunk q: 16-byte slots from the item's start
         return (pp * 4 + q) % 8
 
-    stride = sampler_step_ops.weight_stride(c)
-    assert stride // 8 % 8 == 4 and stride >= c and (c + 32) // 8 % 8 == 0
+    staged = sampler_step_ops.staged_channels(c)
+    stride = sampler_step_ops.weight_stride(staged)
+    assert stride // 8 % 8 == 4 and stride >= staged >= c
+    assert c % 32 or (c + 32) // 8 % 8 == 0
     for quarter in range(4):
         lanes = range(8 * quarter, 8 * quarter + 8)
         for i in range(4):  # the copies: pixel l / 4 + 8 i, chunk l & 3
             assert len({slot(l // 4 + 8 * i, l & 3) for l in lanes}) == 8
         for rows in (0, 8, 16, 24):  # the reads: rows g (+ 8, 16, 24), chunk t
             assert len({slot(l // 4 + rows, l & 3) for l in lanes}) == 8
-        for blk in range(c // 32):  # the weights: tap g, chunk t of block blk
+        for blk in range(staged // 32):  # the weights: tap g, chunk t of block blk
             assert len({((l // 4) * stride // 8 + 4 * blk + (l & 3)) % 8 for l in lanes}) == 8
 
 
-@pytest.mark.parametrize("c", [32, 96, 160])
+@pytest.mark.parametrize("c", [8, 24, 40, 96, 264, 520])
+def test_head_narrow_masked_block_stages_each_channel_once(c):
+    """The narrow item's copies of one pixel over its channel blocks (lane
+    l: chunk q = l & 3 of block icb, the 8 channels from icb * 32 + 8 q)
+    read only where the chunk starts inside ``c`` (the kernel's
+    ``inside``): every channel of the pixel is read once and none past
+    ``c`` (the next pixel's), a chunk lies wholly inside ``c`` or wholly
+    past it, and the weights are staged as rows of the padded channels,
+    zero past ``c``, so the masked products add nothing."""
+    ops = sampler_step_ops
+    plan = ops.bf16_plan(2, 16, 16, c)
+    assert plan.block == ops.BF16_NARROW_BLOCK
+    staged = ops.staged_channels(c)
+    assert staged % 32 == 0 and 0 <= staged - c < 32
+    read = np.zeros(staged, np.int64)
+    for icb in range(staged // 32):
+        for q in range(4):
+            start = icb * 32 + 8 * q
+            if start < c:
+                assert start + 8 <= c
+                read[start:start + 8] += 1
+    assert (read[:c] == 1).all() and (read[c:] == 0).all()
+    wt = np.arange(1, 9 * c + 1, dtype=np.float64).reshape(9, c)
+    rows = np.zeros((16, staged))
+    for tap in range(16):  # the staging loop: chunk q of a row, zero past c and taps 9-15
+        for q in range(staged // 8):
+            if tap < 9 and 8 * q < c:
+                rows[tap, 8 * q:8 * q + 8] = wt[tap, 8 * q:8 * q + 8]
+    assert (rows[:9, :c] == wt).all() and not rows[:, c:].any() and not rows[9:].any()
+
+
+def test_bf16_head_routes_take_the_bf16_kernel_at_every_multiple_of_8():
+    """K1 in bf16 at every ``c`` a multiple of 8 from 8 to 512, unsharded
+    and in the halo mode, at the served, two-map, exact-chain and shard
+    shapes: the bf16 kernel under :func:`bf16_plan`, at its wide item where
+    64 divides ``c`` and at the narrow item otherwise; never the float
+    kernel's bf16 instance."""
+    ops = sampler_step_ops
+    bf = torch.bfloat16
+    for c in range(8, 513, 8):
+        wide = c % 64 == 0
+        for units, height, width, cfg in ((16, 64, 64, True), (2, 64, 64, True),
+                                          (4, 64, 64, False), (16, 32, 64, True)):
+            plan = ops.bf16_plan(units, height, width, c, cfg=cfg)
+            assert plan.block == (ops.BF16_BLOCK if wide else ops.BF16_NARROW_BLOCK)
+            assert ops.route(units, height, width, c, bf, cfg=cfg) == (
+                ops.BF16_NAME if wide else ops.BF16_NARROW_NAME, plan)
+            assert ops.route(units, height, width, c, bf, cfg=cfg, halo=True) == (
+                ops.HALO_NAMES[bf] if wide else ops.HALO_NARROW_NAME, plan)
+
+
+def test_bf16_head_generic_instance_takes_only_weights_over_shared_memory():
+    """The float kernel's bf16 instance (either mode) takes exactly the
+    domain :func:`route` states: ``c`` a multiple of 8 whose weights
+    overflow :func:`bf16_plan`'s shared memory (from 5608 channels at
+    width 8) and fit :func:`launch_plan`'s; every other multiple of 8 from
+    8 to 8192 takes the bf16 kernel, and channels not a multiple of 8
+    take neither."""
+    ops = sampler_step_ops
+    bf = torch.bfloat16
+    for units, height, width, cfg in ((1, 8, 8, True), (1, 4, 8, True), (4, 64, 64, False)):
+        first = None
+        for c in range(8, 8193, 8):
+            try:
+                plan = ops.bf16_plan(units, height, width, c, cfg=cfg)
+            except ValueError as e:
+                assert "takes no path" in str(e)  # shared memory, nothing else
+                first = first or c
+                m = (2 if cfg else 1) * 3 * width  # the shortest band's pixels
+                assert (32 * ops.weight_stride(ops.staged_channels(c))
+                        + 2 * 8 * ops.BF16_RING * ops.BF16_TILE * ops.BF16_BLOCK
+                        + 36 * ops.partial_stride(m)) > ops.SMEM_MAX
+                for halo in (False, True):
+                    try:
+                        generic = ops.launch_plan(units, height, width, c, cfg=cfg,
+                                                  element_bytes=2)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            ops.route(units, height, width, c, bf, cfg=cfg, halo=halo)
+                        continue
+                    assert ops.route(units, height, width, c, bf, cfg=cfg, halo=halo) == (
+                        ops.HALO_GENERIC_NAMES[bf] if halo else ops.BF16_GENERIC_NAME, generic)
+                continue
+            assert first is None  # the domain is every c from the first refused one up
+            assert ops.route(units, height, width, c, bf, cfg=cfg)[1] == plan
+        if (units, height, width) == (1, 8, 8):
+            assert first == 5608
+        for c in (4, 36, 5604):
+            with pytest.raises(ValueError, match="channels"):
+                ops.route(units, height, width, c, bf, cfg=cfg)
+
+
+@pytest.mark.parametrize("c", [32, 96, 160, 40, 264])
 @pytest.mark.parametrize("maps", [2, 16])
 def test_head_narrow_halo_shards_cover_the_map_once(c, maps):
     """Two height shards of a narrow bf16 model's w=2 features (n_feat 32,
-    96, 160; the narrow item's plan for the shard): their bands' staged
+    96, 160; 40 and 264 with a masked last block; the narrow item's plan
+    for the shard): their bands' staged
     pixels (from ``h``, the halo rows or zero, ``band_source``'s
     arithmetic) are the padded whole map's rows each band needs, and the
     two shards' bands write every output pixel of the whole map once; the
@@ -616,7 +721,7 @@ def test_head_narrow_halo_shards_cover_the_map_once(c, maps):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"cout": 2}, "one output channel"),
-    ({"c": 40}, "channels % 32"),
+    ({"c": 36}, "channels % 8"),
     ({"aligned": False}, "aligned"),
     ({"width": 4096}, "takes no path"),
 ])
@@ -635,20 +740,24 @@ def _emulate_head_bf16_kernel(plan, h, wt, bias, x, z, c_eps, inv_sqrt_a, sigma,
     8t+3 as 2t+8, 2t+9, k-step 1 the next four; the weights' B fragments
     alike, taps 9-15 zero), then the 3x3 gather from the partials with
     the bias, ``round_eps`` (eps's rounding, per branch and in the
-    combine), the combine and the step."""
+    combine), the combine and the step.  Where ``c`` is not a multiple of
+    32 the last block is masked: its channels past ``c`` staged as zeros,
+    in the features and the weights alike."""
     units, height, width = x.shape[:3]
     c = h.shape[-1]
-    wpad = np.zeros((16, c))
-    wpad[:9] = wt
+    cpad = -(-c // 32) * 32
+    wpad = np.zeros((16, cpad))
+    wpad[:9, :c] = wt
     out = np.full(x.shape[:3], np.nan)
     pb = (plan.rows + 2) * width
     for (p, sample, gy, gx, valid), (unit, oy, ox) in _head_bf16_index_map(
             plan, units, height, width, cfg):
-        rows = np.where(valid[:, None], h[sample, np.clip(gy, 0, height - 1), gx], 0.0)
+        rows = np.zeros((len(p), cpad))
+        rows[:, :c] = np.where(valid[:, None], h[sample, np.clip(gy, 0, height - 1), gx], 0.0)
         part = np.zeros((len(p), 16))
         for tile in range(len(p) // 16):
             a_rows = rows[tile * 16:(tile + 1) * 16]
-            for blk in range(c // 32):
+            for blk in range(cpad // 32):
                 for step in range(2):
                     a = np.zeros((16, 16))
                     b = np.zeros((16, 16))
@@ -690,12 +799,12 @@ def _round_bf16(v):
 
 @pytest.mark.parametrize("rows", [None, 1, 2, 8])
 @pytest.mark.parametrize("w,tanh", [(None, False), (2.0, False), ("per-sample", True)])
-@pytest.mark.parametrize("hw,c", [(12, 64), (8, 128), (12, 32), (8, 96)])
+@pytest.mark.parametrize("hw,c", [(12, 64), (8, 128), (12, 32), (8, 96), (12, 40), (8, 24)])
 def test_head_bf16_decomposition_matches_plain(monkeypatch, rows, w, tanh, hw, c):
     """The bf16 kernel's decomposition, emulated on the CPU (a matmul of
     each band's staged pixels to 9 tap partials through the MMA fragments'
     channel permutation, then the 3x3 gather with zero rows at the map's
-    edge), on
+    edge; 40 and 24 channels with the last block masked), on
     bf16 features and weights, against :func:`head_step_plain`: summed in
     float64 against the plain version's fp32 conv, eps may round to the
     neighbouring bf16 value, so 4 bf16 ulps of eps times c_eps / sqrt(a)
@@ -832,25 +941,26 @@ def test_head_halo_routes_pick_the_kernels_of_their_own():
     :func:`halo_plan` (channels a multiple of 4), else (weights too wide
     for its shared memory) the float kernel's halo mode; bf16 at channels
     a multiple of 64 the bf16 kernel's halo mode under :func:`bf16_plan`,
-    at odd multiples of 32 its narrow item's halo mode under the same plan,
-    else the float kernel's bf16 halo mode, each under :func:`launch_plan`;
-    without ``halo`` the routes are unchanged."""
+    at other multiples of 8 its narrow item's halo mode under the same
+    plan (the last block masked where 32 does not divide them), and where
+    the weights overflow that plan's shared memory the float kernel's bf16
+    halo mode under :func:`launch_plan`; without ``halo`` the routes are
+    unchanged."""
     ops = sampler_step_ops
     f32, bf = torch.float32, torch.bfloat16
-    for c in (32, 36, 40, 64, 96, 128, 160, 256, 512):
+    for c in (32, 36, 40, 64, 96, 128, 160, 256, 264, 512):
         args = (16, 32, 64, c)
         assert ops.route(*args, f32, halo=True) == (ops.HALO_NAMES[f32], ops.halo_plan(*args))
         if c % 64 == 0:
             assert ops.route(*args, bf, halo=True) == (ops.HALO_NAMES[bf], ops.bf16_plan(*args))
-        elif c % 32 == 0:
+        elif c % 8 == 0:
             assert ops.route(*args, bf, halo=True) == (ops.HALO_NARROW_NAME,
                                                        ops.bf16_plan(*args))
-        elif c % 8 == 0:
-            assert ops.route(*args, bf, halo=True) == (
-                ops.HALO_GENERIC_NAMES[bf], ops.launch_plan(*args, element_bytes=2))
         assert ops.route(*args, f32) == (ops.C_NAME, ops.launch_plan(*args))
     assert ops.route(1, 8, 8, 6000, f32, halo=True) == (
         ops.HALO_GENERIC_NAMES[f32], ops.launch_plan(1, 8, 8, 6000))
+    assert ops.route(1, 8, 8, 6000, bf, halo=True) == (
+        ops.HALO_GENERIC_NAMES[bf], ops.launch_plan(1, 8, 8, 6000, element_bytes=2))
     with pytest.raises(ValueError, match="aligned"):
         ops.route(16, 32, 64, 128, f32, aligned=False, halo=True)
 
@@ -1186,10 +1296,12 @@ NARROW_SHAPES = {  # (n, hw, c): out_norm of the narrow widths, and small ragged
     "n_feat 16 (2 a group)": (2, 9 * 9, 16), "n_feat 40 (5 a group)": (2, 16 * 16, 40),
     "n_feat 56 (7 a group)": (5, 8 * 8, 56),
 }
-NARROW_PATH_PLANS = {  # (seg, cluster, threads, packs, part_px) at the path's widths
-    "n_feat 32 16 maps": (4, 2, 256, 16, 2048), "n_feat 32 2 maps": (4, 8, 256, 4, 512),
-    "n_feat 96 16 maps": (4, 8, 192, 16, 512), "n_feat 160 16 maps": (4, 8, 480, 16, 512),
-    "3 channels a group": (8, 1, 192, 4, 35),
+NARROW_PATH_PLANS = {  # (seg, cluster, threads, packs, part_px, wide) at the path's widths
+    "n_feat 32 16 maps": (4, 2, 256, 16, 2048, False),
+    "n_feat 32 2 maps": (4, 8, 256, 4, 512, False),
+    "n_feat 96 16 maps": (4, 8, 192, 16, 512, False),
+    "n_feat 160 16 maps": (4, 8, 480, 16, 512, False),
+    "3 channels a group": (8, 1, 192, 4, 35, False),
 }
 
 
@@ -1230,6 +1342,7 @@ def test_groupnorm_narrow_plan_covers_every_pixel_channel_and_group_once(shape):
     cg = c // 8
     uc = plan.seg * cg
     vs = uc // 8
+    assert not plan.wide  # whole warps of whole pixels hold these units
     assert uc % 8 == 0 and cg % 8 and 8 % plan.seg == 0 and uc <= 256
     seg0 = 8 // math.gcd(cg, 8)
     sector = ops.NARROW_SECTOR
@@ -1379,16 +1492,208 @@ def test_groupnorm_narrow_merge_gives_the_plain_statistics(shape, offset):
 
 
 @pytest.mark.parametrize("shape,aligned", [((4, 64, 32), False), ((4, 64, 128), True),
-                                           ((4, 64, 8 * 33), True), ((4, 64, 8 * 31), True),
+                                           ((4, 64, 8 * 257), True), ((4, 64, 8 * 264), True),
                                            ((4, 64, 30), True)])
 def test_groupnorm_narrow_plan_raises_on_shapes_it_does_not_take(shape, aligned):
-    """An unaligned tensor, channels a group a multiple of 8
-    (:func:`bf16_plan`'s shapes), a unit of whole packs over 256 channels
-    (33 a group), one whose packs a pixel leave no whole warp of pixels
-    within 512 threads (31 a group: 31 packs), or channels that do not
-    split into the groups."""
+    """An unaligned tensor, channels a group a multiple of 8 that
+    :func:`bf16_plan` takes (16 a group), a group of over 256 channels
+    (257, not whole packs; 264, whole packs that bf16_plan refuses for
+    their width), or channels that do not split into the groups."""
     with pytest.raises(ValueError):
         groupnorm_ops.narrow_plan(*shape, 8, aligned)
+
+
+# ---- K2 bf16 at units the narrow layout cannot hold: the wide layout -----------
+
+WIDE_SHAPES = {  # (n, hw, c): units over 256 channels, odd packs 17-31, large parts
+    "n_feat 264 out_norm 16 maps": (32, 64 * 64, 264),
+    "n_feat 264 out_norm 2 maps": (4, 64 * 64, 264),
+    "n_feat 264 up0_norm 16 maps": (32, 16 * 16, 528),
+    "n_feat 264 up0_norm 2 maps": (4, 16 * 16, 528),
+    "n_feat 280 out_norm 16 maps": (32, 64 * 64, 280),
+    "n_feat 528 out_norm 2 maps": (4, 64 * 64, 528),
+    "n_feat 136 out_norm (17 packs)": (32, 64 * 64, 136),
+    "n_feat 40 deep out_norm (parts over 16 packs)": (10, 128 * 128, 40),
+    "n_feat 320 deep out_norm (whole packs, parts over bf16_plan's)": (10, 128 * 128, 320),
+    "n_feat 544 up0_norm (whole packs, 17 a group)": (4, 16 * 16, 1088),
+    "33 a group, 7x7": (3, 7 * 7, 264),
+    "255 a group, 5x5": (2, 5 * 5, 8 * 255),
+}
+WIDE_PATH_PLANS = {  # (seg, cluster, threads, packs, part_px, wide)
+    "n_feat 264 out_norm 16 maps": (8, 8, 256, 4, 512, True),
+    "n_feat 264 out_norm 2 maps": (8, 8, 384, 16, 512, True),
+    "n_feat 264 up0_norm 16 maps": (4, 2, 384, 16, 128, True),
+    "n_feat 264 up0_norm 2 maps": (4, 8, 384, 4, 32, True),
+}
+
+
+def _wide_map(plan, hw, uc):
+    """The wide kernel's index map of one unit of ``uc`` channels under
+    ``plan``: per (rank, thread) its pack j = t % vs, its pixels t / vs +
+    k * (threads // vs) inside its part, by rounds of ``plan.packs``
+    (none for a lane past the last whole pixel), and its 8 channels."""
+    vs = uc // 8
+    step = plan.threads // vs
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        npx = min(hw, p0 + plan.part_px) - p0
+        for t in range(plan.threads):
+            first = t // vs if t < step * vs else npx
+            pix = np.arange(first, npx, step)
+            rounds = [pix[r:r + plan.packs] for r in range(0, len(pix), plan.packs)]
+            yield rank, t, p0, rounds, (t % vs) * 8 + np.arange(8)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=list(WIDE_SHAPES))
+def test_groupnorm_wide_plan_covers_every_pixel_and_channel_once(shape):
+    """The wide layout of the narrow bf16 K2 (``narrow_plan``'s ``wide``):
+    a unit as the narrow layout's (whole packs, at most 8 groups of at
+    most 256 channels; one group where groups are whole packs); a CTA of
+    whole warps (:func:`idle_lane_threads` of the unit's packs a pixel up
+    to ``WIDE_THREADS``), the lanes past its last whole pixel holding no
+    pixel; the smallest cluster whose parts fit 16 packs a thread, else 8
+    (a part in rounds of ``packs``), doubled while the grid is short of
+    ``NARROW_SPREAD`` CTAs and a part keeps ``BF16_PART_MIN`` bytes; where
+    parts take rounds on a grid of more CTAs than SMs, CTAs of up to
+    ``WIDE_SHARED_THREADS`` and ``WIDE_SHARED_PACKS`` a round; every
+    (pixel, channel) of a unit read once over the ranks, the threads and
+    their rounds; every group's channels once; shared memory within 227
+    KiB.  At n_feat 264's out_norm: 384 threads (11 pixels of 33 packs, 21
+    lanes idle) at 2 maps, 256 (7 pixels) at 16, clusters of 8, parts of
+    512 pixels."""
+    n, hw, c = WIDE_SHAPES[shape]
+    ops = groupnorm_ops
+    plan = ops.narrow_plan(n, hw, c, 8)
+    bf = torch.bfloat16
+    assert plan.wide and ops.single_route(n, hw, c, 8, bf) == (ops.BF16_NARROW_NAME, plan)
+    cg = c // 8
+    uc = plan.seg * cg
+    vs = uc // 8
+    assert uc % 8 == 0 and 8 % plan.seg == 0 and cg <= ops.NARROW_GROUP_CH
+    assert plan.seg == 8 // math.gcd(cg, 8) or plan.seg * cg * 2 <= 256
+    threads = ops.idle_lane_threads(vs, ops.WIDE_THREADS)
+    shared = plan.part_px > 16 * (threads // vs) and plan.ctas(n, 8) > 132
+    if shared:  # rounds on a grid of more CTAs than SMs
+        assert plan.threads == ops.idle_lane_threads(vs, max(ops.WIDE_SHARED_THREADS,
+                                                             -(-vs // 32) * 32))
+        assert plan.packs == ops.WIDE_SHARED_PACKS
+    else:
+        assert plan.threads == threads
+    assert plan.threads % 32 == 0 and vs <= plan.threads <= 512
+    step = plan.threads // vs  # pixels a step; csrc/groupnorm.cu::wide_smem_bytes's floats:
+    assert 4 * (8 * uc + 2 * step * uc + step * vs) <= 227 * 1024 - 1024  # within the opt-in
+    assert plan.packs in ops.NARROW_PACKS
+    assert plan.part_px == -(-hw // plan.cluster)  # the last ranks may hold nothing (5x5)
+    fits = [cl for cl in (1, 2, 4, 8) if -(-hw // cl) <= 16 * (threads // vs)]
+    first = fits[0] if fits and fits[0] < 8 else 8
+    assert plan.cluster >= first
+    if plan.cluster > first:  # grown only to spread a short grid
+        half = plan.cluster // 2
+        assert plan.ctas(n, 8) // 2 < ops.NARROW_SPREAD
+        assert -(-hw // half) * uc * 2 // 2 >= ops.BF16_PART_MIN
+    grows = (plan.cluster < 8 and plan.cluster < hw and plan.ctas(n, 8) < ops.NARROW_SPREAD
+             and plan.part_px * uc * 2 // 2 >= ops.BF16_PART_MIN)
+    assert not grows
+    assert shared or plan.packs == next(
+        (k for k in ops.NARROW_PACKS if k * step >= plan.part_px), 16)
+    if shape in WIDE_PATH_PLANS:
+        assert tuple(plan) == WIDE_PATH_PLANS[shape]
+    counts = np.zeros((hw, uc), np.int64)
+    group_elems = np.zeros(plan.seg, np.int64)
+    for _, t, p0, rounds, chans in _wide_map(plan, hw, uc):
+        if t >= step * vs:
+            assert not rounds  # an idle lane
+        for pix in rounds:
+            assert len(pix) <= plan.packs
+            counts[np.ix_(p0 + pix, chans)] += 1
+            np.add.at(group_elems, chans // cg, len(pix))
+    assert (counts == 1).all()
+    assert (group_elems == hw * cg).all()
+
+
+def _wide_kernel_statistics(x_unit, plan, cg):
+    """(mean, var) of each group of one unit ``(hw, seg * cg)`` float32 as
+    the wide kernel takes them: each thread's rounds (a round's per-channel
+    mean, then its centred squares, merged into the thread's by Chan's
+    formula with weight m / (count + m)), published once; one thread a
+    channel merging the threads' pixel rows in order; a group from its
+    channels; the cluster's CTAs in rank order."""
+    f32 = np.float32
+    hw, uc = x_unit.shape
+    vs = uc // 8
+    step = plan.threads // vs
+    total = None
+    for rank in range(plan.cluster):
+        p0 = min(hw, rank * plan.part_px)
+        npx = min(hw, p0 + plan.part_px) - p0
+        cnt = np.zeros(step * vs, f32)
+        mean = np.zeros((step * vs, 8), f32)
+        m2 = np.zeros((step * vs, 8), f32)
+        for t in range(step * vs):
+            j, first = t % vs, t // vs
+            pix = np.arange(first, npx, step)
+            for r in range(0, len(pix), plan.packs):
+                v = x_unit[p0 + pix[r:r + plan.packs], 8 * j:8 * j + 8].astype(f32)
+                m = len(v)
+                rm = np.zeros(8, f32)
+                for row in v:
+                    rm = (rm + row).astype(f32)
+                rm = (rm * f32(f32(1) / f32(m))).astype(f32)
+                rq = np.zeros(8, f32)
+                for row in v:
+                    d = (row - rm).astype(f32)
+                    rq = (rq + d * d).astype(f32)
+                tot = f32(cnt[t] + m)
+                f = f32(f32(m) / tot)
+                d = (rm - mean[t]).astype(f32)
+                mean[t] = (mean[t] + d * f).astype(f32)
+                m2[t] = (m2[t] + (rq + d * d * f32(cnt[t] * f))).astype(f32)
+                cnt[t] = tot
+        chan = []
+        for ch in range(uc):
+            b = (f32(0), f32(0), f32(0))
+            for r in range(step):
+                t = r * vs + ch // 8
+                b = _merge(b, (cnt[t], mean[t, ch % 8], m2[t, ch % 8]))
+            chan.append(b)
+        block = []
+        for g in range(plan.seg):
+            cm = [chan[g * cg + k][1] for k in range(cg)]
+            cq = [chan[g * cg + k][2] for k in range(cg)]
+            gm = f32(f32(sum(cm, f32(0))) / f32(cg))
+            spread = sum((f32(m - gm) * f32(m - gm) for m in cm), f32(0))
+            block.append((f32(npx * cg), gm, f32(sum(cq, f32(0)) + f32(npx) * spread)))
+        total = block if total is None else [_merge(a, b) for a, b in zip(total, block)]
+    return [(f32(t[1]), f32(f32(t[2]) / f32(t[0]))) for t in total]
+
+
+@pytest.mark.parametrize("offset", [0.0, 100.0])
+@pytest.mark.parametrize("n,hw,c", [(1, 20 * 20, 264), (1, 12 * 12, 528), (2, 9 * 9, 136),
+                                    (1, 48 * 48, 280)])
+def test_groupnorm_wide_merge_gives_the_plain_statistics(n, hw, c, offset):
+    """The wide kernel's statistics in its merge order, in float32 (each
+    thread's rounds, the threads' rows a channel, its groups from their
+    channels, the cluster's ranks), against the plain version's (the
+    mean, then the centred variance) in float64: the mean within 1e-6 of
+    its scale and the variance within 1e-5, also for maps far from zero
+    (offset 100), at n_feat 264's heads (33 and 66 channels a group, units
+    of 264), 136's out_norm (17) and 280's at 48x48 (parts in two rounds)."""
+    rs = np.random.RandomState(c + hw + int(offset))
+    x = (rs.randn(n, hw, c) * 2 + offset).astype(np.float32)
+    x = torch.tensor(x).bfloat16().float().numpy()  # the bf16 values the kernel reads
+    plan = groupnorm_ops.narrow_plan(n, hw, c, 8)
+    assert plan.wide
+    cg = c // 8
+    xg = x.reshape(n, hw, 8, cg).astype(np.float64)
+    want_mean = xg.mean(axis=(1, 3))
+    want_var = ((xg - want_mean[:, None, :, None]) ** 2).mean(axis=(1, 3))
+    for b in range(n):
+        for s0 in range(0, 8, plan.seg):
+            unit = x[b, :, s0 * cg:(s0 + plan.seg) * cg]
+            for gl, (mean, var) in enumerate(_wide_kernel_statistics(unit, plan, cg)):
+                g = s0 + gl
+                assert abs(mean - want_mean[b, g]) <= 1e-6 * (abs(want_mean[b, g]) + 1)
+                assert abs(var - want_var[b, g]) <= 1e-5 * want_var[b, g]
 
 
 # ---- K2's sharded launches: statistics and apply -------------------------------
@@ -1672,10 +1977,10 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     kernel under :func:`narrow_plan` and K1 the bf16 kernel's narrow item
     under :func:`bf16_plan` (in the halo mode too); n_feat 128 and 256
     keep the bf16 kernels at their wide items, as do the up0_norm heads (8
-    to 64 channels a group).  fp32 always takes the float kernels.  The
-    float kernels' bf16 instances are reached only by the shapes both
-    refuse: unaligned pointers, and for K1 channels not a multiple of 32
-    (24, 40)."""
+    to 64 channels a group).  fp32 always takes the float kernels.  K2's
+    float kernel's bf16 instance is reached by unaligned pointers; K1 at
+    channels not a multiple of 32 (24, 40) takes the narrow item with a
+    masked last block, not the float kernel's bf16 instance."""
     bf = torch.bfloat16
     shapes = _narrow_model_shapes(n_feat)
     narrow = n_feat in (32, 96, 160)
@@ -1706,26 +2011,80 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     assert sampler_step_ops.route(*shapes["head_step"], bf, halo=True)[0] == (
         sampler_step_ops.HALO_NARROW_NAME if narrow else sampler_step_ops.HALO_NAMES[bf])
     units, height, width, _ = shapes["head_step"]
-    for c in (24, 40):  # widths no bf16 kernel's item divides
+    for c in (24, 40):  # widths no item divides: the narrow item, its last block masked
         for halo in (False, True):
             name, plan = sampler_step_ops.route(units, height, width, c, bf, halo=halo)
-            assert name == (sampler_step_ops.HALO_GENERIC_NAMES[bf] if halo
-                            else sampler_step_ops.BF16_GENERIC_NAME)
-            assert plan == sampler_step_ops.launch_plan(units, height, width, c,
-                                                        element_bytes=2)
+            assert name == (sampler_step_ops.HALO_NARROW_NAME if halo
+                            else sampler_step_ops.BF16_NARROW_NAME)
+            assert plan == sampler_step_ops.bf16_plan(units, height, width, c)
 
 
 def test_bf16_routes_raise_where_no_kernel_takes_the_shape():
     """An unaligned bf16 feature map, or one of channels not a multiple of
-    8, takes neither K1 kernel; a group of 3 channels of a map too large
-    for the float plan (a slice over ``SPILL_MAX``) neither K2 kernel."""
+    8, takes neither K1 kernel; a group of 258 channels (over 256, not
+    whole packs: too wide for the narrow kernels and for the float
+    template's threads) no K2 kernel."""
     bf = torch.bfloat16
     with pytest.raises(ValueError, match="aligned"):
         sampler_step_ops.route(4, 64, 64, 128, bf, aligned=False)
     with pytest.raises(ValueError, match="channels"):
         sampler_step_ops.route(4, 64, 64, 36, bf)
     with pytest.raises(ValueError):
-        groupnorm_ops.single_route(2, 4096 * 4096, 24, 8, bf)
+        groupnorm_ops.single_route(2, 64, 8 * 258, 8, bf)
+
+
+@pytest.mark.parametrize("maps", [2, 16])
+@pytest.mark.parametrize("n_feat,head", [(264, "out_norm"), (280, "out_norm"),
+                                         (528, "out_norm"), (264, "up0_norm")])
+def test_bf16_groupnorm_routes_take_the_narrow_kernel_at_units_over_256_channels(
+        n_feat, head, maps):
+    """The bf16 models' heads whose unit of whole packs is over 256
+    channels (n_feat 264, 280 and 528's out_norm: 33, 35 and 66 channels a
+    group; n_feat 264's up0_norm: 66) take the narrow bf16 kernel under
+    :func:`narrow_plan` in its wide layout, at 2 and 16 maps; the bf16
+    kernel's plan refuses them; K1 at their out_conv2 takes the narrow
+    item (264, 280: masked last blocks; 528: 64-channel items)."""
+    bf = torch.bfloat16
+    shapes = _narrow_model_shapes(n_feat, maps)
+    n, hw, c = shapes[head]
+    with pytest.raises(ValueError):
+        groupnorm_ops.bf16_plan(n, hw, c, 8)
+    plan = groupnorm_ops.narrow_plan(n, hw, c, 8)
+    assert plan.wide and plan.seg * (c // 8) > 256
+    assert groupnorm_ops.single_route(n, hw, c, 8, bf) == (groupnorm_ops.BF16_NARROW_NAME, plan)
+    name, plan = sampler_step_ops.route(*shapes["head_step"], bf)
+    assert name == (sampler_step_ops.BF16_NAME if n_feat % 64 == 0
+                    else sampler_step_ops.BF16_NARROW_NAME)
+
+
+def test_bf16_groupnorm_generic_instance_takes_only_unaligned_and_wide_groups():
+    """The float kernel's bf16 instance takes exactly the domain
+    :func:`single_route` states, at 8 groups of 1 to 300 channels on the
+    heads' maps (and a 7x7 one): an unaligned pointer, or a group of over
+    256 channels; every other shape takes the bf16 kernel (groups of whole
+    packs it holds) or the narrow kernel (the rest, its wide layout
+    included); where the float template too refuses the shape, the route
+    raises.  So no head of the repository's models at widths to 1024 takes
+    it on aligned tensors."""
+    bf = torch.bfloat16
+    ops = groupnorm_ops
+    for c in range(8, 8 * 300 + 1, 8):
+        cg = c // 8
+        for n, hw in ((4, 64 * 64), (32, 16 * 16), (4, 16 * 16), (10, 128 * 128), (3, 7 * 7)):
+            for aligned in (True, False):
+                generic = not aligned or cg > 256
+                try:
+                    name, plan = ops.single_route(n, hw, c, 8, bf, aligned)
+                except ValueError:
+                    assert generic
+                    with pytest.raises(ValueError):
+                        ops.launch_plan(n, hw, c, 8, aligned, 2)
+                    continue
+                assert (name == ops.BF16_GENERIC_NAME) == generic, (c, n, hw, aligned)
+                if name == ops.BF16_NAME:
+                    assert cg % 8 == 0
+                if name == ops.BF16_NARROW_NAME:
+                    assert plan.wide or cg % 8
 
 
 # ---- wrappers on the CPU ----------------------------------------------------

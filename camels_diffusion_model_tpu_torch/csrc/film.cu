@@ -19,6 +19,12 @@
 // one 16-byte access (4 floats, 8 bf16), or pointers not 16-byte aligned,
 // take the scalar instance (V = 1).
 //
+// A pixel of over 1024 accesses (c over 4096 fp32 or 8192 bf16 channels;
+// MULTI): a thread takes accesses t, t + blockDim.x, ... of each pixel, its
+// scale and shift values loaded once for each, and the block walks pixels
+// one at a time, so every width a sample of under 2^31 elements takes a
+// kernel.
+//
 // The element type T is float or bf16.  The bf16 instance (the bf16 model,
 // where scale and shift are cast to x's type as the Pallas kernel casts
 // them, film.py:50) rounds as the JAX program does: scale * x to bf16, then
@@ -30,17 +36,33 @@
 
 namespace {
 
-template <typename T, int V>
+template <typename T, int V, bool MULTI>
 __global__ void film_kernel(const T* __restrict__ x,
                             const T* __restrict__ scale,
                             const T* __restrict__ shift,
                             T* __restrict__ out, int hw, int c,
                             int scale_stride, int shift_stride) {
   const int vpp = c / V;                 // vectors per pixel
+  const int n = blockIdx.y;
+  if constexpr (MULTI) {
+    for (int j = threadIdx.x * V; j < c; j += blockDim.x * V) {
+      const Pack<V> s = load<V>(scale + (long long)n * scale_stride + j);
+      const Pack<V> h = load<V>(shift + (long long)n * shift_stride + j);
+      const T* xs = x + (long long)n * hw * c + j;
+      T* os = out + (long long)n * hw * c + j;
+#pragma unroll 4
+      for (int p = blockIdx.x; p < hw; p += gridDim.x) {
+        Pack<V> v = load<V>(xs + p * c);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v.v[i] = round_to<T>(round_to<T>(v.v[i] * s.v[i]) + h.v[i]);
+        store<V>(os + p * c, v);
+      }
+    }
+    return;
+  }
   const int pstride = blockDim.x / vpp;  // pixels the block covers per step
   if ((int)threadIdx.x >= pstride * vpp) return;
   const int j = (threadIdx.x % vpp) * V;
-  const int n = blockIdx.y;
   const Pack<V> s = load<V>(scale + (long long)n * scale_stride + j);
   const Pack<V> h = load<V>(shift + (long long)n * shift_stride + j);
   const T* xs = x + (long long)n * hw * c + j;
@@ -55,6 +77,17 @@ __global__ void film_kernel(const T* __restrict__ x,
   }
 }
 
+template <typename T, int V>
+void film_launch(dim3 grid, int threads, cudaStream_t s, const T* x, const T* scale,
+                 const T* shift, T* out, int hw, int c, int scale_stride, int shift_stride) {
+  if (threads < c / V)  // several accesses of a pixel a thread
+    film_kernel<T, V, true><<<grid, threads, 0, s>>>(x, scale, shift, out, hw, c, scale_stride,
+                                                     shift_stride);
+  else
+    film_kernel<T, V, false><<<grid, threads, 0, s>>>(x, scale, shift, out, hw, c,
+                                                      scale_stride, shift_stride);
+}
+
 template <typename T>
 int entry(const T* x, const T* scale, const T* shift, T* out, int n, int hw, int c,
           int scale_stride, int shift_stride, int vec, int threads,
@@ -62,12 +95,13 @@ int entry(const T* x, const T* scale, const T* shift, T* out, int n, int hw, int
   if (n <= 0 || hw <= 0) return (int)cudaSuccess;
   dim3 grid((unsigned)blocks_per_sample, (unsigned)n);
   cudaStream_t s = (cudaStream_t)stream;
+  if (threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
   if (vec == kVec<T>)
-    film_kernel<T, kVec<T>><<<grid, threads, 0, s>>>(x, scale, shift, out, hw, c,
-                                                      scale_stride, shift_stride);
+    film_launch<T, kVec<T>>(grid, threads, s, x, scale, shift, out, hw, c, scale_stride,
+                            shift_stride);
   else if (vec == 1)
-    film_kernel<T, 1><<<grid, threads, 0, s>>>(x, scale, shift, out, hw, c,
-                                                scale_stride, shift_stride);
+    film_launch<T, 1>(grid, threads, s, x, scale, shift, out, hw, c, scale_stride,
+                      shift_stride);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1001,7 +1001,16 @@ cudaError_t launch_narrow_act(cudaLaunchConfig_t* cfg, bool wide, const bf16* x,
 // whole warps and the lanes past its last whole pixel idle
 // (ops/groupnorm.py::idle_lane_threads): in the statistics they hold
 // empty moments (the unit is one group, so every lane's merge is the
-// group's), in the apply they return at once.
+// group's), in the apply they return at once.  Where one pixel's accesses
+// outnumber the block (MULTI: a statistics group of over 512 of them, an
+// apply pixel of over 1024 elements or 512 packs, as n_feat 1032's
+// up0_norm: 2064 channels), a thread takes accesses t, t + blockDim.x, ...
+// of each pixel of its part, one access at a time over the part's pixels:
+// the statistics merge each into the thread's moments by Chan's formula
+// before the warp and block merges (the unit is one group), the apply
+// merges each access's group's triples and reads its gamma, beta and FiLM
+// values anew.  The pair then takes every width on one card as well
+// (ops/groupnorm.py::single_route: where the single launches refuse).
 
 // A pack of V elements of T as loaded: 16 bytes, or one element.
 template <typename T, int V>
@@ -1039,11 +1048,12 @@ constexpr int APPLY_LOADS = 4;
 // Grid: unit (sample major, segment minor) major, cluster rank minor.
 // Thread t < pstride * vs holds pack t % vs (vs = the segment's packs a
 // pixel; the block a multiple of it but where IDLE, seg 1) of pixels t /
-// vs, + pstride, ... of its part.  IDLE is a template argument so that the
-// plans of whole pixels compile as they did without idle lanes (their
-// launch read 5% slower with the test, scripts/compare_torch_kernels.py
-// --sharded).
-template <typename T, int V, bool IDLE>
+// vs, + pstride, ... of its part; with MULTI (seg 1, vs over the block)
+// packs t, t + blockDim.x, ... of every pixel of its part.  IDLE is a
+// template argument so that the plans of whole pixels compile as they did
+// without idle lanes (their launch read 5% slower with the test,
+// scripts/compare_torch_kernels.py --sharded); MULTI likewise.
+template <typename T, int V, bool IDLE, bool MULTI>
 __global__ void __launch_bounds__(STATS_THREADS) groupnorm_stats_kernel(
     const T* __restrict__ x, float* __restrict__ stats, int hw, int c, int groups, int seg,
     int cluster_size, int part_px) {
@@ -1061,29 +1071,37 @@ __global__ void __launch_bounds__(STATS_THREADS) groupnorm_stats_kernel(
   const T* xs = x + ((long long)nn * hw + p0) * c + sg * seg * cgroup + j * V;
 
   Moments m{0.0f, 0.0f, 0.0f};
-  for (int p = !IDLE || tid < pstride * vs ? tid / vs : np; p < np;
-       p += STATS_LOADS * pstride) {
-    Raw<T, V> raw[STATS_LOADS];
+  // Pixels p, p + stride, ... (STATS_LOADS of them requested at once) of
+  // the pack at src, merged into m.
+  auto stream = [&](const T* src, int p, int stride) {
+    for (; p < np; p += STATS_LOADS * stride) {
+      Raw<T, V> raw[STATS_LOADS];
 #pragma unroll
-    for (int i = 0; i < STATS_LOADS; ++i)
-      if (p + i * pstride < np) raw[i] = load_raw<T, V>(xs + (long long)(p + i * pstride) * c);
+      for (int i = 0; i < STATS_LOADS; ++i)
+        if (p + i * stride < np) raw[i] = load_raw<T, V>(src + (long long)(p + i * stride) * c);
 #pragma unroll
-    for (int i = 0; i < STATS_LOADS; ++i) {
-      if (p + i * pstride < np) {
-        const Pack<V> v = unpack<T, V>(raw[i]);
-        float sum = 0.0f;
+      for (int i = 0; i < STATS_LOADS; ++i) {
+        if (p + i * stride < np) {
+          const Pack<V> v = unpack<T, V>(raw[i]);
+          float sum = 0.0f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) sum += v.v[e];
-        const float pm = sum * (1.0f / V);
-        float pq = 0.0f;
+          for (int e = 0; e < V; ++e) sum += v.v[e];
+          const float pm = sum * (1.0f / V);
+          float pq = 0.0f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float d = v.v[e] - pm;
-          pq += d * d;
+          for (int e = 0; e < V; ++e) {
+            const float d = v.v[e] - pm;
+            pq += d * d;
+          }
+          m = merge(m, Moments{(float)V, pm, pq});
         }
-        m = merge(m, Moments{(float)V, pm, pq});
       }
     }
+  };
+  if constexpr (MULTI) {  // seg 1: every pack is the one group's
+    for (int jj = tid; jj < vs; jj += blockDim.x) stream(xs + (jj - j) * V, 0, 1);
+  } else {
+    stream(xs, !IDLE || tid < pstride * vs ? tid / vs : np, pstride);
   }
   // The lanes of one group, as in groupnorm_bf16_kernel: the butterfly
   // skips the lane bits that change the group (vpg and vs powers of two
@@ -1145,80 +1163,96 @@ struct ApplyArgs {
 };
 
 // Grid: sample major, part minor.  Thread t < pstride * (c / V) holds
-// pack t % (c / V) of pixels t / (c / V), + pstride, ... of its part.
-template <typename T, int V, int ACT, bool FILM>
+// pack t % (c / V) of pixels t / (c / V), + pstride, ... of its part; with
+// MULTI (c / V over the block) packs t, t + blockDim.x, ... of every pixel
+// of its part.
+template <typename T, int V, int ACT, bool FILM, bool MULTI>
 __global__ void __launch_bounds__(V == 1 ? 1024 : 512)
     groupnorm_apply_kernel(const ApplyArgs<T> a) {
   const int tid = threadIdx.x;
   const int vpp = a.c / V;  // packs a pixel
-  const int pstride = blockDim.x / vpp;  // pixels the block covers per step
-  if (tid >= pstride * vpp) return;  // an idle lane past the last whole pixel
   const int ctas = (a.hw + a.part_px - 1) / a.part_px;  // a sample's
   const int nn = blockIdx.x / ctas;
   const int p0 = (blockIdx.x - nn * ctas) * a.part_px;
   const int np = min(a.hw, p0 + a.part_px) - p0;
-  const int ch = (tid % vpp) * V, g = ch / (a.c / a.groups);
-  const int first = tid / vpp;
-  const T* xs = a.x + ((long long)nn * a.hw + p0) * a.c + ch;
-  T* os = a.out + ((long long)nn * a.hw + p0) * a.c + ch;
 
-  Raw<T, V> raw[APPLY_LOADS];
-  auto fetch = [&](int p) {
-#pragma unroll
-    for (int i = 0; i < APPLY_LOADS; ++i)
-      if (p + i * pstride < np) raw[i] = load_raw<T, V>(xs + (long long)(p + i * pstride) * a.c);
-  };
-  fetch(first);
+  // Pack j of pixels first, first + pstride, ... of the part.
+  auto run = [&](int j, int first, int pstride) {
+    const int ch = j * V, g = ch / (a.c / a.groups);
+    const T* xs = a.x + ((long long)nn * a.hw + p0) * a.c + ch;
+    T* os = a.out + ((long long)nn * a.hw + p0) * a.c + ch;
 
-  // Chan's merge of the shards' (count, mean, M2) of (sample, group), in
-  // shard order.
-  const long long ngs = (long long)a.n * a.groups, ng = (long long)nn * a.groups + g;
-  float cnt = a.parts[ng * 3], mean = a.parts[ng * 3 + 1], m2 = a.parts[ng * 3 + 2];
-  for (int k = 1; k < a.n_parts; ++k) {
-    const float* q = a.parts + (k * ngs + ng) * 3;
-    const float nb = q[0], nab = cnt + nb, delta = q[1] - mean;
-    mean = mean + delta * (nb / nab);
-    m2 = m2 + q[2] + delta * delta * (cnt * nb / nab);
-    cnt = nab;
-  }
-  const float rstd = rsqrtf(m2 / cnt + a.eps);
-  const Pack<V> ga = load<V>(a.gamma + ch), be = load<V>(a.beta + ch);
-  Pack<V> sc{}, sh{};
-  if constexpr (FILM) {
-    sc = load<V>(a.scale + (long long)nn * a.scale_stride + ch);
-    sh = load<V>(a.shift + (long long)nn * a.shift_stride + ch);
-  }
+    Raw<T, V> raw[APPLY_LOADS];
+    auto fetch = [&](int p) {
+#pragma unroll
+      for (int i = 0; i < APPLY_LOADS; ++i)
+        if (p + i * pstride < np)
+          raw[i] = load_raw<T, V>(xs + (long long)(p + i * pstride) * a.c);
+    };
+    fetch(first);
 
-  for (int p = first; p < np; p += APPLY_LOADS * pstride) {
-    if (p != first) fetch(p);
+    // Chan's merge of the shards' (count, mean, M2) of (sample, group), in
+    // shard order.
+    const long long ngs = (long long)a.n * a.groups, ng = (long long)nn * a.groups + g;
+    float cnt = a.parts[ng * 3], mean = a.parts[ng * 3 + 1], m2 = a.parts[ng * 3 + 2];
+    for (int k = 1; k < a.n_parts; ++k) {
+      const float* q = a.parts + (k * ngs + ng) * 3;
+      const float nb = q[0], nab = cnt + nb, delta = q[1] - mean;
+      mean = mean + delta * (nb / nab);
+      m2 = m2 + q[2] + delta * delta * (cnt * nb / nab);
+      cnt = nab;
+    }
+    const float rstd = rsqrtf(m2 / cnt + a.eps);
+    const Pack<V> ga = load<V>(a.gamma + ch), be = load<V>(a.beta + ch);
+    Pack<V> sc{}, sh{};
+    if constexpr (FILM) {
+      sc = load<V>(a.scale + (long long)nn * a.scale_stride + ch);
+      sh = load<V>(a.shift + (long long)nn * a.shift_stride + ch);
+    }
+
+    for (int p = first; p < np; p += APPLY_LOADS * pstride) {
+      if (p != first) fetch(p);
 #pragma unroll
-    for (int i = 0; i < APPLY_LOADS; ++i) {
-      const int q = p + i * pstride;
-      if (q < np) {
-        Pack<V> v = unpack<T, V>(raw[i]);
+      for (int i = 0; i < APPLY_LOADS; ++i) {
+        const int q = p + i * pstride;
+        if (q < np) {
+          Pack<V> v = unpack<T, V>(raw[i]);
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float y = activate((v.v[e] - mean) * rstd * ga.v[e] + be.v[e], ACT);
-          if constexpr (FILM)
-            v.v[e] = round_to<T>(round_to<T>(round_to<T>(y) * sc.v[e]) + sh.v[e]);
-          else
-            v.v[e] = y;
+          for (int e = 0; e < V; ++e) {
+            const float y = activate((v.v[e] - mean) * rstd * ga.v[e] + be.v[e], ACT);
+            if constexpr (FILM)
+              v.v[e] = round_to<T>(round_to<T>(round_to<T>(y) * sc.v[e]) + sh.v[e]);
+            else
+              v.v[e] = y;
+          }
+          store<V>(os + (long long)q * a.c, v);
         }
-        store<V>(os + (long long)q * a.c, v);
       }
     }
+  };
+  if constexpr (MULTI) {
+    for (int j = tid; j < vpp; j += blockDim.x) run(j, 0, 1);
+  } else {
+    const int pstride = blockDim.x / vpp;  // pixels the block covers per step
+    if (tid >= pstride * vpp) return;  // an idle lane past the last whole pixel
+    run(tid % vpp, tid / vpp, pstride);
   }
 }
 
 template <typename T, int V>
 cudaError_t apply_launch(dim3 grid, int threads, cudaStream_t stream, const ApplyArgs<T>& a,
                          int act) {
+  const bool multi = threads < a.c / V;  // a thread takes several packs of a pixel
 #define CAMELS_GROUPNORM_APPLY(A)                                                         \
   if (act == A) {                                                                         \
-    if (a.scale)                                                                          \
-      groupnorm_apply_kernel<T, V, A, true><<<grid, threads, 0, stream>>>(a);             \
+    if (multi && a.scale)                                                                 \
+      groupnorm_apply_kernel<T, V, A, true, true><<<grid, threads, 0, stream>>>(a);       \
+    else if (multi)                                                                       \
+      groupnorm_apply_kernel<T, V, A, false, true><<<grid, threads, 0, stream>>>(a);      \
+    else if (a.scale)                                                                     \
+      groupnorm_apply_kernel<T, V, A, true, false><<<grid, threads, 0, stream>>>(a);      \
     else                                                                                  \
-      groupnorm_apply_kernel<T, V, A, false><<<grid, threads, 0, stream>>>(a);            \
+      groupnorm_apply_kernel<T, V, A, false, false><<<grid, threads, 0, stream>>>(a);     \
     return cudaGetLastError();                                                            \
   }
   CAMELS_GROUPNORM_APPLY(0)
@@ -1229,6 +1263,18 @@ cudaError_t apply_launch(dim3 grid, int threads, cudaStream_t stream, const Appl
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int V>
+cudaError_t stats_launch(const cudaLaunchConfig_t* cfg, bool idle, bool multi, const T* x,
+                         float* stats, int hw, int c, int groups, int seg, int cluster,
+                         int part_px) {
+  return multi ? cudaLaunchKernelEx(cfg, groupnorm_stats_kernel<T, V, false, true>, x, stats,
+                                    hw, c, groups, seg, cluster, part_px)
+         : idle ? cudaLaunchKernelEx(cfg, groupnorm_stats_kernel<T, V, true, false>, x, stats,
+                                     hw, c, groups, seg, cluster, part_px)
+                : cudaLaunchKernelEx(cfg, groupnorm_stats_kernel<T, V, false, false>, x, stats,
+                                     hw, c, groups, seg, cluster, part_px);
+}
+
 template <typename T>
 int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int vec, int seg,
                 int cluster, int threads, int part_px, void* stream) {
@@ -1236,10 +1282,10 @@ int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int 
   if ((vec != 1 && vec != kVec<T>) || groups <= 0 || c % groups || c / groups % vec)
     return (int)cudaErrorInvalidValue;
   const int vpg = c / groups / vec, vs = vpg * seg;
+  const bool multi = threads < vs;  // seg 1: a thread takes several packs of a pixel
   if (seg < 1 || seg > MAX_SEG || groups % seg || (seg > 1 && (vs & (vs - 1))) ||
-      threads > STATS_THREADS || threads % 32 || threads < vs || (seg > 1 && threads % vs) ||
-      cluster < 1 ||
-      cluster > 8 || part_px < 1)
+      threads <= 0 || threads > STATS_THREADS || threads % 32 || (multi && seg > 1) ||
+      (seg > 1 && threads % vs) || cluster < 1 || cluster > 8 || part_px < 1)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * (groups / seg) * cluster));
@@ -1252,16 +1298,12 @@ int stats_entry(const T* x, float* stats, int n, int hw, int c, int groups, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;  // a cluster of 1 is launched as a plain grid
-  const bool idle = threads % vs != 0;  // lanes past the last whole pixel
+  const bool idle = !multi && threads % vs != 0;  // lanes past the last whole pixel
   cudaError_t err =
-      vec == 1 ? (idle ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1, true>, x, stats,
-                                            hw, c, groups, seg, cluster, part_px)
-                       : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, 1, false>, x, stats,
-                                            hw, c, groups, seg, cluster, part_px))
-      : idle ? cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>, true>, x, stats, hw,
-                                  c, groups, seg, cluster, part_px)
-             : cudaLaunchKernelEx(&cfg, groupnorm_stats_kernel<T, kVec<T>, false>, x, stats, hw,
-                                  c, groups, seg, cluster, part_px);
+      vec == 1 ? stats_launch<T, 1>(&cfg, idle, multi, x, stats, hw, c, groups, seg, cluster,
+                                    part_px)
+               : stats_launch<T, kVec<T>>(&cfg, idle, multi, x, stats, hw, c, groups, seg,
+                                          cluster, part_px);
   cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -1273,7 +1315,7 @@ int apply_entry(const T* x, const float* parts, const float* gamma, const float*
                 int threads, int part_px, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if ((vec != 1 && vec != kVec<T>) || groups <= 0 || c % groups || c / groups % vec ||
-      n_parts < 1 || part_px < 1 || threads % 32 || threads < c / vec ||
+      n_parts < 1 || part_px < 1 || threads <= 0 || threads % 32 ||
       threads > (vec == 1 ? 1024 : 512))
     return (int)cudaErrorInvalidValue;
   const ApplyArgs<T> a{x,  parts, gamma,  beta,    scale,        shift,        out, n_parts,

@@ -51,28 +51,26 @@
 //
 // Halo rows (a height shard of a spatial mesh, where out_conv2's window
 // reads one row beyond the shard on each side; XLA's SPMD partitioner
-// exchanges them in JAX): the HALO template argument.  top and bottom are
-// (units' samples, width, c) of h's type: the row above this shard's first
-// and the row below its last, for every sample h holds, or null at the
-// image's edge.  A band's halo row -1 or `height` is then copied from them
-// instead of zero-filled (a null row stays zero-filled); a copy's offset
-// into them (bottom's after top's) is encoded as -2 - offset, so the copies
-// keep one int each.  HALO false is the unsharded kernel as it was.
+// exchanges them in JAX): the kernels of their own below take top and
+// bottom, (units' samples, width, c) of h's type: the row above this
+// shard's first and the row below its last, for every sample h holds, or
+// null at the image's edge.  A band's halo row -1 or `height` is then
+// copied from them instead of zero-filled (a null row stays zero-filled).
 //
-// The template serves the float unsharded launch, and the shapes the
-// kernels of their own below do not take: the bf16 unsharded launch and
-// halo mode and the float halo mode where their weights outgrow shared
-// memory (c in the thousands; ops/sampler_step.py::route).  The bf16
-// launches are otherwise head_step_bf16_kernel and
-// head_step_bf16_halo_kernel below, at items of 64 channels or, where c
-// is any other multiple of 8 (n_feat 8-56, 72, 96, 160, 264, ...), of 32,
-// the last block masked past c (in bf16 the template's taps on CUDA cores
-// did twice the arithmetic per staged byte, one CTA fit an SM, and the
-// first chunk's copy was exposed), the float halo mode
-// head_step_halo_f32_kernel (the template's halo mode ran one
-// CTA an SM with a 2-stage ring and a block barrier per chunk), each with
-// the same arithmetic and roundings.
-//
+// The template (head_step_kernel) serves the float unsharded launch.  The bf16
+// launches are head_step_bf16_kernel and head_step_bf16_halo_kernel below,
+// at items of 64 channels or, where c is any other multiple of 8 (n_feat
+// 8-56, 72, 96, 160, 264, ...), of 32, the last block masked past c (in
+// bf16 the template's taps on CUDA cores did twice the arithmetic per
+// staged byte, one CTA fit an SM, and the first chunk's copy was exposed),
+// the float halo mode head_step_halo_f32_kernel (the template's halo mode
+// ran one CTA an SM with a 2-stage ring and a block barrier per chunk),
+// each with the same arithmetic and roundings.  Where their weights
+// outgrow shared memory (c in the thousands) or h has 2^31 elements or
+// more, the split launch below (head_step_*_split_kernel, then
+// head_step_combine_kernel) takes the shape in either type and mode
+// (ops/sampler_step.py::route).
+
 // The feature type T is float or bf16 (h, the (9, c) weights and the bias;
 // the bf16 model's out_conv2, context_unet.py:314, casts its fp32 kernel
 // and bias to bf16 as blocks.py:122 does).  Products of bf16 values are
@@ -84,6 +82,8 @@
 // chunk's bytes, and so the plan, are the same at twice the channels.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "pack.cuh"
 
@@ -167,10 +167,10 @@ __device__ __forceinline__ Source<E> band_source(const Band& b, const E* h, cons
 // band is at global row y0 - 1 + p / width.  Dynamic shared memory: the
 // weights [9][c] as floats, then STAGES stages of [2T][STRIDE] elements of
 // E; the partials [9][2T] (floats) reuse the ring at the end.
-template <typename E, int CK, int STAGES, bool HALO>
+template <typename E, int CK, int STAGES>
 __global__ void head_step_kernel(
-    const E* __restrict__ h, const E* __restrict__ top, const E* __restrict__ bottom,
-    const E* __restrict__ wt, const E* __restrict__ bias, const float* __restrict__ x,
+    const E* __restrict__ h, const E* __restrict__ wt, const E* __restrict__ bias,
+    const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
     float w, float* __restrict__ out, int batch, int height, int width, int c,
     int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
@@ -204,31 +204,14 @@ __global__ void head_step_kernel(
     src[m] = gy >= 0 && gy < height
                  ? ((sample * height + gy) * width + (pix - lr * width)) * c + j * L
                  : -1;
-    if constexpr (HALO) {
-      const int nd = cfg ? 2 * batch : batch;  // samples of h (and of the halo rows)
-      if (gy == -1 || gy == height)
-        src[m] = -2 - (((gy == height) * nd + sample) * width + (pix - lr * width)) * c -
-                 j * L;
-    }
   }
-  const int row_elems = (cfg ? 2 * batch : batch) * width * c;  // of top: bottom's follow
   auto issue = [&](int chunk) {
     E* st = ring + (chunk % STAGES) * stage_elems;
 #pragma unroll
     for (int m = 0; m < 2 * V; ++m) {
       const int i = tid + m * T;
-      if constexpr (HALO) {
-        const int o = -2 - src[m];  // a halo row's offset
-        const E* row = o >= row_elems ? bottom : top;
-        const bool halo_row = src[m] < -1 && row != nullptr;
-        const E* from = src[m] >= 0 ? h + src[m] + chunk * CK
-                        : halo_row  ? row + (o >= row_elems ? o - row_elems : o) + chunk * CK
-                                    : h;
-        cp_async16(st + (i / V) * STRIDE + (i % V) * L, from, src[m] >= 0 || halo_row);
-      } else {
-        cp_async16(st + (i / V) * STRIDE + (i % V) * L,
-                   src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
-      }
+      cp_async16(st + (i / V) * STRIDE + (i % V) * L,
+                 src[m] >= 0 ? h + src[m] + chunk * CK : h, src[m] >= 0);
     }
   };
 
@@ -326,28 +309,28 @@ __global__ void head_step_kernel(
   }
 }
 
-template <typename E, int CK, int STAGES, bool HALO>
+template <typename E, int CK, int STAGES>
 cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
-                   const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+                   const E* h, const E* wt, const E* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c,
                    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
                    int tanh_out) {
   cudaError_t err = cudaSuccess;
   if (smem_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(head_step_kernel<E, CK, STAGES, HALO>,
+    err = cudaFuncSetAttribute(head_step_kernel<E, CK, STAGES>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
-    head_step_kernel<E, CK, STAGES, HALO><<<grid, threads, smem_bytes, stream>>>(
-        h, top, bottom, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c,
+    head_step_kernel<E, CK, STAGES><<<grid, threads, smem_bytes, stream>>>(
+        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c,
         rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 // ck: channels per staged chunk, 128, 64, 32 or 16 bytes of them.
-template <typename E, bool HALO>
-int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+template <typename E>
+int entry(const E* h, const E* wt, const E* bias,
           const float* x,
           const float* z,
           const float* w_per_sample, float w, float* out, int batch, int height,
@@ -360,11 +343,9 @@ int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
   constexpr int K = 32 / (int)sizeof(E);  // channels of 32 bytes
 #define CAMELS_HEAD_STEP(CK, STAGES)                                                 \
   if (ck == CK && stages == STAGES)                                                  \
-    return (int)launch<E, CK, STAGES, HALO>(grid, threads, smem_bytes, st, h, top,   \
-                                            bottom, wt, bias, x, z, w_per_sample, w, \
-                                            out,                                     \
-                                            batch, height, width, c, rows, cfg,      \
-                                            c_eps, inv_sqrt_a, sigma, tanh_out);
+    return (int)launch<E, CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, z, \
+                                      w_per_sample, w, out, batch, height, width, c,     \
+                                      rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   CAMELS_HEAD_STEP(4 * K, 2)
   CAMELS_HEAD_STEP(4 * K, 3)
   CAMELS_HEAD_STEP(2 * K, 2)
@@ -435,6 +416,35 @@ int entry(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
 // instance's text is kept as it was (if constexpr), so its SASS does not
 // change (68 registers, 2424 instructions; the halo mode 86, 2744).
 
+// The split launch's epilogue (SPLIT in bf16_step_body and f32_step_body):
+// each of the band's outs output pixels (o = tid, tid + threads, ...; the
+// first at element `first` of the map's pixels) gets, per branch, the sum
+// of its 3x3 neighbourhood's per-tap partials (part: [9][pstride], a
+// branch's staged pixels pb apart) in the band kernels' gather order, no
+// bias, stored to part_out[s * npix + pixel].
+__device__ __forceinline__ void store_range_sums(const float* part, int pb, int pstride,
+                                                 int width, int outs, int cfg, long long first,
+                                                 int tid, int threads, float* part_out,
+                                                 long long npix) {
+  for (int o = tid; o < outs; o += threads) {
+    const int r = o / width, xx = o - r * width;
+    for (int s = 0; s < (cfg ? 2 : 1); ++s) {
+      const float* ps = part + s * pb;
+      float sum = 0.0f;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* prow = ps + (r + ky) * width;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const int gx = xx + kx - 1;
+          if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * pstride + gx];
+        }
+      }
+      part_out[s * npix + first + (o - tid)] = sum;
+    }
+  }
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
                                          unsigned a3, unsigned b0, unsigned b1) {
   asm volatile(
@@ -485,14 +495,20 @@ constexpr int RING = 3;
 // extra products are zeros and each pixel's fp32 partials are the sums of
 // its c channels alone; the halo mode masks alike, and two shards still
 // equal the unsharded launch bit for bit.
-template <int IB, typename SourceOf>
+//
+// SPLIT (head_step_bf16_split_kernel): c is the CTA's channel range, wt its
+// first weight column and wrow the weights' row stride (the whole c); no
+// step: each output pixel's per-branch sum of the 3x3 gather (no bias) goes
+// to part_out[s * npix + pixel] (head_step_combine_kernel sums the ranges).
+template <int IB, bool SPLIT, typename SourceOf>
 __device__ __forceinline__ void bf16_step_body(
     SourceOf source_of, int unit, int y0, int pb, int m, const bf16* __restrict__ h,
     const bf16* __restrict__ wt, const bf16* __restrict__ bias,
     const float* __restrict__ x, const float* __restrict__ z,
     const float* __restrict__ w_per_sample, float w, float* __restrict__ out,
     int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
-    float sigma, int tanh_out) {
+    float sigma, int tanh_out, int wrow = 0, float* __restrict__ part_out = nullptr,
+    long long npix = 0) {
   constexpr int BLOCK = IB;  // the item's channels
   constexpr int IPX = TILE * 64 / BLOCK;  // an item's pixels: one tile, or the narrow item's two
   constexpr int SLOT = IPX * BLOCK;  // elements (2 KiB)
@@ -555,32 +571,34 @@ __device__ __forceinline__ void bf16_step_body(
     cp_async_commit();
   }
 
+  const int wr = SPLIT ? wrow : c;  // the weights' row stride
   if constexpr (BLOCK == 64) {
     for (int i = tid; i < 16 * (c / 8); i += BF16_THREADS) {
       const int tap = i / (c / 8), q = i - tap * (c / 8);
       *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
-          tap < 9 ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
+          tap < 9 ? *reinterpret_cast<const uint4*>(wt + tap * wr + 8 * q)
                   : make_uint4(0u, 0u, 0u, 0u);
     }
   } else {  // rows of cpad channels, zero past c
     for (int i = tid; i < 16 * (cpad / 8); i += BF16_THREADS) {
       const int tap = i / (cpad / 8), q = i - tap * (cpad / 8);
       *reinterpret_cast<uint4*>(ws + tap * wstride + 8 * q) =
-          tap < 9 && 8 * q < c ? *reinterpret_cast<const uint4*>(wt + tap * c + 8 * q)
+          tap < 9 && 8 * q < c ? *reinterpret_cast<const uint4*>(wt + tap * wr + 8 * q)
                                : make_uint4(0u, 0u, 0u, 0u);
     }
   }
   // The step's inputs of this thread's first OUTS output pixels.
-  const float b0 = to_float(*bias);
-  const float wu = round_to<bf16>(cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
+  const float b0 = SPLIT ? 0.0f : to_float(*bias);
+  const float wu =
+      round_to<bf16>(cfg && !SPLIT ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
   const int outs = min(rows, height - y0) * width;
   const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
   float xs[OUTS], zs[OUTS];
 #pragma unroll
   for (int k = 0; k < OUTS; ++k) {
     const int o = tid + k * BF16_THREADS;
-    xs[k] = o < outs ? x[first + k * BF16_THREADS] : 0.0f;
-    zs[k] = o < outs && z ? z[first + k * BF16_THREADS] : 0.0f;
+    xs[k] = o < outs && !SPLIT ? x[first + k * BF16_THREADS] : 0.0f;
+    zs[k] = o < outs && !SPLIT && z ? z[first + k * BF16_THREADS] : 0.0f;
   }
   __syncthreads();  // the weights are staged
 
@@ -666,6 +684,11 @@ __device__ __forceinline__ void bf16_step_body(
   cp_async_wait<0>();
   __syncthreads();  // every partial is in shared memory
 
+  if constexpr (SPLIT) {
+    store_range_sums(part, pb, pstride, width, outs, cfg, first, tid, BF16_THREADS, part_out,
+                     npix);
+    return;
+  }
   // Output pixel o = tid + k * BF16_THREADS, its x and z prefetched for k < OUTS.
   auto step = [&](int k, float xo, float zo) {
     const int o = tid + k * BF16_THREADS;
@@ -726,8 +749,9 @@ __global__ void __launch_bounds__(BF16_THREADS) head_step_bf16_kernel(
     const int s = p >= pb, qq = p - s * pb;
     return Source<bf16>{h, (s ? base1 : base0) + qq * c, p < m && qq >= q_lo && qq < q_hi};
   };
-  bf16_step_body<IB>(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w, out,
-                     height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+  bf16_step_body<IB, false>(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w,
+                            out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma,
+                            tanh_out);
 }
 
 // The halo mode: a band's row -1 or `height` copied from the halo rows
@@ -746,8 +770,9 @@ __global__ void __launch_bounds__(BF16_THREADS, 2) head_step_bf16_halo_kernel(
   const int y0 = (blockIdx.x - unit * bands) * rows;
   const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
   auto source_of = [&](int p) { return band_source<bf16>(band, h, top, bottom, p, c); };
-  bf16_step_body<IB>(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z, w_per_sample,
-                     w, out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+  bf16_step_body<IB, false>(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z,
+                            w_per_sample, w, out, height, width, c, rows, cfg, c_eps,
+                            inv_sqrt_a, sigma, tanh_out);
 }
 
 // ---- The float halo mode: warp-private rings, the taps on CUDA cores. ----
@@ -809,13 +834,17 @@ constexpr int F32_OUTS = 1;       // output pixels a thread's x and z are prefet
 // rounded up to F32_CK), the warps' rings (8 x F32_RING slots of F32_TILE
 // x F32_CK floats), then the partials [9][pstride] (pstride: the tiles'
 // pixels).
-__global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
-    const float* __restrict__ h, const float* __restrict__ top,
-    const float* __restrict__ bottom, const float* __restrict__ wt,
-    const float* __restrict__ bias, const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
-    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
-    float sigma, int tanh_out) {
+// source_of(p) is band pixel p's channel 0 (a Source<float>), pb and m as
+// bf16_step_body's.  SPLIT (head_step_f32_split_kernel): c, wt, wrow,
+// part_out and npix as bf16_step_body's.
+template <bool SPLIT, typename SourceOf>
+__device__ __forceinline__ void f32_step_body(
+    SourceOf source_of, int unit, int y0, int pb, int m, const float* __restrict__ h,
+    const float* __restrict__ wt, const float* __restrict__ bias, const float* __restrict__ x,
+    const float* __restrict__ z, const float* __restrict__ w_per_sample, float w,
+    float* __restrict__ out, int height, int width, int c, int rows, int cfg, float c_eps,
+    float inv_sqrt_a, float sigma, int tanh_out, int wrow = 0,
+    float* __restrict__ part_out = nullptr, long long npix = 0) {
   constexpr int SLOT = F32_TILE * F32_CK;  // floats
   constexpr int WARPS = F32_THREADS / 32;
   constexpr int PX = F32_TILE / 8;      // tile pixels a lane reduces
@@ -825,11 +854,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cblocks = (c + F32_CK - 1) / F32_CK, c32 = cblocks * F32_CK;
   float* ring = ws + 9 * c32 + warp * F32_RING * SLOT;  // this warp's
-  const int bands = (height + rows - 1) / rows;
-  const int unit = blockIdx.x / bands;
-  const int y0 = (blockIdx.x - unit * bands) * rows;
-  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
-  const int tiles = (band.m + F32_TILE - 1) / F32_TILE;
+  const int tiles = (m + F32_TILE - 1) / F32_TILE;
   const int pstride = tiles * F32_TILE;
   float* part = ws + 9 * c32 + WARPS * F32_RING * SLOT;
   const int items = tiles > warp ? ((tiles - 1 - warp) / WARPS + 1) * cblocks : 0;
@@ -847,8 +872,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
     for (int i = 0; i < COPIES; ++i) {
       const int pp = (lane >> 3) + 4 * i;
       if (cb == 0) {
-        const Source<float> src = band_source<float>(
-            band, h, top, bottom, (warp + k * WARPS) * F32_TILE + pp, c);
+        const Source<float> src = source_of((warp + k * WARPS) * F32_TILE + pp);
         from[i] = src.reads ? src.array + src.off : nullptr;
       }
       const bool reads = from[i] != nullptr && inside;
@@ -862,23 +886,24 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
     cp_async_commit();
   }
 
+  const int wr = SPLIT ? wrow : c;  // the weights' row stride
   for (int i = tid; i < 9 * c32 / 4; i += F32_THREADS) {
     const int tap = i / (c32 / 4), q = i - tap * (c32 / 4);
     reinterpret_cast<float4*>(ws)[i] = 4 * q < c
-        ? *reinterpret_cast<const float4*>(wt + tap * c + 4 * q)
+        ? *reinterpret_cast<const float4*>(wt + tap * wr + 4 * q)
         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   // The step's inputs of this thread's first F32_OUTS output pixels.
-  const float b0 = *bias;
-  const float wu = cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f;
+  const float b0 = SPLIT ? 0.0f : *bias;
+  const float wu = cfg && !SPLIT ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f;
   const int out_rows = min(rows, height - y0), outs = out_rows * width;
   const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
   float xs[F32_OUTS], zs[F32_OUTS];
 #pragma unroll
   for (int k = 0; k < F32_OUTS; ++k) {
     const int o = tid + k * F32_THREADS;
-    xs[k] = o < outs ? x[first + k * F32_THREADS] : 0.0f;
-    zs[k] = o < outs && z ? z[first + k * F32_THREADS] : 0.0f;
+    xs[k] = o < outs && !SPLIT ? x[first + k * F32_THREADS] : 0.0f;
+    zs[k] = o < outs && !SPLIT && z ? z[first + k * F32_THREADS] : 0.0f;
   }
   __syncthreads();  // the weights are staged
 
@@ -899,12 +924,12 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
     const int k = it / cblocks, cb = it - k * cblocks;
     if (cb == 0) {  // a new tile: the staged rows r_lo .. r_hi it holds
       const int p_first = (warp + k * WARPS) * F32_TILE;
-      const int p_last = min(p_first + F32_TILE, band.m) - 1;
-      const int s_first = p_first >= band.pb, s_last = p_last >= band.pb;
+      const int p_last = min(p_first + F32_TILE, m) - 1;
+      const int s_first = p_first >= pb, s_last = p_last >= pb;
       int r_lo = 0, r_hi = rows + 1;  // a tile across both branches: every row
       if (s_first == s_last) {
-        r_lo = (p_first - s_first * band.pb) / width;
-        r_hi = (p_last - s_last * band.pb) / width;
+        r_lo = (p_first - s_first * pb) / width;
+        r_hi = (p_last - s_last * pb) / width;
       }
       ky_lo = max(0, r_lo - out_rows + 1);  // output row r - ky within the band
       ky_hi = min(2, r_hi);
@@ -948,6 +973,11 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
   cp_async_wait<0>();
   __syncthreads();  // every partial is in shared memory
 
+  if constexpr (SPLIT) {
+    store_range_sums(part, pb, pstride, width, outs, cfg, first, tid, F32_THREADS, part_out,
+                     npix);
+    return;
+  }
   // Output pixel o = tid + k * F32_THREADS, its x and z prefetched for k < F32_OUTS.
   auto step = [&](int k, float xo, float zo) {
     const int o = tid + k * F32_THREADS;
@@ -955,7 +985,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
     float e[2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      const float* ps = part + s * band.pb;  // under CFG the uncond pixels start at pb
+      const float* ps = part + s * pb;  // under CFG the uncond pixels start at pb
       float sum = b0;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
@@ -983,32 +1013,259 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
   }
 }
 
+// The fp32 halo mode: a band's row -1 or `height` copied from the halo rows
+// (band_source).
+__global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
+    const float* __restrict__ h, const float* __restrict__ top,
+    const float* __restrict__ bottom, const float* __restrict__ wt,
+    const float* __restrict__ bias, const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
+  auto source_of = [&](int p) { return band_source<float>(band, h, top, bottom, p, c); };
+  f32_step_body<false>(source_of, unit, y0, band.pb, band.m, h, wt, bias, x, z, w_per_sample,
+                       w, out, height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma,
+                       tanh_out);
+}
+
+// ---- The split launch: the channel sum over CTAs, then combine and step. ----
+//
+// Where a band kernel's weights outgrow shared memory (c in the thousands:
+// bf16_plan, halo_plan and, for the float unsharded launch, launch_plan
+// refuse it), or h has 2^31 elements or more (the band kernels' offsets
+// are 32-bit), ops/sampler_step.py::route takes this pair of launches.  It
+// replaces the float template's instances there (one CTA an SM staging
+// all 9 * c weights as floats and walking every channel of a band in
+// series: 8 CTAs on 132 SMs at (2,8,8,6000), 17.8x slower than F.conv2d).
+//  - Launch 1 (head_step_bf16_split_kernel, head_step_f32_split_kernel):
+//    the grid is (unit x band, split).  A CTA runs the band kernels' body
+//    (bf16_step_body, f32_step_body with SPLIT) on channels [c0, c0 + cs)
+//    of its band: it stages only that range's weights, reduces the range
+//    into the per-tap partials and gathers each output pixel's 3x3
+//    neighbourhood, then writes one fp32 sum per (branch, output pixel)
+//    to partials[split][branch][pixel] (the wrapper's workspace).  A
+//    range is span channels (the last one shorter), span fixed
+//    (ops/sampler_step.py::split_plan), so the boundaries depend on c
+//    alone.  The copies take the whole map's rows or the halo rows (null:
+//    zero), so the unsharded and the halo launch are one kernel, and two
+//    shards' steps equal the unsharded launch's bit for bit in both types
+//    (each pixel's range sums are the same products in the same order).
+//    Pixel offsets are 64-bit: a branch's band base is a pointer.
+//  - Launch 2 (head_step_combine_kernel): a thread a pixel sums its
+//    ranges' partials in split order, adds the bias, and applies the band
+//    kernels' epilogue (eps rounded to E, tanh, the guidance combine, the
+//    step).  No float atomics: the result is the same run to run.
+// Bound: bytes, h read once; the partials add 8 bytes a pixel and branch a
+// range (written and read: 1/64 of h's bytes at span 128 in bf16).
+
+// A split CTA's band pixel p < m (as band_of's) from the whole map's rows
+// (64-bit bases, a branch's row y0 - 1 on), the halo rows or zero.
+template <typename E>
+struct SplitBand {
+  int pb, m, q_lo, q_hi, qb_hi, c;
+  const E *h0, *h1, *top0, *top1, *bottom0, *bottom1;  // a branch's pixel 0, channel c0
+  bool has_top, has_bottom;
+
+  __device__ __forceinline__ Source<E> operator()(int p) const {
+    const int s = p >= pb, q = p - s * pb, off = q * c;
+    if (p < m && q < q_lo) return Source<E>{s ? top1 : top0, off, has_top};
+    if (p < m && q >= q_hi && q < qb_hi) return Source<E>{s ? bottom1 : bottom0, off, has_bottom};
+    return Source<E>{s ? h1 : h0, off, p < m && q >= q_lo && q < q_hi};
+  }
+};
+
+template <typename E>
+__device__ __forceinline__ SplitBand<E> split_band(const E* h, const E* top, const E* bottom,
+                                                   int unit, int batch, int height, int width,
+                                                   int c, int rows, int cfg, int y0, int c0) {
+  SplitBand<E> b;
+  b.pb = (rows + 2) * width;
+  b.m = (cfg ? 2 : 1) * b.pb;
+  b.q_lo = y0 == 0 ? width : 0;
+  const int q_bottom = (height - y0 + 1) * width;  // row `height`'s first pixel
+  b.q_hi = min(b.pb, q_bottom);
+  b.qb_hi = min(b.pb, q_bottom + width);
+  b.c = c;
+  const long long s0 = unit, s1 = cfg ? unit + batch : unit, row = (long long)width * c;
+  b.h0 = h + (s0 * height + y0 - 1) * row + c0;
+  b.h1 = h + (s1 * height + y0 - 1) * row + c0;
+  b.has_top = top != nullptr;
+  b.has_bottom = bottom != nullptr;
+  b.top0 = b.has_top ? top + s0 * row + c0 : h;
+  b.top1 = b.has_top ? top + s1 * row + c0 : h;
+  b.bottom0 = b.has_bottom ? bottom + s0 * row - (long long)q_bottom * c + c0 : h;
+  b.bottom1 = b.has_bottom ? bottom + s1 * row - (long long)q_bottom * c + c0 : h;
+  return b;
+}
+
+// Grid: (unit major, band minor; split).  Block: BF16_THREADS.  Dynamic
+// shared memory as head_step_bf16_kernel's for a range of span channels.
+// partials: (splits, branches, batch * height * width) floats.
+template <int IB>
+__global__ void __launch_bounds__(BF16_THREADS, 2) head_step_bf16_split_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ top, const bf16* __restrict__ bottom,
+    const bf16* __restrict__ wt, float* __restrict__ partials, int batch, int height,
+    int width, int c, int rows, int cfg, int span) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int c0 = blockIdx.y * span, cs = min(span, c - c0);
+  const long long npix = (long long)batch * height * width;
+  const SplitBand<bf16> band =
+      split_band<bf16>(h, top, bottom, unit, batch, height, width, c, rows, cfg, y0, c0);
+  bf16_step_body<IB, true>(band, unit, y0, band.pb, band.m, h, wt + c0, nullptr, nullptr,
+                           nullptr, nullptr, 0.0f, nullptr, height, width, cs, rows, cfg,
+                           0.0f, 0.0f, 0.0f, 0, c,
+                           partials + (long long)blockIdx.y * (cfg ? 2 : 1) * npix, npix);
+}
+
+// The same in fp32 (f32_step_body; dynamic shared memory as
+// head_step_halo_f32_kernel's for a range of span channels).
+__global__ void __launch_bounds__(F32_THREADS, 2) head_step_f32_split_kernel(
+    const float* __restrict__ h, const float* __restrict__ top,
+    const float* __restrict__ bottom, const float* __restrict__ wt,
+    float* __restrict__ partials, int batch, int height, int width, int c, int rows, int cfg,
+    int span) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int c0 = blockIdx.y * span, cs = min(span, c - c0);
+  const long long npix = (long long)batch * height * width;
+  const SplitBand<float> band =
+      split_band<float>(h, top, bottom, unit, batch, height, width, c, rows, cfg, y0, c0);
+  f32_step_body<true>(band, unit, y0, band.pb, band.m, h, wt + c0, nullptr, nullptr, nullptr,
+                      nullptr, 0.0f, nullptr, height, width, cs, rows, cfg, 0.0f, 0.0f, 0.0f,
+                      0, c, partials + (long long)blockIdx.y * (cfg ? 2 : 1) * npix, npix);
+}
+
+// Launch 2: pixel i of (batch, height, width) sums its ranges' partials
+// in split order, adds the bias, and steps with the band kernels'
+// arithmetic for E (eps rounded to E per branch, its tanh rounded, the
+// combine's three operations rounded, w rounded; the identity for float).
+template <typename E>
+__global__ void head_step_combine_kernel(
+    const float* __restrict__ partials, int splits, long long npix, int hw,
+    const E* __restrict__ bias, const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int cfg,
+    float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
+  const int branches = cfg ? 2 : 1;
+  const float b0 = to_float(*bias);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < npix;
+       i += (long long)gridDim.x * blockDim.x) {
+    float e[2];
+    for (int s = 0; s < branches; ++s) {
+      const float* ps = partials + s * npix + i;
+      float sum = ps[0];
+#pragma unroll 8  // the loads in flight together, the sum in split order
+      for (int k = 1; k < splits; ++k) sum += ps[k * branches * npix];
+      sum = round_to<E>(sum + b0);
+      e[s] = tanh_out ? round_to<E>(tanhf(sum)) : sum;
+    }
+    float ee = e[0];
+    if (cfg) {
+      const float wu = round_to<E>(w_per_sample ? w_per_sample[i / hw] : w);
+      ee = round_to<E>(e[1] + round_to<E>(wu * round_to<E>(e[0] - e[1])));
+    }
+    float v = (x[i] - ee * c_eps) * inv_sqrt_a;
+    if (z) v += sigma * z[i];
+    out[i] = v;
+  }
+}
+
+constexpr int COMBINE_THREADS = 256;
+
+template <typename E>
+int split_entry(void (*kernel)(const E*, const E*, const E*, const E*, float*, int, int, int,
+                               int, int, int, int),
+                const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+                const float* x, const float* z, const float* w_per_sample, float w,
+                float* out, float* partials, int batch, int height, int width, int c,
+                int rows, int cfg, int span, int splits, int threads, int smem_bytes,
+                float c_eps, float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (span <= 0 || splits != (c + span - 1) / span || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows)), (unsigned)splits), threads,
+             smem_bytes, st>>>(h, top, bottom, wt, partials, batch, height, width, c, rows,
+                               cfg, span);
+  cudaError_t last = cudaGetLastError();
+  if (err != cudaSuccess || last != cudaSuccess) return (int)(err != cudaSuccess ? err : last);
+  const long long npix = (long long)batch * height * width;
+  const long long blocks = std::min<long long>((npix + COMBINE_THREADS - 1) / COMBINE_THREADS,
+                                               1 << 16);
+  head_step_combine_kernel<E><<<(unsigned)blocks, COMBINE_THREADS, 0, st>>>(
+      partials, splits, npix, height * width, bias, x, z, w_per_sample, w, out, cfg, c_eps,
+      inv_sqrt_a, sigma, tanh_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // h: (cfg ? 2 * batch : batch, height, width, c) NHWC float, 16-byte
 // aligned; wt: (9, c) tap-major weights (tap = ky * 3 + kx) and bias: one
-// element, both of h's type; x, z, out: (batch, height, width) float; z null to skip
-// the noise term; w_per_sample: null for the scalar w (floats); tanh_out: 1
-// to take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
+// element; x, z, out: (batch, height, width) float; z null to skip the
+// noise term; w_per_sample: null for the scalar w (floats); tanh_out: 1 to
+// take eps = tanh(conv).  rows, ck, stages, threads and smem_bytes come
 // from ops/sampler_step.py::launch_plan.  Returns the cudaError_t of the
-// launch.  The float unsharded launch, and the bf16 one at the shapes
-// head_step_bf16_kernel does not take (ops/sampler_step.py::route: weights
-// over its shared memory, c in the thousands).
-#define CAMELS_HEAD_STEP_ENTRY(NAME, E)                                              \
-  extern "C" int NAME(const E* h, const E* wt, const E* bias, const float* x,       \
-                      const float* z, const float* w_per_sample, float w,           \
-                      float* out, int batch, int height, int width, int c,          \
-                      int rows, int cfg, int ck, int stages, int threads,           \
-                      int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
-                      int tanh_out, void* stream) {                                 \
-    return entry<E, false>(h, nullptr, nullptr, wt, bias, x, z, w_per_sample, w, out, \
-                           batch,                                                   \
-                           height, width, c, rows, cfg, ck, stages, threads,        \
-                           smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream); \
-  }
-CAMELS_HEAD_STEP_ENTRY(camels_head_step, float)
-CAMELS_HEAD_STEP_ENTRY(camels_head_step_bf16_generic, bf16)
-#undef CAMELS_HEAD_STEP_ENTRY
+// launch.  The float unsharded launch.
+extern "C" int camels_head_step(const float* h, const float* wt, const float* bias,
+                                const float* x, const float* z, const float* w_per_sample,
+                                float w, float* out, int batch, int height, int width, int c,
+                                int rows, int cfg, int ck, int stages, int threads,
+                                int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,
+                                int tanh_out, void* stream) {
+  return entry<float>(h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows,
+                      cfg, ck, stages, threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out,
+                      stream);
+}
+
+// The split launch (both modes): camels_head_step_halo's arguments (top and
+// bottom null for the unsharded launch or at the image's edge), then
+// partials, a (splits, cfg ? 2 : 1, batch * height * width) float
+// workspace, and span and splits (ranges of span channels, the last
+// shorter; splits = ceil(c / span)) in place of nothing; rows, threads
+// (256), span and smem_bytes from ops/sampler_step.py::split_plan.  bf16:
+// items of 64 channels where c and span are multiples of 64, else of 32
+// (the last block of a range masked past it).  Returns the cudaError_t of
+// the first failed launch.
+extern "C" int camels_head_step_split(const float* h, const float* top, const float* bottom,
+                                      const float* wt, const float* bias, const float* x,
+                                      const float* z, const float* w_per_sample, float w,
+                                      float* out, float* partials, int batch, int height,
+                                      int width, int c, int rows, int cfg, int span,
+                                      int splits, int threads, int smem_bytes, float c_eps,
+                                      float inv_sqrt_a, float sigma, int tanh_out,
+                                      void* stream) {
+  if (threads != F32_THREADS || c % 4 || span % F32_CK) return (int)cudaErrorInvalidValue;
+  return split_entry<float>(head_step_f32_split_kernel, h, top, bottom, wt, bias, x, z,
+                            w_per_sample, w, out, partials, batch, height, width, c, rows, cfg,
+                            span, splits, threads, smem_bytes, c_eps, inv_sqrt_a, sigma,
+                            tanh_out, stream);
+}
+
+extern "C" int camels_head_step_split_bf16(const bf16* h, const bf16* top, const bf16* bottom,
+                                           const bf16* wt, const bf16* bias, const float* x,
+                                           const float* z, const float* w_per_sample, float w,
+                                           float* out, float* partials, int batch, int height,
+                                           int width, int c, int rows, int cfg, int span,
+                                           int splits, int threads, int smem_bytes,
+                                           float c_eps, float inv_sqrt_a, float sigma,
+                                           int tanh_out, void* stream) {
+  if (threads != BF16_THREADS || c % 8 || span % BLOCK) return (int)cudaErrorInvalidValue;
+  return split_entry<bf16>(
+      c % BLOCK == 0 ? head_step_bf16_split_kernel<BLOCK>
+                     : head_step_bf16_split_kernel<NARROW_BLOCK>,
+      h, top, bottom, wt, bias, x, z, w_per_sample, w, out, partials, batch, height, width, c,
+      rows, cfg, span, splits, threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
 
 namespace {
 
@@ -1141,23 +1398,3 @@ extern "C" int camels_head_step_halo(const float* h, const float* top, const flo
                             w_per_sample, w, out, batch, height, width, c, rows, cfg, threads,
                             smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
 }
-
-// The template's halo mode, at the shapes the kernels of their own do not
-// take (ops/sampler_step.py::route): the arguments of camels_head_step with
-// top and bottom after h, as camels_head_step_halo's.
-#define CAMELS_HEAD_STEP_HALO_ENTRY(NAME, E)                                         \
-  extern "C" int NAME(const E* h, const E* top, const E* bottom, const E* wt,       \
-                      const E* bias,                                                \
-                      const float* x, const float* z, const float* w_per_sample,    \
-                      float w, float* out, int batch, int height, int width, int c, \
-                      int rows, int cfg, int ck, int stages, int threads,           \
-                      int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,   \
-                      int tanh_out, void* stream) {                                 \
-    return entry<E, true>(h, top, bottom, wt, bias, x, z, w_per_sample, w, out,     \
-                          batch,                                                    \
-                          height, width, c, rows, cfg, ck, stages, threads,         \
-                          smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);  \
-  }
-CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_generic, float)
-CAMELS_HEAD_STEP_HALO_ENTRY(camels_head_step_halo_generic_bf16, bf16)
-#undef CAMELS_HEAD_STEP_HALO_ENTRY

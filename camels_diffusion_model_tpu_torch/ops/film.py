@@ -9,7 +9,9 @@ of the GroupNorm kernel (``ops/groupnorm.py``).  :func:`launch_plan` chooses
 the kernel's geometry.
 
 Two instances: float32 and bfloat16 (the bf16 model's FiLM stage 1), each
-with its own launch count (``fused_film.launches`` and ``.launches_bf16``).
+with its own launch count (``fused_film.launches`` and ``.launches_bf16``);
+at a pixel of over ``MAX_THREADS`` accesses a thread takes several of them
+(counted also under ``.launches_wide`` and ``.launches_wide_bf16``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,14 @@ class Plan(NamedTuple):
     blocks_per_sample: int  # grid.x; grid.y is the sample
 
 
+def rounds_threads(width: int, most: int) -> int:
+    """Threads of a CTA of whole warps that takes ``width`` accesses a
+    pixel in equal rounds of at most ``most``: ``ceil(width / rounds)``
+    rounded up to a warp, ``rounds = ceil(width / most)``."""
+    per_round = -(-width // -(-width // most))
+    return -(-per_round // 32) * 32
+
+
 def launch_plan(n: int, hw: int, c: int, aligned: bool = True, sms: int = 132,
                 element_bytes: int = 4) -> Plan:
     """Geometry of :func:`fused_film` for ``n`` samples of ``hw`` pixels of
@@ -51,20 +61,27 @@ def launch_plan(n: int, hw: int, c: int, aligned: bool = True, sms: int = 132,
     The 16-byte path needs ``c`` to be a multiple of one access's elements
     and ``aligned`` pointers; other shapes take the scalar path.  A block covers whole pixels, so each
     thread keeps its channels; the grid is at most one wave of resident
-    blocks, split evenly over each sample's pixels.  Raises ``ValueError``
-    for a pixel wider than ``MAX_THREADS`` accesses, and for shapes the
-    kernel cannot index: a sample of ``2**31`` elements or more (its offsets
-    are 32-bit) or more than 65535 samples (``grid.y``).
+    blocks, split evenly over each sample's pixels.  A pixel of over
+    ``MAX_THREADS`` accesses (fp32 over 4096 channels, bf16 over 8192)
+    takes a block of the fewest whole warps that take its accesses in
+    equal rounds of at most ``THREADS``, a thread several accesses of each
+    pixel, the block a pixel a step.  Raises ``ValueError`` only for
+    shapes the kernel cannot index: a sample of ``2**31`` elements or more
+    (its offsets are 32-bit) or more than 65535 samples (``grid.y``), or
+    no channels.
     """
     if n > 65535 or hw * c >= 2**31:
         raise ValueError(f"fused_film: {n} samples of {hw} x {c} elements are too large")
     wide = 16 // element_bytes
     vec = wide if aligned and c % wide == 0 else 1
     per_pixel = c // vec
-    if not 0 < per_pixel <= MAX_THREADS:
+    if per_pixel <= 0:
         raise ValueError(f"fused_film: a pixel of {c} channels takes no path")
-    threads = per_pixel * max(1, THREADS // per_pixel)
-    steps = -(-hw // (threads // per_pixel))  # block-wide steps per sample
+    if per_pixel > MAX_THREADS:  # several accesses of a pixel a thread
+        threads, steps = rounds_threads(per_pixel, THREADS), hw
+    else:
+        threads = per_pixel * max(1, THREADS // per_pixel)
+        steps = -(-hw // (threads // per_pixel))  # block-wide steps per sample
     wave = max(1, sms * BLOCKS_PER_SM // max(n, 1))  # blocks per sample
     per_block = max(1, -(-steps // wave))
     return Plan(vec, threads, max(1, -(-steps // per_block)))
@@ -127,12 +144,15 @@ def fused_film(x, scale, shift):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, C_NAMES[x.dtype])
-    if x.dtype == torch.bfloat16:
-        fused_film.launches_bf16 += 1
-    else:
-        fused_film.launches += 1
+    suffix = "_bf16" if x.dtype == torch.bfloat16 else ""
+    kinds = ("", "_wide") if plan.threads < c // plan.vec else ("",)
+    for kind in kinds:
+        count = f"launches{kind}{suffix}"
+        setattr(fused_film, count, getattr(fused_film, count) + 1)
     return out
 
 
 fused_film.launches = 0
+fused_film.launches_wide = 0  # those of them at a pixel of over MAX_THREADS accesses
 fused_film.launches_bf16 = 0
+fused_film.launches_wide_bf16 = 0  # likewise

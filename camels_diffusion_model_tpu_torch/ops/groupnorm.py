@@ -47,7 +47,14 @@ parts in rounds, the per-channel merge through shared memory), counted
 also under ``.launches_wide_bf16``.  Where both plans refuse a shape (an
 unaligned pointer, a group of over 256 channels) the float kernel's bf16
 instance (:func:`single_route`), counted also under
-``.launches_generic_bf16``.
+``.launches_generic_bf16``.  Where the single launch of either type
+refuses a shape (a group of over 256 accesses, or the float kernel's slice
+over ``SPILL_MAX``: widths the JAX package computes, no committed
+model's), the statistics and apply launches run on one card, the one
+shard's partials feeding the apply launch with no collective: they stream
+their pixels and take every width, counted under ``.launches`` or
+``.launches_bf16`` and also under ``.launches_pair`` or
+``.launches_pair_bf16``.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .film import check_rows, film_plain
+from .film import check_rows, film_plain, rounds_threads
 from ..parallel.mesh import all_reduce, all_reduce_sum
 
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "leaky_relu": 3}
@@ -80,6 +87,8 @@ STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
                torch.bfloat16: "camels_groupnorm_stats_bf16"}
 APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
                torch.bfloat16: "camels_groupnorm_apply_bf16"}
+# The single launch where the single kernels refuse: the pair on one card.
+PAIR_NAMES = {dt: (STATS_NAMES[dt], APPLY_NAMES[dt]) for dt in STATS_NAMES}
 SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
 #                                less room for the kernel's static arrays
 SPILL_MAX = 2 * SLICE_MAX  # the largest slice: at most half of it spills
@@ -392,6 +401,14 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     return NarrowPlan(seg, cluster, threads, packs, part, wide)
 
 
+class PairPlan(NamedTuple):
+    """The statistics and apply launches of :func:`fused_groupnorm_act` on
+    one card (no collective): each launch's geometry."""
+
+    stats: "StatsPlan"
+    apply: "ApplyPlan"
+
+
 def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = True,
                  sms: int = 132) -> tuple:
     """``(C name, plan)`` of :func:`fused_groupnorm_act`'s launch for a
@@ -402,20 +419,34 @@ def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = Tr
     its wide layout where a unit is over 256 channels), and where both
     refuse it the float kernel's bf16 instance (``BF16_GENERIC_NAME``)
     under :func:`launch_plan`: exactly an unaligned pointer, a group of
-    over ``NARROW_GROUP_CH`` channels (8 groups: over 2048 channels), or
-    groups that a unit of whole packs does not divide (not at 8 groups):
-    no head of the repository's models at any width to 1024 (from 1032,
-    up0_norm's groups are over 256 channels).  A function of the shape,
-    the dtype and the alignment alone, chosen before the launch; raises
-    ``ValueError`` where no kernel takes the shape."""
-    if dtype != torch.bfloat16:
-        return C_NAME, launch_plan(n, hw, c, groups, aligned)
-    for name, plan in ((BF16_NAME, bf16_plan), (BF16_NARROW_NAME, narrow_plan)):
-        try:
-            return name, plan(n, hw, c, groups, aligned, sms)
-        except ValueError:
-            pass
-    return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
+    over ``NARROW_GROUP_CH`` channels, or groups that a unit of whole
+    packs does not divide (not at 8 groups).  Where the single launch of
+    ``dtype`` refuses the shape, the statistics and apply launches on one
+    card (``PAIR_NAMES``, a :class:`PairPlan` of :func:`stats_plan` and
+    :func:`apply_plan`, which take every width): exactly a group of over
+    ``THREADS`` accesses (fp32: over 1024 channels where they are whole
+    16-byte packs and the pointers aligned, else over 256; bf16: over 2048
+    in packs, else over 256, as n_feat 1032's up0_norm: 258) or a slice
+    over ``SPILL_MAX`` bytes even in a cluster of 8 (fp32: a group of over
+    925,696 elements, as the out_norm at 128x128 from n_feat 456; bf16:
+    twice that).  A function of the shape, the dtype and the alignment
+    alone, chosen before the launch; raises ``ValueError`` only where the
+    channels do not split into the groups."""
+    try:
+        if dtype != torch.bfloat16:
+            return C_NAME, launch_plan(n, hw, c, groups, aligned)
+        for name, plan in ((BF16_NAME, bf16_plan), (BF16_NARROW_NAME, narrow_plan)):
+            try:
+                return name, plan(n, hw, c, groups, aligned, sms)
+            except ValueError:
+                pass
+        return BF16_GENERIC_NAME, launch_plan(n, hw, c, groups, aligned, 2)
+    except ValueError:
+        if groups <= 0 or c % groups:
+            raise
+    eb = ELEMENT_BYTES[dtype]
+    return PAIR_NAMES[dtype], PairPlan(stats_plan(n, hw, c, groups, aligned, eb, sms),
+                                       apply_plan(n, hw, c, groups, aligned, eb, sms))
 
 
 def idle_lane_threads(width: int, most: int) -> int:
@@ -442,7 +473,8 @@ class StatsPlan(NamedTuple):
 
 def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
                element_bytes: int = 4, sms: int = 132) -> StatsPlan:
-    """Geometry of :func:`groupnorm_stats` for ``n`` samples of ``hw``
+    """Geometry of :func:`groupnorm_stats` (and of the statistics launch of
+    the pair on one card, :func:`single_route`) for ``n`` samples of ``hw``
     pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
     each (4 fp32, 2 bf16), on a card of ``sms`` SMs.
 
@@ -460,9 +492,12 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     unit of one group of an odd number of packs over 16, as n_feat 136's
     17 channels a group), the lanes past the CTA's last whole pixel idle
     (:func:`idle_lane_threads`): every lane of the unit's one group merges
-    in the butterfly, the idle ones empty.  Raises ``ValueError`` where
-    the channels do not split into the groups or a pixel's slice of a
-    unit is wider than ``STATS_MAX_THREADS`` threads."""
+    in the butterfly, the idle ones empty.  Where a group's accesses
+    outnumber ``STATS_MAX_THREADS`` (a group of over 512 packs or, where
+    its channels are not whole packs, elements), a thread takes several
+    accesses of each pixel, merging each by Chan's formula: the fewest
+    whole warps that take them in equal rounds.  Raises ``ValueError``
+    only where the channels do not split into the groups."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     cg = c // groups
@@ -475,9 +510,6 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
         seg *= 2
     vs = seg * vpg
     whole = math.lcm(32, vs)  # threads in whole warps and whole pixels
-    if vs > STATS_MAX_THREADS:
-        raise ValueError(f"a group of {cg} channels takes {vs} threads a pixel, over "
-                         f"{STATS_MAX_THREADS}")
     units = n * groups // seg
 
     def part_bytes(cluster):
@@ -488,6 +520,8 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
            and part_bytes(cluster) // 2 >= STATS_PART_MIN):
         cluster *= 2
     part = max(1, -(-hw // cluster))
+    if vs > STATS_MAX_THREADS:  # seg is 1: several accesses of a pixel a thread
+        return StatsPlan(vec, seg, cluster, rounds_threads(vs, STATS_MAX_THREADS), part)
     if whole > STATS_MAX_THREADS:  # seg is 1: a unit of several groups is 2^k packs
         threads = idle_lane_threads(vs, STATS_MAX_THREADS)
         return StatsPlan(vec, seg, cluster, min(threads, -(-part * vs // 32) * 32), part)
@@ -509,7 +543,8 @@ class ApplyPlan(NamedTuple):
 
 def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
                element_bytes: int = 4, sms: int = 132) -> ApplyPlan:
-    """Geometry of :func:`groupnorm_apply` for ``n`` samples of ``hw``
+    """Geometry of :func:`groupnorm_apply` (and of the apply launch of the
+    pair on one card, :func:`single_route`) for ``n`` samples of ``hw``
     pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
     each, on a card of ``sms`` SMs.
 
@@ -523,9 +558,14 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     pixels, halved while the grid has fewer CTAs than the card has SMs
     (at phase (r1)'s shapes two CTAs an SM ran no faster, and the
     up0_norm's 8-pixel parts slower: ``scripts/compare_torch_kernels.py
-    --sharded``).  Raises
-    ``ValueError`` where the channels do not split into the groups or a
-    pixel is wider than the kernel's launch bound."""
+    --sharded``).  Where a pixel's accesses outnumber the launch bound (as
+    n_feat 1032's up0_norm: 2064 elements), a thread takes several of
+    each pixel: the fewest whole warps that take them in equal rounds of
+    at most ``APPLY_THREADS`` (at n_feat 1032's 16-map up0_norm 256
+    threads ran 1.08x 704 in fp32, 1.24x in bf16: more CTAs an SM,
+    ``scripts/compare_torch_kernels.py --wide``), and ``APPLY_PACKS``
+    pixels a CTA, halved likewise.  Raises ``ValueError`` only where the
+    channels do not split into the groups."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     wide = 16 // element_bytes
@@ -533,13 +573,13 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     vpp = c // vec  # packs a pixel
     whole = math.lcm(32, vpp)
     most = 1024 if vec == 1 else 512
-    if vpp > most:
-        raise ValueError(f"a pixel of {vpp} accesses is wider than {most} threads")
-    if whole > most:
+    if vpp > most:  # several accesses of a pixel a thread
+        threads = rounds_threads(vpp, APPLY_THREADS)
+    elif whole > most:
         threads = idle_lane_threads(vpp, most)
     else:
         threads = max(whole, APPLY_THREADS - APPLY_THREADS % whole)
-    step = threads // vpp  # pixels a CTA covers per step
+    step = max(1, threads // vpp)  # pixels a CTA covers per step
     packs = APPLY_PACKS
     while packs > 1 and n * -(-hw // (step * packs)) < sms:
         packs //= 2
@@ -687,6 +727,30 @@ def _sms(x) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
+def _launch_stats(x, out, plan: StatsPlan, num_groups: int) -> None:
+    """The statistics kernel of ``x``'s dtype into ``out`` under ``plan``."""
+    b, h, w, c = x.shape
+    err = _build.kernel(STATS_NAMES[x.dtype], _STATS_ARGTYPES)(
+        x.data_ptr(), out.data_ptr(), b, h * w, c, num_groups, *plan,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, STATS_NAMES[x.dtype])
+
+
+def _launch_apply(x, partials, gamma, beta, film, out, plan: ApplyPlan, num_groups: int,
+                  eps: float, act: str) -> None:
+    """The apply kernel of ``x``'s dtype into ``out`` under ``plan``."""
+    b, h, w, c = x.shape
+    rows, strides = (None, None), (0, 0)
+    if film is not None:  # a row stride of 0 broadcasts the one row
+        rows = tuple(t.data_ptr() for t in film)
+        strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
+    err = _build.kernel(APPLY_NAMES[x.dtype], _APPLY_ARGTYPES)(
+        x.data_ptr(), partials.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
+        out.data_ptr(), partials.shape[0], b, h * w, c, num_groups, *strides, float(eps),
+        ACTS[act], *plan, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, APPLY_NAMES[x.dtype])
+
+
 def groupnorm_stats(x, num_groups: int = 8) -> torch.Tensor:
     """The statistics launch of the sharded mode: :func:`groupnorm_stats_plain`
     of the NHWC shard ``x`` (float32 or bfloat16), in one read of ``x``.
@@ -702,10 +766,7 @@ def groupnorm_stats(x, num_groups: int = 8) -> torch.Tensor:
                       ELEMENT_BYTES[x.dtype], _sms(x))
     if out.numel() == 0:
         return out
-    err = _build.kernel(STATS_NAMES[x.dtype], _STATS_ARGTYPES)(
-        x.data_ptr(), out.data_ptr(), b, h * w, c, num_groups, *plan,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, STATS_NAMES[x.dtype])
+    _launch_stats(x, out, plan, num_groups)
     _count(groupnorm_stats, x)
     return out
 
@@ -738,15 +799,7 @@ def groupnorm_apply(x, partials, gamma, beta, num_groups: int = 8, eps: float = 
     plan = apply_plan(b, h * w, c, num_groups, aligned, ELEMENT_BYTES[x.dtype], _sms(x))
     if out.numel() == 0:
         return out
-    rows, strides = (None, None), (0, 0)
-    if film is not None:
-        rows = tuple(t.data_ptr() for t in film)
-        strides = tuple(c if t.shape[0] > 1 else 0 for t in film)
-    err = _build.kernel(APPLY_NAMES[x.dtype], _APPLY_ARGTYPES)(
-        x.data_ptr(), partials.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *rows,
-        out.data_ptr(), partials.shape[0], b, h * w, c, num_groups, *strides, float(eps),
-        ACTS[act], *plan, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, APPLY_NAMES[x.dtype])
+    _launch_apply(x, partials, gamma, beta, film, out, plan, num_groups, eps, act)
     _count(groupnorm_apply, x)
     return out
 
@@ -798,6 +851,16 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     name, plan = single_route(b, h * w, c, num_groups, x.dtype, aligned, _sms(x))
     if out.numel() == 0:
         return out
+    if isinstance(plan, PairPlan):  # the statistics of one shard: the whole map
+        stats = torch.empty((1, b, num_groups, 3), dtype=torch.float32, device=x.device)
+        _launch_stats(x, stats, plan.stats, num_groups)
+        _launch_apply(x, stats, gamma, beta, film, out, plan.apply, num_groups, eps, act)
+        _count(fused_groupnorm_act, x)
+        if x.dtype == torch.bfloat16:
+            fused_groupnorm_act.launches_pair_bf16 += 1
+        else:
+            fused_groupnorm_act.launches_pair += 1
+        return out
     rows, strides = (None, None), (0, 0)
     if film is not None:  # a row stride of 0 broadcasts the one row
         rows = tuple(t.data_ptr() for t in film)
@@ -822,9 +885,10 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     return out
 
 
-fused_groupnorm_act.launches = 0
+fused_groupnorm_act.launches = 0  # every fp32 launch
+fused_groupnorm_act.launches_pair = 0  # those of them that took the pair on one card
 fused_groupnorm_act.launches_bf16 = 0  # every bf16 launch
 fused_groupnorm_act.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_groupnorm_act.launches_wide_bf16 = 0  # ... in its wide layout
 fused_groupnorm_act.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
-
+fused_groupnorm_act.launches_pair_bf16 = 0  # those of them that took the pair on one card

@@ -21,9 +21,7 @@ also under ``.launches_halo_narrow_bf16``, and where its last channel
 block is masked also under ``.launches_halo_masked_bf16``), and in fp32 a
 kernel of its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
 kernel's warp-private rings, the taps on the CUDA cores in fp32) under
-:func:`halo_plan`; other widths take the float kernel's halo mode
-(:func:`route`), counted also under ``.launches_halo_generic`` and
-``.launches_halo_generic_bf16``.
+:func:`halo_plan`.
 
 Two instances by the features' dtype: float32, and bfloat16 for the bf16
 model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
@@ -39,10 +37,17 @@ the same kernel runs at its narrow item, 32 channels
 (``BF16_NARROW_NAME``, counted under ``.launches_bf16`` and also under
 ``.launches_narrow_bf16``); where ``c`` is not a multiple of 32 its last
 channel block is masked past ``c`` (counted also under
-``.launches_masked_bf16``).  Where that plan refuses a shape (weights
-over its shared memory, ``c`` in the thousands), the bf16 unsharded
-launch takes the float kernel's bf16 instance instead (:func:`route`),
-counted also under ``.launches_generic_bf16``.
+``.launches_masked_bf16``).
+
+Where a band kernel's plan refuses a shape (weights over its shared
+memory, ``c`` in the thousands) or ``h`` has ``2**31`` elements or more,
+either type and mode takes the split launch (:func:`route`,
+:func:`split_plan`): the channel sum split over CTAs in ranges of
+``SPLIT_SPAN`` channels, each writing its fp32 range sums to a workspace,
+then a launch that sums them in range order, adds the bias and steps
+(:func:`head_step_split_plain` is its arithmetic), counted also under
+``.launches_split``, ``.launches_split_bf16``, ``.launches_halo_split``
+and ``.launches_halo_split_bf16``.
 """
 
 from __future__ import annotations
@@ -82,16 +87,24 @@ HALO_CK = 32  # fp32 channels of an item: a pixel's 128-byte line, 8 copies of 1
 HALO_RING = 2  # slots of each warp's ring (csrc F32_RING)
 HALO_PER_SM = 2  # CTAs of the fp32 halo kernel an SM runs at once
 ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}  # the instances' feature types
+SPLIT_SPAN = 128  # channels of a split launch's range (split_plan): a fixed
+#                  number, so the ranges depend on c alone
+SPLIT_PER_SM = 2  # CTAs of a split launch an SM runs at once
+# Rows of a split launch's band by element bytes (bf16 4, fp32 2: the
+# fastest of scripts/compare_torch_kernels.py --wide's sweep at 16 maps of
+# 64x64; at 8x8 maps within 3% of it, where taller bands' 47-188 CTAs beat
+# one-row bands' 188-376: a CTA's fixed cost holds those launches, and fp32
+# bands of 2 rows skip half the taps).
+SPLIT_ROWS = {2: 4, 4: 2}
 C_NAME = "camels_head_step"  # the float unsharded launch
 BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
 BF16_NARROW_NAME = "camels_head_step_bf16_narrow"  # ... at the narrow item
-BF16_GENERIC_NAME = "camels_head_step_bf16_generic"  # the float kernel's bf16 instance
 HALO_NAMES = {torch.float32: "camels_head_step_halo",  # halo_plan
               torch.bfloat16: "camels_head_step_halo_bf16"}  # bf16_plan
 HALO_NARROW_NAME = "camels_head_step_halo_bf16_narrow"  # bf16_plan at the narrow item
-# The float kernel's halo mode (launch_plan), where the kernels above refuse.
-HALO_GENERIC_NAMES = {torch.float32: "camels_head_step_halo_generic",
-                      torch.bfloat16: "camels_head_step_halo_generic_bf16"}
+# The split launch (split_plan), both modes, where the kernels above refuse.
+SPLIT_NAMES = {torch.float32: "camels_head_step_split",
+               torch.bfloat16: "camels_head_step_split_bf16"}
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -100,9 +113,14 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
-_HALO_ARGTYPES = _ARGTYPES[:1] + (ctypes.c_void_p,) * 2 + _ARGTYPES[1:]  # top, bottom after h
 _BF16_ARGTYPES = _ARGTYPES[:14] + _ARGTYPES[16:]  # no ck, stages
-_BAND_HALO_ARGTYPES = _HALO_ARGTYPES[:16] + _HALO_ARGTYPES[18:]  # halo_plan's, bf16_plan's
+# halo_plan's and bf16_plan's halo launches: top and bottom after h.
+_BAND_HALO_ARGTYPES = _BF16_ARGTYPES[:1] + (ctypes.c_void_p,) * 2 + _BF16_ARGTYPES[1:]
+# The split launch: h, top, bottom, wt, bias, x, z, w_per_sample, w, out,
+# partials, batch, height, width, c, rows, cfg, span, splits, threads,
+# smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, the stream.
+_SPLIT_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_float,) + (ctypes.c_void_p,) * 2
+                   + (ctypes.c_int,) * 10 + (ctypes.c_float,) * 3 + (ctypes.c_int, ctypes.c_void_p))
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -152,6 +170,18 @@ def halo_buffer(h, halo):
     return torch.stack(rows).to(h.dtype).contiguous()
 
 
+def _padded(h, halo):
+    """``(h as NCHW fp32, padding)`` for the conv of :func:`head_step_plain`:
+    with ``halo`` the rows beyond the shard stacked above and below ``h``
+    and no padding of the height."""
+    padding = 1
+    if halo is not None:
+        rows = halo_buffer(h, halo)
+        h = torch.cat([rows[0][:, None], h, rows[1][:, None]], dim=1)
+        padding = (0, 1)
+    return h.permute(0, 3, 1, 2).float(), padding
+
+
 def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
                     tanh: bool = False, halo=None):
     """The kernel's function in plain PyTorch: eps = the 3x3 conv
@@ -161,13 +191,34 @@ def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=Non
     with the bias, to bf16, as the kernel does.  ``halo=(top, bottom)``:
     the rows beyond the shard ``h`` take the place of the zero padding
     above and below it (:func:`halo_buffer`)."""
-    padding = 1
-    if halo is not None:
-        rows = halo_buffer(h, halo)
-        h = torch.cat([rows[0][:, None], h, rows[1][:, None]], dim=1)
-        padding = (0, 1)
-    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(),
+    hf, padding = _padded(h, halo)
+    eps = F.conv2d(hf, weight.float(), bias.float(),
                    padding=padding).to(h.dtype).permute(0, 2, 3, 1)
+    return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
+
+
+def split_ranges(c: int) -> list:
+    """The split launch's channel ranges ``[(c0, cs), ...]`` of ``c``
+    channels: ``SPLIT_SPAN`` each, the last one shorter.  A function of
+    ``c`` alone (never of the shard or the band), so two shards' launches
+    sum each pixel's channels in the ranges of the whole map's."""
+    return [(c0, min(SPLIT_SPAN, c - c0)) for c0 in range(0, c, SPLIT_SPAN)]
+
+
+def head_step_split_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
+                          tanh: bool = False, halo=None):
+    """The split launch's arithmetic in plain PyTorch, arguments as
+    :func:`head_step_plain`'s: each range of :func:`split_ranges`
+    convolved without the bias in fp32 (in bf16 the exact products of the
+    bf16 operands), the ranges' sums added in range order, then the bias,
+    eps rounded to ``h``'s dtype, and :func:`sampler_step_plain`."""
+    hf, padding = _padded(h, halo)
+    wf = weight.float()
+    total = None
+    for c0, cs in split_ranges(h.shape[-1]):
+        part = F.conv2d(hf[:, c0:c0 + cs], wf[:, c0:c0 + cs], padding=padding)
+        total = part if total is None else total + part
+    eps = (total + bias.float()[None, :, None, None]).to(h.dtype).permute(0, 2, 3, 1)
     return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
 
 
@@ -370,6 +421,75 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     return HaloPlan(rows, HALO_THREADS, units * -(-height // rows), smem(rows))
 
 
+class SplitPlan(NamedTuple):
+    """The split launch's geometry for one input shape."""
+
+    rows: int  # output rows of a CTA's band
+    threads: int  # per CTA
+    span: int  # channels of a range (SPLIT_SPAN; the last range shorter)
+    splits: int  # ranges: grid.y
+    ctas: int  # bands x ranges
+    smem_bytes: int  # dynamic shared memory per CTA: a range's weights, rings, partials
+    block: int  # channels of an item: BF16_BLOCK or BF16_NARROW_BLOCK in bf16, HALO_CK in fp32
+
+
+def split_plan(units: int, height: int, width: int, c: int, cout: int = 1,
+               cfg: bool = True, aligned: bool = True, element_bytes: int = 4) -> SplitPlan:
+    """Geometry of the split :func:`fused_head_step` (either mode) for
+    ``units`` CTA units (sample pairs under ``cfg``, else samples) of
+    ``height`` x ``width`` pixels of ``c`` channels of ``element_bytes``
+    each.
+
+    The grid is (band, range): a CTA runs the band kernels' body (bf16:
+    :func:`bf16_plan`'s items, 64 channels where 64 divides ``c``, else 32
+    with a range's last block masked; fp32: :func:`halo_plan`'s) on one of
+    :func:`split_ranges`' ranges of its band, so its shared memory holds
+    one range's weights, the warps' rings and the band's partials.  The
+    band is ``SPLIT_ROWS`` rows (4 in bf16, 2 in fp32), or the tallest
+    shorter one, whose shared memory lets ``SPLIT_PER_SM`` CTAs share an
+    SM, else one row: at (2,8,8,6000) in bf16 under CFG bands of 4 rows,
+    94 CTAs; at (32,64,64,4840) 9728.
+    Raises ``ValueError`` for a shape no path takes: ``cout != 1``, ``c``
+    not a multiple of one 16-byte copy (4 fp32, 8 bf16), a pointer off a
+    16-byte boundary (``aligned``), or a band of one row over shared
+    memory (a width of thousands of pixels)."""
+    if cout != 1:
+        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    per_copy = 16 // element_bytes
+    if c <= 0 or c % per_copy:
+        raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
+    if not aligned:
+        raise ValueError("the head kernel needs 16-byte aligned features")
+    splits = len(split_ranges(c))
+    if element_bytes == 2:
+        block = BF16_BLOCK if c % BF16_BLOCK == 0 else BF16_NARROW_BLOCK
+
+        def smem(rows):
+            m = (2 if cfg else 1) * (rows + 2) * width
+            return (2 * 16 * weight_stride(staged_channels(SPLIT_SPAN))
+                    + 2 * BF16_THREADS // 32 * BF16_RING * BF16_TILE * BF16_BLOCK
+                    + 4 * 9 * partial_stride(m))
+    else:
+        block = HALO_CK
+
+        def smem(rows):
+            m = (2 if cfg else 1) * (rows + 2) * width
+            return 4 * (9 * SPLIT_SPAN + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
+                        + 9 * -(-m // HALO_TILE) * HALO_TILE)
+
+    def ctas(rows):
+        return units * -(-height // rows) * splits
+
+    fits = ([r for r in ROWS_BF16 if r <= SPLIT_ROWS[element_bytes]  # tallest first
+             and SPLIT_PER_SM * (smem(r) + 1024) <= SM_SMEM]
+            or [r for r in ROWS_BF16[-1:] if smem(r) <= SMEM_MAX])
+    if not fits:
+        raise ValueError(f"a band of one row of {width} pixels takes no split plan")
+    rows = fits[0]
+    return SplitPlan(rows, BF16_THREADS if element_bytes == 2 else HALO_THREADS, SPLIT_SPAN,
+                     splits, ctas(rows), smem(rows), block)
+
+
 def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
           cfg: bool = True, aligned: bool = True, halo: bool = False,
           sms: int = SMS) -> tuple:
@@ -379,29 +499,36 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     :func:`halo_plan`; for bfloat16 the bf16 kernel (with ``halo`` its
     halo mode) under :func:`bf16_plan`, at the narrow item where ``c`` is
     a multiple of 8 but not of 64 (``BF16_NARROW_NAME``,
-    ``HALO_NARROW_NAME``).  Where that plan refuses the shape, the float
-    kernel's instance of ``dtype`` under :func:`launch_plan`
-    (``BF16_GENERIC_NAME``, with ``halo`` ``HALO_GENERIC_NAMES``): in bf16
-    exactly the shapes whose weights overflow :func:`bf16_plan`'s shared
-    memory and fit :func:`launch_plan`'s (``c`` a multiple of 8 from about
-    5600 channels at width 8; no model's), in fp32 with ``halo`` those
-    over :func:`halo_plan`'s (from about 3700).  An unaligned pointer, a
-    ``c`` not a multiple of one 16-byte copy or ``cout != 1`` take no
-    kernel.  A function of the shape, the dtype and the alignment alone,
-    chosen before the launch; raises ``ValueError`` where no kernel takes
-    the shape."""
+    ``HALO_NARROW_NAME``).  Where that plan refuses the shape, or the
+    features hold ``2**31`` elements or more (the band kernels' offsets
+    are 32-bit), the split launch of ``dtype`` (``SPLIT_NAMES``, either
+    mode) under :func:`split_plan`: exactly the shapes whose weights
+    overflow the band kernel's shared memory (in bf16 ``c`` from 4840 at
+    16 maps of 64x64 under CFG, from 5608 at width 8; in fp32 from 3056
+    unsharded and 4240 on a 16-map half; no committed model's), the fp32
+    unsharded launch's odd widths without CFG and bands over
+    ``MAX_THREADS`` threads (widths over 128 under CFG), and the largest
+    features.  An unaligned pointer, a ``c`` not a multiple of one
+    16-byte copy or ``cout != 1`` take no kernel.  A function of the
+    shape, the dtype and the alignment alone, chosen before the launch;
+    raises ``ValueError`` where no kernel takes the shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
-    if dtype != torch.bfloat16 and not halo:
-        return C_NAME, launch_plan(*args)
-    own, generic = ((HALO_NAMES[dtype], HALO_GENERIC_NAMES[dtype]) if halo
-                    else (BF16_NAME, BF16_GENERIC_NAME))
+
+    def split():
+        return SPLIT_NAMES[dtype], split_plan(units, height, width, c, cout, cfg, aligned,
+                                              ELEMENT_BYTES[dtype])
+
+    if (2 if cfg else 1) * units * height * width * c >= 2**31:
+        return split()
     try:
+        if dtype != torch.bfloat16 and not halo:
+            return C_NAME, launch_plan(*args)
         plan = (bf16_plan if dtype == torch.bfloat16 else halo_plan)(*args)
     except ValueError:
-        return generic, launch_plan(*args, ELEMENT_BYTES[dtype])
+        return split()
     if isinstance(plan, Bf16Plan) and plan.block == BF16_NARROW_BLOCK:
         return (HALO_NARROW_NAME if halo else BF16_NARROW_NAME), plan
-    return own, plan
+    return (HALO_NAMES[dtype] if halo else BF16_NAME), plan
 
 
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
@@ -466,8 +593,6 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
                 f"fused_head_step: {name} must be a contiguous {_build.type_name(dtype)} "
                 f"tensor on {h.device}"
             )
-    if h.numel() >= 2**31:  # the kernel's offsets into h are 32-bit
-        raise ValueError(f"h of {h.numel()} elements is too large for the head kernel")
     if nd != (2 * b if cfg else b):
         raise ValueError(f"h must hold {2 * b if cfg else b} samples, got {nd}")
     if tuple(x.shape) != (b, height, width, 1) or bias.shape != (1,):
@@ -484,27 +609,34 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    band = not isinstance(plan, Plan)  # a kernel of its own: no ck, stages
-    fn = _build.kernel(name, (_BAND_HALO_ARGTYPES if band else _HALO_ARGTYPES)
-                       if halo is not None else _BF16_ARGTYPES if band else _ARGTYPES)
-    geometry = (plan.threads,) if band else (plan.ck, plan.stages, plan.threads)
+    split = isinstance(plan, SplitPlan)  # both modes: null rows are zero
     rows = (tuple(tensors[k].data_ptr() if k in tensors else None for k in ("top", "bottom"))
-            if halo is not None else ())
-    err = fn(
-        h.data_ptr(), *rows, wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
-        z.data_ptr() if z is not None else None,
-        w_vec.data_ptr() if w_vec is not None else None,
-        float(guide_w) if cfg and w_vec is None else 0.0,
-        out.data_ptr(), b, height, width, c, plan.rows, int(cfg), *geometry,
-        plan.smem_bytes, float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
+            if halo is not None or split else ())
+    head = (h.data_ptr(), *rows, wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
+            z.data_ptr() if z is not None else None,
+            w_vec.data_ptr() if w_vec is not None else None,
+            float(guide_w) if cfg and w_vec is None else 0.0, out.data_ptr())
+    tail = (float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    if split:
+        partials = torch.empty((plan.splits, 2 if cfg else 1, b * height * width),
+                               dtype=torch.float32, device=h.device)
+        err = _build.kernel(name, _SPLIT_ARGTYPES)(
+            *head, partials.data_ptr(), b, height, width, c, plan.rows, int(cfg), plan.span,
+            plan.splits, plan.threads, plan.smem_bytes, *tail)
+    else:
+        band = not isinstance(plan, Plan)  # a kernel of its own: no ck, stages
+        fn = _build.kernel(name, _BAND_HALO_ARGTYPES if halo is not None
+                           else _BF16_ARGTYPES if band else _ARGTYPES)
+        geometry = (plan.threads,) if band else (plan.ck, plan.stages, plan.threads)
+        err = fn(*head, b, height, width, c, plan.rows, int(cfg), *geometry, plan.smem_bytes,
+                 *tail)
     _build.check(err, name)
     mode = "_halo" if halo is not None else ""
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    kinds = (["_generic"] if name == BF16_GENERIC_NAME or name in HALO_GENERIC_NAMES.values()
+    kinds = (["_split"] if split
              else ["_narrow"] + (["_masked"] if c % BF16_NARROW_BLOCK else [])
              if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else [])
     for kind in kinds:
@@ -513,14 +645,15 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     return out
 
 
-fused_head_step.launches = 0
+fused_head_step.launches = 0  # every fp32 unsharded launch
+fused_head_step.launches_split = 0  # those of them that took the split launch
 fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
 fused_head_step.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_head_step.launches_masked_bf16 = 0  # ... with a last channel block masked past c
-fused_head_step.launches_generic_bf16 = 0  # those of them that took BF16_GENERIC_NAME
+fused_head_step.launches_split_bf16 = 0  # those of them that took the split launch
 fused_head_step.launches_halo = 0  # every fp32 halo launch
-fused_head_step.launches_halo_generic = 0  # those of them that took the float kernel
+fused_head_step.launches_halo_split = 0  # those of them that took the split launch
 fused_head_step.launches_halo_bf16 = 0  # every bf16 halo launch
 fused_head_step.launches_halo_narrow_bf16 = 0  # those of them that took HALO_NARROW_NAME
 fused_head_step.launches_halo_masked_bf16 = 0  # ... with a last channel block masked past c
-fused_head_step.launches_halo_generic_bf16 = 0  # those of them that took the float kernel
+fused_head_step.launches_halo_split_bf16 = 0  # those of them that took the split launch

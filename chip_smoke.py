@@ -19,8 +19,14 @@ Phases, each timed on its own line:
       shapes (n_feat 32 of phase (o), 96 and 160), K1's narrow item with
       a masked last block (n_feat 264 of phase (o), 40, 48, 8) and K2's
       wide layout (n_feat 264's heads, 280's out_norm) at 2 and 16 maps,
-      and the float kernels' bf16 instances at the shapes no bf16 kernel
-      takes (no model's: K1 weights of 6000 channels, K2 groups of 264);
+      the float kernel's bf16 instance of K2 at groups of 264 channels (no
+      model's), and the widths past the earlier kernels' limits (no
+      committed model's): K1's split launch at 6000 bf16 channels on 8x8
+      maps and at 16 maps of 64x64 (bf16 4840, fp32 3056 channels), K2's
+      statistics and apply launches on one card (fp32 out_norm
+      (10,128,128,512), n_feat 1032's up0_norm with the FiLM epilogue at
+      16 maps in both types) and K3 at pixels of over 1024 accesses (fp32
+      (4,32,32,8192), bf16 8200 channels);
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -116,7 +122,7 @@ Phases, each timed on its own line:
       (a 1x2 mesh's shard), of the deep model's out_norm (10 maps) and of
       n_feat 136's and 264's heads; K3 on a shard; the bf16 halo mode's
       narrow item at n_feat 32's half, and with a masked last block at
-      n_feat 40's and 264's; the float kernel's halo mode at the widths
+      n_feat 40's and 264's; the split launch's halo mode at the widths
       K1's halo kernels do not take (6000 channels); (r2)
       two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
       committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
@@ -128,14 +134,21 @@ Phases, each timed on its own line:
       counts, ms a step and collectives a step; (r3) ``QuantConv`` (W8A8,
       int32 sums) on the card bit for bit against the CPU at the canonical
       model's widest 3x3 conv (``down2.block2.conv2``, 256 -> 256 at 32x32,
-      32 maps), timed beside cuDNN's fp32 and bf16 conv of that shape.
+      32 maps), timed beside cuDNN's fp32 and bf16 conv of that shape;
+  (s) a canonical model at n_feat 1032 (16x16 maps, seeded init) in fp32
+      and folded in bf16, the width from which its up0_norm (258 channels
+      a group) takes K2's statistics and apply launches on one card: the
+      forward on 2 maps and four strided w=2 steps on the card against the
+      CPU (fp32 within ``GOLDEN_TOL``; bf16 under phase (o)'s yardstick),
+      with their launch counts (the pair at up0_norm, no split K1: its
+      band kernels take 1032 channels).
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
 phase (n), the comparison CLI and the stochastic paths of phase (p), the
 mesh paths and DPM-Solver++(2M) of phase (q), the spatial paths of phase
-(r) in each rank -- is driven with every
+(r) in each rank, the n_feat 1032 models of phase (s) -- is driven with every
 kernel's launch count set to 0 just before it and read just after, and
 must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
@@ -212,6 +225,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import BF16_NAME as GROUPNOR
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     BF16_NARROW_NAME as GROUPNORM_NARROW_NAME,
 )
+from camels_diffusion_model_tpu_torch.ops.groupnorm import PAIR_NAMES as GROUPNORM_PAIR_NAMES
 from camels_diffusion_model_tpu_torch.ops.groupnorm import single_route as groupnorm_route
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     fused_head_step,
@@ -265,7 +279,9 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # prints: the bf16 designs of K1 and K2, K1's halo kernels and K2's sharded
 # launches.
 PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
-                 "head_step_halo_f32_kernel", "groupnorm_bf16_kernel",
+                 "head_step_halo_f32_kernel", "head_step_bf16_split_kernel",
+                 "head_step_f32_split_kernel", "head_step_combine_kernel",
+                 "groupnorm_bf16_kernel",
                  "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
                  "groupnorm_stats_kernel",
                  "groupnorm_apply_kernel")
@@ -300,9 +316,16 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # K1's narrow item with a masked last block (both modes), K2's wide
        # layout: as the narrow kernels.
        "head_step_masked_bf16": 4, "head_step_halo_masked_bf16": 4,
-       "groupnorm_act_wide_bf16": 2,
-       "head_step_generic_bf16": 4, "groupnorm_act_generic_bf16": 2,
-       "head_step_halo_generic": 1e-4, "head_step_halo_generic_bf16": 4}
+       "groupnorm_act_wide_bf16": 2, "groupnorm_act_generic_bf16": 2,
+       # The widths past the earlier kernels' limits: K1's split launch as
+       # K1 (its range sums added in another order); K2's pair on one card
+       # within 5e-6 of the largest value in fp32 (REL_TOL) and a bf16 ulp;
+       # K3's pixels of over 1024 accesses as K3.
+       "head_step_split": 1e-4, "head_step_split_bf16": 4,
+       "head_step_halo_split": 1e-4, "head_step_halo_split_bf16": 4,
+       "groupnorm_act_pair": 5e-6, "groupnorm_act_pair_bf16": 1, "film_wide": 1e-5,
+       "film_wide_bf16": 0}
+REL_TOL = ("groupnorm_act_pair",)  # fp32 tolerances relative to the largest value
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
 # reference's (JAX's golden, the CPU's) bf16 distance from its fp32 on the
@@ -344,10 +367,19 @@ WRAPPERS = {
     "head_step_masked_bf16": (fused_head_step, "launches_masked_bf16"),
     "head_step_halo_masked_bf16": (fused_head_step, "launches_halo_masked_bf16"),
     "groupnorm_act_wide_bf16": (fused_groupnorm_act, "launches_wide_bf16"),
-    "head_step_generic_bf16": (fused_head_step, "launches_generic_bf16"),
     "groupnorm_act_generic_bf16": (fused_groupnorm_act, "launches_generic_bf16"),
-    "head_step_halo_generic": (fused_head_step, "launches_halo_generic"),
-    "head_step_halo_generic_bf16": (fused_head_step, "launches_halo_generic_bf16"),
+    # The widths past the earlier kernels' limits (no committed model's):
+    # K1's split launch in both modes, K2's statistics and apply launches
+    # on one card, K3 at pixels of over 1024 accesses; counted also in
+    # head_step's, head_step_halo's, groupnorm_act's and film's.
+    "head_step_split": (fused_head_step, "launches_split"),
+    "head_step_split_bf16": (fused_head_step, "launches_split_bf16"),
+    "head_step_halo_split": (fused_head_step, "launches_halo_split"),
+    "head_step_halo_split_bf16": (fused_head_step, "launches_halo_split_bf16"),
+    "groupnorm_act_pair": (fused_groupnorm_act, "launches_pair"),
+    "groupnorm_act_pair_bf16": (fused_groupnorm_act, "launches_pair_bf16"),
+    "film_wide": (fused_film, "launches_wide"),
+    "film_wide_bf16": (fused_film, "launches_wide_bf16"),
 }
 
 
@@ -376,11 +408,15 @@ LIBRARY = {
 }
 LIBRARY.update({f"{k}_bf16": f"{v}, in bf16" for k, v in LIBRARY.items()})
 # The bf16 kernels' further counts (WRAPPERS): kernel and kind.
-BF16_KINDS = tuple((k, kind) for kind in ("narrow", "generic")
-                   for k in ("head_step", "groupnorm_act", "head_step_halo")) + (
-    ("head_step", "masked"), ("head_step_halo", "masked"), ("groupnorm_act", "wide"))
+BF16_KINDS = tuple((k, "narrow") for k in ("head_step", "groupnorm_act", "head_step_halo")) + (
+    ("head_step", "masked"), ("head_step_halo", "masked"), ("groupnorm_act", "wide"),
+    ("groupnorm_act", "generic"))
 LIBRARY.update({f"{k}_{kind}_bf16": LIBRARY[f"{k}_bf16"] for k, kind in BF16_KINDS})
-LIBRARY["head_step_halo_generic"] = LIBRARY["head_step_halo"]
+# The widths past the earlier kernels' limits, in both types: kernel and kind.
+WIDE_KINDS = (("head_step", "split"), ("head_step_halo", "split"), ("groupnorm_act", "pair"),
+              ("film", "wide"))
+LIBRARY.update({f"{k}_{kind}{sfx}": LIBRARY[f"{k}{sfx}"] for k, kind in WIDE_KINDS
+                for sfx in ("", "_bf16")})
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -482,7 +518,8 @@ SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURC
                 "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
 SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for k, kind in BF16_KINDS})
-SOURCES["head_step_halo_generic"] = SOURCES["head_step"]
+SOURCES.update({f"{k}_{kind}{sfx}": SOURCES[k] for k, kind in WIDE_KINDS
+                for sfx in ("", "_bf16")})
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
@@ -525,12 +562,35 @@ MASKED_CASES = ((WIDE_FEAT, NARROW_MAPS, True), (WIDE_FEAT, BATCH, False),
 WIDE_CASES = (("out_norm", WIDE_FEAT, NARROW_MAPS, True), ("up0_norm", WIDE_FEAT, NARROW_MAPS, True),
               ("out_norm", WIDE_FEAT, BATCH, False), ("up0_norm", WIDE_FEAT, BATCH, False),
               ("out_norm", 280, BATCH, False))
-# The float kernels' bf16 instances at the shapes every bf16 kernel refuses
-# (no model's): K1 on weights of 6000 channels (over the bf16 kernel's
-# shared memory; 1 map, 8x8), K2 on 8 groups of 264 channels (over 256;
-# 4 maps, 16x16).
-GENERIC_K1 = (1, 8, 6000)  # maps, height and width, channels
+# The float kernel's bf16 instance of K2 at the shapes every bf16 kernel
+# refuses (no model's): 8 groups of 264 channels (over 256; 4 maps, 16x16).
 GENERIC_K2 = (4, 16, 8 * 264)
+# Phase (c), the widths past the earlier kernels' limits (no committed
+# model's): K1's split launch under CFG at 6000 bf16 channels on 8x8 maps
+# (the float template's instance there lost to F.conv2d by 17.8x) and at
+# 16 maps of 64x64 past the band kernels' shared memory (fp32's at 6000 on
+# 8x8 stays on the float template, which takes it; phase (r1) holds the
+# split halo mode there); K2's statistics and
+# apply launches on one card at the fp32 out_norm of n_feat 512 at
+# 128x128, the sampler's 10 maps (a slice over SPILL_MAX), and at n_feat
+# 1032's up0_norm + FiLM at 16 maps; K3 at pixels of over 1024 accesses.
+SPLIT_K1 = ((1, 8, 6000, "bfloat16"), (BATCH, 64, 4840, "bfloat16"),
+            (BATCH, 64, 3056, "float32"))  # maps, height and width, channels, dtype
+PAIR_K2 = ((10, 128, 512, "gelu", False, "float32"), (2 * BATCH, 16, 2064, "relu", True, "float32"),
+           (2 * BATCH, 16, 2064, "relu", True, "bfloat16"))  # n, height, c, act, FiLM, dtype
+WIDE_K3 = ((4, 32, 8192, "float32"), (4, 32, 8200, "bfloat16"))
+# Phase (s): a canonical model at n_feat 1032, 16x16 maps: its forward and
+# four strided w=2 steps on 2 maps.  Launches a decoder call beyond
+# LAUNCHES_PER_STEP's: the pair at up0_norm; in bf16 out_norm's wide
+# layout (129 channels a group) and out_conv2's masked narrow item.
+PAIR_FEAT, PAIR_SIZE = 1032, 16
+PAIR_PER_FORWARD = {"float32": {"groupnorm_act_pair": 1},
+                    "bfloat16": {"groupnorm_act_pair_bf16": 1, "groupnorm_act_narrow_bf16": 1,
+                                 "groupnorm_act_wide_bf16": 1}}
+PAIR_PER_STEP = {"float32": {"groupnorm_act_pair": 1},
+                 "bfloat16": {"groupnorm_act_pair_bf16": 1, "groupnorm_act_narrow_bf16": 1,
+                              "groupnorm_act_wide_bf16": 1, "head_step_narrow_bf16": 1,
+                              "head_step_masked_bf16": 1}}
 
 
 def phase(name: str, t0: float) -> None:
@@ -699,7 +759,58 @@ def check_kernels(dev, model) -> dict:
         ))
 
     cases += bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma)
+    cases += wide_cases(randn, c_eps, inv_sqrt_a, sigma)
     return hold_cases(cases)
+
+
+def wide_cases(randn, c_eps, inv_sqrt_a, sigma) -> list:
+    """Phase (c)'s cases at the widths past the earlier kernels' limits (no
+    committed model's), each kernel's first case summed: K1's split launch
+    (``SPLIT_K1``, under CFG at w=2, weights at out_conv2's init scale),
+    K2's statistics and apply launches on one card (``PAIR_K2``, the FiLM
+    rows as the sampler gives them) and K3 at pixels of over 1024 accesses
+    (``WIDE_K3``)."""
+    cases, seen = [], set()
+
+    def first(name):
+        summed = name not in seen
+        seen.add(name)
+        return summed
+
+    for b, hw, c, dtype in SPLIT_K1:
+        dt, sfx = getattr(torch, dtype), "" if dtype == "float32" else "_bf16"
+        x, z = randn(b, hw, hw, 1), randn(b, hw, hw, 1)
+        h = randn(2 * b, hw, hw, c).relu().to(dt)
+        args = (h, randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt), randn(1).to(dt), x, z,
+                c_eps, inv_sqrt_a, sigma, 2.0, False)
+        name = f"head_step_split{sfx}"
+        cases.append((
+            name, f"{c} channels, cfg w=2, {b} maps h{tuple(h.shape)} {dtype}, "
+            f"x{tuple(x.shape)} fp32", fused_head_step, head_step_plain,
+            lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias, padding=1),
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * 8, first(name)))
+    for n, hw, c, act, film, dtype in PAIR_K2:
+        dt, sfx = getattr(torch, dtype), "" if dtype == "float32" else "_bf16"
+        xg = randn(n, hw, hw, c).to(dt)
+        rows_film = (randn(n, c).to(dt), randn(1, c).to(dt)) if film else None
+        args = (xg, randn(c), randn(c), 8, 1e-5, act, rows_film)
+        name = f"groupnorm_act_pair{sfx}"
+        cases.append((
+            name, f"{c // 8} channels a group, {act}" + (" + FiLM epilogue" if film else "")
+            + f" {tuple(xg.shape)} {dtype}", fused_groupnorm_act, groupnorm_act_plain,
+            lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype),
+                                                    beta.to(x.dtype), 1e-5),
+            args, nbytes(*args, xg), xg.numel() * (12 if film else 10), first(name)))
+    for n, hw, c, dtype in WIDE_K3:
+        dt, sfx = getattr(torch, dtype), "" if dtype == "float32" else "_bf16"
+        args = (randn(n, hw, hw, c).to(dt), randn(n, c).to(dt), randn(1, c).to(dt))
+        name = f"film_wide{sfx}"
+        cases.append((
+            name, f"{c} channels {tuple(args[0].shape)} {dtype}", fused_film, film_plain,
+            lambda x, scale, shift: torch.addcmul(
+                shift[:, None, None, :], x, scale[:, None, None, :]),
+            args, nbytes(*args, args[0]), args[0].numel() * 2, first(name)))
+    return cases
 
 
 def stats_error(got, want) -> float:
@@ -774,6 +885,8 @@ def tolerance(name: str, args, want) -> tuple:
     """``(max abs tolerance, fp32 rounding)`` of a kernel case against its
     plain version's output ``want`` (``TOL``)."""
     if not name.endswith("_bf16"):
+        if name in REL_TOL:
+            return TOL[name] * want.float().abs().max().item(), 0.0
         return TOL[name], 0.0
     if name.startswith("groupnorm_stats"):
         return TOL[name], float("inf")  # relative, per column (stats_error)
@@ -792,7 +905,7 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     deep and big models' shapes at 10 maps; weights and norm parameters of
     the serving model, features and rows in bf16.  And the narrow kernels
     at the narrow bf16 models' K1 and out_norm shapes, and the float
-    kernels' bf16 instances at widths no bf16 kernel takes."""
+    kernel's bf16 instance of K2 at groups no bf16 kernel takes."""
     bf = torch.bfloat16
     cases = []
     head = (model.out_conv2.weight.detach().to(bf), model.out_conv2.bias.detach().to(bf))
@@ -836,14 +949,12 @@ def bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     # The narrow kernels at the narrow bf16 models' shapes (NARROW_CASES:
     # phase (o)'s strided w=2 steps summed, the rest served at BATCH maps),
     # K1's masked narrow item (MASKED_CASES) and K2's wide layout
-    # (WIDE_CASES) likewise, and the float kernels' bf16 instances at the
-    # shapes no bf16 kernel takes (GENERIC_K1, GENERIC_K2).
+    # (WIDE_CASES) likewise, and the float kernel's bf16 instance of K2 at
+    # the shapes no bf16 kernel takes (GENERIC_K2).
     head_cases = [(f"n_feat {c}, cfg w=2" + (" (phase o)" if summed else f", {b} maps"),
                    "head_step_narrow_bf16", b, 64, c, summed) for c, b, summed in NARROW_CASES]
     head_cases += [(f"n_feat {c}, cfg w=2" + (" (phase o)" if summed else "") + f", {b} maps",
                     "head_step_masked_bf16", b, 64, c, summed) for c, b, summed in MASKED_CASES]
-    head_cases.append((f"{GENERIC_K1[2]} channels (no model's: weights over the bf16 kernel's "
-                       f"shared memory), cfg w=2", "head_step_generic_bf16", *GENERIC_K1, True))
     for label, name, b, hw, c, summed in head_cases:
         x, z = randn(b, hw, hw, 1), randn(b, hw, hw, 1)
         h = randn(2 * b, hw, hw, c).relu().to(bf)
@@ -1297,6 +1408,8 @@ def spilled_bytes(x, groups: int) -> int:
         return n * groups // plan.seg * packs * 16
     if name in (GROUPNORM_BF16_NAME, GROUPNORM_NARROW_NAME):
         return 0
+    if name in GROUPNORM_PAIR_NAMES.values():  # the apply launch reads x again
+        return x.numel() * x.element_size()
     return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
         c // groups) * x.element_size()
 
@@ -1751,6 +1864,48 @@ def check_bf16_narrow(dev, drive, n_feat: int, kind: str, per_forward: dict,
         (gpu16, cpu16, cpu32), taus, "beta", f"n_feat {n_feat} bf16 strided w=2"),
         steps=len(taus), dtype="bfloat16",
         extra={k: len(taus) * v for k, v in per_step.items()})
+
+
+def check_pair_model(dev, drive, dtype: str) -> None:
+    """Phase (s): the canonical model at ``PAIR_FEAT`` (``PAIR_SIZE`` maps,
+    seeded init), folded, in ``dtype``: its forward on 2 maps and four
+    strided w=2 steps on the card against the CPU (fp32 within
+    ``GOLDEN_TOL``; bf16 within ``BF16_FACTOR`` x the CPU's bf16 distance
+    from its fp32), driven as the paths ``pair_{dtype}_forward`` and
+    ``pair_{dtype}_steps`` with the launches ``PAIR_PER_FORWARD`` and
+    ``PAIR_PER_STEP`` beyond a decoder call's (the pair at up0_norm; no
+    split K1)."""
+    dt = getattr(torch, dtype)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(VARIANT_SEED)
+        variables = to_jax_variables(
+            ContextUnet.canonical(n_feat=PAIR_FEAT, height=PAIR_SIZE).state_dict())
+    gpu = load_model(variables, dev, dtype=dt)
+    cpus = tuple(load_model(variables, "cpu", dtype=d) for d in dict.fromkeys((dt, torch.float32)))
+    del variables
+    rs = np.random.RandomState(3)
+    x = torch.tensor(rs.randn(NARROW_MAPS, PAIR_SIZE, PAIR_SIZE, 1).astype(np.float32))
+    t = torch.tensor(rs.rand(NARROW_MAPS).astype(np.float32))
+    c = torch.tensor(rs.rand(NARROW_MAPS, gpu.n_cfeat).astype(np.float32))
+    with torch.inference_mode():
+        got = drive(f"pair_{dtype}_forward", lambda: gpu(x.to(dev), t.to(dev), c.to(dev)),
+                    forwards=1, dtype=dtype, extra=PAIR_PER_FORWARD[dtype])
+        wants = [m(x, t, c) for m in cpus]
+    err = (got.float().cpu() - wants[0].float()).abs().max().item()
+    tol, what = GOLDEN_TOL, ""
+    if len(cpus) == 2:
+        yard = (wants[0].float() - wants[1]).abs().max().item()
+        tol, what = BF16_FACTOR * yard, f" = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 {yard:.3e}"
+    print(f"  n_feat {PAIR_FEAT} {dtype} forward, {NARROW_MAPS} maps of {PAIR_SIZE}x{PAIR_SIZE}, "
+          f"card vs CPU: max abs err {err:.3e} (tol {tol:g}{what})", flush=True)
+    if got.dtype != dt or not err <= tol:
+        raise SystemExit(f"n_feat {PAIR_FEAT} {dtype} forward on the card vs the CPU: {err} > "
+                         f"{tol}, or eps in {got.dtype}")
+    taus = [1, 4, 7, 10]
+    drive(f"pair_{dtype}_steps", lambda: check_sampler_vs_cpu(
+        (gpu,) + cpus, taus, "beta", f"n_feat {PAIR_FEAT} {dtype} strided w=2", size=PAIR_SIZE),
+        steps=len(taus), dtype=dtype,
+        extra={k: len(taus) * v for k, v in PAIR_PER_STEP[dtype].items()})
 
 
 def check_native_prep() -> None:
@@ -2239,8 +2394,8 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
     halo mode on half of the w=2 serving features (summed: one spatial
     reverse step), its rows above and below from the other half's edge,
     the bf16 kernel's narrow item in its halo mode at n_feat 32's half and
-    with a masked last block at n_feat 40's and 264's, and the float
-    kernel's halo mode at the widths the kernels of their own do not take
+    with a masked last block at n_feat 40's and 264's, and the split
+    launch's halo mode at the widths the kernels of their own do not take
     (6000 channels in either type, no model's)."""
     cases = []
     n = 2 * BATCH
@@ -2292,7 +2447,7 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
                        + [(f"head_step_halo_masked{sfx}", BATCH, 32, 64, c,
                            f"cfg w=2, n_feat {c} (a masked last block), half of "
                            f"h(32,64,64,{c})") for c in (40, WIDE_FEAT)] if sfx else [])
-        halo_cases.append((f"head_step_halo_generic{sfx}", 1, 4, 8, 6000,
+        halo_cases.append((f"head_step_halo_split{sfx}", 1, 4, 8, 6000,
                            "cfg w=2, 6000 channels (no model's: weights over the halo "
                            "kernels' shared memory), half of h(2,8,8,6000)"))
         for name, b, height, width, c, label in halo_cases:
@@ -2836,6 +2991,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase(name, t1)
     phase("(r) the spatial mesh, QuantConv", t0)
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        check_pair_model(dev, drive, dtype)
+        torch.cuda.empty_cache()
+    phase(f"(s) n_feat {PAIR_FEAT}: K2's statistics and apply launches on one card", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

@@ -72,8 +72,9 @@ instruction count of the new halo kernels.
 models' shapes (n_feat 32 at 2 and 16 maps under CFG, 96 and 160 at 16):
 K2 where groups are not whole packs (``groupnorm_bf16_narrow_kernel``,
 out_norm) and K1 at its narrow item (``fused_head_step``'s 32-channel
-items), each against the float kernels' bf16 instance it replaces (the
-checkout's, forced through the routes: the earlier package's template
+items), each against the float kernels' bf16 instance it replaces (K2's
+the checkout's, K1's the ``--old`` package's, which must have one: PRs
+15-18; forced through the routes: the earlier package's template
 refused n_feat 96's out_norm, whose 48 KiB slice launched without the
 shared-memory opt-in), held to the checkout's plain version under
 ``chip_smoke.tolerance``, then timed old, new, new, old cold, right after
@@ -94,8 +95,9 @@ channel block (40 and 264 channels at 2 and 16 maps, 48 and 8 at 16; the
 halo mode at half of 40's and 264's 16 maps) and K2's wide layout
 (``groupnorm_bf16_wide_kernel``: n_feat 264's out_norm and up0_norm with
 the FiLM epilogue at 2 and 16 maps, 280's and 136's out_norm at 16),
-each against the checkout's float-kernel bf16 instance (forced through
-the routes) as ``--narrow`` does (cold, after a cuDNN bf16 conv of the
+each against the float-kernel bf16 instance (forced through the routes;
+K2's the checkout's, K1's the ``--old`` package's, PRs 15-18: the
+checkout has none) as ``--narrow`` does (cold, after a cuDNN bf16 conv of the
 layer before, the kernel alone; bound and library call); then K1's band
 heights and every plan of the wide layout (:func:`wide_candidates`),
 cold and after the conv, the picked one marked; then the existing bf16
@@ -103,6 +105,27 @@ kernels (the served w=2 K1 unsharded and in its halo mode, the served K2
 heads, the narrow K1 and K2 at n_feat 32, 96 and 160) against the
 ``--old`` package in turns, three rounds; with the SASS instruction
 counts of the bf16 step kernels and of the narrow and wide K2.
+
+``--wide`` compares the launches that take the model widths past the
+earlier kernels' limits, both types: K1's split launch (the channel sum
+over CTAs, then the combine and step) at 6000 channels on 8x8 maps under
+CFG and its halo mode at half of them, against the ``--old`` package's
+float-template instances there (PRs 15-18), and at 16 maps of 64x64 past
+the band kernels' shared memory (bf16 4840, fp32 3056 channels), where
+the earlier package raises; K2's statistics and apply launches on one
+card (the fp32 out_norm (10,128,128,512); n_feat 1032's up0_norm with
+the FiLM epilogue at 16 maps in both types) and K3 at (4,32,32,8192)
+fp32 and 8200 bf16 channels, where it raises too.  Each is held to the
+checkout's plain version under ``chip_smoke.tolerance``, then timed old,
+new, new, old cold (new, new where the earlier package raises) beside the
+bound and the library call (``F.conv2d``, ``F.group_norm``,
+``torch.addcmul``), with the split launch's two kernels alone (the
+profiler) and its sweep of range widths (``SPLIT_SPAN``) and band heights
+at each K1 shape; then every kernel a committed model runs against the
+``--old`` package in turns, three rounds (the served w=2 K1, K2 and K3 in
+both types, K1's halo and K2's sharded launches at phase (r1)'s shapes,
+the narrow and wide bf16 kernels at n_feat 32, 264 and 280), and the
+SASS instruction counts of the bf16 step kernels of both packages.
 Needs a CUDA card.
 """
 
@@ -161,6 +184,9 @@ def main(argv=None) -> int:
     ap.add_argument("--generic", action="store_true",
                     help="K1's masked narrow item and K2's wide layout against the checkout's "
                          "generic instances, and the existing bf16 kernels against --old")
+    ap.add_argument("--wide", action="store_true",
+                    help="the split K1, the K2 pair on one card and K3 at wide pixels, and "
+                         "every kernel a committed model runs against --old in turns")
     ap.add_argument("--prev", help="with --narrow: a revision's package dir that has the narrow "
                                    "kernels, timed against the checkout's in turns")
     args = ap.parse_args(argv)
@@ -234,6 +260,9 @@ def main(argv=None) -> int:
         return compare_halo(randn, old_step, chip_smoke, sampler_step)
     if args.generic:
         return compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
+    if args.wide:
+        return compare_wide(randn, old_build, (old_gn, old_step, old_film), chip_smoke,
+                            (groupnorm, sampler_step, film))
     if args.narrow:
         prev = None
         if args.prev:
@@ -392,12 +421,15 @@ def forced_plan(groupnorm, plan, shape=None):
 
 
 def hold(chip_smoke, name: str, label: str, fn, plain, args) -> float:
-    """``fn(*args)`` against ``plain(*args)`` under phase (c)'s bf16 gate
-    (``chip_smoke.tolerance``, ``BF16_SHARE``); returns the max abs error."""
+    """``fn(*args)`` against ``plain(*args)`` under phase (c)'s gate
+    (``chip_smoke.tolerance``; in bf16 also ``BF16_SHARE``); returns the max
+    abs error."""
     got, want = fn(*args), plain(*args)
     diff = (got.float() - want.float()).abs()
     tol, fp32_rounding = chip_smoke.tolerance(name, args, want)
     err, share = diff.max().item(), (diff > fp32_rounding).float().mean().item()
+    if not name.endswith("_bf16"):
+        share = 0.0  # fp32: the tolerance alone
     if not (err <= tol and share <= chip_smoke.BF16_SHARE):
         raise SystemExit(f"{label}: max abs err {err} (tol {tol}), {share} of the elements "
                          f"differ beyond {fp32_rounding}")
@@ -807,7 +839,9 @@ def route_generic_gn(groupnorm, *a):
 
 
 def route_generic_step(sampler_step, *a):
-    """K1 (either mode) through the float kernel's bf16 instance."""
+    """K1 (either mode) through the float kernel's bf16 instance of
+    ``sampler_step``: an earlier revision's (``--old``, PRs 15-18), since
+    the checkout's split launch took over its last shapes."""
     real = sampler_step.route
 
     def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
@@ -878,7 +912,7 @@ def compare_narrow(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step,
     cl = torch.channels_last
     turns = functools.partial(generic_turns, chip_smoke)
     generic_gn = functools.partial(route_generic_gn, groupnorm)
-    generic_step = functools.partial(route_generic_step, sampler_step)
+    generic_step = functools.partial(route_generic_step, old_step)
 
     k1, k2 = [], []  # (label, args, before)
     for n_feat, maps in ((32, 2), (32, 16), (96, 16), (160, 16)):
@@ -1038,7 +1072,7 @@ def compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step
     cl = torch.channels_last
     turns = functools.partial(generic_turns, chip_smoke)
     generic_gn = functools.partial(route_generic_gn, groupnorm)
-    generic_step = functools.partial(route_generic_step, sampler_step)
+    generic_step = functools.partial(route_generic_step, old_step)
 
     def conv_before(n, cin, cout, hw):  # the layer before a head: a conv to its channels
         u = randn(n, cin, hw, hw).to(bf).contiguous(memory_format=cl)
@@ -1149,6 +1183,236 @@ def compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step
                   flush=True)
         print(f"existing {label}: old/new by round " + ", ".join(f"{r:.3f}" for r in ratios),
               flush=True)
+    return 0
+
+
+def wide_turns(chip_smoke, label, name, old, new, plain, lib, args, flops):
+    """Hold ``new`` (and ``old``, unless it raises for the shape) to
+    ``plain``, then time old, new, new, old cold (new, new where old
+    raises) beside the bound and the library call ``lib`` cold."""
+    import torch
+
+    err = hold(chip_smoke, name, label, new, plain, args)
+    try:
+        hold(chip_smoke, name, label, old, plain, args)
+    except ValueError as e:
+        old = None
+        print(f"{label}: the --old package raises: {e}", flush=True)
+    nb = chip_smoke.nbytes(*args, plain(*args))
+    peak = chip_smoke.BF16_FLOPS if name.endswith("_bf16") else chip_smoke.FP32_FLOPS
+    b = max(nb / chip_smoke.HBM_BYTES_PER_S, flops / peak) * 1e3
+    lib_ms = chip_smoke.time_ms(lib, args)
+    if old is not None:
+        t = [chip_smoke.time_ms(f, args) for f in (old, new, new, old)]
+        o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        times = (f"old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} ms (mean old {o:.5f}, "
+                 f"new {nw:.5f}, old/new {o / nw:.2f})")
+    else:
+        t = [chip_smoke.time_ms(new, args) for _ in range(2)]
+        nw = (t[0] + t[1]) / 2
+        times = f"old raises; new {t[0]:.5f} {t[1]:.5f} ms (mean {nw:.5f})"
+    print(f"{label}: {times}; bound {b:.6f} ms ({nb} bytes, {flops} operations): share "
+          f"{b / nw:.3f}; library {lib_ms:.5f} ms (library/new {lib_ms / nw:.2f}); max err "
+          f"{err:.2e}; card {torch.cuda.get_device_name(0)}", flush=True)
+    return nw
+
+
+def pair_sweep(chip_smoke, groupnorm, label, a) -> None:
+    """K2's statistics and apply launches of the pair on one card, each
+    alone (``groupnorm_stats``, ``groupnorm_apply`` with the one shard's
+    partials), cold, under their picked plans and others: CTAs of 256 to
+    1024 threads and (statistics) clusters of 1 to 8, (apply) parts of 4
+    to 32 pixels."""
+    import torch
+
+    x, gamma, beta, groups, eps, act, rows = a
+    n, hw, c = x.shape[0], x.shape[1] * x.shape[2], x.shape[-1]
+    eb = x.element_size()
+    sp, ap = groupnorm.stats_plan(n, hw, c, groups, True, eb), groupnorm.apply_plan(
+        n, hw, c, groups, True, eb)
+    parts = groupnorm.groupnorm_stats(x, groups)[None]
+    vs = sp.seg * (c // groups) // sp.vec
+    vpp = c // ap.vec
+    most = 1024 if ap.vec == 1 else 512
+    stats_plans = {sp._replace(threads=t, cluster=cl, part_px=-(-hw // cl))
+                   for t in {sp.threads, 256, 320, 384, 512}
+                   for cl in {sp.cluster, 1, 2, 4, 8}
+                   if t <= groupnorm.STATS_MAX_THREADS and (t >= vs or vs > 512)
+                   and (sp.seg == 1 or t % vs == 0)}
+    threads = {ap.threads} | ({groupnorm.rounds_threads(vpp, m) for m in (256, 512, most)}
+                              if vpp > most else set())
+    apply_plans = {ap._replace(threads=t, part_px=p)
+                   for t in threads for p in {ap.part_px, 4, 8, 16, 32}}
+    for what, fn, fargs, name, plans, picked in (
+            ("statistics", groupnorm.groupnorm_stats, (x, groups), "stats_plan", stats_plans, sp),
+            ("apply", groupnorm.groupnorm_apply, (x, parts, gamma, beta, groups, eps, act, rows),
+             "apply_plan", apply_plans, ap)):
+        print(f"  {label}: the {what} launch by plan, ms cold; the plan picks {tuple(picked)}:",
+              flush=True)
+        for plan in sorted(plans):
+            with forced(groupnorm, name, plan):
+                fn(*fargs)
+                torch.cuda.synchronize()
+                ms = chip_smoke.time_ms(fn, fargs)
+            print(f"    {tuple(plan)}: {ms:.5f}" + (" <- picked" if plan == picked else ""),
+                  flush=True)
+
+
+def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
+    """The split K1, the K2 pair on one card and K3 at wide pixels against
+    the earlier package where it takes the shapes, their sweeps, and the
+    existing kernels against it in turns (module docstring, ``--wide``)."""
+    import torch
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    old_gn, old_step, old_film = old
+    groupnorm, sampler_step, film = new
+    for label, build in (("old", old_build), ("new", _build)):
+        for name, n in sass_counts(build, ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+                                           "head_step_halo_f32_kernel",
+                                           "head_step_bf16_split_kernel",
+                                           "head_step_f32_split_kernel")).items():
+            print(f"SASS {label} {n} instructions: {name}", flush=True)
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+
+    def k1_args(dt, maps, height, width, c, halo=False, w=2.0):
+        h = randn(2 * maps, height, width, c).relu().to(dt)
+        weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt)
+        rows = (tuple(randn(2 * maps, width, c).relu().to(dt) for _ in range(2)),) if halo \
+            else ()
+        return (h, weight, randn(1).to(dt), randn(maps, height, width, 1),
+                randn(maps, height, width, 1), c_eps, inv_sqrt_a, sigma, w, False, *rows)
+
+    def k2_args(dt, n, hw, c, act="relu", film_rows=False):
+        rows = (randn(n, c).to(dt), randn(1, c).to(dt)) if film_rows else None
+        return ((randn(n, hw, hw, c) * 3 + 1).to(dt), randn(c), randn(c), 8, 1e-5, act, rows)
+
+    def k3_args(dt, n, hw, c):
+        return randn(n, hw, hw, c).to(dt), randn(n, c).to(dt), randn(1, c).to(dt)
+
+    f32, bf = torch.float32, torch.bfloat16
+    sfx = {f32: "", bf: "_bf16"}
+    k1 = [("split K1 bf16 h(2,8,8,6000), cfg w=2", bf, (1, 8, 8, 6000, False))]
+    k1 += [(f"split K1 halo {dt_name}, half (2,4,8,6000), cfg w=2", dt, (1, 4, 8, 6000, True))
+           for dt, dt_name in ((bf, "bf16"), (f32, "fp32"))]
+    k1 += [("split K1 bf16 h(32,64,64,4840), cfg w=2", bf, (16, 64, 64, 4840, False)),
+           ("split K1 fp32 h(32,64,64,3056), cfg w=2", f32, (16, 64, 64, 3056, False))]
+    for label, dt, (maps, height, width, c, halo) in k1:
+        a = k1_args(dt, maps, height, width, c, halo)
+        name = f"head_step{'_halo' if halo else ''}_split{sfx[dt]}"
+        wide_turns(chip_smoke, label, name, old_step.fused_head_step,
+                   sampler_step.fused_head_step, sampler_step.head_step_plain, conv_lib, a,
+                   a[0].numel() * 18 + a[3].numel() * 8)
+        for key in ("head_step_bf16_split_kernel" if dt == bf else "head_step_f32_split_kernel",
+                    "head_step_combine_kernel"):
+            print(f"  {label}: {key} alone (profiler) "
+                  f"{kernel_alone_ms(chip_smoke, sampler_step.fused_head_step, a, key):.5f} ms",
+                  flush=True)
+        span_all, rows_all = sampler_step.SPLIT_SPAN, sampler_step.ROWS_BF16
+        picked = sampler_step.route(maps, height, width, c, dt, halo=halo)[1]
+        print(f"  {label} by (range channels, band rows), ms cold; the plan picks "
+              f"({picked.span}, {picked.rows}):", flush=True)
+        try:
+            for span in (64, 128, 256):
+                for rows in rows_all:
+                    sampler_step.SPLIT_SPAN, sampler_step.ROWS_BF16 = span, (rows,)
+                    try:
+                        plan = sampler_step.split_plan(maps, height, width, c,
+                                                       element_bytes=a[0].element_size())
+                    except ValueError:
+                        continue
+                    with forced(sampler_step, "route", (sampler_step.SPLIT_NAMES[dt], plan)):
+                        hold(chip_smoke, name, f"{label} span {span} rows {rows}",
+                             sampler_step.fused_head_step, sampler_step.head_step_plain, a)
+                        ms = chip_smoke.time_ms(sampler_step.fused_head_step, a)
+                    print(f"    ({span}, {rows}) ctas {plan.ctas}: {ms:.5f}", flush=True)
+        finally:
+            sampler_step.SPLIT_SPAN, sampler_step.ROWS_BF16 = span_all, rows_all
+    for label, dt, (n, hw, c, act, film_rows) in (
+            ("K2 pair fp32 out_norm (10,128,128,512), gelu", f32, (10, 128, 512, "gelu", False)),
+            ("K2 pair fp32 up0_norm + FiLM (32,16,16,2064)", f32, (32, 16, 2064, "relu", True)),
+            ("K2 pair bf16 up0_norm + FiLM (32,16,16,2064)", bf, (32, 16, 2064, "relu", True))):
+        a = k2_args(dt, n, hw, c, act, film_rows)
+        wide_turns(chip_smoke, label, f"groupnorm_act_pair{sfx[dt]}",
+                   old_gn.fused_groupnorm_act, groupnorm.fused_groupnorm_act,
+                   groupnorm.groupnorm_act_plain, gn_lib, a,
+                   a[0].numel() * (12 if film_rows else 10))
+        pair_sweep(chip_smoke, groupnorm, label, a)
+    for label, dt, (n, hw, c) in (("K3 fp32 (4,32,32,8192)", f32, (4, 32, 8192)),
+                                  ("K3 bf16 (4,32,32,8200)", bf, (4, 32, 8200))):
+        a = k3_args(dt, n, hw, c)
+        wide_turns(chip_smoke, label, f"film_wide{sfx[dt]}", old_film.fused_film,
+                   film.fused_film, film.film_plain,
+                   lambda x, scale, shift: torch.addcmul(shift[:, None, None, :], x,
+                                                         scale[:, None, None, :]),
+                   a, a[0].numel() * 2)
+
+    # Every kernel a committed model runs, against the earlier package,
+    # three rounds in turns.
+    def halves(dt, n, hw, c, film_rows):
+        x = (randn(n, *hw, c) * 3 + 1).to(dt)
+        parts = torch.stack([groupnorm.groupnorm_stats_plain(x, 8),
+                             groupnorm.groupnorm_stats_plain((randn(n, *hw, c) * 3 + 1).to(dt),
+                                                             8)])
+        rows = (randn(n, c).to(dt), randn(1, c).to(dt)) if film_rows else None
+        return x, parts, randn(c), randn(c), 8, 1e-5, "relu", rows
+
+    existing = []
+    for dt in (f32, bf):
+        existing += [
+            (f"served K1 w=2 h(32,64,64,128)", "head_step", dt, k1_args(dt, 16, 64, 64, 128)),
+            (f"served K1 halo, half of the w=2 features", "head_step_halo", dt,
+             k1_args(dt, 16, 32, 64, 128, True)),
+            (f"served K2 out_norm (32,64,64,128)", "groupnorm_act", dt,
+             k2_args(dt, 32, 64, 128)),
+            (f"served K2 up0_norm + FiLM (32,16,16,256)", "groupnorm_act", dt,
+             k2_args(dt, 32, 16, 256, "relu", True)),
+            (f"served K3 stage 1 (32,32,32,128)", "film", dt, k3_args(dt, 32, 32, 128)),
+            (f"K2 statistics, out_norm half (32,32,64,128)", "groupnorm_stats", dt,
+             ((randn(32, 32, 64, 128) * 3 + 1).to(dt), 8)),
+            (f"K2 statistics, up0_norm half (32,8,16,256)", "groupnorm_stats", dt,
+             ((randn(32, 8, 16, 256) * 3 + 1).to(dt), 8)),
+            (f"K2 apply, out_norm half", "groupnorm_apply", dt,
+             halves(dt, 32, (32, 64), 128, False)),
+            (f"K2 apply + FiLM, up0_norm half", "groupnorm_apply", dt,
+             halves(dt, 32, (8, 16), 256, True))]
+    for nf in (32, 264, 280):
+        existing += [(f"narrow K1 n_feat {nf}, 16 maps", "head_step", bf,
+                      k1_args(bf, 16, 64, 64, nf)),
+                     (f"narrow K2 out_norm n_feat {nf}, 16 maps", "groupnorm_act", bf,
+                      k2_args(bf, 32, 64, nf))]
+    existing.append(("wide K2 up0_norm + FiLM n_feat 264, 16 maps", "groupnorm_act", bf,
+                     k2_args(bf, 32, 16, 528, "relu", True)))
+    fns = {"head_step": "fused_head_step", "head_step_halo": "fused_head_step",
+           "groupnorm_act": "fused_groupnorm_act", "groupnorm_stats": "groupnorm_stats",
+           "groupnorm_apply": "groupnorm_apply", "film": "fused_film"}
+    plains = {"head_step": sampler_step.head_step_plain,
+              "head_step_halo": sampler_step.head_step_plain,
+              "groupnorm_act": groupnorm.groupnorm_act_plain,
+              "groupnorm_stats": groupnorm.groupnorm_stats_plain,
+              "groupnorm_apply": groupnorm.groupnorm_apply_plain, "film": film.film_plain}
+    for label, kind, dt, a in existing:
+        mods = ((old_step, sampler_step) if kind.startswith("head_step")
+                else (old_film, film) if kind == "film" else (old_gn, groupnorm))
+        pair = [getattr(m, fns[kind]) for m in mods]
+        name = kind + sfx[dt]
+        if kind == "groupnorm_stats":
+            for f in pair:
+                got, want = f(*a), plains[kind](*a)
+                if not chip_smoke.stats_error(got, want) <= 1e-5:
+                    raise SystemExit(f"{label}: statistics beyond 1e-5")
+        else:
+            for f in pair:
+                hold(chip_smoke, name, label, f, plains[kind], a)
+        ratios = []
+        for _ in range(3):
+            t = [chip_smoke.time_ms(f, a) for f in (pair[0], pair[1], pair[1], pair[0])]
+            ratios.append((t[0] + t[3]) / (t[1] + t[2]))
+            print(f"existing {label} {dt}: old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} {t[2]:.5f} "
+                  f"ms (old/new {ratios[-1]:.3f})", flush=True)
+        print(f"existing {label} {dt}: old/new by round "
+              + ", ".join(f"{r:.3f}" for r in ratios), flush=True)
     return 0
 
 

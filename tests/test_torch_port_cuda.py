@@ -189,25 +189,26 @@ def test_groupnorm_sharded_launches_match_plain(dev, dtype, shape, film, act):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w", [None, 2.0])
-@pytest.mark.parametrize("kernel", ["own", "generic"])
+@pytest.mark.parametrize("kernel", ["own", "split"])
 def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dtype, w, kernel):
     """K1's halo mode on two height shards of the w=2 serving features (and
     without CFG): against its plain version, and the two shards' steps
     together the whole map's step; ``launches_halo`` counted.  The kernels
     of their own at 128 channels (fp32: the halo kernel; bf16: the bf16
-    kernel's halo mode); the float kernel's halo mode ("generic") where
-    they refuse the width (6000 channels on 8x8 maps in either type,
-    weights over the halo kernels' shared memory; 40 bf16 channels, which
-    it took before, now take the bf16 kernel's masked narrow item),
-    counted also under ``launches_halo_generic``.  fp32 within 1e-4 (1e-5 against the
-    whole map); bf16 within four bf16 ulps of eps times the step's ``c_eps
-    * inv_sqrt_a`` (the guidance combine's roundings), as ``chip_smoke.py``
-    holds it, and with its own kernel equal to the unsharded bf16 kernel's
-    step on the whole map (the same products summed in the same order)."""
+    kernel's halo mode); the split launch ("split") where they refuse the
+    width (6000 bf16 and 6400 fp32 channels on 8x8 maps, weights over the
+    band kernels' shared memory, the whole map's launch split too),
+    counted also under ``launches_halo_split``.
+    fp32 within 1e-4 (1e-5 against the whole map); bf16 within four bf16
+    ulps of eps times the step's ``c_eps * inv_sqrt_a`` (the guidance
+    combine's roundings), as ``chip_smoke.py`` holds it, and with the bf16
+    kernel's halo mode and the split launch in either type equal to the
+    whole map's unsharded launch bit for bit (the same products summed in
+    the same order, in ranges that depend on the channels alone)."""
     from camels_diffusion_model_tpu_torch.ops import sampler_step
 
     bf16 = dtype == torch.bfloat16
-    b, hw, c = (16, 64, 128) if kernel == "own" else (1, 8, 6000)
+    b, hw, c = (16, 64, 128) if kernel == "own" else (1, 8, 6000 if bf16 else 6400)
     h = _randn(dev, 2 * b if w else b, hw, hw, c).relu().to(dtype)
     weight = (_randn(dev, 1, c, 3, 3, seed=2) / (3 * c**0.5)).to(dtype)
     bias = _randn(dev, 1, seed=3).to(dtype)
@@ -218,9 +219,9 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
     tol, tol_whole = (4 * 0.33 * ulp,) * 2 if bf16 else (1e-4, 1e-5)
     half = hw // 2
     name = sampler_step.route(b, half, hw, c, dtype, cfg=w is not None, halo=True)[0]
-    assert (name in sampler_step.HALO_GENERIC_NAMES.values()) == (kernel == "generic")
+    assert (name in sampler_step.SPLIT_NAMES.values()) == (kernel == "split")
     sfx = "_bf16" if bf16 else ""
-    counts = (f"launches_halo{sfx}", f"launches_halo_generic{sfx}")
+    counts = (f"launches_halo{sfx}", f"launches_halo_split{sfx}")
     before = [getattr(fused_head_step, k) for k in counts]
     outs = []
     for top, sl, bottom in ((None, slice(0, half), h[:, half]),
@@ -232,11 +233,11 @@ def test_head_step_halo_mode_matches_plain_and_the_whole_map(dev, fp32_convs, dt
                                    atol=tol, rtol=0)
         outs.append(got)
     assert [getattr(fused_head_step, k) for k in counts] == [
-        before[0] + 2, before[1] + (2 if kernel == "generic" else 0)]
+        before[0] + 2, before[1] + (2 if kernel == "split" else 0)]
     diff = (torch.cat(outs, 1) - whole).abs().max().item()
     print(f"{dtype} {kernel} c {c} w {w}: two shards vs the whole map's launch: max abs "
           f"{diff:.3e}")
-    assert diff <= (0.0 if bf16 and kernel == "own" else tol_whole)
+    assert diff <= (0.0 if bf16 or kernel == "split" else tol_whole)
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 8])
@@ -708,7 +709,9 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
     counted under ``.launches_bf16``, the narrow ones also under
     ``.launches_narrow_bf16`` (the wide and masked ones also under
     ``.launches_wide_bf16`` and ``.launches_masked_bf16``), and none of
-    the float kernels' bf16 instances (``.launches_generic_bf16``).  At
+    the float kernels' bf16 instances (``.launches_generic_bf16``) or the
+    split K1 and pair K2 launches (``.launches_split_bf16``,
+    ``.launches_pair_bf16``).  At
     n_feat 128 and 256 the bf16 kernels take every shape at their wide
     items: no narrow launch (256: the forward only, the CPU's bf16 is
     slow)."""
@@ -728,7 +731,8 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
     c = torch.rand(2, cpu16.n_cfeat, generator=g)
     kernels = (fused_head_step, fused_groupnorm_act, fused_film)
     counts = ("launches", "launches_bf16", "launches_narrow_bf16", "launches_generic_bf16",
-              "launches_masked_bf16", "launches_wide_bf16")
+              "launches_masked_bf16", "launches_wide_bf16", "launches_split_bf16",
+              "launches_pair_bf16")
 
     def launched():
         return [tuple(getattr(k, n, 0) for n in counts) for k in kernels]
@@ -743,7 +747,8 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
         got = gpu16(x.to(dev), t.to(dev), c.to(dev)).cpu()
         want32, want = cpu32(x, t, c), cpu16(x, t, c)
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 0, 0, 0, 0, 0), (0, 2, k2_narrow, 0, 0, k2_wide), (0, 1, 0, 0, 0, 0)]
+        (0, 0, 0, 0, 0, 0, 0, 0), (0, 2, k2_narrow, 0, 0, k2_wide, 0, 0),
+        (0, 1, 0, 0, 0, 0, 0, 0)]
     assert got.dtype == want.dtype == torch.bfloat16
     yard = (want.float() - want32).abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= bf16_factor * yard
@@ -757,8 +762,8 @@ def test_bf16_narrow_model_on_the_card_runs_through_the_kernels(dev, fp32_convs,
                         z_fn=lambda k, t: zs[k]).cpu()
             for m, d in ((gpu16, dev), (cpu16, "cpu"), (cpu32, "cpu"))]
     assert [tuple(a - b for a, b in zip(n, o)) for n, o in zip(launched(), before)] == [
-        (0, 4, 4 * k1_narrow, 0, 4 * k1_masked, 0), (0, 8, 4 * k2_narrow, 0, 0, 4 * k2_wide),
-        (0, 4, 0, 0, 0, 0)]
+        (0, 4, 4 * k1_narrow, 0, 4 * k1_masked, 0, 0, 0),
+        (0, 8, 4 * k2_narrow, 0, 0, 4 * k2_wide, 0, 0), (0, 4, 0, 0, 0, 0, 0, 0)]
     yard = (outs[1] - outs[2]).abs().max().item()
     assert (outs[0] - outs[1]).abs().max().item() <= bf16_factor * yard
 
@@ -892,10 +897,13 @@ def test_bf16_generic_instances_take_only_the_shapes_the_kernels_refuse(dev, fp3
     K1 on weights of 6000 channels (over the bf16 kernel's shared memory:
     no model's), each against its plain version under phase (c)'s gates,
     counted under ``.launches_generic_bf16`` and not
-    ``.launches_narrow_bf16``.  K1 at 40 channels (not a multiple of 32),
-    which took the float kernel's instance before, takes the narrow item
-    with a masked last block: counted under ``.launches_narrow_bf16`` and
-    ``.launches_masked_bf16``, not ``.launches_generic_bf16``."""
+    ``.launches_narrow_bf16``.  K1 on weights of 6000 channels (over the
+    bf16 kernel's shared memory: no model's), which the float kernel's
+    bf16 instance took before, takes the split launch: counted under
+    ``.launches_split_bf16``.  K1 at 40 channels (not a multiple of 32)
+    takes the narrow item with a masked last block: counted under
+    ``.launches_narrow_bf16`` and ``.launches_masked_bf16``, not
+    ``.launches_split_bf16``."""
     for n, c, hw, offset in ((4, 32, 64, 1), (32, 96, 64, 1), (4, 8 * 264, 16, 0)):
         buf = (_randn(dev, n * hw * hw * c + 1, seed=101) * 3 + 1).bfloat16()
         x = buf[offset:offset + n * hw * hw * c].view(n, hw, hw, c)  # offset 1: 2 bytes off
@@ -908,17 +916,17 @@ def test_bf16_generic_instances_take_only_the_shapes_the_kernels_refuse(dev, fp3
         want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "relu")
         _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))
     assert launch_plan(32, 64 * 64, 96, 8, False, 2).smem_bytes == 48 * 1024
-    for b, hw, c, generic in ((4, 64, 40, False), (1, 8, 6000, True)):
+    for b, hw, c, split in ((4, 64, 40, False), (1, 8, 6000, True)):
         h = _randn(dev, 2 * b, hw, hw, c, seed=104).relu().bfloat16()
         weight = (_randn(dev, 1, c, 3, 3, seed=105) / (3 * c**0.5)).bfloat16()
         bias = _randn(dev, 1, seed=106).bfloat16()
         x1, z = _randn(dev, b, hw, hw, 1, seed=107), _randn(dev, b, hw, hw, 1, seed=108)
         args = (h, weight, bias, x1, z, 0.02, 1.01, 0.3, 2.0)
-        counts = ("launches_narrow_bf16", "launches_masked_bf16", "launches_generic_bf16")
+        counts = ("launches_narrow_bf16", "launches_masked_bf16", "launches_split_bf16")
         before = [getattr(fused_head_step, k) for k in counts]
         got = fused_head_step(*args)
         assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == (
-            [0, 0, 1] if generic else [1, 1, 0])
+            [0, 0, 1] if split else [1, 1, 0])
         eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
         eps = guided_eps(eps.bfloat16(), 2.0).float()
         _assert_bf16_close(got, head_step_plain(*args),
@@ -945,7 +953,7 @@ def test_head_step_bf16_narrow_kernel_matches_plain(dev, fp32_convs, c, b, w, ta
     if w == "per-sample":
         w = torch.linspace(0.5, 3.0, b, device=dev)
     args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
-    counts = ("launches_bf16", "launches_narrow_bf16", "launches_generic_bf16")
+    counts = ("launches_bf16", "launches_narrow_bf16", "launches_split_bf16")
     before = [getattr(fused_head_step, k) for k in counts]
     got = fused_head_step(*args, tanh=tanh)
     assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [1, 1, 0]
@@ -992,7 +1000,7 @@ def test_head_step_narrow_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c
     unsharded narrow launch's step on the whole map bit for bit (each
     pixel's partials are the same products summed in the same order);
     counted under ``.launches_halo_bf16`` and
-    ``.launches_halo_narrow_bf16``, none under the generic halo count."""
+    ``.launches_halo_narrow_bf16``, none under the split halo count."""
     b, hw = 16, 64
     h = _randn(dev, 2 * b if w else b, hw, hw, c, seed=131).relu().bfloat16()
     weight = (_randn(dev, 1, c, 3, 3, seed=132) / (3 * c**0.5)).bfloat16()
@@ -1001,7 +1009,7 @@ def test_head_step_narrow_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c
     whole = fused_head_step(h, weight, bias, x, z, 0.3, 1.1, 0.2, w)
     eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
     tol = 4 * 0.33 * _bf16_ulp(eps.abs().max().item())
-    counts = ("launches_halo_bf16", "launches_halo_narrow_bf16", "launches_halo_generic_bf16")
+    counts = ("launches_halo_bf16", "launches_halo_narrow_bf16", "launches_halo_split_bf16")
     before = [getattr(fused_head_step, k) for k in counts]
     half, outs = hw // 2, []
     for top, sl, bottom in ((None, slice(0, half), h[:, half]),
@@ -1033,7 +1041,7 @@ def test_head_step_bf16_masked_block_matches_plain(dev, fp32_convs, c, b, w, tan
     ``test_head_step_bf16_kernel_at_the_path_shapes``'s gate (4 bf16 ulps
     of eps times c_eps / sqrt(a), the step's FMAs on all but 1%); counted
     under ``.launches_bf16``, ``.launches_narrow_bf16`` and
-    ``.launches_masked_bf16``, none under the generic count."""
+    ``.launches_masked_bf16``, none under the split count."""
     cfg = w is not None
     h = _randn(dev, 2 * b if cfg else b, 64, 64, c, seed=141).relu().bfloat16()
     weight = (_randn(dev, 1, c, 3, 3, seed=142) / (3 * c**0.5)).bfloat16()
@@ -1043,7 +1051,7 @@ def test_head_step_bf16_masked_block_matches_plain(dev, fp32_convs, c, b, w, tan
         w = torch.linspace(0.5, 3.0, b, device=dev)
     args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
     counts = ("launches_bf16", "launches_narrow_bf16", "launches_masked_bf16",
-              "launches_generic_bf16")
+              "launches_split_bf16")
     before = [getattr(fused_head_step, k) for k in counts]
     got = fused_head_step(*args, tanh=tanh)
     assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [1, 1, 1, 0]
@@ -1089,7 +1097,7 @@ def test_head_step_masked_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c
     the unsharded launch's step on the whole map bit for bit (the masked
     products are zeros in both); counted under ``.launches_halo_bf16``,
     ``.launches_halo_narrow_bf16`` and ``.launches_halo_masked_bf16``,
-    none under the generic halo count."""
+    none under the split halo count."""
     b, hw = 16, 64
     h = _randn(dev, 2 * b if w else b, hw, hw, c, seed=161).relu().bfloat16()
     weight = (_randn(dev, 1, c, 3, 3, seed=162) / (3 * c**0.5)).bfloat16()
@@ -1099,7 +1107,7 @@ def test_head_step_masked_halo_mode_equals_the_unsharded_step(dev, fp32_convs, c
     eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
     tol = 4 * 0.33 * _bf16_ulp(eps.abs().max().item())
     counts = ("launches_halo_bf16", "launches_halo_narrow_bf16", "launches_halo_masked_bf16",
-              "launches_halo_generic_bf16")
+              "launches_halo_split_bf16")
     before = [getattr(fused_head_step, k) for k in counts]
     half, outs = hw // 2, []
     for top, sl, bottom in ((None, slice(0, half), h[:, half]),
@@ -1183,3 +1191,208 @@ def test_groupnorm_bf16_wide_kernel_every_plan(dev, monkeypatch, threads, spread
     want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, "gelu", rows)
     _assert_bf16_close(fused_groupnorm_act(x, gamma, beta, 8, 1e-5, "gelu", rows), want,
                        2 * _bf16_ulp(want.float().abs().max().item()))
+
+
+# ---- every width the JAX package computes: the split K1, the K2 pair, wide K3 ----
+
+SPLIT_SHAPES = {  # (maps, height, width, c, halo): "What the numbers should do" and more
+    "bf16 (2,8,8,6000) cfg": (1, 8, 8, 6000, False, torch.bfloat16),
+    "bf16 half (2,4,8,6000) cfg": (1, 4, 8, 6000, True, torch.bfloat16),
+    "fp32 half (2,4,8,6000) cfg": (1, 4, 8, 6000, True, torch.float32),
+    "fp32 (2,8,8,6400) cfg": (1, 8, 8, 6400, False, torch.float32),
+    "bf16 16 maps (32,64,64,4840)": (16, 64, 64, 4840, False, torch.bfloat16),
+    "fp32 16 maps (32,64,64,3056)": (16, 64, 64, 3056, False, torch.float32),
+    "bf16 64-channel items (2,8,8,6016)": (1, 8, 8, 6016, False, torch.bfloat16),
+}
+
+
+def _split_args(dev, maps, height, width, c, dtype, w, seed=201):
+    cfg = w is not None
+    h = _randn(dev, 2 * maps if cfg else maps, height, width, c, seed=seed).relu().to(dtype)
+    weight = (_randn(dev, 1, c, 3, 3, seed=seed + 1) / (3 * c**0.5)).to(dtype)
+    bias = _randn(dev, 1, seed=seed + 2).to(dtype)
+    x = _randn(dev, maps, height, width, 1, seed=seed + 3)
+    z = _randn(dev, maps, height, width, 1, seed=seed + 4)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, maps, device=dev)
+    return (h, weight, bias, x, z, 0.02, 1.01, 0.3, w)
+
+
+def _split_route(sampler_step, monkeypatch, maps, height, width, c, dtype, cfg, halo):
+    """K1's route for the shape; without CFG the split launch's, forced
+    (``route`` patched) where a band kernel takes the shape."""
+    name, plan = sampler_step.route(maps, height, width, c, dtype, cfg=cfg, halo=halo)
+    if not cfg and name != sampler_step.SPLIT_NAMES[dtype]:
+        real = sampler_step.route
+
+        def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
+                  sms=sampler_step.SMS):
+            real(units, height, width, c, dtype, cout, cfg, aligned, halo, sms)  # its checks
+            return sampler_step.SPLIT_NAMES[dtype], sampler_step.split_plan(
+                units, height, width, c, cout, cfg, aligned, 2 if dtype == torch.bfloat16
+                else 4)
+
+        monkeypatch.setattr(sampler_step, "route", route)
+        name, plan = route(maps, height, width, c, dtype, cfg=cfg, halo=halo)
+    return name, plan
+
+
+def _split_gate(args, dtype, tanh=False):
+    """Phase (c)'s gate: fp32 1e-4 abs; bf16 4 bf16 ulps of the guided eps
+    times c_eps / sqrt(a), all but 1% within the step's FMAs."""
+    if dtype == torch.float32:
+        return dict(atol=1e-4)
+    h, weight, bias = args[:3]
+    eps = F.conv2d(h.permute(0, 3, 1, 2).float(), weight.float(), bias.float(), padding=1)
+    eps = guided_eps(eps.bfloat16(), args[8], tanh).float()
+    return dict(atol=4 * 0.02 * 1.01 * _bf16_ulp(eps.abs().max().item()), fp32_rounding=1e-5)
+
+
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("w", [2.0, None, "per-sample"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=list(SPLIT_SHAPES))
+def test_head_step_split_matches_plain(dev, fp32_convs, monkeypatch, shape, w, tanh):
+    """The split K1 (the channel sum over CTAs in ranges of 128 channels,
+    then the combine and step) where the band kernels' weights outgrow
+    shared memory, unsharded and in its halo mode, in both types, against
+    :func:`head_step_plain` under phase (c)'s gates and within 1e-5 of
+    :func:`head_step_split_plain` in fp32 (the same range sums); counted
+    under ``.launches_split[_bf16]`` (``.launches_halo_split[_bf16]``); two
+    runs bit-identical (no atomics).  Without CFG the served batches' band
+    kernels take these widths, so the split launch is forced there."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    maps, height, width, c, halo, dtype = SPLIT_SHAPES[shape]
+    args = _split_args(dev, maps, height, width, c, dtype, w)
+    cfg = w is not None
+    rows = (tuple(_randn(dev, args[0].shape[0], width, c, seed=209 + k).relu().to(dtype)
+                  for k in range(2)) if halo else None)
+    name, plan = _split_route(sampler_step, monkeypatch, maps, height, width, c, dtype, cfg,
+                              halo)
+    assert name == sampler_step.SPLIT_NAMES[dtype]
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    counts = [f"launches{'_halo' if halo else ''}{kind}{sfx}" for kind in ("", "_split")]
+    before = [getattr(fused_head_step, k) for k in counts]
+    got = fused_head_step(*args, tanh=tanh, halo=rows)
+    assert [getattr(fused_head_step, k) - v for k, v in zip(counts, before)] == [1, 1]
+    assert torch.equal(got, fused_head_step(*args, tanh=tanh, halo=rows))
+    want = head_step_plain(*args, tanh=tanh, halo=rows)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        split = sampler_step.head_step_split_plain(*args, tanh=tanh, halo=rows)
+        torch.testing.assert_close(got, split, atol=1e-5, rtol=0)
+    else:
+        _assert_bf16_close(got, want, **_split_gate(args, dtype, tanh))
+    print(f"{shape} w {w} tanh {tanh}: {plan}; max abs vs plain "
+          f"{(got - want).abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("w", [2.0, None])
+@pytest.mark.parametrize("dtype,maps,hw,c", [(torch.float32, 1, 8, 6400),
+                                             (torch.float32, 16, 64, 4840),
+                                             (torch.bfloat16, 1, 8, 6000),
+                                             (torch.bfloat16, 16, 64, 6000)])
+def test_head_step_split_shards_equal_the_unsharded_launch(dev, fp32_convs, monkeypatch, dtype,
+                                                           w, maps, hw, c):
+    """Two height shards' split launches (the halo mode, each shard's rows
+    beyond it from the other) equal the unsharded split launch on the
+    whole map bit for bit in both types: the ranges depend on ``c``
+    alone, and each pixel's range sums are the same products in the same
+    order whichever band holds it.  Without CFG the split launch is forced
+    where a band kernel takes the shape."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    h, weight, bias, x, z, *coeffs = _split_args(dev, maps, hw, hw, c, dtype, w, seed=221)
+    cfg = w is not None
+    half = hw // 2
+    for height, halo in ((half, True), (hw, False)):  # the unsharded route last: it may force
+        assert _split_route(sampler_step, monkeypatch, maps, height, hw, c, dtype, cfg,
+                            halo)[0] == sampler_step.SPLIT_NAMES[dtype]
+    whole = fused_head_step(h, weight, bias, x, z, *coeffs)
+    outs = []
+    for top, sl, bottom in ((None, slice(0, half), h[:, half]),
+                            (h[:, half - 1], slice(half, hw), None)):
+        outs.append(fused_head_step(h[:, sl].contiguous(), weight, bias, x[:, sl].contiguous(),
+                                    z[:, sl].contiguous(), *coeffs, halo=(top, bottom)))
+    assert torch.equal(torch.cat(outs, 1), whole)
+
+
+def test_head_step_split_takes_features_of_2_31_elements(dev, fp32_convs):
+    """h of 2^31 bf16 elements (32 maps' CFG features at 128x128x4096),
+    which the band kernels' 32-bit offsets cannot index: the split launch,
+    its 64-bit pixel offsets, against the plain version under phase (c)'s
+    gate."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    maps, hw, c = 16, 128, 4096
+    args = _split_args(dev, maps, hw, hw, c, torch.bfloat16, 2.0, seed=231)
+    assert args[0].numel() == 2**31
+    assert sampler_step.route(maps, hw, hw, c, torch.bfloat16)[0] == (
+        sampler_step.SPLIT_NAMES[torch.bfloat16])
+    h, weight, bias, x, z, *coeffs, w = args
+    got = fused_head_step(*args)
+    pairs = [(torch.cat([h[k:k + 1], h[maps + k:maps + k + 1]]), weight, bias, x[k:k + 1],
+              z[k:k + 1], *coeffs, w) for k in range(maps)]  # one pair at a time (fp32 copies)
+    want = torch.cat([head_step_plain(*pair) for pair in pairs])
+    atol = max(_split_gate(pair, torch.bfloat16)["atol"] for pair in pairs)
+    _assert_bf16_close(got, want, atol, fp32_rounding=1e-5)
+
+
+PAIR_CASES = {  # (n, height, width, c, act, film, dtype): the single launch refuses
+    "fp32 out_norm (10,128,128,512)": (10, 128, 128, 512, "gelu", False, torch.float32),
+    "fp32 up0_norm + FiLM (32,16,16,2064)": (32, 16, 16, 2064, "relu", True, torch.float32),
+    "bf16 up0_norm + FiLM (32,16,16,2064)": (32, 16, 16, 2064, "relu", True, torch.bfloat16),
+    "bf16 up0_norm, leaky (4,16,16,8208)": (4, 16, 16, 8208, "leaky_relu", False,
+                                            torch.bfloat16),
+    "fp32 1026 elements a group, gelu + FiLM (2,16,16,8208)": (2, 16, 16, 8208, "gelu", True,
+                                                                torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", PAIR_CASES, ids=list(PAIR_CASES))
+def test_groupnorm_pair_on_one_card_matches_plain(dev, case):
+    """K2 where the single launches refuse (a group of over 256 accesses, a
+    slice over the fp32 kernel's spill limit): the statistics and apply
+    launches on one card, the one shard's partials fed to the apply launch,
+    against :func:`groupnorm_act_plain`: fp32 within 5e-6 of the largest
+    value, bf16 a bf16 ulp of it; counted under ``.launches[_bf16]`` and
+    ``.launches_pair[_bf16]``, not under the sharded launches' counts."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    n, height, width, c, act, film, dtype = PAIR_CASES[case]
+    assert groupnorm.single_route(n, height * width, c, 8, dtype)[0] == groupnorm.PAIR_NAMES[dtype]
+    x = (_randn(dev, n, height, width, c, seed=241) * 3 + 1).to(dtype)
+    gamma, beta = _randn(dev, c, seed=242), _randn(dev, c, seed=243)
+    rows = ((_randn(dev, n, c, seed=244).to(dtype), _randn(dev, 1, c, seed=245).to(dtype))
+            if film else None)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    wrappers = ((fused_groupnorm_act, f"launches{sfx}"),
+                (fused_groupnorm_act, f"launches_pair{sfx}"),
+                (groupnorm_stats, f"launches{sfx}"), (groupnorm_apply, f"launches{sfx}"))
+    before = [getattr(f, k) for f, k in wrappers]
+    got = fused_groupnorm_act(x, gamma, beta, 8, 1e-5, act, rows)
+    assert [getattr(f, k) - v for (f, k), v in zip(wrappers, before)] == [1, 1, 0, 0]
+    want = groupnorm_act_plain(x, gamma, beta, 8, 1e-5, act, rows)
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-6 * scale, rtol=0)
+    else:
+        _assert_bf16_close(got, want, _bf16_ulp(scale))
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8192), (torch.float32, 4104),
+                                     (torch.bfloat16, 8200), (torch.float32, 4098)])
+def test_film_kernel_at_pixels_over_1024_accesses(dev, dtype, c):
+    """K3 where a pixel has over 1024 accesses (fp32 8192 and 4104
+    channels, bf16 8200, 4098 fp32 channels on the scalar path): a thread
+    several accesses of each pixel, against :func:`film_plain` (fp32
+    1e-5, bf16 exact); counted under ``.launches_wide[_bf16]``."""
+    x = _randn(dev, 4, 32, 32, c, seed=251).to(dtype)
+    scale, shift = _randn(dev, 4, c, seed=252).to(dtype), _randn(dev, 1, c, seed=253).to(dtype)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    before = getattr(fused_film, f"launches_wide{sfx}")
+    got = fused_film(x, scale, shift)
+    assert getattr(fused_film, f"launches_wide{sfx}") == before + 1
+    want = film_plain(x, scale, shift)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=1e-5 if dtype == torch.float32 else 0.0, rtol=0)

@@ -27,15 +27,13 @@
 //    come from that on-chip copy, and the CTAs of a cluster add their
 //    partials through distributed shared memory in rank order, so every CTA
 //    gets the same statistics.  Device memory sees one read and one write.
-//  - A slice larger than a CTA's shared memory (the big model's out_norm,
-//    (N, 128, 128, 256): 2 MiB a group, 256 KiB a CTA in a cluster of 8)
-//    keeps its first resident_pixels in shared memory and spills the rest:
-//    the variance and output passes read the spilled pixels again from
-//    device memory (12% of that slice, so 1.23 reads of x in all).  The
-//    alternative, a non-portable cluster of 16 at 128 KiB a CTA, needs 16
-//    free SMs of one GPC for each group and was not taken: the plan could
-//    not know before the launch whether the card schedules it.  The sums
-//    are the same, in the same order, on both paths.
+//  - A slice larger than a CTA's shared memory takes no launch of this
+//    kernel: groupnorm_f32_large_kernel below holds such a part in shared
+//    memory and registers, and past its budget the statistics and apply
+//    pair streams it (ops/groupnorm.py::single_route).  A spill of the
+//    slice's tail, read again from device memory by the later passes, ran
+//    1.28-1.38x slower than the pair at 320-384 KiB slices
+//    (scripts/compare_torch_kernels.py --template).
 //  - A thread keeps the same channels for its whole slice (the block covers
 //    whole pixels), so gamma, beta, scale and shift sit in registers and the
 //    loops do no division.  Shapes whose channels per group are not a
@@ -48,7 +46,9 @@
 // does (ops/pallas/groupnorm.py:52-57); the FiLM epilogue then runs in T
 // as context_unet.py:300-307 does: scale * y rounded, + shift rounded
 // (rows of T).  Shared memory holds the slice as T, exact.  The template
-// serves the float single launch, and the bf16 single launch only at the
+// serves the float single launch but where its slice is over 48 KiB in
+// whole packs (the deep and big out_norm: groupnorm_f32_large_kernel below),
+// and the bf16 single launch only at the
 // shapes no bf16 kernel below takes (ops/groupnorm.py::single_route: an
 // unaligned pointer, a group of over 256 channels, or a group of whole
 // packs whose part exceeds groupnorm_bf16_kernel's registers even in a
@@ -70,7 +70,9 @@
 // and the second merges them by Chan's formula and normalises.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include "pack.cuh"
 
@@ -114,15 +116,15 @@ __device__ __forceinline__ float activate(float y, int act) {
 }
 
 // Grid: (sample, group) major, cluster rank minor.  Dynamic shared memory:
-// resident_pixels * cg elements of T, the CTA's slice as [pixel][channel of
+// pixels_per_cta * cg elements of T, the CTA's slice as [pixel][channel of
 // group].
 template <typename T, int V>
 __global__ void groupnorm_act_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const T* __restrict__ scale,
     const T* __restrict__ shift, T* __restrict__ out, int hw, int c,
-    int groups, int cluster_size, int pixels_per_cta, int resident_pixels,
-    int scale_stride, int shift_stride, float eps, int act) {
+    int groups, int cluster_size, int pixels_per_cta, int scale_stride,
+    int shift_stride, float eps, int act) {
   extern __shared__ float4 slice_storage[];
   __shared__ float warp_sums[32];
   __shared__ float partials[2];
@@ -142,23 +144,17 @@ __global__ void groupnorm_act_kernel(
   const long long base = ((long long)n * hw + p0) * c + ch;
   T* mine = reinterpret_cast<T*>(slice_storage) + j;
   const T* xs = x + base;  // this thread's channels of the slice
-  // Pixels [0, res) of the slice sit in shared memory, [res, np) spill;
-  // spill is this thread's first pixel at or past res.
-  const int res = min(np, resident_pixels);
-  const int spill =
-      first >= res ? first : first + (res - first + pstride - 1) / pstride * pstride;
   // Second and third passes: this thread's pixels in order, each with its
-  // values, from shared memory and then (spilled) from device memory.
+  // values, from shared memory.
   auto sweep = [&](auto&& body) {
-    for (int p = first; p < res; p += pstride) body(p, load<V>(mine + p * cgroup));
-    for (int p = spill; p < np; p += pstride) body(p, load<V>(xs + (long long)p * c));
+    for (int p = first; p < np; p += pstride) body(p, load<V>(mine + p * cgroup));
   };
 
   float s = 0.0f;
 #pragma unroll 4
   for (int p = first; p < np; p += pstride) {
     Pack<V> v = load<V>(xs + (long long)p * c);
-    if (p < res) store<V>(mine + p * cgroup, v);  // only this thread reads it back
+    store<V>(mine + p * cgroup, v);  // only this thread reads it back
 #pragma unroll
     for (int i = 0; i < V; ++i) s += v.v[i];
   }
@@ -202,8 +198,8 @@ template <typename T, int V>
 cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
                    const float* beta, const T* scale, const T* shift,
                    T* out, int hw, int c, int groups, int cluster,
-                   int pixels_per_cta, int resident_pixels, int scale_stride,
-                   int shift_stride, float eps, int act) {
+                   int pixels_per_cta, int scale_stride, int shift_stride, float eps,
+                   int act) {
   cudaError_t err = cudaSuccess;
   // Past 48 KiB in all, static arrays included (warp_sums, partials), a
   // launch needs the opt-in: a 48 KiB slice (bf16 n_feat 96's unaligned
@@ -214,8 +210,8 @@ cudaError_t launch(cudaLaunchConfig_t* cfg, const T* x, const float* gamma,
                                (int)cfg->dynamicSmemBytes);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(cfg, groupnorm_act_kernel<T, V>, x, gamma, beta, scale, shift,
-                             out, hw, c, groups, cluster, pixels_per_cta, resident_pixels,
-                             scale_stride, shift_stride, eps, act);
+                             out, hw, c, groups, cluster, pixels_per_cta, scale_stride,
+                             shift_stride, eps, act);
   cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
@@ -224,8 +220,8 @@ template <typename T>
 int entry(const T* x, const float* gamma, const float* beta, const T* scale,
           const T* shift, T* out, int n, int hw, int c, int groups,
           int scale_stride, int shift_stride, float eps, int act, int vec,
-          int cluster, int threads, int pixels_per_cta, int resident_pixels,
-          int smem_bytes, void* stream) {
+          int cluster, int threads, int pixels_per_cta, int smem_bytes,
+          void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * groups * cluster));
@@ -241,12 +237,11 @@ int entry(const T* x, const float* gamma, const float* beta, const T* scale,
   cfg.numAttrs = 1;
   if (vec == kVec<T>)
     return (int)launch<T, kVec<T>>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups,
-                                   cluster, pixels_per_cta, resident_pixels, scale_stride,
-                                   shift_stride, eps, act);
+                                   cluster, pixels_per_cta, scale_stride, shift_stride, eps,
+                                   act);
   if (vec == 1)
     return (int)launch<T, 1>(&cfg, x, gamma, beta, scale, shift, out, hw, c, groups, cluster,
-                             pixels_per_cta, resident_pixels, scale_stride, shift_stride,
-                             eps, act);
+                             pixels_per_cta, scale_stride, shift_stride, eps, act);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1327,12 +1322,327 @@ int apply_entry(const T* x, const float* parts, const float* gamma, const float*
                         : apply_launch<T, kVec<T>>(grid, threads, st, a, act));
 }
 
+// ---- The fp32 single launch at slices over 48 KiB: groups of 0.5-2 MiB. ----
+//
+// groupnorm_f32_large_kernel replaces the template above at the fp32 shapes
+// whose slice (a group's pixels over a cluster of 8) is over 48 KiB and whose
+// groups are whole 32-byte sectors: the deep and big models' out_norm
+// ((N, 128, 128, 128): 1 MiB a group, 128 KiB a CTA; (N, 128, 128, 256): 2
+// MiB, 256 KiB a CTA), the 128x128 family's out_norm at n_feat 64-256 and the
+// canonical out_norm from n_feat 256 (ops/groupnorm.py::single_route).  Same
+// function and arguments as the template (every activation, the FiLM
+// epilogue with rows of stride c or 0), the statistics centred as the JAX
+// reference's (models/blocks.py:322-330).  Bound: bytes, x read once and out
+// written once.  What held the template to 44-50% of that at these shapes,
+// and what this design does about it:
+//  - The big slice spilled 30 of its 256 KiB (read twice more).  Here a
+//    CTA's part of the group lives on chip whole: its first `boxes` TMA boxes
+//    of box_px pixels in shared memory, the rest (at most LARGE_PACKS packs a
+//    thread) in registers, so x is read once (ops/groupnorm.py::large_plan:
+//    deep 7 boxes of 16 KiB + 2 packs a thread, two CTAs an SM; big 7 boxes
+//    of 32 KiB + 4 packs, one CTA an SM; a 64x64 map's 512-pixel parts in
+//    CTAs of 256 threads).
+//  - Its bytes in flight were 4 loads of 16 bytes a thread.  Here one
+//    thread issues every box's tensor copy (cp.async.bulk.tensor, 4-D view
+//    (channel in box, box of a group, group, pixel)) at the start, each
+//    completing on an mbarrier of its own, and every thread its register
+//    packs: the whole part is requested at once whatever the thread count,
+//    and the statistics start on the first box that lands.
+//  - Two cluster barriers (the mean, then the centred M2).  Here each thread
+//    merges its packs' centred moments (count, mean, M2) by Chan's formula
+//    as they land, the lanes in a butterfly, the warps in order, the
+//    cluster's CTAs in rank order through distributed shared memory (lane r
+//    reads rank r, shuffles merge them in order): one cluster barrier, the
+//    same order every run (reruns bit-identical).
+//  - One CTA an SM, so nothing overlapped its barriers and its store pass.
+//    Here each box is normalised in place and written back by a tensor store
+//    (cp.async.bulk.tensor, shared to global) as soon as it is done, the
+//    register packs by plain stores first, so the store stream starts right
+//    after the barrier and the CTA's only wait is for its last box's read;
+//    where the part fits in half the SM (the deep out_norm) two CTAs share
+//    it, one's barrier and normalising under the other's copies (1.21x one
+//    CTA an SM at 10 maps, scripts/compare_torch_kernels.py --variants).
+//    The big part (256 KiB) fits one CTA an SM: halving it takes a
+//    non-portable cluster of 16, of which the card held 14 at two CTAs an
+//    SM, and it ran within 2% of this plan, so the plan keeps clusters of 8.
+// A box that runs past the part (a map whose pixels do not split evenly)
+// loads pixels it does not count and is written by the threads' own stores,
+// so no store leaves the part.
+
+constexpr int LARGE_THREADS = 512;  // a CTA at most
+constexpr int LARGE_MAX_BOXES = 16;  // tensor copies of a CTA's part in shared memory
+constexpr int LARGE_PACKS = 4;  // register packs a thread: 64 registers, two CTAs an SM
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(shared_address(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Box (0, 0, g, row) of the 4-D view `map` into shared memory at dst,
+// completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int g, int row,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(shared_address(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(0), "r"(0), "r"(g), "r"(row),
+      "r"(shared_address(bar))
+      : "memory");
+}
+
+// Shared memory at src to box (0, 0, g, row) of `map`, in the bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int g, int row,
+                                          const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<unsigned long long>(map)),
+      "r"(0), "r"(0), "r"(g), "r"(row), "r"(shared_address(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Grid: (sample, group) major, cluster rank minor.  Thread t < pstride * vpg
+// (vpg = the group's packs a pixel, pstride = blockDim.x / vpg) holds pack t %
+// vpg of pixels t / vpg, + pstride, ... of its part: from shared memory below
+// boxes * box_px, from its LARGE_PACKS registers past it; threads past the
+// last whole pixel of the block only join the merges.  Dynamic shared memory: 128 bytes
+// of alignment, then the boxes, [pixel][channel of group] floats each.  The
+// activation and the FiLM epilogue are chosen at run time (act as
+// activate's, FiLM where scale is given): at these launches' 0.1-0.7 ms the
+// choice costs nothing measurable, and the build keeps one instance.
+__global__ void __launch_bounds__(LARGE_THREADS, 2) groupnorm_f32_large_kernel(
+    const __grid_constant__ CUtensorMap in_map, const __grid_constant__ CUtensorMap out_map,
+    const float* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ scale,
+    const float* __restrict__ shift, float* __restrict__ out, int hw, int c, int groups,
+    int cluster_size, int part_px, int boxes, int box_px, int scale_stride, int shift_stride,
+    float eps, int act) {
+  extern __shared__ float4 large_storage[];
+  __shared__ __align__(8) unsigned long long bars[LARGE_MAX_BOXES];
+  __shared__ Moments warp_moments[LARGE_THREADS / 32];
+  __shared__ Moments block_moments;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cgroup = c / groups, vpg = cgroup / 4;  // packs a pixel of the group
+  const int ng = blockIdx.x / cluster_size;
+  const int nn = ng / groups, g = ng - nn * groups;
+  const int rank = (int)cluster.block_rank();
+  const int p0 = min(hw, rank * part_px);
+  const int np = min(hw, p0 + part_px) - p0;
+  const int pstride = blockDim.x / vpg;  // pixels the block covers per step
+  const int first = tid < pstride * vpg ? tid / vpg : np;
+  const int ch = g * cgroup + (tid % vpg) * 4;
+  const int row0 = nn * hw + p0;  // the part's first pixel among the n * hw
+  const int used = min(boxes, (np + box_px - 1) / box_px);  // boxes holding pixels
+  const int resident = boxes * box_px;  // pixels [0, resident) in shared memory
+  const unsigned pad = (128u - (shared_address(large_storage) & 127u)) & 127u;
+  float* slice = reinterpret_cast<float*>(reinterpret_cast<char*>(large_storage) + pad);
+  float* mine = slice + (tid % vpg) * 4;  // this thread's channels of pixel 0
+
+  if (tid == 0) {
+    for (int b = 0; b < used; ++b) mbar_init(&bars[b], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int b = 0; b < used; ++b) {
+      mbar_expect_tx(&bars[b], (unsigned)(box_px * cgroup * 4));
+      tma_load(slice + b * box_px * cgroup, &in_map, g, row0 + b * box_px, &bars[b]);
+    }
+  }
+  Raw<float, 4> raw[LARGE_PACKS];
+#pragma unroll
+  for (int i = 0; i < LARGE_PACKS; ++i) {
+    const int p = resident + first + i * pstride;
+    if (p < np) raw[i] = load_raw<float, 4>(x + (long long)(row0 + p) * c + ch);
+  }
+  const Pack<4> ga = load<4>(gamma + ch), be = load<4>(beta + ch);
+  const bool film = scale != nullptr;
+  Pack<4> sc{}, sh{};
+  if (film) {
+    sc = load<4>(scale + (long long)nn * scale_stride + ch);
+    sh = load<4>(shift + (long long)nn * shift_stride + ch);
+  }
+
+  // This thread's packs' centred moments, merged in a fixed order: the
+  // boxes' pixels as each box lands, then the register packs.
+  Moments m{0.0f, 0.0f, 0.0f};
+  auto add = [&](const Pack<4>& v) {
+    const float pm = (v.v[0] + v.v[1] + v.v[2] + v.v[3]) * 0.25f;
+    float pq = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = v.v[e] - pm;
+      pq += d * d;
+    }
+    m = merge(m, Moments{4.0f, pm, pq});
+  };
+  int p = first;
+  for (int b = 0; b < used; ++b) {
+    const int end = min((b + 1) * box_px, np);
+    if (p < end) mbar_wait(&bars[b], 0);
+    for (; p < end; p += pstride) add(load<4>(mine + p * cgroup));
+  }
+#pragma unroll
+  for (int i = 0; i < LARGE_PACKS; ++i)
+    if (resident + first + i * pstride < np) add(unpack<float, 4>(raw[i]));
+  // The block's one group: every lane merges with its partners, lower
+  // lane first, so every lane gets the same; then the warps in order.
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Moments o{__shfl_xor_sync(0xffffffffu, m.n, off),
+                    __shfl_xor_sync(0xffffffffu, m.mean, off),
+                    __shfl_xor_sync(0xffffffffu, m.m2, off)};
+    m = (lane & off) ? merge(o, m) : merge(m, o);
+  }
+  if (lane == 0) warp_moments[warp] = m;
+  __syncthreads();
+  if (tid == 0) {
+    Moments b{0.0f, 0.0f, 0.0f};
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) b = merge(b, warp_moments[w]);
+    block_moments = b;
+  }
+  cluster.sync();  // every CTA's block_moments is written
+  // Lane r of each warp reads rank r's moments (the reads in flight
+  // together), then every lane merges them in rank order through shuffles.
+  Moments own{0.0f, 0.0f, 0.0f};
+  if (lane < cluster_size) own = *cluster.map_shared_rank(&block_moments, lane);
+  auto rank_moments = [&](int r) {
+    return Moments{__shfl_sync(0xffffffffu, own.n, r), __shfl_sync(0xffffffffu, own.mean, r),
+                   __shfl_sync(0xffffffffu, own.m2, r)};
+  };
+  Moments t = rank_moments(0);
+  for (int r = 1; r < cluster_size; ++r) t = merge(t, rank_moments(r));
+  // Done with the other CTAs' shared memory; wait for them before exiting.
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  const float mean = t.mean, rstd = rsqrtf(t.m2 / t.n + eps);
+
+  auto normalise = [&](Pack<4> v) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float y = activate((v.v[e] - mean) * rstd * ga.v[e] + be.v[e], act);
+      v.v[e] = film ? y * sc.v[e] + sh.v[e] : y;
+    }
+    return v;
+  };
+  // The register packs first, so their stores pass under the boxes' work.
+#pragma unroll
+  for (int i = 0; i < LARGE_PACKS; ++i) {
+    const int q = resident + first + i * pstride;
+    if (q < np) store<4>(out + (long long)(row0 + q) * c + ch, normalise(unpack<float, 4>(raw[i])));
+  }
+  p = first;
+  for (int b = 0; b < used; ++b) {
+    const int end = min((b + 1) * box_px, np);
+    const bool whole = (b + 1) * box_px <= np;  // the same for every thread
+    for (; p < end; p += pstride) {
+      const Pack<4> v = normalise(load<4>(mine + p * cgroup));
+      if (whole)
+        store<4>(mine + p * cgroup, v);
+      else
+        store<4>(out + (long long)(row0 + p) * c + ch, v);
+    }
+    if (whole) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to the copy
+      __syncthreads();
+      if (tid == 0) tma_store(&out_map, g, row0 + b * box_px, slice + b * box_px * cgroup);
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (no link to
+// it at build time); null if there is none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D view of NHWC fp32 `base` (rows pixels of c channels in `groups`
+// groups) whose box is a group's box_px pixels: (box_ch channels, cgroup /
+// box_ch of them, groups, rows), the box (box_ch, cgroup / box_ch, 1, box_px)
+// laid out in shared memory as [pixel][channel of group].
+bool group_map(CUtensorMap* map, const float* base, long long rows, int c, int groups,
+               int box_ch, int box_px) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int cgroup = c / groups;
+  const cuuint64_t dims[4] = {(cuuint64_t)box_ch, (cuuint64_t)(cgroup / box_ch),
+                              (cuuint64_t)groups, (cuuint64_t)rows};
+  const cuuint64_t strides[3] = {(cuuint64_t)box_ch * 4, (cuuint64_t)cgroup * 4,
+                                 (cuuint64_t)c * 4};  // bytes, dimensions 1-3
+  const cuuint32_t box[4] = {(cuuint32_t)box_ch, (cuuint32_t)(cgroup / box_ch), 1u,
+                             (cuuint32_t)box_px};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_large(cudaLaunchConfig_t* cfg, const CUtensorMap& in_map,
+                         const CUtensorMap& out_map, const float* x, const float* gamma,
+                         const float* beta, const float* scale, const float* shift, float* out,
+                         int hw, int c, int groups, int cluster, int part_px, int boxes,
+                         int box_px, int scale_stride, int shift_stride, float eps, int act) {
+  if (act < 0 || act > 3) return cudaErrorInvalidValue;
+  const auto kernel = groupnorm_f32_large_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg->dynamicSmemBytes);
+  if (err == cudaSuccess)  // two CTAs an SM need its shared memory carved out to the most
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(cfg, kernel, in_map, out_map, x, gamma, beta, scale, shift, out, hw,
+                             c, groups, cluster, part_px, boxes, box_px, scale_stride,
+                             shift_stride, eps, act);
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 }  // namespace
 
 // x/out: (n, hw, c) contiguous NHWC of T; gamma/beta: (c,) float;
 // scale/shift: null, or rows of c elements of T with strides 0 or c.
-// vec, cluster, threads, pixels_per_cta, resident_pixels and smem_bytes
-// come from ops/groupnorm.py::launch_plan (vec a 16-byte pack needs
+// vec, cluster, threads, pixels_per_cta and smem_bytes come from ops/groupnorm.py::launch_plan (vec a 16-byte pack needs
 // c/groups a multiple of it and 16-byte aligned pointers).  The float
 // single launch, and the bf16 one at the shapes bf16_plan and narrow_plan
 // refuse (ops/groupnorm.py::single_route).  Returns the cudaError_t of the
@@ -1342,11 +1652,10 @@ int apply_entry(const T* x, const float* parts, const float* gamma, const float*
                       const T* scale, const T* shift, T* out, int n, int hw, int c, \
                       int groups, int scale_stride, int shift_stride, float eps,    \
                       int act, int vec, int cluster, int threads,                   \
-                      int pixels_per_cta, int resident_pixels, int smem_bytes,      \
-                      void* stream) {                                               \
+                      int pixels_per_cta, int smem_bytes, void* stream) {           \
     return entry<T>(x, gamma, beta, scale, shift, out, n, hw, c, groups,            \
                     scale_stride, shift_stride, eps, act, vec, cluster, threads,    \
-                    pixels_per_cta, resident_pixels, smem_bytes, stream);           \
+                    pixels_per_cta, smem_bytes, stream);                            \
   }
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act, float)
 CAMELS_GROUPNORM_ENTRY(camels_groupnorm_act_bf16_generic, bf16)
@@ -1472,3 +1781,51 @@ CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats, camels_groupnorm_apply,
 CAMELS_GROUPNORM_SHARDED_ENTRIES(camels_groupnorm_stats_bf16, camels_groupnorm_apply_bf16,
                                  bf16)
 #undef CAMELS_GROUPNORM_SHARDED_ENTRIES
+
+// The fp32 single launch at slices over 48 KiB (groupnorm_f32_large_kernel):
+// camels_groupnorm_act's arguments up to act, then cluster, threads,
+// part_px, boxes (TMA boxes of a part in shared memory, at most 16), box_px
+// (pixels a box, at most 256), box_ch (channels of a box's row: c / groups
+// where that is at most 256, else a divisor of it; LARGE_PACKS register
+// packs a thread cover the part past the boxes) and smem_bytes, all from
+// ops/groupnorm.py::large_plan; x and out 16-byte
+// aligned, c / groups a multiple of 4.  Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue where libcuda's tensor maps are missing
+// or refuse the view).
+extern "C" int camels_groupnorm_act_large(const float* x, const float* gamma, const float* beta,
+                                          const float* scale, const float* shift, float* out,
+                                          int n, int hw, int c, int groups, int scale_stride,
+                                          int shift_stride, float eps, int act, int cluster,
+                                          int threads, int part_px, int boxes, int box_px,
+                                          int box_ch, int smem_bytes, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (groups <= 0 || c % groups || c / groups % 4 || box_ch <= 0 || box_ch % 4 ||
+      c / groups % box_ch || c / groups / box_ch > 256 || box_ch > 256)
+    return (int)cudaErrorInvalidValue;
+  const int vpg = c / groups / 4;
+  if (threads <= 0 || threads > LARGE_THREADS || threads % 32 || threads < vpg ||
+      cluster < 1 || cluster > 8 || part_px < 1 || boxes < 1 || boxes > LARGE_MAX_BOXES ||
+      box_px < 1 || box_px > 256 || part_px - boxes * box_px > LARGE_PACKS * (threads / vpg) ||
+      smem_bytes < 128 + boxes * box_px * (c / groups) * 4)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap in_map, out_map;
+  const long long rows = (long long)n * hw;
+  if (!group_map(&in_map, x, rows, c, groups, box_ch, box_px) ||
+      !group_map(&out_map, out, rows, c, groups, box_ch, box_px))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * groups * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)launch_large(&cfg, in_map, out_map, x, gamma, beta, scale, shift, out, hw, c,
+                           groups, cluster, part_px, boxes, box_px, scale_stride, shift_stride,
+                           eps, act);
+}

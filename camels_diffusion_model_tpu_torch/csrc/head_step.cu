@@ -1032,6 +1032,40 @@ __global__ void __launch_bounds__(F32_THREADS, 2) head_step_halo_f32_kernel(
                        tanh_out);
 }
 
+// The fp32 unsharded launch at widths from 128 (ops/sampler_step.py::route):
+// the same body with the unsharded copy map of head_step_bf16_kernel, rows
+// outside the map zero, in a kernel of its own so that the halo kernel keeps
+// its text.  Against the template (head_step_kernel) at 128-wide maps, whose
+// band of (rows + 2) x 128 pixel pairs under CFG fits MAX_THREADS only at one
+// row (three rows staged for each row computed) and whose ring held one CTA
+// an SM: bands of any height whatever the width (2 rows at up to 128
+// channels, two CTAs an SM; 4 over them, where rows staged again from L2 cost
+// more: ops/sampler_step.py::BAND_ROWS), warp-private rings.  Without CFG
+// the template's band of 4 rows fits, and at 256 channels it stays faster
+// (ops/sampler_step.py::route keeps it there).
+__global__ void __launch_bounds__(F32_THREADS, 2) head_step_f32_band_kernel(
+    const float* __restrict__ h, const float* __restrict__ wt, const float* __restrict__ bias,
+    const float* __restrict__ x, const float* __restrict__ z,
+    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
+    int height, int width, int c, int rows, int cfg, float c_eps, float inv_sqrt_a,
+    float sigma, int tanh_out) {
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blockIdx.x / bands;
+  const int y0 = (blockIdx.x - unit * bands) * rows;
+  const int pb = (rows + 2) * width, m = (cfg ? 2 : 1) * pb;
+  // As head_step_bf16_kernel's: a branch's band pixel q is pixel q of the
+  // run that starts at its sample's row y0 - 1, read where inside the map.
+  const int base0 = ((unit * height + y0 - 1) * width) * c;
+  const int base1 = cfg ? (((unit + batch) * height + y0 - 1) * width) * c : 0;
+  const int q_lo = y0 == 0 ? width : 0, q_hi = min(pb, (height - y0 + 1) * width);
+  auto source_of = [&](int p) {
+    const int s = p >= pb, qq = p - s * pb;
+    return Source<float>{h, (s ? base1 : base0) + qq * c, p < m && qq >= q_lo && qq < q_hi};
+  };
+  f32_step_body<false>(source_of, unit, y0, pb, m, h, wt, bias, x, z, w_per_sample, w, out,
+                       height, width, c, rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+}
+
 // ---- The split launch: the channel sum over CTAs, then combine and step. ----
 //
 // Where a band kernel's weights outgrow shared memory (c in the thousands:
@@ -1397,4 +1431,28 @@ extern "C" int camels_head_step_halo(const float* h, const float* top, const flo
   return band_launch<float>(head_step_halo_f32_kernel, h, top, bottom, wt, bias, x, z,
                             w_per_sample, w, out, batch, height, width, c, rows, cfg, threads,
                             smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, stream);
+}
+
+// The fp32 unsharded launch at widths from 128 (head_step_f32_band_kernel):
+// camels_head_step_bf16's arguments on float features (c a multiple of 4,
+// threads 256; rows and smem_bytes from ops/sampler_step.py::halo_plan).
+extern "C" int camels_head_step_f32_band(const float* h, const float* wt, const float* bias,
+                                         const float* x, const float* z,
+                                         const float* w_per_sample, float w, float* out,
+                                         int batch, int height, int width, int c, int rows,
+                                         int cfg, int threads, int smem_bytes, float c_eps,
+                                         float inv_sqrt_a, float sigma, int tanh_out,
+                                         void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  if (threads != F32_THREADS || c % 4) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(head_step_f32_band_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err == cudaSuccess)
+    head_step_f32_band_kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows))),
+                                F32_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+        h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, rows, cfg, c_eps,
+        inv_sqrt_a, sigma, tanh_out);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }

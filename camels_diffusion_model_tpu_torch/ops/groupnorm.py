@@ -48,13 +48,23 @@ also under ``.launches_wide_bf16``.  Where both plans refuse a shape (an
 unaligned pointer, a group of over 256 channels) the float kernel's bf16
 instance (:func:`single_route`), counted also under
 ``.launches_generic_bf16``.  Where the single launch of either type
-refuses a shape (a group of over 256 accesses, or the float kernel's slice
-over ``SPILL_MAX``: widths the JAX package computes, no committed
-model's), the statistics and apply launches run on one card, the one
+refuses a shape (a group of over 256 accesses, or a slice over
+``SLICE_MAX`` that the fp32 large-slice kernel below does not take:
+widths the JAX package computes, no committed model's), the statistics
+and apply launches run on one card, the one
 shard's partials feeding the apply launch with no collective: they stream
 their pixels and take every width, counted under ``.launches`` or
 ``.launches_bf16`` and also under ``.launches_pair`` or
 ``.launches_pair_bf16``.
+
+The fp32 single launch where the template's slice is over ``SLICE_TARGET``
+and groups are whole 32-byte sectors (the deep and big models' out_norm:
+groups of 1 and 2 MiB) is a kernel of its own too
+(``groupnorm_f32_large_kernel``: a CTA's part of its group on chip whole,
+tensor copies into shared memory plus register packs, all requested at
+once; one merge by Chan's formula; each box normalised in place and
+written back by a tensor store; :func:`large_plan`), counted under
+``.launches`` and also under ``.launches_large``.
 """
 
 from __future__ import annotations
@@ -73,7 +83,15 @@ from ..parallel.mesh import all_reduce, all_reduce_sum
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "leaky_relu": 3}
 
 THREADS = 256  # a CTA; a multiple of 32 for the warp-shuffle sums
-WIDE_THREADS = 512  # a CTA whose slice leaves no room for a second on its SM
+# The template's CTA where its slice is over SLICE_TARGET
+# (scripts/compare_torch_kernels.py --variants and --template, in turns;
+# H100 80GB HBM3): LARGE_SLICE_THREADS where the slice leaves its SM no room
+# for a second CTA (over SLICE_MAX // 2: 512 ran 1.05-1.11x 384 at the deep
+# out_norm's 128 KiB, 1.02x at n_feat 224's 224 KiB at 128x128),
+# SHARED_SLICE_THREADS where it does (384 ran 1.16-1.26x 512 at n_feat 224's
+# 56 KiB slices of 64x64 maps, 1.05x at n_feat 256's 64 KiB).
+LARGE_SLICE_THREADS = 512
+SHARED_SLICE_THREADS = 384
 MIN_CTAS = 256  # about two per SM on the 132 SMs of an H100
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
 SLICE_TARGET = 48 * 1024  # bytes of a CTA's slice that still leave room
@@ -83,6 +101,7 @@ C_NAME = "camels_groupnorm_act"  # the float single launch
 BF16_NAME = "camels_groupnorm_act_bf16"  # the bf16 single launch (bf16_plan)
 BF16_NARROW_NAME = "camels_groupnorm_act_bf16_narrow"  # groups not whole packs (narrow_plan)
 BF16_GENERIC_NAME = "camels_groupnorm_act_bf16_generic"  # the float kernel's bf16 instance
+LARGE_NAME = "camels_groupnorm_act_large"  # the fp32 single launch at large slices (large_plan)
 STATS_NAMES = {torch.float32: "camels_groupnorm_stats",
                torch.bfloat16: "camels_groupnorm_stats_bf16"}
 APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
@@ -91,14 +110,13 @@ APPLY_NAMES = {torch.float32: "camels_groupnorm_apply",
 PAIR_NAMES = {dt: (STATS_NAMES[dt], APPLY_NAMES[dt]) for dt in STATS_NAMES}
 SLICE_MAX = 227 * 1024 - 1024  # the dynamic shared memory a CTA may ask for,
 #                                less room for the kernel's static arrays
-SPILL_MAX = 2 * SLICE_MAX  # the largest slice: at most half of it spills
 
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p,
 )
 # The statistics launch: x, stats, n, hw, c, groups, vec, seg, cluster,
 # threads, part_px, the stream.
@@ -113,6 +131,10 @@ _APPLY_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_floa
 # the stream.
 _BF16_ARGTYPES = _ARGTYPES[:14] + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _NARROW_ARGTYPES = _BF16_ARGTYPES[:-1] + (ctypes.c_int, ctypes.c_void_p)  # then wide
+# The large-slice launch: the float launch's arguments up to act, then
+# cluster, threads, part_px, boxes, box_px, box_ch, smem_bytes and the
+# stream.
+_LARGE_ARGTYPES = _ARGTYPES[:14] + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 # bf16_plan's choices.
 BF16_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
@@ -131,14 +153,26 @@ NARROW_SPREAD = 66  # CTAs a launch should reach (half the SMs): small batches s
 NARROW_GROUP_CH = 256  # channels of a group the narrow kernels take at most
 # The wide layout's CTAs (whole warps, lanes past the last whole pixel idle;
 # scripts/compare_torch_kernels.py --generic, n_feat 264's heads at 2 and
-# 16 maps): of at most WIDE_THREADS where its CTAs have an SM each (384 ran
+# 16 maps): of at most BF16_WIDE_THREADS where its CTAs have an SM each (384 ran
 # 1.05-1.10x 512); where a part takes rounds and the grid holds more CTAs
 # than SMs, of WIDE_SHARED_THREADS with WIDE_SHARED_PACKS a round (about 80
 # registers: three CTAs share an SM, the grid one wave; 1.2x 512 threads of
 # 16 packs at n_feat 264's 16-map out_norm).
-WIDE_THREADS = 384
+BF16_WIDE_THREADS = 384
 WIDE_SHARED_THREADS = 256
 WIDE_SHARED_PACKS = 4
+
+# large_plan's choices (groupnorm_f32_large_kernel).
+LARGE_THREADS = 512  # a CTA (the kernel's launch bound)
+LARGE_SMALL_PART = 512  # pixels of a part at most that takes half the threads
+#                         (a 64x64 map over 8 CTAs: 256 threads ran 1.17x 512 at
+#                         n_feat 256's 32-map out_norm, compare_torch_kernels.py --variants)
+LARGE_BOX_PX = 256  # pixels of a tensor copy's box at most (a box dimension's limit)
+LARGE_MAX_BOXES = 16  # boxes of a part at most (the kernel's mbarriers)
+LARGE_PACKS = 4  # register packs a thread at most (csrc's: two CTAs an SM's registers)
+LARGE_PER_SM = (2, 1)  # CTAs an SM, the first whose budget holds the part
+LARGE_STATIC = 512  # bytes of the kernel's static shared memory at most
+SM_SMEM = 228 * 1024  # shared memory of an SM; each CTA also takes 1 KiB
 
 # stats_plan's and apply_plan's choices (the sharded launches).
 STATS_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
@@ -156,13 +190,7 @@ class Plan(NamedTuple):
     cluster: int  # CTAs that share one (sample, group)
     threads: int  # per CTA
     pixels_per_cta: int  # a CTA's run of pixels of its group
-    smem_bytes: int  # dynamic shared memory per CTA: the resident part of its slice
-    resident_pixels: int  # pixels of the slice held in shared memory; the
-    #                       rest spill: read again from device memory
-
-    @property
-    def spills(self) -> bool:
-        return self.resident_pixels < self.pixels_per_cta
+    smem_bytes: int  # dynamic shared memory per CTA: its slice
 
 
 def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
@@ -175,17 +203,14 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     elements and ``aligned`` pointers; other shapes take the scalar path.
     The cluster is the smallest of 1, 2, 4, 8 whose per-CTA slice is at most
     ``SLICE_TARGET`` bytes and whose grid reaches ``MIN_CTAS``; it stops
-    growing once it reaches ``hw``.  A slice over ``SLICE_TARGET`` leaves
-    its SM no room for another CTA, so the CTA takes ``WIDE_THREADS``
-    threads.  A slice over ``SLICE_MAX`` (a group of over 1.8 MB, as the big
-    model's fp32 ``out_norm``: 2 MiB; in bf16 it is 1 MiB and stays
-    resident) spills: its first ``SLICE_MAX`` bytes stay in shared memory
-    and the rest is read from device memory again by the variance and the
-    output passes.  Raises
-    ``ValueError`` for a shape no path takes: a group wider than a CTA's
-    threads, or a slice over ``SPILL_MAX`` bytes even in a cluster of 8,
-    where most of it would be read three times (no model of the repository
-    runs one).
+    growing once it reaches ``hw``.  A slice over ``SLICE_TARGET`` takes a
+    CTA of ``SHARED_SLICE_THREADS`` threads, or of ``LARGE_SLICE_THREADS``
+    where it is over half of ``SLICE_MAX`` (its SM holds no second CTA).
+    Raises ``ValueError`` for a shape the kernel does not take: a group
+    wider than a CTA's threads, or a slice over ``SLICE_MAX`` bytes even in
+    a cluster of 8 (a group of over 1.8 MB, as the big model's fp32
+    ``out_norm``: 2 MiB; in bf16 it is 1 MiB and fits), which
+    :func:`single_route` gives the large-slice kernel or the pair.
     """
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
@@ -202,15 +227,15 @@ def launch_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     while (cluster < MAX_CLUSTER and cluster < hw
            and (slice_bytes(cluster) > SLICE_TARGET or n * groups * cluster < MIN_CTAS)):
         cluster *= 2
-    if slice_bytes(cluster) > SPILL_MAX:
+    if slice_bytes(cluster) > SLICE_MAX:
         raise ValueError(
             f"a group of {hw} x {cg} elements needs {slice_bytes(cluster)} bytes "
-            f"per CTA even in a cluster of {cluster}, over {SPILL_MAX}"
+            f"per CTA even in a cluster of {cluster}, over {SLICE_MAX}"
         )
-    pixels = -(-hw // cluster)
-    resident = min(pixels, SLICE_MAX // (cg * element_bytes))
-    threads = WIDE_THREADS if slice_bytes(cluster) > SLICE_TARGET else THREADS
-    return Plan(vec, cluster, threads, pixels, resident * cg * element_bytes, resident)
+    threads = (THREADS if slice_bytes(cluster) <= SLICE_TARGET
+               else SHARED_SLICE_THREADS if slice_bytes(cluster) <= SLICE_MAX // 2
+               else LARGE_SLICE_THREADS)
+    return Plan(vec, cluster, threads, -(-hw // cluster), slice_bytes(cluster))
 
 
 class Bf16Plan(NamedTuple):
@@ -340,7 +365,7 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     width or alignment (parts over its registers, as n_feat 320's out_norm
     at 128x128; 17 packs a group and more, as n_feat 544's up0_norm), the
     wide layout (``wide``): a CTA of whole warps of at most
-    ``WIDE_THREADS``, the lanes past its last whole pixel idle
+    ``BF16_WIDE_THREADS``, the lanes past its last whole pixel idle
     (:func:`idle_lane_threads`), and the same cluster and part rules, a
     part over 16 packs a thread taken in rounds (the cluster then 8);
     where it does and the grid has more CTAs than the card has SMs, CTAs
@@ -386,7 +411,7 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
         if cluster is not None:
             break
     if cluster is None:  # the wide layout
-        wide, threads = True, idle_lane_threads(vs, WIDE_THREADS)
+        wide, threads = True, idle_lane_threads(vs, BF16_WIDE_THREADS)
         cluster = next((cl for cl in (1, 2, 4) if -(-hw // cl) <= most * (threads // vs)), 8)
     while (cluster < 8 and cluster < hw and units * cluster < NARROW_SPREAD
            and -(-hw // cluster) * seg * cg * 2 // 2 >= BF16_PART_MIN):
@@ -401,6 +426,68 @@ def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     return NarrowPlan(seg, cluster, threads, packs, part, wide)
 
 
+class LargePlan(NamedTuple):
+    """The large-slice fp32 kernel's launch geometry for one input shape."""
+
+    cluster: int  # CTAs that share one (sample, group)
+    threads: int  # per CTA
+    part_px: int  # a CTA's run of pixels of its group
+    boxes: int  # tensor-copy boxes of the part in shared memory
+    box_px: int  # pixels of a box
+    box_ch: int  # channels of a box's row: the group's, or a divisor of them
+    smem_bytes: int  # dynamic shared memory per CTA: 128 bytes of alignment, then the boxes
+    per_sm: int  # CTAs an SM whose shared-memory budget the boxes were cut to
+
+
+def large_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True) -> LargePlan:
+    """Geometry of the fp32 :func:`fused_groupnorm_act` at the shapes
+    :func:`single_route` gives ``groupnorm_f32_large_kernel`` (``csrc/
+    groupnorm.cu``) for ``n`` samples of ``hw`` pixels and ``c`` channels
+    in ``groups`` groups.
+
+    A (sample, group) splits over a cluster of ``MAX_CLUSTER`` CTAs of
+    ``LARGE_THREADS`` threads (half as many for a part of at most
+    ``LARGE_SMALL_PART`` pixels), a part of ``ceil(hw / 8)`` pixels each,
+    held on chip whole: boxes of ``box_px`` pixels (at most
+    ``LARGE_BOX_PX``) in shared memory, as many as the budget of ``per_sm``
+    CTAs an SM holds (228 KiB an SM, less 1 KiB a CTA, the static arrays
+    and 128 bytes of alignment), then at most ``LARGE_PACKS`` 16-byte packs
+    a thread in registers: ``per_sm`` the first of ``LARGE_PER_SM`` whose
+    boxes and packs hold the part.  The deep out_norm (1 MiB a group): 7
+    boxes of 256 pixels (112 KiB) and 2 packs of the 4, two CTAs an SM;
+    the big one (2 MiB): 7 boxes of 32 KiB and 4 packs, one CTA an SM.  A
+    box's rows are the group's channels (``box_ch``; a divisor of at most
+    256 of them where a group is wider).  Raises ``ValueError`` for a shape it does not take:
+    channels a group not a multiple of 4 (one 16-byte pack), an unaligned
+    pointer, or a part over the largest budget (a group of over ~2 MiB,
+    which the pair then takes)."""
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    cg = c // groups
+    if cg % 4 or not aligned:
+        raise ValueError(f"the large-slice kernel needs 16-byte aligned tensors and channels "
+                         f"per group a multiple of 4, got {cg}")
+    vpg = cg // 4
+    part = -(-hw // MAX_CLUSTER)
+    threads = LARGE_THREADS // (2 if part <= LARGE_SMALL_PART else 1)
+    if vpg > threads:
+        raise ValueError(f"a group of {cg} channels is wider than {threads} threads")
+    box_ch = max(k for k in range(4, min(cg, 256) + 1, 4) if cg % k == 0)
+    pstride = threads // vpg  # pixels the block covers per step
+    px = cg * 4  # bytes of a pixel of the group
+    for per_sm in LARGE_PER_SM:
+        budget = SM_SMEM // per_sm - 1024 - LARGE_STATIC - 128
+        box_px = min(LARGE_BOX_PX, -(-part // 8) * 8, budget // px // 8 * 8)
+        if box_px < 8:
+            continue
+        boxes = min(-(-part // box_px), budget // (box_px * px), LARGE_MAX_BOXES)
+        if part - boxes * box_px <= LARGE_PACKS * pstride:
+            return LargePlan(MAX_CLUSTER, threads, part, boxes, box_px, box_ch,
+                             128 + boxes * box_px * px, per_sm)
+    raise ValueError(f"a part of {part} x {cg} floats is over the large-slice kernel's "
+                     f"shared memory and registers")
+
+
 class PairPlan(NamedTuple):
     """The statistics and apply launches of :func:`fused_groupnorm_act` on
     one card (no collective): each launch's geometry."""
@@ -412,9 +499,18 @@ class PairPlan(NamedTuple):
 def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = True,
                  sms: int = 132) -> tuple:
     """``(C name, plan)`` of :func:`fused_groupnorm_act`'s launch for a
-    ``dtype`` input: the float kernel under :func:`launch_plan` for
-    float32; for bfloat16 the bf16 kernel under :func:`bf16_plan`, where
-    that plan refuses the shape the narrow bf16 kernels under
+    ``dtype`` input: for float32 the float kernel under :func:`launch_plan`,
+    and where that plan's slice is over ``SLICE_TARGET`` in groups of whole
+    32-byte sectors the large-slice kernel under :func:`large_plan`
+    (``LARGE_NAME``: the deep and big out_norm, the 128x128 family's
+    out_norm at n_feat 64, 128, 192 and 256, the canonical one from n_feat
+    256 in steps of 64) unless the part is over its budget (groups of over
+    ~2 MiB take the pair; groups of 4 mod 8 channels keep the template:
+    at n_feat 224's 28 channels, rows of 112 bytes, the large kernel's
+    best plan ran 0.95x the template's 384 threads,
+    ``scripts/compare_torch_kernels.py --variants``); for bfloat16
+    the bf16 kernel under :func:`bf16_plan`, where that plan refuses the
+    shape the narrow bf16 kernels under
     :func:`narrow_plan` (``BF16_NARROW_NAME``: groups not whole packs, in
     its wide layout where a unit is over 256 channels), and where both
     refuse it the float kernel's bf16 instance (``BF16_GENERIC_NAME``)
@@ -427,13 +523,23 @@ def single_route(n: int, hw: int, c: int, groups: int, dtype, aligned: bool = Tr
     ``THREADS`` accesses (fp32: over 1024 channels where they are whole
     16-byte packs and the pointers aligned, else over 256; bf16: over 2048
     in packs, else over 256, as n_feat 1032's up0_norm: 258) or a slice
-    over ``SPILL_MAX`` bytes even in a cluster of 8 (fp32: a group of over
-    925,696 elements, as the out_norm at 128x128 from n_feat 456; bf16:
-    twice that).  A function of the shape, the dtype and the alignment
-    alone, chosen before the launch; raises ``ValueError`` only where the
-    channels do not split into the groups."""
+    over ``SLICE_MAX`` bytes even in a cluster of 8 that the large-slice
+    kernel does not take (fp32: a group of over 1.77 MiB, as the out_norm
+    at 128x128 from n_feat 264; bf16, where the generic instance takes the
+    shape: a group of over 0.9 Mi elements).  At 320-384 KiB slices
+    the pair ran 1.28-1.38x faster than the template's former spill path
+    (``scripts/compare_torch_kernels.py --template``).  A function of the
+    shape, the dtype and the alignment alone, chosen before the launch;
+    raises ``ValueError`` only where the channels do not split into the
+    groups."""
     try:
         if dtype != torch.bfloat16:
+            cg = c // groups if groups > 0 and c % groups == 0 else 0
+            if aligned and cg and cg % 8 == 0 and -(-hw // MAX_CLUSTER) * cg * 4 > SLICE_TARGET:
+                try:
+                    return LARGE_NAME, large_plan(n, hw, c, groups, aligned)
+                except ValueError:
+                    pass  # over the large kernel's budget: the pair
             return C_NAME, launch_plan(n, hw, c, groups, aligned)
         for name, plan in ((BF16_NAME, bf16_plan), (BF16_NARROW_NAME, narrow_plan)):
             try:
@@ -871,10 +977,11 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
     if name in (BF16_NAME, BF16_NARROW_NAME):
         argtypes = _NARROW_ARGTYPES if name == BF16_NARROW_NAME else _BF16_ARGTYPES
         err = _build.kernel(name, argtypes)(*head, *plan, stream)
+    elif name == LARGE_NAME:
+        err = _build.kernel(name, _LARGE_ARGTYPES)(*head, *plan[:-1], stream)
     else:
         err = _build.kernel(name, _ARGTYPES)(
-            *head, plan.vec, plan.cluster, plan.threads, plan.pixels_per_cta,
-            plan.resident_pixels, plan.smem_bytes, stream)
+            *head, *plan, stream)
     _build.check(err, name)
     _count(fused_groupnorm_act, x)
     if name == BF16_NARROW_NAME:
@@ -882,11 +989,13 @@ def fused_groupnorm_act(x, gamma, beta, num_groups: int = 8,
         fused_groupnorm_act.launches_wide_bf16 += plan.wide
     if name == BF16_GENERIC_NAME:
         fused_groupnorm_act.launches_generic_bf16 += 1
+    fused_groupnorm_act.launches_large += name == LARGE_NAME
     return out
 
 
 fused_groupnorm_act.launches = 0  # every fp32 launch
 fused_groupnorm_act.launches_pair = 0  # those of them that took the pair on one card
+fused_groupnorm_act.launches_large = 0  # those of them that took LARGE_NAME
 fused_groupnorm_act.launches_bf16 = 0  # every bf16 launch
 fused_groupnorm_act.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_groupnorm_act.launches_wide_bf16 = 0  # ... in its wide layout

@@ -39,6 +39,13 @@ the same kernel runs at its narrow item, 32 channels
 channel block is masked past ``c`` (counted also under
 ``.launches_masked_bf16``).
 
+The fp32 unsharded launch at widths from ``BAND_WIDTH`` (the deep and big
+variants' 128x128 maps) under CFG, or at up to ``BAND_NARROW_C`` channels
+without, is a kernel of its own (``csrc/head_step.cu``,
+``head_step_f32_band_kernel``: the fp32 halo kernel's body with rows
+outside the map zero, under :func:`halo_plan`), counted under
+``.launches`` and also under ``.launches_band``.
+
 Where a band kernel's plan refuses a shape (weights over its shared
 memory, ``c`` in the thousands) or ``h`` has ``2**31`` elements or more,
 either type and mode takes the split launch (:func:`route`,
@@ -97,6 +104,14 @@ SPLIT_PER_SM = 2  # CTAs of a split launch an SM runs at once
 # bands of 2 rows skip half the taps).
 SPLIT_ROWS = {2: 4, 4: 2}
 C_NAME = "camels_head_step"  # the float unsharded launch
+F32_BAND_NAME = "camels_head_step_f32_band"  # ... at widths from BAND_WIDTH (halo_plan)
+BAND_WIDTH = 128  # where the template's band under CFG fits MAX_THREADS at one row only
+# The band kernel's rows (scripts/compare_torch_kernels.py --variants' sweep at
+# the deep and big steps, 10 maps): 2 at up to BAND_NARROW_C channels, 4 over
+# them, where a band's rows staged again from L2 cost more than the CTAs
+# two-row bands add (big under CFG: 0.2215 ms at 4 rows, 0.2462 at 2).
+BAND_ROWS = {True: 2, False: 4}  # keyed by c <= BAND_NARROW_C
+BAND_NARROW_C = 128
 BF16_NAME = "camels_head_step_bf16"  # the bf16 unsharded launch (bf16_plan)
 BF16_NARROW_NAME = "camels_head_step_bf16_narrow"  # ... at the narrow item
 HALO_NAMES = {torch.float32: "camels_head_step_halo",  # halo_plan
@@ -381,7 +396,8 @@ class HaloPlan(NamedTuple):
 
 
 def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
-              cfg: bool = True, aligned: bool = True, sms: int = SMS) -> HaloPlan:
+              cfg: bool = True, aligned: bool = True, sms: int = SMS,
+              rows: int | None = None) -> HaloPlan:
     """Geometry of the fp32 :func:`fused_head_step` with ``halo`` for
     ``units`` CTA units (sample pairs under ``cfg``, else samples) of
     ``height`` x ``width`` pixels of ``c`` channels on a card of ``sms``
@@ -395,7 +411,9 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     rings and the band's partials.  The band is the shortest of
     ``ROWS_HALO`` whose grid is one wave of the CTAs an SM holds (at most
     ``HALO_PER_SM``: one CTA's gather runs beside another's copies), else
-    the tallest that fits.  Raises ``ValueError`` for a shape it does not take:
+    the tallest that fits; ``rows`` (the band kernel's ``BAND_ROWS``) fixes
+    the band where its shared memory fits.  Raises ``ValueError`` for a
+    shape it does not take:
     ``cout != 1``, ``c`` not a multiple of one 16-byte copy (4), a pointer
     off a 16-byte boundary (``aligned``), or no band whose shared memory
     fits (weights of over ~3700 channels).
@@ -416,8 +434,9 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     fits = [r for r in sorted(ROWS_HALO) if smem(r) <= SMEM_MAX]
     if not fits:
         raise ValueError(f"a band of {width} pixels x {c} channels takes no fp32 halo plan")
-    rows = next((r for r in fits if units * -(-height // r) <= sms * min(
-        HALO_PER_SM, SM_SMEM // (smem(r) + 1024))), fits[-1])
+    if rows is None or smem(rows) > SMEM_MAX:
+        rows = next((r for r in fits if units * -(-height // r) <= sms * min(
+            HALO_PER_SM, SM_SMEM // (smem(r) + 1024))), fits[-1])
     return HaloPlan(rows, HALO_THREADS, units * -(-height // rows), smem(rows))
 
 
@@ -495,9 +514,15 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
           sms: int = SMS) -> tuple:
     """``(C name, plan)`` of :func:`fused_head_step`'s launch for features
     of ``dtype`` (arguments as :func:`launch_plan`'s): for float32 the
-    float kernel, with ``halo`` the fp32 halo kernel under
-    :func:`halo_plan`; for bfloat16 the bf16 kernel (with ``halo`` its
-    halo mode) under :func:`bf16_plan`, at the narrow item where ``c`` is
+    float kernel, at widths from ``BAND_WIDTH`` the fp32 band kernel
+    (``F32_BAND_NAME``, bands of ``BAND_ROWS``; without CFG only at up to
+    ``BAND_NARROW_C`` channels: at the big step's 256 the template's band
+    of 4 rows of 128 pixel pairs ran 0.09300 ms against the band kernel's
+    best 0.11048, at 3 rows, ``scripts/compare_torch_kernels.py
+    --variants``) and with ``halo`` the fp32 halo kernel, both under
+    :func:`halo_plan`; for
+    bfloat16 the bf16 kernel (with ``halo`` its halo mode) under
+    :func:`bf16_plan`, at the narrow item where ``c`` is
     a multiple of 8 but not of 64 (``BF16_NARROW_NAME``,
     ``HALO_NARROW_NAME``).  Where that plan refuses the shape, or the
     features hold ``2**31`` elements or more (the band kernels' offsets
@@ -506,10 +531,9 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     overflow the band kernel's shared memory (in bf16 ``c`` from 4840 at
     16 maps of 64x64 under CFG, from 5608 at width 8; in fp32 from 3056
     unsharded and 4240 on a 16-map half; no committed model's), the fp32
-    unsharded launch's odd widths without CFG and bands over
-    ``MAX_THREADS`` threads (widths over 128 under CFG), and the largest
-    features.  An unaligned pointer, a ``c`` not a multiple of one
-    16-byte copy or ``cout != 1`` take no kernel.  A function of the
+    unsharded launch's odd widths without CFG where the template takes
+    it, and the largest features.  An unaligned pointer, a ``c`` not a multiple of
+    one 16-byte copy or ``cout != 1`` take no kernel.  A function of the
     shape, the dtype and the alignment alone, chosen before the launch;
     raises ``ValueError`` where no kernel takes the shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
@@ -521,8 +545,12 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     if (2 if cfg else 1) * units * height * width * c >= 2**31:
         return split()
     try:
-        if dtype != torch.bfloat16 and not halo:
+        narrow = c <= BAND_NARROW_C
+        band = width >= BAND_WIDTH and (cfg or narrow)
+        if dtype != torch.bfloat16 and not halo and not band:
             return C_NAME, launch_plan(*args)
+        if dtype != torch.bfloat16 and not halo:
+            return F32_BAND_NAME, halo_plan(*args, rows=BAND_ROWS[narrow])
         plan = (bf16_plan if dtype == torch.bfloat16 else halo_plan)(*args)
     except ValueError:
         return split()
@@ -636,7 +664,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    kinds = (["_split"] if split
+    kinds = (["_split"] if split else ["_band"] if name == F32_BAND_NAME
              else ["_narrow"] + (["_masked"] if c % BF16_NARROW_BLOCK else [])
              if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else [])
     for kind in kinds:
@@ -647,6 +675,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
 
 fused_head_step.launches = 0  # every fp32 unsharded launch
 fused_head_step.launches_split = 0  # those of them that took the split launch
+fused_head_step.launches_band = 0  # those of them that took F32_BAND_NAME
 fused_head_step.launches_bf16 = 0  # every bf16 unsharded launch
 fused_head_step.launches_narrow_bf16 = 0  # those of them that took BF16_NARROW_NAME
 fused_head_step.launches_masked_bf16 = 0  # ... with a last channel block masked past c

@@ -13,8 +13,9 @@ Phases, each timed on its own line:
   (c) hold each kernel against its plain PyTorch version at the shapes each
       main path gives it (max abs error, ms, plain ms, library ms; times
       with the data in device memory, not L2), the deep and big models'
-      shapes included (K1 with their tanh, K2 with leaky ReLU and GELU and
-      on its spill path, K3 at their widths; 10 maps, 32 for validation),
+      shapes included (K1 with their tanh, on the fp32 band kernel from
+      width 128; K2 with leaky ReLU and GELU, the fp32 out_norm on the
+      large-slice kernel; K3 at their widths; 10 maps, 32 for validation),
       the narrow bf16 kernels of K1 and K2 at the narrow bf16 models'
       shapes (n_feat 32 of phase (o), 96 and 160), K1's narrow item with
       a masked last block (n_feat 264 of phase (o), 40, 48, 8) and K2's
@@ -64,12 +65,15 @@ Phases, each timed on its own line:
       the CPU at batch 2, one train step at batch 2 under phase (l)'s gate
       and witness on pinned kinks (see ``kink_sides``), four exact-chain
       steps against the CPU under injected z, ten strided steps at 10 maps
-      and an ELBO batch with their launch counts, and the train step at
-      batch 32 without remat (ms, idle share, peak memory);
+      and an ELBO batch with their launch counts (the out_norm on K2's
+      large-slice kernel and the step on K1's band kernel, each once a step,
+      the out_norm also once a forward: ``variant_kinds``), and the train
+      step at batch 32 without remat (ms, idle share, peak memory);
   (n) ``run_experiment`` of ``initial`` (deep) and ``main`` (big) at full
       width and of ``paper`` (the parameter grid, guidance sweep and
       sensitivity with their post metrics) on the synthetic data, cut to
-      ``RUN_T`` timesteps, one epoch and ``RUN_MAPS`` maps;
+      ``RUN_T`` timesteps, one epoch and ``RUN_MAPS`` maps (the deep and
+      big runs' launch counts with ``variant_kinds``);
   (o) the bf16 compute path at full width, the committed checkpoint folded
       in bf16 (``load_model(..., dtype=torch.bfloat16)``): the forward
       against the JAX bf16 golden; both certified rows served in bf16 at 16
@@ -225,13 +229,16 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import BF16_NAME as GROUPNOR
 from camels_diffusion_model_tpu_torch.ops.groupnorm import (
     BF16_NARROW_NAME as GROUPNORM_NARROW_NAME,
 )
+from camels_diffusion_model_tpu_torch.ops.groupnorm import LARGE_NAME as GROUPNORM_LARGE_NAME
 from camels_diffusion_model_tpu_torch.ops.groupnorm import PAIR_NAMES as GROUPNORM_PAIR_NAMES
 from camels_diffusion_model_tpu_torch.ops.groupnorm import single_route as groupnorm_route
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
+    F32_BAND_NAME,
     fused_head_step,
     guided_eps,
     head_step_plain,
 )
+from camels_diffusion_model_tpu_torch.ops.sampler_step import route as head_step_route
 from camels_diffusion_model_tpu_torch.ops.spectrum import power_spectrum_batch
 from camels_diffusion_model_tpu_torch.ops.stats import PooledPdf, pdf_tv
 from camels_diffusion_model_tpu_torch.parallel.launch import spawn
@@ -284,7 +291,8 @@ PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
                  "groupnorm_bf16_kernel",
                  "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
                  "groupnorm_stats_kernel",
-                 "groupnorm_apply_kernel")
+                 "groupnorm_apply_kernel", "groupnorm_f32_large_kernel",
+                 "head_step_f32_band_kernel")
 
 # Kernel vs plain version on the card.  K3 differs only by the fused
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
@@ -324,7 +332,10 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        "head_step_split": 1e-4, "head_step_split_bf16": 4,
        "head_step_halo_split": 1e-4, "head_step_halo_split_bf16": 4,
        "groupnorm_act_pair": 5e-6, "groupnorm_act_pair_bf16": 1, "film_wide": 1e-5,
-       "film_wide_bf16": 0}
+       "film_wide_bf16": 0,
+       # The fp32 designs at the deep and big variants' heads: K2's
+       # large-slice kernel and K1's band kernel, as K2 and K1.
+       "groupnorm_act_large": 1e-4, "head_step_band": 1e-4}
 REL_TOL = ("groupnorm_act_pair",)  # fp32 tolerances relative to the largest value
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
@@ -380,6 +391,11 @@ WRAPPERS = {
     "groupnorm_act_pair_bf16": (fused_groupnorm_act, "launches_pair_bf16"),
     "film_wide": (fused_film, "launches_wide"),
     "film_wide_bf16": (fused_film, "launches_wide_bf16"),
+    # The fp32 designs at the deep and big variants' heads: K2's large-slice
+    # kernel (slices over 48 KiB: their out_norm) and K1's band kernel
+    # (widths from 128); counted also in groupnorm_act's and head_step's.
+    "groupnorm_act_large": (fused_groupnorm_act, "launches_large"),
+    "head_step_band": (fused_head_step, "launches_band"),
 }
 
 
@@ -417,6 +433,9 @@ WIDE_KINDS = (("head_step", "split"), ("head_step_halo", "split"), ("groupnorm_a
               ("film", "wide"))
 LIBRARY.update({f"{k}_{kind}{sfx}": LIBRARY[f"{k}{sfx}"] for k, kind in WIDE_KINDS
                 for sfx in ("", "_bf16")})
+# The fp32 designs at the deep and big variants' heads: kernel and kind.
+F32_KINDS = (("groupnorm_act", "large"), ("head_step", "band"))
+LIBRARY.update({f"{k}_{kind}": LIBRARY[k] for k, kind in F32_KINDS})
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -464,7 +483,7 @@ VARIANT_CHECK_BATCH = 2  # card vs CPU: forward, train step, exact-chain steps
 # Card vs CPU forward at full width, abs, eps in [-1, 1]: cuDNN's fp32
 # algorithms reorder the sums of some thirty convolutions.
 VARIANT_TOL = 1e-4
-VARIANT_STEPS = 10  # strided steps of the timed sampler path
+VARIANT_STEPS = 5  # strided steps of the timed sampler path (halved to keep the script near 730 s)
 VARIANT_TIMED = {"deep": (5, 3), "big": (3, 2)}  # timed and profiled train steps
 # A variant's train step at batch 2 from its fresh init crosses kinks: its
 # ReLUs, leaky ReLUs and max-pools each take one side or the other of a
@@ -483,7 +502,7 @@ VARIANT_TIMED = {"deep": (5, 3), "big": (3, 2)}  # timed and profiled train step
 # card's time: RUN_T timesteps (the reference runs 1500; a conditional run
 # samples with up to five chains of them), RUN_EPOCHS epoch(s), at most
 # RUN_MAPS synthetic maps; widths and the batch of 32 as configured.
-RUN_T, RUN_EPOCHS = 20, 1
+RUN_T, RUN_EPOCHS = 10, 1  # RUN_T halved with VARIANT_STEPS
 # Phase (p).  The native and numpy "code" normalisations round differently
 # on some pixels of maps in [0, 1]: by at most an ulp of 1.0 (2^-23).
 PREP_MAPS, PREP_SIZE, PREP_TOL = 1500, 256, 2.0**-23
@@ -520,6 +539,7 @@ SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
 SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for k, kind in BF16_KINDS})
 SOURCES.update({f"{k}_{kind}{sfx}": SOURCES[k] for k, kind in WIDE_KINDS
                 for sfx in ("", "_bf16")})
+SOURCES.update({f"{k}_{kind}": SOURCES[k] for k, kind in F32_KINDS})
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
@@ -572,11 +592,14 @@ GENERIC_K2 = (4, 16, 8 * 264)
 # 8x8 stays on the float template, which takes it; phase (r1) holds the
 # split halo mode there); K2's statistics and
 # apply launches on one card at the fp32 out_norm of n_feat 512 at
-# 128x128, the sampler's 10 maps (a slice over SPILL_MAX), and at n_feat
+# 128x128, the sampler's 10 maps (a slice over SLICE_MAX, 2 MiB a group:
+# over the large-slice kernel's budget; and at n_feat 384, 384 KiB slices
+# the float template spilled before the pair took them), and at n_feat
 # 1032's up0_norm + FiLM at 16 maps; K3 at pixels of over 1024 accesses.
 SPLIT_K1 = ((1, 8, 6000, "bfloat16"), (BATCH, 64, 4840, "bfloat16"),
             (BATCH, 64, 3056, "float32"))  # maps, height and width, channels, dtype
-PAIR_K2 = ((10, 128, 512, "gelu", False, "float32"), (2 * BATCH, 16, 2064, "relu", True, "float32"),
+PAIR_K2 = ((10, 128, 512, "gelu", False, "float32"), (10, 128, 384, "gelu", False, "float32"),
+           (2 * BATCH, 16, 2064, "relu", True, "float32"),
            (2 * BATCH, 16, 2064, "relu", True, "bfloat16"))  # n, height, c, act, FiLM, dtype
 WIDE_K3 = ((4, 32, 8192, "float32"), (4, 32, 8200, "bfloat16"))
 # Phase (s): a canonical model at n_feat 1032, 16x16 maps: its forward and
@@ -700,6 +723,9 @@ def check_kernels(dev, model) -> dict:
     # K1 at the deep and big heads (width 128, 128 and 256 channels) with
     # the tanh of their output layer, at the sampling batch of 10 maps, with
     # and without CFG; weights drawn at the scale of out_conv2's init.
+    # The band kernel where the route gives it the shape, each kernel's
+    # first case summed.
+    seen = set()
     for label, c, cfg in (("deep, tanh (initial)", 128, False), ("big, tanh (main)", 256, False),
                           ("deep, tanh, cfg w=2", 128, True), ("big, tanh, cfg w=2", 256, True)):
         b = VARIANT_BATCH
@@ -707,12 +733,16 @@ def check_kernels(dev, model) -> dict:
         h = randn(2 * b if cfg else b, 128, 128, c)
         weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5))
         args = (h, weight, randn(1), x, z, c_eps, inv_sqrt_a, sigma, 2.0 if cfg else None, True)
+        name = ("head_step_band" if head_step_route(b, 128, 128, c, torch.float32, cfg=cfg)[0]
+                == F32_BAND_NAME else "head_step")
+        summed = name == "head_step_band" and name not in seen
+        seen.add(name)
         cases.append((
-            "head_step", f"{label} h{tuple(h.shape)} x{tuple(x.shape)}",
+            name, f"{label} h{tuple(h.shape)} x{tuple(x.shape)}",
             fused_head_step, head_step_plain,
             lambda h, weight, bias, *_: torch.tanh(F.conv2d(h.permute(0, 3, 1, 2), weight,
                                                             bias, padding=1)),
-            args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5), False,
+            args, nbytes(*args, x), h.numel() * 18 + x.numel() * (8 if cfg else 5), summed,
         ))
     # K2 as the decoder holds it; the FiLM rows as the sampler gives them:
     # the context embedding one row per sample, the time embedding one row.
@@ -728,7 +758,7 @@ def check_kernels(dev, model) -> dict:
         for label, c, hw, act, film in (("deep up0_norm + FiLM", 512, 16, "leaky_relu", True),
                                         ("big up0_norm + FiLM", 1024, 16, "gelu", True),
                                         ("deep out_norm", 128, 128, "leaky_relu", False),
-                                        ("big out_norm (spill path)", 256, 128, "gelu", False)):
+                                        ("big out_norm", 256, 128, "gelu", False)):
             blocks += ((label, types.SimpleNamespace(weight=randn(c), bias=randn(c), act=act),
                         batch, hw, film, False),)
     for label, mod, batch, hw, film, summed in blocks:
@@ -736,8 +766,12 @@ def check_kernels(dev, model) -> dict:
         xg = randn(batch, hw, hw, c)
         rows_film = (randn(batch, c), randn(1, c)) if film else None
         args = (xg, mod.weight.detach(), mod.bias.detach(), 8, 1e-5, mod.act, rows_film)
+        name = "groupnorm_act"
+        if groupnorm_route(batch, hw * hw, c, 8, torch.float32)[0] == GROUPNORM_LARGE_NAME:
+            name, summed = "groupnorm_act_large", "groupnorm_act_large" not in seen
+            seen.add(name)  # its first case summed
         cases.append((
-            "groupnorm_act", f"{label} {tuple(xg.shape)}",
+            name, f"{label} {tuple(xg.shape)}",
             fused_groupnorm_act, groupnorm_act_plain,
             lambda x, gamma, beta, *_: F.group_norm(x.permute(0, 3, 1, 2), 8, gamma, beta, 1e-5),
             args, nbytes(*args, xg), xg.numel() * (12 if film else 10), summed,
@@ -846,7 +880,7 @@ def hold_cases(cases) -> dict:
         peak = BF16_FLOPS if name.endswith("_bf16") else FP32_FLOPS
         bound_by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
         bound_ms = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
-        moved = nb + (spilled_bytes(args[0], args[3]) if name.startswith("groupnorm_act")
+        moved = nb + (reread_bytes(args[0], args[3]) if name.startswith("groupnorm_act")
                       else 0)
         print(f"  {name} {label}: max_abs_err {err:.3e} (tol {tol:g}"
               + (f"; {share:.4f} differ beyond {fp32_rounding:g}" if name.endswith("_bf16")
@@ -854,8 +888,9 @@ def hold_cases(cases) -> dict:
               f"ms {ms:.5f} warm_ms {warm_ms:.5f} plain_ms {plain_ms:.5f} library_ms {lib_ms} "
               f"({LIBRARY[name]}) bound_ms {bound_ms:.6f} ({bound_by}, {nb} bytes) "
               f"share of bound {bound_ms / ms:.3f}"
-              + (f"; bytes it moves {moved} (pixels read again: spilled or earlier rounds), "
-                 f"bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms" if moved != nb else "")
+              + (f"; bytes it moves {moved} (pixels read again: earlier rounds or the "
+                 f"apply launch), bound {moved / HBM_BYTES_PER_S * 1e3:.6f} ms"
+                 if moved != nb else "")
               + ("" if summed else " (information)"), flush=True)
         r = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "warm_ms": 0.0,
                                   "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": bound_by,
@@ -1386,13 +1421,12 @@ def print_train_time(label: str, tr: dict, precision: str = "fp32 with TF32 off"
         print(f"    {ms:.3f} ms a step ({ms / tr['busy_ms'] * 100:.1f}% of busy)  {name[:110]}")
 
 
-def spilled_bytes(x, groups: int) -> int:
-    """Bytes K2 reads again for NHWC ``x``: on the float template's spill
-    path the pixels of each CTA's slice past its resident ones, by the
-    variance and the output passes; in the narrow kernel's wide layout the
-    packs of every round but a thread's last, by the output pass (from L2
-    where a wave's parts fit it).  The other bf16 launches hold every part
-    in registers."""
+def reread_bytes(x, groups: int) -> int:
+    """Bytes K2 reads again for NHWC ``x``: in the narrow kernel's wide
+    layout the packs of every round but a thread's last, by the output
+    pass (from L2 where a wave's parts fit it); on the pair on one card all
+    of x, by the apply launch.  The other launches hold every slice on
+    chip."""
     n, h, w, c = x.shape
     name, plan = groupnorm_route(n, h * w, c, groups, x.dtype)
     if name == GROUPNORM_NARROW_NAME and plan.wide:
@@ -1406,12 +1440,9 @@ def spilled_bytes(x, groups: int) -> int:
                 rows = len(range(first, npx, step))
                 packs += vs * (-(-rows // plan.packs) - 1) * plan.packs if rows else 0
         return n * groups // plan.seg * packs * 16
-    if name in (GROUPNORM_BF16_NAME, GROUPNORM_NARROW_NAME):
-        return 0
     if name in GROUPNORM_PAIR_NAMES.values():  # the apply launch reads x again
         return x.numel() * x.element_size()
-    return 2 * n * groups * plan.cluster * (plan.pixels_per_cta - plan.resident_pixels) * (
-        c // groups) * x.element_size()
+    return 0
 
 
 def variant_model(name: str) -> ContextUnet:
@@ -1432,6 +1463,16 @@ def variant_batch(model, n: int, seed: int):
     t = rs.randint(1, TIMESTEPS + 1, n)
     noise = rs.randn(n, size, size, 1).astype(np.float32)
     return x, c, np.ones(n, np.float32), torch.tensor(t), torch.tensor(noise)
+
+
+def variant_kinds(n_feat: int, height: int) -> dict:
+    """Launches a step and a forward (no CFG) of the fp32 kernels of their
+    own that a variant's heads take (``drive(..., kinds=)``): K2's
+    large-slice kernel at out_norm, K1's band kernel at the step, where
+    the routes give them the shapes (they depend on the batch in neither)."""
+    k2 = groupnorm_route(1, height * height, n_feat, 8, torch.float32)[0] == GROUPNORM_LARGE_NAME
+    k1 = head_step_route(1, height, height, n_feat, torch.float32, cfg=False)[0] == F32_BAND_NAME
+    return {"groupnorm_act_large": (int(k2), int(k2)), "head_step_band": (int(k1), 0)}
 
 
 def check_variant(name: str, dev, drive) -> dict:
@@ -1477,7 +1518,10 @@ def check_variant(name: str, dev, drive) -> dict:
             size=cpu.height, params=np.zeros((VARIANT_BATCH, cpu.n_cfeat), np.float32),
             taus=taus, sigma_mode="beta", device=dev)
 
-    maps = drive(f"{name}_sampler", sample, steps=len(taus))
+    kinds = variant_kinds(cpu.n_feat, cpu.height)
+    if not kinds["groupnorm_act_large"][0]:
+        raise SystemExit(f"{name}: its out_norm does not take the large-slice kernel")
+    maps = drive(f"{name}_sampler", sample, steps=len(taus), kinds=kinds)
     check_maps(maps, VARIANT_BATCH, f"{name} sampler", cpu.height)
     t1 = time.perf_counter()  # the same call again, warm
     sample()
@@ -1487,7 +1531,7 @@ def check_variant(name: str, dev, drive) -> dict:
           f"ms a step (host clock, warm)")
     elbo = drive(f"{name}_elbo", lambda: elbo_bpd_batch(
         gpu, schedule, x, c, torch.Generator(device=dev).manual_seed(5), device=dev),
-        forwards=10)
+        forwards=10, kinds=kinds)
     if not bool(torch.isfinite(elbo).all()):
         raise SystemExit(f"{name} ELBO: {elbo}")
     del gpu
@@ -1567,7 +1611,8 @@ def check_runs(dev, drive) -> None:
         res = drive(f"run_experiment_{mode}",
                     lambda cfg=cfg: experiment.run_experiment(cfg, device=dev),
                     steps=RUN_T * sampler_calls(cfg), forwards=None,
-                    train_forwards=RUN_EPOCHS * num_batches(n_train, cfg.batch_size))
+                    train_forwards=RUN_EPOCHS * num_batches(n_train, cfg.batch_size),
+                    kinds=variant_kinds(cfg.n_feat, cfg.height))
         logs = res["loss_log"] + res["val_loss_log"]
         print(f"  run_experiment {mode} ({variant}, n_feat {cfg.n_feat}, {cfg.height}x"
               f"{cfg.height}, T {RUN_T}, {RUN_EPOCHS} epoch): "
@@ -2720,7 +2765,8 @@ def make_drive(launches: dict):
     """``drive``, which runs one main path and records its launch counts
     in ``launches[path]``."""
 
-    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32", extra=None):
+    def drive(path, fn, steps=0, forwards=0, train_forwards=0, dtype="float32", extra=None,
+              kinds=None):
         """Run one main path with every launch count at 0 and read the
         counts: a sampler path of ``steps`` reverse steps must show
         ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
@@ -2731,7 +2777,9 @@ def make_drive(launches: dict):
         one channel beyond the training forwards (a run's many passes).
         The launches are those of the ``dtype`` instances; the other
         instances must show none, but for ``extra`` (instance -> launches:
-        the narrow bf16 kernels of a narrow bf16 model)."""
+        the narrow bf16 kernels of a narrow bf16 model) and ``kinds``
+        (instance -> (launches a step, launches a forward): the fp32
+        designs of the variants' heads, :func:`variant_kinds`)."""
         one_channel_convs = [0]
 
         def hook(module, args, output):  # the card's only: q3 runs CPU forwards beside q1
@@ -2760,6 +2808,7 @@ def make_drive(launches: dict):
             want[instance(name, dtype)] = (steps * LAUNCHES_PER_STEP[name]
                                            + forwards * LAUNCHES_PER_FORWARD[name])
         want.update(extra or {})
+        want.update({name: steps * a + forwards * b for name, (a, b) in (kinds or {}).items()})
         if any(want[name] and not launches[path][name] for name in WRAPPERS):
             raise SystemExit(f"a kernel never launched on {path}: {launches[path]}")
         if launches[path] != want:

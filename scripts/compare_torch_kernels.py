@@ -126,6 +126,37 @@ at each K1 shape; then every kernel a committed model runs against the
 both types, K1's halo and K2's sharded launches at phase (r1)'s shapes,
 the narrow and wide bf16 kernels at n_feat 32, 264 and 280), and the
 SASS instruction counts of the bf16 step kernels of both packages.
+
+``--variants`` times the fp32 designs of the deep and big variants' heads:
+K2's large-slice kernel (``groupnorm_f32_large_kernel``) at their out_norm,
+(10|32, 128, 128, 128) leaky ReLU and (10|32, 128, 128, 256) GELU, at the
+smaller slices the route also gives it (n_feat 64 at 128x128, 256 at
+64x64) and at n_feat 224's (64x64), which it leaves on the template, in
+turns against the ``--old`` package's float template (6ca23e3: the
+template with its spill path, whose large-slice CTA took 384 threads)
+forced at 384 and at 512 threads, and the statistics and apply pair on one
+card; two runs of the new kernel must be bit-identical; then its plans
+(CTAs of 256 or 512 threads, two CTAs an SM or one, boxes of 256 or 128
+pixels).  K1 with tanh at
+(10|20, 128, 128, 128|256) (no CFG, CFG w=2): the ``--old`` package's
+launch and the checkout's template forced against the band kernel
+(``head_step_f32_band_kernel``) in turns, then the band kernel at every
+band height of ``ROWS_HALO``.  Each beside its bound and library call,
+with the new kernels' ptxas lines and SASS instruction counts (the fp32
+halo kernel's must not move), then every kernel a committed model runs,
+the variants' up0_norm and K3 stage 1 among them, against the ``--old``
+package in turns, three rounds.
+
+``--template`` times the ``--old`` package's (6ca23e3) fp32 float
+template at large slices, at CTAs of 384 and 512 threads, against the
+checkout's statistics and apply pair on one card, in turns, two rounds:
+its former spill path at (10|32, 128, 128, 320|384) (slices of 320 and
+384 KiB, which the checkout gives the pair) and the slices at n_feat 224
+that the checkout's template still takes (groups of 4 mod 8 channels: 224
+KiB at 128x128, 56 KiB at 64x64); then the checkout's template (no spill
+loop) against that one under the same plan, three rounds in turns, at
+the shapes the route still gives it (the served out_norm and up0_norm +
+FiLM, the variants' up0_norm + FiLM, n_feat 224).
 Needs a CUDA card.
 """
 
@@ -187,6 +218,12 @@ def main(argv=None) -> int:
     ap.add_argument("--wide", action="store_true",
                     help="the split K1, the K2 pair on one card and K3 at wide pixels, and "
                          "every kernel a committed model runs against --old in turns")
+    ap.add_argument("--variants", action="store_true",
+                    help="the large-slice fp32 K2 and the band fp32 K1 at the deep and big "
+                         "variants' shapes, and every kernel a committed model runs against --old")
+    ap.add_argument("--template", action="store_true",
+                    help="the float K2 template at the large slices it still takes, at 384 and "
+                         "512 threads, against the pair on one card")
     ap.add_argument("--prev", help="with --narrow: a revision's package dir that has the narrow "
                                    "kernels, timed against the checkout's in turns")
     args = ap.parse_args(argv)
@@ -260,6 +297,11 @@ def main(argv=None) -> int:
         return compare_halo(randn, old_step, chip_smoke, sampler_step)
     if args.generic:
         return compare_generic(randn, old_gn, old_step, chip_smoke, groupnorm, sampler_step)
+    if args.template:
+        return compare_template(randn, chip_smoke, old_gn, groupnorm)
+    if args.variants:
+        return compare_variants(randn, (old_gn, old_step, old_film), chip_smoke,
+                                (groupnorm, sampler_step, film))
     if args.wide:
         return compare_wide(randn, old_build, (old_gn, old_step, old_film), chip_smoke,
                             (groupnorm, sampler_step, film))
@@ -1258,6 +1300,30 @@ def pair_sweep(chip_smoke, groupnorm, label, a) -> None:
                   flush=True)
 
 
+def arg_makers(randn):
+    """``(k1_args, k2_args, k3_args)``: each kernel's arguments at a shape,
+    drawn with ``randn`` (K1 at a mid-chain step's scale, out_conv2's init
+    scale for the weights; K2's x at 3 x N(0, 1) + 1)."""
+    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
+
+    def k1_args(dt, maps, height, width, c, halo=False, w=2.0, tanh=False):
+        h = randn((2 if w is not None else 1) * maps, height, width, c).relu().to(dt)
+        weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt)
+        rows = (tuple(randn(h.shape[0], width, c).relu().to(dt) for _ in range(2)),) if halo \
+            else ()
+        return (h, weight, randn(1).to(dt), randn(maps, height, width, 1),
+                randn(maps, height, width, 1), c_eps, inv_sqrt_a, sigma, w, tanh, *rows)
+
+    def k2_args(dt, n, hw, c, act="relu", film_rows=False):
+        rows = (randn(n, c).to(dt), randn(1, c).to(dt)) if film_rows else None
+        return ((randn(n, hw, hw, c) * 3 + 1).to(dt), randn(c), randn(c), 8, 1e-5, act, rows)
+
+    def k3_args(dt, n, hw, c):
+        return randn(n, hw, hw, c).to(dt), randn(n, c).to(dt), randn(1, c).to(dt)
+
+    return k1_args, k2_args, k3_args
+
+
 def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
     """The split K1, the K2 pair on one card and K3 at wide pixels against
     the earlier package where it takes the shapes, their sweeps, and the
@@ -1274,23 +1340,7 @@ def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
                                            "head_step_bf16_split_kernel",
                                            "head_step_f32_split_kernel")).items():
             print(f"SASS {label} {n} instructions: {name}", flush=True)
-    c_eps, inv_sqrt_a, sigma = 0.019, 1.0004, 0.011  # a mid-chain step's scale
-
-    def k1_args(dt, maps, height, width, c, halo=False, w=2.0):
-        h = randn(2 * maps, height, width, c).relu().to(dt)
-        weight = randn(1, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt)
-        rows = (tuple(randn(2 * maps, width, c).relu().to(dt) for _ in range(2)),) if halo \
-            else ()
-        return (h, weight, randn(1).to(dt), randn(maps, height, width, 1),
-                randn(maps, height, width, 1), c_eps, inv_sqrt_a, sigma, w, False, *rows)
-
-    def k2_args(dt, n, hw, c, act="relu", film_rows=False):
-        rows = (randn(n, c).to(dt), randn(1, c).to(dt)) if film_rows else None
-        return ((randn(n, hw, hw, c) * 3 + 1).to(dt), randn(c), randn(c), 8, 1e-5, act, rows)
-
-    def k3_args(dt, n, hw, c):
-        return randn(n, hw, hw, c).to(dt), randn(n, c).to(dt), randn(1, c).to(dt)
-
+    k1_args, k2_args, k3_args = arg_makers(randn)
     f32, bf = torch.float32, torch.bfloat16
     sfx = {f32: "", bf: "_bf16"}
     k1 = [("split K1 bf16 h(2,8,8,6000), cfg w=2", bf, (1, 8, 8, 6000, False))]
@@ -1348,8 +1398,239 @@ def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
                                                          scale[:, None, None, :]),
                    a, a[0].numel() * 2)
 
-    # Every kernel a committed model runs, against the earlier package,
-    # three rounds in turns.
+    existing_turns(randn, old, new, chip_smoke, k1_args, k2_args, k3_args)
+    return 0
+
+
+def forced_template(groupnorm, threads):
+    """K2 on ``groupnorm``'s float template forced at every shape it
+    plans, its CTA at a slice over ``SLICE_TARGET`` of ``threads``.  The
+    ``--old`` package's (6ca23e3) template also plans the slices over
+    ``SLICE_MAX`` that it spilled, which the checkout's refuses."""
+    def fn(x, gamma, beta, groups, eps, act, rows):
+        n, h, w, c = x.shape
+        plan = groupnorm.launch_plan(n, h * w, c, groups)
+        if plan.threads != groupnorm.THREADS:
+            plan = plan._replace(threads=threads)
+        with forced(groupnorm, "single_route", (groupnorm.C_NAME, plan)):
+            return groupnorm.fused_groupnorm_act(x, gamma, beta, groups, eps, act, rows)
+    return fn
+
+
+def forced_pair(groupnorm, x, gamma, beta, groups, eps, act, rows):
+    """K2 on the statistics and apply launches on one card, at any shape."""
+    n, h, w, c = x.shape
+    plan = groupnorm.PairPlan(groupnorm.stats_plan(n, h * w, c, groups),
+                              groupnorm.apply_plan(n, h * w, c, groups))
+    with forced(groupnorm, "single_route", (groupnorm.PAIR_NAMES[x.dtype], plan)):
+        return groupnorm.fused_groupnorm_act(x, gamma, beta, groups, eps, act, rows)
+
+
+def compare_template(randn, chip_smoke, old_gn, groupnorm) -> int:
+    """The ``--old`` package's float template at large slices, at 384 and
+    512 threads a CTA, against the checkout's pair on one card in turns
+    (module docstring, ``--template``)."""
+    import torch
+
+    _, k2_args, _ = arg_makers(randn)
+    card = torch.cuda.get_device_name(0)
+    fns = {"template 384": forced_template(old_gn, 384),
+           "template 512": forced_template(old_gn, 512),
+           "pair": functools.partial(forced_pair, groupnorm)}
+    for n, hw, c in ((10, 128, 320), (32, 128, 320), (10, 128, 384), (32, 128, 384),
+                     (10, 128, 224), (10, 64, 224), (32, 64, 224)):
+        label = f"({n},{hw},{hw},{c}), gelu"
+        a = k2_args(torch.float32, n, hw, c, "gelu")
+        name, plan = groupnorm.single_route(n, hw * hw, c, 8, torch.float32)
+        for k, f in fns.items():
+            hold(chip_smoke, "groupnorm_act", f"{label} {k}", f, groupnorm.groupnorm_act_plain, a)
+        times = {k: [] for k in fns}
+        for k in (list(fns) + list(fns)[::-1]) * 2:
+            times[k].append(chip_smoke.time_ms(fns[k], a))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        b = chip_smoke.nbytes(*a, a[0]) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        print(f"K2 template {label}: route {name} {tuple(plan)}; in turns "
+              + "; ".join(f"{k} {' '.join(f'{t:.5f}' for t in times[k])} (mean {mean[k]:.5f}, "
+                          f"share {b / mean[k]:.3f})" for k in fns)
+              + f"; 384/512 {mean['template 384'] / mean['template 512']:.3f}, pair/512 "
+              f"{mean['pair'] / mean['template 512']:.3f}; bound {b:.6f} ms; library "
+              f"{chip_smoke.time_ms(gn_lib, a):.5f} ms; card {card}", flush=True)
+    # The checkout's template (no spill loop) against --old's under the same
+    # plan, at the shapes the route still gives it, three rounds in turns.
+    for n, hw, c, act, film in ((32, 64, 128, "relu", False), (32, 16, 256, "relu", True),
+                                (10, 16, 512, "leaky_relu", True), (10, 16, 1024, "gelu", True),
+                                (32, 64, 224, "gelu", False), (10, 128, 224, "gelu", False)):
+        label = f"({n},{hw},{hw},{c}), {act}" + (" + FiLM" if film else "")
+        a = k2_args(torch.float32, n, hw, c, act, film)
+        name, plan = groupnorm.single_route(n, hw * hw, c, 8, torch.float32)
+        if name != groupnorm.C_NAME:
+            raise SystemExit(f"{label}: the route gives {name}, not the template")
+        pair = {"old": forced_template(old_gn, plan.threads), "new": groupnorm.fused_groupnorm_act}
+        for k, f in pair.items():
+            hold(chip_smoke, "groupnorm_act", f"{label} {k}", f, groupnorm.groupnorm_act_plain, a)
+        times = {k: [] for k in pair}
+        for k in ("old", "new", "new", "old") * 3:
+            times[k].append(chip_smoke.time_ms(pair[k], a))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        print(f"K2 template {label} against --old's, {plan.threads} threads, in turns: "
+              + "; ".join(f"{k} {' '.join(f'{t:.5f}' for t in times[k])} (mean {mean[k]:.5f})"
+                          for k in pair)
+              + f"; old/new {mean['old'] / mean['new']:.3f}; card {card}", flush=True)
+    return 0
+
+
+def compare_variants(randn, old, chip_smoke, new) -> int:
+    """The large-slice fp32 K2 and the fp32 band K1 at the deep and big
+    variants' shapes against the template (repaired and as it was), the
+    pair on one card and the earlier package, their sweeps, and the
+    existing kernels against the earlier package (module docstring,
+    ``--variants``)."""
+    import torch
+
+    from camels_diffusion_model_tpu_torch.ops import _build
+
+    old_gn, old_step, old_film = old
+    groupnorm, sampler_step, film = new
+    k1_args, k2_args, k3_args = arg_makers(randn)
+    f32 = torch.float32
+    lib = _build.build()
+    keys = ("groupnorm_f32_large_kernel", "head_step_f32_band_kernel",
+            "head_step_halo_f32_kernel", "groupnorm_act_kernel")
+    for line in _build.ptxas_report(lib, keys):
+        print(f"ptxas {line}", flush=True)
+    for name, n in sass_counts(_build, keys).items():
+        print(f"SASS new {n} instructions: {name}", flush=True)
+
+    template = functools.partial(forced_template, old_gn)
+    pair = functools.partial(forced_pair, groupnorm)
+    def bound(a, nb_extra=0):
+        return (chip_smoke.nbytes(*a, a[0]) + nb_extra) / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+    card = torch.cuda.get_device_name(0)
+    k2_shapes = [(f"{v} out_norm ({n},128,128,{c}), {act}", (n, 128, c, act))
+                 for v, c, act in (("deep", 128, "leaky_relu"), ("big", 256, "gelu"))
+                 for n in (10, 32)]
+    k2_shapes += [("n_feat 64 out_norm (10,128,128,64), relu", (10, 128, 64, "relu")),
+                  ("n_feat 224 out_norm (32,64,64,224), relu", (32, 64, 224, "relu")),
+                  ("n_feat 256 out_norm (32,64,64,256), relu", (32, 64, 256, "relu"))]
+    for label, (n, hw, c, act) in k2_shapes:
+        a = k2_args(f32, n, hw, c, act)
+        name, plan = groupnorm.single_route(n, hw * hw, c, 8, f32)
+        fns = {"template 384": template(384), "template 512": template(512), "pair": pair,
+               "new": groupnorm.fused_groupnorm_act}
+        errs = {k: hold(chip_smoke, "groupnorm_act", f"{label} {k}", f,
+                        groupnorm.groupnorm_act_plain, a) for k, f in fns.items()}
+        first, again = groupnorm.fused_groupnorm_act(*a), groupnorm.fused_groupnorm_act(*a)
+        if not torch.equal(first, again):
+            raise SystemExit(f"{label}: two runs of the new kernel differ")
+        order = list(fns) + list(fns)[::-1]
+        times = {k: [] for k in fns}
+        for k in order:
+            times[k].append(chip_smoke.time_ms(fns[k], a))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        b = bound(a)
+        lib_ms = chip_smoke.time_ms(gn_lib, a)
+        print(f"K2 {label}: route {name} {tuple(plan)}; in turns "
+              + "; ".join(f"{k} {' '.join(f'{t:.5f}' for t in times[k])} (mean {mean[k]:.5f}, "
+                          f"share {b / mean[k]:.3f})" for k in fns)
+              + f"; new vs template 512 {mean['template 512'] / mean['new']:.3f}x, vs pair "
+              f"{mean['pair'] / mean['new']:.3f}x, 384/512 "
+              f"{mean['template 384'] / mean['template 512']:.3f}; bound {b:.6f} ms; library "
+              f"{lib_ms:.5f} ms; max err new {errs['new']:.2e}; reruns bit-identical; "
+              f"card {card}", flush=True)
+        saved = groupnorm.LARGE_PER_SM, groupnorm.LARGE_BOX_PX, groupnorm.LARGE_SMALL_PART
+        tried = set()
+        try:
+            for small in (0, 4096):  # 512 threads, or 256 at parts of up to 4096 pixels
+                for per_sm in ((2, 1), (1,)):
+                    for box in (256, 128):
+                        groupnorm.LARGE_SMALL_PART, groupnorm.LARGE_PER_SM = small, per_sm
+                        groupnorm.LARGE_BOX_PX = box
+                        try:
+                            p = groupnorm.large_plan(n, hw * hw, c, 8)
+                        except ValueError:
+                            continue
+                        if p in tried:
+                            continue
+                        tried.add(p)
+                        with forced(groupnorm, "single_route", (groupnorm.LARGE_NAME, p)):
+                            hold(chip_smoke, "groupnorm_act", f"{label} {tuple(p)}",
+                                 groupnorm.fused_groupnorm_act, groupnorm.groupnorm_act_plain, a)
+                            ms = chip_smoke.time_ms(groupnorm.fused_groupnorm_act, a)
+                        print(f"  K2 {label} plan {tuple(p)}: {ms:.5f} ms (share {b / ms:.3f})"
+                              + (" <- picked" if p == plan else ""), flush=True)
+        finally:
+            groupnorm.LARGE_PER_SM, groupnorm.LARGE_BOX_PX, groupnorm.LARGE_SMALL_PART = saved
+
+    def k1_template(*a):
+        h = a[0]
+        units = a[3].shape[0]
+        cfg = a[8] is not None
+        plan = sampler_step.launch_plan(units, h.shape[1], h.shape[2], h.shape[3], cfg=cfg)
+        with forced(sampler_step, "route", (sampler_step.C_NAME, plan)):
+            return sampler_step.fused_head_step(*a)
+
+    for label, (maps, c, w) in (("deep, tanh, no cfg (10,128,128,128)", (10, 128, None)),
+                                ("big, tanh, no cfg (10,128,128,256)", (10, 256, None)),
+                                ("deep, tanh, cfg w=2 (20,128,128,128)", (10, 128, 2.0)),
+                                ("big, tanh, cfg w=2 (20,128,128,256)", (10, 256, 2.0))):
+        a = k1_args(f32, maps, 128, 128, c, w=w, tanh=True)
+        name, plan = sampler_step.route(maps, 128, 128, c, f32, cfg=w is not None)
+        fns = {"old": old_step.fused_head_step, "template": k1_template,
+               "new": sampler_step.fused_head_step}
+        errs = {k: hold(chip_smoke, "head_step", f"{label} {k}", f,
+                        sampler_step.head_step_plain, a) for k, f in fns.items()}
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k].append(chip_smoke.time_ms(fns[k], a))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        nb = chip_smoke.nbytes(*a, a[3])
+        b = max(nb / chip_smoke.HBM_BYTES_PER_S,
+                (a[0].numel() * 18 + a[3].numel() * (8 if w else 5)) / chip_smoke.FP32_FLOPS) * 1e3
+        lib_ms = chip_smoke.time_ms(
+            lambda h, weight, bias, *_: torch.tanh(conv_lib(h, weight, bias)), a)
+        print(f"K1 {label}: route {name} {tuple(plan)}; in turns "
+              + "; ".join(f"{k} {' '.join(f'{t:.5f}' for t in times[k])} (mean {mean[k]:.5f}, "
+                          f"share {b / mean[k]:.3f})" for k in fns)
+              + f"; old/new {mean['old'] / mean['new']:.3f}; bound {b:.6f} ms; library "
+              f"{lib_ms:.5f} ms; max err new {errs['new']:.2e}; card {card}", flush=True)
+        rows_all = sampler_step.ROWS_HALO
+        try:
+            for rows in rows_all + (3,):
+                sampler_step.ROWS_HALO = (rows,)
+                p = sampler_step.halo_plan(maps, 128, 128, c, cfg=w is not None)
+                with forced(sampler_step, "route", (sampler_step.F32_BAND_NAME, p)):
+                    hold(chip_smoke, "head_step", f"{label} rows {rows}",
+                         sampler_step.fused_head_step, sampler_step.head_step_plain, a)
+                    ms = chip_smoke.time_ms(sampler_step.fused_head_step, a)
+                print(f"  K1 band {label} rows {rows} ctas {p.ctas} smem {p.smem_bytes}: "
+                      f"{ms:.5f} ms (share {b / ms:.3f})", flush=True)
+        finally:
+            sampler_step.ROWS_HALO = rows_all
+
+    extra = [(f"{v} up0_norm + FiLM (10,16,16,{c})", "groupnorm_act", f32,
+              k2_args(f32, 10, 16, c, act, True))
+             for v, c, act in (("deep", 512, "leaky_relu"), ("big", 1024, "gelu"))]
+    extra += [(f"{v} K3 stage 1 (10,32,32,{c})", "film", f32, k3_args(f32, 10, 32, c))
+              for v, c in (("deep", 256), ("big", 512))]
+    existing_turns(randn, old, new, chip_smoke, k1_args, k2_args, k3_args, extra)
+    return 0
+
+
+def existing_turns(randn, old, new, chip_smoke, k1_args, k2_args, k3_args,
+                   extra=()) -> None:
+    """Every kernel a committed model runs (and ``extra``: ``(label, kind,
+    dtype, args)``), the checkout's against the earlier package's, three
+    rounds in turns: the served w=2 K1, K2 and K3 in both types, K1's halo
+    and K2's sharded launches at phase (r1)'s shapes, the narrow and wide
+    bf16 kernels at n_feat 32, 264 and 280."""
+    import torch
+
+    old_gn, old_step, old_film = old
+    groupnorm, sampler_step, film = new
+    f32, bf = torch.float32, torch.bfloat16
+    sfx = {f32: "", bf: "_bf16"}
+
     def halves(dt, n, hw, c, film_rows):
         x = (randn(n, *hw, c) * 3 + 1).to(dt)
         parts = torch.stack([groupnorm.groupnorm_stats_plain(x, 8),
@@ -1392,7 +1673,7 @@ def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
               "groupnorm_act": groupnorm.groupnorm_act_plain,
               "groupnorm_stats": groupnorm.groupnorm_stats_plain,
               "groupnorm_apply": groupnorm.groupnorm_apply_plain, "film": film.film_plain}
-    for label, kind, dt, a in existing:
+    for label, kind, dt, a in existing + list(extra):
         mods = ((old_step, sampler_step) if kind.startswith("head_step")
                 else (old_film, film) if kind == "film" else (old_gn, groupnorm))
         pair = [getattr(m, fns[kind]) for m in mods]
@@ -1413,7 +1694,8 @@ def compare_wide(randn, old_build, old, chip_smoke, new) -> int:
                   f"ms (old/new {ratios[-1]:.3f})", flush=True)
         print(f"existing {label} {dt}: old/new by round "
               + ", ".join(f"{r:.3f}" for r in ratios), flush=True)
-    return 0
+
+
 
 
 def compare_sharded(randn, old_gn, chip_smoke, groupnorm) -> int:

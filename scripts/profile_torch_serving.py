@@ -46,8 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # single launch's own kernel), K3.
 OURS = ("head_step_kernel", "head_step_bf16_kernel", "head_step_bf16_halo_kernel",
         "head_step_halo_f32_kernel", "head_step_bf16_split_kernel",
-        "head_step_f32_split_kernel", "head_step_combine_kernel",
-        "groupnorm_act_kernel",
+        "head_step_f32_split_kernel", "head_step_combine_kernel", "head_step_f32_band_kernel",
+        "groupnorm_act_kernel", "groupnorm_f32_large_kernel",
         "groupnorm_bf16_kernel", "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
         "groupnorm_stats_kernel",
         "groupnorm_apply_kernel",

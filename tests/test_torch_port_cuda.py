@@ -482,16 +482,168 @@ def test_head_step_kernel_at_the_variant_shapes(dev, fp32_convs, c, w, tanh):
     ((16, 16, 512), "leaky_relu", True), ((16, 16, 1024), "gelu", True)])
 def test_groupnorm_kernel_at_the_variant_shapes(dev, n, shape, act, film):
     """K2 at the deep and big models' out_norm and up0_norm (with its FiLM
-    epilogue); the big out_norm takes the spill path: atol 1e-4."""
+    epilogue); the out_norm takes the large-slice kernel: atol 1e-4."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
     x = _randn(dev, n, *shape, seed=21).mul(3).add(1)
     c = shape[-1]
     gamma, beta = _randn(dev, c, seed=22), _randn(dev, c, seed=23)
     rows = (_randn(dev, n, c, seed=24), _randn(dev, 1, c, seed=25)) if film else None
-    plan = launch_plan(n, shape[0] * shape[1], c, 8)
-    assert plan.spills == (shape == (128, 128, 256))
+    name = groupnorm.single_route(n, shape[0] * shape[1], c, 8, torch.float32)[0]
+    assert (name == groupnorm.LARGE_NAME) == (shape[0] == 128)
     args = (x, gamma, beta, 8, 1e-5, act, rows)
     torch.testing.assert_close(fused_groupnorm_act(*args), groupnorm_act_plain(*args),
                                atol=1e-4, rtol=0)
+
+
+LARGE_SHAPES = {f"{v} out_norm, {n} maps": (n, 128, c, act)
+                for v, c, act in (("deep", 128, "leaky_relu"), ("big", 256, "gelu"))
+                for n in (10, 32)}
+
+
+@pytest.mark.parametrize("shape", list(LARGE_SHAPES))
+def test_groupnorm_large_kernel_at_the_variant_out_norm(dev, shape):
+    """K2's large-slice kernel at the deep and big out_norm, 10 and 32
+    maps: within 1e-4 of its plain version (phase (c)'s fp32 K2 gate), one
+    launch counted under ``launches`` and ``launches_large``, and two runs
+    bit-identical (a fixed merge order, no atomics)."""
+    n, hw, c, act = LARGE_SHAPES[shape]
+    x = _randn(dev, n, hw, hw, c, seed=41).mul(3).add(1)
+    args = (x, _randn(dev, c, seed=42), _randn(dev, c, seed=43), 8, 1e-5, act)
+    before = (fused_groupnorm_act.launches, fused_groupnorm_act.launches_large)
+    got = fused_groupnorm_act(*args)
+    assert (fused_groupnorm_act.launches, fused_groupnorm_act.launches_large) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, groupnorm_act_plain(*args), atol=1e-4, rtol=0)
+    assert torch.equal(got, fused_groupnorm_act(*args))
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "leaky_relu"])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 128), (2, 128, 128, 64), (4, 64, 64, 320),
+                                   (2, 64, 64, 256)])
+def test_groupnorm_large_kernel_every_argument(dev, shape, film, act):
+    """Every activation and the FiLM epilogue (scale a row per sample,
+    shift one row) at the shapes the route gives the large-slice kernel:
+    the deep out_norm, n_feat 64 at 128x128, n_feat 320 (10 packs a group,
+    256 threads: 6 lanes idle) and 256 at 64x64: atol 1e-4."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    n, h, w, c = shape
+    assert groupnorm.single_route(n, h * w, c, 8, torch.float32)[0] == groupnorm.LARGE_NAME
+    x = _randn(dev, *shape, seed=44).mul(3).add(1)
+    rows = (_randn(dev, n, c, seed=45), _randn(dev, 1, c, seed=46)) if film else None
+    args = (x, _randn(dev, c, seed=47), _randn(dev, c, seed=48), 8, 1e-5, act, rows)
+    torch.testing.assert_close(fused_groupnorm_act(*args), groupnorm_act_plain(*args),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("shape,budget_boxes", [((2, 10, 15, 64), 1), ((2, 5, 8, 64), None),
+                                                ((3, 10, 15, 32), 2), ((2, 128, 128, 128), 6)])
+def test_groupnorm_large_kernel_forced_small_plans(dev, monkeypatch, shape, budget_boxes):
+    """Plans forced as ``tests/test_torch_port_variant_kernels.py`` forces
+    them: boxes of 8 pixels within a budget of ``budget_boxes`` (the rest in
+    registers, a last rank shorter), parts shorter than a box (its threads
+    store the box past the part's end), and the deep out_norm at 6 boxes of
+    256 pixels, one CTA an SM, every register pack a thread used: atol 1e-4,
+    bit-identical reruns."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    n, h, w, c = shape
+    if budget_boxes is not None and h * w < 1024:
+        monkeypatch.setattr(groupnorm, "LARGE_BOX_PX", 8)
+        overhead = 1024 + groupnorm.LARGE_STATIC + 128
+        monkeypatch.setattr(groupnorm, "SM_SMEM", 2 * (budget_boxes * 8 * (c // 8) * 4
+                                                       + overhead))
+    plan = groupnorm.large_plan(n, h * w, c, 8)
+    if h * w >= 1024:  # one CTA an SM, 6 boxes: 512 pixels of each part in registers
+        plan = plan._replace(boxes=budget_boxes, per_sm=1,
+                             smem_bytes=128 + budget_boxes * plan.box_px * c // 8 * 4)
+    x = _randn(dev, *shape, seed=49).mul(3).add(1)
+    args = (x, _randn(dev, c, seed=50), _randn(dev, c, seed=51), 8, 1e-5, "relu")
+    monkeypatch.setattr(groupnorm, "single_route",
+                        lambda *a, **k: (groupnorm.LARGE_NAME, plan))
+    got = fused_groupnorm_act(*args)
+    torch.testing.assert_close(got, groupnorm_act_plain(*args), atol=1e-4, rtol=0)
+    assert torch.equal(got, fused_groupnorm_act(*args))
+
+
+@pytest.mark.parametrize("w", [None, 2.0, "per-sample"])
+@pytest.mark.parametrize("c", [128, 256])
+def test_head_step_band_kernel_at_the_variant_shapes(dev, fp32_convs, c, w):
+    """K1's band kernel at the deep and big steps (10 maps of 128x128, 20
+    under CFG) with tanh, where the route gives it them (all but the big
+    step without CFG, which keeps the template): within 1e-4 of
+    ``head_step_plain`` (phase (c)'s fp32 K1 gate), counted under
+    ``launches`` and ``launches_band``."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    b, cfg = 10, w is not None
+    band = sampler_step.route(b, 128, 128, c, torch.float32, cfg=cfg)[0] == (
+        sampler_step.F32_BAND_NAME)
+    assert band == (cfg or c == 128)
+    h = _randn(dev, 2 * b if cfg else b, 128, 128, c, seed=52)
+    weight = _randn(dev, 1, c, 3, 3, seed=53).mul(1 / (3 * c**0.5))
+    x, z = _randn(dev, b, 128, 128, 1, seed=54), _randn(dev, b, 128, 128, 1, seed=55)
+    if w == "per-sample":
+        w = torch.linspace(0.5, 3.0, b, device=dev)
+    args = (h, weight, _randn(dev, 1, seed=56), x, z, 0.02, 1.01, 0.3, w, True)
+    before = (fused_head_step.launches, fused_head_step.launches_band)
+    got = fused_head_step(*args)
+    assert (fused_head_step.launches, fused_head_step.launches_band) == (
+        before[0] + 1, before[1] + band)
+    torch.testing.assert_close(got, head_step_plain(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [8, 4, 2, 1, 3])
+@pytest.mark.parametrize("shape,w", [((3, 12, 12, 40), 2.0), ((2, 16, 18, 36), None),
+                                     ((2, 9, 131, 128), None), ((2, 5, 128, 256), 2.0)])
+def test_head_step_band_kernel_every_band(dev, fp32_convs, monkeypatch, rows, shape, w):
+    """The band kernel at every band height (3 leaves a ragged band), on
+    maps narrower than ``BAND_WIDTH`` (forced through it), an odd width
+    without CFG and a map shorter than a band: atol 1e-4."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    monkeypatch.setattr(sampler_step, "BAND_ROWS", {True: rows, False: rows})
+    monkeypatch.setattr(sampler_step, "BAND_WIDTH", 1)
+    b, hh, ww, c = shape
+    cfg = w is not None
+    assert sampler_step.route(b, hh, ww, c, torch.float32, cfg=cfg)[0] == (
+        sampler_step.F32_BAND_NAME)
+    h = _randn(dev, 2 * b if cfg else b, hh, ww, c, seed=57).relu()
+    weight, bias = _randn(dev, 1, c, 3, 3, seed=58) * 0.1, _randn(dev, 1, seed=59)
+    x, z = _randn(dev, b, hh, ww, 1, seed=60), _randn(dev, b, hh, ww, 1, seed=61)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, w, True)
+    torch.testing.assert_close(fused_head_step(*args), head_step_plain(*args), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["deep", "big"])
+def test_variant_sampler_steps_at_full_width_take_the_new_kernels(dev, fp32_convs, variant):
+    """A deep and a big model at full width (n_feat 128 and 256, 128x128):
+    two exact-chain steps on one map on the card against the CPU, atol 1e-4
+    (cuDNN's fp32 convs reorder some thirty sums); each step launches K2's
+    large-slice kernel once (out_norm), and the deep step K1's band kernel
+    once (the big step without CFG keeps the template)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cpu_model = getattr(ContextUnet, variant)().eval()
+    gpu_model = getattr(ContextUnet, variant)().eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model = gpu_model.to(dev, memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 128, 128, 1, generator=g)
+    c = torch.rand(1, cpu_model.n_cfeat, generator=g)
+    zs = [torch.randn(1, 128, 128, 1, generator=g) for _ in range(2)]
+    counts = (fused_groupnorm_act.launches_large, fused_head_step.launches_band,
+              fused_head_step.launches)
+    outs = [sample_ddpm(m, make_schedule(2), torch.Generator(device=d), params=c.numpy(),
+                        x_init=x.numpy(), device=d, z_fn=lambda k, t: zs[k]).cpu()
+            for m, d in ((gpu_model, dev), (cpu_model, "cpu"))]
+    assert (fused_groupnorm_act.launches_large - counts[0],
+            fused_head_step.launches_band - counts[1],
+            fused_head_step.launches - counts[2]) == (2, 2 if variant == "deep" else 0, 2)
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("n", [10, 32])
@@ -1166,7 +1318,7 @@ def test_groupnorm_bf16_wide_kernel_matches_plain(dev, head, maps, film, act):
                                         ((2, 128, 128, 320), False), ((4, 16, 16, 1088), True)])
 def test_groupnorm_bf16_wide_kernel_every_plan(dev, monkeypatch, threads, spread, part_min,
                                                shape, film):
-    """The wide layout under CTAs of 256 to 512 threads (``WIDE_THREADS``;
+    """The wide layout under CTAs of 256 to 512 threads (``BF16_WIDE_THREADS``;
     17 to 255 packs a pixel, the lanes past the last whole pixel idle) and
     clusters of 1 to 8 (``NARROW_SPREAD``, ``BF16_PART_MIN``: parts of
     one to many rounds, ragged parts at 7x7 and 5x5, where the last ranks
@@ -1178,7 +1330,7 @@ def test_groupnorm_bf16_wide_kernel_every_plan(dev, monkeypatch, threads, spread
     bf16 ulps and at most 1% of the elements differing."""
     from camels_diffusion_model_tpu_torch.ops import groupnorm
 
-    monkeypatch.setattr(groupnorm, "WIDE_THREADS", threads)
+    monkeypatch.setattr(groupnorm, "BF16_WIDE_THREADS", threads)
     monkeypatch.setattr(groupnorm, "NARROW_SPREAD", spread)
     monkeypatch.setattr(groupnorm, "BF16_PART_MIN", part_min)
     n, c = shape[0], shape[-1]
@@ -1340,6 +1492,8 @@ def test_head_step_split_takes_features_of_2_31_elements(dev, fp32_convs):
 
 PAIR_CASES = {  # (n, height, width, c, act, film, dtype): the single launch refuses
     "fp32 out_norm (10,128,128,512)": (10, 128, 128, 512, "gelu", False, torch.float32),
+    "fp32 out_norm (10,128,128,384)": (10, 128, 128, 384, "gelu", False, torch.float32),
+    "fp32 out_norm (10,128,128,320)": (10, 128, 128, 320, "gelu", False, torch.float32),
     "fp32 up0_norm + FiLM (32,16,16,2064)": (32, 16, 16, 2064, "relu", True, torch.float32),
     "bf16 up0_norm + FiLM (32,16,16,2064)": (32, 16, 16, 2064, "relu", True, torch.bfloat16),
     "bf16 up0_norm, leaky (4,16,16,8208)": (4, 16, 16, 8208, "leaky_relu", False,
@@ -1351,8 +1505,9 @@ PAIR_CASES = {  # (n, height, width, c, act, film, dtype): the single launch ref
 
 @pytest.mark.parametrize("case", PAIR_CASES, ids=list(PAIR_CASES))
 def test_groupnorm_pair_on_one_card_matches_plain(dev, case):
-    """K2 where the single launches refuse (a group of over 256 accesses, a
-    slice over the fp32 kernel's spill limit): the statistics and apply
+    """K2 where the single launches refuse (a group of over 256 accesses, an
+    fp32 slice over ``SLICE_MAX`` that the large-slice kernel does not take,
+    as n_feat 320 and 384 at 128x128): the statistics and apply
     launches on one card, the one shard's partials fed to the apply launch,
     against :func:`groupnorm_act_plain`: fp32 within 5e-6 of the largest
     value, bf16 a bf16 ulp of it; counted under ``.launches[_bf16]`` and

@@ -1564,7 +1564,7 @@ def test_groupnorm_wide_plan_covers_every_pixel_and_channel_once(shape):
     a unit as the narrow layout's (whole packs, at most 8 groups of at
     most 256 channels; one group where groups are whole packs); a CTA of
     whole warps (:func:`idle_lane_threads` of the unit's packs a pixel up
-    to ``WIDE_THREADS``), the lanes past its last whole pixel holding no
+    to ``BF16_WIDE_THREADS``), the lanes past its last whole pixel holding no
     pixel; the smallest cluster whose parts fit 16 packs a thread, else 8
     (a part in rounds of ``packs``), doubled while the grid is short of
     ``NARROW_SPREAD`` CTAs and a part keeps ``BF16_PART_MIN`` bytes; where
@@ -1585,7 +1585,7 @@ def test_groupnorm_wide_plan_covers_every_pixel_and_channel_once(shape):
     vs = uc // 8
     assert uc % 8 == 0 and 8 % plan.seg == 0 and cg <= ops.NARROW_GROUP_CH
     assert plan.seg == 8 // math.gcd(cg, 8) or plan.seg * cg * 2 <= 256
-    threads = ops.idle_lane_threads(vs, ops.WIDE_THREADS)
+    threads = ops.idle_lane_threads(vs, ops.BF16_WIDE_THREADS)
     shared = plan.part_px > 16 * (threads // vs) and plan.ctas(n, 8) > 132
     if shared:  # rounds on a grid of more CTAs than SMs
         assert plan.threads == ops.idle_lane_threads(vs, max(ops.WIDE_SHARED_THREADS,
@@ -1923,7 +1923,7 @@ def test_groupnorm_pair_plans_cover_pixels_wider_than_a_cta(shape):
     group's the statistics kernel's (512): a thread takes several accesses
     of each pixel in equal rounds of whole warps (of at most 512 threads
     in the statistics, ``APPLY_THREADS`` in the apply), every (sample,
-    pixel, channel) read once; elsewhere (the spill-sized out_norm) the earlier
+    pixel, channel) read once; elsewhere (the out_norm of n_feat 512) the earlier
     plans.  Where the single launch refuses the shape (all but the
     aligned 4096 and 8192 channels, whose groups are 128 packs),
     :func:`single_route` gives the pair these plans."""
@@ -2061,7 +2061,9 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     kernel under :func:`narrow_plan` and K1 the bf16 kernel's narrow item
     under :func:`bf16_plan` (in the halo mode too); n_feat 128 and 256
     keep the bf16 kernels at their wide items, as do the up0_norm heads (8
-    to 64 channels a group).  fp32 always takes the float kernels.  K2's
+    to 64 channels a group).  fp32 takes the float kernels, but for the
+    out_norm of n_feat 256 (64 KiB slices), which takes the large-slice
+    kernel under :func:`large_plan`.  K2's
     float kernel's bf16 instance is reached by unaligned pointers; K1 at
     channels not a multiple of 32 (24, 40) takes the narrow item with a
     masked last block, not the float kernel's bf16 instance."""
@@ -2080,7 +2082,9 @@ def test_bf16_routes_give_narrow_models_the_float_kernels_instance(n_feat):
     assert groupnorm_ops.single_route(*shapes["up0_norm"], 8, bf)[0] == groupnorm_ops.BF16_NAME
     for head in ("up0_norm", "out_norm"):
         assert groupnorm_ops.single_route(*shapes[head], 8, torch.float32) == (
-            groupnorm_ops.C_NAME, groupnorm_ops.launch_plan(*shapes[head], 8))
+            (groupnorm_ops.LARGE_NAME, groupnorm_ops.large_plan(*shapes[head], 8))
+            if (head, n_feat) == ("out_norm", 256)
+            else (groupnorm_ops.C_NAME, groupnorm_ops.launch_plan(*shapes[head], 8)))
         assert groupnorm_ops.single_route(*shapes[head], 8, bf, aligned=False) == (
             groupnorm_ops.BF16_GENERIC_NAME,
             groupnorm_ops.launch_plan(*shapes[head], 8, False, 2))

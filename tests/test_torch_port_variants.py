@@ -338,62 +338,67 @@ GROUPNORM_SHAPES = [
 def _groupnorm_passes(plan, hw, cg):
     """The kernel's index map (csrc/groupnorm.cu) under ``plan``: per
     (pixel, channel) of one group, how often the first pass reads it from
-    device memory, how often the later passes read it from shared memory
-    and from device memory (spilled); and the bytes each CTA holds."""
+    device memory and how often the later passes read it from shared
+    memory; and the bytes each CTA holds."""
     first = np.zeros((hw, cg), np.int64)
     shared = np.zeros((hw, cg), np.int64)
-    spilled = np.zeros((hw, cg), np.int64)
     vpp = cg // plan.vec
     pstride = plan.threads // vpp
     for rank in range(plan.cluster):
         p0 = min(hw, rank * plan.pixels_per_cta)
         np_ = min(hw, p0 + plan.pixels_per_cta) - p0
-        res = min(np_, plan.resident_pixels)
-        assert res * cg * 4 <= plan.smem_bytes
+        assert np_ * cg * 4 <= plan.smem_bytes
         for t in range(pstride * vpp):
             j = slice((t % vpp) * plan.vec, (t % vpp + 1) * plan.vec)
             f = t // vpp
-            spill = f if f >= res else f + -(-(res - f) // pstride) * pstride
             first[p0 + f:p0 + np_:pstride, j] += 1
-            shared[p0 + f:p0 + res:pstride, j] += 1
-            spilled[p0 + spill:p0 + np_:pstride, j] += 1
-    return first, shared, spilled
+            shared[p0 + f:p0 + np_:pstride, j] += 1
+    return first, shared
 
 
 @pytest.mark.parametrize("head,n,hw,c", GROUPNORM_SHAPES)
 def test_groupnorm_launch_plan_at_the_variant_shapes(head, n, hw, c):
-    """A plan for every shape the variants run (no raise), on the 16-byte
-    path; every element read once by the first pass and once more by each
-    later pass, from shared memory or, past the resident pixels, from
-    device memory; only the big model's out_norm (2 MiB a group) spills,
-    by 240 of each CTA's 2048 pixels."""
+    """The template's plan at every shape the variants run but the big
+    out_norm, on the 16-byte path: every element read once by the first
+    pass and once more by each later pass, from shared memory; its CTAs of
+    512 threads at the deep out_norm (a slice over half of ``SLICE_MAX``),
+    256 at the up0_norm.  The big out_norm (2 MiB a group, 256 KiB a CTA)
+    is over ``SLICE_MAX``, which the template's plan refuses; the route
+    gives both out_norm the large-slice kernel
+    (tests/test_torch_port_variant_kernels.py)."""
+    if head == "big out_norm":
+        with pytest.raises(ValueError, match="per CTA"):
+            groupnorm_ops.launch_plan(n, hw, c, 8)
+        assert groupnorm_ops.single_route(n, hw, c, 8, torch.float32)[0] == (
+            groupnorm_ops.LARGE_NAME)
+        return
     plan = groupnorm_ops.launch_plan(n, hw, c, 8)
     assert plan.vec == 4 and plan.cluster <= groupnorm_ops.MAX_CLUSTER
     assert plan.smem_bytes <= groupnorm_ops.SLICE_MAX
-    first, shared, spilled = _groupnorm_passes(plan, hw, c // 8)
-    assert (first == 1).all() and (shared + spilled == 1).all()
-    assert plan.spills == (head == "big out_norm")
-    if plan.spills:
-        assert plan.pixels_per_cta - plan.resident_pixels == 240
-    assert plan.threads == (groupnorm_ops.WIDE_THREADS if "out_norm" in head
-                            else groupnorm_ops.THREADS)
+    first, shared = _groupnorm_passes(plan, hw, c // 8)
+    assert (first == 1).all() and (shared == 1).all()
+    assert plan.threads == (512 if "out_norm" in head else 256)
 
 
 def test_groupnorm_spill_path_reads_each_element_once_a_pass(monkeypatch):
-    """A spilling plan forced at a small size (``SLICE_MAX`` of 20 pixels
-    of 4 channels, slices of 32): every element read once by the first
-    pass and once by each later pass, 12 pixels of each CTA from device
-    memory; a slice over ``SPILL_MAX`` raises."""
+    """No pass reads device memory again: at a forced small ``SLICE_MAX``
+    (20 pixels of 4 channels) a slice of 16 pixels is held whole, every
+    element read once by the first pass and once by each later pass from
+    shared memory; a slice of 32 pixels (in a cluster of 8), which the
+    template once spilled, is refused by its plan and routed to the
+    statistics and apply pair."""
     monkeypatch.setattr(groupnorm_ops, "SLICE_MAX", 20 * 4 * 4)
-    monkeypatch.setattr(groupnorm_ops, "SPILL_MAX", 2 * 20 * 4 * 4)
+    monkeypatch.setattr(groupnorm_ops, "SLICE_TARGET", 16 * 4 * 4)
     monkeypatch.setattr(groupnorm_ops, "MIN_CTAS", 32)
     plan = groupnorm_ops.launch_plan(2, 64, 32, 8)
-    assert (plan.cluster, plan.pixels_per_cta, plan.resident_pixels) == (2, 32, 20)
-    first, shared, spilled = _groupnorm_passes(plan, 64, 4)
-    assert (first == 1).all() and (shared + spilled == 1).all()
-    assert spilled.sum() == 2 * 12 * 4
+    assert (plan.cluster, plan.pixels_per_cta, plan.smem_bytes) == (4, 16, 16 * 4 * 4)
+    first, shared = _groupnorm_passes(plan, 64, 4)
+    assert (first == 1).all() and (shared == 1).all()
     with pytest.raises(ValueError, match="per CTA"):
-        groupnorm_ops.launch_plan(2, 2 * 64, 32, 8)
+        groupnorm_ops.launch_plan(2, 256, 32, 8)  # 32 pixels a CTA in a cluster of 8
+    name, pair = groupnorm_ops.single_route(2, 256, 32, 8, torch.float32)
+    assert name == groupnorm_ops.PAIR_NAMES[torch.float32]
+    assert isinstance(pair, groupnorm_ops.PairPlan)
 
 
 @pytest.mark.parametrize("units,cfg", [(10, False), (10, True), (2, False), (5, True)])

@@ -71,14 +71,20 @@ def test_wide_sweep_shapes_are_the_models(family, monkeypatch):
 
 
 def _k1_band_route(units, height, width, c, dtype, cfg, halo):
-    """K1's band kernel and plan where they take the shape (the plans this
-    slice leaves as they were), else None."""
+    """K1's band kernel and plan where they take the shape (the fp32
+    unsharded launch: the band kernel from ``BAND_WIDTH`` under CFG or at
+    up to ``BAND_NARROW_C`` channels, else the template), else None."""
     ops = sampler_step_ops
     if (2 if cfg else 1) * units * height * width * c >= 2**31:
         return None
     try:
-        if dtype == F32 and not halo:
+        narrow = c <= ops.BAND_NARROW_C
+        band = width >= ops.BAND_WIDTH and (cfg or narrow)
+        if dtype == F32 and not halo and not band:
             return ops.C_NAME, ops.launch_plan(units, height, width, c, cfg=cfg)
+        if dtype == F32 and not halo:
+            return ops.F32_BAND_NAME, ops.halo_plan(units, height, width, c, cfg=cfg,
+                                                    rows=ops.BAND_ROWS[narrow])
         if dtype == F32:
             return ops.HALO_NAMES[F32], ops.halo_plan(units, height, width, c, cfg=cfg)
         plan = ops.bf16_plan(units, height, width, c, cfg=cfg)
@@ -91,11 +97,16 @@ def _k1_band_route(units, height, width, c, dtype, cfg, halo):
 
 
 def _k2_single_route(n, hw, c, dtype):
-    """K2's single launch and plan where one takes the shape, else None."""
+    """K2's single launch and plan where one takes the shape, else None:
+    in fp32 the large-slice kernel where a group's slice over a cluster of
+    8 is over ``SLICE_TARGET`` in whole 32-byte sectors and its budget
+    holds the part, else the template where its plan takes the shape (a
+    slice of at most ``SLICE_MAX``)."""
     ops = groupnorm_ops
-    if dtype == F32:
-        plans = ((ops.C_NAME, lambda: ops.launch_plan(n, hw, c, 8)),)
-    else:
+    plans = ((ops.C_NAME, lambda: ops.launch_plan(n, hw, c, 8)),)
+    if dtype == F32 and c // 8 % 8 == 0 and -(-hw // 8) * (c // 8) * 4 > ops.SLICE_TARGET:
+        plans = ((ops.LARGE_NAME, lambda: ops.large_plan(n, hw, c, 8)),) + plans
+    if dtype != F32:
         plans = ((ops.BF16_NAME, lambda: ops.bf16_plan(n, hw, c, 8)),
                  (ops.BF16_NARROW_NAME, lambda: ops.narrow_plan(n, hw, c, 8)),
                  (ops.BF16_GENERIC_NAME, lambda: ops.launch_plan(n, hw, c, 8, True, 2)))
@@ -116,8 +127,10 @@ def test_every_model_width_takes_a_kernel(family, dtype):
     statistics and apply launches on the halves) and K3 at FiLM stage 1
     each get a plan; no route raises.  Where the band kernels, the single
     launches and K3's one-access-a-thread plan take a shape, as they did
-    before the split and pair launches (their plans unchanged), the
-    routes keep their names and plans; K1 takes the split launch and K2
+    before the split and pair launches (their plans unchanged; the fp32
+    unsharded K1 from width 128 and K2 at slices over 48 KiB in whole
+    packs on the kernels of their own), the routes keep their names and
+    plans; K1 takes the split launch and K2
     the pair on one card exactly elsewhere."""
     eb = groupnorm_ops.ELEMENT_BYTES[dtype]
     splits = pairs = wide_film = 0

@@ -9,7 +9,8 @@ Nothing includes PyTorch's headers, so the build takes seconds.  Each C
 function takes device pointers and the CUDA stream as ``c_void_p`` and
 returns its ``cudaError_t``.  ``ptxas`` reports each kernel's registers,
 shared memory and spills (``-Xptxas -v``) into ``nvcc.log`` beside the
-library (:func:`ptxas_report`).
+library (:func:`ptxas_report`), after one line a source of the seconds
+from the start of the build to its compiler's exit (:func:`build_seconds`).
 
 The build runs at the first launch, never at import: the CPU tests import
 every module on machines without ``nvcc``.
@@ -17,12 +18,14 @@ every module on machines without ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -67,9 +70,19 @@ def build() -> Path:
     objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
     compiles = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
                 for src, obj in zip(sources, objects)]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
-    logs = [proc.communicate()[0] for proc in procs]
+
+    def finish(proc):  # the compiler's log and the seconds until it exited
+        log = proc.communicate()[0]
+        return log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    logs = [log for log, _ in done]
+    seconds = "".join(f"nvcc seconds {src.name}: {t:.1f}\n"
+                      for src, (_, t) in zip(sources, done))
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
     for cmd, proc, log in zip(compiles, procs, logs):
@@ -83,7 +96,7 @@ def build() -> Path:
             f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    (out_dir / LOG_NAME).write_text("".join(logs) + proc.stdout + proc.stderr)
+    (out_dir / LOG_NAME).write_text(seconds + "".join(logs) + proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
@@ -104,6 +117,14 @@ def ptxas_report(lib: Path, names=()) -> list:
         elif current and ("Used" in line or "stack frame" in line):
             report[current].append(line.split(":", 1)[-1].strip())
     return [f"{k}: {'; '.join(v)}" for k, v in report.items()]
+
+
+def build_seconds(lib: Path) -> list:
+    """``"<source>: <seconds>"`` of each source of the build of ``lib``:
+    from the start of the build to its ``nvcc``'s exit."""
+    return [line.removeprefix("nvcc seconds ")
+            for line in (lib.parent / LOG_NAME).read_text().splitlines()
+            if line.startswith("nvcc seconds ")]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,8 @@
 """GroupNorm + affine + activation kernel K2 (NHWC), with an optional FiLM
 epilogue.
 
-Wraps ``csrc/groupnorm.cu``, the counterpart of the Pallas
+Wraps ``csrc/groupnorm.cu`` (with ``groupnorm_narrow.cu`` and
+``groupnorm_sharded.cu``, sharing ``groupnorm.cuh``), the counterpart of the Pallas
 ``fused_groupnorm_act`` (``camels_diffusion_model_tpu/ops/pallas/
 groupnorm.py:65``).  The decoder runs it at ``up0_norm``, with FiLM stage 0
 as its epilogue, and at ``out_norm``: two launches per decoder call, at
@@ -18,7 +19,7 @@ one all-reduce of a zeroed buffer, and an apply launch
 (:func:`groupnorm_apply`) merges them by Chan's formula in its prologue,
 then normalises, applies gamma/beta, the activation and the FiLM epilogue
 as the single launch does.  Each has its own launch counts and its own
-kernel in both instances (``csrc/groupnorm.cu``, ``groupnorm_stats_kernel``:
+kernel in both instances (``csrc/groupnorm_sharded.cu``, ``groupnorm_stats_kernel``:
 each thread's packs in registers from one burst of loads, Chan's merge per
 thread, warp and block, no cluster barrier where the grid is wide enough;
 ``groupnorm_apply_kernel``: a streaming pass over whole pixels, no
@@ -179,6 +180,11 @@ STATS_LINE = 64  # bytes of a pixel's slice of a unit at least (two sectors)
 STATS_THREADS = 256  # a CTA, in whole warps and whole pixels
 STATS_MAX_THREADS = 512  # the statistics kernel's launch bound
 STATS_PART_MIN = 16 * 1024  # bytes a part keeps when a unit splits over a cluster
+# Where a CTA of packs leaves lanes idle: at most this many threads, so two
+# CTAs share an SM (57-84 registers; 384 threads held one): at n_feat 1032's
+# bf16 up0_norm 320 threads ran 1.39x 512, fp32 288 1.04x 480
+# (scripts/compare_torch_kernels.py --cout's sweep).
+STATS_IDLE_THREADS = 320
 APPLY_THREADS = 256  # a CTA, in whole warps and whole pixels
 APPLY_PACKS = 16  # packs a thread takes at most: four rounds of the kernel's four loads
 
@@ -333,7 +339,7 @@ class NarrowPlan(NamedTuple):
 def narrow_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
                 sms: int = 132) -> NarrowPlan:
     """Geometry of the bf16 :func:`fused_groupnorm_act` where a group's
-    channels are not a multiple of 8 (``csrc/groupnorm.cu``,
+    channels are not a multiple of 8 (``csrc/groupnorm_narrow.cu``,
     ``groupnorm_bf16_narrow_kernel`` and ``groupnorm_bf16_wide_kernel``):
     the shapes :func:`bf16_plan` refuses for that reason, as the out_norm
     of n_feat 32, 96 and 160 (4, 12 and 20 channels a group) and n_feat
@@ -564,6 +570,24 @@ def idle_lane_threads(width: int, most: int) -> int:
                key=lambda t: (t % width / t, t))
 
 
+def pack_elements(c: int, groups: int, aligned: bool, element_bytes: int) -> int:
+    """Elements a thread of the statistics and apply launches accesses at
+    once: a 16-byte pack (4 fp32, 8 bf16) where a pixel's ``c`` channels
+    are whole packs, the pointers ``aligned`` and a group at least a pack
+    wide (a pack then spans at most two groups), else one element: odd
+    channel counts, unaligned pointers, and groups narrower than a pack
+    (n_feat 40's 5 channels a group in bf16)."""
+    wide = 16 // element_bytes
+    return wide if aligned and c % wide == 0 and c // groups >= wide else 1
+
+
+def straddle_packs(groups: int, cg: int, vec: int) -> int:
+    """The most packs of ``vec`` elements (aligned to the pixel) that
+    overlap one of ``groups`` groups of ``cg`` channels: the threads of a
+    statistics unit where packs straddle groups (csrc ``packs_of``)."""
+    return max(((g + 1) * cg - 1) // vec - g * cg // vec + 1 for g in range(groups))
+
+
 class StatsPlan(NamedTuple):
     """The statistics launch's geometry for one shard shape."""
 
@@ -584,20 +608,26 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     pixels and ``c`` channels in ``groups`` groups, of ``element_bytes``
     each (4 fp32, 2 bf16), on a card of ``sms`` SMs.
 
-    A thread reads one 16-byte pack of a pixel (or one element: channels
-    per group not a multiple of a pack, or ``aligned`` false).  A unit is
+    A thread reads one 16-byte pack of a pixel (:func:`pack_elements`; or
+    one element).  A unit is
     ``seg`` consecutive groups of a sample: the fewest whose slice of a
     pixel is ``STATS_LINE`` bytes, within ``BF16_MAX_SEG`` (one group where
     the packs of a group are not a power of two: the kernel's warp
-    butterfly splits a warp's lanes by their bits).  The units' pixels
+    butterfly splits a warp's lanes by their bits).  Where a group's
+    channels are not whole packs (packs that straddle groups: n_feat
+    1032's up0_norm, n_feat 136's and 264's heads) a unit is one group and
+    its threads take the :func:`straddle_packs` packs that overlap a group,
+    each masking the channels outside it.  The units' pixels
     split over a cluster, doubled from 1 while the grid has fewer CTAs
     than the card has SMs and a part would keep ``STATS_PART_MIN`` bytes:
     a cluster of 1 takes no barrier.  ``STATS_THREADS`` threads in whole
     warps and whole pixels of the unit, fewer where a part fills fewer.
     Where whole warps of whole pixels exceed ``STATS_MAX_THREADS`` (a
-    unit of one group of an odd number of packs over 16, as n_feat 136's
-    17 channels a group), the lanes past the CTA's last whole pixel idle
-    (:func:`idle_lane_threads`): every lane of the unit's one group merges
+    unit of one group of an odd number of accesses over 16, as n_feat
+    136's 17 channels a group on the element path, or 33 straddling packs
+    at n_feat 1032's bf16 up0_norm), the lanes past the CTA's last whole
+    pixel idle (:func:`idle_lane_threads`; of packs, CTAs of at most
+    ``STATS_IDLE_THREADS``): every lane of the unit's one group merges
     in the butterfly, the idle ones empty.  Where a group's accesses
     outnumber ``STATS_MAX_THREADS`` (a group of over 512 packs or, where
     its channels are not whole packs, elements), a thread takes several
@@ -607,11 +637,11 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
     cg = c // groups
-    wide = 16 // element_bytes
-    vec = wide if aligned and cg % wide == 0 else 1
-    vpg = cg // vec  # packs a group
+    vec = pack_elements(c, groups, aligned, element_bytes)
+    straddle = cg % vec != 0
+    vpg = straddle_packs(groups, cg, vec) if straddle else cg // vec  # packs a group
     seg = 1
-    while (seg < BF16_MAX_SEG and groups % (2 * seg) == 0
+    while (seg < BF16_MAX_SEG and groups % (2 * seg) == 0 and not straddle
            and seg * cg * element_bytes < STATS_LINE and vpg & (vpg - 1) == 0):
         seg *= 2
     vs = seg * vpg
@@ -629,7 +659,8 @@ def stats_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     if vs > STATS_MAX_THREADS:  # seg is 1: several accesses of a pixel a thread
         return StatsPlan(vec, seg, cluster, rounds_threads(vs, STATS_MAX_THREADS), part)
     if whole > STATS_MAX_THREADS:  # seg is 1: a unit of several groups is 2^k packs
-        threads = idle_lane_threads(vs, STATS_MAX_THREADS)
+        most = STATS_MAX_THREADS if vec == 1 else max(STATS_IDLE_THREADS, -(-vs // 32) * 32)
+        threads = idle_lane_threads(vs, most)
         return StatsPlan(vec, seg, cluster, min(threads, -(-part * vs // 32) * 32), part)
     threads = max(whole, STATS_THREADS - STATS_THREADS % whole)
     threads = min(threads, -(-part * vs // whole) * whole)
@@ -655,8 +686,9 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     each, on a card of ``sms`` SMs.
 
     A CTA takes whole pixels of one sample, a thread the same 16-byte pack
-    (or element, as :func:`stats_plan`) of each: ``APPLY_THREADS`` threads
-    in whole warps and whole pixels.  Where whole warps of whole pixels
+    (or element, :func:`pack_elements`) of each: ``APPLY_THREADS`` threads
+    in whole warps and whole pixels; a pack that straddles two groups
+    takes each element's own group's statistics.  Where whole warps of whole pixels
     exceed the kernel's launch bound (512 threads of packs, 1024 of
     elements; n_feat 264's out_norm: 264 elements a pixel, 1056 threads),
     the lanes past the CTA's last whole pixel idle
@@ -674,8 +706,7 @@ def apply_plan(n: int, hw: int, c: int, groups: int, aligned: bool = True,
     channels do not split into the groups."""
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
-    wide = 16 // element_bytes
-    vec = wide if aligned and c // groups % wide == 0 else 1
+    vec = pack_elements(c, groups, aligned, element_bytes)
     vpp = c // vec  # packs a pixel
     whole = math.lcm(32, vpp)
     most = 1024 if vec == 1 else 512

@@ -1,7 +1,8 @@
 """Reverse-step kernel K1: output conv + CFG combine + ancestral/strided
 update.
 
-Wraps ``csrc/head_step.cu``, the counterpart of the Pallas
+Wraps ``csrc/head_step.cuh`` (built by ``csrc/head_step.cu`` and
+``csrc/head_step_cout<N>.cu``), the counterpart of the Pallas
 ``fused_p_sample_step`` (``camels_diffusion_model_tpu/ops/pallas/
 sampler_step.py:34``) with the decoder's last layer folded in: the kernel
 takes out_norm's features and the 3x3 ``out_conv2`` weights, so eps is
@@ -11,6 +12,13 @@ reverse step of ``sample_ddpm`` and of ``sample_ddim``.  With ``tanh=True``
 the conv, per branch before the guidance combine.
 :func:`launch_plan` chooses the kernel's geometry.
 
+The conv goes to ``cout`` output channels, the model's ``in_channels``
+(``x``, ``z`` and the step ``(B, H, W, cout)``): every kernel takes the
+output channels of a group (:func:`out_groups`: at most ``COUT_MAX``,
+compiled in) per CTA and reduces ``h`` once for all of them; more
+channels go in equal groups over the grid.  Every plan takes ``cout`` and
+sizes its weights and partials by the group.
+
 On a height shard of a spatial mesh ``out_conv2`` reads one row beyond
 the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
 (None for a side at the image's edge, which stays zero padding), and the
@@ -19,7 +27,7 @@ kernel's halo mode copies a band's row -1 or H from them (counts
 bf16 kernel's in bf16 (``c`` a multiple of 8; its narrow item counted
 also under ``.launches_halo_narrow_bf16``, and where its last channel
 block is masked also under ``.launches_halo_masked_bf16``), and in fp32 a
-kernel of its own (``csrc/head_step.cu``, ``head_step_halo_f32_kernel``: the bf16
+kernel of its own (``csrc/head_step.cuh``, ``head_step_halo_f32_kernel``: the bf16
 kernel's warp-private rings, the taps on the CUDA cores in fp32) under
 :func:`halo_plan`.
 
@@ -27,7 +35,7 @@ Two instances by the features' dtype: float32, and bfloat16 for the bf16
 model (``h``, the weights and the bias in bf16, eps rounded to bf16 as the
 JAX program rounds it; ``x``, ``z`` and the step fp32), each with its own
 launch count (``fused_head_step.launches`` and ``.launches_bf16``).  The
-bf16 unsharded launch is a kernel of its own (``csrc/head_step.cu``,
+bf16 unsharded launch is a kernel of its own (``csrc/head_step.cuh``,
 ``head_step_bf16_kernel``): the nine per-tap partials of a band as one
 product on the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 sums),
 each warp streaming its tiles of ``h`` through a ring of its own in
@@ -41,7 +49,7 @@ channel block is masked past ``c`` (counted also under
 
 The fp32 unsharded launch at widths from ``BAND_WIDTH`` (the deep and big
 variants' 128x128 maps) under CFG, or at up to ``BAND_NARROW_C`` channels
-without, is a kernel of its own (``csrc/head_step.cu``,
+without, is a kernel of its own (``csrc/head_step.cuh``,
 ``head_step_f32_band_kernel``: the fp32 halo kernel's body with rows
 outside the map zero, under :func:`halo_plan`), counted under
 ``.launches`` and also under ``.launches_band``.
@@ -54,7 +62,9 @@ either type and mode takes the split launch (:func:`route`,
 then a launch that sums them in range order, adds the bias and steps
 (:func:`head_step_split_plain` is its arithmetic), counted also under
 ``.launches_split``, ``.launches_split_bf16``, ``.launches_halo_split``
-and ``.launches_halo_split_bf16``.
+and ``.launches_halo_split_bf16``.  Every launch at several output
+channels is counted also under ``.launches_cout`` (``.launches_cout_bf16``,
+``.launches_halo_cout``, ``.launches_halo_cout_bf16``).
 """
 
 from __future__ import annotations
@@ -72,6 +82,9 @@ MIN_CTAS = 128  # about one per SM
 SM_SMEM = 228 * 1024  # shared memory of one SM; each CTA also takes 1 KB
 MAX_THREADS = 384  # a CTA: at the kernel's most registers (164 a thread,
 #                    32-channel chunks) 384 threads fill an SM's 64K
+MULTI_THREADS = 256  # ... at several output channels (csrc MULTI_THREADS: 18
+#                      accumulators a channel, up to 255 registers)
+COUT_MAX = 4  # output channels a CTA computes at most (csrc COUT_MAX)
 SMEM_MAX = 227 * 1024  # the dynamic shared memory a CTA may ask for
 ROWS = (4, 2, 1)  # band heights, tallest (least halo) first
 CHUNKS = (32, 16, 8, 4)  # fp32 channels per staged chunk, widest first;
@@ -121,21 +134,24 @@ HALO_NARROW_NAME = "camels_head_step_halo_bf16_narrow"  # bf16_plan at the narro
 SPLIT_NAMES = {torch.float32: "camels_head_step_split",
                torch.bfloat16: "camels_head_step_split_bf16"}
 
+# h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, cout,
+# rows, cfg, ck, stages, threads, smem_bytes, c_eps, inv_sqrt_a, sigma,
+# tanh_out, the stream.
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
-_BF16_ARGTYPES = _ARGTYPES[:14] + _ARGTYPES[16:]  # no ck, stages
+_BF16_ARGTYPES = _ARGTYPES[:15] + _ARGTYPES[17:]  # no ck, stages
 # halo_plan's and bf16_plan's halo launches: top and bottom after h.
 _BAND_HALO_ARGTYPES = _BF16_ARGTYPES[:1] + (ctypes.c_void_p,) * 2 + _BF16_ARGTYPES[1:]
 # The split launch: h, top, bottom, wt, bias, x, z, w_per_sample, w, out,
-# partials, batch, height, width, c, rows, cfg, span, splits, threads,
-# smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, the stream.
+# partials, batch, height, width, c, cout, rows, cfg, span, splits,
+# threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, the stream.
 _SPLIT_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_float,) + (ctypes.c_void_p,) * 2
-                   + (ctypes.c_int,) * 10 + (ctypes.c_float,) * 3 + (ctypes.c_int, ctypes.c_void_p))
+                   + (ctypes.c_int,) * 11 + (ctypes.c_float,) * 3 + (ctypes.c_int, ctypes.c_void_p))
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -200,7 +216,7 @@ def _padded(h, halo):
 def head_step_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide_w=None,
                     tanh: bool = False, halo=None):
     """The kernel's function in plain PyTorch: eps = the 3x3 conv
-    (``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)``, zero padding) of the
+    (``weight`` ``(cout, C, 3, 3)``, ``bias`` ``(cout,)``, zero padding) of the
     NHWC features ``h``, then :func:`sampler_step_plain`.  In bf16 the conv
     sums the exact products of its bf16 operands in fp32 and rounds once,
     with the bias, to bf16, as the kernel does.  ``halo=(top, bottom)``:
@@ -237,6 +253,17 @@ def head_step_split_plain(h, weight, bias, x, z, c_eps, inv_sqrt_a, sigma, guide
     return sampler_step_plain(x, eps, z, c_eps, inv_sqrt_a, sigma, guide_w, tanh)
 
 
+def out_groups(cout: int) -> tuple:
+    """``(groups, channels of a group)`` of the kernels' ``cout`` output
+    channels: the fewest equal groups of at most ``COUT_MAX`` (a CTA's
+    group, its template instance), the last one masked past ``cout``; 13
+    channels go in 4 groups of 4.  Raises ``ValueError`` for ``cout < 1``."""
+    if cout < 1:
+        raise ValueError(f"the head kernel computes at least one output channel, not {cout}")
+    groups = -(-cout // COUT_MAX)
+    return groups, -(-cout // groups)
+
+
 class Plan(NamedTuple):
     """The kernel's launch geometry for one input shape."""
 
@@ -261,25 +288,28 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
                 element_bytes: int = 4) -> Plan:
     """Geometry of :func:`fused_head_step` for ``units`` CTA units (sample
     pairs under ``cfg``, else samples) of ``height`` x ``width`` pixels of
-    ``c`` channels of ``element_bytes`` each (4 fp32, 2 bf16) on a card of
-    ``sms`` SMs.
+    ``c`` channels of ``element_bytes`` each (4 fp32, 2 bf16) to ``cout``
+    output channels on a card of ``sms`` SMs.
 
     A CTA stages its band's ``rows + 2`` rows, two pixels a thread, in
     chunks of ``ck`` channels (``CHUNKS``, or twice them in bf16: the same
-    bytes).  The band is the tallest of ``ROWS`` within
-    ``MAX_THREADS`` threads whose grid still has ``MIN_CTAS`` CTAs (else
+    bytes), for one group of :func:`out_groups` (the grid holds every
+    band's groups).  The band is the tallest of ``ROWS`` within
+    ``MAX_THREADS`` threads (``MULTI_THREADS`` at a group of several
+    channels) whose grid still has ``MIN_CTAS`` CTAs (else
     the shortest; under CFG at width 128, one row).  The chunk is the one
     dividing ``c`` (64 bytes or more where ``c`` allows)
     that lets the most of the CTAs an SM has to run be resident at once,
-    the widest on a tie; the ring the deepest of ``STAGES`` that fits in
-    shared memory.  Raises ``ValueError`` for a
-    shape no path takes: ``cout != 1``, ``c`` not a multiple of one 16-byte
+    the widest on a tie (at several channels 64 bytes at most: their
+    accumulators leave no registers for wider chunks); the ring the
+    deepest of ``STAGES`` (2 at several channels) that fits in shared
+    memory with the weights, and large enough to hold the partials.  Raises ``ValueError`` for a
+    shape no path takes: ``cout < 1``, ``c`` not a multiple of one 16-byte
     copy (4 fp32, 8 bf16), a pointer off a
     16-byte boundary (``aligned``), an odd ``width`` without CFG, or a band
     over ``MAX_THREADS`` threads or shared memory.
     """
-    if cout != 1:
-        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    groups, g = out_groups(cout)
     per_copy = 16 // element_bytes
     if c <= 0 or c % per_copy:
         raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
@@ -290,22 +320,26 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     def band_threads(r):
         return (r + 2) * width // (1 if cfg else 2)
 
-    fits = [r for r in ROWS if band_threads(r) <= MAX_THREADS] or ROWS[-1:]
-    rows = next((r for r in fits if units * -(-height // r) >= MIN_CTAS), fits[-1])
+    most = MAX_THREADS if g == 1 else MULTI_THREADS
+    fits = [r for r in ROWS if band_threads(r) <= most] or ROWS[-1:]
+    rows = next((r for r in fits if units * groups * -(-height // r) >= MIN_CTAS), fits[-1])
     threads = band_threads(rows)
-    ctas = units * -(-height // rows)
-    widths = [ck * 4 // element_bytes for ck in CHUNKS if c % (ck * 4 // element_bytes) == 0]
+    ctas = units * -(-height // rows) * groups
+    widths = [ck * 4 // element_bytes for ck in (CHUNKS if g == 1 else CHUNKS[1:])
+              if c % (ck * 4 // element_bytes) == 0]
     best, best_resident = None, 0
     for ck in [ck for ck in widths if ck * element_bytes >= 64] or widths[:1]:
-        for stages in STAGES:
-            smem = 4 * 9 * c + element_bytes * stages * 2 * threads * staged_stride(
-                ck, element_bytes)
+        for stages in STAGES if g == 1 else STAGES[-1:]:
+            # The ring, which the partials [9 * g][2 * threads] reuse at the end.
+            ring = max(element_bytes * stages * 2 * threads * staged_stride(ck, element_bytes),
+                       4 * 9 * g * 2 * threads)
+            smem = 4 * 9 * g * c + ring
             if smem <= SMEM_MAX:
                 resident = min(SM_SMEM // (smem + 1024), -(-ctas // sms))
                 if resident > best_resident:
                     best, best_resident = Plan(rows, threads, ck, stages, ctas, smem), resident
                 break
-    if threads > MAX_THREADS or best is None:
+    if threads > most or best is None:
         raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
     return best
 
@@ -337,6 +371,14 @@ def staged_channels(c: int) -> int:
     return c if c % BF16_BLOCK == 0 else -(-c // BF16_NARROW_BLOCK) * BF16_NARROW_BLOCK
 
 
+def b_columns(g: int) -> int:
+    """Columns of the bf16 kernels' B operand at ``g`` output channels a
+    CTA: the ``9 g`` taps padded to whole tiles of 8 (16 at one channel,
+    24 at two, 32 at three, 40 at four), each a weight row in shared
+    memory."""
+    return -(-9 * g // 8) * 8
+
+
 def partial_stride(m: int) -> int:
     """Floats between two taps' partials of ``m`` band pixels: 4 mod 32, so
     the 4 taps a warp stores at once sit 4 banks apart."""
@@ -347,7 +389,9 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
               cfg: bool = True, aligned: bool = True, sms: int = SMS) -> Bf16Plan:
     """Geometry of the bf16 :func:`fused_head_step` for ``units`` CTA units
     (sample pairs under ``cfg``, else samples) of ``height`` x ``width``
-    pixels of ``c`` channels on a card of ``sms`` SMs.
+    pixels of ``c`` channels to ``cout`` output channels on a card of
+    ``sms`` SMs.  At a group of ``g`` output channels (:func:`out_groups`)
+    the weights are :func:`b_columns` rows and the partials ``9 g``.
 
     A CTA takes a band of ``rows`` output rows and multiplies its ``rows +
     2`` rows of ``h`` (each branch's) by the weights, each warp its
@@ -360,13 +404,13 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     channels, zero past ``c``).  The band is the shortest of ``ROWS_BF16`` whose grid still fits
     ``BF16_PER_SM`` CTAs an SM, so the grid is one wave and each SM
     streams for two CTAs (one's gather over the other's copies), else the
-    tallest.  Raises ``ValueError`` for a shape no path takes: ``cout !=
+    tallest; at a group of several output channels, where that band's
+    partials outgrow shared memory, the tallest shorter one that fits.  Raises ``ValueError`` for a shape no path takes: ``cout <
     1``, ``c`` not a multiple of 8 (one 16-byte copy), a pointer off a
     16-byte boundary (``aligned``), or a band over shared memory (weights
-    of over ~5600 channels).
+    of over ~5600 channels at one output channel).
     """
-    if cout != 1:
-        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    groups, g = out_groups(cout)
     if c <= 0 or c % 8:
         raise ValueError(f"the bf16 head kernel needs channels % 8 == 0, got {c}")
     if not aligned:
@@ -375,15 +419,17 @@ def bf16_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
     def smem(rows):  # an item is 2 KiB at either width
         m = (2 if cfg else 1) * (rows + 2) * width
-        return (2 * 16 * weight_stride(staged_channels(c)) + 2 * BF16_THREADS // 32 * BF16_RING
-                * BF16_TILE * BF16_BLOCK + 4 * 9 * partial_stride(m))
+        return (2 * b_columns(g) * weight_stride(staged_channels(c)) + 2 * BF16_THREADS // 32
+                * BF16_RING * BF16_TILE * BF16_BLOCK + 4 * 9 * g * partial_stride(m))
 
     ordered = sorted(ROWS_BF16)  # shortest first
-    rows = next((r for r in ordered if units * -(-height // r) <= BF16_PER_SM * sms),
+    rows = next((r for r in ordered if units * groups * -(-height // r) <= BF16_PER_SM * sms),
                 ordered[-1])
+    if g > 1 and smem(rows) > SMEM_MAX:  # the 9 g partials' rows: a shorter band
+        rows = max((r for r in ordered if r < rows and smem(r) <= SMEM_MAX), default=rows)
     if smem(rows) > SMEM_MAX:
         raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
-    return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows), smem(rows), block)
+    return Bf16Plan(rows, BF16_THREADS, units * -(-height // rows) * groups, smem(rows), block)
 
 
 class HaloPlan(NamedTuple):
@@ -400,8 +446,9 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
               rows: int | None = None) -> HaloPlan:
     """Geometry of the fp32 :func:`fused_head_step` with ``halo`` for
     ``units`` CTA units (sample pairs under ``cfg``, else samples) of
-    ``height`` x ``width`` pixels of ``c`` channels on a card of ``sms``
-    SMs.
+    ``height`` x ``width`` pixels of ``c`` channels to ``cout`` output
+    channels (weights and partials ``9 g`` rows at a group of ``g``,
+    :func:`out_groups`) on a card of ``sms`` SMs.
 
     A CTA of ``HALO_THREADS`` threads takes a band of ``rows`` output rows
     and reduces its ``rows + 2`` rows of ``h`` (each branch's), each warp
@@ -414,12 +461,11 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     the tallest that fits; ``rows`` (the band kernel's ``BAND_ROWS``) fixes
     the band where its shared memory fits.  Raises ``ValueError`` for a
     shape it does not take:
-    ``cout != 1``, ``c`` not a multiple of one 16-byte copy (4), a pointer
+    ``cout < 1``, ``c`` not a multiple of one 16-byte copy (4), a pointer
     off a 16-byte boundary (``aligned``), or no band whose shared memory
-    fits (weights of over ~3700 channels).
+    fits (weights of over ~3700 channels at one output channel).
     """
-    if cout != 1:
-        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    groups, g = out_groups(cout)
     if c <= 0 or c % 4:
         raise ValueError(f"the fp32 halo kernel needs channels % 4 == 0, got {c}")
     if not aligned:
@@ -427,17 +473,17 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
     def smem(rows):
         m = (2 if cfg else 1) * (rows + 2) * width
-        return 4 * (9 * -(-c // HALO_CK) * HALO_CK
+        return 4 * (9 * g * -(-c // HALO_CK) * HALO_CK
                     + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
-                    + 9 * -(-m // HALO_TILE) * HALO_TILE)
+                    + 9 * g * -(-m // HALO_TILE) * HALO_TILE)
 
     fits = [r for r in sorted(ROWS_HALO) if smem(r) <= SMEM_MAX]
     if not fits:
         raise ValueError(f"a band of {width} pixels x {c} channels takes no fp32 halo plan")
     if rows is None or smem(rows) > SMEM_MAX:
-        rows = next((r for r in fits if units * -(-height // r) <= sms * min(
+        rows = next((r for r in fits if units * groups * -(-height // r) <= sms * min(
             HALO_PER_SM, SM_SMEM // (smem(r) + 1024))), fits[-1])
-    return HaloPlan(rows, HALO_THREADS, units * -(-height // rows), smem(rows))
+    return HaloPlan(rows, HALO_THREADS, units * -(-height // rows) * groups, smem(rows))
 
 
 class SplitPlan(NamedTuple):
@@ -457,9 +503,10 @@ def split_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     """Geometry of the split :func:`fused_head_step` (either mode) for
     ``units`` CTA units (sample pairs under ``cfg``, else samples) of
     ``height`` x ``width`` pixels of ``c`` channels of ``element_bytes``
-    each.
+    each to ``cout`` output channels.
 
-    The grid is (band, range): a CTA runs the band kernels' body (bf16:
+    The grid is (band x output group, range): a CTA runs the band kernels'
+    body for a group of :func:`out_groups` (bf16:
     :func:`bf16_plan`'s items, 64 channels where 64 divides ``c``, else 32
     with a range's last block masked; fp32: :func:`halo_plan`'s) on one of
     :func:`split_ranges`' ranges of its band, so its shared memory holds
@@ -468,12 +515,11 @@ def split_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     shorter one, whose shared memory lets ``SPLIT_PER_SM`` CTAs share an
     SM, else one row: at (2,8,8,6000) in bf16 under CFG bands of 4 rows,
     94 CTAs; at (32,64,64,4840) 9728.
-    Raises ``ValueError`` for a shape no path takes: ``cout != 1``, ``c``
+    Raises ``ValueError`` for a shape no path takes: ``cout < 1``, ``c``
     not a multiple of one 16-byte copy (4 fp32, 8 bf16), a pointer off a
     16-byte boundary (``aligned``), or a band of one row over shared
     memory (a width of thousands of pixels)."""
-    if cout != 1:
-        raise ValueError(f"the head kernel computes one output channel, not {cout}")
+    groups, g = out_groups(cout)
     per_copy = 16 // element_bytes
     if c <= 0 or c % per_copy:
         raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
@@ -485,19 +531,20 @@ def split_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
         def smem(rows):
             m = (2 if cfg else 1) * (rows + 2) * width
-            return (2 * 16 * weight_stride(staged_channels(SPLIT_SPAN))
+            return (2 * b_columns(g) * weight_stride(staged_channels(SPLIT_SPAN))
                     + 2 * BF16_THREADS // 32 * BF16_RING * BF16_TILE * BF16_BLOCK
-                    + 4 * 9 * partial_stride(m))
+                    + 4 * 9 * g * partial_stride(m))
     else:
         block = HALO_CK
 
         def smem(rows):
             m = (2 if cfg else 1) * (rows + 2) * width
-            return 4 * (9 * SPLIT_SPAN + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
-                        + 9 * -(-m // HALO_TILE) * HALO_TILE)
+            return 4 * (9 * g * SPLIT_SPAN
+                        + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
+                        + 9 * g * -(-m // HALO_TILE) * HALO_TILE)
 
     def ctas(rows):
-        return units * -(-height // rows) * splits
+        return units * -(-height // rows) * groups * splits
 
     fits = ([r for r in ROWS_BF16 if r <= SPLIT_ROWS[element_bytes]  # tallest first
              and SPLIT_PER_SM * (smem(r) + 1024) <= SM_SMEM]
@@ -532,8 +579,11 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     16 maps of 64x64 under CFG, from 5608 at width 8; in fp32 from 3056
     unsharded and 4240 on a 16-map half; no committed model's), the fp32
     unsharded launch's odd widths without CFG where the template takes
-    it, and the largest features.  An unaligned pointer, a ``c`` not a multiple of
-    one 16-byte copy or ``cout != 1`` take no kernel.  A function of the
+    it, and the largest features.  Every ``cout`` takes the kernels
+    above, in groups of :func:`out_groups` (the weights' and partials'
+    shared memory grow with the group, so the split launch takes over at a
+    narrower ``c``); an unaligned pointer, a ``c`` not a multiple of one
+    16-byte copy or ``cout < 1`` take no kernel.  A function of the
     shape, the dtype and the alignment alone, chosen before the launch;
     raises ``ValueError`` where no kernel takes the shape."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
@@ -562,13 +612,13 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
 def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
                     sigma: float, guide_w=None, tanh: bool = False, halo=None):
     """``(x - c_eps*e)*inv_sqrt_a + sigma*z`` with ``e`` the (guided) output
-    of the 3x3 conv ``weight`` ``(1, C, 3, 3)``, ``bias`` ``(1,)`` over the
-    NHWC features ``h`` (its tanh per branch with ``tanh=True``):
+    of the 3x3 conv ``weight`` ``(cout, C, 3, 3)``, ``bias`` ``(cout,)``
+    over the NHWC features ``h`` (its tanh per branch with ``tanh=True``):
     ``(B, H, W, C)``, or ``(2B, H, W, C)`` stacked ``[cond; uncond]`` when
     ``guide_w`` (a float or a ``(B,)`` tensor) is given.  ``h``, ``weight``
     and ``bias`` are float32, or all bfloat16 (the bf16 model); ``x``,
-    ``z`` ``(B, H, W, 1)`` and a per-sample ``guide_w`` float32; ``z`` may
-    be None only when ``sigma`` is 0.  ``halo=(top, bottom)``: the rows of
+    ``z`` ``(B, H, W, cout)`` and a per-sample ``guide_w`` float32; ``z``
+    may be None only when ``sigma`` is 0.  ``halo=(top, bottom)``: the rows of
     the neighbouring height shards (module docstring), ``(N, W, C)`` or
     ``(N, 1, W, C)`` of ``h``'s dtype, None at the image's edge.
 
@@ -585,16 +635,17 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if h.device.type != "cuda":
         raise ValueError(f"fused_head_step: unsupported device {h.device}")
     if h.dim() != 4 or weight.dim() != 4:
-        raise ValueError(f"h must be NHWC and weight (1, C, 3, 3), got "
+        raise ValueError(f"h must be NHWC and weight (cout, C, 3, 3), got "
                          f"{tuple(h.shape)} and {tuple(weight.shape)}")
     cfg = guide_w is not None
     b = x.shape[0]
     nd, height, width, c = h.shape
+    cout = weight.shape[0]
     if tuple(weight.shape[1:]) != (c, 3, 3):
-        raise ValueError(f"weight must be (1, {c}, 3, 3), got {tuple(weight.shape)}")
-    # Tap-major (9, C) weights: a view of the channels_last weight the model
-    # holds, a small copy otherwise.
-    wt = weight[0].permute(1, 2, 0).reshape(9, c).contiguous()
+        raise ValueError(f"weight must be (cout, {c}, 3, 3), got {tuple(weight.shape)}")
+    # Tap-major (cout * 9, C) weights, row o * 9 + tap: a view of the
+    # channels_last weight the model holds, a small copy otherwise.
+    wt = weight.permute(0, 2, 3, 1).reshape(cout * 9, c).contiguous()
     tensors = {"h": h, "bias": bias, "x": x, "weight": wt}
     if halo is not None:
         for side, r in zip(("top", "bottom"), halo):
@@ -623,15 +674,15 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
             )
     if nd != (2 * b if cfg else b):
         raise ValueError(f"h must hold {2 * b if cfg else b} samples, got {nd}")
-    if tuple(x.shape) != (b, height, width, 1) or bias.shape != (1,):
-        raise ValueError(f"x must be {(b, height, width, 1)} and bias (1,), got "
+    if tuple(x.shape) != (b, height, width, cout) or bias.shape != (cout,):
+        raise ValueError(f"x must be {(b, height, width, cout)} and bias ({cout},), got "
                          f"{tuple(x.shape)} and {tuple(bias.shape)}")
     if z is not None and z.shape != x.shape:
         raise ValueError(f"z must be {tuple(x.shape)}, got {tuple(z.shape)}")
     _build.refuse_autograd("fused_head_step", h, weight, *tensors.values())
     aligned = all(tensors[k].data_ptr() % 16 == 0 for k in ("h", "weight", "top", "bottom")
                   if k in tensors)
-    name, plan = route(b, height, width, c, h.dtype, weight.shape[0], cfg, aligned,
+    name, plan = route(b, height, width, c, h.dtype, cout, cfg, aligned,
                        halo is not None,
                        torch.cuda.get_device_properties(h.device).multi_processor_count)
     out = torch.empty_like(x)
@@ -647,18 +698,18 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     tail = (float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
             torch.cuda.current_stream(h.device).cuda_stream)
     if split:
-        partials = torch.empty((plan.splits, 2 if cfg else 1, b * height * width),
+        partials = torch.empty((plan.splits, 2 if cfg else 1, cout, b * height * width),
                                dtype=torch.float32, device=h.device)
         err = _build.kernel(name, _SPLIT_ARGTYPES)(
-            *head, partials.data_ptr(), b, height, width, c, plan.rows, int(cfg), plan.span,
-            plan.splits, plan.threads, plan.smem_bytes, *tail)
+            *head, partials.data_ptr(), b, height, width, c, cout, plan.rows, int(cfg),
+            plan.span, plan.splits, plan.threads, plan.smem_bytes, *tail)
     else:
         band = not isinstance(plan, Plan)  # a kernel of its own: no ck, stages
         fn = _build.kernel(name, _BAND_HALO_ARGTYPES if halo is not None
                            else _BF16_ARGTYPES if band else _ARGTYPES)
         geometry = (plan.threads,) if band else (plan.ck, plan.stages, plan.threads)
-        err = fn(*head, b, height, width, c, plan.rows, int(cfg), *geometry, plan.smem_bytes,
-                 *tail)
+        err = fn(*head, b, height, width, c, cout, plan.rows, int(cfg), *geometry,
+                 plan.smem_bytes, *tail)
     _build.check(err, name)
     mode = "_halo" if halo is not None else ""
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
@@ -667,7 +718,7 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     kinds = (["_split"] if split else ["_band"] if name == F32_BAND_NAME
              else ["_narrow"] + (["_masked"] if c % BF16_NARROW_BLOCK else [])
              if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else [])
-    for kind in kinds:
+    for kind in kinds + (["_cout"] if cout > 1 else []):
         count = f"launches{mode}{kind}{suffix}"
         setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
     return out
@@ -686,3 +737,8 @@ fused_head_step.launches_halo_bf16 = 0  # every bf16 halo launch
 fused_head_step.launches_halo_narrow_bf16 = 0  # those of them that took HALO_NARROW_NAME
 fused_head_step.launches_halo_masked_bf16 = 0  # ... with a last channel block masked past c
 fused_head_step.launches_halo_split_bf16 = 0  # those of them that took the split launch
+# Of each of the four, the launches at several output channels (cout > 1).
+fused_head_step.launches_cout = 0
+fused_head_step.launches_cout_bf16 = 0
+fused_head_step.launches_halo_cout = 0
+fused_head_step.launches_halo_cout_bf16 = 0

@@ -5,9 +5,10 @@
 
 Phases, each timed on its own line:
 
-  (a) build the three CUDA kernels (one nvcc call, ctypes) and print
-      ptxas's registers, shared memory and spills of the bf16 designs of
-      K1 and K2;
+  (a) build the three CUDA kernels (one nvcc a source, all started
+      together, ctypes), print each source's compile seconds and ptxas's
+      registers, shared memory and spills of the bf16 designs of K1 and
+      K2, K1 at several output channels and K2's sharded launches;
   (b) load the committed checkpoint through the port's own msgpack decoder,
       md5-checked, fold its BatchNorms and put it on the card;
   (c) hold each kernel against its plain PyTorch version at the shapes each
@@ -27,7 +28,10 @@ Phases, each timed on its own line:
       statistics and apply launches on one card (fp32 out_norm
       (10,128,128,512), n_feat 1032's up0_norm with the FiLM epilogue at
       16 maps in both types) and K3 at pixels of over 1024 accesses (fp32
-      (4,32,32,8192), bf16 8200 channels);
+      (4,32,32,8192), bf16 8200 channels); K1 to several image channels
+      (a model of several CMD fields): 2, 3, 4 and 13 output channels at
+      the served w=2 shape in both types, and 2 and 13 at a split width
+      (6000 channels on 8x8 maps);
   (d) one full-width forward against the JAX golden fixture, TF32 off, and
       four guided sampler steps on the card against the CPU;
   (e) certified serving (``cli.serve``) at w=2 and w=0, 16 maps each,
@@ -127,7 +131,10 @@ Phases, each timed on its own line:
       n_feat 136's and 264's heads; K3 on a shard; the bf16 halo mode's
       narrow item at n_feat 32's half, and with a masked last block at
       n_feat 40's and 264's; the split launch's halo mode at the widths
-      K1's halo kernels do not take (6000 channels); (r2)
+      K1's halo kernels do not take (6000 channels); K2's statistics and
+      apply launches where 16-byte packs straddle groups (n_feat 136's and
+      264's halves, n_feat 1032's up0_norm); K1's halo mode to 2, 3, 4 and
+      13 image channels on half of the served w=2 features; (r2)
       two gloo ranks sharing the card as a (1 data x 2 space) mesh on the
       committed checkpoint: ``sample_ddpm(spatial=True)`` at w=2 on 16 maps
       (the exact chain of a 10-step schedule) against one process, in fp32
@@ -145,21 +152,31 @@ Phases, each timed on its own line:
       forward on 2 maps and four strided w=2 steps on the card against the
       CPU (fp32 within ``GOLDEN_TOL``; bf16 under phase (o)'s yardstick),
       with their launch counts (the pair at up0_norm, no split K1: its
-      band kernels take 1032 channels).
+      band kernels take 1032 channels);
+  (t) a canonical model of two image channels (``in_channels`` 2, n_feat
+      128, 64x64, n_cfeat 6, seeded init: no committed model has two) in
+      fp32 and folded in bf16: four strided w=2 steps and four posterior
+      DDIM steps on 16 maps on the card against the CPU under injected z
+      (fp32 within ``GOLDEN_TOL``, all 16; bf16 under phase (o)'s
+      yardstick, the first 4, as phase (q3) holds its bf16 maps), each
+      ``LAUNCHES_PER_STEP`` a step, K1 at two output channels
+      (``.launches_cout[_bf16]``).
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
 phase (n), the comparison CLI and the stochastic paths of phase (p), the
 mesh paths and DPM-Solver++(2M) of phase (q), the spatial paths of phase
-(r) in each rank, the n_feat 1032 models of phase (s) -- is driven with every
+(r) in each rank, the n_feat 1032 models of phase (s), the two-channel
+models of phase (t) -- is driven with every
 kernel's launch count set to 0 just before it and read just after, and
 must show its expected counts: a sampler path
-``LAUNCHES_PER_STEP`` a step and no conv to one channel (``out_conv2``,
-which the step kernel applies); a likelihood path ``LAUNCHES_PER_FORWARD``
-a forward and one conv to one channel each (the JAX package runs
-``out_conv2`` as an XLA conv there too; DPM-Solver++(2M) runs its forwards
-as these do); a training forward no launch and one such conv.  Each
+``LAUNCHES_PER_STEP`` a step and no conv to the image channels
+(``out_conv2``, which the step kernel applies); a likelihood path
+``LAUNCHES_PER_FORWARD`` a forward and one conv to the image channels each
+(the JAX package runs ``out_conv2`` as an XLA conv there too;
+DPM-Solver++(2M) runs its forwards as these do); a training forward no
+launch and one such conv.  Each
 kernel has an fp32 and a bf16 instance with launch
 counts of their own: an fp32 path launches no bf16 instance and a bf16
 path (phase o) no fp32 one.  TF32 is off throughout.
@@ -261,7 +278,7 @@ from camels_diffusion_model_tpu_torch.serving import (
     load_model,
     resolve_serving_config,
 )
-from camels_diffusion_model_tpu_torch.models.blocks import Conv2d
+from camels_diffusion_model_tpu_torch.models.blocks import Conv2d, OutputConv2d
 from camels_diffusion_model_tpu_torch.models.context_unet import ContextUnet
 from camels_diffusion_model_tpu_torch.training import trainer
 from camels_diffusion_model_tpu_torch.training.checkpoints import load_variables
@@ -285,7 +302,7 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # Kernels whose ptxas report (registers, shared memory, spills) phase (a)
 # prints: the bf16 designs of K1 and K2, K1's halo kernels and K2's sharded
 # launches.
-PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
+PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel", "head_step_cout_kernel",
                  "head_step_halo_f32_kernel", "head_step_bf16_split_kernel",
                  "head_step_f32_split_kernel", "head_step_combine_kernel",
                  "groupnorm_bf16_kernel",
@@ -335,7 +352,10 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        "film_wide_bf16": 0,
        # The fp32 designs at the deep and big variants' heads: K2's
        # large-slice kernel and K1's band kernel, as K2 and K1.
-       "groupnorm_act_large": 1e-4, "head_step_band": 1e-4}
+       "groupnorm_act_large": 1e-4, "head_step_band": 1e-4,
+       # K1 to several image channels, both modes: as K1.
+       "head_step_cout": 1e-4, "head_step_cout_bf16": 4, "head_step_halo_cout": 1e-4,
+       "head_step_halo_cout_bf16": 4}
 REL_TOL = ("groupnorm_act_pair",)  # fp32 tolerances relative to the largest value
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
@@ -396,6 +416,13 @@ WRAPPERS = {
     # (widths from 128); counted also in groupnorm_act's and head_step's.
     "groupnorm_act_large": (fused_groupnorm_act, "launches_large"),
     "head_step_band": (fused_head_step, "launches_band"),
+    # K1 to several image channels (a model of several CMD fields: phase
+    # t), in both types and modes; counted also in head_step's,
+    # head_step_bf16's, head_step_halo's and head_step_halo_bf16's.
+    "head_step_cout": (fused_head_step, "launches_cout"),
+    "head_step_cout_bf16": (fused_head_step, "launches_cout_bf16"),
+    "head_step_halo_cout": (fused_head_step, "launches_halo_cout"),
+    "head_step_halo_cout_bf16": (fused_head_step, "launches_halo_cout_bf16"),
 }
 
 
@@ -436,6 +463,11 @@ LIBRARY.update({f"{k}_{kind}{sfx}": LIBRARY[f"{k}{sfx}"] for k, kind in WIDE_KIN
 # The fp32 designs at the deep and big variants' heads: kernel and kind.
 F32_KINDS = (("groupnorm_act", "large"), ("head_step", "band"))
 LIBRARY.update({f"{k}_{kind}": LIBRARY[k] for k, kind in F32_KINDS})
+# K1 to several image channels, both types and modes: kernel and kind (the
+# library call F.conv2d to as many channels).
+COUT_KINDS = (("head_step", "cout"), ("head_step_halo", "cout"))
+LIBRARY.update({f"{k}_{kind}{sfx}": LIBRARY[f"{k}{sfx}"] for k, kind in COUT_KINDS
+                for sfx in ("", "_bf16")})
 # Launches per reverse step: one step kernel (output conv, guidance,
 # update); one decoder call with K2 at up0_norm (FiLM stage 0 as its
 # epilogue) and out_norm, and K3 at stage 1.
@@ -526,20 +558,27 @@ DPM_CPU_MAPS = {"float32": 4, "bfloat16": 1}
 PROFILE_T, PROFILE_MAPS = 20, 90
 RUN_MAPS = {"initial": 90, "main": 90, "paper": 240}
 SOURCES = {
-    "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cu",
+    "head_step": ("camels_diffusion_model_tpu_torch/csrc/head_step.cuh",
                   "camels_diffusion_model_tpu/ops/pallas/sampler_step.py:34"),
     "groupnorm_act": ("camels_diffusion_model_tpu_torch/csrc/groupnorm.cu",
                       "camels_diffusion_model_tpu/ops/pallas/groupnorm.py:65"),
     "film": ("camels_diffusion_model_tpu_torch/csrc/film.cu",
              "camels_diffusion_model_tpu/ops/pallas/film.py:29"),
 }
-SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SOURCES["groupnorm_act"],
-                "groupnorm_apply": SOURCES["groupnorm_act"]})  # modes of K1 and K2
+SHARDED_SOURCE = ("camels_diffusion_model_tpu_torch/csrc/groupnorm_sharded.cu",
+                  SOURCES["groupnorm_act"][1])
+SOURCES.update({"head_step_halo": SOURCES["head_step"], "groupnorm_stats": SHARDED_SOURCE,
+                "groupnorm_apply": SHARDED_SOURCE})  # modes of K1 and K2
 SOURCES.update({f"{k}_bf16": v for k, v in SOURCES.items()})  # the same sources
 SOURCES.update({f"{k}_{kind}_bf16": SOURCES[k] for k, kind in BF16_KINDS})
+SOURCES.update({f"groupnorm_act_{kind}_bf16": (
+    "camels_diffusion_model_tpu_torch/csrc/groupnorm_narrow.cu", SOURCES["groupnorm_act"][1])
+    for kind in ("narrow", "wide")})
 SOURCES.update({f"{k}_{kind}{sfx}": SOURCES[k] for k, kind in WIDE_KINDS
                 for sfx in ("", "_bf16")})
 SOURCES.update({f"{k}_{kind}": SOURCES[k] for k, kind in F32_KINDS})
+SOURCES.update({f"{k}_{kind}{sfx}": SOURCES[k] for k, kind in COUT_KINDS
+                for sfx in ("", "_bf16")})
 # Phase (r2): the spatial chain, its one-process reference and the deep
 # model's folded forward on a (1 x 2) mesh of two gloo ranks sharing the
 # card.  Each rank's maps are held to one process's within SPATIAL_TOL
@@ -602,6 +641,19 @@ PAIR_K2 = ((10, 128, 512, "gelu", False, "float32"), (10, 128, 384, "gelu", Fals
            (2 * BATCH, 16, 2064, "relu", True, "float32"),
            (2 * BATCH, 16, 2064, "relu", True, "bfloat16"))  # n, height, c, act, FiLM, dtype
 WIDE_K3 = ((4, 32, 8192, "float32"), (4, 32, 8200, "bfloat16"))
+# Phase (c), K1 to several image channels: (maps, height and width,
+# channels, image channels, summed) at the served w=2 shape and at a split
+# width; phase (r1) the halo mode at half of the served w=2 features.
+COUT_CASES = ((BATCH, 64, 128, 2, True), (BATCH, 64, 128, 3, False),
+              (BATCH, 64, 128, 4, False), (BATCH, 64, 128, 13, False),
+              (1, 8, 6000, 2, False), (1, 8, 6000, 13, False))
+COUT_HALO = (2, 3, 4, 13)
+# Phase (t): a canonical model of CHANNELS_IN image channels, CHANNELS_MAPS
+# maps a sampler on the card, CHANNELS_CPU_MAPS of them held against the CPU
+# (bf16 on the CPU takes 0.24 s a map and step: phase q3's note); launches a
+# step beyond LAUNCHES_PER_STEP's: K1 at several output channels.
+CHANNELS_IN, CHANNELS_MAPS = 2, BATCH
+CHANNELS_CPU_MAPS = {"float32": BATCH, "bfloat16": 4}
 # Phase (s): a canonical model at n_feat 1032, 16x16 maps: its forward and
 # four strided w=2 steps on 2 maps.  Launches a decoder call beyond
 # LAUNCHES_PER_STEP's: the pair at up0_norm; in bf16 out_norm's wide
@@ -794,7 +846,43 @@ def check_kernels(dev, model) -> dict:
 
     cases += bf16_cases(model, randn, c_eps, inv_sqrt_a, sigma)
     cases += wide_cases(randn, c_eps, inv_sqrt_a, sigma)
+    cases += cout_cases(randn)
     return hold_cases(cases)
+
+
+def head_args(randn, dtype, b, height, width, c, cout, cfg=True, halo=False):
+    """K1's arguments for ``b`` maps of ``height`` x ``width`` features of
+    ``c`` channels to ``cout`` image channels (weights at out_conv2's init
+    scale; under CFG w=2), as the step at t = 750 gives them; with
+    ``halo`` the rows above and below."""
+    c_eps, inv_sqrt_a, sigma = ddpm_coefficients(
+        make_schedule(TIMESTEPS), torch.tensor([750]))[0].tolist()
+    h = randn(2 * b if cfg else b, height, width, c).relu().to(dtype)
+    rows = (tuple(randn(h.shape[0], width, c).relu().to(dtype) for _ in range(2)),) if halo \
+        else ()
+    return (h, randn(cout, c, 3, 3).mul(1 / (3 * c**0.5)).to(dtype), randn(cout).to(dtype),
+            randn(b, height, width, cout), randn(b, height, width, cout), c_eps, inv_sqrt_a,
+            sigma, 2.0 if cfg else None, False, *rows)
+
+
+def cout_cases(randn) -> list:
+    """Phase (c)'s cases of K1 to several image channels (``COUT_CASES``),
+    in both types: at the served w=2 shape (summed: 2 channels, phase (t)'s
+    model) and at a split width (information)."""
+    cases = []
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for b, hw, c, cout, summed in COUT_CASES:
+            args = head_args(randn, dtype, b, hw, hw, c, cout)
+            h = args[0]
+            cases.append((
+                f"head_step_cout{sfx}", f"{cout} image channels, cfg w=2 h{tuple(h.shape)} "
+                f"{_build.type_name(dtype)}, x{tuple(args[3].shape)} fp32", fused_head_step,
+                head_step_plain,
+                lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                     padding=1),
+                args, nbytes(*args, args[3]), h.numel() * 18 * cout + args[3].numel() * 8,
+                summed))
+    return cases
 
 
 def wide_cases(randn, c_eps, inv_sqrt_a, sigma) -> list:
@@ -1075,32 +1163,41 @@ def check_golden(dev, model, bf16: bool = False) -> None:
 
 
 def check_sampler_vs_cpu(models, taus, sigma_mode: str, label: str, size: int = 64,
-                         guide_w: float = 2.0) -> None:
+                         guide_w: float = 2.0, maps: int = 2, cpu_maps: int = 0) -> None:
     """The steps ``taus`` (the last ones of a row) of the sampler at
     ``guide_w`` at full width on the card (the kernels) vs the CPU (their
-    plain versions), same x_init, params and z; ``models`` = (card, CPU),
+    plain versions) on ``maps`` maps of the models' image channels, same
+    x_init, params and z (``cpu_maps``: the CPU takes the first of them, as
+    phase (q3) holds the first maps; 0: all); ``models`` = (card, CPU),
     or (card, CPU, CPU fp32) for bf16 models: then the gate is
     ``BF16_FACTOR`` x the CPU's bf16 distance from its fp32.  Wide jumps
     would amplify the fp32 differences of the convs by 1/sqrt(a_jump) per
     step."""
     rs = np.random.RandomState(0)
-    x0 = rs.randn(2, size, size, 1).astype(np.float32)
-    params = rs.rand(2, models[1].n_cfeat).astype(np.float32)
-    zs = [torch.tensor(rs.randn(2, size, size, 1).astype(np.float32)) for _ in taus]
+    shape = (maps, size, size, models[1].in_channels)
+    x0 = rs.randn(*shape).astype(np.float32)
+    params = rs.rand(maps, models[1].n_cfeat).astype(np.float32)
+    zs = [torch.tensor(rs.randn(*shape).astype(np.float32)) for _ in taus]
     outs = []
-    for model in models:
+    for i, model in enumerate(models):
+        k = maps if i == 0 or not cpu_maps else cpu_maps
         outs.append(sample_ddim(
             model, make_schedule(TIMESTEPS), torch.Generator(device=on(model)),
-            params=params, guide_w=guide_w, x_init=x0, taus=np.asarray(taus),
-            sigma_mode=sigma_mode, device=on(model), z_fn=lambda k, t: zs[k],
+            params=params[:k], guide_w=guide_w, x_init=x0[:k], taus=np.asarray(taus),
+            sigma_mode=sigma_mode, device=on(model), z_fn=lambda j, t, k=k: zs[j][:k],
         ).cpu())
+    if tuple(outs[0].shape) != shape or not bool(torch.isfinite(outs[0]).all()):
+        raise SystemExit(f"{label}: maps of shape {tuple(outs[0].shape)}, expected {shape}, "
+                         "or not all finite")
+    outs[0] = outs[0][:outs[1].shape[0]]
     err = (outs[0] - outs[1]).abs().max().item()
     tol, what = GOLDEN_TOL, ""
     if len(models) == 3:
         yard = (outs[1] - outs[2]).abs().max().item()
         tol, what = BF16_FACTOR * yard, f" = {BF16_FACTOR:g} x the CPU's bf16 vs fp32 {yard:.3e}"
-    print(f"  {label}, last {len(taus)} steps {[int(t) for t in taus]}, card vs CPU: max abs "
-          f"err {err:.3e} (tol {tol:g}{what})", flush=True)
+    print(f"  {label}, last {len(taus)} steps {[int(t) for t in taus]}, card vs CPU"
+          + (f" (the first {cpu_maps} of {maps} maps)" if cpu_maps else "")
+          + f": max abs err {err:.3e} (tol {tol:g}{what})", flush=True)
     if not err <= tol:
         raise SystemExit(f"{label} on the card vs the CPU: {err} > {tol}")
 
@@ -1597,7 +1694,7 @@ def check_runs(dev, drive) -> None:
     stand-ins, cut to ``RUN_T`` timesteps, ``RUN_EPOCHS`` epoch(s) and
     ``RUN_MAPS`` maps, each driven with its launch counts
     (:func:`sampler_calls` chains of ``RUN_T`` steps, the likelihood
-    forwards counted by their convs to one channel); the conditional
+    forwards counted by their convs to the image channels); the conditional
     run's artifacts."""
     for mode in ("initial", "main", "paper"):
         cfg = ExperimentConfig(mode=mode, lrate=1e-4, n_epoch=RUN_EPOCHS, timesteps=RUN_T,
@@ -1951,6 +2048,37 @@ def check_pair_model(dev, drive, dtype: str) -> None:
         (gpu,) + cpus, taus, "beta", f"n_feat {PAIR_FEAT} {dtype} strided w=2", size=PAIR_SIZE),
         steps=len(taus), dtype=dtype,
         extra={k: len(taus) * v for k, v in PAIR_PER_STEP[dtype].items()})
+
+
+def check_channels_model(dev, drive, dtype: str) -> None:
+    """Phase (t): the canonical model of ``CHANNELS_IN`` image channels
+    (n_feat 128, 64x64, n_cfeat 6, seeded init), folded, in ``dtype``:
+    four strided w=2 steps and four posterior DDIM steps (eta 0) on
+    ``CHANNELS_MAPS`` maps on the card against the CPU
+    (``CHANNELS_CPU_MAPS`` of them; fp32 within
+    ``GOLDEN_TOL``; bf16 within ``BF16_FACTOR`` x the CPU's bf16 distance
+    from its fp32), driven as the paths ``channels_{dtype}_strided`` and
+    ``channels_{dtype}_posterior``: ``LAUNCHES_PER_STEP`` a step, each K1
+    launch at ``CHANNELS_IN`` output channels, no conv to the image
+    channels."""
+    dt = getattr(torch, dtype)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(VARIANT_SEED)
+        variables = to_jax_variables(ContextUnet.canonical(in_channels=CHANNELS_IN).state_dict())
+    gpu = load_model(variables, dev, dtype=dt)
+    cpus = tuple(load_model(variables, "cpu", dtype=d) for d in dict.fromkeys((dt, torch.float32)))
+    del variables
+    if gpu.in_channels != CHANNELS_IN or tuple(gpu.out_conv2.weight.shape[:2]) != (
+            CHANNELS_IN, gpu.n_feat):
+        raise SystemExit(f"the {CHANNELS_IN}-channel model loaded with in_channels "
+                         f"{gpu.in_channels}")
+    extra = {instance("head_step_cout", dtype): 4}
+    for path, taus, mode in (("strided", [1, 4, 7, 10], "beta"),
+                             ("posterior", ddim_timesteps(TIMESTEPS, 50)[:4], "posterior")):
+        drive(f"channels_{dtype}_{path}", lambda taus=taus, mode=mode: check_sampler_vs_cpu(
+            (gpu,) + cpus, taus, mode, f"{CHANNELS_IN} image channels {dtype} {path} w=2",
+            maps=CHANNELS_MAPS, cpu_maps=CHANNELS_CPU_MAPS[dtype]), steps=len(taus),
+            dtype=dtype, extra=extra)
 
 
 def check_native_prep() -> None:
@@ -2457,7 +2585,9 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
                 ("n_feat 264 out_norm, half of (32,64,64,264)", n, (32, 64), 264, "relu", None,
                  False, False),
                 ("n_feat 264 up0_norm (apply: with the FiLM epilogue), half of (32,16,16,528)",
-                 n, (8, 16), 528, "relu", None, True, False)):
+                 n, (8, 16), 528, "relu", None, True, False),
+                ("n_feat 1032 up0_norm (apply: with the FiLM epilogue), the pair's launches "
+                 "on (32,16,16,2064)", n, (16, 16), 2064, "relu", None, True, False)):
             gamma, beta = ((norm.weight.detach(), norm.bias.detach()) if norm is not None
                            else (randn(c), randn(c)))
             halves = [randn(batch, *hw, c).to(dtype) for _ in range(2)]
@@ -2495,6 +2625,16 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
         halo_cases.append((f"head_step_halo_split{sfx}", 1, 4, 8, 6000,
                            "cfg w=2, 6000 channels (no model's: weights over the halo "
                            "kernels' shared memory), half of h(2,8,8,6000)"))
+        for cout in COUT_HALO:
+            args = head_args(randn, dtype, BATCH, 32, 64, model.n_feat, cout, halo=True)
+            cases.append((
+                f"head_step_halo_cout{sfx}", f"{cout} image channels, cfg w=2, half of "
+                f"h(32,64,64,128) x{tuple(args[3].shape)}, halo rows (2, {2 * BATCH}, 64, 128)",
+                fused_head_step, head_step_plain,
+                lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
+                                                     padding=1),
+                args, nbytes(*args, args[3]), args[0].numel() * 18 * cout + args[3].numel() * 8,
+                cout == COUT_HALO[0]))
         for name, b, height, width, c, label in halo_cases:
             h = randn(2 * b, height, width, c).relu().to(dtype)
             halo = tuple(randn(2 * b, width, c).relu().to(dtype) for _ in range(2))
@@ -2769,22 +2909,22 @@ def make_drive(launches: dict):
               kinds=None):
         """Run one main path with every launch count at 0 and read the
         counts: a sampler path of ``steps`` reverse steps must show
-        ``LAUNCHES_PER_STEP`` a step and no conv to one channel (the step
-        kernel applies ``out_conv2``); a likelihood path of ``forwards``
-        model calls ``LAUNCHES_PER_FORWARD`` a call and one such conv each;
-        ``train_forwards`` training forwards no launch and one such conv
-        each.  ``forwards=None``: as many likelihood forwards as convs to
-        one channel beyond the training forwards (a run's many passes).
+        ``LAUNCHES_PER_STEP`` a step and no conv to the image channels (the
+        step kernel applies ``out_conv2``); a likelihood path of
+        ``forwards`` model calls ``LAUNCHES_PER_FORWARD`` a call and one
+        such conv each; ``train_forwards`` training forwards no launch and
+        one such conv each.  ``forwards=None``: as many likelihood forwards
+        as convs to the image channels beyond the training forwards (a
+        run's many passes).
         The launches are those of the ``dtype`` instances; the other
         instances must show none, but for ``extra`` (instance -> launches:
         the narrow bf16 kernels of a narrow bf16 model) and ``kinds``
         (instance -> (launches a step, launches a forward): the fp32
         designs of the variants' heads, :func:`variant_kinds`)."""
-        one_channel_convs = [0]
+        one_channel_convs = [0]  # convs to the image channels (out_conv2)
 
         def hook(module, args, output):  # the card's only: q3 runs CPU forwards beside q1
-            if (isinstance(module, torch.nn.Conv2d) and module.out_channels == 1
-                    and output.is_cuda):
+            if isinstance(module, OutputConv2d) and output.is_cuda:
                 one_channel_convs[0] += 1
 
         handle = torch.nn.modules.module.register_module_forward_hook(hook)
@@ -2796,12 +2936,12 @@ def make_drive(launches: dict):
         finally:
             handle.remove()
         launches[path] = {name: getattr(w, count) for name, (w, count) in WRAPPERS.items()}
-        print(f"  launches on {path}: {launches[path]}; convs to one channel: "
+        print(f"  launches on {path}: {launches[path]}; convs to the image channels: "
               f"{one_channel_convs[0]}", flush=True)
         if forwards is None:
             forwards = one_channel_convs[0] - train_forwards
         if forwards < 0 or one_channel_convs[0] != forwards + train_forwards:
-            raise SystemExit(f"{one_channel_convs[0]} convs to one channel on {path}, "
+            raise SystemExit(f"{one_channel_convs[0]} convs to the image channels on {path}, "
                              f"expected {forwards + train_forwards}")
         want = {name: 0 for name in WRAPPERS}
         for name in LAUNCHES_PER_STEP:
@@ -2833,6 +2973,8 @@ def main() -> int:
     lib = _build.build()
     phase("(a) build kernels", t0)
     print(f"  {lib}")
+    for line in _build.build_seconds(lib):
+        print(f"  nvcc {line} s")
     for line in _build.ptxas_report(lib, PTXAS_KERNELS):
         print(f"  ptxas {line}")
 
@@ -3046,6 +3188,12 @@ def main() -> int:
         check_pair_model(dev, drive, dtype)
         torch.cuda.empty_cache()
     phase(f"(s) n_feat {PAIR_FEAT}: K2's statistics and apply launches on one card", t0)
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        check_channels_model(dev, drive, dtype)
+        torch.cuda.empty_cache()
+    phase(f"(t) a model of {CHANNELS_IN} image channels", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

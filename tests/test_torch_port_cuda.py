@@ -335,8 +335,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fused_head_step(x, weight, bias, x1, x1, 0.1, 1.0, 0.1, 2.0)
     with pytest.raises(ValueError, match="contiguous float32"):
         fused_head_step(x, weight, bias, x1.cpu(), x1, 0.1, 1.0, 0.1)
-    with pytest.raises(ValueError, match="one output channel"):
+    with pytest.raises(ValueError, match="x must be"):  # weights of 2 image channels, x of 1
         fused_head_step(x, _randn(dev, 2, 16, 3, 3), bias, x1, x1, 0.1, 1.0, 0.1)
+    x0 = torch.empty(2, 8, 8, 0, device=dev)
+    with pytest.raises(ValueError, match="one output channel"):
+        fused_head_step(x, _randn(dev, 0, 16, 3, 3), torch.empty(0, device=dev), x0, x0, 0.1,
+                        1.0, 0.1)
     with pytest.raises(ValueError, match="aligned"):
         fused_head_step(_misaligned(x), weight, bias, x1, x1, 0.1, 1.0, 0.1)
 
@@ -1551,3 +1555,114 @@ def test_film_kernel_at_pixels_over_1024_accesses(dev, dtype, c):
     want = film_plain(x, scale, shift)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=1e-5 if dtype == torch.float32 else 0.0, rtol=0)
+
+
+# K1 at several output channels (a model of several image channels):
+# (maps, height, width, c, CFG, mode), mode the kernel the route must give.
+COUT_SHAPES = {
+    "fp32 template w=2 (32,64,64,128)": (16, 64, 64, 128, True, "template", torch.float32),
+    "fp32 template w=0 (16,64,64,48)": (16, 64, 64, 48, False, "template", torch.float32),
+    "fp32 band w=2 (20,128,128,128)": (10, 128, 128, 128, True, "band", torch.float32),
+    "fp32 halo w=2 half (32,32,64,128)": (16, 32, 64, 128, True, "halo", torch.float32),
+    "fp32 split w=2 (4,8,8,640)": (2, 8, 8, 640, True, "split", torch.float32),
+    "bf16 wide w=2 (32,64,64,128)": (16, 64, 64, 128, True, "bf16", torch.bfloat16),
+    "bf16 narrow w=0 (16,64,64,32)": (16, 64, 64, 32, False, "narrow", torch.bfloat16),
+    "bf16 masked w=2 (4,16,16,40)": (2, 16, 16, 40, True, "masked", torch.bfloat16),
+    "bf16 halo w=2 half (32,32,64,128)": (16, 32, 64, 128, True, "halo", torch.bfloat16),
+    "bf16 halo narrow w=2 half (4,8,16,40)": (2, 8, 16, 40, True, "halo", torch.bfloat16),
+    "bf16 split w=2 (4,8,8,640)": (2, 8, 8, 640, True, "split", torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("cout", [2, 3, 4, 13])
+@pytest.mark.parametrize("shape", COUT_SHAPES, ids=list(COUT_SHAPES))
+def test_head_step_every_kernel_at_several_output_channels(dev, fp32_convs, monkeypatch,
+                                                           shape, cout):
+    """Every K1 kernel at ``cout`` output channels (2-4 in one group of a
+    CTA, 13 in four groups of 4, the last masked past 13) against
+    :func:`head_step_plain` under phase (c)'s gates (fp32 1e-4 abs; bf16
+    four bf16 ulps of the guided eps times c_eps / sqrt(a), all but 1%
+    within the step's FMAs): the fp32 template and band kernel, the bf16
+    kernel at its wide and narrow items and a masked last block, both halo
+    kernels, and the split launch in either type (forced at 640 channels).
+    One launch a call whatever ``cout``; two calls bit-identical."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    maps, height, width, c, cfg, mode, dtype = COUT_SHAPES[shape]
+    h = _randn(dev, 2 * maps if cfg else maps, height, width, c, seed=301).relu().to(dtype)
+    weight = (_randn(dev, cout, c, 3, 3, seed=302) / (3 * c**0.5)).to(dtype)
+    bias = _randn(dev, cout, seed=303).to(dtype)
+    x = _randn(dev, maps, height, width, cout, seed=304)
+    z = _randn(dev, maps, height, width, cout, seed=305)
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, 2.0 if cfg else None)
+    halo = (tuple(_randn(dev, h.shape[0], width, c, seed=306 + k).relu().to(dtype)
+                  for k in range(2)) if mode == "halo" else None)
+    if mode == "split":  # forced: the band kernels take 640 channels
+        real = sampler_step.route
+
+        def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
+                  sms=sampler_step.SMS):
+            real(units, height, width, c, dtype, cout, cfg, aligned, halo, sms)  # its checks
+            return sampler_step.SPLIT_NAMES[dtype], sampler_step.split_plan(
+                units, height, width, c, cout, cfg, aligned, sampler_step.ELEMENT_BYTES[dtype])
+
+        monkeypatch.setattr(sampler_step, "route", route)
+    name = sampler_step.route(maps, height, width, c, dtype, cout, cfg, halo=halo is not None)[0]
+    want_name = {"template": sampler_step.C_NAME, "band": sampler_step.F32_BAND_NAME,
+                 "halo": sampler_step.HALO_NAMES[dtype] if c % 64 == 0
+                 else sampler_step.HALO_NARROW_NAME,
+                 "split": sampler_step.SPLIT_NAMES[dtype], "bf16": sampler_step.BF16_NAME,
+                 "narrow": sampler_step.BF16_NARROW_NAME,
+                 "masked": sampler_step.BF16_NARROW_NAME}[mode]
+    assert name == want_name
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    count = f"launches{'_halo' if halo else ''}{sfx}"
+    before = getattr(fused_head_step, count)
+    got = fused_head_step(*args, halo=halo)
+    assert getattr(fused_head_step, count) == before + 1
+    assert got.shape == x.shape
+    assert torch.equal(got, fused_head_step(*args, halo=halo))
+    want = head_step_plain(*args, halo=halo)
+    gate = _split_gate(args, dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, **gate)
+    else:
+        _assert_bf16_close(got, want, **gate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("shape", [(32, 8, 16, 272), (32, 32, 64, 136), (32, 32, 64, 264),
+                                   (32, 8, 16, 528), (32, 16, 16, 2064), (4, 5, 7, 40)])
+def test_groupnorm_sharded_launches_at_packs_that_straddle_groups(dev, dtype, shape, film):
+    """K2's statistics and apply launches where a pixel's channels are
+    whole 16-byte packs but a group's are not (n_feat 136's and 264's
+    halves, n_feat 1032's up0_norm; 40 channels: 5 a group, packs in fp32,
+    the element path in bf16): the plans' packs, and the launches against
+    their plain versions as phase (r1) holds them (statistics 1e-5 of each
+    column's largest value; apply fp32 1e-4, bf16 two ulps), with the
+    partials of two halves merged."""
+    from camels_diffusion_model_tpu_torch.ops import groupnorm
+
+    n, hh, ww, c = shape
+    eb = 4 if dtype == torch.float32 else 2
+    wide = 16 // eb
+    vec = groupnorm.stats_plan(n, hh * ww, c, 8, True, eb).vec
+    assert vec == groupnorm.apply_plan(n, hh * ww, c, 8, True, eb).vec
+    assert vec == (wide if c // 8 >= wide else 1)
+    halves = [(_randn(dev, n, hh, ww, c, seed=311 + k) * 3 + 1).to(dtype) for k in range(2)]
+    got = groupnorm_stats(halves[0], 8)
+    want = groupnorm_stats_plain(halves[0], 8)
+    err = ((got - want).abs().flatten(0, -2).amax(0)
+           / want.abs().flatten(0, -2).amax(0).clamp_min(1e-30)).max().item()
+    assert err <= 1e-5
+    parts = torch.stack([groupnorm_stats_plain(x, 8) for x in halves])
+    gamma, beta = _randn(dev, c, seed=313), _randn(dev, c, seed=314)
+    rows = (_randn(dev, n, c, seed=315).to(dtype), _randn(dev, 1, c, seed=316).to(dtype)) \
+        if film else None
+    got = groupnorm_apply(halves[0], parts, gamma, beta, 8, 1e-5, "relu", rows)
+    want = groupnorm_apply_plain(halves[0], parts, gamma, beta, 8, 1e-5, "relu", rows)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _assert_bf16_close(got, want, 2 * _bf16_ulp(want.float().abs().max().item()))

@@ -281,7 +281,7 @@ def test_head_kernel_algorithm_matches_plain(monkeypatch, rows, w, hw, c):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"cout": 2}, "one output channel"),
+    ({"cout": 0}, "one output channel"),
     ({"c": 126}, "channels % 4"),
     ({"aligned": False}, "aligned"),
     ({"width": 63, "cfg": False}, "even width"),
@@ -734,7 +734,7 @@ def test_head_narrow_halo_shards_cover_the_map_once(c, maps):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"cout": 2}, "one output channel"),
+    ({"cout": 0}, "one output channel"),
     ({"c": 36}, "channels % 8"),
     ({"aligned": False}, "aligned"),
     ({"width": 4096}, "takes no path"),
@@ -1734,16 +1734,43 @@ SHARDED_SHAPES = {  # (n, hw, c, element bytes, aligned): phase (r1)'s shards an
 }
 
 
+def _unit_packs(plan, c, groups=8):
+    """``(vs, unit channel 0 of segment sg, (lo, hi) of pack j)`` of the
+    statistics kernel under ``plan``: a unit's packs a pixel, where they
+    start, and the elements of pack j of segment sg that its unit counts.
+    Where packs straddle groups (a group's channels not whole packs) a unit
+    is one group and its packs are those that overlap the group
+    (``straddle_packs`` threads, ``csrc`` ``packs_of``), each counting the
+    group's elements alone (none past the group's packs)."""
+    cg = c // groups
+    if cg % plan.vec == 0:
+        return (plan.seg * cg // plan.vec, lambda sg: sg * plan.seg * cg,
+                lambda sg, j: (0, plan.vec))
+    assert plan.seg == 1 and cg >= plan.vec
+    vs = groupnorm_ops.straddle_packs(groups, cg, plan.vec)
+
+    def start(sg):
+        return sg * cg // plan.vec * plan.vec
+
+    def span(sg, j):
+        ch = start(sg) + j * plan.vec
+        lo = max(0, sg * cg - ch)
+        return (lo, min(plan.vec, (sg + 1) * cg - ch)) if ch < (sg + 1) * cg else (lo, lo)
+
+    return vs, start, span
+
+
 def _stats_coverage(plan, n, hw, c, groups=8):
-    """How often the statistics kernel's index map reads each (sample,
+    """How often the statistics kernel's index map counts each (sample,
     pixel, channel) under ``plan``: unit u = (sample, segment) of CTA
     blockIdx // cluster, its part of rank blockIdx % cluster, thread t's
     pack t % vs of pixels t / vs, + threads / vs, ... of the part (the
     threads past the last whole pixel, t >= (threads / vs) * vs, idle);
     where vs is over the block (one group a unit), packs t, t + threads,
-    ... of every pixel of the part."""
-    cg = c // groups
-    vs = plan.seg * cg // plan.vec
+    ... of every pixel of the part; a pack's elements of its unit's groups
+    (:func:`_unit_packs`: where packs straddle groups, the elements outside
+    the group are read by the pack's other unit)."""
+    vs, start, span = _unit_packs(plan, c, groups)
     counts = np.zeros((n, hw, c), np.int64)
     if vs > plan.threads:
         assert plan.seg == 1
@@ -1754,8 +1781,9 @@ def _stats_coverage(plan, n, hw, c, groups=8):
             p1 = min(hw, p0 + plan.part_px)
             for t in range(plan.threads):
                 for j in range(t, vs, plan.threads):
-                    ch = sg * cg + j * plan.vec
-                    counts[nn, p0:p1, ch:ch + plan.vec] += 1
+                    lo, hi = span(sg, j)
+                    ch = start(sg) + j * plan.vec
+                    counts[nn, p0:p1, ch + lo:ch + hi] += 1
         return counts
     step = plan.threads // vs
     t = np.arange(step * vs)
@@ -1764,11 +1792,12 @@ def _stats_coverage(plan, n, hw, c, groups=8):
         nn, sg = divmod(unit, groups // plan.seg)
         p0 = min(hw, rank * plan.part_px)
         p1 = min(hw, p0 + plan.part_px)
+        lo, hi = np.array([span(sg, j) for j in range(vs)]).T
         for k in range(-(-plan.part_px // step)):
             pix = p0 + t // vs + k * step
-            ok = pix < p1
             for e in range(plan.vec):
-                ch = sg * plan.seg * cg + (t % vs) * plan.vec + e
+                ok = (pix < p1) & (lo[t % vs] <= e) & (e < hi[t % vs])
+                ch = start(sg) + (t % vs) * plan.vec + e
                 np.add.at(counts[nn], (pix[ok], ch[ok]), 1)
     return counts
 
@@ -1823,9 +1852,8 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
     cg = c // 8
     sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
     wide = 16 // eb
-    assert sp.vec == (wide if aligned and cg % wide == 0 else 1)
-    vpg = cg // sp.vec
-    vs = sp.seg * vpg
+    assert sp.vec == (wide if aligned and c % wide == 0 and cg >= wide else 1)
+    vs = _unit_packs(sp, c)[0]
     assert 8 % sp.seg == 0 and (sp.seg == 1 or vs & (vs - 1) == 0)
     idle = math.lcm(32, vs) > groupnorm_ops.STATS_MAX_THREADS
     assert sp.threads % 32 == 0 and sp.threads >= vs
@@ -1836,7 +1864,7 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
     assert sp.part_px * sp.cluster >= hw > sp.part_px * (sp.cluster - 1)
     assert (_stats_coverage(sp, n, hw, c) == 1).all()
     ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
-    assert ap.vec == sp.vec and cg % ap.vec == 0
+    assert ap.vec == sp.vec and c % ap.vec == 0 and cg >= ap.vec
     most = 1024 if ap.vec == 1 else 512
     assert ap.threads % 32 == 0 and ap.threads >= c // ap.vec
     assert ap.threads % (c // ap.vec) == 0 or math.lcm(32, c // ap.vec) > most
@@ -1849,10 +1877,10 @@ def test_groupnorm_sharded_plans_cover_every_pixel_and_channel_once(shape):
         assert (sp.seg, sp.cluster) == (2, 2)
     if shape in ("up0_norm half fp32", "up0_norm half bf16"):
         assert ap.part_px == 16 and ap.ctas(n, hw) == 256  # one CTA an SM at least
-    if shape == "n_feat 136 out_norm half fp32":  # 17 elements a group: 15 pixels of 256
-        assert (sp.vec, sp.seg, sp.threads) == (1, 1, 256)
-    if shape == "n_feat 264 up0_norm half fp32":  # 528 elements a pixel: one of 544
-        assert (ap.vec, ap.threads) == (1, 544)
+    if shape == "n_feat 136 out_norm half fp32":  # 17 channels a group: 5 packs, 32 pixels
+        assert (sp.vec, sp.seg, sp.threads) == (4, 1, 160)
+    if shape == "n_feat 264 up0_norm half fp32":  # 132 packs a pixel: three of 416
+        assert (ap.vec, ap.threads) == (4, 416)
 
 
 @pytest.mark.parametrize("head,eb,aligned", [(head, eb, aligned) for head in ("out_norm", "up0_norm")
@@ -1875,7 +1903,7 @@ def test_groupnorm_sharded_plans_take_every_shape_the_single_launch_takes(head, 
         taken += 1
         sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
         ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
-        vs = sp.seg * (c // 8) // sp.vec
+        vs = _unit_packs(sp, c)[0]
         vpp = c // ap.vec
         whole = math.lcm(32, vs)
         if whole <= groupnorm_ops.STATS_MAX_THREADS:  # whole warps of whole pixels
@@ -1930,7 +1958,7 @@ def test_groupnorm_pair_plans_cover_pixels_wider_than_a_cta(shape):
     n, hw, c, eb, aligned = PAIR_SHAPES[shape]
     sp = groupnorm_ops.stats_plan(n, hw, c, 8, aligned, eb, sms=132)
     ap = groupnorm_ops.apply_plan(n, hw, c, 8, aligned, eb, sms=132)
-    vs = sp.seg * (c // 8) // sp.vec
+    vs = _unit_packs(sp, c)[0]
     vpp = c // ap.vec
     for plan, width, bound, most in (
             (sp, vs, groupnorm_ops.STATS_MAX_THREADS, groupnorm_ops.STATS_MAX_THREADS),
@@ -1961,8 +1989,8 @@ def _stats_kernel_statistics(x, plan, groups=8):
     f32 = np.float32
     n, hw, c = x.shape
     cg = c // groups
-    vpg = cg // plan.vec
-    vs = plan.seg * vpg
+    vs, start, span = _unit_packs(plan, c, groups)
+    vpg = vs // plan.seg
     step = plan.threads // vs
     warps = plan.threads // 32
     skip = tuple(off for off in (1, 2, 4, 8, 16) if vpg <= off < vs)
@@ -1975,19 +2003,27 @@ def _stats_kernel_statistics(x, plan, groups=8):
             p0 = min(hw, rank * plan.part_px)
             p1 = min(hw, p0 + plan.part_px)
             m = tuple(np.zeros(plan.threads, f32) for _ in range(3))
-            ch0 = sg * plan.seg * cg + (t % vs) * plan.vec
+            ch0 = start(sg) + (t % vs) * plan.vec
+            lo, hi = np.array([span(sg, j) for j in range(vs)])[t % vs].T
+            inside = (lo[:, None] <= np.arange(plan.vec)) & (np.arange(plan.vec) < hi[:, None])
+            k_pack = (hi - lo).astype(f32)
             for k in range(-(-plan.part_px // step)):
                 pix = p0 + t // vs + k * step
-                ok = (pix < p1) & (t < step * vs)  # the lanes past the last whole pixel idle
-                v = x[nn, np.minimum(pix, hw - 1)[:, None], ch0[:, None] + np.arange(plan.vec)]
+                # The lanes past the last whole pixel idle; a straddling
+                # unit's packs past its group count nothing.
+                ok = (pix < p1) & (t < step * vs) & (hi > lo)
+                v = x[nn, np.minimum(pix, hw - 1)[:, None],
+                      np.minimum(ch0[:, None] + np.arange(plan.vec), c - 1)]
+                v = np.where(inside, v, f32(0)).astype(f32)
                 s = np.zeros(plan.threads, f32)
                 for e in range(plan.vec):
                     s = (s + v[:, e]).astype(f32)
-                pm = (s * f32(1.0 / plan.vec)).astype(f32)
+                pm = (s * (f32(1) / np.maximum(k_pack, f32(1)))).astype(f32)
                 q = np.zeros(plan.threads, f32)
                 for e in range(plan.vec):
-                    q = (q + (v[:, e] - pm) * (v[:, e] - pm)).astype(f32)
-                pack = (np.where(ok, f32(plan.vec), f32(0)).astype(f32), pm, q)
+                    d = np.where(inside[:, e], v[:, e] - pm, f32(0)).astype(f32)
+                    q = (q + d * d).astype(f32)
+                pack = (np.where(ok, k_pack, f32(0)).astype(f32), pm, q)
                 m = _merge(m, pack)
             wm = _warp_merge(tuple(a.reshape(warps, 32) for a in m), skip)
             warp_moments = {}

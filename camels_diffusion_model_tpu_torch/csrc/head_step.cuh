@@ -20,24 +20,35 @@
 // device memory.
 //
 // Output channels (cout = the model's in_channels: one for every committed
-// model, several for a model of several CMD fields).  Every kernel below
-// takes a template parameter COUT, the output channels one CTA computes
-// (1-4), and reduces each staged value of h into all COUT channels' 9 taps,
-// so h is read once for all of them (h is 99% of the bytes).  Where cout is
-// over 4 the channels go in equal groups of COUT over the grid (group_size:
-// ceil(cout / ceil(cout / 4))), the CTAs of one band's groups next to each
-// other in the grid so that their reads of h meet in L2, and a last group's
-// channels past cout are masked (zero weights, no store).  The weights are
-// staged tap-major per channel, row o * 9 + tap of (cout * 9, c), so the
-// taps of channel 0 are the rows a one-channel kernel stages.  At COUT = 1
-// every kernel is the one-channel kernel it was: the same products, sums,
-// roundings and launch bounds.  The instances of COUT = 1 are built in
-// head_step.cu, those of 2, 3 and 4 each in a file of its own
-// (head_step_cout<N>.cu), so that the build compiles them in parallel.
+// model, several for a model of several CMD fields).  From two channels
+// the launch takes the output-stationary kernel at the end of this file
+// (head_step_os_kernel): one CTA a band computes every output channel, up
+// to OS_COUT_MAX, from one read of h (h is 99% of the bytes), with no
+// per-tap partials, where its plan takes the shape (maps up to 128 pixels
+// wide in bf16; in fp32 up to 256, under CFG 210-226 by the channels: the
+// shared memory) and h holds fewer than 2^31 elements.  The float template
+// (head_step_kernel) and the fp32 band kernels (head_step.cu) take one
+// channel.  The bf16 band kernels take one, and several where the
+// output-stationary plan refuses the shape or at few channels
+// (ops/sampler_step.py::os_from_bf16); the split launch takes several in
+// either type where the kernels of its type refuse.  Those two take a
+// template parameter COUT, the output channels one CTA computes (1-4), and
+// reduce each staged value of h into all COUT channels' 9 taps; more
+// channels go in equal groups of COUT over the grid (group_size: ceil(cout
+// / ceil(cout / 4))), each group's CTAs reading h again, and a last
+// group's channels past cout are masked (zero weights, no store).  The
+// weights are staged tap-major per channel, row o * 9 + tap of (cout * 9,
+// c), so the taps of channel 0 are the rows a one-channel kernel stages.
+// At COUT = 1 every kernel is the one-channel kernel it was: the same
+// products, sums, roundings and launch bounds.  The instances of COUT = 1
+// are built in head_step.cu, those of 2, 3 and 4 each in a file of its own
+// (head_step_cout<N>.cu), and the output-stationary kernel's in
+// head_step_os_*.cu, so that the build compiles them in parallel.
 //
 // Bound on the H100: bytes at 3.35 TB/s.  h is 99% of them (67 MB at the
-// w=2 serving batch) and takes 2 * cout flops a float, far below the ridge
-// point.
+// w=2 serving batch) and takes 2 * cout flops a float, below the ridge
+// point up to about 4 output channels in fp32 (at 13 the fp32 FMAs bound
+// it) and at every count in bf16 on the tensor cores.
 //
 // Design:
 //  - A CTA owns a band of `rows` output rows of one unit: the sample pair
@@ -201,16 +212,18 @@ __device__ __forceinline__ OutGroup out_group(int cout) {
   }
 }
 
-// Grid: (unit major, band minor) x output-channel group.  Block: T threads;
-// tile row k < 2T holds, under CFG, pixel k % T (T = (rows+2)*width) of
-// sample unit + (k/T)*batch, otherwise pixel k (T = (rows+2)*width/2) of
-// sample unit; a pixel p of the band is at global row y0 - 1 + p / width.
-// Dynamic shared memory: the weights [9 * COUT][c] as floats (row oc * 9 +
-// tap), then STAGES stages of [2T][STRIDE] elements of E; the partials [9 *
-// COUT][2T] (floats) reuse the ring at the end (ops/sampler_step.py::
-// launch_plan sizes the ring to hold them).
-template <typename E, int CK, int STAGES, int COUT>
-__device__ __forceinline__ void head_step_body(
+// The one-channel kernel (several channels take head_step_os_kernel below).
+// Grid: unit major, band minor.  Block: T threads; tile row k < 2T holds,
+// under CFG, pixel k % T (T = (rows+2)*width) of sample unit +
+// (k/T)*batch, otherwise pixel k (T = (rows+2)*width/2) of sample unit; a
+// pixel p of the band is at global row y0 - 1 + p / width.  Dynamic shared
+// memory: the weights [9][c] as floats, then STAGES stages of [2T][STRIDE]
+// elements of E; the partials [9][2T] (floats) reuse the ring at the end
+// (ops/sampler_step.py::launch_plan sizes the ring to hold them).  No
+// launch bound: at 32-channel chunks it holds up to 154 registers, and 384
+// threads still fit an SM's 64K.
+template <typename E, int CK, int STAGES>
+__global__ void head_step_kernel(
     const E* __restrict__ h, const E* __restrict__ wt, const E* __restrict__ bias,
     const float* __restrict__ x,
     const float* __restrict__ z, const float* __restrict__ w_per_sample,
@@ -219,26 +232,19 @@ __device__ __forceinline__ void head_step_body(
   constexpr int L = kVec<E>;  // elements per 16-byte copy
   constexpr int V = CK / L;   // 16-byte copies per pixel and chunk
   constexpr int STRIDE = L * (V + (V % 2 == 0 ? 1 : 2));  // elements per staged pixel
-  constexpr int TAPS = 9 * COUT;
+  constexpr int TAPS = 9;
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);
   E* ring = reinterpret_cast<E*>(ws + TAPS * c);
   const int T = blockDim.x, tid = threadIdx.x;
   const int bands = (height + rows - 1) / rows;
-  const OutGroup og = out_group<COUT>(cout);
-  const int co = COUT == 1 ? 1 : cout;  // x, z and out: channels a pixel
-  const int unit = og.blk / bands;
-  const int y0 = (og.blk - unit * bands) * rows;
+  const int blk = (int)blockIdx.x;
+  const int unit = blk / bands;
+  const int y0 = (blk - unit * bands) * rows;
   const int stage_elems = 2 * T * STRIDE;
   const int chunks = c / CK;
 
-  if constexpr (COUT == 1) {
-    for (int i = tid; i < 9 * c; i += T) ws[i] = to_float(wt[i]);
-  } else {  // this group's rows, zero past cout
-    const int live = min(TAPS, 9 * (cout - og.o0)) * c;
-    for (int i = tid; i < TAPS * c; i += T)
-      ws[i] = i < live ? to_float(wt[og.o0 * 9 * c + i]) : 0.0f;
-  }
+  for (int i = tid; i < 9 * c; i += T) ws[i] = to_float(wt[i]);
 
   // This thread's copies: the offset (in elements from h) of each one's
   // 16 bytes in chunk 0, -1 for a halo row outside the map.  Only the chunk
@@ -268,21 +274,14 @@ __device__ __forceinline__ void head_step_body(
 
   // The step's inputs of this thread's first output pixel, requested now
   // so that their latency passes under the reduction.
-  float b0[COUT];
-#pragma unroll
-  for (int oc = 0; oc < COUT; ++oc)
-    b0[oc] = COUT == 1 || og.o0 + oc < cout ? to_float(bias[og.o0 + oc]) : 0.0f;
+  const float b0 = to_float(bias[0]);
   const float wu = round_to<E>(cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
   const int outs = min(rows, height - y0) * width;
   const long long first = (long long)unit * height * width + (long long)y0 * width + tid;
-  float x_first[COUT], z_first[COUT];
-#pragma unroll
-  for (int oc = 0; oc < COUT; ++oc) {
-    x_first[oc] = z_first[oc] = 0.0f;
-    if (tid < outs && (COUT == 1 || og.o0 + oc < cout)) {
-      x_first[oc] = x[first * co + og.o0 + oc];
-      if (z) z_first[oc] = z[first * co + og.o0 + oc];
-    }
+  float x_first = 0.0f, z_first = 0.0f;
+  if (tid < outs) {
+    x_first = x[first];
+    if (z) z_first = z[first];
   }
 
   float acc0[TAPS], acc1[TAPS];
@@ -338,88 +337,44 @@ __device__ __forceinline__ void head_step_body(
 
   for (int o = tid; o < outs; o += T) {
     const int r = o / width, xx = o - r * width;
+    float e[2];
 #pragma unroll
-    for (int oc = 0; oc < COUT; ++oc) {
-      if (COUT > 1 && og.o0 + oc >= cout) break;
-      float e[2];
+    for (int s = 0; s < 2; ++s) {
+      const float* ps = part + s * T;  // under CFG the uncond pixels start at T
+      float sum = b0;
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const float* ps = part + oc * 9 * 2 * T + s * T;  // under CFG the uncond pixels start at T
-        float sum = b0[oc];
+      for (int ky = 0; ky < 3; ++ky) {
+        const float* prow = ps + (r + ky) * width;
 #pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          const float* prow = ps + (r + ky) * width;
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            const int gx = xx + kx - 1;
-            if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * 2 * T + gx];
-          }
+        for (int kx = 0; kx < 3; ++kx) {
+          const int gx = xx + kx - 1;
+          if (gx >= 0 && gx < width) sum += prow[(ky * 3 + kx) * 2 * T + gx];
         }
-        // Full-precision tanhf (not tanh.approx.f32): the step scales eps by
-        // c_eps, and the variants' eps is the model's output.
-        sum = round_to<E>(sum);
-        e[s] = tanh_out ? round_to<E>(tanhf(sum)) : sum;
-        if (!cfg) break;
       }
-      const float ee =
-          cfg ? round_to<E>(e[1] + round_to<E>(wu * round_to<E>(e[0] - e[1]))) : e[0];
-      const long long idx = (first + (o - tid)) * co + og.o0 + oc;
-      float v = ((o == tid ? x_first[oc] : x[idx]) - ee * c_eps) * inv_sqrt_a;
-      if (z) v += sigma * (o == tid ? z_first[oc] : z[idx]);
-      out[idx] = v;
+      // Full-precision tanhf (not tanh.approx.f32): the step scales eps by
+      // c_eps, and the variants' eps is the model's output.
+      sum = round_to<E>(sum);
+      e[s] = tanh_out ? round_to<E>(tanhf(sum)) : sum;
+      if (!cfg) break;
     }
+    const float ee =
+        cfg ? round_to<E>(e[1] + round_to<E>(wu * round_to<E>(e[0] - e[1]))) : e[0];
+    const long long idx = first + (o - tid);
+    float v = ((o == tid ? x_first : x[idx]) - ee * c_eps) * inv_sqrt_a;
+    if (z) v += sigma * (o == tid ? z_first : z[idx]);
+    out[idx] = v;
   }
 }
 
-// The one-channel kernel (no launch bound: at 32-channel chunks it holds up
-// to 154 registers, and 384 threads still fit an SM's 64K).
 template <typename E, int CK, int STAGES>
-__global__ void head_step_kernel(
-    const E* __restrict__ h, const E* __restrict__ wt, const E* __restrict__ bias,
-    const float* __restrict__ x,
-    const float* __restrict__ z, const float* __restrict__ w_per_sample,
-    float w, float* __restrict__ out, int batch, int height, int width, int c, int cout,
-    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
-  head_step_body<E, CK, STAGES, 1>(h, wt, bias, x, z, w_per_sample, w, out, batch, height,
-                                   width, c, cout, rows, cfg, c_eps, inv_sqrt_a, sigma,
-                                   tanh_out);
-}
-
-// COUT > 1: 18 * COUT accumulators a thread, so a CTA is at most
-// MULTI_THREADS (ops/sampler_step.py::MULTI_THREADS), at most 255 registers.
-constexpr int MULTI_THREADS = 256;
-template <typename E, int CK, int STAGES, int COUT>
-__global__ void __launch_bounds__(MULTI_THREADS) head_step_cout_kernel(
-    const E* __restrict__ h, const E* __restrict__ wt, const E* __restrict__ bias,
-    const float* __restrict__ x,
-    const float* __restrict__ z, const float* __restrict__ w_per_sample,
-    float w, float* __restrict__ out, int batch, int height, int width, int c, int cout,
-    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
-  head_step_body<E, CK, STAGES, COUT>(h, wt, bias, x, z, w_per_sample, w, out, batch, height,
-                                      width, c, cout, rows, cfg, c_eps, inv_sqrt_a, sigma,
-                                      tanh_out);
-}
-
-// The kernel of COUT channels: head_step_kernel at one, else
-// head_step_cout_kernel (each instantiated only where it runs).
-template <typename E, int CK, int STAGES, int COUT>
-auto template_kernel() {
-  if constexpr (COUT == 1)
-    return head_step_kernel<E, CK, STAGES>;
-  else
-    return head_step_cout_kernel<E, CK, STAGES, COUT>;
-}
-
-template <typename E, int CK, int STAGES, int COUT>
 cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
                    const E* h, const E* wt, const E* bias,
                    const float* x, const float* z, const float* w_per_sample,
                    float w, float* out, int batch, int height, int width, int c, int cout,
                    int rows, int cfg, float c_eps, float inv_sqrt_a, float sigma,
                    int tanh_out) {
-  const auto kernel = template_kernel<E, CK, STAGES, COUT>();
+  const auto kernel = head_step_kernel<E, CK, STAGES>;
   cudaError_t err = cudaSuccess;
-  if (COUT > 1 && threads > MULTI_THREADS) return cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
@@ -432,9 +387,8 @@ cudaError_t launch(dim3 grid, int threads, int smem_bytes, cudaStream_t stream,
 }
 
 // ck: channels per staged chunk, 128, 64, 32 or 16 bytes of them; stages 2
-// or 3 (COUT > 1: 64 bytes at most and 2 stages, ops/sampler_step.py::
-// launch_plan: their accumulators leave no registers for 128-byte chunks).
-template <typename E, int COUT>
+// or 3 (ops/sampler_step.py::launch_plan).  One output channel.
+template <typename E>
 int entry(const E* h, const E* wt, const E* bias,
           const float* x,
           const float* z,
@@ -443,26 +397,22 @@ int entry(const E* h, const E* wt, const E* bias,
           int smem_bytes, float c_eps, float inv_sqrt_a, float sigma, int tanh_out,
           void* stream) {
   if (batch <= 0) return (int)cudaSuccess;
-  const int groups = (cout + COUT - 1) / COUT;
-  dim3 grid((unsigned)(batch * ((height + rows - 1) / rows) * groups));
+  dim3 grid((unsigned)(batch * ((height + rows - 1) / rows)));
   cudaStream_t st = (cudaStream_t)stream;
   constexpr int K = 32 / (int)sizeof(E);  // channels of 32 bytes
 #define CAMELS_HEAD_STEP(CK, STAGES)                                                 \
   if (ck == CK && stages == STAGES)                                                  \
-    return (int)launch<E, CK, STAGES, COUT>(grid, threads, smem_bytes, st, h, wt, bias, x, \
-                                            z, w_per_sample, w, out, batch, height, width,  \
-                                            c, cout, rows, cfg, c_eps, inv_sqrt_a, sigma,   \
-                                            tanh_out);
+    return (int)launch<E, CK, STAGES>(grid, threads, smem_bytes, st, h, wt, bias, x, z,   \
+                                      w_per_sample, w, out, batch, height, width, c, cout, \
+                                      rows, cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
   CAMELS_HEAD_STEP(2 * K, 2)
   CAMELS_HEAD_STEP(K, 2)
   CAMELS_HEAD_STEP(K / 2, 2)
-  if constexpr (COUT == 1) {
-    CAMELS_HEAD_STEP(4 * K, 2)
-    CAMELS_HEAD_STEP(4 * K, 3)
-    CAMELS_HEAD_STEP(2 * K, 3)
-    CAMELS_HEAD_STEP(K, 3)
-    CAMELS_HEAD_STEP(K / 2, 3)
-  }
+  CAMELS_HEAD_STEP(4 * K, 2)
+  CAMELS_HEAD_STEP(4 * K, 3)
+  CAMELS_HEAD_STEP(2 * K, 3)
+  CAMELS_HEAD_STEP(K, 3)
+  CAMELS_HEAD_STEP(K / 2, 3)
 #undef CAMELS_HEAD_STEP
   return (int)cudaErrorInvalidValue;
 }
@@ -933,7 +883,9 @@ __global__ void __launch_bounds__(BF16_THREADS, COUT == 1 ? 2 : 1) head_step_bf1
 // ---- The float halo mode: warp-private rings, the taps on CUDA cores. ----
 //
 // A height shard's launch (ops/sampler_step.py::fused_head_step with halo)
-// in fp32.  Bound: bytes, as the template's (h is 99% of them); the 9 fp32
+// in fp32, at one output channel (the kernels are in head_step.cu; the
+// body serves the split launch's several too).  Bound: bytes, as the
+// template's (h is 99% of them); the 9 fp32
 // FMAs per staged float, about a fifth of the byte time at 67 TFLOP/s,
 // stay on the CUDA cores with fmaf: no TF32, as the fp32 path serves with
 // TF32 off and holds the JAX golden to 1e-4.  The layout is
@@ -1197,66 +1149,6 @@ __device__ __forceinline__ void f32_step_body(
   }
 }
 
-// The fp32 halo mode: a band's row -1 or `height` copied from the halo rows
-// (band_source).
-// Two CTAs an SM at one output channel; at more, one (their 36 * COUT
-// accumulators a lane).
-template <int COUT>
-__global__ void __launch_bounds__(F32_THREADS, COUT == 1 ? 2 : 1) head_step_halo_f32_kernel(
-    const float* __restrict__ h, const float* __restrict__ top,
-    const float* __restrict__ bottom, const float* __restrict__ wt,
-    const float* __restrict__ bias, const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
-    int height, int width, int c, int cout, int rows, int cfg, float c_eps, float inv_sqrt_a,
-    float sigma, int tanh_out) {
-  const int bands = (height + rows - 1) / rows;
-  const OutGroup og = out_group<COUT>(cout);
-  const int unit = og.blk / bands;
-  const int y0 = (og.blk - unit * bands) * rows;
-  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
-  auto source_of = [&](int p) { return band_source<float>(band, h, top, bottom, p, c); };
-  f32_step_body<false, COUT>(source_of, unit, y0, band.pb, band.m, cout, og.o0, h, wt, bias,
-                             x, z, w_per_sample, w, out, height, width, c, rows, cfg, c_eps,
-                             inv_sqrt_a, sigma, tanh_out);
-}
-
-// The fp32 unsharded launch at widths from 128 (ops/sampler_step.py::route):
-// the same body with the unsharded copy map of head_step_bf16_kernel, rows
-// outside the map zero, in a kernel of its own so that the halo kernel keeps
-// its text.  Against the template (head_step_kernel) at 128-wide maps, whose
-// band of (rows + 2) x 128 pixel pairs under CFG fits MAX_THREADS only at one
-// row (three rows staged for each row computed) and whose ring held one CTA
-// an SM: bands of any height whatever the width (2 rows at up to 128
-// channels, two CTAs an SM; 4 over them, where rows staged again from L2 cost
-// more: ops/sampler_step.py::BAND_ROWS), warp-private rings.  Without CFG
-// the template's band of 4 rows fits, and at 256 channels it stays faster
-// (ops/sampler_step.py::route keeps it there).
-template <int COUT>
-__global__ void __launch_bounds__(F32_THREADS, COUT == 1 ? 2 : 1) head_step_f32_band_kernel(
-    const float* __restrict__ h, const float* __restrict__ wt, const float* __restrict__ bias,
-    const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ w_per_sample, float w, float* __restrict__ out, int batch,
-    int height, int width, int c, int cout, int rows, int cfg, float c_eps, float inv_sqrt_a,
-    float sigma, int tanh_out) {
-  const int bands = (height + rows - 1) / rows;
-  const OutGroup og = out_group<COUT>(cout);
-  const int unit = og.blk / bands;
-  const int y0 = (og.blk - unit * bands) * rows;
-  const int pb = (rows + 2) * width, m = (cfg ? 2 : 1) * pb;
-  // As head_step_bf16_kernel's: a branch's band pixel q is pixel q of the
-  // run that starts at its sample's row y0 - 1, read where inside the map.
-  const int base0 = ((unit * height + y0 - 1) * width) * c;
-  const int base1 = cfg ? (((unit + batch) * height + y0 - 1) * width) * c : 0;
-  const int q_lo = y0 == 0 ? width : 0, q_hi = min(pb, (height - y0 + 1) * width);
-  auto source_of = [&](int p) {
-    const int s = p >= pb, qq = p - s * pb;
-    return Source<float>{h, (s ? base1 : base0) + qq * c, p < m && qq >= q_lo && qq < q_hi};
-  };
-  f32_step_body<false, COUT>(source_of, unit, y0, pb, m, cout, og.o0, h, wt, bias, x, z,
-                             w_per_sample, w, out, height, width, c, rows, cfg, c_eps,
-                             inv_sqrt_a, sigma, tanh_out);
-}
-
 // ---- The split launch: the channel sum over CTAs, then combine and step. ----
 //
 // Where a band kernel's weights outgrow shared memory (c in the thousands:
@@ -1490,6 +1382,331 @@ int unsharded_launch(void (*kernel)(const E*, const E*, const E*, const float*, 
   return (int)(err != cudaSuccess ? err : last);
 }
 
+// ---- K1 at several output channels: output-stationary, one read of h. ----
+//
+// Every launch at two or more output channels where its plan fits
+// (ops/sampler_step.py::os_plan: maps up to 128 pixels wide in bf16, 256
+// in fp32, under CFG 210-226; in bf16 from a few channels; h under 2^31
+// elements, its offsets being 32-bit: ops/sampler_step.py::route), both
+// modes, both types: one CTA takes a band of `rows` output rows of a unit
+// and computes all of its up to OS_COUT_MAX output channels from one read
+// of h (more channels: equal groups over the grid).  The band kernels
+// above reduce h into 9 * COUT per-tap partials a staged pixel and gather
+// them after the band; at 13 channels those are 117 floats a staged pixel
+// (361 KiB for the served band of 4 rows), so they split the channels into
+// groups of at most 4 over the grid and read h four times.  This kernel
+// keeps no partials: each output pixel sums its 3x3 neighbourhood's
+// products directly, an implicit GEMM per tap, with its sums in registers
+// for the whole band.  The price: each output pixel reads the staged A
+// fragments of its 9 taps, where the partials read each once, so at two
+// to three channels in bf16 (by width, c and halo) the grouped kernels
+// stay faster (ops/sampler_step.py::os_from_bf16).
+//
+// Measured on an H100 80GB HBM3 at 700 W (scripts/compare_torch_kernels.py
+// --cout): at 13 channels on the served w=2 step 0.135 ms in fp32 (43% of
+// its FMA bound) and 0.036 in bf16 (36% of its byte bound), 2.7x / 2.9x
+// the grouped kernels and 2.9x / 2.0x F.conv2d to 13 channels.
+//  - Staging: the band's rows + 2 rows of each branch (band_source: h, a
+//    halo row or zero), with a zero column on each side (the conv's padding
+//    at x = -1 and x = width), go through a block-wide ring of OS_STAGES
+//    shared-memory stages in chunks of 64 bytes a pixel (32 bf16 or 16 float
+//    channels), each stage with that chunk's weights of the CTA's channels,
+//    by 16-byte cp.async copies (zero-filled past c, past the CTA's
+//    channels and outside the map).  The weights are staged a chunk at a
+//    time, so any c fits.  Each staged pixel's source is computed once,
+//    into a table in shared memory, so a copy costs no division.
+//  - bf16 (tensor cores, mma.sync m16n8k16): warp w takes a 16-pixel x
+//    tile xt = w % tx (tx = os_tiles(width), tiles of 16 pixels a row) and
+//    two output rows of each of its two pixel sets (under CFG the cond and
+//    uncond branch, else the band's two halves), B the chunk's weights of
+//    one tap, CO = 8 or 16 columns (the CTA's channels padded).  Per tap
+//    (ky, kx) A is the staged rows shifted by kx pixels: a staged row's A
+//    fragments are read once for the 3 taps ky and up to both output rows
+//    that use it.  Lane (g, t) reads 16 bytes (channels 8t..8t+7) of pixel
+//    rows g and g + 8, and those fill its A fragment's columns of two
+//    k-steps as in head_step_bf16_kernel (the weights permuted alike).
+//  - fp32 (CUDA cores, fmaf; TF32 stays off): thread (r, x) takes output
+//    pixel x of row r of each pixel set and all CO channels (CO the CTA's
+//    channel count, compiled in: 2 * CO sums a thread), reading per tap and
+//    4 channels one float4 of h a pixel set and CO float4 weights that
+//    every thread of the warp reads at once (a broadcast).  A staged pixel
+//    is 80 bytes (5 16-byte slots), so 8 consecutive pixels hit 8 bank
+//    groups.
+//  - The epilogue (eps rounded to E per branch, tanh, the guidance
+//    combine, the step) runs on each thread's sums in registers, x and z
+//    requested before the first chunk.
+// Bound: bytes at up to about 4 output channels (h is 99% of them), the
+// fp32 FMAs above (9 * cout * c a pixel: 0.059 ms at 13 channels on the
+// served w=2 features at 67 TFLOP/s).  The products of a pixel and channel
+// are summed in another order than the kernels above (chunk, tap, channel),
+// so at one channel those stay: this kernel never takes cout = 1.
+constexpr int OS_THREADS = 256;   // 8 warps (ops/sampler_step.py::OS_THREADS)
+constexpr int OS_COUT_MAX = 16;   // output channels of a CTA (ops/sampler_step.py::OS_COUT_MAX)
+constexpr int OS_PIECES = 4;      // 16-byte copies of a staged pixel a chunk (64 bytes)
+constexpr int OS_STAGES = 2;      // depth of the ring (ops/sampler_step.py::OS_STAGES): one
+                                  // chunk lands while the other is reduced
+
+// 16-pixel x tiles of a bf16 band row: ceil(width / 16) rounded up to a
+// power of two (8 / tx warps then take each tile's rows).
+__host__ __device__ __forceinline__ int os_tiles(int width) {
+  int tx = 1;
+  while (tx * 16 < width) tx *= 2;
+  return tx;
+}
+
+// Grid: (unit major, band minor) x output-channel group (groups of at most
+// OS_COUT_MAX, equal, the last masked past cout).  Block: OS_THREADS, one
+// CTA an SM (its shared memory), so its launch bound asks for no fewer
+// registers than that allows (without it ptxas held the fp32 instances of
+// 7-13 channels to 128 registers and spilled).
+// rows: output rows of a band, even without CFG (its two halves are the
+// pixel sets).  Dynamic shared memory: OS_STAGES stages of [branches][rows
+// + 2][sw][PS] elements of h (sw = tx * 16 + 2 in bf16, width + 2 in fp32)
+// then the chunk's weights (bf16 [9][CO][32], fp32 [9][4][CO][4]), then the
+// table of staged pixels' sources ([branches][rows + 2][sw] pointers).
+template <typename E, int CO>
+__global__ void __launch_bounds__(OS_THREADS, 1) head_step_os_kernel(
+    const E* __restrict__ h, const E* __restrict__ top, const E* __restrict__ bottom,
+    const E* __restrict__ wt, const E* __restrict__ bias, const float* __restrict__ x,
+    const float* __restrict__ z, const float* __restrict__ w_per_sample, float w,
+    float* __restrict__ out, int batch, int height, int width, int c, int cout, int rows,
+    int cfg, float c_eps, float inv_sqrt_a, float sigma, int tanh_out) {
+  constexpr bool BF = sizeof(E) == 2;
+  constexpr int L = kVec<E>;           // elements of a 16-byte copy
+  constexpr int CK = OS_PIECES * L;    // channels of a chunk
+  constexpr int PS = BF ? 32 : 20;     // elements of a staged pixel
+  constexpr int NT = CO / 8;           // bf16: B's n8 tiles
+  constexpr int SETS = 2;              // pixel sets: branches under CFG, else band halves
+  static_assert(!BF || CO % 8 == 0, "bf16 channels come in n8 tiles");
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int groups = (cout + OS_COUT_MAX - 1) / OS_COUT_MAX;
+  const int gsize = (cout + groups - 1) / groups;
+  const int blk = blockIdx.x / groups, o0 = ((int)blockIdx.x - blk * groups) * gsize;
+  const int live = min(gsize, cout - o0);  // this CTA's channels
+  const int bands = (height + rows - 1) / rows;
+  const int unit = blk / bands, y0 = (blk - unit * bands) * rows;
+  const int tx = os_tiles(width), sw = BF ? tx * 16 + 2 : width + 2;
+  const int srows = rows + 2, branches = cfg ? 2 : 1;
+  const int npix = branches * srows * sw;
+  const int tr = cfg ? rows : rows / 2;  // output rows of a pixel set
+  // Staged row of pixel set 1's row 0 (under CFG branch 1's row -1).
+  const int set1 = cfg ? srows : tr;
+  const int stage_elems = npix * PS + 9 * CO * CK;
+  E* ring = reinterpret_cast<E*>(smem4);
+  const E** table = reinterpret_cast<const E**>(ring + OS_STAGES * stage_elems);
+
+  const Band band = band_of(unit, batch, height, width, c, rows, cfg, y0);
+  for (int i = tid; i < npix; i += OS_THREADS) {
+    const int s = i / (srows * sw), rem = i - s * srows * sw;
+    const int sr = rem / sw, col = rem - sr * sw;
+    const E* p = nullptr;
+    if (col >= 1 && col <= width) {
+      const Source<E> src =
+          band_source<E>(band, h, top, bottom, s * band.pb + sr * width + col - 1, c);
+      if (src.reads) p = src.array + src.off;
+    }
+    table[i] = p;
+  }
+  __syncthreads();  // the table is written
+
+  auto issue = [&](int k) {
+    E* st = ring + (k % OS_STAGES) * stage_elems;
+    const int c0 = k * CK;
+    for (int i = tid; i < npix * OS_PIECES; i += OS_THREADS) {
+      const int pix = i >> 2, q = i & 3;
+      const E* p = table[pix];
+      const bool reads = p != nullptr && c0 + q * L < c;
+      cp_async16(st + pix * PS + q * L, reads ? p + c0 + q * L : h, reads);
+    }
+    // Copy i of the weights lands at element i * L of the stage's weights:
+    // bf16 i = (tap * CO + o) * 4 + q, fp32 i = (tap * 4 + q) * CO + o.
+    E* ws = st + npix * PS;
+    for (int i = tid; i < 9 * CO * OS_PIECES; i += OS_THREADS) {
+      const int o = BF ? (i >> 2) % CO : i % CO;
+      const int q = BF ? i & 3 : (i / CO) & 3;
+      const int tap = BF ? (i >> 2) / CO : i / (4 * CO);
+      const bool reads = o < live && c0 + q * L < c;
+      cp_async16(ws + i * L, reads ? wt + ((o0 + o) * 9 + tap) * c + c0 + q * L : wt, reads);
+    }
+  };
+  const int chunks = (c + CK - 1) / CK;
+  for (int s = 0; s < OS_STAGES - 1; ++s) {
+    if (s < chunks) issue(s);
+    cp_async_commit();
+  }
+
+  const float wu = round_to<E>(cfg ? (w_per_sample ? w_per_sample[unit] : w) : 0.0f);
+  const int out_rows = min(rows, height - y0);
+  const long long row0 = (long long)unit * height + y0;  // the band's first row of the maps
+
+  if constexpr (BF) {
+    const int g = lane >> 2, t = lane & 3;
+    const int xt = warp % tx, rp = warp / tx;  // this warp's tile and row pair
+    const bool busy = 2 * rp < tr;
+    // Output (i, s, j, v): row 2 rp + i of set s, channel 8 j + 2 t + (v & 1),
+    // pixel xt * 16 + g + 8 (v >> 1).
+    float acc[2][SETS][NT][4], xs[2][SETS][NT][4], zs[2][SETS][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int s = 0; s < SETS; ++s)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int o = 8 * j + 2 * t + (v & 1), xx = xt * 16 + g + 8 * (v >> 1);
+            const int pr = 2 * rp + i + (cfg ? 0 : s * tr);
+            const bool out_live = busy && (!cfg || s == 0) && o < live && xx < width &&
+                                  pr < out_rows;
+            const long long idx = ((row0 + pr) * width + xx) * cout + o0 + o;
+            acc[i][s][j][v] = 0.0f;
+            xs[i][s][j][v] = out_live ? x[idx] : 0.0f;
+            zs[i][s][j][v] = out_live && z ? z[idx] : 0.0f;
+          }
+    for (int k = 0; k < chunks; ++k) {
+      cp_async_wait<OS_STAGES - 2>();
+      __syncthreads();  // chunk k has landed; the stage refilled next was read by all
+      if (k + OS_STAGES - 1 < chunks) issue(k + OS_STAGES - 1);
+      cp_async_commit();
+      if (!busy) continue;
+      const E* hs = ring + (k % OS_STAGES) * stage_elems;
+      const E* ws = hs + npix * PS;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        uint4 wf[3][NT];  // tap (ky, kx)'s B fragments: column 8 j + g's channels 8t..8t+7
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            wf[ky][j] = *reinterpret_cast<const uint4*>(
+                ws + ((ky * 3 + kx) * CO + 8 * j + g) * CK + 8 * t);
+#pragma unroll
+        for (int sr = 0; sr < 4; ++sr) {  // staged rows 2 rp .. 2 rp + 3 of each set
+#pragma unroll
+          for (int s = 0; s < SETS; ++s) {
+            const int pix = ((s ? set1 : 0) + 2 * rp + sr) * sw + xt * 16 + g + kx;
+            const uint4 a = *reinterpret_cast<const uint4*>(hs + pix * PS + 8 * t);
+            const uint4 b = *reinterpret_cast<const uint4*>(hs + (pix + 8) * PS + 8 * t);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int ky = sr - i;
+              if (ky < 0 || ky > 2) continue;
+#pragma unroll
+              for (int j = 0; j < NT; ++j) {
+                mma_bf16(acc[i][s][j], a.x, b.x, a.y, b.y, wf[ky][j].x, wf[ky][j].y);
+                mma_bf16(acc[i][s][j], a.z, b.z, a.w, b.w, wf[ky][j].z, wf[ky][j].w);
+              }
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (!busy) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int s = 0; s < SETS; ++s) {
+        if (cfg && s == 1) break;  // under CFG set 1 is branch 1 of the same pixels
+        const int pr = 2 * rp + i + s * tr;
+        if (pr >= out_rows) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int o = 8 * j + 2 * t + (v & 1), xx = xt * 16 + g + 8 * (v >> 1);
+            if (o >= live || xx >= width) continue;
+            const float b0 = to_float(bias[o0 + o]);
+            float e0 = round_to<bf16>(acc[i][s][j][v] + b0);
+            if (tanh_out) e0 = round_to<bf16>(tanhf(e0));
+            float ee = e0;
+            if (cfg) {
+              float e1 = round_to<bf16>(acc[i][1][j][v] + b0);
+              if (tanh_out) e1 = round_to<bf16>(tanhf(e1));
+              ee = round_to<bf16>(e1 + round_to<bf16>(wu * round_to<bf16>(e0 - e1)));
+            }
+            float val = (xs[i][s][j][v] - ee * c_eps) * inv_sqrt_a;
+            if (z) val += sigma * zs[i][s][j][v];
+            out[((row0 + pr) * width + xx) * cout + o0 + o] = val;
+          }
+      }
+  } else {
+    const int r = tid / width, xx = tid - r * width;  // this thread's pixel of each set
+    const bool busy = r < tr;
+    float acc[SETS][CO], xs[SETS][CO], zs[SETS][CO];
+#pragma unroll
+    for (int s = 0; s < SETS; ++s)
+#pragma unroll
+      for (int o = 0; o < CO; ++o) {
+        const int pr = r + s * tr;
+        const bool out_live = busy && (!cfg || s == 0) && o < live && pr < out_rows;
+        const long long idx = ((row0 + pr) * width + xx) * cout + o0 + o;
+        acc[s][o] = 0.0f;
+        xs[s][o] = out_live ? x[idx] : 0.0f;
+        zs[s][o] = out_live && z ? z[idx] : 0.0f;
+      }
+    for (int k = 0; k < chunks; ++k) {
+      cp_async_wait<OS_STAGES - 2>();
+      __syncthreads();  // chunk k has landed; the stage refilled next was read by all
+      if (k + OS_STAGES - 1 < chunks) issue(k + OS_STAGES - 1);
+      cp_async_commit();
+      if (!busy) continue;
+      const E* hs = ring + (k % OS_STAGES) * stage_elems;
+      const E* ws = hs + npix * PS;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const E* p0 = hs + ((r + ky) * sw + xx + kx) * PS;
+          const E* p1 = p0 + set1 * sw * PS;
+          const E* wk = ws + (ky * 3 + kx) * 4 * CO * 4;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 a = *reinterpret_cast<const float4*>(p0 + 4 * q);
+            const float4 b = *reinterpret_cast<const float4*>(p1 + 4 * q);
+#pragma unroll
+            for (int o = 0; o < CO; ++o) {
+              const float4 wv = *reinterpret_cast<const float4*>(wk + (q * CO + o) * 4);
+              acc[0][o] = fmaf(a.x, wv.x, acc[0][o]);
+              acc[0][o] = fmaf(a.y, wv.y, acc[0][o]);
+              acc[0][o] = fmaf(a.z, wv.z, acc[0][o]);
+              acc[0][o] = fmaf(a.w, wv.w, acc[0][o]);
+              acc[1][o] = fmaf(b.x, wv.x, acc[1][o]);
+              acc[1][o] = fmaf(b.y, wv.y, acc[1][o]);
+              acc[1][o] = fmaf(b.z, wv.z, acc[1][o]);
+              acc[1][o] = fmaf(b.w, wv.w, acc[1][o]);
+            }
+          }
+        }
+    }
+    cp_async_wait<0>();
+    if (!busy) return;
+#pragma unroll
+    for (int s = 0; s < SETS; ++s) {
+      if (cfg && s == 1) break;
+      const int pr = r + s * tr;
+      if (pr >= out_rows) continue;
+#pragma unroll
+      for (int o = 0; o < CO; ++o) {
+        if (o >= live) break;
+        const float b0 = bias[o0 + o];
+        float e0 = acc[s][o] + b0;
+        if (tanh_out) e0 = tanhf(e0);
+        float ee = e0;
+        if (cfg) {
+          float e1 = acc[1][o] + b0;
+          if (tanh_out) e1 = tanhf(e1);
+          ee = e1 + wu * (e0 - e1);
+        }
+        float val = (xs[s][o] - ee * c_eps) * inv_sqrt_a;
+        if (z) val += sigma * zs[s][o];
+        out[((row0 + pr) * width + xx) * cout + o0 + o] = val;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // The output channels a CTA computes for cout of them: equal groups of at
@@ -1507,33 +1724,17 @@ inline int group_size(int cout) {
 // head_step.cu, COUT = N in head_step_cout<N>.cu.
 template <int COUT>
 struct HeadStep {
-  static int step(const float* h, const float* wt, const float* bias, const float* x,
-                  const float* z, const float* w_per_sample, float w, float* out, int batch,
-                  int height, int width, int c, int cout, int rows, int cfg, int ck,
-                  int stages, int threads, int smem_bytes, float c_eps, float inv_sqrt_a,
-                  float sigma, int tanh_out, void* stream);
   static int bf16_step(int ib, const bf16* h, const bf16* wt, const bf16* bias,
                        const float* x, const float* z, const float* w_per_sample, float w,
                        float* out, int batch, int height, int width, int c, int cout,
                        int rows, int cfg, int threads, int smem_bytes, float c_eps,
                        float inv_sqrt_a, float sigma, int tanh_out, void* stream);
-  static int f32_band(const float* h, const float* wt, const float* bias, const float* x,
-                      const float* z, const float* w_per_sample, float w, float* out,
-                      int batch, int height, int width, int c, int cout, int rows, int cfg,
-                      int threads, int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,
-                      int tanh_out, void* stream);
   static int bf16_halo(int ib, const bf16* h, const bf16* top, const bf16* bottom,
                        const bf16* wt, const bf16* bias, const float* x, const float* z,
                        const float* w_per_sample, float w, float* out, int batch, int height,
                        int width, int c, int cout, int rows, int cfg, int threads,
                        int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,
                        int tanh_out, void* stream);
-  static int f32_halo(const float* h, const float* top, const float* bottom, const float* wt,
-                      const float* bias, const float* x, const float* z,
-                      const float* w_per_sample, float w, float* out, int batch, int height,
-                      int width, int c, int cout, int rows, int cfg, int threads,
-                      int smem_bytes, float c_eps, float inv_sqrt_a, float sigma,
-                      int tanh_out, void* stream);
   static int f32_split(const float* h, const float* top, const float* bottom, const float* wt,
                        const float* bias, const float* x, const float* z,
                        const float* w_per_sample, float w, float* out, float* partials,
@@ -1547,17 +1748,6 @@ struct HeadStep {
                         int span, int splits, int threads, int smem_bytes, float c_eps,
                         float inv_sqrt_a, float sigma, int tanh_out, void* stream);
 };
-
-template <int COUT>
-int HeadStep<COUT>::step(const float* h, const float* wt, const float* bias, const float* x,
-                         const float* z, const float* w_per_sample, float w, float* out,
-                         int batch, int height, int width, int c, int cout, int rows, int cfg,
-                         int ck, int stages, int threads, int smem_bytes, float c_eps,
-                         float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
-  return entry<float, COUT>(h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c,
-                            cout, rows, cfg, ck, stages, threads, smem_bytes, c_eps,
-                            inv_sqrt_a, sigma, tanh_out, stream);
-}
 
 template <int COUT>
 int HeadStep<COUT>::bf16_step(int ib, const bf16* h, const bf16* wt, const bf16* bias,
@@ -1574,19 +1764,6 @@ int HeadStep<COUT>::bf16_step(int ib, const bf16* h, const bf16* wt, const bf16*
 }
 
 template <int COUT>
-int HeadStep<COUT>::f32_band(const float* h, const float* wt, const float* bias,
-                             const float* x, const float* z, const float* w_per_sample,
-                             float w, float* out, int batch, int height, int width, int c,
-                             int cout, int rows, int cfg, int threads, int smem_bytes,
-                             float c_eps, float inv_sqrt_a, float sigma, int tanh_out,
-                             void* stream) {
-  return unsharded_launch<float>(head_step_f32_band_kernel<COUT>, h, wt, bias, x, z,
-                                 w_per_sample, w, out, batch, height, width, c, cout,
-                                 (cout + COUT - 1) / COUT, rows, cfg, threads, smem_bytes,
-                                 c_eps, inv_sqrt_a, sigma, tanh_out, stream);
-}
-
-template <int COUT>
 int HeadStep<COUT>::bf16_halo(int ib, const bf16* h, const bf16* top, const bf16* bottom,
                               const bf16* wt, const bf16* bias, const float* x,
                               const float* z, const float* w_per_sample, float w, float* out,
@@ -1599,19 +1776,6 @@ int HeadStep<COUT>::bf16_halo(int ib, const bf16* h, const bf16* top, const bf16
       h, top, bottom, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, cout,
       (cout + COUT - 1) / COUT, rows, cfg, threads, smem_bytes, c_eps, inv_sqrt_a, sigma,
       tanh_out, stream);
-}
-
-template <int COUT>
-int HeadStep<COUT>::f32_halo(const float* h, const float* top, const float* bottom,
-                             const float* wt, const float* bias, const float* x,
-                             const float* z, const float* w_per_sample, float w, float* out,
-                             int batch, int height, int width, int c, int cout, int rows,
-                             int cfg, int threads, int smem_bytes, float c_eps,
-                             float inv_sqrt_a, float sigma, int tanh_out, void* stream) {
-  return band_launch<float>(head_step_halo_f32_kernel<COUT>, h, top, bottom, wt, bias, x, z,
-                            w_per_sample, w, out, batch, height, width, c, cout,
-                            (cout + COUT - 1) / COUT, rows, cfg, threads, smem_bytes, c_eps,
-                            inv_sqrt_a, sigma, tanh_out, stream);
 }
 
 template <int COUT>
@@ -1648,3 +1812,55 @@ extern template struct HeadStep<1>;
 extern template struct HeadStep<2>;
 extern template struct HeadStep<3>;
 extern template struct HeadStep<4>;
+
+// The output-stationary kernel (head_step_os_kernel) at CO channels a CTA:
+// bf16 CO 8 or 16 (B's columns, the group padded), fp32 CO the group's
+// channels, 2-16.  Instantiated explicitly in head_step_os_*.cu, one nvcc
+// each.  rows, threads and smem_bytes come from
+// ops/sampler_step.py::os_plan; top and bottom null for the unsharded launch
+// or at the image's edge.
+template <typename E, int CO>
+struct HeadStepOs {
+  static int launch(const E* h, const E* top, const E* bottom, const E* wt, const E* bias,
+                    const float* x, const float* z, const float* w_per_sample, float w,
+                    float* out, int batch, int height, int width, int c, int cout, int rows,
+                    int cfg, int threads, int smem_bytes, float c_eps, float inv_sqrt_a,
+                    float sigma, int tanh_out, void* stream);
+};
+
+template <typename E, int CO>
+int HeadStepOs<E, CO>::launch(const E* h, const E* top, const E* bottom, const E* wt,
+                              const E* bias, const float* x, const float* z,
+                              const float* w_per_sample, float w, float* out, int batch,
+                              int height, int width, int c, int cout, int rows, int cfg,
+                              int threads, int smem_bytes, float c_eps, float inv_sqrt_a,
+                              float sigma, int tanh_out, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  const int tr = cfg ? rows : rows / 2;  // output rows of a pixel set
+  const bool fits = sizeof(E) == 2
+      ? os_tiles(width) <= 8 && tr == 16 / os_tiles(width)  // 8 warps: 2 rows each
+      : tr >= 1 && tr * width <= OS_THREADS;                 // a thread a pixel
+  if (threads != OS_THREADS || rows <= 0 || (!cfg && rows % 2) || !fits)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (cout + OS_COUT_MAX - 1) / OS_COUT_MAX;
+  const auto kernel = head_step_os_kernel<E, CO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    kernel<<<dim3((unsigned)(batch * ((height + rows - 1) / rows) * groups)), threads,
+             smem_bytes, (cudaStream_t)stream>>>(h, top, bottom, wt, bias, x, z, w_per_sample,
+                                                 w, out, batch, height, width, c, cout, rows,
+                                                 cfg, c_eps, inv_sqrt_a, sigma, tanh_out);
+  cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+extern template struct HeadStepOs<bf16, 8>;
+extern template struct HeadStepOs<bf16, 16>;
+#define CAMELS_HEAD_STEP_OS_F32(N) extern template struct HeadStepOs<float, N>;
+CAMELS_HEAD_STEP_OS_F32(2) CAMELS_HEAD_STEP_OS_F32(3) CAMELS_HEAD_STEP_OS_F32(4)
+CAMELS_HEAD_STEP_OS_F32(5) CAMELS_HEAD_STEP_OS_F32(6) CAMELS_HEAD_STEP_OS_F32(7)
+CAMELS_HEAD_STEP_OS_F32(8) CAMELS_HEAD_STEP_OS_F32(9) CAMELS_HEAD_STEP_OS_F32(10)
+CAMELS_HEAD_STEP_OS_F32(11) CAMELS_HEAD_STEP_OS_F32(12) CAMELS_HEAD_STEP_OS_F32(13)
+CAMELS_HEAD_STEP_OS_F32(14) CAMELS_HEAD_STEP_OS_F32(15) CAMELS_HEAD_STEP_OS_F32(16)
+#undef CAMELS_HEAD_STEP_OS_F32

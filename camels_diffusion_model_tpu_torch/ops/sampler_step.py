@@ -13,11 +13,22 @@ the conv, per branch before the guidance combine.
 :func:`launch_plan` chooses the kernel's geometry.
 
 The conv goes to ``cout`` output channels, the model's ``in_channels``
-(``x``, ``z`` and the step ``(B, H, W, cout)``): every kernel takes the
-output channels of a group (:func:`out_groups`: at most ``COUT_MAX``,
-compiled in) per CTA and reduces ``h`` once for all of them; more
-channels go in equal groups over the grid.  Every plan takes ``cout`` and
-sizes its weights and partials by the group.
+(``x``, ``z`` and the step ``(B, H, W, cout)``).  From two channels (in
+bf16 from :func:`os_from_bf16`'s count) a kernel of its own takes the launch
+in either type and mode (``csrc/head_step.cuh``, ``head_step_os_kernel``,
+:func:`os_plan`: output stationary, each output pixel's 3x3 sums in
+registers, no per-tap partials): one CTA a band computes every output
+channel, up to ``OS_COUT_MAX``, from one read of ``h`` (more in equal
+groups over the grid, :func:`os_groups`), counted also under
+``.launches_os`` (``.launches_os_bf16``, ``.launches_halo_os``,
+``.launches_halo_os_bf16``).  The kernels below take one channel; in
+bf16 the band kernels take several below :func:`os_from_bf16` and where that
+plan refuses the shape (maps over 128 pixels wide), and in either type
+the split launch takes several where the kernels of its type refuse (in
+fp32 maps over 210-226 pixels wide under CFG) and on features of ``2**31``
+elements or more: groups of at most ``COUT_MAX`` (:func:`out_groups`) per
+CTA, more over the grid; their plans size weights and partials by the
+group.
 
 On a height shard of a spatial mesh ``out_conv2`` reads one row beyond
 the shard on each side: ``halo=(top, bottom)`` gives those rows of ``h``
@@ -64,7 +75,9 @@ then a launch that sums them in range order, adds the bias and steps
 ``.launches_split``, ``.launches_split_bf16``, ``.launches_halo_split``
 and ``.launches_halo_split_bf16``.  Every launch at several output
 channels is counted also under ``.launches_cout`` (``.launches_cout_bf16``,
-``.launches_halo_cout``, ``.launches_halo_cout_bf16``).
+``.launches_halo_cout``, ``.launches_halo_cout_bf16``), and those of the
+output-stationary kernel also under ``.launches_os`` (module paragraph
+above).
 """
 
 from __future__ import annotations
@@ -82,8 +95,6 @@ MIN_CTAS = 128  # about one per SM
 SM_SMEM = 228 * 1024  # shared memory of one SM; each CTA also takes 1 KB
 MAX_THREADS = 384  # a CTA: at the kernel's most registers (164 a thread,
 #                    32-channel chunks) 384 threads fill an SM's 64K
-MULTI_THREADS = 256  # ... at several output channels (csrc MULTI_THREADS: 18
-#                      accumulators a channel, up to 255 registers)
 COUT_MAX = 4  # output channels a CTA computes at most (csrc COUT_MAX)
 SMEM_MAX = 227 * 1024  # the dynamic shared memory a CTA may ask for
 ROWS = (4, 2, 1)  # band heights, tallest (least halo) first
@@ -133,6 +144,14 @@ HALO_NARROW_NAME = "camels_head_step_halo_bf16_narrow"  # bf16_plan at the narro
 # The split launch (split_plan), both modes, where the kernels above refuse.
 SPLIT_NAMES = {torch.float32: "camels_head_step_split",
                torch.bfloat16: "camels_head_step_split_bf16"}
+# The output-stationary kernel at several output channels (os_plan), both modes.
+OS_NAMES = {torch.float32: "camels_head_step_os", torch.bfloat16: "camels_head_step_os_bf16"}
+OS_THREADS = 256  # a CTA of it (csrc OS_THREADS): 8 warps, in fp32 a thread an output pixel
+OS_COUT_MAX = 16  # output channels one of its CTAs computes (csrc OS_COUT_MAX)
+OS_STAGES = 2  # depth of its block-wide ring (csrc OS_STAGES)
+OS_PIXEL_BYTES = {2: 64, 4: 80}  # a staged pixel's chunk (32 bf16, 16 fp32 channels; fp32
+#                                  padded to 5 16-byte slots: 8 pixels hit 8 bank groups)
+OS_WEIGHT_BYTES = 9 * 64  # a chunk's weights a staged channel of the CTA (9 taps x 64 bytes)
 
 # h, wt, bias, x, z, w_per_sample, w, out, batch, height, width, c, cout,
 # rows, cfg, ck, stages, threads, smem_bytes, c_eps, inv_sqrt_a, sigma,
@@ -152,6 +171,10 @@ _BAND_HALO_ARGTYPES = _BF16_ARGTYPES[:1] + (ctypes.c_void_p,) * 2 + _BF16_ARGTYP
 # threads, smem_bytes, c_eps, inv_sqrt_a, sigma, tanh_out, the stream.
 _SPLIT_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_float,) + (ctypes.c_void_p,) * 2
                    + (ctypes.c_int,) * 11 + (ctypes.c_float,) * 3 + (ctypes.c_int, ctypes.c_void_p))
+# The output-stationary launch: the split launch's arguments without
+# partials, span and splits.
+_OS_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_float, ctypes.c_void_p)
+                + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 3 + (ctypes.c_int, ctypes.c_void_p))
 
 
 def guided_eps(eps, guide_w, tanh: bool = False):
@@ -264,6 +287,106 @@ def out_groups(cout: int) -> tuple:
     return groups, -(-cout // groups)
 
 
+def os_groups(cout: int) -> tuple:
+    """``(groups, channels of a group)`` of the output-stationary kernel's
+    ``cout`` output channels: the fewest equal groups of at most
+    ``OS_COUT_MAX``, one CTA a band and group, the last masked past
+    ``cout``; up to 16 channels one group.  Raises ``ValueError`` below two
+    channels (one channel keeps the kernels below)."""
+    if cout < 2:
+        raise ValueError(f"the output-stationary kernel takes two or more output channels, "
+                         f"not {cout}")
+    groups = -(-cout // OS_COUT_MAX)
+    return groups, -(-cout // groups)
+
+
+def os_from_bf16(width: int, c: int, halo: bool = False) -> int:
+    """The bf16 output channels from which :func:`route` gives the
+    output-stationary kernel (below them the grouped kernels' one group of
+    every channel; fp32 from 2): where it ran faster in
+    ``scripts/compare_torch_kernels.py --cout``, each design forced in turns
+    on an H100 80GB HBM3 at 700 W, its ms / the grouped kernels' at 2 / 3 /
+    4 channels under CFG: the served 64-wide step 0.02908 / 0.01952, 0.02927
+    / 0.02734, 0.02937 / 0.03018; its halo half 0.01659 / 0.01637, 0.01674 /
+    0.01772; the deep 128-wide step (128 channels) 0.07059 / 0.05806,
+    0.07096 / 0.07009, 0.07081 / 0.08715; the big one (256) 0.11018 /
+    0.10064, 0.11048 / 0.12821; their halo halves at 2 0.04338 / 0.04572
+    and 0.06981 / 0.08079.  Its ms hardly moves with the channels (the
+    shifted A fragments' shared-memory reads), the grouped kernels' grows
+    with their B columns and ``c``."""
+    if halo:
+        return 3 if width <= 64 else 2
+    return 4 if width <= 64 or c <= 128 else 3
+
+
+def os_tiles(width: int) -> int:
+    """16-pixel x tiles of a bf16 band row in the output-stationary kernel:
+    ``ceil(width / 16)`` rounded up to a power of two (csrc ``os_tiles``)."""
+    tx = 1
+    while tx * 16 < width:
+        tx *= 2
+    return tx
+
+
+class OsPlan(NamedTuple):
+    """The output-stationary kernel's launch geometry for one input shape."""
+
+    rows: int  # output rows of a CTA's band (both halves without CFG)
+    threads: int  # per CTA
+    ctas: int  # bands x output groups
+    smem_bytes: int  # dynamic shared memory per CTA: the ring (h and weights), the sources
+
+
+def os_plan(units: int, height: int, width: int, c: int, cout: int, cfg: bool = True,
+            aligned: bool = True, element_bytes: int = 4) -> OsPlan:
+    """Geometry of the output-stationary :func:`fused_head_step` (either
+    mode) for ``units`` CTA units (sample pairs under ``cfg``, else
+    samples) of ``height`` x ``width`` pixels of ``c`` channels of
+    ``element_bytes`` each to ``cout`` (two or more) output channels.
+
+    A CTA of ``OS_THREADS`` computes a band's outputs for all channels of a
+    group of :func:`os_groups`: two pixel sets (under CFG the two branches
+    of a band of ``rows`` rows; without, the two halves of a band of
+    ``rows``), in bf16 each warp a 16-pixel x tile (:func:`os_tiles`, at
+    most 8: maps up to 128 pixels wide) and two rows of each set, so
+    ``16 / tiles`` rows a set; in fp32 a thread an output pixel of each set,
+    so ``OS_THREADS // width`` rows a set (at most the map's height; maps
+    up to 256 wide, under CFG up to 210-226 by the group: the shared
+    memory).  Its shared memory holds the ring, ``OS_STAGES`` deep, each
+    stage a chunk of 64 bytes of every
+    staged pixel (``rows + 2`` rows a branch, a zero column either side:
+    ``OS_PIXEL_BYTES`` each) and the chunk's weights (``OS_WEIGHT_BYTES``
+    a channel: the group padded to 8 or 16 in bf16), then an 8-byte source
+    a staged pixel.  No partials: any ``c`` fits.  Raises ``ValueError``
+    for a shape it does not take: ``cout < 2``, ``c`` not a multiple of one
+    16-byte copy (4 fp32, 8 bf16), a pointer off a 16-byte boundary
+    (``aligned``), or a map too wide or its band over shared memory."""
+    groups, g = os_groups(cout)
+    per_copy = 16 // element_bytes
+    if c <= 0 or c % per_copy:
+        raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
+    if not aligned:
+        raise ValueError("the head kernel needs 16-byte aligned features")
+    if element_bytes == 2:
+        tiles = os_tiles(width)
+        if tiles > 8:
+            raise ValueError(f"the bf16 output-stationary kernel takes maps up to 128 wide, "
+                             f"not {width}")
+        per_set, co, staged = 16 // tiles, 8 if g <= 8 else 16, tiles * 16 + 2
+    else:
+        if width > OS_THREADS:
+            raise ValueError(f"the fp32 output-stationary kernel takes maps up to "
+                             f"{OS_THREADS} wide, not {width}")
+        per_set, co, staged = min(OS_THREADS // width, height), g, width + 2
+    rows = per_set if cfg else 2 * per_set
+    npix = (2 if cfg else 1) * (rows + 2) * staged
+    stage = npix * OS_PIXEL_BYTES[element_bytes] + OS_WEIGHT_BYTES * co
+    smem = OS_STAGES * stage + 8 * npix
+    if smem <= SMEM_MAX:
+        return OsPlan(rows, OS_THREADS, units * -(-height // rows) * groups, smem)
+    raise ValueError(f"a band of {rows} x {width} pixels takes no output-stationary plan")
+
+
 class Plan(NamedTuple):
     """The kernel's launch geometry for one input shape."""
 
@@ -289,27 +412,25 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     """Geometry of :func:`fused_head_step` for ``units`` CTA units (sample
     pairs under ``cfg``, else samples) of ``height`` x ``width`` pixels of
     ``c`` channels of ``element_bytes`` each (4 fp32, 2 bf16) to ``cout``
-    output channels on a card of ``sms`` SMs.
+    output channels on a card of ``sms`` SMs: the float template, one
+    output channel (several take :func:`os_plan`'s kernel).
 
     A CTA stages its band's ``rows + 2`` rows, two pixels a thread, in
     chunks of ``ck`` channels (``CHUNKS``, or twice them in bf16: the same
-    bytes), for one group of :func:`out_groups` (the grid holds every
-    band's groups).  The band is the tallest of ``ROWS`` within
-    ``MAX_THREADS`` threads (``MULTI_THREADS`` at a group of several
-    channels) whose grid still has ``MIN_CTAS`` CTAs (else
-    the shortest; under CFG at width 128, one row).  The chunk is the one
-    dividing ``c`` (64 bytes or more where ``c`` allows)
-    that lets the most of the CTAs an SM has to run be resident at once,
-    the widest on a tie (at several channels 64 bytes at most: their
-    accumulators leave no registers for wider chunks); the ring the
-    deepest of ``STAGES`` (2 at several channels) that fits in shared
-    memory with the weights, and large enough to hold the partials.  Raises ``ValueError`` for a
-    shape no path takes: ``cout < 1``, ``c`` not a multiple of one 16-byte
-    copy (4 fp32, 8 bf16), a pointer off a
-    16-byte boundary (``aligned``), an odd ``width`` without CFG, or a band
-    over ``MAX_THREADS`` threads or shared memory.
+    bytes).  The band is the tallest of ``ROWS`` within ``MAX_THREADS``
+    threads whose grid still has ``MIN_CTAS`` CTAs (else the shortest;
+    under CFG at width 128, one row).  The chunk is the one dividing ``c``
+    (64 bytes or more where ``c`` allows) that lets the most of the CTAs an
+    SM has to run be resident at once, the widest on a tie; the ring the
+    deepest of ``STAGES`` that fits in shared memory with the weights, and
+    large enough to hold the partials.  Raises ``ValueError`` for a shape
+    it does not take: ``cout`` other than 1, ``c`` not a multiple of one
+    16-byte copy (4 fp32, 8 bf16), a pointer off a 16-byte boundary
+    (``aligned``), an odd ``width`` without CFG, or a band over
+    ``MAX_THREADS`` threads or shared memory.
     """
-    groups, g = out_groups(cout)
+    if cout != 1:
+        raise ValueError(f"the float template computes one output channel, not {cout}")
     per_copy = 16 // element_bytes
     if c <= 0 or c % per_copy:
         raise ValueError(f"the head kernel needs channels % {per_copy} == 0, got {c}")
@@ -320,26 +441,24 @@ def launch_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     def band_threads(r):
         return (r + 2) * width // (1 if cfg else 2)
 
-    most = MAX_THREADS if g == 1 else MULTI_THREADS
-    fits = [r for r in ROWS if band_threads(r) <= most] or ROWS[-1:]
-    rows = next((r for r in fits if units * groups * -(-height // r) >= MIN_CTAS), fits[-1])
+    fits = [r for r in ROWS if band_threads(r) <= MAX_THREADS] or ROWS[-1:]
+    rows = next((r for r in fits if units * -(-height // r) >= MIN_CTAS), fits[-1])
     threads = band_threads(rows)
-    ctas = units * -(-height // rows) * groups
-    widths = [ck * 4 // element_bytes for ck in (CHUNKS if g == 1 else CHUNKS[1:])
-              if c % (ck * 4 // element_bytes) == 0]
+    ctas = units * -(-height // rows)
+    widths = [ck * 4 // element_bytes for ck in CHUNKS if c % (ck * 4 // element_bytes) == 0]
     best, best_resident = None, 0
     for ck in [ck for ck in widths if ck * element_bytes >= 64] or widths[:1]:
-        for stages in STAGES if g == 1 else STAGES[-1:]:
-            # The ring, which the partials [9 * g][2 * threads] reuse at the end.
+        for stages in STAGES:
+            # The ring, which the partials [9][2 * threads] reuse at the end.
             ring = max(element_bytes * stages * 2 * threads * staged_stride(ck, element_bytes),
-                       4 * 9 * g * 2 * threads)
-            smem = 4 * 9 * g * c + ring
+                       4 * 9 * 2 * threads)
+            smem = 4 * 9 * c + ring
             if smem <= SMEM_MAX:
                 resident = min(SM_SMEM // (smem + 1024), -(-ctas // sms))
                 if resident > best_resident:
                     best, best_resident = Plan(rows, threads, ck, stages, ctas, smem), resident
                 break
-    if threads > most or best is None:
+    if threads > MAX_THREADS or best is None:
         raise ValueError(f"a band of {rows} x {width} pixels x {c} channels takes no path")
     return best
 
@@ -446,9 +565,9 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
               rows: int | None = None) -> HaloPlan:
     """Geometry of the fp32 :func:`fused_head_step` with ``halo`` for
     ``units`` CTA units (sample pairs under ``cfg``, else samples) of
-    ``height`` x ``width`` pixels of ``c`` channels to ``cout`` output
-    channels (weights and partials ``9 g`` rows at a group of ``g``,
-    :func:`out_groups`) on a card of ``sms`` SMs.
+    ``height`` x ``width`` pixels of ``c`` channels to one output channel
+    (several take :func:`os_plan`'s kernel or the split launch) on a card
+    of ``sms`` SMs.
 
     A CTA of ``HALO_THREADS`` threads takes a band of ``rows`` output rows
     and reduces its ``rows + 2`` rows of ``h`` (each branch's), each warp
@@ -461,11 +580,12 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
     the tallest that fits; ``rows`` (the band kernel's ``BAND_ROWS``) fixes
     the band where its shared memory fits.  Raises ``ValueError`` for a
     shape it does not take:
-    ``cout < 1``, ``c`` not a multiple of one 16-byte copy (4), a pointer
-    off a 16-byte boundary (``aligned``), or no band whose shared memory
-    fits (weights of over ~3700 channels at one output channel).
+    ``cout`` other than 1, ``c`` not a multiple of one 16-byte copy (4), a
+    pointer off a 16-byte boundary (``aligned``), or no band whose shared
+    memory fits (weights of over ~3700 channels).
     """
-    groups, g = out_groups(cout)
+    if cout != 1:
+        raise ValueError(f"the fp32 band kernels compute one output channel, not {cout}")
     if c <= 0 or c % 4:
         raise ValueError(f"the fp32 halo kernel needs channels % 4 == 0, got {c}")
     if not aligned:
@@ -473,17 +593,17 @@ def halo_plan(units: int, height: int, width: int, c: int, cout: int = 1,
 
     def smem(rows):
         m = (2 if cfg else 1) * (rows + 2) * width
-        return 4 * (9 * g * -(-c // HALO_CK) * HALO_CK
+        return 4 * (9 * -(-c // HALO_CK) * HALO_CK
                     + HALO_THREADS // 32 * HALO_RING * HALO_TILE * HALO_CK
-                    + 9 * g * -(-m // HALO_TILE) * HALO_TILE)
+                    + 9 * -(-m // HALO_TILE) * HALO_TILE)
 
     fits = [r for r in sorted(ROWS_HALO) if smem(r) <= SMEM_MAX]
     if not fits:
         raise ValueError(f"a band of {width} pixels x {c} channels takes no fp32 halo plan")
     if rows is None or smem(rows) > SMEM_MAX:
-        rows = next((r for r in fits if units * groups * -(-height // r) <= sms * min(
+        rows = next((r for r in fits if units * -(-height // r) <= sms * min(
             HALO_PER_SM, SM_SMEM // (smem(r) + 1024))), fits[-1])
-    return HaloPlan(rows, HALO_THREADS, units * -(-height // rows) * groups, smem(rows))
+    return HaloPlan(rows, HALO_THREADS, units * -(-height // rows), smem(rows))
 
 
 class SplitPlan(NamedTuple):
@@ -560,7 +680,19 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
           cfg: bool = True, aligned: bool = True, halo: bool = False,
           sms: int = SMS) -> tuple:
     """``(C name, plan)`` of :func:`fused_head_step`'s launch for features
-    of ``dtype`` (arguments as :func:`launch_plan`'s): for float32 the
+    of ``dtype`` (arguments as :func:`launch_plan`'s): at ``cout`` of two or
+    more the output-stationary kernel of ``dtype`` (``OS_NAMES``, either
+    mode) under :func:`os_plan` (in bf16 from :func:`os_from_bf16`
+    channels: below, the grouped kernels' one group of every channel ran
+    faster), where that plan takes the shape and the features hold fewer
+    than ``2**31`` elements (its offsets are 32-bit), unless the grouped
+    kernels below take the split launch over several ranges and the
+    output-stationary grid is short of the SMs (c in the thousands on small
+    maps: at (2,8,8,6000) one CTA would walk every chunk of c in series,
+    against the split launch's 47; in float32, whose grouped route at
+    several channels is the split launch, ``c`` over ``SPLIT_SPAN`` on
+    such a grid).  Else (one channel, or several where those refuse) for
+    float32 the
     float kernel, at widths from ``BAND_WIDTH`` the fp32 band kernel
     (``F32_BAND_NAME``, bands of ``BAND_ROWS``; without CFG only at up to
     ``BAND_NARROW_C`` channels: at the big step's 256 the template's band
@@ -579,20 +711,44 @@ def route(units: int, height: int, width: int, c: int, dtype, cout: int = 1,
     16 maps of 64x64 under CFG, from 5608 at width 8; in fp32 from 3056
     unsharded and 4240 on a 16-map half; no committed model's), the fp32
     unsharded launch's odd widths without CFG where the template takes
-    it, and the largest features.  Every ``cout`` takes the kernels
-    above, in groups of :func:`out_groups` (the weights' and partials'
-    shared memory grow with the group, so the split launch takes over at a
-    narrower ``c``); an unaligned pointer, a ``c`` not a multiple of one
-    16-byte copy or ``cout < 1`` take no kernel.  A function of the
-    shape, the dtype and the alignment alone, chosen before the launch;
-    raises ``ValueError`` where no kernel takes the shape."""
+    it, and the largest features.  Several channels take in bf16 the
+    kernels above in groups of :func:`out_groups` (the weights' and
+    partials' shared memory grow with the group, so the split launch takes
+    over at a narrower ``c``), in float32 the split launch (the float
+    kernels above take one channel); an unaligned pointer, a ``c``
+    not a multiple of one 16-byte copy or ``cout < 1`` take no kernel.  A
+    function of the shape, the dtype and the alignment alone, chosen before
+    the launch; raises ``ValueError`` where no kernel takes the shape."""
+    args = (units, height, width, c, dtype, cout, cfg, aligned, halo, sms)
+    least = 2 if dtype != torch.bfloat16 else os_from_bf16(width, c, halo)
+    if cout < least or (2 if cfg else 1) * units * height * width * c >= 2**31:
+        return _grouped_route(*args)
+    try:
+        plan = os_plan(units, height, width, c, cout, cfg, aligned, ELEMENT_BYTES[dtype])
+    except ValueError:
+        return _grouped_route(*args)
+    try:
+        grouped = _grouped_route(*args)
+    except ValueError:  # the output-stationary kernel alone takes the shape
+        return OS_NAMES[dtype], plan
+    if isinstance(grouped[1], SplitPlan) and grouped[1].splits > 1 and plan.ctas < sms:
+        return grouped  # a grid short of the SMs walking c's ranges in series
+    return OS_NAMES[dtype], plan
+
+
+def _grouped_route(units: int, height: int, width: int, c: int, dtype, cout: int, cfg: bool,
+                   aligned: bool, halo: bool, sms: int) -> tuple:
+    """:func:`route` without the output-stationary kernel: the kernels of
+    one channel, several in groups of :func:`out_groups` (in float32 the
+    split launch)."""
     args = (units, height, width, c, cout, cfg, aligned, sms)
 
     def split():
         return SPLIT_NAMES[dtype], split_plan(units, height, width, c, cout, cfg, aligned,
                                               ELEMENT_BYTES[dtype])
 
-    if (2 if cfg else 1) * units * height * width * c >= 2**31:
+    if (2 if cfg else 1) * units * height * width * c >= 2**31 or (
+            cout > 1 and dtype != torch.bfloat16):
         return split()
     try:
         narrow = c <= BAND_NARROW_C
@@ -689,15 +845,20 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     if out.numel() == 0:
         return out
     split = isinstance(plan, SplitPlan)  # both modes: null rows are zero
+    output_stationary = isinstance(plan, OsPlan)  # both modes, as the split launch
     rows = (tuple(tensors[k].data_ptr() if k in tensors else None for k in ("top", "bottom"))
-            if halo is not None or split else ())
+            if halo is not None or split or output_stationary else ())
     head = (h.data_ptr(), *rows, wt.data_ptr(), bias.data_ptr(), x.data_ptr(),
             z.data_ptr() if z is not None else None,
             w_vec.data_ptr() if w_vec is not None else None,
             float(guide_w) if cfg and w_vec is None else 0.0, out.data_ptr())
     tail = (float(c_eps), float(inv_sqrt_a), float(sigma), int(tanh),
             torch.cuda.current_stream(h.device).cuda_stream)
-    if split:
+    if output_stationary:
+        err = _build.kernel(name, _OS_ARGTYPES)(
+            *head, b, height, width, c, cout, plan.rows, int(cfg), plan.threads,
+            plan.smem_bytes, *tail)
+    elif split:
         partials = torch.empty((plan.splits, 2 if cfg else 1, cout, b * height * width),
                                dtype=torch.float32, device=h.device)
         err = _build.kernel(name, _SPLIT_ARGTYPES)(
@@ -715,7 +876,8 @@ def fused_head_step(h, weight, bias, x, z, c_eps: float, inv_sqrt_a: float,
     suffix = "_bf16" if h.dtype == torch.bfloat16 else ""
     count = f"launches{mode}{suffix}"
     setattr(fused_head_step, count, getattr(fused_head_step, count) + 1)
-    kinds = (["_split"] if split else ["_band"] if name == F32_BAND_NAME
+    kinds = (["_split"] if split else ["_os"] if output_stationary
+             else ["_band"] if name == F32_BAND_NAME
              else ["_narrow"] + (["_masked"] if c % BF16_NARROW_BLOCK else [])
              if name in (BF16_NARROW_NAME, HALO_NARROW_NAME) else [])
     for kind in kinds + (["_cout"] if cout > 1 else []):
@@ -742,3 +904,8 @@ fused_head_step.launches_cout = 0
 fused_head_step.launches_cout_bf16 = 0
 fused_head_step.launches_halo_cout = 0
 fused_head_step.launches_halo_cout_bf16 = 0
+# Of those, the launches of the output-stationary kernel (OS_NAMES).
+fused_head_step.launches_os = 0
+fused_head_step.launches_os_bf16 = 0
+fused_head_step.launches_halo_os = 0
+fused_head_step.launches_halo_os_bf16 = 0

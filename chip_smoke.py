@@ -153,22 +153,24 @@ Phases, each timed on its own line:
       CPU (fp32 within ``GOLDEN_TOL``; bf16 under phase (o)'s yardstick),
       with their launch counts (the pair at up0_norm, no split K1: its
       band kernels take 1032 channels);
-  (t) a canonical model of two image channels (``in_channels`` 2, n_feat
-      128, 64x64, n_cfeat 6, seeded init: no committed model has two) in
-      fp32 and folded in bf16: four strided w=2 steps and four posterior
-      DDIM steps on 16 maps on the card against the CPU under injected z
-      (fp32 within ``GOLDEN_TOL``, all 16; bf16 under phase (o)'s
-      yardstick, the first 4, as phase (q3) holds its bf16 maps), each
-      ``LAUNCHES_PER_STEP`` a step, K1 at two output channels
-      (``.launches_cout[_bf16]``).
+  (t) canonical models of two and of 13 image channels (``in_channels``
+      2 and 13, the CAMELS Multifield Dataset's fields; n_feat 128, 64x64,
+      n_cfeat 6, seeded init: no committed model has several) in fp32 and
+      folded in bf16: four strided w=2 steps (and at two channels four
+      posterior DDIM steps) on 16 maps on the card against the CPU under
+      injected z (fp32 within ``GOLDEN_TOL``, all 16; bf16 under phase
+      (o)'s yardstick, the first 4, as phase (q3) holds its bf16 maps),
+      each ``LAUNCHES_PER_STEP`` a step, K1 at several output channels
+      (``.launches_cout[_bf16]``), in its output-stationary kernel where
+      the route gives it (``.launches_os[_bf16]``: fp32, and bf16 at 13).
 
 Each main path -- serving at w=2 and w=0, the exact chain, the battery's
 ELBO at w=2 and w=0, the NLL sweep, posterior DDIM, reconstruction, the
 training runs, the variants' samplers and ELBO batches, the three runs of
 phase (n), the comparison CLI and the stochastic paths of phase (p), the
 mesh paths and DPM-Solver++(2M) of phase (q), the spatial paths of phase
-(r) in each rank, the n_feat 1032 models of phase (s), the two-channel
-models of phase (t) -- is driven with every
+(r) in each rank, the n_feat 1032 models of phase (s), the models of
+several image channels of phase (t) -- is driven with every
 kernel's launch count set to 0 just before it and read just after, and
 must show its expected counts: a sampler path
 ``LAUNCHES_PER_STEP`` a step and no conv to the image channels
@@ -251,6 +253,7 @@ from camels_diffusion_model_tpu_torch.ops.groupnorm import PAIR_NAMES as GROUPNO
 from camels_diffusion_model_tpu_torch.ops.groupnorm import single_route as groupnorm_route
 from camels_diffusion_model_tpu_torch.ops.sampler_step import (
     F32_BAND_NAME,
+    OS_NAMES,
     fused_head_step,
     guided_eps,
     head_step_plain,
@@ -302,14 +305,14 @@ BATCH = 16  # maps per served batch; the decoder sees 2 * BATCH under CFG
 # Kernels whose ptxas report (registers, shared memory, spills) phase (a)
 # prints: the bf16 designs of K1 and K2, K1's halo kernels and K2's sharded
 # launches.
-PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel", "head_step_cout_kernel",
+PTXAS_KERNELS = ("head_step_bf16_kernel", "head_step_bf16_halo_kernel",
                  "head_step_halo_f32_kernel", "head_step_bf16_split_kernel",
                  "head_step_f32_split_kernel", "head_step_combine_kernel",
                  "groupnorm_bf16_kernel",
                  "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
                  "groupnorm_stats_kernel",
                  "groupnorm_apply_kernel", "groupnorm_f32_large_kernel",
-                 "head_step_f32_band_kernel")
+                 "head_step_f32_band_kernel", "head_step_os_kernel")
 
 # Kernel vs plain version on the card.  K3 differs only by the fused
 # multiply-adds nvcc contracts (an ulp or two of values up to ~10); K2 also
@@ -353,9 +356,11 @@ TOL = {"head_step": 1e-4, "groupnorm_act": 1e-4, "film": 1e-5,
        # The fp32 designs at the deep and big variants' heads: K2's
        # large-slice kernel and K1's band kernel, as K2 and K1.
        "groupnorm_act_large": 1e-4, "head_step_band": 1e-4,
-       # K1 to several image channels, both modes: as K1.
+       # K1 to several image channels, both modes, and of those its
+       # output-stationary kernel: as K1.
        "head_step_cout": 1e-4, "head_step_cout_bf16": 4, "head_step_halo_cout": 1e-4,
-       "head_step_halo_cout_bf16": 4}
+       "head_step_halo_cout_bf16": 4, "head_step_os": 1e-4, "head_step_os_bf16": 4,
+       "head_step_halo_os": 1e-4, "head_step_halo_os_bf16": 4}
 REL_TOL = ("groupnorm_act_pair",)  # fp32 tolerances relative to the largest value
 BF16_SHARE = 1e-2
 # Phase (o): the card's bf16 within BF16_FACTOR x the yardstick, the
@@ -423,6 +428,12 @@ WRAPPERS = {
     "head_step_cout_bf16": (fused_head_step, "launches_cout_bf16"),
     "head_step_halo_cout": (fused_head_step, "launches_halo_cout"),
     "head_step_halo_cout_bf16": (fused_head_step, "launches_halo_cout_bf16"),
+    # Of those, the output-stationary kernel's (one CTA a band for every
+    # output channel, from two channels where its plan takes the shape).
+    "head_step_os": (fused_head_step, "launches_os"),
+    "head_step_os_bf16": (fused_head_step, "launches_os_bf16"),
+    "head_step_halo_os": (fused_head_step, "launches_halo_os"),
+    "head_step_halo_os_bf16": (fused_head_step, "launches_halo_os_bf16"),
 }
 
 
@@ -465,7 +476,8 @@ F32_KINDS = (("groupnorm_act", "large"), ("head_step", "band"))
 LIBRARY.update({f"{k}_{kind}": LIBRARY[k] for k, kind in F32_KINDS})
 # K1 to several image channels, both types and modes: kernel and kind (the
 # library call F.conv2d to as many channels).
-COUT_KINDS = (("head_step", "cout"), ("head_step_halo", "cout"))
+COUT_KINDS = (("head_step", "cout"), ("head_step_halo", "cout"), ("head_step", "os"),
+              ("head_step_halo", "os"))
 LIBRARY.update({f"{k}_{kind}{sfx}": LIBRARY[f"{k}{sfx}"] for k, kind in COUT_KINDS
                 for sfx in ("", "_bf16")})
 # Launches per reverse step: one step kernel (output conv, guidance,
@@ -642,17 +654,24 @@ PAIR_K2 = ((10, 128, 512, "gelu", False, "float32"), (10, 128, 384, "gelu", Fals
            (2 * BATCH, 16, 2064, "relu", True, "bfloat16"))  # n, height, c, act, FiLM, dtype
 WIDE_K3 = ((4, 32, 8192, "float32"), (4, 32, 8200, "bfloat16"))
 # Phase (c), K1 to several image channels: (maps, height and width,
-# channels, image channels, summed) at the served w=2 shape and at a split
-# width; phase (r1) the halo mode at half of the served w=2 features.
-COUT_CASES = ((BATCH, 64, 128, 2, True), (BATCH, 64, 128, 3, False),
-              (BATCH, 64, 128, 4, False), (BATCH, 64, 128, 13, False),
-              (1, 8, 6000, 2, False), (1, 8, 6000, 13, False))
-COUT_HALO = (2, 3, 4, 13)
-# Phase (t): a canonical model of CHANNELS_IN image channels, CHANNELS_MAPS
-# maps a sampler on the card, CHANNELS_CPU_MAPS of them held against the CPU
-# (bf16 on the CPU takes 0.24 s a map and step: phase q3's note); launches a
-# step beyond LAUNCHES_PER_STEP's: K1 at several output channels.
-CHANNELS_IN, CHANNELS_MAPS = 2, BATCH
+# channels, image channels) at the served w=2 shape and the deep model's
+# w=2 step (the output-stationary kernel, or in bf16 at few channels the
+# grouped kernels' one group) and at a split width (the grouped split
+# launch); each kind's first case summed; phase (r1) the halo mode at half
+# of the served w=2 features and of a split width.
+COUT_CASES = ((BATCH, 64, 128, 2), (BATCH, 64, 128, 3), (BATCH, 64, 128, 4),
+              (BATCH, 64, 128, 8), (BATCH, 64, 128, 13), (BATCH, 64, 128, 16),
+              (VARIANT_BATCH, 128, 128, 13), (1, 8, 6000, 2), (1, 8, 6000, 13))
+COUT_HALO = ((BATCH, 32, 64, 128, 2), (BATCH, 32, 64, 128, 3), (BATCH, 32, 64, 128, 4),
+             (BATCH, 32, 64, 128, 13), (1, 4, 8, 6000, 2))  # maps, height, width, c, cout
+# Phase (t): canonical models of several image channels, (in_channels,
+# sampler paths) each, CHANNELS_MAPS maps a sampler on the card,
+# CHANNELS_CPU_MAPS of them held against the CPU (bf16 on the CPU takes
+# 0.24 s a map and step: phase q3's note); launches a step beyond
+# LAUNCHES_PER_STEP's: K1 at several output channels, its output-stationary
+# kernel.
+CHANNELS = ((2, ("strided", "posterior")), (13, ("strided",)))
+CHANNELS_MAPS = BATCH
 CHANNELS_CPU_MAPS = {"float32": BATCH, "bfloat16": 4}
 # Phase (s): a canonical model at n_feat 1032, 16x16 maps: its forward and
 # four strided w=2 steps on 2 maps.  Launches a decoder call beyond
@@ -865,17 +884,30 @@ def head_args(randn, dtype, b, height, width, c, cout, cfg=True, halo=False):
             sigma, 2.0 if cfg else None, False, *rows)
 
 
+def cout_kind(b, height, width, c, dtype, cout, halo=False) -> str:
+    """The kind K1's launch at ``cout`` channels counts under: ``os`` where
+    the route gives the output-stationary kernel, else ``cout``."""
+    name = head_step_route(b, height, width, c, dtype, cout, halo=halo)[0]
+    return "os" if name == OS_NAMES[dtype] else "cout"
+
+
 def cout_cases(randn) -> list:
     """Phase (c)'s cases of K1 to several image channels (``COUT_CASES``),
-    in both types: at the served w=2 shape (summed: 2 channels, phase (t)'s
-    model) and at a split width (information)."""
-    cases = []
+    in both types, by the kernel the route gives: at the served w=2 shape
+    and the deep model's step the output-stationary kernel (in bf16 at few
+    channels the grouped kernels' one group), at a split width the grouped
+    split launch; each kind's first case summed."""
+    cases, seen = [], set()
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-        for b, hw, c, cout, summed in COUT_CASES:
+        for b, hw, c, cout in COUT_CASES:
             args = head_args(randn, dtype, b, hw, hw, c, cout)
             h = args[0]
+            name = f"head_step_{cout_kind(b, hw, hw, c, dtype, cout)}{sfx}"
+            summed = name not in seen
+            seen.add(name)
             cases.append((
-                f"head_step_cout{sfx}", f"{cout} image channels, cfg w=2 h{tuple(h.shape)} "
+                name,
+                f"{cout} image channels, cfg w=2 h{tuple(h.shape)} "
                 f"{_build.type_name(dtype)}, x{tuple(args[3].shape)} fp32", fused_head_step,
                 head_step_plain,
                 lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
@@ -2050,35 +2082,40 @@ def check_pair_model(dev, drive, dtype: str) -> None:
         extra={k: len(taus) * v for k, v in PAIR_PER_STEP[dtype].items()})
 
 
-def check_channels_model(dev, drive, dtype: str) -> None:
-    """Phase (t): the canonical model of ``CHANNELS_IN`` image channels
+def check_channels_model(dev, drive, dtype: str, in_channels: int, paths) -> None:
+    """Phase (t): the canonical model of ``in_channels`` image channels
     (n_feat 128, 64x64, n_cfeat 6, seeded init), folded, in ``dtype``:
-    four strided w=2 steps and four posterior DDIM steps (eta 0) on
-    ``CHANNELS_MAPS`` maps on the card against the CPU
-    (``CHANNELS_CPU_MAPS`` of them; fp32 within
+    four strided w=2 steps (``paths`` "strided") and four posterior DDIM
+    steps (eta 0; "posterior") on ``CHANNELS_MAPS`` maps on the card
+    against the CPU (``CHANNELS_CPU_MAPS`` of them; fp32 within
     ``GOLDEN_TOL``; bf16 within ``BF16_FACTOR`` x the CPU's bf16 distance
-    from its fp32), driven as the paths ``channels_{dtype}_strided`` and
-    ``channels_{dtype}_posterior``: ``LAUNCHES_PER_STEP`` a step, each K1
-    launch at ``CHANNELS_IN`` output channels, no conv to the image
-    channels."""
+    from its fp32), driven as the paths ``channels_{in_channels}_{dtype}_{path}``:
+    ``LAUNCHES_PER_STEP`` a step, each K1 launch at ``in_channels`` output
+    channels (in the output-stationary kernel where the route gives it:
+    fp32, and bf16 at 13), no conv to the image channels."""
     dt = getattr(torch, dtype)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(VARIANT_SEED)
-        variables = to_jax_variables(ContextUnet.canonical(in_channels=CHANNELS_IN).state_dict())
+        variables = to_jax_variables(ContextUnet.canonical(in_channels=in_channels).state_dict())
     gpu = load_model(variables, dev, dtype=dt)
     cpus = tuple(load_model(variables, "cpu", dtype=d) for d in dict.fromkeys((dt, torch.float32)))
     del variables
-    if gpu.in_channels != CHANNELS_IN or tuple(gpu.out_conv2.weight.shape[:2]) != (
-            CHANNELS_IN, gpu.n_feat):
-        raise SystemExit(f"the {CHANNELS_IN}-channel model loaded with in_channels "
+    if gpu.in_channels != in_channels or tuple(gpu.out_conv2.weight.shape[:2]) != (
+            in_channels, gpu.n_feat):
+        raise SystemExit(f"the {in_channels}-channel model loaded with in_channels "
                          f"{gpu.in_channels}")
-    extra = {instance("head_step_cout", dtype): 4}
+    kinds = ("cout", "os") if cout_kind(BATCH, 64, 64, gpu.n_feat, dt, in_channels) == "os" \
+        else ("cout",)
+    extra = {instance(f"head_step_{kind}", dtype): 4 for kind in kinds}
     for path, taus, mode in (("strided", [1, 4, 7, 10], "beta"),
                              ("posterior", ddim_timesteps(TIMESTEPS, 50)[:4], "posterior")):
-        drive(f"channels_{dtype}_{path}", lambda taus=taus, mode=mode: check_sampler_vs_cpu(
-            (gpu,) + cpus, taus, mode, f"{CHANNELS_IN} image channels {dtype} {path} w=2",
-            maps=CHANNELS_MAPS, cpu_maps=CHANNELS_CPU_MAPS[dtype]), steps=len(taus),
-            dtype=dtype, extra=extra)
+        if path not in paths:
+            continue
+        drive(f"channels_{in_channels}_{dtype}_{path}",
+              lambda taus=taus, mode=mode: check_sampler_vs_cpu(
+                  (gpu,) + cpus, taus, mode, f"{in_channels} image channels {dtype} {path} w=2",
+                  maps=CHANNELS_MAPS, cpu_maps=CHANNELS_CPU_MAPS[dtype]), steps=len(taus),
+              dtype=dtype, extra=extra)
 
 
 def check_native_prep() -> None:
@@ -2625,16 +2662,19 @@ def shard_cases(model, randn, c_eps, inv_sqrt_a, sigma) -> list:
         halo_cases.append((f"head_step_halo_split{sfx}", 1, 4, 8, 6000,
                            "cfg w=2, 6000 channels (no model's: weights over the halo "
                            "kernels' shared memory), half of h(2,8,8,6000)"))
-        for cout in COUT_HALO:
-            args = head_args(randn, dtype, BATCH, 32, 64, model.n_feat, cout, halo=True)
+        seen = set()
+        for b, height, width, c, cout in COUT_HALO:
+            args = head_args(randn, dtype, b, height, width, c, cout, halo=True)
+            name = f"head_step_halo_{cout_kind(b, height, width, c, dtype, cout, True)}{sfx}"
             cases.append((
-                f"head_step_halo_cout{sfx}", f"{cout} image channels, cfg w=2, half of "
-                f"h(32,64,64,128) x{tuple(args[3].shape)}, halo rows (2, {2 * BATCH}, 64, 128)",
+                name, f"{cout} image channels, cfg w=2, half of h{(2 * b, 2 * height, width, c)} "
+                f"x{tuple(args[3].shape)}, halo rows (2, {2 * b}, {width}, {c})",
                 fused_head_step, head_step_plain,
                 lambda h, weight, bias, *_: F.conv2d(h.permute(0, 3, 1, 2), weight, bias,
                                                      padding=1),
                 args, nbytes(*args, args[3]), args[0].numel() * 18 * cout + args[3].numel() * 8,
-                cout == COUT_HALO[0]))
+                name not in seen))
+            seen.add(name)
         for name, b, height, width, c, label in halo_cases:
             h = randn(2 * b, height, width, c).relu().to(dtype)
             halo = tuple(randn(2 * b, width, c).relu().to(dtype) for _ in range(2))
@@ -3190,10 +3230,11 @@ def main() -> int:
     phase(f"(s) n_feat {PAIR_FEAT}: K2's statistics and apply launches on one card", t0)
 
     t0 = time.perf_counter()
-    for dtype in ("float32", "bfloat16"):
-        check_channels_model(dev, drive, dtype)
-        torch.cuda.empty_cache()
-    phase(f"(t) a model of {CHANNELS_IN} image channels", t0)
+    for in_channels, paths in CHANNELS:
+        for dtype in ("float32", "bfloat16"):
+            check_channels_model(dev, drive, dtype, in_channels, paths)
+            torch.cuda.empty_cache()
+    phase(f"(t) models of {' and '.join(str(k) for k, _ in CHANNELS)} image channels", t0)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "camels_diffusion_model_tpu"))

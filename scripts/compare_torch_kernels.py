@@ -157,19 +157,20 @@ KiB at 128x128, 56 KiB at 64x64); then the checkout's template (no spill
 loop) against that one under the same plan, three rounds in turns, at
 the shapes the route still gives it (the served out_norm and up0_norm +
 FiLM, the variants' up0_norm + FiLM, n_feat 224).
-``--cout`` times the slice of several output channels (a model of
-several image channels): the served one-channel K1 launches (fp32 and bf16
-at w=2 and w=0, the exact chain's, both halo kernels at phase (r1)'s
-shape, the fp32 band kernel at the deep model's step) against the
-``--old`` package, bit for bit, old, new, new, old three rounds, with the
-SASS instruction counts of every K1 kernel instance of both; then K1 at
-2, 3, 4 and 13 output channels at the served w=2 shape in both types (and
-13 at the deep model's step in fp32), held to the plain version, cold,
-beside the bound and ``F.conv2d`` to as many channels; then K2's
-statistics and apply launches where packs straddle groups (n_feat 1032's
-up0_norm with the FiLM epilogue as the pair on one card, with the sweep of
-its launches' plans, n_feat 136's and 264's heads on a 1x2 mesh's half)
-against the ``--old`` package's element path, old, new, new, old.
+``--cout`` times K1 at several output channels (a model of several image
+channels): the served one-channel K1 launches (fp32 and bf16 at w=2 and
+w=0, the exact chain's, both halo kernels at phase (r1)'s shape, the fp32
+band kernel at the deep model's step) against the ``--old`` package, bit
+for bit, old, new, new, old three rounds, with the SASS instruction counts
+of every K1 kernel instance of both and the ptxas report (registers,
+spills) of the output-stationary kernel; then K1 at 2, 3, 4, 5, 8 and 13
+output channels in both types at the served w=2 step, phase (r1)'s halo
+half, the deep and big models' steps (tanh) and their halo halves: ``--old``'s
+kernels (the grouped kernels of 36a99c5) and the checkout's held to the
+plain version, timed old, new, new, old, beside the bound and
+``F.conv2d`` to as many channels, and in bf16 at 2 to 5 channels (the
+crossover of ``sampler_step.os_from_bf16``) each design forced, grouped,
+output-stationary, output-stationary, grouped.
 Needs a CUDA card.
 """
 
@@ -238,8 +239,8 @@ def main(argv=None) -> int:
                     help="the float K2 template at the large slices it still takes, at 384 and "
                          "512 threads, against the pair on one card")
     ap.add_argument("--cout", action="store_true",
-                    help="K1 at several output channels and the served one-channel K1 against "
-                         "--old; K2's statistics and apply launches at straddling packs")
+                    help="the served one-channel K1 against --old; K1 at several output "
+                         "channels, --old's kernels, the checkout's and F.conv2d in turns")
     ap.add_argument("--prev", help="with --narrow: a revision's package dir that has the narrow "
                                    "kernels, timed against the checkout's in turns")
     args = ap.parse_args(argv)
@@ -308,8 +309,7 @@ def main(argv=None) -> int:
         return torch.randn(shape, generator=g, device=dev)
 
     if args.cout:
-        return compare_cout(randn, (old_build, old_gn, old_step), chip_smoke,
-                            (groupnorm, sampler_step))
+        return compare_cout(randn, (old_build, old_step), chip_smoke, sampler_step)
     if args.sharded:
         return compare_sharded(randn, old_gn, chip_smoke, groupnorm)
     if args.halo:
@@ -1827,26 +1827,26 @@ def compare_sharded(randn, old_gn, chip_smoke, groupnorm) -> int:
     return 0
 
 
-def compare_cout(randn, old, chip_smoke, new) -> int:
-    """K1's one-channel launches against the earlier package, K1 at several
-    output channels, K2's straddling statistics and apply launches against
-    the earlier element path (module docstring, ``--cout``)."""
+def compare_cout(randn, old, chip_smoke, sampler_step) -> int:
+    """K1's one-channel launches against the earlier package, then K1 at
+    several output channels: the earlier package's kernels, the
+    checkout's and ``F.conv2d`` in turns (module docstring, ``--cout``)."""
     import torch
-    import torch.nn.functional as F
 
     from camels_diffusion_model_tpu_torch.ops import _build
 
-    old_build, old_gn, old_step = old
-    groupnorm, sampler_step = new
+    old_build, old_step = old
     card = torch.cuda.get_device_name(0)
-    k1_names = ("head_step_kernel", "head_step_cout_kernel", "head_step_bf16_kernel",
+    for line in _build.ptxas_report(_build.build(), ("head_step_os_kernel",)):
+        print(f"ptxas: {line}", flush=True)
+    k1_names = ("head_step_kernel", "head_step_bf16_kernel",
                 "head_step_bf16_halo_kernel", "head_step_halo_f32_kernel",
                 "head_step_f32_band_kernel", "head_step_bf16_split_kernel",
-                "head_step_f32_split_kernel")
+                "head_step_f32_split_kernel", "head_step_os_kernel")
     for label, build in (("old", old_build), ("new", _build)):
         for name, n in sass_counts(build, k1_names).items():
             print(f"SASS {label} {n} instructions: {name}", flush=True)
-    k1_args, k2_args, _ = arg_makers(randn)
+    k1_args, _, _ = arg_makers(randn)
     f32, bf = torch.float32, torch.bfloat16
     sfx = {f32: "", bf: "_bf16"}
     # The served one-channel launches: (label, dtype, (maps, height, width, c, halo), w, tanh).
@@ -1867,108 +1867,85 @@ def compare_cout(randn, old, chip_smoke, new) -> int:
         same = torch.equal(old_step.fused_head_step(*a), sampler_step.fused_head_step(*a))
         if not same:
             raise SystemExit(f"{label}: the checkout's output differs from --old's")
-        olds, news = [], []
-        for _ in range(3):
-            t = [chip_smoke.time_ms(f, a) for f in (old_step.fused_head_step,
-                                                    sampler_step.fused_head_step,
-                                                    sampler_step.fused_head_step,
-                                                    old_step.fused_head_step)]
-            olds += [t[0], t[3]]
-            news += [t[1], t[2]]
-            print(f"  {label}: old {t[0]:.5f} new {t[1]:.5f} new {t[2]:.5f} old {t[3]:.5f} ms",
-                  flush=True)
-        o, nw = sum(olds) / len(olds), sum(news) / len(news)
-        print(f"{label}: bit for bit as --old; mean old {o:.5f} new {nw:.5f} ms, new/old "
-              f"{nw / o:.4f}; card {card}", flush=True)
+        k1_turns(chip_smoke, label, old_step.fused_head_step, sampler_step.fused_head_step, a,
+                 card, rounds=3, note="bit for bit as --old")
+        print(f"{label}: F.conv2d to 1 channel {chip_smoke.time_ms(conv_lib, a):.5f} ms",
+              flush=True)
 
-    # K1 at several output channels (new only: the earlier package takes one).
-    for cout in (2, 3, 4, 13):
-        for label, dt, (maps, height, width, c), w, tanh in (
-                ("serve w=2 h(32,64,64,128)", f32, (16, 64, 64, 128), 2.0, False),
-                ("serve w=2 h(32,64,64,128)", bf, (16, 64, 64, 128), 2.0, False),
-                ("deep tanh w=2 h(20,128,128,128)", f32, (10, 128, 128, 128), 2.0, True)):
-            if dt == f32 and height == 128 and cout != 13:
-                continue
-            a = list(k1_args(dt, maps, height, width, c, False, w, tanh))
-            a[1] = randn(cout, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt)
-            a[2] = randn(cout).to(dt)
-            a[3], a[4] = randn(maps, height, width, cout), randn(maps, height, width, cout)
-            a = tuple(a)
-            lbl = f"K1 cout {cout} {'fp32' if dt == f32 else 'bf16'} {label}"
-            route = sampler_step.route(maps, height, width, c, dt, cout, w is not None)
-            err = hold(chip_smoke, f"head_step{sfx[dt]}", lbl, sampler_step.fused_head_step,
-                       sampler_step.head_step_plain, a)
-            out = sampler_step.fused_head_step(*a)
-            nb = chip_smoke.nbytes(*a, out)
-            peak = chip_smoke.BF16_FLOPS if dt == bf else chip_smoke.FP32_FLOPS
-            b = max(nb / chip_smoke.HBM_BYTES_PER_S,
-                    (a[0].numel() * 18 * cout + a[3].numel() * 8) / peak) * 1e3
-            ms = chip_smoke.time_ms(sampler_step.fused_head_step, a)
-            plain_ms = chip_smoke.time_ms(sampler_step.head_step_plain, a)
-            lib_ms = chip_smoke.time_ms(conv_lib, a)
-            print(f"{lbl}: {route[0]} {route[1]}; {ms:.5f} ms, bound {b:.6f} ms ({nb} bytes, "
-                  f"share {b / ms:.3f}), plain {plain_ms:.5f} ms, F.conv2d to {cout} channels "
-                  f"{lib_ms:.5f} ms (library/kernel {lib_ms / ms:.2f}); max err {err:.2e}; "
-                  f"card {card}", flush=True)
-
-    # K2 where packs straddle groups: the earlier package's element path in turns.
-    for dt in (f32, bf):
-        a = k2_args(dt, 32, 16, 2064, "relu", True)
-        wide_turns(chip_smoke, f"K2 pair {'fp32' if dt == f32 else 'bf16'} n_feat 1032 "
-                   "up0_norm + FiLM (32,16,16,2064)", f"groupnorm_act_pair{sfx[dt]}",
-                   old_gn.fused_groupnorm_act, groupnorm.fused_groupnorm_act,
-                   groupnorm.groupnorm_act_plain,
-                   lambda x, gamma, beta, *_: F.group_norm(
-                       x.permute(0, 3, 1, 2), 8, gamma.to(x.dtype), beta.to(x.dtype), 1e-5),
-                   a, a[0].numel() * 12)
-        pair_sweep(chip_smoke, groupnorm, f"K2 pair {'fp32' if dt == f32 else 'bf16'} n_feat "
-                   "1032 up0_norm + FiLM", a)
-        for label, (n, hh, ww, c), rows in (
-                ("n_feat 1032 up0_norm (the pair's launches)", (32, 16, 16, 2064), True),
-                ("n_feat 136 out_norm, half of (32,64,64,136)", (32, 32, 64, 136), False),
-                ("n_feat 136 up0_norm, half of (32,16,16,272)", (32, 8, 16, 272), True),
-                ("n_feat 264 out_norm, half of (32,64,64,264)", (32, 32, 64, 264), False),
-                ("n_feat 264 up0_norm, half of (32,16,16,528)", (32, 8, 16, 528), True)):
-            x = (randn(n, hh, ww, c) * 3 + 1).to(dt)
-            lbl = f"{'fp32' if dt == f32 else 'bf16'} {label}"
-            want = groupnorm.groupnorm_stats_plain(x, 8)
-            errs = [chip_smoke.stats_error(f(x, 8), want)
-                    for f in (old_gn.groupnorm_stats, groupnorm.groupnorm_stats)]
-            if not max(errs) <= chip_smoke.TOL["groupnorm_stats"]:
-                raise SystemExit(f"K2 statistics {lbl}: off by {errs} of a column's largest")
-            eb = x.element_size()
-            plan = groupnorm.stats_plan(n, hh * ww, c, 8, True, eb)
-            t = [chip_smoke.time_ms(f, (x, 8)) for f in (
-                old_gn.groupnorm_stats, groupnorm.groupnorm_stats, groupnorm.groupnorm_stats,
-                old_gn.groupnorm_stats)]
-            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            b = (x.numel() * eb + n * 8 * 3 * 4) / chip_smoke.HBM_BYTES_PER_S * 1e3
-            lib = chip_smoke.time_ms(lambda x, g: torch.var_mean(
-                x.reshape(x.shape[0], -1, g, x.shape[-1] // g).float(), dim=(1, 3),
-                correction=0), (x, 8))
-            print(f"K2 statistics {lbl}: {plan}; old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} "
-                  f"{t[2]:.5f} ms (mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); bound "
-                  f"{b:.6f} ms: share old {b / o:.3f} new {b / nw:.3f}; torch.var_mean "
-                  f"{lib:.5f} ms; errors old {errs[0]:.2e} new {errs[1]:.2e}; card {card}",
-                  flush=True)
-            parts = groupnorm.groupnorm_stats_plain(x, 8)[None]
-            film_rows = (randn(n, c).to(dt), randn(1, c).to(dt)) if rows else None
-            aa = (x, parts, randn(c), randn(c), 8, 1e-5, "relu", film_rows)
-            name = f"groupnorm_apply{sfx[dt]}"
-            errs = [hold(chip_smoke, name, f"K2 apply {lbl}", f, groupnorm.groupnorm_apply_plain,
-                         aa) for f in (old_gn.groupnorm_apply, groupnorm.groupnorm_apply)]
-            plan = groupnorm.apply_plan(n, hh * ww, c, 8, True, eb)
-            t = [chip_smoke.time_ms(f, aa) for f in (
-                old_gn.groupnorm_apply, groupnorm.groupnorm_apply, groupnorm.groupnorm_apply,
-                old_gn.groupnorm_apply)]
-            o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-            b = chip_smoke.nbytes(*aa, x) / chip_smoke.HBM_BYTES_PER_S * 1e3
-            print(f"K2 apply {lbl}: {plan}; old {t[0]:.5f} {t[3]:.5f} new {t[1]:.5f} "
-                  f"{t[2]:.5f} ms (mean old {o:.5f}, new {nw:.5f}, old/new {o / nw:.2f}); bound "
-                  f"{b:.6f} ms: share old {b / o:.3f} new {b / nw:.3f}; errors old "
-                  f"{errs[0]:.2e} new {errs[1]:.2e}; card {card}", flush=True)
+    # K1 at several output channels in every mode: (label, (maps, height,
+    # width, c, halo), w, tanh).
+    modes = (("serve w=2 h(32,64,64,128)", (16, 64, 64, 128, False), 2.0, False),
+             ("halo, half of h(32,64,64,128)", (16, 32, 64, 128, True), 2.0, False),
+             ("deep tanh w=2 h(20,128,128,128)", (10, 128, 128, 128, False), 2.0, True),
+             ("deep halo tanh, half of h(20,128,128,128)", (10, 64, 128, 128, True), 2.0,
+              True),
+             ("big tanh w=2 h(20,128,128,256)", (10, 128, 128, 256, False), 2.0, True),
+             ("big halo tanh, half of h(20,128,128,256)", (10, 64, 128, 256, True), 2.0, True))
+    for cout in (2, 3, 4, 5, 8, 13):
+        for dt in (f32, bf):
+            for label, (maps, height, width, c, halo), w, tanh in modes:
+                a = list(k1_args(dt, maps, height, width, c, halo, w, tanh))
+                a[1] = randn(cout, c, 3, 3).mul(1 / (3 * c**0.5)).to(dt)
+                a[2] = randn(cout).to(dt)
+                a[3], a[4] = randn(maps, height, width, cout), randn(maps, height, width, cout)
+                a = tuple(a)
+                lbl = f"K1 cout {cout} {'fp32' if dt == f32 else 'bf16'} {label}"
+                name = f"head_step{'_halo' if halo else ''}{sfx[dt]}"
+                route = sampler_step.route(maps, height, width, c, dt, cout, w is not None,
+                                           halo=halo)
+                errs = [hold(chip_smoke, name, f"{lbl} ({side})", f, sampler_step.head_step_plain,
+                             a) for side, f in (("old", old_step.fused_head_step),
+                                                ("new", sampler_step.fused_head_step))]
+                out = sampler_step.fused_head_step(*a)
+                nb = chip_smoke.nbytes(*a, out)
+                peak = chip_smoke.BF16_FLOPS if dt == bf else chip_smoke.FP32_FLOPS
+                b = max(nb / chip_smoke.HBM_BYTES_PER_S,
+                        (a[0].numel() * 18 * cout + a[3].numel() * 8) / peak) * 1e3
+                o, nw = k1_turns(chip_smoke, lbl, old_step.fused_head_step,
+                                 sampler_step.fused_head_step, a, card, rounds=1)
+                lib = [chip_smoke.time_ms(conv_lib, a) for _ in range(2)]
+                lib_ms = sum(lib) / 2
+                print(f"{lbl}: {route[0]} {route[1]}; bound {b:.6f} ms ({nb} bytes): share old "
+                      f"{b / o:.3f} new {b / nw:.3f}; F.conv2d to {cout} channels {lib_ms:.5f} "
+                      f"ms (library/new {lib_ms / nw:.2f}, library/old {lib_ms / o:.2f}); max "
+                      f"err old {errs[0]:.2e} new {errs[1]:.2e}; card {card}", flush=True)
+                if dt == bf and cout <= 5:  # os_from_bf16's crossover: each design forced
+                    designs = {
+                        "grouped": sampler_step._grouped_route(
+                            maps, height, width, c, dt, cout, w is not None, True, halo,
+                            sampler_step.SMS),
+                        "output-stationary": (sampler_step.OS_NAMES[dt], sampler_step.os_plan(
+                            maps, height, width, c, cout, w is not None, element_bytes=2))}
+                    times = {d: [] for d in designs}
+                    real = sampler_step.route
+                    try:
+                        for d in ("grouped", "output-stationary", "output-stationary",
+                                  "grouped"):
+                            sampler_step.route = lambda *p, pick=designs[d], **k: pick
+                            times[d].append(chip_smoke.time_ms(sampler_step.fused_head_step, a))
+                    finally:
+                        sampler_step.route = real
+                    g_ms, o_ms = (sum(times[d]) / 2 for d in designs)
+                    print(f"{lbl}: designs forced: grouped {g_ms:.5f} ms, output-stationary "
+                          f"{o_ms:.5f} ms, output-stationary/grouped {o_ms / g_ms:.4f}; route "
+                          f"gives {route[0]}; card {card}", flush=True)
     return 0
 
+
+def k1_turns(chip_smoke, label, old, new, args, card, rounds=1, note="") -> tuple:
+    """``old`` and ``new`` on ``args`` timed old, new, new, old ``rounds``
+    times; prints and returns the mean ms ``(old, new)``."""
+    olds, news = [], []
+    for _ in range(rounds):
+        t = [chip_smoke.time_ms(f, args) for f in (old, new, new, old)]
+        olds += [t[0], t[3]]
+        news += [t[1], t[2]]
+        print(f"  {label}: old {t[0]:.5f} new {t[1]:.5f} new {t[2]:.5f} old {t[3]:.5f} ms",
+              flush=True)
+    o, nw = sum(olds) / len(olds), sum(news) / len(news)
+    print(f"{label}: {note + '; ' if note else ''}mean old {o:.5f} new {nw:.5f} ms, new/old "
+          f"{nw / o:.4f}; card {card}", flush=True)
+    return o, nw
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -44,10 +44,11 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The port's kernels by name: K1 and K2 (the float design, and the bf16
 # single launch's own kernel), K3.
-OURS = ("head_step_kernel", "head_step_cout_kernel", "head_step_bf16_kernel",
+OURS = ("head_step_kernel", "head_step_bf16_kernel",
         "head_step_bf16_halo_kernel",
         "head_step_halo_f32_kernel", "head_step_bf16_split_kernel",
         "head_step_f32_split_kernel", "head_step_combine_kernel", "head_step_f32_band_kernel",
+        "head_step_os_kernel",
         "groupnorm_act_kernel", "groupnorm_f32_large_kernel",
         "groupnorm_bf16_kernel", "groupnorm_bf16_narrow_kernel", "groupnorm_bf16_wide_kernel",
         "groupnorm_stats_kernel",

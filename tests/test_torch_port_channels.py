@@ -3,13 +3,16 @@ as a model trained jointly on several CMD fields) against the JAX package
 on the CPU, and the plans of the kernels that take them on the card.
 
 The samplers (the exact chain, strided DDPM, posterior DDIM and
-DPM-Solver++(2M)) at ``in_channels`` 2 and 3 run the JAX package's flax
+DPM-Solver++(2M)) at ``in_channels`` 2, 3 and 13 (the CAMELS Multifield
+Dataset's fields) run the JAX package's flax
 model and the port's model built from the same variables by
 ``load_model`` (``from_jax_variables``) on the same numpy x_init and
 contexts, the JAX samplers' z injected into the port's.  K1's plain
 versions at two output channels run against flax's conv and the Pallas
 step in interpret mode.  K1's plans must give every ``cout`` from 1 to 16
-a kernel at the committed models' shapes, and K2's statistics and apply
+a kernel at the committed models' shapes (from two channels the
+output-stationary kernel, one CTA a band for every channel), and K2's
+statistics and apply
 plans 16-byte packs where packs straddle groups.
 """
 
@@ -46,7 +49,8 @@ T, B, H, NC, STEPS = 20, 2, 16, 3, 6
 GUIDES = {"w0": 0.0, "w2": 2.0, "per-sample": np.array([1.5, 3.0], np.float32)}
 
 
-@pytest.fixture(scope="module", params=[2, 3], ids=["in_channels 2", "in_channels 3"])
+@pytest.fixture(scope="module", params=[2, 3, 13],
+                ids=["in_channels 2", "in_channels 3", "in_channels 13"])
 def tiny(request):
     """``(flax model, its variables, the port's model)`` at ``in_channels``
     k, n_feat 8, 16x16, with BatchNorm running statistics away from their
@@ -171,12 +175,16 @@ def test_out_groups_split_the_channels_into_equal_groups_of_at_most_four():
         ops.out_groups(0)
 
 
-@pytest.mark.parametrize("cout", [1, 2, 3, 5, 13])
+@pytest.mark.parametrize("cout", list(range(1, 17)) + [20, 33])
 def test_head_step_grid_takes_every_pixel_and_output_channel_once(cout):
-    """The kernels' grid (csrc ``out_group``): block b is band ``b //
+    """The output-stationary kernel's grid (csrc ``head_step_os_kernel``;
+    one channel the band kernels', ``out_group``): block b is band ``b //
     groups`` and channels ``(b % groups) * g`` on, those past ``cout``
-    masked: over the grid every (unit, band, output channel) once."""
-    groups, g = ops.out_groups(cout)
+    masked: over the grid every (unit, band, output channel) once, and up
+    to ``OS_COUT_MAX`` channels one CTA a band takes every channel (h
+    read once)."""
+    groups, g = ops.out_groups(1) if cout == 1 else ops.os_groups(cout)
+    assert (groups == 1) == (cout <= ops.OS_COUT_MAX) and g <= ops.OS_COUT_MAX
     units, bands = 3, 5
     seen = np.zeros((units * bands, cout), np.int64)
     for block in range(units * bands * groups):
@@ -196,8 +204,30 @@ K1_SHAPES = {"serve w=2": (16, 64, 64, 128, True, False),
              "exact chain": (4, 64, 64, 128, False, False),
              "deep w=2": (10, 128, 128, 128, True, False),
              "big": (10, 128, 128, 256, False, False),
+             "big w=2": (10, 128, 128, 256, True, False),
              "half of serve w=2": (16, 32, 64, 128, True, True),
+             "half of deep w=2": (10, 64, 128, 128, True, True),
+             "half of big w=2": (10, 64, 128, 256, True, True),
              "split width": (1, 8, 8, 6000, True, False)}
+
+
+# The bf16 crossovers measured on the card (``os_from_bf16``'s docstring):
+# (width, c, halo, the least output channels of the output-stationary kernel).
+BF16_CROSSOVERS = {"served 64-wide": (64, 128, False, 4), "its halo half": (64, 128, True, 3),
+                   "deep 128-wide": (128, 128, False, 4), "big 128-wide": (128, 256, False, 3),
+                   "deep halo half": (128, 128, True, 2), "big halo half": (128, 256, True, 2)}
+
+
+@pytest.mark.parametrize("case", BF16_CROSSOVERS, ids=list(BF16_CROSSOVERS))
+def test_bf16_route_takes_the_output_stationary_kernel_from_the_measured_crossover(case):
+    """In bf16 ``route`` gives the grouped kernels below the channel count
+    where the output-stationary kernel ran faster, and that kernel from
+    it, at each committed model's 128-wide or 64-wide step and halo half."""
+    width, c, halo, least = BF16_CROSSOVERS[case]
+    assert ops.os_from_bf16(width, c, halo) == least
+    for cout in range(2, 9):
+        name = ops.route(10, width, width, c, torch.bfloat16, cout, halo=halo)[0]
+        assert (name == ops.OS_NAMES[torch.bfloat16]) == (cout >= least)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -205,9 +235,12 @@ K1_SHAPES = {"serve w=2": (16, 64, 64, 128, True, False),
 def test_head_step_route_takes_every_output_channel_count(shape, dtype):
     """``route`` gives every ``cout`` from 1 to 16 a kernel (never the
     plain version) at the committed shapes and at a split width: its plan
-    within the card's shared memory and threads, a CTA for every (band,
-    output group), the band kernels where they took one channel up to the
-    widths their shared memory holds; one channel keeps its plan."""
+    within the card's shared memory and threads; from two channels at the
+    committed shapes the output-stationary kernel (in bf16 from
+    ``os_from_bf16``; below, the grouped kernels' one group), one
+    CTA a band taking every output channel (h read once), its shared
+    memory within ``SMEM_MAX``; at a split width the split launch, a CTA
+    for every (band, output group, range); one channel keeps its plan."""
     units, height, width, c, cfg, halo = K1_SHAPES[shape]
     one = ops.route(units, height, width, c, dtype, 1, cfg, halo=halo)
     for cout in range(1, 17):
@@ -215,49 +248,118 @@ def test_head_step_route_takes_every_output_channel_count(shape, dtype):
         name, plan = ops.route(units, height, width, c, dtype, cout, cfg, halo=halo)
         assert plan.smem_bytes <= ops.SMEM_MAX
         bands = -(-height // plan.rows)
-        if isinstance(plan, ops.SplitPlan):
+        least = 2 if dtype == torch.float32 else ops.os_from_bf16(width, c, halo)
+        if cout >= least and shape != "split width":
+            assert name == ops.OS_NAMES[dtype] and isinstance(plan, ops.OsPlan)
+            assert plan == ops.os_plan(units, height, width, c, cout, cfg,
+                                       element_bytes=ops.ELEMENT_BYTES[dtype])
+            assert plan.ctas == units * bands and plan.threads == ops.OS_THREADS
+        elif isinstance(plan, ops.SplitPlan):
             assert name == ops.SPLIT_NAMES[dtype]
             assert plan.ctas == units * bands * groups * plan.splits
             assert plan.threads in (ops.BF16_THREADS, ops.HALO_THREADS)
         else:
             assert plan.ctas == units * bands * groups
-            most = ops.MAX_THREADS if g == 1 else ops.MULTI_THREADS
-            assert plan.threads <= most
+            assert plan.threads <= ops.MAX_THREADS
             if shape != "split width":  # the band kernels take the committed widths
-                assert name == one[0]
+                assert name == one[0] and cout <= ops.COUT_MAX and groups == 1
         if cout == 1:
             assert (name, plan) == one
 
 
+# Several output channels that the output-stationary kernel does not take:
+# (units, height, width, c, dtype, cout, CFG).  Features of 2**31 elements
+# (its offsets are 32-bit: a bf16 128-wide step from 4 channels, an fp32
+# 64-wide one from 2), and fp32 maps too wide for its shared memory under
+# CFG (at 2 channels from 227 pixels) or for its threads (over 256).
+SPLIT_COUT_SHAPES = {"bf16 2**31 elements": (16, 128, 128, 4096, torch.bfloat16, 4, True),
+                     "fp32 2**31 elements": (2048, 64, 64, 128, torch.float32, 2, True),
+                     "fp32 2**31 elements w=0": (4096, 64, 64, 128, torch.float32, 13, False),
+                     "fp32 232 wide w=2": (2, 16, 232, 128, torch.float32, 2, True),
+                     "fp32 264 wide w=0": (2, 16, 264, 128, torch.float32, 3, False)}
+
+
+@pytest.mark.parametrize("shape", SPLIT_COUT_SHAPES, ids=list(SPLIT_COUT_SHAPES))
+def test_head_step_route_gives_the_split_launch_where_the_output_stationary_kernel_refuses(
+        shape):
+    """At several output channels ``route`` gives the split launch of the
+    features' type where the output-stationary kernel would overflow its
+    32-bit offsets or does not fit the map (in fp32 the band kernels take
+    one channel): a CTA for every (band, output group, range)."""
+    units, height, width, c, dtype, cout, cfg = SPLIT_COUT_SHAPES[shape]
+    name, plan = ops.route(units, height, width, c, dtype, cout, cfg)
+    assert name == ops.SPLIT_NAMES[dtype] and isinstance(plan, ops.SplitPlan)
+    assert plan.ctas == (units * -(-height // plan.rows) * ops.out_groups(cout)[0]
+                         * len(ops.split_ranges(c)))
+    if (2 if cfg else 1) * units * height * width * c < 2**31:
+        with pytest.raises(ValueError):
+            ops.os_plan(units, height, width, c, cout, cfg, element_bytes=ops.ELEMENT_BYTES[dtype])
+
+
+def test_head_step_route_gives_the_output_stationary_kernel_where_the_grouped_kernels_refuse():
+    """Where the output-stationary kernel takes a shape that no grouped
+    kernel takes (fp32 at 4 channels on 192-wide maps under CFG: the split
+    launch's partials of a one-row band outgrow shared memory), ``route``
+    gives it rather than raising."""
+    with pytest.raises(ValueError):
+        ops.split_plan(8, 192, 192, 64, 4)
+    name, plan = ops.route(8, 192, 192, 64, torch.float32, 4)
+    assert (name, plan) == (ops.OS_NAMES[torch.float32], ops.os_plan(8, 192, 192, 64, 4))
+
+
 @pytest.mark.parametrize("cout", range(1, 17))
 def test_head_step_plans_size_weights_and_partials_by_the_group(cout):
-    """Each plan's shared memory at ``cout`` channels: the weights' rows
-    and the partials grow with the group ``g`` (bf16: B's ``b_columns(g)``
-    rows, 16 at one channel, 24, 32, 40), so at one channel every plan is
-    the one it was, and the template's ring holds its 18 g partials a
-    thread pair."""
+    """Each plan's shared memory at ``cout`` channels.  The grouped
+    kernels' (several channels only where the output-stationary kernel
+    does not take them): the weights' rows and the partials grow with the
+    group ``g`` (bf16: B's ``b_columns(g)`` rows, 16 at one channel, 24,
+    32, 40), so at one channel every plan is the one it was; the float
+    template and the fp32 band kernels take one channel, the template's
+    ring holding its 18 partials a thread pair.  The output-stationary plan's,
+    from two channels, at the served, deep and big steps and their halo
+    halves in both types: one CTA a band for every output channel, its
+    ring of chunks of h and weights (no partials) and sources within
+    ``SMEM_MAX``, bf16 rows ``16 / os_tiles(width)`` a set, fp32
+    ``OS_THREADS // width``."""
+    if cout > 1:
+        for units, height, width, c in ((16, 64, 64, 128), (16, 32, 64, 128),
+                                        (10, 128, 128, 128), (10, 64, 128, 128),
+                                        (10, 128, 128, 256), (10, 64, 128, 256)):
+            for cfg in (True, False):
+                for eb in (4, 2):
+                    p = ops.os_plan(units, height, width, c, cout, cfg, element_bytes=eb)
+                    per_set = 16 // ops.os_tiles(width) if eb == 2 else ops.OS_THREADS // width
+                    assert p.rows == (per_set if cfg else 2 * per_set)
+                    staged = ops.os_tiles(width) * 16 + 2 if eb == 2 else width + 2
+                    npix = (2 if cfg else 1) * (p.rows + 2) * staged
+                    co = (8 if cout <= 8 else 16) if eb == 2 else cout
+                    stage = npix * ops.OS_PIXEL_BYTES[eb] + ops.OS_WEIGHT_BYTES * co
+                    assert p.smem_bytes == ops.OS_STAGES * stage + 8 * npix <= ops.SMEM_MAX
+                    assert p.ctas == units * -(-height // p.rows)
     groups, g = ops.out_groups(cout)
-    p = ops.launch_plan(16, 64, 64, 128, cout)
-    ring = max(4 * p.stages * 2 * p.threads * ops.staged_stride(p.ck),
-               4 * 9 * g * 2 * p.threads)
-    assert p.smem_bytes == 4 * 9 * g * 128 + ring <= ops.SMEM_MAX
-    assert p.stages in (ops.STAGES if g == 1 else ops.STAGES[-1:])
+    if cout > 1:  # the float template and the fp32 band kernels take one channel
+        with pytest.raises(ValueError, match="one output channel"):
+            ops.launch_plan(16, 64, 64, 128, cout)
+        with pytest.raises(ValueError, match="one output channel"):
+            ops.halo_plan(16, 32, 64, 128, cout)
+    else:
+        p = ops.launch_plan(16, 64, 64, 128)
+        ring = max(4 * p.stages * 2 * p.threads * ops.staged_stride(p.ck), 4 * 9 * 2 * p.threads)
+        assert p.smem_bytes == 4 * 9 * 128 + ring <= ops.SMEM_MAX
+        assert (p.rows, p.threads, p.ck, p.stages) == (4, 384, 32, 2)
+        hp = ops.halo_plan(16, 32, 64, 128)
+        m = 2 * (hp.rows + 2) * 64
+        assert hp.smem_bytes == 4 * (9 * 128 + 8 * ops.HALO_RING * ops.HALO_TILE * ops.HALO_CK
+                                     + 9 * -(-m // ops.HALO_TILE) * ops.HALO_TILE)
     b = ops.bf16_plan(16, 64, 64, 128, cout)
     m = 2 * (b.rows + 2) * 64
     assert ops.b_columns(g) == -(-9 * g // 8) * 8
     assert b.smem_bytes == (2 * ops.b_columns(g) * ops.weight_stride(128)
                             + 2 * 8 * ops.BF16_RING * ops.BF16_TILE * ops.BF16_BLOCK
                             + 4 * 9 * g * ops.partial_stride(m)) <= ops.SMEM_MAX
-    hp = ops.halo_plan(16, 32, 64, 128, cout)
-    m = 2 * (hp.rows + 2) * 64
-    assert hp.smem_bytes == 4 * (9 * g * 128 + 8 * ops.HALO_RING * ops.HALO_TILE * ops.HALO_CK
-                                 + 9 * g * -(-m // ops.HALO_TILE) * ops.HALO_TILE)
     for eb in (4, 2):
         sp = ops.split_plan(1, 8, 8, 6000, cout, element_bytes=eb)
         assert sp.smem_bytes <= ops.SMEM_MAX and sp.splits == len(ops.split_ranges(6000))
-    if cout == 1:
-        assert p == ops.launch_plan(16, 64, 64, 128)
-        assert (p.rows, p.threads, p.ck, p.stages) == (4, 384, 32, 2)
 
 
 # K2's statistics and apply launches: (n, hw, c, element bytes) where a

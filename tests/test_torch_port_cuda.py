@@ -1558,12 +1558,14 @@ def test_film_kernel_at_pixels_over_1024_accesses(dev, dtype, c):
 
 
 # K1 at several output channels (a model of several image channels):
-# (maps, height, width, c, CFG, mode), mode the kernel the route must give.
+# (maps, height, width, c, CFG, mode), mode the grouped kernel the grouped
+# route must give (in fp32 the split launch: the float template and the
+# fp32 band kernels take one channel).
 COUT_SHAPES = {
-    "fp32 template w=2 (32,64,64,128)": (16, 64, 64, 128, True, "template", torch.float32),
-    "fp32 template w=0 (16,64,64,48)": (16, 64, 64, 48, False, "template", torch.float32),
-    "fp32 band w=2 (20,128,128,128)": (10, 128, 128, 128, True, "band", torch.float32),
-    "fp32 halo w=2 half (32,32,64,128)": (16, 32, 64, 128, True, "halo", torch.float32),
+    "fp32 template w=2 (32,64,64,128)": (16, 64, 64, 128, True, "split", torch.float32),
+    "fp32 template w=0 (16,64,64,48)": (16, 64, 64, 48, False, "split", torch.float32),
+    "fp32 band w=2 (20,128,128,128)": (10, 128, 128, 128, True, "split", torch.float32),
+    "fp32 halo w=2 half (32,32,64,128)": (16, 32, 64, 128, True, "split", torch.float32),
     "fp32 split w=2 (4,8,8,640)": (2, 8, 8, 640, True, "split", torch.float32),
     "bf16 wide w=2 (32,64,64,128)": (16, 64, 64, 128, True, "bf16", torch.bfloat16),
     "bf16 narrow w=0 (16,64,64,32)": (16, 64, 64, 32, False, "narrow", torch.bfloat16),
@@ -1574,18 +1576,23 @@ COUT_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("cout", [2, 3, 4, 13])
+@pytest.mark.parametrize("design", ["output-stationary", "grouped"])
+@pytest.mark.parametrize("cout", [2, 3, 4, 5, 8, 13, 16])
 @pytest.mark.parametrize("shape", COUT_SHAPES, ids=list(COUT_SHAPES))
 def test_head_step_every_kernel_at_several_output_channels(dev, fp32_convs, monkeypatch,
-                                                           shape, cout):
-    """Every K1 kernel at ``cout`` output channels (2-4 in one group of a
-    CTA, 13 in four groups of 4, the last masked past 13) against
+                                                           shape, cout, design):
+    """Every K1 kernel at ``cout`` output channels against
     :func:`head_step_plain` under phase (c)'s gates (fp32 1e-4 abs; bf16
     four bf16 ulps of the guided eps times c_eps / sqrt(a), all but 1%
-    within the step's FMAs): the fp32 template and band kernel, the bf16
-    kernel at its wide and narrow items and a masked last block, both halo
-    kernels, and the split launch in either type (forced at 640 channels).
-    One launch a call whatever ``cout``; two calls bit-identical."""
+    within the step's FMAs), each forced: the output-stationary kernel
+    (one CTA a band for every channel), and the grouped kernels the route
+    keeps for wider maps and in bf16 for few channels (up to 4 channels in
+    one group of a CTA, 5-16 in groups of 3-4 over the grid, the last
+    masked): the bf16 kernel at its wide and narrow items and a masked
+    last block, its halo mode, and the split launch in either type (in
+    fp32, whose band kernels take one channel, at every shape; forced at
+    640 channels and, in fp32, where the route would give it anyway).  One
+    launch a call whatever ``cout``; two calls bit-identical."""
     from camels_diffusion_model_tpu_torch.ops import sampler_step
 
     maps, height, width, c, cfg, mode, dtype = COUT_SHAPES[shape]
@@ -1596,8 +1603,9 @@ def test_head_step_every_kernel_at_several_output_channels(dev, fp32_convs, monk
     z = _randn(dev, maps, height, width, cout, seed=305)
     args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, 2.0 if cfg else None)
     halo = (tuple(_randn(dev, h.shape[0], width, c, seed=306 + k).relu().to(dtype)
-                  for k in range(2)) if mode == "halo" else None)
-    if mode == "split":  # forced: the band kernels take 640 channels
+                  for k in range(2)) if "halo" in shape else None)
+    grouped = sampler_step._grouped_route
+    if design == "grouped" and mode == "split":  # forced: the bf16 band kernels take 640
         real = sampler_step.route
 
         def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
@@ -1607,19 +1615,29 @@ def test_head_step_every_kernel_at_several_output_channels(dev, fp32_convs, monk
                 units, height, width, c, cout, cfg, aligned, sampler_step.ELEMENT_BYTES[dtype])
 
         monkeypatch.setattr(sampler_step, "route", route)
+    else:  # each design forced (in bf16 the route takes either by the channels)
+        def route(units, height, width, c, dtype, cout=1, cfg=True, aligned=True, halo=False,
+                  sms=sampler_step.SMS):
+            if design == "grouped":
+                return grouped(units, height, width, c, dtype, cout, cfg, aligned, halo, sms)
+            return sampler_step.OS_NAMES[dtype], sampler_step.os_plan(
+                units, height, width, c, cout, cfg, aligned, sampler_step.ELEMENT_BYTES[dtype])
+
+        monkeypatch.setattr(sampler_step, "route", route)
     name = sampler_step.route(maps, height, width, c, dtype, cout, cfg, halo=halo is not None)[0]
-    want_name = {"template": sampler_step.C_NAME, "band": sampler_step.F32_BAND_NAME,
-                 "halo": sampler_step.HALO_NAMES[dtype] if c % 64 == 0
+    want_name = {"halo": sampler_step.HALO_NAMES[dtype] if c % 64 == 0
                  else sampler_step.HALO_NARROW_NAME,
                  "split": sampler_step.SPLIT_NAMES[dtype], "bf16": sampler_step.BF16_NAME,
                  "narrow": sampler_step.BF16_NARROW_NAME,
                  "masked": sampler_step.BF16_NARROW_NAME}[mode]
-    assert name == want_name
+    assert name == (want_name if design == "grouped" else sampler_step.OS_NAMES[dtype])
     sfx = "_bf16" if dtype == torch.bfloat16 else ""
     count = f"launches{'_halo' if halo else ''}{sfx}"
-    before = getattr(fused_head_step, count)
+    count_os = f"launches{'_halo' if halo else ''}_os{sfx}"
+    before, before_os = getattr(fused_head_step, count), getattr(fused_head_step, count_os)
     got = fused_head_step(*args, halo=halo)
     assert getattr(fused_head_step, count) == before + 1
+    assert getattr(fused_head_step, count_os) == before_os + (design == "output-stationary")
     assert got.shape == x.shape
     assert torch.equal(got, fused_head_step(*args, halo=halo))
     want = head_step_plain(*args, halo=halo)
@@ -1628,6 +1646,55 @@ def test_head_step_every_kernel_at_several_output_channels(dev, fp32_convs, monk
         torch.testing.assert_close(got, want, rtol=0, **gate)
     else:
         _assert_bf16_close(got, want, **gate)
+
+
+# The output-stationary K1's own cases: (maps, height, width, c, halo, cout)
+# at the deep model's width and at groups of output channels over the grid.
+OS_SHAPES = {"deep width, 13 channels (2,24,128,128)": (2, 24, 128, 128, False, 13),
+             "halo half, 13 channels (4,6,64,72)": (4, 6, 64, 72, True, 13),
+             "20 channels, two groups (4,8,32,64)": (4, 8, 32, 64, False, 20),
+             "33 channels, three groups, halo (2,5,24,40)": (2, 5, 24, 40, True, 33)}
+
+
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("w", [2.0, None, "per-sample"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", OS_SHAPES, ids=list(OS_SHAPES))
+def test_head_step_output_stationary_tanh_guidance_and_groups(dev, fp32_convs, shape, dtype,
+                                                              w, tanh):
+    """The output-stationary K1 with the variants' tanh, without CFG, with
+    a per-sample w, on a halo half, at widths, heights and channels no
+    band divides and at over ``OS_COUT_MAX`` channels (equal groups over
+    the grid) against :func:`head_step_plain` under phase (c)'s gates;
+    counted under ``.launches[_halo]_os[_bf16]``; two calls
+    bit-identical."""
+    from camels_diffusion_model_tpu_torch.ops import sampler_step
+
+    maps, height, width, c, halo, cout = OS_SHAPES[shape]
+    cfg = w is not None
+    h = _randn(dev, 2 * maps if cfg else maps, height, width, c, seed=321).relu().to(dtype)
+    weight = (_randn(dev, cout, c, 3, 3, seed=322) / (3 * c**0.5)).to(dtype)
+    bias = _randn(dev, cout, seed=323).to(dtype)
+    x = _randn(dev, maps, height, width, cout, seed=324)
+    z = _randn(dev, maps, height, width, cout, seed=325)
+    wv = torch.linspace(0.5, 3.0, maps, device=dev) if w == "per-sample" else w
+    args = (h, weight, bias, x, z, 0.02, 1.01, 0.3, wv)
+    rows = (tuple(_randn(dev, h.shape[0], width, c, seed=326 + k).relu().to(dtype)
+                  for k in range(2)) if halo else None)
+    name, plan = sampler_step.route(maps, height, width, c, dtype, cout, cfg, halo=halo)
+    assert name == sampler_step.OS_NAMES[dtype]
+    assert plan.ctas == maps * -(-height // plan.rows) * sampler_step.os_groups(cout)[0]
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    count = f"launches{'_halo' if halo else ''}_os{sfx}"
+    before = getattr(fused_head_step, count)
+    got = fused_head_step(*args, tanh=tanh, halo=rows)
+    assert getattr(fused_head_step, count) == before + 1
+    assert torch.equal(got, fused_head_step(*args, tanh=tanh, halo=rows))
+    want = head_step_plain(*args, tanh=tanh, halo=rows)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        _assert_bf16_close(got, want, **_split_gate(args, dtype, tanh))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
